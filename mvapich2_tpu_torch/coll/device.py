@@ -1,5 +1,5 @@
-"""The device-collective channel behind the MPI seam (counterpart of the
-JAX package's ``coll/device.py``), slot-channel slice.
+"""The device-collective channels behind the MPI seam (counterpart of the
+JAX package's ``coll/device.py``).
 
 A device-bound ``Comm`` gets its ``coll_fns`` entries replaced by
 wrappers that run the collective on the device. Ranks are threads of one
@@ -7,20 +7,31 @@ process (the ``run_ranks`` harness); a collective call is executed once:
 every rank deposits its buffer at a rendezvous, rank 0 (the leader) runs
 the device program, every rank picks up its result.
 
-This slice ports the single-device binding, :class:`HBMSlotChannel`: all
-ranks share one device and collectives run through an on-card slot
-segment (``ops/hbm.py``). The 1:1 mesh channel, the per-chip fold
-channel, nonblocking collectives and the host algorithm tier are not
-ported; a call that would need the host tier (an 8-byte dtype, a
-user-defined op, a forced host algorithm, ``USE_DEVICE_COLL`` off) raises
-``NotImplementedError``.
+Two bindings are ported:
+
+* :class:`DeviceCollChannel`, the 1:1 mesh channel: each rank owns one
+  virtual device of a ``parallel.mesh.Mesh`` (``p`` virtual ranks of one
+  card, or of the CPU in tests). The leader hands the ``p`` deposited
+  shards in place to the tier dispatch of ``ops/ici.py`` (ring kernels
+  K3/K5/K6/K7, or the stock torch reduction) and every rank gets its own
+  output;
+* :class:`HBMSlotChannel`: all ranks share one device and collectives
+  run through an on-card slot segment (``ops/hbm.py``).
+
+The per-chip fold channel, multi-axis meshes, nonblocking collectives and
+the host algorithm tier are not ported; a call that would need the host
+tier (an 8-byte dtype, a user-defined op, a forced host algorithm,
+``USE_DEVICE_COLL`` off) raises ``NotImplementedError``, and so does
+alltoall on the 1:1 channel (its kernel, K10, is not ported).
 
 Stream order across rank threads (CUDA devices): each deposit records an
 event on the depositing rank's current stream; the leader's stream waits
 on all of them before it stages and launches, records one event after
 the launch, and every rank's stream waits on that event before the
-collective returns. Nothing here synchronizes the host with the device,
-except the device-to-host copy that fills a numpy ``recvbuf``.
+collective returns. The slot channel never synchronizes the host with
+the device, except the device-to-host copy that fills a numpy
+``recvbuf``; the 1:1 channel's leader waits on its stream after each
+call, to read the ring kernels' error word.
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ import torch
 
 from .. import mpit
 from ..core import op as opmod
-from ..ops import hbm
+from ..ops import hbm, ici, ring
 from ..utils import is_device_tensor
 from ..utils.config import get_config
 
@@ -55,13 +66,7 @@ def _dtype_lowers(kind: str, itemsize: int) -> bool:
 def _dtype_kind(buf) -> Tuple[str, int]:
     """(numpy-style kind, itemsize) of a tensor's or array's dtype."""
     if isinstance(buf, torch.Tensor):
-        if buf.is_complex():
-            return "c", buf.element_size()
-        if buf.is_floating_point():
-            return "f", buf.element_size()
-        if buf.dtype == torch.bool:
-            return "b", 1
-        return ("u" if not buf.dtype.is_signed else "i"), buf.element_size()
+        return ici.dtype_kind(buf.dtype), buf.element_size()
     dt = np.dtype(buf.dtype)
     return dt.kind, dt.itemsize
 
@@ -95,16 +100,16 @@ def _record_event(device: torch.device) -> Optional[torch.cuda.Event]:
     return ev
 
 
-class DeviceCollChannel:
-    """One rank's handle on the device-collective engine: the rendezvous
-    execution and the MPI-shaped entry points. Subclasses provide the
-    leader's compute (``_leader``)."""
+class _Channel:
+    """What both channels share: one rank's place at the rendezvous, the
+    execution of a call (deposit, the leader runs the program, pickup),
+    its per-call accounting, and the MPI-shaped entry points. A subclass
+    gives ``LEVELS``, ``SUPPORTED``, ``_build``, ``_leader`` and
+    ``_note_tier``."""
 
     # hierarchy levels one call on this channel exercises (the
     # coll_level_* pvars bumped per call in _run)
     LEVELS: Tuple[str, ...] = ()
-    # tier label of the dev_effbw_<tier> watermark
-    TIER = "slot"
     # collectives this channel routes to the device
     SUPPORTED: Tuple[str, ...] = ()
 
@@ -118,12 +123,6 @@ class DeviceCollChannel:
 
     def abort(self) -> None:
         self.rv.abort()
-
-    def _leader(self, name: str, op: str, root: int) -> List:
-        raise NotImplementedError(type(self).__name__)
-
-    def _build(self, name: str, n: int, op: str):
-        raise NotImplementedError(type(self).__name__)
 
     def _program(self, name: str, n: int, dtype_str: str, op: str):
         """The leader's callable for one signature, built once."""
@@ -188,19 +187,20 @@ class DeviceCollChannel:
         return res
 
     def _run(self, name: str, local, op: str = "sum", root: int = 0):
-        """Per-call accounting around ``_execute``: the coll_level_*
-        counters and the dev_effbw_<tier> watermark. On a CUDA device the
-        time is the host clock around the rendezvous and the enqueue."""
+        """Per-call accounting around ``_execute``: the tier pvars, the
+        coll_level_* counters and the dev_effbw_<tier> watermark. On a
+        CUDA device the time is the host clock around the rendezvous and
+        the enqueue."""
+        tier = self._note_tier(name, local, op if name != "bcast" else None)
         for lv in self.LEVELS:
             mpit.pvar(f"coll_level_{lv}").inc()
         n = self._slot_extent(local)[0]
-        nbytes = n * (local.element_size() if is_device_tensor(local)
-                      else np.asarray(local).itemsize)
+        nbytes = n * _torch_dtype(local).itemsize
         t0 = time.perf_counter()
         out = self._execute(name, local, op=op, root=root)
         dt = time.perf_counter() - t0
         if dt > 0 and nbytes > 0:
-            mpit.pvar(f"dev_effbw_{self.TIER}").mark(nbytes / dt / 1e9)
+            mpit.pvar(f"dev_effbw_{tier}").mark(nbytes / dt / 1e9)
         return out
 
     # -- MPI-shaped entry points (match coll_fns signatures) -------------
@@ -240,7 +240,91 @@ class DeviceCollChannel:
         return _deliver(out, recvbuf)
 
 
-class HBMSlotChannel(DeviceCollChannel):
+class DeviceCollChannel(_Channel):
+    """One rank's handle on the 1:1 mesh channel: rank r owns virtual
+    device r of ``mesh``.
+
+    The leader's programs (``_build``):
+
+      * allreduce/reduce: ``ici.ici_all_reduce`` (K6 / K3 / stock, by
+        tier), one output row per rank;
+      * allgather: ``ici.ici_all_gather`` (K7 / K5 / stock);
+      * bcast: a copy of the root's shard per rank (stock, as the JAX
+        package lowers it through XLA);
+      * reduce_scatter_block: the stock reduction over the stacked
+        shards, then rank r's block.
+
+    The leader waits for each call's device work and raises if a ring
+    kernel's spin wait timed out, so every rank of that call raises.
+    """
+
+    LEVELS = ("ici",)
+    # alltoall waits for its kernel, K10
+    SUPPORTED = ("allreduce", "reduce", "bcast", "allgather",
+                 "reduce_scatter_block")
+
+    def __init__(self, mesh, rendezvous: _Rendezvous, rank: int):
+        super().__init__(mesh.device, rendezvous, rank, mesh.size)
+        self.mesh = mesh
+
+    def _build(self, name: str, n: int, op: str):
+        """The leader's program for one signature: a callable taking the
+        ``p`` flat shards and the root, returning one output per rank.
+        ``_note_tier`` counts the call's tier on every rank."""
+        p = self.size
+        if name in ("allreduce", "reduce"):
+            def f(xs, root):
+                return list(ici.ici_all_reduce(xs, op).unbind(0))
+        elif name == "allgather":
+            def f(xs, root):
+                return list(ici.ici_all_gather(xs).unbind(0))
+        elif name == "bcast":
+            def f(xs, root):
+                return list(xs[root].reshape(1, n).expand(p, n).clone()
+                            .unbind(0))
+        elif name == "reduce_scatter_block":
+            c = n // p
+
+            def f(xs, root):
+                y = ici.stock_reduce(torch.stack(xs), op)
+                return [y[r * c:(r + 1) * c] for r in range(p)]
+        else:  # pragma: no cover
+            raise KeyError(name)
+        return f
+
+    def _leader(self, name: str, op: str, root: int) -> List:
+        """Leader compute: order this stream after every deposit, hand
+        the ``p`` shards in place to the program (one output per rank),
+        then wait for it and raise on a ring kernel's spin timeout."""
+        rv = self.rv
+        _wait_deposits(self.device, rv.events)
+        n, dtype = self._slot_extent(rv.slots[0])
+        xs = [_to_device(s, self.device).reshape(n) for s in rv.slots]
+        out = self._program(name, n, dtype, op)(xs, root)
+        ring.check_errors(self.device)
+        return out
+
+    def _note_tier(self, name: str, local, op: Optional[str]) -> str:
+        """Count which tier THIS call runs (dev_coll_tier_{vmem,hbm}, or
+        dev_coll_fallback_<reason> when the stock lowering is taken) and
+        return its label ('vmem'/'hbm'/'xla'), keyed as the JAX
+        package's: the tier ``planned_tier`` names for the call's shard
+        bytes (output bytes for allgather)."""
+        if name not in ("allreduce", "reduce", "allgather"):
+            return "xla"    # collectives without a ring-kernel lowering
+        n, _ = self._slot_extent(local)
+        dtype = _torch_dtype(local)
+        nbytes = n * dtype.itemsize * (self.size if name == "allgather"
+                                       else 1)
+        tier, reason = ici.planned_tier(name, nbytes, dtype, op)
+        if reason is None:
+            mpit.pvar(f"dev_coll_tier_{tier}").inc()
+            return tier
+        mpit.pvar(f"dev_coll_fallback_{reason}").inc()
+        return "xla"
+
+
+class HBMSlotChannel(_Channel):
     """All bound ranks share ONE device: collectives run through an
     on-card slot segment (``ops/hbm.py``). Every rank deposits at the
     rendezvous, the leader stages one planar ``(R, n)`` slot tensor and
@@ -262,6 +346,9 @@ class HBMSlotChannel(DeviceCollChannel):
     LEVELS = ("chip",)
     SUPPORTED = ("allreduce", "reduce", "bcast", "allgather", "alltoall",
                  "reduce_scatter_block")
+
+    def _note_tier(self, name: str, local, op: Optional[str]) -> str:
+        return "slot"       # single-device slot channel: no ring tiers
 
     def _build(self, name: str, n: int, op: str):
         R = self.size
@@ -294,11 +381,7 @@ class HBMSlotChannel(DeviceCollChannel):
         scatter the result."""
         rv = self.rv
         R = self.size
-        if self.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.device)
-            for ev in rv.events:
-                if ev is not None:
-                    stream.wait_event(ev)
+        _wait_deposits(self.device, rv.events)
         n, dtype = self._slot_extent(rv.slots[root])
         if name == "bcast":
             # a copy: the shared result must not alias the root's buffer
@@ -318,6 +401,21 @@ class HBMSlotChannel(DeviceCollChannel):
             return [out[r * c:(r + 1) * c] for r in range(R)]
         # the zero-copy share: every rank gets the same tensor
         return [out] * R
+
+
+def _wait_deposits(device: torch.device, events) -> None:
+    """Order the leader's stream after every rank's deposit."""
+    if device.type == "cuda":
+        stream = torch.cuda.current_stream(device)
+        for ev in events:
+            if ev is not None:
+                stream.wait_event(ev)
+
+
+def _torch_dtype(buf) -> torch.dtype:
+    if is_device_tensor(buf):
+        return buf.dtype
+    return torch.from_numpy(np.empty(0, np.asarray(buf).dtype)).dtype
 
 
 def _to_device(buf, device: torch.device) -> torch.Tensor:
@@ -413,7 +511,7 @@ _OP_POS = {"allreduce": 4, "reduce": 4, "reduce_scatter_block": 4,
            "bcast": None, "allgather": None, "alltoall": None}
 
 
-def install_device_coll(comm, channel: DeviceCollChannel) -> None:
+def install_device_coll(comm, channel: _Channel) -> None:
     """Point the device-capable entries of ``comm.coll_fns`` at the
     channel, behind the transport check."""
     comm.device_channel = channel
@@ -439,13 +537,29 @@ def install_device_coll(comm, channel: DeviceCollChannel) -> None:
 # binding (harness entry point)
 # ---------------------------------------------------------------------------
 
-def bind_universes(universes, device: torch.device) -> bool:
-    """Bind each thread-rank universe's COMM_WORLD to ``device`` through
-    the slot channel (all ranks share the one device). Unlike the JAX
-    package, one rank also binds the slot channel (R=1), since the 1:1
-    mesh channel is not ported; the result is the same."""
+def bind_universes(universes, device: torch.device, mesh=None) -> bool:
+    """Bind each thread-rank universe's COMM_WORLD. Geometry selects the
+    channel, as in the JAX package:
+
+      * a mesh of as many ranks as universes -> DeviceCollChannel (1:1);
+      * a one-rank mesh under several ranks, or no mesh ->
+        HBMSlotChannel on ``device`` (all ranks share it; with no mesh
+        this holds for one rank too).
+
+    A mesh of another size raises: the fold channel (1 < mesh < ranks)
+    and the host path are not ported."""
     n = len(universes)
+    one_to_one = mesh is not None and mesh.size == n
+    if mesh is not None and not one_to_one:
+        if mesh.size != 1:
+            raise NotImplementedError(
+                f"a mesh of {mesh.size} ranks cannot bind {n} ranks one "
+                f"to one; the leaders-per-chip fold channel and the host "
+                f"path are not ported")
+        device = mesh.device
     rv = _Rendezvous(n)
     for r, u in enumerate(universes):
-        install_device_coll(u.comm_world, HBMSlotChannel(device, rv, r, n))
+        ch = (DeviceCollChannel(mesh, rv, r) if one_to_one
+              else HBMSlotChannel(device, rv, r, n))
+        install_device_coll(u.comm_world, ch)
     return True

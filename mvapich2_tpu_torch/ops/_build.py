@@ -49,6 +49,28 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("block", _I), ("stream", _P))),
         "mv2t_error_string": (ctypes.c_char_p, (("code", _I),)),
     },
+    "ring": {
+        "mv2t_hbm_ring_all_reduce": (_I, (
+            ("dtype", _I), ("op", _I), ("ins", _P), ("outs", _P),
+            ("p", _I), ("n", _I64), ("nblk", _I64), ("chunk", _I64),
+            ("depth", _I), ("ndir", _I), ("slots", _P), ("flags", _P),
+            ("ctas", _I), ("vec", _I), ("threads", _I), ("stream", _P))),
+        "mv2t_hbm_ring_all_gather": (_I, (
+            ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
+            ("m", _I64), ("chunk", _I64), ("depth", _I), ("ndir", _I),
+            ("slots", _P), ("flags", _P), ("ctas", _I), ("vec", _I),
+            ("threads", _I), ("stream", _P))),
+        "mv2t_ring_all_reduce": (_I, (
+            ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
+            ("blk", _I64), ("slots", _P), ("flags", _P), ("ctas", _I),
+            ("vec", _I), ("threads", _I), ("stream", _P))),
+        "mv2t_ring_all_gather": (_I, (
+            ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
+            ("m", _I64), ("slots", _P), ("flags", _P), ("ctas", _I),
+            ("vec", _I), ("threads", _I), ("stream", _P))),
+        "mv2t_ring_error": (_I, (("clear", _I),)),
+        "mv2t_error_string": (ctypes.c_char_p, (("code", _I),)),
+    },
 }
 
 _lock = threading.Lock()

@@ -2,11 +2,12 @@
 ``runtime/universe.py`` ``local_universe``/``run_ranks``).
 
 Ranks are threads of one process, each with its own ``Universe`` and
-``COMM_WORLD``, all bound to one device through the slot channel. The
-device is ``cuda:0`` unless the caller names another; without a CUDA
-device the caller must ask for the CPU (``device="cpu"``), or the harness
-raises. The host transport (point-to-point, host collectives) is not
-ported.
+``COMM_WORLD``, bound to one device: through the slot channel, or one to
+one to the virtual devices of a ``device_mesh`` (``parallel/mesh.py``).
+The device is ``cuda:0`` unless the caller names another; without a
+CUDA device the caller must ask for the CPU (``device="cpu"``, or a mesh
+made on the CPU), or the harness raises. The host transport
+(point-to-point, host collectives) is not ported.
 """
 
 from __future__ import annotations
@@ -49,27 +50,39 @@ class Universe:
         self.comm_world = Comm(rank, size)
 
 
-def local_universe(nranks: int, device: DeviceLike = None) -> List[Universe]:
-    """Build ``nranks`` thread-rank universes whose COMM_WORLDs share
+def local_universe(nranks: int, device: DeviceLike = None,
+                   device_mesh=None) -> List[Universe]:
+    """Build ``nranks`` thread-rank universes. With ``device_mesh`` (a
+    ``parallel.mesh.Mesh``) of ``nranks`` ranks, their COMM_WORLDs bind
+    the 1:1 mesh channel on the mesh's device; without one they share
     ``device`` through the slot channel (coll/device.py)."""
     if nranks < 1:
         raise ValueError(f"nranks must be >= 1, got {nranks}")
-    dev = resolve_device(device)
+    if device_mesh is not None:
+        if device is not None and resolve_device(device) != \
+                device_mesh.device:
+            raise ValueError(f"device {device} differs from the mesh's "
+                             f"{device_mesh.device}")
+        dev = device_mesh.device
+    else:
+        dev = resolve_device(device)
     universes = [Universe(r, nranks, dev) for r in range(nranks)]
     from ..coll.device import bind_universes
-    bind_universes(universes, dev)
+    bind_universes(universes, dev, device_mesh)
     return universes
 
 
 def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
-              timeout: float = 120.0) -> List:
+              timeout: float = 120.0, device_mesh=None) -> List:
     """Run ``fn(comm_world, *args)`` on every rank (threads); return the
-    per-rank results. On a CUDA device each rank thread runs on its own
-    stream, synchronized before the rank finishes. A rank's exception
-    aborts the device rendezvous (its peers fail instead of hanging) and
-    is re-raised with its rank noted; a rank still running after
-    ``timeout`` seconds raises ``TimeoutError``."""
-    universes = local_universe(nranks, device)
+    per-rank results. ``device_mesh``: bind the ranks one to one to the
+    mesh's virtual devices (see :func:`local_universe`). On a CUDA
+    device each rank thread runs on its own stream, synchronized before
+    the rank finishes. A rank's exception aborts the device rendezvous
+    (its peers fail instead of hanging) and is re-raised with its rank
+    noted; a rank still running after ``timeout`` seconds raises
+    ``TimeoutError``."""
+    universes = local_universe(nranks, device, device_mesh)
     dev = universes[0].device
     results: List = [None] * nranks
     errors: List[Optional[BaseException]] = [None] * nranks

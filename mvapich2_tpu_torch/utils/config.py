@@ -1,10 +1,18 @@
 """Control variables the port reads (a trimmed copy of the JAX package's
-``utils/config.py`` registry).
+``utils/config.py`` registry, with the defaults its ``mpit.py`` and
+``coll/tuning.py`` declare).
 
-Only what ``coll/device.py`` ``_select_transport`` reads: ``USE_DEVICE_COLL``
-and the per-collective ``<COLL>_ALGO`` overrides. Each is settable through
-the same ``MV2T_<NAME>`` environment variable as in the JAX package, read
-at first use, or with :meth:`Config.set`.
+* ``USE_DEVICE_COLL`` and the per-collective ``<COLL>_ALGO`` overrides,
+  read by ``coll/device.py`` ``_select_transport``;
+* the ring engine's knobs ``ICI_CHUNK_BYTES``, ``ICI_PIPELINE_DEPTH`` and
+  ``ICI_BIDIR`` (``ops/ici.py``);
+* the device tier edges ``DEV_TIER_VMEM_MAX`` and ``DEV_TIER_XLA_MIN``,
+  and the quant budget ``QUANT_COLL`` (``coll/tuning.py``
+  ``device_tier``).
+
+Each is settable through the same ``MV2T_<NAME>`` environment variable
+as in the JAX package, read at first use (``reload`` reads them again),
+or with :meth:`Config.set`.
 """
 
 from __future__ import annotations
@@ -27,6 +35,14 @@ def _parse(typ: type, raw: str) -> Any:
         if low in _FALSE:
             return False
         raise ValueError(f"bad boolean: {raw!r}")
+    if typ is int:
+        # size suffixes 64K / 2M / 1G, as in the JAX package
+        s = raw.strip().upper()
+        mult = 1
+        if s and s[-1] in "KMG":
+            mult = {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30}[s[-1]]
+            s = s[:-1]
+        return int(s) * mult
     return raw.strip()
 
 
@@ -61,13 +77,31 @@ class Config:
         with self._lock:
             self._values[name] = value
 
+    def reload(self) -> None:
+        """Forget every value read or set: the next read takes the
+        environment again."""
+        with self._lock:
+            self._values.clear()
 
-# <COLL>_ALGO names, one per MPI collective family the slot channel runs
+
+# <COLL>_ALGO names, one per MPI collective family the device channels run
 ALGO_CVARS = ("ALLREDUCE", "REDUCE", "BCAST", "ALLGATHER", "ALLTOALL",
               "REDUCE_SCATTER")
 
+# the ring engine and the device tier edges, with the JAX package's
+# defaults (mpit.py ICI_*, coll/tuning.py DEV_TIER_*)
+DEVICE_CVARS = {
+    "ICI_CHUNK_BYTES": 256 * 1024,
+    "ICI_PIPELINE_DEPTH": 2,
+    "ICI_BIDIR": True,
+    "DEV_TIER_VMEM_MAX": 4 * 1024 * 1024,
+    "DEV_TIER_XLA_MIN": -1,
+    "QUANT_COLL": "",
+}
+
 _config = Config({"USE_DEVICE_COLL": True,
-                  **{f"{c}_ALGO": "" for c in ALGO_CVARS}})
+                  **{f"{c}_ALGO": "" for c in ALGO_CVARS},
+                  **DEVICE_CVARS})
 
 
 def get_config() -> Config:

@@ -182,7 +182,19 @@ def test_config_reads_the_reference_env_names(monkeypatch):
     assert cfg.get("NO_SUCH", 7) == 7
     # only the knobs the JAX package declares: no new MV2T_* name
     assert set(config.get_config()._defaults) == {
-        "USE_DEVICE_COLL", *(f"{c}_ALGO" for c in config.ALGO_CVARS)}
+        "USE_DEVICE_COLL", *(f"{c}_ALGO" for c in config.ALGO_CVARS),
+        *config.DEVICE_CVARS}
+    assert set(config.DEVICE_CVARS) == {
+        "ICI_CHUNK_BYTES", "ICI_PIPELINE_DEPTH", "ICI_BIDIR",
+        "DEV_TIER_VMEM_MAX", "DEV_TIER_XLA_MIN", "QUANT_COLL"}
+    # size suffixes and a reload, as in the JAX package
+    cfg = config.Config({"ICI_CHUNK_BYTES": 1, "ICI_BIDIR": True})
+    monkeypatch.setenv("MV2T_ICI_CHUNK_BYTES", "64K")
+    assert cfg["ICI_CHUNK_BYTES"] == 65536
+    monkeypatch.setenv("MV2T_ICI_CHUNK_BYTES", "2M")
+    assert cfg["ICI_CHUNK_BYTES"] == 65536      # cached until reload
+    cfg.reload()
+    assert cfg["ICI_CHUNK_BYTES"] == 2 << 20
 
 
 def test_carry_roundtrip():
