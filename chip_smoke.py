@@ -14,7 +14,11 @@ non-zero, printing no result, without them. Phases:
    card (bitwise on integer data, within stated tolerances otherwise),
    at small, ragged and full size: the slot kernels K1/K2, then the ring
    kernels K3/K5/K6/K7 at pipeline depth 2/3/4, one and two ring
-   directions, and the four ops on K3;
+   directions, and the four ops on K3; the alltoall kernels K10/K11
+   bitwise on f32, bf16, i32 and u8 at depth 2/3/4, one and two lanes,
+   a ragged block, the MoE bench's three routing matrices, a matrix with
+   zero-count pairs and a step empty on every rank, and K10 at 64 MiB a
+   rank;
 4. main path: 8 ranks (run_ranks) allreduce 64 MiB f32 tensors each on
    cuda:0 through the slot channel into K1, plus the small collectives,
    then the one-chip bench candidates (K1 and K2) at the same size; the
@@ -25,9 +29,20 @@ non-zero, printing no result, without them. Phases:
    allreduce, reduce, bcast, reduce_scatter_block, each checked; the
    ring kernels' launch counts are zeroed before it and read after, and
    the tier pvars checked;
-6. times, by CUDA events: each kernel beside its bound, its plain
+6. mesh alltoall path: the same binding, comm.alltoall of 64 MiB f32 a
+   rank (K10) and comm.alltoallv of the MoE bench's hot routing at
+   Mixtral-8x7B width, 4096 tokens x 4096 f32 a rank (K11), each held
+   against numpy; K10/K11's launch counts zeroed before and read after,
+   the tier pvar checked (8 per call);
+7. moe: the port's MoE step bench (mvapich2_tpu_torch.bench.moe) at
+   --tokens 4096 --dmodel 4096 on the card, all three routing shapes,
+   one step of it held against the plain versions and x @ W;
+8. times, by CUDA events: each kernel beside its bound, its plain
    version and the library call; the staging stack; the end-to-end
-   allreduce latency and effective bandwidth (2*R*m/t) of both paths.
+   allreduce latency and effective bandwidth (2*R*m/t) of both paths;
+   the end-to-end alltoall latency of the mesh path;
+9. moe profile: one MoE step of each routing shape under
+   torch.profiler, device time by kernel group and the idle share.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
@@ -58,6 +73,11 @@ SOURCES = ("hbm_slot", "ring")     # mvapich2_tpu_torch/csrc/<name>.cu
 SMALL_MESH = 16 * 1024             # f32 elements: 64 KiB a rank (K6, K7)
 AG_MESH = 256 * 1024               # f32 elements: 1 MiB a rank (K5)
 RESIDENT_FULL = 1024 * 1024        # f32 elements: 4 MiB, the K6 limit
+# the MoE step at Mixtral-8x7B width (config.json of
+# mistralai/Mixtral-8x7B-v0.1: hidden_size 4096, num_local_experts 8,
+# one expert a rank): 4096 tokens x 4096 f32 a rank, 64 MiB
+MOE_TOKENS = 4096
+MOE_DMODEL = 4096
 
 
 def log(msg):
@@ -290,6 +310,92 @@ def phase_ring_kernels(torch, np, ici, ring, dev):
     return full_err
 
 
+def _moe_counts(moe, shape, tokens=None, dmodel=None):
+    """The MoE bench's element count matrix: routing() in tokens, times
+    the width (default: the full width)."""
+    tokens, dmodel = tokens or MOE_TOKENS, dmodel or MOE_DMODEL
+    return [[c * dmodel for c in row] for row in moe.routing(R, tokens,
+                                                             shape)]
+
+
+def _sparse_counts():
+    """Zero-count pairs, a row of zeros (rank 6 sends nothing but
+    receives), and steps 2 and 4 empty on every rank."""
+    c = [[0] * R for _ in range(R)]
+    for r, j, n in ((0, 1, 37), (1, 2, 5), (2, 3, 1), (3, 6, 4099),
+                    (5, 0, 3), (7, 6, 64), (4, 4, 11)):
+        c[r][j] = n
+    return c
+
+
+def phase_a2a_kernels(torch, np, a2a, ring, moe, dev):
+    """K10 and K11 against their plain versions, bitwise: f32, bf16,
+    i32 and u8; p = 8 (and 3, 2), depth 2/3/4, one and two lanes, a
+    ragged block, the bench's routing matrices (small and at full
+    width), the sparse matrix, K10 at 64 MiB a rank. Returns the max
+    abs error of the full-size f32 checks."""
+    rng = np.random.default_rng(SEED + 400)
+    n_checks = 0
+    full_err = {}
+
+    def check(what, got, want, kind, key=None):
+        nonlocal n_checks
+        torch.cuda.synchronize()
+        ring.check_errors()
+        if isinstance(got, list):
+            if len(got) != len(want):
+                raise AssertionError(f"{what}: {len(got)} outputs")
+            err = max(_compare(torch, what, g, w, "i32")
+                      for g, w in zip(got, want))
+        else:
+            err = _compare(torch, what, got, want, "i32")  # bitwise
+        n_checks += 1
+        if key:
+            full_err[key] = err
+        return err
+
+    kinds = ("f32", "bf16", "i32", "u8")
+    for p, c, cb in ((8, 13, 16), (8, 1000, 256), (8, 4096, None),
+                     (3, 5, 8), (2, 7, 8)):
+        for kind in kinds:
+            xs = _shards(torch, np, rng, p, p * c, kind, dev)
+            for depth in ((2, 3, 4) if c == 1000 else (2,)):
+                for bidir in (True, False):
+                    check(f"K10 p={p} c={c} {kind} depth={depth} "
+                          f"bidir={bidir}",
+                          a2a.hbm_alltoall(xs, chunk_bytes=cb, depth=depth,
+                                           bidirectional=bidir),
+                          a2a.hbm_alltoall_ref(xs), kind)
+    xs = _shards(torch, np, rng, R, N, "f32", dev)
+    check("K10 64 MiB f32", a2a.hbm_alltoall(xs), a2a.hbm_alltoall_ref(xs),
+          "f32", "K10")
+    del xs
+    mats = {s: _moe_counts(moe, s, 64, 3) for s in ("uniform", "skew",
+                                                     "hot")}
+    mats["sparse"] = _sparse_counts()
+    for name, counts in mats.items():
+        for kind in kinds:
+            xs = [_data(torch, np, rng, (sum(counts[r]),), kind, dev)
+                  for r in range(R)]
+            for cb, depth, bidir in ((16, 2, True), (64, 3, False),
+                                     (4096, 4, True), (None, 2, False)):
+                check(f"K11 {name} {kind} chunk={cb} depth={depth} "
+                      f"bidir={bidir}",
+                      a2a.hbm_alltoallv(xs, counts, chunk_bytes=cb,
+                                        depth=depth, bidirectional=bidir),
+                      a2a.hbm_alltoallv_ref(xs, counts), kind)
+    counts = _moe_counts(moe, "hot")
+    xs = [_data(torch, np, rng, (sum(counts[r]),), "f32", dev)
+          for r in range(R)]
+    check("K11 hot 4096 x 4096 f32", a2a.hbm_alltoallv(xs, counts),
+          a2a.hbm_alltoallv_ref(xs, counts), "f32", "K11")
+    del xs
+    log(f"[kernels] {n_checks} alltoall kernel-vs-plain checks passed, "
+        f"bitwise (full-size f32 max abs err: K10 {full_err['K10']:.3g}, "
+        f"K11 {full_err['K11']:.3g})")
+    return full_err
+
+
 def phase_main_path(torch, np, mvt, hbm, opmod, dev):
     """The port's main path: run_ranks(8) on cuda:0, 64 MiB f32
     allreduces through the slot channel into K1, the small collectives,
@@ -516,6 +622,159 @@ def phase_mesh(torch, np, mvt, ici, ring, mpit, opmod, dev, inputs):
     return launches, res[0][1]
 
 
+def phase_mesh_a2a(torch, np, mvt, a2a, ring, mpit, moe, dev):
+    """The 1:1 path's alltoall(v): run_ranks(8) bound one to one to a
+    mesh of 8 virtual ranks on cuda:0; comm.alltoall of 64 MiB f32 a rank
+    (K10, 2 checked calls, 2 warm-ups, 10 timed) and comm.alltoallv of
+    the MoE bench's hot routing at 4096 tokens x 4096 (K11, 2 calls),
+    each held against numpy. K10/K11's launch counts are zeroed before
+    the run and read after it; dev_coll_tier_hbm must move by 8 a call.
+    Returns (launch counts, e2e alltoall latencies in s)."""
+    mesh = mvt.make_mesh((R,), ("x",), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 500)
+    xs = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
+    counts = _moe_counts(moe, "hot")
+    vs = [torch.randn(sum(counts[r]), generator=gen, device=dev)
+          for r in range(R)]
+    n_check, n_warm, n_timed, n_v = 2, 2, 10, 2
+
+    def app(comm):
+        r, p = comm.rank, comm.size
+        stream = torch.cuda.current_stream()
+        outs = [comm.alltoall(xs[r]) for _ in range(n_check)]
+        for _ in range(n_warm):
+            comm.alltoall(xs[r])
+        lat = []
+        for _ in range(n_timed):
+            t0 = time.perf_counter()
+            comm.alltoall(xs[r])
+            stream.synchronize()
+            lat.append(time.perf_counter() - t0)
+        rc = [counts[j][r] for j in range(p)]
+        vouts = [comm.alltoallv(vs[r], counts[r], None, None, rc, None)
+                 for _ in range(n_v)]
+        stream.synchronize()
+        return outs, lat, vouts
+
+    hbm0 = mpit.pvar("dev_coll_tier_hbm").read()
+    a2a.reset_counts()
+    t0 = time.perf_counter()
+    res = mvt.run_ranks(R, app, device_mesh=mesh)
+    torch.cuda.synchronize()
+    ring.check_errors()
+    wall = time.perf_counter() - t0
+    launches = dict(a2a.LAUNCHES)
+    plain = dict(a2a.PLAIN_CALLS)
+    n_a2a = n_check + n_warm + n_timed
+    if launches != {"hbm_alltoall": n_a2a, "hbm_alltoallv": n_v}:
+        raise AssertionError(f"alltoall launches on the mesh path "
+                             f"{launches}, expected {n_a2a} and {n_v}")
+    if any(plain.values()):
+        raise AssertionError(f"plain alltoall calls on the card: {plain}")
+    moved = mpit.pvar("dev_coll_tier_hbm").read() - hbm0
+    if moved != R * (n_a2a + n_v):
+        raise AssertionError(f"dev_coll_tier_hbm moved by {moved}, "
+                             f"expected {R} a call")
+    # against numpy
+    c = N // R
+    host = np.stack([x.cpu().numpy() for x in xs]).reshape(R, R, c)
+    vhost = [v.cpu().numpy() for v in vs]
+    sd = [np.cumsum([0] + row[:-1]) for row in counts]
+    for r in range(R):
+        want = host[:, r, :].reshape(-1)
+        for g in res[r][0]:
+            if g.shape != (N,) or not np.array_equal(g.cpu().numpy(), want):
+                raise AssertionError(f"mesh alltoall rank {r}: wrong")
+        vwant = np.concatenate([vhost[j][sd[j][r]:sd[j][r] + counts[j][r]]
+                                for j in range(R)])
+        for g in res[r][2]:
+            if not np.array_equal(g.cpu().numpy(), vwant):
+                raise AssertionError(f"mesh alltoallv rank {r}: wrong")
+    log(f"[mesh] run_ranks({R}, device_mesh={mesh}): {n_a2a} alltoalls of "
+        f"64 MiB f32 a rank and {n_v} alltoallvs of the hot routing at "
+        f"{MOE_TOKENS} x {MOE_DMODEL} (rank 0 receives "
+        f"{sum(counts[j][0] for j in range(R)) * 4 >> 20} MiB) in "
+        f"{wall:.2f} s; results equal numpy's; launches {launches}, plain "
+        f"calls {plain}; dev_coll_tier_hbm +{moved:.0f}")
+    return launches, res[0][1]
+
+
+def phase_moe(torch, moe, a2a, ring, dev):
+    """The MoE step bench on the card at 4096 tokens x 4096, all three
+    routing shapes, with its kernels' launch counts zeroed before and
+    read after; then one hot step held against the plain versions
+    (dispatch and combine bitwise) and against x @ W per rank (f32
+    products summed in another order: rtol 1e-4, atol 1e-3)."""
+    a2a.reset_counts()
+    t0 = time.perf_counter()
+    art = moe.sweep([MOE_TOKENS], dmodel=MOE_DMODEL, iters=5, device=dev)
+    torch.cuda.synchronize()
+    ring.check_errors()
+    wall = time.perf_counter() - t0
+    launches = dict(a2a.LAUNCHES)
+    if not all(launches.values()) or any(a2a.PLAIN_CALLS.values()):
+        raise AssertionError(f"MoE bench launches {launches}, plain "
+                             f"{a2a.PLAIN_CALLS}")
+    res = art["results"]
+    key = str(MOE_TOKENS * MOE_DMODEL * 4)
+    for band in ("moe_step", "moe_step_skew", "moe_step_hot"):
+        if not res[band][key] > 0:
+            raise AssertionError(f"{band}: no time")
+    # one hot step, checked
+    gen = torch.Generator(device=dev).manual_seed(SEED + 600)
+    W = torch.randn(MOE_DMODEL, MOE_DMODEL, generator=gen, device=dev)
+    counts = _moe_counts(moe, "hot")
+    xs = [torch.randn(sum(counts[r]), generator=gen, device=dev)
+          for r in range(R)]
+    toks, h, out = moe.moe_step(xs, W, counts)
+    torch.cuda.synchronize()
+    ring.check_errors()
+    back = [[counts[j][i] for j in range(R)] for i in range(R)]
+    for what, got, want in (
+            ("dispatch", toks, a2a.hbm_alltoallv_ref(xs, counts)),
+            ("combine", out, a2a.hbm_alltoallv_ref(h, back))):
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"MoE step {what}: differs from the "
+                                     f"plain version")
+    err = 0.0
+    for x, o in zip(xs, out):
+        want = torch.matmul(x.view(-1, MOE_DMODEL), W).view(-1)
+        if o.shape != want.shape or not torch.isfinite(o).all() or \
+                not torch.allclose(o, want, rtol=1e-4, atol=1e-3):
+            raise AssertionError("MoE step: combine(expert(dispatch(x))) "
+                                 "is not x @ W")
+        err = max(err, (o - want).abs().max().item())
+    log(f"[moe] bench.moe.sweep([{MOE_TOKENS}], dmodel={MOE_DMODEL}) in "
+        f"{wall:.2f} s: step us uniform {res['moe_step'][key]:.1f}, skew "
+        f"{res['moe_step_skew'][key]:.1f}, hot {res['moe_step_hot'][key]:.1f}; "
+        f"uniform alltoall effbw {res['dev_alltoall_effbw'][key]:.1f} GB/s "
+        f"((p-1)/p*m/t); tiers {art['a2a_tiers']}; wire bytes "
+        f"{art['wire_bytes']}; launches {launches}; hot step checked "
+        f"(dispatch and combine bitwise, x @ W max abs err {err:.3g})")
+    return art
+
+
+def phase_moe_profile(torch, moe, art, dev):
+    """One MoE step of each routing shape under torch.profiler: device
+    time by kernel group, and the idle share of the sweep's unprofiled
+    median step (1 - busy / median). Run last: the profiler slows the
+    host side of every later call in the process."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 800)
+    W = torch.randn(MOE_DMODEL, MOE_DMODEL, generator=gen, device=dev)
+    key = str(MOE_TOKENS * MOE_DMODEL * 4)
+    split = {}
+    for band, shape in moe.SHAPES.items():
+        c = _moe_counts(moe, shape)
+        b = moe.breakdown([torch.randn(sum(c[r]), generator=gen, device=dev)
+                           for r in range(R)], W, c)
+        if b:
+            b["idle_share"] = 1 - b["busy_us"] / art["results"][band][key]
+        split[shape] = b or "not measured (no device activity profiled)"
+    log(f"[moe] device time a step, us (torch.profiler): {split}")
+    return split
+
+
 def phase_times(torch, hbm, timing, info, inputs, lat, launches, full_err):
     bw = info.hbm_bw_gbps * 1e9
     if bw <= 0:
@@ -665,6 +924,65 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
     return kernels, extra
 
 
+def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
+                    full_err, dev):
+    """K10 and K11 at the shapes the mesh path gives them (64 MiB f32 a
+    rank; the hot MoE dispatch at 4096 x 4096), by CUDA events, beside
+    their bound (each input read once, each output written once), their
+    schedule bound (local block 2 bytes a byte, every other pair 4: read
+    input, write slot, read slot, write output), their plain versions
+    and, for K10, the library call; and the mesh path's end-to-end
+    alltoall latency."""
+    bw = info.hbm_bw_gbps * 1e9
+    gen = torch.Generator(device=dev).manual_seed(SEED + 700)
+    c = N // R
+    xs = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
+    counts = _moe_counts(moe, "hot")
+    vs = [torch.randn(sum(counts[r]), generator=gen, device=dev)
+          for r in range(R)]
+    moved = 4 * sum(map(sum, counts))
+    local = 4 * sum(counts[r][r] for r in range(R))
+    rows = []
+    for name, kern, src, fn, plain, lib, nbytes, sched, formula in (
+            ("hbm_alltoall", "K10", "mvapich2_tpu/ops/pallas_alltoall.py:424",
+             lambda: a2a.hbm_alltoall(xs),
+             lambda: a2a.hbm_alltoall_ref(xs),
+             lambda: torch.stack(xs).view(R, R, c).transpose(0, 1)
+             .contiguous(),
+             2 * R * N * 4, (4 * R - 2) * N * 4,
+             "m(4p-2): local block 2m/p, each of p-1 steps 4m/p, a rank"),
+            ("hbm_alltoallv", "K11", "mvapich2_tpu/ops/pallas_alltoall.py:488",
+             lambda: a2a.hbm_alltoallv(vs, counts),
+             lambda: a2a.hbm_alltoallv_ref(vs, counts), None,
+             2 * moved, 4 * moved - 2 * local,
+             "4 bytes a moved byte, 2 on the diagonal")):
+        ms = timing.time_ms(fn)
+        plain_ms = timing.time_ms(plain, warmup=1, iters=5)
+        lib_ms = timing.time_ms(lib) if lib else None
+        ring.check_errors()
+        rows.append({"name": name, "route": "cuda",
+                     "source": "mvapich2_tpu_torch/csrc/ring.cu",
+                     "replaces": src, "launches": launches[name],
+                     "max_abs_err": full_err[kern], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": nbytes / bw * 1e3,
+                     "bound_by": "bytes", "library_ms": lib_ms,
+                     "schedule_bound_ms": sched / bw * 1e3,
+                     "schedule_bytes": formula})
+    extra = {"mesh_e2e_alltoall_ms": statistics.median(lat) * 1e3,
+             "mesh_e2e_alltoall_ms_all": [t * 1e3 for t in lat],
+             "mesh_e2e_alltoall_effbw_GBps":
+                 (R - 1) / R * N * 4 / statistics.median(lat) / 1e9}
+    log("[times] alltoall kernels " + "; ".join(
+        f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}, schedule "
+        f"bound {k['schedule_bound_ms']:.4f}, plain {k['plain_ms']:.4f}, "
+        f"library {k['library_ms'] if k['library_ms'] is None else round(k['library_ms'], 4)}"
+        f"), launches {k['launches']}" for k in rows))
+    log(f"[times] mesh e2e alltoall 64 MiB {extra['mesh_e2e_alltoall_ms']:.4f}"
+        f" ms = {extra['mesh_e2e_alltoall_effbw_GBps']:.1f} GB/s effbw "
+        f"((p-1)/p*m/t)")
+    return rows, extra
+
+
 def phase_sweep(torch, ici, ring, tuning, timing, dev):
     """The ring kernels' launch-shape sweep (``--sweep``): K3 at 8 ranks
     x 64 MiB f32 over threads per block x blocks per SM x chunk bytes x
@@ -728,7 +1046,8 @@ def main(argv=None):
     import mvapich2_tpu_torch as mvt
     from mvapich2_tpu_torch import mpit
     from mvapich2_tpu_torch.core import op as opmod
-    from mvapich2_tpu_torch.ops import _build, hbm, ici, ring
+    from mvapich2_tpu_torch.bench import moe
+    from mvapich2_tpu_torch.ops import _build, alltoall, hbm, ici, ring
     from mvapich2_tpu_torch.utils import detect, timing
 
     t_start = time.perf_counter()
@@ -748,18 +1067,27 @@ def main(argv=None):
         return 0
     full_err = phase_kernels(torch, np, hbm, dev)
     full_err.update(phase_ring_kernels(torch, np, ici, ring, dev))
+    full_err.update(phase_a2a_kernels(torch, np, alltoall, ring, moe, dev))
     launches, slice_launches, lat, inputs = phase_main_path(
         torch, np, mvt, hbm, opmod, dev)
     mesh_launches, mesh_lat = phase_mesh(torch, np, mvt, ici, ring, mpit,
                                          opmod, dev, inputs)
+    a2a_launches, a2a_lat = phase_mesh_a2a(torch, np, mvt, alltoall, ring,
+                                           mpit, moe, dev)
+    moe_art = phase_moe(torch, moe, alltoall, ring, dev)
     info = detect.detect(dev)
     kernels, extra = phase_times(torch, hbm, timing, info, inputs, lat,
                                  launches, full_err)
     ring_kernels, ring_extra = phase_ring_times(
         torch, np, ici, ring, timing, info, inputs, mesh_lat,
         mesh_launches, full_err)
-    kernels += ring_kernels
+    a2a_kernels, a2a_extra = phase_a2a_times(
+        torch, alltoall, ring, moe, timing, info, a2a_lat, a2a_launches,
+        full_err, dev)
+    kernels += ring_kernels + a2a_kernels
     extra.update(ring_extra)
+    extra.update(a2a_extra)
+    moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     total_s = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -769,6 +1097,8 @@ def main(argv=None):
                        "build_s": build_s, "total_s": total_s,
                        "slice_launches": slice_launches,
                        "mesh_launches": mesh_launches,
+                       "mesh_a2a_launches": a2a_launches,
+                       "moe": moe_art,
                        "kernels": kernels, **extra}, f, indent=1)
     log(f"[done] {total_s:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,10 @@ MPI ranks run as threads of one process (``run_ranks``) on one GPU:
 either sharing it through an on-card slot segment whose reduction is a
 CUDA kernel written for Hopper (``ops/hbm.py``, ``csrc/hbm_slot.cu``), or
 bound one to one to ``p`` virtual devices of a mesh (``make_mesh``),
-whose collectives run hand-written ring kernels (``ops/ring.py``,
-``ops/ici.py``, ``csrc/ring.cu``). The JAX package ``mvapich2_tpu`` is
+whose collectives run hand-written ring and alltoall(v) kernels
+(``ops/ring.py``, ``ops/ici.py``, ``ops/alltoall.py``,
+``csrc/ring.cu``). ``bench/moe.py`` drives alltoallv as an MoE step
+does. The JAX package ``mvapich2_tpu`` is
 the reference this package is tested against; nothing here imports it
 or JAX.
 """

@@ -1,10 +1,10 @@
-"""Rank buffers carried across from the JAX package's tests.
+"""Buffers carried across from the JAX package.
 
-The system runs no model, so nothing like weights crosses over: what
-crosses is the ``(R, n)`` numpy rank buffers that the JAX tests feed to
-``hbm_slot_allreduce`` and ``pack_interleaved``. These two functions put
-the same bytes into the port's tensors and back, so both sides of a
-parity test see identical inputs.
+What crosses is the ``(R, n)`` numpy rank buffers that the JAX tests
+feed to ``hbm_slot_allreduce`` and ``pack_interleaved``, and the MoE
+step bench's one weight, its ``dmodel x dmodel`` expert matrix ``W``.
+These functions put the same bytes into the port's tensors and back, so
+both sides of a parity test see identical inputs.
 """
 
 from __future__ import annotations
@@ -39,6 +39,16 @@ def slots_from_numpy(bufs: np.ndarray, layout: str = "rows",
     else:
         raise ValueError(f"bad layout {layout!r}")
     return t.to(device)
+
+
+def expert_from_numpy(w: np.ndarray, device="cpu") -> torch.Tensor:
+    """The MoE bench's expert matrix ``W`` (``bench/moe.py``), given as
+    numpy (e.g. ``np.asarray`` of the JAX bench's ``W``), as a float32
+    ``(dmodel, dmodel)`` tensor on ``device``."""
+    w = np.ascontiguousarray(w, dtype=np.float32)
+    if w.ndim != 2 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"expected a square expert matrix, got {w.shape}")
+    return torch.from_numpy(w).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -13,16 +13,16 @@ Two bindings are ported:
   virtual device of a ``parallel.mesh.Mesh`` (``p`` virtual ranks of one
   card, or of the CPU in tests). The leader hands the ``p`` deposited
   shards in place to the tier dispatch of ``ops/ici.py`` (ring kernels
-  K3/K5/K6/K7, or the stock torch reduction) and every rank gets its own
-  output;
+  K3/K5/K6/K7, or the stock torch reduction) or of ``ops/alltoall.py``
+  (alltoall and alltoallv, K10/K11) and every rank gets its own output;
 * :class:`HBMSlotChannel`: all ranks share one device and collectives
   run through an on-card slot segment (``ops/hbm.py``).
 
 The per-chip fold channel, multi-axis meshes, nonblocking collectives and
 the host algorithm tier are not ported; a call that would need the host
 tier (an 8-byte dtype, a user-defined op, a forced host algorithm,
-``USE_DEVICE_COLL`` off) raises ``NotImplementedError``, and so does
-alltoall on the 1:1 channel (its kernel, K10, is not ported).
+``USE_DEVICE_COLL`` off, alltoallv with ``MPI_IN_PLACE`` or on the slot
+channel) raises ``NotImplementedError``.
 
 Stream order across rank threads (CUDA devices): each deposit records an
 event on the depositing rank's current stream; the leader's stream waits
@@ -45,7 +45,7 @@ import torch
 
 from .. import mpit
 from ..core import op as opmod
-from ..ops import hbm, ici, ring
+from ..ops import alltoall, hbm, ici, ring
 from ..utils import is_device_tensor
 from ..utils.config import get_config
 
@@ -92,6 +92,19 @@ class _Rendezvous:
         self.barrier.abort()
 
 
+class _VDeposit:
+    """One rank's alltoallv contribution at the rendezvous: its send
+    payload packed densely in peer order (peer 0's elements first) and
+    its scounts row, from which the leader assembles the count
+    matrix."""
+
+    __slots__ = ("data", "scounts")
+
+    def __init__(self, data, scounts):
+        self.data = data
+        self.scounts = tuple(int(c) for c in scounts)
+
+
 def _record_event(device: torch.device) -> Optional[torch.cuda.Event]:
     if device.type != "cuda":
         return None
@@ -124,18 +137,22 @@ class _Channel:
     def abort(self) -> None:
         self.rv.abort()
 
-    def _program(self, name: str, n: int, dtype_str: str, op: str):
-        """The leader's callable for one signature, built once."""
-        key = (name, n, dtype_str, op)
+    def _program(self, name: str, n: int, dtype_str: str, op: str,
+                 extra=None):
+        """The leader's callable for one signature (``extra``: the count
+        matrix of an alltoallv), built once."""
+        key = (name, n, dtype_str, op, extra)
         got = self._programs.get(key)
         if got is None:
-            got = self._programs[key] = self._build(name, n, op)
+            got = self._programs[key] = self._build(name, n, op, extra)
         return got
 
     # -- the rendezvous execution ----------------------------------------
     @staticmethod
     def _slot_extent(slot) -> Tuple[int, str]:
         """(n, dtype string) of a deposited slot, without moving it."""
+        if isinstance(slot, _VDeposit):
+            slot = slot.data
         if is_device_tensor(slot):
             return slot.numel(), str(slot.dtype)
         arr = np.asarray(slot)
@@ -249,6 +266,10 @@ class DeviceCollChannel(_Channel):
       * allreduce/reduce: ``ici.ici_all_reduce`` (K6 / K3 / stock, by
         tier), one output row per rank;
       * allgather: ``ici.ici_all_gather`` (K7 / K5 / stock);
+      * alltoall: ``alltoall.ici_all_to_all`` (K10 / stock);
+      * alltoallv: ``alltoall.ici_all_to_allv`` (K11 / stock) over the
+        count matrix the leader assembles from every rank's scounts row
+        (``_leader_v``), one program per matrix;
       * bcast: a copy of the root's shard per rank (stock, as the JAX
         package lowers it through XLA);
       * reduce_scatter_block: the stock reduction over the stacked
@@ -259,15 +280,14 @@ class DeviceCollChannel(_Channel):
     """
 
     LEVELS = ("ici",)
-    # alltoall waits for its kernel, K10
-    SUPPORTED = ("allreduce", "reduce", "bcast", "allgather",
-                 "reduce_scatter_block")
+    SUPPORTED = ("allreduce", "reduce", "bcast", "allgather", "alltoall",
+                 "reduce_scatter_block", "alltoallv")
 
     def __init__(self, mesh, rendezvous: _Rendezvous, rank: int):
         super().__init__(mesh.device, rendezvous, rank, mesh.size)
         self.mesh = mesh
 
-    def _build(self, name: str, n: int, op: str):
+    def _build(self, name: str, n: int, op: str, extra=None):
         """The leader's program for one signature: a callable taking the
         ``p`` flat shards and the root, returning one output per rank.
         ``_note_tier`` counts the call's tier on every rank."""
@@ -278,6 +298,14 @@ class DeviceCollChannel(_Channel):
         elif name == "allgather":
             def f(xs, root):
                 return list(ici.ici_all_gather(xs).unbind(0))
+        elif name == "alltoall":
+            def f(xs, root):
+                return list(alltoall.ici_all_to_all(xs).unbind(0))
+        elif name == "alltoallv":
+            counts = extra                  # the static p x p matrix
+
+            def f(xs, root):
+                return alltoall.ici_all_to_allv(xs, counts)
         elif name == "bcast":
             def f(xs, root):
                 return list(xs[root].reshape(1, n).expand(p, n).clone()
@@ -298,9 +326,23 @@ class DeviceCollChannel(_Channel):
         then wait for it and raise on a ring kernel's spin timeout."""
         rv = self.rv
         _wait_deposits(self.device, rv.events)
+        if name == "alltoallv":
+            return self._leader_v()
         n, dtype = self._slot_extent(rv.slots[0])
         xs = [_to_device(s, self.device).reshape(n) for s in rv.slots]
         out = self._program(name, n, dtype, op)(xs, root)
+        ring.check_errors(self.device)
+        return out
+
+    def _leader_v(self) -> List:
+        """Leader compute for alltoallv: assemble the count matrix from
+        every rank's scounts row and hand the packed payloads in place,
+        each at its own length, to the matrix's program."""
+        rv = self.rv
+        counts = tuple(s.scounts for s in rv.slots)
+        _, dtype = self._slot_extent(rv.slots[0])
+        xs = [_to_device(s.data, self.device).reshape(-1) for s in rv.slots]
+        out = self._program("alltoallv", 0, dtype, "none", counts)(xs, 0)
         ring.check_errors(self.device)
         return out
 
@@ -309,19 +351,34 @@ class DeviceCollChannel(_Channel):
         dev_coll_fallback_<reason> when the stock lowering is taken) and
         return its label ('vmem'/'hbm'/'xla'), keyed as the JAX
         package's: the tier ``planned_tier`` names for the call's shard
-        bytes (output bytes for allgather)."""
-        if name not in ("allreduce", "reduce", "allgather"):
-            return "xla"    # collectives without a ring-kernel lowering
+        bytes (output bytes for allgather; for alltoall(v) the tier of
+        ``planned_a2a_tier`` on this rank's send bytes)."""
         n, _ = self._slot_extent(local)
         dtype = _torch_dtype(local)
-        nbytes = n * dtype.itemsize * (self.size if name == "allgather"
-                                       else 1)
-        tier, reason = ici.planned_tier(name, nbytes, dtype, op)
+        if name in ("alltoall", "alltoallv"):
+            tier, reason = alltoall.planned_a2a_tier(
+                max(1, n * dtype.itemsize), dtype)
+        elif name in ("allreduce", "reduce", "allgather"):
+            nbytes = n * dtype.itemsize * (self.size if name == "allgather"
+                                           else 1)
+            tier, reason = ici.planned_tier(name, nbytes, dtype, op)
+        else:
+            return "xla"    # collectives without a kernel lowering
         if reason is None:
             mpit.pvar(f"dev_coll_tier_{tier}").inc()
             return tier
         mpit.pvar(f"dev_coll_fallback_{reason}").inc()
         return "xla"
+
+    def alltoallv(self, comm, sendbuf, scounts, sdispls, recvbuf, rcounts,
+                  rdispls, datatype):
+        """The MoE-shaped variable-count alltoall: each rank packs its
+        sends densely and deposits them with its scounts row; the leader
+        runs the matrix's program; the packed result is laid out at the
+        caller's rdispls on the way out."""
+        dep = _VDeposit(_pack_v(sendbuf, scounts, sdispls), scounts)
+        out = self._run("alltoallv", dep, op=None)
+        return _deliver_v(out, recvbuf, rcounts, rdispls)
 
 
 class HBMSlotChannel(_Channel):
@@ -350,7 +407,7 @@ class HBMSlotChannel(_Channel):
     def _note_tier(self, name: str, local, op: Optional[str]) -> str:
         return "slot"       # single-device slot channel: no ring tiers
 
-    def _build(self, name: str, n: int, op: str):
+    def _build(self, name: str, n: int, op: str, extra=None):
         R = self.size
         if name in ("allreduce", "reduce", "reduce_scatter_block"):
             if op == "sum":
@@ -413,6 +470,8 @@ def _wait_deposits(device: torch.device, events) -> None:
 
 
 def _torch_dtype(buf) -> torch.dtype:
+    if isinstance(buf, _VDeposit):
+        buf = buf.data
     if is_device_tensor(buf):
         return buf.dtype
     return torch.from_numpy(np.empty(0, np.asarray(buf).dtype)).dtype
@@ -463,14 +522,69 @@ def _deliver(out, recvbuf):
     return None
 
 
+def _dense_displs(counts) -> List[int]:
+    """Dense prefix displacements (the packed layout)."""
+    out, off = [], 0
+    for c in counts:
+        out.append(off)
+        off += int(c)
+    return out
+
+
+def _pack_v(sendbuf, scounts, sdispls):
+    """This rank's alltoallv sends packed densely in peer order (the
+    layout K11's tables assume). A dense layout is a view, no copy."""
+    total = int(sum(scounts))
+    dense = list(sdispls) == _dense_displs(scounts)
+    if is_device_tensor(sendbuf):
+        flat = sendbuf.reshape(-1)
+        if dense:
+            return flat[:total]
+        parts = [flat[sdispls[j]:sdispls[j] + scounts[j]]
+                 for j in range(len(scounts)) if scounts[j]]
+        return torch.cat(parts) if parts else flat[:0]
+    arr = np.asarray(sendbuf).reshape(-1)
+    if dense:
+        return np.ascontiguousarray(arr[:total])
+    parts = [arr[sdispls[j]:sdispls[j] + scounts[j]]
+             for j in range(len(scounts)) if scounts[j]]
+    return (np.ascontiguousarray(np.concatenate(parts)) if parts
+            else arr[:0].copy())
+
+
+def _deliver_v(out, recvbuf, rcounts, rdispls):
+    """Lay the packed result (dense sender order) out at the caller's
+    rdispls: into a numpy recvbuf (device-to-host), or as a tensor
+    returned to the caller (tensor or absent recvbuf)."""
+    rtotal = int(sum(rcounts))
+    dense = list(rdispls) == _dense_displs(rcounts)
+    flat = out.reshape(-1)
+    if recvbuf is None or is_device_tensor(recvbuf):
+        if dense:
+            return flat[:rtotal]
+        ext = max((rdispls[j] + rcounts[j] for j in range(len(rcounts))),
+                  default=0)
+        dst = torch.zeros(ext, dtype=flat.dtype, device=flat.device)
+    else:
+        flat = flat.cpu().numpy()
+        dst = np.asarray(recvbuf).reshape(-1)
+    off = 0
+    for j, cnt in enumerate(rcounts):
+        dst[rdispls[j]:rdispls[j] + cnt] = flat[off:off + cnt]
+        off += cnt
+    return dst if is_device_tensor(dst) else None
+
+
 # ---------------------------------------------------------------------------
 # per-comm install
 # ---------------------------------------------------------------------------
 
 # wrapper name -> cvar prefix (reduce_scatter_block shares the
-# REDUCE_SCATTER override, matching the MPI-level collective family)
+# REDUCE_SCATTER override and alltoallv the ALLTOALL one, matching the
+# MPI-level collective family)
 _CVAR_OF = {"allreduce": "ALLREDUCE", "bcast": "BCAST",
             "allgather": "ALLGATHER", "alltoall": "ALLTOALL",
+            "alltoallv": "ALLTOALL",
             "reduce": "REDUCE", "reduce_scatter_block": "REDUCE_SCATTER"}
 
 _HOST_TIER = "the host collective tier is not ported"
@@ -480,7 +594,10 @@ def _select_transport(name: str, op, buf) -> str:
     """The transport for this call: 'device', or NotImplementedError
     where the JAX package would take its host tier. The decision must be
     identical on every rank of a call; its inputs (op, dtype, cvars) are
-    required-uniform by MPI."""
+    required-uniform by MPI. No input is a size: alltoallv's send total
+    differs per rank (a zero row is legal), so a size gate could split
+    the ranks across transports; as in the JAX package, it takes the
+    device once these gates pass."""
     cfg = get_config()
     forced = cfg.get(f"{_CVAR_OF[name]}_ALGO", "")
     if forced and forced != "device":
@@ -530,7 +647,30 @@ def install_device_coll(comm, channel: _Channel) -> None:
         return entry
 
     for name in channel.SUPPORTED:
-        comm.coll_fns[name] = wrap(name)
+        if name != "alltoallv":
+            comm.coll_fns[name] = wrap(name)
+
+    # alltoallv: its own entry (recvbuf sits at a[3]). The slot channel,
+    # MPI_IN_PLACE and a forced host algorithm take the host path in the
+    # JAX package: here they raise.
+    def a2av_entry(comm_, sendbuf, scounts, sdispls, recvbuf, rcounts,
+                   rdispls, datatype):
+        if "alltoallv" not in channel.SUPPORTED:
+            raise NotImplementedError(
+                f"alltoallv on the single-device slot channel: per-peer "
+                f"counts have no slot transpose; {_HOST_TIER}")
+        if _is_in_place(sendbuf):
+            raise NotImplementedError(
+                f"alltoallv with MPI_IN_PLACE; {_HOST_TIER}")
+        _select_transport("alltoallv", None, sendbuf)
+        return channel.alltoallv(
+            comm_, sendbuf, list(scounts),
+            list(sdispls) if sdispls is not None
+            else _dense_displs(scounts),
+            recvbuf, list(rcounts),
+            list(rdispls) if rdispls is not None
+            else _dense_displs(rcounts), datatype)
+    comm.coll_fns["alltoallv"] = a2av_entry
 
 
 # ---------------------------------------------------------------------------

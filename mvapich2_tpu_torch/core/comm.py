@@ -1,6 +1,7 @@
 """The communicator's collective surface (counterpart of the JAX
-package's ``core/comm.py``), for the six collectives the device channel
-runs, with the JAX package's signatures.
+package's ``core/comm.py``), for the seven collectives the device
+channels run, with the JAX package's signatures (alltoallv runs on the
+1:1 mesh channel only).
 
 Counts come from the buffer's element count and the element type from
 its dtype (a numpy array's or a tensor's); ``datatype``, where given,
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from . import op as opmod
-from .errors import MPI_ERR_ROOT, MPI_ERR_TYPE, MPIException
+from .errors import MPI_ERR_COUNT, MPI_ERR_ROOT, MPI_ERR_TYPE, MPIException
 
 
 class _InPlace:
@@ -125,6 +126,32 @@ class Comm:
         if recvbuf is None and not _is_device(sendbuf):
             recvbuf = np.empty_like(np.asarray(sendbuf))
         ret = self._coll("alltoall")(self, sendbuf, recvbuf, count, datatype)
+        return ret if ret is not None else recvbuf
+
+    def alltoallv(self, sendbuf, sendcounts, sdispls, recvbuf, recvcounts,
+                  rdispls, datatype=None):
+        """Variable-count alltoall: ``sendcounts[j]`` elements from
+        ``sdispls[j]`` of ``sendbuf`` go to rank j, whose payload for
+        this rank lands at ``rdispls[j]``. Displacements of ``None`` are
+        dense. A numpy ``recvbuf`` (allocated when absent and
+        ``sendbuf`` is numpy) is filled and returned; with a tensor
+        ``sendbuf`` the result tensor is returned."""
+        _, datatype = _resolve(sendbuf, None, datatype, alt=recvbuf)
+        scounts = [int(c) for c in sendcounts]
+        rcounts = [int(c) for c in recvcounts]
+        if len(scounts) != self.size or len(rcounts) != self.size:
+            raise MPIException(MPI_ERR_COUNT, f"alltoallv needs {self.size} "
+                               f"send and receive counts")
+        if recvbuf is None and not _is_device(sendbuf) \
+                and not isinstance(sendbuf, _InPlace):
+            ext = sum(rcounts) if rdispls is None else max(
+                int(rdispls[j]) + rcounts[j] for j in range(self.size))
+            recvbuf = np.zeros((ext,), dtype=np.asarray(sendbuf).dtype)
+        ret = self._coll("alltoallv")(
+            self, sendbuf, scounts,
+            list(sdispls) if sdispls is not None else None, recvbuf,
+            rcounts, list(rdispls) if rdispls is not None else None,
+            datatype)
         return ret if ret is not None else recvbuf
 
     def reduce_scatter_block(self, sendbuf, recvbuf=None, op=None,

@@ -3,6 +3,7 @@ package's ``core/errors.py``; the numbering is the same)."""
 
 from __future__ import annotations
 
+MPI_ERR_COUNT = 2
 MPI_ERR_TYPE = 3
 MPI_ERR_ROOT = 8
 

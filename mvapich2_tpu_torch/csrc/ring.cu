@@ -13,6 +13,12 @@
 //    2 landing slots per rank, n % p == 0.
 // K7 ring_all_gather_kernel      replaces pallas_ring.py ring_all_gather
 //    (body _ring_all_gather_kernel). Resident gather ring, 2 slots.
+// K10 hbm_alltoall_kernel        replaces mvapich2_tpu/ops/pallas_alltoall.py
+//    hbm_alltoall (body _hbm_alltoall_kernel, engine _A2AStreamer and
+//    _a2a_wave). Uniform pairwise-permutation alltoall of p blocks.
+// K11 hbm_alltoallv_kernel       replaces pallas_alltoall.py hbm_alltoallv
+//    (body _hbm_alltoallv_kernel). K10 under a static p x p count matrix,
+//    every step padded to its step-wide chunk count.
 //
 // Translation. A TPU remote DMA into the neighbour's VMEM slot becomes a
 // store into the downstream rank's landing slot in global memory
@@ -49,6 +55,22 @@
 // the last credits) is not needed: the launch boundary orders every
 // store before the next launch.
 //
+// Schedule (K10/K11): the JAX one. The local block is copied once; then
+// in step s (1..p-1, split over two lanes when ndir == 2: the first lane
+// takes steps 1..p/2, the second the rest) rank r sends block (r+s)%p
+// into the landing slots of that rank and receives from (r-s)%p, chunk
+// by chunk (issue c, drain c-1). The slot is the lane's global chunk
+// counter mod depth, counting on across steps. The JAX kernel's credit
+// wave per step (grant depth at entry, one per consumed chunk, fence back
+// to depth at exit) becomes, on the receiver's monotonic consumed
+// counter: chunk g of a step that starts at G is written only once the
+// receiver has consumed max(G, g - depth + 1) chunks (so the step's
+// writer never lands while the previous writer's chunks are still
+// undrained, and the landed counter has one writer at a time), and the
+// step ends when the receiver has consumed G + W_s. K11 runs every
+// step's full W_s chunks on every rank; a padding chunk copies nothing
+// but still moves both counters, so a zero-count pair leaks no credit.
+//
 // Arithmetic: floats fold in float and round to the dtype at every step,
 // integers in 32 bits and wrap to the dtype, exactly as the JAX kernel's
 // dtype arithmetic; max/min propagate NaN as jnp.maximum does.
@@ -58,7 +80,9 @@
 // read slot and own, write own) + (p-1)(4m/p) (all-gather) bytes for an
 // m-byte shard, against 2m for "read every input once, write every
 // output once". The landing slots (p*ndir*depth*chunk elements) are
-// small enough to stay in the 50 MB L2.
+// small enough to stay in the 50 MB L2. K10 moves 2m/p (local block) +
+// (p-1)(4m/p) (read input, write slot, read slot, write output) per
+// rank, against 2m; K11 the same over the bytes its matrix moves.
 //
 // Spin bound: a wait that outlasts kSpinTimeoutNs writes a nonzero error
 // word into mapped host memory and ends the block; the other blocks then
@@ -602,6 +626,157 @@ __global__ void ring_all_gather_kernel(RankPtrs ptrs, int p, long long m,
 }
 
 // ---------------------------------------------------------------------------
+// the pairwise-permutation exchange of K10 and K11
+// ---------------------------------------------------------------------------
+
+// dst[i] = src[i] for any alignment: 16-byte accesses over the longest
+// whole-vector prefix when both pointers are 16-byte aligned, element
+// accesses otherwise and for the tail. src read through L2 when it is a
+// landing slot.
+template <typename T>
+__device__ void copy_any(T* dst, const T* src, long long cnt, bool slot_src) {
+  constexpr int V = 16 / sizeof(T);
+  long long head = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) |
+        reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    head = cnt / V * V;
+    copy_range(dst, src, head, 1, slot_src);
+  }
+  for (long long i = head + threadIdx.x; i < cnt; i += blockDim.x)
+    dst[i] = slot_src ? ld_cg(src + i) : src[i];
+}
+
+// K10's plan: every pair moves one block of c elements, block j of a
+// rank's buffer belongs to rank j on both sides.
+struct UniformPlan {
+  long long c, chunk;
+  __device__ long long count(int, int) const { return c; }
+  __device__ long long sdispl(int, int to) const { return to * c; }
+  __device__ long long rdispl(int, int from) const { return from * c; }
+  __device__ long long wire(int) const { return (c + chunk - 1) / chunk; }
+};
+
+// K11's plan, read from the wrapper's table (int64, on the card):
+// counts[p][p] (counts[r][j]: elements r sends j), sdispls[p][p] (where
+// r's payload for j starts in r's input), rdispls[p][p] (where j's
+// payload lands in r's output), wire[p] (W_s, the step-wide chunk count
+// of step s; 0 = the step is empty on every rank).
+struct TablePlan {
+  const long long* t;
+  int p;
+  __device__ long long count(int from, int to) const {
+    return t[from * p + to];
+  }
+  __device__ long long sdispl(int from, int to) const {
+    return t[p * p + from * p + to];
+  }
+  __device__ long long rdispl(int at, int from) const {
+    return t[2 * p * p + at * p + from];
+  }
+  __device__ long long wire(int s) const { return t[3 * p * p + s]; }
+};
+
+__device__ __forceinline__ long long clamp_chunk(long long left,
+                                                 long long chunk) {
+  return left <= 0 ? 0 : (left < chunk ? left : chunk);
+}
+
+// One block's share of one (rank, lane): the local block (share d*B+b
+// of the rank's ndir*B blocks), then the lane's steps. Block b talks only
+// to block b of the other ranks' lane d, over share b of every chunk,
+// with its own counters (landed/consumed: [p][ndir][B]).
+template <typename T, typename Plan>
+__device__ void a2a_lane(const RankPtrs& ptrs, const Plan& plan, int p,
+                         long long chunk, int depth, int ndir, int B,
+                         T* slots, unsigned* landed, unsigned* consumed,
+                         int* err) {
+  constexpr int kAlign = 16 / sizeof(T);
+  const int b = blockIdx.x % B;
+  const int lane = blockIdx.x / B;
+  const int d = lane % ndir;
+  const int r = lane / ndir;
+  const T* x = static_cast<const T*>(ptrs.in[r]);
+  T* o = static_cast<T*>(ptrs.out[r]);
+  long long s0, s1;
+  const long long own = plan.count(r, r);
+  share(own, own, d * B + b, ndir * B, kAlign, &s0, &s1);
+  copy_any(o + plan.rdispl(r, r) + s0, x + plan.sdispl(r, r) + s0, s1 - s0,
+           false);
+  // this lane's steps [s_lo, s_hi): all of 1..p-1, or the near half
+  // (1..p/2) on lane 0 and the far half on lane 1
+  int s_lo = 1, s_hi = p;
+  if (ndir == 2) {
+    if (d == 0) s_hi = 1 + p / 2; else s_lo = 1 + p / 2;
+  }
+  auto slot = [&](int rank, long long g) {
+    return slots + ((static_cast<long long>(rank) * ndir + d) * depth +
+                    g % depth) * chunk;
+  };
+  const long long me = (static_cast<long long>(r) * ndir + d) * B + b;
+  long long g = 0;                      // the lane's global chunk counter
+  for (int s = s_lo; s < s_hi; ++s) {
+    const long long W = plan.wire(s);
+    if (W == 0) continue;               // empty on every rank
+    const int to = (r + s) % p, up = (r - s + p) % p;
+    const long long peer = (static_cast<long long>(to) * ndir + d) * B + b;
+    const long long scnt = plan.count(r, to), sdis = plan.sdispl(r, to);
+    const long long rcnt = plan.count(up, r), rdis = plan.rdispl(r, up);
+    const long long G = g;
+    for (long long c = 0; c <= W; ++c) {
+      if (c < W) {                      // issue chunk c into to's slot
+        const long long gi = G + c;
+        const long long need = max(G, gi - depth + 1);
+        if (need > 0 && !block_wait(consumed + peer,
+                                    static_cast<unsigned>(need), err))
+          return;
+        share(clamp_chunk(scnt - c * chunk, chunk), chunk, b, B, kAlign,
+              &s0, &s1);
+        copy_any(slot(to, gi) + s0, x + sdis + c * chunk + s0, s1 - s0,
+                 false);
+        block_signal(landed + peer, static_cast<unsigned>(gi + 1));
+      }
+      if (c >= 1) {                     // drain chunk c-1 from up
+        const long long gd = G + c - 1;
+        if (!block_wait(landed + me, static_cast<unsigned>(gd + 1), err))
+          return;
+        share(clamp_chunk(rcnt - (c - 1) * chunk, chunk), chunk, b, B,
+              kAlign, &s0, &s1);
+        copy_any(o + rdis + (c - 1) * chunk + s0, slot(r, gd) + s0,
+                 s1 - s0, true);
+        block_signal(consumed + me, static_cast<unsigned>(gd + 1));
+      }
+    }
+    // step exit: the receiver has consumed every chunk of this step
+    if (!block_wait(consumed + peer, static_cast<unsigned>(G + W), err))
+      return;
+    g = G + W;
+  }
+}
+
+// K10 (T: an unsigned type of the element's width; pure data movement).
+// K10 and K11 hold more state than the ring kernels: the launch bound
+// keeps them to 64 registers a thread, so a 1024-thread block fits.
+template <typename T>
+__global__ void __launch_bounds__(1024) hbm_alltoall_kernel(RankPtrs ptrs, int p, long long c,
+                                    long long chunk, int depth, int ndir,
+                                    int B, T* slots, unsigned* landed,
+                                    unsigned* consumed, int* err) {
+  a2a_lane<T>(ptrs, UniformPlan{c, chunk}, p, chunk, depth, ndir, B, slots,
+              landed, consumed, err);
+}
+
+// K11
+template <typename T>
+__global__ void __launch_bounds__(1024) hbm_alltoallv_kernel(RankPtrs ptrs, const long long* tables,
+                                     int p, long long chunk, int depth,
+                                     int ndir, int B, T* slots,
+                                     unsigned* landed, unsigned* consumed,
+                                     int* err) {
+  a2a_lane<T>(ptrs, TablePlan{tables, p}, p, chunk, depth, ndir, B, slots,
+              landed, consumed, err);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -741,6 +916,45 @@ cudaError_t launch_k7(RankPtrs ptrs, int p, long long m, void* slots,
       slots, flags, ctas, vec, threads, s);
 }
 
+// K10 and K11 share the flag layout of K3/K5: landed then consumed,
+// each [p][ndir][ctas].
+template <typename T>
+cudaError_t launch_k10(RankPtrs ptrs, int p, long long c, long long chunk,
+                       int depth, int ndir, void* slots, unsigned* flags,
+                       int ctas, int threads, cudaStream_t s) {
+  const void* kern = reinterpret_cast<const void*>(&hbm_alltoall_kernel<T>);
+  int B, *err;
+  cudaError_t e = error_word(&err);
+  if (e == cudaSuccess) e = fit_ctas(kern, p * ndir, ctas, threads, &B);
+  if (e != cudaSuccess) return e;
+  T* sl = static_cast<T*>(slots);
+  unsigned* landed = flags;
+  unsigned* consumed = flags + static_cast<long long>(p) * ndir * ctas;
+  void* args[] = {&ptrs, &p, &c, &chunk, &depth, &ndir, &B, &sl, &landed,
+                  &consumed, &err};
+  return cudaLaunchCooperativeKernel(kern, dim3(p * ndir * B),
+                                     dim3(threads), args, 0, s);
+}
+
+template <typename T>
+cudaError_t launch_k11(RankPtrs ptrs, const long long* tables, int p,
+                       long long chunk, int depth, int ndir, void* slots,
+                       unsigned* flags, int ctas, int threads,
+                       cudaStream_t s) {
+  const void* kern = reinterpret_cast<const void*>(&hbm_alltoallv_kernel<T>);
+  int B, *err;
+  cudaError_t e = error_word(&err);
+  if (e == cudaSuccess) e = fit_ctas(kern, p * ndir, ctas, threads, &B);
+  if (e != cudaSuccess) return e;
+  T* sl = static_cast<T*>(slots);
+  unsigned* landed = flags;
+  unsigned* consumed = flags + static_cast<long long>(p) * ndir * ctas;
+  void* args[] = {&ptrs, &tables, &p, &chunk, &depth, &ndir, &B, &sl,
+                  &landed, &consumed, &err};
+  return cudaLaunchCooperativeKernel(kern, dim3(p * ndir * B),
+                                     dim3(threads), args, 0, s);
+}
+
 int element_size(int dtype) {
   switch (dtype) {
     case F32: case I32: return 4;
@@ -827,6 +1041,39 @@ int mv2t_ring_all_gather(int dtype, const void* ins, const void* outs,
     case 4: return static_cast<int>(launch_k7<uint32_t>(ptrs, p, m, slots, fl, ctas, vec, threads, s));
     case 2: return static_cast<int>(launch_k7<uint16_t>(ptrs, p, m, slots, fl, ctas, vec, threads, s));
     case 1: return static_cast<int>(launch_k7<uint8_t>(ptrs, p, m, slots, fl, ctas, vec, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int mv2t_hbm_alltoall(int dtype, const void* ins, const void* outs, int p,
+                      long long c, long long chunk, int depth, int ndir,
+                      void* slots, void* flags, int ctas, int threads,
+                      void* stream) {
+  if (bad_ranks(p)) return static_cast<int>(cudaErrorInvalidValue);
+  const RankPtrs ptrs = rank_ptrs(ins, outs, p);
+  unsigned* fl = static_cast<unsigned*>(flags);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (element_size(dtype)) {
+    case 4: return static_cast<int>(launch_k10<uint32_t>(ptrs, p, c, chunk, depth, ndir, slots, fl, ctas, threads, s));
+    case 2: return static_cast<int>(launch_k10<uint16_t>(ptrs, p, c, chunk, depth, ndir, slots, fl, ctas, threads, s));
+    case 1: return static_cast<int>(launch_k10<uint8_t>(ptrs, p, c, chunk, depth, ndir, slots, fl, ctas, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int mv2t_hbm_alltoallv(int dtype, const void* ins, const void* outs, int p,
+                       const void* tables, long long chunk, int depth,
+                       int ndir, void* slots, void* flags, int ctas,
+                       int threads, void* stream) {
+  if (bad_ranks(p)) return static_cast<int>(cudaErrorInvalidValue);
+  const RankPtrs ptrs = rank_ptrs(ins, outs, p);
+  const long long* tb = static_cast<const long long*>(tables);
+  unsigned* fl = static_cast<unsigned*>(flags);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (element_size(dtype)) {
+    case 4: return static_cast<int>(launch_k11<uint32_t>(ptrs, tb, p, chunk, depth, ndir, slots, fl, ctas, threads, s));
+    case 2: return static_cast<int>(launch_k11<uint16_t>(ptrs, tb, p, chunk, depth, ndir, slots, fl, ctas, threads, s));
+    case 1: return static_cast<int>(launch_k11<uint8_t>(ptrs, tb, p, chunk, depth, ndir, slots, fl, ctas, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,8 +4,8 @@ of the JAX package's ``mpit.py`` pvar registry, under the same names):
 * ``coll_level_chip`` / ``coll_level_ici`` - counters: collective calls
   on the slot channel / on the 1:1 mesh channel;
 * ``dev_coll_tier_{vmem,hbm}`` - counters: mesh-channel calls per
-  planned ring tier; ``dev_coll_fallback_{size,dtype,shape}`` - calls
-  that took the stock torch reduction instead, by reason (the JAX
+  planned kernel tier; ``dev_coll_fallback_{size,dtype,shape}`` - calls
+  that took the stock torch lowering instead, by reason (the JAX
   package counts its XLA takes the same way; it has no
   ``dev_coll_tier_xla``);
 * ``dev_effbw_<tier>`` - high-watermarks: the best per-call rate (GB/s)
@@ -70,17 +70,18 @@ pvar("dev_coll_tier_vmem", PVAR_CLASS_COUNTER,
      "device collective calls planned on the small-message resident "
      "ring tier (ops/ring.py, K6/K7)")
 pvar("dev_coll_tier_hbm", PVAR_CLASS_COUNTER,
-     "device collective calls planned on the chunked streaming ring "
-     "tier (ops/ici.py, K3/K5)")
+     "device collective calls planned on the chunked streaming tier: the "
+     "ring (ops/ici.py, K3/K5) or the pairwise alltoall(v) "
+     "(ops/alltoall.py, K10/K11)")
 pvar("dev_coll_fallback_size", PVAR_CLASS_COUNTER,
-     "device collectives routed to the stock torch reduction because "
+     "device collectives routed to the stock torch lowering because "
      "the shard was at or past DEV_TIER_XLA_MIN (or past the resident "
      "kernels' 4 MiB limit)")
 pvar("dev_coll_fallback_dtype", PVAR_CLASS_COUNTER,
-     "device collectives routed to the stock torch reduction because "
-     "the op or dtype does not lower to the ring kernels")
+     "device collectives routed to the stock torch lowering because "
+     "the op or dtype does not lower to the kernels")
 pvar("dev_coll_fallback_shape", PVAR_CLASS_COUNTER,
-     "device collectives routed to the stock torch reduction because "
+     "device collectives routed to the stock torch lowering because "
      "of a degenerate buffer extent")
 for _tier in ("vmem", "hbm", "xla", "slot"):
     pvar(f"dev_effbw_{_tier}", PVAR_CLASS_HIGHWATERMARK,

@@ -68,6 +68,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
             ("m", _I64), ("slots", _P), ("flags", _P), ("ctas", _I),
             ("vec", _I), ("threads", _I), ("stream", _P))),
+        "mv2t_hbm_alltoall": (_I, (
+            ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
+            ("c", _I64), ("chunk", _I64), ("depth", _I), ("ndir", _I),
+            ("slots", _P), ("flags", _P), ("ctas", _I), ("threads", _I),
+            ("stream", _P))),
+        "mv2t_hbm_alltoallv": (_I, (
+            ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
+            ("tables", _P), ("chunk", _I64), ("depth", _I), ("ndir", _I),
+            ("slots", _P), ("flags", _P), ("ctas", _I), ("threads", _I),
+            ("stream", _P))),
         "mv2t_ring_error": (_I, (("clear", _I),)),
         "mv2t_error_string": (ctypes.c_char_p, (("code", _I),)),
     },

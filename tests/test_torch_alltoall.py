@@ -1,0 +1,288 @@
+"""Parity of the port's alltoall module (mvapich2_tpu_torch/ops/
+alltoall.py: K10 hbm_alltoall, K11 hbm_alltoallv, their helpers and the
+tier dispatch; plain route on the CPU) with the JAX package's
+ops/pallas_alltoall.py run in Pallas interpret mode on the 8-device
+virtual CPU mesh. The interpreter of this jax cannot signal a remote
+semaphore, so the JAX kernels run with ``credits=False`` (the
+interpreter's creditless mode: its emulation is synchronous).
+
+Shapes: p = 8 with small ``chunk_bytes`` so every call makes many
+chunks; a block that is not a multiple of the chunk; one and two lanes;
+the MoE bench's three routing matrices; a matrix with zero-count pairs,
+a row of zeros and steps that are empty on every rank.
+
+Tolerances: bitwise everywhere (the kernels only move bytes).
+
+Every test that changes an MV2T_* variable restores it and reloads both
+packages' configs in the fixture's teardown, and the JAX package's
+measured-profile tables are swapped for empty ones while a test runs."""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from mvapich2_tpu.bench.moe import routing as jax_routing
+from mvapich2_tpu.coll import tuning as jax_tuning
+from mvapich2_tpu.ops import pallas_alltoall
+from mvapich2_tpu.parallel import MeshComm, make_mesh as jax_make_mesh
+from mvapich2_tpu.utils.config import get_config as jax_config
+from mvapich2_tpu_torch import mpit
+from mvapich2_tpu_torch.ops import alltoall
+from mvapich2_tpu_torch.utils.config import get_config
+
+NP = 8
+
+
+@pytest.fixture(scope="module")
+def comm8():
+    return MeshComm(jax_make_mesh((NP,), ("x",)))
+
+
+@pytest.fixture
+def env(monkeypatch):
+    """``env(NAME=value or None)`` sets MV2T_NAME for both packages; the
+    teardown restores the environment and reloads both configs. No
+    measured JAX profile is in force while the test runs."""
+    monkeypatch.setattr(jax_tuning, "_DEVICE_CROSSOVERS", {})
+    monkeypatch.setattr(jax_tuning, "_KERNEL_PARAMS", {})
+
+    def set_env(**kw):
+        for k, v in kw.items():
+            if v is None:
+                monkeypatch.delenv(f"MV2T_{k}", raising=False)
+            else:
+                monkeypatch.setenv(f"MV2T_{k}", str(v))
+        jax_config().reload()
+        get_config().reload()
+    set_env()
+    yield set_env
+    monkeypatch.undo()
+    jax_config().reload()
+    get_config().reload()
+
+
+def _data(seed, shape, kind):
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        return rng.normal(size=shape).astype(np.float32)
+    if kind == "int32":
+        return rng.integers(-2**31, 2**31 - 1, size=shape, dtype=np.int32)
+    raise ValueError(kind)
+
+
+def _sparse():
+    """Zero-count pairs, a row of zeros (rank 6 sends nothing but
+    receives), and steps 2, 4, 5 and 6 empty on every rank."""
+    c = [[0] * NP for _ in range(NP)]
+    for r, j, n in ((0, 1, 37), (1, 2, 5), (2, 3, 1), (3, 6, 19),
+                    (5, 0, 3), (7, 6, 11), (4, 4, 7)):
+        c[r][j] = n
+    return c
+
+
+def _jax_alltoallv(comm8, payloads, counts, **kw):
+    """The JAX K11 over the payloads, each padded to the mesh-wide
+    in_len (shard_map needs uniform shapes); one row per rank."""
+    _, _, in_len, _ = pallas_alltoall.packed_displs(counts)
+    buf = np.zeros((NP, in_len), payloads[0].dtype)
+    for r, x in enumerate(payloads):
+        buf[r, :x.size] = x
+    out = comm8.run(lambda s: pallas_alltoall.hbm_alltoallv(
+        s, "x", NP, counts, interpret=True, credits=False, **kw),
+        jnp.asarray(buf.reshape(-1)))
+    return np.asarray(out).reshape(NP, -1)
+
+
+# ---------------------------------------------------------------------------
+# K10 against the JAX kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind,c,chunk_bytes,bidirectional,depth", [
+    ("normal", 13, 16, True, 2),     # ragged: 13 = 3 chunks of 4 + 1
+    ("int32", 13, 16, False, 3),     # one lane, depth 3
+])
+def test_alltoall_parity(comm8, kind, c, chunk_bytes, bidirectional,
+                         depth):
+    xv = _data(c + depth, (NP, NP * c), kind)
+    want = comm8.run(lambda s: pallas_alltoall.hbm_alltoall(
+        s, "x", NP, chunk_bytes=chunk_bytes, depth=depth,
+        bidirectional=bidirectional, interpret=True, credits=False),
+        jnp.asarray(xv.reshape(-1)))
+    want = np.asarray(want).reshape(NP, NP * c)
+    alltoall.reset_counts()
+    got = alltoall.hbm_alltoall([torch.from_numpy(r) for r in xv],
+                                chunk_bytes=chunk_bytes, depth=depth,
+                                bidirectional=bidirectional)
+    assert alltoall.PLAIN_CALLS["hbm_alltoall"] == 1
+    assert alltoall.LAUNCHES["hbm_alltoall"] == 0
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        alltoall.hbm_alltoall_ref(torch.from_numpy(xv)).numpy(), want)
+
+
+def test_alltoall_edges():
+    x = torch.arange(24, dtype=torch.float32).reshape(1, 24)
+    assert torch.equal(alltoall.hbm_alltoall(x), x)              # p == 1
+    empty = [torch.empty(0) for _ in range(NP)]
+    assert alltoall.hbm_alltoall(empty).shape == (NP, 0)
+    with pytest.raises(ValueError, match="not divisible"):
+        alltoall.hbm_alltoall(torch.zeros(NP, 12))
+
+
+# ---------------------------------------------------------------------------
+# K11 against the JAX kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,kind,chunk_bytes,bidirectional", [
+    ("hot", "normal", 16, True),
+    ("skew", "int32", 16, False),
+    ("uniform", "normal", 16, True),
+    ("sparse", "int32", 8, True),
+])
+def test_alltoallv_parity(comm8, shape, kind, chunk_bytes, bidirectional):
+    counts = _sparse() if shape == "sparse" else jax_routing(NP, 24, shape)
+    payloads = [_data(40 + r, (sum(counts[r]),), kind) for r in range(NP)]
+    want = _jax_alltoallv(comm8, payloads, counts, chunk_bytes=chunk_bytes,
+                          bidirectional=bidirectional)
+    alltoall.reset_counts()
+    got = alltoall.hbm_alltoallv([torch.from_numpy(x) for x in payloads],
+                                 counts, chunk_bytes=chunk_bytes,
+                                 bidirectional=bidirectional)
+    assert alltoall.PLAIN_CALLS["hbm_alltoallv"] == 1
+    assert alltoall.LAUNCHES["hbm_alltoallv"] == 0
+    for j in range(NP):
+        recv = sum(counts[r][j] for r in range(NP))
+        assert got[j].numel() == recv              # own receive length
+        np.testing.assert_array_equal(got[j].numpy(), want[j, :recv])
+
+
+def test_alltoallv_layouts_and_lowerings_agree():
+    """The plain version, the stock index-copy lowering and explicit
+    displacements with ``out_len`` agree; unwritten places are zero."""
+    counts = _sparse()
+    xs = [torch.arange(sum(counts[r]), dtype=torch.int32) + 100 * r
+          for r in range(NP)]
+    ref = alltoall.hbm_alltoallv_ref(xs, counts)
+    plan = alltoall._VPlan(xs, counts, None, None, None, "t")
+    for a, b in zip(alltoall._stock_all_to_allv(xs, plan), ref):
+        assert torch.equal(a, b)
+    assert [t.numel() for t in ref] == [3, 37, 5, 1, 7, 0, 30, 0]
+    # each rank's sends spread out with gaps, receives at rank*4
+    sd = [[4 * j for j in range(NP)] for _ in range(NP)]
+    rd = [[4 * j for j in range(NP)] for _ in range(NP)]
+    small = [[min(c, 4) for c in row] for row in counts]
+    spread = [torch.arange(4 * NP, dtype=torch.int32) + 100 * r
+              for r in range(NP)]
+    got = alltoall.hbm_alltoallv(spread, small, sdispls=sd, rdispls=rd,
+                                 out_len=40)
+    for j in range(NP):
+        want = torch.zeros(40, dtype=torch.int32)
+        for r in range(NP):
+            n = small[r][j]
+            want[4 * r:4 * r + n] = spread[r][4 * j:4 * j + n]
+        assert torch.equal(got[j], want)
+    with pytest.raises(ValueError, match="payload"):
+        alltoall.hbm_alltoallv([x[:-1] if x.numel() else x for x in xs],
+                               counts)
+    with pytest.raises(ValueError, match="out_len"):
+        alltoall.hbm_alltoallv(xs, counts, out_len=2)
+
+
+# ---------------------------------------------------------------------------
+# the helpers against their JAX twins
+# ---------------------------------------------------------------------------
+
+def test_helpers_match():
+    for p in (1, 2, 3, 4, 7, 8):
+        for ndir in (1, 2):
+            assert alltoall._lane_steps(p, ndir) == \
+                pallas_alltoall._lane_steps(p, ndir)
+    for counts in (jax_routing(8, 24, "hot"), jax_routing(8, 64, "skew"),
+                   jax_routing(3, 9, "uniform"), _sparse(),
+                   [[0] * 4 for _ in range(4)]):
+        p = len(counts)
+        for chunk in (1, 4, 16, 1 << 20):
+            for s in range(1, p):
+                assert alltoall._step_wire(counts, s, chunk) == \
+                    pallas_alltoall._step_wire(counts, s, chunk)
+        assert alltoall.packed_displs(counts) == \
+            pallas_alltoall.packed_displs(counts)
+
+
+def test_planned_a2a_tier_matches(env):
+    cases = [(1, np.float32), (4 << 20, np.float32), ((4 << 20) + 1,
+             np.int8), (1 << 27, np.uint8), (0, np.float32),
+             (64, np.float16), (64, np.complex64), (64, np.bool_)]
+    torch_dt = {np.float32: torch.float32, np.int8: torch.int8,
+                np.uint8: torch.uint8, np.float16: torch.float16,
+                np.complex64: torch.complex64, np.bool_: torch.bool}
+
+    def both(nb, dt):
+        return (alltoall.planned_a2a_tier(nb, torch_dt[dt]),
+                pallas_alltoall.planned_a2a_tier(nb, dt, interpret=True))
+
+    for nb, dt in cases:
+        mine, ref = both(nb, dt)
+        assert mine == ref, (nb, dt)
+    env(DEV_TIER_VMEM_MAX="64", DEV_TIER_XLA_MIN="4096")
+    for nb in (64, 65, 4095, 4096, 1 << 20):
+        mine, ref = both(nb, np.float32)
+        assert mine == ref, nb
+    assert alltoall.planned_a2a_tier(4096, torch.float32) == ("xla",
+                                                               "size")
+    # a quant budget sends alltoall to the kernels, never raises
+    env(DEV_TIER_XLA_MIN=None, QUANT_COLL="1e-2")
+    for nb in (65, 1 << 20, 8 << 20):
+        mine, ref = both(nb, np.float32)
+        assert mine == ref == ("hbm", None), nb
+
+
+# ---------------------------------------------------------------------------
+# the dispatchers
+# ---------------------------------------------------------------------------
+
+def test_dispatch_routes_by_tier(env):
+    x = torch.from_numpy(_data(5, (NP, NP * 6), "int32"))
+    want = x.reshape(NP, NP, 6).transpose(0, 1).reshape(NP, -1)
+    counts = jax_routing(NP, 16, "hot")
+    vs = [torch.arange(sum(counts[r]), dtype=torch.float32) + 1000 * r
+          for r in range(NP)]
+    vwant = alltoall.hbm_alltoallv_ref(vs, counts)
+    before = mpit.pvar("dev_coll_fallback_size").read()
+    alltoall.reset_counts()
+    assert torch.equal(alltoall.ici_all_to_all(x), want)
+    for a, b in zip(alltoall.ici_all_to_allv(vs, counts), vwant):
+        assert torch.equal(a, b)
+    assert alltoall.PLAIN_CALLS == {"hbm_alltoall": 1, "hbm_alltoallv": 1}
+    # past DEV_TIER_XLA_MIN: the stock lowerings, the same bytes
+    env(DEV_TIER_VMEM_MAX="16", DEV_TIER_XLA_MIN="64")
+    got = alltoall.ici_all_to_all(x)
+    assert torch.equal(got, want) and got[0].data_ptr() != got[1].data_ptr()
+    for a, b in zip(alltoall.ici_all_to_allv(vs, counts), vwant):
+        assert torch.equal(a, b)
+    # a matrix of zeros takes the stock path at any size
+    env(DEV_TIER_VMEM_MAX=None, DEV_TIER_XLA_MIN=None)
+    zeros = alltoall.ici_all_to_allv([torch.empty(0)] * NP,
+                                     [[0] * NP] * NP)
+    assert [z.numel() for z in zeros] == [0] * NP
+    assert alltoall.PLAIN_CALLS == {"hbm_alltoall": 1, "hbm_alltoallv": 1}
+    # the dispatchers count nothing
+    assert mpit.pvar("dev_coll_fallback_size").read() == before
+    # one rank: its own payload
+    one = alltoall.ici_all_to_allv([torch.arange(5.0)], [[3]])
+    assert torch.equal(one[0], torch.arange(3.0))
+    assert torch.equal(alltoall.ici_all_to_all([torch.arange(4.0)]),
+                       torch.arange(4.0).reshape(1, 4))
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    meta = [torch.empty(16, device="meta") for _ in range(NP)]
+    alltoall.reset_counts()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        alltoall.hbm_alltoall(meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        alltoall.hbm_alltoallv(meta, [[2] * NP] * NP)
+    assert alltoall.PLAIN_CALLS == {"hbm_alltoall": 0, "hbm_alltoallv": 0}

@@ -303,15 +303,26 @@ def test_one_rank_mesh_binds_the_mesh_channel(env):
 
 
 def test_unported_geometry_and_alltoall_raise(env):
+    """The fold geometry and multi-axis meshes raise; so does alltoallv
+    on the slot channel, which keeps the host path in the JAX package.
+    Alltoall itself runs on the 1:1 channel (K10)."""
     with pytest.raises(NotImplementedError, match="fold channel"):
         run_ranks(8, lambda c: None, device_mesh=make_mesh((4,), ("x",),
                                                            "cpu"))
     with pytest.raises(NotImplementedError, match="1-D"):
         make_mesh((2, 4), ("x", "y"), "cpu")
+    ones = [1] * NP
     with pytest.raises(RuntimeError) as ei:
-        run_ranks(NP, lambda c: c.alltoall(np.arange(NP, dtype=np.float32)),
-                  device_mesh=make_mesh((NP,), ("x",), "cpu"), timeout=30)
+        run_ranks(NP, lambda c: c.alltoallv(np.arange(NP, dtype=np.float32),
+                                            ones, None, None, ones, None),
+                  device="cpu", timeout=30)
     assert isinstance(ei.value.__cause__, NotImplementedError)
+    assert "slot channel" in str(ei.value.__cause__)
+    got = run_ranks(NP, lambda c: c.alltoall(np.arange(NP, dtype=np.float32)
+                                             + 10 * c.rank),
+                    device_mesh=make_mesh((NP,), ("x",), "cpu"))
+    for r, out in enumerate(got):
+        np.testing.assert_array_equal(out, np.arange(NP) * 10.0 + r)
 
 
 def test_cuda_mesh_without_card_raises(monkeypatch):
