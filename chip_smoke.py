@@ -37,12 +37,27 @@ non-zero, printing no result, without them. Phases:
 7. moe: the port's MoE step bench (mvapich2_tpu_torch.bench.moe) at
    --tokens 4096 --dmodel 4096 on the card, all three routing shapes,
    one step of it held against the plain versions and x @ W;
-8. times, by CUDA events: each kernel beside its bound, its plain
+8. rma: the one-sided device windows. First (under [kernels]) the RMA
+   kernels K12/K13/K14/K17 bitwise against their plain versions, every
+   window row compared: f32, bf16, f16, i32, i8 and u8, counts below one
+   16-byte vector, misaligned disp, partial tail chunks, chunk_bytes 16
+   and the default, depth 2/3/4, origin == target at p = 2 and 8, and
+   N - 7 elements at disp 5 of a 64 MiB-a-rank window. Then the path:
+   the OSU one-sided band (mvapich2_tpu_torch.bench.osu_rma, 1 KiB to
+   4 MiB, 32 ops a fence, 3 + 12 fences, put/get/accumulate from rank 0
+   to rank 7) on a DeviceWin of 64 MiB f32 a rank over 8 virtual ranks,
+   its whole-window ops, a lock / 32 puts + get / flush / accumulate /
+   unlock epoch and a strided put; the window and every get held against
+   a plain replay, the launch counts (zeroed just before) and the
+   dev_rma_* pvars checked;
+9. times, by CUDA events: each kernel beside its bound, its plain
    version and the library call; the staging stack; the end-to-end
    allreduce latency and effective bandwidth (2*R*m/t) of both paths;
-   the end-to-end alltoall latency of the mesh path;
-9. moe profile: one MoE step of each routing shape under
-   torch.profiler, device time by kernel group and the idle share.
+   the end-to-end alltoall latency of the mesh path; the RMA kernels at
+   64 MiB and the OSU band;
+10. profiles: one MoE step of each routing shape, and one fence of 32
+   RMA ops (put, get, accumulate at 1 KiB and 4 MiB), under
+   torch.profiler: device time by kernel group and the idle share.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
@@ -70,6 +85,7 @@ HALF_TOL = dict(rtol=1e-2, atol=1e-2)  # 16-bit floats: one rounding of an f32 s
 # cores (TFLOP/s); the reductions here are far below it
 F32_PEAK_TFLOPS = 67.0
 SOURCES = ("hbm_slot", "ring")     # mvapich2_tpu_torch/csrc/<name>.cu
+RMA_KINDS = ("f32", "bf16", "f16", "i32", "i8", "u8")
 SMALL_MESH = 16 * 1024             # f32 elements: 64 KiB a rank (K6, K7)
 AG_MESH = 256 * 1024               # f32 elements: 1 MiB a rank (K5)
 RESIDENT_FULL = 1024 * 1024        # f32 elements: 4 MiB, the K6 limit
@@ -396,6 +412,72 @@ def phase_a2a_kernels(torch, np, a2a, ring, moe, dev):
     return full_err
 
 
+def phase_rma_kernels(torch, np, rma, ring, dev):
+    """K12, K13, K14 and K17 against their plain versions, bitwise, the
+    whole window compared (rows other than the target's must not move;
+    a get must leave the window as it was): RMA_KINDS, counts below one
+    16-byte vector, misaligned disp, partial tail chunks, chunk_bytes 16
+    and the default, depth 2/3/4, origin == target at p = 2 and 8, and
+    N - 7 elements at disp 5 of a 64 MiB-a-rank f32 window. Returns the
+    max abs error of the full-size checks."""
+    rng = np.random.default_rng(SEED + 900)
+    n_checks = 0
+    full_err = {}
+
+    def run(op, p, length, n, disp, origin, target, kind, cb, depth,
+            key=None, win=None, src=None):
+        nonlocal n_checks
+        if win is None:
+            win = _data(torch, np, rng, (p, length), kind, dev)
+            src = _data(torch, np, rng, (n,), kind, dev)
+        want = win.clone()
+        got = win.clone()
+        what = (f"{op} p={p} N={length} n={n} disp={disp} {origin}->"
+                f"{target} {kind} chunk={cb} depth={depth}")
+        if op == "rma_get":
+            out = rma.rma_get(got, n, origin, target, disp, chunk_bytes=cb,
+                              depth=depth)
+            ref = rma.rma_get_ref(want, n, origin, target, disp)
+        elif op == "direct_put":
+            rma.direct_put(src, got, origin, target, disp)
+            rma.rma_put_ref(src, want, origin, target, disp)
+        else:
+            getattr(rma, op)(src, got, origin, target, disp,
+                             chunk_bytes=cb, depth=depth)
+            getattr(rma, op + "_ref")(src, want, origin, target, disp)
+        torch.cuda.synchronize()
+        ring.check_errors()
+        err = _compare(torch, what, got, want, "i32")      # bitwise
+        if op == "rma_get":
+            err = _compare(torch, what + " value", out, ref, "i32")
+        n_checks += 1
+        if key:
+            full_err[key] = err
+
+    ops = ("rma_put", "rma_get", "rma_accumulate", "direct_put")
+    shapes = ((8, 64, 3, 5, 0, 7, 16, 2),       # below one vector
+              (8, 64, 21, 3, 0, 7, 16, 3),      # tail chunk, misaligned
+              (8, 64, 32, 0, 6, 1, 16, 4),      # whole chunks, aligned
+              (8, 1000, 777, 13, 2, 5, None, 2),  # the default chunk
+              (4, 4096, 4000, 96, 3, 0, 256, 3),  # many chunks
+              (2, 64, 21, 3, 1, 1, 16, 2),      # origin == target, p = 2
+              (8, 300, 250, 7, 5, 5, 64, 4))    # origin == target, p = 8
+    for op in ops:
+        for kind in RMA_KINDS:
+            for p, length, n, disp, o, t, cb, depth in shapes:
+                run(op, p, length, n, disp, o, t, kind, cb, depth)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 950)
+    win = torch.randn(R, N, generator=gen, device=dev)
+    src = torch.randn(N - 7, generator=gen, device=dev)
+    for op, key in zip(ops, ("K12", "K13", "K14", "K17")):
+        run(op, R, N, N - 7, 5, 0, R - 1, "f32", None, None, key, win, src)
+    del win, src
+    log(f"[kernels] {n_checks} RMA kernel-vs-plain checks passed, bitwise "
+        f"(64 MiB-a-rank max abs err: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in full_err.items()) + ")")
+    return full_err
+
+
 def phase_main_path(torch, np, mvt, hbm, opmod, dev):
     """The port's main path: run_ranks(8) on cuda:0, 64 MiB f32
     allreduces through the slot channel into K1, the small collectives,
@@ -699,6 +781,92 @@ def phase_mesh_a2a(torch, np, mvt, a2a, ring, mpit, moe, dev):
     return launches, res[0][1]
 
 
+RMA_PVARS = ("dev_rma_tier_rdma", "dev_rma_tier_epoch",
+             "dev_rma_fallback_noncontig", "dev_rma_fallback_size",
+             "dev_rma_fallback_dtype", "dev_rma_flush", "dev_rma_wire_bytes")
+
+
+def phase_rma(torch, osu, rma, ring, mpit, dev):
+    """The one-sided path: the OSU band (osu_rma.sweep at full size: 7
+    sizes x put/get/accumulate x 15 fences of 32 ops, then one
+    whole-window op of each kind and a K17 direct put) on a DeviceWin of
+    64 MiB f32 a rank over make_mesh((8,), ("x",), dev); then a
+    passive-target epoch on rank 7 (lock, 32 puts and a get that must
+    see them, flush, an accumulate, unlock) and a strided put that must
+    take the epoch tier. The window and every kept get are held against
+    a plain replay, bitwise; the kernels' launch counts (zeroed just
+    before) and the dev_rma_* pvars are checked. Returns (launches, the
+    band's artifact)."""
+    before = {k: mpit.pvar(k).read() for k in RMA_PVARS}
+    rma.reset_counts()
+    keep = []
+    t0 = time.perf_counter()
+    art = osu.sweep(device=dev, keep=keep)
+    win = keep[-1]["win"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1000)
+    t, m = R - 1, 4096
+    puts = [torch.randn(m, generator=gen, device=dev) for _ in range(32)]
+    acc = torch.randn(m, generator=gen, device=dev)
+    win.lock(t)
+    for i, x in enumerate(puts):
+        win.put(x, 0, t, disp=i * m)
+    h = win.get(32 * m, 0, t, 0)
+    win.flush(t)
+    got_epoch = h.value()
+    win.accumulate(acc, 0, t, disp=777)
+    win.unlock(t)
+    strided = torch.arange(1000, dtype=torch.float32, device=dev)
+    win.put(strided, 0, 3, disp=11, stride=5)
+    win.fence()
+    torch.cuda.synchronize()
+    ring.check_errors()
+    wall = time.perf_counter() - t0
+    launches = dict(rma.LAUNCHES)
+    plain = dict(rma.PLAIN_CALLS)
+    delta = {k: mpit.pvar(k).read() - before[k] for k in RMA_PVARS}
+    # the plain replay: band and whole ops, then the epoch and the strided
+    # put, on a fresh window
+    band = [e for e in keep if e["kind"] in ("put", "get", "acc",
+                                             "direct_put")]
+    want, gets = osu.replay(band, R, win.n, dev)
+    kept = [e["value"] for e in band if e["kind"] == "get"]
+    for i, x in enumerate(puts):
+        rma.rma_put_ref(x, want, 0, t, i * m)
+    want_epoch = rma.rma_get_ref(want, 32 * m, 0, t)
+    rma.rma_accumulate_ref(acc, want, 0, t, 777)
+    want[3, 11:11 + 5 * 1000:5] = strided
+    for g, w in zip(kept + [got_epoch], gets + [want_epoch]):
+        _compare(torch, "rma get value", g, w, "i32")
+    _compare(torch, "rma window after the path", win.win, want, "i32")
+    if not torch.isfinite(win.win).all():
+        raise AssertionError("rma window: non-finite values")
+    # one launch a contiguous op, none for the strided one
+    band_ops = len(osu.SIZES) * 15 * osu.WINDOW
+    want_launches = {"rma_put": band_ops + 1 + 32,
+                     "rma_get": band_ops + 1 + 1,
+                     "rma_accumulate": band_ops + 1 + 1,
+                     "direct_put": 1}
+    if launches != want_launches or any(plain.values()):
+        raise AssertionError(f"rma launches {launches} (expected "
+                             f"{want_launches}), plain calls {plain}")
+    wire = (3 * 15 * osu.WINDOW * sum(osu.SIZES) + 3 * win.n * 4
+            + (32 * m + 32 * m + m) * 4)
+    want_delta = {"dev_rma_tier_rdma": 3 * band_ops + 3 + 34,
+                  "dev_rma_tier_epoch": 1, "dev_rma_fallback_noncontig": 1,
+                  "dev_rma_fallback_size": 0, "dev_rma_fallback_dtype": 0,
+                  "dev_rma_flush": 2, "dev_rma_wire_bytes": wire}
+    if delta != want_delta:
+        raise AssertionError(f"dev_rma_* pvars moved by {delta}, expected "
+                             f"{want_delta}")
+    log(f"[rma] DeviceWin {R} x {win.n} f32 on {dev}: OSU band "
+        f"{len(osu.SIZES)} sizes x put/get/acc x 15 fences of "
+        f"{osu.WINDOW}, whole-window put/get/acc/direct_put, a lock/flush/"
+        f"unlock epoch and a strided put in {wall:.2f} s; window and "
+        f"{len(kept) + 1} gets equal the plain replay; launches {launches}; "
+        f"pvars {delta}")
+    return launches, art
+
+
 def phase_moe(torch, moe, a2a, ring, dev):
     """The MoE step bench on the card at 4096 tokens x 4096, all three
     routing shapes, with its kernels' launch counts zeroed before and
@@ -772,6 +940,25 @@ def phase_moe_profile(torch, moe, art, dev):
             b["idle_share"] = 1 - b["busy_us"] / art["results"][band][key]
         split[shape] = b or "not measured (no device activity profiled)"
     log(f"[moe] device time a step, us (torch.profiler): {split}")
+    return split
+
+
+def phase_rma_profile(torch, osu, dev):
+    """One fence of 32 ops of each kind at 1 KiB and 4 MiB on a DeviceWin
+    of 64 MiB f32 a rank, under torch.profiler: device time by kernel
+    group and the idle share of the fence. Run last, as the MoE
+    profile."""
+    from mvapich2_tpu_torch.parallel import MeshComm, make_mesh
+    from mvapich2_tpu_torch.rma import DeviceWin
+    win = DeviceWin(MeshComm(make_mesh((R,), ("x",), dev)), N)
+    split = {}
+    for kind in ("put", "get", "acc"):
+        for size in (1 << 10, 4 << 20):
+            b = osu.breakdown(win, kind, size)
+            split[f"{kind} {size}"] = b or "not measured (no device " \
+                                            "activity profiled)"
+    log(f"[rma] device time a fence of {osu.WINDOW} ops, us "
+        f"(torch.profiler): {split}")
     return split
 
 
@@ -983,6 +1170,72 @@ def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
     return rows, extra
 
 
+def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
+                    art, dev):
+    """K12, K13, K14 and K17 at the path's whole-window shape (N f32
+    elements, origin 0, target 7, disp 0), by CUDA events, beside their
+    bound (2 bytes a payload byte, 3 for the accumulate), their schedule
+    bound through the landing slot (4 moves, 5 for the accumulate), their
+    plain versions and the library call; and the OSU band of the path."""
+    bw = info.hbm_bw_gbps * 1e9
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1100)
+    win = torch.randn(R, N, generator=gen, device=dev)
+    src = torch.randn(N, generator=gen, device=dev)
+    out = torch.empty(N, device=dev)
+    sc = rma.Scratch()
+    t, nb = R - 1, N * 4
+    rows = []
+    for name, kern, src_line, fn, plain, lib, nbytes, sched, formula in (
+            ("rma_put", "K12", "mvapich2_tpu/ops/pallas_rma.py:398",
+             lambda: rma.rma_put(src, win, 0, t, scratch=sc),
+             lambda: rma.rma_put_ref(src, win, 0, t),
+             lambda: win[t].copy_(src), 2 * nb, 4 * nb,
+             "4n: read src, write slot, read slot, write window"),
+            ("rma_get", "K13", "mvapich2_tpu/ops/pallas_rma.py:429",
+             lambda: rma.rma_get(win, N, 0, t, scratch=sc),
+             lambda: rma.rma_get_ref(win, N, 0, t),
+             lambda: out.copy_(win[t]), 2 * nb, 4 * nb,
+             "4n: read window, write slot, read slot, write result"),
+            ("rma_accumulate", "K14", "mvapich2_tpu/ops/pallas_rma.py:458",
+             lambda: rma.rma_accumulate(src, win, 0, t, scratch=sc),
+             lambda: rma.rma_accumulate_ref(src, win, 0, t),
+             lambda: win[t].add_(src), 3 * nb, 5 * nb,
+             "5n: read src, write slot, read slot and window, write "
+             "window"),
+            ("direct_put", "K17", "mvapich2_tpu/rma/device.py:469",
+             lambda: rma.direct_put(src, win, 0, t),
+             lambda: rma.rma_put_ref(src, win, 0, t),
+             lambda: win[t].copy_(src), 2 * nb, 4 * nb,
+             "4n: read src, write landing, read landing, write window")):
+        ms = timing.time_ms(fn)
+        plain_ms = timing.time_ms(plain, warmup=1, iters=5)
+        lib_ms = timing.time_ms(lib)
+        ring.check_errors()
+        rows.append({"name": name, "route": "cuda",
+                     "source": "mvapich2_tpu_torch/csrc/ring.cu",
+                     "replaces": src_line, "launches": launches[name],
+                     "max_abs_err": full_err[kern], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": nbytes / bw * 1e3,
+                     "bound_by": "bytes", "library_ms": lib_ms,
+                     "schedule_bound_ms": sched / bw * 1e3,
+                     "schedule_bytes": formula})
+    extra = {"osu_rma": art}
+    log("[times] RMA kernels at 64 MiB " + "; ".join(
+        f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}, schedule "
+        f"bound {k['schedule_bound_ms']:.4f}, plain {k['plain_ms']:.4f}, "
+        f"library {k['library_ms']:.4f}), launches {k['launches']}"
+        for k in rows))
+    res, lat = art["results"], art["latency_us"]
+    for kind, band in (("put", "dev_put_bw"), ("get", "dev_get_bw"),
+                       ("acc", "dev_acc_bw")):
+        log(f"[times] OSU {band} MB/s (per-op us): " + ", ".join(
+            f"{size} B {res[band][size]:.1f} ({lat[kind][size]:.2f})"
+            for size in res[band]))
+    log("[times] OSU whole-window ops, host ms: " + ", ".join(
+        f"{k} {v['ms']:.4f}" for k, v in art["whole"].items()))
+    return rows, extra
+
+
 def phase_sweep(torch, ici, ring, tuning, timing, dev):
     """The ring kernels' launch-shape sweep (``--sweep``): K3 at 8 ranks
     x 64 MiB f32 over threads per block x blocks per SM x chunk bytes x
@@ -1046,8 +1299,8 @@ def main(argv=None):
     import mvapich2_tpu_torch as mvt
     from mvapich2_tpu_torch import mpit
     from mvapich2_tpu_torch.core import op as opmod
-    from mvapich2_tpu_torch.bench import moe
-    from mvapich2_tpu_torch.ops import _build, alltoall, hbm, ici, ring
+    from mvapich2_tpu_torch.bench import moe, osu_rma
+    from mvapich2_tpu_torch.ops import _build, alltoall, hbm, ici, ring, rma
     from mvapich2_tpu_torch.utils import detect, timing
 
     t_start = time.perf_counter()
@@ -1068,6 +1321,7 @@ def main(argv=None):
     full_err = phase_kernels(torch, np, hbm, dev)
     full_err.update(phase_ring_kernels(torch, np, ici, ring, dev))
     full_err.update(phase_a2a_kernels(torch, np, alltoall, ring, moe, dev))
+    full_err.update(phase_rma_kernels(torch, np, rma, ring, dev))
     launches, slice_launches, lat, inputs = phase_main_path(
         torch, np, mvt, hbm, opmod, dev)
     mesh_launches, mesh_lat = phase_mesh(torch, np, mvt, ici, ring, mpit,
@@ -1075,6 +1329,7 @@ def main(argv=None):
     a2a_launches, a2a_lat = phase_mesh_a2a(torch, np, mvt, alltoall, ring,
                                            mpit, moe, dev)
     moe_art = phase_moe(torch, moe, alltoall, ring, dev)
+    rma_launches, rma_art = phase_rma(torch, osu_rma, rma, ring, mpit, dev)
     info = detect.detect(dev)
     kernels, extra = phase_times(torch, hbm, timing, info, inputs, lat,
                                  launches, full_err)
@@ -1084,10 +1339,14 @@ def main(argv=None):
     a2a_kernels, a2a_extra = phase_a2a_times(
         torch, alltoall, ring, moe, timing, info, a2a_lat, a2a_launches,
         full_err, dev)
-    kernels += ring_kernels + a2a_kernels
+    rma_kernels, rma_extra = phase_rma_times(
+        torch, rma, ring, timing, info, rma_launches, full_err, rma_art, dev)
+    kernels += ring_kernels + a2a_kernels + rma_kernels
     extra.update(ring_extra)
     extra.update(a2a_extra)
+    extra.update(rma_extra)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
+    extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)
     total_s = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -1098,6 +1357,7 @@ def main(argv=None):
                        "slice_launches": slice_launches,
                        "mesh_launches": mesh_launches,
                        "mesh_a2a_launches": a2a_launches,
+                       "rma_launches": rma_launches,
                        "moe": moe_art,
                        "kernels": kernels, **extra}, f, indent=1)
     log(f"[done] {total_s:.1f} s")

@@ -8,7 +8,10 @@ bound one to one to ``p`` virtual devices of a mesh (``make_mesh``),
 whose collectives run hand-written ring and alltoall(v) kernels
 (``ops/ring.py``, ``ops/ici.py``, ``ops/alltoall.py``,
 ``csrc/ring.cu``). ``bench/moe.py`` drives alltoallv as an MoE step
-does. The JAX package ``mvapich2_tpu`` is
+does. One-sided device windows (``rma.DeviceWin``) put, get and
+accumulate through the RMA kernels of ``ops/rma.py`` (also in
+``csrc/ring.cu``); ``bench/osu_rma.py`` drives them with the OSU
+one-sided band. The JAX package ``mvapich2_tpu`` is
 the reference this package is tested against; nothing here imports it
 or JAX.
 """

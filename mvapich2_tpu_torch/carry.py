@@ -1,8 +1,10 @@
 """Buffers carried across from the JAX package.
 
 What crosses is the ``(R, n)`` numpy rank buffers that the JAX tests
-feed to ``hbm_slot_allreduce`` and ``pack_interleaved``, and the MoE
-step bench's one weight, its ``dmodel x dmodel`` expert matrix ``W``.
+feed to ``hbm_slot_allreduce`` and ``pack_interleaved``, the MoE step
+bench's one weight, its ``dmodel x dmodel`` expert matrix ``W``, and the
+``(p, n)`` rows of a one-sided device window (``np.asarray`` of the JAX
+``DeviceWin.win``).
 These functions put the same bytes into the port's tensors and back, so
 both sides of a parity test see identical inputs.
 """
@@ -51,7 +53,26 @@ def expert_from_numpy(w: np.ndarray, device="cpu") -> torch.Tensor:
     return torch.from_numpy(w).to(device)
 
 
+def window_from_numpy(rows: np.ndarray, device="cpu") -> torch.Tensor:
+    """A device window's ``(p, n)`` rows, given as numpy, as the port's
+    window state: a contiguous ``(p, n)`` tensor on ``device`` in the
+    same dtype (numpy's ``bfloat16`` of ``ml_dtypes`` becomes
+    ``torch.bfloat16``). Assign it to ``DeviceWin.win``."""
+    rows = np.ascontiguousarray(rows)
+    if rows.ndim != 2:
+        raise ValueError(f"expected (p, n) window rows, got {rows.shape}")
+    if rows.dtype.name == "bfloat16":
+        t = torch.from_numpy(rows.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(rows.copy())
+    return t.to(device)
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor's values as a numpy array of the same shape, on the
-    host."""
-    return t.detach().cpu().numpy()
+    host (``bfloat16`` as ``float32``, which holds every value)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

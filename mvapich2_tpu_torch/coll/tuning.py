@@ -10,6 +10,8 @@ value, whether set explicitly or left at its default.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 from ..utils.config import get_config
 
 # CUDA launch shape of the kernels: threads per block of the slot
@@ -42,18 +44,20 @@ def set_kernel_param(key: str, value: int) -> None:
     _KERNEL_PARAMS[key] = int(value)
 
 
-def _quant_budget() -> float:
-    """The relative-error budget MV2T_QUANT_COLL carries: ``''`` = off,
-    ``'<budget>'`` or ``'<wire>:<budget>'`` with wire q8 or fp8. A
-    malformed value reads as off, as in the JAX package."""
+def quant_params() -> Tuple[str, float]:
+    """(wire, relative-error budget) that MV2T_QUANT_COLL carries:
+    ``''`` = off, ``'<budget>'`` (wire q8) or ``'<wire>:<budget>'`` with
+    wire q8 or fp8. A malformed value reads as off, as in the JAX
+    package."""
     raw = str(get_config()["QUANT_COLL"] or "").strip()
     wire, _, budget = raw.rpartition(":")
-    if wire.strip().lower() not in ("", "q8", "fp8"):
-        return 0.0
+    wire = wire.strip().lower() or "q8"
+    if wire not in ("q8", "fp8"):
+        return "q8", 0.0
     try:
-        return max(0.0, float(budget))
+        return wire, max(0.0, float(budget))
     except ValueError:
-        return 0.0
+        return "q8", 0.0
 
 
 def device_tier(name: str, shard_nbytes: int) -> str:
@@ -67,7 +71,7 @@ def device_tier(name: str, shard_nbytes: int) -> str:
     cfg = get_config()
     if shard_nbytes <= int(cfg["DEV_TIER_VMEM_MAX"]):
         return "vmem"
-    if _quant_budget() > 0 and shard_nbytes >= _QUANT_MIN:
+    if quant_params()[1] > 0 and shard_nbytes >= _QUANT_MIN:
         return "quant"
     xmin = int(cfg["DEV_TIER_XLA_MIN"])
     if xmin >= 0 and shard_nbytes >= xmin:

@@ -19,6 +19,17 @@
 // K11 hbm_alltoallv_kernel       replaces pallas_alltoall.py hbm_alltoallv
 //    (body _hbm_alltoallv_kernel). K10 under a static p x p count matrix,
 //    every step padded to its step-wide chunk count.
+// K12 rma_put_kernel             replaces mvapich2_tpu/ops/pallas_rma.py
+//    rma_put (body _put_kernel, engine _RmaStreamer). Chunked one-sided
+//    put of src[n] into the target's window row at disp.
+// K13 rma_get_kernel             replaces pallas_rma.py rma_get (body
+//    _get_kernel). Chunked one-sided get of n window elements at disp.
+// K14 rma_acc_kernel             replaces pallas_rma.py rma_accumulate
+//    (body _acc_kernel), exact wire: MPI_SUM fold of src[n] into the
+//    target's window row at disp.
+// K17 direct_put_kernel          replaces mvapich2_tpu/rma/device.py
+//    pallas_put (body _pallas_put_kernel). Single-shot put through one
+//    landing buffer of n elements.
 //
 // Translation. A TPU remote DMA into the neighbour's VMEM slot becomes a
 // store into the downstream rank's landing slot in global memory
@@ -71,6 +82,21 @@
 // step's full W_s chunks on every rank; a padding chunk copies nothing
 // but still moves both counters, so a zero-count pair leaks no credit.
 //
+// Schedule (K12/K13/K14): the JAX partner-pair streamer, with only the
+// pair running. One launch has two lanes of B blocks: the producer
+// lane stages chunk g (n elements cut into chunks of `chunk`) into
+// landing slot g mod depth and publishes it, the consumer lane commits
+// (K12: window at disp, K13: the result) or folds (K14: window +=
+// landed, window chunk prefetched into L2 while the chunk is in flight)
+// and returns the credit. The producer writes chunk g only once the
+// consumer has consumed chunk g-depth. For K12/K14 the producer is the
+// origin side and the consumer the target side; for K13 the roles
+// reverse (the target stages its window chunks, the origin commits).
+// Ranks other than the pair are not touched (the JAX kernels' symmetric
+// permutation, where every device runs the same DMA, is a TPU
+// constraint). K17 is the single-shot form: one landing buffer of n
+// elements, one flag per block, no credits.
+//
 // Arithmetic: floats fold in float and round to the dtype at every step,
 // integers in 32 bits and wrap to the dtype, exactly as the JAX kernel's
 // dtype arithmetic; max/min propagate NaN as jnp.maximum does.
@@ -79,7 +105,9 @@
 // 2m (init copy) + (p-1)(5m/p) (reduce-scatter: read own, write slot,
 // read slot and own, write own) + (p-1)(4m/p) (all-gather) bytes for an
 // m-byte shard, against 2m for "read every input once, write every
-// output once". The landing slots (p*ndir*depth*chunk elements) are
+// output once". K12/K13/K17 move 4 bytes a payload byte (read source,
+// write slot, read slot, write destination) and K14 5 (and the window
+// read), against 2 and 3. The landing slots (p*ndir*depth*chunk elements) are
 // small enough to stay in the 50 MB L2. K10 moves 2m/p (local block) +
 // (p-1)(4m/p) (read input, write slot, read slot, write output) per
 // rank, against 2m; K11 the same over the bytes its matrix moves.
@@ -777,6 +805,118 @@ __global__ void __launch_bounds__(1024) hbm_alltoallv_kernel(RankPtrs ptrs, cons
 }
 
 // ---------------------------------------------------------------------------
+// the one-sided stream of K12, K13 and K14, and the direct put K17
+// ---------------------------------------------------------------------------
+
+// dst[i] = dst[i] + slot[i] for any alignment (the copy_any split).
+template <typename T>
+__device__ void fold_any(T* dst, const T* slot, long long cnt) {
+  constexpr int V = 16 / sizeof(T);
+  long long head = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) |
+        reinterpret_cast<uintptr_t>(slot)) & 15) == 0) {
+    head = cnt / V * V;
+    fold_range<T, SUM>(dst, slot, head, 1);
+  }
+  for (long long i = head + threadIdx.x; i < cnt; i += blockDim.x)
+    dst[i] = red<T, SUM>(dst[i], ld_cg(slot + i));
+}
+
+// Ask L2 for the lines of [p, p + bytes): no effect on the values.
+__device__ __forceinline__ void prefetch_l2(const void* p, long long bytes) {
+  const char* c = static_cast<const char*>(p);
+  for (long long i = threadIdx.x * 128ll; i < bytes;
+       i += blockDim.x * 128ll)
+    asm volatile("prefetch.global.L2 [%0];" :: "l"(c + i));
+}
+
+// One block's part of one stream of n elements from `from` to `to`
+// through `depth` landing slots of `chunk` elements. Blocks [0, B) are
+// the producer lane, [B, 2B) the consumer lane; block b of each owns
+// share b of every chunk and its own counters landed[b] / consumed[b].
+template <typename T, bool FOLD>
+__device__ void rma_stream(const T* from, T* to, long long n,
+                           long long chunk, int depth, int B, T* slots,
+                           unsigned* landed, unsigned* consumed, int* err) {
+  constexpr int kAlign = 16 / sizeof(T);
+  const int b = blockIdx.x % B;
+  const bool producer = blockIdx.x < B;
+  const long long nc = (n + chunk - 1) / chunk;
+  for (long long g = 0; g < nc; ++g) {
+    const long long off = g * chunk;
+    long long s0, s1;
+    share(min(chunk, n - off), chunk, b, B, kAlign, &s0, &s1);
+    T* slot = slots + (g % depth) * chunk;
+    if (producer) {
+      if (g >= depth &&
+          !block_wait(consumed + b, static_cast<unsigned>(g - depth + 1),
+                      err))
+        return;
+      copy_any(slot + s0, from + off + s0, s1 - s0, false);
+      block_signal(landed + b, static_cast<unsigned>(g + 1));
+    } else {
+      if constexpr (FOLD)
+        prefetch_l2(to + off + s0, (s1 - s0) * sizeof(T));
+      if (!block_wait(landed + b, static_cast<unsigned>(g + 1), err))
+        return;
+      if constexpr (FOLD)
+        fold_any(to + off + s0, slot + s0, s1 - s0);
+      else
+        copy_any(to + off + s0, slot + s0, s1 - s0, true);
+      block_signal(consumed + b, static_cast<unsigned>(g + 1));
+    }
+  }
+}
+
+// K12 (T: an unsigned type of the element's width): from = src, to =
+// the target's window row + disp.
+template <typename T>
+__global__ void __launch_bounds__(1024) rma_put_kernel(
+    const T* from, T* to, long long n, long long chunk, int depth, int B,
+    T* slots, unsigned* landed, unsigned* consumed, int* err) {
+  rma_stream<T, false>(from, to, n, chunk, depth, B, slots, landed,
+                       consumed, err);
+}
+
+// K13 (T as K12): from = the target's window row + disp, to = the
+// origin's result.
+template <typename T>
+__global__ void __launch_bounds__(1024) rma_get_kernel(
+    const T* from, T* to, long long n, long long chunk, int depth, int B,
+    T* slots, unsigned* landed, unsigned* consumed, int* err) {
+  rma_stream<T, false>(from, to, n, chunk, depth, B, slots, landed,
+                       consumed, err);
+}
+
+// K14: from = src, to = the target's window row + disp, folded.
+template <typename T>
+__global__ void __launch_bounds__(1024) rma_acc_kernel(
+    const T* from, T* to, long long n, long long chunk, int depth, int B,
+    T* slots, unsigned* landed, unsigned* consumed, int* err) {
+  rma_stream<T, true>(from, to, n, chunk, depth, B, slots, landed,
+                      consumed, err);
+}
+
+// K17 (T as K12): the origin lane stages share b of src into the landing
+// buffer and publishes it; the target lane commits it at to = the
+// window row + disp.
+template <typename T>
+__global__ void __launch_bounds__(1024) direct_put_kernel(
+    const T* src, T* to, long long n, int B, T* landing, unsigned* landed,
+    int* err) {
+  const int b = blockIdx.x % B;
+  long long s0, s1;
+  share(n, n, b, B, 16 / sizeof(T), &s0, &s1);
+  if (blockIdx.x < B) {
+    copy_any(landing + s0, src + s0, s1 - s0, false);
+    block_signal(landed + b, 1);
+  } else {
+    if (!block_wait(landed + b, 1, err)) return;
+    copy_any(to + s0, landing + s0, s1 - s0, true);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -955,6 +1095,63 @@ cudaError_t launch_k11(RankPtrs ptrs, const long long* tables, int p,
                                      dim3(threads), args, 0, s);
 }
 
+// K12/K13/K14 share the launch: two lanes of B blocks, flags landed then
+// consumed, each [ctas].
+template <typename T>
+cudaError_t launch_rma(const void* kern, const void* from, void* to,
+                       long long n, long long chunk, int depth, void* slots,
+                       unsigned* flags, int ctas, int threads,
+                       cudaStream_t s) {
+  int B, *err;
+  cudaError_t e = error_word(&err);
+  if (e == cudaSuccess) e = fit_ctas(kern, 2, ctas, threads, &B);
+  if (e != cudaSuccess) return e;
+  const T* f = static_cast<const T*>(from);
+  T* t = static_cast<T*>(to);
+  T* sl = static_cast<T*>(slots);
+  unsigned* landed = flags;
+  unsigned* consumed = flags + ctas;
+  void* args[] = {&f, &t, &n, &chunk, &depth, &B, &sl, &landed, &consumed,
+                  &err};
+  return cudaLaunchCooperativeKernel(kern, dim3(2 * B), dim3(threads), args,
+                                     0, s);
+}
+
+template <typename T> const void* put_kern() {
+  return reinterpret_cast<const void*>(&rma_put_kernel<T>);
+}
+template <typename T> const void* get_kern() {
+  return reinterpret_cast<const void*>(&rma_get_kernel<T>);
+}
+template <typename T> const void* acc_kern() {
+  return reinterpret_cast<const void*>(&rma_acc_kernel<T>);
+}
+
+// p + i elements of T
+template <typename T> T* at(void* p, long long i) {
+  return static_cast<T*>(p) + i;
+}
+template <typename T> const T* at(const void* p, long long i) {
+  return static_cast<const T*>(p) + i;
+}
+
+template <typename T>
+cudaError_t launch_k17(const void* src, void* win, long long disp,
+                       long long n, void* landing, unsigned* flags,
+                       int ctas, int threads, cudaStream_t s) {
+  const void* kern = reinterpret_cast<const void*>(&direct_put_kernel<T>);
+  int B, *err;
+  cudaError_t e = error_word(&err);
+  if (e == cudaSuccess) e = fit_ctas(kern, 2, ctas, threads, &B);
+  if (e != cudaSuccess) return e;
+  const T* sr = static_cast<const T*>(src);
+  T* to = at<T>(win, disp);
+  T* ld = static_cast<T*>(landing);
+  void* args[] = {&sr, &to, &n, &B, &ld, &flags, &err};
+  return cudaLaunchCooperativeKernel(kern, dim3(2 * B), dim3(threads), args,
+                                     0, s);
+}
+
 int element_size(int dtype) {
   switch (dtype) {
     case F32: case I32: return 4;
@@ -1074,6 +1271,69 @@ int mv2t_hbm_alltoallv(int dtype, const void* ins, const void* outs, int p,
     case 4: return static_cast<int>(launch_k11<uint32_t>(ptrs, tb, p, chunk, depth, ndir, slots, fl, ctas, threads, s));
     case 2: return static_cast<int>(launch_k11<uint16_t>(ptrs, tb, p, chunk, depth, ndir, slots, fl, ctas, threads, s));
     case 1: return static_cast<int>(launch_k11<uint8_t>(ptrs, tb, p, chunk, depth, ndir, slots, fl, ctas, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K12: src[n] into win (the target's window row) at disp. esize: the
+// element size in bytes (1, 2 or 4).
+int mv2t_rma_put(int esize, const void* src, void* win, long long disp,
+                 long long n, long long chunk, int depth, void* slots,
+                 void* flags, int ctas, int threads, void* stream) {
+  unsigned* fl = static_cast<unsigned*>(flags);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (esize) {
+    case 4: return static_cast<int>(launch_rma<uint32_t>(put_kern<uint32_t>(), src, at<uint32_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    case 2: return static_cast<int>(launch_rma<uint16_t>(put_kern<uint16_t>(), src, at<uint16_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    case 1: return static_cast<int>(launch_rma<uint8_t>(put_kern<uint8_t>(), src, at<uint8_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K13: n elements of win (the target's window row) at disp into out.
+int mv2t_rma_get(int esize, const void* win, long long disp, void* out,
+                 long long n, long long chunk, int depth, void* slots,
+                 void* flags, int ctas, int threads, void* stream) {
+  unsigned* fl = static_cast<unsigned*>(flags);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (esize) {
+    case 4: return static_cast<int>(launch_rma<uint32_t>(get_kern<uint32_t>(), at<uint32_t>(win, disp), out, n, chunk, depth, slots, fl, ctas, threads, s));
+    case 2: return static_cast<int>(launch_rma<uint16_t>(get_kern<uint16_t>(), at<uint16_t>(win, disp), out, n, chunk, depth, slots, fl, ctas, threads, s));
+    case 1: return static_cast<int>(launch_rma<uint8_t>(get_kern<uint8_t>(), at<uint8_t>(win, disp), out, n, chunk, depth, slots, fl, ctas, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K14: win (the target's window row)[disp + i] += src[i].
+int mv2t_rma_accumulate(int dtype, const void* src, void* win,
+                        long long disp, long long n, long long chunk,
+                        int depth, void* slots, void* flags, int ctas,
+                        int threads, void* stream) {
+  unsigned* fl = static_cast<unsigned*>(flags);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F32: return static_cast<int>(launch_rma<float>(acc_kern<float>(), src, at<float>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    case F16: return static_cast<int>(launch_rma<__half>(acc_kern<__half>(), src, at<__half>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    case BF16: return static_cast<int>(launch_rma<__nv_bfloat16>(acc_kern<__nv_bfloat16>(), src, at<__nv_bfloat16>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    case I32: return static_cast<int>(launch_rma<int32_t>(acc_kern<int32_t>(), src, at<int32_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    case I16: return static_cast<int>(launch_rma<int16_t>(acc_kern<int16_t>(), src, at<int16_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    case I8: return static_cast<int>(launch_rma<int8_t>(acc_kern<int8_t>(), src, at<int8_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    case U8: return static_cast<int>(launch_rma<uint8_t>(acc_kern<uint8_t>(), src, at<uint8_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K17: src[n] into win (the target's window row) at disp through one
+// landing buffer of n elements; flags: [ctas].
+int mv2t_direct_put(int esize, const void* src, void* win, long long disp,
+                    long long n, void* landing, void* flags, int ctas,
+                    int threads, void* stream) {
+  unsigned* fl = static_cast<unsigned*>(flags);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (esize) {
+    case 4: return static_cast<int>(launch_k17<uint32_t>(src, win, disp, n, landing, fl, ctas, threads, s));
+    case 2: return static_cast<int>(launch_k17<uint16_t>(src, win, disp, n, landing, fl, ctas, threads, s));
+    case 1: return static_cast<int>(launch_k17<uint8_t>(src, win, disp, n, landing, fl, ctas, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -9,7 +9,10 @@ of the JAX package's ``mpit.py`` pvar registry, under the same names):
   package counts its XLA takes the same way; it has no
   ``dev_coll_tier_xla``);
 * ``dev_effbw_<tier>`` - high-watermarks: the best per-call rate (GB/s)
-  on a tier, payload bytes over the host-clock time of the collective.
+  on a tier, payload bytes over the host-clock time of the collective;
+* ``dev_rma_tier_{rdma,quant,epoch}``, ``dev_rma_fallback_{noncontig,
+  platform,size,dtype}``, ``dev_rma_flush`` and ``dev_rma_wire_bytes`` -
+  counters of the one-sided device windows (``rma/device.py``).
 """
 
 from __future__ import annotations
@@ -87,3 +90,29 @@ for _tier in ("vmem", "hbm", "xla", "slot"):
     pvar(f"dev_effbw_{_tier}", PVAR_CLASS_HIGHWATERMARK,
          f"best per-call rate (GB/s) on the '{_tier}' device tier: "
          f"payload bytes over the host-clock time of the collective")
+pvar("dev_rma_tier_rdma", PVAR_CLASS_COUNTER,
+     "one-sided window ops served by the chunked kernels (ops/rma.py "
+     "put/get/accumulate, K12-K14)")
+pvar("dev_rma_tier_quant", PVAR_CLASS_COUNTER,
+     "one-sided accumulates served by the quantized wire (not ported: "
+     "such an op raises, so this stays 0)")
+pvar("dev_rma_tier_epoch", PVAR_CLASS_COUNTER,
+     "one-sided window ops served by the epoch tier (stock torch "
+     "indexing on the window rows, rma/device.py)")
+pvar("dev_rma_fallback_noncontig", PVAR_CLASS_COUNTER,
+     "one-sided ops routed to the epoch tier because the element "
+     "pattern is strided")
+pvar("dev_rma_fallback_platform", PVAR_CLASS_COUNTER,
+     "one-sided ops routed to the epoch tier because the kernels cannot "
+     "run here (the port plans the kernel tier everywhere: stays 0)")
+pvar("dev_rma_fallback_size", PVAR_CLASS_COUNTER,
+     "one-sided ops routed to the epoch tier because the payload is "
+     "below DEV_RMA_RDMA_MIN (or empty)")
+pvar("dev_rma_fallback_dtype", PVAR_CLASS_COUNTER,
+     "one-sided ops routed to the epoch tier because the window dtype "
+     "does not lower to the kernels (bool, complex)")
+pvar("dev_rma_flush", PVAR_CLASS_COUNTER,
+     "passive-target completion waves (flush/flush_local/unlock) closed "
+     "on a DeviceWin")
+pvar("dev_rma_wire_bytes", PVAR_CLASS_COUNTER,
+     "payload bytes the kernel tier of the one-sided windows moved")

@@ -78,6 +78,22 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("tables", _P), ("chunk", _I64), ("depth", _I), ("ndir", _I),
             ("slots", _P), ("flags", _P), ("ctas", _I), ("threads", _I),
             ("stream", _P))),
+        "mv2t_rma_put": (_I, (
+            ("esize", _I), ("src", _P), ("win", _P), ("disp", _I64),
+            ("n", _I64), ("chunk", _I64), ("depth", _I), ("slots", _P),
+            ("flags", _P), ("ctas", _I), ("threads", _I), ("stream", _P))),
+        "mv2t_rma_get": (_I, (
+            ("esize", _I), ("win", _P), ("disp", _I64), ("out", _P),
+            ("n", _I64), ("chunk", _I64), ("depth", _I), ("slots", _P),
+            ("flags", _P), ("ctas", _I), ("threads", _I), ("stream", _P))),
+        "mv2t_rma_accumulate": (_I, (
+            ("dtype", _I), ("src", _P), ("win", _P), ("disp", _I64),
+            ("n", _I64), ("chunk", _I64), ("depth", _I), ("slots", _P),
+            ("flags", _P), ("ctas", _I), ("threads", _I), ("stream", _P))),
+        "mv2t_direct_put": (_I, (
+            ("esize", _I), ("src", _P), ("win", _P), ("disp", _I64),
+            ("n", _I64), ("landing", _P), ("flags", _P), ("ctas", _I),
+            ("threads", _I), ("stream", _P))),
         "mv2t_ring_error": (_I, (("clear", _I),)),
         "mv2t_error_string": (ctypes.c_char_p, (("code", _I),)),
     },

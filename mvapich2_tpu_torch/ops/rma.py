@@ -1,0 +1,397 @@
+"""One-sided RMA kernels over the rows of a device window (counterpart of
+``mvapich2_tpu/ops/pallas_rma.py``): the kernel half of the one-sided
+lane, whose window and epoch surface is ``rma/device.py``.
+
+A window is a ``(p, N)`` tensor on one device, row r rank r's exposed
+memory. Three kernels, written in CUDA C++ in ``csrc/ring.cu``, move
+data between the origin and the target of one op through ``depth``
+landing slots of ``chunk`` elements (``RMA_CHUNK_BYTES``, 0 inheriting
+``ICI_CHUNK_BYTES``; ``ICI_PIPELINE_DEPTH``), with the chunk-credit
+handshake of the JAX streamer: the producer writes chunk g only once the
+consumer has consumed chunk g - depth.
+
+``rma_put`` (K12): ``win[target, disp:disp+n] = src``.
+``rma_get`` (K13): returns ``win[target, disp:disp+n]`` (the origin's
+``n`` elements; the JAX kernel's zero rows for the other ranks come from
+its symmetric DMA and have no counterpart here).
+``rma_accumulate`` (K14, exact wire): ``win[target, disp:disp+n] +=
+src`` (MPI_SUM; floats fold in float and round once, integers wrap).
+
+``direct_put`` (K17, ``rma/device.py`` ``pallas_put``) is the
+single-shot put through one landing buffer of ``n`` elements; it lives
+here with the other three.
+
+Routing is ``ops/ring.py``'s: CPU tensors take the plain version
+(``*_ref``), CUDA tensors launch the kernel on the current stream or
+raise; ``LAUNCHES`` and ``PLAIN_CALLS`` count each. Chunking and depth
+reorder transfers, never arithmetic, so every kernel is bitwise equal to
+its plain version. A range past the window's end raises ``ValueError``.
+
+Tier selection is :func:`planned_rma_tier`: contiguous ops of a kernel
+dtype at or above DEV_RMA_RDMA_MIN take the kernels ('rdma'); the rest
+take ``rma/device.py``'s epoch tier, with the reason named for the
+``dev_rma_fallback_*`` pvars. The quantized accumulate wire (K9's codec)
+is not ported: a call the JAX package would send to 'quant' raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .. import mpit
+from ..utils.config import get_config
+from . import ring
+from .ici import _cfg_chunk_elems as _ici_chunk_elems
+from .ici import _cfg_depth, dtype_kind
+
+LAUNCHES: Dict[str, int] = {"rma_put": 0, "rma_get": 0,
+                            "rma_accumulate": 0, "direct_put": 0}
+PLAIN_CALLS: Dict[str, int] = {"rma_put": 0, "rma_get": 0,
+                               "rma_accumulate": 0, "direct_put": 0}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# helpers (own copies of the JAX module's)
+# ---------------------------------------------------------------------------
+
+def _cfg_chunk_elems(dtype: torch.dtype, chunk_bytes: Optional[int]) -> int:
+    """RMA chunk size in elements: MV2T_RMA_CHUNK_BYTES, inheriting
+    MV2T_ICI_CHUNK_BYTES when it is 0 or less."""
+    if chunk_bytes is None:
+        chunk_bytes = int(get_config()["RMA_CHUNK_BYTES"])
+        if chunk_bytes <= 0:
+            chunk_bytes = None
+    return _ici_chunk_elems(dtype, chunk_bytes)
+
+
+def quant_block_elems(dtype: torch.dtype = torch.float32) -> int:
+    """Elements per quantization block: QUANT_BLOCK bytes of ``dtype``,
+    floored to the 4-code packing granularity (``pallas_quant``)."""
+    b = max(8, int(get_config()["QUANT_BLOCK"]) // dtype.itemsize)
+    return (b // 4) * 4
+
+
+def declared_bound(num_devices: int, wire: str = "q8") -> float:
+    """The quantized wire's relative-error contract for ``num_devices``
+    quantization hops (``pallas_quant.declared_bound``)."""
+    return num_devices * (1.0 / 254.0 if wire == "q8" else 1.0 / 28.0)
+
+
+def acc_quant_ok(dtype: torch.dtype, count: int,
+                 num_devices: Optional[int] = None) -> bool:
+    """Whether an accumulate sized for the quant bin may run quantized:
+    f32 into a block-multiple extent, with MV2T_QUANT_COLL's budget
+    covering one quantization hop."""
+    if dtype != torch.float32:
+        return False
+    from ..coll.tuning import quant_params
+    wire, budget = quant_params()
+    if budget <= 0 or budget < declared_bound(1, wire):
+        return False
+    return count % quant_block_elems(dtype) == 0
+
+
+def planned_rma_tier(kind: str, nbytes: int, dtype: torch.dtype,
+                     contiguous: bool, num_devices: Optional[int] = None,
+                     count: int = 0) -> Tuple[str, Optional[str]]:
+    """(tier, fallback_reason) for one one-sided op (``kind``: 'put',
+    'get' or 'acc'): 'rdma' (the kernels, reason None) or 'epoch' with
+    the dev_rma_fallback_* bucket: noncontig (strided), dtype (bool,
+    complex), size (empty, or below DEV_RMA_RDMA_MIN; -1 = always). The
+    kernel tier is planned on every device (no 'platform' bucket): on
+    the CPU the wrappers take their plain versions. An accumulate the
+    JAX package would send to its quantized wire raises
+    ``NotImplementedError``."""
+    if not contiguous:
+        return "epoch", "noncontig"
+    if dtype_kind(dtype) not in "fiu":
+        return "epoch", "dtype"
+    if nbytes <= 0:
+        return "epoch", "size"
+    cfg = get_config()
+    rmin = int(cfg["DEV_RMA_RDMA_MIN"])
+    if rmin < 0 or nbytes < rmin:
+        return "epoch", "size"
+    if kind == "acc":
+        qmin = int(cfg["DEV_RMA_QUANT_MIN"])
+        if qmin >= 0 and nbytes >= qmin and \
+                acc_quant_ok(dtype, count, num_devices):
+            raise NotImplementedError(
+                f"accumulate of {nbytes} bytes: MV2T_QUANT_COLL opens the "
+                f"quantized wire of K14 (rma_accumulate, quantized=True), "
+                f"whose codec is K9's (quant_ring_all_reduce); neither is "
+                f"ported")
+    return "rdma", None
+
+
+def note_rma_fallback(kind: str, reason: str, nbytes: int) -> None:
+    """Count one one-sided op that took the epoch tier (pvar family
+    dev_rma_fallback_*)."""
+    mpit.pvar(f"dev_rma_fallback_{reason}").inc()
+
+
+# ---------------------------------------------------------------------------
+# checks
+# ---------------------------------------------------------------------------
+
+def _check_window(win: torch.Tensor, what: str) -> None:
+    if win.dim() != 2 or not win.is_contiguous():
+        raise ValueError(f"{what}: the window must be a contiguous (p, N) "
+                         f"tensor, got shape {tuple(win.shape)}")
+
+
+def _check_rank(rank: int, p: int, what: str) -> None:
+    if not 0 <= rank < p:
+        raise ValueError(f"{what}: rank {rank} outside the window's {p} "
+                         f"ranks")
+
+
+def check_range(win_len: int, disp: int, n: int, stride: int,
+                what: str) -> None:
+    """Raise ``ValueError`` unless elements ``disp + stride*i`` (i < n)
+    lie in a window row of ``win_len`` elements."""
+    if disp < 0 or n < 0 or stride < 1:
+        raise ValueError(f"{what}: disp {disp}, count {n}, stride {stride}")
+    if n and disp + stride * (n - 1) >= win_len:
+        raise ValueError(f"{what}: {n} elements at disp {disp} (stride "
+                         f"{stride}) run past the window's {win_len} "
+                         f"elements")
+
+
+def _check_op(src: Optional[torch.Tensor], win: torch.Tensor, n: int,
+              origin: int, target: int, disp: int, what: str) -> None:
+    _check_window(win, what)
+    p, length = win.shape
+    _check_rank(origin, p, what)
+    _check_rank(target, p, what)
+    check_range(length, disp, n, 1, what)
+    if src is not None and (src.dtype != win.dtype or
+                            src.device != win.device):
+        raise ValueError(f"{what}: src is {src.dtype} on {src.device}, the "
+                         f"window {win.dtype} on {win.device}")
+
+
+def _no_8byte(dtype: torch.dtype, what: str) -> None:
+    if dtype_kind(dtype) in "fiu" and dtype.itemsize == 8:
+        raise NotImplementedError(f"{what}: 8-byte dtype {dtype} (the "
+                                  f"port's device kernels take at most 4 "
+                                  f"bytes an element)")
+
+
+def _elem_size(dtype: torch.dtype, what: str) -> int:
+    """Element size of a dtype the copying kernels (K12, K13, K17)
+    move."""
+    _no_8byte(dtype, what)
+    if dtype_kind(dtype) not in "fiu":
+        raise TypeError(f"{what}: dtype {dtype} does not lower to the "
+                        f"kernel (the epoch tier carries it)")
+    return dtype.itemsize
+
+
+def _acc_code(dtype: torch.dtype, what: str) -> int:
+    """dtype code of K14."""
+    _no_8byte(dtype, what)
+    code = ring.DTYPE_CODES.get(dtype)
+    if code is None:
+        raise TypeError(f"{what}: dtype {dtype} is not supported by the "
+                        f"kernel (supported: "
+                        f"{sorted(map(str, ring.DTYPE_CODES))})")
+    return code
+
+
+def _cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensors on {t.device}; the kernel takes "
+                         f"CUDA tensors (CPU tensors take the plain path)")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def add_values(cur: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``cur + src`` in the window dtype as K14 folds it: floats in
+    float, rounded once; integers wrapping."""
+    if cur.dtype.is_floating_point:
+        return (cur.float() + src.float()).to(cur.dtype)
+    return torch.add(cur, src)
+
+
+def rma_put_ref(src: torch.Tensor, win: torch.Tensor, origin: int,
+                target: int, disp: int = 0) -> torch.Tensor:
+    """Plain version of K12 and K17: ``win[target, disp:disp+n] = src``,
+    in place; returns ``win``."""
+    win[target, disp:disp + src.numel()] = src
+    return win
+
+
+def rma_get_ref(win: torch.Tensor, n: int, origin: int, target: int,
+                disp: int = 0) -> torch.Tensor:
+    """Plain version of K13: a copy of ``win[target, disp:disp+n]``."""
+    return win[target, disp:disp + n].clone()
+
+
+def rma_accumulate_ref(src: torch.Tensor, win: torch.Tensor, origin: int,
+                       target: int, disp: int = 0) -> torch.Tensor:
+    """Plain version of K14: ``win[target, disp:disp+n] += src``, in
+    place; returns ``win``."""
+    sl = win[target, disp:disp + src.numel()]
+    sl.copy_(add_values(sl, src))
+    return win
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+class Scratch:
+    """Landing slots and counters of the RMA kernels, kept across
+    launches. Every launch that shares one runs on one stream (a
+    window's), so stream order keeps them apart; the counters are zeroed,
+    stream-ordered, before each launch."""
+
+    def __init__(self) -> None:
+        self.slots: Optional[torch.Tensor] = None
+        self.flags: Optional[torch.Tensor] = None
+
+    def take(self, dev: torch.device, slot_bytes: int, nflags: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.slots is None or self.slots.device != dev or \
+                self.slots.numel() < slot_bytes:
+            self.slots = torch.empty(slot_bytes, dtype=torch.uint8,
+                                     device=dev)
+        if self.flags is None or self.flags.device != dev or \
+                self.flags.numel() < nflags:
+            self.flags = torch.empty(nflags, dtype=torch.int32, device=dev)
+        flags = self.flags[:nflags]
+        flags.zero_()
+        return self.slots, flags
+
+
+def _stream_launch(fn: str, code: int, dev: torch.device, dt: torch.dtype,
+                   n: int, ptrs: tuple, chunk_bytes, depth,
+                   scratch: Optional[Scratch]) -> None:
+    """Launch K12/K13/K14 (C entry ``fn``) over ``n`` elements; ``ptrs``
+    are the entry's pointer and displacement arguments."""
+    chunk = max(1, min(_cfg_chunk_elems(dt, chunk_bytes), n))
+    d = _cfg_depth(depth)
+    ctas = ring.ctas_per_lane(dev, 2, chunk, 16 // dt.itemsize)
+    slots, flags = (scratch or Scratch()).take(dev, d * chunk * dt.itemsize,
+                                                 2 * ctas)
+    ring.launch(fn, dev, code, *ptrs, n, chunk, d, slots.data_ptr(),
+                flags.data_ptr(), ctas)
+
+
+def _row_ptr(win: torch.Tensor, target: int) -> int:
+    return win[target].data_ptr()
+
+
+def rma_put(src: torch.Tensor, win: torch.Tensor, origin: int, target: int,
+            disp: int = 0, *, chunk_bytes: Optional[int] = None,
+            depth: Optional[int] = None,
+            scratch: Optional[Scratch] = None) -> torch.Tensor:
+    """K12: one-sided contiguous put of ``src`` into the target's window
+    row at element ``disp``, in place; returns ``win``. Rows other than
+    the target's are not touched."""
+    src = src.reshape(-1).contiguous()
+    n = src.numel()
+    _check_op(src, win, n, origin, target, disp, "rma_put")
+    if n == 0:
+        return win
+    if win.device.type == "cpu":
+        PLAIN_CALLS["rma_put"] += 1
+        return rma_put_ref(src, win, origin, target, disp)
+    _cuda(win, "rma_put")
+    esize = _elem_size(win.dtype, "rma_put")
+    _stream_launch("mv2t_rma_put", esize, win.device, win.dtype, n,
+                   (src.data_ptr(), _row_ptr(win, target),
+                    disp), chunk_bytes, depth, scratch)
+    LAUNCHES["rma_put"] += 1
+    return win
+
+
+def rma_get(win: torch.Tensor, n: int, origin: int, target: int,
+            disp: int = 0, *, chunk_bytes: Optional[int] = None,
+            depth: Optional[int] = None,
+            scratch: Optional[Scratch] = None) -> torch.Tensor:
+    """K13: one-sided contiguous get of ``n`` elements of the target's
+    window row at ``disp``; returns them, ``[n]`` (the origin's
+    result)."""
+    _check_op(None, win, n, origin, target, disp, "rma_get")
+    if n == 0:
+        return win.new_empty(0)
+    if win.device.type == "cpu":
+        PLAIN_CALLS["rma_get"] += 1
+        return rma_get_ref(win, n, origin, target, disp)
+    _cuda(win, "rma_get")
+    esize = _elem_size(win.dtype, "rma_get")
+    out = win.new_empty(n)
+    _stream_launch("mv2t_rma_get", esize, win.device, win.dtype, n,
+                   (_row_ptr(win, target), disp, out.data_ptr()),
+                   chunk_bytes, depth, scratch)
+    LAUNCHES["rma_get"] += 1
+    return out
+
+
+def rma_accumulate(src: torch.Tensor, win: torch.Tensor, origin: int,
+                   target: int, disp: int = 0, *, quantized: bool = False,
+                   chunk_bytes: Optional[int] = None,
+                   depth: Optional[int] = None,
+                   scratch: Optional[Scratch] = None) -> torch.Tensor:
+    """K14: one-sided accumulate (MPI_SUM) of ``src`` into the target's
+    window row at ``disp``, in place, through the slot/credit schedule
+    with the fold at the target; returns ``win``. ``quantized=True``
+    (the K9 codec on the wire) is not ported and raises."""
+    if quantized:
+        raise NotImplementedError("rma_accumulate: the quantized wire (K9's "
+                                  "codec) is not ported")
+    src = src.reshape(-1).contiguous()
+    n = src.numel()
+    _check_op(src, win, n, origin, target, disp, "rma_accumulate")
+    if n == 0:
+        return win
+    if win.device.type == "cpu":
+        PLAIN_CALLS["rma_accumulate"] += 1
+        return rma_accumulate_ref(src, win, origin, target, disp)
+    _cuda(win, "rma_accumulate")
+    code = _acc_code(win.dtype, "rma_accumulate")
+    _stream_launch("mv2t_rma_accumulate", code, win.device, win.dtype, n,
+                   (src.data_ptr(), _row_ptr(win, target),
+                    disp), chunk_bytes, depth, scratch)
+    LAUNCHES["rma_accumulate"] += 1
+    return win
+
+
+def direct_put(src: torch.Tensor, win: torch.Tensor, origin: int,
+               target: int, disp: int = 0) -> torch.Tensor:
+    """K17, the port of ``rma/device.py`` ``pallas_put``: a single-shot
+    put. The origin stages the whole ``src`` into one landing buffer of
+    ``n`` elements, the target commits it into its window row at
+    ``disp``; in place, returns ``win``. No chunks and no credits."""
+    src = src.reshape(-1).contiguous()
+    n = src.numel()
+    _check_op(src, win, n, origin, target, disp, "direct_put")
+    if n == 0:
+        return win
+    if win.device.type == "cpu":
+        PLAIN_CALLS["direct_put"] += 1
+        return rma_put_ref(src, win, origin, target, disp)
+    _cuda(win, "direct_put")
+    esize = _elem_size(win.dtype, "direct_put")
+    dev = win.device
+    ctas = ring.ctas_per_lane(dev, 2, n, 16 // esize)
+    landing = torch.empty(n, dtype=win.dtype, device=dev)
+    flags = torch.zeros(ctas, dtype=torch.int32, device=dev)
+    ring.launch("mv2t_direct_put", dev, esize, src.data_ptr(),
+                _row_ptr(win, target), disp, n, landing.data_ptr(),
+                flags.data_ptr(), ctas)
+    LAUNCHES["direct_put"] += 1
+    return win

@@ -1,3 +1,3 @@
-from .mesh import Mesh, make_mesh
+from .mesh import Mesh, MeshComm, make_mesh
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "MeshComm", "make_mesh"]

@@ -7,6 +7,11 @@ ranks inside one card's memory (the GPU analog of the JAX tests'
 8-device virtual CPU mesh), or on the CPU for the tests. Each rank's
 shard is its own allocation; one kernel launch covers all ``p`` ranks
 (``ops/ring.py``, ``ops/ici.py``). Multi-axis meshes are not ported.
+
+``MeshComm`` is a trimmed counterpart of the JAX package's: the mesh,
+its axis, its size and its device, which ``rma/device.py``'s
+``DeviceWin`` takes. Its collective methods run inside ``shard_map`` in
+the JAX package and have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -52,3 +57,23 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
         raise ValueError(f"mesh size must be >= 1, got {shape[0]}")
     from ..runtime.universe import resolve_device
     return Mesh(shape[0], axis_names[0], resolve_device(device))
+
+
+class MeshComm:
+    """A communicator over the mesh's one axis."""
+
+    def __init__(self, mesh: Mesh, axis=None):
+        if axis is None:
+            axis = mesh.axis_names[0]
+        if axis not in mesh.axis_names:
+            raise ValueError(f"axis {axis!r} not in {mesh.axis_names}")
+        self.mesh = mesh
+        self.axis = str(axis)
+
+    @property
+    def size(self) -> int:
+        return self.mesh.shape[self.axis]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device

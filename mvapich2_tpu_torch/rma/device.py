@@ -1,0 +1,238 @@
+"""Device-resident RMA windows: one-sided ops on device memory over a
+mesh (counterpart of ``mvapich2_tpu/rma/device.py``, the direct-RDMA
+analog of the reference's ``gen2/rdma_iba_1sc.c``).
+
+* A ``DeviceWin`` is a ``(p, n)`` tensor on the mesh's device, row r
+  rank r's exposed window memory.
+* ``put`` / ``get`` / ``accumulate`` enqueue descriptors; the closing
+  synchronization call applies them in queue order, each on a tier
+  (``ops/rma.py`` ``planned_rma_tier``):
+
+  - **rdma**: the kernels K12 ``rma_put``, K13 ``rma_get`` and K14
+    ``rma_accumulate`` (``ops/rma.py``), one launch an op, over the
+    window's landing slots and counters (allocated once per window);
+  - **epoch**: stock torch indexing on the window rows (slices, and
+    ``index_copy_`` for strided ops), the port's counterpart of the JAX
+    ppermute epoch compiler; for strided ops, bool and complex windows,
+    and payloads that are empty or below DEV_RMA_RDMA_MIN.
+
+  Every op is counted: ``dev_rma_tier_rdma`` and ``dev_rma_wire_bytes``
+  on the kernels, ``dev_rma_tier_epoch`` and ``dev_rma_fallback_<reason>``
+  on the epoch tier.
+* Synchronization grammar: ``fence()`` closes everything enqueued
+  (MPI_Win_fence); ``lock(rank)`` / ``unlock(rank)`` bound a
+  passive-target epoch on one rank, ``flush(rank)`` / ``flush_local``
+  complete that rank's queued ops mid-epoch and leave the others queued
+  (MPI_Win_lock family). Each ends with the completion wave,
+  ``ops/ring.check_errors``: the stream is drained and a kernel's spin
+  timeout raises. Local and remote completion coincide, so
+  ``flush_local`` is ``flush``.
+
+The driving program is global (it sees every rank), so descriptors carry
+explicit origin and target ranks. Ops run on the current stream of the
+window's device; MPI's rule that an origin buffer stays untouched until
+its epoch closes holds here too (a device tensor payload is read at the
+closing call, not copied at enqueue). The trace and metric hooks of the
+JAX module are not ported.
+
+``direct_put`` (K17, the port of ``pallas_put``) is the ops-level
+single-shot put into a window tensor; as in the JAX package it is not on
+``DeviceWin``'s dispatch.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from .. import mpit
+from ..ops import ring
+from ..ops import rma
+from ..ops.rma import direct_put  # noqa: F401  (K17, pallas_put's port)
+
+class DeviceWin:
+    """An MPI-style window whose memory is a ``(p, n)`` tensor on the
+    mesh's device (``comm``: a ``parallel.mesh.MeshComm``).
+
+    Ops enqueued inside an epoch are applied, in order, at the closing
+    sync call; ``get`` results become available after it through the
+    handle's ``value()``. 8-byte dtypes raise ``NotImplementedError``
+    (the port's device kernels take at most 4 bytes an element)."""
+
+    def __init__(self, comm, n: int, dtype: torch.dtype = torch.float32):
+        if dtype.itemsize == 8 and not dtype.is_complex:
+            raise NotImplementedError(f"DeviceWin: 8-byte dtype {dtype}")
+        self.comm = comm
+        self.p = comm.size
+        self.n = int(n)
+        self.dtype = dtype
+        self.device = comm.device
+        self.win = torch.zeros((self.p, self.n), dtype=dtype,
+                               device=self.device)
+        # queue entries: (op descriptor, payload tensor|None, handle|None)
+        self._queue: List[tuple] = []
+        self._locked: set = set()   # ranks under a passive access epoch
+        self._scratch = rma.Scratch()   # the kernels' slots and counters
+
+    # -- local access -----------------------------------------------------
+    def local(self, rank: int) -> torch.Tensor:
+        """Rank ``rank``'s window contents (a host copy)."""
+        return self.win[rank].to("cpu", copy=True)
+
+    def store(self, rank: int, disp: int, values) -> None:
+        """Local store into one rank's window region (outside epochs)."""
+        vals = self._payload(values)
+        rma.check_range(self.n, disp, vals.numel(), 1, "store")
+        self.win[rank, disp:disp + vals.numel()] = vals
+
+    # -- one-sided ops (enqueue; applied at the closing sync call) --------
+    def put(self, src, origin: int, target: int, disp: int = 0,
+            stride: int = 1) -> None:
+        """MPI_Put. ``stride`` > 1 writes every stride-th window element
+        starting at ``disp`` (the vector-datatype case, always on the
+        epoch tier)."""
+        src = self._payload(src)
+        self._enqueue(("put", origin, target, disp, src.numel(),
+                       int(stride)), src, None)
+
+    def accumulate(self, src, origin: int, target: int, disp: int = 0,
+                   stride: int = 1) -> None:
+        """MPI_Accumulate with MPI_SUM (the only op the device tiers take,
+        as in the JAX package)."""
+        src = self._payload(src)
+        self._enqueue(("acc", origin, target, disp, src.numel(),
+                       int(stride)), src, None)
+
+    def get(self, n: int, origin: int, target: int, disp: int = 0,
+            stride: int = 1) -> "_GetHandle":
+        h = _GetHandle(n)
+        self._enqueue(("get", origin, target, disp, int(n), int(stride)),
+                      None, h)
+        return h
+
+    def _payload(self, src) -> torch.Tensor:
+        return torch.as_tensor(src, dtype=self.dtype,
+                               device=self.device).reshape(-1)
+
+    def _enqueue(self, op, pay, h) -> None:
+        kind, origin, target, disp, n, stride = op
+        for rank in (origin, target):
+            if not 0 <= rank < self.p:
+                raise ValueError(f"{kind}: rank {rank} outside the "
+                                 f"window's {self.p} ranks")
+        rma.check_range(self.n, disp, n, stride, kind)
+        self._queue.append((op, pay, h))
+
+    # -- synchronization ---------------------------------------------------
+    def fence(self) -> None:
+        """Close the active-target access epoch: apply every enqueued op
+        (one completion wave), publish get results."""
+        if not self._queue:
+            return
+        self._dispatch(list(range(len(self._queue))))
+
+    def lock(self, rank: int) -> None:
+        """Open an exclusive passive-target access epoch on ``rank``
+        (MPI_Win_lock). One program drives every rank, so the lock is
+        epoch bookkeeping: locking a locked rank raises."""
+        if rank in self._locked:
+            raise RuntimeError(f"rank {rank} already locked")
+        self._locked.add(rank)
+
+    def unlock(self, rank: int) -> None:
+        """Close the passive epoch on ``rank``: flush its outstanding ops
+        (the completion wave), then release (MPI_Win_unlock)."""
+        if rank not in self._locked:
+            raise RuntimeError(f"rank {rank} not locked")
+        self.flush(rank)
+        self._locked.discard(rank)
+
+    def flush(self, rank: Optional[int] = None) -> None:
+        """Complete every outstanding op targeting ``rank`` (None = all
+        ranks) at origin and target (MPI_Win_flush); ops for other
+        targets stay queued (MPI makes no cross-target ordering
+        promise)."""
+        idx = [i for i, (op, _pay, _h) in enumerate(self._queue)
+               if rank is None or op[2] == rank]
+        if not idx:
+            return
+        mpit.pvar("dev_rma_flush").inc()
+        self._dispatch(idx)
+
+    def flush_local(self, rank: Optional[int] = None) -> None:
+        """MPI_Win_flush_local: local completion coincides with remote
+        completion here, so one wave."""
+        self.flush(rank)
+
+    # -- dispatch ----------------------------------------------------------
+    def _op_tier(self, op) -> Tuple[str, Optional[str]]:
+        kind, _origin, _target, _disp, n, stride = op
+        return rma.planned_rma_tier(kind, n * self.dtype.itemsize,
+                                    self.dtype, stride == 1, self.p,
+                                    count=n)
+
+    def _dispatch(self, idx: List[int]) -> None:
+        """Apply the queue entries at ``idx`` in order, each on its tier
+        (planned for all of them first, so a call that raises applies
+        nothing), then run the completion wave."""
+        entries = [self._queue[i] for i in idx]
+        tiers = [self._op_tier(op) for op, _pay, _h in entries]
+        for (op, pay, h), (tier, reason) in zip(entries, tiers):
+            nbytes = op[4] * self.dtype.itemsize
+            if tier == "epoch":
+                mpit.pvar("dev_rma_tier_epoch").inc()
+                rma.note_rma_fallback(op[0], reason, nbytes)
+                self._run_epoch(op, pay, h)
+            else:
+                mpit.pvar("dev_rma_tier_rdma").inc()
+                mpit.pvar("dev_rma_wire_bytes").inc(nbytes)
+                self._run_rdma(op, pay, h)
+        done = set(idx)
+        self._queue = [e for i, e in enumerate(self._queue)
+                       if i not in done]
+        ring.check_errors(self.device)
+
+    # -- the kernel tier --------------------------------------------------
+    def _run_rdma(self, op, pay, h) -> None:
+        kind, origin, target, disp, n, _stride = op
+        if kind == "get":
+            h._value = rma.rma_get(self.win, n, origin, target, disp,
+                                   scratch=self._scratch)
+        elif kind == "put":
+            rma.rma_put(pay, self.win, origin, target, disp,
+                        scratch=self._scratch)
+        else:
+            rma.rma_accumulate(pay, self.win, origin, target, disp,
+                               scratch=self._scratch)
+
+    # -- the epoch tier ---------------------------------------------------
+    def _run_epoch(self, op, pay, h) -> None:
+        """One op in stock torch on the target's row: a slice for stride
+        1, an index for strided ops; a get reads with the same index."""
+        kind, _origin, target, disp, n, stride = op
+        row = self.win[target]
+        if stride == 1:
+            idx = slice(disp, disp + n)
+        else:
+            idx = disp + stride * torch.arange(n, device=self.device)
+        if kind == "get":
+            h._value = row[idx].clone()
+            return
+        new = pay if kind == "put" else rma.add_values(row[idx], pay)
+        if stride == 1:
+            row[idx] = new
+        else:
+            row.index_copy_(0, idx, new)
+
+
+class _GetHandle:
+    def __init__(self, n: int):
+        self.n = n
+        self._value: Optional[torch.Tensor] = None
+
+    def value(self) -> torch.Tensor:
+        if self._value is None:
+            raise RuntimeError("get not yet completed (close the epoch: "
+                               "fence, or flush/unlock the target)")
+        return self._value

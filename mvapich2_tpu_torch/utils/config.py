@@ -8,7 +8,11 @@
   ``ICI_BIDIR`` (``ops/ici.py``);
 * the device tier edges ``DEV_TIER_VMEM_MAX`` and ``DEV_TIER_XLA_MIN``,
   and the quant budget ``QUANT_COLL`` (``coll/tuning.py``
-  ``device_tier``).
+  ``device_tier``);
+* the one-sided knobs ``RMA_CHUNK_BYTES`` (0 inherits
+  ``ICI_CHUNK_BYTES``), the tier edges ``DEV_RMA_RDMA_MIN`` and
+  ``DEV_RMA_QUANT_MIN``, and ``QUANT_BLOCK``, which the quantized
+  accumulate's gate reads (``ops/rma.py`` ``planned_rma_tier``).
 
 Each is settable through the same ``MV2T_<NAME>`` environment variable
 as in the JAX package, read at first use (``reload`` reads them again),
@@ -88,8 +92,9 @@ class Config:
 ALGO_CVARS = ("ALLREDUCE", "REDUCE", "BCAST", "ALLGATHER", "ALLTOALL",
               "REDUCE_SCATTER")
 
-# the ring engine and the device tier edges, with the JAX package's
-# defaults (mpit.py ICI_*, coll/tuning.py DEV_TIER_*)
+# the ring engine, the device tier edges and the one-sided knobs, with
+# the JAX package's defaults (mpit.py ICI_*, RMA_CHUNK_BYTES and
+# QUANT_BLOCK; coll/tuning.py DEV_TIER_* and DEV_RMA_*)
 DEVICE_CVARS = {
     "ICI_CHUNK_BYTES": 256 * 1024,
     "ICI_PIPELINE_DEPTH": 2,
@@ -97,6 +102,10 @@ DEVICE_CVARS = {
     "DEV_TIER_VMEM_MAX": 4 * 1024 * 1024,
     "DEV_TIER_XLA_MIN": -1,
     "QUANT_COLL": "",
+    "RMA_CHUNK_BYTES": 0,
+    "DEV_RMA_RDMA_MIN": 0,
+    "DEV_RMA_QUANT_MIN": 1024 * 1024,
+    "QUANT_BLOCK": 512,
 }
 
 _config = Config({"USE_DEVICE_COLL": True,

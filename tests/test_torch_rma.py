@@ -1,0 +1,385 @@
+"""Parity of the port's RMA kernel module (mvapich2_tpu_torch/ops/rma.py:
+K12 rma_put, K13 rma_get, K14 rma_accumulate, K17 direct_put, their
+helpers and the tier plan; plain route on the CPU) with the JAX
+package's ops/pallas_rma.py and rma/device.py pallas_put, run in Pallas
+interpret mode inside shard_map over the 8-device virtual CPU mesh. The
+interpreter of this jax cannot signal a remote semaphore, so
+rma_put/rma_get/rma_accumulate run with ``credits=False`` (its
+creditless mode; pallas_put has no credits).
+
+Shapes: the sweep of tests/test_pallas_rma.py (p = 2, 4, 8 x f32, bf16,
+i32; 16-byte chunks, a count of 2.5 chunks, a misaligned disp), its four
+chunk-boundary shapes for each op, and origin == target.
+
+Tolerances: bitwise everywhere (the kernels move bytes, and the
+accumulate adds once per element in the window dtype). Every window row
+is compared; for get, the origin's row of the JAX output against the
+port's result, and the JAX output's other rows are zero (its symmetric
+DMA), which the port does not reproduce.
+
+Every test that changes an MV2T_* variable restores it and reloads both
+packages' configs in the fixture's teardown, and the JAX package's
+measured-profile tables are swapped for empty ones while a test runs."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from mvapich2_tpu.coll import tuning as jax_tuning
+from mvapich2_tpu.ops import pallas_rma
+from mvapich2_tpu.parallel import make_mesh as jax_make_mesh
+from mvapich2_tpu.parallel.mesh import shard_map
+from mvapich2_tpu.rma.device import pallas_put
+from mvapich2_tpu.utils.config import get_config as jax_config
+from mvapich2_tpu_torch import carry
+from mvapich2_tpu_torch.ops import rma
+from mvapich2_tpu_torch.utils.config import get_config
+
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16),
+          "i32": (jnp.int32, torch.int32)}
+_CB = 16                         # 16-byte chunks
+_MESHES = {}
+
+
+@pytest.fixture
+def env(monkeypatch):
+    """``env(NAME=value or None)`` sets MV2T_NAME for both packages; the
+    teardown restores the environment and reloads both configs. No
+    measured JAX profile is in force while the test runs."""
+    monkeypatch.setattr(jax_tuning, "_DEVICE_CROSSOVERS", {})
+    monkeypatch.setattr(jax_tuning, "_KERNEL_PARAMS", {})
+
+    def set_env(**kw):
+        for k, v in kw.items():
+            if v is None:
+                monkeypatch.delenv(f"MV2T_{k}", raising=False)
+            else:
+                monkeypatch.setenv(f"MV2T_{k}", str(v))
+        jax_config().reload()
+        get_config().reload()
+    set_env()
+    yield set_env
+    monkeypatch.undo()
+    jax_config().reload()
+    get_config().reload()
+
+
+def _mesh(nd):
+    if nd not in _MESHES:
+        _MESHES[nd] = jax_make_mesh((nd,), ("x",), jax.devices()[:nd])
+    return _MESHES[nd]
+
+
+def _jax_run(nd, prog, win):
+    """``prog`` over the (nd, N) window rows inside shard_map; returns
+    numpy rows."""
+    mesh = _mesh(nd)
+    f = shard_map(prog, mesh=mesh, in_specs=(P("x"),), out_specs=P("x"),
+                  check_vma=False)
+    return np.asarray(jax.jit(f)(jax.device_put(
+        win, NamedSharding(mesh, P("x")))))
+
+
+def _values(rng, shape, dt):
+    """Seeded values for dtype ``dt``: normal floats (bf16: rounded
+    from f32), full-range int32 (so accumulates wrap)."""
+    if dt == "i32":
+        return rng.integers(-2**31, 2**31 - 1, size=shape, dtype=np.int32)
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _both(a, dt):
+    """The same values as a JAX array and a torch tensor of ``dt``."""
+    jdt, tdt = DTYPES[dt]
+    j = jnp.asarray(a, jdt)
+    return j, carry.window_from_numpy(np.asarray(j)[None])[0].clone() \
+        if a.ndim == 1 else carry.window_from_numpy(np.asarray(j))
+
+
+def _np(x):
+    """numpy rows of a JAX array or torch tensor, bf16 as f32."""
+    if isinstance(x, torch.Tensor):
+        return carry.to_numpy(x)
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
+
+
+def _nelems(dt):
+    epc = _CB // (2 if dt == "bf16" else 4)
+    return 2 * epc + epc // 2
+
+
+def _case(seed, nd, dt, n, extra=8):
+    rng = np.random.default_rng(seed)
+    jwin, twin = _both(_values(rng, (nd, n + extra), dt), dt)
+    jsrc, tsrc = _both(_values(rng, (n,), dt), dt)
+    return jwin, twin, jsrc, tsrc
+
+
+def _check_put(nd, dt, n, disp, origin, target, cb, seed):
+    jwin, twin, jsrc, tsrc = _case(seed, nd, dt, n, extra=max(8, disp + 5))
+    want = _jax_run(nd, lambda w: pallas_rma.rma_put(
+        jsrc, w[0], "x", nd, origin, target, disp, chunk_bytes=cb,
+        interpret=True, credits=False)[None, :], jwin)
+    rma.reset_counts()
+    got = rma.rma_put(tsrc, twin, origin, target, disp, chunk_bytes=cb)
+    assert got is twin and rma.PLAIN_CALLS["rma_put"] == 1
+    assert rma.LAUNCHES["rma_put"] == 0
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def _check_get(nd, dt, n, disp, origin, target, cb, seed):
+    jwin, twin, _, _ = _case(seed, nd, dt, n, extra=max(8, disp + 5))
+    want = _jax_run(nd, lambda w: pallas_rma.rma_get(
+        w[0], n, "x", nd, origin, target, disp, chunk_bytes=cb,
+        interpret=True, credits=False)[None, :], jwin)
+    before = twin.clone()
+    rma.reset_counts()
+    got = rma.rma_get(twin, n, origin, target, disp, chunk_bytes=cb)
+    assert rma.PLAIN_CALLS["rma_get"] == 1
+    np.testing.assert_array_equal(_np(got), _np(want)[origin])
+    # the JAX kernel's symmetric DMA leaves zeros on every other rank
+    others = [r for r in range(nd) if r != origin]
+    assert not _np(want)[others].any()
+    assert torch.equal(twin, before)
+
+
+def _check_acc(nd, dt, n, disp, origin, target, cb, seed):
+    jwin, twin, jsrc, tsrc = _case(seed, nd, dt, n, extra=max(8, disp + 5))
+    want = _jax_run(nd, lambda w: pallas_rma.rma_accumulate(
+        jsrc, w[0], "x", nd, origin, target, disp, chunk_bytes=cb,
+        interpret=True, credits=False)[None, :], jwin)
+    rma.reset_counts()
+    got = rma.rma_accumulate(tsrc, twin, origin, target, disp,
+                             chunk_bytes=cb)
+    assert got is twin and rma.PLAIN_CALLS["rma_accumulate"] == 1
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def _check_direct(nd, dt, n, disp, origin, target, cb, seed):
+    jwin, twin, jsrc, tsrc = _case(seed, nd, dt, n, extra=max(8, disp + 5))
+    want = _jax_run(nd, lambda w: pallas_put(
+        jsrc, w[0], "x", origin, target, disp, interpret=True)[None, :],
+        jwin)
+    rma.reset_counts()
+    got = rma.direct_put(tsrc, twin, origin, target, disp)
+    assert got is twin and rma.PLAIN_CALLS["direct_put"] == 1
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+CHECKS = {"put": _check_put, "get": _check_get, "acc": _check_acc,
+          "direct_put": _check_direct}
+
+
+# ---------------------------------------------------------------------------
+# the sweep of tests/test_pallas_rma.py, bitwise against the JAX kernels
+# ---------------------------------------------------------------------------
+
+SWEEP = [(nd, dt) for nd in (2, 4, 8) for dt in ("f32", "bf16", "i32")]
+
+
+@pytest.mark.parametrize("nd,dt", SWEEP)
+def test_put_parity(nd, dt):
+    _check_put(nd, dt, _nelems(dt), 3, nd - 2, nd - 1, _CB, nd)
+
+
+@pytest.mark.parametrize("nd,dt", SWEEP)
+def test_get_parity(nd, dt):
+    _check_get(nd, dt, _nelems(dt), 5, 0, nd - 1, _CB, 10 + nd)
+
+
+@pytest.mark.parametrize("nd,dt", SWEEP)
+def test_accumulate_parity(nd, dt):
+    _check_acc(nd, dt, _nelems(dt), 2, 1, 0, _CB, 20 + nd)
+
+
+@pytest.mark.parametrize("nd", (2, 4, 8))
+def test_direct_put_parity(nd):
+    _check_direct(nd, "f32", 7, 3, 0, nd - 1, None, 30 + nd)
+
+
+# the chunk-boundary shapes of test_pallas_rma.py, for every op
+@pytest.mark.parametrize("op", ("put", "get", "acc"))
+@pytest.mark.parametrize("n,disp,cb", [
+    (8, 0, 16),     # exact chunk multiple at the window base
+    (3, 1, 16),     # single partial chunk
+    (4, 12, 16),    # n == chunk, landing flush with the window end
+    (21, 2, 8),     # many (11) tiny chunks, partial tail
+])
+def test_chunk_boundary_shapes(op, n, disp, cb):
+    CHECKS[op](4, "f32", n, disp, 3, 1, cb, 40 + n)
+
+
+@pytest.mark.parametrize("op", ("put", "get", "acc", "direct_put"))
+@pytest.mark.parametrize("nd", (2, 8))
+def test_origin_equals_target(op, nd):
+    CHECKS[op](nd, "i32", 10, 3, nd - 1, nd - 1, _CB, 50 + nd)
+
+
+# ---------------------------------------------------------------------------
+# the helpers and the tier plan against their JAX twins
+# ---------------------------------------------------------------------------
+
+_TORCH_DT = {np.float32: torch.float32, np.int32: torch.int32,
+             np.complex64: torch.complex64, np.bool_: torch.bool,
+             np.int8: torch.int8, np.float16: torch.float16}
+
+
+def _tiers(kind, nb, dt, contiguous=True, count=0):
+    mine = rma.planned_rma_tier(kind, nb, _TORCH_DT[dt], contiguous, 8,
+                                count=count)
+    ref = pallas_rma.planned_rma_tier(kind, nb, dt, contiguous,
+                                      interpret=True, num_devices=8,
+                                      count=count)
+    return mine, ref
+
+
+def test_planned_rma_tier_matches(env):
+    for args in [("put", 4096, np.float32), ("get", 4096, np.int8),
+                 ("acc", 4096, np.float16), ("put", 4096, np.float32, False),
+                 ("get", 4096, np.complex64), ("put", 64, np.bool_),
+                 ("put", 0, np.float32), ("acc", 0, np.int32)]:
+        mine, ref = _tiers(*args)
+        assert mine == ref, args
+    assert _tiers("put", 4096, np.float32, False)[0] == ("epoch",
+                                                         "noncontig")
+    env(DEV_RMA_RDMA_MIN="1024")
+    for nb in (512, 1023, 1024, 2048):
+        mine, ref = _tiers("put", nb, np.float32)
+        assert mine == ref, nb
+    assert _tiers("put", 512, np.float32)[0] == ("epoch", "size")
+    env(DEV_RMA_RDMA_MIN="-1")
+    assert _tiers("get", 1 << 20, np.float32)[0] == ("epoch", "size")
+    assert _tiers("get", 1 << 20, np.float32)[1] == ("epoch", "size")
+
+
+def test_planned_rma_tier_quant_bin_raises(env):
+    env(QUANT_COLL="q8:1e-1", DEV_RMA_QUANT_MIN="1024")
+    nb, count = 1 << 20, (1 << 20) // 4
+    assert pallas_rma.planned_rma_tier(
+        "acc", nb, np.float32, True, interpret=True, num_devices=8,
+        count=count)[0] == "quant"
+    with pytest.raises(NotImplementedError, match="K9"):
+        rma.planned_rma_tier("acc", nb, torch.float32, True, 8, count=count)
+    # puts never quantize; int and non-block-multiple accumulates, and a
+    # budget below the one-hop bound, keep the exact kernel
+    for args in [("put", nb, np.float32, True, count),
+                 ("acc", nb, np.int32, True, count),
+                 ("acc", 520, np.float32, True, 130)]:
+        mine, ref = _tiers(*args)
+        assert mine == ref == ("rdma", None), args
+    env(QUANT_COLL="q8:1e-4")
+    mine, ref = _tiers("acc", nb, np.float32, True, count)
+    assert mine == ref == ("rdma", None)
+    env(QUANT_COLL=None)
+    mine, ref = _tiers("acc", nb, np.float32, True, count)
+    assert mine == ref == ("rdma", None)
+
+
+def test_acc_quant_ok_matches(env):
+    for spec in ("q8:1e-1", "q8:1e-4", "fp8:1e-1", "fp8:1e-2", "1e-1",
+                 "bogus:1e-1", "q8:x", ""):
+        env(QUANT_COLL=spec)
+        for dt, count in ((np.float32, 512), (np.float32, 130),
+                          (np.int32, 512), (np.float32, 128)):
+            assert rma.acc_quant_ok(_TORCH_DT[dt], count, 8) == \
+                pallas_rma.acc_quant_ok(dt, count, 8), (spec, dt, count)
+    env(QUANT_COLL="q8:1e-1", QUANT_BLOCK="1024")
+    assert rma.quant_block_elems() == 256
+    assert rma.acc_quant_ok(torch.float32, 256, 8) == \
+        pallas_rma.acc_quant_ok(np.float32, 256, 8) is True
+    assert rma.acc_quant_ok(torch.float32, 128, 8) == \
+        pallas_rma.acc_quant_ok(np.float32, 128, 8) is False
+
+
+def test_rma_chunk_inherits_ici(env):
+    for rma_cb, ici_cb in ((None, None), (None, "4096"), ("256", "4096"),
+                           ("0", "64K"), ("-1", None)):
+        env(RMA_CHUNK_BYTES=rma_cb, ICI_CHUNK_BYTES=ici_cb)
+        for dt in (np.float32, np.int8):
+            assert rma._cfg_chunk_elems(_TORCH_DT[dt], None) == \
+                pallas_rma._cfg_chunk_elems(dt, None), (rma_cb, ici_cb)
+    env(RMA_CHUNK_BYTES="256", ICI_CHUNK_BYTES=None)
+    assert rma._cfg_chunk_elems(torch.float32, None) == 64
+    assert rma._cfg_chunk_elems(torch.float32, 32) == 8
+    for d in (None, 1, 3):
+        assert rma._cfg_depth(d) == pallas_rma._cfg_depth(d)
+
+
+# ---------------------------------------------------------------------------
+# no CPU route for a tensor that is not on the CPU; argument checks
+# ---------------------------------------------------------------------------
+
+def test_wrappers_raise_on_meta_tensors(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    win = torch.empty((8, 64), device="meta")
+    src = torch.empty(16, device="meta")
+    rma.reset_counts()
+    for call in (lambda: rma.rma_put(src, win, 0, 7, 3),
+                 lambda: rma.rma_get(win, 16, 0, 7, 3),
+                 lambda: rma.rma_accumulate(src, win, 0, 7, 3),
+                 lambda: rma.direct_put(src, win, 0, 7, 3)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert not any(rma.PLAIN_CALLS.values())
+    assert not any(rma.LAUNCHES.values())
+
+
+def test_argument_checks():
+    win = torch.zeros((4, 16))
+    src = torch.ones(5)
+    rma.reset_counts()
+    with pytest.raises(ValueError, match="past the window"):
+        rma.rma_put(src, win, 0, 1, 12)
+    with pytest.raises(ValueError, match="past the window"):
+        rma.rma_get(win, 17, 0, 1)
+    with pytest.raises(ValueError, match="rank"):
+        rma.rma_accumulate(src, win, 0, 4)
+    with pytest.raises(ValueError, match="disp"):
+        rma.direct_put(src, win, 0, 1, -1)
+    with pytest.raises(ValueError, match="src is"):
+        rma.rma_put(src.int(), win, 0, 1)
+    with pytest.raises(NotImplementedError, match="quantized"):
+        rma.rma_accumulate(src, win, 0, 1, quantized=True)
+    assert not any(rma.PLAIN_CALLS.values())
+    # an empty op touches nothing and takes no route
+    assert rma.rma_put(src[:0], win, 0, 1, 16) is win
+    assert rma.rma_get(win, 0, 0, 1).numel() == 0
+    assert not any(rma.PLAIN_CALLS.values())
+    assert not win.any()
+
+
+def test_kernel_dtype_gates():
+    for dt in (torch.float64, torch.int64):
+        with pytest.raises(NotImplementedError, match="8-byte"):
+            rma._elem_size(dt, "x")
+        with pytest.raises(NotImplementedError, match="8-byte"):
+            rma._acc_code(dt, "x")
+    for dt in (torch.bool, torch.complex64):
+        with pytest.raises(TypeError):
+            rma._elem_size(dt, "x")
+    # the copies move any 1-, 2- or 4-byte element; the fold takes the
+    # seven arithmetic dtypes of the ring kernels
+    for dt in (torch.uint16, torch.uint32):
+        assert rma._elem_size(dt, "x") == dt.itemsize
+        with pytest.raises(TypeError, match="not supported"):
+            rma._acc_code(dt, "x")
+    assert rma._acc_code(torch.bfloat16, "x") == 2
+
+
+def test_plain_accumulate_arithmetic():
+    """Floats add in float and round once to the dtype; integers wrap."""
+    w = torch.tensor([[1.0, 2.0], [0.5, 3.0]], dtype=torch.bfloat16)
+    s = torch.tensor([2.0 ** -9, 1.0], dtype=torch.bfloat16)
+    want = (w[1].float() + s.float()).to(torch.bfloat16)
+    rma.rma_accumulate_ref(s, w, 0, 1)
+    assert torch.equal(w[1], want)
+    i8 = torch.tensor([[127, -128]], dtype=torch.int8)
+    rma.rma_accumulate_ref(torch.tensor([1, -1], dtype=torch.int8), i8, 0,
+                           0)
+    assert i8.tolist() == [[-128, 127]]

@@ -1,0 +1,449 @@
+"""Parity of the port's device windows (mvapich2_tpu_torch/rma/device.py:
+DeviceWin over parallel.mesh.MeshComm, its tier dispatch, the epoch
+grammar) with the JAX package's rma/device.py DeviceWin on the 8-device
+virtual CPU mesh. There the JAX window takes its epoch tier (the remote-
+DMA kernels cannot run off a TPU without the interpreter); the window
+semantics are the same on every tier, so the port's window, whose kernel
+tier takes the plain versions on the CPU, is held against it.
+
+Data: integer-valued f32, i32 and bf16 payloads (every sum exact), so
+every comparison is bitwise. Also: the scenarios of
+tests/test_device_rma.py on the port, the port's kernel tier against its
+own epoch tier, the get handle before the closing sync, the window carry
+round trip, and a CPU dry run of the OSU one-sided bench.
+
+Every test that changes an MV2T_* variable restores it and reloads both
+packages' configs in the fixture's teardown."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from mvapich2_tpu.parallel import MeshComm as JaxMeshComm
+from mvapich2_tpu.parallel import make_mesh as jax_make_mesh
+from mvapich2_tpu.rma.device import DeviceWin as JaxDeviceWin
+from mvapich2_tpu.utils.config import get_config as jax_config
+from mvapich2_tpu_torch import carry, make_mesh, mpit
+from mvapich2_tpu_torch.bench import osu_rma
+from mvapich2_tpu_torch.ops import rma
+from mvapich2_tpu_torch.parallel import MeshComm
+from mvapich2_tpu_torch.rma import DeviceWin
+from mvapich2_tpu_torch.utils.config import get_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NP = 8
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "i32": (jnp.int32, torch.int32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(scope="module")
+def jcomm():
+    return JaxMeshComm(jax_make_mesh((NP,), ("x",)))
+
+
+@pytest.fixture(scope="module")
+def comm():
+    return MeshComm(make_mesh((NP,), ("x",), "cpu"))
+
+
+@pytest.fixture
+def env(monkeypatch):
+    """``env(NAME=value or None)`` sets MV2T_NAME for both packages; the
+    teardown restores the environment and reloads both configs."""
+    def set_env(**kw):
+        for k, v in kw.items():
+            if v is None:
+                monkeypatch.delenv(f"MV2T_{k}", raising=False)
+            else:
+                monkeypatch.setenv(f"MV2T_{k}", str(v))
+        jax_config().reload()
+        get_config().reload()
+    yield set_env
+    monkeypatch.undo()
+    jax_config().reload()
+    get_config().reload()
+
+
+def _rows(x):
+    """numpy values of a JAX array/numpy array or torch tensor, bf16 as
+    f32."""
+    if isinstance(x, torch.Tensor):
+        return carry.to_numpy(x)
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
+
+
+def _pvars(*names):
+    return {k: mpit.pvar(k).read() for k in names}
+
+
+# ---------------------------------------------------------------------------
+# seeded op sequences against the JAX window
+# ---------------------------------------------------------------------------
+
+def _ops(rng, n_win, count):
+    """``count`` random ops (kind, origin, target, disp, n, stride, src):
+    contiguous and strided, small integer payloads."""
+    ops = []
+    for _ in range(count):
+        kind = ("put", "get", "acc")[rng.integers(3)]
+        stride = int(rng.choice([1, 1, 1, 2, 3]))
+        n = int(rng.integers(1, 5))
+        disp = int(rng.integers(0, n_win - stride * (n - 1)))
+        src = rng.integers(-50, 50, size=n).astype(np.float32)
+        ops.append((kind, int(rng.integers(NP)), int(rng.integers(NP)),
+                    disp, n, stride, src))
+    return ops
+
+
+@pytest.mark.parametrize("dt,seed", [("f32", 0), ("i32", 1), ("bf16", 2)])
+def test_random_sequences_match_jax(jcomm, comm, dt, seed):
+    jdt, tdt = DTYPES[dt]
+    rng = np.random.default_rng(seed)
+    n_win = 12
+    jwin = JaxDeviceWin(jcomm, n_win, dtype=jdt)
+    twin = DeviceWin(comm, n_win, tdt)
+    init = rng.integers(-100, 100, size=(NP, n_win)).astype(np.float32)
+    for r in range(NP):
+        jwin.store(r, 0, init[r])
+        twin.store(r, 0, init[r])
+    for epoch in range(3):
+        handles = []
+        for kind, o, t, disp, n, stride, src in _ops(rng, n_win, 7):
+            for w in (jwin, twin):
+                if kind == "get":
+                    h = w.get(n, o, t, disp, stride)
+                    handles.append(h)
+                elif kind == "put":
+                    w.put(src, o, t, disp, stride)
+                else:
+                    w.accumulate(src, o, t, disp, stride)
+        jwin.fence()
+        twin.fence()
+        np.testing.assert_array_equal(_rows(twin.win), _rows(jwin.win),
+                                      err_msg=f"epoch {epoch}")
+        for a, b in zip(handles[0::2], handles[1::2]):
+            np.testing.assert_array_equal(_rows(b.value()), _rows(a.value()))
+        for r in range(NP):
+            np.testing.assert_array_equal(_rows(twin.local(r)),
+                                          _rows(jwin.local(r)))
+
+
+# ---------------------------------------------------------------------------
+# the scenarios of tests/test_device_rma.py, on the port
+# ---------------------------------------------------------------------------
+
+def test_put_fence(jcomm, comm):
+    wins = (JaxDeviceWin(jcomm, 16), DeviceWin(comm, 16))
+    for w in wins:
+        for o in range(8):
+            w.put(np.full(4, 10.0 + o), origin=o, target=(o + 1) % 8,
+                  disp=2)
+        w.fence()
+    for t in range(8):
+        row = _rows(wins[1].local(t))
+        np.testing.assert_array_equal(row, _rows(wins[0].local(t)))
+        np.testing.assert_array_equal(row[2:6], np.full(4, 10.0 + (t - 1)
+                                                        % 8))
+        assert not row[:2].any() and not row[6:].any()
+
+
+def test_get_fence(comm):
+    win = DeviceWin(comm, 8)
+    for r in range(8):
+        win.store(r, 0, np.arange(8, dtype=np.float32) + 100 * r)
+    h = win.get(3, origin=2, target=5, disp=4)
+    win.fence()
+    np.testing.assert_array_equal(_rows(h.value()),
+                                  np.arange(4, 7, dtype=np.float32) + 500)
+
+
+def test_accumulate_and_epoch_reuse(jcomm, comm):
+    wins = (JaxDeviceWin(jcomm, 4), DeviceWin(comm, 4))
+    for _ in range(2):
+        for w in wins:
+            for o in range(8):
+                w.accumulate(np.full(4, float(o + 1)), origin=o, target=0)
+            w.fence()
+        np.testing.assert_array_equal(_rows(wins[1].win),
+                                      _rows(wins[0].win))
+    np.testing.assert_array_equal(_rows(wins[1].local(0)), np.full(4, 72.0))
+
+
+def test_mixed_epoch_put_then_get(comm):
+    win = DeviceWin(comm, 8)
+    win.put(np.array([7.0, 8.0]), origin=3, target=6, disp=1)
+    h = win.get(2, origin=0, target=6, disp=1)   # sees the put (ordered)
+    win.fence()
+    np.testing.assert_array_equal(_rows(h.value()), [7.0, 8.0])
+
+
+def test_kernel_tier_dispatch_and_pvars(comm):
+    """A contiguous put takes the kernel tier (K12; on the CPU its plain
+    version), counted in dev_rma_tier_rdma and dev_rma_wire_bytes, and
+    lands only on the target's row."""
+    before = _pvars("dev_rma_tier_rdma", "dev_rma_wire_bytes",
+                    "dev_rma_tier_epoch")
+    rma.reset_counts()
+    win = DeviceWin(comm, 16)
+    win.put(np.arange(4, dtype=np.float32) + 1.0, origin=2, target=5,
+            disp=3)
+    win.fence()
+    np.testing.assert_array_equal(_rows(win.local(5))[3:7],
+                                  [1.0, 2.0, 3.0, 4.0])
+    for r in range(8):
+        if r != 5:
+            assert not _rows(win.local(r)).any()
+    after = _pvars(*before)
+    assert after["dev_rma_tier_rdma"] - before["dev_rma_tier_rdma"] == 1
+    assert after["dev_rma_wire_bytes"] - before["dev_rma_wire_bytes"] == 16
+    assert after["dev_rma_tier_epoch"] == before["dev_rma_tier_epoch"]
+    assert rma.PLAIN_CALLS["rma_put"] == 1
+    assert win._op_tier(("put", 2, 5, 3, 4, 1)) == ("rdma", None)
+
+
+def test_lock_flush_unlock(jcomm, comm):
+    """Passive-target grammar: lock opens the epoch, flush completes the
+    locked rank's queued ops (the get handle resolves), unlock closes
+    with a final flush; grammar violations raise."""
+    wins = (JaxDeviceWin(jcomm, 16), DeviceWin(comm, 16))
+    before = mpit.pvar("dev_rma_flush").read()
+    handles = []
+    for w in wins:
+        w.store(6, 0, np.arange(16, dtype=np.float32))
+        w.lock(6)
+        h = w.get(5, origin=1, target=6, disp=2)
+        w.flush(6)
+        handles.append(h.value())
+        w.accumulate(np.full(3, 2.5, np.float32), origin=0, target=6,
+                     disp=1)
+        w.unlock(6)
+    np.testing.assert_array_equal(_rows(handles[1]), np.arange(2, 7))
+    np.testing.assert_array_equal(_rows(handles[1]), _rows(handles[0]))
+    np.testing.assert_array_equal(_rows(wins[1].local(6))[1:4],
+                                  np.arange(1, 4) + 2.5)
+    np.testing.assert_array_equal(_rows(wins[1].win), _rows(wins[0].win))
+    assert mpit.pvar("dev_rma_flush").read() - before == 2
+    win = wins[1]
+    win.lock(3)
+    with pytest.raises(RuntimeError, match="already locked"):
+        win.lock(3)
+    win.unlock(3)
+    with pytest.raises(RuntimeError, match="not locked"):
+        win.unlock(3)
+    # a flush with nothing queued for the rank is no completion wave
+    win.flush(3)
+    win.flush_local(3)
+    assert mpit.pvar("dev_rma_flush").read() - before == 2
+
+
+def test_flush_is_per_target(comm):
+    """flush(rank) completes only that target's queued ops; the rest stay
+    queued until the epoch closes."""
+    win = DeviceWin(comm, 8)
+    win.put(np.full(2, 3.0, np.float32), origin=0, target=3, disp=0)
+    h = win.get(2, origin=1, target=6, disp=0)
+    win.put(np.full(2, 4.0, np.float32), origin=0, target=6, disp=0)
+    win.flush_local(3)
+    np.testing.assert_array_equal(_rows(win.local(3))[:2], 3.0)
+    assert not _rows(win.local(6)).any()                 # still queued
+    assert len(win._queue) == 2
+    with pytest.raises(RuntimeError, match="not yet completed"):
+        h.value()
+    win.fence()
+    np.testing.assert_array_equal(_rows(win.local(6))[:2], 4.0)
+    assert not _rows(h.value()).any()          # queue order: get first
+
+
+def test_strided_put_epoch_fallback(jcomm, comm):
+    """A strided op takes the epoch tier, counted in
+    dev_rma_fallback_noncontig, with scatter semantics; its get reads
+    with the same index."""
+    before = _pvars("dev_rma_fallback_noncontig", "dev_rma_tier_epoch")
+    rma.reset_counts()
+    wins = (JaxDeviceWin(jcomm, 16, dtype=jnp.int32),
+            DeviceWin(comm, 16, torch.int32))
+    handles = []
+    for w in wins:
+        w.put(np.arange(4, dtype=np.int32) + 7, origin=0, target=2, disp=1,
+              stride=3)
+        w.accumulate(np.full(3, 5, np.int32), origin=1, target=2, disp=4,
+                     stride=2)
+        handles.append(w.get(4, origin=3, target=2, disp=1, stride=3))
+        w.fence()
+    row = _rows(wins[1].local(2))
+    assert list(row[[1, 4, 7, 10]]) == [7, 13, 9, 10], row
+    np.testing.assert_array_equal(row, _rows(wins[0].local(2)))
+    np.testing.assert_array_equal(_rows(handles[1].value()),
+                                  _rows(handles[0].value()))
+    assert _rows(handles[1].value()).tolist() == [7, 13, 9, 10]
+    after = _pvars(*before)
+    assert after["dev_rma_fallback_noncontig"] - \
+        before["dev_rma_fallback_noncontig"] == 3
+    assert after["dev_rma_tier_epoch"] - before["dev_rma_tier_epoch"] == 3
+    assert not any(rma.PLAIN_CALLS.values())
+
+
+def test_kernel_tier_agrees_with_epoch_tier(comm, env):
+    """int32 through the kernel tier equals, bit for bit, the epoch tier
+    of the same op sequence (MV2T_DEV_RMA_RDMA_MIN=-1 sends every op
+    there, as reason size)."""
+    rng = np.random.default_rng(7)
+    ops = _ops(rng, 12, 40)
+    wins = []
+    for rmin in (None, "-1"):
+        env(DEV_RMA_RDMA_MIN=rmin)
+        before = _pvars("dev_rma_fallback_size", "dev_rma_tier_rdma")
+        w = DeviceWin(comm, 12, torch.int32)
+        gets = []
+        for kind, o, t, disp, n, stride, src in ops:
+            src = src.astype(np.int32) * 1000003
+            if kind == "get":
+                gets.append(w.get(n, o, t, disp, stride))
+            elif kind == "put":
+                w.put(src, o, t, disp, stride)
+            else:
+                w.accumulate(src, o, t, disp, stride)
+        w.fence()
+        wins.append((w, gets, _pvars(*before), before))
+        if rmin == "-1":
+            assert w._op_tier(("put", 3, 7, 2, 5, 1)) == ("epoch", "size")
+    (a, ga, _, _), (b, gb, after, before) = wins
+    assert torch.equal(a.win, b.win)
+    for x, y in zip(ga, gb):
+        assert torch.equal(x.value(), y.value())
+    contiguous = sum(1 for op in ops if op[5] == 1)
+    assert after["dev_rma_fallback_size"] - \
+        before["dev_rma_fallback_size"] == contiguous
+    assert after["dev_rma_tier_rdma"] == before["dev_rma_tier_rdma"]
+
+
+def test_epoch_tier_reasons(comm, env):
+    before = _pvars("dev_rma_fallback_dtype", "dev_rma_fallback_size")
+    for dt in (torch.bool, torch.complex64):
+        w = DeviceWin(comm, 4, dt)
+        w.put(np.ones(2), 0, 1, 1)
+        h = w.get(2, 2, 1, 1)
+        w.fence()
+        assert _rows(h.value()).tolist() == [1, 1]
+    w = DeviceWin(comm, 4)
+    w.put(np.ones(0), 0, 1, 4)          # empty: epoch tier, reason size
+    w.fence()
+    after = _pvars(*before)
+    assert after["dev_rma_fallback_dtype"] - \
+        before["dev_rma_fallback_dtype"] == 4
+    assert after["dev_rma_fallback_size"] - \
+        before["dev_rma_fallback_size"] == 1
+    # the quantized accumulate is not ported: the closing call raises
+    # before it applies anything
+    env(QUANT_COLL="q8:1e-1", DEV_RMA_QUANT_MIN="64")
+    w = DeviceWin(comm, 1024)
+    w.put(np.ones(4), 0, 1)
+    w.accumulate(np.ones(512), 0, 1)
+    with pytest.raises(NotImplementedError, match="K9"):
+        w.fence()
+    assert len(w._queue) == 2 and not w.win.any()
+
+
+def test_window_argument_checks(comm):
+    with pytest.raises(NotImplementedError, match="8-byte"):
+        DeviceWin(comm, 4, torch.float64)
+    w = DeviceWin(comm, 8)
+    with pytest.raises(ValueError, match="past the window"):
+        w.put(np.ones(4), 0, 1, disp=5)
+    with pytest.raises(ValueError, match="past the window"):
+        w.get(3, 0, 1, disp=3, stride=3)
+    with pytest.raises(ValueError, match="rank"):
+        w.accumulate(np.ones(2), 0, 8)
+    with pytest.raises(ValueError, match="past the window"):
+        w.store(1, 7, np.ones(2))
+    assert not w._queue
+
+
+def test_get_handle_before_closing_sync(comm):
+    win = DeviceWin(comm, 8)
+    h = win.get(2, 0, 1)
+    with pytest.raises(RuntimeError, match="not yet completed"):
+        h.value()
+    win.fence()
+    assert h.value().shape == (2,)
+
+
+# ---------------------------------------------------------------------------
+# the window carry, and the OSU one-sided bench
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", ("f32", "i32", "bf16"))
+def test_window_from_numpy_round_trip(jcomm, comm, dt):
+    jdt, tdt = DTYPES[dt]
+    jwin = JaxDeviceWin(jcomm, 6, dtype=jdt)
+    for r in range(NP):
+        jwin.store(r, 0, np.arange(6, dtype=np.float32) * (r + 1) - 3)
+    rows = np.asarray(jwin.win)
+    t = carry.window_from_numpy(rows)
+    assert t.dtype == tdt and t.shape == (NP, 6)
+    np.testing.assert_array_equal(carry.to_numpy(t), _rows(rows))
+    # carried into a port window, the same ops give the same rows
+    twin = DeviceWin(comm, 6, tdt)
+    twin.win = t
+    for w in (jwin, twin):
+        w.accumulate(np.full(3, 2.0, np.float32), 4, 5, 2)
+        w.fence()
+    np.testing.assert_array_equal(_rows(twin.win), _rows(jwin.win))
+    with pytest.raises(ValueError):
+        carry.window_from_numpy(rows[0])
+
+
+def test_osu_rma_sweep_and_replay():
+    keep = []
+    art = osu_rma.sweep([64, 256], n=512, device="cpu", warmup=1, iters=2,
+                        window=4, keep=keep)
+    win = keep[-1]["win"]
+    band = keep[:-1]
+    assert [e["kind"] for e in band] == (["put"] * 2 + ["get"] * 2
+                                         + ["acc"] * 2 + ["put", "get",
+                                                          "acc",
+                                                          "direct_put"])
+    want, gets = osu_rma.replay(band, NP, 512, "cpu")
+    assert torch.equal(win.win, want)
+    kept = [e["value"] for e in band if e["kind"] == "get"]
+    assert len(kept) == len(gets) == 3
+    for a, b in zip(kept, gets):
+        assert torch.equal(a, b)
+    for band_name in ("dev_put_bw", "dev_get_bw", "dev_acc_bw"):
+        assert set(art["results"][band_name]) == {"64", "256"}
+    assert art["rma_tiers"] == {"64": "rdma", "256": "rdma"}
+    assert art["detail"]["platform"] == "cpu"
+    with pytest.raises(ValueError, match="does not fit"):
+        osu_rma.sweep([4096], n=512, device="cpu")
+
+
+def test_osu_rma_needs_a_card_unless_asked(monkeypatch, comm):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        osu_rma.sweep([64], n=64, iters=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        osu_rma.breakdown(DeviceWin(comm, 64), "put", 64)
+
+
+def test_osu_rma_cli_dry_run():
+    out = subprocess.run(
+        [sys.executable, "-m", "mvapich2_tpu_torch.bench.osu_rma",
+         "--device", "cpu", "--sizes", "64,1024", "--n", "1024",
+         "--warmup", "1", "--iters", "1", "--window", "4"],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=True)
+    art = json.loads(out.stdout)
+    for band in ("dev_put_bw", "dev_get_bw", "dev_acc_bw"):
+        assert all(v > 0 for v in art["results"][band].values())
+        assert set(art["results"][band]) == {"64", "1024"}
+    assert set(art["latency_us"]) == {"put", "get", "acc"}
+    assert set(art["whole"]) == {"put", "get", "acc", "direct_put"}
+    assert art["detail"]["device"] == "cpu"
