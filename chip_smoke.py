@@ -85,7 +85,18 @@ HALF_TOL = dict(rtol=1e-2, atol=1e-2)  # 16-bit floats: one rounding of an f32 s
 # cores (TFLOP/s); the reductions here are far below it
 F32_PEAK_TFLOPS = 67.0
 SOURCES = ("hbm_slot", "ring")     # mvapich2_tpu_torch/csrc/<name>.cu
-RMA_KINDS = ("f32", "bf16", "f16", "i32", "i8", "u8")
+RMA_KINDS = ("f32", "bf16", "f16", "i32", "i8", "u8", "u16", "u32")
+# integer kinds compared bit for bit; uint16/uint32 have their plain
+# versions run on the CPU (torch's CUDA build implements few operations
+# for them) and are compared through a same-width signed view
+BITWISE = ("f32int", "i32", "i16", "i8", "u8", "u16", "u32")
+UINT_VIEW = {"torch.uint16": "int16", "torch.uint32": "int32"}
+# the quant tier's main path: MV2T_QUANT_COLL budgets (q8 5e-2 covers
+# declared_bound(8, "q8") = 0.0315, fp8 0.3 covers 0.286), and the bytes
+# one rank keeps off the ring a 64 MiB f32 call (wire_stats: 117,440,512
+# exact - 30,277,632 quantized)
+QUANT_SPECS = (("5e-2", "q8"), ("fp8:0.3", "fp8"))
+QUANT_SAVED = 87162880
 SMALL_MESH = 16 * 1024             # f32 elements: 64 KiB a rank (K6, K7)
 AG_MESH = 256 * 1024               # f32 elements: 1 MiB a rank (K5)
 RESIDENT_FULL = 1024 * 1024        # f32 elements: 4 MiB, the K6 limit
@@ -126,6 +137,14 @@ def phase_build(_build):
         regs = [ln.strip() for ln in lines if "registers" in ln]
         log(f"[build] {name}.cu: {len(regs)} kernel instantiations "
             f"(ptxas e.g.: {regs[0] if regs else 'n/a'})")
+        # the quant kernels' residency: registers and spills an entry
+        entry = None
+        for ln in lines:
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1] if "'" in ln else ln
+            elif entry and "quant" in entry and ("registers" in ln
+                                                 or "spill" in ln):
+                log(f"[build] {entry[:60]}: {ln.strip()}")
     log(f"[build] built and loaded {', '.join(SOURCES)} in {dt:.2f} s")
     return dt
 
@@ -135,8 +154,9 @@ def _data(torch, np, rng, shape, kind, dev):
         a = rng.integers(-1000, 1000, size=shape).astype(np.float32)
     elif kind == "i32":
         a = rng.integers(-2**31, 2**31 - 1, size=shape, dtype=np.int32)
-    elif kind in ("i16", "i8", "u8"):
-        dt = {"i16": np.int16, "i8": np.int8, "u8": np.uint8}[kind]
+    elif kind in ("i16", "i8", "u8", "u16", "u32"):
+        dt = {"i16": np.int16, "i8": np.int8, "u8": np.uint8,
+              "u16": np.uint16, "u32": np.uint32}[kind]
         info = np.iinfo(dt)
         a = rng.integers(info.min, info.max, size=shape,
                          endpoint=True).astype(dt)
@@ -155,9 +175,12 @@ def _compare(torch, what, got, want, kind):
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {tuple(got.shape)}/{got.dtype} vs "
                              f"{tuple(want.shape)}/{want.dtype}")
+    if str(got.dtype) in UINT_VIEW:
+        view = getattr(torch, UINT_VIEW[str(got.dtype)])
+        got, want = got.cpu().view(view), want.cpu().view(view)
     err = (got.double() - want.double()).abs().max().item() \
         if got.numel() else 0.0
-    if kind in ("f32int", "i32", "i16", "i8", "u8"):
+    if kind in BITWISE:
         ok = torch.equal(got, want)
     elif kind == "f32":
         ok = torch.allclose(got, want, **F32_TOL)
@@ -214,15 +237,19 @@ def phase_kernels(torch, np, hbm, dev):
                             and not donate:
                         full_err["K2"] = err
             del x
-    # the other kernel dtypes, small
-    for kind in ("f16", "i16", "i8", "u8"):
+    # the other kernel dtypes, small (uint16/uint32: plain on the CPU)
+    for kind in ("f16", "i16", "i8", "u8", "u16", "u32"):
         x = _data(torch, np, rng, (R, M_SMALL, 128), kind, dev)
-        _compare(torch, f"K1 planar {kind}", hbm.fused_reduce_to_slot(x),
-                 hbm.fused_reduce_to_slot_ref(x), kind)
+        xp = x.cpu() if kind in ("u16", "u32") else x
+        for mean in (False, True):
+            _compare(torch, f"K1 planar {kind} mean={mean}",
+                     hbm.fused_reduce_to_slot(x, mean=mean),
+                     hbm.fused_reduce_to_slot_ref(xp, mean=mean), kind)
         xi = hbm.pack_interleaved(x.reshape(R, -1))
         _compare(torch, f"K2 {kind}", hbm.fused_allreduce(xi),
-                 hbm.fused_allreduce_ref(xi), kind)
-        n_checks += 2
+                 hbm.fused_allreduce_ref(hbm.pack_interleaved(
+                     xp.reshape(R, -1))), kind)
+        n_checks += 3
     # ragged n through hbm_slot_allreduce: the pad must not leak
     for rr, n in ((3, 1000), (R, 100003)):
         b = _data(torch, np, rng, (rr, n), "f32int", dev)
@@ -260,15 +287,19 @@ def phase_ring_kernels(torch, np, ici, ring, dev):
         if key:
             full_err[key] = err
 
-    # K3: small / ragged (n % p != 0, a short last chunk) / full size
-    small_kinds = ("f32int", "i32", "f32", "bf16", "i8", "u8")
+    # K3: small / ragged (n % p != 0, a short last chunk) / full size;
+    # uint16/uint32 (values past 2^15 and 2^31 in max and min) against
+    # their plain versions on the CPU
+    small_kinds = ("f32int", "i32", "f32", "bf16", "i8", "u8", "u16",
+                   "u32")
     for p, n in ((8, 64), (8, 37), (3, 10), (2, 9), (8, 1000)):
         for kind in small_kinds:
             xs = _shards(torch, np, rng, p, n, kind, dev)
+            xp = [x.cpu() for x in xs] if kind in ("u16", "u32") else xs
             for op in ("sum", "max", "min", "prod"):
                 check(f"K3 p={p} n={n} {kind} {op}",
                       ici.hbm_ring_all_reduce(xs, op, chunk_bytes=64),
-                      ici.hbm_ring_all_reduce_ref(xs, op), kind)
+                      ici.hbm_ring_all_reduce_ref(xp, op), kind)
     for n, cb in ((100003, 4096), (8 * 3584, 4096), (100003, None)):
         for kind in ("f32int", "f32"):
             xs = _shards(torch, np, rng, R, n, kind, dev)
@@ -308,11 +339,14 @@ def phase_ring_kernels(torch, np, ici, ring, dev):
     # K6 (n % p == 0, at most 4 MiB) and K7 (output at most 4 MiB)
     for p, n in ((8, 64), (3, 12), (2, 8), (8, SMALL_MESH),
                  (8, RESIDENT_FULL)):
-        for kind in ("f32int", "i32", "f32", "bf16", "i8"):
+        for kind in ("f32int", "i32", "f32", "bf16", "i8", "u16", "u32"):
+            if kind in ("u16", "u32") and n > SMALL_MESH:
+                continue
             xs = _shards(torch, np, rng, p, n, kind, dev)
+            xp = [x.cpu() for x in xs] if kind in ("u16", "u32") else xs
             full = n == RESIDENT_FULL and kind == "f32"
             check(f"K6 p={p} n={n} {kind}", ring.ring_all_reduce(xs),
-                  ring.ring_all_reduce_ref(xs), kind, "K6" if full else None)
+                  ring.ring_all_reduce_ref(xp), kind, "K6" if full else None)
     for p, m in ((8, 13), (3, 5), (2, 7), (8, SMALL_MESH),
                  (8, RESIDENT_FULL // 8)):
         for kind in ("i32", "f32", "u8"):
@@ -430,7 +464,10 @@ def phase_rma_kernels(torch, np, rma, ring, dev):
         if win is None:
             win = _data(torch, np, rng, (p, length), kind, dev)
             src = _data(torch, np, rng, (n,), kind, dev)
-        want = win.clone()
+        # uint16/uint32: the plain version on the CPU
+        cpu = kind in ("u16", "u32")
+        want = win.cpu() if cpu else win.clone()
+        src_p = src.cpu() if cpu else src
         got = win.clone()
         what = (f"{op} p={p} N={length} n={n} disp={disp} {origin}->"
                 f"{target} {kind} chunk={cb} depth={depth}")
@@ -440,11 +477,11 @@ def phase_rma_kernels(torch, np, rma, ring, dev):
             ref = rma.rma_get_ref(want, n, origin, target, disp)
         elif op == "direct_put":
             rma.direct_put(src, got, origin, target, disp)
-            rma.rma_put_ref(src, want, origin, target, disp)
+            rma.rma_put_ref(src_p, want, origin, target, disp)
         else:
             getattr(rma, op)(src, got, origin, target, disp,
                              chunk_bytes=cb, depth=depth)
-            getattr(rma, op + "_ref")(src, want, origin, target, disp)
+            getattr(rma, op + "_ref")(src_p, want, origin, target, disp)
         torch.cuda.synchronize()
         ring.check_errors()
         err = _compare(torch, what, got, want, "i32")      # bitwise
@@ -655,6 +692,7 @@ def phase_mesh(torch, np, mvt, ici, ring, mpit, opmod, dev, inputs):
     n_big = n_check + n_warm + n_timed
     want_launches = {"hbm_ring_all_reduce": n_big + 1,      # + the max
                      "hbm_ring_all_gather": 1,
+                     "quant_ring_all_reduce": 0,
                      "ring_all_reduce": n_warm + n_timed + 2,  # + 64 KiB, reduce
                      "ring_all_gather": 1}
     if launches != want_launches:
@@ -845,7 +883,7 @@ def phase_rma(torch, osu, rma, ring, mpit, dev):
     want_launches = {"rma_put": band_ops + 1 + 32,
                      "rma_get": band_ops + 1 + 1,
                      "rma_accumulate": band_ops + 1 + 1,
-                     "direct_put": 1}
+                     "rma_accumulate_quant": 0, "direct_put": 1}
     if launches != want_launches or any(plain.values()):
         raise AssertionError(f"rma launches {launches} (expected "
                              f"{want_launches}), plain calls {plain}")
@@ -1235,6 +1273,353 @@ def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
         f"{k} {v['ms']:.4f}" for k, v in art["whole"].items()))
     return rows, extra
 
+def phase_quant_kernels(torch, np, quant, ici, rma, ring, cfg, dev):
+    """K9 and K14's quantized wire (K14q) against their plain versions,
+    bitwise. K9 through the whole quant_ring_all_reduce (K9, K5 over the
+    wire words, the stock decode): p = 2, 4 and 8, both wires, f32 and
+    f16 (cast; bf16 must take the exact K3 ring, as in the JAX package),
+    padded tails, one-chunk and many-chunk shapes, depth 2 and 3, one
+    and two ring directions, and 8 ranks of 64 MiB; then K9's own wire
+    words against encode_f32_ref of the plain reduced block. K14q: both
+    wires, blocks of 8 to 128 f32, misaligned disp, chunks that snap to
+    a block, depth 2/3/4, origin == target, and N - 128 elements of a
+    64 MiB-a-rank window at disp 5, every window row compared. Returns
+    the max abs error of the full-size checks."""
+    rng = np.random.default_rng(SEED + 1400)
+    n_checks = 0
+    full_err = {}
+
+    def check(what, got, want, key=None):
+        nonlocal n_checks
+        torch.cuda.synchronize()
+        ring.check_errors()
+        err = _compare(torch, what, got, want, "i32")      # bitwise
+        n_checks += 1
+        if key:
+            full_err[key] = err
+
+    shapes = ((37, 32, 128, 2, True),          # padded tail, many chunks
+              (300, 64, 256, 3, False),
+              (1000, None, None, 2, True),     # the default block, 1 chunk
+              (100003, None, 4096, 3, True),   # many chunks of 8 blocks
+              (4096, 32, 1 << 20, 2, False))   # one chunk of 8-f32 blocks
+    for p in (2, 4, 8):
+        for wire in ("q8", "fp8"):
+            for kind in ("f32", "f16", "bf16"):
+                for n, bb, cb, depth, bidir in shapes:
+                    xs = _shards(torch, np, rng, p, n, kind, dev)
+                    ici.reset_counts()
+                    got = quant.quant_ring_all_reduce(
+                        xs, wire=wire, block_bytes=bb, chunk_bytes=cb,
+                        depth=depth, bidirectional=bidir)
+                    k9 = ici.LAUNCHES["quant_ring_all_reduce"]
+                    k3 = ici.LAUNCHES["hbm_ring_all_reduce"]
+                    if (k9, k3) != ((0, 1) if kind == "bf16" else (1, 0)):
+                        raise AssertionError(f"K9 {kind}: launches "
+                                             f"{dict(ici.LAUNCHES)}")
+                    check(f"K9 p={p} n={n} {wire} {kind} block={bb} "
+                          f"chunk={cb} depth={depth} bidir={bidir}", got,
+                          quant.quant_ring_all_reduce_ref(
+                              xs, wire=wire, block_bytes=bb,
+                              bidirectional=bidir))
+    for p, wire, n, bb, cb in ((2, "q8", 1000, 32, 256),
+                               (8, "fp8", 100003, None, 4096),
+                               (8, "q8", 300, 64, 128)):
+        xs = _shards(torch, np, rng, p, n, "f32", dev)
+        blk, nblk, chunk = quant._geometry(p, n, bb, cb)
+        ndir = 2 if p > 2 else 1
+        wires = quant.quant_reduce_scatter(xs, nblk, blk, wire, chunk, 2,
+                                           ndir)
+        _, own = quant.quant_reduce_scatter_ref(xs, nblk, blk, wire, ndir)
+        check(f"K9 own wire p={p} n={n} {wire}", wires,
+              quant.encode_f32_ref(own, blk, wire).reshape(p, -1))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1450)
+    xs = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
+    for wire in ("q8", "fp8"):
+        check(f"K9 8 x 64 MiB f32 {wire}",
+              quant.quant_ring_all_reduce(xs, wire=wire),
+              quant.quant_ring_all_reduce_ref(xs, wire=wire),
+              "K9" if wire == "q8" else None)
+    del xs
+    # K14q: (p, length, n, disp, origin, target, chunk bytes, depth,
+    # QUANT_BLOCK bytes); the wire is MV2T_QUANT_COLL's
+    for wire in ("q8", "fp8"):
+        cfg.set("QUANT_COLL", f"{wire}:1e-1")
+        for p, length, n, disp, o, t, cb, depth, qb in (
+                (8, 1024, 512, 5, 0, 7, 16, 2, 512),
+                (8, 1000, 384, 7, 2, 5, None, 3, 128),
+                (4, 4096, 4000, 96, 3, 0, 256, 4, 64),
+                (2, 300, 256, 1, 1, 1, 64, 2, 512),     # origin == target
+                (8, 100, 40, 3, 6, 6, 32, 2, 32)):      # 8-f32 blocks
+            cfg.set("QUANT_BLOCK", qb)
+            win = _data(torch, np, rng, (p, length), "f32", dev)
+            src = _data(torch, np, rng, (n,), "f32", dev)
+            got, want = win.clone(), win.clone()
+            rma.rma_accumulate(src, got, o, t, disp, quantized=True,
+                               chunk_bytes=cb, depth=depth)
+            rma.rma_accumulate_ref(src, want, o, t, disp, quantized=True)
+            check(f"K14q p={p} N={length} n={n} disp={disp} {o}->{t} "
+                  f"{wire} chunk={cb} depth={depth} block={qb}", got, want)
+    cfg.set("QUANT_BLOCK", 512)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1460)
+    win = torch.randn(R, N, generator=gen, device=dev)
+    src = torch.randn(N - 128, generator=gen, device=dev)
+    for wire in ("q8", "fp8"):
+        cfg.set("QUANT_COLL", f"{wire}:1e-1")
+        got, want = win.clone(), win.clone()
+        rma.rma_accumulate(src, got, 0, R - 1, 5, quantized=True)
+        rma.rma_accumulate_ref(src, want, 0, R - 1, 5, quantized=True)
+        check(f"K14q 64 MiB-a-rank window {wire}", got, want,
+              "K14q" if wire == "q8" else None)
+    cfg.set("QUANT_COLL", "")
+    del win, src, got, want
+    log(f"[kernels] {n_checks} quant kernel-vs-plain checks passed, "
+        f"bitwise (full-size max abs err: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in full_err.items()) + ")")
+    return full_err
+
+
+def phase_quant(torch, np, mvt, quant, ici, ring, mpit, opmod, cfg, dev,
+                inputs):
+    """The quant tier's main path: run_ranks(8) bound one to one to a
+    mesh of 8 virtual ranks on cuda:0, comm.allreduce of the 64 MiB f32
+    inputs under each of QUANT_SPECS (2 checked calls, 2 warm-ups, 10
+    timed), then, under the same budget, an int32 sum and an f32 max of
+    64 MiB and an allgather of 8 MiB a rank (64 MiB gathered), which the
+    quant bin must send to the exact K3/K5. Every quantized result is
+    bitwise the plain version on the card on every rank, and within
+    declared_bound of an f64 sum; the exact ones bitwise the plain
+    reductions. Counts zeroed before each run and read after it; the
+    tier pvars checked. Returns (K9 launches, e2e latencies in s by
+    wire)."""
+    mesh = mvt.make_mesh((R,), ("x",), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1200)
+    ints = [torch.randint(-2**31, 2**31 - 1, (N,), generator=gen,
+                          device=dev, dtype=torch.int32) for _ in range(R)]
+    ag = [torch.randn(N // R, generator=gen, device=dev) for _ in range(R)]
+    exact_b, wire_b = quant.wire_stats(N, torch.float32, R)
+    if exact_b - wire_b != QUANT_SAVED:
+        raise AssertionError(f"wire_stats at 64 MiB: {exact_b} - {wire_b}")
+    n_check, n_warm, n_timed = 2, 2, 10
+    n_q = n_check + n_warm + n_timed
+    pvs = ("dev_coll_tier_quant", "dev_coll_quant_bytes_saved",
+           "dev_coll_tier_hbm", "dev_coll_tier_vmem")
+    exact64 = torch.stack(inputs).double().sum(0)
+    want_int = ici.hbm_ring_all_reduce_ref(ints)[0]
+    want_max = torch.stack(inputs).amax(0)
+    want_ag = torch.cat(ag)
+    k9_launches, lats = 0, {}
+    for spec, wire in QUANT_SPECS:
+        cfg.set("QUANT_COLL", spec)
+
+        def app(comm):
+            r = comm.rank
+            stream = torch.cuda.current_stream()
+            outs = [comm.allreduce(inputs[r]) for _ in range(n_check)]
+            for _ in range(n_warm):
+                comm.allreduce(inputs[r])
+            lat = []
+            for _ in range(n_timed):
+                t0 = time.perf_counter()
+                comm.allreduce(inputs[r])
+                stream.synchronize()
+                lat.append(time.perf_counter() - t0)
+            exact = (comm.allreduce(ints[r]),
+                     comm.allreduce(inputs[r], op=opmod.MAX),
+                     comm.allgather(ag[r]))
+            stream.synchronize()
+            return outs, lat, exact
+
+        before = {k: mpit.pvar(k).read() for k in pvs}
+        ici.reset_counts()
+        ring.reset_counts()
+        t0 = time.perf_counter()
+        res = mvt.run_ranks(R, app, device_mesh=mesh)
+        torch.cuda.synchronize()
+        ring.check_errors()
+        wall = time.perf_counter() - t0
+        launches = dict(ici.LAUNCHES)
+        want_l = {"hbm_ring_all_reduce": 2, "hbm_ring_all_gather": n_q + 1,
+                  "quant_ring_all_reduce": n_q}
+        if launches != want_l or any(ring.LAUNCHES.values()) or \
+                any(ici.PLAIN_CALLS.values()):
+            raise AssertionError(f"[quant] {spec}: launches {launches} "
+                                 f"(expected {want_l}), resident "
+                                 f"{ring.LAUNCHES}, plain {ici.PLAIN_CALLS}")
+        k9_launches += launches["quant_ring_all_reduce"]
+        delta = {k: mpit.pvar(k).read() - before[k] for k in pvs}
+        want_d = {"dev_coll_tier_quant": R * n_q,
+                  "dev_coll_quant_bytes_saved": R * n_q * QUANT_SAVED,
+                  "dev_coll_tier_hbm": R * 3, "dev_coll_tier_vmem": 0}
+        if delta != want_d:
+            raise AssertionError(f"[quant] {spec}: pvars moved by {delta}, "
+                                 f"expected {want_d}")
+        want = quant.quant_ring_all_reduce_ref(inputs, wire=wire)[0]
+        rel = 0.0
+        for r in range(R):
+            for g in res[r][0]:
+                if g.shape != (N,) or not torch.isfinite(g).all():
+                    raise AssertionError("[quant] result has the wrong "
+                                         "shape or non-finite values")
+                _compare(torch, f"[quant] {spec} rank {r}", g, want, "i32")
+            rel = max(rel, ((res[r][0][0].double() - exact64).abs().max()
+                            / exact64.abs().max()).item())
+            i_sum, f_max, gath = res[r][2]
+            _compare(torch, "[quant] int32 sum", i_sum, want_int, "i32")
+            _compare(torch, "[quant] f32 max", f_max, want_max, "i32")
+            _compare(torch, "[quant] allgather", gath, want_ag, "i32")
+        bound = quant.declared_bound(R, wire)
+        if rel > bound:
+            raise AssertionError(f"[quant] {spec}: relative error {rel} "
+                                 f"past declared_bound {bound}")
+        lats[wire] = res[0][1]
+        log(f"[quant] run_ranks({R}, device_mesh={mesh}), MV2T_QUANT_COLL="
+            f"{spec}: {n_q} allreduces of 64 MiB f32 a rank, + an int32 "
+            f"sum, an f32 max and a 64 MiB allgather in {wall:.2f} s; every "
+            f"rank bitwise the plain version, relative error {rel:.4g} "
+            f"(declared bound {bound:.4g}); exact calls bitwise; launches "
+            f"{launches}; pvars {delta}")
+        del res
+    cfg.set("QUANT_COLL", "")
+    return k9_launches, lats
+
+
+def phase_rma_quant(torch, rma, ring, mpit, cfg, dev):
+    """K14's quantized wire on the one-sided path: a DeviceWin of 64 MiB
+    f32 a rank over 8 virtual ranks; under MV2T_QUANT_COLL=q8:1e-1 a
+    4 MiB accumulate from rank 0 into rank 7 at disp 4096, closed by a
+    fence, must take the quant tier (one K14q launch, counts zeroed
+    just before), count its wire words in dev_rma_wire_bytes, and leave
+    the window bitwise the plain quantized accumulate. Returns the
+    launch count."""
+    from mvapich2_tpu_torch.parallel import MeshComm, make_mesh
+    from mvapich2_tpu_torch.rma import DeviceWin
+    cfg.set("QUANT_COLL", "q8:1e-1")
+    win = DeviceWin(MeshComm(make_mesh((R,), ("x",), dev)), N)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1300)
+    win.win.copy_(torch.randn(R, N, generator=gen, device=dev))
+    m = min(1 << 20, N // 4)                   # 4 MiB at the full size
+    src = torch.randn(m, generator=gen, device=dev)
+    want = win.win.clone()
+    pvs = ("dev_rma_tier_quant", "dev_rma_tier_rdma", "dev_rma_wire_bytes")
+    before = {k: mpit.pvar(k).read() for k in pvs}
+    rma.reset_counts()
+    win.accumulate(src, 0, R - 1, disp=4096)
+    win.fence()
+    torch.cuda.synchronize()
+    ring.check_errors()
+    launches = dict(rma.LAUNCHES)
+    delta = {k: mpit.pvar(k).read() - before[k] for k in pvs}
+    wire = rma.wire_words(m, rma.quant_block_elems()) * 4
+    want_d = {"dev_rma_tier_quant": 1, "dev_rma_tier_rdma": 0,
+              "dev_rma_wire_bytes": wire}
+    if launches["rma_accumulate_quant"] != 1 or \
+            sum(launches.values()) != 1 or delta != want_d:
+        raise AssertionError(f"[rma] quant: launches {launches}, pvars "
+                             f"{delta} (expected {want_d})")
+    rma.rma_accumulate_ref(src, want, 0, R - 1, 4096, quantized=True)
+    _compare(torch, "[rma] quant window", win.win, want, "i32")
+    cfg.set("QUANT_COLL", "")
+    log(f"[rma] quant: DeviceWin {R} x {N} f32, a 4 MiB accumulate under "
+        f"q8:1e-1 took K14's quantized wire ({wire} wire bytes for "
+        f"{m * 4}); window bitwise the plain version; launches {launches}; "
+        f"pvars {delta}")
+    return launches["rma_accumulate_quant"]
+
+
+def phase_quant_times(torch, quant, ici, rma, ring, timing, info, smi,
+                      cfg, k9_launches, k14q_launches, full_err, q_lats,
+                      mesh_lat, dev):
+    """K9 and K14q at the main paths' shapes, by CUDA events (median of
+    20 after 3 warm-ups; plain versions 5 after 1): K9 alone at 8 x
+    64 MiB f32 (q8, the default block and chunk), the K5 gather of its
+    wire, the stock decode, the whole quant_ring_all_reduce, K3 and
+    torch.stack(x).sum(0) on the same input; K14q at N = 16 Mi f32
+    elements from rank 0 into rank 7 beside K14 and win[7].add_(src);
+    and the e2e quant mesh allreduce beside the exact one. Bounds: each
+    input read once, each output written once (K9: the inputs and the
+    wire outputs; K14q: src, the window row and the row written back),
+    over the memory rate."""
+    bw = info.hbm_bw_gbps * 1e9
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1500)
+    xs = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
+    blk, nblk, chunk = quant._geometry(R, N, None, None)
+    ndir, depth = ici._resolve_ndir(R, None), ici._cfg_depth(None)
+    wblk = quant.wire_words(nblk, blk)
+    k9 = timing.time_ms(lambda: quant.quant_reduce_scatter(
+        xs, nblk, blk, "q8", chunk, depth, ndir))
+    own = quant.quant_reduce_scatter(xs, nblk, blk, "q8", chunk, depth, ndir)
+    own_rows = list(own.unbind(0))
+    k5 = timing.time_ms(lambda: ici.hbm_ring_all_gather(own_rows))
+    wall = ici.hbm_ring_all_gather(own_rows)
+    dec = timing.time_ms(lambda: quant.decode_f32_ref(wall, blk, "q8")
+                         [:, :N].to(torch.float32))
+    whole = timing.time_ms(lambda: quant.quant_ring_all_reduce(xs,
+                                                               wire="q8"))
+    k3 = timing.time_ms(lambda: ici.hbm_ring_all_reduce(xs))
+    plain = timing.time_ms(lambda: quant.quant_reduce_scatter_ref(
+        xs, nblk, blk, "q8", ndir), warmup=1, iters=5)
+    exact_sum = timing.time_ms(lambda: torch.stack(xs).sum(0))
+    ring.check_errors()
+    m, wr = N * 4, wblk / nblk                   # wire bytes a f32 byte
+    ops9 = R * nblk * (R - 1) * 6                # abs, max, div, fma a hop
+    tb, to = (R * m + R * wblk * 4) / bw, ops9 / (F32_PEAK_TFLOPS * 1e12)
+    b9, by9 = (tb, "bytes") if tb >= to else (to, "operations")
+    sched9 = R * (2 * m + (R - 1) * (m / R) * (3 + 2 * wr)
+                  + (m / R) * (1 + wr))
+    del xs, own, own_rows, wall
+    win = torch.randn(R, N, generator=gen, device=dev)
+    src = torch.randn(N, generator=gen, device=dev)
+    sc = rma.Scratch()
+    t = R - 1
+    cfg.set("QUANT_COLL", "q8:1e-1")
+    k14q = timing.time_ms(lambda: rma.rma_accumulate(
+        src, win, 0, t, quantized=True, scratch=sc))
+    k14 = timing.time_ms(lambda: rma.rma_accumulate(src, win, 0, t,
+                                                    scratch=sc))
+    plain14 = timing.time_ms(lambda: rma.rma_accumulate_ref(
+        src, win, 0, t, quantized=True), warmup=1, iters=5)
+    cfg.set("QUANT_COLL", "")
+    add = timing.time_ms(lambda: win[t].add_(src))
+    ring.check_errors()
+    wq = quant.wire_words(N, quant.quant_block_elems()) * 4
+    rows = [
+        {"name": "quant_ring_all_reduce", "route": "cuda",
+         "source": "mvapich2_tpu_torch/csrc/ring.cu",
+         "replaces": "mvapich2_tpu/ops/pallas_quant.py:377",
+         "launches": k9_launches, "max_abs_err": full_err["K9"], "ms": k9,
+         "plain_ms": plain, "bound_ms": b9 * 1e3, "bound_by": by9,
+         "library_ms": None, "schedule_bound_ms": sched9 / bw * 1e3,
+         "schedule_bytes": "p*(2m + (p-1)(m/p)(3 + 2w) + (m/p)(1 + w)), "
+                           "w = wire bytes a f32 byte",
+         "exact_sum_ms": exact_sum, "k5_wire_gather_ms": k5,
+         "decode_ms": dec, "quant_ring_all_reduce_ms": whole,
+         "k3_ms": k3},
+        {"name": "rma_accumulate_quant", "route": "cuda",
+         "source": "mvapich2_tpu_torch/csrc/ring.cu",
+         "replaces": "mvapich2_tpu/ops/pallas_rma.py:458",
+         "launches": k14q_launches, "max_abs_err": full_err["K14q"],
+         "ms": k14q, "plain_ms": plain14, "bound_ms": 3 * m / bw * 1e3,
+         "bound_by": "bytes", "library_ms": None,
+         "schedule_bound_ms": (3 * m + 2 * wq) / bw * 1e3,
+         "schedule_bytes": "3n + 2 wire: read src, write and read the "
+                           "wire, read and write the window",
+         "exact_add_ms": add, "k14_ms": k14}]
+    e2e = {w: statistics.median(v) * 1e3 for w, v in q_lats.items()}
+    extra = {"quant_e2e_allreduce_ms": e2e,
+             "quant_e2e_allreduce_ms_all": {w: [x * 1e3 for x in v]
+                                            for w, v in q_lats.items()},
+             "exact_e2e_allreduce_ms": statistics.median(mesh_lat[0]) * 1e3}
+    log(f"[times] quant ({smi}): K9 {k9:.4f} ms (bound {b9 * 1e3:.4f}, "
+        f"schedule bound {sched9 / bw * 1e3:.4f}, plain {plain:.4f}), K5 "
+        f"over the wire {k5:.4f}, decode {dec:.4f}, quant_ring_all_reduce "
+        f"{whole:.4f}, K3 {k3:.4f}, stack+sum {exact_sum:.4f}; K14q "
+        f"{k14q:.4f} ms (bound {3 * m / bw * 1e3:.4f}, plain {plain14:.4f}), "
+        f"K14 {k14:.4f}, add_ {add:.4f}; e2e mesh allreduce 64 MiB: quant "
+        + ", ".join(f"{w} {v:.4f}" for w, v in e2e.items())
+        + f" ms, exact {extra['exact_e2e_allreduce_ms']:.4f} ms")
+    return rows, extra
+
 
 def phase_sweep(torch, ici, ring, tuning, timing, dev):
     """The ring kernels' launch-shape sweep (``--sweep``): K3 at 8 ranks
@@ -1300,8 +1685,16 @@ def main(argv=None):
     from mvapich2_tpu_torch import mpit
     from mvapich2_tpu_torch.core import op as opmod
     from mvapich2_tpu_torch.bench import moe, osu_rma
-    from mvapich2_tpu_torch.ops import _build, alltoall, hbm, ici, ring, rma
+    from mvapich2_tpu_torch.ops import (_build, alltoall, hbm, ici, quant,
+                                        ring, rma)
     from mvapich2_tpu_torch.utils import detect, timing
+    from mvapich2_tpu_torch.utils.config import get_config
+
+    cfg = get_config()
+    # the 4 KiB numpy reduces of [main] and [mesh] are below
+    # DEVICE_COLL_MIN_BYTES, where MPI's reduce takes the host tier
+    # (not ported) unless the algorithm is forced onto the device
+    cfg.set("REDUCE_ALGO", "device")
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
@@ -1322,6 +1715,8 @@ def main(argv=None):
     full_err.update(phase_ring_kernels(torch, np, ici, ring, dev))
     full_err.update(phase_a2a_kernels(torch, np, alltoall, ring, moe, dev))
     full_err.update(phase_rma_kernels(torch, np, rma, ring, dev))
+    full_err.update(phase_quant_kernels(torch, np, quant, ici, rma, ring,
+                                        cfg, dev))
     launches, slice_launches, lat, inputs = phase_main_path(
         torch, np, mvt, hbm, opmod, dev)
     mesh_launches, mesh_lat = phase_mesh(torch, np, mvt, ici, ring, mpit,
@@ -1330,6 +1725,9 @@ def main(argv=None):
                                            mpit, moe, dev)
     moe_art = phase_moe(torch, moe, alltoall, ring, dev)
     rma_launches, rma_art = phase_rma(torch, osu_rma, rma, ring, mpit, dev)
+    k9_launches, q_lats = phase_quant(torch, np, mvt, quant, ici, ring, mpit,
+                                      opmod, cfg, dev, inputs)
+    k14q_launches = phase_rma_quant(torch, rma, ring, mpit, cfg, dev)
     info = detect.detect(dev)
     kernels, extra = phase_times(torch, hbm, timing, info, inputs, lat,
                                  launches, full_err)
@@ -1341,7 +1739,11 @@ def main(argv=None):
         full_err, dev)
     rma_kernels, rma_extra = phase_rma_times(
         torch, rma, ring, timing, info, rma_launches, full_err, rma_art, dev)
-    kernels += ring_kernels + a2a_kernels + rma_kernels
+    quant_kernels, quant_extra = phase_quant_times(
+        torch, quant, ici, rma, ring, timing, info, smi, cfg, k9_launches,
+        k14q_launches, full_err, q_lats, mesh_lat, dev)
+    kernels += ring_kernels + a2a_kernels + rma_kernels + quant_kernels
+    extra.update(quant_extra)
     extra.update(ring_extra)
     extra.update(a2a_extra)
     extra.update(rma_extra)
@@ -1358,6 +1760,10 @@ def main(argv=None):
                        "mesh_launches": mesh_launches,
                        "mesh_a2a_launches": a2a_launches,
                        "rma_launches": rma_launches,
+                       "quant_launches": {"quant_ring_all_reduce":
+                                          k9_launches,
+                                          "rma_accumulate_quant":
+                                          k14q_launches},
                        "moe": moe_art,
                        "kernels": kernels, **extra}, f, indent=1)
     log(f"[done] {total_s:.1f} s")

@@ -2,11 +2,12 @@
 
 What crosses is the ``(R, n)`` numpy rank buffers that the JAX tests
 feed to ``hbm_slot_allreduce`` and ``pack_interleaved``, the MoE step
-bench's one weight, its ``dmodel x dmodel`` expert matrix ``W``, and the
+bench's one weight, its ``dmodel x dmodel`` expert matrix ``W``, the
 ``(p, n)`` rows of a one-sided device window (``np.asarray`` of the JAX
-``DeviceWin.win``).
+``DeviceWin.win``), and the quant tier's int32 wire words.
 These functions put the same bytes into the port's tensors and back, so
-both sides of a parity test see identical inputs.
+both sides of a parity test see identical inputs: uint16, uint32 and
+int32 (wire words included) cross unchanged, bfloat16 bit for bit.
 """
 
 from __future__ import annotations

@@ -13,16 +13,19 @@ Two bindings are ported:
   virtual device of a ``parallel.mesh.Mesh`` (``p`` virtual ranks of one
   card, or of the CPU in tests). The leader hands the ``p`` deposited
   shards in place to the tier dispatch of ``ops/ici.py`` (ring kernels
-  K3/K5/K6/K7, or the stock torch reduction) or of ``ops/alltoall.py``
-  (alltoall and alltoallv, K10/K11) and every rank gets its own output;
+  K3/K5/K6/K7, the quantized ring K9 of ``ops/quant.py``, or the stock
+  torch reduction) or of ``ops/alltoall.py`` (alltoall and alltoallv,
+  K10/K11) and every rank gets its own output;
 * :class:`HBMSlotChannel`: all ranks share one device and collectives
   run through an on-card slot segment (``ops/hbm.py``).
 
 The per-chip fold channel, multi-axis meshes, nonblocking collectives and
-the host algorithm tier are not ported; a call that would need the host
-tier (an 8-byte dtype, a user-defined op, a forced host algorithm,
-``USE_DEVICE_COLL`` off, alltoallv with ``MPI_IN_PLACE`` or on the slot
-channel) raises ``NotImplementedError``.
+the host algorithm tier are not ported; a call that the JAX package's
+``_select_transport`` sends to the host tier (an 8-byte dtype or a
+user-defined op, also under a forced ``<COLL>_ALGO=device``; a forced
+host algorithm; ``USE_DEVICE_COLL`` off without ``<COLL>_ALGO=device``;
+a numpy buffer below ``DEVICE_COLL_MIN_BYTES``; alltoallv with
+``MPI_IN_PLACE`` or on the slot channel) raises ``NotImplementedError``.
 
 Stream order across rank threads (CUDA devices): each deposit records an
 event on the depositing rank's current stream; the leader's stream waits
@@ -45,7 +48,7 @@ import torch
 
 from .. import mpit
 from ..core import op as opmod
-from ..ops import alltoall, hbm, ici, ring
+from ..ops import alltoall, hbm, ici, quant, ring
 from ..utils import is_device_tensor
 from ..utils.config import get_config
 
@@ -347,12 +350,14 @@ class DeviceCollChannel(_Channel):
         return out
 
     def _note_tier(self, name: str, local, op: Optional[str]) -> str:
-        """Count which tier THIS call runs (dev_coll_tier_{vmem,hbm}, or
-        dev_coll_fallback_<reason> when the stock lowering is taken) and
-        return its label ('vmem'/'hbm'/'xla'), keyed as the JAX
-        package's: the tier ``planned_tier`` names for the call's shard
-        bytes (output bytes for allgather; for alltoall(v) the tier of
-        ``planned_a2a_tier`` on this rank's send bytes)."""
+        """Count which tier THIS call runs (dev_coll_tier_{vmem,hbm,quant},
+        or dev_coll_fallback_<reason> when the stock lowering is taken)
+        and return its label ('vmem'/'hbm'/'quant'/'xla'), keyed as the
+        JAX package's: the tier ``planned_tier`` names for the call's
+        shard bytes on this mesh's ranks (output bytes for allgather; for
+        alltoall(v) the tier of ``planned_a2a_tier`` on this rank's send
+        bytes). A quant call also adds the wire bytes it saves
+        (``wire_stats``) to dev_coll_quant_bytes_saved."""
         n, _ = self._slot_extent(local)
         dtype = _torch_dtype(local)
         if name in ("alltoall", "alltoallv"):
@@ -361,11 +366,16 @@ class DeviceCollChannel(_Channel):
         elif name in ("allreduce", "reduce", "allgather"):
             nbytes = n * dtype.itemsize * (self.size if name == "allgather"
                                            else 1)
-            tier, reason = ici.planned_tier(name, nbytes, dtype, op)
+            tier, reason = ici.planned_tier(name, nbytes, dtype, op,
+                                            num_devices=self.size)
         else:
             return "xla"    # collectives without a kernel lowering
         if reason is None:
             mpit.pvar(f"dev_coll_tier_{tier}").inc()
+            if tier == "quant":
+                exact_b, wire_b = quant.wire_stats(n, dtype, self.size)
+                mpit.pvar("dev_coll_quant_bytes_saved").inc(
+                    max(0, exact_b - wire_b))
             return tier
         mpit.pvar(f"dev_coll_fallback_{reason}").inc()
         return "xla"
@@ -412,11 +422,9 @@ class HBMSlotChannel(_Channel):
         if name in ("allreduce", "reduce", "reduce_scatter_block"):
             if op == "sum":
                 return hbm.hbm_slot_allreduce
-            red = {"max": torch.amax, "min": torch.amin,
-                   "prod": torch.prod}[op]
 
             def f(x):
-                return red(x, 0).to(x.dtype)
+                return ici.stock_reduce(x, op)
         elif name == "bcast":
             def f(x):                       # staged root slot [n]
                 return x
@@ -590,22 +598,20 @@ _CVAR_OF = {"allreduce": "ALLREDUCE", "bcast": "BCAST",
 _HOST_TIER = "the host collective tier is not ported"
 
 
-def _select_transport(name: str, op, buf) -> str:
-    """The transport for this call: 'device', or NotImplementedError
-    where the JAX package would take its host tier. The decision must be
-    identical on every rank of a call; its inputs (op, dtype, cvars) are
-    required-uniform by MPI. No input is a size: alltoallv's send total
-    differs per rank (a zero row is legal), so a size gate could split
-    the ranks across transports; as in the JAX package, it takes the
-    device once these gates pass."""
+def _select_transport(name: str, nbytes: int, op, buf) -> str:
+    """The transport for this call, as the JAX package's
+    ``_select_transport`` chooses it: 'device', or NotImplementedError
+    where it would take its host tier. A forced ``<COLL>_ALGO=device``
+    wins over everything but an op or dtype that does not lower; another
+    forced algorithm, ``USE_DEVICE_COLL`` off or such an op or dtype
+    take the host; then a tensor (device-resident) and alltoallv take
+    the device, and a numpy buffer takes it from DEVICE_COLL_MIN_BYTES
+    (``nbytes``: the call's bytes on the wire) up. The decision must be
+    identical on every rank of a call: its inputs are required-uniform
+    by MPI, buffer residency included. alltoallv's send total is not
+    (a zero row is legal), so it has no size gate."""
     cfg = get_config()
     forced = cfg.get(f"{_CVAR_OF[name]}_ALGO", "")
-    if forced and forced != "device":
-        raise NotImplementedError(
-            f"{name}: host algorithm {forced!r} forced; {_HOST_TIER}")
-    if not cfg["USE_DEVICE_COLL"]:
-        raise NotImplementedError(
-            f"{name}: USE_DEVICE_COLL is off; {_HOST_TIER}")
     if op is not None and _op_name(op) is None:
         raise NotImplementedError(
             f"{name}: op {op!r} has no device reduction; {_HOST_TIER}")
@@ -614,7 +620,22 @@ def _select_transport(name: str, op, buf) -> str:
             f"{name}: dtype {getattr(buf, 'dtype', type(buf).__name__)} "
             f"does not run on the device (8-byte, bool and complex types "
             f"need the host tier); {_HOST_TIER}")
-    return "device"
+    if forced == "device":
+        return "device"
+    if forced:
+        raise NotImplementedError(
+            f"{name}: host algorithm {forced!r} forced; {_HOST_TIER}")
+    if not cfg["USE_DEVICE_COLL"]:
+        raise NotImplementedError(
+            f"{name}: USE_DEVICE_COLL is off; {_HOST_TIER}")
+    if is_device_tensor(buf) or name == "alltoallv":
+        return "device"
+    crossover = int(cfg["DEVICE_COLL_MIN_BYTES"])
+    if nbytes >= crossover:
+        return "device"
+    raise NotImplementedError(
+        f"{name}: a host buffer of {nbytes} bytes is below "
+        f"DEVICE_COLL_MIN_BYTES ({crossover}); {_HOST_TIER}")
 
 
 def _dtype_ok(buf) -> bool:
@@ -623,26 +644,33 @@ def _dtype_ok(buf) -> bool:
     return _dtype_lowers(*_dtype_kind(buf))
 
 
-# position of the op argument in each entry's args (after the comm)
-_OP_POS = {"allreduce": 4, "reduce": 4, "reduce_scatter_block": 4,
-           "bcast": None, "allgather": None, "alltoall": None}
-
-
 def install_device_coll(comm, channel: _Channel) -> None:
     """Point the device-capable entries of ``comm.coll_fns`` at the
     channel, behind the transport check."""
     comm.device_channel = channel
+    sz = comm.size
+    # per entry: (bytes on the wire, position of the op) from its args
+    # after the comm (core/comm.py signatures; a datatype is a numpy or
+    # torch dtype), as the JAX install_device_coll's meta table
+    meta = {
+        "allreduce": (lambda a: a[2] * a[3].itemsize, 4),
+        "reduce": (lambda a: a[2] * a[3].itemsize, 4),
+        "bcast": (lambda a: a[1] * a[2].itemsize, None),
+        "allgather": (lambda a: a[2] * a[3].itemsize * sz, None),
+        "alltoall": (lambda a: a[2] * a[3].itemsize * sz, None),
+        "reduce_scatter_block": (lambda a: a[2] * a[3].itemsize * sz, 4),
+    }
 
     def wrap(name):
         devfn = getattr(channel, name)
-        op_pos = _OP_POS[name]
+        nbytes_of, op_pos = meta[name]
 
         def entry(comm_, *a):
             buf = a[0]
             if _is_in_place(buf) and len(a) > 1:
                 buf = a[1]   # selection looks at the effective buffer
             op = a[op_pos] if op_pos is not None else None
-            _select_transport(name, op, buf)
+            _select_transport(name, nbytes_of(a), op, buf)
             return devfn(comm_, *a)
         return entry
 
@@ -662,7 +690,7 @@ def install_device_coll(comm, channel: _Channel) -> None:
         if _is_in_place(sendbuf):
             raise NotImplementedError(
                 f"alltoallv with MPI_IN_PLACE; {_HOST_TIER}")
-        _select_transport("alltoallv", None, sendbuf)
+        _select_transport("alltoallv", 0, None, sendbuf)
         return channel.alltoallv(
             comm_, sendbuf, list(scounts),
             list(sdispls) if sdispls is not None

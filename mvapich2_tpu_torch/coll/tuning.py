@@ -27,10 +27,6 @@ _KERNEL_PARAMS = {
     "ring_blocks_per_sm": 1,
 }
 
-# the JAX package's default DEV_TIER_QUANT_MIN: the smallest shard the
-# quant bin takes (a cvar again once its kernel, K9, is ported)
-_QUANT_MIN = 1024 * 1024
-
 
 def kernel_param(key: str, default: int) -> int:
     """The compiled-in kernel parameter ``key``, or ``default`` when the
@@ -45,34 +41,43 @@ def set_kernel_param(key: str, value: int) -> None:
 
 
 def quant_params() -> Tuple[str, float]:
-    """(wire, relative-error budget) that MV2T_QUANT_COLL carries:
-    ``''`` = off, ``'<budget>'`` (wire q8) or ``'<wire>:<budget>'`` with
-    wire q8 or fp8. A malformed value reads as off, as in the JAX
-    package."""
+    """(wire, relative-error budget) that MV2T_QUANT_COLL carries, in
+    the JAX package's grammar: ``''`` = off (budget 0), ``'<budget>'``
+    (wire q8) or ``'<wire>:<budget>'`` split at the first colon, wire q8
+    or fp8. A malformed value reads as off."""
     raw = str(get_config()["QUANT_COLL"] or "").strip()
-    wire, _, budget = raw.rpartition(":")
-    wire = wire.strip().lower() or "q8"
-    if wire not in ("q8", "fp8"):
+    if not raw:
         return "q8", 0.0
+    wire = "q8"
+    if ":" in raw:
+        wire, _, raw = raw.partition(":")
+        wire = wire.strip().lower()
     try:
-        return wire, max(0.0, float(budget))
+        budget = float(raw)
     except ValueError:
         return "q8", 0.0
+    if wire not in ("q8", "fp8"):
+        return "q8", 0.0
+    return wire, max(0.0, budget)
 
 
 def device_tier(name: str, shard_nbytes: int) -> str:
     """'vmem' | 'hbm' | 'quant' | 'xla' for a device collective shard of
     ``shard_nbytes``: at or below DEV_TIER_VMEM_MAX the resident ring
-    (K6/K7), then the quant bin when MV2T_QUANT_COLL carries a budget
-    and the shard is at least 1 MiB, then the stock lowering at or above
-    DEV_TIER_XLA_MIN (-1 = never), else the chunked streaming ring
-    (K3/K5). The names keep the JAX package's tier labels: 'vmem' is the
-    small-message tier, 'hbm' the streaming one."""
+    (K6/K7); then, when MV2T_QUANT_COLL carries a budget, the quant bin
+    (K9) at or above DEV_TIER_QUANT_MIN (-1 = never); then the stock
+    lowering at or above DEV_TIER_XLA_MIN (-1 = never); else the chunked
+    streaming ring (K3/K5). Whether a call in the quant bin may really
+    quantize is ``ops/ici.py`` ``planned_tier``'s check. The names keep
+    the JAX package's tier labels: 'vmem' is the small-message tier,
+    'hbm' the streaming one."""
     cfg = get_config()
     if shard_nbytes <= int(cfg["DEV_TIER_VMEM_MAX"]):
         return "vmem"
-    if quant_params()[1] > 0 and shard_nbytes >= _QUANT_MIN:
-        return "quant"
+    if quant_params()[1] > 0:
+        qmin = int(cfg["DEV_TIER_QUANT_MIN"])
+        if qmin >= 0 and shard_nbytes >= qmin:
+            return "quant"
     xmin = int(cfg["DEV_TIER_XLA_MIN"])
     if xmin >= 0 and shard_nbytes >= xmin:
         return "xla"

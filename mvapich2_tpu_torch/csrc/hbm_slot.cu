@@ -21,9 +21,10 @@
 // The grid is a multiple of the SM count (the caller passes it).
 //
 // Accumulation: float/__half/__nv_bfloat16 in float; int32/int16/int8/
-// uint8 in int32, cast to the slot dtype on store (narrow integers wrap,
-// as the Pallas body's output cast does). mean multiplies by the float
-// value of 1/R that the caller passes, as the Pallas body does.
+// uint8/uint16 in int32 and uint32 in uint32, cast to the slot dtype on
+// store (sums wrap, as the Pallas body's output cast does). mean
+// multiplies by the float value of 1/R that the caller passes, as the
+// Pallas body does.
 //
 // Left for later: no TMA or cp.async pipelining of the rank loads, and
 // no pointer-array read of the R deposits in place (the caller stages
@@ -41,6 +42,7 @@
 namespace {
 
 template <typename T> struct Acc { using type = int32_t; };
+template <> struct Acc<uint32_t> { using type = uint32_t; };
 template <> struct Acc<float> { using type = float; };
 template <> struct Acc<__half> { using type = float; };
 template <> struct Acc<__nv_bfloat16> { using type = float; };
@@ -80,6 +82,10 @@ __device__ __forceinline__ T finish(int32_t acc, int mean, float scale) {
   int32_t v = mean ? static_cast<int32_t>(static_cast<float>(acc) * scale)
                    : acc;
   return static_cast<T>(v);
+}
+template <typename T>
+__device__ __forceinline__ T finish(uint32_t acc, int mean, float scale) {
+  return mean ? static_cast<T>(static_cast<float>(acc) * scale) : acc;
 }
 
 // K1. Output vector p (element offset p*V) is row p*V/128, lane
@@ -154,7 +160,8 @@ __global__ void fused_allreduce_kernel(const T* x, T* out, int R,
 }
 
 // dtype codes shared with ops/hbm.py _DTYPE_CODES
-enum DType { F32 = 0, F16 = 1, BF16 = 2, I32 = 3, I16 = 4, I8 = 5, U8 = 6 };
+enum DType { F32 = 0, F16 = 1, BF16 = 2, I32 = 3, I16 = 4, I8 = 5, U8 = 6,
+             U16 = 7, U32 = 8 };
 
 template <typename T>
 void launch_reduce(const void* x, void* out, int R, int64_t nvec,
@@ -189,6 +196,8 @@ int mv2t_slot_reduce(int dtype, const void* x, void* out, int R,
     case I16: launch_reduce<int16_t>(x, out, R, nvec, rank_stride, row_stride, mean, scale, grid, block, s); break;
     case I8: launch_reduce<int8_t>(x, out, R, nvec, rank_stride, row_stride, mean, scale, grid, block, s); break;
     case U8: launch_reduce<uint8_t>(x, out, R, nvec, rank_stride, row_stride, mean, scale, grid, block, s); break;
+    case U16: launch_reduce<uint16_t>(x, out, R, nvec, rank_stride, row_stride, mean, scale, grid, block, s); break;
+    case U32: launch_reduce<uint32_t>(x, out, R, nvec, rank_stride, row_stride, mean, scale, grid, block, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -206,6 +215,8 @@ int mv2t_fused_allreduce(int dtype, const void* x, void* out, int R,
     case I16: launch_fused<int16_t>(x, out, R, nvec, mean, scale, grid, block, s); break;
     case I8: launch_fused<int8_t>(x, out, R, nvec, mean, scale, grid, block, s); break;
     case U8: launch_fused<uint8_t>(x, out, R, nvec, mean, scale, grid, block, s); break;
+    case U16: launch_fused<uint16_t>(x, out, R, nvec, mean, scale, grid, block, s); break;
+    case U32: launch_fused<uint32_t>(x, out, R, nvec, mean, scale, grid, block, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

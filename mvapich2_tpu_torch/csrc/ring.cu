@@ -24,9 +24,14 @@
 //    put of src[n] into the target's window row at disp.
 // K13 rma_get_kernel             replaces pallas_rma.py rma_get (body
 //    _get_kernel). Chunked one-sided get of n window elements at disp.
+// K9 quant_ring_all_reduce_kernel replaces mvapich2_tpu/ops/pallas_quant.py
+//    quant_ring_all_reduce (body _quant_rs_kernel, engine _QuantStreamer).
+//    K3's reduce-scatter with the block-scaled codec fused into both
+//    halves of every step, then each rank's own block encoded once.
 // K14 rma_acc_kernel             replaces pallas_rma.py rma_accumulate
 //    (body _acc_kernel), exact wire: MPI_SUM fold of src[n] into the
-//    target's window row at disp.
+//    target's window row at disp. rma_acc_quant_kernel is its quantized
+//    wire (_acc_kernel with quant_block set): K9's codec in the two lanes.
 // K17 direct_put_kernel          replaces mvapich2_tpu/rma/device.py
 //    pallas_put (body _pallas_put_kernel). Single-shot put through one
 //    landing buffer of n elements.
@@ -98,8 +103,17 @@
 // elements, one flag per block, no credits.
 //
 // Arithmetic: floats fold in float and round to the dtype at every step,
-// integers in 32 bits and wrap to the dtype, exactly as the JAX kernel's
-// dtype arithmetic; max/min propagate NaN as jnp.maximum does.
+// integers in 32 bits (uint32 unsigned) and wrap to the dtype, exactly as
+// the JAX kernel's dtype arithmetic; max/min propagate NaN as
+// jnp.maximum does.
+//
+// Bound (K9, K14q): bytes as well. For an m-byte f32 shard K9 must read
+// the input once and write the wire output once, m + m/3.9 bytes a rank;
+// its schedule moves 2m (init) + (p-1)(m/p)(3 + 2/3.9) (read own, write
+// the slot's wire, read the wire and own, write own) + (m/p)(1 + 1/3.9)
+// (the own-block encode). The codec's division, one an element a hop,
+// stays far below the f32 rate. K14q must move 3n bytes of f32 (read src
+// and window, write window) and moves 3n + 2n/3.9 through its slot.
 //
 // Bound. Device-memory traffic, not arithmetic: per rank K3 moves about
 // 2m (init copy) + (p-1)(5m/p) (reduce-scatter: read own, write slot,
@@ -125,6 +139,7 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <mutex>
 #include <type_traits>
@@ -140,14 +155,18 @@ struct RankPtrs {
   void* out[kMaxRanks];
 };
 
-enum DType { F32 = 0, F16 = 1, BF16 = 2, I32 = 3, I16 = 4, I8 = 5, U8 = 6 };
+enum DType { F32 = 0, F16 = 1, BF16 = 2, I32 = 3, I16 = 4, I8 = 5, U8 = 6,
+             U16 = 7, U32 = 8 };
 enum Op { SUM = 0, MAX = 1, MIN = 2, PROD = 3 };
 
 // ---------------------------------------------------------------------------
 // arithmetic
 // ---------------------------------------------------------------------------
 
+// Accumulators: floats in float; integers in int32, except uint32 in
+// uint32, so that max and min order values above 2^31 as unsigned.
 template <typename T> struct Acc { using type = int32_t; };
+template <> struct Acc<uint32_t> { using type = uint32_t; };
 template <> struct Acc<float> { using type = float; };
 template <> struct Acc<__half> { using type = float; };
 template <> struct Acc<__nv_bfloat16> { using type = float; };
@@ -177,6 +196,9 @@ __device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16>(float v) {
 template <typename T> __device__ __forceinline__ T from_acc(int32_t v) {
   return static_cast<T>(v);
 }
+template <typename T> __device__ __forceinline__ T from_acc(uint32_t v) {
+  return static_cast<T>(v);
+}
 
 template <int OP>
 __device__ __forceinline__ float apply(float a, float b) {
@@ -196,6 +218,13 @@ __device__ __forceinline__ int32_t apply(int32_t a, int32_t b) {
   if (OP == MAX) return a > b ? a : b;
   return a < b ? a : b;
 }
+template <int OP>
+__device__ __forceinline__ uint32_t apply(uint32_t a, uint32_t b) {
+  if (OP == SUM) return a + b;                 // wraps
+  if (OP == PROD) return a * b;
+  if (OP == MAX) return a > b ? a : b;
+  return a < b ? a : b;
+}
 
 template <typename T, int OP>
 __device__ __forceinline__ T red(T a, T b) {
@@ -207,13 +236,14 @@ template <> struct Limits<int32_t> { static constexpr int32_t lo = INT32_MIN, hi
 template <> struct Limits<int16_t> { static constexpr int32_t lo = INT16_MIN, hi = INT16_MAX; };
 template <> struct Limits<int8_t> { static constexpr int32_t lo = INT8_MIN, hi = INT8_MAX; };
 template <> struct Limits<uint8_t> { static constexpr int32_t lo = 0, hi = UINT8_MAX; };
+template <> struct Limits<uint16_t> { static constexpr int32_t lo = 0, hi = UINT16_MAX; };
+template <> struct Limits<uint32_t> { static constexpr uint32_t lo = 0, hi = UINT32_MAX; };
 
 template <typename T, int OP>
 __device__ __forceinline__ T identity() {
   if (OP == SUM) return from_acc<T>(typename Acc<T>::type(0));
   if (OP == PROD) return from_acc<T>(typename Acc<T>::type(1));
-  if constexpr (sizeof(typename Acc<T>::type) == 4 &&
-                !std::is_same<typename Acc<T>::type, float>::value) {
+  if constexpr (!std::is_same<typename Acc<T>::type, float>::value) {
     return from_acc<T>(OP == MAX ? Limits<T>::lo : Limits<T>::hi);
   } else {
     return from_acc<T>(OP == MAX ? -INFINITY : INFINITY);
@@ -377,8 +407,30 @@ __device__ __forceinline__ void share(long long sz, long long full, int b,
 __device__ __forceinline__ int mod(int a, int p) { return ((a % p) + p) % p; }
 
 // ---------------------------------------------------------------------------
-// the streaming engine of K3 and K5 (one block's view of one lane)
+// the streaming engine of K3, K5 and K9 (one block's view of one lane)
 // ---------------------------------------------------------------------------
+
+// One ring step of lane L over its span [lo, hi): every chunk, issue c
+// then drain c-1. L is a Lane<T> or a QuantLane<W>, whose issue and drain
+// carry the chunk's share exactly or through the codec.
+template <typename LaneT, int OP>
+__device__ bool ring_step(LaneT& L, long long sb_off, long long rb_off,
+                          bool fold) {
+  const long long nc = (L.hi - L.lo + L.chunk - 1) / L.chunk;
+  for (long long c = 0; c <= nc; ++c) {
+    if (c < nc) {
+      const long long off = L.lo + c * L.chunk;
+      if (!L.issue(sb_off, off, min(L.chunk, L.hi - off))) return false;
+    }
+    if (c >= 1) {
+      const long long off = L.lo + (c - 1) * L.chunk;
+      if (!L.template drain<OP>(rb_off, off, min(L.chunk, L.hi - off),
+                                fold))
+        return false;
+    }
+  }
+  return true;
+}
 
 template <typename T>
 struct Lane {
@@ -438,22 +490,9 @@ struct Lane {
     return true;
   }
 
-  // one ring step: every chunk of the span, issue c then drain c-1
   template <int OP>
   __device__ bool step(long long sb_off, long long rb_off, bool fold) {
-    const long long nc = (hi - lo + chunk - 1) / chunk;
-    for (long long c = 0; c <= nc; ++c) {
-      if (c < nc) {
-        const long long off = lo + c * chunk;
-        if (!issue(sb_off, off, min(chunk, hi - off))) return false;
-      }
-      if (c >= 1) {
-        const long long off = lo + (c - 1) * chunk;
-        if (!drain<OP>(rb_off, off, min(chunk, hi - off), fold))
-          return false;
-      }
-    }
-    return true;
+    return ring_step<Lane<T>, OP>(*this, sb_off, rb_off, fold);
   }
 };
 
@@ -532,6 +571,218 @@ __global__ void hbm_ring_all_gather_kernel(
     const int sb = L.d == 0 ? mod(r - s, p) : mod(r + s, p);
     const int rb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
     if (!L.template step<SUM>(sb * m, rb * m, false)) return;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the block-scaled codec of K9 and K14's quantized wire (pallas_quant.py
+// _encode_f32 / _decode_f32): a block of blk f32 values travels as
+// 1 + blk/4 int32 words, the f32 scale absmax * f32(1/top) bitcast, then
+// four codes a word, lowest byte first. Divisions are IEEE (__fdiv_rn),
+// q8 rounds half to even (rintf), fp8 converts with round-to-nearest-even
+// and saturation; the decoded value is folded with one rounding
+// (__fmaf_rn), as XLA compiles the JAX kernel's acc + q * scale. Every
+// operation is written as the intrinsic, so nvcc's contraction cannot
+// change it.
+// ---------------------------------------------------------------------------
+
+enum Wire { Q8 = 0, FP8 = 1 };
+
+template <int W> struct Codec;
+template <> struct Codec<Q8> {
+  __device__ static float inv_top() { return 1.0f / 127.0f; }
+  __device__ static unsigned code(float v) {        // v = x / scale
+    const float q = fminf(fmaxf(rintf(v), -127.0f), 127.0f);
+    return static_cast<unsigned>(static_cast<int>(q) + 128);
+  }
+  __device__ static float value(unsigned c) {
+    return static_cast<float>(static_cast<int>(c)) - 128.0f;
+  }
+};
+template <> struct Codec<FP8> {
+  __device__ static float inv_top() { return 1.0f / 448.0f; }
+  __device__ static unsigned code(float v) {
+    const float y = fminf(fmaxf(v, -448.0f), 448.0f);
+    return static_cast<unsigned>(
+        __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3));
+  }
+  __device__ static float value(unsigned c) {
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(
+        static_cast<__nv_fp8_storage_t>(c), __NV_E4M3)));
+  }
+};
+
+// 4 consecutive floats, as one 16-byte access when aligned.
+__device__ __forceinline__ float4 load4(const float* p) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0)
+    return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
+  }
+}
+
+// Encode nb blocks of blk values at x into nb wire runs at w. One warp a
+// block: lane i takes word i (and i + 32, ...), four values; the absmax
+// is a shuffle reduction. blockDim.x is a multiple of 32.
+template <int W>
+__device__ void encode_blocks(int* w, const float* x, long long nb,
+                              int blk) {
+  const int lane = threadIdx.x & 31;
+  const int nw = blk / 4;
+  for (long long k = threadIdx.x >> 5; k < nb; k += blockDim.x >> 5) {
+    const float* xb = x + k * blk;
+    int* wb = w + k * (1 + nw);
+    float amax = 0.0f;
+    for (int i = lane; i < nw; i += 32) {
+      const float4 v = load4(xb + 4 * i);
+      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                               fmaxf(fabsf(v.z), fabsf(v.w))));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float scale = __fmul_rn(amax, Codec<W>::inv_top());
+    const float safe = scale > 0.0f ? scale : 1.0f;
+    if (lane == 0) wb[0] = __float_as_int(scale);
+    for (int i = lane; i < nw; i += 32) {
+      const float4 v = load4(xb + 4 * i);
+      const unsigned word = Codec<W>::code(__fdiv_rn(v.x, safe)) |
+                            Codec<W>::code(__fdiv_rn(v.y, safe)) << 8 |
+                            Codec<W>::code(__fdiv_rn(v.z, safe)) << 16 |
+                            Codec<W>::code(__fdiv_rn(v.w, safe)) << 24;
+      wb[1 + i] = static_cast<int>(word);
+    }
+  }
+}
+
+// o[i] = fma(code, scale, o[i]) over nb blocks whose wire runs sit at w
+// (a landing slot another SM wrote: read through L2).
+template <int W>
+__device__ void decode_fold_blocks(float* o, const int* w, long long nb,
+                                   int blk) {
+  const int lane = threadIdx.x & 31;
+  const int nw = blk / 4;
+  for (long long k = threadIdx.x >> 5; k < nb; k += blockDim.x >> 5) {
+    const int* wb = w + k * (1 + nw);
+    float* ob = o + k * blk;
+    const float scale = __int_as_float(ld_cg(wb));
+    for (int i = lane; i < nw; i += 32) {
+      const unsigned word = static_cast<unsigned>(ld_cg(wb + 1 + i));
+      float4 a = load4(ob + 4 * i);
+      a.x = __fmaf_rn(Codec<W>::value(word & 0xFF), scale, a.x);
+      a.y = __fmaf_rn(Codec<W>::value(word >> 8 & 0xFF), scale, a.y);
+      a.z = __fmaf_rn(Codec<W>::value(word >> 16 & 0xFF), scale, a.z);
+      a.w = __fmaf_rn(Codec<W>::value(word >> 24), scale, a.w);
+      store4(ob + 4 * i, a);
+    }
+  }
+}
+
+// K9's lane: Lane<float>'s schedule (slot sequence, counters, credits)
+// over f32 partials, with each chunk share carried as wire words. A
+// share is cut in whole quantization blocks (align blk), so one warp's
+// absmax covers one block; its wire words start at (s0/blk)*(1+blk/4).
+template <int W>
+struct QuantLane : Lane<float> {
+  int blk;
+  long long wchunk;              // wire words of a full chunk's slot
+  int* wslots;                   // [p][ndir][depth][wchunk]
+
+  __device__ long long wpos(long long e) const {
+    return e / blk * (1 + blk / 4);
+  }
+  __device__ int* wslot_ptr(int rank, unsigned g) const {
+    return wslots + ((static_cast<long long>(rank) * ndir + d) * depth +
+                     g % depth) * wchunk;
+  }
+
+  // encode this block's share of the sender's partial into the
+  // downstream rank's slot, then publish it
+  __device__ bool issue(long long sb_off, long long off, long long sz) {
+    long long s0, s1;
+    share(sz, chunk, b, B, blk, &s0, &s1);
+    const int to = dst();
+    const unsigned g = g_issue;
+    if (g >= static_cast<unsigned>(depth) &&
+        !block_wait(consumed + flag(to), g - depth + 1, err))
+      return false;
+    encode_blocks<W>(wslot_ptr(to, g) + wpos(s0), o + sb_off + off + s0,
+                     (s1 - s0) / blk, blk);
+    block_signal(landed + flag(to), g + 1);
+    g_issue = g + 1;
+    return true;
+  }
+
+  // decode the landed share and fold it into this rank's partial, then
+  // return the slot's credit
+  template <int OP>
+  __device__ bool drain(long long rb_off, long long off, long long sz,
+                        bool) {
+    long long s0, s1;
+    share(sz, chunk, b, B, blk, &s0, &s1);
+    const unsigned g = g_drain;
+    if (!block_wait(landed + flag(r), g + 1, err)) return false;
+    decode_fold_blocks<W>(o + rb_off + off + s0, wslot_ptr(r, g) + wpos(s0),
+                          (s1 - s0) / blk, blk);
+    block_signal(consumed + flag(r), g + 1);
+    g_drain = g + 1;
+    return true;
+  }
+};
+
+// K9 (T: the input dtype, f32 or f16). outs[r]: rank r's f32
+// working row of p*nblk elements; wires + r*wblk: rank r's wire output.
+// The reduce-scatter of K3 with the codec in both halves of a step, then
+// the own block encoded once. The CTA that folds a share of the own
+// block on the last step is the one that encodes it.
+template <typename T, int W>
+__global__ void __launch_bounds__(1024) quant_ring_all_reduce_kernel(
+    RankPtrs ptrs, int* wires, int p, long long n, long long nblk,
+    int blk, long long chunk, int depth, int ndir, int B, int* wslots,
+    unsigned* landed, unsigned* consumed, int* err) {
+  const int lane_rank = (blockIdx.x / B) / ndir;
+  QuantLane<W> L;
+  static_cast<Lane<float>&>(L) = make_lane<float>(
+      p, nblk, chunk, depth, ndir, B, nullptr, landed, consumed, 0, err,
+      ptrs.out[lane_rank]);
+  L.blk = blk;
+  L.wchunk = chunk / blk * (1 + blk / 4);
+  L.wslots = wslots;
+  if (ndir == 2) {                // the split on whole blocks (_quant_spans)
+    const long long h = (nblk / blk + 1) / 2 * blk;
+    L.lo = L.d == 0 ? 0 : h;
+    L.hi = L.d == 0 ? h : nblk;
+  }
+  const T* x = static_cast<const T*>(ptrs.in[L.r]);
+  // o = x as f32, zero-padded: this block's share of every chunk of its
+  // span of every block
+  for (int k = 0; k < p; ++k)
+    for (long long off = L.lo; off < L.hi; off += chunk) {
+      long long s0, s1;
+      share(min(chunk, L.hi - off), chunk, L.b, B, blk, &s0, &s1);
+      const long long e = k * nblk + off + s0;
+      for (long long i = threadIdx.x; i < s1 - s0; i += blockDim.x)
+        L.o[e + i] = e + i < n ? to_acc<T>(x[e + i]) : 0.0f;
+    }
+  __syncthreads();
+  const int r = L.r;
+  for (int s = 0; s < p - 1; ++s) {
+    const int sb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
+    const int rb = L.d == 0 ? mod(r - s - 2, p) : mod(r + s + 2, p);
+    if (!ring_step<QuantLane<W>, SUM>(L, sb * nblk, rb * nblk, true))
+      return;
+  }
+  int* w = wires + static_cast<long long>(r) * L.wpos(nblk);
+  for (long long off = L.lo; off < L.hi; off += chunk) {
+    long long s0, s1;
+    share(min(chunk, L.hi - off), chunk, L.b, B, blk, &s0, &s1);
+    encode_blocks<W>(w + L.wpos(off + s0), L.o + r * nblk + off + s0,
+                     (s1 - s0) / blk, blk);
   }
 }
 
@@ -830,39 +1081,79 @@ __device__ __forceinline__ void prefetch_l2(const void* p, long long bytes) {
     asm volatile("prefetch.global.L2 [%0];" :: "l"(c + i));
 }
 
-// One block's part of one stream of n elements from `from` to `to`
-// through `depth` landing slots of `chunk` elements. Blocks [0, B) are
-// the producer lane, [B, 2B) the consumer lane; block b of each owns
-// share b of every chunk and its own counters landed[b] / consumed[b].
+// What one hop of the one-sided stream does with a share of cnt
+// elements: PlainHop moves the elements as they are (K12, K13) or folds
+// them (K14); QuantHop carries them as wire words (K14's quantized wire).
 template <typename T, bool FOLD>
-__device__ void rma_stream(const T* from, T* to, long long n,
-                           long long chunk, int depth, int B, T* slots,
-                           unsigned* landed, unsigned* consumed, int* err) {
-  constexpr int kAlign = 16 / sizeof(T);
+struct PlainHop {
+  using Slot = T;
+  static constexpr bool kFold = FOLD;
+  __device__ int align() const { return 16 / sizeof(T); }
+  __device__ long long slot_len(long long chunk) const { return chunk; }
+  __device__ long long slot_pos(long long e) const { return e; }
+  __device__ void produce(T* slot, const T* src, long long cnt) const {
+    copy_any(slot, src, cnt, false);
+  }
+  __device__ void consume(T* dst, const T* slot, long long cnt) const {
+    if constexpr (FOLD)
+      fold_any(dst, slot, cnt);
+    else
+      copy_any(dst, slot, cnt, true);
+  }
+};
+
+template <int W>
+struct QuantHop {
+  using Slot = int;
+  static constexpr bool kFold = true;
+  int blk;
+  __device__ int align() const { return blk; }
+  __device__ long long slot_len(long long chunk) const {
+    return slot_pos(chunk);
+  }
+  __device__ long long slot_pos(long long e) const {
+    return e / blk * (1 + blk / 4);
+  }
+  __device__ void produce(int* slot, const float* src, long long cnt) const {
+    encode_blocks<W>(slot, src, cnt / blk, blk);
+  }
+  __device__ void consume(float* dst, const int* slot, long long cnt) const {
+    decode_fold_blocks<W>(dst, slot, cnt / blk, blk);
+  }
+};
+
+// One block's part of one stream of n elements from `from` to `to`
+// through `depth` landing slots, each holding a chunk of `chunk`
+// elements as the hop lays it out. Blocks [0, B) are the producer lane,
+// [B, 2B) the consumer lane; block b of each owns share b of every chunk
+// and its own counters landed[b] / consumed[b].
+template <typename T, typename Hop>
+__device__ void rma_stream(const Hop& hop, const T* from, T* to,
+                           long long n, long long chunk, int depth, int B,
+                           typename Hop::Slot* slots, unsigned* landed,
+                           unsigned* consumed, int* err) {
   const int b = blockIdx.x % B;
   const bool producer = blockIdx.x < B;
   const long long nc = (n + chunk - 1) / chunk;
   for (long long g = 0; g < nc; ++g) {
     const long long off = g * chunk;
     long long s0, s1;
-    share(min(chunk, n - off), chunk, b, B, kAlign, &s0, &s1);
-    T* slot = slots + (g % depth) * chunk;
+    share(min(chunk, n - off), chunk, b, B, hop.align(), &s0, &s1);
+    typename Hop::Slot* slot =
+        slots + (g % depth) * hop.slot_len(chunk) + hop.slot_pos(s0);
     if (producer) {
       if (g >= depth &&
           !block_wait(consumed + b, static_cast<unsigned>(g - depth + 1),
                       err))
         return;
-      copy_any(slot + s0, from + off + s0, s1 - s0, false);
+      hop.produce(slot, from + off + s0, s1 - s0);
       block_signal(landed + b, static_cast<unsigned>(g + 1));
     } else {
-      if constexpr (FOLD)
+      if constexpr (Hop::kFold)
         prefetch_l2(to + off + s0, (s1 - s0) * sizeof(T));
       if (!block_wait(landed + b, static_cast<unsigned>(g + 1), err))
         return;
-      if constexpr (FOLD)
-        fold_any(to + off + s0, slot + s0, s1 - s0);
-      else
-        copy_any(to + off + s0, slot + s0, s1 - s0, true);
+      hop.consume(to + off + s0, slot, s1 - s0);
       block_signal(consumed + b, static_cast<unsigned>(g + 1));
     }
   }
@@ -874,8 +1165,8 @@ template <typename T>
 __global__ void __launch_bounds__(1024) rma_put_kernel(
     const T* from, T* to, long long n, long long chunk, int depth, int B,
     T* slots, unsigned* landed, unsigned* consumed, int* err) {
-  rma_stream<T, false>(from, to, n, chunk, depth, B, slots, landed,
-                       consumed, err);
+  rma_stream(PlainHop<T, false>{}, from, to, n, chunk, depth, B, slots,
+             landed, consumed, err);
 }
 
 // K13 (T as K12): from = the target's window row + disp, to = the
@@ -884,8 +1175,8 @@ template <typename T>
 __global__ void __launch_bounds__(1024) rma_get_kernel(
     const T* from, T* to, long long n, long long chunk, int depth, int B,
     T* slots, unsigned* landed, unsigned* consumed, int* err) {
-  rma_stream<T, false>(from, to, n, chunk, depth, B, slots, landed,
-                       consumed, err);
+  rma_stream(PlainHop<T, false>{}, from, to, n, chunk, depth, B, slots,
+             landed, consumed, err);
 }
 
 // K14: from = src, to = the target's window row + disp, folded.
@@ -893,8 +1184,20 @@ template <typename T>
 __global__ void __launch_bounds__(1024) rma_acc_kernel(
     const T* from, T* to, long long n, long long chunk, int depth, int B,
     T* slots, unsigned* landed, unsigned* consumed, int* err) {
-  rma_stream<T, true>(from, to, n, chunk, depth, B, slots, landed,
-                      consumed, err);
+  rma_stream(PlainHop<T, true>{}, from, to, n, chunk, depth, B, slots,
+             landed, consumed, err);
+}
+
+// K14, quantized wire (f32): the producer encodes its share of the source
+// chunk into the landing slot, the consumer decodes it and folds it into
+// the window row; n and chunk are multiples of blk.
+template <int W>
+__global__ void __launch_bounds__(1024) rma_acc_quant_kernel(
+    const float* from, float* to, long long n, int blk, long long chunk,
+    int depth, int B, int* slots, unsigned* landed, unsigned* consumed,
+    int* err) {
+  rma_stream(QuantHop<W>{blk}, from, to, n, chunk, depth, B, slots, landed,
+             consumed, err);
 }
 
 // K17 (T as K12): the origin lane stages share b of src into the landing
@@ -1022,6 +1325,40 @@ cudaError_t launch_k5(RankPtrs ptrs, int p, long long m, long long chunk,
                                      dim3(threads), args, 0, s);
 }
 
+// K9 shares K3's flag layout: landed then consumed, each [p][ndir][ctas].
+template <typename T, int W>
+cudaError_t launch_k9(RankPtrs ptrs, int* wires, int p, long long n,
+                      long long nblk, int blk, long long chunk, int depth,
+                      int ndir, void* slots, unsigned* flags, int ctas,
+                      int threads, cudaStream_t s) {
+  const void* kern = reinterpret_cast<const void*>(
+      &quant_ring_all_reduce_kernel<T, W>);
+  int B, *err;
+  cudaError_t e = error_word(&err);
+  if (e == cudaSuccess) e = fit_ctas(kern, p * ndir, ctas, threads, &B);
+  if (e != cudaSuccess) return e;
+  int* ws = static_cast<int*>(slots);
+  unsigned* landed = flags;
+  unsigned* consumed = flags + static_cast<long long>(p) * ndir * ctas;
+  void* args[] = {&ptrs, &wires, &p, &n, &nblk, &blk, &chunk, &depth,
+                  &ndir, &B, &ws, &landed, &consumed, &err};
+  return cudaLaunchCooperativeKernel(kern, dim3(p * ndir * B),
+                                     dim3(threads), args, 0, s);
+}
+
+template <typename T>
+cudaError_t launch_k9_wire(int wire, RankPtrs ptrs, int* wires, int p,
+                           long long n, long long nblk, int blk,
+                           long long chunk, int depth, int ndir,
+                           void* slots, unsigned* flags, int ctas,
+                           int threads, cudaStream_t s) {
+  switch (wire) {
+    case Q8: return launch_k9<T, Q8>(ptrs, wires, p, n, nblk, blk, chunk, depth, ndir, slots, flags, ctas, threads, s);
+    case FP8: return launch_k9<T, FP8>(ptrs, wires, p, n, nblk, blk, chunk, depth, ndir, slots, flags, ctas, threads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // K6 and K7 share the launch: (ptrs, p, len, B, slots, flags, vec, err).
 // The flag layout is [3][p][B] for the B the launch runs with.
 template <typename T>
@@ -1117,6 +1454,29 @@ cudaError_t launch_rma(const void* kern, const void* from, void* to,
                                      0, s);
 }
 
+// K14's quantized wire: the same two lanes and flags as launch_rma.
+template <int W>
+cudaError_t launch_k14q(const void* from, void* to, long long n, int blk,
+                        long long chunk, int depth, void* slots,
+                        unsigned* flags, int ctas, int threads,
+                        cudaStream_t s) {
+  const void* kern =
+      reinterpret_cast<const void*>(&rma_acc_quant_kernel<W>);
+  int B, *err;
+  cudaError_t e = error_word(&err);
+  if (e == cudaSuccess) e = fit_ctas(kern, 2, ctas, threads, &B);
+  if (e != cudaSuccess) return e;
+  const float* f = static_cast<const float*>(from);
+  float* t = static_cast<float*>(to);
+  int* sl = static_cast<int*>(slots);
+  unsigned* landed = flags;
+  unsigned* consumed = flags + ctas;
+  void* args[] = {&f, &t, &n, &blk, &chunk, &depth, &B, &sl, &landed,
+                  &consumed, &err};
+  return cudaLaunchCooperativeKernel(kern, dim3(2 * B), dim3(threads), args,
+                                     0, s);
+}
+
 template <typename T> const void* put_kern() {
   return reinterpret_cast<const void*>(&rma_put_kernel<T>);
 }
@@ -1154,8 +1514,8 @@ cudaError_t launch_k17(const void* src, void* win, long long disp,
 
 int element_size(int dtype) {
   switch (dtype) {
-    case F32: case I32: return 4;
-    case F16: case BF16: case I16: return 2;
+    case F32: case I32: case U32: return 4;
+    case F16: case BF16: case I16: case U16: return 2;
     case I8: case U8: return 1;
     default: return 0;
   }
@@ -1185,6 +1545,8 @@ int mv2t_hbm_ring_all_reduce(int dtype, int op, const void* ins,
     case I16: e = launch_k3_op<int16_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
     case I8: e = launch_k3_op<int8_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
     case U8: e = launch_k3_op<uint8_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
+    case U16: e = launch_k3_op<uint16_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
+    case U32: e = launch_k3_op<uint32_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(e);
@@ -1206,6 +1568,28 @@ int mv2t_hbm_ring_all_gather(int dtype, const void* ins, const void* outs,
   }
 }
 
+// K9: ins[r] the p input shards (f32 or f16) of n elements,
+// outs[r] their f32 working rows of p*nblk, wires the p wire outputs of
+// nblk/blk*(1+blk/4) words each; wire 0 = q8, 1 = fp8.
+int mv2t_quant_ring_all_reduce(int dtype, int wire, const void* ins,
+                               const void* outs, void* wires, int p,
+                               long long n, long long nblk, int blk,
+                               long long chunk, int depth, int ndir,
+                               void* slots, void* flags, int ctas,
+                               int threads, void* stream) {
+  if (bad_ranks(p) || blk < 4 || blk % 4 || chunk % blk || nblk % blk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RankPtrs ptrs = rank_ptrs(ins, outs, p);
+  int* w = static_cast<int*>(wires);
+  unsigned* fl = static_cast<unsigned*>(flags);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case F32: return static_cast<int>(launch_k9_wire<float>(wire, ptrs, w, p, n, nblk, blk, chunk, depth, ndir, slots, fl, ctas, threads, s));
+    case F16: return static_cast<int>(launch_k9_wire<__half>(wire, ptrs, w, p, n, nblk, blk, chunk, depth, ndir, slots, fl, ctas, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 int mv2t_ring_all_reduce(int dtype, const void* ins, const void* outs,
                          int p, long long blk, void* slots, void* flags,
                          int ctas, int vec, int threads, void* stream) {
@@ -1222,6 +1606,8 @@ int mv2t_ring_all_reduce(int dtype, const void* ins, const void* outs,
     case I16: e = launch_k6<int16_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
     case I8: e = launch_k6<int8_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
     case U8: e = launch_k6<uint8_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
+    case U16: e = launch_k6<uint16_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
+    case U32: e = launch_k6<uint32_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(e);
@@ -1319,6 +1705,26 @@ int mv2t_rma_accumulate(int dtype, const void* src, void* win,
     case I16: return static_cast<int>(launch_rma<int16_t>(acc_kern<int16_t>(), src, at<int16_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
     case I8: return static_cast<int>(launch_rma<int8_t>(acc_kern<int8_t>(), src, at<int8_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
     case U8: return static_cast<int>(launch_rma<uint8_t>(acc_kern<uint8_t>(), src, at<uint8_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    case U16: return static_cast<int>(launch_rma<uint16_t>(acc_kern<uint16_t>(), src, at<uint16_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    case U32: return static_cast<int>(launch_rma<uint32_t>(acc_kern<uint32_t>(), src, at<uint32_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K14, quantized wire: win (an f32 window row)[disp + i] +=
+// decode(encode(src[i])) in blocks of blk; n and chunk multiples of blk.
+int mv2t_rma_accumulate_quant(int wire, const void* src, void* win,
+                              long long disp, long long n, int blk,
+                              long long chunk, int depth, void* slots,
+                              void* flags, int ctas, int threads,
+                              void* stream) {
+  if (blk < 4 || blk % 4 || chunk % blk || n % blk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  unsigned* fl = static_cast<unsigned*>(flags);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (wire) {
+    case Q8: return static_cast<int>(launch_k14q<Q8>(src, at<float>(win, disp), n, blk, chunk, depth, slots, fl, ctas, threads, s));
+    case FP8: return static_cast<int>(launch_k14q<FP8>(src, at<float>(win, disp), n, blk, chunk, depth, slots, fl, ctas, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

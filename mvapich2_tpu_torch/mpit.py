@@ -3,8 +3,10 @@ of the JAX package's ``mpit.py`` pvar registry, under the same names):
 
 * ``coll_level_chip`` / ``coll_level_ici`` - counters: collective calls
   on the slot channel / on the 1:1 mesh channel;
-* ``dev_coll_tier_{vmem,hbm}`` - counters: mesh-channel calls per
-  planned kernel tier; ``dev_coll_fallback_{size,dtype,shape}`` - calls
+* ``dev_coll_tier_{vmem,hbm,quant}`` - counters: mesh-channel calls per
+  planned kernel tier; ``dev_coll_quant_bytes_saved`` - the bytes the
+  quant tier's calls kept off the wire, a rank;
+  ``dev_coll_fallback_{size,dtype,shape}`` - calls
   that took the stock torch lowering instead, by reason (the JAX
   package counts its XLA takes the same way; it has no
   ``dev_coll_tier_xla``);
@@ -76,6 +78,12 @@ pvar("dev_coll_tier_hbm", PVAR_CLASS_COUNTER,
      "device collective calls planned on the chunked streaming tier: the "
      "ring (ops/ici.py, K3/K5) or the pairwise alltoall(v) "
      "(ops/alltoall.py, K10/K11)")
+pvar("dev_coll_tier_quant", PVAR_CLASS_COUNTER,
+     "device collective calls planned on the block-scaled quantized ring "
+     "tier (ops/quant.py, K9 then K5 over the wire words)")
+pvar("dev_coll_quant_bytes_saved", PVAR_CLASS_COUNTER,
+     "bytes a rank kept off the ring by the quant tier: exact minus "
+     "quantized wire bytes of each call (ops/quant.py wire_stats)")
 pvar("dev_coll_fallback_size", PVAR_CLASS_COUNTER,
      "device collectives routed to the stock torch lowering because "
      "the shard was at or past DEV_TIER_XLA_MIN (or past the resident "
@@ -86,7 +94,7 @@ pvar("dev_coll_fallback_dtype", PVAR_CLASS_COUNTER,
 pvar("dev_coll_fallback_shape", PVAR_CLASS_COUNTER,
      "device collectives routed to the stock torch lowering because "
      "of a degenerate buffer extent")
-for _tier in ("vmem", "hbm", "xla", "slot"):
+for _tier in ("vmem", "hbm", "quant", "xla", "slot"):
     pvar(f"dev_effbw_{_tier}", PVAR_CLASS_HIGHWATERMARK,
          f"best per-call rate (GB/s) on the '{_tier}' device tier: "
          f"payload bytes over the host-clock time of the collective")
@@ -94,8 +102,8 @@ pvar("dev_rma_tier_rdma", PVAR_CLASS_COUNTER,
      "one-sided window ops served by the chunked kernels (ops/rma.py "
      "put/get/accumulate, K12-K14)")
 pvar("dev_rma_tier_quant", PVAR_CLASS_COUNTER,
-     "one-sided accumulates served by the quantized wire (not ported: "
-     "such an op raises, so this stays 0)")
+     "one-sided f32 accumulates served by K14's quantized wire (ops/rma.py "
+     "rma_accumulate(quantized=True), K9's codec)")
 pvar("dev_rma_tier_epoch", PVAR_CLASS_COUNTER,
      "one-sided window ops served by the epoch tier (stock torch "
      "indexing on the window rows, rma/device.py)")
@@ -115,4 +123,5 @@ pvar("dev_rma_flush", PVAR_CLASS_COUNTER,
      "passive-target completion waves (flush/flush_local/unlock) closed "
      "on a DeviceWin")
 pvar("dev_rma_wire_bytes", PVAR_CLASS_COUNTER,
-     "payload bytes the kernel tier of the one-sided windows moved")
+     "bytes the kernel tiers of the one-sided windows put on the wire: "
+     "the payload, or a quantized accumulate's wire words")

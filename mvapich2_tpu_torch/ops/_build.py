@@ -60,6 +60,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("m", _I64), ("chunk", _I64), ("depth", _I), ("ndir", _I),
             ("slots", _P), ("flags", _P), ("ctas", _I), ("vec", _I),
             ("threads", _I), ("stream", _P))),
+        "mv2t_quant_ring_all_reduce": (_I, (
+            ("dtype", _I), ("wire", _I), ("ins", _P), ("outs", _P),
+            ("wires", _P), ("p", _I), ("n", _I64), ("nblk", _I64),
+            ("blk", _I), ("chunk", _I64), ("depth", _I), ("ndir", _I),
+            ("slots", _P), ("flags", _P), ("ctas", _I), ("threads", _I),
+            ("stream", _P))),
         "mv2t_ring_all_reduce": (_I, (
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
             ("blk", _I64), ("slots", _P), ("flags", _P), ("ctas", _I),
@@ -90,6 +96,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("dtype", _I), ("src", _P), ("win", _P), ("disp", _I64),
             ("n", _I64), ("chunk", _I64), ("depth", _I), ("slots", _P),
             ("flags", _P), ("ctas", _I), ("threads", _I), ("stream", _P))),
+        "mv2t_rma_accumulate_quant": (_I, (
+            ("wire", _I), ("src", _P), ("win", _P), ("disp", _I64),
+            ("n", _I64), ("blk", _I), ("chunk", _I64), ("depth", _I),
+            ("slots", _P), ("flags", _P), ("ctas", _I), ("threads", _I),
+            ("stream", _P))),
         "mv2t_direct_put": (_I, (
             ("esize", _I), ("src", _P), ("win", _P), ("disp", _I64),
             ("n", _I64), ("landing", _P), ("flags", _P), ("ctas", _I),

@@ -21,11 +21,12 @@ Routing: a wrapper given a CPU tensor computes its plain PyTorch version
 kernel on the current stream or raises. ``LAUNCHES`` counts kernel
 launches only, ``PLAIN_CALLS`` the plain route.
 
-Kernel dtypes: float32, float16, bfloat16, int32, int16, int8, uint8 (the
-JAX channel's device dtypes of at most 4 bytes that torch supports).
-16-bit floats accumulate in float32; narrow integers accumulate in int32
-and wrap to the slot dtype on store. torch.uint16/uint32 (and any other
-dtype) raise ``TypeError``.
+Kernel dtypes: float32, float16, bfloat16, int32, int16, int8, uint8,
+uint16 and uint32 (the JAX channel's device dtypes of at most 4 bytes).
+16-bit floats accumulate in float32; integers accumulate in int32
+(uint32 in uint32) and wrap to the slot dtype on store. Any other dtype
+raises ``TypeError``. The plain versions sum uint16 and uint32 in int64
+and wrap back, since torch on the CPU cannot add them.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ PLAIN_CALLS: Dict[str, int] = {"fused_reduce_to_slot": 0,
 # dtype -> code of the C entry points (csrc/hbm_slot.cu enum DType)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
                 torch.int32: 3, torch.int16: 4, torch.int8: 5,
-                torch.uint8: 6}
+                torch.uint8: 6, torch.uint16: 7, torch.uint32: 8}
 
 
 def reset_counts() -> None:
@@ -86,6 +87,13 @@ def _sum_ranks(x: torch.Tensor, axis: int, mean: bool,
         s = acc.sum(axis, keepdim=keepdim)
         if mean:
             s = s * (1.0 / R)
+        return s.to(x.dtype)
+    if x.dtype in (torch.uint16, torch.uint32):
+        s = x.to(torch.int64).sum(axis, keepdim=keepdim)
+        if x.dtype == torch.uint32:
+            s = s & 0xFFFFFFFF          # the kernel's uint32 accumulator
+        if mean:
+            s = (s.to(torch.float32) * (1.0 / R)).to(torch.int64)
         return s.to(x.dtype)
     s = x.to(torch.int32).sum(axis, keepdim=keepdim, dtype=torch.int32)
     if mean:

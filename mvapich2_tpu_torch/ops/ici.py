@@ -23,11 +23,14 @@ downstream rank's landing slot. Inputs and outputs are as in
 
 ``ici_all_reduce`` / ``ici_all_gather`` pick the tier by shard bytes
 (``planned_tier``): the resident ring (K6/K7, ``ops/ring.py``) at or
-below DEV_TIER_VMEM_MAX, the streaming ring above it, and the stock
-torch reduction over the stacked shards (the port's analog of
+below DEV_TIER_VMEM_MAX, the quantized ring (K9, ``ops/quant.py``) at or
+above DEV_TIER_QUANT_MIN for a float sum allreduce whose MV2T_QUANT_COLL
+budget covers its error bound, the streaming ring otherwise, and the
+stock torch reduction over the stacked shards (the port's analog of
 ``lax.psum``) past DEV_TIER_XLA_MIN or for an op or dtype the kernels do
 not take. The mesh channel counts each call's tier or fallback in the
-``dev_coll_tier_*`` / ``dev_coll_fallback_*`` pvars.
+``dev_coll_tier_*`` / ``dev_coll_fallback_*`` pvars. ``LAUNCHES`` and
+``PLAIN_CALLS`` count K3, K5 and K9 (``quant_ring_all_reduce``).
 """
 
 from __future__ import annotations
@@ -43,9 +46,11 @@ from .ring import Shards
 _SUPPORTED_OPS = ("sum", "max", "min", "prod")
 
 LAUNCHES: Dict[str, int] = {"hbm_ring_all_reduce": 0,
-                            "hbm_ring_all_gather": 0}
+                            "hbm_ring_all_gather": 0,
+                            "quant_ring_all_reduce": 0}
 PLAIN_CALLS: Dict[str, int] = {"hbm_ring_all_reduce": 0,
-                               "hbm_ring_all_gather": 0}
+                               "hbm_ring_all_gather": 0,
+                               "quant_ring_all_reduce": 0}
 
 
 def reset_counts() -> None:
@@ -123,13 +128,16 @@ def dtype_kind(dtype: torch.dtype) -> str:
 
 
 def planned_tier(name: str, shard_nbytes: int, dtype: torch.dtype,
-                 op: Optional[str]) -> Tuple[str, Optional[str]]:
+                 op: Optional[str], num_devices: Optional[int] = None
+                 ) -> Tuple[str, Optional[str]]:
     """(tier, fallback_reason) for one device collective call: tier is
-    'vmem' | 'hbm' | 'xla'; the reason is None unless the stock lowering
-    was taken, and then names the dev_coll_fallback_* bucket: size (at
-    or past DEV_TIER_XLA_MIN), dtype (an op or dtype the kernels cannot
-    reduce), shape (an empty buffer). The quant bin (K9) is not ported:
-    a call that MV2T_QUANT_COLL would send there raises."""
+    'vmem' | 'hbm' | 'quant' | 'xla'; the reason is None unless the
+    stock lowering was taken, and then names the dev_coll_fallback_*
+    bucket: size (at or past DEV_TIER_XLA_MIN), dtype (an op or dtype
+    the kernels cannot reduce), shape (an empty buffer). A call in the
+    quant bin that ``quant_eligible`` rejects for ``num_devices`` ranks
+    (not a float sum allreduce, or a budget below the declared bound)
+    takes the exact 'hbm' tier."""
     if op is not None and op not in _SUPPORTED_OPS:
         return "xla", "dtype"
     if dtype_kind(dtype) not in "fiu":
@@ -139,10 +147,9 @@ def planned_tier(name: str, shard_nbytes: int, dtype: torch.dtype,
     from ..coll.tuning import device_tier
     tier = device_tier(name, shard_nbytes)
     if tier == "quant":
-        raise NotImplementedError(
-            f"{name}: MV2T_QUANT_COLL opens the quantized wire tier for "
-            f"{shard_nbytes}-byte shards; its kernel (K9, "
-            f"quant_ring_all_reduce) is not ported")
+        from .quant import quant_eligible
+        if not quant_eligible(name, dtype, op, num_devices):
+            tier = "hbm"
     if tier == "xla":
         return "xla", "size"
     return tier, None
@@ -172,12 +179,12 @@ def hbm_ring_all_reduce_ref(xs: Shards, op: str = "sum", *,
     the kernel's transfers, never its arithmetic, so they are not
     parameters here."""
     shards = ring.as_shards(xs, "hbm_ring_all_reduce")
-    p, n = len(shards), shards[0].numel()
-    x, nblk = _padded(shards, op)
+    p, n, dt = len(shards), shards[0].numel(), shards[0].dtype
+    x, nblk = _padded(ring.widened(shards), op)
     o = x.reshape(p, p, nblk).clone()
     ring.ring_replay(o, _block_spans(nblk, _resolve_ndir(p, bidirectional)),
                      True, True, ring.reducer(op))
-    return o.reshape(p, p * nblk)[:, :n]
+    return o.reshape(p, p * nblk)[:, :n].to(dt)
 
 
 def hbm_ring_all_gather_ref(xs: Shards, *,
@@ -186,14 +193,15 @@ def hbm_ring_all_gather_ref(xs: Shards, *,
     """Plain version of K5: the gather ring replayed; returns
     ``(p, p*m)``."""
     shards = ring.as_shards(xs, "hbm_ring_all_gather")
-    p, m = len(shards), shards[0].numel()
+    p, m, dt = len(shards), shards[0].numel(), shards[0].dtype
+    shards = ring.widened(shards)
     o = torch.zeros((p, p, m), dtype=shards[0].dtype,
                     device=shards[0].device)
     for r in range(p):
         o[r, r] = shards[r]
     ring.ring_replay(o, _block_spans(m, _resolve_ndir(p, bidirectional)),
                      False, True)
-    return o.reshape(p, p * m)
+    return o.reshape(p, p * m).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +287,10 @@ def hbm_ring_all_gather(xs: Shards, *, chunk_bytes: Optional[int] = None,
 
 def stock_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
     """The stock torch reduction over the rank axis of a ``(p, n)``
-    stack, in the shard dtype (integers wrap as the kernels' do)."""
+    stack, in the shard dtype (integers wrap as the kernels' do; uint16
+    and uint32 reduce in int64, which torch on the CPU can)."""
+    if x.dtype in ring.WIDE:
+        return stock_reduce(x.to(torch.int64), op).to(x.dtype)
     if op == "sum":
         y = x.sum(0)
     elif op == "prod":
@@ -292,8 +303,9 @@ def stock_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
 def ici_all_reduce(xs: Shards, op: str = "sum") -> torch.Tensor:
     """Tier-dispatched allreduce of ``p`` shards: the resident ring (K6)
     at or below DEV_TIER_VMEM_MAX for a sum whose shard divides into p
-    blocks, the streaming ring (K3) otherwise, the stock reduction past
-    DEV_TIER_XLA_MIN or for an op or dtype the kernels do not take.
+    blocks, the quantized ring (K9) in the quant tier, the streaming
+    ring (K3) otherwise, the stock reduction past DEV_TIER_XLA_MIN or
+    for an op or dtype the kernels do not take.
     Returns ``(p, n)``, one row per rank. The dispatchers count nothing:
     the mesh channel's ``_note_tier`` counts each call's tier or
     fallback on every rank, as the JAX package's channel does."""
@@ -302,7 +314,11 @@ def ici_all_reduce(xs: Shards, op: str = "sum") -> torch.Tensor:
     if p == 1:
         return shards[0].reshape(1, n).clone()
     nbytes = n * shards[0].element_size()
-    tier, _ = planned_tier("allreduce", nbytes, shards[0].dtype, op)
+    tier, _ = planned_tier("allreduce", nbytes, shards[0].dtype, op,
+                           num_devices=p)
+    if tier == "quant":
+        from .quant import quant_ring_all_reduce
+        return quant_ring_all_reduce(shards, op)
     if tier == "vmem":
         if n % p or op != "sum":
             tier = "hbm"    # shapes/ops K6 cannot take stream instead
@@ -332,7 +348,8 @@ def ici_all_gather(xs: Shards) -> torch.Tensor:
     if p == 1:
         return shards[0].reshape(1, m).clone()
     out_nbytes = p * m * shards[0].element_size()
-    tier, _ = planned_tier("allgather", out_nbytes, shards[0].dtype, None)
+    tier, _ = planned_tier("allgather", out_nbytes, shards[0].dtype, None,
+                           num_devices=p)
     if tier == "vmem" and out_nbytes <= ring.VMEM_LIMIT_BYTES:
         return ring.ring_all_gather(shards)
     if tier == "hbm":

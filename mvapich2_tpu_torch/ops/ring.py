@@ -54,7 +54,10 @@ PLAIN_CALLS: Dict[str, int] = {"ring_all_reduce": 0, "ring_all_gather": 0}
 # with csrc/hbm_slot.cu)
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
                torch.int32: 3, torch.int16: 4, torch.int8: 5,
-               torch.uint8: 6}
+               torch.uint8: 6, torch.uint16: 7, torch.uint32: 8}
+# dtypes torch on the CPU cannot add, multiply, compare or index-assign:
+# the plain versions work on them in int64 and wrap back (``widened``)
+WIDE = (torch.uint16, torch.uint32)
 OP_CODES = {"sum": 0, "max": 1, "min": 2, "prod": 3}
 
 Shards = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -92,6 +95,16 @@ def as_shards(xs: Shards, what: str) -> List[torch.Tensor]:
 
 def on_cpu(shards: List[torch.Tensor]) -> bool:
     return shards[0].device.type == "cpu"
+
+
+def widened(shards: List[torch.Tensor]) -> List[torch.Tensor]:
+    """uint16/uint32 shards as int64, other shards as they are: the plain
+    replays index-assign and fold in int64 and wrap back with
+    ``.to(dtype)`` at the end (sums and products modulo 2^k, max and
+    min unchanged)."""
+    if shards[0].dtype in WIDE:
+        return [s.to(torch.int64) for s in shards]
+    return shards
 
 
 def reducer(op: str):
@@ -213,23 +226,24 @@ def ring_all_reduce_ref(xs: Shards) -> torch.Tensor:
     """Plain version of K6: the sum ring replayed (one direction, no
     padding); returns ``(p, n)``."""
     shards = as_shards(xs, "ring_all_reduce")
-    p, n = len(shards), shards[0].numel()
-    o = torch.stack(shards).reshape(p, p, n // p)
-    ring_replay(o, [(0, n // p)], True, True, torch.add)
-    return o.reshape(p, n)
+    p, n, dt = len(shards), shards[0].numel(), shards[0].dtype
+    o = torch.stack(widened(shards)).reshape(p, p, n // p)
+    ring_replay(o, [(0, n // p)], True, True, reducer("sum"))
+    return o.reshape(p, n).to(dt)
 
 
 def ring_all_gather_ref(xs: Shards) -> torch.Tensor:
     """Plain version of K7: the gather ring replayed; returns
     ``(p, p*m)``."""
     shards = as_shards(xs, "ring_all_gather")
-    p, m = len(shards), shards[0].numel()
+    p, m, dt = len(shards), shards[0].numel(), shards[0].dtype
+    shards = widened(shards)
     o = torch.zeros((p, p, m), dtype=shards[0].dtype,
                     device=shards[0].device)
     for r in range(p):
         o[r, r] = shards[r]
     ring_replay(o, [(0, m)], False, True)
-    return o.reshape(p, p * m)
+    return o.reshape(p, p * m).to(dt)
 
 
 # ---------------------------------------------------------------------------

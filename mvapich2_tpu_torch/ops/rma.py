@@ -14,8 +14,13 @@ consumer has consumed chunk g - depth.
 ``rma_get`` (K13): returns ``win[target, disp:disp+n]`` (the origin's
 ``n`` elements; the JAX kernel's zero rows for the other ranks come from
 its symmetric DMA and have no counterpart here).
-``rma_accumulate`` (K14, exact wire): ``win[target, disp:disp+n] +=
-src`` (MPI_SUM; floats fold in float and round once, integers wrap).
+``rma_accumulate`` (K14): ``win[target, disp:disp+n] += src`` (MPI_SUM;
+floats fold in float and round once, integers wrap). With
+``quantized=True`` (f32 only) each chunk crosses as K9's block-scaled
+wire words (``ops/quant.py``): the producer lane encodes its share of
+the source chunk into the landing slot, the consumer decodes it and
+folds it into the window row with one rounding, in blocks of
+``min(quant_block_elems(), n)`` elements (``n`` must be a multiple).
 
 ``direct_put`` (K17, ``rma/device.py`` ``pallas_put``) is the
 single-shot put through one landing buffer of ``n`` elements; it lives
@@ -28,10 +33,11 @@ reorder transfers, never arithmetic, so every kernel is bitwise equal to
 its plain version. A range past the window's end raises ``ValueError``.
 
 Tier selection is :func:`planned_rma_tier`: contiguous ops of a kernel
-dtype at or above DEV_RMA_RDMA_MIN take the kernels ('rdma'); the rest
-take ``rma/device.py``'s epoch tier, with the reason named for the
-``dev_rma_fallback_*`` pvars. The quantized accumulate wire (K9's codec)
-is not ported: a call the JAX package would send to 'quant' raises.
+dtype at or above DEV_RMA_RDMA_MIN take the kernels ('rdma'), an f32
+accumulate of whole quantization blocks at or above DEV_RMA_QUANT_MIN
+whose MV2T_QUANT_COLL budget covers one quantization takes the quantized
+wire ('quant'); the rest take ``rma/device.py``'s epoch tier, with the
+reason named for the ``dev_rma_fallback_*`` pvars.
 """
 
 from __future__ import annotations
@@ -45,11 +51,17 @@ from ..utils.config import get_config
 from . import ring
 from .ici import _cfg_chunk_elems as _ici_chunk_elems
 from .ici import _cfg_depth, dtype_kind
+from .quant import (WIRE_CODES, declared_bound, decode_add_ref,
+                    encode_f32_ref, quant_block_elems, wire_words)
 
+# ``rma_accumulate`` counts K14's exact wire, ``rma_accumulate_quant``
+# its quantized wire (another kernel)
 LAUNCHES: Dict[str, int] = {"rma_put": 0, "rma_get": 0,
-                            "rma_accumulate": 0, "direct_put": 0}
+                            "rma_accumulate": 0, "rma_accumulate_quant": 0,
+                            "direct_put": 0}
 PLAIN_CALLS: Dict[str, int] = {"rma_put": 0, "rma_get": 0,
-                               "rma_accumulate": 0, "direct_put": 0}
+                               "rma_accumulate": 0,
+                               "rma_accumulate_quant": 0, "direct_put": 0}
 
 
 def reset_counts() -> None:
@@ -72,19 +84,6 @@ def _cfg_chunk_elems(dtype: torch.dtype, chunk_bytes: Optional[int]) -> int:
     return _ici_chunk_elems(dtype, chunk_bytes)
 
 
-def quant_block_elems(dtype: torch.dtype = torch.float32) -> int:
-    """Elements per quantization block: QUANT_BLOCK bytes of ``dtype``,
-    floored to the 4-code packing granularity (``pallas_quant``)."""
-    b = max(8, int(get_config()["QUANT_BLOCK"]) // dtype.itemsize)
-    return (b // 4) * 4
-
-
-def declared_bound(num_devices: int, wire: str = "q8") -> float:
-    """The quantized wire's relative-error contract for ``num_devices``
-    quantization hops (``pallas_quant.declared_bound``)."""
-    return num_devices * (1.0 / 254.0 if wire == "q8" else 1.0 / 28.0)
-
-
 def acc_quant_ok(dtype: torch.dtype, count: int,
                  num_devices: Optional[int] = None) -> bool:
     """Whether an accumulate sized for the quant bin may run quantized:
@@ -103,13 +102,13 @@ def planned_rma_tier(kind: str, nbytes: int, dtype: torch.dtype,
                      contiguous: bool, num_devices: Optional[int] = None,
                      count: int = 0) -> Tuple[str, Optional[str]]:
     """(tier, fallback_reason) for one one-sided op (``kind``: 'put',
-    'get' or 'acc'): 'rdma' (the kernels, reason None) or 'epoch' with
-    the dev_rma_fallback_* bucket: noncontig (strided), dtype (bool,
-    complex), size (empty, or below DEV_RMA_RDMA_MIN; -1 = always). The
-    kernel tier is planned on every device (no 'platform' bucket): on
-    the CPU the wrappers take their plain versions. An accumulate the
-    JAX package would send to its quantized wire raises
-    ``NotImplementedError``."""
+    'get' or 'acc'): 'rdma' or 'quant' (the kernels, reason None) or
+    'epoch' with the dev_rma_fallback_* bucket: noncontig (strided),
+    dtype (bool, complex), size (empty, or below DEV_RMA_RDMA_MIN; -1 =
+    always). An accumulate at or above DEV_RMA_QUANT_MIN (-1 = never)
+    that ``acc_quant_ok`` passes takes 'quant'. The kernel tiers are
+    planned on every device (no 'platform' bucket): on the CPU the
+    wrappers take their plain versions."""
     if not contiguous:
         return "epoch", "noncontig"
     if dtype_kind(dtype) not in "fiu":
@@ -124,11 +123,7 @@ def planned_rma_tier(kind: str, nbytes: int, dtype: torch.dtype,
         qmin = int(cfg["DEV_RMA_QUANT_MIN"])
         if qmin >= 0 and nbytes >= qmin and \
                 acc_quant_ok(dtype, count, num_devices):
-            raise NotImplementedError(
-                f"accumulate of {nbytes} bytes: MV2T_QUANT_COLL opens the "
-                f"quantized wire of K14 (rma_accumulate, quantized=True), "
-                f"whose codec is K9's (quant_ring_all_reduce); neither is "
-                f"ported")
+            return "quant", None
     return "rdma", None
 
 
@@ -222,7 +217,24 @@ def add_values(cur: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     float, rounded once; integers wrapping."""
     if cur.dtype.is_floating_point:
         return (cur.float() + src.float()).to(cur.dtype)
+    if cur.dtype in ring.WIDE:          # int64 -> the dtype wraps
+        return (cur.to(torch.int64) + src.to(torch.int64)).to(cur.dtype)
     return torch.add(cur, src)
+
+
+def _quant_geometry(n: int, chunk_bytes: Optional[int]) -> Tuple[int, int]:
+    """(block, chunk) of a quantized accumulate of ``n`` f32 elements, as
+    the JAX wrapper cuts them: the block is min(quant_block_elems(), n),
+    the chunk a block multiple. ``n`` must be a multiple of the block,
+    and the block of 4 codes."""
+    block = min(quant_block_elems(torch.float32), n)
+    chunk = min(_cfg_chunk_elems(torch.float32, chunk_bytes), n)
+    chunk = max(block, chunk // block * block)
+    if n % block or block % 4:
+        raise ValueError(f"quantized accumulate needs a block-multiple "
+                         f"count of whole 4-code words (n={n}, "
+                         f"block={block})")
+    return block, chunk
 
 
 def rma_put_ref(src: torch.Tensor, win: torch.Tensor, origin: int,
@@ -240,11 +252,20 @@ def rma_get_ref(win: torch.Tensor, n: int, origin: int, target: int,
 
 
 def rma_accumulate_ref(src: torch.Tensor, win: torch.Tensor, origin: int,
-                       target: int, disp: int = 0) -> torch.Tensor:
+                       target: int, disp: int = 0, *,
+                       quantized: bool = False) -> torch.Tensor:
     """Plain version of K14: ``win[target, disp:disp+n] += src``, in
-    place; returns ``win``."""
+    place; returns ``win``. ``quantized``: ``src`` encoded on
+    MV2T_QUANT_COLL's wire, decoded and folded with one rounding."""
     sl = win[target, disp:disp + src.numel()]
-    sl.copy_(add_values(sl, src))
+    if quantized:
+        from ..coll.tuning import quant_params
+        block, _ = _quant_geometry(src.numel(), None)
+        wire = quant_params()[0]
+        w = encode_f32_ref(src.reshape(-1), block, wire)
+        sl.copy_(decode_add_ref(sl, w, block, wire))
+    else:
+        sl.copy_(add_values(sl, src))
     return win
 
 
@@ -349,15 +370,17 @@ def rma_accumulate(src: torch.Tensor, win: torch.Tensor, origin: int,
     """K14: one-sided accumulate (MPI_SUM) of ``src`` into the target's
     window row at ``disp``, in place, through the slot/credit schedule
     with the fold at the target; returns ``win``. ``quantized=True``
-    (the K9 codec on the wire) is not ported and raises."""
-    if quantized:
-        raise NotImplementedError("rma_accumulate: the quantized wire (K9's "
-                                  "codec) is not ported")
+    carries each chunk as K9's block-scaled wire (MV2T_QUANT_COLL's
+    wire format), f32 only; the caller owns the budget check
+    (``acc_quant_ok``), as in the JAX package."""
     src = src.reshape(-1).contiguous()
     n = src.numel()
     _check_op(src, win, n, origin, target, disp, "rma_accumulate")
     if n == 0:
         return win
+    if quantized:
+        return _accumulate_quant(src, win, origin, target, disp,
+                                 chunk_bytes, depth, scratch)
     if win.device.type == "cpu":
         PLAIN_CALLS["rma_accumulate"] += 1
         return rma_accumulate_ref(src, win, origin, target, disp)
@@ -367,6 +390,33 @@ def rma_accumulate(src: torch.Tensor, win: torch.Tensor, origin: int,
                    (src.data_ptr(), _row_ptr(win, target),
                     disp), chunk_bytes, depth, scratch)
     LAUNCHES["rma_accumulate"] += 1
+    return win
+
+
+def _accumulate_quant(src, win, origin, target, disp, chunk_bytes, depth,
+                      scratch) -> torch.Tensor:
+    """K14's quantized wire (``rma_accumulate(quantized=True)``)."""
+    from ..coll.tuning import quant_params
+    if win.dtype != torch.float32:
+        raise TypeError(f"rma_accumulate: the quantized wire takes f32 "
+                        f"windows, not {win.dtype}")
+    n = src.numel()
+    block, chunk = _quant_geometry(n, chunk_bytes)
+    if win.device.type == "cpu":
+        PLAIN_CALLS["rma_accumulate_quant"] += 1
+        return rma_accumulate_ref(src, win, origin, target, disp,
+                                  quantized=True)
+    wire = quant_params()[0]
+    _cuda(win, "rma_accumulate")
+    dev = win.device
+    d = _cfg_depth(depth)
+    ctas = ring.ctas_per_lane(dev, 2, chunk, block)
+    slots, flags = (scratch or Scratch()).take(
+        dev, d * wire_words(chunk, block) * 4, 2 * ctas)
+    ring.launch("mv2t_rma_accumulate_quant", dev, WIRE_CODES[wire],
+                src.data_ptr(), _row_ptr(win, target), disp, n, block, chunk,
+                d, slots.data_ptr(), flags.data_ptr(), ctas)
+    LAUNCHES["rma_accumulate_quant"] += 1
     return win
 
 

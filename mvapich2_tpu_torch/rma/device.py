@@ -11,14 +11,18 @@ analog of the reference's ``gen2/rdma_iba_1sc.c``).
   - **rdma**: the kernels K12 ``rma_put``, K13 ``rma_get`` and K14
     ``rma_accumulate`` (``ops/rma.py``), one launch an op, over the
     window's landing slots and counters (allocated once per window);
+  - **quant**: an f32 accumulate that MV2T_QUANT_COLL and
+    DEV_RMA_QUANT_MIN send to K14's quantized wire
+    (``rma_accumulate(quantized=True)``), one launch an op;
   - **epoch**: stock torch indexing on the window rows (slices, and
     ``index_copy_`` for strided ops), the port's counterpart of the JAX
     ppermute epoch compiler; for strided ops, bool and complex windows,
     and payloads that are empty or below DEV_RMA_RDMA_MIN.
 
-  Every op is counted: ``dev_rma_tier_rdma`` and ``dev_rma_wire_bytes``
-  on the kernels, ``dev_rma_tier_epoch`` and ``dev_rma_fallback_<reason>``
-  on the epoch tier.
+  Every op is counted: ``dev_rma_tier_rdma`` or ``dev_rma_tier_quant``
+  and ``dev_rma_wire_bytes`` (the payload, or the wire words' bytes of a
+  quantized op) on the kernels, ``dev_rma_tier_epoch`` and
+  ``dev_rma_fallback_<reason>`` on the epoch tier.
 * Synchronization grammar: ``fence()`` closes everything enqueued
   (MPI_Win_fence); ``lock(rank)`` / ``unlock(rank)`` bound a
   passive-target epoch on one rank, ``flush(rank)`` / ``flush_local``
@@ -185,16 +189,20 @@ class DeviceWin:
                 rma.note_rma_fallback(op[0], reason, nbytes)
                 self._run_epoch(op, pay, h)
             else:
-                mpit.pvar("dev_rma_tier_rdma").inc()
-                mpit.pvar("dev_rma_wire_bytes").inc(nbytes)
-                self._run_rdma(op, pay, h)
+                wire = nbytes
+                if tier == "quant":
+                    wire = rma.wire_words(
+                        op[4], rma.quant_block_elems(self.dtype)) * 4
+                mpit.pvar(f"dev_rma_tier_{tier}").inc()
+                mpit.pvar("dev_rma_wire_bytes").inc(wire)
+                self._run_rdma(tier, op, pay, h)
         done = set(idx)
         self._queue = [e for i, e in enumerate(self._queue)
                        if i not in done]
         ring.check_errors(self.device)
 
     # -- the kernel tier --------------------------------------------------
-    def _run_rdma(self, op, pay, h) -> None:
+    def _run_rdma(self, tier: str, op, pay, h) -> None:
         kind, origin, target, disp, n, _stride = op
         if kind == "get":
             h._value = rma.rma_get(self.win, n, origin, target, disp,
@@ -204,6 +212,7 @@ class DeviceWin:
                         scratch=self._scratch)
         else:
             rma.rma_accumulate(pay, self.win, origin, target, disp,
+                               quantized=tier == "quant",
                                scratch=self._scratch)
 
     # -- the epoch tier ---------------------------------------------------
@@ -222,6 +231,12 @@ class DeviceWin:
         new = pay if kind == "put" else rma.add_values(row[idx], pay)
         if stride == 1:
             row[idx] = new
+        elif row.dtype in ring.WIDE:
+            # torch on the CPU has no index_copy_ for uint16/uint32:
+            # move the bits through the same-width signed view
+            signed = torch.int16 if row.dtype == torch.uint16 else \
+                torch.int32
+            row.view(signed).index_copy_(0, idx, new.view(signed))
         else:
             row.index_copy_(0, idx, new)
 

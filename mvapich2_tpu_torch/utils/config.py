@@ -2,17 +2,18 @@
 ``utils/config.py`` registry, with the defaults its ``mpit.py`` and
 ``coll/tuning.py`` declare).
 
-* ``USE_DEVICE_COLL`` and the per-collective ``<COLL>_ALGO`` overrides,
-  read by ``coll/device.py`` ``_select_transport``;
+* ``USE_DEVICE_COLL``, the per-collective ``<COLL>_ALGO`` overrides and
+  the host-to-device crossover ``DEVICE_COLL_MIN_BYTES``, read by
+  ``coll/device.py`` ``_select_transport``;
 * the ring engine's knobs ``ICI_CHUNK_BYTES``, ``ICI_PIPELINE_DEPTH`` and
   ``ICI_BIDIR`` (``ops/ici.py``);
-* the device tier edges ``DEV_TIER_VMEM_MAX`` and ``DEV_TIER_XLA_MIN``,
-  and the quant budget ``QUANT_COLL`` (``coll/tuning.py``
-  ``device_tier``);
+* the device tier edges ``DEV_TIER_VMEM_MAX``, ``DEV_TIER_XLA_MIN`` and
+  ``DEV_TIER_QUANT_MIN`` (-1 = never), and the quant budget
+  ``QUANT_COLL`` (``coll/tuning.py`` ``device_tier``); ``QUANT_BLOCK``,
+  the quantization block in bytes (``ops/quant.py``);
 * the one-sided knobs ``RMA_CHUNK_BYTES`` (0 inherits
   ``ICI_CHUNK_BYTES``), the tier edges ``DEV_RMA_RDMA_MIN`` and
-  ``DEV_RMA_QUANT_MIN``, and ``QUANT_BLOCK``, which the quantized
-  accumulate's gate reads (``ops/rma.py`` ``planned_rma_tier``).
+  ``DEV_RMA_QUANT_MIN`` (``ops/rma.py`` ``planned_rma_tier``).
 
 Each is settable through the same ``MV2T_<NAME>`` environment variable
 as in the JAX package, read at first use (``reload`` reads them again),
@@ -94,13 +95,16 @@ ALGO_CVARS = ("ALLREDUCE", "REDUCE", "BCAST", "ALLGATHER", "ALLTOALL",
 
 # the ring engine, the device tier edges and the one-sided knobs, with
 # the JAX package's defaults (mpit.py ICI_*, RMA_CHUNK_BYTES and
-# QUANT_BLOCK; coll/tuning.py DEV_TIER_* and DEV_RMA_*)
+# QUANT_BLOCK; coll/tuning.py DEV_TIER_* and DEV_RMA_*; coll/device.py
+# DEVICE_COLL_MIN_BYTES)
 DEVICE_CVARS = {
+    "DEVICE_COLL_MIN_BYTES": 16384,
     "ICI_CHUNK_BYTES": 256 * 1024,
     "ICI_PIPELINE_DEPTH": 2,
     "ICI_BIDIR": True,
     "DEV_TIER_VMEM_MAX": 4 * 1024 * 1024,
     "DEV_TIER_XLA_MIN": -1,
+    "DEV_TIER_QUANT_MIN": 1024 * 1024,
     "QUANT_COLL": "",
     "RMA_CHUNK_BYTES": 0,
     "DEV_RMA_RDMA_MIN": 0,

@@ -32,13 +32,14 @@ from mvapich2_tpu.parallel import MeshComm, make_mesh as jax_make_mesh
 from mvapich2_tpu.utils.config import get_config as jax_config
 from mvapich2_tpu_torch import mpit
 from mvapich2_tpu_torch.coll import tuning
-from mvapich2_tpu_torch.ops import ici, ring
+from mvapich2_tpu_torch.ops import ici, quant, ring
 from mvapich2_tpu_torch.utils.config import get_config
 
 NP = 8
 _TORCH = {np.float32: torch.float32, np.int32: torch.int32,
           np.int16: torch.int16, np.int8: torch.int8, np.uint8: torch.uint8,
-          np.float16: torch.float16}
+          np.float16: torch.float16, np.uint16: torch.uint16,
+          np.uint32: torch.uint32}
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +135,22 @@ def test_all_reduce_ops(comm8, op, kind):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("np_dtype,op", [(np.uint32, "max"),
+                                         (np.uint32, "sum"),
+                                         (np.uint16, "min")])
+def test_all_reduce_unsigned_matches_jax(comm8, np_dtype, op):
+    """uint16 and uint32 run as the JAX kernel runs them: sums wrap, and
+    max and min order values past 2^15 and 2^31 as unsigned."""
+    info = np.iinfo(np_dtype)
+    rng = np.random.default_rng(info.bits + len(op))
+    xv = rng.integers(0, info.max, size=(NP, 21), endpoint=True) \
+        .astype(np_dtype)
+    want = _jax_all_reduce(comm8, xv, op, chunk_bytes=32)
+    got = ici.hbm_ring_all_reduce(torch.from_numpy(xv), op, chunk_bytes=32)
+    assert got.dtype == _TORCH[np_dtype]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ---------------------------------------------------------------------------
 # K5 against the JAX kernel
 # ---------------------------------------------------------------------------
@@ -171,7 +188,8 @@ def test_chunks_and_spans_match():
 
 
 @pytest.mark.parametrize("np_dtype", [np.float32, np.float16, np.int32,
-                                      np.int16, np.int8, np.uint8])
+                                      np.int16, np.int8, np.uint8,
+                                      np.uint16, np.uint32])
 @pytest.mark.parametrize("op", ["sum", "max", "min", "prod"])
 def test_pad_identity_matches(np_dtype, op):
     assert ici._pad_identity(_TORCH[np_dtype], op) == \
@@ -224,12 +242,22 @@ def test_planned_tier_matches(env):
 
 
 def test_quant_bin_raises_until_its_kernel_is_ported(env):
+    """The quant bin runs now that K9 is ported: an eligible call plans
+    'quant', an ineligible one (here a budget below the bound at 8
+    ranks) the exact 'hbm' tier, as the JAX planned_tier does."""
     env(QUANT_COLL="1e-2")
     nb = 8 << 20
     assert jax_tuning.device_tier("allreduce", nb) == "quant"
     assert tuning.device_tier("allreduce", nb) == "quant"
-    with pytest.raises(NotImplementedError, match="K9"):
-        ici.planned_tier("allreduce", nb, torch.float32, "sum")
+    for p in (2, 8):
+        assert ici.planned_tier("allreduce", nb, torch.float32, "sum",
+                                num_devices=p) == \
+            pallas_ici.planned_tier("allreduce", nb, np.float32, "sum",
+                                    interpret=True, num_devices=p)
+    assert ici.planned_tier("allreduce", nb, torch.float32, "sum",
+                            num_devices=2) == ("quant", None)
+    assert ici.planned_tier("allreduce", nb, torch.float32, "sum",
+                            num_devices=8) == ("hbm", None)
     # at or below the vmem edge the budget changes nothing
     assert ici.planned_tier("allreduce", 4 << 20, torch.float32,
                             "sum") == ("vmem", None)
@@ -285,7 +313,8 @@ def test_dispatch_stock_lowering(env):
         got.numpy(), np.broadcast_to(x.numpy().reshape(-1), (NP, 800)))
     assert mpit.pvar("dev_coll_fallback_size").read() == before
     assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 0,
-                               "hbm_ring_all_gather": 0}
+                               "hbm_ring_all_gather": 0,
+                               "quant_ring_all_reduce": 0}
     # every rank gets its own output
     assert got[0].data_ptr() != got[1].data_ptr()
 
@@ -300,5 +329,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
         ici.hbm_ring_all_gather(meta)
     with pytest.raises(ValueError, match="op"):
         ici.hbm_ring_all_reduce(meta, "land")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        quant.quant_ring_all_reduce(meta)
     assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 0,
-                               "hbm_ring_all_gather": 0}
+                               "hbm_ring_all_gather": 0,
+                               "quant_ring_all_reduce": 0}

@@ -105,10 +105,18 @@ def test_build_raises_on_wrong_arch(monkeypatch):
 
 
 def test_kernel_dtype_table_rejects_unsupported():
+    from mvapich2_tpu_torch.ops import ring
     for dt in (torch.float64, torch.int64, torch.bool):
         assert dt not in hbm._DTYPE_CODES
-    for dt in ("uint16", "uint32"):
-        assert getattr(torch, dt) not in hbm._DTYPE_CODES
+        assert dt not in ring.DTYPE_CODES
+    # uint16 and uint32 run on the device, as in the JAX package; both
+    # tables and both sources' enums agree on their codes
+    assert hbm._DTYPE_CODES == ring.DTYPE_CODES
+    assert (ring.DTYPE_CODES[torch.uint16],
+            ring.DTYPE_CODES[torch.uint32]) == (7, 8)
+    for name in ("hbm_slot", "ring"):
+        src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        assert "U16 = 7, U32 = 8 };" in src, name
 
 
 _CTYPE_OF = {"int": ctypes.c_int, "long long": ctypes.c_int64,
@@ -186,9 +194,9 @@ def test_config_reads_the_reference_env_names(monkeypatch):
         *config.DEVICE_CVARS}
     assert set(config.DEVICE_CVARS) == {
         "ICI_CHUNK_BYTES", "ICI_PIPELINE_DEPTH", "ICI_BIDIR",
-        "DEV_TIER_VMEM_MAX", "DEV_TIER_XLA_MIN", "QUANT_COLL",
-        "RMA_CHUNK_BYTES", "DEV_RMA_RDMA_MIN", "DEV_RMA_QUANT_MIN",
-        "QUANT_BLOCK"}
+        "DEV_TIER_VMEM_MAX", "DEV_TIER_XLA_MIN", "DEV_TIER_QUANT_MIN",
+        "QUANT_COLL", "RMA_CHUNK_BYTES", "DEV_RMA_RDMA_MIN",
+        "DEV_RMA_QUANT_MIN", "QUANT_BLOCK", "DEVICE_COLL_MIN_BYTES"}
     # size suffixes and a reload, as in the JAX package
     cfg = config.Config({"ICI_CHUNK_BYTES": 1, "ICI_BIDIR": True})
     monkeypatch.setenv("MV2T_ICI_CHUNK_BYTES", "64K")
@@ -210,3 +218,15 @@ def test_carry_roundtrip():
         np.testing.assert_array_equal(back.reshape(3, 256), bufs)
     with pytest.raises(ValueError):
         carry.slots_from_numpy(bufs[:, :100], "planar")
+    # uint16, uint32 and int32 (the quant tier's wire words) cross bit
+    # for bit, both ways
+    rng = np.random.default_rng(1)
+    for dt in (np.uint16, np.uint32, np.int32):
+        info = np.iinfo(dt)
+        rows = rng.integers(info.min, info.max, size=(3, 33),
+                            endpoint=True).astype(dt)
+        t = carry.window_from_numpy(rows)
+        assert t.dtype == getattr(torch, np.dtype(dt).name)
+        back = carry.to_numpy(t)
+        assert back.dtype == dt
+        np.testing.assert_array_equal(back, rows)

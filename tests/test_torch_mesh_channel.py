@@ -148,7 +148,8 @@ def test_streaming_tier_parity(env):
     hbm0 = mpit.pvar("dev_coll_tier_hbm").read()
     mine, ref = _both(app)
     assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 1,
-                               "hbm_ring_all_gather": 1}
+                               "hbm_ring_all_gather": 1,
+                               "quant_ring_all_reduce": 0}
     assert ring.PLAIN_CALLS == {"ring_all_reduce": 0, "ring_all_gather": 0}
     assert mpit.pvar("dev_coll_tier_hbm").read() == hbm0 + 2 * NP
     for got, want in zip(mine, ref):
@@ -202,7 +203,8 @@ def test_stock_lowering_counts_once_per_rank(env):
     assert mpit.pvar("dev_coll_fallback_size").read() == before + 2 * NP
     assert _counts() == ({"ring_all_reduce": 0, "ring_all_gather": 0},
                          {"hbm_ring_all_reduce": 0,
-                          "hbm_ring_all_gather": 0})
+                          "hbm_ring_all_gather": 0,
+                          "quant_ring_all_reduce": 0})
     for ar, ag in mine:
         np.testing.assert_array_equal(ar, data.sum(0))
         np.testing.assert_array_equal(ag, data[:, :40].reshape(-1))
@@ -331,3 +333,203 @@ def test_cuda_mesh_without_card_raises(monkeypatch):
         make_mesh((NP,), ("x",), "cuda:0")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_ranks(NP, lambda c: None, device="cuda:0")
+
+
+# ---------------------------------------------------------------------------
+# the quant tier end to end, and the faults this slice repaired
+# ---------------------------------------------------------------------------
+
+def test_quant_tier_end_to_end(env, monkeypatch):
+    """A 1 MiB f32 allreduce under MV2T_QUANT_COLL=5e-2 (past a lowered
+    vmem edge, at the default 1 MiB quant edge) takes the quant tier on
+    both sides: bitwise the JAX channel's result (its K9 in interpret
+    mode), every rank the same, within declared_bound(8) of an f64 sum;
+    dev_coll_tier_quant and dev_coll_quant_bytes_saved counted on every
+    rank, as in the JAX package."""
+    from mvapich2_tpu import mpit as jax_mpit
+    from mvapich2_tpu.ops import pallas_ici
+    from mvapich2_tpu_torch.ops import quant
+    # the interpreter cannot signal a remote semaphore: creditless
+    monkeypatch.setattr(pallas_ici, "have_remote_signal", lambda: False)
+    env(QUANT_COLL="5e-2", DEV_TIER_VMEM_MAX="16", ICI_INTERPRET="1")
+    n = 1 << 18
+    data = _inputs(94, n, "normal")
+
+    def app(comm, ops):
+        return comm.allreduce(data[comm.rank].copy())
+
+    pv = ("dev_coll_tier_quant", "dev_coll_quant_bytes_saved")
+    mine0 = {k: mpit.pvar(k).read() for k in pv}
+    ref0 = {k: jax_mpit.pvar(k).read() for k in pv}
+    ici.reset_counts()
+    mine, ref = _both(app)
+    assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 0,
+                               "hbm_ring_all_gather": 1,
+                               "quant_ring_all_reduce": 1}
+    for got, want in zip(mine, ref):
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      np.asarray(want).view(np.int32))
+        np.testing.assert_array_equal(got, mine[0])
+    exp = data.astype(np.float64).sum(0)
+    rel = np.abs(mine[0] - exp).max() / np.abs(exp).max()
+    assert rel <= quant.declared_bound(NP, "q8")
+    exact_b, wire_b = quant.wire_stats(n, torch.float32, NP)
+    assert (exact_b, wire_b) == (14 * n // NP * 4, 14 * 33 * n // NP // 32)
+    for k, per_rank in (("dev_coll_tier_quant", 1),
+                        ("dev_coll_quant_bytes_saved", exact_b - wire_b)):
+        assert mpit.pvar(k).read() - mine0[k] == NP * per_rank
+        assert jax_mpit.pvar(k).read() - ref0[k] == NP * per_rank
+
+
+def test_quant_bin_ineligible_calls_run_exact(env):
+    """Under MV2T_QUANT_COLL=5e-2 the quant bin holds an int32 sum, an
+    f32 max (1 MiB a rank) and a 1 MiB allgather, which it cannot
+    quantize: they take the exact streaming ring (K3, K5) and match the
+    JAX channel bitwise, where the port used to raise."""
+    env(QUANT_COLL="5e-2", DEV_TIER_VMEM_MAX="16")
+    ints = _inputs(95, 1 << 18, "int32")
+    flts = _inputs(96, 1 << 18, "normal")
+
+    def app(comm, ops):
+        r = comm.rank
+        return (comm.allreduce(ints[r].copy()),
+                comm.allreduce(flts[r].copy(), op=ops.MAX),
+                comm.allgather(flts[r][:(1 << 15)].copy()))
+
+    ici.reset_counts()
+    q0 = mpit.pvar("dev_coll_tier_quant").read()
+    h0 = mpit.pvar("dev_coll_tier_hbm").read()
+    mine, ref = _both(app)
+    assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 2,
+                               "hbm_ring_all_gather": 1,
+                               "quant_ring_all_reduce": 0}
+    assert mpit.pvar("dev_coll_tier_quant").read() == q0
+    assert mpit.pvar("dev_coll_tier_hbm").read() == h0 + 3 * NP
+    for got, want in zip(mine, ref):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def test_forced_device_wins_over_use_device_coll_off(env):
+    """MV2T_<COLL>_ALGO=device runs on the device with USE_DEVICE_COLL
+    off, as the JAX package's _select_transport decides; without the
+    force the call needs the host tier and raises."""
+    env(USE_DEVICE_COLL="0")
+    data = _inputs(97, 64, "intf32")
+
+    def app(comm, ops):
+        return comm.allreduce(data[comm.rank].copy())
+
+    mine, ref = _both(app)
+    _check(mine, ref, True)
+    env(ALLREDUCE_ALGO=None)
+    with pytest.raises(RuntimeError) as ei:
+        run_ranks(NP, lambda c, ops: c.allreduce(data[c.rank].copy()), top,
+                  device_mesh=make_mesh((NP,), ("x",), "cpu"), timeout=30)
+    assert isinstance(ei.value.__cause__, NotImplementedError)
+    assert "USE_DEVICE_COLL" in str(ei.value.__cause__)
+
+
+def test_transport_selection_matches_jax(env):
+    """The port's _select_transport against the JAX one over a grid of
+    collectives, byte counts, buffer residency, dtypes, ops and cvars:
+    'device' where the JAX package picks the device, and
+    NotImplementedError (the host tier is not ported) where it picks
+    the host: below DEVICE_COLL_MIN_BYTES for a numpy buffer, a forced
+    host algorithm, USE_DEVICE_COLL off, an op or dtype that does not
+    lower (forced or not)."""
+    import jax.numpy as jnp
+    from mvapich2_tpu.coll import device as jax_device
+    from mvapich2_tpu_torch.coll import device as port_device
+    ops = {"sum": (top.SUM, jop.SUM),
+           "user": (top.Op(np.add, "user"), jop.Op(np.add, "user"))}
+    bufs = {"np32": (np.zeros(4, np.float32),) * 2,
+            "np64": (np.zeros(4, np.float64),) * 2,
+            "dev32": (torch.zeros(4), jnp.zeros(4, jnp.float32))}
+    cases = 0
+    for min_bytes in (None, "1024", "0"):
+        for use in (None, "0"):
+            for forced in (None, "device", "ring"):
+                env(DEVICE_COLL_MIN_BYTES=min_bytes, USE_DEVICE_COLL=use,
+                    **{f"{c}_ALGO": forced for c in _ALGOS})
+                for name in ("allreduce", "bcast", "allgather",
+                             "alltoallv"):
+                    for nbytes in (0, 1000, 16383, 16384, 1 << 20):
+                        for bname, (pbuf, jbuf) in bufs.items():
+                            for oname in (("sum", "user")
+                                          if name == "allreduce"
+                                          else (None,)):
+                                pop, jop_ = ops[oname] if oname else \
+                                    (None, None)
+                                want = jax_device._select_transport(
+                                    None, name, nbytes, jop_, jbuf)
+                                try:
+                                    got = port_device._select_transport(
+                                        name, nbytes, pop, pbuf)
+                                except NotImplementedError:
+                                    got = "host"
+                                assert got == want, (
+                                    min_bytes, use, forced, name, nbytes,
+                                    bname, oname)
+                                cases += 1
+    assert cases == 3 * 2 * 3 * (5 * 3 * 2 + 3 * 5 * 3)
+
+
+def test_host_buffers_below_the_crossover(env):
+    """A numpy buffer below DEVICE_COLL_MIN_BYTES (16 KiB) takes the JAX
+    package's host tier: here it raises, where the port used to run it
+    on the device; at 16 KiB, or as a tensor, it runs, bitwise the JAX
+    channel's result."""
+    for c in _ALGOS:
+        env(**{f"{c}_ALGO": None})
+    small = _inputs(98, 1024, "intf32")          # 4 KiB a rank
+    big = _inputs(99, 4096, "intf32")            # 16 KiB a rank
+    with pytest.raises(RuntimeError) as ei:
+        run_ranks(NP, lambda c, ops: c.allreduce(small[c.rank].copy()), top,
+                  device_mesh=make_mesh((NP,), ("x",), "cpu"), timeout=30)
+    assert "DEVICE_COLL_MIN_BYTES" in str(ei.value.__cause__)
+
+    def app(comm, ops):
+        r = comm.rank
+        return (comm.allreduce(big[r].copy()),
+                comm.allreduce(torch.from_numpy(small[r].copy())
+                               if isinstance(ops.SUM, top.Op) else
+                               small[r].copy()))
+
+    mine = run_ranks(NP, app, top, device_mesh=make_mesh((NP,), ("x",),
+                                                         "cpu"))
+    env(**{f"{c}_ALGO": "device" for c in _ALGOS})
+    ref = jax_run_ranks(NP, lambda comm: app(comm, jop),
+                        device_mesh=jax_make_mesh((NP,), ("x",),
+                                                  jax.devices()[:NP]))
+    for (a, b), (c, d) in zip(mine, ref):
+        np.testing.assert_array_equal(a, np.asarray(c))
+        np.testing.assert_array_equal(b.numpy(), np.asarray(d))
+
+
+@pytest.mark.parametrize("np_dtype", [np.uint16, np.uint32])
+def test_unsigned_collectives_match_jax(env, np_dtype):
+    """uint16 and uint32 run on the device, as in the JAX package: sums
+    that wrap, max and min past 2^15 / 2^31, an allgather; bitwise the
+    JAX channel's results."""
+    info = np.iinfo(np_dtype)
+    rng = np.random.default_rng(int(info.bits))
+    data = rng.integers(info.max // 2, info.max, size=(NP, 64),
+                        endpoint=True).astype(np_dtype)
+
+    def app(comm, ops):
+        r = comm.rank
+        return (comm.allreduce(data[r].copy()),              # K6
+                comm.allreduce(data[r][:61].copy()),         # K3
+                comm.allreduce(data[r].copy(), op=ops.MAX),
+                comm.allreduce(data[r].copy(), op=ops.MIN),
+                comm.allgather(data[r][:5].copy()))
+
+    mine, ref = _both(app)
+    for got, want in zip(mine, ref):
+        for g, w in zip(got, want):
+            assert g.dtype == np_dtype
+            np.testing.assert_array_equal(g, np.asarray(w))
+    np.testing.assert_array_equal(
+        mine[0][0], (data.astype(np.uint64).sum(0) % (info.max + 1))
+        .astype(np_dtype))

@@ -259,13 +259,12 @@ def test_planned_rma_tier_matches(env):
 
 
 def test_planned_rma_tier_quant_bin_raises(env):
+    """The quant bin plans 'quant' now that K14's quantized wire is
+    ported, where the JAX planned_rma_tier does."""
     env(QUANT_COLL="q8:1e-1", DEV_RMA_QUANT_MIN="1024")
     nb, count = 1 << 20, (1 << 20) // 4
-    assert pallas_rma.planned_rma_tier(
-        "acc", nb, np.float32, True, interpret=True, num_devices=8,
-        count=count)[0] == "quant"
-    with pytest.raises(NotImplementedError, match="K9"):
-        rma.planned_rma_tier("acc", nb, torch.float32, True, 8, count=count)
+    mine, ref = _tiers("acc", nb, np.float32, True, count)
+    assert mine == ref == ("quant", None)
     # puts never quantize; int and non-block-multiple accumulates, and a
     # budget below the one-hop bound, keep the exact kernel
     for args in [("put", nb, np.float32, True, count),
@@ -344,8 +343,12 @@ def test_argument_checks():
         rma.direct_put(src, win, 0, 1, -1)
     with pytest.raises(ValueError, match="src is"):
         rma.rma_put(src.int(), win, 0, 1)
-    with pytest.raises(NotImplementedError, match="quantized"):
+    # the quantized wire takes whole blocks of whole 4-code words (a
+    # count of 5 is one block of 5) and f32 windows
+    with pytest.raises(ValueError, match="block-multiple"):
         rma.rma_accumulate(src, win, 0, 1, quantized=True)
+    with pytest.raises(TypeError, match="f32"):
+        rma.rma_accumulate(src[:4].int(), win.int(), 0, 1, quantized=True)
     assert not any(rma.PLAIN_CALLS.values())
     # an empty op touches nothing and takes no route
     assert rma.rma_put(src[:0], win, 0, 1, 16) is win
@@ -364,12 +367,33 @@ def test_kernel_dtype_gates():
         with pytest.raises(TypeError):
             rma._elem_size(dt, "x")
     # the copies move any 1-, 2- or 4-byte element; the fold takes the
-    # seven arithmetic dtypes of the ring kernels
-    for dt in (torch.uint16, torch.uint32):
+    # nine arithmetic dtypes of the ring kernels, uint16 and uint32 too
+    for dt, code in ((torch.uint16, 7), (torch.uint32, 8)):
         assert rma._elem_size(dt, "x") == dt.itemsize
-        with pytest.raises(TypeError, match="not supported"):
-            rma._acc_code(dt, "x")
+        assert rma._acc_code(dt, "x") == code
     assert rma._acc_code(torch.bfloat16, "x") == 2
+
+
+@pytest.mark.parametrize("np_dtype", [np.uint16, np.uint32])
+def test_accumulate_unsigned_wraps_like_jax(np_dtype):
+    """K14 folds uint16 and uint32 with wraparound, as the JAX kernel;
+    the plain version adds in int64 and wraps back."""
+    info = np.iinfo(np_dtype)
+    rng = np.random.default_rng(info.bits)
+    nd, n = 4, 13
+    win = rng.integers(info.max // 2, info.max, size=(nd, n + 6),
+                       endpoint=True).astype(np_dtype)
+    src = rng.integers(info.max // 2, info.max, size=n,
+                       endpoint=True).astype(np_dtype)
+    want = _jax_run(nd, lambda w: pallas_rma.rma_accumulate(
+        jnp.asarray(src), w[0], "x", nd, 1, 2, 3, chunk_bytes=16,
+        interpret=True, credits=False)[None, :], jnp.asarray(win))
+    twin = carry.window_from_numpy(win)
+    rma.reset_counts()
+    rma.rma_accumulate(torch.from_numpy(src), twin, 1, 2, 3, chunk_bytes=16)
+    assert rma.PLAIN_CALLS["rma_accumulate"] == 1
+    np.testing.assert_array_equal(carry.to_numpy(twin), want)
+    assert (carry.to_numpy(twin)[2, 3:3 + n] < win[2, 3:3 + n]).any()
 
 
 def test_plain_accumulate_arithmetic():

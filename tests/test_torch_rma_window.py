@@ -23,11 +23,15 @@ import sys
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
 
+from mvapich2_tpu.ops import pallas_rma
 from mvapich2_tpu.parallel import MeshComm as JaxMeshComm
 from mvapich2_tpu.parallel import make_mesh as jax_make_mesh
+from mvapich2_tpu.parallel.mesh import shard_map
 from mvapich2_tpu.rma.device import DeviceWin as JaxDeviceWin
 from mvapich2_tpu.utils.config import get_config as jax_config
 from mvapich2_tpu_torch import carry, make_mesh, mpit
@@ -342,15 +346,106 @@ def test_epoch_tier_reasons(comm, env):
         before["dev_rma_fallback_dtype"] == 4
     assert after["dev_rma_fallback_size"] - \
         before["dev_rma_fallback_size"] == 1
-    # the quantized accumulate is not ported: the closing call raises
-    # before it applies anything
+    # the quantized accumulate runs (K14's quantized wire, its plain
+    # version here), counted on dev_rma_tier_quant with its wire bytes
     env(QUANT_COLL="q8:1e-1", DEV_RMA_QUANT_MIN="64")
+    before = _pvars("dev_rma_tier_quant", "dev_rma_wire_bytes")
     w = DeviceWin(comm, 1024)
     w.put(np.ones(4), 0, 1)
     w.accumulate(np.ones(512), 0, 1)
-    with pytest.raises(NotImplementedError, match="K9"):
+    w.fence()
+    want = torch.zeros((NP, 1024))
+    want[1, :4] = 1
+    rma.rma_accumulate_ref(torch.ones(512), want, 0, 1, quantized=True)
+    assert torch.equal(w.win, want) and not w._queue
+    after = _pvars(*before)
+    assert after["dev_rma_tier_quant"] - before["dev_rma_tier_quant"] == 1
+    assert after["dev_rma_wire_bytes"] - before["dev_rma_wire_bytes"] == \
+        4 * 4 + 4 * rma.wire_words(512, 128)
+
+
+@pytest.mark.parametrize("np_dtype", [np.uint16, np.uint32])
+def test_unsigned_windows_match_jax(jcomm, comm, np_dtype):
+    """uint16 and uint32 windows: puts, accumulates that wrap (contiguous
+    on the kernel tier, strided on the epoch tier) and gets, bitwise the
+    JAX window."""
+    info = np.iinfo(np_dtype)
+    rng = np.random.default_rng(info.bits)
+    n_win = 12
+    jwin = JaxDeviceWin(jcomm, n_win, dtype=jnp.dtype(np_dtype))
+    twin = DeviceWin(comm, n_win, getattr(torch, np.dtype(np_dtype).name))
+    init = rng.integers(info.max // 2, info.max, size=(NP, n_win),
+                        endpoint=True).astype(np_dtype)
+    for r in range(NP):
+        jwin.store(r, 0, init[r])
+        twin.store(r, 0, init[r])
+    vals = rng.integers(info.max // 2, info.max, size=(4, 4),
+                        endpoint=True).astype(np_dtype)
+    handles = []
+    for w in (jwin, twin):
+        w.accumulate(vals[0], 1, 3, 2)
+        w.accumulate(vals[1][:3], 2, 3, 1, stride=3)
+        w.put(vals[2], 0, 5, 6)
+        handles.append(w.get(4, 4, 3, 0, stride=2))
         w.fence()
-    assert len(w._queue) == 2 and not w.win.any()
+    np.testing.assert_array_equal(_rows(twin.win), _rows(jwin.win))
+    np.testing.assert_array_equal(_rows(handles[1].value()),
+                                  _rows(handles[0].value()))
+    assert (_rows(twin.win)[3, 2:6] < init[3, 2:6]).any()     # wrapped
+
+
+def _jax_quant_acc(rows, src, origin, target, disp):
+    """The window rows after the JAX quantized accumulate kernel
+    (pallas_rma.rma_accumulate(quantized=True), interpret mode)."""
+    mesh = jax_make_mesh((NP,), ("x",))
+    f = shard_map(lambda w: pallas_rma.rma_accumulate(
+        jnp.asarray(src), w[0], "x", NP, origin, target, disp,
+        quantized=True, interpret=True, credits=False)[None, :],
+        mesh=mesh, in_specs=(P("x"),), out_specs=P("x"), check_vma=False)
+    return np.asarray(jax.jit(f)(jax.device_put(
+        jnp.asarray(rows), NamedSharding(mesh, P("x")))))
+
+
+def test_quant_accumulate_through_the_window(comm, env):
+    """An accumulate that MV2T_QUANT_COLL and DEV_RMA_QUANT_MIN send to
+    K14's quantized wire, inside a passive epoch between an exact put
+    and a get, against a replay whose accumulate is the JAX kernel;
+    dev_rma_tier_quant and the wire bytes counted. Under a budget below
+    one hop's bound the same accumulate takes the exact wire."""
+    env(QUANT_COLL="fp8:1e-1", DEV_RMA_QUANT_MIN="256", QUANT_BLOCK="64")
+    rng = np.random.default_rng(17)
+    n_win = 96
+    init = (rng.standard_normal((NP, n_win)) * 3).astype(np.float32)
+    src = rng.standard_normal(64).astype(np.float32)
+    putv = rng.standard_normal(8).astype(np.float32)
+    pv = ("dev_rma_tier_quant", "dev_rma_tier_rdma", "dev_rma_wire_bytes")
+    before = _pvars(*pv)
+    w = DeviceWin(comm, n_win)
+    for r in range(NP):
+        w.store(r, 0, init[r])
+    w.lock(5)
+    w.put(putv, 0, 5, 0)
+    w.accumulate(src, 2, 5, 20)
+    h = w.get(8, 1, 5, 88)
+    w.unlock(5)
+    rows = init.copy()
+    rows[5, :8] = putv
+    want = _jax_quant_acc(rows, src, 2, 5, 20)
+    np.testing.assert_array_equal(_rows(w.win).view(np.int32),
+                                  want.view(np.int32))
+    np.testing.assert_array_equal(_rows(h.value()), want[5, 88:96])
+    after = _pvars(*pv)
+    assert {k: after[k] - before[k] for k in pv} == {
+        "dev_rma_tier_quant": 1, "dev_rma_tier_rdma": 2,
+        "dev_rma_wire_bytes": 8 * 4 + 8 * 4 + rma.wire_words(64, 16) * 4}
+    env(QUANT_COLL="fp8:1e-2")                  # below 1/28: exact wire
+    w.accumulate(src, 2, 5, 20)
+    w.fence()
+    exact = want.copy()
+    exact[5, 20:84] = (torch.from_numpy(want[5, 20:84]) +
+                       torch.from_numpy(src)).numpy()
+    np.testing.assert_array_equal(_rows(w.win), exact)
+    assert _pvars(*pv)["dev_rma_tier_quant"] == after["dev_rma_tier_quant"]
 
 
 def test_window_argument_checks(comm):

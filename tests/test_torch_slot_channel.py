@@ -31,6 +31,19 @@ _ALGOS = ["ALLREDUCE", "REDUCE", "BCAST", "ALLGATHER", "ALLTOALL",
           "REDUCE_SCATTER"]
 
 
+@pytest.fixture(autouse=True)
+def _port_forced_onto_the_device():
+    """The port's collectives forced onto the device too: the small
+    numpy buffers here are below DEVICE_COLL_MIN_BYTES, where the JAX
+    package would take its host tier unless forced."""
+    from mvapich2_tpu_torch.utils.config import get_config
+    cfg = get_config()
+    for n in _ALGOS:
+        cfg.set(f"{n}_ALGO", "device")
+    yield
+    cfg.reload()
+
+
 def _jax_run(nranks, fn):
     from mvapich2_tpu.parallel.mesh import make_mesh
     cfg = jax_config()
@@ -128,6 +141,26 @@ def test_bcast_allgather_alltoall_rsb_parity():
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(mine[0][0], bdata)
+
+
+@pytest.mark.parametrize("np_dtype", [np.uint16, np.uint32])
+def test_unsigned_sum_parity(np_dtype):
+    """uint16 and uint32 sums through the slot kernel (K1) wrap as the
+    JAX kernel's do."""
+    info = np.iinfo(np_dtype)
+    rng = np.random.default_rng(info.bits)
+    data = rng.integers(info.max // 2, info.max, size=(4, 200),
+                        endpoint=True).astype(np_dtype)
+
+    def app(comm, ops):
+        return comm.allreduce(data[comm.rank].copy())
+
+    hbm.reset_counts()
+    mine, ref = _both(4, app)
+    assert hbm.PLAIN_CALLS["fused_reduce_to_slot"] == 1
+    for got, want in zip(mine, ref):
+        assert got.dtype == np_dtype
+        np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_zero_copy_shared_result():
