@@ -18,7 +18,11 @@ non-zero, printing no result, without them. Phases:
    bitwise on f32, bf16, i32 and u8 at depth 2/3/4, one and two lanes,
    a ragged block, the MoE bench's three routing matrices, a matrix with
    zero-count pairs and a step empty on every rank, and K10 at 64 MiB a
-   rank;
+   rank; the flash kernels K15/K16 against their plain versions with
+   full f32 products (causal and full, q0/k0 offsets with wholly-future
+   and wholly-past blocks, gcd-shrunk blocks, f32/bf16/f16, head widths
+   16 to 256, and the attention paths' full-width launches), and the
+   plain version with TF32 on, which must fall outside the tolerance;
 4. main path: 8 ranks (run_ranks) allreduce 64 MiB f32 tensors each on
    cuda:0 through the slot channel into K1, plus the small collectives,
    then the one-chip bench candidates (K1 and K2) at the same size; the
@@ -50,14 +54,23 @@ non-zero, printing no result, without them. Phases:
    unlock epoch and a strided put; the window and every get held against
    a plain replay, the launch counts (zeroed just before) and the
    dev_rma_* pvars checked;
-9. times, by CUDA events: each kernel beside its bound, its plain
+9. attn: sequence-parallel attention at Ouro-2.6B's attention width
+   (16 heads x 128, f32, causal) over 8 virtual ranks of 4096 tokens on
+   cuda:0, through MeshComm.run: ring_attention_flash (K16, 8 launches
+   a call) and ulysses_attention(use_flash=True) (K15, one launch); the
+   flash counts zeroed just before each path and read after; ring
+   against Ulysses over every row, both against dense f32 attention on
+   the last 256 rows of each rank; host-clock latency, median of 5;
+10. times, by CUDA events: each kernel beside its bound, its plain
    version and the library call; the staging stack; the end-to-end
    allreduce latency and effective bandwidth (2*R*m/t) of both paths;
    the end-to-end alltoall latency of the mesh path; the RMA kernels at
-   64 MiB and the OSU band;
-10. profiles: one MoE step of each routing shape, and one fence of 32
-   RMA ops (put, get, accumulate at 1 KiB and 4 MiB), under
-   torch.profiler: device time by kernel group and the idle share.
+   64 MiB and the OSU band; K15 and K16 beside
+   scaled_dot_product_attention on the same blocks;
+11. profiles: one MoE step of each routing shape, one fence of 32 RMA
+   ops (put, get, accumulate at 1 KiB and 4 MiB), and one call of each
+   attention path, under torch.profiler: device time by kernel group
+   and the idle share.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
@@ -84,7 +97,7 @@ HALF_TOL = dict(rtol=1e-2, atol=1e-2)  # 16-bit floats: one rounding of an f32 s
 # published dense peak of one H100 SXM in float32 outside the tensor
 # cores (TFLOP/s); the reductions here are far below it
 F32_PEAK_TFLOPS = 67.0
-SOURCES = ("hbm_slot", "ring")     # mvapich2_tpu_torch/csrc/<name>.cu
+SOURCES = ("hbm_slot", "ring", "flash")   # mvapich2_tpu_torch/csrc/<name>.cu
 RMA_KINDS = ("f32", "bf16", "f16", "i32", "i8", "u8", "u16", "u32")
 # integer kinds compared bit for bit; uint16/uint32 have their plain
 # versions run on the CPU (torch's CUDA build implements few operations
@@ -105,6 +118,18 @@ RESIDENT_FULL = 1024 * 1024        # f32 elements: 4 MiB, the K6 limit
 # one expert a rank): 4096 tokens x 4096 f32 a rank, 64 MiB
 MOE_TOKENS = 4096
 MOE_DMODEL = 4096
+# the sequence-parallel attention cell at Ouro-2.6B's attention width
+# (config.json of ByteDance/Ouro-2.6B: num_attention_heads =
+# num_key_value_heads = 16, head_dim 128), 8 virtual ranks of 4096
+# tokens: 32,768 of its 65,536 max_position_embeddings, f32, causal
+ATTN_P = 8
+ATTN_T = 4096
+ATTN_H = 16
+ATTN_D = 128
+ATTN_SAMPLE = 256                  # rows a rank held against dense attention
+# the JAX tests' bound for flash against dense attention: the streaming
+# softmax orders its f32 sums otherwise
+ATTN_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
 def log(msg):
@@ -1621,6 +1646,396 @@ def phase_quant_times(torch, quant, ici, rma, ring, timing, info, smi,
     return rows, extra
 
 
+# ---------------------------------------------------------------------------
+# sequence-parallel attention: K15, K16 and the ring / Ulysses paths
+# ---------------------------------------------------------------------------
+
+def _set_f32_matmul(torch, tf32):
+    """Full f32 products for the plain versions (TF32 only to show that
+    the tolerance tells them apart)."""
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.set_float32_matmul_precision("high" if tf32 else "highest")
+
+
+def _ulp_close(torch, got, want):
+    """16-bit outputs: the two f32 results may differ within ATTN_TOL
+    before they are rounded, and each rounding moves a value by at most
+    half an ulp, so |got - want| <= one ulp of the output's dtype (at
+    the larger of the two) + atol + rtol * |want|. An output near 0 that
+    sums terms far larger than itself needs the f32 part; one of
+    magnitude 1 the ulp."""
+    g, w = got.float(), want.float()
+    mant = {torch.bfloat16: 7, torch.float16: 10}[want.dtype]
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -14)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
+    lim = ulp + ATTN_TOL["atol"] + ATTN_TOL["rtol"] * w.abs()
+    return bool(((g - w).abs() <= lim).all())
+
+
+def _attn_check(torch, what, got, want):
+    """K15's output or one f32 part against the plain version: ATTN_TOL
+    in f32, and one ulp more in a 16-bit dtype (``_ulp_close``). Returns
+    the max abs error."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)}/{got.dtype} vs "
+                             f"{tuple(want.shape)}/{want.dtype}")
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err = (got.double() - want.double()).abs().max().item()
+    ok = (torch.allclose(got, want, **ATTN_TOL)
+          if got.dtype == torch.float32 else _ulp_close(torch, got, want))
+    if not ok:
+        raise AssertionError(f"{what}: kernel and plain version disagree "
+                             f"(max abs err {err})")
+    return err
+
+
+def _parts_check(torch, what, got, want):
+    """K16's (m, num, den): m and den within ATTN_TOL; num is den times a
+    value of the output's scale (out = num / den), so it is held to the
+    output's tolerance carried through the normalisation, |d num| <=
+    atol * den + rtol * |num|."""
+    err = max(_attn_check(torch, what + " m", got[0], want[0]),
+              _attn_check(torch, what + " den", got[2], want[2]))
+    num, ref, den = got[1], want[1], want[2]
+    if num.shape != ref.shape or not bool(torch.isfinite(num).all()):
+        raise AssertionError(f"{what} num: shape or non-finite")
+    d = (num - ref).abs()
+    lim = ATTN_TOL["atol"] * den.transpose(-1, -2)[..., None] + \
+        ATTN_TOL["rtol"] * ref.abs()
+    if not bool((d <= lim).all()):
+        raise AssertionError(f"{what} num: kernel and plain version "
+                             f"disagree (max abs err {d.max().item()})")
+    return max(err, d.max().item())
+
+
+# K15: (batch or None, T, Tk, H, D, causal, q0, k0, block_q, block_k); the
+# CPU tests' cases, a batch of ranks, the widths the kernel is built for
+K15_CASES = ((None, 256, 256, 4, 64, True, 0, 0, 64, 64),
+             (None, 256, 256, 4, 64, False, 0, 0, 64, 64),
+             (None, 128, 128, 2, 32, True, 0, 128, 64, 64),   # wholly future
+             (None, 128, 128, 2, 32, True, 128, 0, 64, 64),   # wholly past
+             (None, 128, 128, 2, 32, True, 0, 64, 64, 64),    # floor walk
+             (None, 96, 96, 2, 32, True, 0, 0, 64, 64),       # gcd blocks
+             (None, 96, 160, 2, 128, True, 40, 7, 64, 48),    # ragged
+             (None, 64, 128, 2, 16, True, 0, 1, 64, 64),      # a keyless row
+             (3, 100, 37, 3, 16, True, 50, 20, 128, 128),
+             (2, 200, 200, 2, 256, True, 0, 0, 128, 128),
+             (8, 512, 512, 2, 128, True, 0, 0, 128, 128))
+# K16: (batch or None, T, Tk, H, D, causal, block_q, block_k)
+K16_CASES = ((None, 128, 128, 2, 32, True, 64, 64),
+             (None, 128, 128, 2, 32, False, 64, 64),
+             (None, 96, 96, 2, 32, True, 64, 64),
+             (None, 64, 96, 2, 32, True, 16, 32),
+             (7, 300, 300, 4, 128, False, 128, 128),
+             (2, 200, 200, 2, 256, True, 128, 128))
+
+
+def phase_flash_kernels(torch, flash, dev):
+    """K15 and K16 against their plain versions on the card, with full
+    f32 products: the CPU tests' cases (causal and full, the q0/k0
+    offsets with wholly-future and wholly-past blocks, a query tile that
+    ends one key before the block, gcd-shrunk blocks, a row with no
+    key) in f32, bf16 and f16, batches of ranks, head widths 16 to 256,
+    then the main paths' shapes: K15 over Ulysses' 8 x 2 head rows of
+    32,768 tokens, K16 over the ring's diagonal step and its first past
+    step. Then the plain version with TF32 on, which must fall outside
+    the tolerance. Returns the max abs error of the full-size checks."""
+    _set_f32_matmul(torch, False)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1600)
+
+    def rnd(shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def shapes(b, t, h, d):
+        return (t, h, d) if b is None else (b, t, h, d)
+
+    n = 0
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for b, T, Tk, H, D, causal, q0, k0, bq, bk in K15_CASES:
+            q = rnd(shapes(b, T, H, D), dt)
+            k, v = rnd(shapes(b, Tk, H, D), dt), rnd(shapes(b, Tk, H, D), dt)
+            got = flash.flash_attention(q, k, v, causal, q0, k0, bq, bk)
+            want = flash.flash_attention_ref(q, k, v, causal, q0, k0, bq, bk)
+            torch.cuda.synchronize()
+            what = f"K15 {dt} {(b, T, Tk, H, D, causal, q0, k0, bq, bk)}"
+            _attn_check(torch, what, got, want)
+            if q0 + T <= k0 and got.any():
+                raise AssertionError(f"{what}: a wholly-future block must "
+                                     f"give 0")
+            n += 1
+        for b, T, Tk, H, D, causal, bq, bk in K16_CASES:
+            q = rnd(shapes(b, T, H, D), dt)
+            k, v = rnd(shapes(b, Tk, H, D), dt), rnd(shapes(b, Tk, H, D), dt)
+            got = flash.flash_attention_parts(q, k, v, causal, bq, bk)
+            want = flash.flash_attention_parts_ref(q, k, v, causal, bq, bk)
+            torch.cuda.synchronize()
+            _parts_check(torch, f"K16 {dt} {(b, T, Tk, H, D, causal)}", got,
+                         want)
+            n += 1
+    p, T, H, D = ATTN_P, ATTN_T, ATTN_H, ATTN_D
+    hl = H // p
+    qh, kh, vh = (rnd((p, p * T, hl, D)) for _ in range(3))
+    err15 = _attn_check(torch, "K15 Ulysses full width",
+                        flash.flash_attention(qh, kh, vh, True),
+                        flash.flash_attention_ref(qh, kh, vh, True))
+    del qh, kh, vh
+    q, k, v = (rnd((p, T, H, D)) for _ in range(3))
+    err16 = max(
+        _parts_check(torch, "K16 ring step 0",
+                     flash.flash_attention_parts(q, k, v, True),
+                     flash.flash_attention_parts_ref(q, k, v, True)),
+        _parts_check(torch, "K16 ring step 1",
+                     flash.flash_attention_parts(q[1:], k[1:], v[1:], False),
+                     flash.flash_attention_parts_ref(q[1:], k[1:], v[1:],
+                                                     False)))
+    n += 3
+    # TF32 products must fail the f32 tolerance, or it could not tell
+    # the kernel's f32 arithmetic from TF32
+    q, k, v = (rnd((1024, 4, D)) for _ in range(3))
+    got = flash.flash_attention(q, k, v, True)
+    _set_f32_matmul(torch, True)
+    tf32 = flash.flash_attention_ref(q, k, v, True)
+    _set_f32_matmul(torch, False)
+    tf32_err = (got - tf32).abs().max().item()
+    if torch.allclose(got, tf32, **ATTN_TOL):
+        raise AssertionError(f"the TF32 plain version falls inside the f32 "
+                             f"tolerance (max abs err {tf32_err}): the "
+                             f"check cannot tell f32 from TF32")
+    log(f"[kernels] flash: {n} checks of K15/K16 against their plain "
+        f"versions (f32 rtol {ATTN_TOL['rtol']} atol {ATTN_TOL['atol']}, "
+        f"one ulp more in bf16/f16); full width K15 err {err15:.3g}, K16 "
+        f"{err16:.3g}; the TF32 plain version is off by {tf32_err:.3g}, "
+        f"outside the tolerance")
+    return {"K15": err15, "K16": err16, "tf32_err": tf32_err}
+
+
+def _dense_rows(torch, q, k, v, lo, hi):
+    """Causal dense attention in f32 of the query rows [lo, hi) (global
+    positions) against every key up to the last of them."""
+    D = q.shape[-1]
+    s = torch.einsum("thd,khd->htk", q[lo:hi], k[:hi]) * D ** -0.5
+    pq = torch.arange(lo, hi, device=q.device)
+    pk = torch.arange(hi, device=q.device)
+    s = torch.where(pq[:, None] >= pk[None, :], s, -1e30)
+    return torch.einsum("htk,khd->thd", torch.softmax(s, -1), v[:hi])
+
+
+def attn_paths(comm, ra, ul):
+    """The two sequence-parallel paths, each with the flash launches one
+    call makes: (K15, K16)."""
+    return {"ring": (lambda a, b, c: ra.ring_attention_flash(
+                a, b, c, comm, causal=True), (0, comm.size)),
+            "ulysses": (lambda a, b, c: ul.ulysses_attention(
+                a, b, c, comm, causal=True, use_flash=True), (1, 0))}
+
+
+def phase_attn(torch, flash, ra, ul, MeshComm, make_mesh, dev):
+    """Both sequence-parallel attention paths at Ouro-2.6B's attention
+    width (16 heads x 128, f32, causal) over 8 virtual ranks of 4096
+    tokens, through MeshComm.run: ring_attention_flash (K16, 8 launches
+    a call) and ulysses_attention(use_flash=True) (K15, one launch). The
+    flash counts are zeroed just before each path's first call and read
+    just after. Ring against Ulysses over every row; both against dense
+    f32 attention on the last ATTN_SAMPLE rows of each rank; then the
+    host-clock latency, median of 5 after 1."""
+    _set_f32_matmul(torch, False)
+    comm = MeshComm(make_mesh((ATTN_P,), ("sp",), dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1700)
+    tg = ATTN_P * ATTN_T
+    q, k, v = (torch.randn((tg, ATTN_H, ATTN_D), generator=gen, device=dev)
+               for _ in range(3))
+    outs, lat, launches = {}, {}, {}
+    for name, (fn, (k15, k16)) in attn_paths(comm, ra, ul).items():
+        torch.cuda.synchronize()
+        flash.reset_counts()
+        out = comm.run(fn, q, k, v)
+        torch.cuda.synchronize()
+        launches[name] = dict(flash.LAUNCHES)
+        if launches[name] != {"flash_attention": k15,
+                              "flash_attention_parts": k16} or \
+                any(flash.PLAIN_CALLS.values()):
+            raise AssertionError(f"[attn] {name}: launches "
+                                 f"{launches[name]}, plain "
+                                 f"{flash.PLAIN_CALLS}")
+        if out.shape != q.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"[attn] {name}: output {tuple(out.shape)} "
+                                 f"or non-finite")
+        outs[name] = out
+        ts = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            comm.run(fn, q, k, v)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        lat[name] = ts[1:]
+    agree = (outs["ring"] - outs["ulysses"]).abs().max().item()
+    if not torch.allclose(outs["ring"], outs["ulysses"], **ATTN_TOL):
+        raise AssertionError(f"[attn] ring and Ulysses disagree ({agree})")
+    dense_err = {"ring": 0.0, "ulysses": 0.0}
+    for r in range(ATTN_P):
+        lo, hi = (r + 1) * ATTN_T - ATTN_SAMPLE, (r + 1) * ATTN_T
+        want = _dense_rows(torch, q, k, v, lo, hi)
+        for name, out in outs.items():
+            got = out[lo:hi]
+            dense_err[name] = max(dense_err[name],
+                                  (got - want).abs().max().item())
+            if not torch.allclose(got, want, **ATTN_TOL):
+                raise AssertionError(f"[attn] {name}: rank {r}'s last "
+                                     f"rows disagree with dense attention")
+    med = {n: statistics.median(t) for n, t in lat.items()}
+    log(f"[attn] 8 ranks x {ATTN_T} tokens, {ATTN_H} heads x {ATTN_D}, f32, "
+        f"causal: launches {launches}; ring vs Ulysses max abs err "
+        f"{agree:.3g}; vs dense on {ATTN_SAMPLE} rows a rank {dense_err}; "
+        + "; ".join(f"{n} {med[n] * 1e3:.3f} ms a call "
+                    f"({tg / med[n]:.0f} tokens/s)" for n in med))
+    return launches, lat, (q, k, v, comm)
+
+
+def _ring_k16_launches(flash, q, k, v):
+    """The K16 launches of one causal ring call on fixed blocks: the
+    diagonal step over every rank, then step s over ranks [s, p)."""
+    flash.flash_attention_parts(q, k, v, True)
+    for s in range(1, q.shape[0]):
+        flash.flash_attention_parts(q[s:], k[s:], v[s:], False)
+
+
+def phase_attn_times(torch, flash, ul, coll, timing, info, launches, lat,
+                     full_err, data):
+    """K15 (Ulysses' launch) and K16 (the ring's first past step, 7 ranks,
+    and one call's 8 launches) by CUDA events, median of 5 after 1 (plain
+    versions 3 after 1), beside the bound and the library yardstick:
+    scaled_dot_product_attention (memory-efficient backend) on the same
+    f32 blocks, causal for K15, non-causal for K16's step (it gives the
+    normalised output, not the parts: for scale)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    _set_f32_matmul(torch, False)
+    bw = info.hbm_bw_gbps * 1e9
+    peak = F32_PEAK_TFLOPS * 1e12
+    q, k, v, comm = data
+    p, T, H, D = ATTN_P, ATTN_T, ATTN_H, ATTN_D
+    tg = p * T
+
+    def bound(nbytes, flops):
+        tb, to = nbytes / bw * 1e3, flops / peak * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    def heads_major(x):
+        return x.permute(0, 2, 1, 3)           # [B, H, T, D] view
+
+    # K15 on the Ulysses reshard: p ranks x H/p heads x all tokens
+    qh, kh, vh = (ul._seq_to_heads(comm.stack(x), comm) for x in (q, k, v))
+    k15 = timing.time_ms(lambda: flash.flash_attention(qh, kh, vh, True),
+                         warmup=1, iters=5)
+    k15_plain = timing.time_ms(
+        lambda: flash.flash_attention_ref(qh, kh, vh, True), warmup=1,
+        iters=3)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        k15_lib = timing.time_ms(lambda: sdpa(
+            heads_major(qh), heads_major(kh), heads_major(vh),
+            is_causal=True), warmup=1, iters=5)
+    pairs = tg * (tg + 1) // 2 * H                 # (query, key) kept
+    k15_b, k15_by = bound(4 * tg * H * D * 4, 4 * D * pairs)
+    del qh, kh, vh
+    # K16 on the ring's step 1: ranks 1..7 against their left neighbour
+    qs = comm.stack(q)
+    ks, vs = (coll.ring_shift(comm.stack(x), comm, 1) for x in (k, v))
+    q1, k1, v1 = qs[1:], ks[1:], vs[1:]
+    k16 = timing.time_ms(
+        lambda: flash.flash_attention_parts(q1, k1, v1, False), warmup=1,
+        iters=5)
+    k16_plain = timing.time_ms(
+        lambda: flash.flash_attention_parts_ref(q1, k1, v1, False),
+        warmup=1, iters=3)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        k16_lib = timing.time_ms(lambda: sdpa(
+            heads_major(q1), heads_major(k1), heads_major(v1)), warmup=1,
+            iters=5)
+    n1 = (p - 1) * T * H * D * 4
+    k16_b, k16_by = bound(4 * n1 + 2 * (p - 1) * H * T * 4,
+                          4 * D * (p - 1) * H * T * T)
+    k16_call = timing.time_ms(lambda: _ring_k16_launches(flash, qs, ks, vs),
+                              warmup=1, iters=3)
+    k16_call_b, _ = bound(0, 4 * D * pairs)
+    del q1, k1, v1, qs, ks, vs
+    e2e = {n: statistics.median(t) * 1e3 for n, t in lat.items()}
+    kernels = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "mvapich2_tpu_torch/csrc/flash.cu",
+         "replaces": "mvapich2_tpu/models/flash.py:121",
+         "launches": launches["ulysses"]["flash_attention"],
+         "max_abs_err": full_err["K15"], "ms": k15, "plain_ms": k15_plain,
+         "bound_ms": k15_b, "bound_by": k15_by, "library_ms": k15_lib},
+        {"name": "flash_attention_parts", "route": "cuda",
+         "source": "mvapich2_tpu_torch/csrc/flash.cu",
+         "replaces": "mvapich2_tpu/models/flash.py:157",
+         "launches": launches["ring"]["flash_attention_parts"],
+         "max_abs_err": full_err["K16"], "ms": k16, "plain_ms": k16_plain,
+         "bound_ms": k16_b, "bound_by": k16_by, "library_ms": k16_lib},
+    ]
+    extra = {"attn_e2e_ms": e2e,
+             "attn_e2e_ms_all": {n: [t * 1e3 for t in ts]
+                                 for n, ts in lat.items()},
+             "attn_tokens_per_s": {n: tg / (t * 1e-3)
+                                   for n, t in e2e.items()},
+             "k16_ring_call_ms": k16_call, "k16_ring_call_bound_ms":
+             k16_call_b, "k15_f32_peak_share": k15_b / k15,
+             "k16_f32_peak_share": k16_b / k16,
+             "tf32_plain_err": full_err["tf32_err"]}
+    log(f"[times] K15 (Ulysses, {p} x {H // p} heads x {tg} tokens) "
+        f"{k15:.3f} ms (bound {k15_b:.3f} {k15_by}, plain {k15_plain:.3f}, "
+        f"SDPA {k15_lib:.3f}); K16 step 1 ({p - 1} ranks x {H} heads x "
+        f"{T}^2) {k16:.3f} ms (bound {k16_b:.3f} {k16_by}, plain "
+        f"{k16_plain:.3f}, SDPA {k16_lib:.3f}); K16 a ring call "
+        f"{k16_call:.3f} ms (bound {k16_call_b:.3f}); e2e ring "
+        f"{e2e['ring']:.3f} ms, Ulysses {e2e['ulysses']:.3f} ms")
+    return kernels, extra
+
+
+def _attn_group(name):
+    name = name.lower()
+    if "flash_kernel" in name:
+        return "kernel"
+    if "roll" in name:
+        return "shift"
+    if "copy" in name:
+        return "copy"
+    return "merge"
+
+
+def phase_attn_profile(torch, ra, ul, lat, data):
+    """One call of each path under torch.profiler: device time by group
+    (kernel: K15/K16; shift: the ring's torch.roll of K/V; copy: kernels
+    named copy, the Ulysses reshards; merge: the rest, the streaming
+    merge's elementwise ops, fills and slice writes), and the idle share
+    against the
+    unprofiled median call (1 - busy / median). Run last, as the other
+    profiles."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, comm = data
+    split = {}
+    for name, (fn, _) in attn_paths(comm, ra, ul).items():
+        comm.run(fn, q, k, v)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            comm.run(fn, q, k, v)
+            torch.cuda.synchronize()
+        groups = {"kernel": 0.0, "shift": 0.0, "copy": 0.0, "merge": 0.0}
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                groups[_attn_group(ev.key)] += ev.self_device_time_total
+        busy = sum(groups.values())
+        if not busy:
+            split[name] = "not measured (no device activity profiled)"
+            continue
+        split[name] = {**groups, "busy_us": busy, "idle_share":
+                       1 - busy / (statistics.median(lat[name]) * 1e6)}
+    log(f"[attn] device time a call, us (torch.profiler): {split}")
+    return split
+
+
 def phase_sweep(torch, ici, ring, tuning, timing, dev):
     """The ring kernels' launch-shape sweep (``--sweep``): K3 at 8 ranks
     x 64 MiB f32 over threads per block x blocks per SM x chunk bytes x
@@ -1685,8 +2100,10 @@ def main(argv=None):
     from mvapich2_tpu_torch import mpit
     from mvapich2_tpu_torch.core import op as opmod
     from mvapich2_tpu_torch.bench import moe, osu_rma
-    from mvapich2_tpu_torch.ops import (_build, alltoall, hbm, ici, quant,
-                                        ring, rma)
+    from mvapich2_tpu_torch.models import flash, ring_attention, ulysses
+    from mvapich2_tpu_torch.ops import (_build, alltoall, collectives, hbm,
+                                        ici, quant, ring, rma)
+    from mvapich2_tpu_torch.parallel import MeshComm, make_mesh
     from mvapich2_tpu_torch.utils import detect, timing
     from mvapich2_tpu_torch.utils.config import get_config
 
@@ -1717,6 +2134,7 @@ def main(argv=None):
     full_err.update(phase_rma_kernels(torch, np, rma, ring, dev))
     full_err.update(phase_quant_kernels(torch, np, quant, ici, rma, ring,
                                         cfg, dev))
+    flash_err = phase_flash_kernels(torch, flash, dev)
     launches, slice_launches, lat, inputs = phase_main_path(
         torch, np, mvt, hbm, opmod, dev)
     mesh_launches, mesh_lat = phase_mesh(torch, np, mvt, ici, ring, mpit,
@@ -1728,6 +2146,8 @@ def main(argv=None):
     k9_launches, q_lats = phase_quant(torch, np, mvt, quant, ici, ring, mpit,
                                       opmod, cfg, dev, inputs)
     k14q_launches = phase_rma_quant(torch, rma, ring, mpit, cfg, dev)
+    attn_launches, attn_lat, attn_data = phase_attn(
+        torch, flash, ring_attention, ulysses, MeshComm, make_mesh, dev)
     info = detect.detect(dev)
     kernels, extra = phase_times(torch, hbm, timing, info, inputs, lat,
                                  launches, full_err)
@@ -1742,13 +2162,20 @@ def main(argv=None):
     quant_kernels, quant_extra = phase_quant_times(
         torch, quant, ici, rma, ring, timing, info, smi, cfg, k9_launches,
         k14q_launches, full_err, q_lats, mesh_lat, dev)
-    kernels += ring_kernels + a2a_kernels + rma_kernels + quant_kernels
+    attn_kernels, attn_extra = phase_attn_times(
+        torch, flash, ulysses, collectives, timing, info, attn_launches,
+        attn_lat, flash_err, attn_data)
+    kernels += ring_kernels + a2a_kernels + rma_kernels + quant_kernels + \
+        attn_kernels
+    extra.update(attn_extra)
     extra.update(quant_extra)
     extra.update(ring_extra)
     extra.update(a2a_extra)
     extra.update(rma_extra)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)
+    extra["attn_breakdown"] = phase_attn_profile(
+        torch, ring_attention, ulysses, attn_lat, attn_data)
     total_s = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -1764,6 +2191,7 @@ def main(argv=None):
                                           k9_launches,
                                           "rma_accumulate_quant":
                                           k14q_launches},
+                       "attn_launches": attn_launches,
                        "moe": moe_art,
                        "kernels": kernels, **extra}, f, indent=1)
     log(f"[done] {total_s:.1f} s")

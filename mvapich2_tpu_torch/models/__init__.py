@@ -1,0 +1,9 @@
+"""The model layer of the port (counterpart of
+``mvapich2_tpu/models``): the sequence-parallel attention paths,
+``ring_attention`` (ring attention, K16 per step in its flash form) and
+``ulysses`` (the head/sequence all-to-all around K15), over the flash
+kernels of ``flash``."""
+
+from . import flash, ring_attention, ulysses
+
+__all__ = ["flash", "ring_attention", "ulysses"]

@@ -49,6 +49,19 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("block", _I), ("stream", _P))),
         "mv2t_error_string": (ctypes.c_char_p, (("code", _I),)),
     },
+    "flash": {
+        "mv2t_flash_attention": (_I, (
+            ("dtype", _I), ("q", _P), ("k", _P), ("v", _P), ("out", _P),
+            ("B", _I), ("H", _I), ("T", _I), ("Tk", _I), ("D", _I),
+            ("q0", _I64), ("k0", _I64), ("causal", _I), ("scale", _F),
+            ("stream", _P))),
+        "mv2t_flash_attention_parts": (_I, (
+            ("dtype", _I), ("q", _P), ("k", _P), ("v", _P), ("m", _P),
+            ("num", _P), ("den", _P), ("B", _I), ("H", _I), ("T", _I),
+            ("Tk", _I), ("D", _I), ("causal", _I), ("scale", _F),
+            ("stream", _P))),
+        "mv2t_error_string": (ctypes.c_char_p, (("code", _I),)),
+    },
     "ring": {
         "mv2t_hbm_ring_all_reduce": (_I, (
             ("dtype", _I), ("op", _I), ("ins", _P), ("outs", _P),

@@ -117,9 +117,15 @@ def _block_spans(nblk: int, ndir: int) -> List[Tuple[int, int]]:
 
 
 def dtype_kind(dtype: torch.dtype) -> str:
-    """numpy-style kind letter of a torch dtype."""
+    """numpy kind letter of a torch dtype, as the JAX package reads it:
+    bfloat16 is ml_dtypes' kind 'V' there, so every tier decision made
+    on the kind (the channel's eligibility, the planners) sends bf16
+    where the JAX package does. The kernels themselves take bf16 when
+    called directly, as the JAX kernels do."""
     if dtype.is_complex:
         return "c"
+    if dtype == torch.bfloat16:
+        return "V"
     if dtype.is_floating_point:
         return "f"
     if dtype == torch.bool:

@@ -185,7 +185,7 @@ def _elem_size(dtype: torch.dtype, what: str) -> int:
     """Element size of a dtype the copying kernels (K12, K13, K17)
     move."""
     _no_8byte(dtype, what)
-    if dtype_kind(dtype) not in "fiu":
+    if dtype.is_complex or dtype == torch.bool:
         raise TypeError(f"{what}: dtype {dtype} does not lower to the "
                         f"kernel (the epoch tier carries it)")
     return dtype.itemsize

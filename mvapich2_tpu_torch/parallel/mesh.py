@@ -10,14 +10,16 @@ shard is its own allocation; one kernel launch covers all ``p`` ranks
 
 ``MeshComm`` is a trimmed counterpart of the JAX package's: the mesh,
 its axis, its size and its device, which ``rma/device.py``'s
-``DeviceWin`` takes. Its collective methods run inside ``shard_map`` in
-the JAX package and have no counterpart here yet.
+``DeviceWin`` takes, and ``run``, the counterpart of its ``shard_map``
+launch. Code run under it sees every rank's shard at once, stacked on
+dim 0 (``ops/collectives.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -77,3 +79,36 @@ class MeshComm:
     @property
     def device(self) -> torch.device:
         return self.mesh.device
+
+    def stack(self, x) -> torch.Tensor:
+        """A global tensor (or array) split on dim 0 into the stacked
+        layout ``[p, T/p, ...]`` on the mesh's device: row i is rank
+        i's shard, as ``P(axis)`` shards it in the JAX package."""
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        x = torch.as_tensor(x, device=self.device)
+        p = self.size
+        if x.dim() < 1 or x.shape[0] % p:
+            raise ValueError(f"MeshComm.run: dim 0 of shape "
+                             f"{tuple(x.shape)} does not split over "
+                             f"{p} ranks")
+        return x.reshape((p, x.shape[0] // p) + tuple(x.shape[1:]))
+
+    def run(self, fn: Callable, *args):
+        """Counterpart of the JAX ``MeshComm.run`` with its default specs
+        (``P(axis)`` in and out): split dim 0 of each global argument
+        over the ranks (:meth:`stack`), call ``fn`` once on the stacked
+        tensors, and concatenate every stacked result's ranks back on
+        dim 0. ``fn`` sees all ranks at once; it takes this comm where
+        the JAX function takes the axis name (close over it)."""
+        out = fn(*(self.stack(a) for a in args))
+
+        def unstack(y):
+            if y.dim() < 2 or y.shape[0] != self.size:
+                raise ValueError(f"MeshComm.run: result of shape "
+                                 f"{tuple(y.shape)} is not stacked over "
+                                 f"{self.size} ranks")
+            return y.reshape((-1,) + tuple(y.shape[2:]))
+        if isinstance(out, (tuple, list)):
+            return type(out)(unstack(y) for y in out)
+        return unstack(out)

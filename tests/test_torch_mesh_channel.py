@@ -533,3 +533,38 @@ def test_unsigned_collectives_match_jax(env, np_dtype):
     np.testing.assert_array_equal(
         mine[0][0], (data.astype(np.uint64).sum(0) % (info.max + 1))
         .astype(np_dtype))
+
+
+@pytest.mark.parametrize("forced", ["device", None])
+def test_bf16_allreduce_takes_the_reference_tier(env, monkeypatch, forced):
+    """A bfloat16 allreduce on the 1:1 channel goes where the JAX channel
+    sends it: ml_dtypes' bfloat16 (numpy kind 'V') does not lower, so
+    the JAX package takes its host tier, forced <COLL>_ALGO=device or
+    not, and the port, whose host tier is not ported, raises
+    NotImplementedError on every rank instead of running the ring."""
+    import jax.numpy as jnp
+    from mvapich2_tpu.coll import device as jax_device
+    env(**{f"{c}_ALGO": forced for c in _ALGOS})
+    data = np.random.default_rng(100).integers(
+        -8, 8, size=(NP, 8192)).astype(jnp.bfloat16)        # 16 KiB a rank
+    seen = []
+    select = jax_device._select_transport
+
+    def spy(*a, **kw):
+        seen.append(select(*a, **kw))
+        return seen[-1]
+    monkeypatch.setattr(jax_device, "_select_transport", spy)
+    ref = jax_run_ranks(NP, lambda comm: comm.allreduce(
+        data[comm.rank].copy()), device_mesh=jax_make_mesh(
+            (NP,), ("x",), jax.devices()[:NP]))
+    assert seen == ["host"] * NP
+    np.testing.assert_array_equal(np.asarray(ref[0], np.float32),
+                                  data.astype(np.float32).sum(0))
+    before = _counts()
+    with pytest.raises(RuntimeError) as ei:
+        run_ranks(NP, lambda c, ops: c.allreduce(torch.from_numpy(
+            data[c.rank].astype(np.float32)).to(torch.bfloat16)), top,
+            device_mesh=make_mesh((NP,), ("x",), "cpu"), timeout=30)
+    assert isinstance(ei.value.__cause__, NotImplementedError)
+    assert "bfloat16" in str(ei.value.__cause__)
+    assert _counts() == before

@@ -295,20 +295,38 @@ def test_device_tier_and_planned_tier_match_over_cvars(env):
                                     num_devices=p), key + (name, dt, op, p)
 
 
-def test_bf16_plans_differ_from_the_reference(env):
-    """A fault this slice leaves (ROADMAP queue 3): the JAX planned_tier
-    sends bfloat16 (numpy kind 'V') to the stock lowering, the port to
-    the ring kernels. In the quant bin both agree that it is not
-    quantized."""
-    for spec in ("", "5e-2"):
-        env(QUANT_COLL=spec, DEV_TIER_VMEM_MAX="64")
+def test_bf16_plans_match_the_reference(env):
+    """bfloat16 (ml_dtypes' numpy kind 'V' in the JAX package) is planned
+    as the JAX planners plan it: the allreduce and alltoall planners
+    send it to the stock lowering, the RMA planner to the epoch tier,
+    at every size and under every quant budget (the quant bin does not
+    quantize it either)."""
+    from mvapich2_tpu.ops import pallas_alltoall
+    from mvapich2_tpu_torch.ops import alltoall
+    for spec in ("", "5e-2", "q8:1e-1"):
+        env(QUANT_COLL=spec, DEV_TIER_VMEM_MAX="64", DEV_RMA_RDMA_MIN="0",
+            DEV_RMA_QUANT_MIN="0")
         for nb in (64, 4096, 1 << 20):
-            assert pallas_ici.planned_tier(
-                "allreduce", nb, jnp.bfloat16, "sum", interpret=True,
-                num_devices=4) == ("xla", "dtype")
-            tier = ici.planned_tier("allreduce", nb, torch.bfloat16, "sum",
-                                    num_devices=4)
-            assert tier == ("vmem" if nb <= 64 else "hbm", None)
+            for name, op in (("allreduce", "sum"), ("reduce", "max"),
+                             ("allgather", None)):
+                for p in (2, 4, 8):
+                    assert ici.planned_tier(
+                        name, nb, torch.bfloat16, op, num_devices=p) == \
+                        pallas_ici.planned_tier(
+                            name, nb, jnp.bfloat16, op, interpret=True,
+                            num_devices=p) == ("xla", "dtype"), \
+                        (spec, nb, name, p)
+            assert alltoall.planned_a2a_tier(nb, torch.bfloat16) == \
+                pallas_alltoall.planned_a2a_tier(
+                    nb, jnp.bfloat16, interpret=True) == ("xla", "dtype")
+            for kind in ("put", "get", "acc"):
+                for contig in (True, False):
+                    assert rma.planned_rma_tier(
+                        kind, nb, torch.bfloat16, contig, 8,
+                        count=nb // 2) == pallas_rma.planned_rma_tier(
+                            kind, nb, jnp.bfloat16, contig,
+                            interpret=True, num_devices=8,
+                            count=nb // 2), (spec, nb, kind, contig)
 
 
 def test_planned_rma_tier_quant_matches(env):
