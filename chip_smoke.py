@@ -23,6 +23,11 @@ non-zero, printing no result, without them. Phases:
    and wholly-past blocks, gcd-shrunk blocks, f32/bf16/f16, head widths
    16 to 256, and the attention paths' full-width launches), and the
    plain version with TF32 on, which must fall outside the tolerance;
+   then K4 (the ring reduce-scatter) bitwise on f32, i32 with the four
+   ops and bf16, small and ragged sizes, depth 2/3/4, one and two
+   directions, lines 1/2/4, the (2, 4) mesh's RS-x phase and 8 x 64 MiB
+   f32; K3 and K5 over 2 and 4 lines; K8 (sendrecv) bitwise on f32,
+   bf16, i32 and u8, an unaligned n, src == dst and 8 x 64 MiB;
 4. main path: 8 ranks (run_ranks) allreduce 64 MiB f32 tensors each on
    cuda:0 through the slot channel into K1, plus the small collectives,
    then the one-chip bench candidates (K1 and K2) at the same size; the
@@ -33,6 +38,18 @@ non-zero, printing no result, without them. Phases:
    allreduce, reduce, bcast, reduce_scatter_block, each checked; the
    ring kernels' launch counts are zeroed before it and read after, and
    the tier pvars checked;
+   fold path: the same 8 ranks over a 4-device virtual mesh, 2 ranks a
+   device (the fold channel): allreduce of 64 MiB (4 K1 + 1 K3 a call)
+   and 64 KiB (4 K1 + K6), a max (stock fold + K3), reduce, bcast from
+   root 5, allgathers of 1 MiB (K5) and 64 KiB (K7),
+   reduce_scatter_block, then one allreduce over a 2-device mesh;
+   multi-axis path: the 8 ranks 1:1 on a (2, 4) mesh: allreduce of 64 MiB
+   (2 K4 + 2 K5 a call) and 1 KiB (2 K3), allgather of 1 MiB (2 K5),
+   reduce_scatter_block (2 K4), bcast, a stock alltoall (no K10), a max,
+   then one allreduce on a (4, 2) mesh; each with its launch counts
+   zeroed just before and read after, the level and tier pvars checked
+   and every result held against the plain reduction; then K8, the
+   exchange a user calls, 3 times at 8 x 64 MiB;
 6. mesh alltoall path: the same binding, comm.alltoall of 64 MiB f32 a
    rank (K10) and comm.alltoallv of the MoE bench's hot routing at
    Mixtral-8x7B width, 4096 tokens x 4096 f32 a rank (K11), each held
@@ -66,9 +83,12 @@ non-zero, printing no result, without them. Phases:
    allreduce latency and effective bandwidth (2*R*m/t) of both paths;
    the end-to-end alltoall latency of the mesh path; the RMA kernels at
    64 MiB and the OSU band; K15 and K16 beside
-   scaled_dot_product_attention on the same blocks;
+   scaled_dot_product_attention on the same blocks; K4 at 8 x 64 MiB and
+   as the (2, 4) RS-x phase, K8 at 8 x 64 MiB, and the e2e latency of
+   the fold and (2, 4) allreduces beside the 1-D mesh call;
 11. profiles: one MoE step of each routing shape, one fence of 32 RMA
-   ops (put, get, accumulate at 1 KiB and 4 MiB), and one call of each
+   ops (put, get, accumulate at 1 KiB and 4 MiB), one 64 MiB allreduce
+   on the 1-D mesh, the fold and the (2, 4) mesh, and one call of each
    attention path, under torch.profiler: device time by kernel group
    and the idle share.
 
@@ -98,6 +118,9 @@ HALF_TOL = dict(rtol=1e-2, atol=1e-2)  # 16-bit floats: one rounding of an f32 s
 # cores (TFLOP/s); the reductions here are far below it
 F32_PEAK_TFLOPS = 67.0
 SOURCES = ("hbm_slot", "ring", "flash")   # mvapich2_tpu_torch/csrc/<name>.cu
+# ring kernels whose registers and spills [build] prints
+REG_REPORT = ("hbm_ring_all_reduce", "hbm_ring_reduce_scatter",
+              "hbm_ring_all_gather", "remote_sendrecv")
 RMA_KINDS = ("f32", "bf16", "f16", "i32", "i8", "u8", "u16", "u32")
 # integer kinds compared bit for bit; uint16/uint32 have their plain
 # versions run on the CPU (torch's CUDA build implements few operations
@@ -162,14 +185,18 @@ def phase_build(_build):
         regs = [ln.strip() for ln in lines if "registers" in ln]
         log(f"[build] {name}.cu: {len(regs)} kernel instantiations "
             f"(ptxas e.g.: {regs[0] if regs else 'n/a'})")
-        # the quant kernels' residency: registers and spills an entry
+        # the residency of the quant kernels and of the f32 sum
+        # instances of K3/K4/K5 and K8: registers and spills an entry
         entry = None
         for ln in lines:
             if "Compiling entry function" in ln:
                 entry = ln.split("'")[1] if "'" in ln else ln
-            elif entry and "quant" in entry and ("registers" in ln
-                                                 or "spill" in ln):
-                log(f"[build] {entry[:60]}: {ln.strip()}")
+            elif entry and ("registers" in ln or "spill" in ln):
+                kern = [k for k in REG_REPORT if k in entry]
+                if "quant" in entry or (kern and ("IfLi0E" in entry
+                                                  or "IjE" in entry)):
+                    log(f"[build] {(kern or [entry[:60]])[0]}: "
+                        f"{ln.strip()}")
     log(f"[build] built and loaded {', '.join(SOURCES)} in {dt:.2f} s")
     return dt
 
@@ -381,6 +408,150 @@ def phase_ring_kernels(torch, np, ici, ring, dev):
                   ring.ring_all_gather_ref(xs), kind, "K7" if full else None)
     log(f"[kernels] {n_checks} ring kernel-vs-plain checks passed "
         f"(full-size f32 max abs err: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in full_err.items()) + ")")
+    return full_err
+
+
+def phase_rs_kernels(torch, np, ici, ring, dev):
+    """K4 and K8, and K3/K5 over several lines, against their plain
+    versions, bitwise: K4 on normal f32, i32 with the four ops and bf16,
+    small and ragged sizes (n % p != 0, a short last chunk, one chunk
+    smaller than the block), depth 2/3/4, one and two ring directions,
+    lines 1, 2 and 4, the (2, 4) mesh's RS-x phase and 8 x 64 MiB f32;
+    K3 and K5 with lines 2 and 4; every K4/K5 phase of the (2, 4) and
+    (4, 2) programs and every K3/K5/K6/K7 ring of the fold path at the
+    shapes the paths give them; K8 on f32, bf16, i32 and u8, an n that
+    is no multiple of 16 bytes, src == dst, 8 x 64 MiB. Returns the max
+    abs error of the full-size f32 checks (K4, K8)."""
+    rng = np.random.default_rng(SEED + 500)
+    n_checks = 0
+    full_err = {}
+
+    def check(what, got, want, key=None):
+        nonlocal n_checks
+        torch.cuda.synchronize()
+        ring.check_errors()
+        err = _compare(torch, what, got, want, "i32")      # bitwise
+        n_checks += 1
+        if key:
+            full_err[key] = err
+
+    # K4: small and ragged, every op on i32, f32 and bf16 sums
+    for p, n, cb in ((8, 64, 64), (8, 37, 16), (3, 10, 16), (2, 9, 16),
+                     (8, 1000, 64), (4, 1025, 256), (8, 4096, None)):
+        for kind in ("f32", "i32", "bf16"):
+            xs = _shards(torch, np, rng, p, n, kind, dev)
+            for op in (("sum", "max", "min", "prod") if kind == "i32"
+                       else ("sum",)):
+                for bidir in (True, False):
+                    check(f"K4 p={p} n={n} {kind} {op} bidir={bidir}",
+                          ici.hbm_ring_reduce_scatter(
+                              xs, op, chunk_bytes=cb, bidirectional=bidir),
+                          ici.hbm_ring_reduce_scatter_ref(
+                              xs, op, bidirectional=bidir))
+    # K4 depth / direction / lines at a size of many chunks
+    for n in (100003, 8 * 3584):
+        for kind in ("f32", "i32"):
+            xs = _shards(torch, np, rng, R, n, kind, dev)
+            for lines in (1, 2, 4):
+                for depth in ((2, 3, 4) if lines == 1 else (2,)):
+                    for bidir in (True, False):
+                        check(f"K4 n={n} {kind} lines={lines} "
+                              f"depth={depth} bidir={bidir}",
+                              ici.hbm_ring_reduce_scatter(
+                                  xs, chunk_bytes=4096, depth=depth,
+                                  bidirectional=bidir, lines=lines),
+                              ici.hbm_ring_reduce_scatter_ref(
+                                  xs, bidirectional=bidir, lines=lines))
+    # K3 and K5 over lines
+    for lines in (2, 4):
+        for kind in ("f32", "i32"):
+            xs = _shards(torch, np, rng, R, 100003, kind, dev)
+            for op in ("sum", "max"):
+                check(f"K3 lines={lines} {kind} {op}",
+                      ici.hbm_ring_all_reduce(xs, op, chunk_bytes=4096,
+                                              lines=lines),
+                      ici.hbm_ring_all_reduce_ref(xs, op, lines=lines))
+        for kind in ("f32", "i8"):
+            for m in (13, 100003):
+                xs = _shards(torch, np, rng, R, m, kind, dev)
+                check(f"K5 lines={lines} m={m} {kind}",
+                      ici.hbm_ring_all_gather(xs, chunk_bytes=4096,
+                                              lines=lines),
+                      ici.hbm_ring_all_gather_ref(xs, lines=lines))
+    # full size: 1-D, and the (2, 4) mesh's RS-x phase (4 lines of 2)
+    xs = _shards(torch, np, rng, R, N, "f32", dev)
+    check("K4 8 x 64 MiB f32", ici.hbm_ring_reduce_scatter(xs),
+          ici.hbm_ring_reduce_scatter_ref(xs), "K4")
+    rsx = [xs[i] for i in (0, 4, 1, 5, 2, 6, 3, 7)]
+    check("K4 8 x 64 MiB f32, (2, 4) RS-x",
+          ici.hbm_ring_reduce_scatter(rsx, lines=4),
+          ici.hbm_ring_reduce_scatter_ref(rsx, lines=4))
+    del rsx
+
+    def mesh_phases(what, axes, y, op=None):
+        """Every phase of a multi-axis program at the path's shapes and
+        line orders, each fed the kernel output of the phase before:
+        reduce-scatter down the axes (K4) when ``op`` is set, then
+        all-gather back up (K5)."""
+        steps = [(k, "K4", ici.hbm_ring_reduce_scatter,
+                  ici.hbm_ring_reduce_scatter_ref, dict(op=op))
+                 for k in (range(len(axes)) if op else ())]
+        steps += [(k, "K5", ici.hbm_ring_all_gather,
+                   ici.hbm_ring_all_gather_ref, {})
+                  for k in reversed(range(len(axes)))]
+        for k, name, kern, plain, kw in steps:
+            got = ici._axis_phase(y, axes, k, lambda sh, lines: kern(
+                sh, lines=lines, **kw))
+            want = ici._axis_phase(y, axes, k, lambda sh, lines: plain(
+                sh, lines=lines, **kw))
+            check(f"{name} {what} phase {axes[k][0]}: "
+                  f"{len(y) // axes[k][1]} lines of {axes[k][1]}, "
+                  f"{y[0].numel()} elements a rank",
+                  torch.stack(got), torch.stack(want))
+            del want
+            y = got
+    # the multi-axis path's phases: the 64 MiB allreduce (and
+    # reduce_scatter_block) on (2, 4) and (4, 2), the 64 MiB max, the
+    # 1 MiB allgather
+    xy = (("x", 2), ("y", 4))
+    mesh_phases("(2, 4) allreduce", xy, xs, "sum")
+    mesh_phases("(2, 4) max", xy, xs, "max")
+    mesh_phases("(4, 2) allreduce", (("x", 4), ("y", 2)), xs, "sum")
+    mesh_phases("(2, 4) allgather", xy,
+                _shards(torch, np, rng, R, AG_MESH, "f32", dev))
+    # the fold path's rings over the chip shards: 4 chips (K3 sum and max
+    # at 64 MiB, K6 at 64 KiB, K7 and K5 on 2 ranks' gathered slots),
+    # 2 chips (K3)
+    for p in (4, 2):
+        for op in (("sum", "max") if p == 4 else ("sum",)):
+            check(f"K3 fold p={p} 64 MiB f32 {op}",
+                  ici.hbm_ring_all_reduce(xs[:p], op),
+                  ici.hbm_ring_all_reduce_ref(xs[:p], op))
+    sm = _shards(torch, np, rng, 4, 2 * SMALL_MESH, "f32", dev)
+    check("K6 fold p=4 64 KiB f32", ring.ring_all_reduce(
+        [x[:SMALL_MESH] for x in sm]),
+        ring.ring_all_reduce_ref([x[:SMALL_MESH] for x in sm]))
+    check("K7 fold p=4 128 KiB f32", ring.ring_all_gather(sm),
+          ring.ring_all_gather_ref(sm))
+    ag = _shards(torch, np, rng, 4, 2 * AG_MESH, "f32", dev)
+    check("K5 fold p=4 2 MiB f32", ici.hbm_ring_all_gather(ag),
+          ici.hbm_ring_all_gather_ref(ag))
+    del sm, ag
+    # K8
+    for p, n in ((8, 64), (8, 37), (3, 1000), (8, 100003)):
+        for kind in ("f32", "bf16", "i32", "u8"):
+            xs = _shards(torch, np, rng, p, n, kind, dev)
+            for src, dst in ((p - 1, 0), (1, p - 2), (1, 1)):
+                got = ici.remote_sendrecv(xs, src, dst)
+                check(f"K8 p={p} n={n} {kind} {src}<->{dst}", got,
+                      ici.remote_sendrecv_ref(xs, src, dst))
+    check("K8 8 x 64 MiB f32", ici.remote_sendrecv(xs := _shards(
+        torch, np, rng, R, N, "f32", dev), 2, 5),
+        ici.remote_sendrecv_ref(xs, 2, 5), "K8")
+    del xs
+    log(f"[kernels] {n_checks} K4/K8/lines kernel-vs-plain checks passed, "
+        f"bitwise (full-size f32 max abs err: "
         + ", ".join(f"{k} {v:.3g}" for k, v in full_err.items()) + ")")
     return full_err
 
@@ -718,6 +889,7 @@ def phase_mesh(torch, np, mvt, ici, ring, mpit, opmod, dev, inputs):
     want_launches = {"hbm_ring_all_reduce": n_big + 1,      # + the max
                      "hbm_ring_all_gather": 1,
                      "quant_ring_all_reduce": 0,
+                     "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0,
                      "ring_all_reduce": n_warm + n_timed + 2,  # + 64 KiB, reduce
                      "ring_all_gather": 1}
     if launches != want_launches:
@@ -765,6 +937,300 @@ def phase_mesh(torch, np, mvt, ici, ring, mpit, opmod, dev, inputs):
         f"in {wall:.2f} s; results checked (max abs err {err:.3g}); "
         f"launches {launches}; tier pvars {delta}")
     return launches, res[0][1]
+
+
+def _ar_lat(comm, torch, me, n_warm, n_timed):
+    """Host-clock latency of ``n_timed`` allreduces of ``me`` after
+    ``n_warm``, each ended by a stream synchronize."""
+    stream = torch.cuda.current_stream()
+    for _ in range(n_warm):
+        comm.allreduce(me)
+    lat = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        comm.allreduce(me)
+        stream.synchronize()
+        lat.append(time.perf_counter() - t0)
+    return lat
+
+
+def _zero(*mods):
+    for m in mods:
+        m.reset_counts()
+
+
+def _launches(*mods):
+    out = {}
+    for m in mods:
+        out.update(m.LAUNCHES)
+    return out
+
+
+def _want(mods, **nonzero):
+    """Every kernel of ``mods`` at 0 launches but those named."""
+    want = dict.fromkeys(_launches(*mods), 0)
+    want.update(nonzero)
+    return want
+
+
+def _check_launches(what, mods, want):
+    got = _launches(*mods)
+    if got != want:
+        raise AssertionError(f"[{what}] launches {got}, expected {want}")
+    return got
+
+
+def _check_pvars(mpit, what, before, want):
+    delta = {k: mpit.pvar(k).read() - before[k] for k in want}
+    if delta != want:
+        raise AssertionError(f"[{what}] pvars moved by {delta}, expected "
+                             f"{want}")
+    return delta
+
+
+COLL_PVARS = ("dev_coll_tier_vmem", "dev_coll_tier_hbm",
+              "dev_coll_tier_quant", "dev_coll_fallback_size",
+              "dev_coll_fallback_dtype", "coll_level_chip",
+              "coll_level_ici")
+
+
+def phase_fold(torch, np, mvt, ici, ring, hbm, a2a, mpit, opmod, dev,
+               inputs):
+    """The fold path: run_ranks(8) over a 4-device virtual mesh on cuda:0,
+    2 ranks a device (DeviceFoldChannel). Allreduce of 64 MiB f32 a rank
+    (4 K1 + 1 K3 a call), of 64 KiB (4 K1 + K6), a 64 MiB max (stock
+    fold + K3), a 64 KiB reduce (4 K1 + K6), bcast from root 5,
+    allgathers of 1 MiB (K5) and 64 KiB (K7) a rank, reduce_scatter_block
+    (4 K1 + stock); then one 64 MiB allreduce over a 2-device mesh
+    (2 K1 + K3). The counts are zeroed just before each run and read
+    after it, the level and tier pvars checked, every result held
+    against the plain reduction. Returns (launches of the 4-device run,
+    e2e latencies in s)."""
+    mods = (ici, ring, hbm, a2a)
+    mesh = mvt.make_mesh((4,), ("x",), dev)
+    rng = np.random.default_rng(SEED + 600)
+    small = [_data(torch, np, rng, (SMALL_MESH,), "f32int", dev)
+             for _ in range(R)]
+    ag_big = [_data(torch, np, rng, (AG_MESH,), "f32int", dev)
+              for _ in range(R)]
+    n_check, n_warm, n_timed = 2, 1, 5
+    tiny = 1024
+
+    def app(comm):
+        r = comm.rank
+        me = inputs[r]
+        outs = [comm.allreduce(me) for _ in range(n_check)]
+        lat = _ar_lat(comm, torch, me, n_warm, n_timed)
+        base = torch.arange(tiny, dtype=torch.float32, device=dev)
+        res = (comm.allreduce(small[r]),
+               comm.allreduce(me, op=opmod.MAX),
+               comm.reduce(small[r], root=3),
+               comm.bcast(base * 3 if r == 5 else torch.zeros_like(base),
+                          root=5),
+               comm.allgather(ag_big[r]), comm.allgather(small[r]),
+               comm.reduce_scatter_block(
+                   torch.arange(R * 5, dtype=torch.float32, device=dev) + r))
+        torch.cuda.current_stream().synchronize()
+        return outs, lat, res
+
+    before = {k: mpit.pvar(k).read() for k in COLL_PVARS}
+    _zero(*mods)
+    t0 = time.perf_counter()
+    res = mvt.run_ranks(R, app, device_mesh=mesh)
+    torch.cuda.synchronize()
+    ring.check_errors()
+    wall = time.perf_counter() - t0
+    n_big = n_check + n_warm + n_timed
+    launches = _check_launches("fold", mods, _want(
+        mods, fused_reduce_to_slot=4 * (n_big + 3),
+        hbm_ring_all_reduce=n_big + 1, ring_all_reduce=2,
+        hbm_ring_all_gather=1, ring_all_gather=1))
+    n_calls = n_big + 7
+    delta = _check_pvars(mpit, "fold", before, {
+        "dev_coll_tier_vmem": R * 3, "dev_coll_tier_hbm": R * (n_big + 2),
+        "dev_coll_tier_quant": 0, "dev_coll_fallback_size": 0,
+        "dev_coll_fallback_dtype": 0, "coll_level_chip": R * n_calls,
+        "coll_level_ici": R * n_calls})
+    want = torch.stack(inputs).sum(0)
+    err = 0.0
+    for i in range(n_check):
+        got = [res[r][0][i] for r in range(R)]
+        for r in range(0, R, 2):
+            if got[r] is not got[r + 1]:
+                raise AssertionError("fold allreduce: the ranks of a device "
+                                     "do not share its output")
+        if len({g.data_ptr() for g in got}) != 4:
+            raise AssertionError("fold allreduce: devices share an output")
+        for g in got[::2]:
+            if g.shape != (N,) or not torch.isfinite(g).all():
+                raise AssertionError("fold allreduce result has the wrong "
+                                     "shape or non-finite values")
+            err = max(err, _compare(torch, f"fold allreduce call {i}", g,
+                                    want, "f32"))
+    a = torch.arange(tiny, dtype=torch.float32, device=dev)
+    want_max = torch.stack(inputs).amax(0)
+    want_sm = torch.stack(small).sum(0)
+    for r in range(R):
+        sm, mx, red, b, agb, ags, rsb = res[r][2]
+        _compare(torch, "fold 64 KiB allreduce", sm, want_sm, "f32int")
+        _compare(torch, "fold 64 MiB max", mx, want_max, "f32int")
+        if r == 3:
+            _compare(torch, "fold reduce", red, want_sm, "f32int")
+        _compare(torch, "fold bcast", b, a * 3, "f32int")
+        _compare(torch, "fold 1 MiB allgather", agb, torch.cat(ag_big),
+                 "f32int")
+        _compare(torch, "fold 64 KiB allgather", ags, torch.cat(small),
+                 "f32int")
+        _compare(torch, "fold reduce_scatter_block", rsb,
+                 (torch.arange(r * 5, r * 5 + 5, dtype=torch.float32,
+                               device=dev) * R + sum(range(R))), "f32int")
+    # one allreduce over a 2-device mesh: k = 4
+    _zero(*mods)
+    two = mvt.run_ranks(R, lambda comm: comm.allreduce(inputs[comm.rank]),
+                        device_mesh=mvt.make_mesh((2,), ("x",), dev))
+    torch.cuda.synchronize()
+    ring.check_errors()
+    two_launches = _check_launches("fold 2-device", mods, _want(
+        mods, fused_reduce_to_slot=2, hbm_ring_all_reduce=1))
+    for g in two[::4]:
+        err = max(err, _compare(torch, "fold 2-device allreduce", g, want,
+                                "f32"))
+    log(f"[fold] run_ranks({R}, device_mesh={mesh}): {n_big} allreduces of "
+        f"64 MiB f32, 64 KiB allreduce, 64 MiB max, reduce, bcast, 1 MiB "
+        f"and 64 KiB allgathers, reduce_scatter_block in {wall:.2f} s; "
+        f"results checked (max abs err {err:.3g}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; pvars {delta}; "
+        f"2-device mesh: launches "
+        f"{ {k: v for k, v in two_launches.items() if v} }")
+    return launches, res[0][1]
+
+
+def phase_mesh2d(torch, np, mvt, ici, ring, hbm, a2a, mpit, opmod, dev,
+                 inputs):
+    """The multi-axis path: run_ranks(8) bound one to one to a (2, 4) mesh
+    ("x", "y") on cuda:0. Allreduce of 64 MiB f32 a rank (RS-x, RS-y,
+    AG-y, AG-x: 2 K4 + 2 K5 a call), of 1 KiB (below DEV_TIER_AXES_MIN:
+    one K3 an axis), an allgather of 1 MiB a rank (2 K5),
+    reduce_scatter_block of 64 MiB (2 K4), bcast from root 5, alltoall of
+    64 KiB (the stock lowering: no K10) and a 64 MiB max (2 K4 + 2 K5);
+    then one 64 MiB allreduce on a (4, 2) mesh. The counts are zeroed
+    just before each run and read after it, the tier pvars checked,
+    every result held against the plain reduction. Returns (launches of
+    the (2, 4) run, e2e latencies in s)."""
+    mods = (ici, ring, hbm, a2a)
+    mesh = mvt.make_mesh((2, 4), ("x", "y"), dev)
+    rng = np.random.default_rng(SEED + 700)
+    small = [_data(torch, np, rng, (SMALL_MESH,), "f32int", dev)
+             for _ in range(R)]
+    ag_big = [_data(torch, np, rng, (AG_MESH,), "f32int", dev)
+              for _ in range(R)]
+    n_check, n_warm, n_timed = 2, 1, 5
+    tiny = 256
+
+    def app(comm):
+        r = comm.rank
+        me = inputs[r]
+        outs = [comm.allreduce(me) for _ in range(n_check)]
+        lat = _ar_lat(comm, torch, me, n_warm, n_timed)
+        base = torch.arange(tiny, dtype=torch.float32, device=dev)
+        res = (comm.allreduce(base + r), comm.allgather(ag_big[r]),
+               comm.reduce_scatter_block(me),
+               comm.bcast(base * 3 if r == 5 else torch.zeros_like(base),
+                          root=5),
+               comm.alltoall(small[r]), comm.allreduce(me, op=opmod.MAX))
+        torch.cuda.current_stream().synchronize()
+        return outs, lat, res
+
+    # the alltoall's tier, as the channel plans it for its send bytes
+    tier, reason = a2a.planned_a2a_tier(SMALL_MESH * 4, torch.float32)
+    a2a_pvar = (f"dev_coll_tier_{tier}" if reason is None
+                else f"dev_coll_fallback_{reason}")
+    before = {k: mpit.pvar(k).read() for k in COLL_PVARS + (a2a_pvar,)}
+    _zero(*mods)
+    t0 = time.perf_counter()
+    res = mvt.run_ranks(R, app, device_mesh=mesh)
+    torch.cuda.synchronize()
+    ring.check_errors()
+    wall = time.perf_counter() - t0
+    n_big = n_check + n_warm + n_timed
+    launches = _check_launches("mesh2d", mods, _want(
+        mods, hbm_ring_reduce_scatter=2 * (n_big + 1) + 2,
+        hbm_ring_all_gather=2 * (n_big + 1) + 2, hbm_ring_all_reduce=2))
+    want_pv = {"dev_coll_tier_vmem": R, "dev_coll_tier_hbm": R * (n_big + 2),
+               "dev_coll_tier_quant": 0, "dev_coll_fallback_size": 0,
+               "dev_coll_fallback_dtype": 0, "coll_level_chip": 0,
+               "coll_level_ici": R * (n_big + 6)}
+    want_pv[a2a_pvar] = want_pv.get(a2a_pvar, 0) + R
+    delta = _check_pvars(mpit, "mesh2d", before, want_pv)
+    want = torch.stack(inputs).sum(0)
+    err = 0.0
+    for i in range(n_check):
+        got = [res[r][0][i] for r in range(R)]
+        if len({g.data_ptr() for g in got}) != R:
+            raise AssertionError("mesh2d allreduce: ranks share an output")
+        for g in got:
+            if g.shape != (N,) or not torch.isfinite(g).all():
+                raise AssertionError("mesh2d allreduce result has the wrong "
+                                     "shape or non-finite values")
+            err = max(err, _compare(torch, f"mesh2d allreduce call {i}", g,
+                                    want, "f32"))
+    a = torch.arange(tiny, dtype=torch.float32, device=dev)
+    want_max = torch.stack(inputs).amax(0)
+    blk = N // R
+    want_a2a = torch.stack(small).reshape(R, R, -1)
+    for r in range(R):
+        t, agb, rsb, b, a2, mx = res[r][2]
+        _compare(torch, "mesh2d 1 KiB allreduce", t, a * R + sum(range(R)),
+                 "f32int")
+        _compare(torch, "mesh2d 1 MiB allgather", agb, torch.cat(ag_big),
+                 "f32int")
+        err = max(err, _compare(torch, "mesh2d reduce_scatter_block", rsb,
+                                want[r * blk:(r + 1) * blk], "f32"))
+        _compare(torch, "mesh2d bcast", b, a * 3, "f32int")
+        _compare(torch, "mesh2d alltoall", a2,
+                 want_a2a[:, r].reshape(-1), "f32int")
+        _compare(torch, "mesh2d 64 MiB max", mx, want_max, "f32int")
+    # one allreduce on a (4, 2) mesh
+    _zero(*mods)
+    other = mvt.run_ranks(R, lambda comm: comm.allreduce(inputs[comm.rank]),
+                          device_mesh=mvt.make_mesh((4, 2), ("x", "y"), dev))
+    torch.cuda.synchronize()
+    ring.check_errors()
+    other_launches = _check_launches("mesh2d (4, 2)", mods, _want(
+        mods, hbm_ring_reduce_scatter=2, hbm_ring_all_gather=2))
+    for g in other:
+        err = max(err, _compare(torch, "(4, 2) allreduce", g, want, "f32"))
+    log(f"[mesh2d] run_ranks({R}, device_mesh={mesh}): {n_big} allreduces "
+        f"of 64 MiB f32, 1 KiB allreduce, 1 MiB allgather, 64 MiB "
+        f"reduce_scatter_block, bcast, 64 KiB alltoall, 64 MiB max in "
+        f"{wall:.2f} s; results checked (max abs err {err:.3g}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; pvars {delta}; "
+        f"(4, 2) mesh: launches "
+        f"{ {k: v for k, v in other_launches.items() if v} }")
+    return launches, res[0][1]
+
+
+def phase_sendrecv(torch, ici, ring, dev, inputs):
+    """The exchange a user calls: ici.remote_sendrecv on the 8 ranks' 64
+    MiB f32 shards, ranks 2 and 5 swapping (K8, 3 calls; the JAX package
+    has no caller of its own). The counts are zeroed just before and read
+    after; each result is held against the swapped inputs. Returns the
+    launch counts."""
+    _zero(ici, ring)
+    outs = [ici.remote_sendrecv(inputs, 2, 5) for _ in range(3)]
+    torch.cuda.synchronize()
+    ring.check_errors()
+    launches = _check_launches("sendrecv", (ici, ring),
+                               _want((ici, ring), remote_sendrecv=3))
+    part = list(range(R))
+    part[2], part[5] = 5, 2
+    for out in outs:
+        for r in range(R):
+            _compare(torch, f"sendrecv row {r}", out[r], inputs[part[r]],
+                     "f32int")
+    log(f"[sendrecv] 3 exchanges of 8 x 64 MiB f32 (2 <-> 5): launches "
+        f"{ {k: v for k, v in launches.items() if v} }; rows checked")
+    return launches
 
 
 def phase_mesh_a2a(torch, np, mvt, a2a, ring, mpit, moe, dev):
@@ -1174,6 +1640,87 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
     return kernels, extra
 
 
+def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
+                   full_err, lat):
+    """K4 and K8 at the main path's 8 x 64 MiB f32, by CUDA events, each
+    beside its bound, its schedule bound, its plain version and the
+    library call (K4: torch.stack(x).sum(0), whose blocks are the ranks'
+    outputs; K8: torch.stack by partner index); K4 also as the (2, 4)
+    mesh's RS-x phase (4 lines of 2). Then the host-clock latency of the
+    fold and (2, 4) allreduces of 64 MiB beside the 1-D mesh call."""
+    bw = info.hbm_bw_gbps * 1e9
+    p, m = R, N * 4
+
+    def bound(nbytes, flops):
+        tb, to = nbytes / bw * 1e3, flops / (F32_PEAK_TFLOPS * 1e12) * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    part = list(range(p))
+    part[2], part[5] = 5, 2
+    rsx = [inputs[i] for i in (0, 4, 1, 5, 2, 6, 3, 7)]
+    k4_ms = timing.time_ms(lambda: ici.hbm_ring_reduce_scatter(inputs))
+    k4_plain = timing.time_ms(
+        lambda: ici.hbm_ring_reduce_scatter_ref(inputs), warmup=1, iters=5)
+    k4_lib = timing.time_ms(lambda: torch.stack(inputs).sum(0))
+    k4x_ms = timing.time_ms(
+        lambda: ici.hbm_ring_reduce_scatter(rsx, lines=4))
+    k4x_plain = timing.time_ms(
+        lambda: ici.hbm_ring_reduce_scatter_ref(rsx, lines=4), warmup=1,
+        iters=5)
+    k4x_lib = timing.time_ms(
+        lambda: torch.stack(inputs).reshape(2, 4, N).sum(0))
+    k8_ms = timing.time_ms(lambda: ici.remote_sendrecv(inputs, 2, 5))
+    k8_plain = timing.time_ms(lambda: ici.remote_sendrecv_ref(inputs, 2, 5))
+    k8_lib = timing.time_ms(lambda: torch.stack([inputs[j] for j in part]))
+    ring.check_errors()
+    # K4: read p inputs, write p blocks of m/p; (p-1) adds an element of
+    # the folded array. The RS-x phase: 4 pairs, each output half a shard
+    k4_b, k4_by = bound(p * m + m, (p - 1) * N)
+    k4x_b, k4x_by = bound(p * m + p * m // 2, 4 * N)
+    k8_b, k8_by = bound(2 * p * m, 0)
+    k4_sched = p * (p - 1) * 5 * m / p
+    k4x_sched = p * 5 * m / 2
+    kernels = [
+        {"name": "hbm_ring_reduce_scatter", "route": "cuda",
+         "source": "mvapich2_tpu_torch/csrc/ring.cu",
+         "replaces": "mvapich2_tpu/ops/pallas_ici.py:580",
+         "launches": launches["hbm_ring_reduce_scatter"],
+         "max_abs_err": full_err["K4"], "ms": k4_ms, "plain_ms": k4_plain,
+         "bound_ms": k4_b, "bound_by": k4_by, "library_ms": k4_lib,
+         "schedule_bound_ms": k4_sched / bw * 1e3,
+         "schedule_bytes": "p*(p-1)*5m/p: a step reads and writes m/p "
+                           "through the slot and reads the input and "
+                           "writes m/p at the fold"},
+        {"name": "remote_sendrecv", "route": "cuda",
+         "source": "mvapich2_tpu_torch/csrc/ring.cu",
+         "replaces": "mvapich2_tpu/ops/pallas_ici.py:642",
+         "launches": launches["remote_sendrecv"],
+         "max_abs_err": full_err["K8"], "ms": k8_ms, "plain_ms": k8_plain,
+         "bound_ms": k8_b, "bound_by": k8_by, "library_ms": k8_lib,
+         "schedule_bound_ms": k8_b,
+         "schedule_bytes": "2pm: every shard read once, every row written "
+                           "once"},
+    ]
+    med = {k: statistics.median(v) * 1e3 for k, v in lat.items()}
+    extra = {"k4_rs_x_ms": k4x_ms, "k4_rs_x_plain_ms": k4x_plain,
+             "k4_rs_x_library_ms": k4x_lib, "k4_rs_x_bound_ms": k4x_b,
+             "k4_rs_x_schedule_bound_ms": k4x_sched / bw * 1e3,
+             **{f"{k}_e2e_allreduce_ms": v for k, v in med.items()},
+             **{f"{k}_e2e_allreduce_ms_all": [t * 1e3 for t in v]
+                for k, v in lat.items()}}
+    log("[times] " + "; ".join(
+        f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}, "
+        f"schedule bound {k['schedule_bound_ms']:.4f}, plain "
+        f"{k['plain_ms']:.4f}, library {k['library_ms']:.4f}), launches "
+        f"{k['launches']}" for k in kernels)
+        + f"; K4 as the (2, 4) RS-x phase {k4x_ms:.4f} ms (bound "
+        f"{k4x_b:.4f}, schedule bound {k4x_sched / bw * 1e3:.4f}, plain "
+        f"{k4x_plain:.4f}, library {k4x_lib:.4f})")
+    log("[times] e2e allreduce 64 MiB f32 (median): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in med.items()))
+    return kernels, extra
+
+
 def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
                     full_err, dev):
     """K10 and K11 at the shapes the mesh path gives them (64 MiB f32 a
@@ -1465,7 +2012,8 @@ def phase_quant(torch, np, mvt, quant, ici, ring, mpit, opmod, cfg, dev,
         wall = time.perf_counter() - t0
         launches = dict(ici.LAUNCHES)
         want_l = {"hbm_ring_all_reduce": 2, "hbm_ring_all_gather": n_q + 1,
-                  "quant_ring_all_reduce": n_q}
+                  "quant_ring_all_reduce": n_q,
+                  "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0}
         if launches != want_l or any(ring.LAUNCHES.values()) or \
                 any(ici.PLAIN_CALLS.values()):
             raise AssertionError(f"[quant] {spec}: launches {launches} "
@@ -2036,6 +2584,50 @@ def phase_attn_profile(torch, ra, ul, lat, data):
     return split
 
 
+HIER_GROUPS = (("slot_reduce", "K1"), ("ring_reduce_scatter", "K4"),
+               ("ring_all_gather", "K5"), ("hbm_ring_all_reduce", "K3"))
+
+
+def phase_hier_profile(torch, mvt, dev, inputs, lat):
+    """One 64 MiB f32 allreduce on each of the 1-D mesh, the 4-device
+    fold and the (2, 4) mesh, each under torch.profiler (rank threads
+    included): device time by kernel (K1, K3, K4, K5; other: the stacks,
+    pads and counter fills around them), and the idle share against the
+    path's unprofiled median call (1 - busy / median). Run last, as the
+    other profiles."""
+    from torch.profiler import ProfilerActivity, profile
+    meshes = {"mesh_1d": ((R,), ("x",)), "fold": ((4,), ("x",)),
+              "mesh2d": ((2, 4), ("x", "y"))}
+    split = {}
+    for name, (shape, axes) in meshes.items():
+        mesh = mvt.make_mesh(shape, axes, dev)
+
+        def app(comm):
+            comm.allreduce(inputs[comm.rank])
+            torch.cuda.current_stream().synchronize()
+        mvt.run_ranks(R, app, device_mesh=mesh)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mvt.run_ranks(R, app, device_mesh=mesh)
+            torch.cuda.synchronize()
+        groups = dict.fromkeys([g for _, g in HIER_GROUPS] + ["other"], 0.0)
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                g = next((g for k, g in HIER_GROUPS if k in ev.key),
+                         "other")
+                groups[g] += ev.self_device_time_total
+        busy = sum(groups.values())
+        if not busy:
+            split[name] = "not measured (no device activity profiled)"
+            continue
+        split[name] = {**groups, "busy_us": busy, "idle_share":
+                       1 - busy / (statistics.median(lat[name]) * 1e6)}
+    log(f"[hier] device time of one 64 MiB allreduce, us (torch.profiler):"
+        f" {split}")
+    return split
+
+
 def phase_sweep(torch, ici, ring, tuning, timing, dev):
     """The ring kernels' launch-shape sweep (``--sweep``): K3 at 8 ranks
     x 64 MiB f32 over threads per block x blocks per SM x chunk bytes x
@@ -2130,6 +2722,7 @@ def main(argv=None):
         return 0
     full_err = phase_kernels(torch, np, hbm, dev)
     full_err.update(phase_ring_kernels(torch, np, ici, ring, dev))
+    full_err.update(phase_rs_kernels(torch, np, ici, ring, dev))
     full_err.update(phase_a2a_kernels(torch, np, alltoall, ring, moe, dev))
     full_err.update(phase_rma_kernels(torch, np, rma, ring, dev))
     full_err.update(phase_quant_kernels(torch, np, quant, ici, rma, ring,
@@ -2139,6 +2732,11 @@ def main(argv=None):
         torch, np, mvt, hbm, opmod, dev)
     mesh_launches, mesh_lat = phase_mesh(torch, np, mvt, ici, ring, mpit,
                                          opmod, dev, inputs)
+    fold_launches, fold_lat = phase_fold(torch, np, mvt, ici, ring, hbm,
+                                         alltoall, mpit, opmod, dev, inputs)
+    mesh2d_launches, mesh2d_lat = phase_mesh2d(
+        torch, np, mvt, ici, ring, hbm, alltoall, mpit, opmod, dev, inputs)
+    k8_launches = phase_sendrecv(torch, ici, ring, dev, inputs)
     a2a_launches, a2a_lat = phase_mesh_a2a(torch, np, mvt, alltoall, ring,
                                            mpit, moe, dev)
     moe_art = phase_moe(torch, moe, alltoall, ring, dev)
@@ -2154,6 +2752,11 @@ def main(argv=None):
     ring_kernels, ring_extra = phase_ring_times(
         torch, np, ici, ring, timing, info, inputs, mesh_lat,
         mesh_launches, full_err)
+    rs_kernels, rs_extra = phase_rs_times(
+        torch, ici, ring, timing, info, inputs,
+        {**mesh2d_launches, "remote_sendrecv":
+         k8_launches["remote_sendrecv"]}, full_err,
+        {"mesh_1d": mesh_lat[0], "fold": fold_lat, "mesh2d": mesh2d_lat})
     a2a_kernels, a2a_extra = phase_a2a_times(
         torch, alltoall, ring, moe, timing, info, a2a_lat, a2a_launches,
         full_err, dev)
@@ -2165,15 +2768,19 @@ def main(argv=None):
     attn_kernels, attn_extra = phase_attn_times(
         torch, flash, ulysses, collectives, timing, info, attn_launches,
         attn_lat, flash_err, attn_data)
-    kernels += ring_kernels + a2a_kernels + rma_kernels + quant_kernels + \
-        attn_kernels
+    kernels += ring_kernels + rs_kernels + a2a_kernels + rma_kernels + \
+        quant_kernels + attn_kernels
     extra.update(attn_extra)
     extra.update(quant_extra)
     extra.update(ring_extra)
+    extra.update(rs_extra)
     extra.update(a2a_extra)
     extra.update(rma_extra)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)
+    extra["hier_breakdown"] = phase_hier_profile(
+        torch, mvt, dev, inputs,
+        {"mesh_1d": mesh_lat[0], "fold": fold_lat, "mesh2d": mesh2d_lat})
     extra["attn_breakdown"] = phase_attn_profile(
         torch, ring_attention, ulysses, attn_lat, attn_data)
     total_s = time.perf_counter() - t_start
@@ -2185,6 +2792,9 @@ def main(argv=None):
                        "build_s": build_s, "total_s": total_s,
                        "slice_launches": slice_launches,
                        "mesh_launches": mesh_launches,
+                       "fold_launches": fold_launches,
+                       "mesh2d_launches": mesh2d_launches,
+                       "sendrecv_launches": k8_launches,
                        "mesh_a2a_launches": a2a_launches,
                        "rma_launches": rma_launches,
                        "quant_launches": {"quant_ring_all_reduce":

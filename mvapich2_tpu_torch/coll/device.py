@@ -7,7 +7,7 @@ process (the ``run_ranks`` harness); a collective call is executed once:
 every rank deposits its buffer at a rendezvous, rank 0 (the leader) runs
 the device program, every rank picks up its result.
 
-Two bindings are ported:
+Three bindings are ported, chosen by geometry (``bind_universes``):
 
 * :class:`DeviceCollChannel`, the 1:1 mesh channel: each rank owns one
   virtual device of a ``parallel.mesh.Mesh`` (``p`` virtual ranks of one
@@ -15,17 +15,28 @@ Two bindings are ported:
   shards in place to the tier dispatch of ``ops/ici.py`` (ring kernels
   K3/K5/K6/K7, the quantized ring K9 of ``ops/quant.py``, or the stock
   torch reduction) or of ``ops/alltoall.py`` (alltoall and alltoallv,
-  K10/K11) and every rank gets its own output;
+  K10/K11) and every rank gets its own output. On a mesh of two or more
+  axes the reductions and the allgather run the per-axis ring phases
+  of ``ops/ici.py`` ``ici_*_mesh`` (K4, K5, K3), and alltoall(v) the
+  stock lowering over the flattened axes;
+* :class:`DeviceFoldChannel`, leaders per chip: more ranks than mesh
+  devices (``k`` ranks a device). Each device's ``k`` deposits fold in
+  its memory (K1 for sum, the stock reduction otherwise), then the
+  1:1 mesh program runs over the folded device shards, and the ranks of
+  a device share its output;
 * :class:`HBMSlotChannel`: all ranks share one device and collectives
   run through an on-card slot segment (``ops/hbm.py``).
 
-The per-chip fold channel, multi-axis meshes, nonblocking collectives and
-the host algorithm tier are not ported; a call that the JAX package's
+Nonblocking collectives and the host algorithm tier are not ported; a
+call that the JAX package's
 ``_select_transport`` sends to the host tier (an 8-byte dtype or a
 user-defined op, also under a forced ``<COLL>_ALGO=device``; a forced
 host algorithm; ``USE_DEVICE_COLL`` off without ``<COLL>_ALGO=device``;
 a numpy buffer below ``DEVICE_COLL_MIN_BYTES``; alltoallv with
-``MPI_IN_PLACE`` or on the slot channel) raises ``NotImplementedError``.
+``MPI_IN_PLACE``, on the slot channel, or alltoall(v) on the fold
+channel) raises ``NotImplementedError``, as does a mesh that neither
+covers the ranks one to one nor divides them (the JAX package's host
+path).
 
 Stream order across rank threads (CUDA devices): each deposit records an
 event on the depositing rank's current stream; the leader's stream waits
@@ -126,8 +137,10 @@ class _Channel:
     # hierarchy levels one call on this channel exercises (the
     # coll_level_* pvars bumped per call in _run)
     LEVELS: Tuple[str, ...] = ()
-    # collectives this channel routes to the device
+    # collectives this channel routes to the device; the others raise,
+    # with this reason (the JAX package keeps them on its host path)
     SUPPORTED: Tuple[str, ...] = ()
+    UNSUPPORTED_WHY = ""
 
     def __init__(self, device: torch.device, rendezvous: _Rendezvous,
                  rank: int, size: int):
@@ -262,9 +275,9 @@ class _Channel:
 
 class DeviceCollChannel(_Channel):
     """One rank's handle on the 1:1 mesh channel: rank r owns virtual
-    device r of ``mesh``.
+    device r of ``mesh``, row-major over its axes.
 
-    The leader's programs (``_build``):
+    The leader's programs (``_build``) on a 1-D mesh:
 
       * allreduce/reduce: ``ici.ici_all_reduce`` (K6 / K3 / stock, by
         tier), one output row per rank;
@@ -278,6 +291,13 @@ class DeviceCollChannel(_Channel):
       * reduce_scatter_block: the stock reduction over the stacked
         shards, then rank r's block.
 
+    On a mesh of two or more axes (``multi_axis``, ``_build_mesh``):
+    allreduce/reduce ``ici.ici_all_reduce_mesh``, allgather
+    ``ici.ici_all_gather_mesh``, reduce_scatter_block
+    ``ici.ici_reduce_scatter_mesh``, bcast the root's shard to every
+    rank, alltoall(v) the stock lowering over the flattened axes (the
+    JAX program lowers them through XLA there, not through K10/K11).
+
     The leader waits for each call's device work and raises if a ring
     kernel's spin wait timed out, so every rank of that call raises.
     """
@@ -286,15 +306,32 @@ class DeviceCollChannel(_Channel):
     SUPPORTED = ("allreduce", "reduce", "bcast", "allgather", "alltoall",
                  "reduce_scatter_block", "alltoallv")
 
-    def __init__(self, mesh, rendezvous: _Rendezvous, rank: int):
-        super().__init__(mesh.device, rendezvous, rank, mesh.size)
+    def __init__(self, mesh, rendezvous: _Rendezvous, rank: int,
+                 nranks: Optional[int] = None):
+        super().__init__(mesh.device, rendezvous, rank,
+                         mesh.size if nranks is None else nranks)
         self.mesh = mesh
+        self.axes: Tuple[str, ...] = tuple(mesh.axis_names)
+
+    @property
+    def multi_axis(self) -> bool:
+        return len(self.axes) > 1
+
+    def _axis_sizes(self) -> Tuple[Tuple[str, int], ...]:
+        return tuple((a, self.mesh.shape[a]) for a in self.axes)
+
+    def _mesh_extent(self) -> int:
+        """Participant count of the mesh program: the rank count on the
+        1:1 binding, the device count on the fold channel."""
+        return self.mesh.size
 
     def _build(self, name: str, n: int, op: str, extra=None):
         """The leader's program for one signature: a callable taking the
-        ``p`` flat shards and the root, returning one output per rank.
-        ``_note_tier`` counts the call's tier on every rank."""
-        p = self.size
+        mesh's flat shards and the root, returning one output per mesh
+        rank. ``_note_tier`` counts the call's tier on every rank."""
+        if self.multi_axis:
+            return self._build_mesh(name, n, op, extra)
+        p = self._mesh_extent()
         if name in ("allreduce", "reduce"):
             def f(xs, root):
                 return list(ici.ici_all_reduce(xs, op).unbind(0))
@@ -319,6 +356,36 @@ class DeviceCollChannel(_Channel):
             def f(xs, root):
                 y = ici.stock_reduce(torch.stack(xs), op)
                 return [y[r * c:(r + 1) * c] for r in range(p)]
+        else:  # pragma: no cover
+            raise KeyError(name)
+        return f
+
+    def _build_mesh(self, name: str, n: int, op: str, extra=None):
+        """Multi-axis programs: the reductions and the allgather ride the
+        per-axis ring phases (``ici_*_mesh``); bcast and alltoall(v) are
+        stock, as the JAX program lowers them through XLA."""
+        axes, p = self._axis_sizes(), self._mesh_extent()
+        if name in ("allreduce", "reduce"):
+            def f(xs, root):
+                return ici.ici_all_reduce_mesh(xs, axes, op)
+        elif name == "allgather":
+            def f(xs, root):
+                return ici.ici_all_gather_mesh(xs, axes)
+        elif name == "reduce_scatter_block":
+            def f(xs, root):
+                return ici.ici_reduce_scatter_mesh(xs, axes, op)
+        elif name == "bcast":
+            def f(xs, root):
+                return list(xs[root].reshape(1, n).expand(p, n).clone()
+                            .unbind(0))
+        elif name == "alltoall":
+            def f(xs, root):
+                return list(alltoall.stock_all_to_all(xs).unbind(0))
+        elif name == "alltoallv":
+            counts = extra
+
+            def f(xs, root):
+                return alltoall.stock_all_to_allv(xs, counts)
         else:  # pragma: no cover
             raise KeyError(name)
         return f
@@ -356,10 +423,14 @@ class DeviceCollChannel(_Channel):
         JAX package's: the tier ``planned_tier`` names for the call's
         shard bytes on this mesh's ranks (output bytes for allgather; for
         alltoall(v) the tier of ``planned_a2a_tier`` on this rank's send
-        bytes). A quant call also adds the wire bytes it saves
-        (``wire_stats``) to dev_coll_quant_bytes_saved."""
+        bytes), over the mesh extent (the device count on the fold
+        channel; allgather's bytes are the rank count's), and on a
+        multi-axis mesh for the whole payload, not per phase. A quant
+        call also adds the wire bytes it saves (``wire_stats``) to
+        dev_coll_quant_bytes_saved."""
         n, _ = self._slot_extent(local)
         dtype = _torch_dtype(local)
+        p = self._mesh_extent()
         if name in ("alltoall", "alltoallv"):
             tier, reason = alltoall.planned_a2a_tier(
                 max(1, n * dtype.itemsize), dtype)
@@ -367,13 +438,13 @@ class DeviceCollChannel(_Channel):
             nbytes = n * dtype.itemsize * (self.size if name == "allgather"
                                            else 1)
             tier, reason = ici.planned_tier(name, nbytes, dtype, op,
-                                            num_devices=self.size)
+                                            num_devices=p)
         else:
             return "xla"    # collectives without a kernel lowering
         if reason is None:
             mpit.pvar(f"dev_coll_tier_{tier}").inc()
             if tier == "quant":
-                exact_b, wire_b = quant.wire_stats(n, dtype, self.size)
+                exact_b, wire_b = quant.wire_stats(n, dtype, p)
                 mpit.pvar("dev_coll_quant_bytes_saved").inc(
                     max(0, exact_b - wire_b))
             return tier
@@ -389,6 +460,96 @@ class DeviceCollChannel(_Channel):
         dep = _VDeposit(_pack_v(sendbuf, scounts, sdispls), scounts)
         out = self._run("alltoallv", dep, op=None)
         return _deliver_v(out, recvbuf, rcounts, rdispls)
+
+
+class DeviceFoldChannel(DeviceCollChannel):
+    """Leaders per chip: ``n`` ranks over a mesh of ``ndev`` devices, ``1 <
+    ndev < n``, ``k = n // ndev`` ranks a device, rank r on device
+    ``r // k`` (blocked, so a device's ranks own contiguous result
+    blocks). Each collective runs in two levels:
+
+      * the chip fold: a device's ``k`` deposits, stacked ``(k, n)``,
+        fold to one ``[n]`` contribution: K1 (``hbm.hbm_slot_allreduce``)
+        for sum, the stock reduction for max/min/prod; with ``k == 1``
+        the deposit passes through. allgather concatenates the ``k``
+        deposits (the blocked layout keeps rank order); bcast takes the
+        root rank's deposit on the root's device;
+      * the ICI phase: the 1:1 channel's program, 1-D or multi-axis, over
+        the ``ndev`` device shards (``_mesh_extent``).
+
+    The ranks of a device SHARE its output tensor, as the slot channel
+    shares its result: a rank must not write it in place (reduce_scatter_
+    block hands each rank its own slice of it). alltoall(v) has no fold
+    composition (per-peer payloads cross devices pairwise) and keeps the
+    host path in the JAX package, so it raises here. A failed K1 raises
+    out of the collective (the JAX package demotes its fold to XLA)."""
+
+    LEVELS = ("chip", "ici")
+    SUPPORTED = ("allreduce", "reduce", "bcast", "allgather",
+                 "reduce_scatter_block")
+    UNSUPPORTED_WHY = ("on the leaders-per-chip fold channel: per-peer "
+                       "payloads cross devices pairwise, which has no fold "
+                       "composition")
+
+    def __init__(self, mesh, rendezvous: _Rendezvous, rank: int,
+                 nranks: int):
+        super().__init__(mesh, rendezvous, rank, nranks)
+        self.ndev = mesh.size
+        self.k = nranks // self.ndev
+        self.chip = rank // self.k
+
+    def _mesh_extent(self) -> int:
+        return self.ndev
+
+    def _fold_chip(self, j: int, n: int, op: str) -> torch.Tensor:
+        """Device ``j``'s ``k`` deposits folded to one ``[n]`` shard."""
+        sl = self.rv.slots[j * self.k:(j + 1) * self.k]
+        if self.k == 1:
+            return _to_device(sl[0], self.device).reshape(n)
+        x = _stack_slots(sl, n, self.device)
+        if op == "sum":
+            return hbm.hbm_slot_allreduce(x)
+        return ici.stock_reduce(x, op)
+
+    def _leader(self, name: str, op: str, root: int) -> List:
+        """Leader compute: fold per device, run the mesh program over the
+        folded shards, fan each device's output back to its ranks."""
+        rv = self.rv
+        nd, k = self.ndev, self.k
+        _wait_deposits(self.device, rv.events)
+        n, dtype = self._slot_extent(rv.slots[0])
+        prog_root, prog_n = 0, n
+        if name == "bcast":
+            # only the root device's shard matters: the root rank's
+            # payload there, zeros elsewhere (the program overwrites them)
+            prog_root = root // k
+            root_x = _to_device(rv.slots[root], self.device).reshape(n)
+            xs = [root_x if j == prog_root else torch.zeros_like(root_x)
+                  for j in range(nd)]
+        elif name == "allgather":
+            prog_n = k * n
+            xs = [_stack_slots(rv.slots[j * k:(j + 1) * k], n,
+                               self.device).reshape(prog_n)
+                  for j in range(nd)]
+        else:   # allreduce / reduce / reduce_scatter_block
+            xs = [self._fold_chip(j, n, op) for j in range(nd)]
+        out = self._program(name, prog_n, dtype, op)(xs, prog_root)
+        ring.check_errors(self.device)
+        if name == "reduce_scatter_block":
+            # a device's block holds its k ranks' contiguous blocks
+            c = n // nd // k
+            return [out[r // k].reshape(-1)[(r % k) * c:(r % k + 1) * c]
+                    for r in range(self.size)]
+        return [out[r // k] for r in range(self.size)]
+
+
+def _stack_slots(slots, n: int, device: torch.device) -> torch.Tensor:
+    """Deposits as one planar ``(len, n)`` tensor on ``device`` (one
+    host-side stack and one transfer for host deposits)."""
+    if all(is_device_tensor(s) for s in slots):
+        return torch.stack([_to_device(s, device).reshape(n) for s in slots])
+    return _to_device(np.stack([np.asarray(s).reshape(n) for s in slots]),
+                      device)
 
 
 class HBMSlotChannel(_Channel):
@@ -413,6 +574,8 @@ class HBMSlotChannel(_Channel):
     LEVELS = ("chip",)
     SUPPORTED = ("allreduce", "reduce", "bcast", "allgather", "alltoall",
                  "reduce_scatter_block")
+    UNSUPPORTED_WHY = ("on the single-device slot channel: per-peer "
+                       "counts have no slot transpose")
 
     def _note_tier(self, name: str, local, op: Optional[str]) -> str:
         return "slot"       # single-device slot channel: no ring tiers
@@ -451,13 +614,8 @@ class HBMSlotChannel(_Channel):
         if name == "bcast":
             # a copy: the shared result must not alias the root's buffer
             x = _to_device(rv.slots[root], self.device).reshape(n).clone()
-        elif all(is_device_tensor(s) for s in rv.slots):
-            x = torch.stack([_to_device(s, self.device).reshape(n)
-                             for s in rv.slots])
         else:
-            # host slots: one host-side stack, one transfer
-            x = _to_device(np.stack([np.asarray(s).reshape(n)
-                                     for s in rv.slots]), self.device)
+            x = _stack_slots(rv.slots, n, self.device)
         out = self._program(name, n, dtype, op)(x)
         if name == "alltoall":
             return [out[r] for r in range(R)]
@@ -674,19 +832,24 @@ def install_device_coll(comm, channel: _Channel) -> None:
             return devfn(comm_, *a)
         return entry
 
-    for name in channel.SUPPORTED:
-        if name != "alltoallv":
-            comm.coll_fns[name] = wrap(name)
+    def host_only(name):
+        def entry(comm_, *a):
+            raise NotImplementedError(
+                f"{name} {channel.UNSUPPORTED_WHY}; {_HOST_TIER}")
+        return entry
 
-    # alltoallv: its own entry (recvbuf sits at a[3]). The slot channel,
-    # MPI_IN_PLACE and a forced host algorithm take the host path in the
-    # JAX package: here they raise.
+    for name in meta:
+        comm.coll_fns[name] = (wrap(name) if name in channel.SUPPORTED
+                               else host_only(name))
+
+    # alltoallv: its own entry (recvbuf sits at a[3]). A channel without
+    # it, MPI_IN_PLACE and a forced host algorithm take the host path in
+    # the JAX package: here they raise.
     def a2av_entry(comm_, sendbuf, scounts, sdispls, recvbuf, rcounts,
                    rdispls, datatype):
         if "alltoallv" not in channel.SUPPORTED:
             raise NotImplementedError(
-                f"alltoallv on the single-device slot channel: per-peer "
-                f"counts have no slot transpose; {_HOST_TIER}")
+                f"alltoallv {channel.UNSUPPORTED_WHY}; {_HOST_TIER}")
         if _is_in_place(sendbuf):
             raise NotImplementedError(
                 f"alltoallv with MPI_IN_PLACE; {_HOST_TIER}")
@@ -709,25 +872,34 @@ def bind_universes(universes, device: torch.device, mesh=None) -> bool:
     """Bind each thread-rank universe's COMM_WORLD. Geometry selects the
     channel, as in the JAX package:
 
-      * a mesh of as many ranks as universes -> DeviceCollChannel (1:1);
-      * a one-rank mesh under several ranks, or no mesh ->
+      * a mesh of as many devices as universes -> DeviceCollChannel
+        (1:1, on a 1-D or a multi-axis mesh);
+      * ``1 < devices < ranks`` with ``ranks % devices == 0`` ->
+        DeviceFoldChannel (leaders per chip);
+      * a one-device mesh under several ranks, or no mesh ->
         HBMSlotChannel on ``device`` (all ranks share it; with no mesh
         this holds for one rank too).
 
-    A mesh of another size raises: the fold channel (1 < mesh < ranks)
-    and the host path are not ported."""
+    Any other mesh raises ``NotImplementedError``: the JAX package runs
+    such a geometry on its host path, which is not ported."""
     n = len(universes)
-    one_to_one = mesh is not None and mesh.size == n
-    if mesh is not None and not one_to_one:
-        if mesh.size != 1:
-            raise NotImplementedError(
-                f"a mesh of {mesh.size} ranks cannot bind {n} ranks one "
-                f"to one; the leaders-per-chip fold channel and the host "
-                f"path are not ported")
-        device = mesh.device
     rv = _Rendezvous(n)
+    if mesh is None or (mesh.size == 1 and n > 1):
+        device = device if mesh is None else mesh.device
+
+        def make(r):
+            return HBMSlotChannel(device, rv, r, n)
+    elif mesh.size == n:
+        def make(r):
+            return DeviceCollChannel(mesh, rv, r)
+    elif 1 < mesh.size < n and n % mesh.size == 0:
+        def make(r):
+            return DeviceFoldChannel(mesh, rv, r, n)
+    else:
+        raise NotImplementedError(
+            f"a mesh of {mesh.size} devices {dict(mesh.shape)} neither "
+            f"binds {n} ranks one to one nor divides them; the JAX "
+            f"package takes its host path there, which is not ported")
     for r, u in enumerate(universes):
-        ch = (DeviceCollChannel(mesh, rv, r) if one_to_one
-              else HBMSlotChannel(device, rv, r, n))
-        install_device_coll(u.comm_world, ch)
+        install_device_coll(u.comm_world, make(r))
     return True

@@ -6,8 +6,16 @@
 //    _RingStreamer). Chunked streaming reduce-scatter then all-gather
 //    over p blocks of nblk elements, the shard padded with the op's
 //    identity; sum, max, min, prod.
+// K4 hbm_ring_reduce_scatter_kernel replaces pallas_ici.py
+//    hbm_ring_reduce_scatter (body _hbm_reduce_scatter_kernel). K3's
+//    reduce-scatter rounds alone; rank r keeps block r, [ceil(n/p)].
 // K5 hbm_ring_all_gather_kernel  replaces pallas_ici.py hbm_ring_all_gather
 //    (body _hbm_all_gather_kernel). The all-gather ring alone.
+//    K3, K4 and K5 take `lines`: one launch runs that many independent
+//    rings of p at once, the per-axis phase of a multi-axis mesh.
+// K8 remote_sendrecv_kernel      replaces pallas_ici.py remote_sendrecv
+//    (body _sendrecv_kernel). src and dst swap their shards, every other
+//    rank gets its own; one copy a rank, no flags.
 // K6 ring_all_reduce_kernel      replaces mvapich2_tpu/ops/pallas_ring.py
 //    ring_all_reduce (body _ring_all_reduce_kernel). Resident sum ring,
 //    2 landing slots per rank, n % p == 0.
@@ -119,9 +127,11 @@
 // 2m (init copy) + (p-1)(5m/p) (reduce-scatter: read own, write slot,
 // read slot and own, write own) + (p-1)(4m/p) (all-gather) bytes for an
 // m-byte shard, against 2m for "read every input once, write every
-// output once". K12/K13/K17 move 4 bytes a payload byte (read source,
-// write slot, read slot, write destination) and K14 5 (and the window
-// read), against 2 and 3. The landing slots (p*ndir*depth*chunk elements) are
+// output once". K4 moves (p-1)(5m/p) with no init copy (the first step
+// sends from the input, the last folds into the output), against
+// m + m/p. K8 moves 2m a rank, its bound. K12/K13/K17 move 4 bytes a
+// payload byte (read source, write slot, read slot, write destination)
+// and K14 5 (and the window read), against 2 and 3. The landing slots (p*ndir*depth*chunk elements) are
 // small enough to stay in the 50 MB L2. K10 moves 2m/p (local block) +
 // (p-1)(4m/p) (read input, write slot, read slot, write output) per
 // rank, against 2m; K11 the same over the bytes its matrix moves.
@@ -434,7 +444,7 @@ __device__ bool ring_step(LaneT& L, long long sb_off, long long rb_off,
 
 template <typename T>
 struct Lane {
-  int p, r, d, ndir, b, B, depth, vec;
+  int p, r, gr, d, ndir, b, B, depth, vec;  // gr: index into RankPtrs
   long long chunk, lo, hi;       // chunk elements; this direction's span
   T* o;                          // this rank's output (its working buffer)
   T* slots;                      // [p][ndir][depth][chunk]
@@ -496,6 +506,10 @@ struct Lane {
   }
 };
 
+// The grid covers lines * p ranks, line-major: rank i of line g is row
+// gr = g*p + i of RankPtrs, and every line is a ring of its own, with its
+// own slots ([p][ndir][depth][chunk] a line) and counters ([p][ndir][B] a
+// line). With one line this is the plain p-rank ring.
 template <typename T>
 __device__ Lane<T> make_lane(int p, long long nblk, long long chunk,
                              int depth, int ndir, int B, T* slots,
@@ -505,7 +519,12 @@ __device__ Lane<T> make_lane(int p, long long nblk, long long chunk,
   L.b = blockIdx.x % B;
   const int lane = blockIdx.x / B;
   L.d = lane % ndir;
-  L.r = lane / ndir;
+  L.gr = lane / ndir;
+  L.r = L.gr % p;
+  const long long line = L.gr / p;
+  if (slots) slots += line * p * ndir * depth * chunk;
+  landed += line * p * ndir * B;
+  consumed += line * p * ndir * B;
   L.p = p; L.ndir = ndir; L.B = B; L.depth = depth; L.vec = vec;
   L.chunk = chunk;
   const long long h = (nblk + 1) / 2;
@@ -517,16 +536,17 @@ __device__ Lane<T> make_lane(int p, long long nblk, long long chunk,
   return L;
 }
 
-// K3
+// K3 (K3, K4 and K5: at most 64 registers a thread, so that a block of
+// 1024 threads fits on an SM; the cooperative launch needs one a lane)
 template <typename T, int OP>
-__global__ void hbm_ring_all_reduce_kernel(
+__global__ void __launch_bounds__(1024) hbm_ring_all_reduce_kernel(
     RankPtrs ptrs, int p, long long n, long long nblk, long long chunk,
     int depth, int ndir, int B, T* slots, unsigned* landed,
     unsigned* consumed, int vec, int* err) {
   const int lane_rank = (blockIdx.x / B) / ndir;
   Lane<T> L = make_lane<T>(p, nblk, chunk, depth, ndir, B, slots, landed,
                            consumed, vec, err, ptrs.out[lane_rank]);
-  const T* x = static_cast<const T*>(ptrs.in[L.r]);
+  const T* x = static_cast<const T*>(ptrs.in[L.gr]);
   // o = x padded with the identity, this block's share of every chunk of
   // its span of every block (the only elements it ever touches)
   for (int k = 0; k < p; ++k)
@@ -552,14 +572,14 @@ __global__ void hbm_ring_all_reduce_kernel(
 
 // K5 (T: an unsigned type of the element's width; pure data movement)
 template <typename T>
-__global__ void hbm_ring_all_gather_kernel(
+__global__ void __launch_bounds__(1024) hbm_ring_all_gather_kernel(
     RankPtrs ptrs, int p, long long m, long long chunk, int depth,
     int ndir, int B, T* slots, unsigned* landed, unsigned* consumed,
     int vec, int* err) {
   const int lane_rank = (blockIdx.x / B) / ndir;
   Lane<T> L = make_lane<T>(p, m, chunk, depth, ndir, B, slots, landed,
                            consumed, vec, err, ptrs.out[lane_rank]);
-  const T* x = static_cast<const T*>(ptrs.in[L.r]);
+  const T* x = static_cast<const T*>(ptrs.in[L.gr]);
   const int r = L.r;
   for (long long off = L.lo; off < L.hi; off += chunk) {  // my block
     long long s0, s1;
@@ -572,6 +592,135 @@ __global__ void hbm_ring_all_gather_kernel(
     const int rb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
     if (!L.template step<SUM>(sb * m, rb * m, false)) return;
   }
+}
+
+// dst[i] = red(own, slot[i]) with own = x[start + i] for start + i < n,
+// else the op identity (the padded tail of the last block)
+template <typename T, int OP>
+__device__ void fold_from(T* dst, const T* x, long long start, long long n,
+                          const T* slot, long long cnt, int vec) {
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);
+    const long long nv = cnt / V;
+    const uint4* s = reinterpret_cast<const uint4*>(slot);
+    for (long long i = threadIdx.x; i < nv; i += blockDim.x) {
+      const long long e = start + i * V;
+      uint4 a;
+      T* ae = reinterpret_cast<T*>(&a);
+      if (e + V <= n) {
+        a = *reinterpret_cast<const uint4*>(x + e);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          ae[k] = e + k < n ? x[e + k] : identity<T, OP>();
+      }
+      const uint4 b = ld_cg(s + i);
+      const T* be = reinterpret_cast<const T*>(&b);
+#pragma unroll
+      for (int k = 0; k < V; ++k) ae[k] = red<T, OP>(ae[k], be[k]);
+      reinterpret_cast<uint4*>(dst)[i] = a;
+    }
+  } else {
+    for (long long i = threadIdx.x; i < cnt; i += blockDim.x) {
+      const T own = start + i < n ? x[start + i] : identity<T, OP>();
+      dst[i] = red<T, OP>(own, ld_cg(slot + i));
+    }
+  }
+}
+
+// K4's lane: K3's reduce-scatter with no init copy. Each block of the
+// working row o is folded once, at the step it is received, from the
+// input itself (red(x, incoming), the value K3's padded copy would hold
+// there) and sent on from o at the next step; the first step sends a
+// block straight from the input, and the last step's fold, into block r,
+// lands in the output. Every CTA drains its own share of block r there,
+// so the copy-out needs no cross-CTA sync.
+template <typename T, int OP>
+struct RsLane : Lane<T> {
+  const T* x;                    // this rank's input, n elements
+  long long n;
+  T* out;                        // this rank's block, nblk elements
+  bool first, last;              // the step's place in the p-1
+
+  __device__ bool issue(long long sb_off, long long off, long long sz) {
+    long long s0, s1;
+    share(sz, this->chunk, this->b, this->B, this->align(), &s0, &s1);
+    const int to = this->dst();
+    const unsigned g = this->g_issue;
+    if (g >= static_cast<unsigned>(this->depth) &&
+        !block_wait(this->consumed + this->flag(to), g - this->depth + 1,
+                    this->err))
+      return false;
+    T* slot = this->slot_ptr(to, g) + s0;
+    const long long e = sb_off + off + s0;
+    if (first)
+      init_range<T, OP>(slot, x, e, s1 - s0, n, this->vec);
+    else
+      copy_range(slot, this->o + e, s1 - s0, this->vec, false);
+    block_signal(this->landed + this->flag(to), g + 1);
+    this->g_issue = g + 1;
+    return true;
+  }
+
+  template <int>
+  __device__ bool drain(long long rb_off, long long off, long long sz,
+                        bool) {
+    long long s0, s1;
+    share(sz, this->chunk, this->b, this->B, this->align(), &s0, &s1);
+    const unsigned g = this->g_drain;
+    if (!block_wait(this->landed + this->flag(this->r), g + 1, this->err))
+      return false;
+    const long long e = rb_off + off + s0;
+    T* dst = last ? out + off + s0 : this->o + e;
+    fold_from<T, OP>(dst, x, e, n, this->slot_ptr(this->r, g) + s0, s1 - s0,
+                     this->vec);
+    block_signal(this->consumed + this->flag(this->r), g + 1);
+    this->g_drain = g + 1;
+    return true;
+  }
+};
+
+// K4. ins[gr]: the input of n elements; outs[gr]: the output block of
+// nblk; work + gr*p*nblk: the working row (p blocks of nblk). The block
+// ids and the chunk-credit schedule are K3's first loop.
+template <typename T, int OP>
+__global__ void __launch_bounds__(1024) hbm_ring_reduce_scatter_kernel(
+    RankPtrs ptrs, int p, long long n, long long nblk, long long chunk,
+    int depth, int ndir, int B, T* work, T* slots, unsigned* landed,
+    unsigned* consumed, int vec, int* err) {
+  const int gr = (blockIdx.x / B) / ndir;
+  RsLane<T, OP> L;
+  static_cast<Lane<T>&>(L) = make_lane<T>(
+      p, nblk, chunk, depth, ndir, B, slots, landed, consumed, vec, err,
+      work + static_cast<long long>(gr) * p * nblk);
+  L.x = static_cast<const T*>(ptrs.in[gr]);
+  L.n = n;
+  L.out = static_cast<T*>(ptrs.out[gr]);
+  const int r = L.r;
+  for (int s = 0; s < p - 1; ++s) {
+    L.first = s == 0;
+    L.last = s == p - 2;
+    const int sb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
+    const int rb = L.d == 0 ? mod(r - s - 2, p) : mod(r + s + 2, p);
+    if (!ring_step<RsLane<T, OP>, OP>(L, sb * nblk, rb * nblk, true))
+      return;
+  }
+}
+
+// K8 (T: an unsigned type of the element's width): outs[r] = ins[partner
+// of r], the partner swapping src and dst and being r elsewhere. On one
+// card the TPU kernel's send/recv semaphore pair is stream order: block b
+// of rank r copies share b of its partner's n elements, 16 bytes at a
+// time when vec (n a multiple of the vector, every pointer aligned).
+template <typename T>
+__global__ void __launch_bounds__(1024) remote_sendrecv_kernel(
+    RankPtrs ptrs, int p, long long n, int src, int dst, int B, int vec) {
+  const int r = blockIdx.x / B;
+  const int from = r == src ? dst : (r == dst ? src : r);
+  long long s0, s1;
+  share(n, n, blockIdx.x % B, B, vec ? 16 / int(sizeof(T)) : 1, &s0, &s1);
+  copy_range(static_cast<T*>(ptrs.out[r]) + s0,
+             static_cast<const T*>(ptrs.in[from]) + s0, s1 - s0, vec, false);
 }
 
 // ---------------------------------------------------------------------------
@@ -1272,57 +1421,98 @@ cudaError_t fit_ctas(const void* kernel, int lanes, int ctas, int threads,
   return *B >= 1 ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
 }
 
+// K3 and K4 over `lines` rings of p: flags landed then consumed, each
+// [lines][p][ndir][ctas]; K4 also takes the working rows.
 template <typename T, int OP>
-cudaError_t launch_k3(RankPtrs ptrs, int p, long long n, long long nblk,
-                      long long chunk, int depth, int ndir, void* slots,
-                      unsigned* flags, int ctas, int vec, int threads,
-                      cudaStream_t s) {
+cudaError_t launch_k3(RankPtrs ptrs, int p, int lines, long long n,
+                      long long nblk, long long chunk, int depth, int ndir,
+                      void* work, void* slots, unsigned* flags, int ctas,
+                      int vec, int threads, cudaStream_t s) {
   const void* kern =
-      reinterpret_cast<const void*>(&hbm_ring_all_reduce_kernel<T, OP>);
+      work ? reinterpret_cast<const void*>(
+                 &hbm_ring_reduce_scatter_kernel<T, OP>)
+           : reinterpret_cast<const void*>(
+                 &hbm_ring_all_reduce_kernel<T, OP>);
+  const int lanes = lines * p * ndir;
   int B, *err;
   cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, p * ndir, ctas, threads, &B);
+  if (e == cudaSuccess) e = fit_ctas(kern, lanes, ctas, threads, &B);
   if (e != cudaSuccess) return e;
+  T* w = static_cast<T*>(work);
   T* sl = static_cast<T*>(slots);
   unsigned* landed = flags;
-  unsigned* consumed = flags + static_cast<long long>(p) * ndir * ctas;
-  void* args[] = {&ptrs, &p, &n, &nblk, &chunk, &depth, &ndir, &B,
-                  &sl, &landed, &consumed, &vec, &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(p * ndir * B),
-                                     dim3(threads), args, 0, s);
+  unsigned* consumed = flags + static_cast<long long>(lanes) * ctas;
+  void* k3_args[] = {&ptrs, &p, &n, &nblk, &chunk, &depth, &ndir, &B,
+                     &sl, &landed, &consumed, &vec, &err};
+  void* k4_args[] = {&ptrs, &p, &n, &nblk, &chunk, &depth, &ndir, &B,
+                     &w, &sl, &landed, &consumed, &vec, &err};
+  return cudaLaunchCooperativeKernel(kern, dim3(lanes * B), dim3(threads),
+                                     work ? k4_args : k3_args, 0, s);
 }
 
 template <typename T>
-cudaError_t launch_k3_op(int op, RankPtrs ptrs, int p, long long n,
-                         long long nblk, long long chunk, int depth,
-                         int ndir, void* slots, unsigned* flags, int ctas,
-                         int vec, int threads, cudaStream_t s) {
+cudaError_t launch_k3_op(int op, RankPtrs ptrs, int p, int lines,
+                         long long n, long long nblk, long long chunk,
+                         int depth, int ndir, void* work, void* slots,
+                         unsigned* flags, int ctas, int vec, int threads,
+                         cudaStream_t s) {
   switch (op) {
-    case SUM: return launch_k3<T, SUM>(ptrs, p, n, nblk, chunk, depth, ndir, slots, flags, ctas, vec, threads, s);
-    case MAX: return launch_k3<T, MAX>(ptrs, p, n, nblk, chunk, depth, ndir, slots, flags, ctas, vec, threads, s);
-    case MIN: return launch_k3<T, MIN>(ptrs, p, n, nblk, chunk, depth, ndir, slots, flags, ctas, vec, threads, s);
-    case PROD: return launch_k3<T, PROD>(ptrs, p, n, nblk, chunk, depth, ndir, slots, flags, ctas, vec, threads, s);
+    case SUM: return launch_k3<T, SUM>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
+    case MAX: return launch_k3<T, MAX>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
+    case MIN: return launch_k3<T, MIN>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
+    case PROD: return launch_k3<T, PROD>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K3 or K4 (work != nullptr) by dtype
+cudaError_t launch_k3_dtype(int dtype, int op, RankPtrs ptrs, int p,
+                            int lines, long long n, long long nblk,
+                            long long chunk, int depth, int ndir,
+                            void* work, void* slots, unsigned* fl, int ctas,
+                            int vec, int threads, cudaStream_t s) {
+  switch (dtype) {
+    case F32: return launch_k3_op<float>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case F16: return launch_k3_op<__half>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case BF16: return launch_k3_op<__nv_bfloat16>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case I32: return launch_k3_op<int32_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case I16: return launch_k3_op<int16_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case I8: return launch_k3_op<int8_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case U8: return launch_k3_op<uint8_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case U16: return launch_k3_op<uint16_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case U32: return launch_k3_op<uint32_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_k5(RankPtrs ptrs, int p, long long m, long long chunk,
-                      int depth, int ndir, void* slots, unsigned* flags,
-                      int ctas, int vec, int threads, cudaStream_t s) {
+cudaError_t launch_k5(RankPtrs ptrs, int p, int lines, long long m,
+                      long long chunk, int depth, int ndir, void* slots,
+                      unsigned* flags, int ctas, int vec, int threads,
+                      cudaStream_t s) {
   const void* kern =
       reinterpret_cast<const void*>(&hbm_ring_all_gather_kernel<T>);
+  const int lanes = lines * p * ndir;
   int B, *err;
   cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, p * ndir, ctas, threads, &B);
+  if (e == cudaSuccess) e = fit_ctas(kern, lanes, ctas, threads, &B);
   if (e != cudaSuccess) return e;
   T* sl = static_cast<T*>(slots);
   unsigned* landed = flags;
-  unsigned* consumed = flags + static_cast<long long>(p) * ndir * ctas;
+  unsigned* consumed = flags + static_cast<long long>(lanes) * ctas;
   void* args[] = {&ptrs, &p, &m, &chunk, &depth, &ndir, &B, &sl, &landed,
                   &consumed, &vec, &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(p * ndir * B),
-                                     dim3(threads), args, 0, s);
+  return cudaLaunchCooperativeKernel(kern, dim3(lanes * B), dim3(threads),
+                                     args, 0, s);
+}
+
+// K8: p ranks of B blocks, no flags, so an ordinary launch
+template <typename T>
+cudaError_t launch_k8(RankPtrs ptrs, int p, long long n, int src, int dst,
+                      int ctas, int vec, int threads, cudaStream_t s) {
+  remote_sendrecv_kernel<T><<<p * ctas, threads, 0, s>>>(ptrs, p, n, src,
+                                                         dst, ctas, vec);
+  return cudaGetLastError();
 }
 
 // K9 shares K3's flag layout: landed then consumed, each [p][ndir][ctas].
@@ -1522,48 +1712,74 @@ int element_size(int dtype) {
 }
 
 bool bad_ranks(int p) { return p < 1 || p > kMaxRanks; }
+bool bad_lines(int p, int lines) {
+  return p < 1 || lines < 1 || lines * p > kMaxRanks;
+}
 
 }  // namespace
 
 extern "C" {
 
+// ins/outs: lines * p pointers, line-major (rank i of line g at g*p + i).
 int mv2t_hbm_ring_all_reduce(int dtype, int op, const void* ins,
-                             const void* outs, int p, long long n,
+                             const void* outs, int p, int lines, long long n,
                              long long nblk, long long chunk, int depth,
                              int ndir, void* slots, void* flags, int ctas,
                              int vec, int threads, void* stream) {
-  if (bad_ranks(p)) return static_cast<int>(cudaErrorInvalidValue);
-  const RankPtrs ptrs = rank_ptrs(ins, outs, p);
-  unsigned* fl = static_cast<unsigned*>(flags);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (dtype) {
-    case F32: e = launch_k3_op<float>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
-    case F16: e = launch_k3_op<__half>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
-    case BF16: e = launch_k3_op<__nv_bfloat16>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
-    case I32: e = launch_k3_op<int32_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
-    case I16: e = launch_k3_op<int16_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
-    case I8: e = launch_k3_op<int8_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
-    case U8: e = launch_k3_op<uint8_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
-    case U16: e = launch_k3_op<uint16_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
-    case U32: e = launch_k3_op<uint32_t>(op, ptrs, p, n, nblk, chunk, depth, ndir, slots, fl, ctas, vec, threads, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(e);
+  if (bad_lines(p, lines)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_k3_dtype(
+      dtype, op, rank_ptrs(ins, outs, lines * p), p, lines, n, nblk, chunk,
+      depth, ndir, nullptr, slots, static_cast<unsigned*>(flags), ctas, vec,
+      threads, static_cast<cudaStream_t>(stream)));
+}
+
+// K4: outs[gr] the [nblk] output blocks, work the [lines*p][p*nblk]
+// working rows.
+int mv2t_hbm_ring_reduce_scatter(int dtype, int op, const void* ins,
+                                 const void* outs, int p, int lines,
+                                 long long n, long long nblk,
+                                 long long chunk, int depth, int ndir,
+                                 void* work, void* slots, void* flags,
+                                 int ctas, int vec, int threads,
+                                 void* stream) {
+  if (bad_lines(p, lines) || p < 2 || !work)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_k3_dtype(
+      dtype, op, rank_ptrs(ins, outs, lines * p), p, lines, n, nblk, chunk,
+      depth, ndir, work, slots, static_cast<unsigned*>(flags), ctas, vec,
+      threads, static_cast<cudaStream_t>(stream)));
 }
 
 int mv2t_hbm_ring_all_gather(int dtype, const void* ins, const void* outs,
-                             int p, long long m, long long chunk, int depth,
-                             int ndir, void* slots, void* flags, int ctas,
-                             int vec, int threads, void* stream) {
-  if (bad_ranks(p)) return static_cast<int>(cudaErrorInvalidValue);
-  const RankPtrs ptrs = rank_ptrs(ins, outs, p);
+                             int p, int lines, long long m, long long chunk,
+                             int depth, int ndir, void* slots, void* flags,
+                             int ctas, int vec, int threads, void* stream) {
+  if (bad_lines(p, lines)) return static_cast<int>(cudaErrorInvalidValue);
+  const RankPtrs ptrs = rank_ptrs(ins, outs, lines * p);
   unsigned* fl = static_cast<unsigned*>(flags);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (element_size(dtype)) {
-    case 4: return static_cast<int>(launch_k5<uint32_t>(ptrs, p, m, chunk, depth, ndir, slots, fl, ctas, vec, threads, s));
-    case 2: return static_cast<int>(launch_k5<uint16_t>(ptrs, p, m, chunk, depth, ndir, slots, fl, ctas, vec, threads, s));
-    case 1: return static_cast<int>(launch_k5<uint8_t>(ptrs, p, m, chunk, depth, ndir, slots, fl, ctas, vec, threads, s));
+    case 4: return static_cast<int>(launch_k5<uint32_t>(ptrs, p, lines, m, chunk, depth, ndir, slots, fl, ctas, vec, threads, s));
+    case 2: return static_cast<int>(launch_k5<uint16_t>(ptrs, p, lines, m, chunk, depth, ndir, slots, fl, ctas, vec, threads, s));
+    case 1: return static_cast<int>(launch_k5<uint8_t>(ptrs, p, lines, m, chunk, depth, ndir, slots, fl, ctas, vec, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K8: outs[r] = ins[partner of r] for the p ranks, esize-byte elements,
+// ctas blocks a rank.
+int mv2t_remote_sendrecv(int esize, const void* ins, const void* outs, int p,
+                         long long n, int src, int dst, int ctas, int vec,
+                         int threads, void* stream) {
+  if (bad_ranks(p) || src < 0 || src >= p || dst < 0 || dst >= p ||
+      ctas < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RankPtrs ptrs = rank_ptrs(ins, outs, p);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (esize) {
+    case 4: return static_cast<int>(launch_k8<uint32_t>(ptrs, p, n, src, dst, ctas, vec, threads, s));
+    case 2: return static_cast<int>(launch_k8<uint16_t>(ptrs, p, n, src, dst, ctas, vec, threads, s));
+    case 1: return static_cast<int>(launch_k8<uint8_t>(ptrs, p, n, src, dst, ctas, vec, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

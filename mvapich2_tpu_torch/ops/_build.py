@@ -65,14 +65,25 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "ring": {
         "mv2t_hbm_ring_all_reduce": (_I, (
             ("dtype", _I), ("op", _I), ("ins", _P), ("outs", _P),
-            ("p", _I), ("n", _I64), ("nblk", _I64), ("chunk", _I64),
-            ("depth", _I), ("ndir", _I), ("slots", _P), ("flags", _P),
-            ("ctas", _I), ("vec", _I), ("threads", _I), ("stream", _P))),
-        "mv2t_hbm_ring_all_gather": (_I, (
-            ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
-            ("m", _I64), ("chunk", _I64), ("depth", _I), ("ndir", _I),
+            ("p", _I), ("lines", _I), ("n", _I64), ("nblk", _I64),
+            ("chunk", _I64), ("depth", _I), ("ndir", _I), ("slots", _P),
+            ("flags", _P), ("ctas", _I), ("vec", _I), ("threads", _I),
+            ("stream", _P))),
+        "mv2t_hbm_ring_reduce_scatter": (_I, (
+            ("dtype", _I), ("op", _I), ("ins", _P), ("outs", _P),
+            ("p", _I), ("lines", _I), ("n", _I64), ("nblk", _I64),
+            ("chunk", _I64), ("depth", _I), ("ndir", _I), ("work", _P),
             ("slots", _P), ("flags", _P), ("ctas", _I), ("vec", _I),
             ("threads", _I), ("stream", _P))),
+        "mv2t_hbm_ring_all_gather": (_I, (
+            ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
+            ("lines", _I), ("m", _I64), ("chunk", _I64), ("depth", _I),
+            ("ndir", _I), ("slots", _P), ("flags", _P), ("ctas", _I),
+            ("vec", _I), ("threads", _I), ("stream", _P))),
+        "mv2t_remote_sendrecv": (_I, (
+            ("esize", _I), ("ins", _P), ("outs", _P), ("p", _I),
+            ("n", _I64), ("src", _I), ("dst", _I), ("ctas", _I),
+            ("vec", _I), ("threads", _I), ("stream", _P))),
         "mv2t_quant_ring_all_reduce": (_I, (
             ("dtype", _I), ("wire", _I), ("ins", _P), ("outs", _P),
             ("wires", _P), ("p", _I), ("n", _I64), ("nblk", _I64),

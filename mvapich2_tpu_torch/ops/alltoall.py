@@ -358,6 +358,24 @@ def _stock_all_to_allv(shards, plan: _VPlan) -> List[torch.Tensor]:
     return outs
 
 
+def stock_all_to_all(xs: Shards) -> torch.Tensor:
+    """The stock lowering of the uniform alltoall, the block transpose
+    (what a multi-axis mesh runs, as the JAX program lowers it through
+    XLA there). Returns ``(p, p*c)``."""
+    return _block_transpose(ring.as_shards(xs, "stock_all_to_all"))
+
+
+def stock_all_to_allv(xs: Sequence[torch.Tensor],
+                      counts: Sequence[Sequence[int]], *,
+                      out_len: Optional[int] = None) -> List[torch.Tensor]:
+    """The stock lowering of alltoallv over the packed layout; one
+    tensor per rank."""
+    shards = _v_shards(xs, "stock_all_to_allv")
+    return _stock_all_to_allv(
+        shards, _VPlan(shards, counts, None, None, out_len,
+                       "stock_all_to_allv"))
+
+
 def ici_all_to_all(xs: Shards) -> torch.Tensor:
     """Tier-dispatched uniform alltoall of ``p`` shards of ``p*c``
     elements: K10, or the stock block transpose past DEV_TIER_XLA_MIN or
@@ -387,6 +405,4 @@ def ici_all_to_allv(xs: Sequence[torch.Tensor],
     tier, _ = planned_a2a_tier(max(1, nbytes), shards[0].dtype)
     if tier == "hbm":
         return hbm_alltoallv(shards, counts, out_len=out_len)
-    return _stock_all_to_allv(
-        shards, _VPlan(shards, counts, None, None, out_len,
-                       "ici_all_to_allv"))
+    return stock_all_to_allv(shards, counts, out_len=out_len)

@@ -1,8 +1,8 @@
 """Chunked streaming ring collectives over ``p`` virtual ranks of one GPU,
-and the device tier dispatch (counterpart of
-``mvapich2_tpu/ops/pallas_ici.py``).
+the device tier dispatch and the multi-axis mesh composition
+(counterpart of ``mvapich2_tpu/ops/pallas_ici.py``).
 
-Two kernels, written in CUDA C++ in ``csrc/ring.cu``:
+Four kernels, written in CUDA C++ in ``csrc/ring.cu``:
 
 ``hbm_ring_all_reduce`` (K3): a reduce-scatter ring then an all-gather
 ring over ``p`` blocks of ``nblk = ceil(n/p)`` elements (the shard padded
@@ -11,8 +11,31 @@ with the op's identity), streamed in ``ICI_CHUNK_BYTES`` chunks through
 at once when ``p > 2`` and ``ICI_BIDIR`` (half of every block each way).
 sum, max, min and prod.
 
+``hbm_ring_reduce_scatter`` (K4): the reduce-scatter ring alone, ``[n]``
+per rank to its block ``[ceil(n/p)]`` of the folded (identity-padded)
+array.
+
 ``hbm_ring_all_gather`` (K5): the all-gather ring alone, ``[m]`` per
 rank to ``[p*m]``.
+
+``remote_sendrecv`` (K8): shards ``src`` and ``dst`` swap, every other
+rank keeps its own (MPI_Sendrecv's exchange); the JAX package has no
+caller for it.
+
+K3, K4 and K5 take ``lines``: ``lines * p`` shards ordered line-major
+(rank i of line g is shard ``g*p + i``), run as that many independent
+rings of ``p`` in one launch, one output row per shard in the same
+order. That is one phase of a multi-axis mesh: ``ici_all_reduce_mesh``
+(reduce-scatter down the axes, all-gather back up: RS-x, RS-y, AG-y,
+AG-x, four launches on a 2-D mesh; below DEV_TIER_AXES_MIN a full
+allreduce per axis instead), ``ici_all_gather_mesh`` and
+``ici_reduce_scatter_mesh``. They take the ranks' shards in rank order
+(row-major over the axes) and return one row per rank in rank order;
+``_axis_phase`` regroups the rows into an axis's lines and back without
+a copy. The port has no interpreter, so a phase under a multi-axis
+``mesh_ctx`` takes the JAX package's hardware branch (``_mesh_mode``
+"hw"): the resident and quant tiers clamp to the streaming ring, and
+only DEV_TIER_XLA_MIN sends a phase to the stock lowering.
 
 The schedule is the JAX kernels': the same block ids and phase order,
 one global chunk counter per direction (slot = counter mod depth), and
@@ -30,7 +53,7 @@ stock torch reduction over the stacked shards (the port's analog of
 ``lax.psum``) past DEV_TIER_XLA_MIN or for an op or dtype the kernels do
 not take. The mesh channel counts each call's tier or fallback in the
 ``dev_coll_tier_*`` / ``dev_coll_fallback_*`` pvars. ``LAUNCHES`` and
-``PLAIN_CALLS`` count K3, K5 and K9 (``quant_ring_all_reduce``).
+``PLAIN_CALLS`` count K3, K4, K5, K8 and K9 (``quant_ring_all_reduce``).
 """
 
 from __future__ import annotations
@@ -45,12 +68,10 @@ from .ring import Shards
 
 _SUPPORTED_OPS = ("sum", "max", "min", "prod")
 
-LAUNCHES: Dict[str, int] = {"hbm_ring_all_reduce": 0,
-                            "hbm_ring_all_gather": 0,
-                            "quant_ring_all_reduce": 0}
-PLAIN_CALLS: Dict[str, int] = {"hbm_ring_all_reduce": 0,
-                               "hbm_ring_all_gather": 0,
-                               "quant_ring_all_reduce": 0}
+_KERNELS = ("hbm_ring_all_reduce", "hbm_ring_reduce_scatter",
+            "hbm_ring_all_gather", "remote_sendrecv", "quant_ring_all_reduce")
+LAUNCHES: Dict[str, int] = dict.fromkeys(_KERNELS, 0)
+PLAIN_CALLS: Dict[str, int] = dict.fromkeys(_KERNELS, 0)
 
 
 def reset_counts() -> None:
@@ -177,14 +198,25 @@ def _padded(shards: List[torch.Tensor], op: str) -> Tuple[torch.Tensor, int]:
     return x, nblk
 
 
-def hbm_ring_all_reduce_ref(xs: Shards, op: str = "sum", *,
-                            bidirectional: Optional[bool] = None
-                            ) -> torch.Tensor:
-    """Plain version of K3: the ring replayed block by block in the
-    kernel's fold order; returns ``(p, n)``. Chunking and depth reorder
-    the kernel's transfers, never its arithmetic, so they are not
-    parameters here."""
-    shards = ring.as_shards(xs, "hbm_ring_all_reduce")
+def _line_size(shards: List[torch.Tensor], lines: int, what: str) -> int:
+    """Ranks per line of ``lines`` rings over the shards."""
+    lines = int(lines)
+    if lines < 1 or len(shards) % lines:
+        raise ValueError(f"{what}: {len(shards)} shards do not split into "
+                         f"{lines} lines")
+    return len(shards) // lines
+
+
+def _per_line(shards: List[torch.Tensor], lines: int, what: str,
+              fn) -> torch.Tensor:
+    """``fn`` on each line's ``p`` shards, the rows stacked line-major."""
+    p = _line_size(shards, lines, what)
+    if lines == 1:
+        return fn(shards)
+    return torch.cat([fn(shards[g * p:(g + 1) * p]) for g in range(lines)])
+
+
+def _k3_replay(shards, op, bidirectional):
     p, n, dt = len(shards), shards[0].numel(), shards[0].dtype
     x, nblk = _padded(ring.widened(shards), op)
     o = x.reshape(p, p, nblk).clone()
@@ -193,12 +225,41 @@ def hbm_ring_all_reduce_ref(xs: Shards, op: str = "sum", *,
     return o.reshape(p, p * nblk)[:, :n].to(dt)
 
 
-def hbm_ring_all_gather_ref(xs: Shards, *,
-                            bidirectional: Optional[bool] = None
-                            ) -> torch.Tensor:
-    """Plain version of K5: the gather ring replayed; returns
-    ``(p, p*m)``."""
-    shards = ring.as_shards(xs, "hbm_ring_all_gather")
+def hbm_ring_all_reduce_ref(xs: Shards, op: str = "sum", *,
+                            bidirectional: Optional[bool] = None,
+                            lines: int = 1) -> torch.Tensor:
+    """Plain version of K3: the ring replayed block by block in the
+    kernel's fold order, line by line; returns ``(lines*p, n)``.
+    Chunking and depth reorder the kernel's transfers, never its
+    arithmetic, so they are not parameters here."""
+    shards = ring.as_shards(xs, "hbm_ring_all_reduce")
+    return _per_line(shards, lines, "hbm_ring_all_reduce",
+                     lambda sh: _k3_replay(sh, op, bidirectional))
+
+
+def _k4_replay(shards, op, bidirectional):
+    p, dt = len(shards), shards[0].dtype
+    x, nblk = _padded(ring.widened(shards), op)
+    o = x.reshape(p, p, nblk).clone()
+    ring.ring_replay(o, _block_spans(nblk, _resolve_ndir(p, bidirectional)),
+                     True, False, ring.reducer(op))
+    ranks = torch.arange(p, device=o.device)
+    return o[ranks, ranks].to(dt)
+
+
+def hbm_ring_reduce_scatter_ref(xs: Shards, op: str = "sum", *,
+                                bidirectional: Optional[bool] = None,
+                                lines: int = 1) -> torch.Tensor:
+    """Plain version of K4: the reduce-scatter half of the ring replayed
+    in the kernel's fold order, line by line; row ``g*p + r`` is block
+    ``r`` of line g's folded, identity-padded array, ``(lines*p,
+    ceil(n/p))``."""
+    shards = ring.as_shards(xs, "hbm_ring_reduce_scatter")
+    return _per_line(shards, lines, "hbm_ring_reduce_scatter",
+                     lambda sh: _k4_replay(sh, op, bidirectional))
+
+
+def _k5_replay(shards, bidirectional):
     p, m, dt = len(shards), shards[0].numel(), shards[0].dtype
     shards = ring.widened(shards)
     o = torch.zeros((p, p, m), dtype=shards[0].dtype,
@@ -210,14 +271,44 @@ def hbm_ring_all_gather_ref(xs: Shards, *,
     return o.reshape(p, p * m).to(dt)
 
 
+def hbm_ring_all_gather_ref(xs: Shards, *,
+                            bidirectional: Optional[bool] = None,
+                            lines: int = 1) -> torch.Tensor:
+    """Plain version of K5: the gather ring replayed, line by line;
+    returns ``(lines*p, p*m)``."""
+    shards = ring.as_shards(xs, "hbm_ring_all_gather")
+    return _per_line(shards, lines, "hbm_ring_all_gather",
+                     lambda sh: _k5_replay(sh, bidirectional))
+
+
+def _partners(p: int, src: int, dst: int) -> List[int]:
+    """Shard each rank receives: src and dst swap, the rest keep."""
+    if not (0 <= src < p and 0 <= dst < p):
+        raise ValueError(f"remote_sendrecv: src {src} / dst {dst} outside "
+                         f"0..{p - 1}")
+    part = list(range(p))
+    part[src], part[dst] = dst, src
+    return part
+
+
+def remote_sendrecv_ref(xs: Shards, src: int, dst: int) -> torch.Tensor:
+    """Plain version of K8: an index gather of the stacked shards by
+    partner; returns a fresh ``(p, n)``."""
+    shards = ring.as_shards(xs, "remote_sendrecv")
+    part = _partners(len(shards), src, dst)
+    return torch.stack(shards)[torch.tensor(part, device=shards[0].device)]
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def _stream_args(shards, out, nblk, chunk_bytes, depth, bidirectional):
+def _stream_args(shards, out, p, lines, nblk, chunk_bytes, depth,
+                 bidirectional):
     """(chunk, depth, ndir, ctas, vec, slots, flags) of one streaming
-    launch over blocks of ``nblk`` elements."""
-    p, dev, dt = len(shards), out.device, out.dtype
+    launch of ``lines`` rings of ``p`` over blocks of ``nblk``
+    elements."""
+    dev, dt = out.device, out.dtype
     chunk = max(1, min(_cfg_chunk_elems(dt, chunk_bytes), nblk))
     d = _cfg_depth(depth)
     ndir = _resolve_ndir(p, bidirectional)
@@ -226,64 +317,147 @@ def _stream_args(shards, out, nblk, chunk_bytes, depth, bidirectional):
     vec = (ring.aligned(shards) and ring.aligned(out.unbind(0))
            and nblk % v == 0 and chunk % v == 0
            and (ndir == 1 or h % v == 0))
-    ctas = ring.ctas_per_lane(dev, p * ndir, chunk, v)
-    slots = torch.empty((p, ndir, d, chunk), dtype=dt, device=dev)
-    flags = torch.zeros(2 * p * ndir * ctas, dtype=torch.int32, device=dev)
+    lanes = lines * p * ndir
+    ctas = ring.ctas_per_lane(dev, lanes, chunk, v)
+    slots = torch.empty((lines * p, ndir, d, chunk), dtype=dt, device=dev)
+    flags = torch.zeros(2 * lanes * ctas, dtype=torch.int32, device=dev)
     return chunk, d, ndir, ctas, int(vec), slots, flags
+
+
+def _check_op(op: str, what: str) -> None:
+    if op not in _SUPPORTED_OPS:
+        raise ValueError(f"{what}: op {op!r} (supported: "
+                         f"{_SUPPORTED_OPS})")
 
 
 def hbm_ring_all_reduce(xs: Shards, op: str = "sum", *,
                         chunk_bytes: Optional[int] = None,
                         depth: Optional[int] = None,
-                        bidirectional: Optional[bool] = None
-                        ) -> torch.Tensor:
+                        bidirectional: Optional[bool] = None,
+                        lines: int = 1) -> torch.Tensor:
     """K3: allreduce of ``p`` shards of any length ``n`` through the
-    chunked streaming ring (pipelined reduce-scatter + all-gather).
-    Returns ``(p, n)``, row r for rank r."""
-    if op not in _SUPPORTED_OPS:
-        raise ValueError(f"hbm_ring_all_reduce: op {op!r} (supported: "
-                         f"{_SUPPORTED_OPS})")
+    chunked streaming ring (pipelined reduce-scatter + all-gather), on
+    each of ``lines`` rings of ``p`` (shards line-major). Returns
+    ``(lines*p, n)``, one row per shard in the same order."""
+    _check_op(op, "hbm_ring_all_reduce")
     shards = ring.as_shards(xs, "hbm_ring_all_reduce")
+    p = _line_size(shards, lines, "hbm_ring_all_reduce")
     if ring.on_cpu(shards):
         PLAIN_CALLS["hbm_ring_all_reduce"] += 1
         return hbm_ring_all_reduce_ref(shards, op,
-                                       bidirectional=bidirectional)
+                                       bidirectional=bidirectional,
+                                       lines=lines)
     code = ring.check_cuda_shards(shards, "hbm_ring_all_reduce")
-    p, n = len(shards), shards[0].numel()
+    n = shards[0].numel()
     nblk = -(-n // p)
-    out = torch.empty((p, nblk * p), dtype=shards[0].dtype,
+    out = torch.empty((len(shards), nblk * p), dtype=shards[0].dtype,
                       device=shards[0].device)
     chunk, d, ndir, ctas, vec, slots, flags = _stream_args(
-        shards, out, nblk, chunk_bytes, depth, bidirectional)
+        shards, out, p, lines, nblk, chunk_bytes, depth, bidirectional)
     ring.launch("mv2t_hbm_ring_all_reduce", out.device, code,
                 ring.OP_CODES[op], ring.pointers(shards),
-                ring.pointers(out.unbind(0)), p, n, nblk, chunk, d, ndir,
-                slots.data_ptr(), flags.data_ptr(), ctas, vec)
+                ring.pointers(out.unbind(0)), p, lines, n, nblk, chunk, d,
+                ndir, slots.data_ptr(), flags.data_ptr(), ctas, vec)
     LAUNCHES["hbm_ring_all_reduce"] += 1
     return out[:, :n]
 
 
+def hbm_ring_reduce_scatter(xs: Shards, op: str = "sum", *,
+                            chunk_bytes: Optional[int] = None,
+                            depth: Optional[int] = None,
+                            bidirectional: Optional[bool] = None,
+                            lines: int = 1) -> torch.Tensor:
+    """K4: reduce-scatter of ``p`` shards of any length ``n`` through
+    the chunked streaming ring (K3's reduce-scatter rounds), on each of
+    ``lines`` rings of ``p``. The shards are padded with the op's
+    identity to ``p`` blocks of ``nblk = ceil(n/p)``; row ``g*p + r`` is
+    block ``r`` of line g's folded array, ``(lines*p, nblk)``. With
+    ``p == 1`` every shard is its own result (a copy, no launch)."""
+    _check_op(op, "hbm_ring_reduce_scatter")
+    shards = ring.as_shards(xs, "hbm_ring_reduce_scatter")
+    p = _line_size(shards, lines, "hbm_ring_reduce_scatter")
+    if p == 1:
+        return torch.stack(shards)
+    if ring.on_cpu(shards):
+        PLAIN_CALLS["hbm_ring_reduce_scatter"] += 1
+        return hbm_ring_reduce_scatter_ref(shards, op,
+                                           bidirectional=bidirectional,
+                                           lines=lines)
+    code = ring.check_cuda_shards(shards, "hbm_ring_reduce_scatter")
+    n, dt, dev = shards[0].numel(), shards[0].dtype, shards[0].device
+    nblk = -(-n // p)
+    out = torch.empty((len(shards), nblk), dtype=dt, device=dev)
+    work = torch.empty((len(shards), p * nblk), dtype=dt, device=dev)
+    chunk, d, ndir, ctas, vec, slots, flags = _stream_args(
+        shards, out, p, lines, nblk, chunk_bytes, depth, bidirectional)
+    ring.launch("mv2t_hbm_ring_reduce_scatter", dev, code,
+                ring.OP_CODES[op], ring.pointers(shards),
+                ring.pointers(out.unbind(0)), p, lines, n, nblk, chunk, d,
+                ndir, work.data_ptr(), slots.data_ptr(), flags.data_ptr(),
+                ctas, vec)
+    LAUNCHES["hbm_ring_reduce_scatter"] += 1
+    return out
+
+
 def hbm_ring_all_gather(xs: Shards, *, chunk_bytes: Optional[int] = None,
                         depth: Optional[int] = None,
-                        bidirectional: Optional[bool] = None
-                        ) -> torch.Tensor:
+                        bidirectional: Optional[bool] = None,
+                        lines: int = 1) -> torch.Tensor:
     """K5: all-gather of ``p`` shards of ``m`` elements through the
-    chunked streaming ring. Returns ``(p, p*m)``, row r for rank r."""
+    chunked streaming ring, on each of ``lines`` rings of ``p``. Returns
+    ``(lines*p, p*m)``, one row per shard in the same order."""
     shards = ring.as_shards(xs, "hbm_ring_all_gather")
+    p = _line_size(shards, lines, "hbm_ring_all_gather")
     if ring.on_cpu(shards):
         PLAIN_CALLS["hbm_ring_all_gather"] += 1
-        return hbm_ring_all_gather_ref(shards, bidirectional=bidirectional)
+        return hbm_ring_all_gather_ref(shards, bidirectional=bidirectional,
+                                       lines=lines)
     code = ring.check_cuda_shards(shards, "hbm_ring_all_gather")
-    p, m = len(shards), shards[0].numel()
-    out = torch.empty((p, p * m), dtype=shards[0].dtype,
+    m = shards[0].numel()
+    out = torch.empty((len(shards), p * m), dtype=shards[0].dtype,
                       device=shards[0].device)
     chunk, d, ndir, ctas, vec, slots, flags = _stream_args(
-        shards, out, m, chunk_bytes, depth, bidirectional)
+        shards, out, p, lines, m, chunk_bytes, depth, bidirectional)
     ring.launch("mv2t_hbm_ring_all_gather", out.device, code,
-                ring.pointers(shards), ring.pointers(out.unbind(0)), p, m,
-                chunk, d, ndir, slots.data_ptr(), flags.data_ptr(), ctas,
-                vec)
+                ring.pointers(shards), ring.pointers(out.unbind(0)), p,
+                lines, m, chunk, d, ndir, slots.data_ptr(),
+                flags.data_ptr(), ctas, vec)
     LAUNCHES["hbm_ring_all_gather"] += 1
+    return out
+
+
+def remote_sendrecv(xs: Shards, src: int, dst: int) -> torch.Tensor:
+    """K8: shards ``src`` and ``dst`` swap, every other rank gets its own
+    (MPI_Sendrecv's exchange, not ppermute's zero fill); a fresh
+    ``(p, n)``, row r for rank r. ``src == dst`` or one rank: the shards
+    as they are (a ``(p, n)`` tensor is returned itself), no launch. Any
+    1-, 2- or 4-byte dtype, moved as its bits."""
+    shards = ring.as_shards(xs, "remote_sendrecv")
+    p = len(shards)
+    _partners(p, src, dst)
+    if p == 1 or src == dst:
+        return xs if isinstance(xs, torch.Tensor) else torch.stack(shards)
+    if ring.on_cpu(shards):
+        PLAIN_CALLS["remote_sendrecv"] += 1
+        return remote_sendrecv_ref(shards, src, dst)
+    dev = shards[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"remote_sendrecv: tensors on {dev}; the kernel "
+                         f"takes CUDA tensors")
+    esize = shards[0].element_size()
+    if esize not in (1, 2, 4) or p > ring.MAX_RANKS or \
+            not all(s.is_contiguous() for s in shards):
+        raise ValueError(f"remote_sendrecv: {p} contiguous shards of 1-, "
+                         f"2- or 4-byte elements (at most {ring.MAX_RANKS})"
+                         f" are taken, got {shards[0].dtype}")
+    n = shards[0].numel()
+    out = torch.empty((p, n), dtype=shards[0].dtype, device=dev)
+    v = 16 // esize
+    vec = ring.aligned(shards) and ring.aligned(out.unbind(0)) and n % v == 0
+    ctas = ring.ctas_per_lane(dev, p, n, v)
+    ring.launch("mv2t_remote_sendrecv", dev, esize, ring.pointers(shards),
+                ring.pointers(out.unbind(0)), p, n, src, dst, ctas, int(vec))
+    LAUNCHES["remote_sendrecv"] += 1
     return out
 
 
@@ -306,22 +480,45 @@ def stock_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def ici_all_reduce(xs: Shards, op: str = "sum") -> torch.Tensor:
+def _mesh_mode(mesh_ctx) -> str:
+    """'1d' without a surrounding multi-axis mesh, 'hw' inside one: the
+    JAX package's hardware branch (its interpreter branch 'xla' has no
+    counterpart here)."""
+    return "hw" if mesh_ctx and len(mesh_ctx) > 1 else "1d"
+
+
+def _check_lines(lines: int, mode: str, what: str) -> None:
+    if lines != 1 and mode != "hw":
+        raise ValueError(f"{what}: lines={lines} needs a multi-axis "
+                         f"mesh_ctx (only the streaming kernels take "
+                         f"lines)")
+
+
+def ici_all_reduce(xs: Shards, op: str = "sum", *, lines: int = 1,
+                   mesh_ctx=None) -> torch.Tensor:
     """Tier-dispatched allreduce of ``p`` shards: the resident ring (K6)
     at or below DEV_TIER_VMEM_MAX for a sum whose shard divides into p
     blocks, the quantized ring (K9) in the quant tier, the streaming
     ring (K3) otherwise, the stock reduction past DEV_TIER_XLA_MIN or
-    for an op or dtype the kernels do not take.
-    Returns ``(p, n)``, one row per rank. The dispatchers count nothing:
-    the mesh channel's ``_note_tier`` counts each call's tier or
+    for an op or dtype the kernels do not take. Under a multi-axis
+    ``mesh_ctx`` ((axis, size) pairs) the resident and quant tiers clamp
+    to K3, which then runs ``lines`` rings of p at once (shards
+    line-major).
+    Returns ``(lines*p, n)``, one row per shard. The dispatchers count
+    nothing: the mesh channel's ``_note_tier`` counts each call's tier or
     fallback on every rank, as the JAX package's channel does."""
     shards = ring.as_shards(xs, "ici_all_reduce")
-    p, n = len(shards), shards[0].numel()
+    p = _line_size(shards, lines, "ici_all_reduce")
+    n = shards[0].numel()
     if p == 1:
-        return shards[0].reshape(1, n).clone()
+        return torch.stack(shards)
+    mode = _mesh_mode(mesh_ctx)
+    _check_lines(lines, mode, "ici_all_reduce")
     nbytes = n * shards[0].element_size()
     tier, _ = planned_tier("allreduce", nbytes, shards[0].dtype, op,
                            num_devices=p)
+    if mode == "hw" and tier in ("vmem", "quant"):
+        tier = "hbm"
     if tier == "quant":
         from .quant import quant_ring_all_reduce
         return quant_ring_all_reduce(shards, op)
@@ -332,8 +529,9 @@ def ici_all_reduce(xs: Shards, op: str = "sum") -> torch.Tensor:
             return ring.ring_all_reduce(shards)
         # else the resident kernel's own guard (a raised VMEM edge): stock
     if tier == "hbm":
-        return hbm_ring_all_reduce(shards, op)
-    return _stock_all_reduce(shards, op)
+        return hbm_ring_all_reduce(shards, op, lines=lines)
+    return _per_line(shards, lines, "ici_all_reduce",
+                     lambda sh: _stock_all_reduce(sh, op))
 
 
 def _stock_all_reduce(shards, op):
@@ -345,25 +543,190 @@ def _stock_all_reduce(shards, op):
         .expand(p, n).clone()
 
 
-def ici_all_gather(xs: Shards) -> torch.Tensor:
+def ici_all_gather(xs: Shards, *, lines: int = 1,
+                   mesh_ctx=None) -> torch.Tensor:
     """Tier-dispatched all-gather (tiled): the tier keys on the OUTPUT
-    bytes, ``p`` times the shard. Returns ``(p, p*m)``, one row per
-    rank."""
+    bytes, ``p`` times the shard. Under a multi-axis ``mesh_ctx`` the
+    resident tier clamps to K5 over ``lines`` rings. Returns
+    ``(lines*p, p*m)``, one row per shard."""
     shards = ring.as_shards(xs, "ici_all_gather")
-    p, m = len(shards), shards[0].numel()
+    p = _line_size(shards, lines, "ici_all_gather")
+    m = shards[0].numel()
     if p == 1:
-        return shards[0].reshape(1, m).clone()
+        return torch.stack(shards)
+    mode = _mesh_mode(mesh_ctx)
+    _check_lines(lines, mode, "ici_all_gather")
     out_nbytes = p * m * shards[0].element_size()
     tier, _ = planned_tier("allgather", out_nbytes, shards[0].dtype, None,
                            num_devices=p)
+    if mode == "hw" and tier in ("vmem", "quant"):
+        tier = "hbm"
     if tier == "vmem" and out_nbytes <= ring.VMEM_LIMIT_BYTES:
         return ring.ring_all_gather(shards)
     if tier == "hbm":
-        return hbm_ring_all_gather(shards)
+        return hbm_ring_all_gather(shards, lines=lines)
     # the stock lowering, also past the resident kernel's own guard
-    return _stock_all_gather(shards)
+    return _per_line(shards, lines, "ici_all_gather", _stock_all_gather)
 
 
 def _stock_all_gather(shards):
     p, m = len(shards), shards[0].numel()
     return torch.cat(shards).reshape(1, p * m).expand(p, p * m).clone()
+
+
+def _identity_padded(shards: List[torch.Tensor], n_pad: int,
+                     op: str) -> List[torch.Tensor]:
+    """The shards padded with the op's identity to ``n_pad`` elements,
+    as rows of one new tensor (the shards themselves when no pad is
+    needed)."""
+    n = shards[0].numel()
+    if n_pad == n:
+        return shards
+    x = torch.full((len(shards), n_pad),
+                   _pad_identity(shards[0].dtype, op),
+                   dtype=shards[0].dtype, device=shards[0].device)
+    x[:, :n] = torch.stack(shards)
+    return list(x.unbind(0))
+
+
+def _stock_reduce_scatter(shards, op):
+    """The stock lowering of the tiled reduce-scatter over one line
+    (the JAX ``_xla_reduce_scatter``: psum_scatter for sum, allreduce
+    then the block otherwise): the stock reduction of the identity-padded
+    shards, rank r's block of it."""
+    p = len(shards)
+    nblk = -(-shards[0].numel() // p)
+    y = stock_reduce(torch.stack(_identity_padded(shards, p * nblk, op)),
+                     op)
+    return y.reshape(p, nblk).clone()
+
+
+def ici_reduce_scatter(xs: Shards, op: str = "sum", *, lines: int = 1,
+                       mesh_ctx=None) -> torch.Tensor:
+    """Tier-dispatched reduce-scatter (tiled): each shard's block of its
+    line's folded array, ``(lines*p, ceil(n/p))``. The quant wire has no
+    reduce-scatter form and the resident ring no reduce-scatter entry,
+    so every tier but the stock one (past DEV_TIER_XLA_MIN, or an op or
+    dtype the kernels do not take) streams through K4, which pads."""
+    if op not in _SUPPORTED_OPS:
+        raise NotImplementedError(f"op {op!r} has no device reduction")
+    shards = ring.as_shards(xs, "ici_reduce_scatter")
+    p = _line_size(shards, lines, "ici_reduce_scatter")
+    if p == 1:
+        return torch.stack(shards)
+    nbytes = shards[0].numel() * shards[0].element_size()
+    tier, _ = planned_tier("reduce_scatter", nbytes, shards[0].dtype, op,
+                           num_devices=p)
+    if tier != "xla":
+        return hbm_ring_reduce_scatter(shards, op, lines=lines)
+    return _per_line(shards, lines, "ici_reduce_scatter",
+                     lambda sh: _stock_reduce_scatter(sh, op))
+
+
+# ---------------------------------------------------------------------------
+# multi-axis mesh composition (the 2D/3D mesh decomposition)
+# ---------------------------------------------------------------------------
+
+def _mesh_axes_min() -> int:
+    """The DEV_TIER_AXES_MIN edge: shard bytes at or above it take the
+    per-axis reduce-scatter / all-gather decomposition; below it each
+    axis runs a full allreduce in sequence. -1 = always decompose. The
+    cvar only, as every edge of the port (no profile)."""
+    return int(get_config()["DEV_TIER_AXES_MIN"])
+
+
+def _axes(axes) -> Tuple[Tuple[str, int], ...]:
+    return tuple((str(a), int(s)) for a, s in axes)
+
+
+def _axis_phase(rows: List[torch.Tensor], axes, k: int,
+                phase) -> List[torch.Tensor]:
+    """One per-axis phase: ``rows`` (one per rank, rank order, row-major
+    over ``axes``) regrouped into the lines of axis ``k`` (line-major:
+    the other coordinates row-major, then the axis coordinate), handed to
+    ``phase(shards, lines)``, and its output rows put back in rank order
+    (views, no copy)."""
+    sizes = [s for _, s in axes]
+    order = torch.arange(len(rows)).reshape(sizes).movedim(k, -1) \
+        .reshape(-1).tolist()
+    out = phase([rows[i] for i in order], len(rows) // sizes[k]).unbind(0)
+    back: List[torch.Tensor] = [None] * len(rows)   # type: ignore[list-item]
+    for j, i in enumerate(order):
+        back[i] = out[j]
+    return back
+
+
+def _mesh_shards(xs: Shards, axes, what: str):
+    axes = _axes(axes)
+    shards = ring.as_shards(xs, what)
+    total = 1
+    for _, s in axes:
+        total *= s
+    if len(shards) != total:
+        raise ValueError(f"{what}: {len(shards)} shards on a mesh of "
+                         f"{total} ranks {axes}")
+    live = [k for k, (_, s) in enumerate(axes) if s > 1]
+    return axes, shards, live
+
+
+def ici_all_reduce_mesh(xs: Shards, axes, op: str = "sum"
+                        ) -> List[torch.Tensor]:
+    """Allreduce over a multi-axis mesh (``axes``: ordered (name, size)
+    pairs; shards in rank order, row-major), decomposed into per-axis
+    ring phases: reduce-scatter down the axis list, all-gather back up
+    (RS-x, RS-y, AG-y, AG-x on a 2-D mesh: K4, K4, K5, K5), each phase
+    one launch over all the axis's lines, on a payload shrunk by the axes
+    already folded. The shards are padded once to a multiple of the
+    mesh extent. Below DEV_TIER_AXES_MIN each live axis runs a full
+    allreduce in sequence instead (K3 a phase). Unit axes are skipped; a
+    single live axis is one allreduce, still under the multi-axis
+    context. Returns one row per rank, in rank order."""
+    axes, shards, live = _mesh_shards(xs, axes, "ici_all_reduce_mesh")
+    if not live:
+        return [s.clone() for s in shards]
+
+    def allreduce(sh, lines):
+        return ici_all_reduce(sh, op, lines=lines, mesh_ctx=axes)
+    n = shards[0].numel()
+    amin = _mesh_axes_min()
+    if len(live) == 1 or (amin >= 0 and n * shards[0].element_size() < amin):
+        y = shards
+        for k in live:
+            y = _axis_phase(y, axes, k, allreduce)
+        return y
+    ptot = len(shards)
+    y = _identity_padded(shards, -(-n // ptot) * ptot, op)
+    for k in live:
+        y = _axis_phase(y, axes, k, lambda sh, lines: ici_reduce_scatter(
+            sh, op, lines=lines, mesh_ctx=axes))
+    for k in reversed(live):
+        y = _axis_phase(y, axes, k, lambda sh, lines: ici_all_gather(
+            sh, lines=lines, mesh_ctx=axes))
+    return [r[:n] for r in y]
+
+
+def ici_all_gather_mesh(xs: Shards, axes) -> List[torch.Tensor]:
+    """All-gather over a multi-axis mesh (tiled): the innermost axis
+    first, then outward, so the blocks land in rank order. Returns one
+    row of ``size * m`` per rank, in rank order."""
+    axes, shards, live = _mesh_shards(xs, axes, "ici_all_gather_mesh")
+    y = shards
+    for k in reversed(live):
+        y = _axis_phase(y, axes, k, lambda sh, lines: ici_all_gather(
+            sh, lines=lines, mesh_ctx=axes))
+    return [r.clone() for r in y] if not live else y
+
+
+def ici_reduce_scatter_mesh(xs: Shards, axes, op: str = "sum"
+                            ) -> List[torch.Tensor]:
+    """Reduce-scatter over a multi-axis mesh (tiled): the outermost axis
+    first, then inward, so rank (i, j) of a row-major 2-D mesh ends with
+    block ``i*py + j``, its rank's block. The shard length must be a
+    multiple of the mesh extent for exact tiling (callers pad). Returns
+    one row per rank, in rank order."""
+    axes, shards, live = _mesh_shards(xs, axes, "ici_reduce_scatter_mesh")
+    y = shards
+    for k in live:
+        y = _axis_phase(y, axes, k, lambda sh, lines: ici_reduce_scatter(
+            sh, op, lines=lines, mesh_ctx=axes))
+    return [r.clone() for r in y] if not live else y

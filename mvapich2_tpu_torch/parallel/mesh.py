@@ -1,39 +1,57 @@
 """Device meshes of the port (counterpart of the JAX package's
-``parallel/mesh.py`` ``make_mesh``).
+``parallel/mesh.py`` ``make_mesh``, ``mesh_shape_for`` and ``MeshComm``).
 
-A mesh here is a 1-D line of ``p`` ranks bound one to one to ``p``
-virtual devices that all live on one ``torch.device``: ``p`` virtual
+A mesh here is ``size`` virtual devices laid out on one or more named
+axes (an ordered ``shape``), all living on one ``torch.device``: virtual
 ranks inside one card's memory (the GPU analog of the JAX tests'
-8-device virtual CPU mesh), or on the CPU for the tests. Each rank's
-shard is its own allocation; one kernel launch covers all ``p`` ranks
-(``ops/ring.py``, ``ops/ici.py``). Multi-axis meshes are not ported.
+8-device virtual CPU mesh), or on the CPU for the tests. Ranks sit
+row-major over the axes, as the JAX package flattens its device array:
+on a ``(2, 4)`` mesh ``("x", "y")`` rank ``i*4 + j`` has coordinates
+``(i, j)``. Each rank's shard is its own allocation; one kernel launch
+covers all the ranks of a collective phase (``ops/ring.py``,
+``ops/ici.py``).
 
 ``MeshComm`` is a trimmed counterpart of the JAX package's: the mesh,
 its axis, its size and its device, which ``rma/device.py``'s
 ``DeviceWin`` takes, and ``run``, the counterpart of its ``shard_map``
 launch. Code run under it sees every rank's shard at once, stacked on
-dim 0 (``ops/collectives.py``).
+dim 0 (``ops/collectives.py``). It spans one axis of a 1-D mesh; a
+mesh of two or more axes raises ``NotImplementedError`` (the
+multi-axis ``MeshComm.run`` comes with the models slice of ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 
 class Mesh:
-    """``p`` ranks on one named axis over one device."""
+    """Ranks on named axes over one device: ``shape`` maps each axis
+    name to its extent, in order; ``size`` is their product."""
 
-    def __init__(self, size: int, axis_name: str, device: torch.device):
-        self.size = int(size)
-        self.axis_names: Tuple[str, ...] = (str(axis_name),)
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device: torch.device):
+        shape = tuple(int(s) for s in shape)
+        self.axis_names: Tuple[str, ...] = tuple(str(a) for a in axis_names)
+        if len(shape) != len(self.axis_names) or not shape:
+            raise ValueError(f"mesh shape {shape} does not match axes "
+                             f"{self.axis_names}")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"repeated mesh axis in {self.axis_names}")
+        if min(shape) < 1:
+            raise ValueError(f"mesh extents must be >= 1, got {shape}")
+        self._extents = shape
+        self.size = math.prod(shape)
         self.device = torch.device(device)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.axis_names[0]: self.size}
+        return dict(zip(self.axis_names, self._extents))
 
     @property
     def devices(self) -> List[torch.device]:
@@ -41,30 +59,48 @@ class Mesh:
         return [self.device] * self.size
 
     def __repr__(self):
-        return (f"Mesh({self.axis_names[0]}={self.size}, "
-                f"device={self.device})")
+        axes = ", ".join(f"{a}={s}" for a, s in self.shape.items())
+        return f"Mesh({axes}, device={self.device})"
 
 
-def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
-              device) -> Mesh:
-    """A 1-D mesh of ``shape[0]`` virtual ranks on ``device`` (a
-    ``torch.device`` or its name, e.g. ``"cuda:0"`` or ``"cpu"``)."""
-    shape = tuple(int(s) for s in shape)
+def mesh_shape_for(n: int, naxes: int = 2) -> Tuple[int, ...]:
+    """Near-square factorization of ``n`` devices into ``naxes`` axes
+    (own copy of the JAX package's)."""
+    if naxes == 1:
+        return (n,)
+    best = (1, n)
+    for a in range(1, int(math.isqrt(n)) + 1):
+        if n % a == 0:
+            best = (a, n // a)
+    if naxes == 2:
+        return best
+    return (best[0],) + mesh_shape_for(best[1], naxes - 1)
+
+
+def make_mesh(shape: Optional[Sequence[int]] = None,
+              axis_names: Sequence[str] = ("x",), device=None) -> Mesh:
+    """A mesh of virtual ranks on ``device`` (a ``torch.device`` or its
+    name, e.g. ``"cuda:0"`` or ``"cpu"``; ``None`` is ``cuda:0``).
+    ``shape=None`` factors 8 ranks (the JAX tests' device count)
+    near-square over the axes, as the JAX ``make_mesh`` factors its
+    devices."""
     axis_names = tuple(axis_names)
-    if len(shape) != 1 or len(axis_names) != 1:
-        raise NotImplementedError(
-            f"mesh shape {shape} over axes {axis_names}: only 1-D meshes "
-            f"are ported")
-    if shape[0] < 1:
-        raise ValueError(f"mesh size must be >= 1, got {shape[0]}")
+    if shape is None:
+        shape = mesh_shape_for(8, len(axis_names))
     from ..runtime.universe import resolve_device
-    return Mesh(shape[0], axis_names[0], resolve_device(device))
+    return Mesh(shape, axis_names, resolve_device(device))
 
 
 class MeshComm:
-    """A communicator over the mesh's one axis."""
+    """A communicator over the one axis of a 1-D mesh."""
 
     def __init__(self, mesh: Mesh, axis=None):
+        if len(mesh.axis_names) > 1:
+            raise NotImplementedError(
+                f"MeshComm over the {len(mesh.axis_names)}-axis mesh "
+                f"{mesh}: a multi-axis MeshComm is not ported (ROADMAP "
+                f"queue 1, the models slice); the collectives of "
+                f"run_ranks(device_mesh=...) take multi-axis meshes")
         if axis is None:
             axis = mesh.axis_names[0]
         if axis not in mesh.axis_names:

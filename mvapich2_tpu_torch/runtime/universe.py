@@ -2,8 +2,10 @@
 ``runtime/universe.py`` ``local_universe``/``run_ranks``).
 
 Ranks are threads of one process, each with its own ``Universe`` and
-``COMM_WORLD``, bound to one device: through the slot channel, or one to
-one to the virtual devices of a ``device_mesh`` (``parallel/mesh.py``).
+``COMM_WORLD``, bound to one device: through the slot channel, one to
+one to the virtual devices of a ``device_mesh`` (``parallel/mesh.py``,
+1-D or multi-axis), or ``k`` ranks to each of its devices (the fold
+channel).
 The device is ``cuda:0`` unless the caller names another; without a
 CUDA device the caller must ask for the CPU (``device="cpu"``, or a mesh
 made on the CPU), or the harness raises. The host transport
@@ -53,9 +55,11 @@ class Universe:
 def local_universe(nranks: int, device: DeviceLike = None,
                    device_mesh=None) -> List[Universe]:
     """Build ``nranks`` thread-rank universes. With ``device_mesh`` (a
-    ``parallel.mesh.Mesh``) of ``nranks`` ranks, their COMM_WORLDs bind
-    the 1:1 mesh channel on the mesh's device; without one they share
-    ``device`` through the slot channel (coll/device.py)."""
+    ``parallel.mesh.Mesh``) of ``nranks`` devices, their COMM_WORLDs bind
+    the 1:1 mesh channel on the mesh's device; of fewer devices that
+    divide the ranks, the fold channel; without one (or with one
+    device) they share ``device`` through the slot channel
+    (coll/device.py ``bind_universes``)."""
     if nranks < 1:
         raise ValueError(f"nranks must be >= 1, got {nranks}")
     if device_mesh is not None:

@@ -8,7 +8,8 @@
 * the ring engine's knobs ``ICI_CHUNK_BYTES``, ``ICI_PIPELINE_DEPTH`` and
   ``ICI_BIDIR`` (``ops/ici.py``);
 * the device tier edges ``DEV_TIER_VMEM_MAX``, ``DEV_TIER_XLA_MIN`` and
-  ``DEV_TIER_QUANT_MIN`` (-1 = never), and the quant budget
+  ``DEV_TIER_QUANT_MIN`` (-1 = never), the multi-axis mesh edge
+  ``DEV_TIER_AXES_MIN`` (-1 = always decompose), and the quant budget
   ``QUANT_COLL`` (``coll/tuning.py`` ``device_tier``); ``QUANT_BLOCK``,
   the quantization block in bytes (``ops/quant.py``);
 * the one-sided knobs ``RMA_CHUNK_BYTES`` (0 inherits
@@ -105,6 +106,7 @@ DEVICE_CVARS = {
     "DEV_TIER_VMEM_MAX": 4 * 1024 * 1024,
     "DEV_TIER_XLA_MIN": -1,
     "DEV_TIER_QUANT_MIN": 1024 * 1024,
+    "DEV_TIER_AXES_MIN": 4096,
     "QUANT_COLL": "",
     "RMA_CHUNK_BYTES": 0,
     "DEV_RMA_RDMA_MIN": 0,

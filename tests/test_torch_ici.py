@@ -314,7 +314,8 @@ def test_dispatch_stock_lowering(env):
     assert mpit.pvar("dev_coll_fallback_size").read() == before
     assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 0,
                                "hbm_ring_all_gather": 0,
-                               "quant_ring_all_reduce": 0}
+                               "quant_ring_all_reduce": 0,
+                               "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0}
     # every rank gets its own output
     assert got[0].data_ptr() != got[1].data_ptr()
 
@@ -333,4 +334,5 @@ def test_cuda_request_without_card_raises(monkeypatch):
         quant.quant_ring_all_reduce(meta)
     assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 0,
                                "hbm_ring_all_gather": 0,
-                               "quant_ring_all_reduce": 0}
+                               "quant_ring_all_reduce": 0,
+                               "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0}

@@ -195,7 +195,7 @@ def test_config_reads_the_reference_env_names(monkeypatch):
     assert set(config.DEVICE_CVARS) == {
         "ICI_CHUNK_BYTES", "ICI_PIPELINE_DEPTH", "ICI_BIDIR",
         "DEV_TIER_VMEM_MAX", "DEV_TIER_XLA_MIN", "DEV_TIER_QUANT_MIN",
-        "QUANT_COLL", "RMA_CHUNK_BYTES", "DEV_RMA_RDMA_MIN",
+        "DEV_TIER_AXES_MIN", "QUANT_COLL", "RMA_CHUNK_BYTES", "DEV_RMA_RDMA_MIN",
         "DEV_RMA_QUANT_MIN", "QUANT_BLOCK", "DEVICE_COLL_MIN_BYTES"}
     # size suffixes and a reload, as in the JAX package
     cfg = config.Config({"ICI_CHUNK_BYTES": 1, "ICI_BIDIR": True})

@@ -31,6 +31,7 @@ from mvapich2_tpu_torch import make_mesh, mpit, run_ranks
 from mvapich2_tpu_torch.coll.device import DeviceCollChannel, HBMSlotChannel
 from mvapich2_tpu_torch.core import op as top
 from mvapich2_tpu_torch.ops import hbm, ici, ring
+from mvapich2_tpu_torch.parallel import MeshComm
 from mvapich2_tpu_torch.utils.config import get_config
 
 NP = 8
@@ -149,7 +150,8 @@ def test_streaming_tier_parity(env):
     mine, ref = _both(app)
     assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 1,
                                "hbm_ring_all_gather": 1,
-                               "quant_ring_all_reduce": 0}
+                               "quant_ring_all_reduce": 0,
+                               "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0}
     assert ring.PLAIN_CALLS == {"ring_all_reduce": 0, "ring_all_gather": 0}
     assert mpit.pvar("dev_coll_tier_hbm").read() == hbm0 + 2 * NP
     for got, want in zip(mine, ref):
@@ -204,7 +206,8 @@ def test_stock_lowering_counts_once_per_rank(env):
     assert _counts() == ({"ring_all_reduce": 0, "ring_all_gather": 0},
                          {"hbm_ring_all_reduce": 0,
                           "hbm_ring_all_gather": 0,
-                          "quant_ring_all_reduce": 0})
+                          "quant_ring_all_reduce": 0,
+                          "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0})
     for ar, ag in mine:
         np.testing.assert_array_equal(ar, data.sum(0))
         np.testing.assert_array_equal(ag, data[:, :40].reshape(-1))
@@ -305,15 +308,25 @@ def test_one_rank_mesh_binds_the_mesh_channel(env):
 
 
 def test_unported_geometry_and_alltoall_raise(env):
-    """The fold geometry and multi-axis meshes raise; so does alltoallv
-    on the slot channel, which keeps the host path in the JAX package.
-    Alltoall itself runs on the 1:1 channel (K10)."""
-    with pytest.raises(NotImplementedError, match="fold channel"):
-        run_ranks(8, lambda c: None, device_mesh=make_mesh((4,), ("x",),
+    """What still raises: a mesh that neither covers the ranks one to one
+    nor divides them (the JAX package's host path), alltoall(v) on the
+    fold channel, MeshComm on a multi-axis mesh, and alltoallv on the
+    slot channel, which keep the host path in the JAX package. Alltoall
+    itself runs on the 1:1 channel (K10)."""
+    with pytest.raises(NotImplementedError, match="host path"):
+        run_ranks(6, lambda c: None, device_mesh=make_mesh((4,), ("x",),
                                                            "cpu"))
-    with pytest.raises(NotImplementedError, match="1-D"):
-        make_mesh((2, 4), ("x", "y"), "cpu")
     ones = [1] * NP
+    fold = make_mesh((4,), ("x",), "cpu")
+    for call in (lambda c: c.alltoall(np.arange(NP, dtype=np.float32)),
+                 lambda c: c.alltoallv(np.arange(NP, dtype=np.float32),
+                                       ones, None, None, ones, None)):
+        with pytest.raises(RuntimeError) as ei:
+            run_ranks(NP, call, device_mesh=fold, timeout=30)
+        assert isinstance(ei.value.__cause__, NotImplementedError)
+        assert "fold channel" in str(ei.value.__cause__)
+    with pytest.raises(NotImplementedError, match="models slice"):
+        MeshComm(make_mesh((2, 4), ("x", "y"), "cpu"))
     with pytest.raises(RuntimeError) as ei:
         run_ranks(NP, lambda c: c.alltoallv(np.arange(NP, dtype=np.float32),
                                             ones, None, None, ones, None),
@@ -365,7 +378,8 @@ def test_quant_tier_end_to_end(env, monkeypatch):
     mine, ref = _both(app)
     assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 0,
                                "hbm_ring_all_gather": 1,
-                               "quant_ring_all_reduce": 1}
+                               "quant_ring_all_reduce": 1,
+                               "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0}
     for got, want in zip(mine, ref):
         np.testing.assert_array_equal(got.view(np.int32),
                                       np.asarray(want).view(np.int32))
@@ -402,7 +416,8 @@ def test_quant_bin_ineligible_calls_run_exact(env):
     mine, ref = _both(app)
     assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 2,
                                "hbm_ring_all_gather": 1,
-                               "quant_ring_all_reduce": 0}
+                               "quant_ring_all_reduce": 0,
+                               "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0}
     assert mpit.pvar("dev_coll_tier_quant").read() == q0
     assert mpit.pvar("dev_coll_tier_hbm").read() == h0 + 3 * NP
     for got, want in zip(mine, ref):
