@@ -63,7 +63,12 @@ non-zero, printing no result, without them. Phases:
    window row compared: f32, bf16, f16, i32, i8 and u8, counts below one
    16-byte vector, misaligned disp, partial tail chunks, chunk_bytes 16
    and the default, depth 2/3/4, origin == target at p = 2 and 8, and
-   N - 7 elements at disp 5 of a 64 MiB-a-rank window. Then the path:
+   N - 7 elements at disp 5 of a 64 MiB-a-rank window; the direct copy
+   of K12/K13 on f32, bf16 and i8 at every disp residue mod 16 bytes,
+   sources at offset 0 and 1, counts around the vector width and one
+   grid-stride pass; K12, K14 and K17 with a source that overlaps the
+   target range, against the plain versions on a cloned source. Then
+   the path:
    the OSU one-sided band (mvapich2_tpu_torch.bench.osu_rma, 1 KiB to
    4 MiB, 32 ops a fence, 3 + 12 fences, put/get/accumulate from rank 0
    to rank 7) on a DeviceWin of 64 MiB f32 a rank over 8 virtual ranks,
@@ -82,11 +87,14 @@ non-zero, printing no result, without them. Phases:
    version and the library call; the staging stack; the end-to-end
    allreduce latency and effective bandwidth (2*R*m/t) of both paths;
    the end-to-end alltoall latency of the mesh path; the RMA kernels at
-   64 MiB and the OSU band; K15 and K16 beside
+   64 MiB, K12/K13 misaligned (N - 7 at disp 5) and at 1 KiB and 64 KiB
+   beside copy_, and the OSU band; K15 and K16 beside
    scaled_dot_product_attention on the same blocks; K4 at 8 x 64 MiB and
    as the (2, 4) RS-x phase, K8 at 8 x 64 MiB, and the e2e latency of
    the fold and (2, 4) allreduces beside the 1-D mesh call;
-11. profiles: one MoE step of each routing shape, one fence of 32 RMA
+11. profiles: the host side of one fence of 32 puts and 32 gets at 1
+   KiB (perf_counter splits and cProfile's top entries), then under
+   torch.profiler one MoE step of each routing shape, one fence of 32 RMA
    ops (put, get, accumulate at 1 KiB and 4 MiB), one 64 MiB allreduce
    on the 1-D mesh, the fold and the (2, 4) mesh, and one call of each
    attention path, under torch.profiler: device time by kernel group
@@ -94,14 +102,15 @@ non-zero, printing no result, without them. Phases:
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
-only phases 1 and 2, then the ring kernels' launch-shape sweep
-(``phase_sweep``), which chose the ring launch shape in
-``coll/tuning.py``.
+only phases 1 and 2, then the launch-shape sweeps of the ring kernels
+(``phase_sweep``) and of the K12/K13 copy (``phase_copy_sweep``), which
+chose the launch shapes in ``coll/tuning.py``.
 """
 
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -121,6 +130,8 @@ SOURCES = ("hbm_slot", "ring", "flash")   # mvapich2_tpu_torch/csrc/<name>.cu
 # ring kernels whose registers and spills [build] prints
 REG_REPORT = ("hbm_ring_all_reduce", "hbm_ring_reduce_scatter",
               "hbm_ring_all_gather", "remote_sendrecv")
+# element types of the K12/K13 copy instances, as their names mangle them
+COPY_TYPES = {"j": "u32", "t": "u16", "h": "u8"}
 RMA_KINDS = ("f32", "bf16", "f16", "i32", "i8", "u8", "u16", "u32")
 # integer kinds compared bit for bit; uint16/uint32 have their plain
 # versions run on the CPU (torch's CUDA build implements few operations
@@ -193,8 +204,12 @@ def phase_build(_build):
                 entry = ln.split("'")[1] if "'" in ln else ln
             elif entry and ("registers" in ln or "spill" in ln):
                 kern = [k for k in REG_REPORT if k in entry]
-                if "quant" in entry or (kern and ("IfLi0E" in entry
-                                                  or "IjE" in entry)):
+                copy = re.search(r"rma_copy_kernelI(\w)E", entry)
+                if copy:
+                    log(f"[build] rma_copy_kernel<"
+                        f"{COPY_TYPES[copy.group(1)]}>: {ln.strip()}")
+                elif "quant" in entry or (kern and ("IfLi0E" in entry
+                                                    or "IjE" in entry)):
                     log(f"[build] {(kern or [entry[:60]])[0]}: "
                         f"{ln.strip()}")
     log(f"[build] built and loaded {', '.join(SOURCES)} in {dt:.2f} s")
@@ -705,10 +720,74 @@ def phase_rma_kernels(torch, np, rma, ring, dev):
     for op, key in zip(ops, ("K12", "K13", "K14", "K17")):
         run(op, R, N, N - 7, 5, 0, R - 1, "f32", None, None, key, win, src)
     del win, src
+    n_checks += _copy_checks(torch, np, rma, ring, dev)
     log(f"[kernels] {n_checks} RMA kernel-vs-plain checks passed, bitwise "
         f"(64 MiB-a-rank max abs err: "
         + ", ".join(f"{k} {v:.3g}" for k, v in full_err.items()) + ")")
     return full_err
+
+
+COPY_KINDS = (("f32", 4), ("bf16", 2), ("i8", 1))
+
+
+def _copy_checks(torch, np, rma, ring, dev):
+    """The direct copy of K12 and K13, bitwise, the whole window
+    compared, on f32, bf16 and i8: every disp residue mod 16 bytes, into
+    row 1 of a window whose rows are not 16-byte multiples (so the row
+    itself starts misaligned), a put source at offset 0 and 1 element of
+    a larger tensor, n at 1, the vector width V - 1, V, V + 1 and 3V + 5,
+    and at one grid-stride pass - 1, + 0, + 1 and + 2V (disps 0, 1 and
+    V - 1);
+    then the overlap repair: K12, K14 and K17 with a source that is a
+    view of the window, before the target range, after it, and the range
+    itself, against the plain versions on a cloned source. Returns the
+    number of checks."""
+    rng = np.random.default_rng(SEED + 975)
+    checks = 0
+
+    def check(what, got, want):
+        nonlocal checks
+        torch.cuda.synchronize()
+        ring.check_errors()
+        _compare(torch, what, got, want, "i32")
+        checks += 1
+
+    for kind, esize in COPY_KINDS:
+        v = 16 // esize
+        one_pass = rma.copy_pass(dev, esize)
+        cases = [(n, d) for n in (1, v - 1, v, v + 1, 3 * v + 5)
+                 for d in range(v)]
+        cases += [(n, d) for n in (one_pass - 1, one_pass, one_pass + 1,
+                                   one_pass + 2 * v)
+                  for d in (0, 1, v - 1)]
+        length = one_pass + 3 * v + 3      # rows not 16-byte multiples
+        base = _data(torch, np, rng, (2, length), kind, dev)
+        big = _data(torch, np, rng, (one_pass + 2 * v + 1,), kind, dev)
+        for n, d in cases:
+            for off in (0, 1):
+                src = big[off:off + n]
+                got, want = base.clone(), base.clone()
+                rma.rma_put(src, got, 0, 1, d)
+                rma.rma_put_ref(src, want, 0, 1, d)
+                check(f"K12 {kind} n={n} disp={d} src+{off}", got, want)
+            got = base.clone()
+            out = rma.rma_get(got, n, 0, 1, d)
+            check(f"K13 {kind} n={n} disp={d}", out,
+                  rma.rma_get_ref(base, n, 0, 1, d))
+            check(f"K13 {kind} n={n} disp={d} window", got, base)
+        del base, big
+    # the overlap repair: sources that are views of the target range's row
+    base = _data(torch, np, rng, (2, 4096 + 64), "i32", dev)
+    n, d = 4096, 32
+    for op, ref in (("rma_put", rma.rma_put_ref),
+                    ("rma_accumulate", rma.rma_accumulate_ref),
+                    ("direct_put", rma.rma_put_ref)):
+        for shift in (-29, -1, 0, 1, 29):
+            got, want = base.clone(), base.clone()
+            getattr(rma, op)(got[1, d + shift:d + shift + n], got, 0, 1, d)
+            ref(want[1, d + shift:d + shift + n].clone(), want, 0, 1, d)
+            check(f"{op} overlap {shift:+d}", got, want)
+    return checks
 
 
 def phase_main_path(torch, np, mvt, hbm, opmod, dev):
@@ -1491,6 +1570,52 @@ def phase_rma_profile(torch, osu, dev):
     return split
 
 
+def phase_rma_host_profile(torch, dev, top=15):
+    """The host side of one fence of 32 puts and 32 gets at 1 KiB (rank 0
+    to rank 7 of a DeviceWin of 64 MiB f32 a rank), after a warm-up
+    fence: perf_counter splits of the enqueue (64 calls) and of the fence
+    (tier plan, launches and the completion wave), median of 5; then one
+    fence under cProfile and its entries with the most cumulative time.
+    Run before torch.profiler, which slows every later host call."""
+    import cProfile
+    import io
+    import pstats
+    from mvapich2_tpu_torch.parallel import MeshComm, make_mesh
+    from mvapich2_tpu_torch.rma import DeviceWin
+    win = DeviceWin(MeshComm(make_mesh((R,), ("x",), dev)), N)
+    src = torch.ones(256, device=dev)
+
+    def fence():
+        t0 = time.perf_counter()
+        for _ in range(32):
+            win.put(src, 0, R - 1)
+        for _ in range(32):
+            win.get(256, 0, R - 1)
+        t1 = time.perf_counter()
+        win.fence()
+        return t1 - t0, time.perf_counter() - t1
+
+    fence()
+    splits = [fence() for _ in range(5)]
+    enq = statistics.median(a for a, _ in splits) * 1e6
+    fen = statistics.median(b for _, b in splits) * 1e6
+    prof = cProfile.Profile()
+    prof.enable()
+    fence()
+    prof.disable()
+    text = io.StringIO()
+    pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(top)
+    lines = [ln for ln in text.getvalue().splitlines() if ln.strip()]
+    log(f"[rma] host time of one fence of 32 puts + 32 gets at 1 KiB: "
+        f"enqueue {enq:.1f} us, fence {fen:.1f} us, "
+        f"{(enq + fen) / 64:.2f} us an op (median of 5); cProfile of one "
+        f"fence, top {top} by cumulative time:")
+    for ln in lines:
+        log(f"[rma]   {ln}")
+    return {"enqueue_us": enq, "fence_us": fen,
+            "per_op_us": (enq + fen) / 64, "cprofile_top": lines}
+
+
 def phase_times(torch, hbm, timing, info, inputs, lat, launches, full_err):
     bw = info.hbm_bw_gbps * 1e9
     if bw <= 0:
@@ -1780,13 +1905,36 @@ def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
     return rows, extra
 
 
+def _queued_ms(torch, fn, iters=20):
+    """Device time in ms of one small ``fn()``, median of ``iters``
+    after a warm-up: each call and its two CUDA events are queued behind
+    a sleep kernel, so the events bracket the card's work and not the
+    host's enqueue (which, at a few KiB, takes longer than the kernel)."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
                     art, dev):
     """K12, K13, K14 and K17 at the path's whole-window shape (N f32
     elements, origin 0, target 7, disp 0), by CUDA events, beside their
     bound (2 bytes a payload byte, 3 for the accumulate), their schedule
-    bound through the landing slot (4 moves, 5 for the accumulate), their
-    plain versions and the library call; and the OSU band of the path."""
+    bound (K12/K13 the bound: one direct copy; K14/K17 through the
+    landing slot, 5 and 4 moves), their plain versions and the library
+    call; K12 and K13 also at N - 7 elements at disp 5 (misaligned by 4
+    bytes against the source) and at one op of 1 KiB and 64 KiB (those
+    two queued behind a sleep kernel, ``_queued_ms``), each beside copy_
+    on the same tensors; and the OSU band of the path."""
     bw = info.hbm_bw_gbps * 1e9
     gen = torch.Generator(device=dev).manual_seed(SEED + 1100)
     win = torch.randn(R, N, generator=gen, device=dev)
@@ -1797,15 +1945,15 @@ def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
     rows = []
     for name, kern, src_line, fn, plain, lib, nbytes, sched, formula in (
             ("rma_put", "K12", "mvapich2_tpu/ops/pallas_rma.py:398",
-             lambda: rma.rma_put(src, win, 0, t, scratch=sc),
+             lambda: rma.rma_put(src, win, 0, t),
              lambda: rma.rma_put_ref(src, win, 0, t),
-             lambda: win[t].copy_(src), 2 * nb, 4 * nb,
-             "4n: read src, write slot, read slot, write window"),
+             lambda: win[t].copy_(src), 2 * nb, 2 * nb,
+             "2n: read src, write window"),
             ("rma_get", "K13", "mvapich2_tpu/ops/pallas_rma.py:429",
-             lambda: rma.rma_get(win, N, 0, t, scratch=sc),
+             lambda: rma.rma_get(win, N, 0, t),
              lambda: rma.rma_get_ref(win, N, 0, t),
-             lambda: out.copy_(win[t]), 2 * nb, 4 * nb,
-             "4n: read window, write slot, read slot, write result"),
+             lambda: out.copy_(win[t]), 2 * nb, 2 * nb,
+             "2n: read window, write result"),
             ("rma_accumulate", "K14", "mvapich2_tpu/ops/pallas_rma.py:458",
              lambda: rma.rma_accumulate(src, win, 0, t, scratch=sc),
              lambda: rma.rma_accumulate_ref(src, win, 0, t),
@@ -1829,12 +1977,38 @@ def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
                      "bound_by": "bytes", "library_ms": lib_ms,
                      "schedule_bound_ms": sched / bw * 1e3,
                      "schedule_bytes": formula})
+    # K12/K13 off the aligned shape: N - 7 at disp 5, and one small op
+    m = N - 7
+    shapes = {"misaligned": (
+        lambda: rma.rma_put(src[:m], win, 0, t, 5),
+        lambda: win[t, 5:5 + m].copy_(src[:m]),
+        lambda: rma.rma_get(win, m, 0, t, 5),
+        lambda: out[:m].copy_(win[t, 5:5 + m]))}
+    for size in (1 << 10, 64 << 10):
+        k = size // 4
+        shapes[str(size)] = (
+            lambda k=k: rma.rma_put(src[:k], win, 0, t),
+            lambda k=k: win[t, :k].copy_(src[:k]),
+            lambda k=k: rma.rma_get(win, k, 0, t),
+            lambda k=k: out[:k].copy_(win[t, :k]))
+    for shape, (put, put_lib, get, get_lib) in shapes.items():
+        clock = timing.time_ms if shape == "misaligned" else \
+            (lambda f: _queued_ms(torch, f))
+        for row, fn, lib in ((rows[0], put, put_lib),
+                             (rows[1], get, get_lib)):
+            row.setdefault("shapes", {})[shape] = {
+                "ms": clock(fn), "library_ms": clock(lib)}
+    ring.check_errors()
     extra = {"osu_rma": art}
     log("[times] RMA kernels at 64 MiB " + "; ".join(
         f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}, schedule "
         f"bound {k['schedule_bound_ms']:.4f}, plain {k['plain_ms']:.4f}, "
         f"library {k['library_ms']:.4f}), launches {k['launches']}"
         for k in rows))
+    log("[times] K12/K13 off the aligned shape, ms (copy_ beside): "
+        + "; ".join(f"{k['name']} {shape} {v['ms']:.4f} "
+                    f"({v['library_ms']:.4f})"
+                    for k in rows[:2] for shape, v in k["shapes"].items()))
     res, lat = art["results"], art["latency_us"]
     for kind, band in (("put", "dev_put_bw"), ("get", "dev_get_bw"),
                        ("acc", "dev_acc_bw")):
@@ -2673,12 +2847,60 @@ def phase_sweep(torch, ici, ring, tuning, timing, dev):
     return rows
 
 
+def phase_copy_sweep(torch, rma, tuning, timing, dev):
+    """The launch-shape sweep of the K12/K13 direct copy (``--sweep``):
+    threads per block at the path's shapes: K12 and K13 of N f32
+    elements at disp 0, K12 of N - 7 at disp 5 and of 4N - 3 i8 elements at disp 1 (misaligned),
+    by CUDA events (median of 20 after 3), each first held bitwise
+    against the plain version, with copy_ on the same tensors beside.
+    Restores the compiled-in shape. Returns the rows."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1200)
+    win = torch.randn(R, N, generator=gen, device=dev)
+    src = torch.randn(N, generator=gen, device=dev)
+    out = torch.empty_like(src)
+    win8, src8 = win.view(torch.int8), src.view(torch.int8)
+    m, m8, t = N - 7, 4 * N - 3, R - 1
+    cases = {
+        "put f32 disp 0": (lambda: rma.rma_put(src, win, 0, t),
+                           lambda: win[t].copy_(src),
+                           lambda: torch.equal(win[t], src)),
+        "get f32 disp 0": (lambda: rma.rma_get(win, N, 0, t),
+                           lambda: out.copy_(win[t]), None),
+        "put f32 disp 5": (lambda: rma.rma_put(src[:m], win, 0, t, 5),
+                           lambda: win[t, 5:5 + m].copy_(src[:m]),
+                           lambda: torch.equal(win[t, 5:5 + m], src[:m])),
+        "put i8 disp 1": (lambda: rma.rma_put(src8[:m8], win8, 0, t, 1),
+                          lambda: win8[t, 1:1 + m8].copy_(src8[:m8]),
+                          lambda: torch.equal(win8[t, 1:1 + m8],
+                                              src8[:m8])),
+    }
+    keep = tuning.kernel_param("rma_copy_threads", 256)
+    rows = []
+    for threads in (128, 256, 512, 1024):
+        tuning.set_kernel_param("rma_copy_threads", threads)
+        for case, (fn, lib, ok) in cases.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if ok is None:
+                ok = (lambda g=got: torch.equal(g, win[t]))
+            if not ok():
+                raise AssertionError(f"copy sweep {case} threads={threads}:"
+                                     f" kernel and plain version disagree")
+            rows.append({"kernel": "K12/K13 " + case, "threads": threads,
+                         "ms": timing.time_ms(fn),
+                         "library_ms": timing.time_ms(lib)})
+            log(f"[sweep] {rows[-1]}")
+    tuning.set_kernel_param("rma_copy_threads", keep)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
     ap.add_argument("--sweep", action="store_true",
-                    help="run only the ring kernels' launch-shape sweep "
-                    "(after the device and build phases)")
+                    help="run only the launch-shape sweeps of the ring "
+                    "kernels and of the K12/K13 copy (after the device "
+                    "and build phases)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2712,6 +2934,7 @@ def main(argv=None):
     if args.sweep:
         from mvapich2_tpu_torch.coll import tuning
         rows = phase_sweep(torch, ici, ring, tuning, timing, dev)
+        rows += phase_copy_sweep(torch, rma, tuning, timing, dev)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
@@ -2776,6 +2999,7 @@ def main(argv=None):
     extra.update(rs_extra)
     extra.update(a2a_extra)
     extra.update(rma_extra)
+    extra["rma_host_profile"] = phase_rma_host_profile(torch, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)
     extra["hier_breakdown"] = phase_hier_profile(

@@ -17,14 +17,16 @@ from ..utils.config import get_config
 # CUDA launch shape of the kernels: threads per block of the slot
 # kernels (ops/hbm.py) and blocks per SM (their grid is a multiple of the
 # SM count); threads per block of the ring kernels (ops/ring.py,
-# ops/ici.py) and blocks per SM spread over their lanes. The ring values
-# come from the launch-shape sweep of ``chip_smoke.py --sweep`` on an
-# H100 (PERF.md).
+# ops/ici.py) and blocks per SM spread over their lanes; threads per
+# block of the direct copy of K12/K13 (ops/rma.py). The ring and copy
+# values come from the launch-shape sweep of ``chip_smoke.py --sweep``
+# on an H100 (PERF.md).
 _KERNEL_PARAMS = {
     "hbm_slot_threads": 256,
     "hbm_slot_blocks_per_sm": 8,
     "ring_threads": 1024,
     "ring_blocks_per_sm": 1,
+    "rma_copy_threads": 256,
 }
 
 

@@ -27,11 +27,12 @@
 // K11 hbm_alltoallv_kernel       replaces pallas_alltoall.py hbm_alltoallv
 //    (body _hbm_alltoallv_kernel). K10 under a static p x p count matrix,
 //    every step padded to its step-wide chunk count.
-// K12 rma_put_kernel             replaces mvapich2_tpu/ops/pallas_rma.py
-//    rma_put (body _put_kernel, engine _RmaStreamer). Chunked one-sided
-//    put of src[n] into the target's window row at disp.
-// K13 rma_get_kernel             replaces pallas_rma.py rma_get (body
-//    _get_kernel). Chunked one-sided get of n window elements at disp.
+// K12 rma_copy_kernel            replaces mvapich2_tpu/ops/pallas_rma.py
+//    rma_put (body _put_kernel, engine _RmaStreamer). One-sided put of
+//    src[n] into the target's window row at disp, as one direct copy.
+// K13 rma_copy_kernel            replaces pallas_rma.py rma_get (body
+//    _get_kernel). One-sided get of n window elements at disp, the same
+//    direct copy the other way.
 // K9 quant_ring_all_reduce_kernel replaces mvapich2_tpu/ops/pallas_quant.py
 //    quant_ring_all_reduce (body _quant_rs_kernel, engine _QuantStreamer).
 //    K3's reduce-scatter with the block-scaled codec fused into both
@@ -95,20 +96,18 @@
 // step's full W_s chunks on every rank; a padding chunk copies nothing
 // but still moves both counters, so a zero-count pair leaks no credit.
 //
-// Schedule (K12/K13/K14): the JAX partner-pair streamer, with only the
-// pair running. One launch has two lanes of B blocks: the producer
+// Schedule (K14): the JAX partner-pair streamer, with only the pair
+// running. One launch has two lanes of B blocks: the producer (origin)
 // lane stages chunk g (n elements cut into chunks of `chunk`) into
-// landing slot g mod depth and publishes it, the consumer lane commits
-// (K12: window at disp, K13: the result) or folds (K14: window +=
-// landed, window chunk prefetched into L2 while the chunk is in flight)
-// and returns the credit. The producer writes chunk g only once the
-// consumer has consumed chunk g-depth. For K12/K14 the producer is the
-// origin side and the consumer the target side; for K13 the roles
-// reverse (the target stages its window chunks, the origin commits).
-// Ranks other than the pair are not touched (the JAX kernels' symmetric
-// permutation, where every device runs the same DMA, is a TPU
-// constraint). K17 is the single-shot form: one landing buffer of n
-// elements, one flag per block, no credits.
+// landing slot g mod depth and publishes it, the consumer (target) lane
+// folds it (window += landed, window chunk prefetched into L2 while the
+// chunk is in flight) and returns the credit. The producer writes chunk
+// g only once the consumer has consumed chunk g-depth. Ranks other than
+// the pair are not touched (the JAX kernels' symmetric permutation,
+// where every device runs the same DMA, is a TPU constraint). K17 is
+// the single-shot form: one landing buffer of n elements, one flag per
+// block, no credits. K12 and K13 have no schedule: one direct copy
+// (rma_copy_kernel, below).
 //
 // Arithmetic: floats fold in float and round to the dtype at every step,
 // integers in 32 bits (uint32 unsigned) and wrap to the dtype, exactly as
@@ -129,9 +128,10 @@
 // m-byte shard, against 2m for "read every input once, write every
 // output once". K4 moves (p-1)(5m/p) with no init copy (the first step
 // sends from the input, the last folds into the output), against
-// m + m/p. K8 moves 2m a rank, its bound. K12/K13/K17 move 4 bytes a
-// payload byte (read source, write slot, read slot, write destination)
-// and K14 5 (and the window read), against 2 and 3. The landing slots (p*ndir*depth*chunk elements) are
+// m + m/p. K8 moves 2m a rank, its bound. K17 moves 4 bytes a payload
+// byte (read source, write slot, read slot, write destination) and K14
+// 5 (and the window read), against 2 and 3; K12 and K13 move 2, their
+// bound. The landing slots (p*ndir*depth*chunk elements) are
 // small enough to stay in the 50 MB L2. K10 moves 2m/p (local block) +
 // (p-1)(4m/p) (read input, write slot, read slot, write output) per
 // rank, against 2m; K11 the same over the bytes its matrix moves.
@@ -1205,7 +1205,7 @@ __global__ void __launch_bounds__(1024) hbm_alltoallv_kernel(RankPtrs ptrs, cons
 }
 
 // ---------------------------------------------------------------------------
-// the one-sided stream of K12, K13 and K14, and the direct put K17
+// the one-sided stream of K14, and the direct put K17
 // ---------------------------------------------------------------------------
 
 // dst[i] = dst[i] + slot[i] for any alignment (the copy_any split).
@@ -1231,12 +1231,12 @@ __device__ __forceinline__ void prefetch_l2(const void* p, long long bytes) {
 }
 
 // What one hop of the one-sided stream does with a share of cnt
-// elements: PlainHop moves the elements as they are (K12, K13) or folds
-// them (K14); QuantHop carries them as wire words (K14's quantized wire).
-template <typename T, bool FOLD>
+// elements: PlainHop carries the elements as they are and folds them
+// (K14); QuantHop carries them as wire words (K14's quantized wire).
+template <typename T>
 struct PlainHop {
   using Slot = T;
-  static constexpr bool kFold = FOLD;
+  static constexpr bool kFold = true;
   __device__ int align() const { return 16 / sizeof(T); }
   __device__ long long slot_len(long long chunk) const { return chunk; }
   __device__ long long slot_pos(long long e) const { return e; }
@@ -1244,10 +1244,7 @@ struct PlainHop {
     copy_any(slot, src, cnt, false);
   }
   __device__ void consume(T* dst, const T* slot, long long cnt) const {
-    if constexpr (FOLD)
-      fold_any(dst, slot, cnt);
-    else
-      copy_any(dst, slot, cnt, true);
+    fold_any(dst, slot, cnt);
   }
 };
 
@@ -1308,33 +1305,13 @@ __device__ void rma_stream(const Hop& hop, const T* from, T* to,
   }
 }
 
-// K12 (T: an unsigned type of the element's width): from = src, to =
-// the target's window row + disp.
-template <typename T>
-__global__ void __launch_bounds__(1024) rma_put_kernel(
-    const T* from, T* to, long long n, long long chunk, int depth, int B,
-    T* slots, unsigned* landed, unsigned* consumed, int* err) {
-  rma_stream(PlainHop<T, false>{}, from, to, n, chunk, depth, B, slots,
-             landed, consumed, err);
-}
-
-// K13 (T as K12): from = the target's window row + disp, to = the
-// origin's result.
-template <typename T>
-__global__ void __launch_bounds__(1024) rma_get_kernel(
-    const T* from, T* to, long long n, long long chunk, int depth, int B,
-    T* slots, unsigned* landed, unsigned* consumed, int* err) {
-  rma_stream(PlainHop<T, false>{}, from, to, n, chunk, depth, B, slots,
-             landed, consumed, err);
-}
-
 // K14: from = src, to = the target's window row + disp, folded.
 template <typename T>
 __global__ void __launch_bounds__(1024) rma_acc_kernel(
     const T* from, T* to, long long n, long long chunk, int depth, int B,
     T* slots, unsigned* landed, unsigned* consumed, int* err) {
-  rma_stream(PlainHop<T, true>{}, from, to, n, chunk, depth, B, slots,
-             landed, consumed, err);
+  rma_stream(PlainHop<T>{}, from, to, n, chunk, depth, B, slots, landed,
+             consumed, err);
 }
 
 // K14, quantized wire (f32): the producer encodes its share of the source
@@ -1349,9 +1326,9 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_kernel(
              consumed, err);
 }
 
-// K17 (T as K12): the origin lane stages share b of src into the landing
-// buffer and publishes it; the target lane commits it at to = the
-// window row + disp.
+// K17 (T: an unsigned type of the element's width): the origin lane
+// stages share b of src into the landing buffer and publishes it; the
+// target lane commits it at to = the window row + disp.
 template <typename T>
 __global__ void __launch_bounds__(1024) direct_put_kernel(
     const T* src, T* to, long long n, int B, T* landing, unsigned* landed,
@@ -1366,6 +1343,117 @@ __global__ void __launch_bounds__(1024) direct_put_kernel(
     if (!block_wait(landed + b, 1, err)) return;
     copy_any(to + s0, landing + s0, s1 - s0, true);
   }
+}
+
+// ---------------------------------------------------------------------------
+// K12 and K13: the direct copy
+// ---------------------------------------------------------------------------
+//
+// rma_copy_kernel replaces mvapich2_tpu/ops/pallas_rma.py rma_put (:398,
+// its pallas_call at :415) as K12, from = src and to = the target's
+// window row + disp, and rma_get (:429, pallas_call :446) as K13, from =
+// the target's window row + disp and to = the origin's result.
+//
+// Bound: bytes. n payload bytes are read once and written once, 2n, or
+// 0.040 ms for 64 MiB at 3.35 TB/s. The TPU kernels stage every chunk
+// in a landing slot under chunk credits, because a remote DMA must land
+// in the partner's finite VMEM and only the target may commit into its
+// own HBM. Here the target's window row is memory that the origin's
+// threads store to directly, so the copy is one pass: no slot, no flag,
+// no wait. (The slot design moved 4n bytes behind one credit handshake
+// a chunk, about 2 us each.) No block waits on another, so the launch
+// is a plain one: one pass of kCopyUnroll words a thread, capped at the
+// blocks that fit on the card at once, counted once per device. Bytes
+// in flight hide the memory latency: each thread issues kCopyUnroll
+// independent 16-byte loads before its stores. The loads take the
+// read-only path (ld.global.nc), which needs `from` unchanged during the
+// launch: the wrapper snapshots a source that partly overlaps the
+// destination. An exact alias (from == to, a put of the target range
+// onto itself) is left as it is: each word is then read and written
+// back unchanged by the one thread that owns it, so no thread reads a
+// word another has written. Over NVLink the same kernel takes a peer
+// pointer; that form is not written yet (the port runs on one card).
+//
+// Split (computed by the C entry, modelled by ops/rma.py copy_plan):
+// `head` elements up to to's 16-byte boundary, then nvec 16-byte words
+// of `to`, then a tail of less than 16 bytes. The first threads copy
+// the head and the tail element by element. When `from` is misaligned
+// against `to` by s bytes (an f32 disp that is not a multiple of 4
+// against an aligned src, any odd bf16 or i8 offset), word v of `to` is
+// assembled from the two aligned words of `from` that hold its bytes,
+// shifted by s with __funnelshift_r. So loads and stores stay 16 bytes
+// wide at every element width, where an element loop would issue 1- and
+// 2-byte accesses for i8 and bf16. The second word is mostly an L1 hit:
+// the next thread loaded it as its first. It may reach up to 15 bytes
+// past the source's last byte, inside the aligned 16-byte word that
+// holds that byte, so it never leaves the allocation's page. Stores are
+// plain: evict-first stores (st.global.cs) measured no faster (PERF.md).
+
+constexpr int kCopyUnroll = 4;
+
+// Bytes [4q + r8/8, 4q + r8/8 + 16) of the 32 bytes a:b (little-endian
+// words; selects, not an indexed array, keep them in registers).
+__device__ __forceinline__ uint4 realign(uint4 a, uint4 b, int q, int r8) {
+  const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  unsigned s[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+    s[j] = q == 0 ? w[j] : q == 1 ? w[j + 1] : q == 2 ? w[j + 2] : w[j + 3];
+  return make_uint4(__funnelshift_r(s[0], s[1], r8),
+                    __funnelshift_r(s[1], s[2], r8),
+                    __funnelshift_r(s[2], s[3], r8),
+                    __funnelshift_r(s[3], s[4], r8));
+}
+
+// to[v] = the 16 bytes at (char*)from + 16 v + shift, for v < nvec; from
+// is the aligned word that holds the body's first source byte.
+template <bool SHIFTED>
+__device__ void copy_words(const uint4* from, int shift, uint4* to,
+                           long long nvec) {
+  const long long step =
+      static_cast<long long>(gridDim.x) * blockDim.x * kCopyUnroll;
+  const int q = shift >> 2, r8 = (shift & 3) * 8;
+  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x *
+                            kCopyUnroll + threadIdx.x;
+       base < nvec; base += step) {
+    uint4 v[kCopyUnroll];
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const long long i = base + static_cast<long long>(k) * blockDim.x;
+      if (i < nvec) {
+        v[k] = __ldg(from + i);
+        if constexpr (SHIFTED)
+          v[k] = realign(v[k], __ldg(from + i + 1), q, r8);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const long long i = base + static_cast<long long>(k) * blockDim.x;
+      if (i < nvec) to[i] = v[k];
+    }
+  }
+}
+
+// K12/K13 (T: an unsigned type of the element's width): to[i] = from[i]
+// for i < n, cut into head, nvec words and tail as above.
+template <typename T>
+__global__ void __launch_bounds__(1024) rma_copy_kernel(
+    const T* from, T* to, long long n, long long head, long long nvec) {
+  constexpr int V = 16 / sizeof(T);
+  const long long body_end = head + nvec * V;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t < head) to[t] = __ldg(from + t);
+  if (t < n - body_end) to[body_end + t] = __ldg(from + body_end + t);
+  if (nvec == 0) return;
+  const uintptr_t first = reinterpret_cast<uintptr_t>(from + head);
+  const int shift = static_cast<int>(first & 15);
+  const uint4* words = reinterpret_cast<const uint4*>(first - shift);
+  uint4* out = reinterpret_cast<uint4*>(to + head);
+  if (shift)
+    copy_words<true>(words, shift, out, nvec);
+  else
+    copy_words<false>(words, 0, out, nvec);
 }
 
 // ---------------------------------------------------------------------------
@@ -1622,8 +1710,8 @@ cudaError_t launch_k11(RankPtrs ptrs, const long long* tables, int p,
                                      dim3(threads), args, 0, s);
 }
 
-// K12/K13/K14 share the launch: two lanes of B blocks, flags landed then
-// consumed, each [ctas].
+// K14's launch: two lanes of B blocks, flags landed then consumed, each
+// [ctas].
 template <typename T>
 cudaError_t launch_rma(const void* kern, const void* from, void* to,
                        long long n, long long chunk, int depth, void* slots,
@@ -1667,12 +1755,6 @@ cudaError_t launch_k14q(const void* from, void* to, long long n, int blk,
                                      0, s);
 }
 
-template <typename T> const void* put_kern() {
-  return reinterpret_cast<const void*>(&rma_put_kernel<T>);
-}
-template <typename T> const void* get_kern() {
-  return reinterpret_cast<const void*>(&rma_get_kernel<T>);
-}
 template <typename T> const void* acc_kern() {
   return reinterpret_cast<const void*>(&rma_acc_kernel<T>);
 }
@@ -1700,6 +1782,78 @@ cudaError_t launch_k17(const void* src, void* win, long long disp,
   void* args[] = {&sr, &to, &n, &B, &ld, &flags, &err};
   return cudaLaunchCooperativeKernel(kern, dim3(2 * B), dim3(threads), args,
                                      0, s);
+}
+
+// K12/K13: the blocks of one kernel instance and block size that fit on
+// the card at once, counted at its first launch on a device, then kept.
+struct CopyFit {
+  int dev;
+  const void* kern;
+  int threads;
+  int cap;
+};
+std::mutex g_fit_mu;
+CopyFit g_fits[64];
+int g_nfits = 0;
+
+const void* copy_kern(int esize) {
+  switch (esize) {
+    case 4: return reinterpret_cast<const void*>(&rma_copy_kernel<uint32_t>);
+    case 2: return reinterpret_cast<const void*>(&rma_copy_kernel<uint16_t>);
+    case 1: return reinterpret_cast<const void*>(&rma_copy_kernel<uint8_t>);
+    default: return nullptr;
+  }
+}
+
+// The blocks of kern at `threads` a block that fit on the current device
+// at once: one pass of the grid-stride loop.
+cudaError_t copy_fit(const void* kern, int threads, int* cap) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> hold(g_fit_mu);
+  for (int i = 0; i < g_nfits; ++i)
+    if (g_fits[i].dev == dev && g_fits[i].kern == kern &&
+        g_fits[i].threads == threads) {
+      *cap = g_fits[i].cap;
+      return cudaSuccess;
+    }
+  int sms, per_sm;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      0);
+  if (e != cudaSuccess) return e;
+  *cap = std::max(1, sms * per_sm);
+  if (g_nfits < 64) g_fits[g_nfits++] = {dev, kern, threads, *cap};
+  return cudaSuccess;
+}
+
+bool bad_copy_threads(int threads) {
+  return threads < 32 || threads > 1024 || threads % 32;
+}
+
+// K12/K13: n elements of esize bytes from `from` to `to`, split at to's
+// 16-byte boundary (ops/rma.py copy_plan models the split). The grid is
+// one pass of kCopyUnroll words a thread, at most what fits at once, at
+// least one block (the head and tail of a copy shorter than a word; the
+// head and tail need 16 threads).
+cudaError_t launch_copy(int esize, const void* from, void* to, long long n,
+                        int threads, cudaStream_t s) {
+  const void* kern = copy_kern(esize);
+  if (!kern || n < 0 || bad_copy_threads(threads))
+    return cudaErrorInvalidValue;
+  long long head = std::min<long long>(
+      n, (-reinterpret_cast<uintptr_t>(to) & 15) / esize);
+  long long nvec = (n - head) * esize / 16;
+  int cap;
+  const cudaError_t e = copy_fit(kern, threads, &cap);
+  if (e != cudaSuccess) return e;
+  const long long per_block = static_cast<long long>(threads) * kCopyUnroll;
+  const int grid = static_cast<int>(std::max(
+      1ll, std::min<long long>(cap, (nvec + per_block - 1) / per_block)));
+  void* args[] = {&from, &to, &n, &head, &nvec};
+  return cudaLaunchKernel(kern, dim3(grid), dim3(threads), args, 0, s);
 }
 
 int element_size(int dtype) {
@@ -1880,30 +2034,30 @@ int mv2t_hbm_alltoallv(int dtype, const void* ins, const void* outs, int p,
 // K12: src[n] into win (the target's window row) at disp. esize: the
 // element size in bytes (1, 2 or 4).
 int mv2t_rma_put(int esize, const void* src, void* win, long long disp,
-                 long long n, long long chunk, int depth, void* slots,
-                 void* flags, int ctas, int threads, void* stream) {
-  unsigned* fl = static_cast<unsigned*>(flags);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (esize) {
-    case 4: return static_cast<int>(launch_rma<uint32_t>(put_kern<uint32_t>(), src, at<uint32_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    case 2: return static_cast<int>(launch_rma<uint16_t>(put_kern<uint16_t>(), src, at<uint16_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    case 1: return static_cast<int>(launch_rma<uint8_t>(put_kern<uint8_t>(), src, at<uint8_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                 long long n, int threads, void* stream) {
+  return static_cast<int>(
+      launch_copy(esize, src, static_cast<char*>(win) + disp * esize, n,
+                  threads, static_cast<cudaStream_t>(stream)));
 }
 
-// K13: n elements of win (the target's window row) at disp into out.
+// K13: n elements of win (the target's window row) at disp into out;
+// the arguments as K12's.
 int mv2t_rma_get(int esize, const void* win, long long disp, void* out,
-                 long long n, long long chunk, int depth, void* slots,
-                 void* flags, int ctas, int threads, void* stream) {
-  unsigned* fl = static_cast<unsigned*>(flags);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (esize) {
-    case 4: return static_cast<int>(launch_rma<uint32_t>(get_kern<uint32_t>(), at<uint32_t>(win, disp), out, n, chunk, depth, slots, fl, ctas, threads, s));
-    case 2: return static_cast<int>(launch_rma<uint16_t>(get_kern<uint16_t>(), at<uint16_t>(win, disp), out, n, chunk, depth, slots, fl, ctas, threads, s));
-    case 1: return static_cast<int>(launch_rma<uint8_t>(get_kern<uint8_t>(), at<uint8_t>(win, disp), out, n, chunk, depth, slots, fl, ctas, threads, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                 long long n, int threads, void* stream) {
+  return static_cast<int>(launch_copy(
+      esize, static_cast<const char*>(win) + disp * esize, out, n, threads,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The 16-byte words that one grid-stride pass of a K12/K13 launch at
+// `threads` a block moves on the current device; -1 on an error.
+int mv2t_rma_copy_pass(int esize, int threads) {
+  const void* kern = copy_kern(esize);
+  int cap;
+  if (!kern || bad_copy_threads(threads) ||
+      copy_fit(kern, threads, &cap) != cudaSuccess)
+    return -1;
+  return cap * threads * kCopyUnroll;
 }
 
 // K14: win (the target's window row)[disp + i] += src[i].

@@ -179,17 +179,20 @@ def ctas_per_lane(device: torch.device, lanes: int, elems: int,
     return max(1, min(sms * per_sm // lanes, units))
 
 
-def launch(fn: str, device: torch.device, *args) -> None:
+def launch(fn: str, device: torch.device, *args,
+           threads: Optional[int] = None) -> None:
     """Call C entry ``fn`` of ``csrc/ring.cu`` with ``args`` plus the
-    thread count and the current stream; raise on a launch error or on
-    a spin timeout left by an earlier launch."""
+    thread count (``ring_threads`` unless given) and the current stream;
+    raise on a launch error or on a spin timeout left by an earlier
+    launch."""
     from . import _build
     lib = _build.load("ring")
     _raise_pending(lib)
+    if threads is None:
+        threads = kernel_param("ring_threads", 1024)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        rc = getattr(lib, fn)(*args, kernel_param("ring_threads", 1024),
-                              stream)
+        rc = getattr(lib, fn)(*args, threads, stream)
     _build.check(lib, rc, fn)
 
 

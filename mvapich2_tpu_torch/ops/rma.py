@@ -3,28 +3,38 @@
 lane, whose window and epoch surface is ``rma/device.py``.
 
 A window is a ``(p, N)`` tensor on one device, row r rank r's exposed
-memory. Three kernels, written in CUDA C++ in ``csrc/ring.cu``, move
-data between the origin and the target of one op through ``depth``
-landing slots of ``chunk`` elements (``RMA_CHUNK_BYTES``, 0 inheriting
-``ICI_CHUNK_BYTES``; ``ICI_PIPELINE_DEPTH``), with the chunk-credit
-handshake of the JAX streamer: the producer writes chunk g only once the
-consumer has consumed chunk g - depth.
+memory. Four kernels, written in CUDA C++ in ``csrc/ring.cu``, move
+data between the origin and the target of one op.
 
 ``rma_put`` (K12): ``win[target, disp:disp+n] = src``.
 ``rma_get`` (K13): returns ``win[target, disp:disp+n]`` (the origin's
 ``n`` elements; the JAX kernel's zero rows for the other ranks come from
 its symmetric DMA and have no counterpart here).
+K12 and K13 are one direct copy on this card: the origin's threads read
+the source and store into the destination, one pass, no landing slot
+and no credit (:func:`copy_plan` models how it is cut). Their ``chunk_bytes``,
+``depth`` and ``scratch`` arguments, which the JAX kernels take, are
+validated and otherwise unused.
+
 ``rma_accumulate`` (K14): ``win[target, disp:disp+n] += src`` (MPI_SUM;
-floats fold in float and round once, integers wrap). With
-``quantized=True`` (f32 only) each chunk crosses as K9's block-scaled
-wire words (``ops/quant.py``): the producer lane encodes its share of
-the source chunk into the landing slot, the consumer decodes it and
-folds it into the window row with one rounding, in blocks of
+floats fold in float and round once, integers wrap), through ``depth``
+landing slots of ``chunk`` elements (``RMA_CHUNK_BYTES``, 0 inheriting
+``ICI_CHUNK_BYTES``; ``ICI_PIPELINE_DEPTH``) with the chunk-credit
+handshake of the JAX streamer: the producer writes chunk g only once the
+consumer has consumed chunk g - depth. With ``quantized=True`` (f32
+only) each chunk crosses as K9's block-scaled wire words
+(``ops/quant.py``): the producer lane encodes its share of the source
+chunk into the landing slot, the consumer decodes it and folds it into
+the window row with one rounding, in blocks of
 ``min(quant_block_elems(), n)`` elements (``n`` must be a multiple).
 
 ``direct_put`` (K17, ``rma/device.py`` ``pallas_put``) is the
 single-shot put through one landing buffer of ``n`` elements; it lives
 here with the other three.
+
+A source that partly overlaps the target range (a view of the window)
+is copied first, so every route writes the values it held before the op,
+as the JAX package, whose sources are immutable arrays, does.
 
 Routing is ``ops/ring.py``'s: CPU tensors take the plain version
 (``*_ref``), CUDA tensors launch the kernel on the current stream or
@@ -47,6 +57,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import mpit
+from ..coll.tuning import kernel_param
 from ..utils.config import get_config
 from . import ring
 from .ici import _cfg_chunk_elems as _ici_chunk_elems
@@ -208,6 +219,28 @@ def _cuda(t: torch.Tensor, what: str) -> None:
                          f"CUDA tensors (CPU tensors take the plain path)")
 
 
+def unshared(src: torch.Tensor, win: torch.Tensor, target: int, disp: int,
+             span: Optional[int] = None) -> torch.Tensor:
+    """``src`` (one-dimensional), or a copy of it when the memory from
+    its first to its last element meets the ``span`` window elements
+    (default ``src.numel()``) of row ``target`` from ``disp``: an op then
+    writes the values its source held before it, as with the JAX
+    package's immutable sources. A source that is exactly the target
+    range needs no copy. A test of address ranges, no tensor op."""
+    n = src.numel()
+    span = n if span is None else span
+    if not n or not span:
+        return src
+    es = win.element_size()
+    lo = win.data_ptr() + (target * win.stride(0) + disp) * es
+    s = src.data_ptr()
+    end = s + ((n - 1) * src.stride(0) + 1) * es
+    if s < lo + span * es and lo < end and \
+            not (s == lo and span == n and src.stride(0) == 1):
+        return src.clone()
+    return src
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -274,10 +307,10 @@ def rma_accumulate_ref(src: torch.Tensor, win: torch.Tensor, origin: int,
 # ---------------------------------------------------------------------------
 
 class Scratch:
-    """Landing slots and counters of the RMA kernels, kept across
-    launches. Every launch that shares one runs on one stream (a
-    window's), so stream order keeps them apart; the counters are zeroed,
-    stream-ordered, before each launch."""
+    """Landing slots and counters of K14, kept across launches. Every
+    launch that shares one runs on one stream (a window's), so stream
+    order keeps them apart; the counters are zeroed, stream-ordered,
+    before each launch."""
 
     def __init__(self) -> None:
         self.slots: Optional[torch.Tensor] = None
@@ -300,8 +333,8 @@ class Scratch:
 def _stream_launch(fn: str, code: int, dev: torch.device, dt: torch.dtype,
                    n: int, ptrs: tuple, chunk_bytes, depth,
                    scratch: Optional[Scratch]) -> None:
-    """Launch K12/K13/K14 (C entry ``fn``) over ``n`` elements; ``ptrs``
-    are the entry's pointer and displacement arguments."""
+    """Launch K14 (C entry ``fn``) over ``n`` elements; ``ptrs`` are the
+    entry's pointer and displacement arguments."""
     chunk = max(1, min(_cfg_chunk_elems(dt, chunk_bytes), n))
     d = _cfg_depth(depth)
     ctas = ring.ctas_per_lane(dev, 2, chunk, 16 // dt.itemsize)
@@ -311,8 +344,49 @@ def _stream_launch(fn: str, code: int, dev: torch.device, dt: torch.dtype,
                 flags.data_ptr(), ctas)
 
 
+def _check_stream_args(dt: torch.dtype, chunk_bytes, depth) -> None:
+    """Validate the chunk and depth that K12/K13 take for the JAX
+    kernels' sake and do not use (None: nothing to check)."""
+    if chunk_bytes is not None:
+        _cfg_chunk_elems(dt, chunk_bytes)
+    if depth is not None:
+        _cfg_depth(depth)
+
+
 def _row_ptr(win: torch.Tensor, target: int) -> int:
-    return win[target].data_ptr()
+    return win.data_ptr() + target * win.stride(0) * win.element_size()
+
+
+def copy_plan(src_addr: int, dst_addr: int, n: int,
+              esize: int) -> Tuple[int, int, int]:
+    """(head, nvec, shift): how the direct copy of K12/K13 (its C entry,
+    ``csrc/ring.cu`` ``launch_copy``) cuts ``n`` elements of ``esize``
+    bytes from address ``src_addr`` to ``dst_addr`` (both
+    element-aligned). ``head`` elements run up to the destination's
+    16-byte boundary, then ``nvec`` 16-byte destination words, then a
+    tail of fewer than ``16 // esize`` elements. ``shift`` is the
+    source's misalignment in bytes against the words (0: both 16-byte
+    aligned; else each word is assembled from the two aligned source
+    words that hold its bytes). A model for the tests; the launch does
+    not call it."""
+    head = min(n, (-dst_addr & 15) // esize)
+    nvec = (n - head) * esize // 16
+    return head, nvec, (src_addr + head * esize) & 15
+
+
+def copy_pass(device: torch.device, esize: int) -> int:
+    """The elements of ``esize`` bytes that one grid-stride pass of a
+    K12/K13 launch moves on ``device`` at the current block size (every
+    block that fits at once, each thread its unrolled 16-byte words)."""
+    from . import _build
+    lib = _build.load("ring")
+    with torch.cuda.device(device):
+        words = lib.mv2t_rma_copy_pass(
+            esize, kernel_param("rma_copy_threads", 256))
+    if words < 1:
+        raise RuntimeError(f"rma copy pass: no launch shape for "
+                           f"{esize}-byte elements")
+    return words * (16 // esize)
 
 
 def rma_put(src: torch.Tensor, win: torch.Tensor, origin: int, target: int,
@@ -321,20 +395,24 @@ def rma_put(src: torch.Tensor, win: torch.Tensor, origin: int, target: int,
             scratch: Optional[Scratch] = None) -> torch.Tensor:
     """K12: one-sided contiguous put of ``src`` into the target's window
     row at element ``disp``, in place; returns ``win``. Rows other than
-    the target's are not touched."""
+    the target's are not touched. One direct copy: ``chunk_bytes`` and
+    ``depth`` (the JAX kernel's) are validated, ``scratch`` accepted,
+    and none of them is used."""
     src = src.reshape(-1).contiguous()
     n = src.numel()
     _check_op(src, win, n, origin, target, disp, "rma_put")
+    _check_stream_args(win.dtype, chunk_bytes, depth)
     if n == 0:
         return win
+    src = unshared(src, win, target, disp)
     if win.device.type == "cpu":
         PLAIN_CALLS["rma_put"] += 1
         return rma_put_ref(src, win, origin, target, disp)
     _cuda(win, "rma_put")
     esize = _elem_size(win.dtype, "rma_put")
-    _stream_launch("mv2t_rma_put", esize, win.device, win.dtype, n,
-                   (src.data_ptr(), _row_ptr(win, target),
-                    disp), chunk_bytes, depth, scratch)
+    row = _row_ptr(win, target)
+    ring.launch("mv2t_rma_put", win.device, esize, src.data_ptr(), row,
+                disp, n, threads=kernel_param("rma_copy_threads", 256))
     LAUNCHES["rma_put"] += 1
     return win
 
@@ -345,8 +423,10 @@ def rma_get(win: torch.Tensor, n: int, origin: int, target: int,
             scratch: Optional[Scratch] = None) -> torch.Tensor:
     """K13: one-sided contiguous get of ``n`` elements of the target's
     window row at ``disp``; returns them, ``[n]`` (the origin's
-    result)."""
+    result). One direct copy; ``chunk_bytes``, ``depth`` and ``scratch``
+    as for :func:`rma_put`."""
     _check_op(None, win, n, origin, target, disp, "rma_get")
+    _check_stream_args(win.dtype, chunk_bytes, depth)
     if n == 0:
         return win.new_empty(0)
     if win.device.type == "cpu":
@@ -355,9 +435,10 @@ def rma_get(win: torch.Tensor, n: int, origin: int, target: int,
     _cuda(win, "rma_get")
     esize = _elem_size(win.dtype, "rma_get")
     out = win.new_empty(n)
-    _stream_launch("mv2t_rma_get", esize, win.device, win.dtype, n,
-                   (_row_ptr(win, target), disp, out.data_ptr()),
-                   chunk_bytes, depth, scratch)
+    row = _row_ptr(win, target)
+    ring.launch("mv2t_rma_get", win.device, esize, row, disp,
+                out.data_ptr(), n,
+                threads=kernel_param("rma_copy_threads", 256))
     LAUNCHES["rma_get"] += 1
     return out
 
@@ -378,6 +459,7 @@ def rma_accumulate(src: torch.Tensor, win: torch.Tensor, origin: int,
     _check_op(src, win, n, origin, target, disp, "rma_accumulate")
     if n == 0:
         return win
+    src = unshared(src, win, target, disp)
     if quantized:
         return _accumulate_quant(src, win, origin, target, disp,
                                  chunk_bytes, depth, scratch)
@@ -431,6 +513,7 @@ def direct_put(src: torch.Tensor, win: torch.Tensor, origin: int,
     _check_op(src, win, n, origin, target, disp, "direct_put")
     if n == 0:
         return win
+    src = unshared(src, win, target, disp)
     if win.device.type == "cpu":
         PLAIN_CALLS["direct_put"] += 1
         return rma_put_ref(src, win, origin, target, disp)

@@ -8,9 +8,10 @@ analog of the reference's ``gen2/rdma_iba_1sc.c``).
   synchronization call applies them in queue order, each on a tier
   (``ops/rma.py`` ``planned_rma_tier``):
 
-  - **rdma**: the kernels K12 ``rma_put``, K13 ``rma_get`` and K14
-    ``rma_accumulate`` (``ops/rma.py``), one launch an op, over the
-    window's landing slots and counters (allocated once per window);
+  - **rdma**: the kernels K12 ``rma_put``, K13 ``rma_get`` (direct
+    copies) and K14 ``rma_accumulate`` (``ops/rma.py``), one launch an
+    op, K14 over the window's landing slots and counters (allocated once
+    per window);
   - **quant**: an f32 accumulate that MV2T_QUANT_COLL and
     DEV_RMA_QUANT_MIN send to K14's quantized wire
     (``rma_accumulate(quantized=True)``), one launch an op;
@@ -36,8 +37,11 @@ The driving program is global (it sees every rank), so descriptors carry
 explicit origin and target ranks. Ops run on the current stream of the
 window's device; MPI's rule that an origin buffer stays untouched until
 its epoch closes holds here too (a device tensor payload is read at the
-closing call, not copied at enqueue). The trace and metric hooks of the
-JAX module are not ported.
+closing call, not copied at enqueue). A payload that partly overlaps
+the range it writes (a view of the window) is copied when its op runs,
+on every tier, so the op writes the values it held, as the JAX
+package's immutable payloads do. The trace and metric hooks of the JAX
+module are not ported.
 
 ``direct_put`` (K17, the port of ``pallas_put``) is the ops-level
 single-shot put into a window tensor; as in the JAX package it is not on
@@ -77,7 +81,7 @@ class DeviceWin:
         # queue entries: (op descriptor, payload tensor|None, handle|None)
         self._queue: List[tuple] = []
         self._locked: set = set()   # ranks under a passive access epoch
-        self._scratch = rma.Scratch()   # the kernels' slots and counters
+        self._scratch = rma.Scratch()   # K14's slots and counters
 
     # -- local access -----------------------------------------------------
     def local(self, rank: int) -> torch.Tensor:
@@ -88,7 +92,8 @@ class DeviceWin:
         """Local store into one rank's window region (outside epochs)."""
         vals = self._payload(values)
         rma.check_range(self.n, disp, vals.numel(), 1, "store")
-        self.win[rank, disp:disp + vals.numel()] = vals
+        self.win[rank, disp:disp + vals.numel()] = rma.unshared(
+            vals, self.win, rank, disp)
 
     # -- one-sided ops (enqueue; applied at the closing sync call) --------
     def put(self, src, origin: int, target: int, disp: int = 0,
@@ -205,11 +210,9 @@ class DeviceWin:
     def _run_rdma(self, tier: str, op, pay, h) -> None:
         kind, origin, target, disp, n, _stride = op
         if kind == "get":
-            h._value = rma.rma_get(self.win, n, origin, target, disp,
-                                   scratch=self._scratch)
+            h._value = rma.rma_get(self.win, n, origin, target, disp)
         elif kind == "put":
-            rma.rma_put(pay, self.win, origin, target, disp,
-                        scratch=self._scratch)
+            rma.rma_put(pay, self.win, origin, target, disp)
         else:
             rma.rma_accumulate(pay, self.win, origin, target, disp,
                                quantized=tier == "quant",
@@ -228,7 +231,11 @@ class DeviceWin:
         if kind == "get":
             h._value = row[idx].clone()
             return
-        new = pay if kind == "put" else rma.add_values(row[idx], pay)
+        if kind == "put":
+            new = rma.unshared(pay, self.win, target, disp,
+                               stride * (n - 1) + 1)
+        else:
+            new = rma.add_values(row[idx], pay)
         if stride == 1:
             row[idx] = new
         elif row.dtype in ring.WIDE:

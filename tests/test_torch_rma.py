@@ -407,3 +407,183 @@ def test_plain_accumulate_arithmetic():
     rma.rma_accumulate_ref(torch.tensor([1, -1], dtype=torch.int8), i8, 0,
                            0)
     assert i8.tolist() == [[-128, 127]]
+
+
+# ---------------------------------------------------------------------------
+# a source that overlaps the target range: the JAX result (its sources are
+# immutable, so the op writes the values the source held before it)
+# ---------------------------------------------------------------------------
+
+_OVERLAP = {"before": -3, "after": 3, "alias": 0}
+
+
+@pytest.mark.parametrize("dt", ("f32", "i32"))
+@pytest.mark.parametrize("overlap", sorted(_OVERLAP))
+@pytest.mark.parametrize("op", ("rma_put", "direct_put", "rma_accumulate"))
+def test_overlapping_source_matches_jax(op, overlap, dt):
+    nd, n, disp, origin, target = 4, 11, 6, 1, 2
+    jwin, twin, _, _ = _case(60 + len(op), nd, dt, n, extra=12)
+    lo = disp + _OVERLAP[overlap]
+    jsrc = jnp.asarray(np.asarray(jwin)[target, lo:lo + n])   # a copy
+    if op == "rma_put":
+        prog = lambda w: pallas_rma.rma_put(          # noqa: E731
+            jsrc, w[0], "x", nd, origin, target, disp, chunk_bytes=_CB,
+            interpret=True, credits=False)[None, :]
+    elif op == "rma_accumulate":
+        prog = lambda w: pallas_rma.rma_accumulate(   # noqa: E731
+            jsrc, w[0], "x", nd, origin, target, disp, chunk_bytes=_CB,
+            interpret=True, credits=False)[None, :]
+    else:
+        prog = lambda w: pallas_put(                  # noqa: E731
+            jsrc, w[0], "x", origin, target, disp, interpret=True)[None, :]
+    want = _jax_run(nd, prog, jwin)
+    rma.reset_counts()
+    src = twin[target, lo:lo + n]                    # a view of the window
+    kwargs = {} if op == "direct_put" else {"chunk_bytes": _CB}
+    got = getattr(rma, op)(src, twin, origin, target, disp, **kwargs)
+    assert got is twin and rma.PLAIN_CALLS[op] == 1
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_unshared_copies_only_a_partial_overlap():
+    win = torch.arange(40, dtype=torch.float32).reshape(4, 10)
+    row = win[2]
+    assert rma.unshared(row[3:7], win, 2, 3) is not None
+    assert rma.unshared(row[3:7], win, 2, 3).data_ptr() == \
+        row[3:7].data_ptr()                              # the range itself
+    for lo in (0, 1, 2, 4, 5, 6):                        # partly over it
+        got = rma.unshared(row[lo:lo + 4], win, 2, 3)
+        assert got.data_ptr() != row[lo:lo + 4].data_ptr(), lo
+        assert torch.equal(got, row[lo:lo + 4])
+    # disjoint, another row, another tensor, an empty source: no copy
+    for src in (row[7:10], win[1, 3:7], torch.ones(4), row[3:3]):
+        assert rma.unshared(src, win, 2, 3).data_ptr() == src.data_ptr()
+    # a source that runs into the range from the row before
+    flat = win.reshape(-1)
+    assert rma.unshared(flat[18:22], win, 2, 0).data_ptr() != \
+        flat[18:22].data_ptr()
+    # a strided target span (the epoch tier's put): the start is not exempt
+    assert rma.unshared(row[3:5], win, 2, 3, span=3).data_ptr() != \
+        row[3:5].data_ptr()
+    # a strided source is judged by its extent: copied when the extent
+    # meets the span (even between its elements), not when it ends before
+    assert rma.unshared(row[0:3:2], win, 2, 4, span=4).data_ptr() == \
+        row[0:3:2].data_ptr()                            # 0..2 before 4
+    assert rma.unshared(row[::3], win, 2, 4, span=1).data_ptr() != \
+        row[::3].data_ptr()                              # 0..9 holds 4
+
+
+# ---------------------------------------------------------------------------
+# the direct copy of K12/K13: copy_plan, the model of the split its C entry
+# computes, and a model of the kernel that executes it byte for byte
+# ---------------------------------------------------------------------------
+
+def _funnel_r(lo, hi, shift):
+    """__funnelshift_r: the low 32 bits of (hi:lo) >> (shift & 31)."""
+    return (((hi << 32) | lo) >> (shift & 31)) & 0xFFFFFFFF
+
+
+def _model_copy(mem, src, dst, n, esize):
+    """Execute the kernel's split on byte memory ``mem`` (a numpy uint8
+    array addressed from 0): the head and tail element by element, the
+    body as 16-byte words, each assembled from the two aligned source
+    words that hold its bytes (``realign``). Returns per-byte write
+    counts and the aligned source words loaded."""
+    head, nvec, shift = rma.copy_plan(src, dst, n, esize)
+    v = 16 // esize
+    assert 0 <= head < v and nvec >= 0
+    tail = n - head - nvec * v
+    assert 0 <= tail < v
+    writes = np.zeros(mem.size, np.int64)
+    loads = []
+
+    def element(i):
+        a, b = src + i * esize, dst + i * esize
+        mem[b:b + esize] = mem[a:a + esize]
+        writes[b:b + esize] += 1
+
+    for i in range(head):
+        element(i)
+    if nvec:
+        body_src, body_dst = src + head * esize, dst + head * esize
+        assert body_dst % 16 == 0 and (body_src - shift) % 16 == 0
+        assert shift == body_src & 15
+        q, r8 = shift >> 2, (shift & 3) * 8
+        for w in range(nvec):
+            at = body_src - shift + 16 * w
+            if shift:
+                words = mem[at:at + 32].view("<u4").tolist()
+                loads += [at, at + 16]
+                out = [_funnel_r(words[j + q], words[j + q + 1], r8)
+                       for j in range(4)]
+                word = np.array(out, "<u4").view(np.uint8)
+            else:
+                loads.append(at)
+                word = mem[at:at + 16].copy()
+            mem[body_dst + 16 * w:body_dst + 16 * w + 16] = word
+            writes[body_dst + 16 * w:body_dst + 16 * w + 16] += 1
+    for i in range(head + nvec * v, n):
+        element(i)
+    return writes, loads
+
+
+_COUNTS = [0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 47, 48, 49,
+           64, 100]
+
+
+@pytest.mark.parametrize("n", _COUNTS)
+@pytest.mark.parametrize("esize", (1, 2, 4))
+def test_copy_plan_covers_every_element_once(esize, n):
+    """For every source and destination offset mod 16 bytes, the split
+    writes each destination byte exactly once with its source byte,
+    nothing outside the range, and loads only aligned words that hold a
+    source byte (so a load never leaves the source's page)."""
+    rng = np.random.default_rng(esize * 1000 + n)
+    base_src, base_dst = 64, 64 + 16 * 16 + 2048
+    size = base_dst + 16 * 16 + 2048
+    for so in range(0, 16, esize):
+        for do in range(0, 16, esize):
+            mem = rng.integers(0, 256, size=size, dtype=np.uint8)
+            src, dst = base_src + so, base_dst + do
+            nb = n * esize
+            want = mem[src:src + nb].copy()
+            writes, loads = _model_copy(mem, src, dst, n, esize)
+            np.testing.assert_array_equal(mem[dst:dst + nb], want)
+            assert (writes[dst:dst + nb] == 1).all(), (so, do)
+            assert writes.sum() == nb, (so, do)
+            for at in loads:
+                assert at % 16 == 0 and at < src + nb and src < at + 16, \
+                    (so, do, at)
+
+
+def test_copy_plan_shapes():
+    # aligned both sides: no head, whole words, the rest is tail
+    assert rma.copy_plan(256, 512, 37, 4) == (0, 9, 0)
+    # destination 4 bytes short of its boundary: one f32 of head
+    assert rma.copy_plan(256, 524, 37, 4) == (1, 9, 4)
+    # the N - 7 at disp 5 shape of the smoke run: the window is misaligned
+    # by 20 bytes, the source aligned
+    head, nvec, shift = rma.copy_plan(0, 20, (1 << 24) - 7, 4)
+    assert (head, shift) == (3, 12) and head + 4 * nvec <= (1 << 24) - 7
+    # fewer elements than reach the boundary: all head
+    assert rma.copy_plan(0, 1, 5, 1) == (5, 0, 5)
+    assert rma.copy_plan(0, 0, 0, 2) == (0, 0, 0)
+
+
+def test_copy_wrappers_take_the_stream_arguments():
+    """K12/K13 accept and validate chunk_bytes, depth and scratch (the
+    JAX kernels' arguments) and ignore them: the results are the same."""
+    win = torch.arange(64, dtype=torch.int32).reshape(4, 16)
+    want = win.clone()
+    src = torch.arange(100, 105, dtype=torch.int32)
+    rma.rma_put_ref(src, want, 0, 1, 3)
+    for kw in ({}, {"chunk_bytes": 16, "depth": 3},
+               {"scratch": rma.Scratch(), "chunk_bytes": 4096}):
+        got = win.clone()
+        rma.rma_put(src, got, 0, 1, 3, **kw)
+        assert torch.equal(got, want)
+        assert torch.equal(rma.rma_get(got, 5, 2, 1, 3, **kw), src)
+    with pytest.raises(ValueError):
+        rma.rma_put(src, win.clone(), 0, 1, 3, chunk_bytes="many")
+    with pytest.raises(ValueError):
+        rma.rma_get(win, 5, 0, 1, 3, depth="deep")

@@ -542,3 +542,45 @@ def test_osu_rma_cli_dry_run():
     assert set(art["latency_us"]) == {"put", "get", "acc"}
     assert set(art["whole"]) == {"put", "get", "acc", "direct_put"}
     assert art["detail"]["device"] == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# a payload that is a view of the window, on both tiers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rmin", (None, "-1"), ids=("rdma", "epoch"))
+@pytest.mark.parametrize("lo,stride", [(3, 1), (9, 1), (6, 1), (5, 2)],
+                         ids=("before", "after", "alias", "strided"))
+def test_put_from_a_view_of_the_window_matches_jax(jcomm, comm, env, rmin,
+                                                   lo, stride):
+    """DeviceWin.put with ``win.win[t, a:b]`` as the payload writes the
+    values the payload held before the put (the JAX window gets a numpy
+    copy), on the kernel tier and on the epoch tier."""
+    env(DEV_RMA_RDMA_MIN=rmin)
+    n, disp, target = 6, 6, 5
+    init = np.random.default_rng(lo + stride).integers(
+        -100, 100, size=(NP, 20)).astype(np.float32)
+    jwin, twin = JaxDeviceWin(jcomm, 20), DeviceWin(comm, 20)
+    for r in range(NP):
+        jwin.store(r, 0, init[r])
+        twin.store(r, 0, init[r])
+    before = _pvars("dev_rma_tier_rdma", "dev_rma_tier_epoch")
+    jwin.put(init[target, lo:lo + n].copy(), 2, target, disp, stride)
+    twin.put(twin.win[target, lo:lo + n], 2, target, disp, stride)
+    jwin.fence()
+    twin.fence()
+    np.testing.assert_array_equal(_rows(twin.win), _rows(jwin.win))
+    tier = "dev_rma_tier_rdma" if rmin is None and stride == 1 else \
+        "dev_rma_tier_epoch"
+    assert _pvars(tier)[tier] - before[tier] == 1
+
+
+def test_store_from_a_view_of_the_window(jcomm, comm):
+    init = np.arange(NP * 12, dtype=np.float32).reshape(NP, 12)
+    jwin, twin = JaxDeviceWin(jcomm, 12), DeviceWin(comm, 12)
+    for r in range(NP):
+        jwin.store(r, 0, init[r])
+        twin.store(r, 0, init[r])
+    jwin.store(4, 3, init[4, 1:7].copy())
+    twin.store(4, 3, twin.win[4, 1:7])
+    np.testing.assert_array_equal(_rows(twin.win), _rows(jwin.win))
