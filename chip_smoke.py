@@ -67,8 +67,11 @@ non-zero, printing no result, without them. Phases:
    of K12/K13 on f32, bf16 and i8 at every disp residue mod 16 bytes,
    sources at offset 0 and 1, counts around the vector width and one
    grid-stride pass; K12, K14 and K17 with a source that overlaps the
-   target range, against the plain versions on a cloned source. Then
-   the path:
+   target range, against the plain versions on a cloned source; the
+   direct fold of K14 the same way on every kind above, with the exact
+   alias; and (with the quant kernels) K14q at blocks of 64, 128 and
+   256 values, disp 0 and 5, a misaligned source and the exact alias.
+   Then the path:
    the OSU one-sided band (mvapich2_tpu_torch.bench.osu_rma, 1 KiB to
    4 MiB, 32 ops a fence, 3 + 12 fences, put/get/accumulate from rank 0
    to rank 7) on a DeviceWin of 64 MiB f32 a rank over 8 virtual ranks,
@@ -87,8 +90,8 @@ non-zero, printing no result, without them. Phases:
    version and the library call; the staging stack; the end-to-end
    allreduce latency and effective bandwidth (2*R*m/t) of both paths;
    the end-to-end alltoall latency of the mesh path; the RMA kernels at
-   64 MiB, K12/K13 misaligned (N - 7 at disp 5) and at 1 KiB and 64 KiB
-   beside copy_, and the OSU band; K15 and K16 beside
+   64 MiB, K12/K13/K14 misaligned (N - 7 at disp 5) beside copy_ or add_,
+   K12/K13 at 1 KiB and 64 KiB, and the OSU band; K15 and K16 beside
    scaled_dot_product_attention on the same blocks; K4 at 8 x 64 MiB and
    as the (2, 4) RS-x phase, K8 at 8 x 64 MiB, and the e2e latency of
    the fold and (2, 4) allreduces beside the 1-D mesh call;
@@ -208,6 +211,9 @@ def phase_build(_build):
                 if copy:
                     log(f"[build] rma_copy_kernel<"
                         f"{COPY_TYPES[copy.group(1)]}>: {ln.strip()}")
+                elif "rma_acc_direct_kernelIfE" in entry:
+                    log(f"[build] rma_acc_direct_kernel<float>: "
+                        f"{ln.strip()}")
                 elif "quant" in entry or (kern and ("IfLi0E" in entry
                                                     or "IjE" in entry)):
                     log(f"[build] {(kern or [entry[:60]])[0]}: "
@@ -663,8 +669,10 @@ def phase_rma_kernels(torch, np, rma, ring, dev):
     a get must leave the window as it was): RMA_KINDS, counts below one
     16-byte vector, misaligned disp, partial tail chunks, chunk_bytes 16
     and the default, depth 2/3/4, origin == target at p = 2 and 8, and
-    N - 7 elements at disp 5 of a 64 MiB-a-rank f32 window. Returns the
-    max abs error of the full-size checks."""
+    N - 7 elements at disp 5 of a 64 MiB-a-rank f32 window; then the
+    direct copy's and the direct fold's own cases (``_copy_checks``,
+    ``_acc_checks``). Returns the max abs error of the full-size
+    checks."""
     rng = np.random.default_rng(SEED + 900)
     n_checks = 0
     full_err = {}
@@ -721,6 +729,7 @@ def phase_rma_kernels(torch, np, rma, ring, dev):
         run(op, R, N, N - 7, 5, 0, R - 1, "f32", None, None, key, win, src)
     del win, src
     n_checks += _copy_checks(torch, np, rma, ring, dev)
+    n_checks += _acc_checks(torch, np, rma, ring, dev)
     log(f"[kernels] {n_checks} RMA kernel-vs-plain checks passed, bitwise "
         f"(64 MiB-a-rank max abs err: "
         + ", ".join(f"{k} {v:.3g}" for k, v in full_err.items()) + ")")
@@ -787,6 +796,63 @@ def _copy_checks(torch, np, rma, ring, dev):
             getattr(rma, op)(got[1, d + shift:d + shift + n], got, 0, 1, d)
             ref(want[1, d + shift:d + shift + n].clone(), want, 0, 1, d)
             check(f"{op} overlap {shift:+d}", got, want)
+    return checks
+
+
+def _acc_checks(torch, np, rma, ring, dev):
+    """The direct fold of K14, bitwise, the whole window compared, on
+    every kind of RMA_KINDS: every disp residue mod 16 bytes (each head
+    length) into row 1 of a window whose rows are not 16-byte multiples,
+    a source at offset 0 and 1 element of a larger tensor (misaligned
+    against the destination), n at 1, V - 1, V, V + 1 and 3V + 5, and at
+    one grid-stride pass - 1, + 0 and + 1 (disps 0, 1 and V - 1, the pass
+    read from rma.accumulate_pass); then the exact alias (the target
+    range itself, which must double) and a source one element off it
+    (copied first), against the plain version on a cloned source.
+    uint16/uint32 plain versions run on the CPU. Returns the number of
+    checks."""
+    rng = np.random.default_rng(SEED + 985)
+    checks = 0
+
+    def check(what, got, want):
+        nonlocal checks
+        torch.cuda.synchronize()
+        ring.check_errors()
+        _compare(torch, what, got, want, "i32")
+        checks += 1
+
+    for kind in RMA_KINDS:
+        cpu = kind in ("u16", "u32")
+        dt = _data(torch, np, rng, (1,), kind, dev).dtype
+        v = 16 // dt.itemsize
+        one_pass = rma.accumulate_pass(dev, dt)
+        small = [(n, d) for n in (1, v - 1, v, v + 1, 3 * v + 5)
+                 for d in range(v)]
+        big = [(n, d) for n in (one_pass - 1, one_pass, one_pass + 1)
+               for d in (0, 1, v - 1)]
+        for cases, length in ((small, 7 * v + 3), (big, one_pass + 3 * v + 3)):
+            base = _data(torch, np, rng, (2, length), kind, dev)
+            srcs = _data(torch, np, rng, (length,), kind, dev)
+            for n, d in cases:
+                for off in (0, 1):
+                    src = srcs[off:off + n]
+                    got = base.clone()
+                    want = base.cpu() if cpu else base.clone()
+                    rma.rma_accumulate(src, got, 0, 1, d)
+                    rma.rma_accumulate_ref(src.cpu() if cpu else src, want,
+                                           0, 1, d)
+                    check(f"K14 {kind} n={n} disp={d} src+{off}", got, want)
+            del base, srcs
+        base = _data(torch, np, rng, (2, 4096 + 64), kind, dev)
+        n, d = 4096, 32
+        for shift in (0, 1):
+            got = base.clone()
+            want = base.cpu() if cpu else base.clone()
+            rma.rma_accumulate(got[1, d + shift:d + shift + n], got, 0, 1, d)
+            rma.rma_accumulate_ref(want[1, d + shift:d + shift + n].clone(),
+                                   want, 0, 1, d)
+            check(f"K14 {kind} {'alias' if shift == 0 else 'overlap +1'}",
+                  got, want)
     return checks
 
 
@@ -1685,10 +1751,14 @@ def phase_times(torch, hbm, timing, info, inputs, lat, launches, full_err):
 def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
                      launches, full_err):
     """Each ring kernel at the shapes the mesh path gives it, by CUDA
-    events: its time, its plain version's, the library call's, its bound
-    (each input read once, each output written once, over the memory
-    rate; the adds over the f32 peak) and the bytes its schedule moves
-    through device memory over the same rate."""
+    events: its time, its plain version's, its bound (each input read
+    once, each output written once, over the memory rate; the adds over
+    the f32 peak), the bytes its schedule moves through device memory
+    over the same rate, and two library calls: ``library_ms`` writes
+    every rank's copy of the result, as the kernel does (the sum or the
+    concatenation, then ``.expand(p, -1).contiguous()``), and
+    ``library_one_copy_ms`` writes one (the sum or the concatenation
+    alone)."""
     bw = info.hbm_bw_gbps * 1e9
     rng = np.random.default_rng(SEED + 300)
     p = R
@@ -1702,7 +1772,8 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
         n_in = sum(x.numel() for x in xs) * 4
         ms = timing.time_ms(fn)
         plain_ms = timing.time_ms(plain, warmup=1, iters=5)
-        lib_ms = timing.time_ms(lib)
+        lib_ms = timing.time_ms(lambda: lib().expand(p, -1).contiguous())
+        lib_one_ms = timing.time_ms(lib)
         b, by = bound(n_in + out_elems * 4, flops)
         ring.check_errors()
         return {"name": name, "route": "cuda",
@@ -1710,7 +1781,7 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
                 "replaces": src_line, "launches": launches[name],
                 "max_abs_err": full_err[kern], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                "library_ms": lib_ms,
+                "library_ms": lib_ms, "library_one_copy_ms": lib_one_ms,
                 "schedule_bound_ms": sched_bytes / bw * 1e3,
                 "schedule_bytes": sched_formula}
 
@@ -1757,7 +1828,8 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
     log("[times] ring kernels " + "; ".join(
         f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}, schedule "
         f"bound {k['schedule_bound_ms']:.4f}, plain {k['plain_ms']:.4f}, "
-        f"library {k['library_ms']:.4f}), launches {k['launches']}"
+        f"library, every rank's copy {k['library_ms']:.4f}, one copy "
+        f"{k['library_one_copy_ms']:.4f}), launches {k['launches']}"
         for k in kernels))
     log(f"[times] mesh e2e allreduce 64 MiB {extra['mesh_e2e_allreduce_ms']:.4f}"
         f" ms = {extra['mesh_e2e_effbw_GBps']:.1f} GB/s effbw (2*R*m/t); "
@@ -1929,18 +2001,18 @@ def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
     """K12, K13, K14 and K17 at the path's whole-window shape (N f32
     elements, origin 0, target 7, disp 0), by CUDA events, beside their
     bound (2 bytes a payload byte, 3 for the accumulate), their schedule
-    bound (K12/K13 the bound: one direct copy; K14/K17 through the
-    landing slot, 5 and 4 moves), their plain versions and the library
-    call; K12 and K13 also at N - 7 elements at disp 5 (misaligned by 4
-    bytes against the source) and at one op of 1 KiB and 64 KiB (those
-    two queued behind a sleep kernel, ``_queued_ms``), each beside copy_
-    on the same tensors; and the OSU band of the path."""
+    bound (K12/K13/K14 the bound: one direct pass; K17 through the
+    landing buffer, 4 moves), their plain versions and the library
+    call; K12, K13 and K14 also at N - 7 elements at disp 5 (misaligned
+    by 4 bytes against the source), K12 and K13 at one op of 1 KiB and
+    64 KiB (those two queued behind a sleep kernel, ``_queued_ms``), each
+    beside copy_ or add_ on the same tensors; and the OSU band of the
+    path."""
     bw = info.hbm_bw_gbps * 1e9
     gen = torch.Generator(device=dev).manual_seed(SEED + 1100)
     win = torch.randn(R, N, generator=gen, device=dev)
     src = torch.randn(N, generator=gen, device=dev)
     out = torch.empty(N, device=dev)
-    sc = rma.Scratch()
     t, nb = R - 1, N * 4
     rows = []
     for name, kern, src_line, fn, plain, lib, nbytes, sched, formula in (
@@ -1955,11 +2027,10 @@ def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
              lambda: out.copy_(win[t]), 2 * nb, 2 * nb,
              "2n: read window, write result"),
             ("rma_accumulate", "K14", "mvapich2_tpu/ops/pallas_rma.py:458",
-             lambda: rma.rma_accumulate(src, win, 0, t, scratch=sc),
+             lambda: rma.rma_accumulate(src, win, 0, t),
              lambda: rma.rma_accumulate_ref(src, win, 0, t),
-             lambda: win[t].add_(src), 3 * nb, 5 * nb,
-             "5n: read src, write slot, read slot and window, write "
-             "window"),
+             lambda: win[t].add_(src), 3 * nb, 3 * nb,
+             "3n: read src and window, write window"),
             ("direct_put", "K17", "mvapich2_tpu/rma/device.py:469",
              lambda: rma.direct_put(src, win, 0, t),
              lambda: rma.rma_put_ref(src, win, 0, t),
@@ -1998,6 +2069,11 @@ def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
                              (rows[1], get, get_lib)):
             row.setdefault("shapes", {})[shape] = {
                 "ms": clock(fn), "library_ms": clock(lib)}
+    rows[2]["shapes"] = {"misaligned": {
+        "ms": timing.time_ms(lambda: rma.rma_accumulate(src[:m], win, 0, t,
+                                                        5)),
+        "library_ms": timing.time_ms(
+            lambda: win[t, 5:5 + m].add_(src[:m]))}}
     ring.check_errors()
     extra = {"osu_rma": art}
     log("[times] RMA kernels at 64 MiB " + "; ".join(
@@ -2005,10 +2081,11 @@ def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
         f"bound {k['schedule_bound_ms']:.4f}, plain {k['plain_ms']:.4f}, "
         f"library {k['library_ms']:.4f}), launches {k['launches']}"
         for k in rows))
-    log("[times] K12/K13 off the aligned shape, ms (copy_ beside): "
+    log("[times] K12/K13/K14 off the aligned shape, ms (copy_ or add_ "
+        "beside): "
         + "; ".join(f"{k['name']} {shape} {v['ms']:.4f} "
                     f"({v['library_ms']:.4f})"
-                    for k in rows[:2] for shape, v in k["shapes"].items()))
+                    for k in rows[:3] for shape, v in k["shapes"].items()))
     res, lat = art["results"], art["latency_us"]
     for kind, band in (("put", "dev_put_bw"), ("get", "dev_get_bw"),
                        ("acc", "dev_acc_bw")):
@@ -2027,10 +2104,11 @@ def phase_quant_kernels(torch, np, quant, ici, rma, ring, cfg, dev):
     padded tails, one-chunk and many-chunk shapes, depth 2 and 3, one
     and two ring directions, and 8 ranks of 64 MiB; then K9's own wire
     words against encode_f32_ref of the plain reduced block. K14q: both
-    wires, blocks of 8 to 128 f32, misaligned disp, chunks that snap to
-    a block, depth 2/3/4, origin == target, and N - 128 elements of a
-    64 MiB-a-rank window at disp 5, every window row compared. Returns
-    the max abs error of the full-size checks."""
+    wires, blocks of 8 to 256 f32, misaligned disp, a misaligned source,
+    a zero block, the exact alias, the chunk and depth arguments,
+    origin == target, and N - 128 elements of a 64 MiB-a-rank window at
+    disp 5, every window row compared. Returns the max abs error of the
+    full-size checks."""
     rng = np.random.default_rng(SEED + 1400)
     n_checks = 0
     full_err = {}
@@ -2106,6 +2184,33 @@ def phase_quant_kernels(torch, np, quant, ici, rma, ring, cfg, dev):
             rma.rma_accumulate_ref(src, want, o, t, disp, quantized=True)
             check(f"K14q p={p} N={length} n={n} disp={disp} {o}->{t} "
                   f"{wire} chunk={cb} depth={depth} block={qb}", got, want)
+    # the direct form's own cases: blocks of 64, 128 and 256 values (16,
+    # 32 and 64 four-value words: half the warp's lanes idle, one word a
+    # lane, two words a lane), window
+    # rows at disp 0 and 5 (off their 16-byte boundary), a source at
+    # offset 1 of a larger tensor, one block of zeros (scale 0), and the
+    # exact alias (the target range itself)
+    for wire in ("q8", "fp8"):
+        cfg.set("QUANT_COLL", f"{wire}:1e-1")
+        for qb in (256, 512, 1024):
+            cfg.set("QUANT_BLOCK", qb)
+            blk = qb // 4
+            n = 7 * blk
+            for disp in (0, 5):
+                win = _data(torch, np, rng, (4, n + 19), "f32", dev)
+                src = _data(torch, np, rng, (n + 1,), "f32", dev)[1:]
+                src[2 * blk:3 * blk] = 0.0
+                got, want = win.clone(), win.clone()
+                rma.rma_accumulate(src, got, 0, 2, disp, quantized=True)
+                rma.rma_accumulate_ref(src, want, 0, 2, disp, quantized=True)
+                check(f"K14q {wire} block={blk} disp={disp}", got, want)
+                got, want = win.clone(), win.clone()
+                rma.rma_accumulate(got[2, disp:disp + n], got, 0, 2, disp,
+                                   quantized=True)
+                rma.rma_accumulate_ref(want[2, disp:disp + n].clone(), want,
+                                       0, 2, disp, quantized=True)
+                check(f"K14q {wire} block={blk} disp={disp} alias", got,
+                      want)
     cfg.set("QUANT_BLOCK", 512)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1460)
     win = torch.randn(R, N, generator=gen, device=dev)
@@ -2317,13 +2422,11 @@ def phase_quant_times(torch, quant, ici, rma, ring, timing, info, smi,
     del xs, own, own_rows, wall
     win = torch.randn(R, N, generator=gen, device=dev)
     src = torch.randn(N, generator=gen, device=dev)
-    sc = rma.Scratch()
     t = R - 1
     cfg.set("QUANT_COLL", "q8:1e-1")
     k14q = timing.time_ms(lambda: rma.rma_accumulate(
-        src, win, 0, t, quantized=True, scratch=sc))
-    k14 = timing.time_ms(lambda: rma.rma_accumulate(src, win, 0, t,
-                                                    scratch=sc))
+        src, win, 0, t, quantized=True))
+    k14 = timing.time_ms(lambda: rma.rma_accumulate(src, win, 0, t))
     plain14 = timing.time_ms(lambda: rma.rma_accumulate_ref(
         src, win, 0, t, quantized=True), warmup=1, iters=5)
     cfg.set("QUANT_COLL", "")
@@ -2348,9 +2451,9 @@ def phase_quant_times(torch, quant, ici, rma, ring, timing, info, smi,
          "launches": k14q_launches, "max_abs_err": full_err["K14q"],
          "ms": k14q, "plain_ms": plain14, "bound_ms": 3 * m / bw * 1e3,
          "bound_by": "bytes", "library_ms": None,
-         "schedule_bound_ms": (3 * m + 2 * wq) / bw * 1e3,
-         "schedule_bytes": "3n + 2 wire: read src, write and read the "
-                           "wire, read and write the window",
+         "schedule_bound_ms": 3 * m / bw * 1e3,
+         "schedule_bytes": "3n: read src and window, write window (the "
+                           "wire stays in registers)", "wire_bytes": wq,
          "exact_add_ms": add, "k14_ms": k14}]
     e2e = {w: statistics.median(v) * 1e3 for w, v in q_lats.items()}
     extra = {"quant_e2e_allreduce_ms": e2e,

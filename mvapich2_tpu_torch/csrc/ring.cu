@@ -37,10 +37,12 @@
 //    quant_ring_all_reduce (body _quant_rs_kernel, engine _QuantStreamer).
 //    K3's reduce-scatter with the block-scaled codec fused into both
 //    halves of every step, then each rank's own block encoded once.
-// K14 rma_acc_kernel             replaces pallas_rma.py rma_accumulate
+// K14 rma_acc_direct_kernel      replaces pallas_rma.py rma_accumulate
 //    (body _acc_kernel), exact wire: MPI_SUM fold of src[n] into the
-//    target's window row at disp. rma_acc_quant_kernel is its quantized
-//    wire (_acc_kernel with quant_block set): K9's codec in the two lanes.
+//    target's window row at disp, as one direct fold.
+//    rma_acc_quant_direct_kernel is its quantized wire (K14q, _acc_kernel
+//    with quant_block set): K9's codec, encode, decode and fold in
+//    registers.
 // K17 direct_put_kernel          replaces mvapich2_tpu/rma/device.py
 //    pallas_put (body _pallas_put_kernel). Single-shot put through one
 //    landing buffer of n elements.
@@ -96,18 +98,14 @@
 // step's full W_s chunks on every rank; a padding chunk copies nothing
 // but still moves both counters, so a zero-count pair leaks no credit.
 //
-// Schedule (K14): the JAX partner-pair streamer, with only the pair
-// running. One launch has two lanes of B blocks: the producer (origin)
-// lane stages chunk g (n elements cut into chunks of `chunk`) into
-// landing slot g mod depth and publishes it, the consumer (target) lane
-// folds it (window += landed, window chunk prefetched into L2 while the
-// chunk is in flight) and returns the credit. The producer writes chunk
-// g only once the consumer has consumed chunk g-depth. Ranks other than
-// the pair are not touched (the JAX kernels' symmetric permutation,
-// where every device runs the same DMA, is a TPU constraint). K17 is
-// the single-shot form: one landing buffer of n elements, one flag per
-// block, no credits. K12 and K13 have no schedule: one direct copy
-// (rma_copy_kernel, below).
+// Schedule (K17): the JAX single-shot put, with only the origin/target
+// pair running: the origin lane stages its share into one landing
+// buffer of n elements and publishes it, one flag per block, no
+// credits; the target lane commits it. Ranks other than the pair are not
+// touched (the JAX kernels' symmetric permutation, where every device
+// runs the same DMA, is a TPU constraint). K12, K13, K14 and K14q have
+// no schedule: one direct pass each (rma_copy_kernel,
+// rma_acc_direct_kernel and rma_acc_quant_direct_kernel, below).
 //
 // Arithmetic: floats fold in float and round to the dtype at every step,
 // integers in 32 bits (uint32 unsigned) and wrap to the dtype, exactly as
@@ -120,7 +118,8 @@
 // the slot's wire, read the wire and own, write own) + (m/p)(1 + 1/3.9)
 // (the own-block encode). The codec's division, one an element a hop,
 // stays far below the f32 rate. K14q must move 3n bytes of f32 (read src
-// and window, write window) and moves 3n + 2n/3.9 through its slot.
+// and window, write window), and moves just that: its wire words stay in
+// registers.
 //
 // Bound. Device-memory traffic, not arithmetic: per rank K3 moves about
 // 2m (init copy) + (p-1)(5m/p) (reduce-scatter: read own, write slot,
@@ -129,9 +128,9 @@
 // output once". K4 moves (p-1)(5m/p) with no init copy (the first step
 // sends from the input, the last folds into the output), against
 // m + m/p. K8 moves 2m a rank, its bound. K17 moves 4 bytes a payload
-// byte (read source, write slot, read slot, write destination) and K14
-// 5 (and the window read), against 2 and 3; K12 and K13 move 2, their
-// bound. The landing slots (p*ndir*depth*chunk elements) are
+// byte (read source, write slot, read slot, write destination), against
+// 2; K12 and K13 move 2 and K14 3, their bounds. The landing slots
+// (p*ndir*depth*chunk elements) are
 // small enough to stay in the 50 MB L2. K10 moves 2m/p (local block) +
 // (p-1)(4m/p) (read input, write slot, read slot, write output) per
 // rank, against 2m; K11 the same over the bytes its matrix moves.
@@ -147,6 +146,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -1205,126 +1205,8 @@ __global__ void __launch_bounds__(1024) hbm_alltoallv_kernel(RankPtrs ptrs, cons
 }
 
 // ---------------------------------------------------------------------------
-// the one-sided stream of K14, and the direct put K17
+// the direct put K17
 // ---------------------------------------------------------------------------
-
-// dst[i] = dst[i] + slot[i] for any alignment (the copy_any split).
-template <typename T>
-__device__ void fold_any(T* dst, const T* slot, long long cnt) {
-  constexpr int V = 16 / sizeof(T);
-  long long head = 0;
-  if (((reinterpret_cast<uintptr_t>(dst) |
-        reinterpret_cast<uintptr_t>(slot)) & 15) == 0) {
-    head = cnt / V * V;
-    fold_range<T, SUM>(dst, slot, head, 1);
-  }
-  for (long long i = head + threadIdx.x; i < cnt; i += blockDim.x)
-    dst[i] = red<T, SUM>(dst[i], ld_cg(slot + i));
-}
-
-// Ask L2 for the lines of [p, p + bytes): no effect on the values.
-__device__ __forceinline__ void prefetch_l2(const void* p, long long bytes) {
-  const char* c = static_cast<const char*>(p);
-  for (long long i = threadIdx.x * 128ll; i < bytes;
-       i += blockDim.x * 128ll)
-    asm volatile("prefetch.global.L2 [%0];" :: "l"(c + i));
-}
-
-// What one hop of the one-sided stream does with a share of cnt
-// elements: PlainHop carries the elements as they are and folds them
-// (K14); QuantHop carries them as wire words (K14's quantized wire).
-template <typename T>
-struct PlainHop {
-  using Slot = T;
-  static constexpr bool kFold = true;
-  __device__ int align() const { return 16 / sizeof(T); }
-  __device__ long long slot_len(long long chunk) const { return chunk; }
-  __device__ long long slot_pos(long long e) const { return e; }
-  __device__ void produce(T* slot, const T* src, long long cnt) const {
-    copy_any(slot, src, cnt, false);
-  }
-  __device__ void consume(T* dst, const T* slot, long long cnt) const {
-    fold_any(dst, slot, cnt);
-  }
-};
-
-template <int W>
-struct QuantHop {
-  using Slot = int;
-  static constexpr bool kFold = true;
-  int blk;
-  __device__ int align() const { return blk; }
-  __device__ long long slot_len(long long chunk) const {
-    return slot_pos(chunk);
-  }
-  __device__ long long slot_pos(long long e) const {
-    return e / blk * (1 + blk / 4);
-  }
-  __device__ void produce(int* slot, const float* src, long long cnt) const {
-    encode_blocks<W>(slot, src, cnt / blk, blk);
-  }
-  __device__ void consume(float* dst, const int* slot, long long cnt) const {
-    decode_fold_blocks<W>(dst, slot, cnt / blk, blk);
-  }
-};
-
-// One block's part of one stream of n elements from `from` to `to`
-// through `depth` landing slots, each holding a chunk of `chunk`
-// elements as the hop lays it out. Blocks [0, B) are the producer lane,
-// [B, 2B) the consumer lane; block b of each owns share b of every chunk
-// and its own counters landed[b] / consumed[b].
-template <typename T, typename Hop>
-__device__ void rma_stream(const Hop& hop, const T* from, T* to,
-                           long long n, long long chunk, int depth, int B,
-                           typename Hop::Slot* slots, unsigned* landed,
-                           unsigned* consumed, int* err) {
-  const int b = blockIdx.x % B;
-  const bool producer = blockIdx.x < B;
-  const long long nc = (n + chunk - 1) / chunk;
-  for (long long g = 0; g < nc; ++g) {
-    const long long off = g * chunk;
-    long long s0, s1;
-    share(min(chunk, n - off), chunk, b, B, hop.align(), &s0, &s1);
-    typename Hop::Slot* slot =
-        slots + (g % depth) * hop.slot_len(chunk) + hop.slot_pos(s0);
-    if (producer) {
-      if (g >= depth &&
-          !block_wait(consumed + b, static_cast<unsigned>(g - depth + 1),
-                      err))
-        return;
-      hop.produce(slot, from + off + s0, s1 - s0);
-      block_signal(landed + b, static_cast<unsigned>(g + 1));
-    } else {
-      if constexpr (Hop::kFold)
-        prefetch_l2(to + off + s0, (s1 - s0) * sizeof(T));
-      if (!block_wait(landed + b, static_cast<unsigned>(g + 1), err))
-        return;
-      hop.consume(to + off + s0, slot, s1 - s0);
-      block_signal(consumed + b, static_cast<unsigned>(g + 1));
-    }
-  }
-}
-
-// K14: from = src, to = the target's window row + disp, folded.
-template <typename T>
-__global__ void __launch_bounds__(1024) rma_acc_kernel(
-    const T* from, T* to, long long n, long long chunk, int depth, int B,
-    T* slots, unsigned* landed, unsigned* consumed, int* err) {
-  rma_stream(PlainHop<T>{}, from, to, n, chunk, depth, B, slots, landed,
-             consumed, err);
-}
-
-// K14, quantized wire (f32): the producer encodes its share of the source
-// chunk into the landing slot, the consumer decodes it and folds it into
-// the window row; n and chunk are multiples of blk.
-template <int W>
-__global__ void __launch_bounds__(1024) rma_acc_quant_kernel(
-    const float* from, float* to, long long n, int blk, long long chunk,
-    int depth, int B, int* slots, unsigned* landed, unsigned* consumed,
-    int* err) {
-  rma_stream(QuantHop<W>{blk}, from, to, n, chunk, depth, B, slots, landed,
-             consumed, err);
-}
 
 // K17 (T: an unsigned type of the element's width): the origin lane
 // stages share b of src into the landing buffer and publishes it; the
@@ -1454,6 +1336,170 @@ __global__ void __launch_bounds__(1024) rma_copy_kernel(
     copy_words<true>(words, shift, out, nvec);
   else
     copy_words<false>(words, 0, out, nvec);
+}
+
+// ---------------------------------------------------------------------------
+// K14 and K14q: the direct fold
+// ---------------------------------------------------------------------------
+//
+// rma_acc_direct_kernel replaces mvapich2_tpu/ops/pallas_rma.py
+// rma_accumulate (:458, its pallas_call at :492, body _acc_kernel
+// :328-391) on the exact wire: to[i] = red<T, SUM>(to[i], from[i]) for
+// i < n, from = src and to = the target's window row + disp; floats fold
+// in float and round once to T, integers wrap, as the JAX kernel's
+// fold_buf + landing. rma_acc_quant_direct_kernel replaces the same
+// kernel with quant_block set (K14q).
+//
+// Bound: bytes. The source and the window row are read once and the row
+// written once, 3n, or 0.060 ms for 64 MiB of f32 at 3.35 TB/s. The TPU
+// kernel streams src through a landing slot under chunk credits because
+// only the target may fold into its own HBM; on one card the origin's
+// threads read src and the row and write the row in one pass, with no
+// slot, no flag and nothing to wait for. (The slot design moved 5n bytes
+// behind one credit handshake a chunk.) The fold is elementwise and the
+// quantization blocks are independent, so no cut changes a result.
+//
+// K14 is K12's loop with a fold: the same plain launch (one pass of
+// kCopyUnroll words a thread, at most the blocks that fit at once), the
+// same head / nvec words / tail split (ops/rma.py copy_plan models it),
+// the same realignment of a source misaligned against the row; each
+// thread loads its kCopyUnroll source words and window words before it
+// stores. Aliasing: a source that partly overlaps the row is copied by
+// the wrapper first. A source that is exactly the target range is
+// passed as it is and must double the range, as the JAX kernel's
+// immutable payload does: then `from` is not read-only in the launch,
+// and the result is right only because every word (head and tail
+// element) is read, through both pointers, by the one thread that later
+// stores it, before that store. Its shift is 0, so no thread reads a
+// neighbour's word.
+//
+// K14q: one warp a quantization block of blk values (lane i takes the
+// 4-value words i, i + 32, ...): the block's absmax by the shuffle
+// reduction of encode_blocks, scale = absmax * f32(1/top), each value
+// coded as Codec<W>::code(v / safe) and folded as fma(value(code),
+// scale, window), the arithmetic of encode_blocks then
+// decode_fold_blocks. The wire words never reach memory. A lane keeps
+// its first word of source and window in registers between the two
+// passes and reloads the rest (a block past 128 values); each word is
+// read and written by its lane alone, so the exact alias holds here too.
+
+// The V = 16 / sizeof(T) elements of window word w and source word s,
+// folded pairwise.
+template <typename T>
+__device__ __forceinline__ uint4 fold_word(uint4 w, uint4 s) {
+  constexpr int V = 16 / sizeof(T);
+  T a[V], b[V];
+  memcpy(a, &w, 16);
+  memcpy(b, &s, 16);
+#pragma unroll
+  for (int j = 0; j < V; ++j) a[j] = red<T, SUM>(a[j], b[j]);
+  memcpy(&w, a, 16);
+  return w;
+}
+
+// to[v] = fold(to[v], the 16 bytes at (char*)from + 16 v + shift), for
+// v < nvec; from as in copy_words.
+template <typename T, bool SHIFTED>
+__device__ void fold_words(const uint4* from, int shift, uint4* to,
+                           long long nvec) {
+  const long long step =
+      static_cast<long long>(gridDim.x) * blockDim.x * kCopyUnroll;
+  const int q = shift >> 2, r8 = (shift & 3) * 8;
+  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x *
+                            kCopyUnroll + threadIdx.x;
+       base < nvec; base += step) {
+    uint4 s[kCopyUnroll], w[kCopyUnroll];
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const long long i = base + static_cast<long long>(k) * blockDim.x;
+      if (i < nvec) {
+        s[k] = __ldg(from + i);
+        if constexpr (SHIFTED)
+          s[k] = realign(s[k], __ldg(from + i + 1), q, r8);
+        w[k] = to[i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const long long i = base + static_cast<long long>(k) * blockDim.x;
+      if (i < nvec) to[i] = fold_word<T>(w[k], s[k]);
+    }
+  }
+}
+
+// K14 (T: the element type): to[i] += from[i] for i < n, cut into head,
+// nvec words and tail as K12.
+template <typename T>
+__global__ void __launch_bounds__(1024) rma_acc_direct_kernel(
+    const T* from, T* to, long long n, long long head, long long nvec) {
+  constexpr int V = 16 / sizeof(T);
+  const long long body_end = head + nvec * V;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t < head) to[t] = red<T, SUM>(to[t], from[t]);
+  if (t < n - body_end)
+    to[body_end + t] = red<T, SUM>(to[body_end + t], from[body_end + t]);
+  if (nvec == 0) return;
+  const uintptr_t first = reinterpret_cast<uintptr_t>(from + head);
+  const int shift = static_cast<int>(first & 15);
+  const uint4* words = reinterpret_cast<const uint4*>(first - shift);
+  uint4* out = reinterpret_cast<uint4*>(to + head);
+  if (shift)
+    fold_words<T, true>(words, shift, out, nvec);
+  else
+    fold_words<T, false>(words, 0, out, nvec);
+}
+
+// The absmax of four values.
+__device__ __forceinline__ float absmax4(float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// One value of K14q: v coded against `safe`, decoded and folded into a.
+template <int W>
+__device__ __forceinline__ float quant_fold(float v, float safe, float scale,
+                                            float a) {
+  return __fmaf_rn(Codec<W>::value(Codec<W>::code(__fdiv_rn(v, safe))),
+                   scale, a);
+}
+
+// K14q (f32): nb blocks of blk values of from folded into to, one warp a
+// block; blockDim.x is a multiple of 32, blk of 4.
+template <int W>
+__global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
+    const float* from, float* to, long long nb, int blk) {
+  const int lane = threadIdx.x & 31;
+  const int nw = blk / 4;
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  for (long long k = static_cast<long long>(blockIdx.x) *
+                         (blockDim.x >> 5) + (threadIdx.x >> 5);
+       k < nb; k += warps) {
+    const float* xb = from + k * blk;
+    float* ob = to + k * blk;
+    float4 x0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), w0 = x0;
+    if (lane < nw) {
+      x0 = load4(xb + 4 * lane);
+      w0 = load4(ob + 4 * lane);
+    }
+    float amax = fmaxf(0.0f, absmax4(x0));
+    for (int i = lane + 32; i < nw; i += 32)
+      amax = fmaxf(amax, absmax4(load4(xb + 4 * i)));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float scale = __fmul_rn(amax, Codec<W>::inv_top());
+    const float safe = scale > 0.0f ? scale : 1.0f;
+    for (int i = lane; i < nw; i += 32) {
+      const float4 v = i == lane ? x0 : load4(xb + 4 * i);
+      float4 a = i == lane ? w0 : load4(ob + 4 * i);
+      a.x = quant_fold<W>(v.x, safe, scale, a.x);
+      a.y = quant_fold<W>(v.y, safe, scale, a.y);
+      a.z = quant_fold<W>(v.z, safe, scale, a.z);
+      a.w = quant_fold<W>(v.w, safe, scale, a.w);
+      store4(ob + 4 * i, a);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1710,61 +1756,9 @@ cudaError_t launch_k11(RankPtrs ptrs, const long long* tables, int p,
                                      dim3(threads), args, 0, s);
 }
 
-// K14's launch: two lanes of B blocks, flags landed then consumed, each
-// [ctas].
-template <typename T>
-cudaError_t launch_rma(const void* kern, const void* from, void* to,
-                       long long n, long long chunk, int depth, void* slots,
-                       unsigned* flags, int ctas, int threads,
-                       cudaStream_t s) {
-  int B, *err;
-  cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, 2, ctas, threads, &B);
-  if (e != cudaSuccess) return e;
-  const T* f = static_cast<const T*>(from);
-  T* t = static_cast<T*>(to);
-  T* sl = static_cast<T*>(slots);
-  unsigned* landed = flags;
-  unsigned* consumed = flags + ctas;
-  void* args[] = {&f, &t, &n, &chunk, &depth, &B, &sl, &landed, &consumed,
-                  &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(2 * B), dim3(threads), args,
-                                     0, s);
-}
-
-// K14's quantized wire: the same two lanes and flags as launch_rma.
-template <int W>
-cudaError_t launch_k14q(const void* from, void* to, long long n, int blk,
-                        long long chunk, int depth, void* slots,
-                        unsigned* flags, int ctas, int threads,
-                        cudaStream_t s) {
-  const void* kern =
-      reinterpret_cast<const void*>(&rma_acc_quant_kernel<W>);
-  int B, *err;
-  cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, 2, ctas, threads, &B);
-  if (e != cudaSuccess) return e;
-  const float* f = static_cast<const float*>(from);
-  float* t = static_cast<float*>(to);
-  int* sl = static_cast<int*>(slots);
-  unsigned* landed = flags;
-  unsigned* consumed = flags + ctas;
-  void* args[] = {&f, &t, &n, &blk, &chunk, &depth, &B, &sl, &landed,
-                  &consumed, &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(2 * B), dim3(threads), args,
-                                     0, s);
-}
-
-template <typename T> const void* acc_kern() {
-  return reinterpret_cast<const void*>(&rma_acc_kernel<T>);
-}
-
 // p + i elements of T
 template <typename T> T* at(void* p, long long i) {
   return static_cast<T*>(p) + i;
-}
-template <typename T> const T* at(const void* p, long long i) {
-  return static_cast<const T*>(p) + i;
 }
 
 template <typename T>
@@ -1784,16 +1778,17 @@ cudaError_t launch_k17(const void* src, void* win, long long disp,
                                      0, s);
 }
 
-// K12/K13: the blocks of one kernel instance and block size that fit on
-// the card at once, counted at its first launch on a device, then kept.
-struct CopyFit {
+// The direct kernels (K12/K13, K14, K14q): the blocks of one kernel
+// instance and block size that fit on the card at once, counted at its
+// first launch on a device, then kept.
+struct DirectFit {
   int dev;
   const void* kern;
   int threads;
   int cap;
 };
 std::mutex g_fit_mu;
-CopyFit g_fits[64];
+DirectFit g_fits[64];
 int g_nfits = 0;
 
 const void* copy_kern(int esize) {
@@ -1805,9 +1800,29 @@ const void* copy_kern(int esize) {
   }
 }
 
+template <typename T> const void* acc_of() {
+  return reinterpret_cast<const void*>(&rma_acc_direct_kernel<T>);
+}
+
+// K14's instance for a dtype code
+const void* acc_kern(int dtype) {
+  switch (dtype) {
+    case F32: return acc_of<float>();
+    case F16: return acc_of<__half>();
+    case BF16: return acc_of<__nv_bfloat16>();
+    case I32: return acc_of<int32_t>();
+    case I16: return acc_of<int16_t>();
+    case I8: return acc_of<int8_t>();
+    case U8: return acc_of<uint8_t>();
+    case U16: return acc_of<uint16_t>();
+    case U32: return acc_of<uint32_t>();
+    default: return nullptr;
+  }
+}
+
 // The blocks of kern at `threads` a block that fit on the current device
 // at once: one pass of the grid-stride loop.
-cudaError_t copy_fit(const void* kern, int threads, int* cap) {
+cudaError_t direct_fit(const void* kern, int threads, int* cap) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -1829,31 +1844,60 @@ cudaError_t copy_fit(const void* kern, int threads, int* cap) {
   return cudaSuccess;
 }
 
-bool bad_copy_threads(int threads) {
+bool bad_direct_threads(int threads) {
   return threads < 32 || threads > 1024 || threads % 32;
 }
 
-// K12/K13: n elements of esize bytes from `from` to `to`, split at to's
-// 16-byte boundary (ops/rma.py copy_plan models the split). The grid is
-// one pass of kCopyUnroll words a thread, at most what fits at once, at
-// least one block (the head and tail of a copy shorter than a word; the
-// head and tail need 16 threads).
-cudaError_t launch_copy(int esize, const void* from, void* to, long long n,
-                        int threads, cudaStream_t s) {
-  const void* kern = copy_kern(esize);
-  if (!kern || n < 0 || bad_copy_threads(threads))
+// K12/K13 and K14 (kern): n elements of esize bytes from `from` into
+// `to`, split at to's 16-byte boundary (ops/rma.py copy_plan models the
+// split). The grid is one pass of kCopyUnroll words a thread, at most
+// what fits at once, at least one block (the head and tail of a range
+// shorter than a word; the head and tail need 16 threads).
+cudaError_t launch_direct(const void* kern, int esize, const void* from,
+                          void* to, long long n, int threads,
+                          cudaStream_t s) {
+  if (!kern || n < 0 || bad_direct_threads(threads))
     return cudaErrorInvalidValue;
   long long head = std::min<long long>(
       n, (-reinterpret_cast<uintptr_t>(to) & 15) / esize);
   long long nvec = (n - head) * esize / 16;
   int cap;
-  const cudaError_t e = copy_fit(kern, threads, &cap);
+  const cudaError_t e = direct_fit(kern, threads, &cap);
   if (e != cudaSuccess) return e;
   const long long per_block = static_cast<long long>(threads) * kCopyUnroll;
   const int grid = static_cast<int>(std::max(
       1ll, std::min<long long>(cap, (nvec + per_block - 1) / per_block)));
   void* args[] = {&from, &to, &n, &head, &nvec};
   return cudaLaunchKernel(kern, dim3(grid), dim3(threads), args, 0, s);
+}
+
+// K14q: n / blk blocks of blk f32 values, one warp each; the grid is one
+// block per threads / 32 of them, at most what fits at once.
+template <int W>
+cudaError_t launch_acc_quant(const void* from, void* to, long long n,
+                             int blk, int threads, cudaStream_t s) {
+  const void* kern =
+      reinterpret_cast<const void*>(&rma_acc_quant_direct_kernel<W>);
+  int cap;
+  const cudaError_t e = direct_fit(kern, threads, &cap);
+  if (e != cudaSuccess) return e;
+  long long nb = n / blk;
+  const long long per_block = threads / 32;
+  const int grid = static_cast<int>(std::max(
+      1ll, std::min<long long>(cap, (nb + per_block - 1) / per_block)));
+  void* args[] = {&from, &to, &nb, &blk};
+  return cudaLaunchKernel(kern, dim3(grid), dim3(threads), args, 0, s);
+}
+
+// The 16-byte words that one grid-stride pass of a K12/K13 or K14 launch
+// (kern) at `threads` a block moves on the current device; -1 on an
+// error.
+int direct_pass(const void* kern, int threads) {
+  int cap;
+  if (!kern || bad_direct_threads(threads) ||
+      direct_fit(kern, threads, &cap) != cudaSuccess)
+    return -1;
+  return cap * threads * kCopyUnroll;
 }
 
 int element_size(int dtype) {
@@ -2035,66 +2079,55 @@ int mv2t_hbm_alltoallv(int dtype, const void* ins, const void* outs, int p,
 // element size in bytes (1, 2 or 4).
 int mv2t_rma_put(int esize, const void* src, void* win, long long disp,
                  long long n, int threads, void* stream) {
-  return static_cast<int>(
-      launch_copy(esize, src, static_cast<char*>(win) + disp * esize, n,
-                  threads, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_direct(
+      copy_kern(esize), esize, src, static_cast<char*>(win) + disp * esize,
+      n, threads, static_cast<cudaStream_t>(stream)));
 }
 
 // K13: n elements of win (the target's window row) at disp into out;
 // the arguments as K12's.
 int mv2t_rma_get(int esize, const void* win, long long disp, void* out,
                  long long n, int threads, void* stream) {
-  return static_cast<int>(launch_copy(
-      esize, static_cast<const char*>(win) + disp * esize, out, n, threads,
-      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_direct(
+      copy_kern(esize), esize, static_cast<const char*>(win) + disp * esize,
+      out, n, threads, static_cast<cudaStream_t>(stream)));
 }
 
-// The 16-byte words that one grid-stride pass of a K12/K13 launch at
-// `threads` a block moves on the current device; -1 on an error.
+// The 16-byte words of one grid-stride pass of K12/K13 for esize-byte
+// elements at `threads` a block on the current device; -1 on an error.
 int mv2t_rma_copy_pass(int esize, int threads) {
-  const void* kern = copy_kern(esize);
-  int cap;
-  if (!kern || bad_copy_threads(threads) ||
-      copy_fit(kern, threads, &cap) != cudaSuccess)
-    return -1;
-  return cap * threads * kCopyUnroll;
+  return direct_pass(copy_kern(esize), threads);
 }
 
-// K14: win (the target's window row)[disp + i] += src[i].
+// K14: win (the target's window row)[disp + i] += src[i] for i < n, in
+// the dtype's arithmetic; one plain launch.
 int mv2t_rma_accumulate(int dtype, const void* src, void* win,
-                        long long disp, long long n, long long chunk,
-                        int depth, void* slots, void* flags, int ctas,
-                        int threads, void* stream) {
-  unsigned* fl = static_cast<unsigned*>(flags);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case F32: return static_cast<int>(launch_rma<float>(acc_kern<float>(), src, at<float>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    case F16: return static_cast<int>(launch_rma<__half>(acc_kern<__half>(), src, at<__half>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    case BF16: return static_cast<int>(launch_rma<__nv_bfloat16>(acc_kern<__nv_bfloat16>(), src, at<__nv_bfloat16>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    case I32: return static_cast<int>(launch_rma<int32_t>(acc_kern<int32_t>(), src, at<int32_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    case I16: return static_cast<int>(launch_rma<int16_t>(acc_kern<int16_t>(), src, at<int16_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    case I8: return static_cast<int>(launch_rma<int8_t>(acc_kern<int8_t>(), src, at<int8_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    case U8: return static_cast<int>(launch_rma<uint8_t>(acc_kern<uint8_t>(), src, at<uint8_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    case U16: return static_cast<int>(launch_rma<uint16_t>(acc_kern<uint16_t>(), src, at<uint16_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    case U32: return static_cast<int>(launch_rma<uint32_t>(acc_kern<uint32_t>(), src, at<uint32_t>(win, disp), n, chunk, depth, slots, fl, ctas, threads, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                        long long disp, long long n, int threads,
+                        void* stream) {
+  const int es = element_size(dtype);
+  return static_cast<int>(launch_direct(
+      acc_kern(dtype), es, src, static_cast<char*>(win) + disp * es, n,
+      threads, static_cast<cudaStream_t>(stream)));
+}
+
+// The 16-byte words of one grid-stride pass of K14 for a dtype code at
+// `threads` a block on the current device; -1 on an error.
+int mv2t_rma_accumulate_pass(int dtype, int threads) {
+  return direct_pass(acc_kern(dtype), threads);
 }
 
 // K14, quantized wire: win (an f32 window row)[disp + i] +=
-// decode(encode(src[i])) in blocks of blk; n and chunk multiples of blk.
+// decode(encode(src[i])) in blocks of blk; n a multiple of blk, blk of 4.
 int mv2t_rma_accumulate_quant(int wire, const void* src, void* win,
                               long long disp, long long n, int blk,
-                              long long chunk, int depth, void* slots,
-                              void* flags, int ctas, int threads,
-                              void* stream) {
-  if (blk < 4 || blk % 4 || chunk % blk || n % blk)
+                              int threads, void* stream) {
+  if (blk < 4 || blk % 4 || n < 0 || n % blk || bad_direct_threads(threads))
     return static_cast<int>(cudaErrorInvalidValue);
-  unsigned* fl = static_cast<unsigned*>(flags);
+  float* to = static_cast<float*>(win) + disp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (wire) {
-    case Q8: return static_cast<int>(launch_k14q<Q8>(src, at<float>(win, disp), n, blk, chunk, depth, slots, fl, ctas, threads, s));
-    case FP8: return static_cast<int>(launch_k14q<FP8>(src, at<float>(win, disp), n, blk, chunk, depth, slots, fl, ctas, threads, s));
+    case Q8: return static_cast<int>(launch_acc_quant<Q8>(src, to, n, blk, threads, s));
+    case FP8: return static_cast<int>(launch_acc_quant<FP8>(src, to, n, blk, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -117,13 +117,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "mv2t_rma_copy_pass": (_I, (("esize", _I), ("threads", _I))),
         "mv2t_rma_accumulate": (_I, (
             ("dtype", _I), ("src", _P), ("win", _P), ("disp", _I64),
-            ("n", _I64), ("chunk", _I64), ("depth", _I), ("slots", _P),
-            ("flags", _P), ("ctas", _I), ("threads", _I), ("stream", _P))),
+            ("n", _I64), ("threads", _I), ("stream", _P))),
+        "mv2t_rma_accumulate_pass": (_I, (("dtype", _I), ("threads", _I))),
         "mv2t_rma_accumulate_quant": (_I, (
             ("wire", _I), ("src", _P), ("win", _P), ("disp", _I64),
-            ("n", _I64), ("blk", _I), ("chunk", _I64), ("depth", _I),
-            ("slots", _P), ("flags", _P), ("ctas", _I), ("threads", _I),
-            ("stream", _P))),
+            ("n", _I64), ("blk", _I), ("threads", _I), ("stream", _P))),
         "mv2t_direct_put": (_I, (
             ("esize", _I), ("src", _P), ("win", _P), ("disp", _I64),
             ("n", _I64), ("landing", _P), ("flags", _P), ("ctas", _I),

@@ -180,19 +180,27 @@ def ctas_per_lane(device: torch.device, lanes: int, elems: int,
 
 
 def launch(fn: str, device: torch.device, *args,
-           threads: Optional[int] = None) -> None:
+           threads: Optional[int] = None,
+           stream: Optional[int] = None) -> None:
     """Call C entry ``fn`` of ``csrc/ring.cu`` with ``args`` plus the
-    thread count (``ring_threads`` unless given) and the current stream;
-    raise on a launch error or on a spin timeout left by an earlier
-    launch."""
+    thread count (``ring_threads`` unless given) and a stream; raise on a
+    launch error or on a spin timeout left by an earlier launch. Without
+    ``stream`` the entry runs on ``device``'s current stream with
+    ``device`` made current. A caller that passes ``stream`` (a raw
+    ``cudaStream_t`` handle) has made ``device`` current itself, so
+    neither lookup runs (``DeviceWin`` does both once for a whole
+    completion wave)."""
     from . import _build
     lib = _build.load("ring")
     _raise_pending(lib)
     if threads is None:
         threads = kernel_param("ring_threads", 1024)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
+    if stream is not None:
         rc = getattr(lib, fn)(*args, threads, stream)
+    else:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            rc = getattr(lib, fn)(*args, threads, stream)
     _build.check(lib, rc, fn)
 
 

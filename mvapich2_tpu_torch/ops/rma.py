@@ -10,23 +10,21 @@ data between the origin and the target of one op.
 ``rma_get`` (K13): returns ``win[target, disp:disp+n]`` (the origin's
 ``n`` elements; the JAX kernel's zero rows for the other ranks come from
 its symmetric DMA and have no counterpart here).
-K12 and K13 are one direct copy on this card: the origin's threads read
-the source and store into the destination, one pass, no landing slot
-and no credit (:func:`copy_plan` models how it is cut). Their ``chunk_bytes``,
-``depth`` and ``scratch`` arguments, which the JAX kernels take, are
-validated and otherwise unused.
-
 ``rma_accumulate`` (K14): ``win[target, disp:disp+n] += src`` (MPI_SUM;
-floats fold in float and round once, integers wrap), through ``depth``
-landing slots of ``chunk`` elements (``RMA_CHUNK_BYTES``, 0 inheriting
-``ICI_CHUNK_BYTES``; ``ICI_PIPELINE_DEPTH``) with the chunk-credit
-handshake of the JAX streamer: the producer writes chunk g only once the
-consumer has consumed chunk g - depth. With ``quantized=True`` (f32
-only) each chunk crosses as K9's block-scaled wire words
-(``ops/quant.py``): the producer lane encodes its share of the source
-chunk into the landing slot, the consumer decodes it and folds it into
-the window row with one rounding, in blocks of
-``min(quant_block_elems(), n)`` elements (``n`` must be a multiple).
+floats fold in float and round once, integers wrap). With
+``quantized=True`` (f32 only, K14q) each block of
+``min(quant_block_elems(), n)`` elements (``n`` must be a multiple) is
+encoded as K9's block-scaled wire (``ops/quant.py``), decoded and folded
+into the window row with one rounding.
+
+K12, K13, K14 and K14q are one direct pass each on this card: the
+origin's threads read the source (and, for the fold, the window row) and
+store into the destination, one plain launch, no landing slot and no
+credit (:func:`copy_plan` models how K12/K13/K14 cut a range; K14q takes
+one warp a quantization block and keeps the wire words in registers).
+Their ``chunk_bytes`` and ``depth`` arguments (``RMA_CHUNK_BYTES``, 0
+inheriting ``ICI_CHUNK_BYTES``; ``ICI_PIPELINE_DEPTH``), which the JAX
+kernels take, are validated and otherwise unused.
 
 ``direct_put`` (K17, ``rma/device.py`` ``pallas_put``) is the
 single-shot put through one landing buffer of ``n`` elements; it lives
@@ -37,10 +35,11 @@ is copied first, so every route writes the values it held before the op,
 as the JAX package, whose sources are immutable arrays, does.
 
 Routing is ``ops/ring.py``'s: CPU tensors take the plain version
-(``*_ref``), CUDA tensors launch the kernel on the current stream or
-raise; ``LAUNCHES`` and ``PLAIN_CALLS`` count each. Chunking and depth
-reorder transfers, never arithmetic, so every kernel is bitwise equal to
-its plain version. A range past the window's end raises ``ValueError``.
+(``*_ref``), CUDA tensors launch the kernel on the current stream (or on
+the ``stream`` handle a caller passes, ``ring.launch``) or raise;
+``LAUNCHES`` and ``PLAIN_CALLS`` count each. Every kernel is bitwise
+equal to its plain version. A range past the window's end raises
+``ValueError``.
 
 Tier selection is :func:`planned_rma_tier`: contiguous ops of a kernel
 dtype at or above DEV_RMA_RDMA_MIN take the kernels ('rdma'), an f32
@@ -63,7 +62,8 @@ from . import ring
 from .ici import _cfg_chunk_elems as _ici_chunk_elems
 from .ici import _cfg_depth, dtype_kind
 from .quant import (WIRE_CODES, declared_bound, decode_add_ref,
-                    encode_f32_ref, quant_block_elems, wire_words)
+                    encode_f32_ref, quant_block_elems,
+                    wire_words)  # noqa: F401  (DeviceWin counts with it)
 
 # ``rma_accumulate`` counts K14's exact wire, ``rma_accumulate_quant``
 # its quantized wire (another kernel)
@@ -255,19 +255,16 @@ def add_values(cur: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return torch.add(cur, src)
 
 
-def _quant_geometry(n: int, chunk_bytes: Optional[int]) -> Tuple[int, int]:
-    """(block, chunk) of a quantized accumulate of ``n`` f32 elements, as
-    the JAX wrapper cuts them: the block is min(quant_block_elems(), n),
-    the chunk a block multiple. ``n`` must be a multiple of the block,
-    and the block of 4 codes."""
+def _quant_block(n: int) -> int:
+    """The block of a quantized accumulate of ``n`` f32 elements, as the
+    JAX wrapper cuts it: min(quant_block_elems(), n). ``n`` must be a
+    multiple of the block, and the block of 4 codes."""
     block = min(quant_block_elems(torch.float32), n)
-    chunk = min(_cfg_chunk_elems(torch.float32, chunk_bytes), n)
-    chunk = max(block, chunk // block * block)
     if n % block or block % 4:
         raise ValueError(f"quantized accumulate needs a block-multiple "
                          f"count of whole 4-code words (n={n}, "
                          f"block={block})")
-    return block, chunk
+    return block
 
 
 def rma_put_ref(src: torch.Tensor, win: torch.Tensor, origin: int,
@@ -293,7 +290,7 @@ def rma_accumulate_ref(src: torch.Tensor, win: torch.Tensor, origin: int,
     sl = win[target, disp:disp + src.numel()]
     if quantized:
         from ..coll.tuning import quant_params
-        block, _ = _quant_geometry(src.numel(), None)
+        block = _quant_block(src.numel())
         wire = quant_params()[0]
         w = encode_f32_ref(src.reshape(-1), block, wire)
         sl.copy_(decode_add_ref(sl, w, block, wire))
@@ -306,46 +303,8 @@ def rma_accumulate_ref(src: torch.Tensor, win: torch.Tensor, origin: int,
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
-class Scratch:
-    """Landing slots and counters of K14, kept across launches. Every
-    launch that shares one runs on one stream (a window's), so stream
-    order keeps them apart; the counters are zeroed, stream-ordered,
-    before each launch."""
-
-    def __init__(self) -> None:
-        self.slots: Optional[torch.Tensor] = None
-        self.flags: Optional[torch.Tensor] = None
-
-    def take(self, dev: torch.device, slot_bytes: int, nflags: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.slots is None or self.slots.device != dev or \
-                self.slots.numel() < slot_bytes:
-            self.slots = torch.empty(slot_bytes, dtype=torch.uint8,
-                                     device=dev)
-        if self.flags is None or self.flags.device != dev or \
-                self.flags.numel() < nflags:
-            self.flags = torch.empty(nflags, dtype=torch.int32, device=dev)
-        flags = self.flags[:nflags]
-        flags.zero_()
-        return self.slots, flags
-
-
-def _stream_launch(fn: str, code: int, dev: torch.device, dt: torch.dtype,
-                   n: int, ptrs: tuple, chunk_bytes, depth,
-                   scratch: Optional[Scratch]) -> None:
-    """Launch K14 (C entry ``fn``) over ``n`` elements; ``ptrs`` are the
-    entry's pointer and displacement arguments."""
-    chunk = max(1, min(_cfg_chunk_elems(dt, chunk_bytes), n))
-    d = _cfg_depth(depth)
-    ctas = ring.ctas_per_lane(dev, 2, chunk, 16 // dt.itemsize)
-    slots, flags = (scratch or Scratch()).take(dev, d * chunk * dt.itemsize,
-                                                 2 * ctas)
-    ring.launch(fn, dev, code, *ptrs, n, chunk, d, slots.data_ptr(),
-                flags.data_ptr(), ctas)
-
-
 def _check_stream_args(dt: torch.dtype, chunk_bytes, depth) -> None:
-    """Validate the chunk and depth that K12/K13 take for the JAX
+    """Validate the chunk and depth that K12/K13/K14 take for the JAX
     kernels' sake and do not use (None: nothing to check)."""
     if chunk_bytes is not None:
         _cfg_chunk_elems(dt, chunk_bytes)
@@ -359,12 +318,12 @@ def _row_ptr(win: torch.Tensor, target: int) -> int:
 
 def copy_plan(src_addr: int, dst_addr: int, n: int,
               esize: int) -> Tuple[int, int, int]:
-    """(head, nvec, shift): how the direct copy of K12/K13 (its C entry,
-    ``csrc/ring.cu`` ``launch_copy``) cuts ``n`` elements of ``esize``
-    bytes from address ``src_addr`` to ``dst_addr`` (both
-    element-aligned). ``head`` elements run up to the destination's
-    16-byte boundary, then ``nvec`` 16-byte destination words, then a
-    tail of fewer than ``16 // esize`` elements. ``shift`` is the
+    """(head, nvec, shift): how the direct copy of K12/K13 and the direct
+    fold of K14 (their C entries, ``csrc/ring.cu`` ``launch_direct``) cut
+    ``n`` elements of ``esize`` bytes from address ``src_addr`` to
+    ``dst_addr`` (both element-aligned). ``head`` elements run up to the
+    destination's 16-byte boundary, then ``nvec`` 16-byte destination
+    words, then a tail of fewer than ``16 // esize`` elements. ``shift`` is the
     source's misalignment in bytes against the words (0: both 16-byte
     aligned; else each word is assembled from the two aligned source
     words that hold its bytes). A model for the tests; the launch does
@@ -374,30 +333,40 @@ def copy_plan(src_addr: int, dst_addr: int, n: int,
     return head, nvec, (src_addr + head * esize) & 15
 
 
+def _pass(fn: str, code: int, esize: int, device: torch.device) -> int:
+    from . import _build
+    lib = _build.load("ring")
+    with torch.cuda.device(device):
+        words = getattr(lib, fn)(code, kernel_param("rma_copy_threads", 256))
+    if words < 1:
+        raise RuntimeError(f"{fn}: no launch shape for code {code}")
+    return words * (16 // esize)
+
+
 def copy_pass(device: torch.device, esize: int) -> int:
     """The elements of ``esize`` bytes that one grid-stride pass of a
     K12/K13 launch moves on ``device`` at the current block size (every
     block that fits at once, each thread its unrolled 16-byte words)."""
-    from . import _build
-    lib = _build.load("ring")
-    with torch.cuda.device(device):
-        words = lib.mv2t_rma_copy_pass(
-            esize, kernel_param("rma_copy_threads", 256))
-    if words < 1:
-        raise RuntimeError(f"rma copy pass: no launch shape for "
-                           f"{esize}-byte elements")
-    return words * (16 // esize)
+    return _pass("mv2t_rma_copy_pass", esize, esize, device)
+
+
+def accumulate_pass(device: torch.device, dtype: torch.dtype) -> int:
+    """The elements of ``dtype`` that one grid-stride pass of a K14
+    launch folds on ``device`` at the current block size."""
+    return _pass("mv2t_rma_accumulate_pass", _acc_code(dtype, "K14"),
+                 dtype.itemsize, device)
 
 
 def rma_put(src: torch.Tensor, win: torch.Tensor, origin: int, target: int,
             disp: int = 0, *, chunk_bytes: Optional[int] = None,
             depth: Optional[int] = None,
-            scratch: Optional[Scratch] = None) -> torch.Tensor:
+            stream: Optional[int] = None) -> torch.Tensor:
     """K12: one-sided contiguous put of ``src`` into the target's window
     row at element ``disp``, in place; returns ``win``. Rows other than
     the target's are not touched. One direct copy: ``chunk_bytes`` and
-    ``depth`` (the JAX kernel's) are validated, ``scratch`` accepted,
-    and none of them is used."""
+    ``depth`` (the JAX kernel's) are validated and not used. ``stream``:
+    a raw stream handle on the window's device, made current by the
+    caller (``ring.launch``)."""
     src = src.reshape(-1).contiguous()
     n = src.numel()
     _check_op(src, win, n, origin, target, disp, "rma_put")
@@ -412,7 +381,8 @@ def rma_put(src: torch.Tensor, win: torch.Tensor, origin: int, target: int,
     esize = _elem_size(win.dtype, "rma_put")
     row = _row_ptr(win, target)
     ring.launch("mv2t_rma_put", win.device, esize, src.data_ptr(), row,
-                disp, n, threads=kernel_param("rma_copy_threads", 256))
+                disp, n, threads=kernel_param("rma_copy_threads", 256),
+                stream=stream)
     LAUNCHES["rma_put"] += 1
     return win
 
@@ -420,10 +390,10 @@ def rma_put(src: torch.Tensor, win: torch.Tensor, origin: int, target: int,
 def rma_get(win: torch.Tensor, n: int, origin: int, target: int,
             disp: int = 0, *, chunk_bytes: Optional[int] = None,
             depth: Optional[int] = None,
-            scratch: Optional[Scratch] = None) -> torch.Tensor:
+            stream: Optional[int] = None) -> torch.Tensor:
     """K13: one-sided contiguous get of ``n`` elements of the target's
     window row at ``disp``; returns them, ``[n]`` (the origin's
-    result). One direct copy; ``chunk_bytes``, ``depth`` and ``scratch``
+    result). One direct copy; ``chunk_bytes``, ``depth`` and ``stream``
     as for :func:`rma_put`."""
     _check_op(None, win, n, origin, target, disp, "rma_get")
     _check_stream_args(win.dtype, chunk_bytes, depth)
@@ -438,7 +408,7 @@ def rma_get(win: torch.Tensor, n: int, origin: int, target: int,
     row = _row_ptr(win, target)
     ring.launch("mv2t_rma_get", win.device, esize, row, disp,
                 out.data_ptr(), n,
-                threads=kernel_param("rma_copy_threads", 256))
+                threads=kernel_param("rma_copy_threads", 256), stream=stream)
     LAUNCHES["rma_get"] += 1
     return out
 
@@ -447,57 +417,53 @@ def rma_accumulate(src: torch.Tensor, win: torch.Tensor, origin: int,
                    target: int, disp: int = 0, *, quantized: bool = False,
                    chunk_bytes: Optional[int] = None,
                    depth: Optional[int] = None,
-                   scratch: Optional[Scratch] = None) -> torch.Tensor:
+                   stream: Optional[int] = None) -> torch.Tensor:
     """K14: one-sided accumulate (MPI_SUM) of ``src`` into the target's
-    window row at ``disp``, in place, through the slot/credit schedule
-    with the fold at the target; returns ``win``. ``quantized=True``
-    carries each chunk as K9's block-scaled wire (MV2T_QUANT_COLL's
-    wire format), f32 only; the caller owns the budget check
-    (``acc_quant_ok``), as in the JAX package."""
+    window row at ``disp``, in place, as one direct fold; returns
+    ``win``. ``quantized=True`` (K14q) carries each block as K9's
+    block-scaled wire (MV2T_QUANT_COLL's wire format), f32 only; the
+    caller owns the budget check (``acc_quant_ok``), as in the JAX
+    package. ``chunk_bytes``, ``depth`` and ``stream`` as for
+    :func:`rma_put`."""
     src = src.reshape(-1).contiguous()
     n = src.numel()
     _check_op(src, win, n, origin, target, disp, "rma_accumulate")
+    _check_stream_args(win.dtype, chunk_bytes, depth)
     if n == 0:
         return win
     src = unshared(src, win, target, disp)
     if quantized:
-        return _accumulate_quant(src, win, origin, target, disp,
-                                 chunk_bytes, depth, scratch)
+        return _accumulate_quant(src, win, origin, target, disp, stream)
     if win.device.type == "cpu":
         PLAIN_CALLS["rma_accumulate"] += 1
         return rma_accumulate_ref(src, win, origin, target, disp)
     _cuda(win, "rma_accumulate")
-    code = _acc_code(win.dtype, "rma_accumulate")
-    _stream_launch("mv2t_rma_accumulate", code, win.device, win.dtype, n,
-                   (src.data_ptr(), _row_ptr(win, target),
-                    disp), chunk_bytes, depth, scratch)
+    ring.launch("mv2t_rma_accumulate", win.device,
+                _acc_code(win.dtype, "rma_accumulate"), src.data_ptr(),
+                _row_ptr(win, target), disp, n,
+                threads=kernel_param("rma_copy_threads", 256), stream=stream)
     LAUNCHES["rma_accumulate"] += 1
     return win
 
 
-def _accumulate_quant(src, win, origin, target, disp, chunk_bytes, depth,
-                      scratch) -> torch.Tensor:
+def _accumulate_quant(src, win, origin, target, disp, stream
+                      ) -> torch.Tensor:
     """K14's quantized wire (``rma_accumulate(quantized=True)``)."""
     from ..coll.tuning import quant_params
     if win.dtype != torch.float32:
         raise TypeError(f"rma_accumulate: the quantized wire takes f32 "
                         f"windows, not {win.dtype}")
     n = src.numel()
-    block, chunk = _quant_geometry(n, chunk_bytes)
+    block = _quant_block(n)
     if win.device.type == "cpu":
         PLAIN_CALLS["rma_accumulate_quant"] += 1
         return rma_accumulate_ref(src, win, origin, target, disp,
                                   quantized=True)
-    wire = quant_params()[0]
     _cuda(win, "rma_accumulate")
-    dev = win.device
-    d = _cfg_depth(depth)
-    ctas = ring.ctas_per_lane(dev, 2, chunk, block)
-    slots, flags = (scratch or Scratch()).take(
-        dev, d * wire_words(chunk, block) * 4, 2 * ctas)
-    ring.launch("mv2t_rma_accumulate_quant", dev, WIRE_CODES[wire],
-                src.data_ptr(), _row_ptr(win, target), disp, n, block, chunk,
-                d, slots.data_ptr(), flags.data_ptr(), ctas)
+    ring.launch("mv2t_rma_accumulate_quant", win.device,
+                WIRE_CODES[quant_params()[0]], src.data_ptr(),
+                _row_ptr(win, target), disp, n, block,
+                threads=kernel_param("rma_copy_threads", 256), stream=stream)
     LAUNCHES["rma_accumulate_quant"] += 1
     return win
 

@@ -9,11 +9,10 @@ analog of the reference's ``gen2/rdma_iba_1sc.c``).
   (``ops/rma.py`` ``planned_rma_tier``):
 
   - **rdma**: the kernels K12 ``rma_put``, K13 ``rma_get`` (direct
-    copies) and K14 ``rma_accumulate`` (``ops/rma.py``), one launch an
-    op, K14 over the window's landing slots and counters (allocated once
-    per window);
+    copies) and K14 ``rma_accumulate`` (a direct fold; ``ops/rma.py``),
+    one launch an op;
   - **quant**: an f32 accumulate that MV2T_QUANT_COLL and
-    DEV_RMA_QUANT_MIN send to K14's quantized wire
+    DEV_RMA_QUANT_MIN send to K14's quantized wire, K14q
     (``rma_accumulate(quantized=True)``), one launch an op;
   - **epoch**: stock torch indexing on the window rows (slices, and
     ``index_copy_`` for strided ops), the port's counterpart of the JAX
@@ -35,7 +34,8 @@ analog of the reference's ``gen2/rdma_iba_1sc.c``).
 
 The driving program is global (it sees every rank), so descriptors carry
 explicit origin and target ranks. Ops run on the current stream of the
-window's device; MPI's rule that an origin buffer stays untouched until
+window's device, looked up once a wave, with the device made current
+once for the wave; MPI's rule that an origin buffer stays untouched until
 its epoch closes holds here too (a device tensor payload is read at the
 closing call, not copied at enqueue). A payload that partly overlaps
 the range it writes (a view of the window) is copied when its op runs,
@@ -50,6 +50,7 @@ single-shot put into a window tensor; as in the JAX package it is not on
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import torch
@@ -81,7 +82,6 @@ class DeviceWin:
         # queue entries: (op descriptor, payload tensor|None, handle|None)
         self._queue: List[tuple] = []
         self._locked: set = set()   # ranks under a passive access epoch
-        self._scratch = rma.Scratch()   # K14's slots and counters
 
     # -- local access -----------------------------------------------------
     def local(self, rank: int) -> torch.Tensor:
@@ -187,36 +187,44 @@ class DeviceWin:
         nothing), then run the completion wave."""
         entries = [self._queue[i] for i in idx]
         tiers = [self._op_tier(op) for op, _pay, _h in entries]
-        for (op, pay, h), (tier, reason) in zip(entries, tiers):
-            nbytes = op[4] * self.dtype.itemsize
-            if tier == "epoch":
-                mpit.pvar("dev_rma_tier_epoch").inc()
-                rma.note_rma_fallback(op[0], reason, nbytes)
-                self._run_epoch(op, pay, h)
-            else:
-                wire = nbytes
-                if tier == "quant":
-                    wire = rma.wire_words(
-                        op[4], rma.quant_block_elems(self.dtype)) * 4
-                mpit.pvar(f"dev_rma_tier_{tier}").inc()
-                mpit.pvar("dev_rma_wire_bytes").inc(wire)
-                self._run_rdma(tier, op, pay, h)
+        stream, current = None, contextlib.nullcontext()
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            current = torch.cuda.device(self.device)
+        with current:
+            for (op, pay, h), (tier, reason) in zip(entries, tiers):
+                nbytes = op[4] * self.dtype.itemsize
+                if tier == "epoch":
+                    mpit.pvar("dev_rma_tier_epoch").inc()
+                    rma.note_rma_fallback(op[0], reason, nbytes)
+                    self._run_epoch(op, pay, h)
+                else:
+                    wire = nbytes
+                    if tier == "quant":
+                        wire = rma.wire_words(
+                            op[4], rma.quant_block_elems(self.dtype)) * 4
+                    mpit.pvar(f"dev_rma_tier_{tier}").inc()
+                    mpit.pvar("dev_rma_wire_bytes").inc(wire)
+                    self._run_rdma(tier, op, pay, h, stream)
         done = set(idx)
         self._queue = [e for i, e in enumerate(self._queue)
                        if i not in done]
         ring.check_errors(self.device)
 
     # -- the kernel tier --------------------------------------------------
-    def _run_rdma(self, tier: str, op, pay, h) -> None:
+    def _run_rdma(self, tier: str, op, pay, h,
+                  stream: Optional[int]) -> None:
+        """One op on a kernel; ``stream``: the wave's stream handle (None
+        on the CPU)."""
         kind, origin, target, disp, n, _stride = op
         if kind == "get":
-            h._value = rma.rma_get(self.win, n, origin, target, disp)
+            h._value = rma.rma_get(self.win, n, origin, target, disp,
+                                   stream=stream)
         elif kind == "put":
-            rma.rma_put(pay, self.win, origin, target, disp)
+            rma.rma_put(pay, self.win, origin, target, disp, stream=stream)
         else:
             rma.rma_accumulate(pay, self.win, origin, target, disp,
-                               quantized=tier == "quant",
-                               scratch=self._scratch)
+                               quantized=tier == "quant", stream=stream)
 
     # -- the epoch tier ---------------------------------------------------
     def _run_epoch(self, op, pay, h) -> None:

@@ -571,14 +571,14 @@ def test_copy_plan_shapes():
 
 
 def test_copy_wrappers_take_the_stream_arguments():
-    """K12/K13 accept and validate chunk_bytes, depth and scratch (the
-    JAX kernels' arguments) and ignore them: the results are the same."""
+    """K12/K13 accept and validate chunk_bytes and depth (the JAX
+    kernels' arguments) and ignore them: the results are the same."""
     win = torch.arange(64, dtype=torch.int32).reshape(4, 16)
     want = win.clone()
     src = torch.arange(100, 105, dtype=torch.int32)
     rma.rma_put_ref(src, want, 0, 1, 3)
     for kw in ({}, {"chunk_bytes": 16, "depth": 3},
-               {"scratch": rma.Scratch(), "chunk_bytes": 4096}):
+               {"chunk_bytes": 4096}, {"depth": 5}):
         got = win.clone()
         rma.rma_put(src, got, 0, 1, 3, **kw)
         assert torch.equal(got, want)
@@ -587,3 +587,266 @@ def test_copy_wrappers_take_the_stream_arguments():
         rma.rma_put(src, win.clone(), 0, 1, 3, chunk_bytes="many")
     with pytest.raises(ValueError):
         rma.rma_get(win, 5, 0, 1, 3, depth="deep")
+
+
+# ---------------------------------------------------------------------------
+# the direct fold of K14: copy_plan's cut, executed on byte memory for every
+# source and destination offset mod 16 bytes, each pair folded in the window
+# dtype, against the JAX kernel's accumulate of the same values
+# ---------------------------------------------------------------------------
+
+_K14 = {"f32": np.float32, "f16": np.float16, "bf16": jnp.bfloat16,
+        "i32": np.int32, "i16": np.int16, "i8": np.int8, "u8": np.uint8,
+        "u16": np.uint16, "u32": np.uint32}
+_K14_TORCH = {"f32": torch.float32, "f16": torch.float16,
+              "bf16": torch.bfloat16, "i32": torch.int32,
+              "i16": torch.int16, "i8": torch.int8, "u8": torch.uint8,
+              "u16": torch.uint16, "u32": torch.uint32}
+_SAME_WIDTH = {1: (np.int8, torch.int8), 2: (np.int16, torch.int16),
+               4: (np.int32, torch.int32)}
+
+
+def _k14_values(rng, n, dt):
+    """Seeded values of K14 dtype ``dt``: normal floats, full-range
+    integers (so sums wrap)."""
+    npdt = np.dtype(_K14[dt])
+    if npdt.kind in "iu":
+        info = np.iinfo(npdt)
+        return rng.integers(info.min, info.max, size=n, endpoint=True,
+                            dtype=npdt)
+    return (rng.normal(size=n) * 4).astype(np.float32).astype(npdt)
+
+
+def _jax_acc_row(row, src, disp, quantized=False):
+    """Row 1 of a two-rank window after the JAX accumulate from rank 0
+    (interpret mode, creditless); row 0 is zeros."""
+    win = np.stack([np.zeros_like(row), row])
+    out = _jax_run(2, lambda w: pallas_rma.rma_accumulate(
+        jnp.asarray(src), w[0], "x", 2, 0, 1, disp, quantized=quantized,
+        interpret=True, credits=False)[None, :], jnp.asarray(win))
+    assert not np.asarray(out[0]).view(np.uint8).any()
+    return np.asarray(out[1])
+
+
+def _bytes_as(b, dt):
+    """The elements of dtype ``dt`` held in bytes ``b``, as a tensor."""
+    npw, tw = _SAME_WIDTH[np.dtype(_K14[dt]).itemsize]
+    return torch.from_numpy(b.view(npw).copy()).view(_K14_TORCH[dt])
+
+
+def _as_bytes(t):
+    return t.view(_SAME_WIDTH[t.element_size()][1]).numpy().view(np.uint8)
+
+
+def _model_fold(mem, src, dst, n, dt):
+    """K14 on byte memory ``mem``: ``_model_copy`` pairs each destination
+    element with the source bytes the kernel's cut loads for it (head and
+    tail element by element, the body as realigned 16-byte words); each
+    pair is then folded in the window dtype (``add_values``: floats in
+    f32 rounded once, integers wrapping). Returns the per-byte write
+    counts of the cut."""
+    esize = np.dtype(_K14[dt]).itemsize
+    paired = mem.copy()
+    writes, _ = _model_copy(paired, src, dst, n, esize)
+    nb = n * esize
+    mem[dst:dst + nb] = _as_bytes(rma.add_values(
+        _bytes_as(mem[dst:dst + nb], dt), _bytes_as(paired[dst:dst + nb], dt)))
+    return writes
+
+
+def _place(mem, at, values):
+    mem[at:at + values.nbytes] = values.view(np.uint8)
+
+
+@pytest.mark.parametrize("dt", sorted(_K14))
+def test_direct_fold_cut_matches_jax(dt):
+    """For every source and destination offset mod 16 bytes, K14's cut
+    folds each window element exactly once with its own source element,
+    touches nothing outside the range, and leaves the row the JAX kernel
+    leaves, bitwise."""
+    esize = np.dtype(_K14[dt]).itemsize
+    v = 16 // esize
+    n, disp = 3 * v + v // 2 + 1, 3                # head, words, tail
+    rng = np.random.default_rng(sorted(_K14).index(dt) + 700)
+    row = _k14_values(rng, n + disp + 5, dt)
+    src = _k14_values(rng, n, dt)
+    want = _jax_acc_row(row, src, disp).view(np.uint8)
+    base_src, base_row = 64, 64 + 256
+    for so in range(0, 16, esize):
+        for do in range(0, 16, esize):
+            mem = rng.integers(0, 256, size=base_row + 128 + row.nbytes,
+                               dtype=np.uint8)
+            dst = base_row + do
+            at_row = dst - disp * esize
+            _place(mem, at_row, row)
+            _place(mem, base_src + so, src)
+            before = mem.copy()
+            writes = _model_fold(mem, base_src + so, dst, n, dt)
+            assert (writes[dst:dst + n * esize] == 1).all(), (so, do)
+            assert writes.sum() == n * esize, (so, do)
+            np.testing.assert_array_equal(
+                mem[at_row:at_row + row.nbytes], want, err_msg=f"{so} {do}")
+            outside = np.ones(mem.size, bool)
+            outside[dst:dst + n * esize] = False
+            np.testing.assert_array_equal(mem[outside], before[outside])
+
+
+@pytest.mark.parametrize("dt", sorted(_K14))
+def test_direct_fold_alias_doubles_like_jax(dt):
+    """A source that is exactly the target range (``unshared`` leaves it
+    in place, and the kernel reads each word through both pointers
+    before it stores it) doubles the range, as the JAX kernel does with
+    its immutable copy: the cut on byte memory at every destination
+    offset, and the wrapper on a view of the window."""
+    esize = np.dtype(_K14[dt]).itemsize
+    v = 16 // esize
+    n, disp = 2 * v + 3, 2
+    rng = np.random.default_rng(sorted(_K14).index(dt) + 800)
+    row = _k14_values(rng, n + disp + 4, dt)
+    want = _jax_acc_row(row, row[disp:disp + n].copy(), disp)
+    for do in range(0, 16, esize):
+        mem = rng.integers(0, 256, size=256 + row.nbytes, dtype=np.uint8)
+        dst = 64 + do
+        _place(mem, dst - disp * esize, row)
+        _model_fold(mem, dst, dst, n, dt)
+        np.testing.assert_array_equal(
+            mem[dst - disp * esize:dst - disp * esize + row.nbytes],
+            want.view(np.uint8), err_msg=str(do))
+    win = torch.stack([torch.zeros(row.size, dtype=_K14_TORCH[dt]),
+                       _bytes_as(row.view(np.uint8), dt)])
+    rma.reset_counts()
+    rma.rma_accumulate(win[1, disp:disp + n], win, 0, 1, disp)
+    assert rma.PLAIN_CALLS["rma_accumulate"] == 1
+    np.testing.assert_array_equal(_as_bytes(win[1]), want.view(np.uint8))
+    assert not _as_bytes(win[0]).any()
+
+
+# ---------------------------------------------------------------------------
+# K14q: its warp-per-block walk on the CPU against the jitted JAX kernel
+# ---------------------------------------------------------------------------
+
+def _model_quant_fold(row, src, disp, blk, wire):
+    """K14q's walk: one warp a quantization block of ``blk`` values; lane
+    l loads the 4-value words l, l + 32, ... and keeps the absmax of its
+    words, the shuffle takes the block's; then each lane codes its words
+    against scale = absmax * f32(1/top), decodes and folds them into the
+    window with one rounding (``quant._fma_f32``). Returns the new row;
+    asserts that every element is folded once."""
+    from mvapich2_tpu_torch.ops import quant
+    out = row.clone()
+    n, nw = src.numel(), blk // 4
+    top = 127.0 if wire == "q8" else 448.0
+    inv = torch.tensor(quant._INV[wire], dtype=torch.float32)
+    folds = torch.zeros(n, dtype=torch.int64)
+    for k in range(n // blk):
+        xb = src[k * blk:(k + 1) * blk]
+        lanes = [torch.zeros((), dtype=torch.float32) for _ in range(32)]
+        for lane in range(32):
+            for i in range(lane, nw, 32):
+                lanes[lane] = torch.maximum(lanes[lane],
+                                            xb[4 * i:4 * i + 4].abs().max())
+        scale = torch.stack(lanes).max() * inv
+        safe = scale if scale > 0 else torch.ones_like(scale)
+        for lane in range(32):
+            for i in range(lane, nw, 32):
+                x = xb[4 * i:4 * i + 4] / safe
+                if wire == "q8":
+                    code = torch.clamp(torch.round(x), -top, top)
+                else:
+                    code = torch.clamp(x, -top, top).to(
+                        torch.float8_e4m3fn).to(torch.float32)
+                at = disp + k * blk + 4 * i
+                out[at:at + 4] = quant._fma_f32(code, scale, out[at:at + 4])
+                folds[k * blk + 4 * i:k * blk + 4 * i + 4] += 1
+    assert (folds == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("qb,disp,wire", [
+    (64, 0, "q8"), (64, 5, "fp8"), (512, 0, "fp8"), (512, 5, "q8"),
+    (1024, 0, "q8"), (1024, 5, "fp8")])
+def test_quant_fold_walk_matches_jax(env, qb, disp, wire):
+    """QUANT_BLOCK of 64, 512 and 1024 bytes (16, 128 and 256 f32: 4, 32
+    and 64 four-value words, so most lanes idle, one word a lane, two
+    words a lane), at disp 0
+    and 5 (a window row off its 16-byte boundary), three blocks, one of
+    them all zeros (scale 0): the walk, the plain version and the JAX
+    kernel leave the same row, bitwise."""
+    env(QUANT_COLL=f"{wire}:1e-1", QUANT_BLOCK=str(qb))
+    blk = rma.quant_block_elems()
+    assert blk == qb // 4
+    rng = np.random.default_rng(qb + disp)
+    n = 3 * blk
+    row = (rng.standard_normal(n + disp + 7) * 3).astype(np.float32)
+    src = rng.standard_normal(n).astype(np.float32)
+    src[blk:2 * blk] = 0.0
+    want = _jax_acc_row(row, src, disp, quantized=True).view(np.int32)
+    got = _model_quant_fold(torch.from_numpy(row), torch.from_numpy(src),
+                            disp, blk, wire)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want)
+    win = torch.stack([torch.zeros(row.size), torch.from_numpy(row)])
+    rma.reset_counts()
+    rma.rma_accumulate(torch.from_numpy(src), win, 0, 1, disp,
+                       quantized=True)
+    assert rma.PLAIN_CALLS["rma_accumulate_quant"] == 1
+    np.testing.assert_array_equal(win[1].numpy().view(np.int32), want)
+
+
+def test_quant_fold_alias_matches_jax(env):
+    """K14q from the target range itself: each lane reads its words
+    before it stores them, so the walk folds the old values, as the JAX
+    kernel does with its immutable copy."""
+    env(QUANT_COLL="q8:1e-1", QUANT_BLOCK="512")
+    rng = np.random.default_rng(9)
+    n, disp = 256, 4
+    row = (rng.standard_normal(n + disp + 3) * 3).astype(np.float32)
+    want = _jax_acc_row(row, row[disp:disp + n].copy(), disp,
+                        quantized=True).view(np.int32)
+    t = torch.from_numpy(row.copy())
+    np.testing.assert_array_equal(
+        _model_quant_fold(t, t[disp:disp + n], disp, 128, "q8").numpy()
+        .view(np.int32), want)
+    win = torch.stack([torch.zeros(row.size), torch.from_numpy(row)])
+    rma.rma_accumulate(win[1, disp:disp + n], win, 0, 1, disp,
+                       quantized=True)
+    np.testing.assert_array_equal(win[1].numpy().view(np.int32), want)
+
+
+# the JAX wrapper's chunk_bytes / depth: bad values raise in its argument
+# checks, good ones are taken and do not change the result
+_STREAM_ARGS = [{"chunk_bytes": "many"}, {"depth": "deep"},
+                {"chunk_bytes": [16]}, {"depth": [3]},
+                {"chunk_bytes": 0, "depth": 0},
+                {"chunk_bytes": 64, "depth": 7}]
+
+
+@pytest.mark.parametrize("quantized", (False, True),
+                         ids=("exact", "quantized"))
+def test_accumulate_stream_args_raise_like_jax(env, quantized):
+    env(QUANT_COLL="q8:1e-1", QUANT_BLOCK="64")
+    rng = np.random.default_rng(11)
+    row = rng.standard_normal(40).astype(np.float32)
+    src = rng.standard_normal(32).astype(np.float32)
+    plain = _jax_acc_row(row, src, 3, quantized).view(np.int32)
+    win = np.stack([np.zeros_like(row), row])
+    for kw in _STREAM_ARGS:
+        try:
+            want = _jax_run(2, lambda w: pallas_rma.rma_accumulate(
+                jnp.asarray(src), w[0], "x", 2, 0, 1, 3,
+                quantized=quantized, interpret=True, credits=False,
+                **kw)[None, :], jnp.asarray(win))[1].view(np.int32)
+            err = None
+        except (TypeError, ValueError) as e:
+            err = type(e)
+        got = torch.from_numpy(win.copy())
+        if err is None:
+            rma.rma_accumulate(torch.from_numpy(src), got, 0, 1, 3,
+                               quantized=quantized, **kw)
+            np.testing.assert_array_equal(want, plain)
+            np.testing.assert_array_equal(got[1].numpy().view(np.int32),
+                                          want, err_msg=str(kw))
+        else:
+            with pytest.raises(err):
+                rma.rma_accumulate(torch.from_numpy(src), got, 0, 1, 3,
+                                   quantized=quantized, **kw)
+            assert torch.equal(got, torch.from_numpy(win)), kw

@@ -584,3 +584,55 @@ def test_store_from_a_view_of_the_window(jcomm, comm):
     jwin.store(4, 3, init[4, 1:7].copy())
     twin.store(4, 3, twin.win[4, 1:7])
     np.testing.assert_array_equal(_rows(twin.win), _rows(jwin.win))
+
+
+@pytest.mark.parametrize("rmin", (None, "-1"), ids=("rdma", "epoch"))
+@pytest.mark.parametrize("lo", (6, 8), ids=("alias", "after"))
+def test_accumulate_from_a_view_of_the_window_matches_jax(jcomm, comm, env,
+                                                          rmin, lo):
+    """DeviceWin.accumulate with ``win.win[t, a:b]`` as the payload folds
+    the values the payload held before the op: from the target range
+    itself (K14's exact alias, which doubles the range) and from a range
+    that overlaps it, on the kernel tier and on the epoch tier."""
+    env(DEV_RMA_RDMA_MIN=rmin)
+    n, disp, target = 6, 6, 3
+    init = np.random.default_rng(lo).integers(
+        -100, 100, size=(NP, 20)).astype(np.float32)
+    jwin, twin = JaxDeviceWin(jcomm, 20), DeviceWin(comm, 20)
+    for r in range(NP):
+        jwin.store(r, 0, init[r])
+        twin.store(r, 0, init[r])
+    jwin.accumulate(init[target, lo:lo + n].copy(), 1, target, disp)
+    twin.accumulate(twin.win[target, lo:lo + n], 1, target, disp)
+    jwin.fence()
+    twin.fence()
+    np.testing.assert_array_equal(_rows(twin.win), _rows(jwin.win))
+    if lo == disp:
+        np.testing.assert_array_equal(_rows(twin.win)[target, 6:12],
+                                      2 * init[target, 6:12])
+
+
+def test_dispatch_looks_up_no_stream_for_a_cpu_window(comm, monkeypatch):
+    """A wave on a CPU window hands every kernel-tier op ``stream=None``
+    and asks torch for no CUDA stream or device context (on the card the
+    wave looks both up once)."""
+    seen = []
+    for name in ("rma_put", "rma_get", "rma_accumulate"):
+        real = getattr(rma, name)
+
+        def spy(*a, _real=real, **kw):
+            seen.append(kw["stream"])
+            return _real(*a, **kw)
+        monkeypatch.setattr(rma, name, spy)
+
+    def no_cuda(*a, **kw):
+        raise AssertionError("a CUDA lookup on a CPU window")
+    monkeypatch.setattr(torch.cuda, "current_stream", no_cuda)
+    monkeypatch.setattr(torch.cuda, "device", no_cuda)
+    win = DeviceWin(comm, 16)
+    win.put(np.ones(4), 0, 7, 2)
+    win.accumulate(np.ones(4), 1, 7, 2)
+    h = win.get(4, 3, 7, 2)
+    win.fence()
+    assert seen == [None, None, None]
+    np.testing.assert_array_equal(_rows(h.value()), np.full(4, 2.0))
