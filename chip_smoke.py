@@ -13,8 +13,11 @@ non-zero, printing no result, without them. Phases:
 3. kernels: each kernel held against its plain PyTorch version on the
    card (bitwise on integer data, within stated tolerances otherwise),
    at small, ragged and full size: the slot kernels K1/K2, then the ring
-   kernels K3/K5/K6/K7 at pipeline depth 2/3/4, one and two ring
-   directions, and the four ops on K3; the alltoall kernels K10/K11
+   kernels K3/K5 at pipeline depth 2/3/4, one and two ring directions,
+   and the four ops on K3, and the direct K6/K7 bit for bit at p = 2, 3,
+   5, 8 and 64 on eight dtypes, on their vector and scalar paths (blocks
+   of whole 16-byte words and odd ones, shards aligned and at element
+   offset 1), at 64 KiB and at their 4 MiB limit; the alltoall kernels K10/K11
    bitwise on f32, bf16, i32 and u8 at depth 2/3/4, one and two lanes,
    a ragged block, the MoE bench's three routing matrices, a matrix with
    zero-count pairs and a step empty on every rank, and K10 at 64 MiB a
@@ -94,7 +97,11 @@ non-zero, printing no result, without them. Phases:
    K12/K13 at 1 KiB and 64 KiB, and the OSU band; K15 and K16 beside
    scaled_dot_product_attention on the same blocks; K4 at 8 x 64 MiB and
    as the (2, 4) RS-x phase, K8 at 8 x 64 MiB, and the e2e latency of
-   the fold and (2, 4) allreduces beside the 1-D mesh call;
+   the fold and (2, 4) allreduces beside the 1-D mesh call; K6 and K7
+   at 8 x 64 KiB and at their 4 MiB limit by card time too (queued
+   behind a sleep kernel; at 4 MiB also with L2 evicted), each beside
+   its library form that writes every rank's copy; K11 beside one
+   index_select from the concatenated payloads;
 11. profiles: the host side of one fence of 32 puts and 32 gets at 1
    KiB (perf_counter splits and cProfile's top entries), then under
    torch.profiler one MoE step of each routing shape, one fence of 32 RMA
@@ -106,8 +113,8 @@ non-zero, printing no result, without them. Phases:
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
 only phases 1 and 2, then the launch-shape sweeps of the ring kernels
-(``phase_sweep``) and of the K12/K13 copy (``phase_copy_sweep``), which
-chose the launch shapes in ``coll/tuning.py``.
+(``phase_sweep``: K3) and of the K12/K13 copy (``phase_copy_sweep``),
+which chose the launch shapes in ``coll/tuning.py``.
 """
 
 import argparse
@@ -135,6 +142,10 @@ REG_REPORT = ("hbm_ring_all_reduce", "hbm_ring_reduce_scatter",
               "hbm_ring_all_gather", "remote_sendrecv")
 # element types of the K12/K13 copy instances, as their names mangle them
 COPY_TYPES = {"j": "u32", "t": "u16", "h": "u8"}
+# the K6/K7 instances whose registers [build] prints: f32 on both paths,
+# K7's word and 4-byte element
+DIRECT_TYPES = {"ff": "float, float", "f5uint4": "float, uint4",
+                "5uint4": "uint4", "j": "u32"}
 RMA_KINDS = ("f32", "bf16", "f16", "i32", "i8", "u8", "u16", "u32")
 # integer kinds compared bit for bit; uint16/uint32 have their plain
 # versions run on the CPU (torch's CUDA build implements few operations
@@ -208,12 +219,17 @@ def phase_build(_build):
             elif entry and ("registers" in ln or "spill" in ln):
                 kern = [k for k in REG_REPORT if k in entry]
                 copy = re.search(r"rma_copy_kernelI(\w)E", entry)
+                direct = re.search(r"(ring_all_\w+_direct_kernel)I("
+                                   + "|".join(DIRECT_TYPES) + ")E", entry)
                 if copy:
                     log(f"[build] rma_copy_kernel<"
                         f"{COPY_TYPES[copy.group(1)]}>: {ln.strip()}")
                 elif "rma_acc_direct_kernelIfE" in entry:
                     log(f"[build] rma_acc_direct_kernel<float>: "
                         f"{ln.strip()}")
+                elif direct:
+                    log(f"[build] {direct.group(1)}<"
+                        f"{DIRECT_TYPES[direct.group(2)]}>: {ln.strip()}")
                 elif "quant" in entry or (kern and ("IfLi0E" in entry
                                                     or "IjE" in entry)):
                     log(f"[build] {(kern or [entry[:60]])[0]}: "
@@ -345,8 +361,10 @@ def _shards(torch, np, rng, p, n, kind, dev):
 def phase_ring_kernels(torch, np, ici, ring, dev):
     """K3, K5, K6 and K7 against their plain versions (which replay the
     same ring schedule): small, ragged and full sizes, pipeline depth
-    2/3/4, one and two ring directions, the four ops on K3. Returns the
-    max abs error of the full-size f32 checks per kernel."""
+    2/3/4, one and two ring directions, the four ops on K3; K6 and K7
+    bit for bit at p = 2, 3, 5, 8 and 64, on every dtype class, on their
+    vector and scalar paths. Returns the max abs error of the full-size
+    f32 checks per kernel."""
     rng = np.random.default_rng(SEED + 100)
     n_checks = 0
     full_err = {}
@@ -409,24 +427,54 @@ def phase_ring_kernels(torch, np, ici, ring, dev):
     check("K5 full f32", ici.hbm_ring_all_gather(xs),
           ici.hbm_ring_all_gather_ref(xs), "f32", "K5")
     del xs
-    # K6 (n % p == 0, at most 4 MiB) and K7 (output at most 4 MiB)
-    for p, n in ((8, 64), (3, 12), (2, 8), (8, SMALL_MESH),
-                 (8, RESIDENT_FULL)):
-        for kind in ("f32int", "i32", "f32", "bf16", "i8", "u16", "u32"):
-            if kind in ("u16", "u32") and n > SMALL_MESH:
-                continue
-            xs = _shards(torch, np, rng, p, n, kind, dev)
-            xp = [x.cpu() for x in xs] if kind in ("u16", "u32") else xs
-            full = n == RESIDENT_FULL and kind == "f32"
-            check(f"K6 p={p} n={n} {kind}", ring.ring_all_reduce(xs),
-                  ring.ring_all_reduce_ref(xp), kind, "K6" if full else None)
-    for p, m in ((8, 13), (3, 5), (2, 7), (8, SMALL_MESH),
-                 (8, RESIDENT_FULL // 8)):
-        for kind in ("i32", "f32", "u8"):
-            xs = _shards(torch, np, rng, p, m, kind, dev)
-            full = m == RESIDENT_FULL // 8 and kind == "f32"
-            check(f"K7 p={p} m={m} {kind}", ring.ring_all_gather(xs),
-                  ring.ring_all_gather_ref(xs), kind, "K7" if full else None)
+    # K6 (n % p == 0, at most 4 MiB) and K7 (output at most 4 MiB), bit
+    # for bit: p up to the kernels' 64 ranks (two of K6's load groups);
+    # blocks (K6) and shards (K7) of whole 16-byte words and of an odd
+    # length; shards that are views at element offset 1 (no shard
+    # aligned), so the scalar path runs too; then the mesh path's
+    # 64 KiB and the 4 MiB limit. uint16/uint32 plain versions on the CPU
+    def check_bits(what, got, want, key=None):
+        iv = {1: torch.int8, 2: torch.int16,
+              4: torch.int32}[got.element_size()]
+        check(what, got.view(iv), want.to(got.device).view(iv), "i32", key)
+
+    def offset_shards(p, n, kind, off):
+        x = _data(torch, np, rng, (p, n + off), kind, dev)
+        return [x[r].clone()[off:off + n] for r in range(p)]
+
+    def plain_side(xs, kind):
+        return [x.cpu() for x in xs] if kind in ("u16", "u32") else xs
+
+    kinds6 = ("f32", "f32int", "i32", "bf16", "f16", "i16", "i8", "u8",
+              "u16", "u32")
+    kinds7 = ("f32", "i32", "bf16", "f16", "i16", "i8", "u8", "u16", "u32")
+    for p in (2, 3, 5, 8, 64):
+        for blk in (32, 5):
+            for off in (0, 1):
+                for kind in kinds6:
+                    xs = offset_shards(p, p * blk, kind, off)
+                    check_bits(f"K6 p={p} blk={blk} off={off} {kind}",
+                               ring.ring_all_reduce(xs),
+                               ring.ring_all_reduce_ref(plain_side(xs, kind)))
+                for kind in kinds7:
+                    xs = offset_shards(p, blk, kind, off)
+                    check_bits(f"K7 p={p} m={blk} off={off} {kind}",
+                               ring.ring_all_gather(xs),
+                               ring.ring_all_gather_ref(plain_side(xs, kind)))
+    for n in (SMALL_MESH, RESIDENT_FULL):
+        for kind in kinds6:
+            xs = _shards(torch, np, rng, R, n, kind, dev)
+            check_bits(f"K6 p={R} n={n} {kind}", ring.ring_all_reduce(xs),
+                       ring.ring_all_reduce_ref(plain_side(xs, kind)),
+                       "K6" if n == RESIDENT_FULL and kind == "f32" else None)
+    for m in (SMALL_MESH, RESIDENT_FULL // R):
+        for kind in kinds7:
+            xs = _shards(torch, np, rng, R, m, kind, dev)
+            check_bits(f"K7 p={R} m={m} {kind}", ring.ring_all_gather(xs),
+                       ring.ring_all_gather_ref(plain_side(xs, kind)),
+                       "K7" if m == RESIDENT_FULL // R and kind == "f32"
+                       else None)
+    del xs
     log(f"[kernels] {n_checks} ring kernel-vs-plain checks passed "
         f"(full-size f32 max abs err: "
         + ", ".join(f"{k} {v:.3g}" for k, v in full_err.items()) + ")")
@@ -1758,7 +1806,9 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
     every rank's copy of the result, as the kernel does (the sum or the
     concatenation, then ``.expand(p, -1).contiguous()``), and
     ``library_one_copy_ms`` writes one (the sum or the concatenation
-    alone)."""
+    alone). K6 and K7 also carry their card time and the library form's
+    (``card_ms``, ``library_card_ms``) and both at 64 KiB and 4 MiB
+    (``sizes``, from ``direct_ring_times``)."""
     bw = info.hbm_bw_gbps * 1e9
     rng = np.random.default_rng(SEED + 300)
     p = R
@@ -1809,22 +1859,28 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
               small, lambda: ring.ring_all_reduce(small),
               lambda: ring.ring_all_reduce_ref(small),
               lambda: torch.stack(small).sum(0), p * SMALL_MESH,
-              (p - 1) * SMALL_MESH,
-              p * (2 * ms_ + (p - 1) * 9 * ms_ / p),
-              "p*(2m + (p-1)*9m/p), as K3"),
+              (p - 1) * SMALL_MESH, 2 * p * ms_,
+              "2pm: one direct fold, the bound"),
         entry("ring_all_gather", "K7", "mvapich2_tpu/ops/pallas_ring.py:114",
               small, lambda: ring.ring_all_gather(small),
               lambda: ring.ring_all_gather_ref(small),
               lambda: torch.cat(small), p * p * SMALL_MESH, 0,
-              p * (2 * ms_ + (p - 1) * 4 * ms_),
-              "p*(2m + (p-1)*4m), as K5"),
+              p * ms_ + p * p * ms_,
+              "pm + p*pm: one direct copy, the bound"),
     ]
+    direct = direct_ring_times(torch, np, ring, timing, bw, dev)
+    for row in kernels[2:]:
+        d = direct[row["name"]]
+        row["card_ms"] = d["64KiB"]["card_ms"]
+        row["library_card_ms"] = d["64KiB"]["library_card_ms"]
+        row["sizes"] = d
     lat, lat_small = mesh_lat
     extra = {"mesh_e2e_allreduce_ms": statistics.median(lat) * 1e3,
              "mesh_e2e_allreduce_ms_all": [t * 1e3 for t in lat],
              "mesh_e2e_small_allreduce_ms": statistics.median(lat_small) * 1e3,
              "mesh_e2e_small_allreduce_ms_all": [t * 1e3 for t in lat_small],
-             "mesh_e2e_effbw_GBps": 2 * R * m / statistics.median(lat) / 1e9}
+             "mesh_e2e_effbw_GBps": 2 * R * m / statistics.median(lat) / 1e9,
+             "k6_host_profile": direct["k6_host_profile"]}
     log("[times] ring kernels " + "; ".join(
         f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}, schedule "
         f"bound {k['schedule_bound_ms']:.4f}, plain {k['plain_ms']:.4f}, "
@@ -1925,8 +1981,10 @@ def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
     their bound (each input read once, each output written once), their
     schedule bound (local block 2 bytes a byte, every other pair 4: read
     input, write slot, read slot, write output), their plain versions
-    and, for K10, the library call; and the mesh path's end-to-end
-    alltoall latency."""
+    and the library call (K10: the stacked transpose; K11: one
+    index_select from the concatenated payloads by an int32 index built
+    once, checked equal to K11's output first); and the mesh path's
+    end-to-end alltoall latency."""
     bw = info.hbm_bw_gbps * 1e9
     gen = torch.Generator(device=dev).manual_seed(SEED + 700)
     c = N // R
@@ -1936,6 +1994,20 @@ def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
           for r in range(R)]
     moved = 4 * sum(map(sum, counts))
     local = 4 * sum(counts[r][r] for r in range(R))
+    # K11's library form: one gather by index from the concatenated
+    # payloads, rank j's receive run being every rank's block for j in
+    # rank order (packed displacements); the index is built once
+    flat = torch.cat(vs)
+    starts = [0]
+    for r in range(R):
+        starts.append(starts[-1] + sum(counts[r]))
+    idx = torch.cat([torch.arange(starts[r] + sum(counts[r][:j]),
+                                  starts[r] + sum(counts[r][:j + 1]),
+                                  dtype=torch.int32, device=dev)
+                     for j in range(R) for r in range(R)])
+    if not torch.equal(torch.cat(a2a.hbm_alltoallv(vs, counts)),
+                       flat.index_select(0, idx)):
+        raise AssertionError("K11 and its index_select yardstick disagree")
     rows = []
     for name, kern, src, fn, plain, lib, nbytes, sched, formula in (
             ("hbm_alltoall", "K10", "mvapich2_tpu/ops/pallas_alltoall.py:424",
@@ -1947,12 +2019,13 @@ def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
              "m(4p-2): local block 2m/p, each of p-1 steps 4m/p, a rank"),
             ("hbm_alltoallv", "K11", "mvapich2_tpu/ops/pallas_alltoall.py:488",
              lambda: a2a.hbm_alltoallv(vs, counts),
-             lambda: a2a.hbm_alltoallv_ref(vs, counts), None,
+             lambda: a2a.hbm_alltoallv_ref(vs, counts),
+             lambda: flat.index_select(0, idx),
              2 * moved, 4 * moved - 2 * local,
              "4 bytes a moved byte, 2 on the diagonal")):
         ms = timing.time_ms(fn)
         plain_ms = timing.time_ms(plain, warmup=1, iters=5)
-        lib_ms = timing.time_ms(lib) if lib else None
+        lib_ms = timing.time_ms(lib)
         ring.check_errors()
         rows.append({"name": name, "route": "cuda",
                      "source": "mvapich2_tpu_torch/csrc/ring.cu",
@@ -1969,31 +2042,121 @@ def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
     log("[times] alltoall kernels " + "; ".join(
         f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}, schedule "
         f"bound {k['schedule_bound_ms']:.4f}, plain {k['plain_ms']:.4f}, "
-        f"library {k['library_ms'] if k['library_ms'] is None else round(k['library_ms'], 4)}"
-        f"), launches {k['launches']}" for k in rows))
+        f"library {k['library_ms']:.4f}), launches {k['launches']}"
+        for k in rows))
     log(f"[times] mesh e2e alltoall 64 MiB {extra['mesh_e2e_alltoall_ms']:.4f}"
         f" ms = {extra['mesh_e2e_alltoall_effbw_GBps']:.1f} GB/s effbw "
         f"((p-1)/p*m/t)")
     return rows, extra
 
 
-def _queued_ms(torch, fn, iters=20):
+def _queued_ms(torch, fn, iters=20, flush=None):
     """Device time in ms of one small ``fn()``, median of ``iters``
     after a warm-up: each call and its two CUDA events are queued behind
     a sleep kernel, so the events bracket the card's work and not the
-    host's enqueue (which, at a few KiB, takes longer than the kernel)."""
+    host's enqueue (which, at a few KiB, takes longer than the kernel).
+    ``flush``, a tensor of at least 64 MiB, is zeroed after the sleep and
+    before the first event, which evicts the 50 MB L2: the call then
+    finds its inputs in device memory, as a first touch would."""
     fn()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
+        if flush is not None:
+            flush.zero_()
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def direct_ring_times(torch, np, ring, timing, bw, dev):
+    """K6 and K7 at the mesh path's 8 x 64 KiB f32 and at their 4 MiB
+    limit (K6: 8 x 4 MiB; K7: 8 x 512 KiB into 8 rows of 4 MiB), each
+    beside its bound (each input read once, each output written once,
+    over the memory rate) and the library form that writes every rank's
+    copy (K6: stack, sum, expand; K7: cat, expand): host-inclusive CUDA
+    events (``timing.time_ms``, each launch bracketed as the host
+    enqueues it), card time (``_queued_ms``) and the host's time to
+    enqueue one call (``host_ms``: perf_counter over 200 calls, no
+    synchronize between them). At 4 MiB the card times are also taken
+    with L2 evicted before each call, since the working set fits the
+    50 MB L2. Then 200 K6 calls at 64 KiB under cProfile, the entries
+    with the most own time. Returns {kernel: {size: numbers}}."""
+    import cProfile
+    import io
+    import pstats
+
+    def host_ms(fn, iters=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        dt = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize()
+        return dt
+
+    rng = np.random.default_rng(SEED + 310)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for name, fn, lib, shards in (
+            ("ring_all_reduce", ring.ring_all_reduce,
+             lambda xs: torch.stack(xs).sum(0),
+             (("64KiB", SMALL_MESH, R * SMALL_MESH),
+              ("4MiB", RESIDENT_FULL, R * RESIDENT_FULL))),
+            ("ring_all_gather", ring.ring_all_gather, torch.cat,
+             (("64KiB", SMALL_MESH, R * R * SMALL_MESH),
+              ("4MiB", RESIDENT_FULL // R, R * RESIDENT_FULL)))):
+        rows = out[name] = {}
+        for tag, n, out_elems in shards:
+            xs = [_data(torch, np, rng, (n,), "f32", dev) for _ in range(R)]
+
+            def kern():
+                return fn(xs)
+
+            def every():
+                return lib(xs).expand(R, -1).contiguous()
+
+            row = rows[tag] = {
+                "shard_bytes": n * 4,
+                "bound_ms": (R * n + out_elems) * 4 / bw * 1e3,
+                "ms": timing.time_ms(kern),
+                "card_ms": _queued_ms(torch, kern),
+                "library_ms": timing.time_ms(every),
+                "library_card_ms": _queued_ms(torch, every),
+                "host_ms": host_ms(kern),
+                "library_host_ms": host_ms(every)}
+            if tag == "4MiB":
+                row["card_cold_ms"] = _queued_ms(torch, kern, flush=scratch)
+                row["library_card_cold_ms"] = _queued_ms(torch, every,
+                                                         flush=scratch)
+    ring.check_errors()
+    for name, rows in out.items():
+        for tag, row in rows.items():
+            log(f"[times] {name} {tag}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row.items() if k != "shard_bytes"))
+    small = [_data(torch, np, rng, (SMALL_MESH,), "f32", dev)
+             for _ in range(R)]
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(200):
+        ring.ring_all_reduce(small)
+    prof.disable()
+    torch.cuda.synchronize()
+    text = io.StringIO()
+    pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(12)
+    lines = [ln for ln in text.getvalue().splitlines() if ln.strip()]
+    log("[times] cProfile of 200 K6 calls at 8 x 64 KiB, top 12 by own "
+        "time:")
+    for ln in lines:
+        log(f"[times]   {ln}")
+    out["k6_host_profile"] = lines
+    return out
 
 
 def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
@@ -2908,8 +3071,7 @@ def phase_hier_profile(torch, mvt, dev, inputs, lat):
 def phase_sweep(torch, ici, ring, tuning, timing, dev):
     """The ring kernels' launch-shape sweep (``--sweep``): K3 at 8 ranks
     x 64 MiB f32 over threads per block x blocks per SM x chunk bytes x
-    pipeline depth, and K6 at 8 ranks x 64 KiB f32 over threads x blocks
-    per SM, by CUDA events (median of 10 after 2 warm-ups). Every
+    pipeline depth, by CUDA events (median of 10 after 2 warm-ups). Every
     configuration is first held against the plain version (bitwise on
     integer-valued data). Returns the rows."""
     import itertools
@@ -2942,11 +3104,6 @@ def phase_sweep(torch, ici, ring, tuning, timing, dev):
             x, chunk_bytes=cb, depth=depth), want, threads, per_sm,
             chunk_bytes=cb, depth=depth)
     del x, want
-    small = ints(SMALL_MESH)
-    want = ring.ring_all_reduce_ref(small)
-    for threads, per_sm in itertools.product((256, 512, 1024), (1, 2)):
-        record("K6", lambda: ring.ring_all_reduce(small), want, threads,
-               per_sm)
     return rows
 
 

@@ -16,11 +16,12 @@
 // K8 remote_sendrecv_kernel      replaces pallas_ici.py remote_sendrecv
 //    (body _sendrecv_kernel). src and dst swap their shards, every other
 //    rank gets its own; one copy a rank, no flags.
-// K6 ring_all_reduce_kernel      replaces mvapich2_tpu/ops/pallas_ring.py
-//    ring_all_reduce (body _ring_all_reduce_kernel). Resident sum ring,
-//    2 landing slots per rank, n % p == 0.
-// K7 ring_all_gather_kernel      replaces pallas_ring.py ring_all_gather
-//    (body _ring_all_gather_kernel). Resident gather ring, 2 slots.
+// K6 ring_all_reduce_direct_kernel replaces mvapich2_tpu/ops/pallas_ring.py
+//    ring_all_reduce (body _ring_all_reduce_kernel). The resident sum
+//    ring's result, n % p == 0, as one direct fold in the ring's order.
+// K7 ring_all_gather_direct_kernel replaces pallas_ring.py
+//    ring_all_gather (body _ring_all_gather_kernel). The resident gather
+//    ring's result as one direct copy into every rank's row.
 // K10 hbm_alltoall_kernel        replaces mvapich2_tpu/ops/pallas_alltoall.py
 //    hbm_alltoall (body _hbm_alltoall_kernel, engine _A2AStreamer and
 //    _a2a_wave). Uniform pairwise-permutation alltoall of p blocks.
@@ -61,12 +62,12 @@
 // (L2), since another SM wrote them.
 //
 // Parallelism. Each (rank, direction) lane gets B blocks; block b runs
-// its own sub-ring over share b of every chunk (or of the block, for
-// K6/K7), with its own counters, against block b of its neighbours'
-// lanes. B independent credit chains, no barrier inside a lane. Every
-// block must be resident at once (a block spinning on a credit would
-// otherwise wait for a peer that never gets an SM), so the entries
-// launch cooperatively, after lowering B to what fits on the card.
+// its own sub-ring over share b of every chunk, with its own counters,
+// against block b of its neighbours' lanes. B independent credit
+// chains, no barrier inside a lane. Every block must be resident at once
+// (a block spinning on a credit would otherwise wait for a peer that
+// never gets an SM), so the entries launch cooperatively, after lowering
+// B to what fits on the card.
 //
 // Schedule (K3/K5): the JAX one. Reduce-scatter step s: the clockwise
 // lane of rank r sends its partial of block r-s-1 to r+1 and folds the
@@ -105,7 +106,9 @@
 // touched (the JAX kernels' symmetric permutation, where every device
 // runs the same DMA, is a TPU constraint). K12, K13, K14 and K14q have
 // no schedule: one direct pass each (rma_copy_kernel,
-// rma_acc_direct_kernel and rma_acc_quant_direct_kernel, below).
+// rma_acc_direct_kernel and rma_acc_quant_direct_kernel, below), nor
+// have K6 and K7 (ring_all_reduce_direct_kernel and
+// ring_all_gather_direct_kernel).
 //
 // Arithmetic: floats fold in float and round to the dtype at every step,
 // integers in 32 bits (uint32 unsigned) and wrap to the dtype, exactly as
@@ -129,8 +132,8 @@
 // sends from the input, the last folds into the output), against
 // m + m/p. K8 moves 2m a rank, its bound. K17 moves 4 bytes a payload
 // byte (read source, write slot, read slot, write destination), against
-// 2; K12 and K13 move 2 and K14 3, their bounds. The landing slots
-// (p*ndir*depth*chunk elements) are
+// 2; K12 and K13 move 2 and K14 3, their bounds, and K6 and K7 move
+// theirs (below). The landing slots (p*ndir*depth*chunk elements) are
 // small enough to stay in the 50 MB L2. K10 moves 2m/p (local block) +
 // (p-1)(4m/p) (read input, write slot, read slot, write output) per
 // rank, against 2m; K11 the same over the bytes its matrix moves.
@@ -936,124 +939,6 @@ __global__ void __launch_bounds__(1024) quant_ring_all_reduce_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// the resident ring of K6 and K7: 2 slots per rank, the JAX kernels'
-// two-neighbour credit handshake (each round a rank grants one credit to
-// each neighbour and takes one from each)
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct Resident {
-  int p, r, b, B, left, right;
-  long long len;                 // elements per slot (block or shard)
-  T* slots;                      // [p][2][len]
-  unsigned* landed;              // [p][B]: rounds landed from the left
-  unsigned* from_left;           // [p][B]: credits granted by the left
-  unsigned* from_right;          // [p][B]: credits granted by the right
-  int* err;
-  unsigned granted, taken;
-
-  __device__ void init(int p_, long long len_, int B_, T* slots_,
-                       unsigned* flags, int* err_) {
-    p = p_; len = len_; B = B_; slots = slots_; err = err_;
-    b = blockIdx.x % B;
-    r = blockIdx.x / B;
-    left = mod(r - 1, p);
-    right = mod(r + 1, p);
-    landed = flags;
-    from_left = flags + p * B;
-    from_right = flags + 2 * p * B;
-    granted = 0;
-    taken = 0;
-  }
-  __device__ T* slot(int rank, int k) const {
-    return slots + (static_cast<long long>(rank) * 2 + k) * len;
-  }
-  // I am my left neighbour's right: bump its FROM_RIGHT, and vice versa
-  __device__ void grant() {
-    __syncthreads();
-    ++granted;
-    if (threadIdx.x == 0) {
-      __threadfence();
-      st_release(from_right + left * B + b, granted);
-      st_release(from_left + right * B + b, granted);
-    }
-  }
-  __device__ bool take() {
-    ++taken;
-    return block_wait(from_left + r * B + b, taken, err) &&
-           block_wait(from_right + r * B + b, taken, err);
-  }
-};
-
-// K6
-template <typename T>
-__global__ void ring_all_reduce_kernel(RankPtrs ptrs, int p, long long blk,
-                                       int B, T* slots, unsigned* flags,
-                                       int vec, int* err) {
-  Resident<T> R;
-  R.init(p, blk, B, slots, flags, err);
-  const int r = R.r;
-  const T* x = static_cast<const T*>(ptrs.in[r]);
-  T* o = static_cast<T*>(ptrs.out[r]);
-  long long s0, s1;
-  share(blk, blk, R.b, B, vec ? 16 / int(sizeof(T)) : 1, &s0, &s1);
-  R.grant();
-  for (int k = 0; k < p; ++k)
-    copy_range(o + k * blk + s0, x + k * blk + s0, s1 - s0, vec, false);
-  // rounds 0..p-2 reduce-scatter, p-1..2p-3 all-gather; the slot parity
-  // runs on across the two phases
-  for (int k = 0; k < 2 * p - 2; ++k) {
-    const bool rs = k < p - 1;
-    const int s = rs ? k : k - (p - 1);
-    const int send_blk = rs ? mod(r - s - 1, p) : mod(r - s, p);
-    const int recv_blk = rs ? mod(r - s - 2, p) : mod(r - s - 1, p);
-    const int slot = (k + 1) % 2;
-    if (!R.take()) return;
-    copy_range(R.slot(R.right, slot) + s0, o + send_blk * blk + s0,
-               s1 - s0, vec, false);
-    block_signal(R.landed + R.right * B + R.b, k + 1);
-    if (!block_wait(R.landed + r * B + R.b, k + 1, err)) return;
-    if (rs)
-      fold_range<T, SUM>(o + recv_blk * blk + s0, R.slot(r, slot) + s0,
-                         s1 - s0, vec);
-    else
-      copy_range(o + recv_blk * blk + s0, R.slot(r, slot) + s0, s1 - s0,
-                 vec, true);
-    R.grant();
-  }
-  R.take();   // the final grants: the JAX kernel's exit barrier
-}
-
-// K7 (T: an unsigned type of the element's width)
-template <typename T>
-__global__ void ring_all_gather_kernel(RankPtrs ptrs, int p, long long m,
-                                       int B, T* slots, unsigned* flags,
-                                       int vec, int* err) {
-  Resident<T> R;
-  R.init(p, m, B, slots, flags, err);
-  const int r = R.r;
-  const T* x = static_cast<const T*>(ptrs.in[r]);
-  T* o = static_cast<T*>(ptrs.out[r]);
-  long long s0, s1;
-  share(m, m, R.b, B, vec ? 16 / int(sizeof(T)) : 1, &s0, &s1);
-  R.grant();
-  copy_range(o + r * m + s0, x + s0, s1 - s0, vec, false);
-  for (int s = 0; s < p - 1; ++s) {
-    if (!R.take()) return;
-    // forward what arrived last round (round 0: my own shard)
-    const T* src = s == 0 ? x + s0 : R.slot(r, s % 2) + s0;
-    copy_range(R.slot(R.right, (s + 1) % 2) + s0, src, s1 - s0, vec,
-               s != 0);
-    block_signal(R.landed + R.right * B + R.b, s + 1);
-    if (!block_wait(R.landed + r * B + R.b, s + 1, err)) return;
-    copy_range(o + mod(r - s - 1, p) * m + s0, R.slot(r, (s + 1) % 2) + s0,
-               s1 - s0, vec, true);
-    R.grant();
-  }
-  R.take();
-}
-
-// ---------------------------------------------------------------------------
 // the pairwise-permutation exchange of K10 and K11
 // ---------------------------------------------------------------------------
 
@@ -1503,6 +1388,126 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// K6 and K7: the direct small-message kernels
+// ---------------------------------------------------------------------------
+//
+// ring_all_reduce_direct_kernel replaces mvapich2_tpu/ops/pallas_ring.py
+// ring_all_reduce (:214, its pallas_call at :234, body
+// _ring_all_reduce_kernel :147) as K6; ring_all_gather_direct_kernel
+// replaces ring_all_gather (:114, pallas_call :131, body
+// _ring_all_gather_kernel :78) as K7.
+//
+// The TPU kernels pass one block a round to the right-hand neighbour
+// through two VMEM landing slots under a two-neighbour credit handshake,
+// because a chip reaches its neighbour's memory only by remote DMA. On
+// one card every rank's shard is memory that any thread reads, so the
+// rounds, the slots and the credits go (a handshake round cost about
+// 6 us here: 14 rounds a K6 call at p = 8). The one property of the ring
+// that the result depends on is its fold order. The reduce-scatter of
+// pallas_ring.py:170-181 folds red(own, incoming) at rank b + j in round
+// j - 2, so block b ends as
+//     x[b] + (x[b-1] + (... + (x[b+2] + x[b+1]))),   ranks mod p,
+// every partial rounded to T (ops/ring.py ring_replay is the spec). K6
+// computes that closed form element by element: acc = x[b+1][i], then
+// acc = red(x[b+j][i], acc) for j = 2..p, in T's arithmetic (f16 and
+// bf16 round at every step, as the ring stores each partial; integers
+// wrap), and stores acc into every rank's row. K7 loads each word of
+// each shard once and stores it into every rank's row. No thread waits
+// for another, so the launch is a plain one: the grid min(one pass, the
+// blocks that fit at once), the fit counted once per device, kernel and
+// block size (direct_fit).
+//
+// A unit is a 16-byte word on the vector path (W = uint4; taken when
+// every input pointer and output row is 16-byte aligned and the block,
+// or the shard, is a multiple of V = 16 / sizeof(T) elements, so that no
+// word straddles two blocks or two shards) or one element (W = T). Unit
+// u of every output row is unit u of every shard (K6) or unit u - q*mu
+// of shard q (K7), so neighbouring threads store to neighbouring words.
+// Sources are read through the read-only path (ld.global.nc): the
+// output is a fresh allocation that never aliases an input. K6 loads its
+// p source words in groups of kFoldGroup before it folds each group: the
+// loads of a group are in flight together, and p up to kMaxRanks needs
+// no more than kFoldGroup words of registers.
+//
+// Bound: bytes. K6 reads p*n and writes p*n elements (0.0003 ms at 8 x
+// 64 KiB f32, 0.020 ms at 8 x 4 MiB, over 3.35 TB/s); K7 reads p*m and
+// writes p*p*m (0.0014 ms at 8 x 64 KiB, 0.0113 ms at 8 x 512 KiB). At
+// 64 KiB both are bound by the launch.
+
+constexpr int kFoldGroup = 8;
+
+// A load through the read-only data path (ld.global.nc); W is uint4 or
+// an element type.
+template <typename W> __device__ __forceinline__ W ld_nc(const W* p) {
+  if constexpr (sizeof(W) == 16) {
+    return __ldg(p);
+  } else if constexpr (sizeof(W) == 4) {
+    unsigned v = __ldg(reinterpret_cast<const unsigned*>(p));
+    return *reinterpret_cast<W*>(&v);
+  } else if constexpr (sizeof(W) == 2) {
+    unsigned short v = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return *reinterpret_cast<W*>(&v);
+  } else {
+    unsigned char v = __ldg(reinterpret_cast<const unsigned char*>(p));
+    return *reinterpret_cast<W*>(&v);
+  }
+}
+
+// red(x, acc) over a unit: one element, or the V elements of a word.
+template <typename T, typename W>
+__device__ __forceinline__ W fold_unit(W x, W acc) {
+  if constexpr (std::is_same<W, T>::value)
+    return red<T, SUM>(x, acc);
+  else
+    return fold_word<T>(x, acc);
+}
+
+// K6 (W: T, or uint4 on the vector path). per_blk: units a block;
+// units: units a shard, p * per_blk.
+template <typename T, typename W>
+__global__ void __launch_bounds__(1024) ring_all_reduce_direct_kernel(
+    RankPtrs ptrs, int p, long long per_blk, long long units) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       u < units; u += step) {
+    const int b = static_cast<int>(u / per_blk);
+    const int first = b + 1 < p ? b + 1 : 0;
+    W acc = ld_nc(static_cast<const W*>(ptrs.in[first]) + u);
+    for (int j0 = 2; j0 <= p; j0 += kFoldGroup) {
+      W w[kFoldGroup];
+#pragma unroll
+      for (int k = 0; k < kFoldGroup; ++k) {
+        const int q = b + j0 + k;      // rank (b + j) mod p, j = j0 + k
+        if (j0 + k <= p)
+          w[k] = ld_nc(static_cast<const W*>(ptrs.in[q < p ? q : q - p]) +
+                       u);
+      }
+#pragma unroll
+      for (int k = 0; k < kFoldGroup; ++k)
+        if (j0 + k <= p) acc = fold_unit<T>(w[k], acc);
+    }
+    for (int r = 0; r < p; ++r) static_cast<W*>(ptrs.out[r])[u] = acc;
+  }
+}
+
+// K7 (W: an unsigned type of the element's width, or uint4 on the vector
+// path). mu: units a shard.
+template <typename W>
+__global__ void __launch_bounds__(1024) ring_all_gather_direct_kernel(
+    RankPtrs ptrs, int p, long long mu) {
+  const long long units = p * mu;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       u < units; u += step) {
+    const int q = static_cast<int>(u / mu);
+    const W v = ld_nc(static_cast<const W*>(ptrs.in[q]) + (u - q * mu));
+    for (int r = 0; r < p; ++r) static_cast<W*>(ptrs.out[r])[u] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1683,40 +1688,6 @@ cudaError_t launch_k9_wire(int wire, RankPtrs ptrs, int* wires, int p,
   }
 }
 
-// K6 and K7 share the launch: (ptrs, p, len, B, slots, flags, vec, err).
-// The flag layout is [3][p][B] for the B the launch runs with.
-template <typename T>
-cudaError_t launch_resident(const void* kern, RankPtrs ptrs, int p,
-                            long long len, void* slots, unsigned* flags,
-                            int ctas, int vec, int threads, cudaStream_t s) {
-  int B, *err;
-  cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, p, ctas, threads, &B);
-  if (e != cudaSuccess) return e;
-  T* sl = static_cast<T*>(slots);
-  void* args[] = {&ptrs, &p, &len, &B, &sl, &flags, &vec, &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(p * B), dim3(threads), args,
-                                     0, s);
-}
-
-template <typename T>
-cudaError_t launch_k6(RankPtrs ptrs, int p, long long blk, void* slots,
-                      unsigned* flags, int ctas, int vec, int threads,
-                      cudaStream_t s) {
-  return launch_resident<T>(
-      reinterpret_cast<const void*>(&ring_all_reduce_kernel<T>), ptrs, p,
-      blk, slots, flags, ctas, vec, threads, s);
-}
-
-template <typename T>
-cudaError_t launch_k7(RankPtrs ptrs, int p, long long m, void* slots,
-                      unsigned* flags, int ctas, int vec, int threads,
-                      cudaStream_t s) {
-  return launch_resident<T>(
-      reinterpret_cast<const void*>(&ring_all_gather_kernel<T>), ptrs, p, m,
-      slots, flags, ctas, vec, threads, s);
-}
-
 // K10 and K11 share the flag layout of K3/K5: landed then consumed,
 // each [p][ndir][ctas].
 template <typename T>
@@ -1848,6 +1819,19 @@ bool bad_direct_threads(int threads) {
   return threads < 32 || threads > 1024 || threads % 32;
 }
 
+// The grid of a direct launch (K6, K7, K12/K13, K14, K14q) of `units`
+// units of work, `per_block` a block: one pass, at most the blocks of
+// kern at `threads` that fit at once, at least one block.
+cudaError_t direct_grid(const void* kern, int threads, long long units,
+                        long long per_block, int* grid) {
+  int cap;
+  const cudaError_t e = direct_fit(kern, threads, &cap);
+  if (e != cudaSuccess) return e;
+  *grid = static_cast<int>(std::max(
+      1ll, std::min<long long>(cap, (units + per_block - 1) / per_block)));
+  return cudaSuccess;
+}
+
 // K12/K13 and K14 (kern): n elements of esize bytes from `from` into
 // `to`, split at to's 16-byte boundary (ops/rma.py copy_plan models the
 // split). The grid is one pass of kCopyUnroll words a thread, at most
@@ -1861,12 +1845,11 @@ cudaError_t launch_direct(const void* kern, int esize, const void* from,
   long long head = std::min<long long>(
       n, (-reinterpret_cast<uintptr_t>(to) & 15) / esize);
   long long nvec = (n - head) * esize / 16;
-  int cap;
-  const cudaError_t e = direct_fit(kern, threads, &cap);
+  int grid;
+  const cudaError_t e = direct_grid(
+      kern, threads, nvec, static_cast<long long>(threads) * kCopyUnroll,
+      &grid);
   if (e != cudaSuccess) return e;
-  const long long per_block = static_cast<long long>(threads) * kCopyUnroll;
-  const int grid = static_cast<int>(std::max(
-      1ll, std::min<long long>(cap, (nvec + per_block - 1) / per_block)));
   void* args[] = {&from, &to, &n, &head, &nvec};
   return cudaLaunchKernel(kern, dim3(grid), dim3(threads), args, 0, s);
 }
@@ -1878,13 +1861,10 @@ cudaError_t launch_acc_quant(const void* from, void* to, long long n,
                              int blk, int threads, cudaStream_t s) {
   const void* kern =
       reinterpret_cast<const void*>(&rma_acc_quant_direct_kernel<W>);
-  int cap;
-  const cudaError_t e = direct_fit(kern, threads, &cap);
-  if (e != cudaSuccess) return e;
   long long nb = n / blk;
-  const long long per_block = threads / 32;
-  const int grid = static_cast<int>(std::max(
-      1ll, std::min<long long>(cap, (nb + per_block - 1) / per_block)));
+  int grid;
+  const cudaError_t e = direct_grid(kern, threads, nb, threads / 32, &grid);
+  if (e != cudaSuccess) return e;
   void* args[] = {&from, &to, &nb, &blk};
   return cudaLaunchKernel(kern, dim3(grid), dim3(threads), args, 0, s);
 }
@@ -1898,6 +1878,66 @@ int direct_pass(const void* kern, int threads) {
       direct_fit(kern, threads, &cap) != cudaSuccess)
     return -1;
   return cap * threads * kCopyUnroll;
+}
+
+// Every one of the p input and output pointers 16-byte aligned.
+bool aligned16(const RankPtrs& ptrs, int p) {
+  uintptr_t bits = 0;
+  for (int r = 0; r < p; ++r)
+    bits |= reinterpret_cast<uintptr_t>(ptrs.in[r]) |
+            reinterpret_cast<uintptr_t>(ptrs.out[r]);
+  return (bits & 15) == 0;
+}
+
+// K6: p shards of p * blk elements; vec: 16-byte words.
+template <typename T>
+cudaError_t launch_direct_reduce(RankPtrs ptrs, int p, long long blk,
+                                 int vec, int threads, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  if (blk < 0 || bad_direct_threads(threads) ||
+      (vec && (blk % V || !aligned16(ptrs, p))))
+    return cudaErrorInvalidValue;
+  const long long per_blk = vec ? blk / V : blk;
+  const long long units = p * per_blk;
+  const void* kern =
+      vec ? reinterpret_cast<const void*>(
+                &ring_all_reduce_direct_kernel<T, uint4>)
+          : reinterpret_cast<const void*>(
+                &ring_all_reduce_direct_kernel<T, T>);
+  int grid;
+  const cudaError_t e = direct_grid(kern, threads, units, threads, &grid);
+  if (e != cudaSuccess) return e;
+  if (vec)
+    ring_all_reduce_direct_kernel<T, uint4><<<grid, threads, 0, s>>>(
+        ptrs, p, per_blk, units);
+  else
+    ring_all_reduce_direct_kernel<T, T><<<grid, threads, 0, s>>>(
+        ptrs, p, per_blk, units);
+  return cudaGetLastError();
+}
+
+// K7 (E: an unsigned type of the element's width): p shards of m
+// elements; vec: 16-byte words.
+template <typename E>
+cudaError_t launch_direct_gather(RankPtrs ptrs, int p, long long m,
+                                 int vec, int threads, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(E);
+  if (m < 0 || bad_direct_threads(threads) ||
+      (vec && (m % V || !aligned16(ptrs, p))))
+    return cudaErrorInvalidValue;
+  const long long mu = vec ? m / V : m;
+  const void* kern =
+      vec ? reinterpret_cast<const void*>(&ring_all_gather_direct_kernel<uint4>)
+          : reinterpret_cast<const void*>(&ring_all_gather_direct_kernel<E>);
+  int grid;
+  const cudaError_t e = direct_grid(kern, threads, p * mu, threads, &grid);
+  if (e != cudaSuccess) return e;
+  if (vec)
+    ring_all_gather_direct_kernel<uint4><<<grid, threads, 0, s>>>(ptrs, p,
+                                                                  mu);
+  else
+    ring_all_gather_direct_kernel<E><<<grid, threads, 0, s>>>(ptrs, p, mu);
+  return cudaGetLastError();
 }
 
 int element_size(int dtype) {
@@ -2004,40 +2044,42 @@ int mv2t_quant_ring_all_reduce(int dtype, int wire, const void* ins,
   }
 }
 
+// K6: outs[r] = the sum of the p shards ins[.] of p * len elements, in
+// the ring's fold order, for every rank r; vec: every pointer 16-byte
+// aligned and len a multiple of 16 bytes.
 int mv2t_ring_all_reduce(int dtype, const void* ins, const void* outs,
-                         int p, long long blk, void* slots, void* flags,
-                         int ctas, int vec, int threads, void* stream) {
+                         int p, long long len, int vec, int threads,
+                         void* stream) {
   if (bad_ranks(p)) return static_cast<int>(cudaErrorInvalidValue);
   const RankPtrs ptrs = rank_ptrs(ins, outs, p);
-  unsigned* fl = static_cast<unsigned*>(flags);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
   switch (dtype) {
-    case F32: e = launch_k6<float>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
-    case F16: e = launch_k6<__half>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
-    case BF16: e = launch_k6<__nv_bfloat16>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
-    case I32: e = launch_k6<int32_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
-    case I16: e = launch_k6<int16_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
-    case I8: e = launch_k6<int8_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
-    case U8: e = launch_k6<uint8_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
-    case U16: e = launch_k6<uint16_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
-    case U32: e = launch_k6<uint32_t>(ptrs, p, blk, slots, fl, ctas, vec, threads, s); break;
+    case F32: return static_cast<int>(launch_direct_reduce<float>(ptrs, p, len, vec, threads, s));
+    case F16: return static_cast<int>(launch_direct_reduce<__half>(ptrs, p, len, vec, threads, s));
+    case BF16: return static_cast<int>(launch_direct_reduce<__nv_bfloat16>(ptrs, p, len, vec, threads, s));
+    case I32: return static_cast<int>(launch_direct_reduce<int32_t>(ptrs, p, len, vec, threads, s));
+    case I16: return static_cast<int>(launch_direct_reduce<int16_t>(ptrs, p, len, vec, threads, s));
+    case I8: return static_cast<int>(launch_direct_reduce<int8_t>(ptrs, p, len, vec, threads, s));
+    case U8: return static_cast<int>(launch_direct_reduce<uint8_t>(ptrs, p, len, vec, threads, s));
+    case U16: return static_cast<int>(launch_direct_reduce<uint16_t>(ptrs, p, len, vec, threads, s));
+    case U32: return static_cast<int>(launch_direct_reduce<uint32_t>(ptrs, p, len, vec, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(e);
 }
 
+// K7: outs[r] = the p shards ins[.] of len elements, concatenated, for
+// every rank r; vec: every pointer 16-byte aligned and len a multiple of
+// 16 bytes.
 int mv2t_ring_all_gather(int dtype, const void* ins, const void* outs,
-                         int p, long long m, void* slots, void* flags,
-                         int ctas, int vec, int threads, void* stream) {
+                         int p, long long len, int vec, int threads,
+                         void* stream) {
   if (bad_ranks(p)) return static_cast<int>(cudaErrorInvalidValue);
   const RankPtrs ptrs = rank_ptrs(ins, outs, p);
-  unsigned* fl = static_cast<unsigned*>(flags);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (element_size(dtype)) {
-    case 4: return static_cast<int>(launch_k7<uint32_t>(ptrs, p, m, slots, fl, ctas, vec, threads, s));
-    case 2: return static_cast<int>(launch_k7<uint16_t>(ptrs, p, m, slots, fl, ctas, vec, threads, s));
-    case 1: return static_cast<int>(launch_k7<uint8_t>(ptrs, p, m, slots, fl, ctas, vec, threads, s));
+    case 4: return static_cast<int>(launch_direct_gather<uint32_t>(ptrs, p, len, vec, threads, s));
+    case 2: return static_cast<int>(launch_direct_gather<uint16_t>(ptrs, p, len, vec, threads, s));
+    case 1: return static_cast<int>(launch_direct_gather<uint8_t>(ptrs, p, len, vec, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -92,12 +92,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("stream", _P))),
         "mv2t_ring_all_reduce": (_I, (
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
-            ("blk", _I64), ("slots", _P), ("flags", _P), ("ctas", _I),
-            ("vec", _I), ("threads", _I), ("stream", _P))),
+            ("len", _I64), ("vec", _I), ("threads", _I), ("stream", _P))),
         "mv2t_ring_all_gather": (_I, (
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
-            ("m", _I64), ("slots", _P), ("flags", _P), ("ctas", _I),
-            ("vec", _I), ("threads", _I), ("stream", _P))),
+            ("len", _I64), ("vec", _I), ("threads", _I), ("stream", _P))),
         "mv2t_hbm_alltoall": (_I, (
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
             ("c", _I64), ("chunk", _I64), ("depth", _I), ("ndir", _I),

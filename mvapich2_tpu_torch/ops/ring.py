@@ -5,32 +5,38 @@ machinery shared with the streaming kernels of ``ops/ici.py``.
 Two kernels, written in CUDA C++ in ``csrc/ring.cu``:
 
 ``ring_all_reduce`` (K6) sums ``p`` shards of ``n`` elements
-(``n % p == 0``, at most 4 MiB): a reduce-scatter ring then an
-all-gather ring, ``2(p-1)`` rounds over 2 landing slots per rank, with
-the credit handshake of the JAX kernel (each round a rank grants one
-credit to each neighbour and takes one from each).
+(``n % p == 0``, at most 4 MiB). The JAX kernel runs a reduce-scatter
+ring then an all-gather ring, ``2(p-1)`` rounds over 2 landing slots
+per rank under a credit handshake. On one card the kernel computes the
+ring's result directly: block ``b`` of the sum folded in the ring's
+order, ``x[b] + (x[b-1] + (... + (x[b+2] + x[b+1])))`` with every
+partial rounded to the dtype, stored into every rank's row, in one
+ordinary launch with no slot, flag or wait.
 
 ``ring_all_gather`` (K7) gathers ``p`` shards of ``m`` elements
-(``p*m`` at most 4 MiB) in ``p-1`` rounds over the same two slots.
+(``p*m`` at most 4 MiB): each shard read once and stored into every
+rank's row, one ordinary launch.
 
 Inputs: a list of ``p`` one-dimensional tensors (one per rank, each its
 own allocation, read in place) or one ``(p, n)`` tensor. Output: one
 ``(p, ...)`` tensor whose row ``r`` is rank ``r``'s result.
 
 Routing: a wrapper given CPU tensors computes its plain PyTorch version
-(``*_ref``), which replays the kernel's ring schedule step by step so its
-fold order is the kernel's; given CUDA tensors it launches the kernel
+(``*_ref``), which replays the ring schedule step by step so its fold
+order is the JAX kernel's; given CUDA tensors it launches the kernel
 on the current stream or raises. ``LAUNCHES`` counts kernel launches
 only, ``PLAIN_CALLS`` the plain route.
 
-A launch covers all ``p`` ranks: every (rank, direction) lane gets ``B``
-thread blocks, each running its own sub-ring over its share of the
-data, with credits in global memory. All blocks must be resident at
-once (a block spinning on a credit would wait forever behind a peer
-that never gets an SM), so the kernels launch cooperatively. A spin
-that outlasts 2 s sets an error word and ends the launch;
-:func:`check_errors` (and the next launch) raises on it, and the mesh
-channel checks it after every collective, so that collective raises.
+The streaming kernels of ``ops/ici.py``, ``ops/alltoall.py``,
+``ops/quant.py`` and K17 of ``ops/rma.py`` keep the ring protocol: every
+(rank, direction) lane gets ``B`` thread blocks, each running its own
+sub-ring over its share of the data, with credits in global memory. All
+blocks must be resident at once (a block spinning on a credit would wait
+forever behind a peer that never gets an SM), so those kernels launch
+cooperatively. A spin that outlasts 2 s sets an error word and ends the
+launch; :func:`check_errors` (and the next launch through
+:func:`launch`, K6 and K7 included) raises on it, and the mesh channel
+checks it after every collective, so that collective raises.
 """
 
 from __future__ import annotations
@@ -46,6 +52,9 @@ from ..coll.tuning import kernel_param
 # it the resident kernels hand the call to the stock lowering
 VMEM_LIMIT_BYTES = 4 * 1024 * 1024
 MAX_RANKS = 64               # csrc/ring.cu kMaxRanks
+# threads per block of the direct K6/K7: 128, 256 and 512 time alike on
+# an H100 at 64 KiB and at 4 MiB a shard (PERF.md)
+DIRECT_THREADS = 256
 
 LAUNCHES: Dict[str, int] = {"ring_all_reduce": 0, "ring_all_gather": 0}
 PLAIN_CALLS: Dict[str, int] = {"ring_all_reduce": 0, "ring_all_gather": 0}
@@ -261,10 +270,26 @@ def ring_all_gather_ref(xs: Shards) -> torch.Tensor:
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
+def _launch_direct(fn: str, code: int, shards: List[torch.Tensor],
+                   out: torch.Tensor, length: int) -> None:
+    """Launch the direct kernel ``fn`` (K6 or K7) over ``shards`` into the
+    rows of ``out``; ``length`` is the C entry's ``len`` (K6: the block,
+    K7: the shard). It runs on 16-byte words when every shard and output
+    row is 16-byte aligned and ``length`` is a whole number of words (so
+    no word straddles two blocks or shards), else element by element."""
+    p, row = out.shape[0], out.shape[1] * out.element_size()
+    vec = aligned(shards) and out.data_ptr() % 16 == 0 and row % 16 == 0 \
+        and length % (16 // out.element_size()) == 0
+    outs = (ctypes.c_void_p * p)(*[out.data_ptr() + r * row
+                                   for r in range(p)])
+    launch(f"mv2t_{fn}", out.device, code, pointers(shards), outs, p,
+           length, int(vec), threads=DIRECT_THREADS)
+
+
 def ring_all_reduce(xs: Shards) -> torch.Tensor:
-    """K6: sum-allreduce of ``p`` shards of ``n`` elements over the
-    resident ring; ``n % p == 0`` and at most 4 MiB a shard (the JAX
-    wrapper's own conditions; ``ops/ici.py`` checks them before it
+    """K6: sum-allreduce of ``p`` shards of ``n`` elements, folded in the
+    resident ring's order; ``n % p == 0`` and at most 4 MiB a shard (the
+    JAX wrapper's own conditions; ``ops/ici.py`` checks them before it
     calls). Returns ``(p, n)``, row r for rank r."""
     shards = as_shards(xs, "ring_all_reduce")
     p, n = len(shards), shards[0].numel()
@@ -276,25 +301,16 @@ def ring_all_reduce(xs: Shards) -> torch.Tensor:
         PLAIN_CALLS["ring_all_reduce"] += 1
         return ring_all_reduce_ref(shards)
     code = check_cuda_shards(shards, "ring_all_reduce")
-    dev = shards[0].device
-    blk = n // p
-    out = torch.empty((p, n), dtype=shards[0].dtype, device=dev)
-    v = 16 // out.element_size()
-    vec = aligned(shards) and blk % v == 0
-    ctas = ctas_per_lane(dev, p, blk, v)
-    slots = torch.empty((p, 2, blk), dtype=out.dtype, device=dev)
-    flags = torch.zeros(3 * p * ctas, dtype=torch.int32, device=dev)
-    launch("mv2t_ring_all_reduce", dev, code, pointers(shards),
-           pointers(out.unbind(0)), p, blk, slots.data_ptr(),
-           flags.data_ptr(), ctas, int(vec))
+    out = torch.empty((p, n), dtype=shards[0].dtype, device=shards[0].device)
+    _launch_direct("ring_all_reduce", code, shards, out, n // p)
     LAUNCHES["ring_all_reduce"] += 1
     return out
 
 
 def ring_all_gather(xs: Shards) -> torch.Tensor:
-    """K7: all-gather of ``p`` shards of ``m`` elements over the resident
-    ring; ``p*m`` at most 4 MiB. Returns ``(p, p*m)``, row r for rank
-    r."""
+    """K7: all-gather of ``p`` shards of ``m`` elements, the resident
+    ring's result; ``p*m`` at most 4 MiB. Returns ``(p, p*m)``, row r
+    for rank r."""
     shards = as_shards(xs, "ring_all_gather")
     p, m = len(shards), shards[0].numel()
     if p * m * shards[0].element_size() > VMEM_LIMIT_BYTES:
@@ -304,15 +320,8 @@ def ring_all_gather(xs: Shards) -> torch.Tensor:
         PLAIN_CALLS["ring_all_gather"] += 1
         return ring_all_gather_ref(shards)
     code = check_cuda_shards(shards, "ring_all_gather")
-    dev = shards[0].device
-    out = torch.empty((p, p * m), dtype=shards[0].dtype, device=dev)
-    v = 16 // out.element_size()
-    vec = aligned(shards) and m % v == 0
-    ctas = ctas_per_lane(dev, p, m, v)
-    slots = torch.empty((p, 2, m), dtype=out.dtype, device=dev)
-    flags = torch.zeros(3 * p * ctas, dtype=torch.int32, device=dev)
-    launch("mv2t_ring_all_gather", dev, code, pointers(shards),
-           pointers(out.unbind(0)), p, m, slots.data_ptr(),
-           flags.data_ptr(), ctas, int(vec))
+    out = torch.empty((p, p * m), dtype=shards[0].dtype,
+                      device=shards[0].device)
+    _launch_direct("ring_all_gather", code, shards, out, m)
     LAUNCHES["ring_all_gather"] += 1
     return out

@@ -11,7 +11,14 @@ its kernel (sum, n % p == 0, at most 4 MiB); otherwise it returns
 ``lax.psum`` and the comparison would not test the kernel.
 
 Tolerances: bitwise everywhere. The plain versions replay the kernels'
-ring schedule, so even normal f32 data folds in the kernels' order."""
+ring schedule, so even normal f32 data folds in the kernels' order.
+
+The CUDA kernels do not replay the ring: K6 folds each block directly
+in the ring's order and K7 copies each shard into every row. CPU models
+of their loops (``_model_fold``, ``_model_gather``, unit by unit as
+csrc/ring.cu walks them) are held bitwise against the plain versions,
+which the JAX parity tests above hold against the JAX kernels in f32,
+int32, bf16, f16 and int8."""
 
 import numpy as np
 import pytest
@@ -46,13 +53,38 @@ def _data(seed, shape, kind):
         return rng.integers(-1000, 1000, size=shape).astype(np.float32)
     if kind == "int32":
         return rng.integers(-2**31, 2**31 - 1, size=shape, dtype=np.int32)
+    if kind == "int8":
+        return rng.integers(-128, 128, size=shape).astype(np.int8)
+    if kind in ("bf16", "f16"):
+        return rng.normal(size=shape).astype(
+            jnp.bfloat16 if kind == "bf16" else np.float16)
     raise ValueError(kind)
+
+
+def _torch(xv):
+    """``xv`` as a torch tensor of its dtype (numpy's bfloat16 through
+    its bits)."""
+    if xv.dtype == jnp.bfloat16:
+        return torch.from_numpy(xv.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(xv)
+
+
+def _same_bits(got, want):
+    """``got`` (torch) and ``want`` (JAX) agree bit for bit."""
+    iv = {1: np.int8, 2: np.int16, 4: np.int32}[got.element_size()]
+    np.testing.assert_array_equal(
+        got.view({1: torch.int8, 2: torch.int16,
+                  4: torch.int32}[got.element_size()]).numpy(),
+        np.asarray(want).view(iv))
 
 
 @pytest.mark.parametrize("shard,kind", [
     (8, "intf32"),        # one element per block
     (64, "normal"),       # normal data: bitwise too, same fold order
     (40, "int32"),        # int32 sums wrap as the JAX kernel's do
+    (64, "bf16"),         # bf16 and f16: every partial rounded
+    (64, "f16"),
+    (40, "int8"),         # narrow sums wrap
 ])
 def test_ring_all_reduce_parity(comm8, creditless, shard, kind):
     xv = _data(40 + shard, (NP, shard), kind)
@@ -60,14 +92,15 @@ def test_ring_all_reduce_parity(comm8, creditless, shard, kind):
         s, "x", NP, interpret=True), jnp.asarray(xv.reshape(-1)))
     want = np.asarray(want).reshape(NP, shard)
     ring.reset_counts()
-    got = ring.ring_all_reduce(torch.from_numpy(xv))
+    got = ring.ring_all_reduce(_torch(xv))
     assert ring.PLAIN_CALLS["ring_all_reduce"] == 1
     assert ring.LAUNCHES["ring_all_reduce"] == 0
-    np.testing.assert_array_equal(got.numpy(), want)
+    _same_bits(got, want)
 
 
 @pytest.mark.parametrize("shard,kind", [(5, "intf32"), (16, "normal"),
-                                        (3, "int32")])
+                                        (3, "int32"), (16, "bf16"),
+                                        (16, "f16"), (5, "int8")])
 def test_ring_all_gather_parity(comm8, creditless, shard, kind):
     xv = _data(50 + shard, (NP, shard), kind)
     want = comm8.run(lambda s: pallas_ring.ring_all_gather(
@@ -75,9 +108,9 @@ def test_ring_all_gather_parity(comm8, creditless, shard, kind):
         out_specs=P("x"))
     want = np.asarray(want).reshape(NP, NP * shard)
     ring.reset_counts()
-    got = ring.ring_all_gather([torch.from_numpy(r) for r in xv])
+    got = ring.ring_all_gather([_torch(r) for r in xv])
     assert ring.PLAIN_CALLS["ring_all_gather"] == 1
-    np.testing.assert_array_equal(got.numpy(), want)
+    _same_bits(got, want)
 
 
 @pytest.mark.parametrize("p", [2, 3, 5, 8])
@@ -172,3 +205,122 @@ def test_ring_signatures_cover_every_entry():
         for name, t in args:
             if name in ("ins", "outs", "slots", "flags", "stream"):
                 assert t is ctypes.c_void_p, f"{fn}({name})"
+
+
+# ---------------------------------------------------------------------------
+# CPU models of the direct kernels (csrc/ring.cu
+# ring_all_reduce_direct_kernel, ring_all_gather_direct_kernel)
+# ---------------------------------------------------------------------------
+
+DIRECT_KINDS = {"f32": torch.float32, "bf16": torch.bfloat16,
+                "f16": torch.float16, "i16": torch.int16, "i8": torch.int8,
+                "u8": torch.uint8, "u16": torch.uint16, "u32": torch.uint32}
+
+
+def _kind_data(seed, shape, kind):
+    """Normal floats rounded to the dtype; integers over the dtype's
+    whole range, so that sums wrap."""
+    rng = np.random.default_rng(seed)
+    dt = DIRECT_KINDS[kind]
+    if dt.is_floating_point:
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(dt)
+    nt = {"i16": np.int16, "i8": np.int8, "u8": np.uint8,
+          "u16": np.uint16, "u32": np.uint32}[kind]
+    info = np.iinfo(nt)
+    return torch.from_numpy(rng.integers(info.min, info.max, size=shape,
+                                         endpoint=True).astype(nt))
+
+
+def _bits(t):
+    """The bit patterns of ``t`` as numpy integers of its width."""
+    return t.view({1: torch.int8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()]).numpy()
+
+
+def _red(a, b):
+    """``red<T, SUM>`` of csrc/ring.cu: floats add in f32 and round to T,
+    integers add and wrap to T (in int64 here, the same modulo 2^k)."""
+    if a.dtype.is_floating_point:
+        return (a.float() + b.float()).to(a.dtype)
+    return (a.to(torch.int64) + b.to(torch.int64)).to(a.dtype)
+
+
+def _units(n, v):
+    """Unit u's elements: u*v .. u*v + v - 1 (a 16-byte word of v
+    elements on the vector path, one element on the scalar path)."""
+    u = torch.arange(n // v)
+    return u, u[:, None] * v + torch.arange(v)
+
+
+def _model_fold(x, vec, carry_f32=False):
+    """K6's loop over ``x`` of shape (p, n): unit u of block b =
+    u // per_blk starts as rank b+1's unit and folds rank (b+j) % p's as
+    ``red(x, acc)`` for j = 2..p; the result goes to every rank's row.
+    ``carry_f32`` carries an f32 accumulator over the p terms and rounds
+    once, which the kernel must not do."""
+    p, n = x.shape
+    v = 16 // x.element_size() if vec else 1
+    blk = n // p
+    assert blk % v == 0           # the vector path's condition
+    u, cols = _units(n, v)
+    b = u // (blk // v)
+    acc = x[((b + 1) % p)[:, None], cols]
+    if carry_f32:
+        acc = acc.float()
+    for j in range(2, p + 1):
+        inc = x[((b + j) % p)[:, None], cols]
+        acc = inc.float() + acc if carry_f32 else _red(inc, acc)
+    return acc.to(x.dtype).reshape(1, n).expand(p, n).clone()
+
+
+def _model_gather(x, vec):
+    """K7's loop over ``x`` of shape (p, m): unit u of every output row
+    is unit u - q*mu of shard q = u // mu, loaded once and stored into
+    every rank's row."""
+    p, m = x.shape
+    v = 16 // x.element_size() if vec else 1
+    assert m % v == 0             # the vector path's condition
+    u, _ = _units(p * m, v)
+    mu = m // v
+    q = u // mu
+    cols = (u - q * mu)[:, None] * v + torch.arange(v)
+    return x[q[:, None], cols].reshape(1, p * m).expand(p, p * m).clone()
+
+
+@pytest.mark.parametrize("kind", sorted(DIRECT_KINDS))
+@pytest.mark.parametrize("p", [2, 3, 5, 8])
+def test_direct_fold_order_is_the_rings(p, kind):
+    """K6's closed form, x[b] + (x[b-1] + (... + x[b+1])) rounded at
+    every step, is the ring's result bit for bit: on the vector path
+    (a block of 32, a whole number of words for every width) and the
+    scalar one (also an odd block of 5)."""
+    for blk, paths in ((32, (True, False)), (5, (False,))):
+        x = _kind_data(p * 100 + blk, (p, p * blk), kind)
+        want = _bits(ring.ring_all_reduce_ref(x))
+        for vec in paths:
+            np.testing.assert_array_equal(_bits(_model_fold(x, vec)), want)
+
+
+@pytest.mark.parametrize("kind", sorted(DIRECT_KINDS))
+@pytest.mark.parametrize("p", [2, 3, 5, 8])
+def test_direct_gather_map_is_the_rings(p, kind):
+    """K7's (shard, word) -> every row map is the ring's result, on the
+    vector path (32 elements a shard) and the scalar one (also 7)."""
+    for m, paths in ((32, (True, False)), (7, (False,))):
+        x = _kind_data(p * 200 + m, (p, m), kind)
+        want = _bits(ring.ring_all_gather_ref(x))
+        for vec in paths:
+            np.testing.assert_array_equal(_bits(_model_gather(x, vec)),
+                                          want)
+
+
+def test_an_f32_accumulator_would_break_the_bf16_ring_order():
+    """Carrying an f32 sum across the p terms and rounding once gives
+    other bf16 bits than the ring, which rounds every partial: the
+    kernel must round at every step."""
+    x = _kind_data(7, (NP, NP * 32), "bf16")
+    want = _bits(ring.ring_all_reduce_ref(x))
+    np.testing.assert_array_equal(_bits(_model_fold(x, True)), want)
+    assert not np.array_equal(_bits(_model_fold(x, True, carry_f32=True)),
+                              want)
