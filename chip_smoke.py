@@ -14,15 +14,20 @@ non-zero, printing no result, without them. Phases:
    card (bitwise on integer data, within stated tolerances otherwise),
    at small, ragged and full size: the slot kernels K1/K2, then the ring
    kernels K3/K5 at pipeline depth 2/3/4, one and two ring directions,
-   and the four ops on K3, and the direct K6/K7 bit for bit at p = 2, 3,
+   and the four ops on K3, K5 (the direct gather) bit for bit on f32,
+   i32, i16, i8 and u8, shards at element offset 1, over 1 and 2 lines
+   up to 8 x 64 MiB, and the direct K6/K7 bit for bit at p = 2, 3,
    5, 8 and 64 on eight dtypes, on their vector and scalar paths (blocks
    of whole 16-byte words and odd ones, shards aligned and at element
-   offset 1), at 64 KiB and at their 4 MiB limit; the alltoall kernels K10/K11
-   bitwise on f32, bf16, i32 and u8 at depth 2/3/4, one and two lanes,
-   a ragged block, the MoE bench's three routing matrices, a matrix with
-   zero-count pairs and a step empty on every rank, and K10 at 64 MiB a
-   rank; the flash kernels K15/K16 against their plain versions with
-   full f32 products (causal and full, q0/k0 offsets with wholly-future
+   offset 1), at 64 KiB and at their 4 MiB limit; the alltoall kernels
+   K10/K11 bitwise (K10 on f32, bf16, i32 and u8, K11 also on f16, i8
+   and u16) at depth 2/3/4, one and two lanes, a ragged block, the MoE
+   bench's three routing matrices at p = 8, 3 and 2, a matrix with
+   zero-count pairs and a step empty on every rank, K11 payloads at
+   element offset 1 and spread displacements with out_len, K10 at 64
+   MiB a rank and K11 at the full MoE width; the flash kernels K15/K16
+   against their plain versions with full f32 products (causal and
+   full, q0/k0 offsets with wholly-future
    and wholly-past blocks, gcd-shrunk blocks, f32/bf16/f16, head widths
    16 to 256, and the attention paths' full-width launches), and the
    plain version with TF32 on, which must fall outside the tolerance;
@@ -100,8 +105,10 @@ non-zero, printing no result, without them. Phases:
    the fold and (2, 4) allreduces beside the 1-D mesh call; K6 and K7
    at 8 x 64 KiB and at their 4 MiB limit by card time too (queued
    behind a sleep kernel; at 4 MiB also with L2 evicted), each beside
-   its library form that writes every rank's copy; K11 beside one
-   index_select from the concatenated payloads;
+   its library form that writes every rank's copy; K5 at 8 x 1 MiB and
+   as the (2, 4) allreduce's AG-y and AG-x phases by card time too; K11
+   on the hot, skew and uniform MoE dispatch by CUDA events and card
+   time, beside one index_select from the concatenated payloads;
 11. profiles: the host side of one fence of 32 puts and 32 gets at 1
    KiB (perf_counter splits and cProfile's top entries), then under
    torch.profiler one MoE step of each routing shape, one fence of 32 RMA
@@ -114,7 +121,8 @@ The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
 only phases 1 and 2, then the launch-shape sweeps of the ring kernels
 (``phase_sweep``: K3) and of the K12/K13 copy (``phase_copy_sweep``),
-which chose the launch shapes in ``coll/tuning.py``.
+which chose the launch shapes in ``coll/tuning.py``, and of K11's tile
+size (``phase_tile_sweep``), which chose ``alltoall.TILE_BYTES``.
 """
 
 import argparse
@@ -139,11 +147,12 @@ F32_PEAK_TFLOPS = 67.0
 SOURCES = ("hbm_slot", "ring", "flash")   # mvapich2_tpu_torch/csrc/<name>.cu
 # ring kernels whose registers and spills [build] prints
 REG_REPORT = ("hbm_ring_all_reduce", "hbm_ring_reduce_scatter",
-              "hbm_ring_all_gather", "remote_sendrecv")
-# element types of the K12/K13 copy instances, as their names mangle them
+              "remote_sendrecv")
+# element types of the K12/K13 copy and K11 instances, as their names
+# mangle them
 COPY_TYPES = {"j": "u32", "t": "u16", "h": "u8"}
-# the K6/K7 instances whose registers [build] prints: f32 on both paths,
-# K7's word and 4-byte element
+# the K6/K7/K5 instances whose registers [build] prints: f32 on both
+# paths, the gather's word and 4-byte element
 DIRECT_TYPES = {"ff": "float, float", "f5uint4": "float, uint4",
                 "5uint4": "uint4", "j": "u32"}
 RMA_KINDS = ("f32", "bf16", "f16", "i32", "i8", "u8", "u16", "u32")
@@ -218,12 +227,13 @@ def phase_build(_build):
                 entry = ln.split("'")[1] if "'" in ln else ln
             elif entry and ("registers" in ln or "spill" in ln):
                 kern = [k for k in REG_REPORT if k in entry]
-                copy = re.search(r"rma_copy_kernelI(\w)E", entry)
+                copy = re.search(r"(rma_copy_kernel|hbm_alltoallv_direct_"
+                                 r"kernel)I(\w)E", entry)
                 direct = re.search(r"(ring_all_\w+_direct_kernel)I("
                                    + "|".join(DIRECT_TYPES) + ")E", entry)
                 if copy:
-                    log(f"[build] rma_copy_kernel<"
-                        f"{COPY_TYPES[copy.group(1)]}>: {ln.strip()}")
+                    log(f"[build] {copy.group(1)}<"
+                        f"{COPY_TYPES[copy.group(2)]}>: {ln.strip()}")
                 elif "rma_acc_direct_kernelIfE" in entry:
                     log(f"[build] rma_acc_direct_kernel<float>: "
                         f"{ln.strip()}")
@@ -361,10 +371,12 @@ def _shards(torch, np, rng, p, n, kind, dev):
 def phase_ring_kernels(torch, np, ici, ring, dev):
     """K3, K5, K6 and K7 against their plain versions (which replay the
     same ring schedule): small, ragged and full sizes, pipeline depth
-    2/3/4, one and two ring directions, the four ops on K3; K6 and K7
-    bit for bit at p = 2, 3, 5, 8 and 64, on every dtype class, on their
-    vector and scalar paths. Returns the max abs error of the full-size
-    f32 checks per kernel."""
+    2/3/4, one and two ring directions, the four ops on K3; K5 bit for
+    bit on f32, i32, i16, i8 and u8, shards aligned and at element
+    offset 1, over 1 and 2 lines, up to 8 x 64 MiB; K6 and K7 bit for
+    bit at p = 2, 3, 5, 8 and 64, on every dtype class, on their vector
+    and scalar paths. Returns the max abs error of the full-size f32
+    checks per kernel."""
     rng = np.random.default_rng(SEED + 100)
     n_checks = 0
     full_err = {}
@@ -409,10 +421,13 @@ def phase_ring_kernels(torch, np, ici, ring, dev):
               ici.hbm_ring_all_reduce_ref(xs), kind,
               "K3" if kind == "f32" else None)
         del xs
-    # K5
+    # K5 (the direct gather; chunk, depth and direction shape nothing on
+    # the card): f32, i32 and the narrow widths, shards of whole 16-byte
+    # words and not, then shards at element offset 1 (the element path)
+    # over 1 and 2 lines, then 8 x 64 MiB over 1 and 2 lines
     for p, m, cb in ((8, 13, 16), (3, 5, 16), (8, 100003, 4096),
                      (8, AG_MESH, None)):
-        for kind in ("i32", "f32", "i8"):
+        for kind in ("i32", "f32", "i8", "u8", "i16"):
             xs = _shards(torch, np, rng, p, m, kind, dev)
             for depth in ((2, 3, 4) if m == 100003 else (2,)):
                 for bidir in (True, False):
@@ -422,10 +437,20 @@ def phase_ring_kernels(torch, np, ici, ring, dev):
                               xs, chunk_bytes=cb, depth=depth,
                               bidirectional=bidir),
                           ici.hbm_ring_all_gather_ref(
-                              xs, bidirectional=bidir), kind)
+                              xs, bidirectional=bidir), "i32")  # bitwise
+    for m in (AG_MESH, 1001):
+        for lines in (1, 2):
+            for kind in ("f32", "u8", "i16"):
+                x = _data(torch, np, rng, (R, m + 1), kind, dev)
+                xs = [x[r].clone()[1:] for r in range(R)]
+                check(f"K5 m={m} lines={lines} {kind} at offset 1",
+                      ici.hbm_ring_all_gather(xs, lines=lines),
+                      ici.hbm_ring_all_gather_ref(xs, lines=lines), "i32")
     xs = _shards(torch, np, rng, R, N, "f32", dev)
     check("K5 full f32", ici.hbm_ring_all_gather(xs),
-          ici.hbm_ring_all_gather_ref(xs), "f32", "K5")
+          ici.hbm_ring_all_gather_ref(xs), "i32", "K5")
+    check("K5 full f32 over 2 lines", ici.hbm_ring_all_gather(xs, lines=2),
+          ici.hbm_ring_all_gather_ref(xs, lines=2), "i32")
     del xs
     # K6 (n % p == 0, at most 4 MiB) and K7 (output at most 4 MiB), bit
     # for bit: p up to the kernels' 64 ranks (two of K6's load groups);
@@ -644,11 +669,16 @@ def _sparse_counts():
 
 
 def phase_a2a_kernels(torch, np, a2a, ring, moe, dev):
-    """K10 and K11 against their plain versions, bitwise: f32, bf16,
-    i32 and u8; p = 8 (and 3, 2), depth 2/3/4, one and two lanes, a
-    ragged block, the bench's routing matrices (small and at full
-    width), the sparse matrix, K10 at 64 MiB a rank. Returns the max
-    abs error of the full-size f32 checks."""
+    """K10 and K11 against their plain versions, bitwise: K10 on f32,
+    bf16, i32 and u8, p = 8 (and 3, 2), depth 2/3/4, one and two lanes,
+    a ragged block, 64 MiB a rank; K11 (the direct copy by tile table) on
+    every element width its C entry instantiates (f32, bf16, f16, i32,
+    i8, u8, u16), the bench's routing matrices at p = 8, 3 and 2 (small,
+    and at full width at p = 8), the sparse matrix, payloads that are
+    views at element offset 1 (the element path), explicit spread
+    displacements with ``out_len`` (zeroed outputs), under the four
+    chunk settings of the TPU schedule (which shape nothing on the
+    card). Returns the max abs error of the full-size f32 checks."""
     rng = np.random.default_rng(SEED + 400)
     n_checks = 0
     full_err = {}
@@ -688,23 +718,68 @@ def phase_a2a_kernels(torch, np, a2a, ring, moe, dev):
     mats = {s: _moe_counts(moe, s, 64, 3) for s in ("uniform", "skew",
                                                      "hot")}
     mats["sparse"] = _sparse_counts()
+    # uint16: the plain version on the CPU
+    kinds11 = kinds + ("f16", "i8", "u16")
+
+    def plain_side(xs, kind):
+        return [x.cpu() for x in xs] if kind == "u16" else xs
+
+    def payloads(counts, kind, off=0):
+        """Each rank's payload, its own allocation, as a view at element
+        ``off`` (1: no payload 16-byte aligned)."""
+        return [_data(torch, np, rng, (sum(row) + off,), kind, dev)[off:]
+                for row in counts]
+
     for name, counts in mats.items():
-        for kind in kinds:
-            xs = [_data(torch, np, rng, (sum(counts[r]),), kind, dev)
-                  for r in range(R)]
+        for kind in kinds11:
+            xs = payloads(counts, kind)
             for cb, depth, bidir in ((16, 2, True), (64, 3, False),
                                      (4096, 4, True), (None, 2, False)):
                 check(f"K11 {name} {kind} chunk={cb} depth={depth} "
                       f"bidir={bidir}",
                       a2a.hbm_alltoallv(xs, counts, chunk_bytes=cb,
                                         depth=depth, bidirectional=bidir),
-                      a2a.hbm_alltoallv_ref(xs, counts), kind)
-    counts = _moe_counts(moe, "hot")
-    xs = [_data(torch, np, rng, (sum(counts[r]),), "f32", dev)
-          for r in range(R)]
-    check("K11 hot 4096 x 4096 f32", a2a.hbm_alltoallv(xs, counts),
-          a2a.hbm_alltoallv_ref(xs, counts), "f32", "K11")
-    del xs
+                      a2a.hbm_alltoallv_ref(plain_side(xs, kind), counts),
+                      kind)
+            xs = payloads(counts, kind, off=1)
+            check(f"K11 {name} {kind} payloads at offset 1",
+                  a2a.hbm_alltoallv(xs, counts),
+                  a2a.hbm_alltoallv_ref(plain_side(xs, kind), counts), kind)
+    # explicit displacements: every send and receive 4 elements apart
+    # from the next, outputs longer than the last receive (gaps zeroed)
+    for name in ("hot", "sparse"):
+        counts = mats[name]
+        sd = [[sum(row[:j]) + 4 * j for j in range(R)] for row in counts]
+        rd = [[sum(counts[i][j] for i in range(r)) + 4 * r
+               for r in range(R)] for j in range(R)]
+        ext = max(rd[j][r] + counts[r][j] for j in range(R)
+                  for r in range(R))
+        for kind in ("f32", "i8", "bf16"):
+            xs = [_data(torch, np, rng, (sum(row) + 4 * R,), kind, dev)
+                  for row in counts]
+            kw = dict(sdispls=sd, rdispls=rd, out_len=ext + 16)
+            check(f"K11 {name} {kind} spread displacements, out_len",
+                  a2a.hbm_alltoallv(xs, counts, **kw),
+                  a2a.hbm_alltoallv_ref(xs, counts, **kw), kind)
+    # p = 3 and 2
+    for p in (3, 2):
+        for shape in ("uniform", "skew", "hot"):
+            counts = [[c * 5 for c in row]
+                      for row in moe.routing(p, 48, shape)]
+            for kind in ("f32", "i8", "u16"):
+                xs = payloads(counts, kind)
+                check(f"K11 p={p} {shape} {kind}",
+                      a2a.hbm_alltoallv(xs, counts),
+                      a2a.hbm_alltoallv_ref(plain_side(xs, kind), counts),
+                      kind)
+    for shape in ("hot", "skew", "uniform"):
+        counts = _moe_counts(moe, shape)
+        xs = [_data(torch, np, rng, (sum(counts[r]),), "f32", dev)
+              for r in range(R)]
+        check(f"K11 {shape} 4096 x 4096 f32", a2a.hbm_alltoallv(xs, counts),
+              a2a.hbm_alltoallv_ref(xs, counts), "f32",
+              "K11" if shape == "hot" else None)
+        del xs
     log(f"[kernels] {n_checks} alltoall kernel-vs-plain checks passed, "
         f"bitwise (full-size f32 max abs err: K10 {full_err['K10']:.3g}, "
         f"K11 {full_err['K11']:.3g})")
@@ -1853,8 +1928,8 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
               ag, lambda: ici.hbm_ring_all_gather(ag),
               lambda: ici.hbm_ring_all_gather_ref(ag),
               lambda: torch.cat(ag), p * p * AG_MESH, 0,
-              p * (2 * ma + (p - 1) * 4 * ma),
-              "p*(2m + (p-1)*4m): own block copied, 4m a step"),
+              p * ma + p * p * ma,
+              "pm + p*pm: one direct copy, the bound"),
         entry("ring_all_reduce", "K6", "mvapich2_tpu/ops/pallas_ring.py:214",
               small, lambda: ring.ring_all_reduce(small),
               lambda: ring.ring_all_reduce_ref(small),
@@ -1868,6 +1943,11 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
               p * ms_ + p * p * ms_,
               "pm + p*pm: one direct copy, the bound"),
     ]
+    k5 = kernels[1]
+    k5["card_ms"] = _queued_ms(torch, lambda: ici.hbm_ring_all_gather(ag))
+    k5["library_card_ms"] = _queued_ms(
+        torch, lambda: torch.cat(ag).expand(p, -1).contiguous())
+    k5["mesh2d_phases"] = k5_phase_times(torch, ici, timing, bw, inputs)
     direct = direct_ring_times(torch, np, ring, timing, bw, dev)
     for row in kernels[2:]:
         d = direct[row["name"]]
@@ -1881,6 +1961,12 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
              "mesh_e2e_small_allreduce_ms_all": [t * 1e3 for t in lat_small],
              "mesh_e2e_effbw_GBps": 2 * R * m / statistics.median(lat) / 1e9,
              "k6_host_profile": direct["k6_host_profile"]}
+    log(f"[times] K5 8 x 1 MiB f32: card {k5['card_ms']:.4f} ms, library "
+        f"every rank's copy card {k5['library_card_ms']:.4f}; (2, 4) "
+        "allreduce phases: " + "; ".join(
+            f"{ph}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()
+                                  if k != "shape")
+            for ph, r in k5["mesh2d_phases"].items()))
     log("[times] ring kernels " + "; ".join(
         f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}, schedule "
         f"bound {k['schedule_bound_ms']:.4f}, plain {k['plain_ms']:.4f}, "
@@ -1891,6 +1977,48 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
         f" ms = {extra['mesh_e2e_effbw_GBps']:.1f} GB/s effbw (2*R*m/t); "
         f"4 KiB {extra['mesh_e2e_small_allreduce_ms']:.4f} ms")
     return kernels, extra
+
+
+def k5_phase_times(torch, ici, timing, bw, inputs):
+    """K5's two phases of the (2, 4) mesh's 64 MiB f32 allreduce (AG-y:
+    2 lines of 4 shards of N/8; AG-x: 4 lines of 2 shards of N/2), fed
+    the kernels' own RS-x and RS-y outputs as the path does
+    (``ici._axis_phase``), by CUDA events and by card time, each beside
+    its bound (each input read once, each output written once) and the
+    library form that writes every rank's copy (the line's shards
+    stacked, then expanded to the p rows of the line)."""
+    axes = (("x", 2), ("y", 4))
+    y = list(inputs)
+    for k in (0, 1):
+        y = ici._axis_phase(y, axes, k, lambda sh, lines:
+                            ici.hbm_ring_reduce_scatter(sh, lines=lines))
+    out = {}
+    for ph, k in (("AG-y", 1), ("AG-x", 0)):
+        size = axes[k][1]
+        lines = R // size
+        m = y[0].numel()
+        order = torch.arange(R).reshape(2, 4).movedim(k, -1).reshape(-1) \
+            .tolist()
+        sh = [y[i] for i in order]
+
+        def kern(sh=sh, lines=lines):
+            return ici.hbm_ring_all_gather(sh, lines=lines)
+
+        def lib(sh=sh, lines=lines, size=size, m=m):
+            return torch.stack(sh).view(lines, 1, size * m) \
+                .expand(lines, size, size * m).contiguous()
+
+        if not torch.equal(kern(), lib().view(R, size * m)):
+            raise AssertionError(f"K5 {ph}: kernel and library disagree")
+        out[ph] = {"shape": f"{lines} lines of {size}, {m} f32 a shard",
+                   "ms": timing.time_ms(kern),
+                   "card_ms": _queued_ms(torch, kern),
+                   "bound_ms": (R * m + R * size * m) * 4 / bw * 1e3,
+                   "library_ms": timing.time_ms(lib),
+                   "library_card_ms": _queued_ms(torch, lib)}
+        y = ici._axis_phase(y, axes, k, lambda s, ln:
+                            ici.hbm_ring_all_gather(s, lines=ln))
+    return out
 
 
 def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
@@ -1977,64 +2105,90 @@ def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
 def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
                     full_err, dev):
     """K10 and K11 at the shapes the mesh path gives them (64 MiB f32 a
-    rank; the hot MoE dispatch at 4096 x 4096), by CUDA events, beside
-    their bound (each input read once, each output written once), their
-    schedule bound (local block 2 bytes a byte, every other pair 4: read
-    input, write slot, read slot, write output), their plain versions
-    and the library call (K10: the stacked transpose; K11: one
-    index_select from the concatenated payloads by an int32 index built
-    once, checked equal to K11's output first); and the mesh path's
-    end-to-end alltoall latency."""
+    rank; the MoE dispatch at 4096 x 4096 of each routing, hot in the
+    row), by CUDA events, beside their bound (each input read once, each
+    output written once), their schedule bound (K10: local block 2 bytes
+    a byte, every other pair 4: read input, write slot, read slot, write
+    output; K11 moves its bound), their plain versions and the library
+    call (K10: the stacked transpose; K11: one index_select from the
+    concatenated payloads by an int32 index built once, checked equal to
+    K11's output first); K11 and its library call also by card time
+    (``_queued_ms``); and the mesh path's end-to-end alltoall latency."""
     bw = info.hbm_bw_gbps * 1e9
     gen = torch.Generator(device=dev).manual_seed(SEED + 700)
     c = N // R
     xs = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
-    counts = _moe_counts(moe, "hot")
-    vs = [torch.randn(sum(counts[r]), generator=gen, device=dev)
-          for r in range(R)]
-    moved = 4 * sum(map(sum, counts))
-    local = 4 * sum(counts[r][r] for r in range(R))
-    # K11's library form: one gather by index from the concatenated
-    # payloads, rank j's receive run being every rank's block for j in
-    # rank order (packed displacements); the index is built once
-    flat = torch.cat(vs)
-    starts = [0]
-    for r in range(R):
-        starts.append(starts[-1] + sum(counts[r]))
-    idx = torch.cat([torch.arange(starts[r] + sum(counts[r][:j]),
-                                  starts[r] + sum(counts[r][:j + 1]),
-                                  dtype=torch.int32, device=dev)
-                     for j in range(R) for r in range(R)])
-    if not torch.equal(torch.cat(a2a.hbm_alltoallv(vs, counts)),
-                       flat.index_select(0, idx)):
-        raise AssertionError("K11 and its index_select yardstick disagree")
-    rows = []
-    for name, kern, src, fn, plain, lib, nbytes, sched, formula in (
-            ("hbm_alltoall", "K10", "mvapich2_tpu/ops/pallas_alltoall.py:424",
-             lambda: a2a.hbm_alltoall(xs),
-             lambda: a2a.hbm_alltoall_ref(xs),
-             lambda: torch.stack(xs).view(R, R, c).transpose(0, 1)
-             .contiguous(),
-             2 * R * N * 4, (4 * R - 2) * N * 4,
-             "m(4p-2): local block 2m/p, each of p-1 steps 4m/p, a rank"),
-            ("hbm_alltoallv", "K11", "mvapich2_tpu/ops/pallas_alltoall.py:488",
-             lambda: a2a.hbm_alltoallv(vs, counts),
-             lambda: a2a.hbm_alltoallv_ref(vs, counts),
-             lambda: flat.index_select(0, idx),
-             2 * moved, 4 * moved - 2 * local,
-             "4 bytes a moved byte, 2 on the diagonal")):
-        ms = timing.time_ms(fn)
-        plain_ms = timing.time_ms(plain, warmup=1, iters=5)
-        lib_ms = timing.time_ms(lib)
+    k10 = {"name": "hbm_alltoall", "route": "cuda",
+           "source": "mvapich2_tpu_torch/csrc/ring.cu",
+           "replaces": "mvapich2_tpu/ops/pallas_alltoall.py:424",
+           "launches": launches["hbm_alltoall"],
+           "max_abs_err": full_err["K10"],
+           "ms": timing.time_ms(lambda: a2a.hbm_alltoall(xs)),
+           "plain_ms": timing.time_ms(lambda: a2a.hbm_alltoall_ref(xs),
+                                      warmup=1, iters=5),
+           "bound_ms": 2 * R * N * 4 / bw * 1e3, "bound_by": "bytes",
+           "library_ms": timing.time_ms(
+               lambda: torch.stack(xs).view(R, R, c).transpose(0, 1)
+               .contiguous()),
+           "schedule_bound_ms": (4 * R - 2) * N * 4 / bw * 1e3,
+           "schedule_bytes": "m(4p-2): local block 2m/p, each of p-1 "
+                             "steps 4m/p, a rank"}
+    del xs
+    ring.check_errors()
+    routings = {}
+    for shape in ("hot", "skew", "uniform"):
+        counts = _moe_counts(moe, shape)
+        vs = [torch.randn(sum(counts[r]), generator=gen, device=dev)
+              for r in range(R)]
+        moved = 4 * sum(map(sum, counts))
+        # the library form: one gather by index from the concatenated
+        # payloads, rank j's receive run being every rank's block for j
+        # in rank order (packed displacements); the index is built once
+        flat = torch.cat(vs)
+        starts = [0]
+        for r in range(R):
+            starts.append(starts[-1] + sum(counts[r]))
+        idx = torch.cat([torch.arange(starts[r] + sum(counts[r][:j]),
+                                      starts[r] + sum(counts[r][:j + 1]),
+                                      dtype=torch.int32, device=dev)
+                         for j in range(R) for r in range(R)])
+        if not torch.equal(torch.cat(a2a.hbm_alltoallv(vs, counts)),
+                           flat.index_select(0, idx)):
+            raise AssertionError(f"K11 {shape} and its index_select "
+                                 f"yardstick disagree")
+
+        def kern():
+            return a2a.hbm_alltoallv(vs, counts)
+
+        def lib():
+            return flat.index_select(0, idx)
+
+        row = routings[shape] = {
+            "moved_bytes": moved, "ms": timing.time_ms(kern),
+            "card_ms": _queued_ms(torch, kern),
+            "plain_ms": timing.time_ms(
+                lambda: a2a.hbm_alltoallv_ref(vs, counts), warmup=1,
+                iters=5),
+            "bound_ms": 2 * moved / bw * 1e3,
+            "library_ms": timing.time_ms(lib),
+            "library_card_ms": _queued_ms(torch, lib)}
+        row["card_share_of_bound"] = row["bound_ms"] / row["card_ms"]
+        del vs, flat, idx
         ring.check_errors()
-        rows.append({"name": name, "route": "cuda",
-                     "source": "mvapich2_tpu_torch/csrc/ring.cu",
-                     "replaces": src, "launches": launches[name],
-                     "max_abs_err": full_err[kern], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": nbytes / bw * 1e3,
-                     "bound_by": "bytes", "library_ms": lib_ms,
-                     "schedule_bound_ms": sched / bw * 1e3,
-                     "schedule_bytes": formula})
+    hot = routings["hot"]
+    k11 = {"name": "hbm_alltoallv", "route": "cuda",
+           "source": "mvapich2_tpu_torch/csrc/ring.cu",
+           "replaces": "mvapich2_tpu/ops/pallas_alltoall.py:488",
+           "launches": launches["hbm_alltoallv"],
+           "max_abs_err": full_err["K11"], "ms": hot["ms"],
+           "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
+           "bound_by": "bytes", "library_ms": hot["library_ms"],
+           "schedule_bound_ms": hot["bound_ms"],
+           "schedule_bytes": "2 a moved byte: one direct copy, the bound",
+           "card_ms": hot["card_ms"],
+           "library_card_ms": hot["library_card_ms"],
+           "tile_bytes": a2a.TILE_BYTES, "routings": routings}
+    rows = [k10, k11]
     extra = {"mesh_e2e_alltoall_ms": statistics.median(lat) * 1e3,
              "mesh_e2e_alltoall_ms_all": [t * 1e3 for t in lat],
              "mesh_e2e_alltoall_effbw_GBps":
@@ -2044,6 +2198,11 @@ def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
         f"bound {k['schedule_bound_ms']:.4f}, plain {k['plain_ms']:.4f}, "
         f"library {k['library_ms']:.4f}), launches {k['launches']}"
         for k in rows))
+    log("[times] K11 by routing at 4096 x 4096 f32 (tiles of "
+        f"{a2a.TILE_BYTES} bytes): " + "; ".join(
+            f"{shape}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()
+                                     if k != "moved_bytes")
+            for shape, r in routings.items()))
     log(f"[times] mesh e2e alltoall 64 MiB {extra['mesh_e2e_alltoall_ms']:.4f}"
         f" ms = {extra['mesh_e2e_alltoall_effbw_GBps']:.1f} GB/s effbw "
         f"((p-1)/p*m/t)")
@@ -3154,13 +3313,48 @@ def phase_copy_sweep(torch, rma, tuning, timing, dev):
     return rows
 
 
+def phase_tile_sweep(torch, a2a, moe, ring, timing, dev):
+    """K11's tile size (``--sweep``): the MoE dispatch at 4096 x 4096 f32
+    of each routing, with ``alltoall.TILE_BYTES`` set to 32 KiB .. 1 MiB
+    in turn, each first held bitwise against the plain version, then
+    timed by CUDA events and by card time. Restores the constant.
+    Returns the rows."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1300)
+    keep = a2a.TILE_BYTES
+    rows = []
+    for shape in ("hot", "skew", "uniform"):
+        counts = _moe_counts(moe, shape)
+        vs = [torch.randn(sum(counts[r]), generator=gen, device=dev)
+              for r in range(R)]
+        want = a2a.hbm_alltoallv_ref(vs, counts)
+        for kib in (32, 64, 128, 256, 512, 1024):
+            a2a.TILE_BYTES = kib << 10
+            got = a2a.hbm_alltoallv(vs, counts)
+            torch.cuda.synchronize()
+            ring.check_errors()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"tile sweep {shape} {kib} KiB: kernel "
+                                     f"and plain version disagree")
+
+            def kern():
+                return a2a.hbm_alltoallv(vs, counts)
+
+            rows.append({"kernel": f"K11 {shape}", "tile_kib": kib,
+                         "ms": timing.time_ms(kern),
+                         "card_ms": _queued_ms(torch, kern)})
+            log(f"[sweep] {rows[-1]}")
+        del vs, want, got
+    a2a.TILE_BYTES = keep
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
     ap.add_argument("--sweep", action="store_true",
                     help="run only the launch-shape sweeps of the ring "
-                    "kernels and of the K12/K13 copy (after the device "
-                    "and build phases)")
+                    "kernels, of the K12/K13 copy and of K11's tile size "
+                    "(after the device and build phases)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3195,6 +3389,7 @@ def main(argv=None):
         from mvapich2_tpu_torch.coll import tuning
         rows = phase_sweep(torch, ici, ring, tuning, timing, dev)
         rows += phase_copy_sweep(torch, rma, tuning, timing, dev)
+        rows += phase_tile_sweep(torch, alltoall, moe, ring, timing, dev)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)

@@ -99,8 +99,8 @@ def breakdown(xs: Sequence[torch.Tensor], W: torch.Tensor,
               counts: Sequence[Sequence[int]]) -> Dict:
     """Device time of one MoE step on the card by kernel group, from
     ``torch.profiler`` (one warm-up step, then one profiled): ``K11``
-    (``hbm_alltoallv_kernel``), ``gemm`` (the expert products) and
-    ``other`` (counter zeroing, copies), in microseconds, with the
+    (``hbm_alltoallv_direct_kernel``), ``gemm`` (the expert products) and
+    ``other`` (copies), in microseconds, with the
     profiled step's host-clock time. All of the step's kernels run on
     one stream, so their sum is the device's busy time. Raises without
     a CUDA device; ``{}`` when the profiler saw no device activity."""

@@ -9,8 +9,10 @@
 // K4 hbm_ring_reduce_scatter_kernel replaces pallas_ici.py
 //    hbm_ring_reduce_scatter (body _hbm_reduce_scatter_kernel). K3's
 //    reduce-scatter rounds alone; rank r keeps block r, [ceil(n/p)].
-// K5 hbm_ring_all_gather_kernel  replaces pallas_ici.py hbm_ring_all_gather
-//    (body _hbm_all_gather_kernel). The all-gather ring alone.
+// K5 ring_all_gather_direct_kernel replaces pallas_ici.py
+//    hbm_ring_all_gather (body _hbm_all_gather_kernel). The all-gather
+//    ring's result as one direct copy into every rank's row (K7's kernel
+//    over `lines` rings).
 //    K3, K4 and K5 take `lines`: one launch runs that many independent
 //    rings of p at once, the per-axis phase of a multi-axis mesh.
 // K8 remote_sendrecv_kernel      replaces pallas_ici.py remote_sendrecv
@@ -25,9 +27,10 @@
 // K10 hbm_alltoall_kernel        replaces mvapich2_tpu/ops/pallas_alltoall.py
 //    hbm_alltoall (body _hbm_alltoall_kernel, engine _A2AStreamer and
 //    _a2a_wave). Uniform pairwise-permutation alltoall of p blocks.
-// K11 hbm_alltoallv_kernel       replaces pallas_alltoall.py hbm_alltoallv
-//    (body _hbm_alltoallv_kernel). K10 under a static p x p count matrix,
-//    every step padded to its step-wide chunk count.
+// K11 hbm_alltoallv_direct_kernel replaces pallas_alltoall.py
+//    hbm_alltoallv (body _hbm_alltoallv_kernel). The variable-count
+//    exchange under a static p x p count matrix, as one direct copy by a
+//    table of tiles.
 // K12 rma_copy_kernel            replaces mvapich2_tpu/ops/pallas_rma.py
 //    rma_put (body _put_kernel, engine _RmaStreamer). One-sided put of
 //    src[n] into the target's window row at disp, as one direct copy.
@@ -48,18 +51,19 @@
 //    pallas_put (body _pallas_put_kernel). Single-shot put through one
 //    landing buffer of n elements.
 //
-// Translation. A TPU remote DMA into the neighbour's VMEM slot becomes a
-// store into the downstream rank's landing slot in global memory
-// (slots[rank][dir][slot][chunk]); a DMA/REGULAR semaphore becomes a u32
-// counter in global memory, written by exactly one block with
-// st.release.gpu after a __syncthreads (so the whole block's stores are
-// ordered before it) and read by thread 0 of the waiting block with
-// ld.acquire.gpu before a __syncthreads. Counters only grow within a
-// launch, so "wait for credit k" is "wait until counter >= k"; the
-// wrapper zeroes them, stream-ordered, before each launch. Mosaic's
-// collective_id becomes the separate slot and counter buffers the
-// wrapper allocates per launch. Landing slots are read with ld.global.cg
-// (L2), since another SM wrote them.
+// Translation (K3, K4, K9, K10, K17; the direct kernels K5, K6, K7 and
+// K11-K14q use no landing slot and no credit). A TPU remote DMA into the
+// neighbour's VMEM slot becomes a store into the downstream rank's
+// landing slot in global memory (slots[rank][dir][slot][chunk]); a
+// DMA/REGULAR semaphore becomes a u32 counter in global memory, written
+// by exactly one block with st.release.gpu after a __syncthreads (so
+// the whole block's stores are ordered before it) and read by thread 0
+// of the waiting block with ld.acquire.gpu before a __syncthreads.
+// Counters only grow within a launch, so "wait for credit k" is "wait
+// until counter >= k"; the wrapper zeroes them, stream-ordered, before
+// each launch. Mosaic's collective_id becomes the separate slot and
+// counter buffers the wrapper allocates per launch. Landing slots are
+// read with ld.global.cg (L2), since another SM wrote them.
 //
 // Parallelism. Each (rank, direction) lane gets B blocks; block b runs
 // its own sub-ring over share b of every chunk, with its own counters,
@@ -69,7 +73,7 @@
 // never gets an SM), so the entries launch cooperatively, after lowering
 // B to what fits on the card.
 //
-// Schedule (K3/K5): the JAX one. Reduce-scatter step s: the clockwise
+// Schedule (K3): the JAX one. Reduce-scatter step s: the clockwise
 // lane of rank r sends its partial of block r-s-1 to r+1 and folds the
 // block arriving from r-1 into its block r-s-2 as red(own, incoming);
 // the counter-clockwise lane mirrors with +. All-gather step s: send
@@ -83,7 +87,7 @@
 // the last credits) is not needed: the launch boundary orders every
 // store before the next launch.
 //
-// Schedule (K10/K11): the JAX one. The local block is copied once; then
+// Schedule (K10): the JAX one. The local block is copied once; then
 // in step s (1..p-1, split over two lanes when ndir == 2: the first lane
 // takes steps 1..p/2, the second the rest) rank r sends block (r+s)%p
 // into the landing slots of that rank and receives from (r-s)%p, chunk
@@ -95,9 +99,7 @@
 // receiver has consumed max(G, g - depth + 1) chunks (so the step's
 // writer never lands while the previous writer's chunks are still
 // undrained, and the landed counter has one writer at a time), and the
-// step ends when the receiver has consumed G + W_s. K11 runs every
-// step's full W_s chunks on every rank; a padding chunk copies nothing
-// but still moves both counters, so a zero-count pair leaks no credit.
+// step ends when the receiver has consumed G + W_s.
 //
 // Schedule (K17): the JAX single-shot put, with only the origin/target
 // pair running: the origin lane stages its share into one landing
@@ -107,8 +109,8 @@
 // runs the same DMA, is a TPU constraint). K12, K13, K14 and K14q have
 // no schedule: one direct pass each (rma_copy_kernel,
 // rma_acc_direct_kernel and rma_acc_quant_direct_kernel, below), nor
-// have K6 and K7 (ring_all_reduce_direct_kernel and
-// ring_all_gather_direct_kernel).
+// have K5, K6 and K7 (ring_all_gather_direct_kernel and
+// ring_all_reduce_direct_kernel) or K11 (hbm_alltoallv_direct_kernel).
 //
 // Arithmetic: floats fold in float and round to the dtype at every step,
 // integers in 32 bits (uint32 unsigned) and wrap to the dtype, exactly as
@@ -132,11 +134,11 @@
 // sends from the input, the last folds into the output), against
 // m + m/p. K8 moves 2m a rank, its bound. K17 moves 4 bytes a payload
 // byte (read source, write slot, read slot, write destination), against
-// 2; K12 and K13 move 2 and K14 3, their bounds, and K6 and K7 move
-// theirs (below). The landing slots (p*ndir*depth*chunk elements) are
-// small enough to stay in the 50 MB L2. K10 moves 2m/p (local block) +
-// (p-1)(4m/p) (read input, write slot, read slot, write output) per
-// rank, against 2m; K11 the same over the bytes its matrix moves.
+// 2; K12 and K13 move 2 and K14 3, their bounds, and K5, K6, K7 and K11
+// move theirs (below). The landing slots (p*ndir*depth*chunk elements)
+// are small enough to stay in the 50 MB L2. K10 moves 2m/p (local block)
+// + (p-1)(4m/p) (read input, write slot, read slot, write output) per
+// rank, against 2m.
 //
 // Spin bound: a wait that outlasts kSpinTimeoutNs writes a nonzero error
 // word into mapped host memory and ends the block; the other blocks then
@@ -420,7 +422,7 @@ __device__ __forceinline__ void share(long long sz, long long full, int b,
 __device__ __forceinline__ int mod(int a, int p) { return ((a % p) + p) % p; }
 
 // ---------------------------------------------------------------------------
-// the streaming engine of K3, K5 and K9 (one block's view of one lane)
+// the streaming engine of K3, K4 and K9 (one block's view of one lane)
 // ---------------------------------------------------------------------------
 
 // One ring step of lane L over its span [lo, hi): every chunk, issue c
@@ -539,8 +541,8 @@ __device__ Lane<T> make_lane(int p, long long nblk, long long chunk,
   return L;
 }
 
-// K3 (K3, K4 and K5: at most 64 registers a thread, so that a block of
-// 1024 threads fits on an SM; the cooperative launch needs one a lane)
+// K3 (K3 and K4: at most 64 registers a thread, so that a block of 1024
+// threads fits on an SM; the cooperative launch needs one a lane)
 template <typename T, int OP>
 __global__ void __launch_bounds__(1024) hbm_ring_all_reduce_kernel(
     RankPtrs ptrs, int p, long long n, long long nblk, long long chunk,
@@ -570,30 +572,6 @@ __global__ void __launch_bounds__(1024) hbm_ring_all_reduce_kernel(
     const int sb = L.d == 0 ? mod(r - s, p) : mod(r + s, p);
     const int rb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
     if (!L.template step<OP>(sb * nblk, rb * nblk, false)) return;
-  }
-}
-
-// K5 (T: an unsigned type of the element's width; pure data movement)
-template <typename T>
-__global__ void __launch_bounds__(1024) hbm_ring_all_gather_kernel(
-    RankPtrs ptrs, int p, long long m, long long chunk, int depth,
-    int ndir, int B, T* slots, unsigned* landed, unsigned* consumed,
-    int vec, int* err) {
-  const int lane_rank = (blockIdx.x / B) / ndir;
-  Lane<T> L = make_lane<T>(p, m, chunk, depth, ndir, B, slots, landed,
-                           consumed, vec, err, ptrs.out[lane_rank]);
-  const T* x = static_cast<const T*>(ptrs.in[L.gr]);
-  const int r = L.r;
-  for (long long off = L.lo; off < L.hi; off += chunk) {  // my block
-    long long s0, s1;
-    share(min(chunk, L.hi - off), chunk, L.b, B, L.align(), &s0, &s1);
-    copy_range(L.o + r * m + off + s0, x + off + s0, s1 - s0, vec, false);
-  }
-  __syncthreads();
-  for (int s = 0; s < p - 1; ++s) {
-    const int sb = L.d == 0 ? mod(r - s, p) : mod(r + s, p);
-    const int rb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
-    if (!L.template step<SUM>(sb * m, rb * m, false)) return;
   }
 }
 
@@ -939,7 +917,7 @@ __global__ void __launch_bounds__(1024) quant_ring_all_reduce_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// the pairwise-permutation exchange of K10 and K11
+// the pairwise-permutation exchange of K10
 // ---------------------------------------------------------------------------
 
 // dst[i] = src[i] for any alignment: 16-byte accesses over the longest
@@ -967,26 +945,6 @@ struct UniformPlan {
   __device__ long long sdispl(int, int to) const { return to * c; }
   __device__ long long rdispl(int, int from) const { return from * c; }
   __device__ long long wire(int) const { return (c + chunk - 1) / chunk; }
-};
-
-// K11's plan, read from the wrapper's table (int64, on the card):
-// counts[p][p] (counts[r][j]: elements r sends j), sdispls[p][p] (where
-// r's payload for j starts in r's input), rdispls[p][p] (where j's
-// payload lands in r's output), wire[p] (W_s, the step-wide chunk count
-// of step s; 0 = the step is empty on every rank).
-struct TablePlan {
-  const long long* t;
-  int p;
-  __device__ long long count(int from, int to) const {
-    return t[from * p + to];
-  }
-  __device__ long long sdispl(int from, int to) const {
-    return t[p * p + from * p + to];
-  }
-  __device__ long long rdispl(int at, int from) const {
-    return t[2 * p * p + at * p + from];
-  }
-  __device__ long long wire(int s) const { return t[3 * p * p + s]; }
 };
 
 __device__ __forceinline__ long long clamp_chunk(long long left,
@@ -1067,25 +1025,14 @@ __device__ void a2a_lane(const RankPtrs& ptrs, const Plan& plan, int p,
 }
 
 // K10 (T: an unsigned type of the element's width; pure data movement).
-// K10 and K11 hold more state than the ring kernels: the launch bound
-// keeps them to 64 registers a thread, so a 1024-thread block fits.
+// K10 holds more state than the ring kernels: the launch bound keeps it
+// to 64 registers a thread, so a 1024-thread block fits.
 template <typename T>
 __global__ void __launch_bounds__(1024) hbm_alltoall_kernel(RankPtrs ptrs, int p, long long c,
                                     long long chunk, int depth, int ndir,
                                     int B, T* slots, unsigned* landed,
                                     unsigned* consumed, int* err) {
   a2a_lane<T>(ptrs, UniformPlan{c, chunk}, p, chunk, depth, ndir, B, slots,
-              landed, consumed, err);
-}
-
-// K11
-template <typename T>
-__global__ void __launch_bounds__(1024) hbm_alltoallv_kernel(RankPtrs ptrs, const long long* tables,
-                                     int p, long long chunk, int depth,
-                                     int ndir, int B, T* slots,
-                                     unsigned* landed, unsigned* consumed,
-                                     int* err) {
-  a2a_lane<T>(ptrs, TablePlan{tables, p}, p, chunk, depth, ndir, B, slots,
               landed, consumed, err);
 }
 
@@ -1388,21 +1335,26 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K6 and K7: the direct small-message kernels
+// K6, K7 and K5: the direct ring kernels
 // ---------------------------------------------------------------------------
 //
 // ring_all_reduce_direct_kernel replaces mvapich2_tpu/ops/pallas_ring.py
 // ring_all_reduce (:214, its pallas_call at :234, body
 // _ring_all_reduce_kernel :147) as K6; ring_all_gather_direct_kernel
 // replaces ring_all_gather (:114, pallas_call :131, body
-// _ring_all_gather_kernel :78) as K7.
+// _ring_all_gather_kernel :78) as K7, and mvapich2_tpu/ops/pallas_ici.py
+// hbm_ring_all_gather (:545, pallas_call :566, body
+// _hbm_all_gather_kernel :436) as K5, over `lines` rings at once.
 //
 // The TPU kernels pass one block a round to the right-hand neighbour
-// through two VMEM landing slots under a two-neighbour credit handshake,
-// because a chip reaches its neighbour's memory only by remote DMA. On
-// one card every rank's shard is memory that any thread reads, so the
-// rounds, the slots and the credits go (a handshake round cost about
-// 6 us here: 14 rounds a K6 call at p = 8). The one property of the ring
+// through VMEM landing slots under a credit handshake (K5: chunk by
+// chunk, in both ring directions), because a chip reaches its
+// neighbour's memory only by remote DMA. On one card every rank's shard
+// is memory that any thread reads, so the rounds, the slots and the
+// credits go (a handshake round cost about 6 us here: 14 rounds a K6
+// call at p = 8). A gather's result does not depend on the schedule:
+// every row of a ring is the concatenation of its shards. The one
+// property of the ring
 // that the result depends on is its fold order. The reduce-scatter of
 // pallas_ring.py:170-181 folds red(own, incoming) at rank b + j in round
 // j - 2, so block b ends as
@@ -1411,8 +1363,9 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
 // computes that closed form element by element: acc = x[b+1][i], then
 // acc = red(x[b+j][i], acc) for j = 2..p, in T's arithmetic (f16 and
 // bf16 round at every step, as the ring stores each partial; integers
-// wrap), and stores acc into every rank's row. K7 loads each word of
-// each shard once and stores it into every rank's row. No thread waits
+// wrap), and stores acc into every rank's row. K7 and K5 load each word
+// of each shard once and store it into every row of its ring. No thread
+// waits
 // for another, so the launch is a plain one: the grid min(one pass, the
 // blocks that fit at once), the fit counted once per device, kernel and
 // block size (direct_fit).
@@ -1422,7 +1375,11 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
 // or the shard, is a multiple of V = 16 / sizeof(T) elements, so that no
 // word straddles two blocks or two shards) or one element (W = T). Unit
 // u of every output row is unit u of every shard (K6) or unit u - q*mu
-// of shard q (K7), so neighbouring threads store to neighbouring words.
+// of shard q (K7); with lines, unit u of lines*p*mu belongs to shard
+// s = u / mu = g*p + q of line g and goes to unit u - g*p*mu of the p
+// rows of line g (K5; K7 is lines = 1). Neighbouring threads store to
+// neighbouring words. K5 has no 4 MiB ceiling (a 64 MiB shard is 4 Mi
+// words), so offsets are 64-bit throughout.
 // Sources are read through the read-only path (ld.global.nc): the
 // output is a fresh allocation that never aliases an input. K6 loads its
 // p source words in groups of kFoldGroup before it folds each group: the
@@ -1430,9 +1387,10 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
 // no more than kFoldGroup words of registers.
 //
 // Bound: bytes. K6 reads p*n and writes p*n elements (0.0003 ms at 8 x
-// 64 KiB f32, 0.020 ms at 8 x 4 MiB, over 3.35 TB/s); K7 reads p*m and
-// writes p*p*m (0.0014 ms at 8 x 64 KiB, 0.0113 ms at 8 x 512 KiB). At
-// 64 KiB both are bound by the launch.
+// 64 KiB f32, 0.020 ms at 8 x 4 MiB, over 3.35 TB/s); K7 and K5 read
+// lines*p*m and write lines*p*p*m (0.0014 ms at 8 x 64 KiB, 0.0113 ms at
+// 8 x 512 KiB, 0.0225 ms at 8 x 1 MiB). At 64 KiB K6 and K7 are bound by
+// the launch.
 
 constexpr int kFoldGroup = 8;
 
@@ -1491,19 +1449,99 @@ __global__ void __launch_bounds__(1024) ring_all_reduce_direct_kernel(
   }
 }
 
-// K7 (W: an unsigned type of the element's width, or uint4 on the vector
-// path). mu: units a shard.
+// K7 and K5 (W: an unsigned type of the element's width, or uint4 on the
+// vector path). `lines` rings of p shards of mu units each, line-major.
 template <typename W>
 __global__ void __launch_bounds__(1024) ring_all_gather_direct_kernel(
-    RankPtrs ptrs, int p, long long mu) {
-  const long long units = p * mu;
+    RankPtrs ptrs, int p, int lines, long long mu) {
+  const long long units = static_cast<long long>(lines) * p * mu;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        u < units; u += step) {
-    const int q = static_cast<int>(u / mu);
-    const W v = ld_nc(static_cast<const W*>(ptrs.in[q]) + (u - q * mu));
-    for (int r = 0; r < p; ++r) static_cast<W*>(ptrs.out[r])[u] = v;
+    const long long sh = u / mu;                // shard g*p + q
+    const int first = static_cast<int>(sh) / p * p;   // row g*p of line g
+    const W v = ld_nc(static_cast<const W*>(ptrs.in[sh]) + (u - sh * mu));
+    const long long at = u - first * mu;        // unit of a row of line g
+    for (int r = 0; r < p; ++r)
+      static_cast<W*>(ptrs.out[first + r])[at] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K11: the direct copy by tile table
+// ---------------------------------------------------------------------------
+//
+// hbm_alltoallv_direct_kernel replaces mvapich2_tpu/ops/pallas_alltoall.py
+// hbm_alltoallv (:488, its pallas_call at :527, body _hbm_alltoallv_kernel
+// :335) as K11.
+//
+// The TPU kernel streams each (r -> j) pair through j's landing slots
+// under chunk credits, in p - 1 permutation steps, each padded to its
+// heaviest pair, because a chip reaches another chip's memory only by
+// remote DMA. On one card every rank's payload is memory that any thread
+// reads, so the exchange is one copy pass: pair (r -> j) moves
+// counts[r][j] elements from sdispls[r][j] of rank r's payload to
+// rdispls[j][r] of rank j's output (ops/alltoall.py _copy_pairs is the
+// spec). No slot, no flag, no wait.
+//
+// The wrapper cuts every non-empty pair, the diagonal one included, into
+// tiles of at most TILE_BYTES (ops/alltoall.py tile_table; built once per
+// device, count matrix and displacements, cached on the card), so that a
+// heavy pair spreads over many blocks and no pair waits on another. A
+// table row is (source rank, source offset, destination rank, destination
+// offset, length, vec), in elements. Block b copies tiles b, b + grid,
+// ...; its threads copy a tile's 16-byte words with kCopyUnroll loads in
+// flight before their stores. The loads take the read-only path
+// (ld.global.nc): the sources are the payloads, which no output aliases.
+// Receive ranges are disjoint, as MPI requires of alltoallv (the wrapper
+// refuses overlapping explicit rdispls; packed ones cannot overlap), so
+// no two tiles store to one element and their order does not matter.
+//
+// A tile takes the word path when its row's vec says that its offsets and
+// length are whole 16-byte words and the launch's `vec` says that every
+// payload and output pointer is 16-byte aligned (the C entry refuses a
+// vector request that breaks this); else it is copied element by
+// element. Every tile of the MoE dispatch is whole words.
+//
+// Bound: bytes. Each moved byte is read once and written once: 1 GiB for
+// the hot MoE dispatch at 4096 tokens x 4096 f32 a rank, 0.3205 ms at
+// 3.35 TB/s.
+
+constexpr int kTileCols = 6;
+
+// K11 (E: an unsigned type of the element's width): the ntiles rows of
+// `tiles` (kTileCols int64 each) copied from ptrs.in to ptrs.out.
+template <typename E>
+__global__ void __launch_bounds__(1024) hbm_alltoallv_direct_kernel(
+    RankPtrs ptrs, const long long* tiles, long long ntiles, int vec) {
+  const long long stride = static_cast<long long>(blockDim.x) * kCopyUnroll;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long* row = tiles + t * kTileCols;
+    const E* from = static_cast<const E*>(ptrs.in[__ldg(row)]) + __ldg(row + 1);
+    E* to = static_cast<E*>(ptrs.out[__ldg(row + 2)]) + __ldg(row + 3);
+    const long long len = __ldg(row + 4);
+    if (vec && __ldg(row + 5)) {
+      const long long nvec = len * static_cast<long long>(sizeof(E)) / 16;
+      const uint4* f = reinterpret_cast<const uint4*>(from);
+      uint4* o = reinterpret_cast<uint4*>(to);
+      for (long long base = threadIdx.x; base < nvec; base += stride) {
+        uint4 w[kCopyUnroll];
+#pragma unroll
+        for (int k = 0; k < kCopyUnroll; ++k) {
+          const long long i = base + static_cast<long long>(k) * blockDim.x;
+          if (i < nvec) w[k] = ld_nc(f + i);
+        }
+#pragma unroll
+        for (int k = 0; k < kCopyUnroll; ++k) {
+          const long long i = base + static_cast<long long>(k) * blockDim.x;
+          if (i < nvec) o[i] = w[k];
+        }
+      }
+    } else {
+      for (long long i = threadIdx.x; i < len; i += blockDim.x)
+        to[i] = ld_nc(from + i);
+    }
   }
 }
 
@@ -1624,27 +1662,6 @@ cudaError_t launch_k3_dtype(int dtype, int op, RankPtrs ptrs, int p,
   }
 }
 
-template <typename T>
-cudaError_t launch_k5(RankPtrs ptrs, int p, int lines, long long m,
-                      long long chunk, int depth, int ndir, void* slots,
-                      unsigned* flags, int ctas, int vec, int threads,
-                      cudaStream_t s) {
-  const void* kern =
-      reinterpret_cast<const void*>(&hbm_ring_all_gather_kernel<T>);
-  const int lanes = lines * p * ndir;
-  int B, *err;
-  cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, lanes, ctas, threads, &B);
-  if (e != cudaSuccess) return e;
-  T* sl = static_cast<T*>(slots);
-  unsigned* landed = flags;
-  unsigned* consumed = flags + static_cast<long long>(lanes) * ctas;
-  void* args[] = {&ptrs, &p, &m, &chunk, &depth, &ndir, &B, &sl, &landed,
-                  &consumed, &vec, &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(lanes * B), dim3(threads),
-                                     args, 0, s);
-}
-
 // K8: p ranks of B blocks, no flags, so an ordinary launch
 template <typename T>
 cudaError_t launch_k8(RankPtrs ptrs, int p, long long n, int src, int dst,
@@ -1688,8 +1705,8 @@ cudaError_t launch_k9_wire(int wire, RankPtrs ptrs, int* wires, int p,
   }
 }
 
-// K10 and K11 share the flag layout of K3/K5: landed then consumed,
-// each [p][ndir][ctas].
+// K10 shares the flag layout of K3: landed then consumed, each
+// [p][ndir][ctas].
 template <typename T>
 cudaError_t launch_k10(RankPtrs ptrs, int p, long long c, long long chunk,
                        int depth, int ndir, void* slots, unsigned* flags,
@@ -1704,25 +1721,6 @@ cudaError_t launch_k10(RankPtrs ptrs, int p, long long c, long long chunk,
   unsigned* consumed = flags + static_cast<long long>(p) * ndir * ctas;
   void* args[] = {&ptrs, &p, &c, &chunk, &depth, &ndir, &B, &sl, &landed,
                   &consumed, &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(p * ndir * B),
-                                     dim3(threads), args, 0, s);
-}
-
-template <typename T>
-cudaError_t launch_k11(RankPtrs ptrs, const long long* tables, int p,
-                       long long chunk, int depth, int ndir, void* slots,
-                       unsigned* flags, int ctas, int threads,
-                       cudaStream_t s) {
-  const void* kern = reinterpret_cast<const void*>(&hbm_alltoallv_kernel<T>);
-  int B, *err;
-  cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, p * ndir, ctas, threads, &B);
-  if (e != cudaSuccess) return e;
-  T* sl = static_cast<T*>(slots);
-  unsigned* landed = flags;
-  unsigned* consumed = flags + static_cast<long long>(p) * ndir * ctas;
-  void* args[] = {&ptrs, &tables, &p, &chunk, &depth, &ndir, &B, &sl,
-                  &landed, &consumed, &err};
   return cudaLaunchCooperativeKernel(kern, dim3(p * ndir * B),
                                      dim3(threads), args, 0, s);
 }
@@ -1749,7 +1747,7 @@ cudaError_t launch_k17(const void* src, void* win, long long disp,
                                      0, s);
 }
 
-// The direct kernels (K12/K13, K14, K14q): the blocks of one kernel
+// The direct kernels (K5-K7, K11-K14q): the blocks of one kernel
 // instance and block size that fit on the card at once, counted at its
 // first launch on a device, then kept.
 struct DirectFit {
@@ -1819,9 +1817,9 @@ bool bad_direct_threads(int threads) {
   return threads < 32 || threads > 1024 || threads % 32;
 }
 
-// The grid of a direct launch (K6, K7, K12/K13, K14, K14q) of `units`
-// units of work, `per_block` a block: one pass, at most the blocks of
-// kern at `threads` that fit at once, at least one block.
+// The grid of a direct launch (K5, K6, K7, K11, K12/K13, K14, K14q) of
+// `units` units of work, `per_block` a block: one pass, at most the
+// blocks of kern at `threads` that fit at once, at least one block.
 cudaError_t direct_grid(const void* kern, int threads, long long units,
                         long long per_block, int* grid) {
   int cap;
@@ -1916,27 +1914,51 @@ cudaError_t launch_direct_reduce(RankPtrs ptrs, int p, long long blk,
   return cudaGetLastError();
 }
 
-// K7 (E: an unsigned type of the element's width): p shards of m
-// elements; vec: 16-byte words.
+// K7 and K5 (E: an unsigned type of the element's width): lines rings of
+// p shards of m elements; vec: 16-byte words.
 template <typename E>
-cudaError_t launch_direct_gather(RankPtrs ptrs, int p, long long m,
-                                 int vec, int threads, cudaStream_t s) {
+cudaError_t launch_direct_gather(RankPtrs ptrs, int p, int lines,
+                                 long long m, int vec, int threads,
+                                 cudaStream_t s) {
   constexpr int V = 16 / sizeof(E);
   if (m < 0 || bad_direct_threads(threads) ||
-      (vec && (m % V || !aligned16(ptrs, p))))
+      (vec && (m % V || !aligned16(ptrs, lines * p))))
     return cudaErrorInvalidValue;
   const long long mu = vec ? m / V : m;
   const void* kern =
       vec ? reinterpret_cast<const void*>(&ring_all_gather_direct_kernel<uint4>)
           : reinterpret_cast<const void*>(&ring_all_gather_direct_kernel<E>);
   int grid;
-  const cudaError_t e = direct_grid(kern, threads, p * mu, threads, &grid);
+  const cudaError_t e = direct_grid(
+      kern, threads, static_cast<long long>(lines) * p * mu, threads, &grid);
   if (e != cudaSuccess) return e;
   if (vec)
-    ring_all_gather_direct_kernel<uint4><<<grid, threads, 0, s>>>(ptrs, p,
-                                                                  mu);
+    ring_all_gather_direct_kernel<uint4><<<grid, threads, 0, s>>>(
+        ptrs, p, lines, mu);
   else
-    ring_all_gather_direct_kernel<E><<<grid, threads, 0, s>>>(ptrs, p, mu);
+    ring_all_gather_direct_kernel<E><<<grid, threads, 0, s>>>(ptrs, p, lines,
+                                                              mu);
+  return cudaGetLastError();
+}
+
+// K11 (E: an unsigned type of the element's width): ntiles rows of the
+// tile table over p ranks; vec: every payload and output pointer 16-byte
+// aligned, so that the rows that say so move 16-byte words. One block a
+// tile, at most the blocks that fit at once.
+template <typename E>
+cudaError_t launch_direct_alltoallv(RankPtrs ptrs, int p,
+                                    const long long* tiles, long long ntiles,
+                                    int vec, int threads, cudaStream_t s) {
+  if (ntiles < 0 || bad_direct_threads(threads) ||
+      (vec && !aligned16(ptrs, p)))
+    return cudaErrorInvalidValue;
+  int grid;
+  const cudaError_t e = direct_grid(
+      reinterpret_cast<const void*>(&hbm_alltoallv_direct_kernel<E>),
+      threads, ntiles, 1, &grid);
+  if (e != cudaSuccess) return e;
+  hbm_alltoallv_direct_kernel<E><<<grid, threads, 0, s>>>(ptrs, tiles,
+                                                          ntiles, vec);
   return cudaGetLastError();
 }
 
@@ -1988,18 +2010,19 @@ int mv2t_hbm_ring_reduce_scatter(int dtype, int op, const void* ins,
       threads, static_cast<cudaStream_t>(stream)));
 }
 
+// K5: outs[g*p + r] = the p shards ins[g*p .. g*p + p - 1] of len
+// elements, concatenated, for every rank r of every line g; vec: every
+// pointer 16-byte aligned and len a multiple of 16 bytes.
 int mv2t_hbm_ring_all_gather(int dtype, const void* ins, const void* outs,
-                             int p, int lines, long long m, long long chunk,
-                             int depth, int ndir, void* slots, void* flags,
-                             int ctas, int vec, int threads, void* stream) {
+                             int p, int lines, long long len, int vec,
+                             int threads, void* stream) {
   if (bad_lines(p, lines)) return static_cast<int>(cudaErrorInvalidValue);
   const RankPtrs ptrs = rank_ptrs(ins, outs, lines * p);
-  unsigned* fl = static_cast<unsigned*>(flags);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (element_size(dtype)) {
-    case 4: return static_cast<int>(launch_k5<uint32_t>(ptrs, p, lines, m, chunk, depth, ndir, slots, fl, ctas, vec, threads, s));
-    case 2: return static_cast<int>(launch_k5<uint16_t>(ptrs, p, lines, m, chunk, depth, ndir, slots, fl, ctas, vec, threads, s));
-    case 1: return static_cast<int>(launch_k5<uint8_t>(ptrs, p, lines, m, chunk, depth, ndir, slots, fl, ctas, vec, threads, s));
+    case 4: return static_cast<int>(launch_direct_gather<uint32_t>(ptrs, p, lines, len, vec, threads, s));
+    case 2: return static_cast<int>(launch_direct_gather<uint16_t>(ptrs, p, lines, len, vec, threads, s));
+    case 1: return static_cast<int>(launch_direct_gather<uint8_t>(ptrs, p, lines, len, vec, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -2077,9 +2100,9 @@ int mv2t_ring_all_gather(int dtype, const void* ins, const void* outs,
   const RankPtrs ptrs = rank_ptrs(ins, outs, p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (element_size(dtype)) {
-    case 4: return static_cast<int>(launch_direct_gather<uint32_t>(ptrs, p, len, vec, threads, s));
-    case 2: return static_cast<int>(launch_direct_gather<uint16_t>(ptrs, p, len, vec, threads, s));
-    case 1: return static_cast<int>(launch_direct_gather<uint8_t>(ptrs, p, len, vec, threads, s));
+    case 4: return static_cast<int>(launch_direct_gather<uint32_t>(ptrs, p, 1, len, vec, threads, s));
+    case 2: return static_cast<int>(launch_direct_gather<uint16_t>(ptrs, p, 1, len, vec, threads, s));
+    case 1: return static_cast<int>(launch_direct_gather<uint8_t>(ptrs, p, 1, len, vec, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -2100,19 +2123,21 @@ int mv2t_hbm_alltoall(int dtype, const void* ins, const void* outs, int p,
   }
 }
 
+// K11: tiles is the [ntiles][6] int64 tile table on the card (source
+// rank, source offset, destination rank, destination offset, length,
+// whole 16-byte words), every rank index below p; vec: every one of the
+// p payload and output pointers 16-byte aligned.
 int mv2t_hbm_alltoallv(int dtype, const void* ins, const void* outs, int p,
-                       const void* tables, long long chunk, int depth,
-                       int ndir, void* slots, void* flags, int ctas,
+                       const void* tiles, long long ntiles, int vec,
                        int threads, void* stream) {
   if (bad_ranks(p)) return static_cast<int>(cudaErrorInvalidValue);
   const RankPtrs ptrs = rank_ptrs(ins, outs, p);
-  const long long* tb = static_cast<const long long*>(tables);
-  unsigned* fl = static_cast<unsigned*>(flags);
+  const long long* tb = static_cast<const long long*>(tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (element_size(dtype)) {
-    case 4: return static_cast<int>(launch_k11<uint32_t>(ptrs, tb, p, chunk, depth, ndir, slots, fl, ctas, threads, s));
-    case 2: return static_cast<int>(launch_k11<uint16_t>(ptrs, tb, p, chunk, depth, ndir, slots, fl, ctas, threads, s));
-    case 1: return static_cast<int>(launch_k11<uint8_t>(ptrs, tb, p, chunk, depth, ndir, slots, fl, ctas, threads, s));
+    case 4: return static_cast<int>(launch_direct_alltoallv<uint32_t>(ptrs, p, tb, ntiles, vec, threads, s));
+    case 2: return static_cast<int>(launch_direct_alltoallv<uint16_t>(ptrs, p, tb, ntiles, vec, threads, s));
+    case 1: return static_cast<int>(launch_direct_alltoallv<uint8_t>(ptrs, p, tb, ntiles, vec, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -77,9 +77,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("threads", _I), ("stream", _P))),
         "mv2t_hbm_ring_all_gather": (_I, (
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
-            ("lines", _I), ("m", _I64), ("chunk", _I64), ("depth", _I),
-            ("ndir", _I), ("slots", _P), ("flags", _P), ("ctas", _I),
-            ("vec", _I), ("threads", _I), ("stream", _P))),
+            ("lines", _I), ("len", _I64), ("vec", _I), ("threads", _I),
+            ("stream", _P))),
         "mv2t_remote_sendrecv": (_I, (
             ("esize", _I), ("ins", _P), ("outs", _P), ("p", _I),
             ("n", _I64), ("src", _I), ("dst", _I), ("ctas", _I),
@@ -103,8 +102,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("stream", _P))),
         "mv2t_hbm_alltoallv": (_I, (
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
-            ("tables", _P), ("chunk", _I64), ("depth", _I), ("ndir", _I),
-            ("slots", _P), ("flags", _P), ("ctas", _I), ("threads", _I),
+            ("tiles", _P), ("ntiles", _I64), ("vec", _I), ("threads", _I),
             ("stream", _P))),
         "mv2t_rma_put": (_I, (
             ("esize", _I), ("src", _P), ("win", _P), ("disp", _I64),

@@ -14,16 +14,19 @@ with the packed layout of :func:`packed_displs` unless displacements are
 given. Each rank's input is its own packed payload, read in place at its
 own length.
 
-The schedule is the JAX kernels': the local block copied once, then
+K10's schedule is the JAX kernel's: the local block copied once, then
 steps ``s = 1..p-1`` (split over two lanes when ``p > 2`` and
 ``ICI_BIDIR``: :func:`_lane_steps`) in which rank r streams its block for
 ``(r+s)%p`` in ``ICI_CHUNK_BYTES`` chunks into that rank's
 ``ICI_PIPELINE_DEPTH`` landing slots and drains what ``(r-s)%p`` sends
 it; slots are addressed by a per-lane global chunk counter, and each
-step runs the JAX kernel's credit wave. K11 pads every step to its
-step-wide chunk count ``W_s`` (:func:`_step_wire`), skips a step that is
-empty on every rank, and lets padding chunks move both counters without
-copying.
+step runs the JAX kernel's credit wave.
+
+K11 has no schedule on one card: every pair is one copy from its
+sender's payload into its receiver's output, so the kernel is one
+direct pass with no landing slot and no credit over a table of tiles
+(:func:`tile_table`: every non-empty pair cut into tiles of at most
+``TILE_BYTES``), built once per device, count matrix and displacements.
 
 Routing is ``ops/ring.py``'s: CPU tensors take the plain version, CUDA
 tensors launch the kernel on the current stream or raise; ``LAUNCHES``
@@ -68,13 +71,6 @@ def _lane_steps(p: int, ndir: int) -> List[List[int]]:
         return [steps]
     h = (len(steps) + 1) // 2
     return [steps[:h], steps[h:]]
-
-
-def _step_wire(counts: Sequence[Sequence[int]], s: int, chunk: int) -> int:
-    """Wire chunks at permutation step ``s``: the step-wide maximum over
-    every ``(r -> (r+s)%p)`` pair."""
-    p = len(counts)
-    return max(-(-counts[r][(r + s) % p] // chunk) for r in range(p))
 
 
 def packed_displs(counts: Sequence[Sequence[int]]
@@ -163,6 +159,16 @@ class _VPlan:
         ext = [max((self.rd[j][r] + self.counts[r][j]
                     for r in range(p) if self.counts[r][j]), default=0)
                for j in range(p)]
+        if rdispls is not None:
+            # MPI requires disjoint receive ranges; K11's tiles store in
+            # no set order, so an overlap would have no defined result
+            for j in range(p):
+                spans = sorted((self.rd[j][r], self.rd[j][r] +
+                                self.counts[r][j])
+                               for r in range(p) if self.counts[r][j])
+                if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
+                    raise ValueError(f"{what}: rank {j}'s receive ranges "
+                                     f"overlap")
         if out_len is not None and out_len < max(ext):
             raise ValueError(f"{what}: out_len {out_len} is shorter than a "
                              f"receive extent ({max(ext)})")
@@ -262,25 +268,50 @@ def hbm_alltoall(xs: Shards, *, chunk_bytes: Optional[int] = None,
     return out
 
 
-# K11's tables on the card, per (device, matrix, displacements, chunk):
-# built once, as the JAX package compiles one program per count matrix
+# K11's tiles: at most TILE_BYTES of one pair each (a multiple of 16, so
+# every tile of a pair whose offsets are whole 16-byte words is whole
+# words too); chosen by the tile sweep of ``chip_smoke.py --sweep``
+# (PERF.md)
+TILE_BYTES = 128 * 1024
+
+# K11's tile tables on the card, per (device, matrix, displacements,
+# element size, tile bytes): built once, as the JAX package compiles one
+# program per count matrix
 _TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
 _TABLES_MAX = 64
 
 
-def _tables(dev: torch.device, plan: _VPlan, chunk: int) -> torch.Tensor:
-    """int64 ``[counts (p*p), sdispls (p*p), rdispls (p*p), W (p)]``
-    (``W[s]`` the step-wide chunk count of step s, ``W[0]`` unused)."""
-    key = (str(dev), plan.counts, plan.sd, plan.rd, chunk)
+def tile_table(plan: _VPlan, esize: int,
+               tile_bytes: int = TILE_BYTES) -> List[Tuple[int, ...]]:
+    """K11's tiles: every non-empty ``(r -> j)`` pair, the diagonal one
+    included, cut into runs of at most ``tile_bytes // esize`` elements,
+    in pair order. A row is (source rank, source offset, destination
+    rank, destination offset, length, vec), in elements; vec is 1 when
+    both offsets and the length are whole 16-byte words (the kernel's
+    word path, taken when the call's pointers are aligned too)."""
+    step = max(1, tile_bytes // esize)
+    rows = []
+    for r in range(plan.p):
+        for j in range(plan.p):
+            cnt, s0, d0 = plan.counts[r][j], plan.sd[r][j], plan.rd[j][r]
+            for off in range(0, cnt, step):
+                n = min(step, cnt - off)
+                vec = all(v * esize % 16 == 0 for v in (s0 + off, d0 + off,
+                                                         n))
+                rows.append((r, s0 + off, j, d0 + off, n, int(vec)))
+    return rows
+
+
+def _tiles(dev: torch.device, plan: _VPlan, esize: int) -> torch.Tensor:
+    """:func:`tile_table` as an int64 ``(ntiles, 6)`` tensor on ``dev``,
+    from the cache."""
+    key = (str(dev), plan.counts, plan.sd, plan.rd, esize, TILE_BYTES)
     t = _TABLES.get(key)
     if t is not None:
         _TABLES.move_to_end(key)
         return t
-    p = plan.p
-    flat = [v for m in (plan.counts, plan.sd, plan.rd) for row in m
-            for v in row]
-    flat += [0] + [_step_wire(plan.counts, s, chunk) for s in range(1, p)]
-    t = torch.tensor(flat, dtype=torch.int64, device=dev)
+    t = torch.tensor(tile_table(plan, esize), dtype=torch.int64,
+                     device=dev)
     # the copy is ordered on this stream only; later launches may run on
     # other rank streams
     torch.cuda.current_stream(dev).synchronize()
@@ -299,11 +330,14 @@ def hbm_alltoallv(xs: Sequence[torch.Tensor],
                   ) -> List[torch.Tensor]:
     """K11: variable-count alltoall. ``xs``: each rank's payload (its
     own length, read in place); ``counts[r][j]``: elements rank r sends
-    rank j; displacements default to :func:`packed_displs`'s. Returns
-    one tensor per rank, of its own receive extent (or ``out_len``),
-    rank j's payload from r at ``rdispls[j][r]``. ``p == 1`` returns the
-    payload's prefix; a matrix of zeros takes the stock lowering, as in
-    the JAX wrapper."""
+    rank j; displacements default to :func:`packed_displs`'s, and
+    explicit receive ranges must not overlap. Returns one tensor per
+    rank, of its own receive extent (or ``out_len``), rank j's payload
+    from r at ``rdispls[j][r]``. ``p == 1`` returns the payload's
+    prefix; a matrix of zeros takes the stock lowering, as in the JAX
+    wrapper. ``chunk_bytes``, ``depth`` and ``bidirectional`` order the
+    TPU schedule's transfers and never the result, so on one card they
+    shape nothing; they stay for the JAX signature."""
     shards = _v_shards(xs, "hbm_alltoallv")
     plan = _VPlan(shards, counts, sdispls, rdispls, out_len, "hbm_alltoallv")
     p = plan.p
@@ -315,17 +349,15 @@ def hbm_alltoallv(xs: Sequence[torch.Tensor],
         PLAIN_CALLS["hbm_alltoallv"] += 1
         return _copy_pairs(shards, plan)
     code = ring.check_cuda_shards(shards, "hbm_alltoallv")
-    dev, dt = shards[0].device, shards[0].dtype
+    dev = shards[0].device
     outs = plan.outputs(shards[0])
-    cmax = max(max(row) for row in plan.counts)
-    chunk, d, ndir, ctas, slots, flags = _a2a_args(
-        p, dt, dev, cmax, chunk_bytes, depth, bidirectional)
-    tables = _tables(dev, plan, chunk)
+    tiles = _tiles(dev, plan, shards[0].element_size())
     # a cached table may be evicted while this launch still reads it
-    tables.record_stream(torch.cuda.current_stream(dev))
+    tiles.record_stream(torch.cuda.current_stream(dev))
+    vec = ring.aligned(shards) and ring.aligned(outs)
     ring.launch("mv2t_hbm_alltoallv", dev, code, ring.pointers(shards),
-                ring.pointers(outs), p, tables.data_ptr(), chunk, d, ndir,
-                slots.data_ptr(), flags.data_ptr(), ctas)
+                ring.pointers(outs), p, tiles.data_ptr(), tiles.shape[0],
+                int(vec), threads=ring.DIRECT_THREADS)
     LAUNCHES["hbm_alltoallv"] += 1
     return outs
 

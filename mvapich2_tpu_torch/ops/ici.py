@@ -15,8 +15,12 @@ sum, max, min and prod.
 per rank to its block ``[ceil(n/p)]`` of the folded (identity-padded)
 array.
 
-``hbm_ring_all_gather`` (K5): the all-gather ring alone, ``[m]`` per
-rank to ``[p*m]``.
+``hbm_ring_all_gather`` (K5): the all-gather ring's result, ``[m]`` per
+rank to ``[p*m]``. Its result does not depend on the schedule (every row
+is the concatenation of the shards), so on one card it is one direct
+copy with no landing slot and no credit: K7's kernel
+(``ops/ring.py``) over ``lines`` rings, each word of each shard read
+once and stored into every row of its ring.
 
 ``remote_sendrecv`` (K8): shards ``src`` and ``dst`` swap, every other
 rank keeps its own (MPI_Sendrecv's exchange); the JAX package has no
@@ -37,11 +41,11 @@ a copy. The port has no interpreter, so a phase under a multi-axis
 "hw"): the resident and quant tiers clamp to the streaming ring, and
 only DEV_TIER_XLA_MIN sends a phase to the stock lowering.
 
-The schedule is the JAX kernels': the same block ids and phase order,
-one global chunk counter per direction (slot = counter mod depth), and
-the chunk-credit handshake (a sender writes chunk k+depth only once the
-receiver has consumed chunk k). A "remote DMA" is a store into the
-downstream rank's landing slot. Inputs and outputs are as in
+The schedule of K3 and K4 is the JAX kernels': the same block ids and
+phase order, one global chunk counter per direction (slot = counter mod
+depth), and the chunk-credit handshake (a sender writes chunk k+depth
+only once the receiver has consumed chunk k). A "remote DMA" is a store
+into the downstream rank's landing slot. Inputs and outputs are as in
 ``ops/ring.py``, whose launch and replay machinery these wrappers share.
 
 ``ici_all_reduce`` / ``ici_all_gather`` pick the tier by shard bytes
@@ -403,9 +407,12 @@ def hbm_ring_all_gather(xs: Shards, *, chunk_bytes: Optional[int] = None,
                         depth: Optional[int] = None,
                         bidirectional: Optional[bool] = None,
                         lines: int = 1) -> torch.Tensor:
-    """K5: all-gather of ``p`` shards of ``m`` elements through the
-    chunked streaming ring, on each of ``lines`` rings of ``p``. Returns
-    ``(lines*p, p*m)``, one row per shard in the same order."""
+    """K5: all-gather of ``p`` shards of ``m`` elements, on each of
+    ``lines`` rings of ``p``, as one direct copy. Returns
+    ``(lines*p, p*m)``, one row per shard in the same order.
+    ``chunk_bytes``, ``depth`` and ``bidirectional`` order the TPU ring's
+    transfers and never its result, so on one card they shape nothing;
+    they stay for the JAX signature."""
     shards = ring.as_shards(xs, "hbm_ring_all_gather")
     p = _line_size(shards, lines, "hbm_ring_all_gather")
     if ring.on_cpu(shards):
@@ -416,12 +423,8 @@ def hbm_ring_all_gather(xs: Shards, *, chunk_bytes: Optional[int] = None,
     m = shards[0].numel()
     out = torch.empty((len(shards), p * m), dtype=shards[0].dtype,
                       device=shards[0].device)
-    chunk, d, ndir, ctas, vec, slots, flags = _stream_args(
-        shards, out, p, lines, m, chunk_bytes, depth, bidirectional)
-    ring.launch("mv2t_hbm_ring_all_gather", out.device, code,
-                ring.pointers(shards), ring.pointers(out.unbind(0)), p,
-                lines, m, chunk, d, ndir, slots.data_ptr(),
-                flags.data_ptr(), ctas, vec)
+    ring.launch_direct("hbm_ring_all_gather", code, shards, out, m,
+                       lines=lines)
     LAUNCHES["hbm_ring_all_gather"] += 1
     return out
 

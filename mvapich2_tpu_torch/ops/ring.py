@@ -27,8 +27,10 @@ order is the JAX kernel's; given CUDA tensors it launches the kernel
 on the current stream or raises. ``LAUNCHES`` counts kernel launches
 only, ``PLAIN_CALLS`` the plain route.
 
-The streaming kernels of ``ops/ici.py``, ``ops/alltoall.py``,
-``ops/quant.py`` and K17 of ``ops/rma.py`` keep the ring protocol: every
+The direct launch serves K5 of ``ops/ici.py`` too (K7's kernel over
+``lines`` rings). The streaming kernels (K3 and K4 of ``ops/ici.py``,
+K10 of ``ops/alltoall.py``, K9 of ``ops/quant.py`` and K17 of
+``ops/rma.py``) keep the ring protocol: every
 (rank, direction) lane gets ``B`` thread blocks, each running its own
 sub-ring over its share of the data, with credits in global memory. All
 blocks must be resident at once (a block spinning on a credit would wait
@@ -52,8 +54,9 @@ from ..coll.tuning import kernel_param
 # it the resident kernels hand the call to the stock lowering
 VMEM_LIMIT_BYTES = 4 * 1024 * 1024
 MAX_RANKS = 64               # csrc/ring.cu kMaxRanks
-# threads per block of the direct K6/K7: 128, 256 and 512 time alike on
-# an H100 at 64 KiB and at 4 MiB a shard (PERF.md)
+# threads per block of the direct kernels (K5, K6, K7, K11): 128, 256
+# and 512 time alike for K6/K7 on an H100 at 64 KiB and at 4 MiB a
+# shard (PERF.md)
 DIRECT_THREADS = 256
 
 LAUNCHES: Dict[str, int] = {"ring_all_reduce": 0, "ring_all_gather": 0}
@@ -270,20 +273,23 @@ def ring_all_gather_ref(xs: Shards) -> torch.Tensor:
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def _launch_direct(fn: str, code: int, shards: List[torch.Tensor],
-                   out: torch.Tensor, length: int) -> None:
-    """Launch the direct kernel ``fn`` (K6 or K7) over ``shards`` into the
-    rows of ``out``; ``length`` is the C entry's ``len`` (K6: the block,
-    K7: the shard). It runs on 16-byte words when every shard and output
-    row is 16-byte aligned and ``length`` is a whole number of words (so
-    no word straddles two blocks or shards), else element by element."""
-    p, row = out.shape[0], out.shape[1] * out.element_size()
+def launch_direct(fn: str, code: int, shards: List[torch.Tensor],
+                  out: torch.Tensor, length: int,
+                  lines: Optional[int] = None) -> None:
+    """Launch the direct kernel ``fn`` (K6, K7, or K5 with ``lines``)
+    over ``shards`` into the rows of ``out``; ``length`` is the C entry's
+    ``len`` (K6: the block, K7 and K5: the shard). It runs on 16-byte
+    words when every shard and output row is 16-byte aligned and
+    ``length`` is a whole number of words (so no word straddles two
+    blocks or shards), else element by element."""
+    rows, row = out.shape[0], out.shape[1] * out.element_size()
     vec = aligned(shards) and out.data_ptr() % 16 == 0 and row % 16 == 0 \
         and length % (16 // out.element_size()) == 0
-    outs = (ctypes.c_void_p * p)(*[out.data_ptr() + r * row
-                                   for r in range(p)])
-    launch(f"mv2t_{fn}", out.device, code, pointers(shards), outs, p,
-           length, int(vec), threads=DIRECT_THREADS)
+    outs = (ctypes.c_void_p * rows)(*[out.data_ptr() + r * row
+                                      for r in range(rows)])
+    geometry = (rows,) if lines is None else (rows // lines, lines)
+    launch(f"mv2t_{fn}", out.device, code, pointers(shards), outs,
+           *geometry, length, int(vec), threads=DIRECT_THREADS)
 
 
 def ring_all_reduce(xs: Shards) -> torch.Tensor:
@@ -302,7 +308,7 @@ def ring_all_reduce(xs: Shards) -> torch.Tensor:
         return ring_all_reduce_ref(shards)
     code = check_cuda_shards(shards, "ring_all_reduce")
     out = torch.empty((p, n), dtype=shards[0].dtype, device=shards[0].device)
-    _launch_direct("ring_all_reduce", code, shards, out, n // p)
+    launch_direct("ring_all_reduce", code, shards, out, n // p)
     LAUNCHES["ring_all_reduce"] += 1
     return out
 
@@ -322,6 +328,6 @@ def ring_all_gather(xs: Shards) -> torch.Tensor:
     code = check_cuda_shards(shards, "ring_all_gather")
     out = torch.empty((p, p * m), dtype=shards[0].dtype,
                       device=shards[0].device)
-    _launch_direct("ring_all_gather", code, shards, out, m)
+    launch_direct("ring_all_gather", code, shards, out, m)
     LAUNCHES["ring_all_gather"] += 1
     return out

@@ -9,7 +9,13 @@ interpreter's creditless mode: its emulation is synchronous).
 Shapes: p = 8 with small ``chunk_bytes`` so every call makes many
 chunks; a block that is not a multiple of the chunk; one and two lanes;
 the MoE bench's three routing matrices; a matrix with zero-count pairs,
-a row of zeros and steps that are empty on every rank.
+a row of zeros and steps that are empty on every rank; spread explicit
+displacements with ``out_len``; a pair that spans many tiles.
+
+The CUDA K11 is one direct copy by a table of tiles
+(``alltoall.tile_table``); ``_replay_tiles`` copies the same tiles with
+torch slices on the CPU and is held against the JAX kernel too, and the
+tiles are checked to cover every pair exactly once.
 
 Tolerances: bitwise everywhere (the kernels only move bytes).
 
@@ -69,7 +75,31 @@ def _data(seed, shape, kind):
         return rng.normal(size=shape).astype(np.float32)
     if kind == "int32":
         return rng.integers(-2**31, 2**31 - 1, size=shape, dtype=np.int32)
+    if kind == "int8":
+        return rng.integers(-128, 128, size=shape).astype(np.int8)
+    if kind == "bf16":
+        return rng.normal(size=shape).astype(jnp.bfloat16)
     raise ValueError(kind)
+
+
+def _torch(xv):
+    """``xv`` as a torch tensor of its dtype (numpy's bfloat16 through
+    its bits)."""
+    if xv.dtype == jnp.bfloat16:
+        return torch.from_numpy(xv.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(xv)
+
+
+def _bits(t):
+    """The bit patterns of a torch tensor as numpy integers of its
+    width."""
+    return t.view({1: torch.int8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()]).numpy()
+
+
+def _np_bits(a):
+    return np.asarray(a).view({1: np.int8, 2: np.int16,
+                               4: np.int32}[np.asarray(a).itemsize])
 
 
 def _sparse():
@@ -82,10 +112,40 @@ def _sparse():
     return c
 
 
+def _spread():
+    """The spread layout of test_alltoallv_layouts_and_lowerings_agree:
+    at most 4 elements a pair of the sparse matrix, every send and
+    receive at 4 * peer, outputs of 40."""
+    disp = [[4 * j for j in range(NP)] for _ in range(NP)]
+    counts = [[min(c, 4) for c in row] for row in _sparse()]
+    return counts, dict(sdispls=disp, rdispls=disp, out_len=40)
+
+
+def _multi():
+    """One pair far larger than the rest (rank 2 sends rank 5 300
+    elements), so it spans many tiles."""
+    c = [[(r + j) % 3 for j in range(NP)] for r in range(NP)]
+    c[2][5] = 300
+    return c
+
+
+def _matrix(shape):
+    """(counts, layout keywords) of a named test matrix."""
+    if shape == "spread":
+        return _spread()
+    if shape == "sparse":
+        return _sparse(), {}
+    if shape == "multi":
+        return _multi(), {}
+    return jax_routing(NP, 24, shape), {}
+
+
 def _jax_alltoallv(comm8, payloads, counts, **kw):
-    """The JAX K11 over the payloads, each padded to the mesh-wide
-    in_len (shard_map needs uniform shapes); one row per rank."""
+    """The JAX K11 over the payloads, each padded to the longest of the
+    mesh-wide in_len and their own lengths (shard_map needs uniform
+    shapes); one row per rank."""
     _, _, in_len, _ = pallas_alltoall.packed_displs(counts)
+    in_len = max([in_len] + [x.size for x in payloads])
     buf = np.zeros((NP, in_len), payloads[0].dtype)
     for r, x in enumerate(payloads):
         buf[r, :x.size] = x
@@ -93,6 +153,16 @@ def _jax_alltoallv(comm8, payloads, counts, **kw):
         s, "x", NP, counts, interpret=True, credits=False, **kw),
         jnp.asarray(buf.reshape(-1)))
     return np.asarray(out).reshape(NP, -1)
+
+
+def _replay_tiles(shards, plan, rows):
+    """The CUDA K11's copy on the CPU: every tile of ``rows`` one slice
+    copy from its source payload into its destination output (in table
+    order; no two tiles store to one element)."""
+    outs = plan.outputs(shards[0])
+    for sr, so, dr, do, n, _ in rows:
+        outs[dr][do:do + n] = shards[sr][so:so + n]
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -135,27 +205,55 @@ def test_alltoall_edges():
 # K11 against the JAX kernel
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape,kind,chunk_bytes,bidirectional", [
-    ("hot", "normal", 16, True),
-    ("skew", "int32", 16, False),
-    ("uniform", "normal", 16, True),
-    ("sparse", "int32", 8, True),
-])
-def test_alltoallv_parity(comm8, shape, kind, chunk_bytes, bidirectional):
-    counts = _sparse() if shape == "sparse" else jax_routing(NP, 24, shape)
-    payloads = [_data(40 + r, (sum(counts[r]),), kind) for r in range(NP)]
+@pytest.mark.parametrize(
+    "shape,kind,chunk_bytes,bidirectional,tile_bytes", [
+        ("hot", "normal", 16, True, 16),
+        ("skew", "int32", 16, False, 64),
+        ("uniform", "normal", 16, True, alltoall.TILE_BYTES),
+        ("sparse", "int32", 8, True, 16),
+        ("hot", "bf16", 16, False, 32),
+        ("skew", "int8", 16, True, 16),
+        ("uniform", "int8", 8, False, 48),
+        ("sparse", "bf16", 8, True, 64),
+        ("spread", "int32", 8, True, 16),
+        ("spread", "bf16", 8, False, 8),
+        ("multi", "normal", 256, True, 64),
+        ("multi", "int8", 64, False, 48),
+    ])
+def test_alltoallv_parity(comm8, shape, kind, chunk_bytes, bidirectional,
+                          tile_bytes):
+    """The plain K11 and the replay of its tile table (at tile sizes
+    from 8 bytes, where most pairs span several tiles, to TILE_BYTES)
+    against the JAX kernel, bit for bit. A spread layout leaves gaps: the
+    port zeroes them, the JAX interpreter leaves them uninitialised, so
+    those places are compared with zero alone."""
+    counts, layout = _matrix(shape)
+    n_in = 4 * NP if layout else None
+    payloads = [_data(40 + r, (n_in or sum(counts[r]),), kind)
+                for r in range(NP)]
     want = _jax_alltoallv(comm8, payloads, counts, chunk_bytes=chunk_bytes,
-                          bidirectional=bidirectional)
+                          bidirectional=bidirectional, **layout)
+    xs = [_torch(x) for x in payloads]
     alltoall.reset_counts()
-    got = alltoall.hbm_alltoallv([torch.from_numpy(x) for x in payloads],
-                                 counts, chunk_bytes=chunk_bytes,
-                                 bidirectional=bidirectional)
+    got = alltoall.hbm_alltoallv(xs, counts, chunk_bytes=chunk_bytes,
+                                 bidirectional=bidirectional, **layout)
     assert alltoall.PLAIN_CALLS["hbm_alltoallv"] == 1
     assert alltoall.LAUNCHES["hbm_alltoallv"] == 0
+    plan = alltoall._VPlan(xs, counts, layout.get("sdispls"),
+                           layout.get("rdispls"), layout.get("out_len"), "t")
+    rows = alltoall.tile_table(plan, xs[0].element_size(), tile_bytes)
+    replay = _replay_tiles(xs, plan, rows)
     for j in range(NP):
-        recv = sum(counts[r][j] for r in range(NP))
-        assert got[j].numel() == recv              # own receive length
-        np.testing.assert_array_equal(got[j].numpy(), want[j, :recv])
+        recv = layout.get("out_len") or sum(counts[r][j] for r in range(NP))
+        written = np.zeros(recv, bool)
+        for r in range(NP):
+            d = plan.rd[j][r]
+            written[d:d + counts[r][j]] = True
+        for out in (got[j], replay[j]):
+            assert out.numel() == recv             # own receive length
+            np.testing.assert_array_equal(_bits(out)[written],
+                                          _np_bits(want[j, :recv])[written])
+            assert not _bits(out)[~written].any()
 
 
 def test_alltoallv_layouts_and_lowerings_agree():
@@ -202,13 +300,70 @@ def test_helpers_match():
     for counts in (jax_routing(8, 24, "hot"), jax_routing(8, 64, "skew"),
                    jax_routing(3, 9, "uniform"), _sparse(),
                    [[0] * 4 for _ in range(4)]):
-        p = len(counts)
-        for chunk in (1, 4, 16, 1 << 20):
-            for s in range(1, p):
-                assert alltoall._step_wire(counts, s, chunk) == \
-                    pallas_alltoall._step_wire(counts, s, chunk)
         assert alltoall.packed_displs(counts) == \
             pallas_alltoall.packed_displs(counts)
+
+
+@pytest.mark.parametrize("esize", [1, 2, 4])
+@pytest.mark.parametrize("shape,tile_bytes", [
+    (shape, tb) for shape in ("hot", "skew", "uniform", "sparse", "spread",
+                              "multi")
+    for tb in (16, 48, alltoall.TILE_BYTES)] + [
+    ("moe_hot", alltoall.TILE_BYTES)])
+def test_tiles_cover_each_pair_once(shape, tile_bytes, esize):
+    """K11's tile table: every tile lies inside one pair, at most
+    ``tile_bytes`` long, with its source and destination offsets moved
+    together; the tiles of a pair cover it exactly once, in order; empty
+    pairs have none; a tile's vec says whether both offsets and its
+    length are whole 16-byte words. "moe_hot" is the MoE dispatch at
+    4096 tokens x 4096 elements."""
+    if shape == "moe_hot":
+        counts = [[c * 4096 for c in row]
+                  for row in jax_routing(NP, 4096, "hot")]
+        layout = {}
+    else:
+        counts, layout = _matrix(shape)
+    n_in = [max(layout["sdispls"][r][j] + counts[r][j] for j in range(NP))
+            if layout else sum(counts[r]) for r in range(NP)]
+    xs = [torch.empty(n, dtype={1: torch.int8, 2: torch.int16,
+                                4: torch.int32}[esize]) for n in n_in]
+    plan = alltoall._VPlan(xs, counts, layout.get("sdispls"),
+                           layout.get("rdispls"), layout.get("out_len"), "t")
+    rows = alltoall.tile_table(plan, esize, tile_bytes)
+    step = tile_bytes // esize
+    covered = {}
+    for sr, so, dr, do, n, vec in rows:
+        s0, d0 = plan.sd[sr][dr], plan.rd[dr][sr]
+        assert 0 < n <= step
+        assert s0 <= so and so + n <= s0 + counts[sr][dr]
+        assert do - d0 == so - s0
+        assert vec == all(v * esize % 16 == 0 for v in (so, do, n))
+        covered.setdefault((sr, dr), []).append((so - s0, n))
+    for r in range(NP):
+        for j in range(NP):
+            spans = covered.get((r, j), [])
+            assert bool(spans) == bool(counts[r][j])
+            at = 0
+            for off, n in spans:
+                assert off == at
+                at += n
+            assert at == counts[r][j]
+    if shape == "moe_hot":
+        assert all(vec for *_, vec in rows)   # every MoE tile is words
+
+
+def test_overlapping_receives_raise():
+    """Explicit receive ranges that overlap raise (MPI requires them
+    disjoint; K11's tiles store in no set order)."""
+    counts = [[2] * NP for _ in range(NP)]
+    xs = [torch.arange(2 * NP, dtype=torch.int32) for _ in range(NP)]
+    sd = [[2 * j for j in range(NP)] for _ in range(NP)]
+    rd = [[2 * j for j in range(NP)] for _ in range(NP)]
+    assert len(alltoall.hbm_alltoallv(xs, counts, sdispls=sd,
+                                      rdispls=rd)) == NP
+    rd[3][5] = 2 * 4 + 1                   # into rank 4's range at rank 3
+    with pytest.raises(ValueError, match="overlap"):
+        alltoall.hbm_alltoallv(xs, counts, sdispls=sd, rdispls=rd)
 
 
 def test_planned_a2a_tier_matches(env):

@@ -81,6 +81,10 @@ def _data(seed, shape, kind, op="sum"):
         return rng.integers(-1000, 1000, size=shape).astype(np.float32)
     if kind == "int32":
         return rng.integers(-2**31, 2**31 - 1, size=shape, dtype=np.int32)
+    if kind == "int8":
+        return rng.integers(-128, 128, size=shape).astype(np.int8)
+    if kind == "bf16":
+        return rng.normal(size=shape).astype(jnp.bfloat16)
     raise ValueError(kind)
 
 
@@ -155,21 +159,30 @@ def test_all_reduce_unsigned_matches_jax(comm8, np_dtype, op):
 # K5 against the JAX kernel
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shard,chunk_bytes,bidirectional", [
-    (13, 16, True), (13, 16, False), (6, 1 << 20, True)])
-def test_all_gather_parity(comm8, shard, chunk_bytes, bidirectional):
-    xv = _data(60 + shard, (NP, shard), "int32")
+@pytest.mark.parametrize("shard,chunk_bytes,bidirectional,kind", [
+    (13, 16, True, "int32"), (13, 16, False, "int32"),
+    (6, 1 << 20, True, "int32"), (13, 16, True, "bf16"),
+    (16, 8, False, "int8")])
+def test_all_gather_parity(comm8, shard, chunk_bytes, bidirectional, kind):
+    xv = _data(60 + shard, (NP, shard), kind)
     want = comm8.run(lambda s: pallas_ici.hbm_ring_all_gather(
         s, "x", NP, chunk_bytes=chunk_bytes, bidirectional=bidirectional,
         interpret=True, credits=False), jnp.asarray(xv.reshape(-1)),
         out_specs=P("x"))
     want = np.asarray(want).reshape(NP, NP * shard)
     ici.reset_counts()
-    got = ici.hbm_ring_all_gather([torch.from_numpy(r) for r in xv],
-                                  chunk_bytes=chunk_bytes,
+    if kind == "bf16":
+        rows = [torch.from_numpy(r.view(np.int16)).view(torch.bfloat16)
+                for r in xv]
+    else:
+        rows = [torch.from_numpy(r) for r in xv]
+    got = ici.hbm_ring_all_gather(rows, chunk_bytes=chunk_bytes,
                                   bidirectional=bidirectional)
     assert ici.PLAIN_CALLS["hbm_ring_all_gather"] == 1
-    np.testing.assert_array_equal(got.numpy(), want)
+    iv = {1: (torch.int8, np.int8), 2: (torch.int16, np.int16),
+          4: (torch.int32, np.int32)}[got.element_size()]
+    np.testing.assert_array_equal(got.view(iv[0]).numpy(),
+                                  want.view(iv[1]))
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,10 @@ in the ring's order and K7 copies each shard into every row. CPU models
 of their loops (``_model_fold``, ``_model_gather``, unit by unit as
 csrc/ring.cu walks them) are held bitwise against the plain versions,
 which the JAX parity tests above hold against the JAX kernels in f32,
-int32, bf16, f16 and int8."""
+int32, bf16, f16 and int8. The same gather kernel runs K5 of
+ops/ici.py over several rings at once; ``_model_gather`` over lines is
+held against ``ici.hbm_ring_all_gather_ref``, which
+tests/test_torch_ici.py holds against the JAX K5."""
 
 import numpy as np
 import pytest
@@ -30,7 +33,7 @@ from jax.sharding import PartitionSpec as P
 
 from mvapich2_tpu.ops import pallas_ring
 from mvapich2_tpu.parallel import MeshComm, make_mesh as jax_make_mesh
-from mvapich2_tpu_torch.ops import ring
+from mvapich2_tpu_torch.ops import ici, ring
 
 NP = 8
 
@@ -274,18 +277,27 @@ def _model_fold(x, vec, carry_f32=False):
     return acc.to(x.dtype).reshape(1, n).expand(p, n).clone()
 
 
-def _model_gather(x, vec):
-    """K7's loop over ``x`` of shape (p, m): unit u of every output row
-    is unit u - q*mu of shard q = u // mu, loaded once and stored into
-    every rank's row."""
-    p, m = x.shape
+def _model_gather(x, vec, lines=1):
+    """K7's and K5's loop over ``x`` of shape (lines*p, m), on the bit
+    patterns: unit u of lines*p*mu is unit u - s*mu of shard s = u // mu
+    (= g*p + q of line g), loaded once and stored at unit u - g*p*mu of
+    the p rows of line g."""
+    rows, m = x.shape
+    p = rows // lines
     v = 16 // x.element_size() if vec else 1
     assert m % v == 0             # the vector path's condition
-    u, _ = _units(p * m, v)
+    xb = torch.from_numpy(_bits(x))
+    u, _ = _units(rows * m, v)
     mu = m // v
-    q = u // mu
-    cols = (u - q * mu)[:, None] * v + torch.arange(v)
-    return x[q[:, None], cols].reshape(1, p * m).expand(p, p * m).clone()
+    sh = u // mu
+    first = sh // p * p
+    lane = torch.arange(v)
+    vals = xb[sh[:, None], (u - sh * mu)[:, None] * v + lane]
+    out = torch.zeros((rows, p * m), dtype=xb.dtype)
+    at = (u - first * mu)[:, None] * v + lane
+    for r in range(p):
+        out[(first + r)[:, None], at] = vals
+    return out.numpy()
 
 
 @pytest.mark.parametrize("kind", sorted(DIRECT_KINDS))
@@ -311,7 +323,21 @@ def test_direct_gather_map_is_the_rings(p, kind):
         x = _kind_data(p * 200 + m, (p, m), kind)
         want = _bits(ring.ring_all_gather_ref(x))
         for vec in paths:
-            np.testing.assert_array_equal(_bits(_model_gather(x, vec)),
+            np.testing.assert_array_equal(_model_gather(x, vec), want)
+
+
+@pytest.mark.parametrize("kind", sorted(DIRECT_KINDS))
+@pytest.mark.parametrize("lines", [1, 2, 4])
+@pytest.mark.parametrize("p", [2, 3, 4])
+def test_direct_gather_map_over_lines_is_k5s(p, lines, kind):
+    """K5's (line, shard, unit) -> rows map (K7's kernel over ``lines``
+    rings of p, shards line-major) is the ring replay line by line, on
+    the vector path (32 elements a shard) and the scalar one (also 7)."""
+    for m, paths in ((32, (True, False)), (7, (False,))):
+        x = _kind_data(p * 300 + lines * 10 + m, (lines * p, m), kind)
+        want = _bits(ici.hbm_ring_all_gather_ref(x, lines=lines))
+        for vec in paths:
+            np.testing.assert_array_equal(_model_gather(x, vec, lines),
                                           want)
 
 
