@@ -13,8 +13,10 @@ non-zero, printing no result, without them. Phases:
 3. kernels: each kernel held against its plain PyTorch version on the
    card (bitwise on integer data, within stated tolerances otherwise),
    at small, ragged and full size: the slot kernels K1/K2, then the ring
-   kernels K3/K5 at pipeline depth 2/3/4, one and two ring directions,
-   and the four ops on K3, K5 (the direct gather) bit for bit on f32,
+   kernels: K3 (the direct fold) bit for bit on nine dtypes and the four
+   ops, one and two ring directions, its vector and scalar paths, p up
+   to 64, 2 and 4 lines, NaN and signed zeros under max and min, and 8 x
+   64 MiB f32 on both paths; K5 (the direct gather) bit for bit on f32,
    i32, i16, i8 and u8, shards at element offset 1, over 1 and 2 lines
    up to 8 x 64 MiB, and the direct K6/K7 bit for bit at p = 2, 3,
    5, 8 and 64 on eight dtypes, on their vector and scalar paths (blocks
@@ -72,7 +74,7 @@ non-zero, printing no result, without them. Phases:
    16-byte vector, misaligned disp, partial tail chunks, chunk_bytes 16
    and the default, depth 2/3/4, origin == target at p = 2 and 8, and
    N - 7 elements at disp 5 of a 64 MiB-a-rank window; the direct copy
-   of K12/K13 on f32, bf16 and i8 at every disp residue mod 16 bytes,
+   of K12/K13/K17 on f32, bf16 and i8 at every disp residue mod 16 bytes,
    sources at offset 0 and 1, counts around the vector width and one
    grid-stride pass; K12, K14 and K17 with a source that overlaps the
    target range, against the plain versions on a cloned source; the
@@ -119,8 +121,8 @@ non-zero, printing no result, without them. Phases:
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
-only phases 1 and 2, then the launch-shape sweeps of the ring kernels
-(``phase_sweep``: K3) and of the K12/K13 copy (``phase_copy_sweep``),
+only phases 1 and 2, then the launch-shape sweeps of the streaming ring
+(``phase_sweep``: K4) and of the K12/K13 copy (``phase_copy_sweep``),
 which chose the launch shapes in ``coll/tuning.py``, and of K11's tile
 size (``phase_tile_sweep``), which chose ``alltoall.TILE_BYTES``.
 """
@@ -146,16 +148,21 @@ HALF_TOL = dict(rtol=1e-2, atol=1e-2)  # 16-bit floats: one rounding of an f32 s
 F32_PEAK_TFLOPS = 67.0
 SOURCES = ("hbm_slot", "ring", "flash")   # mvapich2_tpu_torch/csrc/<name>.cu
 # ring kernels whose registers and spills [build] prints
-REG_REPORT = ("hbm_ring_all_reduce", "hbm_ring_reduce_scatter",
-              "remote_sendrecv")
+REG_REPORT = ("hbm_ring_reduce_scatter", "remote_sendrecv")
 # element types of the K12/K13 copy and K11 instances, as their names
 # mangle them
 COPY_TYPES = {"j": "u32", "t": "u16", "h": "u8"}
-# the K6/K7/K5 instances whose registers [build] prints: f32 on both
-# paths, the gather's word and 4-byte element
-DIRECT_TYPES = {"ff": "float, float", "f5uint4": "float, uint4",
-                "5uint4": "uint4", "j": "u32"}
+# the K3/K6 and K7/K5 instances whose registers [build] prints: the f32
+# fold on both paths (sum; max too on the word path, with its NaN
+# branch), the gather's word and 4-byte element
+DIRECT_TYPES = {"ffLi0": "float, float, sum",
+                "f5uint4Li0": "float, uint4, sum",
+                "f5uint4Li1": "float, uint4, max", "5uint4": "uint4",
+                "j": "u32"}
 RMA_KINDS = ("f32", "bf16", "f16", "i32", "i8", "u8", "u16", "u32")
+# the nine dtypes of K3's fold, and its float ones with their torch names
+K3_KINDS = ("f32", "f16", "bf16", "i32", "i16", "i8", "u8", "u16", "u32")
+K3_FLOATS = {"f32": "float32", "f16": "float16", "bf16": "bfloat16"}
 # integer kinds compared bit for bit; uint16/uint32 have their plain
 # versions run on the CPU (torch's CUDA build implements few operations
 # for them) and are compared through a same-width signed view
@@ -220,7 +227,7 @@ def phase_build(_build):
         log(f"[build] {name}.cu: {len(regs)} kernel instantiations "
             f"(ptxas e.g.: {regs[0] if regs else 'n/a'})")
         # the residency of the quant kernels and of the f32 sum
-        # instances of K3/K4/K5 and K8: registers and spills an entry
+        # instances of K3-K8: registers and spills an entry
         entry = None
         for ln in lines:
             if "Compiling entry function" in ln:
@@ -370,13 +377,17 @@ def _shards(torch, np, rng, p, n, kind, dev):
 
 def phase_ring_kernels(torch, np, ici, ring, dev):
     """K3, K5, K6 and K7 against their plain versions (which replay the
-    same ring schedule): small, ragged and full sizes, pipeline depth
-    2/3/4, one and two ring directions, the four ops on K3; K5 bit for
-    bit on f32, i32, i16, i8 and u8, shards aligned and at element
-    offset 1, over 1 and 2 lines, up to 8 x 64 MiB; K6 and K7 bit for
-    bit at p = 2, 3, 5, 8 and 64, on every dtype class, on their vector
-    and scalar paths. Returns the max abs error of the full-size f32
-    checks per kernel."""
+    same ring schedule). K3 (the direct fold) bit for bit on all nine
+    dtypes and four ops, one and two ring directions, ragged n (the
+    scalar path) and n whose blocks and halves are whole 16-byte words
+    (the vector path), shards at element offset 1, p = 2, 3, 5, 8 and
+    64, 2 and 4 lines, NaN and signed zeros under max and min, and 8 x
+    64 MiB f32 on both paths (n = N - 3 and shards at offset 1 take the
+    scalar one); K5 bit for bit on f32, i32, i16, i8 and u8, shards
+    aligned and at element offset 1, over 1 and 2 lines, up to 8 x 64
+    MiB; K6 and K7 bit for bit at p = 2, 3, 5, 8 and 64, on every dtype
+    class, on their vector and scalar paths. Returns the max abs error
+    of the full-size f32 checks per kernel."""
     rng = np.random.default_rng(SEED + 100)
     n_checks = 0
     full_err = {}
@@ -390,36 +401,98 @@ def phase_ring_kernels(torch, np, ici, ring, dev):
         if key:
             full_err[key] = err
 
-    # K3: small / ragged (n % p != 0, a short last chunk) / full size;
-    # uint16/uint32 (values past 2^15 and 2^31 in max and min) against
-    # their plain versions on the CPU
-    small_kinds = ("f32int", "i32", "f32", "bf16", "i8", "u8", "u16",
-                   "u32")
-    for p, n in ((8, 64), (8, 37), (3, 10), (2, 9), (8, 1000)):
-        for kind in small_kinds:
-            xs = _shards(torch, np, rng, p, n, kind, dev)
-            xp = [x.cpu() for x in xs] if kind in ("u16", "u32") else xs
-            for op in ("sum", "max", "min", "prod"):
-                check(f"K3 p={p} n={n} {kind} {op}",
-                      ici.hbm_ring_all_reduce(xs, op, chunk_bytes=64),
-                      ici.hbm_ring_all_reduce_ref(xp, op), kind)
-    for n, cb in ((100003, 4096), (8 * 3584, 4096), (100003, None)):
-        for kind in ("f32int", "f32"):
-            xs = _shards(torch, np, rng, R, n, kind, dev)
-            for depth in (2, 3, 4):
+    def check_bits(what, got, want, key=None, nan=False):
+        """Bit for bit through a same-width integer view; ``nan``: every
+        NaN taken as one pattern first (a NaN's payload is the card's
+        arithmetic, not the fold order; where NaNs and signed zeros land
+        is the fold order's)."""
+        want = want.to(got.device)
+        iv = {1: torch.int8, 2: torch.int16,
+              4: torch.int32}[got.element_size()]
+        gb, wb = got.view(iv), want.view(iv)
+        if nan:
+            gb = gb.masked_fill(got.isnan(), -1)
+            wb = wb.masked_fill(want.isnan(), -1)
+        check(what, gb, wb, "i32", key)
+
+    def offset_shards(p, n, kind, off):
+        x = _data(torch, np, rng, (p, n + off), kind, dev)
+        return [x[r].clone()[off:off + n] for r in range(p)]
+
+    def plain_side(xs, kind):
+        return [x.cpu() for x in xs] if kind in ("u16", "u32") else xs
+
+    def nan_zero_shards(p, n, kind):
+        """Values from {-1, -0.0, +0.0, 1, NaN}."""
+        pool = np.array([-1.0, -0.0, 0.0, 1.0, np.nan], np.float32)
+        x = torch.from_numpy(pool[rng.integers(0, 5, size=(p, n))]).to(
+            dev, getattr(torch, K3_FLOATS[kind]))
+        return [x[r].clone() for r in range(p)]
+
+    # K3: every dtype and op, both directions, on the vector path (blocks
+    # of 32 or 64, halves of 16 or 32: whole words at every width), the
+    # scalar path (a ragged n; a short last block; shards at offset 1)
+    # and p up to the kernel's 64 ranks (eight of its load groups)
+    ops = ("sum", "max", "min", "prod")
+    for p, n, off in ((8, 8 * 32, 0), (8, 8 * 32, 1), (8, 37, 0),
+                      (3, 10, 0), (2, 9, 0), (5, 5 * 64, 0),
+                      (5, 5 * 64 - 3, 0), (64, 64 * 32, 0), (64, 1000, 0)):
+        for kind in K3_KINDS:
+            xs = offset_shards(p, n, kind, off)
+            xp = plain_side(xs, kind)
+            for op in ops:
                 for bidir in (True, False):
-                    check(f"K3 n={n} chunk={cb} {kind} depth={depth} "
-                          f"bidir={bidir}",
-                          ici.hbm_ring_all_reduce(
-                              xs, chunk_bytes=cb, depth=depth,
-                              bidirectional=bidir),
-                          ici.hbm_ring_all_reduce_ref(
-                              xs, bidirectional=bidir), kind)
+                    check_bits(f"K3 p={p} n={n} off={off} {kind} {op} "
+                               f"bidir={bidir}",
+                               ici.hbm_ring_all_reduce(
+                                   xs, op, bidirectional=bidir),
+                               ici.hbm_ring_all_reduce_ref(
+                                   xp, op, bidirectional=bidir))
+    # K3 under max and min with NaNs and ties of -0.0 and +0.0
+    for p, n in ((8, 8 * 32), (8, 37), (64, 64 * 32)):
+        for kind in K3_FLOATS:
+            xs = nan_zero_shards(p, n, kind)
+            for op in ("max", "min"):
+                for bidir in (True, False):
+                    check_bits(f"K3 NaN/-0 p={p} n={n} {kind} {op} "
+                               f"bidir={bidir}",
+                               ici.hbm_ring_all_reduce(
+                                   xs, op, bidirectional=bidir),
+                               ici.hbm_ring_all_reduce_ref(
+                                   xs, op, bidirectional=bidir), nan=True)
+    # K3 over 2 and 4 lines on both paths (the per-axis allreduce of a
+    # multi-axis mesh below DEV_TIER_AXES_MIN)
+    for lines in (2, 4):
+        for n in (1024, 1001):
+            for kind in ("f32", "bf16", "i8", "u16"):
+                xs = _shards(torch, np, rng, R, n, kind, dev)
+                xp = plain_side(xs, kind)
+                for op in ops:
+                    for bidir in (True, False):
+                        check_bits(f"K3 lines={lines} n={n} {kind} {op} "
+                                   f"bidir={bidir}",
+                                   ici.hbm_ring_all_reduce(
+                                       xs, op, bidirectional=bidir,
+                                       lines=lines),
+                                   ici.hbm_ring_all_reduce_ref(
+                                       xp, op, bidirectional=bidir,
+                                       lines=lines))
+    # K3 at the mesh path's 8 x 64 MiB f32, normal and integer-valued
     for kind in ("f32int", "f32"):
         xs = _shards(torch, np, rng, R, N, kind, dev)
-        check(f"K3 full {kind}", ici.hbm_ring_all_reduce(xs),
-              ici.hbm_ring_all_reduce_ref(xs), kind,
-              "K3" if kind == "f32" else None)
+        check_bits(f"K3 full {kind}", ici.hbm_ring_all_reduce(xs),
+                   ici.hbm_ring_all_reduce_ref(xs),
+                   "K3" if kind == "f32" else None)
+        del xs
+    # K3's scalar path at that size, over many grid-stride passes: a
+    # ragged n (blocks of no whole words) and shards at element offset 1
+    for n, off in ((N - 3, 0), (N, 1)):
+        xs = offset_shards(R, n, "f32", off)
+        for op in ("sum", "max"):
+            check_bits(f"K3 full scalar n={n} off={off} {op}",
+                       ici.hbm_ring_all_reduce(xs, op, bidirectional=True),
+                       ici.hbm_ring_all_reduce_ref(xs, op,
+                                                   bidirectional=True))
         del xs
     # K5 (the direct gather; chunk, depth and direction shape nothing on
     # the card): f32, i32 and the narrow widths, shards of whole 16-byte
@@ -458,18 +531,6 @@ def phase_ring_kernels(torch, np, ici, ring, dev):
     # length; shards that are views at element offset 1 (no shard
     # aligned), so the scalar path runs too; then the mesh path's
     # 64 KiB and the 4 MiB limit. uint16/uint32 plain versions on the CPU
-    def check_bits(what, got, want, key=None):
-        iv = {1: torch.int8, 2: torch.int16,
-              4: torch.int32}[got.element_size()]
-        check(what, got.view(iv), want.to(got.device).view(iv), "i32", key)
-
-    def offset_shards(p, n, kind, off):
-        x = _data(torch, np, rng, (p, n + off), kind, dev)
-        return [x[r].clone()[off:off + n] for r in range(p)]
-
-    def plain_side(xs, kind):
-        return [x.cpu() for x in xs] if kind in ("u16", "u32") else xs
-
     kinds6 = ("f32", "f32int", "i32", "bf16", "f16", "i16", "i8", "u8",
               "u16", "u32")
     kinds7 = ("f32", "i32", "bf16", "f16", "i16", "i8", "u8", "u16", "u32")
@@ -863,7 +924,7 @@ COPY_KINDS = (("f32", 4), ("bf16", 2), ("i8", 1))
 
 
 def _copy_checks(torch, np, rma, ring, dev):
-    """The direct copy of K12 and K13, bitwise, the whole window
+    """The direct copy of K12, K13 and K17, bitwise, the whole window
     compared, on f32, bf16 and i8: every disp residue mod 16 bytes, into
     row 1 of a window whose rows are not 16-byte multiples (so the row
     itself starts misaligned), a put source at offset 0 and 1 element of
@@ -898,10 +959,14 @@ def _copy_checks(torch, np, rma, ring, dev):
         for n, d in cases:
             for off in (0, 1):
                 src = big[off:off + n]
-                got, want = base.clone(), base.clone()
-                rma.rma_put(src, got, 0, 1, d)
+                want = base.clone()
                 rma.rma_put_ref(src, want, 0, 1, d)
-                check(f"K12 {kind} n={n} disp={d} src+{off}", got, want)
+                for key, put in (("K12", rma.rma_put),
+                                 ("K17", rma.direct_put)):
+                    got = base.clone()
+                    put(src, got, 0, 1, d)
+                    check(f"{key} {kind} n={n} disp={d} src+{off}", got,
+                          want)
             got = base.clone()
             out = rma.rma_get(got, n, 0, 1, d)
             check(f"K13 {kind} n={n} disp={d}", out,
@@ -1921,9 +1986,7 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
               inputs, lambda: ici.hbm_ring_all_reduce(inputs),
               lambda: ici.hbm_ring_all_reduce_ref(inputs),
               lambda: torch.stack(inputs).sum(0), p * N, (p - 1) * N,
-              p * (2 * m + (p - 1) * 9 * m / p),
-              "p*(2m + (p-1)*9m/p): init copy, 5m/p a reduce-scatter "
-              "step, 4m/p an all-gather step"),
+              2 * p * m, "2pm: one direct fold, the bound"),
         entry("hbm_ring_all_gather", "K5", "mvapich2_tpu/ops/pallas_ici.py:545",
               ag, lambda: ici.hbm_ring_all_gather(ag),
               lambda: ici.hbm_ring_all_gather_ref(ag),
@@ -1943,6 +2006,12 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
               p * ms_ + p * p * ms_,
               "pm + p*pm: one direct copy, the bound"),
     ]
+    k3 = kernels[0]
+    k3["card_ms"] = _queued_ms(torch, lambda: ici.hbm_ring_all_reduce(inputs))
+    k3["library_card_ms"] = _queued_ms(
+        torch, lambda: torch.stack(inputs).sum(0).expand(p, -1).contiguous())
+    k3["library_one_copy_card_ms"] = _queued_ms(
+        torch, lambda: torch.stack(inputs).sum(0))
     k5 = kernels[1]
     k5["card_ms"] = _queued_ms(torch, lambda: ici.hbm_ring_all_gather(ag))
     k5["library_card_ms"] = _queued_ms(
@@ -1961,6 +2030,10 @@ def phase_ring_times(torch, np, ici, ring, timing, info, inputs, mesh_lat,
              "mesh_e2e_small_allreduce_ms_all": [t * 1e3 for t in lat_small],
              "mesh_e2e_effbw_GBps": 2 * R * m / statistics.median(lat) / 1e9,
              "k6_host_profile": direct["k6_host_profile"]}
+    log(f"[times] K3 8 x 64 MiB f32: card {k3['card_ms']:.4f} ms, library "
+        f"every rank's copy card {k3['library_card_ms']:.4f}, one copy card "
+        f"{k3['library_one_copy_card_ms']:.4f}; K6 8 x 64 KiB f32: card "
+        f"{kernels[2]['card_ms']:.4f} ms")
     log(f"[times] K5 8 x 1 MiB f32: card {k5['card_ms']:.4f} ms, library "
         f"every rank's copy card {k5['library_card_ms']:.4f}; (2, 4) "
         "allreduce phases: " + "; ".join(
@@ -2323,13 +2396,12 @@ def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
     """K12, K13, K14 and K17 at the path's whole-window shape (N f32
     elements, origin 0, target 7, disp 0), by CUDA events, beside their
     bound (2 bytes a payload byte, 3 for the accumulate), their schedule
-    bound (K12/K13/K14 the bound: one direct pass; K17 through the
-    landing buffer, 4 moves), their plain versions and the library
-    call; K12, K13 and K14 also at N - 7 elements at disp 5 (misaligned
-    by 4 bytes against the source), K12 and K13 at one op of 1 KiB and
-    64 KiB (those two queued behind a sleep kernel, ``_queued_ms``), each
-    beside copy_ or add_ on the same tensors; and the OSU band of the
-    path."""
+    bound (the bound: one direct pass each), their plain versions and
+    the library call; K12, K13 and K14 also at N - 7 elements at disp 5
+    (misaligned by 4 bytes against the source), K12 and K13 at one op of
+    1 KiB and 64 KiB (those two queued behind a sleep kernel,
+    ``_queued_ms``), each beside copy_ or add_ on the same tensors; and
+    the OSU band of the path."""
     bw = info.hbm_bw_gbps * 1e9
     gen = torch.Generator(device=dev).manual_seed(SEED + 1100)
     win = torch.randn(R, N, generator=gen, device=dev)
@@ -2356,8 +2428,8 @@ def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
             ("direct_put", "K17", "mvapich2_tpu/rma/device.py:469",
              lambda: rma.direct_put(src, win, 0, t),
              lambda: rma.rma_put_ref(src, win, 0, t),
-             lambda: win[t].copy_(src), 2 * nb, 4 * nb,
-             "4n: read src, write landing, read landing, write window")):
+             lambda: win[t].copy_(src), 2 * nb, 2 * nb,
+             "2n: K12's direct copy, read src, write window")):
         ms = timing.time_ms(fn)
         plain_ms = timing.time_ms(plain, warmup=1, iters=5)
         lib_ms = timing.time_ms(lib)
@@ -3183,8 +3255,10 @@ def phase_attn_profile(torch, ra, ul, lat, data):
     return split
 
 
+# kernel name -> group; K3 runs as ring_all_reduce_direct_kernel, which
+# it shares with K6 (no K6 runs on a 64 MiB call)
 HIER_GROUPS = (("slot_reduce", "K1"), ("ring_reduce_scatter", "K4"),
-               ("ring_all_gather", "K5"), ("hbm_ring_all_reduce", "K3"))
+               ("ring_all_gather", "K5"), ("ring_all_reduce_direct", "K3"))
 
 
 def phase_hier_profile(torch, mvt, dev, inputs, lat):
@@ -3228,11 +3302,12 @@ def phase_hier_profile(torch, mvt, dev, inputs, lat):
 
 
 def phase_sweep(torch, ici, ring, tuning, timing, dev):
-    """The ring kernels' launch-shape sweep (``--sweep``): K3 at 8 ranks
-    x 64 MiB f32 over threads per block x blocks per SM x chunk bytes x
-    pipeline depth, by CUDA events (median of 10 after 2 warm-ups). Every
-    configuration is first held against the plain version (bitwise on
-    integer-valued data). Returns the rows."""
+    """The streaming ring's launch-shape sweep (``--sweep``): K4, the
+    streaming ring that remains (K3 is a direct fold with one launch
+    shape), at 8 ranks x 64 MiB f32 over threads per block x blocks per
+    SM x chunk bytes x pipeline depth, by CUDA events (median of 10
+    after 2 warm-ups). Every configuration is first held against the
+    plain version (bitwise on integer-valued data). Returns the rows."""
     import itertools
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
@@ -3255,11 +3330,11 @@ def phase_sweep(torch, ici, ring, tuning, timing, dev):
                 .float() for _ in range(R)]
 
     x = ints(N)
-    want = ici.hbm_ring_all_reduce_ref(x)
+    want = ici.hbm_ring_reduce_scatter_ref(x)
     for threads, per_sm, cb, depth in itertools.product(
             (256, 512, 1024), (1, 2), (256 << 10, 1 << 20, 4 << 20),
             (2, 4)):
-        record("K3", lambda: ici.hbm_ring_all_reduce(
+        record("K4", lambda: ici.hbm_ring_reduce_scatter(
             x, chunk_bytes=cb, depth=depth), want, threads, per_sm,
             chunk_bytes=cb, depth=depth)
     del x, want
@@ -3352,8 +3427,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
     ap.add_argument("--sweep", action="store_true",
-                    help="run only the launch-shape sweeps of the ring "
-                    "kernels, of the K12/K13 copy and of K11's tile size "
+                    help="run only the launch-shape sweeps of the streaming "
+                    "ring K4, of the K12/K13 copy and of K11's tile size "
                     "(after the device and build phases)")
     args = ap.parse_args(argv)
 

@@ -1,14 +1,14 @@
 // Ring collective kernels for Hopper (sm_90a) over p virtual ranks whose
 // shards share one GPU's memory. One launch covers all p ranks.
 //
-// K3 hbm_ring_all_reduce_kernel  replaces mvapich2_tpu/ops/pallas_ici.py
+// K3 ring_all_reduce_direct_kernel replaces mvapich2_tpu/ops/pallas_ici.py
 //    hbm_ring_all_reduce (Pallas body _hbm_all_reduce_kernel, engine
-//    _RingStreamer). Chunked streaming reduce-scatter then all-gather
-//    over p blocks of nblk elements, the shard padded with the op's
-//    identity; sum, max, min, prod.
+//    _RingStreamer). The streaming ring's result, any n, in both ring
+//    directions, as one direct fold in the ring's order (K6's kernel over
+//    `lines` rings); sum, max, min, prod.
 // K4 hbm_ring_reduce_scatter_kernel replaces pallas_ici.py
-//    hbm_ring_reduce_scatter (body _hbm_reduce_scatter_kernel). K3's
-//    reduce-scatter rounds alone; rank r keeps block r, [ceil(n/p)].
+//    hbm_ring_reduce_scatter (body _hbm_reduce_scatter_kernel). The
+//    streaming reduce-scatter ring; rank r keeps block r, [ceil(n/p)].
 // K5 ring_all_gather_direct_kernel replaces pallas_ici.py
 //    hbm_ring_all_gather (body _hbm_all_gather_kernel). The all-gather
 //    ring's result as one direct copy into every rank's row (K7's kernel
@@ -20,7 +20,8 @@
 //    rank gets its own; one copy a rank, no flags.
 // K6 ring_all_reduce_direct_kernel replaces mvapich2_tpu/ops/pallas_ring.py
 //    ring_all_reduce (body _ring_all_reduce_kernel). The resident sum
-//    ring's result, n % p == 0, as one direct fold in the ring's order.
+//    ring's result, n % p == 0, as one direct fold in the ring's order
+//    (K3's kernel: one line, one direction, sum).
 // K7 ring_all_gather_direct_kernel replaces pallas_ring.py
 //    ring_all_gather (body _ring_all_gather_kernel). The resident gather
 //    ring's result as one direct copy into every rank's row.
@@ -39,7 +40,7 @@
 //    direct copy the other way.
 // K9 quant_ring_all_reduce_kernel replaces mvapich2_tpu/ops/pallas_quant.py
 //    quant_ring_all_reduce (body _quant_rs_kernel, engine _QuantStreamer).
-//    K3's reduce-scatter with the block-scaled codec fused into both
+//    K4's reduce-scatter with the block-scaled codec fused into both
 //    halves of every step, then each rank's own block encoded once.
 // K14 rma_acc_direct_kernel      replaces pallas_rma.py rma_accumulate
 //    (body _acc_kernel), exact wire: MPI_SUM fold of src[n] into the
@@ -47,12 +48,13 @@
 //    rma_acc_quant_direct_kernel is its quantized wire (K14q, _acc_kernel
 //    with quant_block set): K9's codec, encode, decode and fold in
 //    registers.
-// K17 direct_put_kernel          replaces mvapich2_tpu/rma/device.py
-//    pallas_put (body _pallas_put_kernel). Single-shot put through one
-//    landing buffer of n elements.
+// K17 rma_copy_kernel            replaces mvapich2_tpu/rma/device.py
+//    pallas_put (body _pallas_put_kernel). Single-shot put of src[n]
+//    into the target's window row at disp: K12's direct copy, with no
+//    landing buffer and no flag.
 //
-// Translation (K3, K4, K9, K10, K17; the direct kernels K5, K6, K7 and
-// K11-K14q use no landing slot and no credit). A TPU remote DMA into the
+// Translation (K4, K9, K10; the direct kernels K3, K5-K8, K11-K14q and
+// K17 use no landing slot and no credit). A TPU remote DMA into the
 // neighbour's VMEM slot becomes a store into the downstream rank's
 // landing slot in global memory (slots[rank][dir][slot][chunk]); a
 // DMA/REGULAR semaphore becomes a u32 counter in global memory, written
@@ -73,11 +75,10 @@
 // never gets an SM), so the entries launch cooperatively, after lowering
 // B to what fits on the card.
 //
-// Schedule (K3): the JAX one. Reduce-scatter step s: the clockwise
+// Schedule (K4): the JAX one. Reduce-scatter step s: the clockwise
 // lane of rank r sends its partial of block r-s-1 to r+1 and folds the
 // block arriving from r-1 into its block r-s-2 as red(own, incoming);
-// the counter-clockwise lane mirrors with +. All-gather step s: send
-// block r-s, store the arriving block r-s-1. Each step streams the
+// the counter-clockwise lane mirrors with +. Each step streams the
 // lane's span of the block (first half clockwise, second half counter-
 // clockwise when ndir == 2) in chunks: issue chunk c, then drain chunk
 // c-1. One global chunk counter g per lane picks the slot (g mod depth);
@@ -101,21 +102,21 @@
 // undrained, and the landed counter has one writer at a time), and the
 // step ends when the receiver has consumed G + W_s.
 //
-// Schedule (K17): the JAX single-shot put, with only the origin/target
-// pair running: the origin lane stages its share into one landing
-// buffer of n elements and publishes it, one flag per block, no
-// credits; the target lane commits it. Ranks other than the pair are not
-// touched (the JAX kernels' symmetric permutation, where every device
-// runs the same DMA, is a TPU constraint). K12, K13, K14 and K14q have
-// no schedule: one direct pass each (rma_copy_kernel,
-// rma_acc_direct_kernel and rma_acc_quant_direct_kernel, below), nor
-// have K5, K6 and K7 (ring_all_gather_direct_kernel and
-// ring_all_reduce_direct_kernel) or K11 (hbm_alltoallv_direct_kernel).
+// The direct kernels have no schedule: one pass each. K3 and K6
+// (ring_all_reduce_direct_kernel) fold every block in the ring's order,
+// K5 and K7 (ring_all_gather_direct_kernel) copy, K11
+// (hbm_alltoallv_direct_kernel) copies by a tile table, K12, K13 and K17
+// (rma_copy_kernel) copy one range, K14 and K14q (rma_acc_direct_kernel,
+// rma_acc_quant_direct_kernel) fold one range. K17's TPU kernel stages
+// the payload in one landing buffer under a flag because only the target
+// may commit into its own HBM; here the window row is memory that the
+// origin's threads store to, so a put is K12's copy (notes below).
 //
 // Arithmetic: floats fold in float and round to the dtype at every step,
 // integers in 32 bits (uint32 unsigned) and wrap to the dtype, exactly as
-// the JAX kernel's dtype arithmetic; max/min propagate NaN as
-// jnp.maximum does.
+// the JAX kernel's dtype arithmetic; max/min propagate NaN and order
+// -0.0 below +0.0 as jnp.maximum/minimum do (IEEE 754-2019 maximum and
+// minimum).
 //
 // Bound (K9, K14q): bytes as well. For an m-byte f32 shard K9 must read
 // the input once and write the wire output once, m + m/3.9 bytes a rank;
@@ -126,19 +127,19 @@
 // and window, write window), and moves just that: its wire words stay in
 // registers.
 //
-// Bound. Device-memory traffic, not arithmetic: per rank K3 moves about
-// 2m (init copy) + (p-1)(5m/p) (reduce-scatter: read own, write slot,
-// read slot and own, write own) + (p-1)(4m/p) (all-gather) bytes for an
-// m-byte shard, against 2m for "read every input once, write every
-// output once". K4 moves (p-1)(5m/p) with no init copy (the first step
-// sends from the input, the last folds into the output), against
-// m + m/p. K8 moves 2m a rank, its bound. K17 moves 4 bytes a payload
-// byte (read source, write slot, read slot, write destination), against
-// 2; K12 and K13 move 2 and K14 3, their bounds, and K5, K6, K7 and K11
-// move theirs (below). The landing slots (p*ndir*depth*chunk elements)
-// are small enough to stay in the 50 MB L2. K10 moves 2m/p (local block)
-// + (p-1)(4m/p) (read input, write slot, read slot, write output) per
-// rank, against 2m.
+// Bound. Device-memory traffic, not arithmetic: K3 must read every
+// input once and write every rank's row once, 2m a rank for an m-byte
+// shard, and moves just that (the streaming schedule it replaces moved
+// about 2m + (p-1)(9m/p) a rank: an init copy, 5m/p a reduce-scatter
+// step and 4m/p an all-gather step, through the landing slots). K4
+// moves (p-1)(5m/p) with no init copy (the first step sends from the
+// input, the last folds into the output), against m + m/p. K8 moves 2m
+// a rank, its bound. K12, K13 and K17 move 2 bytes a payload byte and
+// K14 3, their bounds (K17's landing buffer moved 4), and K5, K6, K7
+// and K11 move theirs (below). The landing slots (p*ndir*depth*chunk
+// elements) are small enough to stay in the 50 MB L2. K10 moves 2m/p
+// (local block) + (p-1)(4m/p) (read input, write slot, read slot, write
+// output) per rank, against 2m.
 //
 // Spin bound: a wait that outlasts kSpinTimeoutNs writes a nonzero error
 // word into mapped host memory and ends the block; the other blocks then
@@ -220,6 +221,9 @@ __device__ __forceinline__ float apply(float a, float b) {
   if (OP == SUM) return a + b;
   if (OP == PROD) return a * b;
   if (a != a || b != b) return a + b;          // NaN propagates
+  // IEEE 754-2019 maximum/minimum, as XLA folds jnp.maximum/minimum:
+  // -0.0 orders below +0.0, whichever operand holds it
+  if (a == b) return (OP == MAX) == (__float_as_uint(a) >> 31 != 0) ? b : a;
   if (OP == MAX) return a > b ? a : b;
   return a < b ? a : b;
 }
@@ -358,29 +362,6 @@ __device__ void copy_range(T* dst, const T* src, long long cnt, int vec,
   }
 }
 
-// dst[i] = red(dst[i], slot[i])
-template <typename T, int OP>
-__device__ void fold_range(T* dst, const T* slot, long long cnt, int vec) {
-  if (vec) {
-    constexpr int V = 16 / sizeof(T);
-    const long long nv = cnt / V;
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const uint4* s = reinterpret_cast<const uint4*>(slot);
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x) {
-      uint4 a = d[i];
-      const uint4 b = ld_cg(s + i);
-      T* ae = reinterpret_cast<T*>(&a);
-      const T* be = reinterpret_cast<const T*>(&b);
-#pragma unroll
-      for (int k = 0; k < V; ++k) ae[k] = red<T, OP>(ae[k], be[k]);
-      d[i] = a;
-    }
-  } else {
-    for (long long i = threadIdx.x; i < cnt; i += blockDim.x)
-      dst[i] = red<T, OP>(dst[i], ld_cg(slot + i));
-  }
-}
-
 // dst[i] = x[start + i] for start + i < n, else the op identity (the
 // padded tail of the last block).
 template <typename T, int OP>
@@ -422,15 +403,14 @@ __device__ __forceinline__ void share(long long sz, long long full, int b,
 __device__ __forceinline__ int mod(int a, int p) { return ((a % p) + p) % p; }
 
 // ---------------------------------------------------------------------------
-// the streaming engine of K3, K4 and K9 (one block's view of one lane)
+// the streaming engine of K4 and K9 (one block's view of one lane)
 // ---------------------------------------------------------------------------
 
-// One ring step of lane L over its span [lo, hi): every chunk, issue c
-// then drain c-1. L is a Lane<T> or a QuantLane<W>, whose issue and drain
-// carry the chunk's share exactly or through the codec.
+// One reduce-scatter step of lane L over its span [lo, hi): every chunk,
+// issue c then drain c-1. L is an RsLane<T, OP> or a QuantLane<W>, whose
+// issue and drain carry the chunk's share exactly or through the codec.
 template <typename LaneT, int OP>
-__device__ bool ring_step(LaneT& L, long long sb_off, long long rb_off,
-                          bool fold) {
+__device__ bool ring_step(LaneT& L, long long sb_off, long long rb_off) {
   const long long nc = (L.hi - L.lo + L.chunk - 1) / L.chunk;
   for (long long c = 0; c <= nc; ++c) {
     if (c < nc) {
@@ -439,19 +419,20 @@ __device__ bool ring_step(LaneT& L, long long sb_off, long long rb_off,
     }
     if (c >= 1) {
       const long long off = L.lo + (c - 1) * L.chunk;
-      if (!L.template drain<OP>(rb_off, off, min(L.chunk, L.hi - off),
-                                fold))
+      if (!L.template drain<OP>(rb_off, off, min(L.chunk, L.hi - off)))
         return false;
     }
   }
   return true;
 }
 
+// A lane's place in the ring and its slots and counters; RsLane and
+// QuantLane add the issue and drain halves of a step.
 template <typename T>
 struct Lane {
   int p, r, gr, d, ndir, b, B, depth, vec;  // gr: index into RankPtrs
   long long chunk, lo, hi;       // chunk elements; this direction's span
-  T* o;                          // this rank's output (its working buffer)
+  T* o;                          // this rank's working row
   T* slots;                      // [p][ndir][depth][chunk]
   unsigned* landed;              // [p][ndir][B]: chunks landed in a lane
   unsigned* consumed;            // [p][ndir][B]: chunks a lane consumed
@@ -466,48 +447,6 @@ struct Lane {
   __device__ T* slot_ptr(int rank, unsigned g) const {
     return slots + ((static_cast<long long>(rank) * ndir + d) * depth +
                     g % depth) * chunk;
-  }
-
-  // front half: credit, then store share of chunk (off, sz) of block
-  // offset sb_off into the downstream rank's slot, then publish it
-  __device__ bool issue(long long sb_off, long long off, long long sz) {
-    long long s0, s1;
-    share(sz, chunk, b, B, align(), &s0, &s1);
-    const int to = dst();
-    const unsigned g = g_issue;
-    if (g >= static_cast<unsigned>(depth) &&
-        !block_wait(consumed + flag(to), g - depth + 1, err))
-      return false;
-    copy_range(slot_ptr(to, g) + s0, o + sb_off + off + s0, s1 - s0, vec,
-               false);
-    block_signal(landed + flag(to), g + 1);
-    g_issue = g + 1;
-    return true;
-  }
-
-  // back half: wait for the chunk from upstream, fold it into (or store
-  // it at) block offset rb_off, then return the slot's credit
-  template <int OP>
-  __device__ bool drain(long long rb_off, long long off, long long sz,
-                        bool fold) {
-    long long s0, s1;
-    share(sz, chunk, b, B, align(), &s0, &s1);
-    const unsigned g = g_drain;
-    if (!block_wait(landed + flag(r), g + 1, err)) return false;
-    T* mine = o + rb_off + off + s0;
-    const T* src = slot_ptr(r, g) + s0;
-    if (fold)
-      fold_range<T, OP>(mine, src, s1 - s0, vec);
-    else
-      copy_range(mine, src, s1 - s0, vec, true);
-    block_signal(consumed + flag(r), g + 1);
-    g_drain = g + 1;
-    return true;
-  }
-
-  template <int OP>
-  __device__ bool step(long long sb_off, long long rb_off, bool fold) {
-    return ring_step<Lane<T>, OP>(*this, sb_off, rb_off, fold);
   }
 };
 
@@ -539,40 +478,6 @@ __device__ Lane<T> make_lane(int p, long long nblk, long long chunk,
   L.slots = slots; L.landed = landed; L.consumed = consumed; L.err = err;
   L.g_issue = 0; L.g_drain = 0;
   return L;
-}
-
-// K3 (K3 and K4: at most 64 registers a thread, so that a block of 1024
-// threads fits on an SM; the cooperative launch needs one a lane)
-template <typename T, int OP>
-__global__ void __launch_bounds__(1024) hbm_ring_all_reduce_kernel(
-    RankPtrs ptrs, int p, long long n, long long nblk, long long chunk,
-    int depth, int ndir, int B, T* slots, unsigned* landed,
-    unsigned* consumed, int vec, int* err) {
-  const int lane_rank = (blockIdx.x / B) / ndir;
-  Lane<T> L = make_lane<T>(p, nblk, chunk, depth, ndir, B, slots, landed,
-                           consumed, vec, err, ptrs.out[lane_rank]);
-  const T* x = static_cast<const T*>(ptrs.in[L.gr]);
-  // o = x padded with the identity, this block's share of every chunk of
-  // its span of every block (the only elements it ever touches)
-  for (int k = 0; k < p; ++k)
-    for (long long off = L.lo; off < L.hi; off += chunk) {
-      long long s0, s1;
-      share(min(chunk, L.hi - off), chunk, L.b, B, L.align(), &s0, &s1);
-      const long long e = k * nblk + off + s0;
-      init_range<T, OP>(L.o + e, x, e, s1 - s0, n, vec);
-    }
-  __syncthreads();
-  const int r = L.r;
-  for (int s = 0; s < p - 1; ++s) {             // reduce-scatter
-    const int sb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
-    const int rb = L.d == 0 ? mod(r - s - 2, p) : mod(r + s + 2, p);
-    if (!L.template step<OP>(sb * nblk, rb * nblk, true)) return;
-  }
-  for (int s = 0; s < p - 1; ++s) {             // all-gather
-    const int sb = L.d == 0 ? mod(r - s, p) : mod(r + s, p);
-    const int rb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
-    if (!L.template step<OP>(sb * nblk, rb * nblk, false)) return;
-  }
 }
 
 // dst[i] = red(own, slot[i]) with own = x[start + i] for start + i < n,
@@ -609,12 +514,12 @@ __device__ void fold_from(T* dst, const T* x, long long start, long long n,
   }
 }
 
-// K4's lane: K3's reduce-scatter with no init copy. Each block of the
+// K4's lane: the reduce-scatter ring with no init copy. Each block of the
 // working row o is folded once, at the step it is received, from the
-// input itself (red(x, incoming), the value K3's padded copy would hold
-// there) and sent on from o at the next step; the first step sends a
-// block straight from the input, and the last step's fold, into block r,
-// lands in the output. Every CTA drains its own share of block r there,
+// input itself (red(x, incoming), the value an identity-padded copy of
+// the input would hold there) and sent on from o at the next step; the
+// first step sends a block straight from the input, and the last step's
+// fold, into block r, lands in the output. Every CTA drains its own share of block r there,
 // so the copy-out needs no cross-CTA sync.
 template <typename T, int OP>
 struct RsLane : Lane<T> {
@@ -644,8 +549,7 @@ struct RsLane : Lane<T> {
   }
 
   template <int>
-  __device__ bool drain(long long rb_off, long long off, long long sz,
-                        bool) {
+  __device__ bool drain(long long rb_off, long long off, long long sz) {
     long long s0, s1;
     share(sz, this->chunk, this->b, this->B, this->align(), &s0, &s1);
     const unsigned g = this->g_drain;
@@ -661,9 +565,10 @@ struct RsLane : Lane<T> {
   }
 };
 
-// K4. ins[gr]: the input of n elements; outs[gr]: the output block of
-// nblk; work + gr*p*nblk: the working row (p blocks of nblk). The block
-// ids and the chunk-credit schedule are K3's first loop.
+// K4 (at most 64 registers a thread, so that a block of 1024 threads
+// fits on an SM; the cooperative launch needs one a lane). ins[gr]: the
+// input of n elements; outs[gr]: the output block of nblk; work +
+// gr*p*nblk: the working row (p blocks of nblk).
 template <typename T, int OP>
 __global__ void __launch_bounds__(1024) hbm_ring_reduce_scatter_kernel(
     RankPtrs ptrs, int p, long long n, long long nblk, long long chunk,
@@ -683,8 +588,7 @@ __global__ void __launch_bounds__(1024) hbm_ring_reduce_scatter_kernel(
     L.last = s == p - 2;
     const int sb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
     const int rb = L.d == 0 ? mod(r - s - 2, p) : mod(r + s + 2, p);
-    if (!ring_step<RsLane<T, OP>, OP>(L, sb * nblk, rb * nblk, true))
-      return;
+    if (!ring_step<RsLane<T, OP>, OP>(L, sb * nblk, rb * nblk)) return;
   }
 }
 
@@ -851,8 +755,7 @@ struct QuantLane : Lane<float> {
   // decode the landed share and fold it into this rank's partial, then
   // return the slot's credit
   template <int OP>
-  __device__ bool drain(long long rb_off, long long off, long long sz,
-                        bool) {
+  __device__ bool drain(long long rb_off, long long off, long long sz) {
     long long s0, s1;
     share(sz, chunk, b, B, blk, &s0, &s1);
     const unsigned g = g_drain;
@@ -867,7 +770,7 @@ struct QuantLane : Lane<float> {
 
 // K9 (T: the input dtype, f32 or f16). outs[r]: rank r's f32
 // working row of p*nblk elements; wires + r*wblk: rank r's wire output.
-// The reduce-scatter of K3 with the codec in both halves of a step, then
+// The reduce-scatter ring of K4 with the codec in both halves of a step, then
 // the own block encoded once. The CTA that folds a share of the own
 // block on the last step is the one that encodes it.
 template <typename T, int W>
@@ -904,8 +807,7 @@ __global__ void __launch_bounds__(1024) quant_ring_all_reduce_kernel(
   for (int s = 0; s < p - 1; ++s) {
     const int sb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
     const int rb = L.d == 0 ? mod(r - s - 2, p) : mod(r + s + 2, p);
-    if (!ring_step<QuantLane<W>, SUM>(L, sb * nblk, rb * nblk, true))
-      return;
+    if (!ring_step<QuantLane<W>, SUM>(L, sb * nblk, rb * nblk)) return;
   }
   int* w = wires + static_cast<long long>(r) * L.wpos(nblk);
   for (long long off = L.lo; off < L.hi; off += chunk) {
@@ -1034,29 +936,6 @@ __global__ void __launch_bounds__(1024) hbm_alltoall_kernel(RankPtrs ptrs, int p
                                     unsigned* consumed, int* err) {
   a2a_lane<T>(ptrs, UniformPlan{c, chunk}, p, chunk, depth, ndir, B, slots,
               landed, consumed, err);
-}
-
-// ---------------------------------------------------------------------------
-// the direct put K17
-// ---------------------------------------------------------------------------
-
-// K17 (T: an unsigned type of the element's width): the origin lane
-// stages share b of src into the landing buffer and publishes it; the
-// target lane commits it at to = the window row + disp.
-template <typename T>
-__global__ void __launch_bounds__(1024) direct_put_kernel(
-    const T* src, T* to, long long n, int B, T* landing, unsigned* landed,
-    int* err) {
-  const int b = blockIdx.x % B;
-  long long s0, s1;
-  share(n, n, b, B, 16 / sizeof(T), &s0, &s1);
-  if (blockIdx.x < B) {
-    copy_any(landing + s0, src + s0, s1 - s0, false);
-    block_signal(landed + b, 1);
-  } else {
-    if (!block_wait(landed + b, 1, err)) return;
-    copy_any(to + s0, landing + s0, s1 - s0, true);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1215,16 +1094,16 @@ __global__ void __launch_bounds__(1024) rma_copy_kernel(
 // passes and reloads the rest (a block past 128 values); each word is
 // read and written by its lane alone, so the exact alias holds here too.
 
-// The V = 16 / sizeof(T) elements of window word w and source word s,
-// folded pairwise.
-template <typename T>
+// The V = 16 / sizeof(T) elements of words w and s folded pairwise,
+// red<T, OP>(w[j], s[j]).
+template <typename T, int OP>
 __device__ __forceinline__ uint4 fold_word(uint4 w, uint4 s) {
   constexpr int V = 16 / sizeof(T);
   T a[V], b[V];
   memcpy(a, &w, 16);
   memcpy(b, &s, 16);
 #pragma unroll
-  for (int j = 0; j < V; ++j) a[j] = red<T, SUM>(a[j], b[j]);
+  for (int j = 0; j < V; ++j) a[j] = red<T, OP>(a[j], b[j]);
   memcpy(&w, a, 16);
   return w;
 }
@@ -1254,7 +1133,7 @@ __device__ void fold_words(const uint4* from, int shift, uint4* to,
 #pragma unroll
     for (int k = 0; k < kCopyUnroll; ++k) {
       const long long i = base + static_cast<long long>(k) * blockDim.x;
-      if (i < nvec) to[i] = fold_word<T>(w[k], s[k]);
+      if (i < nvec) to[i] = fold_word<T, SUM>(w[k], s[k]);
     }
   }
 }
@@ -1335,62 +1214,87 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K6, K7 and K5: the direct ring kernels
+// K3, K6, K7 and K5: the direct ring kernels
 // ---------------------------------------------------------------------------
 //
 // ring_all_reduce_direct_kernel replaces mvapich2_tpu/ops/pallas_ring.py
 // ring_all_reduce (:214, its pallas_call at :234, body
-// _ring_all_reduce_kernel :147) as K6; ring_all_gather_direct_kernel
-// replaces ring_all_gather (:114, pallas_call :131, body
-// _ring_all_gather_kernel :78) as K7, and mvapich2_tpu/ops/pallas_ici.py
-// hbm_ring_all_gather (:545, pallas_call :566, body
+// _ring_all_reduce_kernel :147) as K6, and mvapich2_tpu/ops/pallas_ici.py
+// hbm_ring_all_reduce (:501, pallas_call :532, body
+// _hbm_all_reduce_kernel :359) as K3, over `lines` rings at once;
+// ring_all_gather_direct_kernel replaces ring_all_gather (:114,
+// pallas_call :131, body _ring_all_gather_kernel :78) as K7, and
+// pallas_ici.py hbm_ring_all_gather (:545, pallas_call :566, body
 // _hbm_all_gather_kernel :436) as K5, over `lines` rings at once.
 //
 // The TPU kernels pass one block a round to the right-hand neighbour
-// through VMEM landing slots under a credit handshake (K5: chunk by
-// chunk, in both ring directions), because a chip reaches its
+// through VMEM landing slots under a credit handshake (K3 and K5: chunk
+// by chunk, in both ring directions), because a chip reaches its
 // neighbour's memory only by remote DMA. On one card every rank's shard
 // is memory that any thread reads, so the rounds, the slots and the
 // credits go (a handshake round cost about 6 us here: 14 rounds a K6
 // call at p = 8). A gather's result does not depend on the schedule:
 // every row of a ring is the concatenation of its shards. The one
-// property of the ring
-// that the result depends on is its fold order. The reduce-scatter of
-// pallas_ring.py:170-181 folds red(own, incoming) at rank b + j in round
-// j - 2, so block b ends as
+// property of the ring that the result depends on is its fold order.
+//
+// The fold order (ops/ring.py ring_replay, the plain versions' engine,
+// is the spec). The shard is cut into p blocks of nblk = ceil(n/p)
+// elements, the last padded with the op's identity. In reduce-scatter
+// step s (0..p-2) the clockwise lane of rank r folds the block arriving
+// from r-1 into its block b = r-s-2 as red(own, incoming); rank r never
+// folds its block r-1, which it sends in step 0 as it is. So block b
+// starts as x[b+1] at rank b+1, rank b+1+k folds its own x[b+1+k] into
+// it in step k-1, and after step p-2 it rests at rank b+p = b as
 //     x[b] + (x[b-1] + (... + (x[b+2] + x[b+1]))),   ranks mod p,
-// every partial rounded to T (ops/ring.py ring_replay is the spec). K6
-// computes that closed form element by element: acc = x[b+1][i], then
-// acc = red(x[b+j][i], acc) for j = 2..p, in T's arithmetic (f16 and
-// bf16 round at every step, as the ring stores each partial; integers
-// wrap), and stores acc into every rank's row. K7 and K5 load each word
-// of each shard once and store it into every row of its ring. No thread
-// waits
-// for another, so the launch is a plain one: the grid min(one pass, the
-// blocks that fit at once), the fit counted once per device, kernel and
-// block size (direct_fit).
+// every partial rounded to T. The counter-clockwise lane mirrors with +
+// (rank r folds the block from r+1 into its block r+s+2), so its part
+// ends as x[b] + (x[b+1] + (... + x[b-1])). The all-gather steps only
+// copy: in step s rank r stores block r-s-1 (r+s+1) from r-1 (r+1),
+// which that rank holds finished, so every rank's row ends as the
+// finished blocks. A block's elements [0, h), h = (nblk+1)/2, travel
+// clockwise and [h, nblk) counter-clockwise when ndir == 2, else all
+// clockwise (ops/ici.py _block_spans). Elementwise, then: element i of a
+// ring's shards (block b = i / nblk, offset j = i - b*nblk) is
+//     clockwise (ndir == 1 or j < h): acc = x[b+1][i], then
+//         acc = red(x[b+k][i], acc) for k = 2..p;
+//     counter-clockwise: acc = x[b-1][i], then acc = red(x[b-k][i], acc),
+// ranks mod p, in T's arithmetic (f16 and bf16 round at every step, as
+// the ring stores each partial; integers wrap; max and min keep the
+// ring's (own, acc) operand order, which decides a NaN's payload, and
+// give a zero the sign jnp.maximum/minimum give it, whatever the order),
+// and acc is stored into every row of the ring. The
+// fold never reads an element at or past n, so the identity padding
+// never reaches a stored element and the kernel needs none: the last
+// block is simply short. K6 is the case lines = 1, ndir = 1, n % p == 0,
+// sum. K7 and K5 load each word of each shard once and store it into
+// every row of its ring. No thread waits for another, so the launch is a
+// plain one: the grid min(one pass, the blocks that fit at once), the fit
+// counted once per device, kernel and block size (direct_fit).
 //
-// A unit is a 16-byte word on the vector path (W = uint4; taken when
-// every input pointer and output row is 16-byte aligned and the block,
-// or the shard, is a multiple of V = 16 / sizeof(T) elements, so that no
-// word straddles two blocks or two shards) or one element (W = T). Unit
-// u of every output row is unit u of every shard (K6) or unit u - q*mu
-// of shard q (K7); with lines, unit u of lines*p*mu belongs to shard
-// s = u / mu = g*p + q of line g and goes to unit u - g*p*mu of the p
-// rows of line g (K5; K7 is lines = 1). Neighbouring threads store to
-// neighbouring words. K5 has no 4 MiB ceiling (a 64 MiB shard is 4 Mi
-// words), so offsets are 64-bit throughout.
-// Sources are read through the read-only path (ld.global.nc): the
-// output is a fresh allocation that never aliases an input. K6 loads its
-// p source words in groups of kFoldGroup before it folds each group: the
-// loads of a group are in flight together, and p up to kMaxRanks needs
-// no more than kFoldGroup words of registers.
+// A unit is a 16-byte word on the vector path (W = uint4) or one element
+// (W = T). The fold takes the vector path when every input pointer and
+// output row is 16-byte aligned and n, nblk and (ndir == 2) h are
+// multiples of V = 16 / sizeof(T), so that no word straddles two blocks,
+// the half point or the end; the gather when the shard is a multiple of
+// V. Unit k of a row of line g is unit k of every shard of line g (K3,
+// K6; unit u of lines*nu is unit k = u - g*nu of line g = u / nu); for the
+// gather, unit u of lines*p*mu belongs to shard s = u / mu = g*p + q of
+// line g and goes to unit u - g*p*mu of the p rows of line g (K5; K7 is
+// lines = 1). Neighbouring threads store to neighbouring words of each
+// row. K3 and K5 have no 4 MiB ceiling (a 64 MiB shard is 4 Mi words), so
+// offsets are 64-bit throughout. Sources are read through the read-only
+// path (ld.global.nc): the output is a fresh allocation that never
+// aliases an input. The fold loads its p source words in groups of
+// kFoldGroup before it folds each group: the loads of a group are in
+// flight together, and p up to kMaxRanks needs no more than kFoldGroup
+// words of registers.
 //
-// Bound: bytes. K6 reads p*n and writes p*n elements (0.0003 ms at 8 x
-// 64 KiB f32, 0.020 ms at 8 x 4 MiB, over 3.35 TB/s); K7 and K5 read
-// lines*p*m and write lines*p*p*m (0.0014 ms at 8 x 64 KiB, 0.0113 ms at
-// 8 x 512 KiB, 0.0225 ms at 8 x 1 MiB). At 64 KiB K6 and K7 are bound by
-// the launch.
+// Bound: bytes. K3 and K6 read lines*p*n and write lines*p*n elements
+// (K3: 0.3205 ms at 8 x 64 MiB f32; K6: 0.0003 ms at 8 x 64 KiB f32,
+// 0.020 ms at 8 x 4 MiB, over 3.35 TB/s); the (p-1) operations an element
+// stay far below the f32 rate. K7 and K5 read lines*p*m and write
+// lines*p*p*m (0.0014 ms at 8 x 64 KiB, 0.0113 ms at 8 x 512 KiB, 0.0225
+// ms at 8 x 1 MiB). At 64 KiB K6 and K7 are bound by the launch.
 
 constexpr int kFoldGroup = 8;
 
@@ -1412,40 +1316,50 @@ template <typename W> __device__ __forceinline__ W ld_nc(const W* p) {
 }
 
 // red(x, acc) over a unit: one element, or the V elements of a word.
-template <typename T, typename W>
+template <typename T, int OP, typename W>
 __device__ __forceinline__ W fold_unit(W x, W acc) {
   if constexpr (std::is_same<W, T>::value)
-    return red<T, SUM>(x, acc);
+    return red<T, OP>(x, acc);
   else
-    return fold_word<T>(x, acc);
+    return fold_word<T, OP>(x, acc);
 }
 
-// K6 (W: T, or uint4 on the vector path). per_blk: units a block;
-// units: units a shard, p * per_blk.
-template <typename T, typename W>
+// K3 and K6 (W: T, or uint4 on the vector path). `lines` rings of p
+// shards of nu units each, line-major; per_blk: units a block (the last
+// block of a ring may be short); half: the units of a block that fold
+// clockwise when ndir == 2, the rest folding counter-clockwise.
+template <typename T, typename W, int OP>
 __global__ void __launch_bounds__(1024) ring_all_reduce_direct_kernel(
-    RankPtrs ptrs, int p, long long per_blk, long long units) {
+    RankPtrs ptrs, int p, int lines, long long nu, long long per_blk,
+    long long half, int ndir) {
+  const long long units = static_cast<long long>(lines) * nu;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        u < units; u += step) {
-    const int b = static_cast<int>(u / per_blk);
-    const int first = b + 1 < p ? b + 1 : 0;
-    W acc = ld_nc(static_cast<const W*>(ptrs.in[first]) + u);
+    const long long g = lines == 1 ? 0 : u / nu;   // the line
+    const long long k = u - g * nu;                // its unit of a row
+    const int b = static_cast<int>(k / per_blk);
+    const int base = static_cast<int>(g) * p;
+    // the rank step: +1 clockwise (b+1, b+2, ..., b+p), p-1 (that is,
+    // -1) counter-clockwise (b-1, ..., b-p)
+    const int d = ndir == 2 && k - b * per_blk >= half ? p - 1 : 1;
+    int q = b + d < p ? b + d : b + d - p;
+    W acc = ld_nc(static_cast<const W*>(ptrs.in[base + q]) + k);
     for (int j0 = 2; j0 <= p; j0 += kFoldGroup) {
       W w[kFoldGroup];
 #pragma unroll
-      for (int k = 0; k < kFoldGroup; ++k) {
-        const int q = b + j0 + k;      // rank (b + j) mod p, j = j0 + k
-        if (j0 + k <= p)
-          w[k] = ld_nc(static_cast<const W*>(ptrs.in[q < p ? q : q - p]) +
-                       u);
-      }
+      for (int i = 0; i < kFoldGroup; ++i)
+        if (j0 + i <= p) {             // rank b + d*j mod p, j = j0 + i
+          q = q + d < p ? q + d : q + d - p;
+          w[i] = ld_nc(static_cast<const W*>(ptrs.in[base + q]) + k);
+        }
 #pragma unroll
-      for (int k = 0; k < kFoldGroup; ++k)
-        if (j0 + k <= p) acc = fold_unit<T>(w[k], acc);
+      for (int i = 0; i < kFoldGroup; ++i)
+        if (j0 + i <= p) acc = fold_unit<T, OP>(w[i], acc);
     }
-    for (int r = 0; r < p; ++r) static_cast<W*>(ptrs.out[r])[u] = acc;
+    for (int r = 0; r < p; ++r)
+      static_cast<W*>(ptrs.out[base + r])[k] = acc;
   }
 }
 
@@ -1598,18 +1512,15 @@ cudaError_t fit_ctas(const void* kernel, int lanes, int ctas, int threads,
   return *B >= 1 ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
 }
 
-// K3 and K4 over `lines` rings of p: flags landed then consumed, each
-// [lines][p][ndir][ctas]; K4 also takes the working rows.
+// K4 over `lines` rings of p: flags landed then consumed, each
+// [lines][p][ndir][ctas], and the working rows.
 template <typename T, int OP>
-cudaError_t launch_k3(RankPtrs ptrs, int p, int lines, long long n,
+cudaError_t launch_k4(RankPtrs ptrs, int p, int lines, long long n,
                       long long nblk, long long chunk, int depth, int ndir,
                       void* work, void* slots, unsigned* flags, int ctas,
                       int vec, int threads, cudaStream_t s) {
-  const void* kern =
-      work ? reinterpret_cast<const void*>(
-                 &hbm_ring_reduce_scatter_kernel<T, OP>)
-           : reinterpret_cast<const void*>(
-                 &hbm_ring_all_reduce_kernel<T, OP>);
+  const void* kern = reinterpret_cast<const void*>(
+      &hbm_ring_reduce_scatter_kernel<T, OP>);
   const int lanes = lines * p * ndir;
   int B, *err;
   cudaError_t e = error_word(&err);
@@ -1619,45 +1530,43 @@ cudaError_t launch_k3(RankPtrs ptrs, int p, int lines, long long n,
   T* sl = static_cast<T*>(slots);
   unsigned* landed = flags;
   unsigned* consumed = flags + static_cast<long long>(lanes) * ctas;
-  void* k3_args[] = {&ptrs, &p, &n, &nblk, &chunk, &depth, &ndir, &B,
-                     &sl, &landed, &consumed, &vec, &err};
-  void* k4_args[] = {&ptrs, &p, &n, &nblk, &chunk, &depth, &ndir, &B,
-                     &w, &sl, &landed, &consumed, &vec, &err};
+  void* args[] = {&ptrs, &p, &n, &nblk, &chunk, &depth, &ndir, &B,
+                  &w, &sl, &landed, &consumed, &vec, &err};
   return cudaLaunchCooperativeKernel(kern, dim3(lanes * B), dim3(threads),
-                                     work ? k4_args : k3_args, 0, s);
+                                     args, 0, s);
 }
 
 template <typename T>
-cudaError_t launch_k3_op(int op, RankPtrs ptrs, int p, int lines,
+cudaError_t launch_k4_op(int op, RankPtrs ptrs, int p, int lines,
                          long long n, long long nblk, long long chunk,
                          int depth, int ndir, void* work, void* slots,
                          unsigned* flags, int ctas, int vec, int threads,
                          cudaStream_t s) {
   switch (op) {
-    case SUM: return launch_k3<T, SUM>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
-    case MAX: return launch_k3<T, MAX>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
-    case MIN: return launch_k3<T, MIN>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
-    case PROD: return launch_k3<T, PROD>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
+    case SUM: return launch_k4<T, SUM>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
+    case MAX: return launch_k4<T, MAX>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
+    case MIN: return launch_k4<T, MIN>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
+    case PROD: return launch_k4<T, PROD>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// K3 or K4 (work != nullptr) by dtype
-cudaError_t launch_k3_dtype(int dtype, int op, RankPtrs ptrs, int p,
+// K4 by dtype
+cudaError_t launch_k4_dtype(int dtype, int op, RankPtrs ptrs, int p,
                             int lines, long long n, long long nblk,
                             long long chunk, int depth, int ndir,
                             void* work, void* slots, unsigned* fl, int ctas,
                             int vec, int threads, cudaStream_t s) {
   switch (dtype) {
-    case F32: return launch_k3_op<float>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case F16: return launch_k3_op<__half>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case BF16: return launch_k3_op<__nv_bfloat16>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case I32: return launch_k3_op<int32_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case I16: return launch_k3_op<int16_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case I8: return launch_k3_op<int8_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case U8: return launch_k3_op<uint8_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case U16: return launch_k3_op<uint16_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case U32: return launch_k3_op<uint32_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case F32: return launch_k4_op<float>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case F16: return launch_k4_op<__half>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case BF16: return launch_k4_op<__nv_bfloat16>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case I32: return launch_k4_op<int32_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case I16: return launch_k4_op<int16_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case I8: return launch_k4_op<int8_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case U8: return launch_k4_op<uint8_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case U16: return launch_k4_op<uint16_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
+    case U32: return launch_k4_op<uint32_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1671,7 +1580,7 @@ cudaError_t launch_k8(RankPtrs ptrs, int p, long long n, int src, int dst,
   return cudaGetLastError();
 }
 
-// K9 shares K3's flag layout: landed then consumed, each [p][ndir][ctas].
+// K9 shares K4's flag layout: landed then consumed, each [p][ndir][ctas].
 template <typename T, int W>
 cudaError_t launch_k9(RankPtrs ptrs, int* wires, int p, long long n,
                       long long nblk, int blk, long long chunk, int depth,
@@ -1705,7 +1614,7 @@ cudaError_t launch_k9_wire(int wire, RankPtrs ptrs, int* wires, int p,
   }
 }
 
-// K10 shares the flag layout of K3: landed then consumed, each
+// K10 shares the flag layout of K4: landed then consumed, each
 // [p][ndir][ctas].
 template <typename T>
 cudaError_t launch_k10(RankPtrs ptrs, int p, long long c, long long chunk,
@@ -1725,31 +1634,11 @@ cudaError_t launch_k10(RankPtrs ptrs, int p, long long c, long long chunk,
                                      dim3(threads), args, 0, s);
 }
 
-// p + i elements of T
-template <typename T> T* at(void* p, long long i) {
-  return static_cast<T*>(p) + i;
-}
-
-template <typename T>
-cudaError_t launch_k17(const void* src, void* win, long long disp,
-                       long long n, void* landing, unsigned* flags,
-                       int ctas, int threads, cudaStream_t s) {
-  const void* kern = reinterpret_cast<const void*>(&direct_put_kernel<T>);
-  int B, *err;
-  cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, 2, ctas, threads, &B);
-  if (e != cudaSuccess) return e;
-  const T* sr = static_cast<const T*>(src);
-  T* to = at<T>(win, disp);
-  T* ld = static_cast<T*>(landing);
-  void* args[] = {&sr, &to, &n, &B, &ld, &flags, &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(2 * B), dim3(threads), args,
-                                     0, s);
-}
-
-// The direct kernels (K5-K7, K11-K14q): the blocks of one kernel
-// instance and block size that fit on the card at once, counted at its
-// first launch on a device, then kept.
+// The direct kernels (K3, K5-K7, K11-K14q, K17): the blocks of one
+// kernel instance and block size that fit on the card at once, counted
+// at its first launch on a device, then kept (room for every instance:
+// K3 alone has 72).
+constexpr int kMaxFits = 256;
 struct DirectFit {
   int dev;
   const void* kern;
@@ -1757,7 +1646,7 @@ struct DirectFit {
   int cap;
 };
 std::mutex g_fit_mu;
-DirectFit g_fits[64];
+DirectFit g_fits[kMaxFits];
 int g_nfits = 0;
 
 const void* copy_kern(int esize) {
@@ -1809,7 +1698,7 @@ cudaError_t direct_fit(const void* kern, int threads, int* cap) {
                                                       0);
   if (e != cudaSuccess) return e;
   *cap = std::max(1, sms * per_sm);
-  if (g_nfits < 64) g_fits[g_nfits++] = {dev, kern, threads, *cap};
+  if (g_nfits < kMaxFits) g_fits[g_nfits++] = {dev, kern, threads, *cap};
   return cudaSuccess;
 }
 
@@ -1817,7 +1706,7 @@ bool bad_direct_threads(int threads) {
   return threads < 32 || threads > 1024 || threads % 32;
 }
 
-// The grid of a direct launch (K5, K6, K7, K11, K12/K13, K14, K14q) of
+// The grid of a direct launch (K3, K5-K7, K11-K14q, K17) of
 // `units` units of work, `per_block` a block: one pass, at most the
 // blocks of kern at `threads` that fit at once, at least one block.
 cudaError_t direct_grid(const void* kern, int threads, long long units,
@@ -1830,7 +1719,7 @@ cudaError_t direct_grid(const void* kern, int threads, long long units,
   return cudaSuccess;
 }
 
-// K12/K13 and K14 (kern): n elements of esize bytes from `from` into
+// K12/K13/K17 and K14 (kern): n elements of esize bytes from `from` into
 // `to`, split at to's 16-byte boundary (ops/rma.py copy_plan models the
 // split). The grid is one pass of kCopyUnroll words a thread, at most
 // what fits at once, at least one block (the head and tail of a range
@@ -1887,31 +1776,70 @@ bool aligned16(const RankPtrs& ptrs, int p) {
   return (bits & 15) == 0;
 }
 
-// K6: p shards of p * blk elements; vec: 16-byte words.
-template <typename T>
-cudaError_t launch_direct_reduce(RankPtrs ptrs, int p, long long blk,
-                                 int vec, int threads, cudaStream_t s) {
+// K3 and K6: lines rings of p shards of n elements, folded in the ring's
+// order over blocks of ceil(n/p) (ndir 2: the second half of every block
+// counter-clockwise); vec: 16-byte words, refused unless every pointer is
+// 16-byte aligned and n, the block and (ndir 2) its half are whole words.
+template <typename T, int OP>
+cudaError_t launch_direct_fold(RankPtrs ptrs, int p, int lines, long long n,
+                               int ndir, int vec, int threads,
+                               cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  if (blk < 0 || bad_direct_threads(threads) ||
-      (vec && (blk % V || !aligned16(ptrs, p))))
+  if (n < 0 || (ndir != 1 && ndir != 2) || bad_direct_threads(threads))
     return cudaErrorInvalidValue;
-  const long long per_blk = vec ? blk / V : blk;
-  const long long units = p * per_blk;
+  const long long nblk = (n + p - 1) / p, h = (nblk + 1) / 2;
+  if (vec && (n % V || nblk % V || (ndir == 2 && h % V) ||
+              !aligned16(ptrs, lines * p)))
+    return cudaErrorInvalidValue;
+  const long long w = vec ? V : 1;                  // elements a unit
+  const long long nu = n / w, per_blk = nblk / w, half = h / w;
   const void* kern =
       vec ? reinterpret_cast<const void*>(
-                &ring_all_reduce_direct_kernel<T, uint4>)
+                &ring_all_reduce_direct_kernel<T, uint4, OP>)
           : reinterpret_cast<const void*>(
-                &ring_all_reduce_direct_kernel<T, T>);
+                &ring_all_reduce_direct_kernel<T, T, OP>);
   int grid;
-  const cudaError_t e = direct_grid(kern, threads, units, threads, &grid);
+  const cudaError_t e = direct_grid(kern, threads, lines * nu, threads,
+                                    &grid);
   if (e != cudaSuccess) return e;
   if (vec)
-    ring_all_reduce_direct_kernel<T, uint4><<<grid, threads, 0, s>>>(
-        ptrs, p, per_blk, units);
+    ring_all_reduce_direct_kernel<T, uint4, OP><<<grid, threads, 0, s>>>(
+        ptrs, p, lines, nu, per_blk, half, ndir);
   else
-    ring_all_reduce_direct_kernel<T, T><<<grid, threads, 0, s>>>(
-        ptrs, p, per_blk, units);
+    ring_all_reduce_direct_kernel<T, T, OP><<<grid, threads, 0, s>>>(
+        ptrs, p, lines, nu, per_blk, half, ndir);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fold_op(int op, RankPtrs ptrs, int p, int lines,
+                           long long n, int ndir, int vec, int threads,
+                           cudaStream_t s) {
+  switch (op) {
+    case SUM: return launch_direct_fold<T, SUM>(ptrs, p, lines, n, ndir, vec, threads, s);
+    case MAX: return launch_direct_fold<T, MAX>(ptrs, p, lines, n, ndir, vec, threads, s);
+    case MIN: return launch_direct_fold<T, MIN>(ptrs, p, lines, n, ndir, vec, threads, s);
+    case PROD: return launch_direct_fold<T, PROD>(ptrs, p, lines, n, ndir, vec, threads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K3 and K6 by dtype
+cudaError_t launch_fold_dtype(int dtype, int op, RankPtrs ptrs, int p,
+                              int lines, long long n, int ndir, int vec,
+                              int threads, cudaStream_t s) {
+  switch (dtype) {
+    case F32: return launch_fold_op<float>(op, ptrs, p, lines, n, ndir, vec, threads, s);
+    case F16: return launch_fold_op<__half>(op, ptrs, p, lines, n, ndir, vec, threads, s);
+    case BF16: return launch_fold_op<__nv_bfloat16>(op, ptrs, p, lines, n, ndir, vec, threads, s);
+    case I32: return launch_fold_op<int32_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
+    case I16: return launch_fold_op<int16_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
+    case I8: return launch_fold_op<int8_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
+    case U8: return launch_fold_op<uint8_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
+    case U16: return launch_fold_op<uint16_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
+    case U32: return launch_fold_op<uint32_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // K7 and K5 (E: an unsigned type of the element's width): lines rings of
@@ -1980,16 +1908,18 @@ bool bad_lines(int p, int lines) {
 
 extern "C" {
 
-// ins/outs: lines * p pointers, line-major (rank i of line g at g*p + i).
+// K3: outs[g*p + r] = the allreduce of line g's shards ins[g*p .. g*p +
+// p - 1] of n elements, for every rank r of every line g, folded in the
+// streaming ring's order over blocks of ceil(n/p) (ndir 2: the second
+// half of every block counter-clockwise); ins/outs: lines * p pointers,
+// line-major (rank i of line g at g*p + i); vec: every pointer 16-byte
+// aligned and n, the block and (ndir 2) its half whole 16-byte words.
 int mv2t_hbm_ring_all_reduce(int dtype, int op, const void* ins,
                              const void* outs, int p, int lines, long long n,
-                             long long nblk, long long chunk, int depth,
-                             int ndir, void* slots, void* flags, int ctas,
-                             int vec, int threads, void* stream) {
+                             int ndir, int vec, int threads, void* stream) {
   if (bad_lines(p, lines)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_k3_dtype(
-      dtype, op, rank_ptrs(ins, outs, lines * p), p, lines, n, nblk, chunk,
-      depth, ndir, nullptr, slots, static_cast<unsigned*>(flags), ctas, vec,
+  return static_cast<int>(launch_fold_dtype(
+      dtype, op, rank_ptrs(ins, outs, lines * p), p, lines, n, ndir, vec,
       threads, static_cast<cudaStream_t>(stream)));
 }
 
@@ -2004,7 +1934,7 @@ int mv2t_hbm_ring_reduce_scatter(int dtype, int op, const void* ins,
                                  void* stream) {
   if (bad_lines(p, lines) || p < 2 || !work)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_k3_dtype(
+  return static_cast<int>(launch_k4_dtype(
       dtype, op, rank_ptrs(ins, outs, lines * p), p, lines, n, nblk, chunk,
       depth, ndir, work, slots, static_cast<unsigned*>(flags), ctas, vec,
       threads, static_cast<cudaStream_t>(stream)));
@@ -2069,25 +1999,15 @@ int mv2t_quant_ring_all_reduce(int dtype, int wire, const void* ins,
 
 // K6: outs[r] = the sum of the p shards ins[.] of p * len elements, in
 // the ring's fold order, for every rank r; vec: every pointer 16-byte
-// aligned and len a multiple of 16 bytes.
+// aligned and len a multiple of 16 bytes. K3's fold on one line, one
+// direction.
 int mv2t_ring_all_reduce(int dtype, const void* ins, const void* outs,
                          int p, long long len, int vec, int threads,
                          void* stream) {
-  if (bad_ranks(p)) return static_cast<int>(cudaErrorInvalidValue);
-  const RankPtrs ptrs = rank_ptrs(ins, outs, p);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case F32: return static_cast<int>(launch_direct_reduce<float>(ptrs, p, len, vec, threads, s));
-    case F16: return static_cast<int>(launch_direct_reduce<__half>(ptrs, p, len, vec, threads, s));
-    case BF16: return static_cast<int>(launch_direct_reduce<__nv_bfloat16>(ptrs, p, len, vec, threads, s));
-    case I32: return static_cast<int>(launch_direct_reduce<int32_t>(ptrs, p, len, vec, threads, s));
-    case I16: return static_cast<int>(launch_direct_reduce<int16_t>(ptrs, p, len, vec, threads, s));
-    case I8: return static_cast<int>(launch_direct_reduce<int8_t>(ptrs, p, len, vec, threads, s));
-    case U8: return static_cast<int>(launch_direct_reduce<uint8_t>(ptrs, p, len, vec, threads, s));
-    case U16: return static_cast<int>(launch_direct_reduce<uint16_t>(ptrs, p, len, vec, threads, s));
-    case U32: return static_cast<int>(launch_direct_reduce<uint32_t>(ptrs, p, len, vec, threads, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_ranks(p) || len < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_fold_dtype(
+      dtype, SUM, rank_ptrs(ins, outs, p), p, 1, p * len, 1, vec, threads,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K7: outs[r] = the p shards ins[.] of len elements, concatenated, for
@@ -2195,21 +2115,6 @@ int mv2t_rma_accumulate_quant(int wire, const void* src, void* win,
   switch (wire) {
     case Q8: return static_cast<int>(launch_acc_quant<Q8>(src, to, n, blk, threads, s));
     case FP8: return static_cast<int>(launch_acc_quant<FP8>(src, to, n, blk, threads, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// K17: src[n] into win (the target's window row) at disp through one
-// landing buffer of n elements; flags: [ctas].
-int mv2t_direct_put(int esize, const void* src, void* win, long long disp,
-                    long long n, void* landing, void* flags, int ctas,
-                    int threads, void* stream) {
-  unsigned* fl = static_cast<unsigned*>(flags);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (esize) {
-    case 4: return static_cast<int>(launch_k17<uint32_t>(src, win, disp, n, landing, fl, ctas, threads, s));
-    case 2: return static_cast<int>(launch_k17<uint16_t>(src, win, disp, n, landing, fl, ctas, threads, s));
-    case 1: return static_cast<int>(launch_k17<uint8_t>(src, win, disp, n, landing, fl, ctas, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -65,10 +65,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "ring": {
         "mv2t_hbm_ring_all_reduce": (_I, (
             ("dtype", _I), ("op", _I), ("ins", _P), ("outs", _P),
-            ("p", _I), ("lines", _I), ("n", _I64), ("nblk", _I64),
-            ("chunk", _I64), ("depth", _I), ("ndir", _I), ("slots", _P),
-            ("flags", _P), ("ctas", _I), ("vec", _I), ("threads", _I),
-            ("stream", _P))),
+            ("p", _I), ("lines", _I), ("n", _I64), ("ndir", _I),
+            ("vec", _I), ("threads", _I), ("stream", _P))),
         "mv2t_hbm_ring_reduce_scatter": (_I, (
             ("dtype", _I), ("op", _I), ("ins", _P), ("outs", _P),
             ("p", _I), ("lines", _I), ("n", _I64), ("nblk", _I64),
@@ -118,10 +116,6 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "mv2t_rma_accumulate_quant": (_I, (
             ("wire", _I), ("src", _P), ("win", _P), ("disp", _I64),
             ("n", _I64), ("blk", _I), ("threads", _I), ("stream", _P))),
-        "mv2t_direct_put": (_I, (
-            ("esize", _I), ("src", _P), ("win", _P), ("disp", _I64),
-            ("n", _I64), ("landing", _P), ("flags", _P), ("ctas", _I),
-            ("threads", _I), ("stream", _P))),
         "mv2t_ring_error": (_I, (("clear", _I),)),
         "mv2t_error_string": (ctypes.c_char_p, (("code", _I),)),
     },

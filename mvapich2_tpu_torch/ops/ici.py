@@ -1,15 +1,22 @@
-"""Chunked streaming ring collectives over ``p`` virtual ranks of one GPU,
-the device tier dispatch and the multi-axis mesh composition
-(counterpart of ``mvapich2_tpu/ops/pallas_ici.py``).
+"""Streaming ring collectives over ``p`` virtual ranks of one GPU, the
+device tier dispatch and the multi-axis mesh composition (counterpart of
+``mvapich2_tpu/ops/pallas_ici.py``).
 
 Four kernels, written in CUDA C++ in ``csrc/ring.cu``:
 
-``hbm_ring_all_reduce`` (K3): a reduce-scatter ring then an all-gather
-ring over ``p`` blocks of ``nblk = ceil(n/p)`` elements (the shard padded
-with the op's identity), streamed in ``ICI_CHUNK_BYTES`` chunks through
-``ICI_PIPELINE_DEPTH`` landing slots per direction, both ring directions
-at once when ``p > 2`` and ``ICI_BIDIR`` (half of every block each way).
-sum, max, min and prod.
+``hbm_ring_all_reduce`` (K3): the JAX kernel runs a reduce-scatter ring
+then an all-gather ring over ``p`` blocks of ``nblk = ceil(n/p)``
+elements (the shard padded with the op's identity), streamed in chunks
+through landing slots under credits, both ring directions at once when
+``p > 2`` and ``ICI_BIDIR`` (the first half of every block clockwise,
+the second counter-clockwise). Its result depends only on the fold
+order, so on one card the kernel computes it directly: element ``i`` of
+block ``b`` folds ``x[b+1], x[b+2], ..., x[b+p]`` (counter-clockwise
+``x[b-1], ..., x[b-p]``) as ``red(x, acc)``, every partial rounded to
+the dtype, and stores it into every rank's row, in one ordinary launch
+with no slot, flag or wait (K6's kernel over ``lines`` rings, with the
+op, the direction split and a short last block). sum, max, min and
+prod.
 
 ``hbm_ring_reduce_scatter`` (K4): the reduce-scatter ring alone, ``[n]``
 per rank to its block ``[ceil(n/p)]`` of the folded (identity-padded)
@@ -41,12 +48,13 @@ a copy. The port has no interpreter, so a phase under a multi-axis
 "hw"): the resident and quant tiers clamp to the streaming ring, and
 only DEV_TIER_XLA_MIN sends a phase to the stock lowering.
 
-The schedule of K3 and K4 is the JAX kernels': the same block ids and
-phase order, one global chunk counter per direction (slot = counter mod
+The schedule of K4 is the JAX kernel's: the same block ids and phase
+order, one global chunk counter per direction (slot = counter mod
 depth), and the chunk-credit handshake (a sender writes chunk k+depth
 only once the receiver has consumed chunk k). A "remote DMA" is a store
-into the downstream rank's landing slot. Inputs and outputs are as in
-``ops/ring.py``, whose launch and replay machinery these wrappers share.
+into the downstream rank's landing slot. K3, K5 and K8 use no slot and
+no credit. Inputs and outputs are as in ``ops/ring.py``, whose launch
+and replay machinery these wrappers share.
 
 ``ici_all_reduce`` / ``ici_all_gather`` pick the tier by shard bytes
 (``planned_tier``): the resident ring (K6/K7, ``ops/ring.py``) at or
@@ -309,9 +317,8 @@ def remote_sendrecv_ref(xs: Shards, src: int, dst: int) -> torch.Tensor:
 
 def _stream_args(shards, out, p, lines, nblk, chunk_bytes, depth,
                  bidirectional):
-    """(chunk, depth, ndir, ctas, vec, slots, flags) of one streaming
-    launch of ``lines`` rings of ``p`` over blocks of ``nblk``
-    elements."""
+    """(chunk, depth, ndir, ctas, vec, slots, flags) of one K4 launch of
+    ``lines`` rings of ``p`` over blocks of ``nblk`` elements."""
     dev, dt = out.device, out.dtype
     chunk = max(1, min(_cfg_chunk_elems(dt, chunk_bytes), nblk))
     d = _cfg_depth(depth)
@@ -339,13 +346,20 @@ def hbm_ring_all_reduce(xs: Shards, op: str = "sum", *,
                         depth: Optional[int] = None,
                         bidirectional: Optional[bool] = None,
                         lines: int = 1) -> torch.Tensor:
-    """K3: allreduce of ``p`` shards of any length ``n`` through the
-    chunked streaming ring (pipelined reduce-scatter + all-gather), on
-    each of ``lines`` rings of ``p`` (shards line-major). Returns
-    ``(lines*p, n)``, one row per shard in the same order."""
+    """K3: allreduce of ``p`` shards of any length ``n``, the streaming
+    ring's result (reduce-scatter + all-gather, in both ring directions
+    when ``bidirectional`` resolves so) as one direct fold, on each of
+    ``lines`` rings of ``p`` (shards line-major). Returns a contiguous
+    ``(lines*p, n)``, one row per shard in the same order.
+    ``bidirectional`` picks the fold order of the second half of every
+    block, so it changes the result's bits; ``chunk_bytes`` and
+    ``depth`` order the TPU ring's transfers and never its result, so
+    they are checked and shape nothing here."""
     _check_op(op, "hbm_ring_all_reduce")
     shards = ring.as_shards(xs, "hbm_ring_all_reduce")
     p = _line_size(shards, lines, "hbm_ring_all_reduce")
+    _cfg_chunk_elems(shards[0].dtype, chunk_bytes)
+    _cfg_depth(depth)
     if ring.on_cpu(shards):
         PLAIN_CALLS["hbm_ring_all_reduce"] += 1
         return hbm_ring_all_reduce_ref(shards, op,
@@ -353,17 +367,19 @@ def hbm_ring_all_reduce(xs: Shards, op: str = "sum", *,
                                        lines=lines)
     code = ring.check_cuda_shards(shards, "hbm_ring_all_reduce")
     n = shards[0].numel()
-    nblk = -(-n // p)
-    out = torch.empty((len(shards), nblk * p), dtype=shards[0].dtype,
+    ndir = _resolve_ndir(p, bidirectional)
+    out = torch.empty((len(shards), n), dtype=shards[0].dtype,
                       device=shards[0].device)
-    chunk, d, ndir, ctas, vec, slots, flags = _stream_args(
-        shards, out, p, lines, nblk, chunk_bytes, depth, bidirectional)
+    nblk, v = -(-n // p), 16 // out.element_size()
+    vec = (ring.aligned(shards) and out.data_ptr() % 16 == 0
+           and n % v == 0 and nblk % v == 0
+           and (ndir == 1 or (nblk + 1) // 2 % v == 0))
     ring.launch("mv2t_hbm_ring_all_reduce", out.device, code,
                 ring.OP_CODES[op], ring.pointers(shards),
-                ring.pointers(out.unbind(0)), p, lines, n, nblk, chunk, d,
-                ndir, slots.data_ptr(), flags.data_ptr(), ctas, vec)
+                ring.row_pointers(out), p, lines, n, ndir, int(vec),
+                threads=ring.DIRECT_THREADS)
     LAUNCHES["hbm_ring_all_reduce"] += 1
-    return out[:, :n]
+    return out
 
 
 def hbm_ring_reduce_scatter(xs: Shards, op: str = "sum", *,

@@ -27,10 +27,10 @@ order is the JAX kernel's; given CUDA tensors it launches the kernel
 on the current stream or raises. ``LAUNCHES`` counts kernel launches
 only, ``PLAIN_CALLS`` the plain route.
 
-The direct launch serves K5 of ``ops/ici.py`` too (K7's kernel over
-``lines`` rings). The streaming kernels (K3 and K4 of ``ops/ici.py``,
-K10 of ``ops/alltoall.py``, K9 of ``ops/quant.py`` and K17 of
-``ops/rma.py``) keep the ring protocol: every
+The direct launch serves K3 and K5 of ``ops/ici.py`` too (K6's fold
+and K7's gather over ``lines`` rings). The streaming kernels (K4 of
+``ops/ici.py``, K10 of ``ops/alltoall.py`` and K9 of ``ops/quant.py``)
+keep the ring protocol: every
 (rank, direction) lane gets ``B`` thread blocks, each running its own
 sub-ring over its share of the data, with credits in global memory. All
 blocks must be resident at once (a block spinning on a credit would wait
@@ -119,9 +119,30 @@ def widened(shards: List[torch.Tensor]) -> List[torch.Tensor]:
     return shards
 
 
+def _pick(first_wins, zero_wins):
+    """max or min as the kernels' ``red(own, acc)`` takes it (csrc/ring.cu
+    ``apply``): ``own`` where ``first_wins(own, acc)``; a tie of -0.0 and
+    +0.0 gives the zero whose sign bit is ``zero_wins``, whatever the
+    order, as XLA's jnp.maximum/minimum give it (IEEE 754-2019 maximum
+    and minimum); ``own + acc`` where either is a NaN. torch.maximum on
+    the CPU settles ties of zeros by where an element falls in its vector
+    loop, so it cannot be the spec."""
+    def red(own, acc):
+        wins = first_wins(own, acc)
+        if own.dtype.is_floating_point:
+            wins |= (own == acc) & (own.signbit() == zero_wins)
+        out = torch.where(wins, own, acc)
+        if own.dtype.is_floating_point:
+            out = torch.where(own.isnan() | acc.isnan(), own + acc, out)
+        return out
+    return red
+
+
 def reducer(op: str):
-    return {"sum": torch.add, "max": torch.maximum, "min": torch.minimum,
-            "prod": torch.mul}[op]
+    """The elementwise ``red(own, acc)`` of an op, in the kernels'
+    arithmetic (csrc/ring.cu ``apply``)."""
+    return {"sum": torch.add, "max": _pick(torch.gt, False),
+            "min": _pick(torch.lt, True), "prod": torch.mul}[op]
 
 
 def ring_replay(o: torch.Tensor, spans: List[Tuple[int, int]],
@@ -173,6 +194,13 @@ def check_cuda_shards(shards: List[torch.Tensor], what: str) -> int:
 
 def pointers(ts: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def row_pointers(out: torch.Tensor):
+    """The addresses of the rows of a contiguous 2-D ``out``."""
+    row = out.shape[1] * out.element_size()
+    return (ctypes.c_void_p * out.shape[0])(
+        *[out.data_ptr() + r * row for r in range(out.shape[0])])
 
 
 def aligned(ts: Sequence[torch.Tensor]) -> bool:
@@ -285,11 +313,10 @@ def launch_direct(fn: str, code: int, shards: List[torch.Tensor],
     rows, row = out.shape[0], out.shape[1] * out.element_size()
     vec = aligned(shards) and out.data_ptr() % 16 == 0 and row % 16 == 0 \
         and length % (16 // out.element_size()) == 0
-    outs = (ctypes.c_void_p * rows)(*[out.data_ptr() + r * row
-                                      for r in range(rows)])
     geometry = (rows,) if lines is None else (rows // lines, lines)
-    launch(f"mv2t_{fn}", out.device, code, pointers(shards), outs,
-           *geometry, length, int(vec), threads=DIRECT_THREADS)
+    launch(f"mv2t_{fn}", out.device, code, pointers(shards),
+           row_pointers(out), *geometry, length, int(vec),
+           threads=DIRECT_THREADS)
 
 
 def ring_all_reduce(xs: Shards) -> torch.Tensor:

@@ -27,8 +27,10 @@ inheriting ``ICI_CHUNK_BYTES``; ``ICI_PIPELINE_DEPTH``), which the JAX
 kernels take, are validated and otherwise unused.
 
 ``direct_put`` (K17, ``rma/device.py`` ``pallas_put``) is the
-single-shot put through one landing buffer of ``n`` elements; it lives
-here with the other three.
+single-shot put. The TPU kernel stages the payload in one landing buffer
+under a flag; on one card a put is K12's direct copy, with no landing
+buffer and no flag, launched through K12's C entry and counted apart.
+It lives here with the other three.
 
 A source that partly overlaps the target range (a view of the window)
 is copied first, so every route writes the values it held before the op,
@@ -367,23 +369,32 @@ def rma_put(src: torch.Tensor, win: torch.Tensor, origin: int, target: int,
     ``depth`` (the JAX kernel's) are validated and not used. ``stream``:
     a raw stream handle on the window's device, made current by the
     caller (``ring.launch``)."""
+    return _put("rma_put", src, win, origin, target, disp, stream,
+                (chunk_bytes, depth))
+
+
+def _put(name: str, src: torch.Tensor, win: torch.Tensor, origin: int,
+         target: int, disp: int, stream: Optional[int],
+         knobs: Optional[Tuple] = None) -> torch.Tensor:
+    """The direct copy of K12 and K17, counted under ``name``; ``knobs``:
+    K12's (chunk_bytes, depth), validated after the operands."""
     src = src.reshape(-1).contiguous()
     n = src.numel()
-    _check_op(src, win, n, origin, target, disp, "rma_put")
-    _check_stream_args(win.dtype, chunk_bytes, depth)
+    _check_op(src, win, n, origin, target, disp, name)
+    if knobs is not None:
+        _check_stream_args(win.dtype, *knobs)
     if n == 0:
         return win
     src = unshared(src, win, target, disp)
     if win.device.type == "cpu":
-        PLAIN_CALLS["rma_put"] += 1
+        PLAIN_CALLS[name] += 1
         return rma_put_ref(src, win, origin, target, disp)
-    _cuda(win, "rma_put")
-    esize = _elem_size(win.dtype, "rma_put")
-    row = _row_ptr(win, target)
-    ring.launch("mv2t_rma_put", win.device, esize, src.data_ptr(), row,
-                disp, n, threads=kernel_param("rma_copy_threads", 256),
-                stream=stream)
-    LAUNCHES["rma_put"] += 1
+    _cuda(win, name)
+    esize = _elem_size(win.dtype, name)
+    ring.launch("mv2t_rma_put", win.device, esize, src.data_ptr(),
+                _row_ptr(win, target), disp, n,
+                threads=kernel_param("rma_copy_threads", 256), stream=stream)
+    LAUNCHES[name] += 1
     return win
 
 
@@ -471,26 +482,7 @@ def _accumulate_quant(src, win, origin, target, disp, stream
 def direct_put(src: torch.Tensor, win: torch.Tensor, origin: int,
                target: int, disp: int = 0) -> torch.Tensor:
     """K17, the port of ``rma/device.py`` ``pallas_put``: a single-shot
-    put. The origin stages the whole ``src`` into one landing buffer of
-    ``n`` elements, the target commits it into its window row at
-    ``disp``; in place, returns ``win``. No chunks and no credits."""
-    src = src.reshape(-1).contiguous()
-    n = src.numel()
-    _check_op(src, win, n, origin, target, disp, "direct_put")
-    if n == 0:
-        return win
-    src = unshared(src, win, target, disp)
-    if win.device.type == "cpu":
-        PLAIN_CALLS["direct_put"] += 1
-        return rma_put_ref(src, win, origin, target, disp)
-    _cuda(win, "direct_put")
-    esize = _elem_size(win.dtype, "direct_put")
-    dev = win.device
-    ctas = ring.ctas_per_lane(dev, 2, n, 16 // esize)
-    landing = torch.empty(n, dtype=win.dtype, device=dev)
-    flags = torch.zeros(ctas, dtype=torch.int32, device=dev)
-    ring.launch("mv2t_direct_put", dev, esize, src.data_ptr(),
-                _row_ptr(win, target), disp, n, landing.data_ptr(),
-                flags.data_ptr(), ctas)
-    LAUNCHES["direct_put"] += 1
-    return win
+    put of ``src`` into the target's window row at ``disp``, in place;
+    returns ``win``. K12's direct copy on the current stream: no landing
+    buffer, no flag, no chunks and no credits."""
+    return _put("direct_put", src, win, origin, target, disp, None)

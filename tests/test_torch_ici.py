@@ -139,6 +139,26 @@ def test_all_reduce_ops(comm8, op, kind):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("op", ["max", "min"])
+def test_all_reduce_signed_zeros_and_nan_match_jax(comm8, op):
+    """f32 max and min on values from {-1, -0.0, +0.0, 1, NaN}: a tie of
+    -0.0 and +0.0 takes the sign the JAX kernel's jnp.maximum/minimum
+    give it, and NaNs land where the JAX kernel's land. Bit patterns,
+    with every NaN taken as one pattern (its payload is the arithmetic's,
+    not the fold order's)."""
+    rng = np.random.default_rng(17 + len(op))
+    pool = np.array([-1.0, -0.0, 0.0, 1.0, np.nan], np.float32)
+    xv = pool[rng.integers(0, 5, size=(NP, 101))]
+    xv[:, :64] = pool[rng.integers(0, 4, size=(NP, 64))]   # no NaN: ties
+    want = _jax_all_reduce(comm8, xv, op, chunk_bytes=32)
+    got = ici.hbm_ring_all_reduce(torch.from_numpy(xv), op,
+                                  chunk_bytes=32).numpy()
+
+    def bits(a):
+        return np.where(np.isnan(a), -1, a.view(np.int32))
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
 @pytest.mark.parametrize("np_dtype,op", [(np.uint32, "max"),
                                          (np.uint32, "sum"),
                                          (np.uint16, "min")])

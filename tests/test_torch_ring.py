@@ -21,7 +21,10 @@ which the JAX parity tests above hold against the JAX kernels in f32,
 int32, bf16, f16 and int8. The same gather kernel runs K5 of
 ops/ici.py over several rings at once; ``_model_gather`` over lines is
 held against ``ici.hbm_ring_all_gather_ref``, which
-tests/test_torch_ici.py holds against the JAX K5."""
+tests/test_torch_ici.py holds against the JAX K5. The same fold kernel
+runs K3 of ops/ici.py (any op, any n, both ring directions, several
+rings); ``_model_k3`` is held against ``ici.hbm_ring_all_reduce_ref``,
+which tests/test_torch_ici.py holds against the JAX K3."""
 
 import numpy as np
 import pytest
@@ -208,6 +211,11 @@ def test_ring_signatures_cover_every_entry():
         for name, t in args:
             if name in ("ins", "outs", "slots", "flags", "stream"):
                 assert t is ctypes.c_void_p, f"{fn}({name})"
+    # K3 is a direct launch: no slot, flag or blocks-a-lane count; K17
+    # launches through K12's entry and has none of its own
+    names = {name for name, _ in table["mv2t_hbm_ring_all_reduce"][1]}
+    assert not names & {"slots", "flags", "ctas", "chunk", "depth"}
+    assert "mv2t_direct_put" not in table
 
 
 # ---------------------------------------------------------------------------
@@ -350,3 +358,135 @@ def test_an_f32_accumulator_would_break_the_bf16_ring_order():
     np.testing.assert_array_equal(_bits(_model_fold(x, True)), want)
     assert not np.array_equal(_bits(_model_fold(x, True, carry_f32=True)),
                               want)
+
+
+# ---------------------------------------------------------------------------
+# a CPU model of K3's direct fold (csrc/ring.cu ring_all_reduce_direct_kernel
+# over lines rings, any op, both directions, a short last block)
+# ---------------------------------------------------------------------------
+
+K3_KINDS = dict(DIRECT_KINDS, i32=torch.int32)
+
+
+def _k3_data(seed, shape, kind):
+    if kind == "i32":
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=shape,
+                                             dtype=np.int32))
+    return _kind_data(seed, shape, kind)
+
+
+def _model_k3(x, op, vec, ndir, lines=1, swap=False):
+    """K3's loop over ``x`` of shape (lines*p, n): unit u of lines*nu is
+    unit k = u - g*nu of line g = u // nu; its block b = k // per_blk, and
+    it folds counter-clockwise when ndir == 2 and its offset in the block
+    is at or past the half point (``swap``: the other way round). The
+    fold starts at rank b + d of its line (d = 1, or p - 1 for
+    counter-clockwise) and folds ranks b + 2d, ..., b + pd (mod p) as
+    ``red(x, acc)``; the result goes to every row of the line. uint16 and
+    uint32 fold in int64 and wrap at the end, as the replay does (sums and
+    products modulo 2^k, max and min on the unsigned values)."""
+    rows, n = x.shape
+    p = rows // lines
+    v = 16 // x.element_size() if vec else 1
+    nblk = -(-n // p)
+    h = (nblk + 1) // 2
+    if vec:                       # the vector path's conditions
+        assert n % v == 0 and nblk % v == 0 and (ndir == 1 or h % v == 0)
+    nu, per_blk, half = n // v, nblk // v, h // v
+    xw = x.to(torch.int64) if x.dtype in ring.WIDE else x
+    red = ring.reducer(op)
+    u = torch.arange(lines * nu)
+    g, k = u // nu, u % nu
+    b = k // per_blk
+    ccw = (k - b * per_blk >= half) if ndir == 2 else torch.zeros_like(
+        u, dtype=torch.bool)
+    if swap:
+        ccw = ~ccw
+    d = torch.where(ccw, p - 1, 1)
+    cols = k[:, None] * v + torch.arange(v)
+    q = (b + d) % p
+    acc = xw[(g * p + q)[:, None], cols]
+    for _ in range(2, p + 1):
+        q = (q + d) % p
+        acc = red(xw[(g * p + q)[:, None], cols], acc)
+    out = torch.empty((rows, n), dtype=xw.dtype)
+    for r in range(p):
+        out[(g * p + r)[:, None], cols] = acc
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min", "prod"])
+@pytest.mark.parametrize("kind", sorted(K3_KINDS))
+@pytest.mark.parametrize("p", [2, 3, 5, 8])
+def test_k3_direct_fold_is_the_rings(p, kind, op):
+    """K3's direct fold is the streaming ring's result bit for bit, over
+    1, 2 and 4 lines, in one and two ring directions: on the vector path
+    (n = 32p: a block of 32, its half 16, whole words at every width)
+    and the scalar one (also a ragged n = 7p - 3, whose last block is
+    short and whose halves differ)."""
+    for n, paths in ((32 * p, (True, False)), (7 * p - 3, (False,))):
+        for lines in (1, 2, 4):
+            x = _k3_data(p * 1000 + lines * 100 + n, (lines * p, n), kind)
+            for ndir in (1, 2):
+                want = _bits(ici.hbm_ring_all_reduce_ref(
+                    x, op, bidirectional=ndir == 2, lines=lines))
+                for vec in paths:
+                    np.testing.assert_array_equal(
+                        _bits(_model_k3(x, op, vec, ndir, lines)), want,
+                        err_msg=f"n={n} lines={lines} ndir={ndir} "
+                                f"vec={vec}")
+
+
+def _nan_zero_data(seed, shape, dt):
+    """Values from {-1, -0.0, +0.0, 1, NaN}: ties of signed zeros and NaN
+    operands on both sides of the fold."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([-1.0, -0.0, 0.0, 1.0, np.nan], np.float32)
+    return torch.from_numpy(pool[rng.integers(0, 5, size=shape)]).to(dt)
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "f16"])
+def test_k3_nan_and_signed_zero_follow_the_ring(kind, op):
+    """max and min keep the ring's (own, acc) operand order, so a NaN
+    operand propagates with the payload of the fold order, while a tie of
+    -0.0 and +0.0 gives the zero of jnp.maximum/minimum in either order;
+    the model follows the replay bit for bit."""
+    p, n = 8, 32 * 8          # a block of 32: whole words at 2 bytes
+    for lines in (1, 2):
+        x = _nan_zero_data(len(kind) + lines, (lines * p, n),
+                           K3_KINDS[kind])
+        for ndir in (1, 2):
+            want = _bits(ici.hbm_ring_all_reduce_ref(
+                x, op, bidirectional=ndir == 2, lines=lines))
+            for vec in (True, False):
+                np.testing.assert_array_equal(
+                    _bits(_model_k3(x, op, vec, ndir, lines)), want)
+
+
+def test_signed_zeros_order_as_jnp_maximum_and_minimum():
+    """red(own, acc) for max of -0.0 and +0.0 is +0.0 and for min -0.0,
+    in either order, as XLA's jnp.maximum/minimum give them, on every
+    position of a long tensor (the CPU's torch.maximum answers by
+    position in its vector loop); a NaN operand on either side
+    propagates."""
+    neg, pos = torch.full((37,), -0.0), torch.zeros(37)
+    nan = torch.full((37,), float("nan"))
+    for op, sign in (("max", False), ("min", True)):
+        red = ring.reducer(op)
+        assert (torch.signbit(red(neg, pos)) == sign).all()
+        assert (torch.signbit(red(pos, neg)) == sign).all()
+        assert red(nan, pos).isnan().all() and red(pos, nan).isnan().all()
+
+
+def test_k3_model_tells_the_directions_apart():
+    """On non-integer f32 at p = 8 with both directions, the model with
+    the halves' orders swapped, or with one direction only, gives other
+    bits than the ring: the kernel must take the split as it is."""
+    x = _k3_data(11, (NP, NP * 32), "f32")
+    want = _bits(ici.hbm_ring_all_reduce_ref(x, bidirectional=True))
+    np.testing.assert_array_equal(_bits(_model_k3(x, "sum", True, 2)), want)
+    assert not np.array_equal(
+        _bits(_model_k3(x, "sum", True, 2, swap=True)), want)
+    assert not np.array_equal(_bits(_model_k3(x, "sum", True, 1)), want)

@@ -198,9 +198,15 @@ def test_accumulate_parity(nd, dt):
     _check_acc(nd, dt, _nelems(dt), 2, 1, 0, _CB, 20 + nd)
 
 
-@pytest.mark.parametrize("nd", (2, 4, 8))
-def test_direct_put_parity(nd):
-    _check_direct(nd, "f32", 7, 3, 0, nd - 1, None, 30 + nd)
+@pytest.mark.parametrize("nd,dt,n,disp", [
+    (2, "f32", 7, 3), (4, "f32", 7, 3), (8, "f32", 7, 3),
+    # K17 is K12's copy: 2- and 4-byte elements at a disp off the 16-byte
+    # words, with a count that is no whole number of words
+    (4, "bf16", 13, 5), (8, "bf16", 9, 1), (8, "i32", 11, 5),
+    (2, "i32", 6, 1)], ids=["2", "4", "8", "4-bf16-disp5", "8-bf16-disp1",
+                            "8-i32-disp5", "2-i32-disp1"])
+def test_direct_put_parity(nd, dt, n, disp):
+    _check_direct(nd, dt, n, disp, 0, nd - 1, None, 30 + nd)
 
 
 # the chunk-boundary shapes of test_pallas_rma.py, for every op
