@@ -146,6 +146,7 @@ HALF_TOL = dict(rtol=1e-2, atol=1e-2)  # 16-bit floats: one rounding of an f32 s
 # published dense peak of one H100 SXM in float32 outside the tensor
 # cores (TFLOP/s); the reductions here are far below it
 F32_PEAK_TFLOPS = 67.0
+TF32_PEAK_TFLOPS = 495.0           # dense TF32 on the tensor cores
 SOURCES = ("hbm_slot", "ring", "flash")   # mvapich2_tpu_torch/csrc/<name>.cu
 # ring kernels whose registers and spills [build] prints
 REG_REPORT = ("hbm_ring_reduce_scatter", "remote_sendrecv")
@@ -194,6 +195,10 @@ ATTN_SAMPLE = 256                  # rows a rank held against dense attention
 # the JAX tests' bound for flash against dense attention: the streaming
 # softmax orders its f32 sums otherwise
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)
+# K15/K16 against f64 attention at full width: at most this many times
+# the plain f32 version's max error (one TF32 product errs ~1000x more)
+ATTN_F64_FACTOR = 10.0
+ATTN_SHARP = 4.0                   # q and k scale of the sharp-logit cases
 
 
 def log(msg):
@@ -253,6 +258,67 @@ def phase_build(_build):
                         f"{ln.strip()}")
     log(f"[build] built and loaded {', '.join(SOURCES)} in {dt:.2f} s")
     return dt
+
+
+FLASH_INST = re.compile(r"flash_kernelI(f|6__half|13__nv_bfloat16)Li(\d+)E")
+FLASH_TYPES = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
+
+
+def _flash_inst(line):
+    """'f32/128' for a line naming flash_kernel<float, 128>, else None."""
+    mm = FLASH_INST.search(line)
+    return f"{FLASH_TYPES[mm.group(1)]}/{mm.group(2)}" if mm else None
+
+
+def phase_flash_build(_build):
+    """The flash kernel as built: ptxas's registers and spill bytes of
+    each instance (dtype/head width) from the build log, and the
+    tensor-core instructions (HMMA) in each instance's SASS, by
+    cuobjdump. Raises if an instance has none: its products would not
+    run on the tensor cores."""
+    import shutil
+    res, inst = {}, None
+    for ln in _build.BUILD_LOGS.get("flash", "").splitlines():
+        if "Compiling entry function" in ln:
+            inst = _flash_inst(ln)
+            if inst:
+                res[inst] = {}
+        elif inst and (mm := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                       r"bytes spill loads", ln)):
+            res[inst]["spill_bytes"] = int(mm.group(1)) + int(mm.group(2))
+        elif inst and (mm := re.search(r"Used (\d+) registers", ln)):
+            res[inst]["registers"] = int(mm.group(1))
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("[build] flash SASS: not measured (no cuobjdump)")
+        return res
+    sass = subprocess.run([tool, "--dump-sass",
+                           str(_build.library_path("flash"))],
+                          capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    inst, ops = None, set()
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inst = _flash_inst(ln)
+            if inst:
+                res.setdefault(inst, {})["hmma"] = 0
+        elif inst and "HMMA" in ln:
+            res[inst]["hmma"] += 1
+            op = re.search(r"HMMA\.[\w.]+", ln)
+            ops.add(op.group(0) if op else "HMMA")
+    short = [i for i, r in res.items() if not r.get("hmma")]
+    if short or not res:
+        raise AssertionError(f"[build] flash: no HMMA in the SASS of "
+                             f"{short or 'any instance'}")
+    d128 = res.get("f32/128", {})
+    log(f"[build] flash_kernel f32/128: {d128.get('registers')} registers, "
+        f"{d128.get('spill_bytes')} bytes of spill stores and loads, "
+        f"{d128['hmma']} HMMA ({', '.join(sorted(ops))}); all {len(res)} "
+        f"instances: " + ", ".join(
+            f"{i} {r.get('registers')}r/{r.get('spill_bytes')}s/"
+            f"{r['hmma']}h" for i, r in res.items()))
+    return res
 
 
 def _data(torch, np, rng, shape, kind, dev):
@@ -2948,6 +3014,8 @@ K16_CASES = ((None, 128, 128, 2, 32, True, 64, 64),
              (None, 64, 96, 2, 32, True, 16, 32),
              (7, 300, 300, 4, 128, False, 128, 128),
              (2, 200, 200, 2, 256, True, 128, 128))
+# K15 and K16 with q and k scaled by ATTN_SHARP: (batch, T, H, D, causal)
+SHARP_CASES = ((2, 512, 2, 128, True), (2, 512, 4, 128, False))
 
 
 def phase_flash_kernels(torch, flash, dev):
@@ -2956,10 +3024,14 @@ def phase_flash_kernels(torch, flash, dev):
     offsets with wholly-future and wholly-past blocks, a query tile that
     ends one key before the block, gcd-shrunk blocks, a row with no
     key) in f32, bf16 and f16, batches of ranks, head widths 16 to 256,
-    then the main paths' shapes: K15 over Ulysses' 8 x 2 head rows of
-    32,768 tokens, K16 over the ring's diagonal step and its first past
-    step. Then the plain version with TF32 on, which must fall outside
-    the tolerance. Returns the max abs error of the full-size checks."""
+    then q and k scaled by ATTN_SHARP (sharp logits, where the split
+    TF32 products' small terms matter), then the main paths' shapes: K15
+    over Ulysses' 8 x 2 head rows of 32,768 tokens, K16 over the ring's
+    diagonal step and its first past step, each also against f64
+    attention on the last ATTN_SAMPLE rows of every head row
+    (``_f64_check``). Then the plain version with TF32 on, which must
+    fall outside the tolerance. Returns the max abs errors of the
+    full-size checks."""
     _set_f32_matmul(torch, False)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1600)
 
@@ -2992,22 +3064,46 @@ def phase_flash_kernels(torch, flash, dev):
             _parts_check(torch, f"K16 {dt} {(b, T, Tk, H, D, causal)}", got,
                          want)
             n += 1
+    # sharp logits: q and k scaled up, so the split's small terms matter.
+    # Held against f64 attention on every row: the plain f32 version
+    # errs there by about ATTN_TOL's atol itself
+    f64 = {}
+    for b, T, H, D, causal in SHARP_CASES:
+        q, k = (rnd((b, T, H, D)) * ATTN_SHARP for _ in range(2))
+        v = rnd((b, T, H, D))
+        what = f"sharp x{ATTN_SHARP:g} {(b, T, H, D, causal)}"
+        f64["K15 " + what] = _f64_check(
+            torch, flash, "K15 " + what, flash.flash_attention(q, k, v, causal),
+            flash.flash_attention_ref(q, k, v, causal), q, k, v, causal, T)
+        got = flash.flash_attention_parts(q, k, v, causal)
+        ref = flash.flash_attention_parts_ref(q, k, v, causal)
+        _attn_check(torch, "K16 " + what + " m", got[0], ref[0])
+        f64["K16 " + what] = _f64_check(
+            torch, flash, "K16 " + what, _parts_out(got), _parts_out(ref),
+            q, k, v, causal, T)
+        n += 2
     p, T, H, D = ATTN_P, ATTN_T, ATTN_H, ATTN_D
     hl = H // p
     qh, kh, vh = (rnd((p, p * T, hl, D)) for _ in range(3))
-    err15 = _attn_check(torch, "K15 Ulysses full width",
-                        flash.flash_attention(qh, kh, vh, True),
-                        flash.flash_attention_ref(qh, kh, vh, True))
-    del qh, kh, vh
+    got = flash.flash_attention(qh, kh, vh, True)
+    ref = flash.flash_attention_ref(qh, kh, vh, True)
+    err15 = _attn_check(torch, "K15 Ulysses full width", got, ref)
+    f64["K15"] = _f64_check(torch, flash, "K15 Ulysses full width", got,
+                            ref, qh, kh, vh, True)
+    del qh, kh, vh, got, ref
     q, k, v = (rnd((p, T, H, D)) for _ in range(3))
-    err16 = max(
-        _parts_check(torch, "K16 ring step 0",
-                     flash.flash_attention_parts(q, k, v, True),
-                     flash.flash_attention_parts_ref(q, k, v, True)),
-        _parts_check(torch, "K16 ring step 1",
-                     flash.flash_attention_parts(q[1:], k[1:], v[1:], False),
-                     flash.flash_attention_parts_ref(q[1:], k[1:], v[1:],
-                                                     False)))
+    err16 = 0.0
+    for step, (blocks, causal) in enumerate((((q, k, v), True),
+                                              ((q[1:], k[1:], v[1:]),
+                                               False))):
+        what = f"K16 ring step {step}"
+        got = flash.flash_attention_parts(*blocks, causal)
+        ref = flash.flash_attention_parts_ref(*blocks, causal)
+        err16 = max(err16, _parts_check(torch, what, got, ref))
+        f64[f"K16_step{step}"] = _f64_check(
+            torch, flash, what, _parts_out(got), _parts_out(ref), *blocks,
+            causal)
+        del got, ref
     n += 3
     # TF32 products must fail the f32 tolerance, or it could not tell
     # the kernel's f32 arithmetic from TF32
@@ -3023,10 +3119,53 @@ def phase_flash_kernels(torch, flash, dev):
                              f"check cannot tell f32 from TF32")
     log(f"[kernels] flash: {n} checks of K15/K16 against their plain "
         f"versions (f32 rtol {ATTN_TOL['rtol']} atol {ATTN_TOL['atol']}, "
-        f"one ulp more in bf16/f16); full width K15 err {err15:.3g}, K16 "
-        f"{err16:.3g}; the TF32 plain version is off by {tf32_err:.3g}, "
-        f"outside the tolerance")
-    return {"K15": err15, "K16": err16, "tf32_err": tf32_err}
+        f"one ulp more in bf16/f16; {2 * len(SHARP_CASES)} with q and k "
+        f"x{ATTN_SHARP:g}, held against f64); full width K15 err "
+        f"{err15:.3g}, K16 {err16:.3g}; against f64 attention (the last "
+        f"{ATTN_SAMPLE} rows a head row at full width, every row of the "
+        f"sharp cases; kernel / plain): "
+        + ", ".join(f"{w} {a:.3g} / {b:.3g}" for w, (a, b) in f64.items())
+        + f"; the TF32 plain version is off by {tf32_err:.3g}, outside the "
+        f"tolerance")
+    return {"K15": err15, "K16": err16, "tf32_err": tf32_err,
+            "f64_err": {w: {"kernel": a, "plain": b}
+                        for w, (a, b) in f64.items()}}
+
+
+def _parts_out(parts):
+    """K16's (m, num, den) normalised: num / den, [B, T, H, D]."""
+    return parts[1] / parts[2].transpose(-1, -2)[..., None]
+
+
+def _f64_check(torch, flash, what, got, plain, q, k, v, causal,
+               rows=None):
+    """The last ``rows`` (ATTN_SAMPLE) query rows of each head row of ``got`` (the
+    kernel) and ``plain`` (its plain version), [B, T, H, D] outputs of
+    attention over [B, T, H, D] blocks at block-local positions, against
+    attention in f64 on the same inputs (q scaled by the same f32
+    D^-0.5). The kernel must lie within ATTN_TOL of it and its max error
+    within ATTN_F64_FACTOR times the plain version's. Returns both max
+    errors."""
+    T, D = q.shape[1], q.shape[-1]
+    lo = T - (rows or ATTN_SAMPLE)
+    qq = q[:, lo:].double() * flash._scale(D)
+    s = torch.einsum("bthd,bkhd->bhtk", qq, k.double())
+    if causal:
+        pq = torch.arange(lo, T, device=q.device)
+        pk = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(pq[:, None] < pk[None, :], float("-inf"))
+    want = torch.einsum("bhtk,bkhd->bthd", torch.softmax(s, -1), v.double())
+    del s
+    got, plain = got[:, lo:].double(), plain[:, lo:].double()
+    ek = (got - want).abs().max().item()
+    ep = (plain - want).abs().max().item()
+    if not torch.allclose(got, want, **ATTN_TOL) or \
+            ek > ATTN_F64_FACTOR * ep:
+        raise AssertionError(f"{what}: against f64 attention the kernel errs "
+                             f"{ek}, the plain f32 version {ep} (limits: "
+                             f"ATTN_TOL and {ATTN_F64_FACTOR:g}x the plain "
+                             f"version's)")
+    return ek, ep
 
 
 def _dense_rows(torch, q, k, v, lo, hi):
@@ -3126,19 +3265,25 @@ def phase_attn_times(torch, flash, ul, coll, timing, info, launches, lat,
     versions 3 after 1), beside the bound and the library yardstick:
     scaled_dot_product_attention (memory-efficient backend) on the same
     f32 blocks, causal for K15, non-causal for K16's step (it gives the
-    normalised output, not the parts: for scale)."""
+    normalised output, not the parts: for scale). The bound is the
+    arithmetic the kernels run, three TF32 products a multiply-add at
+    TF32_PEAK_TFLOPS (or the bytes, if longer); ``f32_bound_ms`` is one
+    f32 product at F32_PEAK_TFLOPS on the CUDA cores."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     _set_f32_matmul(torch, False)
     bw = info.hbm_bw_gbps * 1e9
-    peak = F32_PEAK_TFLOPS * 1e12
     q, k, v, comm = data
     p, T, H, D = ATTN_P, ATTN_T, ATTN_H, ATTN_D
     tg = p * T
 
     def bound(nbytes, flops):
-        tb, to = nbytes / bw * 1e3, flops / peak * 1e3
+        tb = nbytes / bw * 1e3
+        to = 3 * flops / (TF32_PEAK_TFLOPS * 1e12) * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
+
+    def f32_bound(flops):
+        return flops / (F32_PEAK_TFLOPS * 1e12) * 1e3
 
     def heads_major(x):
         return x.permute(0, 2, 1, 3)           # [B, H, T, D] view
@@ -3177,6 +3322,9 @@ def phase_attn_times(torch, flash, ul, coll, timing, info, launches, lat,
     k16_call = timing.time_ms(lambda: _ring_k16_launches(flash, qs, ks, vs),
                               warmup=1, iters=3)
     k16_call_b, _ = bound(0, 4 * D * pairs)
+    f32_b = {"K15": f32_bound(4 * D * pairs),
+             "K16": f32_bound(4 * D * (p - 1) * H * T * T),
+             "call": f32_bound(4 * D * pairs)}
     del q1, k1, v1, qs, ks, vs
     e2e = {n: statistics.median(t) * 1e3 for n, t in lat.items()}
     kernels = [
@@ -3185,13 +3333,15 @@ def phase_attn_times(torch, flash, ul, coll, timing, info, launches, lat,
          "replaces": "mvapich2_tpu/models/flash.py:121",
          "launches": launches["ulysses"]["flash_attention"],
          "max_abs_err": full_err["K15"], "ms": k15, "plain_ms": k15_plain,
-         "bound_ms": k15_b, "bound_by": k15_by, "library_ms": k15_lib},
+         "bound_ms": k15_b, "bound_by": k15_by, "library_ms": k15_lib,
+         "f32_bound_ms": f32_b["K15"]},
         {"name": "flash_attention_parts", "route": "cuda",
          "source": "mvapich2_tpu_torch/csrc/flash.cu",
          "replaces": "mvapich2_tpu/models/flash.py:157",
          "launches": launches["ring"]["flash_attention_parts"],
          "max_abs_err": full_err["K16"], "ms": k16, "plain_ms": k16_plain,
-         "bound_ms": k16_b, "bound_by": k16_by, "library_ms": k16_lib},
+         "bound_ms": k16_b, "bound_by": k16_by, "library_ms": k16_lib,
+         "f32_bound_ms": f32_b["K16"]},
     ]
     extra = {"attn_e2e_ms": e2e,
              "attn_e2e_ms_all": {n: [t * 1e3 for t in ts]
@@ -3199,15 +3349,18 @@ def phase_attn_times(torch, flash, ul, coll, timing, info, launches, lat,
              "attn_tokens_per_s": {n: tg / (t * 1e-3)
                                    for n, t in e2e.items()},
              "k16_ring_call_ms": k16_call, "k16_ring_call_bound_ms":
-             k16_call_b, "k15_f32_peak_share": k15_b / k15,
-             "k16_f32_peak_share": k16_b / k16,
-             "tf32_plain_err": full_err["tf32_err"]}
+             k16_call_b, "k16_ring_call_f32_bound_ms": f32_b["call"],
+             "k15_peak_share": k15_b / k15, "k16_peak_share": k16_b / k16,
+             "tf32_plain_err": full_err["tf32_err"],
+             "attn_f64_err": full_err["f64_err"]}
     log(f"[times] K15 (Ulysses, {p} x {H // p} heads x {tg} tokens) "
-        f"{k15:.3f} ms (bound {k15_b:.3f} {k15_by}, plain {k15_plain:.3f}, "
-        f"SDPA {k15_lib:.3f}); K16 step 1 ({p - 1} ranks x {H} heads x "
-        f"{T}^2) {k16:.3f} ms (bound {k16_b:.3f} {k16_by}, plain "
-        f"{k16_plain:.3f}, SDPA {k16_lib:.3f}); K16 a ring call "
-        f"{k16_call:.3f} ms (bound {k16_call_b:.3f}); e2e ring "
+        f"{k15:.3f} ms (bound {k15_b:.3f} {k15_by}: 3 TF32 products at "
+        f"{TF32_PEAK_TFLOPS:g} TFLOP/s; f32 bound {f32_b['K15']:.3f}, plain "
+        f"{k15_plain:.3f}, SDPA {k15_lib:.3f}); K16 step 1 ({p - 1} ranks x "
+        f"{H} heads x {T}^2) {k16:.3f} ms (bound {k16_b:.3f} {k16_by}, f32 "
+        f"bound {f32_b['K16']:.3f}, plain {k16_plain:.3f}, SDPA "
+        f"{k16_lib:.3f}); K16 a ring call {k16_call:.3f} ms (bound "
+        f"{k16_call_b:.3f}, f32 bound {f32_b['call']:.3f}); e2e ring "
         f"{e2e['ring']:.3f} ms, Ulysses {e2e['ulysses']:.3f} ms")
     return kernels, extra
 
@@ -3246,8 +3399,11 @@ def phase_attn_profile(torch, ra, ul, lat, data):
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 groups[_attn_group(ev.key)] += ev.self_device_time_total
         busy = sum(groups.values())
-        if not busy:
-            split[name] = "not measured (no device activity profiled)"
+        if not groups["kernel"]:
+            # every call launches K15 or K16: a profile without them
+            # lost the kernel's record, and its idle share would be false
+            split[name] = ("not measured (the profiler recorded no flash "
+                           f"kernel; {busy:.0f} us of other device time)")
             continue
         split[name] = {**groups, "busy_us": busy, "idle_share":
                        1 - busy / (statistics.median(lat[name]) * 1e6)}
@@ -3473,6 +3629,7 @@ def main(argv=None):
                           f, indent=1)
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
+    flash_build = phase_flash_build(_build)
     full_err = phase_kernels(torch, np, hbm, dev)
     full_err.update(phase_ring_kernels(torch, np, ici, ring, dev))
     full_err.update(phase_rs_kernels(torch, np, ici, ring, dev))
@@ -3529,6 +3686,7 @@ def main(argv=None):
     extra.update(rs_extra)
     extra.update(a2a_extra)
     extra.update(rma_extra)
+    extra["flash_build"] = flash_build
     extra["rma_host_profile"] = phase_rma_host_profile(torch, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)

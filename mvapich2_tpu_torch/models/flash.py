@@ -28,8 +28,13 @@ vectorised over heads and query tiles, in the JAX package's block sizes,
 never building ``[H, T, Tk]``); a CUDA tensor launches the kernel on the
 current stream or raises. ``LAUNCHES`` and ``PLAIN_CALLS`` count each.
 ``block_q`` / ``block_k`` are the JAX tile sizes: the plain version
-walks them; the kernel has its own (64 x 64), so they change only the
-f32 summation order there.
+walks them; the kernel has its own (128 query rows x 64 keys up to head
+width 128, 64 x 32 at 256), so they change only the f32 summation order
+there. The kernel runs both products on the tensor cores in split TF32
+(three TF32 products a multiply-add, about 21 bits each), which meets
+the f32 tolerance that one TF32 product misses. It reads its inputs in
+vectors of four elements, so a tensor whose data is not 16-byte aligned
+is copied first.
 """
 
 from __future__ import annotations
@@ -212,6 +217,16 @@ def _kernel_args(q, k, v, what: str) -> Tuple[int, Tuple[int, ...]]:
     return code, (B, H, T, k.shape[1], D)
 
 
+def _aligned(*xs):
+    """Contiguous copies of the tensors, and a fresh one of any whose data
+    does not start on a 16-byte boundary (the kernel's vector reads)."""
+    out = []
+    for x in xs:
+        x = x.contiguous()
+        out.append(x.clone() if x.data_ptr() % 16 else x)
+    return out
+
+
 def _launch(fn: str, device: torch.device, *args) -> None:
     from ..ops import _build
     lib = _build.load("flash")
@@ -234,7 +249,7 @@ def flash_attention(q, k, v, causal: bool = True, q0: int = 0,
         return _unbatched(_out_ref(qb, kb, vb, causal, q0, k0, block_q,
                                    block_k), added)
     code, (B, H, T, Tk, D) = _kernel_args(qb, kb, vb, "flash_attention")
-    qb, kb, vb = qb.contiguous(), kb.contiguous(), vb.contiguous()
+    qb, kb, vb = _aligned(qb, kb, vb)
     out = torch.empty_like(qb)
     _launch("mv2t_flash_attention", qb.device, code, qb.data_ptr(),
             kb.data_ptr(), vb.data_ptr(), out.data_ptr(), B, H, T, Tk, D,
@@ -257,7 +272,7 @@ def flash_attention_parts(q, k, v, causal: bool, block_q: int = 128,
                           added)
     code, (B, H, T, Tk, D) = _kernel_args(qb, kb, vb,
                                           "flash_attention_parts")
-    qb, kb, vb = qb.contiguous(), kb.contiguous(), vb.contiguous()
+    qb, kb, vb = _aligned(qb, kb, vb)
     f32 = dict(dtype=torch.float32, device=qb.device)
     m = torch.empty((B, H, T), **f32)
     num = torch.empty((B, T, H, D), **f32)
