@@ -22,8 +22,10 @@ non-zero, printing no result, without them. Phases:
    5, 8 and 64 on eight dtypes, on their vector and scalar paths (blocks
    of whole 16-byte words and odd ones, shards aligned and at element
    offset 1), at 64 KiB and at their 4 MiB limit; the alltoall kernels
-   K10/K11 bitwise (K10 on f32, bf16, i32 and u8, K11 also on f16, i8
-   and u16) at depth 2/3/4, one and two lanes, a ragged block, the MoE
+   K10/K11 (K11's direct copy by tile table; K10 over the uniform plan's
+   table) bitwise (K10 on f32, bf16, i32 and u8, K11 also on f16, i8
+   and u16) under the TPU schedule's depth 2/3/4 and one and two lanes
+   (which shape nothing), a ragged block, the MoE
    bench's three routing matrices at p = 8, 3 and 2, a matrix with
    zero-count pairs and a step empty on every rank, K11 payloads at
    element offset 1 and spread displacements with out_len, K10 at 64
@@ -33,11 +35,13 @@ non-zero, printing no result, without them. Phases:
    and wholly-past blocks, gcd-shrunk blocks, f32/bf16/f16, head widths
    16 to 256, and the attention paths' full-width launches), and the
    plain version with TF32 on, which must fall outside the tolerance;
-   then K4 (the ring reduce-scatter) bitwise on f32, i32 with the four
-   ops and bf16, small and ragged sizes, depth 2/3/4, one and two
-   directions, lines 1/2/4, the (2, 4) mesh's RS-x phase and 8 x 64 MiB
-   f32; K3 and K5 over 2 and 4 lines; K8 (sendrecv) bitwise on f32,
-   bf16, i32 and u8, an unaligned n, src == dst and 8 x 64 MiB;
+   then K4 (the ring reduce-scatter as K3's direct fold kept to each
+   block's owner) bitwise on the nine dtypes and the four ops, small
+   and ragged sizes (padded tails), NaN and signed zeros under max and
+   min, one and two directions, lines 1/2/4, the (2, 4) mesh's RS-x
+   phase and 8 x 64 MiB f32; K3 and K5 over 2 and 4 lines; K8
+   (sendrecv) bitwise on f32, bf16, i32 and u8, an unaligned n, src ==
+   dst and 8 x 64 MiB;
 4. main path: 8 ranks (run_ranks) allreduce 64 MiB f32 tensors each on
    cuda:0 through the slot channel into K1, plus the small collectives,
    then the one-chip bench candidates (K1 and K2) at the same size; the
@@ -103,12 +107,14 @@ non-zero, printing no result, without them. Phases:
    64 MiB, K12/K13/K14 misaligned (N - 7 at disp 5) beside copy_ or add_,
    K12/K13 at 1 KiB and 64 KiB, and the OSU band; K15 and K16 beside
    scaled_dot_product_attention on the same blocks; K4 at 8 x 64 MiB and
-   as the (2, 4) RS-x phase, K8 at 8 x 64 MiB, and the e2e latency of
+   as the (2, 4) RS-x phase (by card time too), K8 at 8 x 64 MiB, and
+   the e2e latency of
    the fold and (2, 4) allreduces beside the 1-D mesh call; K6 and K7
    at 8 x 64 KiB and at their 4 MiB limit by card time too (queued
    behind a sleep kernel; at 4 MiB also with L2 evicted), each beside
    its library form that writes every rank's copy; K5 at 8 x 1 MiB and
-   as the (2, 4) allreduce's AG-y and AG-x phases by card time too; K11
+   as the (2, 4) allreduce's AG-y and AG-x phases by card time too; K10
+   at 64 MiB a rank by card time too; K11
    on the hot, skew and uniform MoE dispatch by CUDA events and card
    time, beside one index_select from the concatenated payloads;
 11. profiles: the host side of one fence of 32 puts and 32 gets at 1
@@ -122,9 +128,10 @@ non-zero, printing no result, without them. Phases:
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
 only phases 1 and 2, then the launch-shape sweeps of the streaming ring
-(``phase_sweep``: K4) and of the K12/K13 copy (``phase_copy_sweep``),
-which chose the launch shapes in ``coll/tuning.py``, and of K11's tile
-size (``phase_tile_sweep``), which chose ``alltoall.TILE_BYTES``.
+(``phase_sweep``: K9, the one left) and of the K12/K13 copy
+(``phase_copy_sweep``), which chose the launch shapes in
+``coll/tuning.py``, and of K11's tile size (``phase_tile_sweep``), which
+chose ``alltoall.TILE_BYTES``.
 """
 
 import argparse
@@ -149,13 +156,13 @@ F32_PEAK_TFLOPS = 67.0
 TF32_PEAK_TFLOPS = 495.0           # dense TF32 on the tensor cores
 SOURCES = ("hbm_slot", "ring", "flash")   # mvapich2_tpu_torch/csrc/<name>.cu
 # ring kernels whose registers and spills [build] prints
-REG_REPORT = ("hbm_ring_reduce_scatter", "remote_sendrecv")
+REG_REPORT = ("remote_sendrecv",)
 # element types of the K12/K13 copy and K11 instances, as their names
 # mangle them
 COPY_TYPES = {"j": "u32", "t": "u16", "h": "u8"}
-# the K3/K6 and K7/K5 instances whose registers [build] prints: the f32
-# fold on both paths (sum; max too on the word path, with its NaN
-# branch), the gather's word and 4-byte element
+# the K3/K6, K4 and K7/K5 instances whose registers [build] prints: the
+# f32 fold of K3 and K4 on both paths (sum; max too on the word path,
+# with its NaN branch), the gather's word and 4-byte element
 DIRECT_TYPES = {"ffLi0": "float, float, sum",
                 "f5uint4Li0": "float, uint4, sum",
                 "f5uint4Li1": "float, uint4, max", "5uint4": "uint4",
@@ -232,7 +239,7 @@ def phase_build(_build):
         log(f"[build] {name}.cu: {len(regs)} kernel instantiations "
             f"(ptxas e.g.: {regs[0] if regs else 'n/a'})")
         # the residency of the quant kernels and of the f32 sum
-        # instances of K3-K8: registers and spills an entry
+        # instances of K3-K8, K10 and K11: registers and spills an entry
         entry = None
         for ln in lines:
             if "Compiling entry function" in ln:
@@ -241,7 +248,8 @@ def phase_build(_build):
                 kern = [k for k in REG_REPORT if k in entry]
                 copy = re.search(r"(rma_copy_kernel|hbm_alltoallv_direct_"
                                  r"kernel)I(\w)E", entry)
-                direct = re.search(r"(ring_all_\w+_direct_kernel)I("
+                direct = re.search(r"(ring_(?:all_reduce|all_gather|reduce_"
+                                   r"scatter)_direct_kernel)I("
                                    + "|".join(DIRECT_TYPES) + ")E", entry)
                 if copy:
                     log(f"[build] {copy.group(1)}<"
@@ -635,15 +643,19 @@ def phase_ring_kernels(torch, np, ici, ring, dev):
 
 def phase_rs_kernels(torch, np, ici, ring, dev):
     """K4 and K8, and K3/K5 over several lines, against their plain
-    versions, bitwise: K4 on normal f32, i32 with the four ops and bf16,
-    small and ragged sizes (n % p != 0, a short last chunk, one chunk
-    smaller than the block), depth 2/3/4, one and two ring directions,
+    versions, bitwise: K4 on the nine dtypes of K3 with the four ops,
+    small and ragged sizes (n % p != 0: the padded tail of the last
+    block holds the op's identity; n = 1: every block but the first is
+    padding; whole-word blocks and halves on the word path), NaN and
+    signed zeros under max and min, the TPU schedule's depth 2/3/4 and
+    chunk sizes (which shape nothing), one and two ring directions,
     lines 1, 2 and 4, the (2, 4) mesh's RS-x phase and 8 x 64 MiB f32;
     K3 and K5 with lines 2 and 4; every K4/K5 phase of the (2, 4) and
     (4, 2) programs and every K3/K5/K6/K7 ring of the fold path at the
     shapes the paths give them; K8 on f32, bf16, i32 and u8, an n that
-    is no multiple of 16 bytes, src == dst, 8 x 64 MiB. Returns the max
-    abs error of the full-size f32 checks (K4, K8)."""
+    is no multiple of 16 bytes, src == dst, 8 x 64 MiB. uint16/uint32
+    plain versions run on the CPU. Returns the max abs error of the
+    full-size f32 checks (K4, K8)."""
     rng = np.random.default_rng(SEED + 500)
     n_checks = 0
     full_err = {}
@@ -657,19 +669,45 @@ def phase_rs_kernels(torch, np, ici, ring, dev):
         if key:
             full_err[key] = err
 
-    # K4: small and ragged, every op on i32, f32 and bf16 sums
+    def plain_side(xs, kind):
+        return [x.cpu() for x in xs] if kind in ("u16", "u32") else xs
+
+    # K4: small and ragged, the nine dtypes and the four ops (f32 normal
+    # data: the fold order is the plain version's, so bitwise too)
     for p, n, cb in ((8, 64, 64), (8, 37, 16), (3, 10, 16), (2, 9, 16),
-                     (8, 1000, 64), (4, 1025, 256), (8, 4096, None)):
-        for kind in ("f32", "i32", "bf16"):
+                     (8, 1000, 64), (4, 1025, 256), (8, 4096, None),
+                     (8, 1, None), (5, 5 * 64 - 3, None)):
+        for kind in K3_KINDS:
             xs = _shards(torch, np, rng, p, n, kind, dev)
-            for op in (("sum", "max", "min", "prod") if kind == "i32"
-                       else ("sum",)):
+            xp = plain_side(xs, kind)
+            for op in ("sum", "max", "min", "prod"):
                 for bidir in (True, False):
                     check(f"K4 p={p} n={n} {kind} {op} bidir={bidir}",
                           ici.hbm_ring_reduce_scatter(
                               xs, op, chunk_bytes=cb, bidirectional=bidir),
                           ici.hbm_ring_reduce_scatter_ref(
-                              xs, op, bidirectional=bidir))
+                              xp, op, bidirectional=bidir))
+    # K4 under max and min with NaNs and ties of -0.0 and +0.0 (NaNs
+    # compared as one pattern: where they land is the fold order's,
+    # their payload the card's arithmetic)
+    pool = np.array([-1.0, -0.0, 0.0, 1.0, np.nan], np.float32)
+    for p, n in ((8, 8 * 32), (8, 37)):
+        for kind, tname in K3_FLOATS.items():
+            x = torch.from_numpy(pool[rng.integers(0, 5, size=(p, n))]).to(
+                dev, getattr(torch, tname))
+            xs = [x[r].clone() for r in range(p)]
+            iv = {1: torch.int8, 2: torch.int16,
+                  4: torch.int32}[xs[0].element_size()]
+            for op in ("max", "min"):
+                for bidir in (True, False):
+                    got = ici.hbm_ring_reduce_scatter(xs, op,
+                                                      bidirectional=bidir)
+                    want = ici.hbm_ring_reduce_scatter_ref(
+                        xs, op, bidirectional=bidir)
+                    check(f"K4 NaN/-0 p={p} n={n} {kind} {op} "
+                          f"bidir={bidir}",
+                          got.view(iv).masked_fill(got.isnan(), -1),
+                          want.view(iv).masked_fill(want.isnan(), -1))
     # K4 depth / direction / lines at a size of many chunks
     for n in (100003, 8 * 3584):
         for kind in ("f32", "i32"):
@@ -2166,8 +2204,10 @@ def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
     beside its bound, its schedule bound, its plain version and the
     library call (K4: torch.stack(x).sum(0), whose blocks are the ranks'
     outputs; K8: torch.stack by partner index); K4 also as the (2, 4)
-    mesh's RS-x phase (4 lines of 2). Then the host-clock latency of the
-    fold and (2, 4) allreduces of 64 MiB beside the 1-D mesh call."""
+    mesh's RS-x phase (4 lines of 2), and K4 and its library call in both
+    shapes by card time too (``_queued_ms``). Then the host-clock latency
+    of the fold and (2, 4) allreduces of 64 MiB beside the 1-D mesh
+    call."""
     bw = info.hbm_bw_gbps * 1e9
     p, m = R, N * 4
 
@@ -2189,6 +2229,12 @@ def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
         iters=5)
     k4x_lib = timing.time_ms(
         lambda: torch.stack(inputs).reshape(2, 4, N).sum(0))
+    k4_card = _queued_ms(torch, lambda: ici.hbm_ring_reduce_scatter(inputs))
+    k4_lib_card = _queued_ms(torch, lambda: torch.stack(inputs).sum(0))
+    k4x_card = _queued_ms(
+        torch, lambda: ici.hbm_ring_reduce_scatter(rsx, lines=4))
+    k4x_lib_card = _queued_ms(
+        torch, lambda: torch.stack(inputs).reshape(2, 4, N).sum(0))
     k8_ms = timing.time_ms(lambda: ici.remote_sendrecv(inputs, 2, 5))
     k8_plain = timing.time_ms(lambda: ici.remote_sendrecv_ref(inputs, 2, 5))
     k8_lib = timing.time_ms(lambda: torch.stack([inputs[j] for j in part]))
@@ -2198,8 +2244,6 @@ def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
     k4_b, k4_by = bound(p * m + m, (p - 1) * N)
     k4x_b, k4x_by = bound(p * m + p * m // 2, 4 * N)
     k8_b, k8_by = bound(2 * p * m, 0)
-    k4_sched = p * (p - 1) * 5 * m / p
-    k4x_sched = p * 5 * m / 2
     kernels = [
         {"name": "hbm_ring_reduce_scatter", "route": "cuda",
          "source": "mvapich2_tpu_torch/csrc/ring.cu",
@@ -2207,10 +2251,10 @@ def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
          "launches": launches["hbm_ring_reduce_scatter"],
          "max_abs_err": full_err["K4"], "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_b, "bound_by": k4_by, "library_ms": k4_lib,
-         "schedule_bound_ms": k4_sched / bw * 1e3,
-         "schedule_bytes": "p*(p-1)*5m/p: a step reads and writes m/p "
-                           "through the slot and reads the input and "
-                           "writes m/p at the fold"},
+         "schedule_bound_ms": k4_b,
+         "schedule_bytes": "= bound: one direct fold, every input read "
+                           "once, every block written once",
+         "card_ms": k4_card, "library_card_ms": k4_lib_card},
         {"name": "remote_sendrecv", "route": "cuda",
          "source": "mvapich2_tpu_torch/csrc/ring.cu",
          "replaces": "mvapich2_tpu/ops/pallas_ici.py:642",
@@ -2224,7 +2268,8 @@ def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
     med = {k: statistics.median(v) * 1e3 for k, v in lat.items()}
     extra = {"k4_rs_x_ms": k4x_ms, "k4_rs_x_plain_ms": k4x_plain,
              "k4_rs_x_library_ms": k4x_lib, "k4_rs_x_bound_ms": k4x_b,
-             "k4_rs_x_schedule_bound_ms": k4x_sched / bw * 1e3,
+             "k4_rs_x_card_ms": k4x_card,
+             "k4_rs_x_library_card_ms": k4x_lib_card,
              **{f"{k}_e2e_allreduce_ms": v for k, v in med.items()},
              **{f"{k}_e2e_allreduce_ms_all": [t * 1e3 for t in v]
                 for k, v in lat.items()}}
@@ -2233,9 +2278,11 @@ def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
         f"schedule bound {k['schedule_bound_ms']:.4f}, plain "
         f"{k['plain_ms']:.4f}, library {k['library_ms']:.4f}), launches "
         f"{k['launches']}" for k in kernels)
-        + f"; K4 as the (2, 4) RS-x phase {k4x_ms:.4f} ms (bound "
-        f"{k4x_b:.4f}, schedule bound {k4x_sched / bw * 1e3:.4f}, plain "
-        f"{k4x_plain:.4f}, library {k4x_lib:.4f})")
+        + f"; K4 card {k4_card:.4f} ms ({k4_b / k4_card:.1%} of the "
+        f"bound), library card {k4_lib_card:.4f}; K4 as the (2, 4) RS-x "
+        f"phase {k4x_ms:.4f} ms, card {k4x_card:.4f} ({k4x_b / k4x_card:.1%}"
+        f" of the bound {k4x_b:.4f}), plain {k4x_plain:.4f}, library "
+        f"{k4x_lib:.4f}, card {k4x_lib_card:.4f}")
     log("[times] e2e allreduce 64 MiB f32 (median): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in med.items()))
     return kernels, extra
@@ -2246,17 +2293,21 @@ def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
     """K10 and K11 at the shapes the mesh path gives them (64 MiB f32 a
     rank; the MoE dispatch at 4096 x 4096 of each routing, hot in the
     row), by CUDA events, beside their bound (each input read once, each
-    output written once), their schedule bound (K10: local block 2 bytes
-    a byte, every other pair 4: read input, write slot, read slot, write
-    output; K11 moves its bound), their plain versions and the library
-    call (K10: the stacked transpose; K11: one index_select from the
-    concatenated payloads by an int32 index built once, checked equal to
-    K11's output first); K11 and its library call also by card time
-    (``_queued_ms``); and the mesh path's end-to-end alltoall latency."""
+    output written once), their schedule bound (both one direct copy by
+    tile table, which moves the bound), their plain versions and the
+    library call (K10: the stacked transpose; K11: one index_select from
+    the concatenated payloads by an int32 index built once, checked
+    equal to K11's output first); both and their library calls also by
+    card time (``_queued_ms``); and the mesh path's end-to-end alltoall
+    latency."""
     bw = info.hbm_bw_gbps * 1e9
     gen = torch.Generator(device=dev).manual_seed(SEED + 700)
     c = N // R
     xs = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
+
+    def transpose():
+        return torch.stack(xs).view(R, R, c).transpose(0, 1).contiguous()
+
     k10 = {"name": "hbm_alltoall", "route": "cuda",
            "source": "mvapich2_tpu_torch/csrc/ring.cu",
            "replaces": "mvapich2_tpu/ops/pallas_alltoall.py:424",
@@ -2266,12 +2317,12 @@ def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
            "plain_ms": timing.time_ms(lambda: a2a.hbm_alltoall_ref(xs),
                                       warmup=1, iters=5),
            "bound_ms": 2 * R * N * 4 / bw * 1e3, "bound_by": "bytes",
-           "library_ms": timing.time_ms(
-               lambda: torch.stack(xs).view(R, R, c).transpose(0, 1)
-               .contiguous()),
-           "schedule_bound_ms": (4 * R - 2) * N * 4 / bw * 1e3,
-           "schedule_bytes": "m(4p-2): local block 2m/p, each of p-1 "
-                             "steps 4m/p, a rank"}
+           "library_ms": timing.time_ms(transpose),
+           "schedule_bound_ms": 2 * R * N * 4 / bw * 1e3,
+           "schedule_bytes": "= bound: one direct copy by the uniform "
+                             "tile table",
+           "card_ms": _queued_ms(torch, lambda: a2a.hbm_alltoall(xs)),
+           "library_card_ms": _queued_ms(torch, transpose)}
     del xs
     ring.check_errors()
     routings = {}
@@ -2333,10 +2384,11 @@ def phase_a2a_times(torch, a2a, ring, moe, timing, info, lat, launches,
              "mesh_e2e_alltoall_effbw_GBps":
                  (R - 1) / R * N * 4 / statistics.median(lat) / 1e9}
     log("[times] alltoall kernels " + "; ".join(
-        f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}, schedule "
-        f"bound {k['schedule_bound_ms']:.4f}, plain {k['plain_ms']:.4f}, "
-        f"library {k['library_ms']:.4f}), launches {k['launches']}"
-        for k in rows))
+        f"{k['name']}: {k['ms']:.4f} ms, card {k['card_ms']:.4f} "
+        f"({k['bound_ms'] / k['card_ms']:.1%} of the bound "
+        f"{k['bound_ms']:.4f}), plain {k['plain_ms']:.4f}, "
+        f"library {k['library_ms']:.4f}, card {k['library_card_ms']:.4f}, "
+        f"launches {k['launches']}" for k in rows))
     log("[times] K11 by routing at 4096 x 4096 f32 (tiles of "
         f"{a2a.TILE_BYTES} bytes): " + "; ".join(
             f"{shape}: " + ", ".join(f"{k} {v:.4f}" for k, v in r.items()
@@ -3411,8 +3463,9 @@ def phase_attn_profile(torch, ra, ul, lat, data):
     return split
 
 
-# kernel name -> group; K3 runs as ring_all_reduce_direct_kernel, which
-# it shares with K6 (no K6 runs on a 64 MiB call)
+# kernel name -> group; K4 runs as ring_reduce_scatter_direct_kernel, K3
+# as ring_all_reduce_direct_kernel, which it shares with K6 (no K6 runs
+# on a 64 MiB call)
 HIER_GROUPS = (("slot_reduce", "K1"), ("ring_reduce_scatter", "K4"),
                ("ring_all_gather", "K5"), ("ring_all_reduce_direct", "K3"))
 
@@ -3454,45 +3507,53 @@ def phase_hier_profile(torch, mvt, dev, inputs, lat):
                        1 - busy / (statistics.median(lat[name]) * 1e6)}
     log(f"[hier] device time of one 64 MiB allreduce, us (torch.profiler):"
         f" {split}")
+    m2 = split["mesh2d"]
+    if isinstance(m2, dict):
+        log(f"[hier] (2, 4) call: K4 {m2['K4']:.1f} us over its two "
+            f"phases, K5 {m2['K5']:.1f}, busy {m2['busy_us']:.1f}, idle "
+            f"share {m2['idle_share']:.3f}")
     return split
 
 
-def phase_sweep(torch, ici, ring, tuning, timing, dev):
-    """The streaming ring's launch-shape sweep (``--sweep``): K4, the
-    streaming ring that remains (K3 is a direct fold with one launch
-    shape), at 8 ranks x 64 MiB f32 over threads per block x blocks per
-    SM x chunk bytes x pipeline depth, by CUDA events (median of 10
-    after 2 warm-ups). Every configuration is first held against the
-    plain version (bitwise on integer-valued data). Returns the rows."""
+def phase_sweep(torch, ici, quant, ring, tuning, timing, dev):
+    """The streaming ring's launch-shape sweep (``--sweep``): K9, the one
+    streaming ring that remains (K3 and K4 are direct folds with one
+    launch shape), alone at 8 ranks x 64 MiB f32 on the q8 wire, over
+    threads per block x blocks per SM x chunk bytes x pipeline depth, by
+    CUDA events (median of 10 after 2 warm-ups). Every configuration's
+    wire output is first held bitwise against the plain version's.
+    Restores the compiled-in shape. Returns the rows."""
     import itertools
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
+    ndir = ici._resolve_ndir(R, None)
+    blk, nblk, _ = quant._geometry(R, N, None, None)
+    want = quant.quant_reduce_scatter_ref(x, nblk, blk, "q8", ndir)[0]
+    keep = {k: tuning.kernel_param(k, 1)
+            for k in ("ring_threads", "ring_blocks_per_sm")}
     rows = []
-
-    def record(kernel, fn, want, threads, per_sm, **cfg):
-        tuning.set_kernel_param("ring_threads", threads)
-        tuning.set_kernel_param("ring_blocks_per_sm", per_sm)
-        got = fn()
-        ring.check_errors()
-        if not torch.equal(got, want):
-            raise AssertionError(f"{kernel} {cfg}: kernel and plain "
-                                 f"version disagree")
-        ms = timing.time_ms(fn, warmup=2, iters=10)
-        rows.append({"kernel": kernel, "threads": threads,
-                     "blocks_per_sm": per_sm, **cfg, "ms": ms})
-        log(f"[sweep] {rows[-1]}")
-
-    def ints(n):
-        return [torch.randint(-1000, 1000, (n,), device=dev, generator=gen)
-                .float() for _ in range(R)]
-
-    x = ints(N)
-    want = ici.hbm_ring_reduce_scatter_ref(x)
     for threads, per_sm, cb, depth in itertools.product(
             (256, 512, 1024), (1, 2), (256 << 10, 1 << 20, 4 << 20),
             (2, 4)):
-        record("K4", lambda: ici.hbm_ring_reduce_scatter(
-            x, chunk_bytes=cb, depth=depth), want, threads, per_sm,
-            chunk_bytes=cb, depth=depth)
+        tuning.set_kernel_param("ring_threads", threads)
+        tuning.set_kernel_param("ring_blocks_per_sm", per_sm)
+        chunk = quant._geometry(R, N, None, cb)[2]
+
+        def fn():
+            return quant.quant_reduce_scatter(x, nblk, blk, "q8", chunk,
+                                              depth, ndir)
+        got = fn()
+        ring.check_errors()
+        cfg = dict(chunk_bytes=cb, depth=depth)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K9 {cfg}: kernel and plain version "
+                                 f"disagree")
+        rows.append({"kernel": "K9", "threads": threads,
+                     "blocks_per_sm": per_sm, **cfg,
+                     "ms": timing.time_ms(fn, warmup=2, iters=10)})
+        log(f"[sweep] {rows[-1]}")
+    for k, v in keep.items():
+        tuning.set_kernel_param(k, v)
     del x, want
     return rows
 
@@ -3584,7 +3645,7 @@ def main(argv=None):
     ap.add_argument("--out", help="also write the full report as JSON")
     ap.add_argument("--sweep", action="store_true",
                     help="run only the launch-shape sweeps of the streaming "
-                    "ring K4, of the K12/K13 copy and of K11's tile size "
+                    "ring K9, of the K12/K13 copy and of K11's tile size "
                     "(after the device and build phases)")
     args = ap.parse_args(argv)
 
@@ -3618,7 +3679,7 @@ def main(argv=None):
     build_s = phase_build(_build)
     if args.sweep:
         from mvapich2_tpu_torch.coll import tuning
-        rows = phase_sweep(torch, ici, ring, tuning, timing, dev)
+        rows = phase_sweep(torch, ici, quant, ring, tuning, timing, dev)
         rows += phase_copy_sweep(torch, rma, tuning, timing, dev)
         rows += phase_tile_sweep(torch, alltoall, moe, ring, timing, dev)
         if args.out:

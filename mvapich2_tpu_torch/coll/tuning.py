@@ -16,9 +16,10 @@ from ..utils.config import get_config
 
 # CUDA launch shape of the kernels: threads per block of the slot
 # kernels (ops/hbm.py) and blocks per SM (their grid is a multiple of the
-# SM count); threads per block of the streaming ring kernels (ops/ici.py,
-# ops/alltoall.py, ops/quant.py) and blocks per SM spread over their
-# lanes; threads per block of the direct RMA kernels (ops/rma.py: the
+# SM count); threads per block of the ring kernels launched with
+# ``ring.launch``'s default (K8 in ops/ici.py, the streaming K9 in
+# ops/quant.py) and blocks per SM spread over their lanes; threads per
+# block of the direct RMA kernels (ops/rma.py: the
 # copy of K12/K13, which the fold of K14 and K14q share). The ring and
 # copy values come from the launch-shape sweep of ``chip_smoke.py
 # --sweep`` on an H100 (PERF.md).

@@ -6,9 +6,11 @@
 //    _RingStreamer). The streaming ring's result, any n, in both ring
 //    directions, as one direct fold in the ring's order (K6's kernel over
 //    `lines` rings); sum, max, min, prod.
-// K4 hbm_ring_reduce_scatter_kernel replaces pallas_ici.py
+// K4 ring_reduce_scatter_direct_kernel replaces pallas_ici.py
 //    hbm_ring_reduce_scatter (body _hbm_reduce_scatter_kernel). The
-//    streaming reduce-scatter ring; rank r keeps block r, [ceil(n/p)].
+//    reduce-scatter ring's result, rank r's block r of ceil(n/p) of the
+//    identity-padded fold, as K3's direct fold stored into its owner's
+//    row alone.
 // K5 ring_all_gather_direct_kernel replaces pallas_ici.py
 //    hbm_ring_all_gather (body _hbm_all_gather_kernel). The all-gather
 //    ring's result as one direct copy into every rank's row (K7's kernel
@@ -25,9 +27,10 @@
 // K7 ring_all_gather_direct_kernel replaces pallas_ring.py
 //    ring_all_gather (body _ring_all_gather_kernel). The resident gather
 //    ring's result as one direct copy into every rank's row.
-// K10 hbm_alltoall_kernel        replaces mvapich2_tpu/ops/pallas_alltoall.py
-//    hbm_alltoall (body _hbm_alltoall_kernel, engine _A2AStreamer and
-//    _a2a_wave). Uniform pairwise-permutation alltoall of p blocks.
+// K10 hbm_alltoallv_direct_kernel replaces
+//    mvapich2_tpu/ops/pallas_alltoall.py hbm_alltoall (body
+//    _hbm_alltoall_kernel). The uniform alltoall of p blocks as K11's
+//    direct copy over a uniform tile table.
 // K11 hbm_alltoallv_direct_kernel replaces pallas_alltoall.py
 //    hbm_alltoallv (body _hbm_alltoallv_kernel). The variable-count
 //    exchange under a static p x p count matrix, as one direct copy by a
@@ -40,8 +43,9 @@
 //    direct copy the other way.
 // K9 quant_ring_all_reduce_kernel replaces mvapich2_tpu/ops/pallas_quant.py
 //    quant_ring_all_reduce (body _quant_rs_kernel, engine _QuantStreamer).
-//    K4's reduce-scatter with the block-scaled codec fused into both
-//    halves of every step, then each rank's own block encoded once.
+//    The streaming reduce-scatter ring with the block-scaled codec fused
+//    into both halves of every step, then each rank's own block encoded
+//    once.
 // K14 rma_acc_direct_kernel      replaces pallas_rma.py rma_accumulate
 //    (body _acc_kernel), exact wire: MPI_SUM fold of src[n] into the
 //    target's window row at disp, as one direct fold.
@@ -53,64 +57,51 @@
 //    into the target's window row at disp: K12's direct copy, with no
 //    landing buffer and no flag.
 //
-// Translation (K4, K9, K10; the direct kernels K3, K5-K8, K11-K14q and
-// K17 use no landing slot and no credit). A TPU remote DMA into the
-// neighbour's VMEM slot becomes a store into the downstream rank's
-// landing slot in global memory (slots[rank][dir][slot][chunk]); a
-// DMA/REGULAR semaphore becomes a u32 counter in global memory, written
-// by exactly one block with st.release.gpu after a __syncthreads (so
-// the whole block's stores are ordered before it) and read by thread 0
-// of the waiting block with ld.acquire.gpu before a __syncthreads.
-// Counters only grow within a launch, so "wait for credit k" is "wait
-// until counter >= k"; the wrapper zeroes them, stream-ordered, before
-// each launch. Mosaic's collective_id becomes the separate slot and
-// counter buffers the wrapper allocates per launch. Landing slots are
-// read with ld.global.cg (L2), since another SM wrote them.
+// Translation (K9; the direct kernels K3-K8, K10-K14q and K17 use no
+// landing slot and no credit). A TPU remote DMA into the neighbour's
+// VMEM slot becomes a store into the downstream rank's landing slot in
+// global memory (slots[rank][dir][slot][chunk]); a DMA/REGULAR semaphore
+// becomes a u32 counter in global memory, written by exactly one block
+// with st.release.gpu after a __syncthreads (so the whole block's stores
+// are ordered before it) and read by thread 0 of the waiting block with
+// ld.acquire.gpu before a __syncthreads. Counters only grow within a
+// launch, so "wait for credit k" is "wait until counter >= k"; the
+// wrapper zeroes them, stream-ordered, before each launch. Mosaic's
+// collective_id becomes the separate slot and counter buffers the wrapper
+// allocates per launch. Landing slots are read with ld.global.cg (L2),
+// since another SM wrote them.
 //
 // Parallelism. Each (rank, direction) lane gets B blocks; block b runs
 // its own sub-ring over share b of every chunk, with its own counters,
 // against block b of its neighbours' lanes. B independent credit
 // chains, no barrier inside a lane. Every block must be resident at once
 // (a block spinning on a credit would otherwise wait for a peer that
-// never gets an SM), so the entries launch cooperatively, after lowering
+// never gets an SM), so the entry launches cooperatively, after lowering
 // B to what fits on the card.
 //
-// Schedule (K4): the JAX one. Reduce-scatter step s: the clockwise
-// lane of rank r sends its partial of block r-s-1 to r+1 and folds the
-// block arriving from r-1 into its block r-s-2 as red(own, incoming);
-// the counter-clockwise lane mirrors with +. Each step streams the
-// lane's span of the block (first half clockwise, second half counter-
-// clockwise when ndir == 2) in chunks: issue chunk c, then drain chunk
-// c-1. One global chunk counter g per lane picks the slot (g mod depth);
-// the sender writes chunk g only once the receiver has consumed chunk
-// g-depth (the credit), the receiver reads it once the sender has
-// published g+1 (the data flag). The TPU kernel's exit barrier (wait for
-// the last credits) is not needed: the launch boundary orders every
-// store before the next launch.
-//
-// Schedule (K10): the JAX one. The local block is copied once; then
-// in step s (1..p-1, split over two lanes when ndir == 2: the first lane
-// takes steps 1..p/2, the second the rest) rank r sends block (r+s)%p
-// into the landing slots of that rank and receives from (r-s)%p, chunk
-// by chunk (issue c, drain c-1). The slot is the lane's global chunk
-// counter mod depth, counting on across steps. The JAX kernel's credit
-// wave per step (grant depth at entry, one per consumed chunk, fence back
-// to depth at exit) becomes, on the receiver's monotonic consumed
-// counter: chunk g of a step that starts at G is written only once the
-// receiver has consumed max(G, g - depth + 1) chunks (so the step's
-// writer never lands while the previous writer's chunks are still
-// undrained, and the landed counter has one writer at a time), and the
-// step ends when the receiver has consumed G + W_s.
+// Schedule (K9): the JAX reduce-scatter ring. Step s: the clockwise lane
+// of rank r sends its partial of block r-s-1 to r+1 and folds the block
+// arriving from r-1 into its block r-s-2; the counter-clockwise lane
+// mirrors with +. Each step streams the lane's span of the block (first
+// half clockwise, second half counter-clockwise when ndir == 2) in
+// chunks: issue chunk c, then drain chunk c-1. One global chunk counter
+// g per lane picks the slot (g mod depth); the sender writes chunk g only
+// once the receiver has consumed chunk g-depth (the credit), the
+// receiver reads it once the sender has published g+1 (the data flag).
+// The TPU kernel's exit barrier (wait for the last credits) is not
+// needed: the launch boundary orders every store before the next launch.
 //
 // The direct kernels have no schedule: one pass each. K3 and K6
-// (ring_all_reduce_direct_kernel) fold every block in the ring's order,
-// K5 and K7 (ring_all_gather_direct_kernel) copy, K11
-// (hbm_alltoallv_direct_kernel) copies by a tile table, K12, K13 and K17
-// (rma_copy_kernel) copy one range, K14 and K14q (rma_acc_direct_kernel,
-// rma_acc_quant_direct_kernel) fold one range. K17's TPU kernel stages
-// the payload in one landing buffer under a flag because only the target
-// may commit into its own HBM; here the window row is memory that the
-// origin's threads store to, so a put is K12's copy (notes below).
+// (ring_all_reduce_direct_kernel) fold every block in the ring's order
+// and K4 (ring_reduce_scatter_direct_kernel) runs the same fold into each
+// block's owner alone, K5 and K7 (ring_all_gather_direct_kernel) copy,
+// K11 and K10 (hbm_alltoallv_direct_kernel) copy by a tile table, K12,
+// K13 and K17 (rma_copy_kernel) copy one range, K14 and K14q
+// (rma_acc_direct_kernel, rma_acc_quant_direct_kernel) fold one range.
+// K17's TPU kernel stages the payload in one landing buffer under a flag
+// because only the target may commit into its own HBM; here the window
+// row is memory that the origin's threads store to, so a put is K12's
+// copy (notes below).
 //
 // Arithmetic: floats fold in float and round to the dtype at every step,
 // integers in 32 bits (uint32 unsigned) and wrap to the dtype, exactly as
@@ -127,19 +118,15 @@
 // and window, write window), and moves just that: its wire words stay in
 // registers.
 //
-// Bound. Device-memory traffic, not arithmetic: K3 must read every
-// input once and write every rank's row once, 2m a rank for an m-byte
-// shard, and moves just that (the streaming schedule it replaces moved
-// about 2m + (p-1)(9m/p) a rank: an init copy, 5m/p a reduce-scatter
-// step and 4m/p an all-gather step, through the landing slots). K4
-// moves (p-1)(5m/p) with no init copy (the first step sends from the
-// input, the last folds into the output), against m + m/p. K8 moves 2m
-// a rank, its bound. K12, K13 and K17 move 2 bytes a payload byte and
-// K14 3, their bounds (K17's landing buffer moved 4), and K5, K6, K7
-// and K11 move theirs (below). The landing slots (p*ndir*depth*chunk
-// elements) are small enough to stay in the 50 MB L2. K10 moves 2m/p
-// (local block) + (p-1)(4m/p) (read input, write slot, read slot, write
-// output) per rank, against 2m.
+// Bound. Device-memory traffic, not arithmetic, and every direct kernel
+// moves just its bound: each input read once and each output written
+// once (K3-K8, K10-K14 and K17 below). The streaming schedule that K3
+// replaced moved about 2m + (p-1)(9m/p) a rank for an m-byte shard (an
+// init copy, 5m/p a reduce-scatter step and 4m/p an all-gather step,
+// through the landing slots), K4's (p-1)(5m/p) against m + m/p, and
+// K10's 2m/p + (p-1)(4m/p) against 2m. K9's landing slots
+// (p*ndir*depth*chunk wire words) are small enough to stay in the 50 MB
+// L2.
 //
 // Spin bound: a wait that outlasts kSpinTimeoutNs writes a nonzero error
 // word into mapped host memory and ends the block; the other blocks then
@@ -291,22 +278,6 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-// A load through L2 only (the line may have been written by another SM).
-template <typename T> __device__ __forceinline__ T ld_cg(const T* p) {
-  if constexpr (sizeof(T) == 16) {
-    return __ldcg(p);
-  } else if constexpr (sizeof(T) == 4) {
-    unsigned v = __ldcg(reinterpret_cast<const unsigned*>(p));
-    return *reinterpret_cast<T*>(&v);
-  } else if constexpr (sizeof(T) == 2) {
-    unsigned short v = __ldcg(reinterpret_cast<const unsigned short*>(p));
-    return *reinterpret_cast<T*>(&v);
-  } else {
-    unsigned char v = __ldcg(reinterpret_cast<const unsigned char*>(p));
-    return *reinterpret_cast<T*>(&v);
-  }
-}
-
 // The whole block waits until *flag >= target. Thread 0 spins with
 // acquire loads; false (after setting the error word) if the spin
 // outlasted the bound.
@@ -346,44 +317,16 @@ __device__ __forceinline__ void block_signal(unsigned* flag, unsigned value) {
 // sizeof(T) and every pointer is 16-byte aligned: 16-byte accesses.
 // ---------------------------------------------------------------------------
 
-// dst[i] = src[i]; src read through L2 when it is a landing slot.
+// dst[i] = src[i]
 template <typename T>
-__device__ void copy_range(T* dst, const T* src, long long cnt, int vec,
-                           bool slot_src) {
+__device__ void copy_range(T* dst, const T* src, long long cnt, int vec) {
   if (vec) {
     const long long nv = cnt / (16 / sizeof(T));
     uint4* d = reinterpret_cast<uint4*>(dst);
     const uint4* s = reinterpret_cast<const uint4*>(src);
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x)
-      d[i] = slot_src ? ld_cg(s + i) : s[i];
+    for (long long i = threadIdx.x; i < nv; i += blockDim.x) d[i] = s[i];
   } else {
-    for (long long i = threadIdx.x; i < cnt; i += blockDim.x)
-      dst[i] = slot_src ? ld_cg(src + i) : src[i];
-  }
-}
-
-// dst[i] = x[start + i] for start + i < n, else the op identity (the
-// padded tail of the last block).
-template <typename T, int OP>
-__device__ void init_range(T* dst, const T* x, long long start,
-                           long long cnt, long long n, int vec) {
-  if (vec) {
-    constexpr int V = 16 / sizeof(T);
-    const long long nv = cnt / V;
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x) {
-      const long long e = start + i * V;
-      if (e + V <= n) {
-        reinterpret_cast<uint4*>(dst)[i] =
-            *reinterpret_cast<const uint4*>(x + e);
-      } else {
-#pragma unroll
-        for (int k = 0; k < V; ++k)
-          dst[i * V + k] = e + k < n ? x[e + k] : identity<T, OP>();
-      }
-    }
-  } else {
-    for (long long i = threadIdx.x; i < cnt; i += blockDim.x)
-      dst[i] = start + i < n ? x[start + i] : identity<T, OP>();
+    for (long long i = threadIdx.x; i < cnt; i += blockDim.x) dst[i] = src[i];
   }
 }
 
@@ -403,12 +346,12 @@ __device__ __forceinline__ void share(long long sz, long long full, int b,
 __device__ __forceinline__ int mod(int a, int p) { return ((a % p) + p) % p; }
 
 // ---------------------------------------------------------------------------
-// the streaming engine of K4 and K9 (one block's view of one lane)
+// the streaming engine of K9 (one block's view of one lane)
 // ---------------------------------------------------------------------------
 
 // One reduce-scatter step of lane L over its span [lo, hi): every chunk,
-// issue c then drain c-1. L is an RsLane<T, OP> or a QuantLane<W>, whose
-// issue and drain carry the chunk's share exactly or through the codec.
+// issue c then drain c-1. L is a QuantLane<W>, whose issue and drain
+// carry the chunk's share through the codec.
 template <typename LaneT, int OP>
 __device__ bool ring_step(LaneT& L, long long sb_off, long long rb_off) {
   const long long nc = (L.hi - L.lo + L.chunk - 1) / L.chunk;
@@ -426,170 +369,44 @@ __device__ bool ring_step(LaneT& L, long long sb_off, long long rb_off) {
   return true;
 }
 
-// A lane's place in the ring and its slots and counters; RsLane and
-// QuantLane add the issue and drain halves of a step.
+// A lane's place in the ring and its counters; QuantLane adds its
+// landing slots and the issue and drain halves of a step.
 template <typename T>
 struct Lane {
-  int p, r, gr, d, ndir, b, B, depth, vec;  // gr: index into RankPtrs
+  int p, r, d, ndir, b, B, depth;
   long long chunk, lo, hi;       // chunk elements; this direction's span
   T* o;                          // this rank's working row
-  T* slots;                      // [p][ndir][depth][chunk]
   unsigned* landed;              // [p][ndir][B]: chunks landed in a lane
   unsigned* consumed;            // [p][ndir][B]: chunks a lane consumed
   int* err;
   unsigned g_issue, g_drain;     // the lane's global chunk counters
 
-  __device__ int align() const { return vec ? 16 / int(sizeof(T)) : 1; }
   __device__ int dst() const { return d == 0 ? mod(r + 1, p) : mod(r - 1, p); }
   __device__ long long flag(int rank) const {
     return (static_cast<long long>(rank) * ndir + d) * B + b;
   }
-  __device__ T* slot_ptr(int rank, unsigned g) const {
-    return slots + ((static_cast<long long>(rank) * ndir + d) * depth +
-                    g % depth) * chunk;
-  }
 };
 
-// The grid covers lines * p ranks, line-major: rank i of line g is row
-// gr = g*p + i of RankPtrs, and every line is a ring of its own, with its
-// own slots ([p][ndir][depth][chunk] a line) and counters ([p][ndir][B] a
-// line). With one line this is the plain p-rank ring.
+// The grid covers p ranks, each of ndir lanes of B blocks: block
+// (r*ndir + d)*B + b is block b of rank r's lane d.
 template <typename T>
 __device__ Lane<T> make_lane(int p, long long nblk, long long chunk,
-                             int depth, int ndir, int B, T* slots,
-                             unsigned* landed, unsigned* consumed, int vec,
-                             int* err, void* out) {
+                             int depth, int ndir, int B, unsigned* landed,
+                             unsigned* consumed, int* err, void* out) {
   Lane<T> L;
   L.b = blockIdx.x % B;
   const int lane = blockIdx.x / B;
   L.d = lane % ndir;
-  L.gr = lane / ndir;
-  L.r = L.gr % p;
-  const long long line = L.gr / p;
-  if (slots) slots += line * p * ndir * depth * chunk;
-  landed += line * p * ndir * B;
-  consumed += line * p * ndir * B;
-  L.p = p; L.ndir = ndir; L.B = B; L.depth = depth; L.vec = vec;
+  L.r = lane / ndir;
+  L.p = p; L.ndir = ndir; L.B = B; L.depth = depth;
   L.chunk = chunk;
   const long long h = (nblk + 1) / 2;
   L.lo = (ndir == 1 || L.d == 0) ? 0 : h;
   L.hi = (ndir == 1 || L.d == 1) ? nblk : h;
   L.o = static_cast<T*>(out);
-  L.slots = slots; L.landed = landed; L.consumed = consumed; L.err = err;
+  L.landed = landed; L.consumed = consumed; L.err = err;
   L.g_issue = 0; L.g_drain = 0;
   return L;
-}
-
-// dst[i] = red(own, slot[i]) with own = x[start + i] for start + i < n,
-// else the op identity (the padded tail of the last block)
-template <typename T, int OP>
-__device__ void fold_from(T* dst, const T* x, long long start, long long n,
-                          const T* slot, long long cnt, int vec) {
-  if (vec) {
-    constexpr int V = 16 / sizeof(T);
-    const long long nv = cnt / V;
-    const uint4* s = reinterpret_cast<const uint4*>(slot);
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x) {
-      const long long e = start + i * V;
-      uint4 a;
-      T* ae = reinterpret_cast<T*>(&a);
-      if (e + V <= n) {
-        a = *reinterpret_cast<const uint4*>(x + e);
-      } else {
-#pragma unroll
-        for (int k = 0; k < V; ++k)
-          ae[k] = e + k < n ? x[e + k] : identity<T, OP>();
-      }
-      const uint4 b = ld_cg(s + i);
-      const T* be = reinterpret_cast<const T*>(&b);
-#pragma unroll
-      for (int k = 0; k < V; ++k) ae[k] = red<T, OP>(ae[k], be[k]);
-      reinterpret_cast<uint4*>(dst)[i] = a;
-    }
-  } else {
-    for (long long i = threadIdx.x; i < cnt; i += blockDim.x) {
-      const T own = start + i < n ? x[start + i] : identity<T, OP>();
-      dst[i] = red<T, OP>(own, ld_cg(slot + i));
-    }
-  }
-}
-
-// K4's lane: the reduce-scatter ring with no init copy. Each block of the
-// working row o is folded once, at the step it is received, from the
-// input itself (red(x, incoming), the value an identity-padded copy of
-// the input would hold there) and sent on from o at the next step; the
-// first step sends a block straight from the input, and the last step's
-// fold, into block r, lands in the output. Every CTA drains its own share of block r there,
-// so the copy-out needs no cross-CTA sync.
-template <typename T, int OP>
-struct RsLane : Lane<T> {
-  const T* x;                    // this rank's input, n elements
-  long long n;
-  T* out;                        // this rank's block, nblk elements
-  bool first, last;              // the step's place in the p-1
-
-  __device__ bool issue(long long sb_off, long long off, long long sz) {
-    long long s0, s1;
-    share(sz, this->chunk, this->b, this->B, this->align(), &s0, &s1);
-    const int to = this->dst();
-    const unsigned g = this->g_issue;
-    if (g >= static_cast<unsigned>(this->depth) &&
-        !block_wait(this->consumed + this->flag(to), g - this->depth + 1,
-                    this->err))
-      return false;
-    T* slot = this->slot_ptr(to, g) + s0;
-    const long long e = sb_off + off + s0;
-    if (first)
-      init_range<T, OP>(slot, x, e, s1 - s0, n, this->vec);
-    else
-      copy_range(slot, this->o + e, s1 - s0, this->vec, false);
-    block_signal(this->landed + this->flag(to), g + 1);
-    this->g_issue = g + 1;
-    return true;
-  }
-
-  template <int>
-  __device__ bool drain(long long rb_off, long long off, long long sz) {
-    long long s0, s1;
-    share(sz, this->chunk, this->b, this->B, this->align(), &s0, &s1);
-    const unsigned g = this->g_drain;
-    if (!block_wait(this->landed + this->flag(this->r), g + 1, this->err))
-      return false;
-    const long long e = rb_off + off + s0;
-    T* dst = last ? out + off + s0 : this->o + e;
-    fold_from<T, OP>(dst, x, e, n, this->slot_ptr(this->r, g) + s0, s1 - s0,
-                     this->vec);
-    block_signal(this->consumed + this->flag(this->r), g + 1);
-    this->g_drain = g + 1;
-    return true;
-  }
-};
-
-// K4 (at most 64 registers a thread, so that a block of 1024 threads
-// fits on an SM; the cooperative launch needs one a lane). ins[gr]: the
-// input of n elements; outs[gr]: the output block of nblk; work +
-// gr*p*nblk: the working row (p blocks of nblk).
-template <typename T, int OP>
-__global__ void __launch_bounds__(1024) hbm_ring_reduce_scatter_kernel(
-    RankPtrs ptrs, int p, long long n, long long nblk, long long chunk,
-    int depth, int ndir, int B, T* work, T* slots, unsigned* landed,
-    unsigned* consumed, int vec, int* err) {
-  const int gr = (blockIdx.x / B) / ndir;
-  RsLane<T, OP> L;
-  static_cast<Lane<T>&>(L) = make_lane<T>(
-      p, nblk, chunk, depth, ndir, B, slots, landed, consumed, vec, err,
-      work + static_cast<long long>(gr) * p * nblk);
-  L.x = static_cast<const T*>(ptrs.in[gr]);
-  L.n = n;
-  L.out = static_cast<T*>(ptrs.out[gr]);
-  const int r = L.r;
-  for (int s = 0; s < p - 1; ++s) {
-    L.first = s == 0;
-    L.last = s == p - 2;
-    const int sb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
-    const int rb = L.d == 0 ? mod(r - s - 2, p) : mod(r + s + 2, p);
-    if (!ring_step<RsLane<T, OP>, OP>(L, sb * nblk, rb * nblk)) return;
-  }
 }
 
 // K8 (T: an unsigned type of the element's width): outs[r] = ins[partner
@@ -605,7 +422,7 @@ __global__ void __launch_bounds__(1024) remote_sendrecv_kernel(
   long long s0, s1;
   share(n, n, blockIdx.x % B, B, vec ? 16 / int(sizeof(T)) : 1, &s0, &s1);
   copy_range(static_cast<T*>(ptrs.out[r]) + s0,
-             static_cast<const T*>(ptrs.in[from]) + s0, s1 - s0, vec, false);
+             static_cast<const T*>(ptrs.in[from]) + s0, s1 - s0, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -704,9 +521,9 @@ __device__ void decode_fold_blocks(float* o, const int* w, long long nb,
   for (long long k = threadIdx.x >> 5; k < nb; k += blockDim.x >> 5) {
     const int* wb = w + k * (1 + nw);
     float* ob = o + k * blk;
-    const float scale = __int_as_float(ld_cg(wb));
+    const float scale = __int_as_float(__ldcg(wb));
     for (int i = lane; i < nw; i += 32) {
-      const unsigned word = static_cast<unsigned>(ld_cg(wb + 1 + i));
+      const unsigned word = static_cast<unsigned>(__ldcg(wb + 1 + i));
       float4 a = load4(ob + 4 * i);
       a.x = __fmaf_rn(Codec<W>::value(word & 0xFF), scale, a.x);
       a.y = __fmaf_rn(Codec<W>::value(word >> 8 & 0xFF), scale, a.y);
@@ -770,9 +587,9 @@ struct QuantLane : Lane<float> {
 
 // K9 (T: the input dtype, f32 or f16). outs[r]: rank r's f32
 // working row of p*nblk elements; wires + r*wblk: rank r's wire output.
-// The reduce-scatter ring of K4 with the codec in both halves of a step, then
-// the own block encoded once. The CTA that folds a share of the own
-// block on the last step is the one that encodes it.
+// The reduce-scatter ring (Schedule, above) with the codec in both
+// halves of a step, then the own block encoded once. The CTA that folds a
+// share of the own block on the last step is the one that encodes it.
 template <typename T, int W>
 __global__ void __launch_bounds__(1024) quant_ring_all_reduce_kernel(
     RankPtrs ptrs, int* wires, int p, long long n, long long nblk,
@@ -781,7 +598,7 @@ __global__ void __launch_bounds__(1024) quant_ring_all_reduce_kernel(
   const int lane_rank = (blockIdx.x / B) / ndir;
   QuantLane<W> L;
   static_cast<Lane<float>&>(L) = make_lane<float>(
-      p, nblk, chunk, depth, ndir, B, nullptr, landed, consumed, 0, err,
+      p, nblk, chunk, depth, ndir, B, landed, consumed, err,
       ptrs.out[lane_rank]);
   L.blk = blk;
   L.wchunk = chunk / blk * (1 + blk / 4);
@@ -816,126 +633,6 @@ __global__ void __launch_bounds__(1024) quant_ring_all_reduce_kernel(
     encode_blocks<W>(w + L.wpos(off + s0), L.o + r * nblk + off + s0,
                      (s1 - s0) / blk, blk);
   }
-}
-
-// ---------------------------------------------------------------------------
-// the pairwise-permutation exchange of K10
-// ---------------------------------------------------------------------------
-
-// dst[i] = src[i] for any alignment: 16-byte accesses over the longest
-// whole-vector prefix when both pointers are 16-byte aligned, element
-// accesses otherwise and for the tail. src read through L2 when it is a
-// landing slot.
-template <typename T>
-__device__ void copy_any(T* dst, const T* src, long long cnt, bool slot_src) {
-  constexpr int V = 16 / sizeof(T);
-  long long head = 0;
-  if (((reinterpret_cast<uintptr_t>(dst) |
-        reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
-    head = cnt / V * V;
-    copy_range(dst, src, head, 1, slot_src);
-  }
-  for (long long i = head + threadIdx.x; i < cnt; i += blockDim.x)
-    dst[i] = slot_src ? ld_cg(src + i) : src[i];
-}
-
-// K10's plan: every pair moves one block of c elements, block j of a
-// rank's buffer belongs to rank j on both sides.
-struct UniformPlan {
-  long long c, chunk;
-  __device__ long long count(int, int) const { return c; }
-  __device__ long long sdispl(int, int to) const { return to * c; }
-  __device__ long long rdispl(int, int from) const { return from * c; }
-  __device__ long long wire(int) const { return (c + chunk - 1) / chunk; }
-};
-
-__device__ __forceinline__ long long clamp_chunk(long long left,
-                                                 long long chunk) {
-  return left <= 0 ? 0 : (left < chunk ? left : chunk);
-}
-
-// One block's share of one (rank, lane): the local block (share d*B+b
-// of the rank's ndir*B blocks), then the lane's steps. Block b talks only
-// to block b of the other ranks' lane d, over share b of every chunk,
-// with its own counters (landed/consumed: [p][ndir][B]).
-template <typename T, typename Plan>
-__device__ void a2a_lane(const RankPtrs& ptrs, const Plan& plan, int p,
-                         long long chunk, int depth, int ndir, int B,
-                         T* slots, unsigned* landed, unsigned* consumed,
-                         int* err) {
-  constexpr int kAlign = 16 / sizeof(T);
-  const int b = blockIdx.x % B;
-  const int lane = blockIdx.x / B;
-  const int d = lane % ndir;
-  const int r = lane / ndir;
-  const T* x = static_cast<const T*>(ptrs.in[r]);
-  T* o = static_cast<T*>(ptrs.out[r]);
-  long long s0, s1;
-  const long long own = plan.count(r, r);
-  share(own, own, d * B + b, ndir * B, kAlign, &s0, &s1);
-  copy_any(o + plan.rdispl(r, r) + s0, x + plan.sdispl(r, r) + s0, s1 - s0,
-           false);
-  // this lane's steps [s_lo, s_hi): all of 1..p-1, or the near half
-  // (1..p/2) on lane 0 and the far half on lane 1
-  int s_lo = 1, s_hi = p;
-  if (ndir == 2) {
-    if (d == 0) s_hi = 1 + p / 2; else s_lo = 1 + p / 2;
-  }
-  auto slot = [&](int rank, long long g) {
-    return slots + ((static_cast<long long>(rank) * ndir + d) * depth +
-                    g % depth) * chunk;
-  };
-  const long long me = (static_cast<long long>(r) * ndir + d) * B + b;
-  long long g = 0;                      // the lane's global chunk counter
-  for (int s = s_lo; s < s_hi; ++s) {
-    const long long W = plan.wire(s);
-    if (W == 0) continue;               // empty on every rank
-    const int to = (r + s) % p, up = (r - s + p) % p;
-    const long long peer = (static_cast<long long>(to) * ndir + d) * B + b;
-    const long long scnt = plan.count(r, to), sdis = plan.sdispl(r, to);
-    const long long rcnt = plan.count(up, r), rdis = plan.rdispl(r, up);
-    const long long G = g;
-    for (long long c = 0; c <= W; ++c) {
-      if (c < W) {                      // issue chunk c into to's slot
-        const long long gi = G + c;
-        const long long need = max(G, gi - depth + 1);
-        if (need > 0 && !block_wait(consumed + peer,
-                                    static_cast<unsigned>(need), err))
-          return;
-        share(clamp_chunk(scnt - c * chunk, chunk), chunk, b, B, kAlign,
-              &s0, &s1);
-        copy_any(slot(to, gi) + s0, x + sdis + c * chunk + s0, s1 - s0,
-                 false);
-        block_signal(landed + peer, static_cast<unsigned>(gi + 1));
-      }
-      if (c >= 1) {                     // drain chunk c-1 from up
-        const long long gd = G + c - 1;
-        if (!block_wait(landed + me, static_cast<unsigned>(gd + 1), err))
-          return;
-        share(clamp_chunk(rcnt - (c - 1) * chunk, chunk), chunk, b, B,
-              kAlign, &s0, &s1);
-        copy_any(o + rdis + (c - 1) * chunk + s0, slot(r, gd) + s0,
-                 s1 - s0, true);
-        block_signal(consumed + me, static_cast<unsigned>(gd + 1));
-      }
-    }
-    // step exit: the receiver has consumed every chunk of this step
-    if (!block_wait(consumed + peer, static_cast<unsigned>(G + W), err))
-      return;
-    g = G + W;
-  }
-}
-
-// K10 (T: an unsigned type of the element's width; pure data movement).
-// K10 holds more state than the ring kernels: the launch bound keeps it
-// to 64 registers a thread, so a 1024-thread block fits.
-template <typename T>
-__global__ void __launch_bounds__(1024) hbm_alltoall_kernel(RankPtrs ptrs, int p, long long c,
-                                    long long chunk, int depth, int ndir,
-                                    int B, T* slots, unsigned* landed,
-                                    unsigned* consumed, int* err) {
-  a2a_lane<T>(ptrs, UniformPlan{c, chunk}, p, chunk, depth, ndir, B, slots,
-              landed, consumed, err);
 }
 
 // ---------------------------------------------------------------------------
@@ -1214,7 +911,7 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K3, K6, K7 and K5: the direct ring kernels
+// K3, K4, K6, K7 and K5: the direct ring kernels
 // ---------------------------------------------------------------------------
 //
 // ring_all_reduce_direct_kernel replaces mvapich2_tpu/ops/pallas_ring.py
@@ -1222,14 +919,17 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
 // _ring_all_reduce_kernel :147) as K6, and mvapich2_tpu/ops/pallas_ici.py
 // hbm_ring_all_reduce (:501, pallas_call :532, body
 // _hbm_all_reduce_kernel :359) as K3, over `lines` rings at once;
+// ring_reduce_scatter_direct_kernel replaces pallas_ici.py
+// hbm_ring_reduce_scatter (:580, pallas_call :609, body
+// _hbm_reduce_scatter_kernel :399) as K4, over `lines` rings at once;
 // ring_all_gather_direct_kernel replaces ring_all_gather (:114,
 // pallas_call :131, body _ring_all_gather_kernel :78) as K7, and
 // pallas_ici.py hbm_ring_all_gather (:545, pallas_call :566, body
 // _hbm_all_gather_kernel :436) as K5, over `lines` rings at once.
 //
 // The TPU kernels pass one block a round to the right-hand neighbour
-// through VMEM landing slots under a credit handshake (K3 and K5: chunk
-// by chunk, in both ring directions), because a chip reaches its
+// through VMEM landing slots under a credit handshake (K3, K4 and K5:
+// chunk by chunk, in both ring directions), because a chip reaches its
 // neighbour's memory only by remote DMA. On one card every rank's shard
 // is memory that any thread reads, so the rounds, the slots and the
 // credits go (a handshake round cost about 6 us here: 14 rounds a K6
@@ -1261,15 +961,22 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
 // ranks mod p, in T's arithmetic (f16 and bf16 round at every step, as
 // the ring stores each partial; integers wrap; max and min keep the
 // ring's (own, acc) operand order, which decides a NaN's payload, and
-// give a zero the sign jnp.maximum/minimum give it, whatever the order),
-// and acc is stored into every row of the ring. The
-// fold never reads an element at or past n, so the identity padding
-// never reaches a stored element and the kernel needs none: the last
-// block is simply short. K6 is the case lines = 1, ndir = 1, n % p == 0,
-// sum. K7 and K5 load each word of each shard once and store it into
-// every row of its ring. No thread waits for another, so the launch is a
-// plain one: the grid min(one pass, the blocks that fit at once), the fit
-// counted once per device, kernel and block size (direct_fit).
+// give a zero the sign jnp.maximum/minimum give it, whatever the order).
+// The fold never reads an element at or past n. K3 and K6 store acc into
+// every row of the ring (the identity padding never reaches a stored
+// element, so the last block is simply short); K6 is the case lines = 1,
+// ndir = 1, n % p == 0, sum. K4 is the reduce-scatter alone: block b of
+// the fold, which the ring leaves at rank b, is stored once, into row b
+// of its line at offset j, and the p*nblk - n elements of the padded tail
+// hold the op's identity folded with itself p times, which is the
+// identity for every op and dtype here (0 + 0, 1 * 1, max(lo, lo),
+// min(hi, hi)): K4 stores identity<T, OP>() there and reads nothing. So
+// K3, K6 and K4 are one loop, direct_fold, whose store mode is a template
+// argument; K4 has a kernel name of its own so that a profile tells the
+// two apart. K7 and K5 load each word of each shard once and store it
+// into every row of its ring. No thread waits for another, so the launch
+// is a plain one: the grid min(one pass, the blocks that fit at once),
+// the fit counted once per device, kernel and block size (direct_fit).
 //
 // A unit is a 16-byte word on the vector path (W = uint4) or one element
 // (W = T). The fold takes the vector path when every input pointer and
@@ -1277,21 +984,26 @@ __global__ void __launch_bounds__(1024) rma_acc_quant_direct_kernel(
 // multiples of V = 16 / sizeof(T), so that no word straddles two blocks,
 // the half point or the end; the gather when the shard is a multiple of
 // V. Unit k of a row of line g is unit k of every shard of line g (K3,
-// K6; unit u of lines*nu is unit k = u - g*nu of line g = u / nu); for the
-// gather, unit u of lines*p*mu belongs to shard s = u / mu = g*p + q of
-// line g and goes to unit u - g*p*mu of the p rows of line g (K5; K7 is
-// lines = 1). Neighbouring threads store to neighbouring words of each
-// row. K3 and K5 have no 4 MiB ceiling (a 64 MiB shard is 4 Mi words), so
-// offsets are 64-bit throughout. Sources are read through the read-only
-// path (ld.global.nc): the output is a fresh allocation that never
-// aliases an input. The fold loads its p source words in groups of
-// kFoldGroup before it folds each group: the loads of a group are in
-// flight together, and p up to kMaxRanks needs no more than kFoldGroup
-// words of registers.
+// K6; unit u of lines*nu is unit k = u - g*nu of line g = u / nu); K4
+// walks the p*per_blk units of a line's padded blocks instead (unit u of
+// lines*p*per_blk is unit k = u - g*p*per_blk of line g, real below nu,
+// padding from there) and stores unit k at unit k - b*per_blk of row
+// g*p + b. For the gather, unit u of lines*p*mu belongs to shard s = u /
+// mu = g*p + q of line g and goes to unit u - g*p*mu of the p rows of
+// line g (K5; K7 is lines = 1). Neighbouring threads store to
+// neighbouring words of each row. K3, K4 and K5 have no 4 MiB ceiling (a
+// 64 MiB shard is 4 Mi words), so offsets are 64-bit throughout. Sources
+// are read through the read-only path (ld.global.nc): the output is a
+// fresh allocation that never aliases an input. The fold loads its p
+// source words in groups of kFoldGroup before it folds each group: the
+// loads of a group are in flight together, and p up to kMaxRanks needs no
+// more than kFoldGroup words of registers.
 //
 // Bound: bytes. K3 and K6 read lines*p*n and write lines*p*n elements
 // (K3: 0.3205 ms at 8 x 64 MiB f32; K6: 0.0003 ms at 8 x 64 KiB f32,
-// 0.020 ms at 8 x 4 MiB, over 3.35 TB/s); the (p-1) operations an element
+// 0.020 ms at 8 x 4 MiB, over 3.35 TB/s); K4 reads lines*p*n and writes
+// lines*p*nblk (0.1803 ms at 8 x 64 MiB f32; 0.2404 ms as the (2, 4)
+// mesh's first phase, 4 lines of 2); the (p-1) operations an element
 // stay far below the f32 rate. K7 and K5 read lines*p*m and write
 // lines*p*p*m (0.0014 ms at 8 x 64 KiB, 0.0113 ms at 8 x 512 KiB, 0.0225
 // ms at 8 x 1 MiB). At 64 KiB K6 and K7 are bound by the launch.
@@ -1324,26 +1036,50 @@ __device__ __forceinline__ W fold_unit(W x, W acc) {
     return fold_word<T, OP>(x, acc);
 }
 
-// K3 and K6 (W: T, or uint4 on the vector path). `lines` rings of p
-// shards of nu units each, line-major; per_blk: units a block (the last
-// block of a ring may be short); half: the units of a block that fold
-// clockwise when ndir == 2, the rest folding counter-clockwise.
-template <typename T, typename W, int OP>
-__global__ void __launch_bounds__(1024) ring_all_reduce_direct_kernel(
-    RankPtrs ptrs, int p, int lines, long long nu, long long per_blk,
-    long long half, int ndir) {
-  const long long units = static_cast<long long>(lines) * nu;
+// The op's identity as a unit: one element, or V of them in a word.
+template <typename T, int OP, typename W>
+__device__ __forceinline__ W identity_unit() {
+  if constexpr (std::is_same<W, T>::value) {
+    return identity<T, OP>();
+  } else {
+    constexpr int V = 16 / sizeof(T);
+    T e[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = identity<T, OP>();
+    W w;
+    memcpy(&w, e, 16);
+    return w;
+  }
+}
+
+// K3, K6 (SCATTER false) and K4 (SCATTER true); W: T, or uint4 on the
+// vector path. `lines` rings of p shards of nu units each, line-major;
+// per_blk: units a block (K3's last block may be short, K4's is padded);
+// half: the units of a block that fold clockwise when ndir == 2, the
+// rest folding counter-clockwise.
+template <typename T, typename W, int OP, bool SCATTER>
+__device__ __forceinline__ void direct_fold(const RankPtrs& ptrs, int p,
+                                            int lines, long long nu,
+                                            long long per_blk,
+                                            long long half, int ndir) {
+  const long long lu = SCATTER ? p * per_blk : nu;   // units of a line
+  const long long units = static_cast<long long>(lines) * lu;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        u < units; u += step) {
-    const long long g = lines == 1 ? 0 : u / nu;   // the line
-    const long long k = u - g * nu;                // its unit of a row
+    const long long g = lines == 1 ? 0 : u / lu;   // the line
+    const long long k = u - g * lu;                // its unit of a row
     const int b = static_cast<int>(k / per_blk);
+    const long long j = k - b * per_blk;           // its unit of block b
     const int base = static_cast<int>(g) * p;
+    if (SCATTER && k >= nu) {                      // the padded tail
+      static_cast<W*>(ptrs.out[base + b])[j] = identity_unit<T, OP, W>();
+      continue;
+    }
     // the rank step: +1 clockwise (b+1, b+2, ..., b+p), p-1 (that is,
     // -1) counter-clockwise (b-1, ..., b-p)
-    const int d = ndir == 2 && k - b * per_blk >= half ? p - 1 : 1;
+    const int d = ndir == 2 && j >= half ? p - 1 : 1;
     int q = b + d < p ? b + d : b + d - p;
     W acc = ld_nc(static_cast<const W*>(ptrs.in[base + q]) + k);
     for (int j0 = 2; j0 <= p; j0 += kFoldGroup) {
@@ -1358,9 +1094,29 @@ __global__ void __launch_bounds__(1024) ring_all_reduce_direct_kernel(
       for (int i = 0; i < kFoldGroup; ++i)
         if (j0 + i <= p) acc = fold_unit<T, OP>(w[i], acc);
     }
-    for (int r = 0; r < p; ++r)
-      static_cast<W*>(ptrs.out[base + r])[k] = acc;
+    if constexpr (SCATTER) {
+      static_cast<W*>(ptrs.out[base + b])[j] = acc;
+    } else {
+      for (int r = 0; r < p; ++r)
+        static_cast<W*>(ptrs.out[base + r])[k] = acc;
+    }
   }
+}
+
+// K3 and K6: every row of a line holds its allreduce (n elements).
+template <typename T, typename W, int OP>
+__global__ void __launch_bounds__(1024) ring_all_reduce_direct_kernel(
+    RankPtrs ptrs, int p, int lines, long long nu, long long per_blk,
+    long long half, int ndir) {
+  direct_fold<T, W, OP, false>(ptrs, p, lines, nu, per_blk, half, ndir);
+}
+
+// K4: row g*p + b holds block b of line g's allreduce (nblk elements).
+template <typename T, typename W, int OP>
+__global__ void __launch_bounds__(1024) ring_reduce_scatter_direct_kernel(
+    RankPtrs ptrs, int p, int lines, long long nu, long long per_blk,
+    long long half, int ndir) {
+  direct_fold<T, W, OP, true>(ptrs, p, lines, nu, per_blk, half, ndir);
 }
 
 // K7 and K5 (W: an unsigned type of the element's width, or uint4 on the
@@ -1383,21 +1139,24 @@ __global__ void __launch_bounds__(1024) ring_all_gather_direct_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K11: the direct copy by tile table
+// K11 and K10: the direct copy by tile table
 // ---------------------------------------------------------------------------
 //
 // hbm_alltoallv_direct_kernel replaces mvapich2_tpu/ops/pallas_alltoall.py
 // hbm_alltoallv (:488, its pallas_call at :527, body _hbm_alltoallv_kernel
-// :335) as K11.
+// :335) as K11, and hbm_alltoall (:424, pallas_call :452, body
+// _hbm_alltoall_kernel :290) as K10: a uniform alltoall of blocks of c
+// elements is K11's exchange with every count c and the packed
+// displacements, sdispls[r][j] = j*c and rdispls[j][r] = r*c.
 //
-// The TPU kernel streams each (r -> j) pair through j's landing slots
-// under chunk credits, in p - 1 permutation steps, each padded to its
-// heaviest pair, because a chip reaches another chip's memory only by
+// The TPU kernels stream each (r -> j) pair through j's landing slots
+// under chunk credits, in p - 1 permutation steps (K11's each padded to
+// its heaviest pair), because a chip reaches another chip's memory only by
 // remote DMA. On one card every rank's payload is memory that any thread
 // reads, so the exchange is one copy pass: pair (r -> j) moves
 // counts[r][j] elements from sdispls[r][j] of rank r's payload to
 // rdispls[j][r] of rank j's output (ops/alltoall.py _copy_pairs is the
-// spec). No slot, no flag, no wait.
+// spec; K10's is _block_transpose). No slot, no flag, no wait.
 //
 // The wrapper cuts every non-empty pair, the diagonal one included, into
 // tiles of at most TILE_BYTES (ops/alltoall.py tile_table; built once per
@@ -1416,16 +1175,17 @@ __global__ void __launch_bounds__(1024) ring_all_gather_direct_kernel(
 // length are whole 16-byte words and the launch's `vec` says that every
 // payload and output pointer is 16-byte aligned (the C entry refuses a
 // vector request that breaks this); else it is copied element by
-// element. Every tile of the MoE dispatch is whole words.
+// element. Every tile of the MoE dispatch is whole words, and every
+// tile of K10 at a block of whole words.
 //
 // Bound: bytes. Each moved byte is read once and written once: 1 GiB for
-// the hot MoE dispatch at 4096 tokens x 4096 f32 a rank, 0.3205 ms at
-// 3.35 TB/s.
+// the hot MoE dispatch at 4096 tokens x 4096 f32 a rank and for K10 at 8
+// x 64 MiB f32 (4096 tiles of 128 KiB), 0.3205 ms at 3.35 TB/s.
 
 constexpr int kTileCols = 6;
 
-// K11 (E: an unsigned type of the element's width): the ntiles rows of
-// `tiles` (kTileCols int64 each) copied from ptrs.in to ptrs.out.
+// K11 and K10 (E: an unsigned type of the element's width): the ntiles
+// rows of `tiles` (kTileCols int64 each) copied from ptrs.in to ptrs.out.
 template <typename E>
 __global__ void __launch_bounds__(1024) hbm_alltoallv_direct_kernel(
     RankPtrs ptrs, const long long* tiles, long long ntiles, int vec) {
@@ -1512,65 +1272,6 @@ cudaError_t fit_ctas(const void* kernel, int lanes, int ctas, int threads,
   return *B >= 1 ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
 }
 
-// K4 over `lines` rings of p: flags landed then consumed, each
-// [lines][p][ndir][ctas], and the working rows.
-template <typename T, int OP>
-cudaError_t launch_k4(RankPtrs ptrs, int p, int lines, long long n,
-                      long long nblk, long long chunk, int depth, int ndir,
-                      void* work, void* slots, unsigned* flags, int ctas,
-                      int vec, int threads, cudaStream_t s) {
-  const void* kern = reinterpret_cast<const void*>(
-      &hbm_ring_reduce_scatter_kernel<T, OP>);
-  const int lanes = lines * p * ndir;
-  int B, *err;
-  cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, lanes, ctas, threads, &B);
-  if (e != cudaSuccess) return e;
-  T* w = static_cast<T*>(work);
-  T* sl = static_cast<T*>(slots);
-  unsigned* landed = flags;
-  unsigned* consumed = flags + static_cast<long long>(lanes) * ctas;
-  void* args[] = {&ptrs, &p, &n, &nblk, &chunk, &depth, &ndir, &B,
-                  &w, &sl, &landed, &consumed, &vec, &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(lanes * B), dim3(threads),
-                                     args, 0, s);
-}
-
-template <typename T>
-cudaError_t launch_k4_op(int op, RankPtrs ptrs, int p, int lines,
-                         long long n, long long nblk, long long chunk,
-                         int depth, int ndir, void* work, void* slots,
-                         unsigned* flags, int ctas, int vec, int threads,
-                         cudaStream_t s) {
-  switch (op) {
-    case SUM: return launch_k4<T, SUM>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
-    case MAX: return launch_k4<T, MAX>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
-    case MIN: return launch_k4<T, MIN>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
-    case PROD: return launch_k4<T, PROD>(ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, flags, ctas, vec, threads, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// K4 by dtype
-cudaError_t launch_k4_dtype(int dtype, int op, RankPtrs ptrs, int p,
-                            int lines, long long n, long long nblk,
-                            long long chunk, int depth, int ndir,
-                            void* work, void* slots, unsigned* fl, int ctas,
-                            int vec, int threads, cudaStream_t s) {
-  switch (dtype) {
-    case F32: return launch_k4_op<float>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case F16: return launch_k4_op<__half>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case BF16: return launch_k4_op<__nv_bfloat16>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case I32: return launch_k4_op<int32_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case I16: return launch_k4_op<int16_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case I8: return launch_k4_op<int8_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case U8: return launch_k4_op<uint8_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case U16: return launch_k4_op<uint16_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    case U32: return launch_k4_op<uint32_t>(op, ptrs, p, lines, n, nblk, chunk, depth, ndir, work, slots, fl, ctas, vec, threads, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // K8: p ranks of B blocks, no flags, so an ordinary launch
 template <typename T>
 cudaError_t launch_k8(RankPtrs ptrs, int p, long long n, int src, int dst,
@@ -1580,7 +1281,7 @@ cudaError_t launch_k8(RankPtrs ptrs, int p, long long n, int src, int dst,
   return cudaGetLastError();
 }
 
-// K9 shares K4's flag layout: landed then consumed, each [p][ndir][ctas].
+// K9's flags: landed then consumed, each [p][ndir][ctas].
 template <typename T, int W>
 cudaError_t launch_k9(RankPtrs ptrs, int* wires, int p, long long n,
                       long long nblk, int blk, long long chunk, int depth,
@@ -1614,30 +1315,10 @@ cudaError_t launch_k9_wire(int wire, RankPtrs ptrs, int* wires, int p,
   }
 }
 
-// K10 shares the flag layout of K4: landed then consumed, each
-// [p][ndir][ctas].
-template <typename T>
-cudaError_t launch_k10(RankPtrs ptrs, int p, long long c, long long chunk,
-                       int depth, int ndir, void* slots, unsigned* flags,
-                       int ctas, int threads, cudaStream_t s) {
-  const void* kern = reinterpret_cast<const void*>(&hbm_alltoall_kernel<T>);
-  int B, *err;
-  cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, p * ndir, ctas, threads, &B);
-  if (e != cudaSuccess) return e;
-  T* sl = static_cast<T*>(slots);
-  unsigned* landed = flags;
-  unsigned* consumed = flags + static_cast<long long>(p) * ndir * ctas;
-  void* args[] = {&ptrs, &p, &c, &chunk, &depth, &ndir, &B, &sl, &landed,
-                  &consumed, &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(p * ndir * B),
-                                     dim3(threads), args, 0, s);
-}
-
-// The direct kernels (K3, K5-K7, K11-K14q, K17): the blocks of one
-// kernel instance and block size that fit on the card at once, counted
-// at its first launch on a device, then kept (room for every instance:
-// K3 alone has 72).
+// The direct kernels (K3-K7, K10-K14q, K17): the blocks of one kernel
+// instance and block size that fit on the card at once, counted at its
+// first launch on a device, then kept (room for every instance: K3 and
+// K4 have 72 each).
 constexpr int kMaxFits = 256;
 struct DirectFit {
   int dev;
@@ -1706,7 +1387,7 @@ bool bad_direct_threads(int threads) {
   return threads < 32 || threads > 1024 || threads % 32;
 }
 
-// The grid of a direct launch (K3, K5-K7, K11-K14q, K17) of
+// The grid of a direct launch (K3-K7, K10-K14q, K17) of
 // `units` units of work, `per_block` a block: one pass, at most the
 // blocks of kern at `threads` that fit at once, at least one block.
 cudaError_t direct_grid(const void* kern, int threads, long long units,
@@ -1776,13 +1457,28 @@ bool aligned16(const RankPtrs& ptrs, int p) {
   return (bits & 15) == 0;
 }
 
-// K3 and K6: lines rings of p shards of n elements, folded in the ring's
-// order over blocks of ceil(n/p) (ndir 2: the second half of every block
-// counter-clockwise); vec: 16-byte words, refused unless every pointer is
-// 16-byte aligned and n, the block and (ndir 2) its half are whole words.
+// K3/K6's kernel instance, or K4's (scatter), on words (vec) or elements.
+template <typename T, int OP>
+const void* fold_kern(int vec, bool scatter) {
+  if (scatter)
+    return vec ? reinterpret_cast<const void*>(
+                     &ring_reduce_scatter_direct_kernel<T, uint4, OP>)
+               : reinterpret_cast<const void*>(
+                     &ring_reduce_scatter_direct_kernel<T, T, OP>);
+  return vec ? reinterpret_cast<const void*>(
+                   &ring_all_reduce_direct_kernel<T, uint4, OP>)
+             : reinterpret_cast<const void*>(
+                   &ring_all_reduce_direct_kernel<T, T, OP>);
+}
+
+// K3 and K6, or K4 (scatter): lines rings of p shards of n elements,
+// folded in the ring's order over blocks of ceil(n/p) (ndir 2: the second
+// half of every block counter-clockwise); vec: 16-byte words, refused
+// unless every pointer is 16-byte aligned and n, the block and (ndir 2)
+// its half are whole words.
 template <typename T, int OP>
 cudaError_t launch_direct_fold(RankPtrs ptrs, int p, int lines, long long n,
-                               int ndir, int vec, int threads,
+                               int ndir, int vec, bool scatter, int threads,
                                cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   if (n < 0 || (ndir != 1 && ndir != 2) || bad_direct_threads(threads))
@@ -1792,52 +1488,43 @@ cudaError_t launch_direct_fold(RankPtrs ptrs, int p, int lines, long long n,
               !aligned16(ptrs, lines * p)))
     return cudaErrorInvalidValue;
   const long long w = vec ? V : 1;                  // elements a unit
-  const long long nu = n / w, per_blk = nblk / w, half = h / w;
-  const void* kern =
-      vec ? reinterpret_cast<const void*>(
-                &ring_all_reduce_direct_kernel<T, uint4, OP>)
-          : reinterpret_cast<const void*>(
-                &ring_all_reduce_direct_kernel<T, T, OP>);
+  long long nu = n / w, per_blk = nblk / w, half = h / w;
+  const void* kern = fold_kern<T, OP>(vec, scatter);
   int grid;
-  const cudaError_t e = direct_grid(kern, threads, lines * nu, threads,
-                                    &grid);
+  const cudaError_t e = direct_grid(
+      kern, threads, lines * (scatter ? p * per_blk : nu), threads, &grid);
   if (e != cudaSuccess) return e;
-  if (vec)
-    ring_all_reduce_direct_kernel<T, uint4, OP><<<grid, threads, 0, s>>>(
-        ptrs, p, lines, nu, per_blk, half, ndir);
-  else
-    ring_all_reduce_direct_kernel<T, T, OP><<<grid, threads, 0, s>>>(
-        ptrs, p, lines, nu, per_blk, half, ndir);
-  return cudaGetLastError();
+  void* args[] = {&ptrs, &p, &lines, &nu, &per_blk, &half, &ndir};
+  return cudaLaunchKernel(kern, dim3(grid), dim3(threads), args, 0, s);
 }
 
 template <typename T>
 cudaError_t launch_fold_op(int op, RankPtrs ptrs, int p, int lines,
-                           long long n, int ndir, int vec, int threads,
-                           cudaStream_t s) {
+                           long long n, int ndir, int vec, bool scatter,
+                           int threads, cudaStream_t s) {
   switch (op) {
-    case SUM: return launch_direct_fold<T, SUM>(ptrs, p, lines, n, ndir, vec, threads, s);
-    case MAX: return launch_direct_fold<T, MAX>(ptrs, p, lines, n, ndir, vec, threads, s);
-    case MIN: return launch_direct_fold<T, MIN>(ptrs, p, lines, n, ndir, vec, threads, s);
-    case PROD: return launch_direct_fold<T, PROD>(ptrs, p, lines, n, ndir, vec, threads, s);
+    case SUM: return launch_direct_fold<T, SUM>(ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case MAX: return launch_direct_fold<T, MAX>(ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case MIN: return launch_direct_fold<T, MIN>(ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case PROD: return launch_direct_fold<T, PROD>(ptrs, p, lines, n, ndir, vec, scatter, threads, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// K3 and K6 by dtype
+// K3, K4 and K6 by dtype
 cudaError_t launch_fold_dtype(int dtype, int op, RankPtrs ptrs, int p,
                               int lines, long long n, int ndir, int vec,
-                              int threads, cudaStream_t s) {
+                              bool scatter, int threads, cudaStream_t s) {
   switch (dtype) {
-    case F32: return launch_fold_op<float>(op, ptrs, p, lines, n, ndir, vec, threads, s);
-    case F16: return launch_fold_op<__half>(op, ptrs, p, lines, n, ndir, vec, threads, s);
-    case BF16: return launch_fold_op<__nv_bfloat16>(op, ptrs, p, lines, n, ndir, vec, threads, s);
-    case I32: return launch_fold_op<int32_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
-    case I16: return launch_fold_op<int16_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
-    case I8: return launch_fold_op<int8_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
-    case U8: return launch_fold_op<uint8_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
-    case U16: return launch_fold_op<uint16_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
-    case U32: return launch_fold_op<uint32_t>(op, ptrs, p, lines, n, ndir, vec, threads, s);
+    case F32: return launch_fold_op<float>(op, ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case F16: return launch_fold_op<__half>(op, ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case BF16: return launch_fold_op<__nv_bfloat16>(op, ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case I32: return launch_fold_op<int32_t>(op, ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case I16: return launch_fold_op<int16_t>(op, ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case I8: return launch_fold_op<int8_t>(op, ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case U8: return launch_fold_op<uint8_t>(op, ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case U16: return launch_fold_op<uint16_t>(op, ptrs, p, lines, n, ndir, vec, scatter, threads, s);
+    case U32: return launch_fold_op<uint32_t>(op, ptrs, p, lines, n, ndir, vec, scatter, threads, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1869,10 +1556,10 @@ cudaError_t launch_direct_gather(RankPtrs ptrs, int p, int lines,
   return cudaGetLastError();
 }
 
-// K11 (E: an unsigned type of the element's width): ntiles rows of the
-// tile table over p ranks; vec: every payload and output pointer 16-byte
-// aligned, so that the rows that say so move 16-byte words. One block a
-// tile, at most the blocks that fit at once.
+// K11 and K10 (E: an unsigned type of the element's width): ntiles rows
+// of the tile table over p ranks; vec: every payload and output pointer
+// 16-byte aligned, so that the rows that say so move 16-byte words. One
+// block a tile, at most the blocks that fit at once.
 template <typename E>
 cudaError_t launch_direct_alltoallv(RankPtrs ptrs, int p,
                                     const long long* tiles, long long ntiles,
@@ -1920,24 +1607,21 @@ int mv2t_hbm_ring_all_reduce(int dtype, int op, const void* ins,
   if (bad_lines(p, lines)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_fold_dtype(
       dtype, op, rank_ptrs(ins, outs, lines * p), p, lines, n, ndir, vec,
-      threads, static_cast<cudaStream_t>(stream)));
+      false, threads, static_cast<cudaStream_t>(stream)));
 }
 
-// K4: outs[gr] the [nblk] output blocks, work the [lines*p][p*nblk]
-// working rows.
+// K4: outs[g*p + b] = block b (of ceil(n/p) elements) of line g's
+// allreduce, folded as K3 folds it, the padded tail of the last block
+// holding the op's identity; the arguments as K3's, outs being the
+// lines * p output blocks.
 int mv2t_hbm_ring_reduce_scatter(int dtype, int op, const void* ins,
                                  const void* outs, int p, int lines,
-                                 long long n, long long nblk,
-                                 long long chunk, int depth, int ndir,
-                                 void* work, void* slots, void* flags,
-                                 int ctas, int vec, int threads,
+                                 long long n, int ndir, int vec, int threads,
                                  void* stream) {
-  if (bad_lines(p, lines) || p < 2 || !work)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_k4_dtype(
-      dtype, op, rank_ptrs(ins, outs, lines * p), p, lines, n, nblk, chunk,
-      depth, ndir, work, slots, static_cast<unsigned*>(flags), ctas, vec,
-      threads, static_cast<cudaStream_t>(stream)));
+  if (bad_lines(p, lines)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_fold_dtype(
+      dtype, op, rank_ptrs(ins, outs, lines * p), p, lines, n, ndir, vec,
+      true, threads, static_cast<cudaStream_t>(stream)));
 }
 
 // K5: outs[g*p + r] = the p shards ins[g*p .. g*p + p - 1] of len
@@ -2006,8 +1690,8 @@ int mv2t_ring_all_reduce(int dtype, const void* ins, const void* outs,
                          void* stream) {
   if (bad_ranks(p) || len < 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_fold_dtype(
-      dtype, SUM, rank_ptrs(ins, outs, p), p, 1, p * len, 1, vec, threads,
-      static_cast<cudaStream_t>(stream)));
+      dtype, SUM, rank_ptrs(ins, outs, p), p, 1, p * len, 1, vec, false,
+      threads, static_cast<cudaStream_t>(stream)));
 }
 
 // K7: outs[r] = the p shards ins[.] of len elements, concatenated, for
@@ -2027,26 +1711,10 @@ int mv2t_ring_all_gather(int dtype, const void* ins, const void* outs,
   }
 }
 
-int mv2t_hbm_alltoall(int dtype, const void* ins, const void* outs, int p,
-                      long long c, long long chunk, int depth, int ndir,
-                      void* slots, void* flags, int ctas, int threads,
-                      void* stream) {
-  if (bad_ranks(p)) return static_cast<int>(cudaErrorInvalidValue);
-  const RankPtrs ptrs = rank_ptrs(ins, outs, p);
-  unsigned* fl = static_cast<unsigned*>(flags);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (element_size(dtype)) {
-    case 4: return static_cast<int>(launch_k10<uint32_t>(ptrs, p, c, chunk, depth, ndir, slots, fl, ctas, threads, s));
-    case 2: return static_cast<int>(launch_k10<uint16_t>(ptrs, p, c, chunk, depth, ndir, slots, fl, ctas, threads, s));
-    case 1: return static_cast<int>(launch_k10<uint8_t>(ptrs, p, c, chunk, depth, ndir, slots, fl, ctas, threads, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// K11: tiles is the [ntiles][6] int64 tile table on the card (source
-// rank, source offset, destination rank, destination offset, length,
-// whole 16-byte words), every rank index below p; vec: every one of the
-// p payload and output pointers 16-byte aligned.
+// K11 and K10: tiles is the [ntiles][6] int64 tile table on the card
+// (source rank, source offset, destination rank, destination offset,
+// length, whole 16-byte words), every rank index below p; vec: every one
+// of the p payload and output pointers 16-byte aligned.
 int mv2t_hbm_alltoallv(int dtype, const void* ins, const void* outs, int p,
                        const void* tiles, long long ntiles, int vec,
                        int threads, void* stream) {

@@ -69,10 +69,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("vec", _I), ("threads", _I), ("stream", _P))),
         "mv2t_hbm_ring_reduce_scatter": (_I, (
             ("dtype", _I), ("op", _I), ("ins", _P), ("outs", _P),
-            ("p", _I), ("lines", _I), ("n", _I64), ("nblk", _I64),
-            ("chunk", _I64), ("depth", _I), ("ndir", _I), ("work", _P),
-            ("slots", _P), ("flags", _P), ("ctas", _I), ("vec", _I),
-            ("threads", _I), ("stream", _P))),
+            ("p", _I), ("lines", _I), ("n", _I64), ("ndir", _I),
+            ("vec", _I), ("threads", _I), ("stream", _P))),
         "mv2t_hbm_ring_all_gather": (_I, (
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
             ("lines", _I), ("len", _I64), ("vec", _I), ("threads", _I),
@@ -93,11 +91,6 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "mv2t_ring_all_gather": (_I, (
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
             ("len", _I64), ("vec", _I), ("threads", _I), ("stream", _P))),
-        "mv2t_hbm_alltoall": (_I, (
-            ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
-            ("c", _I64), ("chunk", _I64), ("depth", _I), ("ndir", _I),
-            ("slots", _P), ("flags", _P), ("ctas", _I), ("threads", _I),
-            ("stream", _P))),
         "mv2t_hbm_alltoallv": (_I, (
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),
             ("tiles", _P), ("ntiles", _I64), ("vec", _I), ("threads", _I),

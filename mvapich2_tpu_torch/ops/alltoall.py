@@ -14,19 +14,17 @@ with the packed layout of :func:`packed_displs` unless displacements are
 given. Each rank's input is its own packed payload, read in place at its
 own length.
 
-K10's schedule is the JAX kernel's: the local block copied once, then
-steps ``s = 1..p-1`` (split over two lanes when ``p > 2`` and
-``ICI_BIDIR``: :func:`_lane_steps`) in which rank r streams its block for
-``(r+s)%p`` in ``ICI_CHUNK_BYTES`` chunks into that rank's
-``ICI_PIPELINE_DEPTH`` landing slots and drains what ``(r-s)%p`` sends
-it; slots are addressed by a per-lane global chunk counter, and each
-step runs the JAX kernel's credit wave.
-
-K11 has no schedule on one card: every pair is one copy from its
-sender's payload into its receiver's output, so the kernel is one
-direct pass with no landing slot and no credit over a table of tiles
+Neither has a schedule on one card: every pair is one copy from its
+sender's payload into its receiver's output, so K11 is one direct pass
+with no landing slot and no credit over a table of tiles
 (:func:`tile_table`: every non-empty pair cut into tiles of at most
 ``TILE_BYTES``), built once per device, count matrix and displacements.
+K10 is K11's kernel over the uniform plan (:func:`uniform_plan`: every
+count ``c``, the packed displacements), whose table is built once per
+device, ``p``, ``c`` and element size. ``chunk_bytes``, ``depth`` and
+``bidirectional`` order the TPU schedule's transfers (the JAX kernels'
+chunks, landing slots and lanes) and never the result, so both wrappers
+take them for the JAX signature and they shape nothing.
 
 Routing is ``ops/ring.py``'s: CPU tensors take the plain version, CUDA
 tensors launch the kernel on the current stream or raise; ``LAUNCHES``
@@ -44,7 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import ring
-from .ici import _cfg_chunk_elems, _cfg_depth, _resolve_ndir, dtype_kind
+from .ici import dtype_kind
 from .ring import Shards
 
 LAUNCHES: Dict[str, int] = {"hbm_alltoall": 0, "hbm_alltoallv": 0}
@@ -100,8 +98,8 @@ def planned_a2a_tier(shard_nbytes: int, dtype: torch.dtype
                      ) -> Tuple[str, Optional[str]]:
     """(tier, fallback_reason) for one alltoall(v) call: 'hbm' (the
     kernels) or 'xla' (the stock lowering) with the dev_coll_fallback_*
-    reason. The generic device tier collapses onto the one streaming
-    engine: 'vmem' and 'quant' read as 'hbm' (so MV2T_QUANT_COLL sends
+    reason. The generic device tier collapses onto the one kernel tier:
+    'vmem' and 'quant' read as 'hbm' (so MV2T_QUANT_COLL sends
     alltoall to the kernels, as in the JAX package)."""
     if dtype_kind(dtype) not in "fiu":
         return "xla", "dtype"
@@ -227,47 +225,6 @@ def _copy_pairs(shards, plan: _VPlan) -> List[torch.Tensor]:
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def _a2a_args(p: int, dt: torch.dtype, dev: torch.device, span: int,
-              chunk_bytes, depth, bidirectional):
-    """(chunk, depth, ndir, ctas, slots, flags) of one launch whose
-    largest pair moves ``span`` elements."""
-    chunk = max(1, min(_cfg_chunk_elems(dt, chunk_bytes), span))
-    d = _cfg_depth(depth)
-    ndir = _resolve_ndir(p, bidirectional)
-    ctas = ring.ctas_per_lane(dev, p * ndir, chunk, 16 // dt.itemsize)
-    slots = torch.empty((p, ndir, d, chunk), dtype=dt, device=dev)
-    flags = torch.zeros(2 * p * ndir * ctas, dtype=torch.int32, device=dev)
-    return chunk, d, ndir, ctas, slots, flags
-
-
-def hbm_alltoall(xs: Shards, *, chunk_bytes: Optional[int] = None,
-                 depth: Optional[int] = None,
-                 bidirectional: Optional[bool] = None) -> torch.Tensor:
-    """K10: uniform alltoall of ``p`` shards of ``n = p*c`` elements.
-    Returns ``(p, n)``, row r for rank r (block j from rank j). An
-    empty shard, or ``p == 1``, returns the input rows; ``n % p`` raises
-    ``ValueError``."""
-    shards = ring.as_shards(xs, "hbm_alltoall")
-    p, n = len(shards), shards[0].numel()
-    if p == 1 or n == 0:
-        return torch.stack(shards)
-    if n % p:
-        raise ValueError(f"alltoall shard size {n} not divisible by {p}")
-    if ring.on_cpu(shards):
-        PLAIN_CALLS["hbm_alltoall"] += 1
-        return _block_transpose(shards)
-    code = ring.check_cuda_shards(shards, "hbm_alltoall")
-    dev, dt = shards[0].device, shards[0].dtype
-    out = torch.empty((p, n), dtype=dt, device=dev)
-    chunk, d, ndir, ctas, slots, flags = _a2a_args(
-        p, dt, dev, n // p, chunk_bytes, depth, bidirectional)
-    ring.launch("mv2t_hbm_alltoall", dev, code, ring.pointers(shards),
-                ring.pointers(out.unbind(0)), p, n // p, chunk, d, ndir,
-                slots.data_ptr(), flags.data_ptr(), ctas)
-    LAUNCHES["hbm_alltoall"] += 1
-    return out
-
-
 # K11's tiles: at most TILE_BYTES of one pair each (a multiple of 16, so
 # every tile of a pair whose offsets are whole 16-byte words is whole
 # words too); chosen by the tile sweep of ``chip_smoke.py --sweep``
@@ -321,6 +278,55 @@ def _tiles(dev: torch.device, plan: _VPlan, esize: int) -> torch.Tensor:
     return t
 
 
+def uniform_plan(shards: List[torch.Tensor]) -> _VPlan:
+    """K10's exchange as K11's plan: ``p`` shards of ``p*c`` elements,
+    every count ``c``, the packed displacements (rank r's block j at
+    ``j*c``, its output's block j from rank j at ``j*c``)."""
+    p = len(shards)
+    c = shards[0].numel() // p
+    return _VPlan(shards, ((c,) * p,) * p, None, None, None, "hbm_alltoall")
+
+
+def _copy_tiles(code: int, shards: List[torch.Tensor], plan: _VPlan,
+                outs: List[torch.Tensor]) -> None:
+    """Launch K11's kernel over ``plan``'s cached tile table, from the
+    payloads ``shards`` into the outputs ``outs``."""
+    dev = shards[0].device
+    tiles = _tiles(dev, plan, shards[0].element_size())
+    # a cached table may be evicted while this launch still reads it
+    tiles.record_stream(torch.cuda.current_stream(dev))
+    vec = ring.aligned(shards) and ring.aligned(outs)
+    ring.launch("mv2t_hbm_alltoallv", dev, code, ring.pointers(shards),
+                ring.pointers(outs), plan.p, tiles.data_ptr(),
+                tiles.shape[0], int(vec), threads=ring.DIRECT_THREADS)
+
+
+def hbm_alltoall(xs: Shards, *, chunk_bytes: Optional[int] = None,
+                 depth: Optional[int] = None,
+                 bidirectional: Optional[bool] = None) -> torch.Tensor:
+    """K10: uniform alltoall of ``p`` shards of ``n = p*c`` elements, as
+    K11's direct copy over :func:`uniform_plan`'s tile table. Returns
+    ``(p, n)``, row r for rank r (block j from rank j). An empty shard,
+    or ``p == 1``, returns the input rows; ``n % p`` raises
+    ``ValueError``. ``chunk_bytes``, ``depth`` and ``bidirectional``
+    shape nothing (the module's docstring)."""
+    shards = ring.as_shards(xs, "hbm_alltoall")
+    p, n = len(shards), shards[0].numel()
+    if p == 1 or n == 0:
+        return torch.stack(shards)
+    if n % p:
+        raise ValueError(f"alltoall shard size {n} not divisible by {p}")
+    if ring.on_cpu(shards):
+        PLAIN_CALLS["hbm_alltoall"] += 1
+        return _block_transpose(shards)
+    code = ring.check_cuda_shards(shards, "hbm_alltoall")
+    out = torch.empty((p, n), dtype=shards[0].dtype,
+                      device=shards[0].device)
+    _copy_tiles(code, shards, uniform_plan(shards), list(out.unbind(0)))
+    LAUNCHES["hbm_alltoall"] += 1
+    return out
+
+
 def hbm_alltoallv(xs: Sequence[torch.Tensor],
                   counts: Sequence[Sequence[int]], *,
                   sdispls=None, rdispls=None, out_len: Optional[int] = None,
@@ -335,9 +341,8 @@ def hbm_alltoallv(xs: Sequence[torch.Tensor],
     rank, of its own receive extent (or ``out_len``), rank j's payload
     from r at ``rdispls[j][r]``. ``p == 1`` returns the payload's
     prefix; a matrix of zeros takes the stock lowering, as in the JAX
-    wrapper. ``chunk_bytes``, ``depth`` and ``bidirectional`` order the
-    TPU schedule's transfers and never the result, so on one card they
-    shape nothing; they stay for the JAX signature."""
+    wrapper. ``chunk_bytes``, ``depth`` and ``bidirectional`` shape
+    nothing (the module's docstring)."""
     shards = _v_shards(xs, "hbm_alltoallv")
     plan = _VPlan(shards, counts, sdispls, rdispls, out_len, "hbm_alltoallv")
     p = plan.p
@@ -349,15 +354,8 @@ def hbm_alltoallv(xs: Sequence[torch.Tensor],
         PLAIN_CALLS["hbm_alltoallv"] += 1
         return _copy_pairs(shards, plan)
     code = ring.check_cuda_shards(shards, "hbm_alltoallv")
-    dev = shards[0].device
     outs = plan.outputs(shards[0])
-    tiles = _tiles(dev, plan, shards[0].element_size())
-    # a cached table may be evicted while this launch still reads it
-    tiles.record_stream(torch.cuda.current_stream(dev))
-    vec = ring.aligned(shards) and ring.aligned(outs)
-    ring.launch("mv2t_hbm_alltoallv", dev, code, ring.pointers(shards),
-                ring.pointers(outs), p, tiles.data_ptr(), tiles.shape[0],
-                int(vec), threads=ring.DIRECT_THREADS)
+    _copy_tiles(code, shards, plan, outs)
     LAUNCHES["hbm_alltoallv"] += 1
     return outs
 

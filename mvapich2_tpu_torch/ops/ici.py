@@ -1,4 +1,4 @@
-"""Streaming ring collectives over ``p`` virtual ranks of one GPU, the
+"""The HBM ring collectives over ``p`` virtual ranks of one GPU, the
 device tier dispatch and the multi-axis mesh composition (counterpart of
 ``mvapich2_tpu/ops/pallas_ici.py``).
 
@@ -20,7 +20,11 @@ prod.
 
 ``hbm_ring_reduce_scatter`` (K4): the reduce-scatter ring alone, ``[n]``
 per rank to its block ``[ceil(n/p)]`` of the folded (identity-padded)
-array.
+array. The ring leaves block ``b`` of K3's fold at rank ``b``, so on one
+card K4 is K3's direct fold stored into that rank's row alone: the same
+kernel loop with another store, and the identity in the padded tail of
+the last block (the identity folded with itself), in one ordinary
+launch with no slot, flag or wait.
 
 ``hbm_ring_all_gather`` (K5): the all-gather ring's result, ``[m]`` per
 rank to ``[p*m]``. Its result does not depend on the schedule (every row
@@ -45,22 +49,20 @@ allreduce per axis instead), ``ici_all_gather_mesh`` and
 ``_axis_phase`` regroups the rows into an axis's lines and back without
 a copy. The port has no interpreter, so a phase under a multi-axis
 ``mesh_ctx`` takes the JAX package's hardware branch (``_mesh_mode``
-"hw"): the resident and quant tiers clamp to the streaming ring, and
-only DEV_TIER_XLA_MIN sends a phase to the stock lowering.
+"hw"): the resident and quant tiers clamp to the HBM ring, and only
+DEV_TIER_XLA_MIN sends a phase to the stock lowering.
 
-The schedule of K4 is the JAX kernel's: the same block ids and phase
-order, one global chunk counter per direction (slot = counter mod
-depth), and the chunk-credit handshake (a sender writes chunk k+depth
-only once the receiver has consumed chunk k). A "remote DMA" is a store
-into the downstream rank's landing slot. K3, K5 and K8 use no slot and
-no credit. Inputs and outputs are as in ``ops/ring.py``, whose launch
-and replay machinery these wrappers share.
+K3, K4, K5 and K8 use no landing slot and no credit; ``chunk_bytes``
+and ``depth`` order the TPU rings' transfers and never their results,
+so they shape nothing here (K3 and K4 still check them). Inputs and outputs
+are as in ``ops/ring.py``, whose launch and replay machinery these
+wrappers share.
 
 ``ici_all_reduce`` / ``ici_all_gather`` pick the tier by shard bytes
 (``planned_tier``): the resident ring (K6/K7, ``ops/ring.py``) at or
 below DEV_TIER_VMEM_MAX, the quantized ring (K9, ``ops/quant.py``) at or
 above DEV_TIER_QUANT_MIN for a float sum allreduce whose MV2T_QUANT_COLL
-budget covers its error bound, the streaming ring otherwise, and the
+budget covers its error bound, the HBM ring (K3, K5) otherwise, and the
 stock torch reduction over the stacked shards (the port's analog of
 ``lax.psum``) past DEV_TIER_XLA_MIN or for an op or dtype the kernels do
 not take. The mesh channel counts each call's tier or fallback in the
@@ -199,14 +201,16 @@ def planned_tier(name: str, shard_nbytes: int, dtype: torch.dtype,
 # ---------------------------------------------------------------------------
 
 def _padded(shards: List[torch.Tensor], op: str) -> Tuple[torch.Tensor, int]:
-    """(p, n_pad) stack of the shards padded with the op identity to p
-    blocks; returns it and nblk."""
+    """(p, n_pad) stack of the shards (``ring.widened``) padded with the
+    op identity of their own dtype to p blocks; returns it and nblk. The
+    identity is the shard dtype's, not the widened one's: ``pad`` takes
+    its value through a double, where int64's 2^63 - 1 does not fit."""
     p, n = len(shards), shards[0].numel()
     nblk = -(-n // p)
-    x = torch.stack(shards)
+    x = torch.stack(ring.widened(shards))
     if nblk * p > n:
         x = torch.nn.functional.pad(x, (0, nblk * p - n),
-                                    value=_pad_identity(x.dtype, op))
+                                    value=_pad_identity(shards[0].dtype, op))
     return x, nblk
 
 
@@ -230,7 +234,7 @@ def _per_line(shards: List[torch.Tensor], lines: int, what: str,
 
 def _k3_replay(shards, op, bidirectional):
     p, n, dt = len(shards), shards[0].numel(), shards[0].dtype
-    x, nblk = _padded(ring.widened(shards), op)
+    x, nblk = _padded(shards, op)
     o = x.reshape(p, p, nblk).clone()
     ring.ring_replay(o, _block_spans(nblk, _resolve_ndir(p, bidirectional)),
                      True, True, ring.reducer(op))
@@ -251,7 +255,7 @@ def hbm_ring_all_reduce_ref(xs: Shards, op: str = "sum", *,
 
 def _k4_replay(shards, op, bidirectional):
     p, dt = len(shards), shards[0].dtype
-    x, nblk = _padded(ring.widened(shards), op)
+    x, nblk = _padded(shards, op)
     o = x.reshape(p, p, nblk).clone()
     ring.ring_replay(o, _block_spans(nblk, _resolve_ndir(p, bidirectional)),
                      True, False, ring.reducer(op))
@@ -315,24 +319,14 @@ def remote_sendrecv_ref(xs: Shards, src: int, dst: int) -> torch.Tensor:
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def _stream_args(shards, out, p, lines, nblk, chunk_bytes, depth,
-                 bidirectional):
-    """(chunk, depth, ndir, ctas, vec, slots, flags) of one K4 launch of
-    ``lines`` rings of ``p`` over blocks of ``nblk`` elements."""
-    dev, dt = out.device, out.dtype
-    chunk = max(1, min(_cfg_chunk_elems(dt, chunk_bytes), nblk))
-    d = _cfg_depth(depth)
-    ndir = _resolve_ndir(p, bidirectional)
-    v = 16 // out.element_size()
-    h = (nblk + 1) // 2
-    vec = (ring.aligned(shards) and ring.aligned(out.unbind(0))
-           and nblk % v == 0 and chunk % v == 0
-           and (ndir == 1 or h % v == 0))
-    lanes = lines * p * ndir
-    ctas = ring.ctas_per_lane(dev, lanes, chunk, v)
-    slots = torch.empty((lines * p, ndir, d, chunk), dtype=dt, device=dev)
-    flags = torch.zeros(2 * lanes * ctas, dtype=torch.int32, device=dev)
-    return chunk, d, ndir, ctas, int(vec), slots, flags
+def _fold_vec(shards, out, n, p, ndir) -> bool:
+    """The word path of K3's and K4's fold: every shard and ``out`` (whose
+    rows are then aligned too) 16-byte aligned, and ``n``, the block and
+    (two directions) its half whole 16-byte words."""
+    nblk, v = -(-n // p), 16 // out.element_size()
+    return (ring.aligned(shards) and out.data_ptr() % 16 == 0
+            and n % v == 0 and nblk % v == 0
+            and (ndir == 1 or (nblk + 1) // 2 % v == 0))
 
 
 def _check_op(op: str, what: str) -> None:
@@ -370,13 +364,10 @@ def hbm_ring_all_reduce(xs: Shards, op: str = "sum", *,
     ndir = _resolve_ndir(p, bidirectional)
     out = torch.empty((len(shards), n), dtype=shards[0].dtype,
                       device=shards[0].device)
-    nblk, v = -(-n // p), 16 // out.element_size()
-    vec = (ring.aligned(shards) and out.data_ptr() % 16 == 0
-           and n % v == 0 and nblk % v == 0
-           and (ndir == 1 or (nblk + 1) // 2 % v == 0))
     ring.launch("mv2t_hbm_ring_all_reduce", out.device, code,
                 ring.OP_CODES[op], ring.pointers(shards),
-                ring.row_pointers(out), p, lines, n, ndir, int(vec),
+                ring.row_pointers(out), p, lines, n, ndir,
+                int(_fold_vec(shards, out, n, p, ndir)),
                 threads=ring.DIRECT_THREADS)
     LAUNCHES["hbm_ring_all_reduce"] += 1
     return out
@@ -387,15 +378,20 @@ def hbm_ring_reduce_scatter(xs: Shards, op: str = "sum", *,
                             depth: Optional[int] = None,
                             bidirectional: Optional[bool] = None,
                             lines: int = 1) -> torch.Tensor:
-    """K4: reduce-scatter of ``p`` shards of any length ``n`` through
-    the chunked streaming ring (K3's reduce-scatter rounds), on each of
-    ``lines`` rings of ``p``. The shards are padded with the op's
-    identity to ``p`` blocks of ``nblk = ceil(n/p)``; row ``g*p + r`` is
-    block ``r`` of line g's folded array, ``(lines*p, nblk)``. With
-    ``p == 1`` every shard is its own result (a copy, no launch)."""
+    """K4: reduce-scatter of ``p`` shards of any length ``n``, the
+    reduce-scatter ring's result as K3's direct fold kept to each block's
+    owner, on each of ``lines`` rings of ``p``. The shards are padded
+    with the op's identity to ``p`` blocks of ``nblk = ceil(n/p)``; row
+    ``g*p + r`` is block ``r`` of line g's folded array, ``(lines*p,
+    nblk)``. ``bidirectional`` picks the fold order of the second half of
+    every block; ``chunk_bytes`` and ``depth`` are checked and shape
+    nothing, as K3's. With ``p == 1`` every shard is its own result (a
+    copy, no launch)."""
     _check_op(op, "hbm_ring_reduce_scatter")
     shards = ring.as_shards(xs, "hbm_ring_reduce_scatter")
     p = _line_size(shards, lines, "hbm_ring_reduce_scatter")
+    _cfg_chunk_elems(shards[0].dtype, chunk_bytes)
+    _cfg_depth(depth)
     if p == 1:
         return torch.stack(shards)
     if ring.on_cpu(shards):
@@ -404,17 +400,15 @@ def hbm_ring_reduce_scatter(xs: Shards, op: str = "sum", *,
                                            bidirectional=bidirectional,
                                            lines=lines)
     code = ring.check_cuda_shards(shards, "hbm_ring_reduce_scatter")
-    n, dt, dev = shards[0].numel(), shards[0].dtype, shards[0].device
-    nblk = -(-n // p)
-    out = torch.empty((len(shards), nblk), dtype=dt, device=dev)
-    work = torch.empty((len(shards), p * nblk), dtype=dt, device=dev)
-    chunk, d, ndir, ctas, vec, slots, flags = _stream_args(
-        shards, out, p, lines, nblk, chunk_bytes, depth, bidirectional)
-    ring.launch("mv2t_hbm_ring_reduce_scatter", dev, code,
+    n = shards[0].numel()
+    ndir = _resolve_ndir(p, bidirectional)
+    out = torch.empty((len(shards), -(-n // p)), dtype=shards[0].dtype,
+                      device=shards[0].device)
+    ring.launch("mv2t_hbm_ring_reduce_scatter", out.device, code,
                 ring.OP_CODES[op], ring.pointers(shards),
-                ring.pointers(out.unbind(0)), p, lines, n, nblk, chunk, d,
-                ndir, work.data_ptr(), slots.data_ptr(), flags.data_ptr(),
-                ctas, vec)
+                ring.row_pointers(out), p, lines, n, ndir,
+                int(_fold_vec(shards, out, n, p, ndir)),
+                threads=ring.DIRECT_THREADS)
     LAUNCHES["hbm_ring_reduce_scatter"] += 1
     return out
 
@@ -509,7 +503,7 @@ def _mesh_mode(mesh_ctx) -> str:
 def _check_lines(lines: int, mode: str, what: str) -> None:
     if lines != 1 and mode != "hw":
         raise ValueError(f"{what}: lines={lines} needs a multi-axis "
-                         f"mesh_ctx (only the streaming kernels take "
+                         f"mesh_ctx (only the HBM ring kernels take "
                          f"lines)")
 
 
@@ -517,8 +511,8 @@ def ici_all_reduce(xs: Shards, op: str = "sum", *, lines: int = 1,
                    mesh_ctx=None) -> torch.Tensor:
     """Tier-dispatched allreduce of ``p`` shards: the resident ring (K6)
     at or below DEV_TIER_VMEM_MAX for a sum whose shard divides into p
-    blocks, the quantized ring (K9) in the quant tier, the streaming
-    ring (K3) otherwise, the stock reduction past DEV_TIER_XLA_MIN or
+    blocks, the quantized ring (K9) in the quant tier, the HBM ring (K3)
+    otherwise, the stock reduction past DEV_TIER_XLA_MIN or
     for an op or dtype the kernels do not take. Under a multi-axis
     ``mesh_ctx`` ((axis, size) pairs) the resident and quant tiers clamp
     to K3, which then runs ``lines`` rings of p at once (shards
@@ -543,7 +537,7 @@ def ici_all_reduce(xs: Shards, op: str = "sum", *, lines: int = 1,
         return quant_ring_all_reduce(shards, op)
     if tier == "vmem":
         if n % p or op != "sum":
-            tier = "hbm"    # shapes/ops K6 cannot take stream instead
+            tier = "hbm"    # shapes/ops K6 cannot take go to K3
         elif nbytes <= ring.VMEM_LIMIT_BYTES:
             return ring.ring_all_reduce(shards)
         # else the resident kernel's own guard (a raised VMEM edge): stock
@@ -626,7 +620,7 @@ def ici_reduce_scatter(xs: Shards, op: str = "sum", *, lines: int = 1,
     line's folded array, ``(lines*p, ceil(n/p))``. The quant wire has no
     reduce-scatter form and the resident ring no reduce-scatter entry,
     so every tier but the stock one (past DEV_TIER_XLA_MIN, or an op or
-    dtype the kernels do not take) streams through K4, which pads."""
+    dtype the kernels do not take) runs K4, which pads."""
     if op not in _SUPPORTED_OPS:
         raise NotImplementedError(f"op {op!r} has no device reduction")
     shards = ring.as_shards(xs, "ici_reduce_scatter")

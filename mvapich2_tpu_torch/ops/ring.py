@@ -27,18 +27,17 @@ order is the JAX kernel's; given CUDA tensors it launches the kernel
 on the current stream or raises. ``LAUNCHES`` counts kernel launches
 only, ``PLAIN_CALLS`` the plain route.
 
-The direct launch serves K3 and K5 of ``ops/ici.py`` too (K6's fold
-and K7's gather over ``lines`` rings). The streaming kernels (K4 of
-``ops/ici.py``, K10 of ``ops/alltoall.py`` and K9 of ``ops/quant.py``)
-keep the ring protocol: every
-(rank, direction) lane gets ``B`` thread blocks, each running its own
-sub-ring over its share of the data, with credits in global memory. All
-blocks must be resident at once (a block spinning on a credit would wait
-forever behind a peer that never gets an SM), so those kernels launch
-cooperatively. A spin that outlasts 2 s sets an error word and ends the
-launch; :func:`check_errors` (and the next launch through
-:func:`launch`, K6 and K7 included) raises on it, and the mesh channel
-checks it after every collective, so that collective raises.
+The direct launch serves K3, K4 and K5 of ``ops/ici.py`` too (K6's fold
+and K7's gather over ``lines`` rings). The streaming kernel, K9 of
+``ops/quant.py``, keeps the ring protocol: every (rank, direction) lane
+gets ``B`` thread blocks, each running its own sub-ring over its share
+of the data, with credits in global memory. All blocks must be resident
+at once (a block spinning on a credit would wait forever behind a peer
+that never gets an SM), so it launches cooperatively. A spin that
+outlasts 2 s sets an error word and ends the launch; :func:`check_errors`
+(and the next launch through :func:`launch`, K6 and K7 included) raises
+on it, and the mesh channel checks it after every collective, so that
+collective raises.
 """
 
 from __future__ import annotations
@@ -54,7 +53,7 @@ from ..coll.tuning import kernel_param
 # it the resident kernels hand the call to the stock lowering
 VMEM_LIMIT_BYTES = 4 * 1024 * 1024
 MAX_RANKS = 64               # csrc/ring.cu kMaxRanks
-# threads per block of the direct kernels (K5, K6, K7, K11): 128, 256
+# threads per block of the direct kernels (K3-K7, K10, K11): 128, 256
 # and 512 time alike for K6/K7 on an H100 at 64 KiB and at 4 MiB a
 # shard (PERF.md)
 DIRECT_THREADS = 256

@@ -15,7 +15,10 @@ displacements with ``out_len``; a pair that spans many tiles.
 The CUDA K11 is one direct copy by a table of tiles
 (``alltoall.tile_table``); ``_replay_tiles`` copies the same tiles with
 torch slices on the CPU and is held against the JAX kernel too, and the
-tiles are checked to cover every pair exactly once.
+tiles are checked to cover every pair exactly once. The CUDA K10 is the
+same copy over the uniform plan's table (``alltoall.uniform_plan``),
+whose replay is held against the block transpose, the plain K10, which
+the parity tests hold against the JAX K10.
 
 Tolerances: bitwise everywhere (the kernels only move bytes).
 
@@ -350,6 +353,49 @@ def test_tiles_cover_each_pair_once(shape, tile_bytes, esize):
             assert at == counts[r][j]
     if shape == "moe_hot":
         assert all(vec for *_, vec in rows)   # every MoE tile is words
+
+
+@pytest.mark.parametrize("esize", [1, 2, 4])
+@pytest.mark.parametrize("c", [13, 64])
+@pytest.mark.parametrize("p", [2, 3, 8])
+def test_uniform_plan_tiles_are_the_block_transpose(p, c, esize):
+    """K10 on the card is K11's copy over ``uniform_plan``'s tile table:
+    every pair (r -> j) moves its block of c elements from j*c of rank r
+    to r*c of rank j, each pair covered once, in order, by tiles of at
+    most ``tile_bytes`` (several a pair at 16 bytes, one at TILE_BYTES),
+    with vec set exactly where both offsets and the length are whole
+    16-byte words (every tile at c = 64); the replay of those tiles is
+    the plain block transpose, bit for bit, at a ragged c (13) and a
+    word-multiple one."""
+    dt = {1: torch.int8, 2: torch.int16, 4: torch.int32}[esize]
+    info = torch.iinfo(dt)
+    rng = np.random.default_rng(100 * p + c + esize)
+    xs = [torch.from_numpy(rng.integers(info.min, info.max, size=p * c,
+                                        endpoint=True)).to(dt)
+          for _ in range(p)]
+    plan = alltoall.uniform_plan(xs)
+    assert plan.counts == ((c,) * p,) * p and plan.lens == [p * c] * p
+    want = alltoall._block_transpose(xs)
+    for tile_bytes in (16, alltoall.TILE_BYTES):
+        rows = alltoall.tile_table(plan, esize, tile_bytes)
+        spans = {}
+        for sr, so, dr, do, n, vec in rows:
+            assert 0 < n <= tile_bytes // esize
+            assert dr * c <= so and so + n <= (dr + 1) * c
+            assert do - sr * c == so - dr * c
+            assert vec == all(v * esize % 16 == 0 for v in (so, do, n))
+            spans.setdefault((sr, dr), []).append((so - dr * c, n))
+        assert sorted(spans) == [(r, j) for r in range(p) for j in range(p)]
+        for pieces in spans.values():
+            at = 0
+            for off, n in pieces:
+                assert off == at
+                at += n
+            assert at == c
+        if c == 64:
+            assert all(vec for *_, vec in rows)
+        got = torch.stack(_replay_tiles(xs, plan, rows))
+        np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 def test_overlapping_receives_raise():

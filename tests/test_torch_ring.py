@@ -24,7 +24,11 @@ held against ``ici.hbm_ring_all_gather_ref``, which
 tests/test_torch_ici.py holds against the JAX K5. The same fold kernel
 runs K3 of ops/ici.py (any op, any n, both ring directions, several
 rings); ``_model_k3`` is held against ``ici.hbm_ring_all_reduce_ref``,
-which tests/test_torch_ici.py holds against the JAX K3."""
+which tests/test_torch_ici.py holds against the JAX K3. K4 runs the same
+loop with each block stored into its owner's row alone and the op's
+identity in the padded tail; ``_model_k4`` is held against
+``ici.hbm_ring_reduce_scatter_ref``, which tests/test_torch_ici.py and
+tests/test_torch_reduce_scatter.py hold against the JAX K4."""
 
 import numpy as np
 import pytest
@@ -211,11 +215,17 @@ def test_ring_signatures_cover_every_entry():
         for name, t in args:
             if name in ("ins", "outs", "slots", "flags", "stream"):
                 assert t is ctypes.c_void_p, f"{fn}({name})"
-    # K3 is a direct launch: no slot, flag or blocks-a-lane count; K17
-    # launches through K12's entry and has none of its own
+    # K3 and K4 are direct launches: no slot, flag, blocks-a-lane count or
+    # working rows, and K4 takes K3's arguments; K17 launches through
+    # K12's entry and K10 through K11's, and neither has one of its own
     names = {name for name, _ in table["mv2t_hbm_ring_all_reduce"][1]}
     assert not names & {"slots", "flags", "ctas", "chunk", "depth"}
+    k4 = table["mv2t_hbm_ring_reduce_scatter"]
+    assert not {name for name, _ in k4[1]} & {
+        "slots", "flags", "ctas", "chunk", "depth", "work", "nblk"}
+    assert k4 == table["mv2t_hbm_ring_all_reduce"]
     assert "mv2t_direct_put" not in table
+    assert "mv2t_hbm_alltoall" not in table
 
 
 # ---------------------------------------------------------------------------
@@ -490,3 +500,101 @@ def test_k3_model_tells_the_directions_apart():
     assert not np.array_equal(
         _bits(_model_k3(x, "sum", True, 2, swap=True)), want)
     assert not np.array_equal(_bits(_model_k3(x, "sum", True, 1)), want)
+
+
+# ---------------------------------------------------------------------------
+# a CPU model of K4's direct fold (csrc/ring.cu direct_fold with the owner-row
+# store: ring_reduce_scatter_direct_kernel)
+# ---------------------------------------------------------------------------
+
+def _model_k4(x, op, vec, ndir, lines=1):
+    """K4's loop over ``x`` of shape (lines*p, n): unit u of
+    lines*p*per_blk is unit k = u - g*p*per_blk of line g's padded blocks;
+    below nu it folds as ``_model_k3``'s unit k (block b = k // per_blk,
+    offset j = k - b*per_blk, counter-clockwise when ndir == 2 and j is at
+    or past the half point) and goes to unit j of row g*p + b alone; from
+    nu on (the padded tail of the last block) the op's identity goes
+    there and nothing is read."""
+    rows, n = x.shape
+    p = rows // lines
+    v = 16 // x.element_size() if vec else 1
+    nblk = -(-n // p)
+    h = (nblk + 1) // 2
+    if vec:                       # the vector path's conditions
+        assert n % v == 0 and nblk % v == 0 and (ndir == 1 or h % v == 0)
+    nu, per_blk, half = n // v, nblk // v, h // v
+    xw = x.to(torch.int64) if x.dtype in ring.WIDE else x
+    red = ring.reducer(op)
+    u = torch.arange(lines * p * per_blk)
+    g, k = u // (p * per_blk), u % (p * per_blk)
+    b = k // per_blk
+    j = k - b * per_blk
+    real = k < nu
+    d = torch.where((j >= half) & (ndir == 2), p - 1, 1)
+    lane = torch.arange(v)
+    cols = k[:, None] * v + lane
+    out = torch.empty((rows, nblk), dtype=xw.dtype)
+    at = (g * p + b)[:, None], j[:, None] * v + lane
+    out[at[0][~real], at[1][~real]] = ici._pad_identity(x.dtype, op)
+    g, b, d, cols = g[real], b[real], d[real], cols[real]
+    q = (b + d) % p
+    acc = xw[(g * p + q)[:, None], cols]
+    for _ in range(2, p + 1):
+        q = (q + d) % p
+        acc = red(xw[(g * p + q)[:, None], cols], acc)
+    out[at[0][real], at[1][real]] = acc
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min", "prod"])
+@pytest.mark.parametrize("kind", sorted(K3_KINDS))
+@pytest.mark.parametrize("p", [2, 3, 5, 8])
+def test_k4_direct_fold_is_the_rings(p, kind, op):
+    """K4's direct fold, kept to each block's owner, is the reduce-scatter
+    ring's result bit for bit, over 1, 2 and 4 lines, in one and two ring
+    directions: on the vector path (n = 32p: a block of 32, its half 16,
+    whole words at every width) and the scalar one (also a ragged n = 7p
+    - 3, whose last block ends in three elements of identity padding,
+    and n = 1, where every block but the first is padding)."""
+    for n, paths in ((32 * p, (True, False)), (7 * p - 3, (False,)),
+                     (1, (False,))):
+        for lines in (1, 2, 4):
+            x = _k3_data(p * 2000 + lines * 100 + n, (lines * p, n), kind)
+            for ndir in (1, 2):
+                want = _bits(ici.hbm_ring_reduce_scatter_ref(
+                    x, op, bidirectional=ndir == 2, lines=lines))
+                for vec in paths:
+                    np.testing.assert_array_equal(
+                        _bits(_model_k4(x, op, vec, ndir, lines)), want,
+                        err_msg=f"n={n} lines={lines} ndir={ndir} "
+                                f"vec={vec}")
+
+
+def _nan_as_one(t):
+    """``_bits(t)`` with every NaN as one pattern: torch on the CPU gives a
+    16-bit NaN another payload in a vectorized loop than in a scalar one,
+    so two computations of one fold order agree on where the NaNs land,
+    not on their payloads."""
+    b = _bits(t).copy()
+    b[t.float().isnan().numpy()] = -1
+    return b
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "f16"])
+def test_k4_nan_and_signed_zero_follow_the_ring(kind, op):
+    """K4 under max and min with NaNs and ties of signed zeros follows
+    the replay as K3 does (a block of 32 bit for bit; a ragged n with its
+    NaNs taken as one pattern, whose payload torch's 16-bit loops set)."""
+    p = 8
+    for n, paths in ((32 * p, (True, False)), (7 * p - 3, (False,))):
+        bits = _bits if n == 32 * p else _nan_as_one
+        for lines in (1, 2):
+            x = _nan_zero_data(len(kind) + lines + n, (lines * p, n),
+                               K3_KINDS[kind])
+            for ndir in (1, 2):
+                want = bits(ici.hbm_ring_reduce_scatter_ref(
+                    x, op, bidirectional=ndir == 2, lines=lines))
+                for vec in paths:
+                    np.testing.assert_array_equal(
+                        bits(_model_k4(x, op, vec, ndir, lines)), want)
