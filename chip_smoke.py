@@ -12,7 +12,10 @@ non-zero, printing no result, without them. Phases:
    nvcc per source, all started together);
 3. kernels: each kernel held against its plain PyTorch version on the
    card (bitwise on integer data, within stated tolerances otherwise),
-   at small, ragged and full size: the slot kernels K1/K2, then the ring
+   at small, ragged and full size: the slot kernels K1/K2, K1's pointer
+   form (the deposits read in place) bitwise on nine dtypes, sum and
+   mean, R = 1, 2, 3, 8, n = 1 to 16 Mi, aligned and at a 1-element
+   offset (its element instance), then the ring
    kernels: K3 (the direct fold) bit for bit on nine dtypes and the four
    ops, one and two ring directions, its vector and scalar paths, p up
    to 64, 2 and 4 lines, NaN and signed zeros under max and min, and 8 x
@@ -40,11 +43,15 @@ non-zero, printing no result, without them. Phases:
    and ragged sizes (padded tails), NaN and signed zeros under max and
    min, one and two directions, lines 1/2/4, the (2, 4) mesh's RS-x
    phase and 8 x 64 MiB f32; K3 and K5 over 2 and 4 lines; K8
-   (sendrecv) bitwise on f32, bf16, i32 and u8, an unaligned n, src ==
-   dst and 8 x 64 MiB;
+   (sendrecv, the bulk-copy pipeline) bitwise on f32, bf16, i32 and u8,
+   an unaligned n, src == dst, shards at 1-3 elements' offset (heads and
+   tails; rows copied element by element, counted against k8_plan), n
+   just below and above a tile, and 8 x 64 MiB;
 4. main path: 8 ranks (run_ranks) allreduce 64 MiB f32 tensors each on
-   cuda:0 through the slot channel into K1, plus the small collectives,
-   then the one-chip bench candidates (K1 and K2) at the same size; the
+   cuda:0 through the slot channel into K1 (reading the deposits in
+   place, hbm.PATHS checked), plus the small collectives and one
+   allreduce whose send buffers are written as soon as it returns, then
+   the one-chip bench candidates (K1 and K2) at the same size; the
    kernels' launch counts are zeroed before it and read after;
 5. mesh path: 8 ranks bound one to one to a mesh of 8 virtual ranks on
    cuda:0 (run_ranks(device_mesh=make_mesh(...))): allreduce of 64 MiB
@@ -101,13 +108,16 @@ non-zero, printing no result, without them. Phases:
    against Ulysses over every row, both against dense f32 attention on
    the last 256 rows of each rank; host-clock latency, median of 5;
 10. times, by CUDA events: each kernel beside its bound, its plain
-   version and the library call; the staging stack; the end-to-end
+   version and the library call; K1 over the deposits by card time too,
+   beside the parent's leader (stack then K1), torch.sum of the stacked
+   deposits and torch.stack(deposits).sum(0); the end-to-end
    allreduce latency and effective bandwidth (2*R*m/t) of both paths;
    the end-to-end alltoall latency of the mesh path; the RMA kernels at
    64 MiB, K12/K13/K14 misaligned (N - 7 at disp 5) beside copy_ or add_,
    K12/K13 at 1 KiB and 64 KiB, and the OSU band; K15 and K16 beside
    scaled_dot_product_attention on the same blocks; K4 at 8 x 64 MiB and
-   as the (2, 4) RS-x phase (by card time too), K8 at 8 x 64 MiB, and
+   as the (2, 4) RS-x phase (by card time too), K8 at 8 x 64 MiB (by
+   card time too, beside torch.stack by partner), and
    the e2e latency of
    the fold and (2, 4) allreduces beside the 1-D mesh call; K6 and K7
    at 8 x 64 KiB and at their 4 MiB limit by card time too (queued
@@ -121,17 +131,20 @@ non-zero, printing no result, without them. Phases:
    KiB (perf_counter splits and cProfile's top entries), then under
    torch.profiler one MoE step of each routing shape, one fence of 32 RMA
    ops (put, get, accumulate at 1 KiB and 4 MiB), one 64 MiB allreduce
-   on the 1-D mesh, the fold and the (2, 4) mesh, and one call of each
+   on the slot channel, the 1-D mesh, the fold and the (2, 4) mesh (the
+   staging stacks a group of their own), and one call of each
    attention path, under torch.profiler: device time by kernel group
    and the idle share.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
 only phases 1 and 2, then the launch-shape sweeps of the streaming ring
-(``phase_sweep``: K9, the one left) and of the K12/K13 copy
-(``phase_copy_sweep``), which chose the launch shapes in
-``coll/tuning.py``, and of K11's tile size (``phase_tile_sweep``), which
-chose ``alltoall.TILE_BYTES``.
+(``phase_sweep``: K9, the one left), of the K12/K13 copy
+(``phase_copy_sweep``), of K8's bulk-copy pipeline (``phase_k8_sweep``)
+and of K1's pointer form (``phase_k1_sweep``), which chose the launch
+shapes in ``coll/tuning.py``, and of K11's tile size
+(``phase_tile_sweep``), which chose ``alltoall.TILE_BYTES``;
+``--sweeps k8,k1`` runs some of them.
 """
 
 import argparse
@@ -260,12 +273,22 @@ def phase_build(_build):
                 elif direct:
                     log(f"[build] {direct.group(1)}<"
                         f"{DIRECT_TYPES[direct.group(2)]}>: {ln.strip()}")
+                elif "slot_reduce_kernelIf" in entry:
+                    log(f"[build] {_k1_inst(entry)}: {ln.strip()}")
                 elif "quant" in entry or (kern and ("IfLi0E" in entry
                                                     or "IjE" in entry)):
                     log(f"[build] {(kern or [entry[:60]])[0]}: "
                         f"{ln.strip()}")
     log(f"[build] built and loaded {', '.join(SOURCES)} in {dt:.2f} s")
     return dt
+
+
+def _k1_inst(entry):
+    """'slot_reduce_kernel<float, words, ByPtr>' and the like for a
+    mangled float instance of K1."""
+    words = "words" if "Lb1E" in entry else "elements"
+    addr = "ByPtr" if "ByPtr" in entry else "Strided"
+    return f"slot_reduce_kernel<float, {words}, {addr}>"
 
 
 FLASH_INST = re.compile(r"flash_kernelI(f|6__half|13__nv_bfloat16)Li(\d+)E")
@@ -441,6 +464,57 @@ def phase_kernels(torch, np, hbm, dev):
         f"(full-size f32 max abs err: K1 {full_err['K1']:.3g}, "
         f"K2 {full_err['K2']:.3g})")
     return full_err
+
+
+# K1's pointer form: sources a launch and their lengths (the last: 8 x 64
+# MiB f32, the main path's)
+K1_RANKS = (1, 2, 3, 8)
+K1_SIZES = (1, 37, 127, 128, 100003, N)
+
+
+def phase_k1_ptr_kernels(torch, np, hbm, dev):
+    """K1's pointer form (the main path's: R separate tensors read in
+    place by address) bitwise against its plain version (the ranks summed
+    in rank order): the nine dtypes, sum and mean, R = 1, 2, 3 and 8, n
+    = 1, 37, 127, 128, 100003 and 16 Mi, each source its own allocation,
+    16-byte aligned (the word instance) and as a view at a 1-element
+    offset (the element instance), ``hbm.PATHS`` read after every launch.
+    uint16/uint32 plain versions run on the CPU. Returns the max abs
+    error at 8 x 64 MiB f32 (sum)."""
+    rng = np.random.default_rng(SEED + 50)
+    n_checks, full = 0, 0.0
+    for kind in K3_KINDS:
+        for n in K1_SIZES:
+            srcs = _shards(torch, np, rng, max(K1_RANKS), n + 1, kind, dev)
+            for off, path in ((0, "ptrs_words"), (1, "ptrs_elements")):
+                views = [s[off:off + n] for s in srcs]
+                plain = [v.cpu() for v in views] \
+                    if kind in ("u16", "u32") else views
+                for rr in K1_RANKS:
+                    for mean in (False, True):
+                        before = dict(hbm.PATHS)
+                        got = hbm.hbm_slot_allreduce(views[:rr], mean=mean)
+                        torch.cuda.synchronize()
+                        moved = {k: v - before[k] for k, v in
+                                 hbm.PATHS.items() if v != before[k]}
+                        if moved != {path: 1}:
+                            raise AssertionError(
+                                f"K1 pointer form {kind} n={n} offset={off}: "
+                                f"paths moved {moved}, expected {path}")
+                        err = _compare(
+                            torch, f"K1 pointer form {kind} R={rr} n={n} "
+                            f"offset={off} mean={mean}", got,
+                            hbm.hbm_slot_allreduce_ref(plain[:rr], mean=mean),
+                            "i32")
+                        n_checks += 1
+                        if kind == "f32" and n == N and rr == R and not mean \
+                                and off == 0:
+                            full = err
+            del srcs, views, plain
+    log(f"[kernels] {n_checks} K1 pointer-form checks passed, bitwise (9 "
+        f"dtypes x sum/mean x R {K1_RANKS} x n {K1_SIZES} x aligned / "
+        f"offset 1; 8 x 64 MiB f32 max abs err {full:.3g})")
+    return {"K1": full}
 
 
 def _shards(torch, np, rng, p, n, kind, dev):
@@ -805,12 +879,54 @@ def phase_rs_kernels(torch, np, ici, ring, dev):
                 got = ici.remote_sendrecv(xs, src, dst)
                 check(f"K8 p={p} n={n} {kind} {src}<->{dst}", got,
                       ici.remote_sendrecv_ref(xs, src, dst))
-    check("K8 8 x 64 MiB f32", ici.remote_sendrecv(xs := _shards(
-        torch, np, rng, R, N, "f32", dev), 2, 5),
-        ici.remote_sendrecv_ref(xs, 2, 5), "K8")
+    # K8's cut: shards as views at 1, 2 and 3 elements with n of whole
+    # words plus 0..3 (bulk rows with a head and a tail, where the row
+    # agrees with its shard mod 16 bytes; element rows where it does not),
+    # n just below and above one tile; ici.PATHS against k8_plan's count
+    tile = ici.kernel_param("k8_tile_bytes", 32768)
+    cut_rows = {"head_or_tail": 0, "element": 0}
+
+    def k8_check(what, xs, src, dst):
+        before = dict(ici.PATHS)
+        got = ici.remote_sendrecv(xs, src, dst)
+        n, es = xs[0].numel(), xs[0].element_size()
+        part = ici._partners(len(xs), src, dst)
+        _, _, cuts = ici.k8_plan(
+            [xs[j].data_ptr() for j in part],
+            [got.data_ptr() + r * n * es for r in range(len(xs))],
+            n * es, tile)
+        bulk = sum(c is not None for c in cuts)
+        moved = {k: v - before[k] for k, v in ici.PATHS.items()}
+        if moved != {"sendrecv_bulk_rows": bulk,
+                     "sendrecv_element_rows": len(xs) - bulk}:
+            raise AssertionError(f"{what}: rows {moved}, k8_plan {cuts}")
+        cut_rows["element"] += len(xs) - bulk
+        cut_rows["head_or_tail"] += sum(
+            c is not None and c[1] < n * es for c in cuts)
+        check(what, got, ici.remote_sendrecv_ref(xs, src, dst))
+
+    for kind, es in (("f32", 4), ("bf16", 2), ("u8", 1)):
+        v = 16 // es
+        for off in (1, 2, 3):
+            for n in (v * 4096 + off, v * 4096 + off + 2, tile // es + off):
+                base = _shards(torch, np, rng, R, n + off, kind, dev)
+                k8_check(f"K8 {kind} n={n} shards at offset {off}",
+                         [b[off:] for b in base], 1, R - 2)
+        for nb in (tile - 16, tile - es, tile, tile + es, tile + 16):
+            k8_check(f"K8 {kind} {nb} bytes (tile {tile})", _shards(
+                torch, np, rng, R, nb // es, kind, dev), 0, R - 1)
+    if not cut_rows["head_or_tail"] or not cut_rows["element"]:
+        raise AssertionError(f"K8's cut checks ran no head/tail or no "
+                             f"element row: {cut_rows}")
+    xs = _shards(torch, np, rng, R, N, "f32", dev)
+    k8_check("K8 8 x 64 MiB f32", xs, 2, 5)
+    full_err["K8"] = _compare(torch, "K8 8 x 64 MiB f32",
+                              ici.remote_sendrecv(xs, 2, 5),
+                              ici.remote_sendrecv_ref(xs, 2, 5), "i32")
     del xs
     log(f"[kernels] {n_checks} K4/K8/lines kernel-vs-plain checks passed, "
-        f"bitwise (full-size f32 max abs err: "
+        f"bitwise; K8's cut: {cut_rows} rows with a head or tail / element "
+        f"by element (full-size f32 max abs err: "
         + ", ".join(f"{k} {v:.3g}" for k, v in full_err.items()) + ")")
     return full_err
 
@@ -1195,8 +1311,14 @@ def phase_main_path(torch, np, mvt, hbm, opmod, dev):
                                          device=dev) + 100 * r)
         rsb = comm.reduce_scatter_block(
             torch.arange(p * 5, dtype=torch.float32, device=dev) + r)
+        # K1 reads the deposits in place: a send buffer written as soon
+        # as its call returns must leave that call's result unchanged
+        mine = me.clone()
+        reused = comm.allreduce(mine)
+        mine.fill_(-1.0)
         stream.synchronize()
-        return outs, (lat, lat_small[n_warm:]), (mx, red, b, ag, a2a, rsb)
+        return outs, (lat, lat_small[n_warm:]), (mx, red, b, ag, a2a, rsb,
+                                                 reused)
 
     hbm.reset_counts()
     t0 = time.perf_counter()
@@ -1204,11 +1326,19 @@ def phase_main_path(torch, np, mvt, hbm, opmod, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     slice_launches = dict(hbm.LAUNCHES)
-    n_sum = n_check + 2 * (n_warm + n_timed) + 2   # + 4 KiB, reduce, rsb
+    slice_paths = dict(hbm.PATHS)
+    # + 4 KiB, reduce, rsb, the reused buffer's
+    n_sum = n_check + 2 * (n_warm + n_timed) + 3
     if slice_launches["fused_reduce_to_slot"] != n_sum:
         raise AssertionError(f"K1 launched {slice_launches} times in the "
                              f"slice; expected {n_sum} (one per sum "
                              f"collective)")
+    # every sum over device deposits reads them in place; the numpy
+    # reduce's host deposits are staged once (the strided form)
+    want_paths = dict.fromkeys(hbm.PATHS, 0)
+    want_paths.update(ptrs_words=n_sum - 1, strided_words=1)
+    if slice_paths != want_paths:
+        raise AssertionError(f"K1 paths {slice_paths}, expected {want_paths}")
     # results: one shared tensor per call, equal to the plain reduction
     for i in range(n_check):
         got = [res[r][0][i] for r in range(R)]
@@ -1221,7 +1351,10 @@ def phase_main_path(torch, np, mvt, hbm, opmod, dev):
         err = _compare(torch, f"allreduce call {i}", got[0], want, "f32")
     a = np.arange(small, dtype=np.float32)
     for r in range(R):
-        mx, red, b, ag, a2a, rsb = res[r][2]
+        mx, red, b, ag, a2a, rsb, reused = res[r][2]
+        if not torch.equal(reused, res[r][0][0]):
+            raise AssertionError("allreduce: a send buffer written after "
+                                 "the call changed its result")
         np.testing.assert_array_equal(mx.cpu().numpy(), a + R - 1)
         if r == 3:
             np.testing.assert_array_equal(red, a * R + sum(range(R)))
@@ -1237,8 +1370,11 @@ def phase_main_path(torch, np, mvt, hbm, opmod, dev):
     log(f"[main] run_ranks({R}) on {dev}: "
         f"{n_check + n_warm + n_timed} allreduces of 64 MiB f32, "
         f"{n_warm + n_timed} of 4 KiB, + max/reduce/bcast/allgather/alltoall/reduce_scatter_block "
-        f"in {wall:.2f} s; results checked (max abs err {err:.3g}); "
-        f"K1 launches {slice_launches['fused_reduce_to_slot']}")
+        f"in {wall:.2f} s; results checked (max abs err {err:.3g}; a "
+        f"send buffer written after its call left the result unchanged); "
+        f"K1 launches {slice_launches['fused_reduce_to_slot']}, paths "
+        f"{ {k: v for k, v in slice_paths.items() if v} } (no staging "
+        f"stack on the sum path)")
     # the one-chip bench path: bench_candidates at 64 MiB x 8 ranks,
     # interleaved slots (the JAX package's bench.py p == 1 branch)
     x = hbm.pack_interleaved(torch.stack(inputs))
@@ -1482,6 +1618,11 @@ def phase_fold(torch, np, mvt, ici, ring, hbm, a2a, mpit, opmod, dev,
         mods, fused_reduce_to_slot=4 * (n_big + 3),
         hbm_ring_all_reduce=n_big + 1, ring_all_reduce=2,
         hbm_ring_all_gather=1, ring_all_gather=1))
+    # every chip fold of a sum reads a device's deposits in place
+    fold_paths = dict(hbm.PATHS)
+    if fold_paths != {**dict.fromkeys(hbm.PATHS, 0),
+                      "ptrs_words": 4 * (n_big + 3)}:
+        raise AssertionError(f"[fold] K1 paths {fold_paths}")
     n_calls = n_big + 7
     delta = _check_pvars(mpit, "fold", before, {
         "dev_coll_tier_vmem": R * 3, "dev_coll_tier_hbm": R * (n_big + 2),
@@ -1529,6 +1670,8 @@ def phase_fold(torch, np, mvt, ici, ring, hbm, a2a, mpit, opmod, dev,
     ring.check_errors()
     two_launches = _check_launches("fold 2-device", mods, _want(
         mods, fused_reduce_to_slot=2, hbm_ring_all_reduce=1))
+    if hbm.PATHS["ptrs_words"] != 2:
+        raise AssertionError(f"[fold] 2-device K1 paths {hbm.PATHS}")
     for g in two[::4]:
         err = max(err, _compare(torch, "fold 2-device allreduce", g, want,
                                 "f32"))
@@ -1536,7 +1679,8 @@ def phase_fold(torch, np, mvt, ici, ring, hbm, a2a, mpit, opmod, dev,
         f"64 MiB f32, 64 KiB allreduce, 64 MiB max, reduce, bcast, 1 MiB "
         f"and 64 KiB allgathers, reduce_scatter_block in {wall:.2f} s; "
         f"results checked (max abs err {err:.3g}); launches "
-        f"{ {k: v for k, v in launches.items() if v} }; pvars {delta}; "
+        f"{ {k: v for k, v in launches.items() if v} }; K1 paths "
+        f"{ {k: v for k, v in fold_paths.items() if v} }; pvars {delta}; "
         f"2-device mesh: launches "
         f"{ {k: v for k, v in two_launches.items() if v} }")
     return launches, res[0][1]
@@ -1659,6 +1803,10 @@ def phase_sendrecv(torch, ici, ring, dev, inputs):
     ring.check_errors()
     launches = _check_launches("sendrecv", (ici, ring),
                                _want((ici, ring), remote_sendrecv=3))
+    if ici.PATHS != {"sendrecv_bulk_rows": 3 * R,
+                     "sendrecv_element_rows": 0}:
+        raise AssertionError(f"[sendrecv] rows {ici.PATHS}: every row of "
+                             f"the aligned shards goes by bulk tiles")
     part = list(range(R))
     part[2], part[5] = 5, 2
     for out in outs:
@@ -1666,7 +1814,8 @@ def phase_sendrecv(torch, ici, ring, dev, inputs):
             _compare(torch, f"sendrecv row {r}", out[r], inputs[part[r]],
                      "f32int")
     log(f"[sendrecv] 3 exchanges of 8 x 64 MiB f32 (2 <-> 5): launches "
-        f"{ {k: v for k, v in launches.items() if v} }; rows checked")
+        f"{ {k: v for k, v in launches.items() if v} }, rows {ici.PATHS}; "
+        f"rows checked")
     return launches
 
 
@@ -1974,7 +2123,15 @@ def phase_rma_host_profile(torch, dev, top=15):
             "per_op_us": (enq + fen) / 64, "cprofile_top": lines}
 
 
-def phase_times(torch, hbm, timing, info, inputs, lat, launches, full_err):
+def phase_times(torch, hbm, timing, info, smi, inputs, lat, launches,
+                full_err):
+    """K1 and K2 at the main path's 8 x 64 MiB f32, by CUDA events and by
+    card time (``_queued_ms``): K1 over the 8 deposits in place (the main
+    path's), beside the parent's leader (``torch.stack`` then K1), K1 on
+    the stacked planar and interleaved slots, its plain version and two
+    library forms (``torch.sum`` of the stacked tensor, and
+    ``torch.stack(deposits).sum(0)``, which starts from the deposits as
+    K1 does); K2 beside sum + expand; the e2e allreduce latency."""
     bw = info.hbm_bw_gbps * 1e9
     if bw <= 0:
         raise RuntimeError(f"no memory bandwidth known for "
@@ -1987,11 +2144,18 @@ def phase_times(torch, hbm, timing, info, inputs, lat, launches, full_err):
         tb, to = nbytes / bw * 1e3, flops / (F32_PEAK_TFLOPS * 1e12) * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    k1_ms = timing.time_ms(lambda: hbm.fused_reduce_to_slot(x))
+    def both(fn, **kw):
+        return timing.time_ms(fn, **kw), _queued_ms(torch, fn)
+
+    k1_ms, k1_card = both(lambda: hbm.hbm_slot_allreduce(inputs))
+    stack_k1_ms, stack_k1_card = both(lambda: hbm.fused_reduce_to_slot(
+        torch.stack(inputs).reshape(R, M_FULL, 128)))
+    k1p_ms = timing.time_ms(lambda: hbm.fused_reduce_to_slot(x))
     k1i_ms = timing.time_ms(
         lambda: hbm.fused_reduce_to_slot(xi, layout="interleaved"))
-    k1_plain = timing.time_ms(lambda: hbm.fused_reduce_to_slot_ref(x))
-    k1_lib = timing.time_ms(lambda: torch.sum(x, 0))
+    k1_plain = timing.time_ms(lambda: hbm.hbm_slot_allreduce_ref(inputs))
+    k1_lib, k1_lib_card = both(lambda: torch.sum(x, 0))
+    k1_lib2, k1_lib2_card = both(lambda: torch.stack(inputs).sum(0))
     k2_ms = timing.time_ms(lambda: hbm.fused_allreduce(xi))
     k2_plain = timing.time_ms(lambda: hbm.fused_allreduce_ref(xi))
     k2_two_call = timing.time_ms(
@@ -2007,7 +2171,13 @@ def phase_times(torch, hbm, timing, info, inputs, lat, launches, full_err):
          "replaces": "mvapich2_tpu/ops/pallas_hbm.py:78",
          "launches": launches["fused_reduce_to_slot"],
          "max_abs_err": full_err["K1"], "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_b, "bound_by": k1_by, "library_ms": k1_lib},
+         "bound_ms": k1_b, "bound_by": k1_by, "library_ms": k1_lib,
+         "card_ms": k1_card, "library_card_ms": k1_lib_card,
+         "library_stack_sum_ms": k1_lib2,
+         "library_stack_sum_card_ms": k1_lib2_card,
+         "stack_then_k1_ms": stack_k1_ms,
+         "stack_then_k1_card_ms": stack_k1_card,
+         "strided_planar_ms": k1p_ms, "strided_interleaved_ms": k1i_ms},
         {"name": "fused_allreduce", "route": "cuda",
          "source": "mvapich2_tpu_torch/csrc/hbm_slot.cu",
          "replaces": "mvapich2_tpu/ops/pallas_hbm.py:124",
@@ -2015,21 +2185,27 @@ def phase_times(torch, hbm, timing, info, inputs, lat, launches, full_err):
          "max_abs_err": full_err["K2"], "ms": k2_ms, "plain_ms": k2_plain,
          "bound_ms": k2_b, "bound_by": k2_by, "library_ms": None},
     ]
-    extra = {"k1_interleaved_ms": k1i_ms, "k2_two_call_ms": k2_two_call,
-             "stack_ms": stack_ms, "e2e_allreduce_ms": e2e * 1e3,
+    extra = {"k2_two_call_ms": k2_two_call, "stack_ms": stack_ms,
+             "e2e_allreduce_ms": e2e * 1e3,
              "e2e_allreduce_ms_all": [t * 1e3 for t in lat[0]],
              "e2e_small_allreduce_ms": e2e_small * 1e3,
              "e2e_small_allreduce_ms_all": [t * 1e3 for t in lat[1]],
-             "device_share_of_e2e": (stack_ms + k1_ms) / (e2e * 1e3),
+             "device_share_of_e2e": k1_card / (e2e * 1e3),
              "e2e_effbw_GBps": 2 * R * m / e2e / 1e9,
              "k1_actual_GBps": (R + 1) * m / (k1_ms * 1e-3) / 1e9,
              "k2_actual_GBps": 2 * R * m / (k2_ms * 1e-3) / 1e9,
              "hbm_bw_GBps": info.hbm_bw_gbps}
-    log(f"[times] K1 planar {k1_ms:.4f} ms (interleaved {k1i_ms:.4f}; bound "
-        f"{k1_b:.4f}, plain {k1_plain:.4f}, torch.sum {k1_lib:.4f}); "
-        f"K2 {k2_ms:.4f} ms (bound {k2_b:.4f}, plain {k2_plain:.4f}, "
-        f"two-call sum+expand {k2_two_call:.4f}); stack {stack_ms:.4f} ms; "
-        f"e2e allreduce {e2e * 1e3:.4f} ms = "
+    log(f"[times] {smi}: K1 over the deposits {k1_ms:.4f} ms, card "
+        f"{k1_card:.4f} ({k1_b / k1_card:.1%} of the bound {k1_b:.4f}); "
+        f"stack then K1 (the parent's leader) {stack_k1_ms:.4f}, card "
+        f"{stack_k1_card:.4f}; K1 on stacked slots planar {k1p_ms:.4f}, "
+        f"interleaved {k1i_ms:.4f}; plain {k1_plain:.4f}; torch.sum of "
+        f"the stacked {k1_lib:.4f}, card {k1_lib_card:.4f}; "
+        f"torch.stack(deposits).sum(0) {k1_lib2:.4f}, card "
+        f"{k1_lib2_card:.4f}")
+    log(f"[times] {smi}: K2 {k2_ms:.4f} ms (bound {k2_b:.4f}, plain "
+        f"{k2_plain:.4f}, two-call sum+expand {k2_two_call:.4f}); stack "
+        f"{stack_ms:.4f} ms; e2e allreduce {e2e * 1e3:.4f} ms = "
         f"{extra['e2e_effbw_GBps']:.1f} GB/s effbw (2*R*m/t); 4 KiB "
         f"allreduce {e2e_small * 1e3:.4f} ms")
     log("kernels " + "; ".join(
@@ -2238,6 +2414,9 @@ def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
     k8_ms = timing.time_ms(lambda: ici.remote_sendrecv(inputs, 2, 5))
     k8_plain = timing.time_ms(lambda: ici.remote_sendrecv_ref(inputs, 2, 5))
     k8_lib = timing.time_ms(lambda: torch.stack([inputs[j] for j in part]))
+    k8_card = _queued_ms(torch, lambda: ici.remote_sendrecv(inputs, 2, 5))
+    k8_lib_card = _queued_ms(
+        torch, lambda: torch.stack([inputs[j] for j in part]))
     ring.check_errors()
     # K4: read p inputs, write p blocks of m/p; (p-1) adds an element of
     # the folded array. The RS-x phase: 4 pairs, each output half a shard
@@ -2263,7 +2442,8 @@ def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
          "bound_ms": k8_b, "bound_by": k8_by, "library_ms": k8_lib,
          "schedule_bound_ms": k8_b,
          "schedule_bytes": "2pm: every shard read once, every row written "
-                           "once"},
+                           "once",
+         "card_ms": k8_card, "library_card_ms": k8_lib_card},
     ]
     med = {k: statistics.median(v) * 1e3 for k, v in lat.items()}
     extra = {"k4_rs_x_ms": k4x_ms, "k4_rs_x_plain_ms": k4x_plain,
@@ -2282,7 +2462,9 @@ def phase_rs_times(torch, ici, ring, timing, info, inputs, launches,
         f"bound), library card {k4_lib_card:.4f}; K4 as the (2, 4) RS-x "
         f"phase {k4x_ms:.4f} ms, card {k4x_card:.4f} ({k4x_b / k4x_card:.1%}"
         f" of the bound {k4x_b:.4f}), plain {k4x_plain:.4f}, library "
-        f"{k4x_lib:.4f}, card {k4x_lib_card:.4f}")
+        f"{k4x_lib:.4f}, card {k4x_lib_card:.4f}; K8 card {k8_card:.4f} "
+        f"ms ({k8_b / k8_card:.1%} of the bound), torch.stack by partner "
+        f"card {k8_lib_card:.4f}")
     log("[times] e2e allreduce 64 MiB f32 (median): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in med.items()))
     return kernels, extra
@@ -3467,22 +3649,23 @@ def phase_attn_profile(torch, ra, ul, lat, data):
 # as ring_all_reduce_direct_kernel, which it shares with K6 (no K6 runs
 # on a 64 MiB call)
 HIER_GROUPS = (("slot_reduce", "K1"), ("ring_reduce_scatter", "K4"),
-               ("ring_all_gather", "K5"), ("ring_all_reduce_direct", "K3"))
+               ("ring_all_gather", "K5"), ("ring_all_reduce_direct", "K3"),
+               ("CatArrayBatchedCopy", "stack"))
 
 
 def phase_hier_profile(torch, mvt, dev, inputs, lat):
-    """One 64 MiB f32 allreduce on each of the 1-D mesh, the 4-device
-    fold and the (2, 4) mesh, each under torch.profiler (rank threads
-    included): device time by kernel (K1, K3, K4, K5; other: the stacks,
-    pads and counter fills around them), and the idle share against the
-    path's unprofiled median call (1 - busy / median). Run last, as the
-    other profiles."""
+    """One 64 MiB f32 allreduce on each of the slot channel, the 1-D
+    mesh, the 4-device fold and the (2, 4) mesh, each under
+    torch.profiler (rank threads included): device time by kernel (K1,
+    K3, K4, K5, the staging stacks; other: the copies and fills around
+    them), and the idle share against the path's unprofiled median call
+    (1 - busy / median). Run last, as the other profiles."""
     from torch.profiler import ProfilerActivity, profile
-    meshes = {"mesh_1d": ((R,), ("x",)), "fold": ((4,), ("x",)),
-              "mesh2d": ((2, 4), ("x", "y"))}
+    meshes = {"slot": None, "mesh_1d": ((R,), ("x",)),
+              "fold": ((4,), ("x",)), "mesh2d": ((2, 4), ("x", "y"))}
     split = {}
-    for name, (shape, axes) in meshes.items():
-        mesh = mvt.make_mesh(shape, axes, dev)
+    for name, geometry in meshes.items():
+        mesh = geometry and mvt.make_mesh(*geometry, dev)
 
         def app(comm):
             comm.allreduce(inputs[comm.rank])
@@ -3512,6 +3695,12 @@ def phase_hier_profile(torch, mvt, dev, inputs, lat):
         log(f"[hier] (2, 4) call: K4 {m2['K4']:.1f} us over its two "
             f"phases, K5 {m2['K5']:.1f}, busy {m2['busy_us']:.1f}, idle "
             f"share {m2['idle_share']:.3f}")
+    for name in ("slot", "fold"):
+        g = split[name]
+        if isinstance(g, dict):
+            log(f"[hier] {name} call: K1 {g['K1']:.1f} us, staging stacks "
+                f"{g['stack']:.1f}, busy {g['busy_us']:.1f}, idle share "
+                f"{g['idle_share']:.3f}")
     return split
 
 
@@ -3640,13 +3829,114 @@ def phase_tile_sweep(torch, a2a, moe, ring, timing, dev):
     return rows
 
 
+def phase_k8_sweep(torch, ici, ring, tuning, timing, dev):
+    """K8's launch shape (``--sweep``): bytes a tile x shared-memory
+    stages x tiles loaded ahead x blocks per SM, at 8 x 64 MiB f32 (2 <->
+    5), each first held bitwise against the plain version, then timed by
+    CUDA events and by card time; torch.stack by partner beside it.
+    Restores the compiled-in shape. Returns the rows."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1400)
+    xs = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
+    part = list(range(R))
+    part[2], part[5] = 5, 2
+
+    def lib():
+        return torch.stack([xs[j] for j in part])
+
+    want = lib()
+    rows = [{"kernel": "K8 library: torch.stack by partner",
+             "ms": timing.time_ms(lib), "card_ms": _queued_ms(torch, lib)}]
+    log(f"[sweep] {rows[-1]}")
+    keys = ("k8_tile_bytes", "k8_stages", "k8_ahead", "k8_ctas_per_sm")
+    keep = {k: tuning.kernel_param(k, 0) for k in keys}
+    for kib in (16, 32, 64):
+        for stages in (2, 4, 6, 8):
+            if stages * kib > 192:
+                continue
+            for ahead in sorted({1, stages // 2, stages - 1}):
+                for ctas in (1, 2):
+                    for k, v in zip(keys, (kib << 10, stages, ahead, ctas)):
+                        tuning.set_kernel_param(k, v)
+
+                    def kern():
+                        return ici.remote_sendrecv(xs, 2, 5)
+
+                    got = kern()
+                    torch.cuda.synchronize()
+                    ring.check_errors()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"K8 sweep {kib} KiB x {stages} stages, ahead "
+                            f"{ahead}, {ctas} a SM: kernel and plain version"
+                            f" disagree")
+                    rows.append({"kernel": "K8", "tile_kib": kib,
+                                 "stages": stages, "ahead": ahead,
+                                 "ctas_per_sm": ctas,
+                                 "ms": timing.time_ms(kern),
+                                 "card_ms": _queued_ms(torch, kern)})
+                    log(f"[sweep] {rows[-1]}")
+    for k, v in keep.items():
+        tuning.set_kernel_param(k, v)
+    return rows
+
+
+def phase_k1_sweep(torch, hbm, tuning, timing, dev):
+    """K1's pointer form (``--sweep``): threads a block x blocks per SM
+    over 8 deposits of 64 MiB f32, each first held bitwise against the
+    plain version, then timed by CUDA events and by card time; torch.sum
+    of the stacked deposits and torch.stack(deposits).sum(0) beside it.
+    Restores the compiled-in shape. Returns the rows."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1500)
+    xs = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
+    x = torch.stack(xs)
+    want = hbm.hbm_slot_allreduce_ref(xs)
+    rows = []
+    for name, fn in (("torch.sum of the stacked", lambda: torch.sum(x, 0)),
+                     ("torch.stack(deposits).sum(0)",
+                      lambda: torch.stack(xs).sum(0))):
+        rows.append({"kernel": f"K1 library: {name}",
+                     "ms": timing.time_ms(fn),
+                     "card_ms": _queued_ms(torch, fn)})
+        log(f"[sweep] {rows[-1]}")
+    keys = ("hbm_slot_threads", "hbm_slot_blocks_per_sm")
+    keep = {k: tuning.kernel_param(k, 0) for k in keys}
+    for threads in (128, 256, 512, 1024):
+        for per_sm in (1, 2, 4, 8, 16):
+            if threads * per_sm > 2048:
+                continue
+            tuning.set_kernel_param(keys[0], threads)
+            tuning.set_kernel_param(keys[1], per_sm)
+
+            def kern():
+                return hbm.hbm_slot_allreduce(xs)
+
+            if not torch.equal(kern(), want):
+                raise AssertionError(f"K1 sweep {threads} x {per_sm}: "
+                                     f"kernel and plain version disagree")
+            rows.append({"kernel": "K1 pointer form", "threads": threads,
+                         "blocks_per_sm": per_sm,
+                         "ms": timing.time_ms(kern),
+                         "card_ms": _queued_ms(torch, kern)})
+            log(f"[sweep] {rows[-1]}")
+    for k, v in keep.items():
+        tuning.set_kernel_param(k, v)
+    return rows
+
+
+SWEEPS = ("k9", "copy", "tile", "k8", "k1")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
     ap.add_argument("--sweep", action="store_true",
                     help="run only the launch-shape sweeps of the streaming "
-                    "ring K9, of the K12/K13 copy and of K11's tile size "
+                    "ring K9, of the K12/K13 copy, of K11's tile size, of "
+                    "K8's bulk-copy pipeline and of K1's pointer form "
                     "(after the device and build phases)")
+    ap.add_argument("--sweeps", default=",".join(SWEEPS),
+                    help="with --sweep, the sweeps to run, of "
+                    + ", ".join(SWEEPS))
     args = ap.parse_args(argv)
 
     import torch
@@ -3679,9 +3969,19 @@ def main(argv=None):
     build_s = phase_build(_build)
     if args.sweep:
         from mvapich2_tpu_torch.coll import tuning
-        rows = phase_sweep(torch, ici, quant, ring, tuning, timing, dev)
-        rows += phase_copy_sweep(torch, rma, tuning, timing, dev)
-        rows += phase_tile_sweep(torch, alltoall, moe, ring, timing, dev)
+        sweeps = {
+            "k9": lambda: phase_sweep(torch, ici, quant, ring, tuning,
+                                      timing, dev),
+            "copy": lambda: phase_copy_sweep(torch, rma, tuning, timing,
+                                             dev),
+            "tile": lambda: phase_tile_sweep(torch, alltoall, moe, ring,
+                                             timing, dev),
+            "k8": lambda: phase_k8_sweep(torch, ici, ring, tuning, timing,
+                                         dev),
+            "k1": lambda: phase_k1_sweep(torch, hbm, tuning, timing, dev)}
+        rows = []
+        for key in args.sweeps.split(","):
+            rows += sweeps[key]()
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
@@ -3692,6 +3992,7 @@ def main(argv=None):
         return 0
     flash_build = phase_flash_build(_build)
     full_err = phase_kernels(torch, np, hbm, dev)
+    full_err.update(phase_k1_ptr_kernels(torch, np, hbm, dev))
     full_err.update(phase_ring_kernels(torch, np, ici, ring, dev))
     full_err.update(phase_rs_kernels(torch, np, ici, ring, dev))
     full_err.update(phase_a2a_kernels(torch, np, alltoall, ring, moe, dev))
@@ -3718,8 +4019,8 @@ def main(argv=None):
     attn_launches, attn_lat, attn_data = phase_attn(
         torch, flash, ring_attention, ulysses, MeshComm, make_mesh, dev)
     info = detect.detect(dev)
-    kernels, extra = phase_times(torch, hbm, timing, info, inputs, lat,
-                                 launches, full_err)
+    kernels, extra = phase_times(torch, hbm, timing, info, smi, inputs,
+                                 lat, launches, full_err)
     ring_kernels, ring_extra = phase_ring_times(
         torch, np, ici, ring, timing, info, inputs, mesh_lat,
         mesh_launches, full_err)
@@ -3753,7 +4054,8 @@ def main(argv=None):
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)
     extra["hier_breakdown"] = phase_hier_profile(
         torch, mvt, dev, inputs,
-        {"mesh_1d": mesh_lat[0], "fold": fold_lat, "mesh2d": mesh2d_lat})
+        {"slot": lat[0], "mesh_1d": mesh_lat[0], "fold": fold_lat,
+         "mesh2d": mesh2d_lat})
     extra["attn_breakdown"] = phase_attn_profile(
         torch, ring_attention, ulysses, attn_lat, attn_data)
     total_s = time.perf_counter() - t_start

@@ -40,12 +40,12 @@ path).
 
 Stream order across rank threads (CUDA devices): each deposit records an
 event on the depositing rank's current stream; the leader's stream waits
-on all of them before it stages and launches, records one event after
-the launch, and every rank's stream waits on that event before the
-collective returns. The slot channel never synchronizes the host with
-the device, except the device-to-host copy that fills a numpy
-``recvbuf``; the 1:1 channel's leader waits on its stream after each
-call, to read the ring kernels' error word.
+on all of them before it reads the deposits (in place, or staged) and
+launches, records one event after the launch, and every rank's stream
+waits on that event before the collective returns. The slot channel
+never synchronizes the host with the device, except the device-to-host
+copy that fills a numpy ``recvbuf``; the 1:1 channel's leader waits on
+its stream after each call, to read the ring kernels' error word.
 """
 
 from __future__ import annotations
@@ -468,12 +468,13 @@ class DeviceFoldChannel(DeviceCollChannel):
     ``r // k`` (blocked, so a device's ranks own contiguous result
     blocks). Each collective runs in two levels:
 
-      * the chip fold: a device's ``k`` deposits, stacked ``(k, n)``,
-        fold to one ``[n]`` contribution: K1 (``hbm.hbm_slot_allreduce``)
-        for sum, the stock reduction for max/min/prod; with ``k == 1``
-        the deposit passes through. allgather concatenates the ``k``
-        deposits (the blocked layout keeps rank order); bcast takes the
-        root rank's deposit on the root's device;
+      * the chip fold: a device's ``k`` deposits fold to one ``[n]``
+        contribution (``_reduce_deposits``): K1 over the deposits in
+        place for sum, the stock reduction over them stacked ``(k, n)``
+        for max/min/prod; with ``k == 1`` the deposit passes through.
+        allgather concatenates the ``k`` deposits (the blocked layout
+        keeps rank order); bcast takes the root rank's deposit on the
+        root's device;
       * the ICI phase: the 1:1 channel's program, 1-D or multi-axis, over
         the ``ndev`` device shards (``_mesh_extent``).
 
@@ -506,10 +507,7 @@ class DeviceFoldChannel(DeviceCollChannel):
         sl = self.rv.slots[j * self.k:(j + 1) * self.k]
         if self.k == 1:
             return _to_device(sl[0], self.device).reshape(n)
-        x = _stack_slots(sl, n, self.device)
-        if op == "sum":
-            return hbm.hbm_slot_allreduce(x)
-        return ici.stock_reduce(x, op)
+        return _reduce_deposits(sl, n, self.device, op)
 
     def _leader(self, name: str, op: str, root: int) -> List:
         """Leader compute: fold per device, run the mesh program over the
@@ -543,6 +541,28 @@ class DeviceFoldChannel(DeviceCollChannel):
         return [out[r // k] for r in range(self.size)]
 
 
+def _reduce_deposits(slots, n: int, device: torch.device,
+                     op: str) -> torch.Tensor:
+    """``len(slots)`` deposits of ``n`` elements reduced to one ``[n]`` on
+    ``device``. A sum of tensors on ``device`` (at most
+    ``hbm.MAX_SLOTS``) goes to K1 by address: each deposit is read where
+    it lies, with no staging copy. The deposits are the ranks' own
+    tensors, read on the leader's stream once it has waited on every
+    deposit's event, and every rank's stream waits on the leader's
+    ``rv.done`` before its collective returns (``_Channel._execute``), so
+    no rank writes or frees a deposit while K1 reads it. Host (numpy)
+    deposits, tensors on another device, more than ``hbm.MAX_SLOTS`` and
+    the stock max/min/prod are staged once into a stacked ``(len, n)``:
+    K1's strided form for sum, the stock reduction otherwise."""
+    if op == "sum" and len(slots) <= hbm.MAX_SLOTS and all(
+            is_device_tensor(s) and s.device == device for s in slots):
+        return hbm.hbm_slot_allreduce([s.reshape(n) for s in slots])
+    x = _stack_slots(slots, n, device)
+    if op == "sum":
+        return hbm.hbm_slot_allreduce(x)
+    return ici.stock_reduce(x, op)
+
+
 def _stack_slots(slots, n: int, device: torch.device) -> torch.Tensor:
     """Deposits as one planar ``(len, n)`` tensor on ``device`` (one
     host-side stack and one transfer for host deposits)."""
@@ -555,20 +575,22 @@ def _stack_slots(slots, n: int, device: torch.device) -> torch.Tensor:
 class HBMSlotChannel(_Channel):
     """All bound ranks share ONE device: collectives run through an
     on-card slot segment (``ops/hbm.py``). Every rank deposits at the
-    rendezvous, the leader stages one planar ``(R, n)`` slot tensor and
-    runs one program:
+    rendezvous and the leader runs one program:
 
-      * allreduce/reduce: one slot-reduce pass (K1) writing the result
-        ONCE; the broadcast is zero-copy: every rank is handed the SAME
-        result tensor, which is shared and must not be written in place;
-      * allgather: the slot tensor *is* the result (no device compute);
-      * alltoall: one transpose of the slot tensor;
+      * allreduce/reduce: one slot-reduce pass (K1) over the R deposits,
+        read in place by address (``_reduce_deposits``), writing the
+        result ONCE; the broadcast is zero-copy: every rank is handed the
+        SAME result tensor, which is shared and must not be written in
+        place;
+      * allgather: the leader stages one planar ``(R, n)`` slot tensor,
+        which *is* the result (no device compute);
+      * alltoall: one transpose of the staged slot tensor;
       * reduce_scatter_block: slot-reduce (K1), then per-rank slices;
       * bcast: a copy of the root slot, shared by all ranks.
 
     ``sum`` runs K1 (on a CUDA device it launches the kernel or raises);
-    ``max``/``min``/``prod`` take the stock torch reduction, as the JAX
-    channel takes XLA's for them.
+    ``max``/``min``/``prod`` take the stock torch reduction over the
+    staged slots, as the JAX channel takes XLA's for them.
     """
 
     LEVELS = ("chip",)
@@ -583,11 +605,8 @@ class HBMSlotChannel(_Channel):
     def _build(self, name: str, n: int, op: str, extra=None):
         R = self.size
         if name in ("allreduce", "reduce", "reduce_scatter_block"):
-            if op == "sum":
-                return hbm.hbm_slot_allreduce
-
-            def f(x):
-                return ici.stock_reduce(x, op)
+            def f(slots):                   # the R deposits -> [n]
+                return _reduce_deposits(slots, n, self.device, op)
         elif name == "bcast":
             def f(x):                       # staged root slot [n]
                 return x
@@ -604,9 +623,9 @@ class HBMSlotChannel(_Channel):
         return f
 
     def _leader(self, name: str, op: str, root: int) -> List:
-        """Leader compute: order this stream after every deposit, stage
-        the planar slot tensor on the device, run the program, share or
-        scatter the result."""
+        """Leader compute: order this stream after every deposit, hand the
+        deposits to the reduction (or stage the planar slot tensor on the
+        device), run the program, share or scatter the result."""
         rv = self.rv
         R = self.size
         _wait_deposits(self.device, rv.events)
@@ -614,6 +633,8 @@ class HBMSlotChannel(_Channel):
         if name == "bcast":
             # a copy: the shared result must not alias the root's buffer
             x = _to_device(rv.slots[root], self.device).reshape(n).clone()
+        elif name in ("allreduce", "reduce", "reduce_scatter_block"):
+            x = rv.slots
         else:
             x = _stack_slots(rv.slots, n, self.device)
         out = self._program(name, n, dtype, op)(x)

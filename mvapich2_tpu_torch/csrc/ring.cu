@@ -19,7 +19,9 @@
 //    rings of p at once, the per-axis phase of a multi-axis mesh.
 // K8 remote_sendrecv_kernel      replaces pallas_ici.py remote_sendrecv
 //    (body _sendrecv_kernel). src and dst swap their shards, every other
-//    rank gets its own; one copy a rank, no flags.
+//    rank gets its own: 2*p*m bytes for m-byte shards, moved by the copy
+//    engine (cp.async.bulk tiles through a ring of shared-memory stages,
+//    one elected thread a block), heads and tails by the threads.
 // K6 ring_all_reduce_direct_kernel replaces mvapich2_tpu/ops/pallas_ring.py
 //    ring_all_reduce (body _ring_all_reduce_kernel). The resident sum
 //    ring's result, n % p == 0, as one direct fold in the ring's order
@@ -57,8 +59,8 @@
 //    into the target's window row at disp: K12's direct copy, with no
 //    landing buffer and no flag.
 //
-// Translation (K9; the direct kernels K3-K8, K10-K14q and K17 use no
-// landing slot and no credit). A TPU remote DMA into the neighbour's
+// Translation (K9; the direct kernels K3-K7, K10-K14q and K17 and K8's
+// bulk copy use no landing slot and no credit). A TPU remote DMA into the neighbour's
 // VMEM slot becomes a store into the downstream rank's landing slot in
 // global memory (slots[rank][dir][slot][chunk]); a DMA/REGULAR semaphore
 // becomes a u32 counter in global memory, written by exactly one block
@@ -97,7 +99,8 @@
 // block's owner alone, K5 and K7 (ring_all_gather_direct_kernel) copy,
 // K11 and K10 (hbm_alltoallv_direct_kernel) copy by a tile table, K12,
 // K13 and K17 (rma_copy_kernel) copy one range, K14 and K14q
-// (rma_acc_direct_kernel, rma_acc_quant_direct_kernel) fold one range.
+// (rma_acc_direct_kernel, rma_acc_quant_direct_kernel) fold one range,
+// and K8 (remote_sendrecv_kernel) copies its rows by bulk tiles.
 // K17's TPU kernel stages the payload in one landing buffer under a flag
 // because only the target may commit into its own HBM; here the window
 // row is memory that the origin's threads store to, so a put is K12's
@@ -312,24 +315,6 @@ __device__ __forceinline__ void block_signal(unsigned* flag, unsigned value) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// block-wide element loops. With vec, cnt is a multiple of V = 16 /
-// sizeof(T) and every pointer is 16-byte aligned: 16-byte accesses.
-// ---------------------------------------------------------------------------
-
-// dst[i] = src[i]
-template <typename T>
-__device__ void copy_range(T* dst, const T* src, long long cnt, int vec) {
-  if (vec) {
-    const long long nv = cnt / (16 / sizeof(T));
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x) d[i] = s[i];
-  } else {
-    for (long long i = threadIdx.x; i < cnt; i += blockDim.x) dst[i] = src[i];
-  }
-}
-
 // Share b of B of a chunk of sz elements, cut as a full chunk of `full`
 // elements is cut (in units of `align`, then clamped to sz): so block b
 // owns the same slice of a landing slot for every chunk, short last
@@ -407,22 +392,6 @@ __device__ Lane<T> make_lane(int p, long long nblk, long long chunk,
   L.landed = landed; L.consumed = consumed; L.err = err;
   L.g_issue = 0; L.g_drain = 0;
   return L;
-}
-
-// K8 (T: an unsigned type of the element's width): outs[r] = ins[partner
-// of r], the partner swapping src and dst and being r elsewhere. On one
-// card the TPU kernel's send/recv semaphore pair is stream order: block b
-// of rank r copies share b of its partner's n elements, 16 bytes at a
-// time when vec (n a multiple of the vector, every pointer aligned).
-template <typename T>
-__global__ void __launch_bounds__(1024) remote_sendrecv_kernel(
-    RankPtrs ptrs, int p, long long n, int src, int dst, int B, int vec) {
-  const int r = blockIdx.x / B;
-  const int from = r == src ? dst : (r == dst ? src : r);
-  long long s0, s1;
-  share(n, n, blockIdx.x % B, B, vec ? 16 / int(sizeof(T)) : 1, &s0, &s1);
-  copy_range(static_cast<T*>(ptrs.out[r]) + s0,
-             static_cast<const T*>(ptrs.in[from]) + s0, s1 - s0, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -1220,6 +1189,197 @@ __global__ void __launch_bounds__(1024) hbm_alltoallv_direct_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// K8: the exchange as a bulk-copy pipeline on the Tensor Memory Accelerator
+// ---------------------------------------------------------------------------
+//
+// remote_sendrecv_kernel replaces mvapich2_tpu/ops/pallas_ici.py
+// remote_sendrecv (:642, its pallas_call at :656, body _sendrecv_kernel):
+// out[r] = in[partner of r], the partner swapping src and dst and being r
+// elsewhere. On one card the TPU kernel's send/recv semaphore pair is
+// stream order, and the exchange is p row copies of n elements.
+//
+// Bound: bytes, 2*p*m for an m-byte shard: each shard read once, each row
+// written once (0.3205 ms at 8 x 64 MiB over 3.35 TB/s). A register copy
+// loop keeps one or a few 16-byte loads a thread in flight and stops at
+// 81-85 % of that on this card (K10/K11, K12/K13). Here the copy engine
+// moves the data: one elected thread a block keeps a ring of `stages`
+// shared-memory buffers of `tile` bytes busy. Each tile is a
+// cp.async.bulk load (global -> shared, completing on its stage's
+// mbarrier), then a cp.async.bulk store (shared -> global, in a bulk
+// group of its own). Loads run `ahead` tiles before their stores, and a
+// stage is loaded again only once the store that last read it has read it
+// (cp.async.bulk.wait_group.read stages - ahead). The threads spend no
+// registers on the data; each SM keeps up to stages * tile bytes moving.
+//
+// A bulk copy needs 16-byte aligned addresses and a whole number of 16
+// bytes. The wrapper cuts the rows (ops/ici.py k8_plan; this kernel's
+// k8_cut is the same cut). A row whose source and output share their
+// offset mod 16 goes by bulk tiles from the output's first 16-byte
+// boundary; its head before and its tail after it (under 16 bytes each)
+// are copied by the block's threads element by element. A row whose
+// offsets differ cannot be served by a bulk copy: the threads copy it
+// whole, element by element (the wrapper counts those rows). The tiles of
+// the bulk rows form one flat index space, row-major, `tpr` tiles a row;
+// block b takes tiles b, b + grid, ... A row's last tile may be short or
+// empty (an empty one arrives on its mbarrier without bytes and commits
+// an empty bulk group, so every stage and group count stays in step).
+
+constexpr int kK8MaxStages = 8;
+constexpr int kK8Threads = 256;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Wait for the phase of parity `parity` of the mbarrier at `bar` to
+// complete; false (after setting the error word) past the spin bound.
+__device__ bool mbar_wait(unsigned bar, unsigned parity, int* err) {
+  const unsigned long long t0 = global_ns();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return true;
+    if (global_ns() - t0 > kSpinTimeoutNs) {
+      *reinterpret_cast<volatile int*>(err) = kErrTimeout;
+      __threadfence_system();
+      return false;
+    }
+  }
+}
+
+// cp.async.bulk.wait_group.read n (n < kK8MaxStages) for a runtime n
+__device__ __forceinline__ void bulk_wait_read(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.bulk.wait_group.read 2;" ::: "memory"); break;
+    case 3: asm volatile("cp.async.bulk.wait_group.read 3;" ::: "memory"); break;
+    case 4: asm volatile("cp.async.bulk.wait_group.read 4;" ::: "memory"); break;
+    case 5: asm volatile("cp.async.bulk.wait_group.read 5;" ::: "memory"); break;
+    case 6: asm volatile("cp.async.bulk.wait_group.read 6;" ::: "memory"); break;
+    default: asm volatile("cp.async.bulk.wait_group.read 7;" ::: "memory"); break;
+  }
+}
+
+// A bulk row of nbytes whose output starts at `to`: the head bytes before
+// the first 16-byte boundary (all of a short row) and the bytes of whole
+// 16-byte words from there; the tail is the rest.
+__device__ __forceinline__ void k8_cut(const void* to, long long nbytes,
+                                       long long* head, long long* mid) {
+  const long long h = (16 - (reinterpret_cast<uintptr_t>(to) & 15)) & 15;
+  *head = min(nbytes, h);
+  *mid = (nbytes - *head) & ~15LL;
+}
+
+__device__ __forceinline__ int k8_from(int r, int src, int dst) {
+  return r == src ? dst : (r == dst ? src : r);
+}
+
+// The rank of the k-th set bit of mask
+__device__ __forceinline__ int nth_bit(unsigned long long mask, int k) {
+  for (; k > 0; --k) mask &= mask - 1;
+  return __ffsll(static_cast<long long>(mask)) - 1;
+}
+
+// K8 (T: an unsigned type of the element's width): outs[r] = ins[partner
+// of r]; bit r of `bulk` marks a row that goes by bulk tiles.
+template <typename T>
+__global__ void __launch_bounds__(kK8Threads) remote_sendrecv_kernel(
+    RankPtrs ptrs, int p, long long n, int src, int dst,
+    unsigned long long bulk, long long tpr, int tile, int stages, int ahead,
+    int* err) {
+  extern __shared__ __align__(128) unsigned char k8_buf[];
+  __shared__ __align__(8) unsigned long long k8_bar[kK8MaxStages];
+  const long long nbytes = n * static_cast<long long>(sizeof(T));
+  const long long gid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long gstep = static_cast<long long>(gridDim.x) * blockDim.x;
+  // the element work: every bulk row's head and tail, every other row
+  for (int r = 0; r < p; ++r) {
+    const T* from = static_cast<const T*>(ptrs.in[k8_from(r, src, dst)]);
+    T* to = static_cast<T*>(ptrs.out[r]);
+    if (bulk >> r & 1) {
+      long long h, m;
+      k8_cut(to, nbytes, &h, &m);
+      h /= static_cast<long long>(sizeof(T));
+      const long long t = h + m / static_cast<long long>(sizeof(T));
+      if (gid < h) to[gid] = ld_nc(from + gid);
+      if (t + gid < n) to[t + gid] = ld_nc(from + t + gid);
+    } else {
+      for (long long i = gid; i < n; i += gstep) to[i] = ld_nc(from + i);
+    }
+  }
+  if (threadIdx.x != 0) return;
+  // the bulk tiles, by this block's elected thread
+  const long long total = static_cast<long long>(__popcll(bulk)) * tpr;
+  if (blockIdx.x >= total) return;
+  const long long cnt = (total - 1 - blockIdx.x) / gridDim.x + 1;
+  const unsigned buf = smem_u32(k8_buf), bar = smem_u32(k8_bar);
+  for (int s = 0; s < stages; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(bar + 8u * s) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  // this block's tile i: its source and output, and its bytes (0: empty)
+  auto locate = [&](long long i, const char** f, char** t) -> unsigned {
+    const long long g = blockIdx.x + i * gridDim.x;
+    const int r = nth_bit(bulk, static_cast<int>(g / tpr));
+    const long long k = g % tpr;
+    char* to = static_cast<char*>(ptrs.out[r]);
+    long long h, m;
+    k8_cut(to, nbytes, &h, &m);
+    const long long off = h + k * tile;
+    *f = static_cast<const char*>(ptrs.in[k8_from(r, src, dst)]) + off;
+    *t = to + off;
+    return static_cast<unsigned>(
+        max(0LL, min(static_cast<long long>(tile), m - k * tile)));
+  };
+  auto load = [&](long long i) {
+    const unsigned s = static_cast<unsigned>(i % stages);
+    const char* f;
+    char* t;
+    const unsigned bytes = locate(i, &f, &t);
+    if (bytes) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(bar + 8u * s), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];"
+          :: "r"(buf + s * tile), "l"(f), "r"(bytes), "r"(bar + 8u * s)
+          : "memory");
+    } else {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                   :: "r"(bar + 8u * s) : "memory");
+    }
+  };
+  for (long long i = 0; i < min(cnt, static_cast<long long>(ahead)); ++i)
+    load(i);
+  for (long long i = 0; i < cnt; ++i) {
+    const unsigned s = static_cast<unsigned>(i % stages);
+    if (!mbar_wait(bar + 8u * s, static_cast<unsigned>(i / stages) & 1u,
+                   err))
+      break;
+    const char* f;
+    char* t;
+    const unsigned bytes = locate(i, &f, &t);
+    if (bytes) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                   :: "l"(t), "r"(buf + s * tile), "r"(bytes) : "memory");
+    }
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    if (i + ahead < cnt) {
+      bulk_wait_read(stages - ahead);
+      load(i + ahead);
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1272,12 +1432,32 @@ cudaError_t fit_ctas(const void* kernel, int lanes, int ctas, int threads,
   return *B >= 1 ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
 }
 
-// K8: p ranks of B blocks, no flags, so an ordinary launch
+// K8: one ordinary launch, at most ctas_per_sm blocks an SM (fewer when
+// the stages' shared memory allows fewer), stages * tile bytes of dynamic
+// shared memory a block.
 template <typename T>
 cudaError_t launch_k8(RankPtrs ptrs, int p, long long n, int src, int dst,
-                      int ctas, int vec, int threads, cudaStream_t s) {
-  remote_sendrecv_kernel<T><<<p * ctas, threads, 0, s>>>(ptrs, p, n, src,
-                                                         dst, ctas, vec);
+                      unsigned long long bulk, long long tpr, int tile,
+                      int stages, int ahead, int ctas_per_sm, int threads,
+                      cudaStream_t s) {
+  const void* kern = reinterpret_cast<const void*>(&remote_sendrecv_kernel<T>);
+  const int smem = stages * tile;
+  int *err, dev, sms, per_sm;
+  cudaError_t e = error_word(&err);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  remote_sendrecv_kernel<T><<<sms * std::min(per_sm, ctas_per_sm), threads,
+                              smem, s>>>(ptrs, p, n, src, dst, bulk, tpr,
+                                         tile, stages, ahead, err);
   return cudaGetLastError();
 }
 
@@ -1641,20 +1821,34 @@ int mv2t_hbm_ring_all_gather(int dtype, const void* ins, const void* outs,
   }
 }
 
-// K8: outs[r] = ins[partner of r] for the p ranks, esize-byte elements,
-// ctas blocks a rank.
+// K8: outs[r] = ins[partner of r] for the p ranks, esize-byte elements.
+// Bit r of bulk: row r goes by bulk tiles (its source and output agree mod
+// 16 bytes), tpr tiles of tile bytes a row, enough for its whole 16-byte
+// words; stages buffers a block, loads ahead of their stores by ahead.
 int mv2t_remote_sendrecv(int esize, const void* ins, const void* outs, int p,
-                         long long n, int src, int dst, int ctas, int vec,
-                         int threads, void* stream) {
-  if (bad_ranks(p) || src < 0 || src >= p || dst < 0 || dst >= p ||
-      ctas < 1)
+                         long long n, int src, int dst,
+                         unsigned long long bulk, long long tpr, int tile,
+                         int stages, int ahead, int ctas_per_sm, int threads,
+                         void* stream) {
+  if (bad_ranks(p) || src < 0 || src >= p || dst < 0 || dst >= p || n < 0 ||
+      tile < 16 || tile % 16 || stages < 1 || stages > kK8MaxStages ||
+      ahead < 1 || ahead > stages || ctas_per_sm < 1 || tpr < 0 ||
+      tpr * tile < (n * esize & ~15LL) || threads < 32 ||
+      threads > kK8Threads || (p < 64 && bulk >> p))
     return static_cast<int>(cudaErrorInvalidValue);
   const RankPtrs ptrs = rank_ptrs(ins, outs, p);
+  for (int r = 0; r < p; ++r) {
+    const int from = r == src ? dst : (r == dst ? src : r);
+    if ((bulk >> r & 1) &&
+        ((reinterpret_cast<uintptr_t>(ptrs.in[from]) ^
+          reinterpret_cast<uintptr_t>(ptrs.out[r])) & 15))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (esize) {
-    case 4: return static_cast<int>(launch_k8<uint32_t>(ptrs, p, n, src, dst, ctas, vec, threads, s));
-    case 2: return static_cast<int>(launch_k8<uint16_t>(ptrs, p, n, src, dst, ctas, vec, threads, s));
-    case 1: return static_cast<int>(launch_k8<uint8_t>(ptrs, p, n, src, dst, ctas, vec, threads, s));
+    case 4: return static_cast<int>(launch_k8<uint32_t>(ptrs, p, n, src, dst, bulk, tpr, tile, stages, ahead, ctas_per_sm, threads, s));
+    case 2: return static_cast<int>(launch_k8<uint16_t>(ptrs, p, n, src, dst, bulk, tpr, tile, stages, ahead, ctas_per_sm, threads, s));
+    case 1: return static_cast<int>(launch_k8<uint8_t>(ptrs, p, n, src, dst, bulk, tpr, tile, stages, ahead, ctas_per_sm, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -34,15 +34,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes signature of every C entry point, per source: (restype,
 # ((argument name, ctype), ...)). Pointers and the stream are c_void_p,
 # so a 64-bit address is never cut to a 32-bit int.
-_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                    ctypes.c_float)
+_P, _I, _I64, _U64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                          ctypes.c_uint64, ctypes.c_float)
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "hbm_slot": {
         "mv2t_slot_reduce": (_I, (
             ("dtype", _I), ("x", _P), ("out", _P), ("R", _I),
-            ("nvec", _I64), ("rank_stride", _I64), ("row_stride", _I64),
-            ("mean", _I), ("scale", _F), ("grid", _I), ("block", _I),
-            ("stream", _P))),
+            ("n", _I64), ("rank_stride", _I64), ("row_stride", _I64),
+            ("words", _I), ("mean", _I), ("scale", _F), ("grid", _I),
+            ("block", _I), ("stream", _P))),
+        "mv2t_slot_reduce_ptrs": (_I, (
+            ("dtype", _I), ("ins", _P), ("out", _P), ("R", _I),
+            ("n", _I64), ("words", _I), ("mean", _I), ("scale", _F),
+            ("grid", _I), ("block", _I), ("stream", _P))),
         "mv2t_fused_allreduce": (_I, (
             ("dtype", _I), ("x", _P), ("out", _P), ("R", _I),
             ("nvec", _I64), ("mean", _I), ("scale", _F), ("grid", _I),
@@ -77,8 +81,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("stream", _P))),
         "mv2t_remote_sendrecv": (_I, (
             ("esize", _I), ("ins", _P), ("outs", _P), ("p", _I),
-            ("n", _I64), ("src", _I), ("dst", _I), ("ctas", _I),
-            ("vec", _I), ("threads", _I), ("stream", _P))),
+            ("n", _I64), ("src", _I), ("dst", _I), ("bulk", _U64),
+            ("tpr", _I64), ("tile", _I), ("stages", _I), ("ahead", _I),
+            ("ctas_per_sm", _I), ("threads", _I), ("stream", _P))),
         "mv2t_quant_ring_all_reduce": (_I, (
             ("dtype", _I), ("wire", _I), ("ins", _P), ("outs", _P),
             ("wires", _P), ("p", _I), ("n", _I64), ("nblk", _I64),

@@ -35,7 +35,9 @@ once and stored into every row of its ring.
 
 ``remote_sendrecv`` (K8): shards ``src`` and ``dst`` swap, every other
 rank keeps its own (MPI_Sendrecv's exchange); the JAX package has no
-caller for it.
+caller for it. On one card it is ``p`` row copies, which the kernel
+hands to the copy engine: bulk tiles through a ring of shared-memory
+stages, one elected thread a block, the rows cut by ``k8_plan``.
 
 K3, K4 and K5 take ``lines``: ``lines * p`` shards ordered line-major
 (rank i of line g is shard ``g*p + i``), run as that many independent
@@ -76,6 +78,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..coll.tuning import kernel_param
 from ..utils.config import get_config
 from . import ring
 from .ring import Shards
@@ -86,10 +89,15 @@ _KERNELS = ("hbm_ring_all_reduce", "hbm_ring_reduce_scatter",
             "hbm_ring_all_gather", "remote_sendrecv", "quant_ring_all_reduce")
 LAUNCHES: Dict[str, int] = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(_KERNELS, 0)
+# K8's rows by how they were copied: by bulk tiles (source and output
+# agree mod 16 bytes), or element by element whole
+PATHS: Dict[str, int] = {"sendrecv_bulk_rows": 0,
+                         "sendrecv_element_rows": 0}
+K8_THREADS = 256             # csrc/ring.cu kK8Threads
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, PATHS):
         for k in d:
             d[k] = 0
 
@@ -307,6 +315,28 @@ def _partners(p: int, src: int, dst: int) -> List[int]:
     return part
 
 
+def k8_plan(from_addrs: List[int], to_addrs: List[int], nbytes: int,
+            tile: int) -> Tuple[int, int, List[Optional[Tuple[int, int]]]]:
+    """K8's cut of its rows (``csrc/ring.cu`` ``k8_cut``): row r copies
+    ``nbytes`` from address ``from_addrs[r]`` to ``to_addrs[r]``. A row
+    whose two addresses agree mod 16 goes by bulk tiles and is cut
+    ``(head, mid)``: the bytes before the output's first 16-byte boundary
+    (all of a row shorter than that), then whole 16-byte words; the
+    tail, the rest, is under 16 bytes. Another row is ``None``: copied
+    element by element whole. Returns the bulk rows' bit mask, the tiles
+    of ``tile`` bytes a row (enough for any row's words) and the cuts."""
+    cuts: List[Optional[Tuple[int, int]]] = []
+    mask = 0
+    for r, (f, t) in enumerate(zip(from_addrs, to_addrs)):
+        if (f - t) % 16:
+            cuts.append(None)
+            continue
+        head = min(nbytes, -t % 16)
+        cuts.append((head, (nbytes - head) // 16 * 16))
+        mask |= 1 << r
+    return mask, -(-(nbytes // 16 * 16) // tile), cuts
+
+
 def remote_sendrecv_ref(xs: Shards, src: int, dst: int) -> torch.Tensor:
     """Plain version of K8: an index gather of the stacked shards by
     partner; returns a fresh ``(p, n)``."""
@@ -444,10 +474,13 @@ def remote_sendrecv(xs: Shards, src: int, dst: int) -> torch.Tensor:
     (MPI_Sendrecv's exchange, not ppermute's zero fill); a fresh
     ``(p, n)``, row r for rank r. ``src == dst`` or one rank: the shards
     as they are (a ``(p, n)`` tensor is returned itself), no launch. Any
-    1-, 2- or 4-byte dtype, moved as its bits."""
+    1-, 2- or 4-byte dtype, moved as its bits: the rows by bulk tiles on
+    the copy engine where the shard and its output row agree mod 16 bytes
+    (``k8_plan``), else element by element (``PATHS`` counts the rows of
+    each)."""
     shards = ring.as_shards(xs, "remote_sendrecv")
     p = len(shards)
-    _partners(p, src, dst)
+    part = _partners(p, src, dst)
     if p == 1 or src == dst:
         return xs if isinstance(xs, torch.Tensor) else torch.stack(shards)
     if ring.on_cpu(shards):
@@ -465,11 +498,19 @@ def remote_sendrecv(xs: Shards, src: int, dst: int) -> torch.Tensor:
                          f" are taken, got {shards[0].dtype}")
     n = shards[0].numel()
     out = torch.empty((p, n), dtype=shards[0].dtype, device=dev)
-    v = 16 // esize
-    vec = ring.aligned(shards) and ring.aligned(out.unbind(0)) and n % v == 0
-    ctas = ring.ctas_per_lane(dev, p, n, v)
+    if n == 0:
+        return out
+    rows = ring.row_pointers(out)
+    tile = kernel_param("k8_tile_bytes", 32768)
+    mask, tpr, _ = k8_plan([shards[j].data_ptr() for j in part],
+                           list(rows), n * esize, tile)
     ring.launch("mv2t_remote_sendrecv", dev, esize, ring.pointers(shards),
-                ring.pointers(out.unbind(0)), p, n, src, dst, ctas, int(vec))
+                rows, p, n, src, dst, mask, tpr, tile,
+                kernel_param("k8_stages", 6), kernel_param("k8_ahead", 5),
+                kernel_param("k8_ctas_per_sm", 1), threads=K8_THREADS)
+    bulk = bin(mask).count("1")
+    PATHS["sendrecv_bulk_rows"] += bulk
+    PATHS["sendrecv_element_rows"] += p - bulk
     LAUNCHES["remote_sendrecv"] += 1
     return out
 

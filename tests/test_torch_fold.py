@@ -320,3 +320,44 @@ def test_tier_pvars_match_the_reference_plan(env, nranks, shape):
     got = {k: mpit.pvar(k).read() - before[k] for k in tiers}
     assert got == want
     assert want["dev_coll_tier_vmem"] and want["dev_coll_tier_hbm"]
+
+
+def test_fold_sums_read_the_deposits_in_place(env, monkeypatch):
+    """The chip fold of a sum hands a device's deposits to K1 by address
+    and never stages them: with ``_stack_slots`` patched to raise, the
+    sum allreduce, reduce and reduce_scatter_block over 8 ranks on a
+    4-device mesh still agree with the plain sum (4 K1 a call, one per
+    device), while allgather and the stock max, which stack, fail."""
+    from mvapich2_tpu_torch.coll import device as cdev
+
+    calls = []
+
+    def staged(*a, **kw):
+        calls.append(a)
+        raise AssertionError("staged a stacked slot tensor")
+
+    monkeypatch.setattr(cdev, "_stack_slots", staged)
+    nranks, c = 8, 40
+    data = np.stack([_x(r, nranks * c, np.int32) for r in range(nranks)])
+
+    def app(comm):
+        x = torch.from_numpy(data[comm.rank].copy())
+        return (comm.allreduce(x), comm.reduce(x, root=5),
+                comm.reduce_scatter_block(x))
+
+    mesh = make_mesh((4,), ("x",), "cpu")
+    hbm.reset_counts()
+    res = run_ranks(nranks, app, device_mesh=mesh)
+    assert hbm.PLAIN_CALLS["fused_reduce_to_slot"] == 3 * 4 and not calls
+    want = data.sum(0)
+    for r, (ar, red, rsb) in enumerate(res):
+        np.testing.assert_array_equal(ar.numpy(), want)
+        if r == 5:
+            np.testing.assert_array_equal(red.numpy(), want)
+        np.testing.assert_array_equal(rsb.numpy(), want[r * c:(r + 1) * c])
+    for app in (lambda comm: comm.allgather(torch.ones(4)),
+                lambda comm: comm.allreduce(torch.ones(4), op=top.MAX)):
+        with pytest.raises(RuntimeError):
+            run_ranks(nranks, app, device_mesh=mesh, timeout=30)
+        assert calls
+        calls.clear()

@@ -7,6 +7,7 @@ Tolerances: rtol 2e-5 / atol 1e-4 on normal f32 data (the JAX tests'
 own; the two sides sum in different orders); bitwise on integer-valued
 f32 and on int32."""
 
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -179,3 +180,101 @@ def test_wrapper_rejects_bad_input():
         hbm.fused_allreduce(torch.zeros(4, 128))
     with pytest.raises(TypeError):
         hbm.fused_reduce_to_slot(np.zeros((2, 4, 128), np.float32))
+
+
+# K1's pointer form: R separate rank tensors (the channels' deposits)
+KINDS = ("f32", "f16", "bf16", "i32", "i16", "i8", "u8", "u16", "u32")
+_INT_DT = {"i32": np.int32, "i16": np.int16, "i8": np.int8, "u8": np.uint8,
+           "u16": np.uint16, "u32": np.uint32}
+
+
+def _rank_bufs(kind, R, n, seed):
+    """(R, n) numpy rank buffers of ``kind``: normal floats, integers
+    over the dtype's whole range (sums wrap)."""
+    rng = np.random.default_rng(seed)
+    if kind in _INT_DT:
+        info = np.iinfo(_INT_DT[kind])
+        return rng.integers(info.min, info.max, size=(R, n), endpoint=True,
+                            dtype=_INT_DT[kind])
+    a = rng.normal(size=(R, n)).astype(np.float32)
+    return a.astype({"f32": np.float32, "f16": np.float16,
+                     "bf16": ml_dtypes.bfloat16}[kind])
+
+
+def _rank_tensors(a):
+    """The rows of ``a`` as R separate tensors (bfloat16 bit for bit)."""
+    if a.dtype == ml_dtypes.bfloat16:
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return [t[r].clone() for r in range(a.shape[0])]
+
+
+def _bits(x):
+    """An array's bits, for a bitwise comparison of any dtype."""
+    x = np.asarray(x)
+    return x.view({1: np.uint8, 2: np.uint16, 4: np.uint32}[x.itemsize])
+
+
+@pytest.mark.parametrize("n", [1, 333])
+@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+def test_pointer_form_matches_jax_bitwise(kind, mean, R, n):
+    """K1's pointer form (hbm_slot_allreduce on R separate tensors, the
+    form the channels hand it the deposits in) against the JAX
+    hbm_slot_allreduce (interpret mode), bitwise: nine dtypes, sum and
+    mean, ragged n. The mean of 16-bit floats rounds the sum to the
+    dtype, then multiplies by 1/R rounded to the dtype, as the Pallas
+    body's ``s * scale`` does; with R == 1 there is no product. The JAX
+    kernel refuses an integer mean of R > 1 (its float product does not
+    fit the integer output ref): there the port's truncated mean of the
+    32-bit wrapped sum is held against numpy's."""
+    a = _rank_bufs(kind, R, n, seed=100 + R + n)
+    before = hbm.PLAIN_CALLS["fused_reduce_to_slot"]
+    got = hbm.hbm_slot_allreduce(_rank_tensors(a), mean=mean)
+    assert hbm.PLAIN_CALLS["fused_reduce_to_slot"] == before + 1
+    assert tuple(got.shape) == (n,)
+    got = got.view(torch.uint16).numpy() if got.dtype == torch.bfloat16 \
+        else got.numpy()
+    if mean and R > 1 and kind in _INT_DT:
+        with pytest.raises(ValueError):
+            ph.hbm_slot_allreduce(jnp.asarray(a), mean=True)
+        acc = a.astype(np.int64).sum(0)
+        acc = acc.astype(np.uint32) if kind == "u32" else \
+            acc.astype(np.uint32).view(np.int32)
+        want = np.trunc(acc.astype(np.float32) * np.float32(1 / R))
+        want = want.astype(np.int64).astype(a.dtype)
+    else:
+        want = ph.hbm_slot_allreduce(jnp.asarray(a), mean=mean)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("kind", ["f16", "bf16"])
+def test_fused_allreduce_half_mean_matches_jax(kind):
+    """K2 shares K1's mean: a 16-bit sum rounded, times 1/R in the
+    dtype (R = 3, where 1/3 rounds differently in float32 and in the
+    dtype)."""
+    R, n = 3, 4 * 128
+    a = _rank_bufs(kind, R, n, seed=17)
+    want = ph.fused_allreduce(ph.pack_interleaved(jnp.asarray(a)),
+                              mean=True, block_m=2)
+    x = hbm.pack_interleaved(torch.stack(_rank_tensors(a)))
+    got = hbm.fused_allreduce(x, mean=True)
+    got = got.view(torch.uint16).numpy() if got.dtype == torch.bfloat16 \
+        else got.numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_pointer_form_rejects_bad_sources():
+    with pytest.raises(ValueError):
+        hbm.hbm_slot_allreduce([])
+    with pytest.raises(ValueError):
+        hbm.hbm_slot_allreduce([torch.zeros(4), torch.zeros(5)])
+    with pytest.raises(ValueError):
+        hbm.hbm_slot_allreduce([torch.zeros(4),
+                                torch.zeros(4, dtype=torch.int32)])
+    with pytest.raises(TypeError):
+        hbm.hbm_slot_allreduce([np.zeros(4, np.float32)])
+    with pytest.raises(ValueError):
+        hbm.hbm_slot_allreduce(torch.zeros(2, 3, 4))

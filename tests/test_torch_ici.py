@@ -31,6 +31,7 @@ from mvapich2_tpu.ops import pallas_ici
 from mvapich2_tpu.parallel import MeshComm, make_mesh as jax_make_mesh
 from mvapich2_tpu.utils.config import get_config as jax_config
 from mvapich2_tpu_torch import mpit
+from mvapich2_tpu_torch.bench import k8_ablation
 from mvapich2_tpu_torch.coll import tuning
 from mvapich2_tpu_torch.ops import ici, quant, ring
 from mvapich2_tpu_torch.utils.config import get_config
@@ -369,3 +370,88 @@ def test_cuda_request_without_card_raises(monkeypatch):
                                "hbm_ring_all_gather": 0,
                                "quant_ring_all_reduce": 0,
                                "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0}
+
+
+def _model_k8(from_addrs, to_addrs, nbytes, esize, tile, grid):
+    """Replay ``csrc/ring.cu`` ``remote_sendrecv_kernel``'s cut of its rows
+    byte by byte from ``ici.k8_plan``: the threads' element pass (each
+    bulk row's head and tail, every other row whole) and the bulk tiles,
+    block by block as the kernel walks them (block b: tiles b, b + grid,
+    ... of the bulk rows' flat index space, ``k8_cut`` recomputed from
+    the output address as the kernel does). Returns how often each
+    output byte of each row is written; every bulk tile is checked for
+    16-byte aligned addresses on both sides and a whole number of 16
+    bytes, every element range for whole elements."""
+    p = len(to_addrs)
+    mask, tpr, cuts = ici.k8_plan(from_addrs, to_addrs, nbytes, tile)
+    cover = np.zeros((p, nbytes), np.int64)
+    for r, c in enumerate(cuts):
+        if c is None:
+            cover[r] += 1
+            continue
+        head, mid = c
+        assert head % esize == 0 and (nbytes - head - mid) % esize == 0
+        assert head < 16 and nbytes - head - mid < 16
+        cover[r, :head] += 1
+        cover[r, head + mid:] += 1
+    rows = [r for r in range(p) if mask >> r & 1]
+    total = len(rows) * tpr
+    for b in range(grid):
+        for g in range(b, total, grid):
+            r, k = rows[g // tpr], g % tpr
+            head = min(nbytes, -to_addrs[r] % 16)       # the kernel's k8_cut
+            mid = (nbytes - head) // 16 * 16
+            assert cuts[r] == (head, mid)
+            off = head + k * tile
+            nb = max(0, min(tile, mid - k * tile))
+            if nb:
+                assert (from_addrs[r] + off) % 16 == 0
+                assert (to_addrs[r] + off) % 16 == 0 and nb % 16 == 0
+                cover[r, off:off + nb] += 1
+    return cover
+
+
+@pytest.mark.parametrize("grid", [1, 3, 132])
+@pytest.mark.parametrize("shard_off", [0, 1, 3])
+@pytest.mark.parametrize("esize", [1, 2, 4])
+def test_k8_cut_covers_every_byte_once(esize, shard_off, grid):
+    """K8's cut (``k8_plan``, and the kernel's walk of it modelled by
+    ``_model_k8``) writes every output byte exactly once, and only by
+    16-byte aligned bulk copies or whole elements: p = 2, 3 and 8 ranks,
+    shards at ``shard_off`` elements past a 16-byte boundary and the
+    fresh ``(p, n)`` output's rows, n from one element to several tiles
+    (tiles of 16 and 64 bytes), both partners of the exchange."""
+    v = 16 // esize
+    for p, src, dst in ((2, 0, 1), (3, 2, 0), (8, 1, 6)):
+        part = ici._partners(p, src, dst)
+        shard = [4096 * (j + 1) + shard_off * esize for j in range(p)]
+        for n in (1, 3, v - 1, v, v + 1, 4 * v + 3, 37, 100):
+            for tile in (16, 64):
+                nbytes = n * esize
+                cover = _model_k8([shard[j] for j in part],
+                                  [r * nbytes for r in range(p)], nbytes,
+                                  esize, tile, grid)
+                assert (cover == 1).all(), (p, n, tile)
+
+
+def test_k8_plan_rows():
+    """Which rows go by bulk tiles: a row whose shard and output agree
+    mod 16 bytes; the others are copied element by element whole."""
+    # f32, n = 5: rows start at 0, 20, 40 (residues 0, 4, 8); shards at 4
+    mask, tpr, cuts = ici.k8_plan([4, 4100, 8196], [0, 20, 40], 20, 64)
+    assert mask == 0b010 and tpr == 1
+    assert cuts == [None, (12, 0), None]
+    # aligned shards and rows of whole words: every row bulk, no head
+    mask, tpr, cuts = ici.k8_plan([0, 4096], [0, 64], 64, 16)
+    assert mask == 0b11 and tpr == 4 and cuts == [(0, 64), (0, 64)]
+
+
+@pytest.mark.parametrize("name", sorted(k8_ablation.EDITS))
+def test_k8_ablation_edits_apply(name):
+    """Every K8 ablation's text edits still fit ``csrc/ring.cu`` (each
+    anchor once), and only the kernel variant leaves it as it is."""
+    src = k8_ablation.variant_source(name)
+    assert (src == k8_ablation.variant_source("kernel")) == (name == "kernel")
+    assert name in k8_ablation.SHAPES
+    for tile, stages, ahead, ctas in k8_ablation.SHAPES[name]:
+        assert tile % 16 == 0 and 1 <= ahead <= stages <= 8 and ctas >= 1

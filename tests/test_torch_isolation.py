@@ -120,7 +120,7 @@ def test_kernel_dtype_table_rejects_unsupported():
 
 
 _CTYPE_OF = {"int": ctypes.c_int, "long long": ctypes.c_int64,
-             "float": ctypes.c_float}
+             "unsigned long long": ctypes.c_uint64, "float": ctypes.c_float}
 
 
 def _c_signatures(src):

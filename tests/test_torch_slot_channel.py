@@ -254,3 +254,43 @@ def test_host_tier_cases_raise():
         assert isinstance(ei.value.__cause__, NotImplementedError)
     finally:
         cfg.set("ALLREDUCE_ALGO", "")
+
+
+def test_sum_reductions_read_the_deposits_in_place(monkeypatch):
+    """Tensor deposits: the sum allreduce, reduce and reduce_scatter_block
+    hand the ranks' own tensors to K1 by address (``hbm_slot_allreduce``
+    on the list) and never stage them. With ``_stack_slots`` patched to
+    raise, they still agree with the plain sum, while allgather and the
+    stock max, which do stage, fail on the leader."""
+    from mvapich2_tpu_torch.coll import device as cdev
+
+    calls = []
+
+    def staged(*a, **kw):
+        calls.append(a)
+        raise AssertionError("staged a stacked slot tensor")
+
+    monkeypatch.setattr(cdev, "_stack_slots", staged)
+    nranks, c = 4, 75
+    data = _inputs(41, nranks, nranks * c, integer=True)
+
+    def app(comm):
+        x = torch.from_numpy(data[comm.rank].copy())
+        return (comm.allreduce(x), comm.reduce(x, root=2),
+                comm.reduce_scatter_block(x))
+
+    hbm.reset_counts()
+    res = run_ranks(nranks, app, device="cpu")
+    assert hbm.PLAIN_CALLS["fused_reduce_to_slot"] == 3 and not calls
+    want = data.sum(0)
+    for r, (ar, red, rsb) in enumerate(res):
+        np.testing.assert_array_equal(ar.numpy(), want)
+        if r == 2:
+            np.testing.assert_array_equal(red.numpy(), want)
+        np.testing.assert_array_equal(rsb.numpy(), want[r * c:(r + 1) * c])
+    for app in (lambda comm: comm.allgather(torch.ones(4)),
+                lambda comm: comm.allreduce(torch.ones(4), op=top.MAX)):
+        with pytest.raises(RuntimeError):
+            run_ranks(nranks, app, device="cpu", timeout=30)
+        assert calls
+        calls.clear()
