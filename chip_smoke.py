@@ -91,7 +91,10 @@ non-zero, printing no result, without them. Phases:
    target range, against the plain versions on a cloned source; the
    direct fold of K14 the same way on every kind above, with the exact
    alias; and (with the quant kernels) K14q at blocks of 64, 128 and
-   256 values, disp 0 and 5, a misaligned source and the exact alias.
+   256 values, disp 0 and 5, a misaligned source and the exact alias,
+   and K9, the whole quantized allreduce in one launch, bitwise on both
+   wires, f32 and f16, blocks of 8 to 2048 values, odd n, shards at
+   element offset 1 and 8 x 64 MiB.
    Then the path:
    the OSU one-sided band (mvapich2_tpu_torch.bench.osu_rma, 1 KiB to
    4 MiB, 32 ops a fence, 3 + 12 fences, put/get/accumulate from rank 0
@@ -138,8 +141,8 @@ non-zero, printing no result, without them. Phases:
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
-only phases 1 and 2, then the launch-shape sweeps of the streaming ring
-(``phase_sweep``: K9, the one left), of the K12/K13 copy
+only phases 1 and 2, then the launch-shape sweeps of K9
+(``phase_sweep``: threads per block x loads in flight), of the K12/K13 copy
 (``phase_copy_sweep``), of K8's bulk-copy pipeline (``phase_k8_sweep``)
 and of K1's pointer form (``phase_k1_sweep``), which chose the launch
 shapes in ``coll/tuning.py``, and of K11's tile size
@@ -275,6 +278,8 @@ def phase_build(_build):
                         f"{DIRECT_TYPES[direct.group(2)]}>: {ln.strip()}")
                 elif "slot_reduce_kernelIf" in entry:
                     log(f"[build] {_k1_inst(entry)}: {ln.strip()}")
+                elif K9_INST.search(entry):
+                    log(f"[build] {_k9_inst(entry)}: {ln.strip()}")
                 elif "quant" in entry or (kern and ("IfLi0E" in entry
                                                     or "IjE" in entry)):
                     log(f"[build] {(kern or [entry[:60]])[0]}: "
@@ -289,6 +294,20 @@ def _k1_inst(entry):
     words = "words" if "Lb1E" in entry else "elements"
     addr = "ByPtr" if "ByPtr" in entry else "Strided"
     return f"slot_reduce_kernel<float, {words}, {addr}>"
+
+
+K9_INST = re.compile(r"quant_ring_all_reduce_kernelI(f|6__half)Li(\d)ELb(\d)E")
+
+
+def _k9_inst(entry):
+    """'quant_ring_all_reduce_kernel<f32, q8, false>' and the like for a
+    mangled K9 instance (the last argument: true for the scratch row of
+    a block of more than 128 values)."""
+    mm = K9_INST.search(entry)
+    return (f"quant_ring_all_reduce_kernel<"
+            f"{'f32' if mm.group(1) == 'f' else 'f16'}, "
+            f"{('q8', 'fp8')[int(mm.group(2))]}, "
+            f"{('false', 'true')[int(mm.group(3))]}>")
 
 
 FLASH_INST = re.compile(r"flash_kernelI(f|6__half|13__nv_bfloat16)Li(\d+)E")
@@ -2792,17 +2811,20 @@ def phase_rma_times(torch, rma, ring, timing, info, launches, full_err,
 
 def phase_quant_kernels(torch, np, quant, ici, rma, ring, cfg, dev):
     """K9 and K14's quantized wire (K14q) against their plain versions,
-    bitwise. K9 through the whole quant_ring_all_reduce (K9, K5 over the
-    wire words, the stock decode): p = 2, 4 and 8, both wires, f32 and
-    f16 (cast; bf16 must take the exact K3 ring, as in the JAX package),
-    padded tails, one-chunk and many-chunk shapes, depth 2 and 3, one
-    and two ring directions, and 8 ranks of 64 MiB; then K9's own wire
-    words against encode_f32_ref of the plain reduced block. K14q: both
-    wires, blocks of 8 to 256 f32, misaligned disp, a misaligned source,
-    a zero block, the exact alias, the chunk and depth arguments,
-    origin == target, and N - 128 elements of a 64 MiB-a-rank window at
-    disp 5, every window row compared. Returns the max abs error of the
-    full-size checks."""
+    bitwise. K9 through the whole quant_ring_all_reduce (one launch: the
+    ring's codec chain, the owner's encode, the decode into every rank's
+    row): p = 2, 4 and 8, both wires, f32 and f16 (cast; bf16 must take
+    the exact K3 ring, as in the JAX package), padded tails, odd n (rows
+    off their 16-byte boundary), blocks of 8, 12, 32, 128 (the default),
+    512, 1024 and 2048 f32 values (past 128 the scratch row), shards at
+    element offset 1 (the element loads), the chunk and depth arguments
+    (which shape nothing), one and two ring directions, and 8 ranks of
+    64 MiB; then K9's own wire words against encode_f32_ref of the plain
+    reduced block. K14q: both wires, blocks of 8 to 256 f32, misaligned
+    disp, a misaligned source, a zero block, the exact alias, the chunk
+    and depth arguments, origin == target, and N - 128 elements of a 64
+    MiB-a-rank window at disp 5, every window row compared. Returns the
+    max abs error of the full-size checks."""
     rng = np.random.default_rng(SEED + 1400)
     n_checks = 0
     full_err = {}
@@ -2816,40 +2838,51 @@ def phase_quant_kernels(torch, np, quant, ici, rma, ring, cfg, dev):
         if key:
             full_err[key] = err
 
-    shapes = ((37, 32, 128, 2, True),          # padded tail, many chunks
-              (300, 64, 256, 3, False),
-              (1000, None, None, 2, True),     # the default block, 1 chunk
-              (100003, None, 4096, 3, True),   # many chunks of 8 blocks
-              (4096, 32, 1 << 20, 2, False))   # one chunk of 8-f32 blocks
+    # (n, block bytes, chunk bytes, depth, bidirectional, shard offset)
+    shapes = ((37, 32, 128, 2, True, 0),       # padded tail, odd n
+              (300, 64, 256, 3, False, 0),
+              (1000, None, None, 2, True, 0),  # the default block
+              (100003, None, 4096, 3, True, 0),
+              (4096, 32, 1 << 20, 2, False, 0),
+              (1001, 48, None, 2, True, 0),    # 12-value blocks, 3 words
+              (5003, 2048, None, 2, True, 0),  # 512 values: the scratch row
+              (9999, 4096, None, 3, True, 0),  # 1024
+              (20001, 8192, None, 2, False, 0),   # 2048
+              (4099, None, None, 2, True, 1))  # shards at element offset 1
     for p in (2, 4, 8):
         for wire in ("q8", "fp8"):
             for kind in ("f32", "f16", "bf16"):
-                for n, bb, cb, depth, bidir in shapes:
-                    xs = _shards(torch, np, rng, p, n, kind, dev)
+                for n, bb, cb, depth, bidir, off in shapes:
+                    if off:
+                        x = _data(torch, np, rng, (p, n + off), kind, dev)
+                        xs = [x[r, off:] for r in range(p)]
+                    else:
+                        xs = _shards(torch, np, rng, p, n, kind, dev)
                     ici.reset_counts()
                     got = quant.quant_ring_all_reduce(
                         xs, wire=wire, block_bytes=bb, chunk_bytes=cb,
                         depth=depth, bidirectional=bidir)
-                    k9 = ici.LAUNCHES["quant_ring_all_reduce"]
-                    k3 = ici.LAUNCHES["hbm_ring_all_reduce"]
-                    if (k9, k3) != ((0, 1) if kind == "bf16" else (1, 0)):
+                    want_l = {k: 0 for k in ici.LAUNCHES}
+                    want_l["hbm_ring_all_reduce" if kind == "bf16"
+                           else "quant_ring_all_reduce"] = 1
+                    if ici.LAUNCHES != want_l:
                         raise AssertionError(f"K9 {kind}: launches "
                                              f"{dict(ici.LAUNCHES)}")
                     check(f"K9 p={p} n={n} {wire} {kind} block={bb} "
-                          f"chunk={cb} depth={depth} bidir={bidir}", got,
+                          f"chunk={cb} depth={depth} bidir={bidir} "
+                          f"offset={off}", got,
                           quant.quant_ring_all_reduce_ref(
                               xs, wire=wire, block_bytes=bb,
                               bidirectional=bidir))
-    for p, wire, n, bb, cb in ((2, "q8", 1000, 32, 256),
-                               (8, "fp8", 100003, None, 4096),
-                               (8, "q8", 300, 64, 128)):
+    for p, wire, n, bb in ((2, "q8", 1000, 32), (8, "fp8", 100003, None),
+                           (8, "q8", 300, 64), (4, "fp8", 1001, 48),
+                           (4, "q8", 20001, 8192)):
         xs = _shards(torch, np, rng, p, n, "f32", dev)
-        blk, nblk, chunk = quant._geometry(p, n, bb, cb)
+        blk, nblk = quant._geometry(p, n, bb)
         ndir = 2 if p > 2 else 1
-        wires = quant.quant_reduce_scatter(xs, nblk, blk, wire, chunk, 2,
-                                           ndir)
+        wires = quant.quant_reduce_scatter(xs, nblk, blk, wire, ndir)
         _, own = quant.quant_reduce_scatter_ref(xs, nblk, blk, wire, ndir)
-        check(f"K9 own wire p={p} n={n} {wire}", wires,
+        check(f"K9 own wire p={p} n={n} {wire} block={blk}", wires,
               quant.encode_f32_ref(own, blk, wire).reshape(p, -1))
     gen = torch.Generator(device=dev).manual_seed(SEED + 1450)
     xs = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
@@ -2931,7 +2964,8 @@ def phase_quant(torch, np, mvt, quant, ici, ring, mpit, opmod, cfg, dev,
     inputs under each of QUANT_SPECS (2 checked calls, 2 warm-ups, 10
     timed), then, under the same budget, an int32 sum and an f32 max of
     64 MiB and an allgather of 8 MiB a rank (64 MiB gathered), which the
-    quant bin must send to the exact K3/K5. Every quantized result is
+    quant bin must send to the exact K3/K5. A quantized call is one K9
+    launch (no K5 over the wire, no stock decode). Every quantized result is
     bitwise the plain version on the card on every rank, and within
     declared_bound of an f64 sum; the exact ones bitwise the plain
     reductions. Counts zeroed before each run and read after it; the
@@ -2984,7 +3018,7 @@ def phase_quant(torch, np, mvt, quant, ici, ring, mpit, opmod, cfg, dev,
         ring.check_errors()
         wall = time.perf_counter() - t0
         launches = dict(ici.LAUNCHES)
-        want_l = {"hbm_ring_all_reduce": 2, "hbm_ring_all_gather": n_q + 1,
+        want_l = {"hbm_ring_all_reduce": 2, "hbm_ring_all_gather": 1,
                   "quant_ring_all_reduce": n_q,
                   "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0}
         if launches != want_l or any(ring.LAUNCHES.values()) or \
@@ -3077,43 +3111,68 @@ def phase_quant_times(torch, quant, ici, rma, ring, timing, info, smi,
                       cfg, k9_launches, k14q_launches, full_err, q_lats,
                       mesh_lat, dev):
     """K9 and K14q at the main paths' shapes, by CUDA events (median of
-    20 after 3 warm-ups; plain versions 5 after 1): K9 alone at 8 x
-    64 MiB f32 (q8, the default block and chunk), the K5 gather of its
-    wire, the stock decode, the whole quant_ring_all_reduce, K3 and
-    torch.stack(x).sum(0) on the same input; K14q at N = 16 Mi f32
-    elements from rank 0 into rank 7 beside K14 and win[7].add_(src);
-    and the e2e quant mesh allreduce beside the exact one. Bounds: each
-    input read once, each output written once (K9: the inputs and the
-    wire outputs; K14q: src, the window row and the row written back),
+    20 after 3 warm-ups; plain versions 5 after 1) and by card time
+    (``_queued_ms``): the whole quant_ring_all_reduce at 8 x 64 MiB f32
+    (one K9 launch) on the q8 and fp8 wires, K9's wire-only form
+    (quant_reduce_scatter), and beside them the parent form's tail (K5
+    gathering the wire words, then the stock decode), K3 and
+    torch.stack(x).sum(0) on the same input; the device memory a call
+    allocates, and what the parent form's tail (K5 and the decode)
+    allocates on top of the wire outputs; K14q at N = 16 Mi f32 elements
+    from rank 0 into rank 7 beside K14 and win[7].add_(src); and the e2e
+    quant mesh allreduce beside the exact one. Bounds: each input read
+    once, each output written once (K9: the inputs and every rank's
+    result row; K14q: src, the window row and the row written back),
     over the memory rate."""
     bw = info.hbm_bw_gbps * 1e9
     gen = torch.Generator(device=dev).manual_seed(SEED + 1500)
     xs = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
-    blk, nblk, chunk = quant._geometry(R, N, None, None)
-    ndir, depth = ici._resolve_ndir(R, None), ici._cfg_depth(None)
+    blk, nblk = quant._geometry(R, N, None)
+    ndir = ici._resolve_ndir(R, None)
     wblk = quant.wire_words(nblk, blk)
-    k9 = timing.time_ms(lambda: quant.quant_reduce_scatter(
-        xs, nblk, blk, "q8", chunk, depth, ndir))
-    own = quant.quant_reduce_scatter(xs, nblk, blk, "q8", chunk, depth, ndir)
+    k9, k9_card = {}, {}
+    for wire in ("q8", "fp8"):
+        k9[wire] = timing.time_ms(lambda: quant.quant_ring_all_reduce(
+            xs, wire=wire))
+        k9_card[wire] = _queued_ms(torch, lambda: quant.quant_ring_all_reduce(
+            xs, wire=wire))
+    wires_only = timing.time_ms(lambda: quant.quant_reduce_scatter(
+        xs, nblk, blk, "q8", ndir))
+    own = quant.quant_reduce_scatter(xs, nblk, blk, "q8", ndir)
     own_rows = list(own.unbind(0))
     k5 = timing.time_ms(lambda: ici.hbm_ring_all_gather(own_rows))
     wall = ici.hbm_ring_all_gather(own_rows)
     dec = timing.time_ms(lambda: quant.decode_f32_ref(wall, blk, "q8")
                          [:, :N].to(torch.float32))
-    whole = timing.time_ms(lambda: quant.quant_ring_all_reduce(xs,
-                                                               wire="q8"))
     k3 = timing.time_ms(lambda: ici.hbm_ring_all_reduce(xs))
-    plain = timing.time_ms(lambda: quant.quant_reduce_scatter_ref(
-        xs, nblk, blk, "q8", ndir), warmup=1, iters=5)
+    k3_card = _queued_ms(torch, lambda: ici.hbm_ring_all_reduce(xs))
+    plain = timing.time_ms(lambda: quant.quant_ring_all_reduce_ref(
+        xs, wire="q8"), warmup=1, iters=5)
     exact_sum = timing.time_ms(lambda: torch.stack(xs).sum(0))
     ring.check_errors()
+    # the device memory of one call, and of the parent form's tail
+    del wall
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = quant.quant_ring_all_reduce(xs, wire="q8")
+    torch.cuda.synchronize()
+    alloc = torch.cuda.max_memory_allocated() - base
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    tail = quant.decode_f32_ref(ici.hbm_ring_all_gather(own_rows), blk,
+                                "q8")[:, :N].to(torch.float32)
+    torch.cuda.synchronize()
+    tail_alloc = torch.cuda.max_memory_allocated() - base
+    del tail
     m, wr = N * 4, wblk / nblk                   # wire bytes a f32 byte
-    ops9 = R * nblk * (R - 1) * 6                # abs, max, div, fma a hop
-    tb, to = (R * m + R * wblk * 4) / bw, ops9 / (F32_PEAK_TFLOPS * 1e12)
+    ops9 = R * nblk * R * 6          # abs, max, div, round, fma a hop, p hops
+    tb = 2 * R * m / bw
+    to = ops9 / (F32_PEAK_TFLOPS * 1e12)
     b9, by9 = (tb, "bytes") if tb >= to else (to, "operations")
-    sched9 = R * (2 * m + (R - 1) * (m / R) * (3 + 2 * wr)
-                  + (m / R) * (1 + wr))
-    del xs, own, own_rows, wall
+    parent_sched = R * (2 * m + (R - 1) * (m / R) * (3 + 2 * wr)
+                        + (m / R) * (1 + wr))
+    del xs, own, own_rows
     win = torch.randn(R, N, generator=gen, device=dev)
     src = torch.randn(N, generator=gen, device=dev)
     t = R - 1
@@ -3131,14 +3190,17 @@ def phase_quant_times(torch, quant, ici, rma, ring, timing, info, smi,
         {"name": "quant_ring_all_reduce", "route": "cuda",
          "source": "mvapich2_tpu_torch/csrc/ring.cu",
          "replaces": "mvapich2_tpu/ops/pallas_quant.py:377",
-         "launches": k9_launches, "max_abs_err": full_err["K9"], "ms": k9,
-         "plain_ms": plain, "bound_ms": b9 * 1e3, "bound_by": by9,
-         "library_ms": None, "schedule_bound_ms": sched9 / bw * 1e3,
-         "schedule_bytes": "p*(2m + (p-1)(m/p)(3 + 2w) + (m/p)(1 + w)), "
-                           "w = wire bytes a f32 byte",
-         "exact_sum_ms": exact_sum, "k5_wire_gather_ms": k5,
-         "decode_ms": dec, "quant_ring_all_reduce_ms": whole,
-         "k3_ms": k3},
+         "launches": k9_launches, "max_abs_err": full_err["K9"],
+         "ms": k9["q8"], "plain_ms": plain, "bound_ms": b9 * 1e3,
+         "bound_by": by9, "library_ms": None,
+         "schedule_bound_ms": b9 * 1e3,
+         "schedule_bytes": "p*m_in + p*m_out (one pass)",
+         "card_ms": k9_card["q8"], "fp8_ms": k9["fp8"],
+         "fp8_card_ms": k9_card["fp8"], "wires_only_ms": wires_only,
+         "parent_schedule_bound_ms": parent_sched / bw * 1e3,
+         "k5_wire_gather_ms": k5, "decode_ms": dec, "k3_ms": k3,
+         "k3_card_ms": k3_card, "exact_sum_ms": exact_sum,
+         "alloc_bytes": alloc, "parent_tail_alloc_bytes": tail_alloc},
         {"name": "rma_accumulate_quant", "route": "cuda",
          "source": "mvapich2_tpu_torch/csrc/ring.cu",
          "replaces": "mvapich2_tpu/ops/pallas_rma.py:458",
@@ -3154,10 +3216,14 @@ def phase_quant_times(torch, quant, ici, rma, ring, timing, info, smi,
              "quant_e2e_allreduce_ms_all": {w: [x * 1e3 for x in v]
                                             for w, v in q_lats.items()},
              "exact_e2e_allreduce_ms": statistics.median(mesh_lat[0]) * 1e3}
-    log(f"[times] quant ({smi}): K9 {k9:.4f} ms (bound {b9 * 1e3:.4f}, "
-        f"schedule bound {sched9 / bw * 1e3:.4f}, plain {plain:.4f}), K5 "
-        f"over the wire {k5:.4f}, decode {dec:.4f}, quant_ring_all_reduce "
-        f"{whole:.4f}, K3 {k3:.4f}, stack+sum {exact_sum:.4f}; K14q "
+    log(f"[times] quant ({smi}): quant_ring_all_reduce (one K9) q8 "
+        f"{k9['q8']:.4f} ms, card {k9_card['q8']:.4f}; fp8 {k9['fp8']:.4f}, "
+        f"card {k9_card['fp8']:.4f} (bound {b9 * 1e3:.4f}, plain "
+        f"{plain:.4f}); wires only {wires_only:.4f}; the parent form's K5 "
+        f"over the wire {k5:.4f}, decode {dec:.4f}; K3 {k3:.4f}, card "
+        f"{k3_card:.4f}; stack+sum {exact_sum:.4f}; device memory a call "
+        f"{alloc} bytes (the parent form's K5 and decode {tail_alloc}); "
+        f"K14q "
         f"{k14q:.4f} ms (bound {3 * m / bw * 1e3:.4f}, plain {plain14:.4f}), "
         f"K14 {k14:.4f}, add_ {add:.4f}; e2e mesh allreduce 64 MiB: quant "
         + ", ".join(f"{w} {v:.4f}" for w, v in e2e.items())
@@ -3704,46 +3770,68 @@ def phase_hier_profile(torch, mvt, dev, inputs, lat):
     return split
 
 
-def phase_sweep(torch, ici, quant, ring, tuning, timing, dev):
-    """The streaming ring's launch-shape sweep (``--sweep``): K9, the one
-    streaming ring that remains (K3 and K4 are direct folds with one
-    launch shape), alone at 8 ranks x 64 MiB f32 on the q8 wire, over
-    threads per block x blocks per SM x chunk bytes x pipeline depth, by
-    CUDA events (median of 10 after 2 warm-ups). Every configuration's
-    wire output is first held bitwise against the plain version's.
-    Restores the compiled-in shape. Returns the rows."""
+def phase_sweep(torch, ici, quant, ring, tuning, timing, _build, dev):
+    """K9's launch shape (``--sweep``): the whole quant_ring_all_reduce
+    (one direct K9 launch) at 8 ranks x 64 MiB f32 on the q8 wire, over
+    threads per block x source loads a lane has in flight before it
+    folds them, by CUDA events (median of 10 after 2 warm-ups). The loads
+    in flight are the compile-time ``kQuantGroup`` of ``csrc/ring.cu``:
+    each count is a copy of the source with that constant edited, built
+    at once (one nvcc each, ``bench/k8_ablation.build``) and bound in
+    place of the built library. Every shape's result rows and wire
+    outputs are first held bitwise against the plain version's. Restores
+    the compiled-in shape and library. Returns the rows."""
     import itertools
+    from concurrent.futures import ThreadPoolExecutor
+    from mvapich2_tpu_torch.bench import k8_ablation as abl
+    base = (_build.CSRC_DIR / "ring.cu").read_text()
+    found = re.findall(r"constexpr int kQuantGroup = (\d+);", base)
+    if len(found) != 1:
+        raise AssertionError(f"K9 sweep: kQuantGroup is defined "
+                             f"{len(found)} times in ring.cu")
+    anchor = f"constexpr int kQuantGroup = {found[0]};"
+    folder = _build.BUILD_DIR.parent / "k9_sweep"
+    loads = (1, 2, 4, 8)
+    with ThreadPoolExecutor(len(loads)) as pool:
+        paths = dict(zip(loads, pool.map(
+            lambda g: abl.build(f"loads{g}", base.replace(
+                anchor, f"constexpr int kQuantGroup = {g};"), folder),
+            loads)))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x = [torch.randn(N, generator=gen, device=dev) for _ in range(R)]
     ndir = ici._resolve_ndir(R, None)
-    blk, nblk, _ = quant._geometry(R, N, None, None)
-    want = quant.quant_reduce_scatter_ref(x, nblk, blk, "q8", ndir)[0]
-    keep = {k: tuning.kernel_param(k, 1)
-            for k in ("ring_threads", "ring_blocks_per_sm")}
+    blk, nblk = quant._geometry(R, N, None)
+    want_w = quant.quant_reduce_scatter_ref(x, nblk, blk, "q8", ndir)[0]
+    want = quant.quant_ring_all_reduce_ref(x, wire="q8")
+    keep = tuning.kernel_param("quant_threads", 128)
+    saved = _build._loaded.get("ring")
     rows = []
-    for threads, per_sm, cb, depth in itertools.product(
-            (256, 512, 1024), (1, 2), (256 << 10, 1 << 20, 4 << 20),
-            (2, 4)):
-        tuning.set_kernel_param("ring_threads", threads)
-        tuning.set_kernel_param("ring_blocks_per_sm", per_sm)
-        chunk = quant._geometry(R, N, None, cb)[2]
+    try:
+        for g, threads in itertools.product(loads, (128, 256, 512)):
+            _build._loaded["ring"] = abl._bind(paths[g])
+            tuning.set_kernel_param("quant_threads", threads)
 
-        def fn():
-            return quant.quant_reduce_scatter(x, nblk, blk, "q8", chunk,
-                                              depth, ndir)
-        got = fn()
-        ring.check_errors()
-        cfg = dict(chunk_bytes=cb, depth=depth)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K9 {cfg}: kernel and plain version "
-                                 f"disagree")
-        rows.append({"kernel": "K9", "threads": threads,
-                     "blocks_per_sm": per_sm, **cfg,
-                     "ms": timing.time_ms(fn, warmup=2, iters=10)})
-        log(f"[sweep] {rows[-1]}")
-    for k, v in keep.items():
-        tuning.set_kernel_param(k, v)
-    del x, want
+            def fn():
+                return quant.quant_ring_all_reduce(x, wire="q8")
+            got, wires = fn(), quant.quant_reduce_scatter(x, nblk, blk,
+                                                          "q8", ndir)
+            ring.check_errors()
+            if not (torch.equal(got, want) and torch.equal(wires, want_w)):
+                raise AssertionError(f"K9 threads={threads} loads={g}: "
+                                     f"kernel and plain version disagree")
+            rows.append({"kernel": "K9", "threads": threads, "loads": g,
+                         "ms": timing.time_ms(fn, warmup=2, iters=10)})
+            log(f"[sweep] {rows[-1]}")
+    finally:
+        tuning.set_kernel_param("quant_threads", keep)
+        if saved is None:
+            _build._loaded.pop("ring", None)
+        else:
+            _build._loaded["ring"] = saved
+    best = min(rows, key=lambda r: r["ms"])
+    log(f"[sweep] K9 fastest: {best} (compiled in: threads {keep}, "
+        f"loads {found[0]})")
+    del x, want, want_w
     return rows
 
 
@@ -3930,8 +4018,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
     ap.add_argument("--sweep", action="store_true",
-                    help="run only the launch-shape sweeps of the streaming "
-                    "ring K9, of the K12/K13 copy, of K11's tile size, of "
+                    help="run only the launch-shape sweeps of K9, of the "
+                    "K12/K13 copy, of K11's tile size, of "
                     "K8's bulk-copy pipeline and of K1's pointer form "
                     "(after the device and build phases)")
     ap.add_argument("--sweeps", default=",".join(SWEEPS),
@@ -3971,7 +4059,7 @@ def main(argv=None):
         from mvapich2_tpu_torch.coll import tuning
         sweeps = {
             "k9": lambda: phase_sweep(torch, ici, quant, ring, tuning,
-                                      timing, dev),
+                                      timing, _build, dev),
             "copy": lambda: phase_copy_sweep(torch, rma, tuning, timing,
                                              dev),
             "tile": lambda: phase_tile_sweep(torch, alltoall, moe, ring,

@@ -27,7 +27,7 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -120,10 +120,13 @@ def variant_source(name: str) -> str:
     return src
 
 
-def build(name: str) -> Path:
-    BUILD.mkdir(parents=True, exist_ok=True)
-    src, out = BUILD / f"{name}.cu", BUILD / f"{name}.so"
-    src.write_text(variant_source(name))
+def build(name: str, source: Optional[str] = None,
+          folder: Path = BUILD) -> Path:
+    """Compile ``source`` (variant ``name``'s by default) into
+    ``folder/name.so``; returns its path."""
+    folder.mkdir(parents=True, exist_ok=True)
+    src, out = folder / f"{name}.cu", folder / f"{name}.so"
+    src.write_text(variant_source(name) if source is None else source)
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:

@@ -16,20 +16,18 @@ from ..utils.config import get_config
 
 # CUDA launch shape of the kernels: threads per block of the slot
 # kernels (ops/hbm.py) and blocks per SM (their grid is a multiple of the
-# SM count); threads per block of the ring kernels launched with
-# ``ring.launch``'s default (the streaming K9 in ops/quant.py) and blocks
-# per SM spread over their lanes; threads per block of the direct RMA
-# kernels (ops/rma.py: the copy of K12/K13, which the fold of K14 and
+# SM count); threads per block of K9 (ops/quant.py, one warp a
+# quantization block, at most 512); threads per block of the direct
+# RMA kernels (ops/rma.py: the copy of K12/K13, which the fold of K14 and
 # K14q share); K8's bulk-copy
 # pipeline (ops/ici.py): bytes a tile, shared-memory stages a block,
-# tiles loaded ahead of their stores, blocks per SM. The ring, copy and
+# tiles loaded ahead of their stores, blocks per SM. The K9, copy and
 # K8 values come from the launch-shape sweeps of ``chip_smoke.py
 # --sweep`` on an H100 (PERF.md).
 _KERNEL_PARAMS = {
     "hbm_slot_threads": 256,
     "hbm_slot_blocks_per_sm": 8,
-    "ring_threads": 1024,
-    "ring_blocks_per_sm": 1,
+    "quant_threads": 128,
     "rma_copy_threads": 256,
     "k8_tile_bytes": 32768,
     "k8_stages": 6,

@@ -44,10 +44,11 @@
 //    _get_kernel). One-sided get of n window elements at disp, the same
 //    direct copy the other way.
 // K9 quant_ring_all_reduce_kernel replaces mvapich2_tpu/ops/pallas_quant.py
-//    quant_ring_all_reduce (body _quant_rs_kernel, engine _QuantStreamer).
-//    The streaming reduce-scatter ring with the block-scaled codec fused
-//    into both halves of every step, then each rank's own block encoded
-//    once.
+//    quant_ring_all_reduce (body _quant_rs_kernel, engine _QuantStreamer)
+//    and also performs the JAX wrapper's gather and decode of the wire:
+//    each quantization block's ring chain of encodes and decoding folds
+//    replayed in registers, then the owner's block encoded once,
+//    decoded, and stored into every rank's row, one pass.
 // K14 rma_acc_direct_kernel      replaces pallas_rma.py rma_accumulate
 //    (body _acc_kernel), exact wire: MPI_SUM fold of src[n] into the
 //    target's window row at disp, as one direct fold.
@@ -59,39 +60,15 @@
 //    into the target's window row at disp: K12's direct copy, with no
 //    landing buffer and no flag.
 //
-// Translation (K9; the direct kernels K3-K7, K10-K14q and K17 and K8's
-// bulk copy use no landing slot and no credit). A TPU remote DMA into the neighbour's
-// VMEM slot becomes a store into the downstream rank's landing slot in
-// global memory (slots[rank][dir][slot][chunk]); a DMA/REGULAR semaphore
-// becomes a u32 counter in global memory, written by exactly one block
-// with st.release.gpu after a __syncthreads (so the whole block's stores
-// are ordered before it) and read by thread 0 of the waiting block with
-// ld.acquire.gpu before a __syncthreads. Counters only grow within a
-// launch, so "wait for credit k" is "wait until counter >= k"; the
-// wrapper zeroes them, stream-ordered, before each launch. Mosaic's
-// collective_id becomes the separate slot and counter buffers the wrapper
-// allocates per launch. Landing slots are read with ld.global.cg (L2),
-// since another SM wrote them.
-//
-// Parallelism. Each (rank, direction) lane gets B blocks; block b runs
-// its own sub-ring over share b of every chunk, with its own counters,
-// against block b of its neighbours' lanes. B independent credit
-// chains, no barrier inside a lane. Every block must be resident at once
-// (a block spinning on a credit would otherwise wait for a peer that
-// never gets an SM), so the entry launches cooperatively, after lowering
-// B to what fits on the card.
-//
-// Schedule (K9): the JAX reduce-scatter ring. Step s: the clockwise lane
-// of rank r sends its partial of block r-s-1 to r+1 and folds the block
-// arriving from r-1 into its block r-s-2; the counter-clockwise lane
-// mirrors with +. Each step streams the lane's span of the block (first
-// half clockwise, second half counter-clockwise when ndir == 2) in
-// chunks: issue chunk c, then drain chunk c-1. One global chunk counter
-// g per lane picks the slot (g mod depth); the sender writes chunk g only
-// once the receiver has consumed chunk g-depth (the credit), the
-// receiver reads it once the sender has published g+1 (the data flag).
-// The TPU kernel's exit barrier (wait for the last credits) is not
-// needed: the launch boundary orders every store before the next launch.
+// Translation. No kernel here uses a landing slot or a credit. The TPU
+// kernels pass data to a neighbour by remote DMA into its VMEM landing
+// slots under DMA/REGULAR semaphores, because a chip reaches another
+// chip's memory only that way. On one card every rank's shard is memory
+// that any thread reads, so each kernel reads its sources where they lie
+// and writes its outputs directly, with no flag, no wait and no barrier
+// between blocks: ordinary launches, each grid at most what fits on the
+// card at once. A ring's result depends only on its fold order (and, for
+// K9, on where its codec rounds), which each fold replays in closed form.
 //
 // The direct kernels have no schedule: one pass each. K3 and K6
 // (ring_all_reduce_direct_kernel) fold every block in the ring's order
@@ -100,7 +77,9 @@
 // K11 and K10 (hbm_alltoallv_direct_kernel) copy by a tile table, K12,
 // K13 and K17 (rma_copy_kernel) copy one range, K14 and K14q
 // (rma_acc_direct_kernel, rma_acc_quant_direct_kernel) fold one range,
-// and K8 (remote_sendrecv_kernel) copies its rows by bulk tiles.
+// K9 (quant_ring_all_reduce_kernel) folds each quantization block along
+// its ring chain through the codec, and K8 (remote_sendrecv_kernel)
+// copies its rows by bulk tiles.
 // K17's TPU kernel stages the payload in one landing buffer under a flag
 // because only the target may commit into its own HBM; here the window
 // row is memory that the origin's threads store to, so a put is K12's
@@ -112,28 +91,22 @@
 // -0.0 below +0.0 as jnp.maximum/minimum do (IEEE 754-2019 maximum and
 // minimum).
 //
-// Bound (K9, K14q): bytes as well. For an m-byte f32 shard K9 must read
-// the input once and write the wire output once, m + m/3.9 bytes a rank;
-// its schedule moves 2m (init) + (p-1)(m/p)(3 + 2/3.9) (read own, write
-// the slot's wire, read the wire and own, write own) + (m/p)(1 + 1/3.9)
-// (the own-block encode). The codec's division, one an element a hop,
-// stays far below the f32 rate. K14q must move 3n bytes of f32 (read src
-// and window, write window), and moves just that: its wire words stay in
-// registers.
-//
 // Bound. Device-memory traffic, not arithmetic, and every direct kernel
 // moves just its bound: each input read once and each output written
-// once (K3-K8, K10-K14 and K17 below). The streaming schedule that K3
-// replaced moved about 2m + (p-1)(9m/p) a rank for an m-byte shard (an
-// init copy, 5m/p a reduce-scatter step and 4m/p an all-gather step,
-// through the landing slots), K4's (p-1)(5m/p) against m + m/p, and
-// K10's 2m/p + (p-1)(4m/p) against 2m. K9's landing slots
-// (p*ndir*depth*chunk wire words) are small enough to stay in the 50 MB
-// L2.
+// once (K3-K14q and K17 below). The streaming schedule that K3 replaced
+// moved about 2m + (p-1)(9m/p) a rank for an m-byte shard (an init copy,
+// 5m/p a reduce-scatter step and 4m/p an all-gather step, through the
+// landing slots), K4's (p-1)(5m/p) against m + m/p, and K10's 2m/p +
+// (p-1)(4m/p) against 2m. K9 reads p*m_in and writes p*m_out (and its
+// p*wblk*4 bytes of wire words when they are asked for), where its
+// streaming ring moved 2m + (p-1)(m/p)(3 + 2/3.9) + (m/p)(1 + 1/3.9) a
+// rank before the gather and the decode; its codec's division, p an
+// element, stays far below the f32 rate. K14q moves 3n bytes of f32 (read src and window, write
+// window): its wire words stay in registers.
 //
-// Spin bound: a wait that outlasts kSpinTimeoutNs writes a nonzero error
-// word into mapped host memory and ends the block; the other blocks then
-// time out too. mv2t_ring_error reads (and clears) the word.
+// Spin bound: K8's wait on an mbarrier that outlasts kSpinTimeoutNs
+// writes a nonzero error word into mapped host memory and ends the
+// block. mv2t_ring_error reads (and clears) the word.
 //
 // Plain C interface, built by nvcc into a shared library and bound with
 // ctypes (mvapich2_tpu_torch/ops/_build.py). Each entry launches on the
@@ -260,138 +233,13 @@ __device__ __forceinline__ T identity() {
 }
 
 // ---------------------------------------------------------------------------
-// memory and synchronization primitives
+// the clock of K8's spin bound
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
 
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
-}
-
-// The whole block waits until *flag >= target. Thread 0 spins with
-// acquire loads; false (after setting the error word) if the spin
-// outlasted the bound.
-__device__ bool block_wait(const unsigned* flag, unsigned target, int* err) {
-  __shared__ int ok;
-  if (threadIdx.x == 0) {
-    ok = 1;
-    if (ld_acquire(flag) < target) {
-      const unsigned long long t0 = global_ns();
-      while (ld_acquire(flag) < target) {
-        if (global_ns() - t0 > kSpinTimeoutNs) {
-          *reinterpret_cast<volatile int*>(err) = kErrTimeout;
-          __threadfence_system();
-          ok = 0;
-          break;
-        }
-      }
-    }
-  }
-  __syncthreads();
-  const bool got = ok;
-  __syncthreads();
-  return got;
-}
-
-// Publish: every thread's stores so far, then *flag = value (release).
-__device__ __forceinline__ void block_signal(unsigned* flag, unsigned value) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    st_release(flag, value);
-  }
-}
-
-// Share b of B of a chunk of sz elements, cut as a full chunk of `full`
-// elements is cut (in units of `align`, then clamped to sz): so block b
-// owns the same slice of a landing slot for every chunk, short last
-// chunks included, and no two blocks' credit chains guard one address.
-__device__ __forceinline__ void share(long long sz, long long full, int b,
-                                      int B, int align, long long* s0,
-                                      long long* s1) {
-  const long long units = (full + align - 1) / align;
-  const long long per = (units + B - 1) / B * align;
-  *s0 = min(sz, b * per);
-  *s1 = min(sz, *s0 + per);
-}
-
-__device__ __forceinline__ int mod(int a, int p) { return ((a % p) + p) % p; }
-
-// ---------------------------------------------------------------------------
-// the streaming engine of K9 (one block's view of one lane)
-// ---------------------------------------------------------------------------
-
-// One reduce-scatter step of lane L over its span [lo, hi): every chunk,
-// issue c then drain c-1. L is a QuantLane<W>, whose issue and drain
-// carry the chunk's share through the codec.
-template <typename LaneT, int OP>
-__device__ bool ring_step(LaneT& L, long long sb_off, long long rb_off) {
-  const long long nc = (L.hi - L.lo + L.chunk - 1) / L.chunk;
-  for (long long c = 0; c <= nc; ++c) {
-    if (c < nc) {
-      const long long off = L.lo + c * L.chunk;
-      if (!L.issue(sb_off, off, min(L.chunk, L.hi - off))) return false;
-    }
-    if (c >= 1) {
-      const long long off = L.lo + (c - 1) * L.chunk;
-      if (!L.template drain<OP>(rb_off, off, min(L.chunk, L.hi - off)))
-        return false;
-    }
-  }
-  return true;
-}
-
-// A lane's place in the ring and its counters; QuantLane adds its
-// landing slots and the issue and drain halves of a step.
-template <typename T>
-struct Lane {
-  int p, r, d, ndir, b, B, depth;
-  long long chunk, lo, hi;       // chunk elements; this direction's span
-  T* o;                          // this rank's working row
-  unsigned* landed;              // [p][ndir][B]: chunks landed in a lane
-  unsigned* consumed;            // [p][ndir][B]: chunks a lane consumed
-  int* err;
-  unsigned g_issue, g_drain;     // the lane's global chunk counters
-
-  __device__ int dst() const { return d == 0 ? mod(r + 1, p) : mod(r - 1, p); }
-  __device__ long long flag(int rank) const {
-    return (static_cast<long long>(rank) * ndir + d) * B + b;
-  }
-};
-
-// The grid covers p ranks, each of ndir lanes of B blocks: block
-// (r*ndir + d)*B + b is block b of rank r's lane d.
-template <typename T>
-__device__ Lane<T> make_lane(int p, long long nblk, long long chunk,
-                             int depth, int ndir, int B, unsigned* landed,
-                             unsigned* consumed, int* err, void* out) {
-  Lane<T> L;
-  L.b = blockIdx.x % B;
-  const int lane = blockIdx.x / B;
-  L.d = lane % ndir;
-  L.r = lane / ndir;
-  L.p = p; L.ndir = ndir; L.B = B; L.depth = depth;
-  L.chunk = chunk;
-  const long long h = (nblk + 1) / 2;
-  L.lo = (ndir == 1 || L.d == 0) ? 0 : h;
-  L.hi = (ndir == 1 || L.d == 1) ? nblk : h;
-  L.o = static_cast<T*>(out);
-  L.landed = landed; L.consumed = consumed; L.err = err;
-  L.g_issue = 0; L.g_drain = 0;
-  return L;
 }
 
 // ---------------------------------------------------------------------------
@@ -443,164 +291,6 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
     *reinterpret_cast<float4*>(p) = v;
   } else {
     p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
-  }
-}
-
-// Encode nb blocks of blk values at x into nb wire runs at w. One warp a
-// block: lane i takes word i (and i + 32, ...), four values; the absmax
-// is a shuffle reduction. blockDim.x is a multiple of 32.
-template <int W>
-__device__ void encode_blocks(int* w, const float* x, long long nb,
-                              int blk) {
-  const int lane = threadIdx.x & 31;
-  const int nw = blk / 4;
-  for (long long k = threadIdx.x >> 5; k < nb; k += blockDim.x >> 5) {
-    const float* xb = x + k * blk;
-    int* wb = w + k * (1 + nw);
-    float amax = 0.0f;
-    for (int i = lane; i < nw; i += 32) {
-      const float4 v = load4(xb + 4 * i);
-      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
-                               fmaxf(fabsf(v.z), fabsf(v.w))));
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float scale = __fmul_rn(amax, Codec<W>::inv_top());
-    const float safe = scale > 0.0f ? scale : 1.0f;
-    if (lane == 0) wb[0] = __float_as_int(scale);
-    for (int i = lane; i < nw; i += 32) {
-      const float4 v = load4(xb + 4 * i);
-      const unsigned word = Codec<W>::code(__fdiv_rn(v.x, safe)) |
-                            Codec<W>::code(__fdiv_rn(v.y, safe)) << 8 |
-                            Codec<W>::code(__fdiv_rn(v.z, safe)) << 16 |
-                            Codec<W>::code(__fdiv_rn(v.w, safe)) << 24;
-      wb[1 + i] = static_cast<int>(word);
-    }
-  }
-}
-
-// o[i] = fma(code, scale, o[i]) over nb blocks whose wire runs sit at w
-// (a landing slot another SM wrote: read through L2).
-template <int W>
-__device__ void decode_fold_blocks(float* o, const int* w, long long nb,
-                                   int blk) {
-  const int lane = threadIdx.x & 31;
-  const int nw = blk / 4;
-  for (long long k = threadIdx.x >> 5; k < nb; k += blockDim.x >> 5) {
-    const int* wb = w + k * (1 + nw);
-    float* ob = o + k * blk;
-    const float scale = __int_as_float(__ldcg(wb));
-    for (int i = lane; i < nw; i += 32) {
-      const unsigned word = static_cast<unsigned>(__ldcg(wb + 1 + i));
-      float4 a = load4(ob + 4 * i);
-      a.x = __fmaf_rn(Codec<W>::value(word & 0xFF), scale, a.x);
-      a.y = __fmaf_rn(Codec<W>::value(word >> 8 & 0xFF), scale, a.y);
-      a.z = __fmaf_rn(Codec<W>::value(word >> 16 & 0xFF), scale, a.z);
-      a.w = __fmaf_rn(Codec<W>::value(word >> 24), scale, a.w);
-      store4(ob + 4 * i, a);
-    }
-  }
-}
-
-// K9's lane: Lane<float>'s schedule (slot sequence, counters, credits)
-// over f32 partials, with each chunk share carried as wire words. A
-// share is cut in whole quantization blocks (align blk), so one warp's
-// absmax covers one block; its wire words start at (s0/blk)*(1+blk/4).
-template <int W>
-struct QuantLane : Lane<float> {
-  int blk;
-  long long wchunk;              // wire words of a full chunk's slot
-  int* wslots;                   // [p][ndir][depth][wchunk]
-
-  __device__ long long wpos(long long e) const {
-    return e / blk * (1 + blk / 4);
-  }
-  __device__ int* wslot_ptr(int rank, unsigned g) const {
-    return wslots + ((static_cast<long long>(rank) * ndir + d) * depth +
-                     g % depth) * wchunk;
-  }
-
-  // encode this block's share of the sender's partial into the
-  // downstream rank's slot, then publish it
-  __device__ bool issue(long long sb_off, long long off, long long sz) {
-    long long s0, s1;
-    share(sz, chunk, b, B, blk, &s0, &s1);
-    const int to = dst();
-    const unsigned g = g_issue;
-    if (g >= static_cast<unsigned>(depth) &&
-        !block_wait(consumed + flag(to), g - depth + 1, err))
-      return false;
-    encode_blocks<W>(wslot_ptr(to, g) + wpos(s0), o + sb_off + off + s0,
-                     (s1 - s0) / blk, blk);
-    block_signal(landed + flag(to), g + 1);
-    g_issue = g + 1;
-    return true;
-  }
-
-  // decode the landed share and fold it into this rank's partial, then
-  // return the slot's credit
-  template <int OP>
-  __device__ bool drain(long long rb_off, long long off, long long sz) {
-    long long s0, s1;
-    share(sz, chunk, b, B, blk, &s0, &s1);
-    const unsigned g = g_drain;
-    if (!block_wait(landed + flag(r), g + 1, err)) return false;
-    decode_fold_blocks<W>(o + rb_off + off + s0, wslot_ptr(r, g) + wpos(s0),
-                          (s1 - s0) / blk, blk);
-    block_signal(consumed + flag(r), g + 1);
-    g_drain = g + 1;
-    return true;
-  }
-};
-
-// K9 (T: the input dtype, f32 or f16). outs[r]: rank r's f32
-// working row of p*nblk elements; wires + r*wblk: rank r's wire output.
-// The reduce-scatter ring (Schedule, above) with the codec in both
-// halves of a step, then the own block encoded once. The CTA that folds a
-// share of the own block on the last step is the one that encodes it.
-template <typename T, int W>
-__global__ void __launch_bounds__(1024) quant_ring_all_reduce_kernel(
-    RankPtrs ptrs, int* wires, int p, long long n, long long nblk,
-    int blk, long long chunk, int depth, int ndir, int B, int* wslots,
-    unsigned* landed, unsigned* consumed, int* err) {
-  const int lane_rank = (blockIdx.x / B) / ndir;
-  QuantLane<W> L;
-  static_cast<Lane<float>&>(L) = make_lane<float>(
-      p, nblk, chunk, depth, ndir, B, landed, consumed, err,
-      ptrs.out[lane_rank]);
-  L.blk = blk;
-  L.wchunk = chunk / blk * (1 + blk / 4);
-  L.wslots = wslots;
-  if (ndir == 2) {                // the split on whole blocks (_quant_spans)
-    const long long h = (nblk / blk + 1) / 2 * blk;
-    L.lo = L.d == 0 ? 0 : h;
-    L.hi = L.d == 0 ? h : nblk;
-  }
-  const T* x = static_cast<const T*>(ptrs.in[L.r]);
-  // o = x as f32, zero-padded: this block's share of every chunk of its
-  // span of every block
-  for (int k = 0; k < p; ++k)
-    for (long long off = L.lo; off < L.hi; off += chunk) {
-      long long s0, s1;
-      share(min(chunk, L.hi - off), chunk, L.b, B, blk, &s0, &s1);
-      const long long e = k * nblk + off + s0;
-      for (long long i = threadIdx.x; i < s1 - s0; i += blockDim.x)
-        L.o[e + i] = e + i < n ? to_acc<T>(x[e + i]) : 0.0f;
-    }
-  __syncthreads();
-  const int r = L.r;
-  for (int s = 0; s < p - 1; ++s) {
-    const int sb = L.d == 0 ? mod(r - s - 1, p) : mod(r + s + 1, p);
-    const int rb = L.d == 0 ? mod(r - s - 2, p) : mod(r + s + 2, p);
-    if (!ring_step<QuantLane<W>, SUM>(L, sb * nblk, rb * nblk)) return;
-  }
-  int* w = wires + static_cast<long long>(r) * L.wpos(nblk);
-  for (long long off = L.lo; off < L.hi; off += chunk) {
-    long long s0, s1;
-    share(min(chunk, L.hi - off), chunk, L.b, B, blk, &s0, &s1);
-    encode_blocks<W>(w + L.wpos(off + s0), L.o + r * nblk + off + s0,
-                     (s1 - s0) / blk, blk);
   }
 }
 
@@ -751,11 +441,11 @@ __global__ void __launch_bounds__(1024) rma_copy_kernel(
 // neighbour's word.
 //
 // K14q: one warp a quantization block of blk values (lane i takes the
-// 4-value words i, i + 32, ...): the block's absmax by the shuffle
-// reduction of encode_blocks, scale = absmax * f32(1/top), each value
-// coded as Codec<W>::code(v / safe) and folded as fma(value(code),
-// scale, window), the arithmetic of encode_blocks then
-// decode_fold_blocks. The wire words never reach memory. A lane keeps
+// 4-value words i, i + 32, ...): the block's absmax by a shuffle
+// reduction, scale = absmax * f32(1/top), each value coded as
+// Codec<W>::code(v / safe) and folded as fma(value(code), scale,
+// window), the arithmetic of one encode and one decoding fold of the
+// wire (one hop of K9's chain). The wire words never reach memory. A lane keeps
 // its first word of source and window in registers between the two
 // passes and reloads the rest (a block past 128 values); each word is
 // read and written by its lane alone, so the exact alias holds here too.
@@ -1108,6 +798,243 @@ __global__ void __launch_bounds__(1024) ring_all_gather_direct_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// K9: the quantized allreduce as one direct pass
+// ---------------------------------------------------------------------------
+//
+// quant_ring_all_reduce_kernel replaces mvapich2_tpu/ops/pallas_quant.py
+// quant_ring_all_reduce (:377, its pallas_call at :426, body
+// _quant_rs_kernel :316, engine _QuantStreamer :205), and performs the
+// JAX wrapper's gather of the wire words (hbm_ring_all_gather) and their
+// decode (_decode_f32, :440-444) in the same pass.
+//
+// The TPU kernel runs the reduce-scatter ring with the codec fused into
+// every step: the sender encodes its f32 partial, the receiver decodes
+// it and adds it to its own; then each rank encodes its reduced block
+// once, the wire words are gathered, and every rank decodes them. The
+// fold order is the one of K3's reduce-scatter (above): ring block k's
+// elements in span 0 (the first (nb+1)/2 of its nb quantization blocks
+// when ndir == 2, all of them when ndir == 1) start at rank k+1 and are
+// folded in at k+2, ..., k+p = k; the others start at k-1 and are folded
+// in at k-2, ..., k. Quantization blocks never straddle a span, and a
+// hop's arithmetic (the absmax, the scale, the codes) is local to one
+// quantization block. So each quantization block is an independent chain
+// of p source reads and p encodes: acc = x[first], then, for each next
+// rank r of the chain,
+//     acc = fma(value(code(acc / safe)), scale, x[r]),
+// scale = absmax(acc) * f32(1/top) and safe = scale, or 1 for a zero
+// block: the arithmetic of one ring step, operation for operation (the
+// codec above; K14q's quant_fold). At the owner k the chain's acc is
+// encoded once (into rank k's wire output, the JAX kernel's own_wire,
+// when it is asked for) and decoded, value(code) * scale with one
+// rounding as _decode_f32 computes q * scale, then rounded to the input
+// dtype and stored into every rank's row at the block's columns below n.
+// The ring's result is that chain's, bit for bit (ops/quant.py
+// quant_reduce_scatter_ref replays the ring and is the spec); its wire
+// words never reach memory between hops.
+// On one card every rank's shard is memory that any thread reads, so the
+// landing slots, the credits and the gather go.
+//
+// One warp a quantization block of blk values, in a grid-stride loop over
+// the p * nblk / blk blocks of the padded ring. Up to 128 values, lane i
+// holds the block's four-value word i (lanes past blk/4 hold zeros, which
+// change no absmax and code to zero, and still join the shuffle), and the
+// warp loads the block from the chain's sources kQuantGroup at a time
+// (loads in flight before their folds), through the read-only path (the
+// inputs do not change during the launch): f16 is widened to f32, and
+// elements at or past n read as 0 (the JAX pad) and are not loaded. A
+// larger block (WIDE) keeps its partial in a scratch row of f32 instead,
+// scratch + q * blk, each word read and written by its own lane. The
+// stores go by 16 bytes (f32) or 8 (f16) where a row's address allows it,
+// element by element elsewhere (rows of an odd n), and never at or past n.
+// The allreduce asks for the rows alone; the wire outputs (the JAX
+// kernel's own_wire) are written only when they are asked for, by
+// quant_reduce_scatter.
+//
+// Bound: bytes. Each input read once and each output row written once:
+// p*m_in + p*m_out, 1,073,741,824 bytes or 0.3205 ms at 8 x 64 MiB f32
+// over 3.35 TB/s (p*wblk*4 more, wblk the wire words of a ring block,
+// when the wire outputs are asked for). The p encodes an element (a
+// division each) stay far below the f32 rate.
+
+constexpr int kQuantGroup = 2;     // sources a lane has in flight
+constexpr int kQuantNarrow = 32;   // four-value words of a register block
+constexpr int kQuantMaxThreads = 512;
+
+// Elements e .. e+3 of x as f32: one 16-byte (f32) or 8-byte (f16) load
+// when vec and the quad lies below n, else element by element; elements
+// at or past n are 0 and are not loaded.
+template <typename T>
+__device__ __forceinline__ float4 load_quad(const T* x, long long e,
+                                            long long n, bool vec) {
+  if (vec && e + 4 <= n) {
+    if constexpr (sizeof(T) == 4) {
+      return __ldg(reinterpret_cast<const float4*>(x + e));
+    } else {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(x + e));
+      T h[4];
+      memcpy(h, &u, 8);
+      return make_float4(to_acc<T>(h[0]), to_acc<T>(h[1]), to_acc<T>(h[2]),
+                         to_acc<T>(h[3]));
+    }
+  }
+  float v[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    v[t] = e + t < n ? to_acc<T>(ld_nc(x + e + t)) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// y[e .. e+3] = v rounded to T, below n; one 16-byte (f32) or 8-byte
+// (f16) store when the address allows it.
+template <typename T>
+__device__ __forceinline__ void store_quad(T* y, long long e, long long n,
+                                           float4 v) {
+  T h[4] = {from_acc<T>(v.x), from_acc<T>(v.y), from_acc<T>(v.z),
+            from_acc<T>(v.w)};
+  if (e + 4 <= n &&
+      (reinterpret_cast<uintptr_t>(y + e) & (4 * sizeof(T) - 1)) == 0) {
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(y + e) = v;
+    } else {
+      uint2 u;
+      memcpy(&u, h, 8);
+      *reinterpret_cast<uint2*>(y + e) = u;
+    }
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    if (e + t < n) y[e + t] = h[t];
+}
+
+// The warp's absmax of lane values a.
+__device__ __forceinline__ float warp_max(float a) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+  return a;
+}
+
+// A block's scale from its absmax, and the divisor of its codes.
+template <int W>
+__device__ __forceinline__ float2 block_scale(float amax) {
+  const float scale = __fmul_rn(amax, Codec<W>::inv_top());
+  return make_float2(scale, scale > 0.0f ? scale : 1.0f);
+}
+
+// One hop of the chain on a word: a coded against s, decoded and folded
+// into x.
+template <int W>
+__device__ __forceinline__ float4 hop4(float4 a, float2 s, float4 x) {
+  return make_float4(quant_fold<W>(a.x, s.y, s.x, x.x),
+                     quant_fold<W>(a.y, s.y, s.x, x.y),
+                     quant_fold<W>(a.z, s.y, s.x, x.z),
+                     quant_fold<W>(a.w, s.y, s.x, x.w));
+}
+
+// The owner's step on word w of a block: its wire word into wb when the
+// wire outputs are asked for, and its decoded values stored into every
+// row when the rows are.
+template <typename T, int W>
+__device__ __forceinline__ void finish4(const RankPtrs& ptrs, bool rows,
+                                        int p, int* wb, int w, long long e,
+                                        long long n, float2 s, float4 a) {
+  const unsigned c0 = Codec<W>::code(__fdiv_rn(a.x, s.y));
+  const unsigned c1 = Codec<W>::code(__fdiv_rn(a.y, s.y));
+  const unsigned c2 = Codec<W>::code(__fdiv_rn(a.z, s.y));
+  const unsigned c3 = Codec<W>::code(__fdiv_rn(a.w, s.y));
+  if (wb) wb[1 + w] = static_cast<int>(c0 | c1 << 8 | c2 << 16 | c3 << 24);
+  if (!rows || e >= n) return;
+  const float4 d = make_float4(__fmul_rn(Codec<W>::value(c0), s.x),
+                               __fmul_rn(Codec<W>::value(c1), s.x),
+                               __fmul_rn(Codec<W>::value(c2), s.x),
+                               __fmul_rn(Codec<W>::value(c3), s.x));
+  for (int r = 0; r < p; ++r)
+    store_quad(static_cast<T*>(ptrs.out[r]), e, n, d);
+}
+
+// K9 (T: the input dtype, f32 or f16; W: the wire; WIDE: a block of more
+// than 128 values, its partial in the scratch row). ptrs.in: the p shards
+// of n elements; ptrs.out: the p rows of n elements of the result, or all
+// null; wires + k*wblk: rank k's wire output, or wires null; nblk: the
+// ring block, a multiple of blk; vec: every input 16-byte (f32) or 8-byte
+// (f16) aligned.
+template <typename T, int W, bool WIDE>
+__global__ void __launch_bounds__(kQuantMaxThreads) quant_ring_all_reduce_kernel(
+    RankPtrs ptrs, int* wires, float* scratch, int p, long long n,
+    long long nblk, int blk, int ndir, int vec) {
+  const int lane = threadIdx.x & 31;
+  const int nw = blk / 4;
+  const long long per = nblk / blk;           // quantization blocks a ring block
+  const long long wblk = per * (1 + nw);
+  const bool rows = ptrs.out[0] != nullptr;
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  for (long long q = static_cast<long long>(blockIdx.x) *
+                         (blockDim.x >> 5) + (threadIdx.x >> 5);
+       q < p * per; q += warps) {
+    const int k = static_cast<int>(q / per);  // the ring block, its owner
+    const long long jb = q - k * per;         // its quantization block
+    const long long e0 = k * nblk + jb * blk; // its first element
+    // the rank step: +1 clockwise (k+1, ..., k+p), p-1 counter-clockwise
+    const int d = ndir == 2 && jb >= (per + 1) / 2 ? p - 1 : 1;
+    int src = k + d < p ? k + d : k + d - p;
+    int* wb = wires ? wires + k * wblk + jb * (1 + nw) : nullptr;
+    float2 s;
+    if constexpr (WIDE) {
+      // the partial in the scratch row; the next hop's absmax is taken
+      // as each word is folded
+      float* a = scratch + q * blk;
+      float amax = 0.0f;
+      for (int j = 0; j < p; ++j) {
+        const T* x = static_cast<const T*>(ptrs.in[src]);
+        if (j > 0) s = block_scale<W>(warp_max(amax));
+        amax = 0.0f;
+        for (int w = lane; w < nw; w += 32) {
+          float4 v = load_quad(x, e0 + 4 * w, n, vec);
+          if (j > 0) v = hop4<W>(load4(a + 4 * w), s, v);
+          store4(a + 4 * w, v);
+          amax = fmaxf(amax, absmax4(v));
+        }
+        src = src + d < p ? src + d : src + d - p;
+      }
+      s = block_scale<W>(warp_max(amax));
+      if (wb && lane == 0) wb[0] = __float_as_int(s.x);
+      for (int w = lane; w < nw; w += 32)
+        finish4<T, W>(ptrs, rows, p, wb, w, e0 + 4 * w, n, s,
+                      load4(a + 4 * w));
+    } else {
+      const bool live = lane < nw;
+      float4 acc;
+      for (int j0 = 0; j0 < p; j0 += kQuantGroup) {
+        float4 x[kQuantGroup];
+#pragma unroll
+        for (int i = 0; i < kQuantGroup; ++i)
+          if (j0 + i < p) {
+            x[i] = live ? load_quad(static_cast<const T*>(ptrs.in[src]),
+                                    e0 + 4 * lane, n, vec)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            src = src + d < p ? src + d : src + d - p;
+          }
+#pragma unroll
+        for (int i = 0; i < kQuantGroup; ++i)
+          if (j0 + i < p) {
+            if (j0 + i == 0) {
+              acc = x[i];
+            } else {
+              s = block_scale<W>(warp_max(absmax4(acc)));
+              acc = hop4<W>(acc, s, x[i]);
+            }
+          }
+      }
+      s = block_scale<W>(warp_max(absmax4(acc)));
+      if (wb && lane == 0) wb[0] = __float_as_int(s.x);
+      if (live) finish4<T, W>(ptrs, rows, p, wb, lane, e0 + 4 * lane, n, s, acc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K11 and K10: the direct copy by tile table
 // ---------------------------------------------------------------------------
 //
@@ -1416,22 +1343,6 @@ RankPtrs rank_ptrs(const void* ins, const void* outs, int p) {
   return ptrs;
 }
 
-// Blocks per lane that fit on the card at once for `lanes` lanes, at most
-// `ctas`; cudaErrorCooperativeLaunchTooLarge if not even one does.
-cudaError_t fit_ctas(const void* kernel, int lanes, int ctas, int threads,
-                     int* B) {
-  int dev, sms, per_sm;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    threads, 0);
-  if (e != cudaSuccess) return e;
-  *B = std::min(ctas, per_sm * sms / lanes);
-  return *B >= 1 ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
-}
-
 // K8: one ordinary launch, at most ctas_per_sm blocks an SM (fewer when
 // the stages' shared memory allows fewer), stages * tile bytes of dynamic
 // shared memory a block.
@@ -1461,41 +1372,7 @@ cudaError_t launch_k8(RankPtrs ptrs, int p, long long n, int src, int dst,
   return cudaGetLastError();
 }
 
-// K9's flags: landed then consumed, each [p][ndir][ctas].
-template <typename T, int W>
-cudaError_t launch_k9(RankPtrs ptrs, int* wires, int p, long long n,
-                      long long nblk, int blk, long long chunk, int depth,
-                      int ndir, void* slots, unsigned* flags, int ctas,
-                      int threads, cudaStream_t s) {
-  const void* kern = reinterpret_cast<const void*>(
-      &quant_ring_all_reduce_kernel<T, W>);
-  int B, *err;
-  cudaError_t e = error_word(&err);
-  if (e == cudaSuccess) e = fit_ctas(kern, p * ndir, ctas, threads, &B);
-  if (e != cudaSuccess) return e;
-  int* ws = static_cast<int*>(slots);
-  unsigned* landed = flags;
-  unsigned* consumed = flags + static_cast<long long>(p) * ndir * ctas;
-  void* args[] = {&ptrs, &wires, &p, &n, &nblk, &blk, &chunk, &depth,
-                  &ndir, &B, &ws, &landed, &consumed, &err};
-  return cudaLaunchCooperativeKernel(kern, dim3(p * ndir * B),
-                                     dim3(threads), args, 0, s);
-}
-
-template <typename T>
-cudaError_t launch_k9_wire(int wire, RankPtrs ptrs, int* wires, int p,
-                           long long n, long long nblk, int blk,
-                           long long chunk, int depth, int ndir,
-                           void* slots, unsigned* flags, int ctas,
-                           int threads, cudaStream_t s) {
-  switch (wire) {
-    case Q8: return launch_k9<T, Q8>(ptrs, wires, p, n, nblk, blk, chunk, depth, ndir, slots, flags, ctas, threads, s);
-    case FP8: return launch_k9<T, FP8>(ptrs, wires, p, n, nblk, blk, chunk, depth, ndir, slots, flags, ctas, threads, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// The direct kernels (K3-K7, K10-K14q, K17): the blocks of one kernel
+// The direct kernels (K3-K7, K9-K14q, K17): the blocks of one kernel
 // instance and block size that fit on the card at once, counted at its
 // first launch on a device, then kept (room for every instance: K3 and
 // K4 have 72 each).
@@ -1567,7 +1444,7 @@ bool bad_direct_threads(int threads) {
   return threads < 32 || threads > 1024 || threads % 32;
 }
 
-// The grid of a direct launch (K3-K7, K10-K14q, K17) of
+// The grid of a direct launch (K3-K7, K9-K14q, K17) of
 // `units` units of work, `per_block` a block: one pass, at most the
 // blocks of kern at `threads` that fit at once, at least one block.
 cudaError_t direct_grid(const void* kern, int threads, long long units,
@@ -1615,6 +1492,41 @@ cudaError_t launch_acc_quant(const void* from, void* to, long long n,
   if (e != cudaSuccess) return e;
   void* args[] = {&from, &to, &nb, &blk};
   return cudaLaunchKernel(kern, dim3(grid), dim3(threads), args, 0, s);
+}
+
+// K9: one warp a quantization block, p * nblk / blk of them; the grid is
+// one block per threads / 32 of them, at most what fits at once. The
+// loads take the vector path when every input is aligned to 4 elements.
+template <typename T, int W>
+cudaError_t launch_k9(RankPtrs ptrs, int* wires, float* scratch, int p,
+                      long long n, long long nblk, int blk, int ndir,
+                      int threads, cudaStream_t s) {
+  const bool wide = blk / 4 > kQuantNarrow;
+  if (wide && !scratch) return cudaErrorInvalidValue;
+  const void* kern =
+      wide ? reinterpret_cast<const void*>(&quant_ring_all_reduce_kernel<T, W, true>)
+           : reinterpret_cast<const void*>(&quant_ring_all_reduce_kernel<T, W, false>);
+  uintptr_t bits = 0;
+  for (int r = 0; r < p; ++r) bits |= reinterpret_cast<uintptr_t>(ptrs.in[r]);
+  int vec = (bits & (4 * sizeof(T) - 1)) == 0;
+  long long nq = p * (nblk / blk);
+  int grid;
+  const cudaError_t e = direct_grid(kern, threads, nq, threads / 32, &grid);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&ptrs, &wires, &scratch, &p, &n, &nblk, &blk, &ndir, &vec};
+  return cudaLaunchKernel(kern, dim3(grid), dim3(threads), args, 0, s);
+}
+
+template <typename T>
+cudaError_t launch_k9_wire(int wire, RankPtrs ptrs, int* wires,
+                           float* scratch, int p, long long n,
+                           long long nblk, int blk, int ndir, int threads,
+                           cudaStream_t s) {
+  switch (wire) {
+    case Q8: return launch_k9<T, Q8>(ptrs, wires, scratch, p, n, nblk, blk, ndir, threads, s);
+    case FP8: return launch_k9<T, FP8>(ptrs, wires, scratch, p, n, nblk, blk, ndir, threads, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The 16-byte words that one grid-stride pass of a K12/K13 or K14 launch
@@ -1853,24 +1765,31 @@ int mv2t_remote_sendrecv(int esize, const void* ins, const void* outs, int p,
   }
 }
 
-// K9: ins[r] the p input shards (f32 or f16) of n elements,
-// outs[r] their f32 working rows of p*nblk, wires the p wire outputs of
-// nblk/blk*(1+blk/4) words each; wire 0 = q8, 1 = fp8.
+// K9: ins[r] the p input shards (f32 or f16) of n elements; outs[r]
+// rank r's result row of n elements in the input dtype, or outs NULL;
+// wires the p wire outputs of nblk/blk*(1+blk/4) words each, or NULL
+// (one of outs and wires at least); scratch p*nblk f32 for a block of
+// more than 128 values, else unused; nblk a multiple of blk of at least
+// ceil(n/p); wire 0 = q8, 1 = fp8; ndir 1 or 2.
 int mv2t_quant_ring_all_reduce(int dtype, int wire, const void* ins,
-                               const void* outs, void* wires, int p,
-                               long long n, long long nblk, int blk,
-                               long long chunk, int depth, int ndir,
-                               void* slots, void* flags, int ctas,
-                               int threads, void* stream) {
-  if (bad_ranks(p) || blk < 4 || blk % 4 || chunk % blk || nblk % blk)
+                               const void* outs, void* wires, void* scratch,
+                               int p, long long n, long long nblk, int blk,
+                               int ndir, int threads, void* stream) {
+  if (bad_ranks(p) || blk < 4 || blk % 4 || n < 0 || nblk < 0 ||
+      nblk % blk || nblk * p < n || (ndir != 1 && ndir != 2) ||
+      (!outs && !wires) || bad_direct_threads(threads) ||
+      threads > kQuantMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  const RankPtrs ptrs = rank_ptrs(ins, outs, p);
+  RankPtrs ptrs = {};
+  const void* const* in = static_cast<const void* const*>(ins);
+  for (int r = 0; r < p; ++r) ptrs.in[r] = in[r];
+  if (outs) ptrs = rank_ptrs(ins, outs, p);
   int* w = static_cast<int*>(wires);
-  unsigned* fl = static_cast<unsigned*>(flags);
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case F32: return static_cast<int>(launch_k9_wire<float>(wire, ptrs, w, p, n, nblk, blk, chunk, depth, ndir, slots, fl, ctas, threads, s));
-    case F16: return static_cast<int>(launch_k9_wire<__half>(wire, ptrs, w, p, n, nblk, blk, chunk, depth, ndir, slots, fl, ctas, threads, s));
+    case F32: return static_cast<int>(launch_k9_wire<float>(wire, ptrs, w, sc, p, n, nblk, blk, ndir, threads, s));
+    case F16: return static_cast<int>(launch_k9_wire<__half>(wire, ptrs, w, sc, p, n, nblk, blk, ndir, threads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -80,7 +80,8 @@ pvar("dev_coll_tier_hbm", PVAR_CLASS_COUNTER,
      "(ops/alltoall.py, K10/K11)")
 pvar("dev_coll_tier_quant", PVAR_CLASS_COUNTER,
      "device collective calls planned on the block-scaled quantized ring "
-     "tier (ops/quant.py, K9 then K5 over the wire words)")
+     "tier (ops/quant.py, K9: the ring's codec chain, gather and decode "
+     "in one launch)")
 pvar("dev_coll_quant_bytes_saved", PVAR_CLASS_COUNTER,
      "bytes a rank kept off the ring by the quant tier: exact minus "
      "quantized wire bytes of each call (ops/quant.py wire_stats)")

@@ -86,9 +86,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
             ("ctas_per_sm", _I), ("threads", _I), ("stream", _P))),
         "mv2t_quant_ring_all_reduce": (_I, (
             ("dtype", _I), ("wire", _I), ("ins", _P), ("outs", _P),
-            ("wires", _P), ("p", _I), ("n", _I64), ("nblk", _I64),
-            ("blk", _I), ("chunk", _I64), ("depth", _I), ("ndir", _I),
-            ("slots", _P), ("flags", _P), ("ctas", _I), ("threads", _I),
+            ("wires", _P), ("scratch", _P), ("p", _I), ("n", _I64),
+            ("nblk", _I64), ("blk", _I), ("ndir", _I), ("threads", _I),
             ("stream", _P))),
         "mv2t_ring_all_reduce": (_I, (
             ("dtype", _I), ("ins", _P), ("outs", _P), ("p", _I),

@@ -17,28 +17,33 @@ A block of zeros has scale 0 and divides by 1 in its place. ``x /
 scale`` is an IEEE division (a tensor by a tensor: torch on the card
 turns division by a Python scalar into a product with its reciprocal).
 
-``quant_ring_all_reduce`` runs three steps:
+``quant_ring_all_reduce`` is one launch of **K9**,
+``mv2t_quant_ring_all_reduce`` in ``csrc/ring.cu``. The JAX package runs
+the reduce-scatter ring with the codec fused into every step (the sender
+encodes its partial, the receiver decodes it and adds it to its own),
+encodes each rank's reduced block once, gathers the wire blocks with the
+exact all-gather ring and decodes them outside its kernel. Every hop's
+arithmetic is local to one quantization block, so on one card K9 runs
+each block's chain directly: one warp loads the block from its p ranks
+in the ring's order, folds them through the codec in registers, encodes
+the owner's block once, decodes it and stores the result into every
+rank's row. No working array, no landing slot, no gather, and no wire
+word reaches memory: ``quant_reduce_scatter``, the same launch with no
+result rows, writes each rank's encoded block (the JAX kernel's
+``own_wire``) instead.
 
-1. **K9**, ``mv2t_quant_ring_all_reduce`` in ``csrc/ring.cu``: the
-   reduce-scatter half of K3 with the codec fused into both halves of a
-   ring step (the sender encodes its partial into the landing slot, the
-   receiver decodes it and adds it to its own partial), then each rank
-   encodes its fully reduced block once into its wire output;
-2. **K5** (``ops/ici.py`` ``hbm_ring_all_gather``) gathers the wire
-   blocks, int32 words to it;
-3. the decode and the cast back to the input dtype, stock torch, as the
-   JAX package computes them outside its kernel.
-
-Every rank decodes the same words, so every rank's result is the same,
-and each element is quantized at most ``p`` times: ``declared_bound``.
-A non-sum op or a dtype of another numpy kind than 'f' takes the exact K3
-ring: integers, and bfloat16 (ml_dtypes' bfloat16 has kind 'V', so the
-JAX package never quantizes it either).
+Every rank's row decodes the same words, so every rank's result is the
+same, and each element is quantized at most ``p`` times:
+``declared_bound``. A non-sum op or a dtype of another numpy kind than
+'f' takes the exact K3 ring: integers, and bfloat16 (ml_dtypes' bfloat16
+has kind 'V', so the JAX package never quantizes it either).
 
 Routing is ``ops/ring.py``'s: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. ``ops/ici.py``'s ``LAUNCHES`` and
-``PLAIN_CALLS`` count K9 under ``quant_ring_all_reduce``. The plain
-version scales, divides, rounds, clips and converts exactly as K9 does,
+``PLAIN_CALLS`` count K9 under ``quant_ring_all_reduce``, once a call.
+The plain version (``quant_reduce_scatter_ref`` on ``ring.ring_replay``,
+then the decode of the wire and the broadcast) replays the ring and is
+the spec; it scales, divides, rounds, clips and converts exactly as K9 does,
 and folds a decoded hop with one rounding
 (``decode_add_ref``: K9 uses ``fmaf``; XLA's CPU code contracts the
 JAX kernel's ``acc + q * scale`` the same way), so the kernel, the plain
@@ -52,6 +57,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..coll.tuning import kernel_param
 from ..utils.config import get_config
 from . import ici, ring
 from .ring import Shards
@@ -249,19 +255,22 @@ def decode_add_ref(acc: torch.Tensor, w: torch.Tensor, block: int,
 
 
 # ---------------------------------------------------------------------------
-# K9: the quantized reduce-scatter ring and the own-block encode
+# K9: the quantized allreduce
 # ---------------------------------------------------------------------------
 
-def _geometry(p: int, n: int, block_bytes: Optional[int],
-              chunk_bytes: Optional[int]) -> Tuple[int, int, int]:
-    """(block, nblk, chunk) of one quantized allreduce: the ring block
-    of ``nblk`` elements is ceil(n/p) rounded up to whole quantization
-    blocks, the chunk a block multiple of at most ``nblk``."""
+# the largest block that K9 holds in registers, in f32 values (csrc/ring.cu
+# kQuantNarrow four-value words, one a lane); a larger one keeps its
+# partial in a scratch row of p*nblk f32 that the wrapper allocates only
+# then
+_WIDE_BLOCK = 128
+
+
+def _geometry(p: int, n: int, block_bytes: Optional[int]) -> Tuple[int, int]:
+    """(block, nblk) of one quantized allreduce: the ring block of
+    ``nblk`` elements is ceil(n/p) rounded up to whole quantization
+    blocks."""
     blk = _block_of(block_bytes)
-    nblk = -(-(-(-n // p)) // blk) * blk
-    chunk = min(max(blk, ici._cfg_chunk_elems(torch.float32, chunk_bytes)
-                    // blk * blk), nblk)
-    return blk, nblk, chunk
+    return blk, -(-(-(-n // p)) // blk) * blk
 
 
 def _padded_f32(shards: List[torch.Tensor], n_pad: int) -> torch.Tensor:
@@ -274,9 +283,9 @@ def _padded_f32(shards: List[torch.Tensor], n_pad: int) -> torch.Tensor:
 
 def quant_reduce_scatter_ref(xs: Shards, nblk: int, block: int, wire: str,
                              ndir: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K9: the reduce-scatter ring replayed block by
-    block in K9's fold order. At each hop the sender's partial is
-    encoded and decoded, then added to the receiver's. Returns (each
+    """The quantized reduce-scatter ring replayed block by block in the
+    JAX kernel's order, the spec of K9. At each hop the sender's partial
+    is encoded and decoded, then added to the receiver's. Returns (each
     rank's wire output ``(p, wire_words(nblk))`` int32, each rank's fully
     reduced own block ``(p, nblk)`` f32)."""
     shards = ring.as_shards(xs, "quant_ring_all_reduce")
@@ -293,35 +302,43 @@ def quant_reduce_scatter_ref(xs: Shards, nblk: int, block: int, wire: str,
     return encode_f32_ref(own, block, wire).reshape(p, -1), own
 
 
-def quant_reduce_scatter(xs: Shards, nblk: int, block: int, wire: str,
-                         chunk: int, depth: int, ndir: int) -> torch.Tensor:
-    """K9: the quantized reduce-scatter of ``p`` float shards of ``n``
-    elements (f32 or f16; cast to f32 and zero-padded to p ring blocks
-    of ``nblk`` inside the kernel), then each rank's own block
-    encoded once. Returns the wire outputs, ``(p, wire_words(nblk))``
-    int32."""
-    shards = ring.as_shards(xs, "quant_ring_all_reduce")
-    if ring.on_cpu(shards):
-        ici.PLAIN_CALLS["quant_ring_all_reduce"] += 1
-        return quant_reduce_scatter_ref(shards, nblk, block, wire, ndir)[0]
+def _k9(shards: List[torch.Tensor], nblk: int, block: int, wire: str,
+        ndir: int, out: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Launch K9 over CUDA ``shards``: the decoded result into the rows
+    of ``out`` (``(p, n)`` in the input dtype), or, when ``out`` is None,
+    the wire outputs alone, returned."""
     code = ring.check_cuda_shards(shards, "quant_ring_all_reduce")
     if shards[0].dtype not in _INPUT_DTYPES:
         raise TypeError(f"quant_ring_all_reduce: dtype {shards[0].dtype}; "
                         f"the kernel takes f32 and f16")
     p, n, dev = len(shards), shards[0].numel(), shards[0].device
-    wblk = wire_words(nblk, block)
-    o = torch.empty((p, p * nblk), dtype=torch.float32, device=dev)
-    wires = torch.empty((p, wblk), dtype=torch.int32, device=dev)
-    ctas = ring.ctas_per_lane(dev, p * ndir, chunk, block)
-    slots = torch.empty((p, ndir, depth, wire_words(chunk, block)),
-                        dtype=torch.int32, device=dev)
-    flags = torch.zeros(2 * p * ndir * ctas, dtype=torch.int32, device=dev)
+    wires = None if out is not None else torch.empty(
+        (p, wire_words(nblk, block)), dtype=torch.int32, device=dev)
+    scratch = torch.empty(p * nblk, dtype=torch.float32, device=dev) \
+        if block > _WIDE_BLOCK else None
     ring.launch("mv2t_quant_ring_all_reduce", dev, code, WIRE_CODES[wire],
-                ring.pointers(shards), ring.pointers(o.unbind(0)),
-                wires.data_ptr(), p, n, nblk, block, chunk, depth, ndir,
-                slots.data_ptr(), flags.data_ptr(), ctas)
+                ring.pointers(shards),
+                None if out is None else ring.row_pointers(out),
+                None if wires is None else wires.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), p, n, nblk,
+                block, ndir, threads=kernel_param("quant_threads", 128))
     ici.LAUNCHES["quant_ring_all_reduce"] += 1
     return wires
+
+
+def quant_reduce_scatter(xs: Shards, nblk: int, block: int, wire: str,
+                         ndir: int) -> torch.Tensor:
+    """K9's wire outputs alone: the quantized reduce-scatter of ``p``
+    float shards of ``n`` elements (f32 or f16, cast to f32 and
+    zero-padded to p ring blocks of ``nblk``), each rank's own block
+    encoded once, ``(p, wire_words(nblk))`` int32 (the JAX kernel's
+    ``own_wire``). The launch of :func:`quant_ring_all_reduce`, with
+    the wire outputs in place of the result rows."""
+    shards = ring.as_shards(xs, "quant_ring_all_reduce")
+    if ring.on_cpu(shards):
+        ici.PLAIN_CALLS["quant_ring_all_reduce"] += 1
+        return quant_reduce_scatter_ref(shards, nblk, block, wire, ndir)[0]
+    return _k9(shards, nblk, block, wire, ndir, None)
 
 
 # ---------------------------------------------------------------------------
@@ -335,11 +352,14 @@ def quant_ring_all_reduce(xs: Shards, op: str = "sum", *,
                           depth: Optional[int] = None,
                           bidirectional: Optional[bool] = None
                           ) -> torch.Tensor:
-    """Block-scaled quantized allreduce of ``p`` shards: K9, then K5 over
-    the int32 wire blocks, then the decode and the cast back. A non-sum
-    op or another dtype than f32, f16 or f64 (bf16 included, as in the
-    JAX package) takes the exact K3 ring. Returns ``(p, n)`` in the input
-    dtype, row r for rank r."""
+    """Block-scaled quantized allreduce of ``p`` shards, one K9 launch.
+    A non-sum op or another dtype than f32, f16 or f64 (bf16 included,
+    as in the JAX package) takes the exact K3 ring. Returns ``(p, n)`` in
+    the input dtype, row r for rank r. ``bidirectional`` picks which
+    quantization blocks fold counter-clockwise, so it changes the
+    result's bits; ``chunk_bytes`` and ``depth`` order the TPU ring's
+    transfers and never its result, so they are checked and shape
+    nothing here, as K3's."""
     shards = ring.as_shards(xs, "quant_ring_all_reduce")
     if op != "sum" or not _float_kind(shards[0].dtype):
         return ici.hbm_ring_all_reduce(shards, op, chunk_bytes=chunk_bytes,
@@ -349,15 +369,17 @@ def quant_ring_all_reduce(xs: Shards, op: str = "sum", *,
     if p == 1:
         return shards[0].reshape(1, n).clone()
     wire = _resolve_wire(wire)
-    blk, nblk, chunk = _geometry(p, n, block_bytes, chunk_bytes)
-    own = quant_reduce_scatter(shards, nblk, blk, wire, chunk,
-                               ici._cfg_depth(depth),
-                               ici._resolve_ndir(p, bidirectional))
-    wall = ici.hbm_ring_all_gather(list(own.unbind(0)),
-                                   chunk_bytes=chunk_bytes, depth=depth,
-                                   bidirectional=bidirectional)
-    out = decode_f32_ref(wall, blk, wire).to(shards[0].dtype)
-    return out[:, :n]
+    ici._cfg_chunk_elems(torch.float32, chunk_bytes)
+    ici._cfg_depth(depth)
+    if ring.on_cpu(shards):
+        ici.PLAIN_CALLS["quant_ring_all_reduce"] += 1
+        return quant_ring_all_reduce_ref(shards, wire=wire,
+                                         block_bytes=block_bytes,
+                                         bidirectional=bidirectional)
+    blk, nblk = _geometry(p, n, block_bytes)
+    out = torch.empty((p, n), dtype=shards[0].dtype, device=shards[0].device)
+    _k9(shards, nblk, blk, wire, ici._resolve_ndir(p, bidirectional), out)
+    return out
 
 
 def quant_ring_all_reduce_ref(xs: Shards, op: str = "sum", *,
@@ -365,10 +387,11 @@ def quant_ring_all_reduce_ref(xs: Shards, op: str = "sum", *,
                               block_bytes: Optional[int] = None,
                               bidirectional: Optional[bool] = None
                               ) -> torch.Tensor:
-    """Plain version of :func:`quant_ring_all_reduce`: the plain K9,
-    every rank's result decoded from the concatenated wire blocks (what
-    the exact K5 gathers). Chunking and depth reorder K9's transfers,
-    never its arithmetic, so they are not parameters here."""
+    """Plain version of :func:`quant_ring_all_reduce`: the ring replayed
+    (``quant_reduce_scatter_ref``), every rank's result decoded from the
+    concatenated wire blocks (what the JAX wrapper's exact all-gather
+    carries) and cast back. Chunking and depth reorder the TPU ring's
+    transfers, never its arithmetic, so they are not parameters here."""
     shards = ring.as_shards(xs, "quant_ring_all_reduce")
     if op != "sum" or not _float_kind(shards[0].dtype):
         return ici.hbm_ring_all_reduce_ref(shards, op,
@@ -377,7 +400,7 @@ def quant_ring_all_reduce_ref(xs: Shards, op: str = "sum", *,
     if p == 1:
         return shards[0].reshape(1, n).clone()
     wire = _resolve_wire(wire)
-    blk, nblk, _ = _geometry(p, n, block_bytes, None)
+    blk, nblk = _geometry(p, n, block_bytes)
     own, _ = quant_reduce_scatter_ref(
         shards, nblk, blk, wire, ici._resolve_ndir(p, bidirectional))
     row = decode_f32_ref(own.reshape(-1), blk, wire).to(shards[0].dtype)

@@ -28,16 +28,13 @@ on the current stream or raises. ``LAUNCHES`` counts kernel launches
 only, ``PLAIN_CALLS`` the plain route.
 
 The direct launch serves K3, K4 and K5 of ``ops/ici.py`` too (K6's fold
-and K7's gather over ``lines`` rings). The streaming kernel, K9 of
-``ops/quant.py``, keeps the ring protocol: every (rank, direction) lane
-gets ``B`` thread blocks, each running its own sub-ring over its share
-of the data, with credits in global memory. All blocks must be resident
-at once (a block spinning on a credit would wait forever behind a peer
-that never gets an SM), so it launches cooperatively. A spin that
-outlasts 2 s sets an error word and ends the launch; :func:`check_errors`
-(and the next launch through :func:`launch`, K6 and K7 included) raises
-on it, and the mesh channel checks it after every collective, so that
-collective raises.
+and K7's gather over ``lines`` rings). No kernel of ``csrc/ring.cu``
+runs the TPU rings' landing slots and credits any more: each is one
+ordinary launch. K8 (``ops/ici.py``) waits inside a block on its bulk
+copies; a wait that outlasts 2 s sets an error word and ends the
+launch; :func:`check_errors` (and the next launch through
+:func:`launch`) raises on it, and the mesh channel checks it after
+every collective, so that collective raises.
 """
 
 from __future__ import annotations
@@ -47,7 +44,6 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..coll.tuning import kernel_param
 
 # the JAX kernels' VMEM budget guard (pallas_ring.VMEM_LIMIT_BYTES): past
 # it the resident kernels hand the call to the stock lowering
@@ -206,25 +202,13 @@ def aligned(ts: Sequence[torch.Tensor]) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def ctas_per_lane(device: torch.device, lanes: int, elems: int,
-                  vec_width: int) -> int:
-    """Blocks per (rank, direction) lane: ``ring_blocks_per_sm`` blocks
-    per SM over all the lanes, and no more than there are 16-byte units
-    in a lane's share of a chunk. The C entry lowers it further if fewer
-    blocks fit on the card at once."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = kernel_param("ring_blocks_per_sm", 1)
-    units = max(1, -(-elems // vec_width))
-    return max(1, min(sms * per_sm // lanes, units))
-
-
 def launch(fn: str, device: torch.device, *args,
-           threads: Optional[int] = None,
+           threads: int = DIRECT_THREADS,
            stream: Optional[int] = None) -> None:
     """Call C entry ``fn`` of ``csrc/ring.cu`` with ``args`` plus the
-    thread count (``ring_threads`` unless given) and a stream; raise on a
-    launch error or on a spin timeout left by an earlier launch. Without
-    ``stream`` the entry runs on ``device``'s current stream with
+    thread count (``DIRECT_THREADS`` unless given) and a stream; raise on
+    a launch error or on a spin timeout left by an earlier launch (K8's).
+    Without ``stream`` the entry runs on ``device``'s current stream with
     ``device`` made current. A caller that passes ``stream`` (a raw
     ``cudaStream_t`` handle) has made ``device`` current itself, so
     neither lookup runs (``DeviceWin`` does both once for a whole
@@ -232,8 +216,6 @@ def launch(fn: str, device: torch.device, *args,
     from . import _build
     lib = _build.load("ring")
     _raise_pending(lib)
-    if threads is None:
-        threads = kernel_param("ring_threads", 1024)
     if stream is not None:
         rc = getattr(lib, fn)(*args, threads, stream)
     else:
@@ -247,13 +229,13 @@ def _raise_pending(lib) -> None:
     code = lib.mv2t_ring_error(1)
     if code:
         raise RuntimeError(
-            f"ring kernel: a credit or data wait outlasted the spin bound "
-            f"(error word {code}); that launch ended early and its output "
-            f"is invalid")
+            f"ring kernel: K8's wait on a bulk copy outlasted the spin "
+            f"bound (error word {code}); that launch ended early and its "
+            f"output is invalid")
 
 
 def check_errors(device: Optional[torch.device] = None) -> None:
-    """Raise if a ring kernel's spin wait timed out since the last check.
+    """Raise if K8's spin wait timed out since the last check.
     Waits first for the work queued so far: on ``device``'s current
     stream, or on the whole card when no device is given. Nothing to
     check before the ring kernels are loaded."""

@@ -1,7 +1,8 @@
 """Parity of the port's quant tier (mvapich2_tpu_torch/ops/quant.py: the
-codec, the K9 wrapper quant_ring_all_reduce and its plain version, the
-wire accounting; plus K14's quantized wire in ops/rma.py and the quant
-tier plans) with the JAX package's ops/pallas_quant.py and
+codec, the K9 wrapper quant_ring_all_reduce and its plain version, a CPU
+model of K9's direct walk, the wire accounting; plus K14's quantized
+wire in ops/rma.py and the quant tier plans) with the JAX package's
+ops/pallas_quant.py and
 ops/pallas_rma.py, run in Pallas interpret mode on the 8-device virtual
 CPU mesh (``credits=False``: the interpreter cannot signal a remote
 semaphore).
@@ -364,6 +365,8 @@ def _jax_quant(xv, p, **kw):
     (8, "fp8", "f32", 128, 128, 256, 3, False),
     (8, "q8", "bf16", 37, 32, 128, 2, True),
     (8, "fp8", "f16", 300, 64, 256, 2, True),
+    (4, "q8", "f32", 50, 48, 1 << 20, 2, True),   # 12-value blocks, 3 words
+    (2, "fp8", "f16", 2100, 4096, 1 << 20, 2, None),  # 1024-value blocks
 ])
 def test_quant_all_reduce_matches_jax(p, wire, dt, shard, bb, cb, depth,
                                       bidir):
@@ -380,7 +383,7 @@ def test_quant_all_reduce_matches_jax(p, wire, dt, shard, bb, cb, depth,
     got = quant.quant_ring_all_reduce(tx, **kw)
     q = int(dt != "bf16")
     assert ici.PLAIN_CALLS == {"hbm_ring_all_reduce": 1 - q,
-                               "hbm_ring_all_gather": q,
+                               "hbm_ring_all_gather": 0,
                                "quant_ring_all_reduce": q,
                                "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0}
     assert not any(ici.LAUNCHES.values())
@@ -415,10 +418,10 @@ def test_k9_wire_is_the_encoded_reduced_block(env):
     rng = np.random.default_rng(21)
     xs = [torch.from_numpy(rng.standard_normal(300).astype(np.float32))
           for _ in range(NP)]
-    blk, nblk, chunk = quant._geometry(NP, 300, 64, 256)
-    assert (blk, nblk, chunk) == (16, 48, 48)
+    blk, nblk = quant._geometry(NP, 300, 64)
+    assert (blk, nblk) == (16, 48)
     ici.reset_counts()
-    wires = quant.quant_reduce_scatter(xs, nblk, blk, "q8", chunk, 2, 2)
+    wires = quant.quant_reduce_scatter(xs, nblk, blk, "q8", 2)
     assert ici.PLAIN_CALLS["quant_ring_all_reduce"] == 1
     ref_w, own = quant.quant_reduce_scatter_ref(xs, nblk, blk, "q8", 2)
     assert torch.equal(wires, ref_w) and \
@@ -429,6 +432,69 @@ def test_k9_wire_is_the_encoded_reduced_block(env):
                                       chunk_bytes=256)
     for r in range(1, NP):
         assert torch.equal(out[r], out[0])
+
+
+def _model_k9(xs, nblk, blk, wire, ndir):
+    """K9's walk (csrc/ring.cu quant_ring_all_reduce_kernel), one
+    quantization block at a time: its direction and chain of ranks in
+    closed form, acc = x[first], then acc = decode(encode(acc)) + x[r]
+    for each next rank r (one rounding), the owner's block encoded once
+    into its wire output and decoded into every rank's row. Returns
+    (wires ``(p, wire_words(nblk))``, rows ``(p, n)`` in the input
+    dtype)."""
+    p, n, dt = len(xs), xs[0].numel(), xs[0].dtype
+    x = torch.nn.functional.pad(torch.stack(xs).to(torch.float32),
+                                (0, p * nblk - n))
+    per, run = nblk // blk, 1 + blk // 4
+    wires = torch.empty((p, per * run), dtype=torch.int32)
+    res = torch.empty(p * nblk)
+    for q in range(p * per):
+        k, jb = divmod(q, per)
+        d = p - 1 if ndir == 2 and jb >= (per + 1) // 2 else 1
+        chain = [(k + d * j) % p for j in range(1, p + 1)]
+        assert chain[-1] == k          # the chain ends at the block's owner
+        e0 = k * nblk + jb * blk
+        acc = x[chain[0], e0:e0 + blk]
+        for r in chain[1:]:
+            acc = quant.decode_add_ref(
+                x[r, e0:e0 + blk], quant.encode_f32_ref(acc, blk, wire),
+                blk, wire)
+        w = quant.encode_f32_ref(acc, blk, wire)
+        wires[k, jb * run:(jb + 1) * run] = w
+        res[e0:e0 + blk] = quant.decode_f32_ref(w, blk, wire)
+    return wires, res[:n].to(dt).reshape(1, n).expand(p, n)
+
+
+@pytest.mark.parametrize("wire", ["q8", "fp8"])
+@pytest.mark.parametrize("blk", [8, 12, 128, 1024])
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("p", [2, 3, 4, 8])
+def test_k9_direct_walk_is_the_rings(p, ndir, blk, wire):
+    """The direct kernel's walk, modelled on the CPU, against the ring
+    replay: the wire outputs and every rank's decoded row bit for bit.
+    Three quantization blocks a ring block (two when ndir == 2 split them
+    2 + 1), a padded tail, a block of zeros on every rank (scale 0),
+    values at mixed scales; f16 inputs at p = 3."""
+    rng = np.random.default_rng(p * 7 + ndir * 3 + blk + len(wire))
+    n = (3 * p - 1) * blk + 5
+    xv = (rng.standard_normal((p, n)) *
+          rng.choice([1e-3, 1.0, 1e3], size=(p, n))).astype(np.float32)
+    xv[:, :blk] = 0.0
+    if p == 3:
+        xv = xv.astype(np.float16)
+    xs = [torch.from_numpy(r.copy()) for r in xv]
+    blk_, nblk = quant._geometry(p, n, 4 * blk)
+    assert blk_ == blk and nblk == 3 * blk
+    want_w, _ = quant.quant_reduce_scatter_ref(xs, nblk, blk, wire, ndir)
+    wires, rows = _model_k9(xs, nblk, blk, wire, ndir)
+    assert torch.equal(wires, want_w)
+    row = quant.decode_f32_ref(want_w.reshape(-1), blk, wire)[:n]
+    np.testing.assert_array_equal(_bits(rows[0]),
+                                  _bits(row.to(xs[0].dtype)))
+    if p > 2 or ndir == 1:
+        ref = quant.quant_ring_all_reduce_ref(
+            xs, wire=wire, block_bytes=4 * blk, bidirectional=ndir == 2)
+        np.testing.assert_array_equal(_bits(rows), _bits(ref))
 
 
 @pytest.mark.parametrize("wire", ["q8", "fp8"])
@@ -491,3 +557,13 @@ def test_quant_accumulate_matches_jax(env, nd, wire, n, disp, cb, qb):
                  (win[target, disp:disp + n].astype(np.float64) + src))
     assert err.max() <= quant.declared_bound(1, wire) * np.abs(src).max() \
         + 1e-5
+
+
+def test_k9_load_group_is_one_constant():
+    """``chip_smoke.py --sweep`` varies K9's sources in flight by editing
+    the one definition of ``kQuantGroup`` in ``csrc/ring.cu``."""
+    import re
+    from mvapich2_tpu_torch.ops import _build
+    src = (_build.CSRC_DIR / "ring.cu").read_text()
+    found = re.findall(r"constexpr int kQuantGroup = (\d+);", src)
+    assert len(found) == 1 and 1 <= int(found[0]) <= 8
