@@ -137,7 +137,21 @@ non-zero, printing no result, without them. Phases:
    on the slot channel, the 1-D mesh, the fold and the (2, 4) mesh (the
    staging stacks a group of their own), and one call of each
    attention path, under torch.profiler: device time by kernel group
-   and the idle share.
+   and the idle share;
+12. trace (after every measuring phase, just before the torch.profiler
+   profiles, which slow every later host call): five programs under
+   MV2T_TRACE, each dumping to a directory of its own (a slot allreduce
+   of 8 x 64 MiB f32, 1-D mesh allreduces of 64 MiB and 64 KiB, a fold
+   and a (2, 4) mesh allreduce of 64 MiB, and one DeviceWin fence epoch
+   and lock/flush/unlock epoch); the dumps checked (every rank dumped,
+   every span balanced, each dev_allreduce span's tier the one the tier
+   pvars counted, one lat_dev_<tier> / lat_rma_flush record a call) and
+   run through bin/mv2tconform, which must exit 0; the median
+   dev_allreduce span beside the leader's window of card time on the
+   same calls (CUDA events after its deposit waits and after its
+   program), the e2e slot allreduce traced and untraced in turns, and a
+   split of one slot and one mesh call's host time into deposit, first
+   barrier wait, leader, second barrier wait and delivery.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
@@ -151,12 +165,15 @@ shapes in ``coll/tuning.py``, and of K11's tile size
 """
 
 import argparse
+import collections
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 R = 8                              # ranks sharing the card
@@ -2140,6 +2157,365 @@ def phase_rma_host_profile(torch, dev, top=15):
         log(f"[rma]   {ln}")
     return {"enqueue_us": enq, "fence_us": fen,
             "per_op_us": (enq + fen) / 64, "cprofile_top": lines}
+
+
+TRACE_CALLS = 6                    # allreduces a traced program runs a size
+TRACE_WARM = 1                     # of them left out of the medians
+SPLIT_WARM, SPLIT_CALLS = 2, 5     # calls of the host split
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _read_dumps(d):
+    """rank -> its event rows, from the trace-r<rank>.json dumps in d."""
+    out = {}
+    for f in sorted(os.listdir(d)):
+        if f.startswith("trace-r") and f.endswith(".json"):
+            with open(os.path.join(d, f)) as fh:
+                snap = json.load(fh)
+            if snap["clock"] != "monotonic":
+                raise AssertionError(f"[trace] {f}: clock {snap['clock']}")
+            out[snap["rank"]] = snap["events"]
+    return out
+
+
+def _check_spans(what, dumps):
+    """Every B/E span of every rank balanced, in order."""
+    for rank, events in dumps.items():
+        depth = collections.Counter()
+        for _, layer, name, ph, _ in events:
+            if ph in "BE":
+                depth[(layer, name)] += 1 if ph == "B" else -1
+                if depth[(layer, name)] < 0:
+                    raise AssertionError(f"[trace] {what} rank {rank}: E of "
+                                         f"{layer}/{name} with no open B")
+        if any(depth.values()):
+            raise AssertionError(f"[trace] {what} rank {rank}: spans left "
+                                 f"open {dict(+depth)}")
+
+
+TRACE_PVARS = ("dev_coll_tier_vmem", "dev_coll_tier_hbm",
+               "dev_coll_tier_quant", "coll_level_chip", "lat_dev_vmem",
+               "lat_dev_hbm", "lat_dev_quant", "lat_dev_slot",
+               "lat_rma_flush")
+
+
+def _check_program(mpit, what, dumps, nranks, before, calls):
+    """A traced program's dumps against the pvars it moved: a dump a rank;
+    every span balanced; ``calls`` dev_allreduce spans a rank, whose B
+    tiers are the tiers the tier pvars counted (the slot channel's, the
+    calls coll_level_chip counted) and the lat_dev_<tier> records."""
+    if sorted(dumps) != list(range(nranks)):
+        raise AssertionError(f"[trace] {what}: dumps of ranks "
+                             f"{sorted(dumps)}, expected {nranks}")
+    _check_spans(what, dumps)
+    delta = {k: mpit.pvar(k).read() - before[k] for k in TRACE_PVARS}
+    tiers = collections.Counter(
+        ev[4]["tier"] for evs in dumps.values() for ev in evs
+        if ev[2] == "dev_allreduce" and ev[3] == "B")
+    if not calls:
+        return delta
+    if sum(tiers.values()) != nranks * calls:
+        raise AssertionError(f"[trace] {what}: {sum(tiers.values())} "
+                             f"dev_allreduce spans, expected "
+                             f"{nranks * calls}")
+    counted = ({"slot": delta["coll_level_chip"]} if "slot" in tiers else
+               {t: delta[f"dev_coll_tier_{t}"]
+                for t in ("vmem", "hbm", "quant")})
+    if tiers != +collections.Counter(counted):
+        raise AssertionError(f"[trace] {what}: span tiers {dict(tiers)}, "
+                             f"tier pvars {counted}")
+    hists = {t: delta[f"lat_dev_{t}"] for t in ("vmem", "hbm", "quant",
+                                               "slot")}
+    if tiers != +collections.Counter(hists):
+        raise AssertionError(f"[trace] {what}: span tiers {dict(tiers)}, "
+                             f"histogram records {hists}")
+    return delta
+
+
+class _TimedBarrier:
+    """A threading.Barrier whose waits append (thread, "wait", t0, t1) to
+    ``marks`` (the [trace] host split)."""
+
+    def __init__(self, barrier, marks):
+        self.barrier, self.marks = barrier, marks
+
+    def wait(self):
+        t0 = time.perf_counter()
+        try:
+            return self.barrier.wait()
+        finally:
+            self.marks.append((threading.current_thread().name, "wait", t0,
+                               time.perf_counter()))
+
+    def abort(self):
+        self.barrier.abort()
+
+
+def _leader_classes(coll_dev):
+    return (coll_dev.HBMSlotChannel, coll_dev.DeviceCollChannel,
+            coll_dev.DeviceFoldChannel)
+
+
+def _host_split(torch, mvt, coll_dev, inputs, mesh):
+    """One 64 MiB f32 allreduce's host time, by perf_counter wrappers set
+    up here (the package has no spans there): the app's call, each wait
+    at the rendezvous barrier and the leader's program. Split a call into
+    deposit (call to first wait), first wait, leader (rank 0), second
+    wait and delivery (second wait to return); medians over SPLIT_CALLS
+    calls after SPLIT_WARM, for rank 0 and the other ranks pooled."""
+    marks = []
+
+    class Timed(coll_dev._Rendezvous):
+        def __init__(self, size):
+            super().__init__(size)
+            self.barrier = _TimedBarrier(self.barrier, marks)
+
+    def timed(fn):
+        def leader(self, *a):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a)
+            finally:
+                marks.append((threading.current_thread().name, "leader", t0,
+                              time.perf_counter()))
+        return leader
+
+    def app(comm):
+        stream = torch.cuda.current_stream()
+        for _ in range(SPLIT_WARM + SPLIT_CALLS):
+            t0 = time.perf_counter()
+            comm.allreduce(inputs[comm.rank])
+            marks.append((threading.current_thread().name, "call", t0,
+                          time.perf_counter()))
+            stream.synchronize()
+
+    saved = {cls: cls.__dict__["_leader"] for cls in _leader_classes(coll_dev)}
+    coll_dev._Rendezvous, rv = Timed, coll_dev._Rendezvous
+    try:
+        for cls, fn in saved.items():
+            cls._leader = timed(fn)
+        mvt.run_ranks(R, app, device_mesh=mesh)
+    finally:
+        coll_dev._Rendezvous = rv
+        for cls, fn in saved.items():
+            cls._leader = fn
+    per = collections.defaultdict(list)      # thread -> [split of a call]
+    cur = collections.defaultdict(list)      # thread -> marks of its call
+    for thread, kind, t0, t1 in marks:       # a thread's marks in order
+        if kind != "call":
+            cur[thread].append((kind, t0, t1))
+            continue
+        inside = cur.pop(thread)
+        (w1a, w1b), (w2a, w2b) = [(a, b) for k, a, b in inside
+                                  if k == "wait"]
+        per[thread].append({"deposit": w1a - t0, "wait_1": w1b - w1a,
+                            "leader": sum(b - a for k, a, b in inside
+                                          if k == "leader"),
+                            "wait_2": w2b - w2a, "delivery": t1 - w2b,
+                            "call": t1 - t0})
+    split = {}
+    for who, threads in (("rank_0", ["rank-0"]),
+                         ("ranks_1_7", [f"rank-{r}" for r in range(1, R)])):
+        calls = [c for t in threads for c in per[t][SPLIT_WARM:]]
+        split[who] = {k: statistics.median(c[k] for c in calls) * 1e6
+                      for k in calls[0]}
+    return split
+
+
+def phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev):
+    """The trace and metric hooks on the main paths (see the module
+    docstring, phase 12). Returns the phase's figures."""
+    from mvapich2_tpu_torch.coll import device as coll_dev
+    from mvapich2_tpu_torch.ops import hbm, ici, ring
+    from mvapich2_tpu_torch.parallel import MeshComm
+    from mvapich2_tpu_torch.rma import DeviceWin
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 900)
+    small = [_data(torch, np, rng, (SMALL_MESH,), "f32", dev)
+             for _ in range(R)]
+    # CUDA events on the leader's stream: after its deposit waits, around
+    # each kernel wrapper it calls, after its program; one row a call
+    starts, kernels, calls_ev = [], [], []
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream())
+        return ev
+
+    def wait_deposits(device, events):
+        wait_deposits.real(device, events)
+        starts.append(event())
+    wait_deposits.real = coll_dev._wait_deposits
+
+    def card_timed(fn):
+        def leader(self, *a):
+            out = fn(self, *a)
+            calls_ev.append((starts.pop(), event(), kernels[:]))
+            del kernels[:]
+            return out
+        return leader
+
+    def kernel_timed(fn):
+        def wrapper(*a, **kw):
+            ev = event()
+            out = fn(*a, **kw)
+            kernels.append((ev, event()))
+            return out
+        return wrapper
+    wrappers = [(hbm, "hbm_slot_allreduce"), (ici, "hbm_ring_all_reduce"),
+                (ici, "hbm_ring_reduce_scatter"),
+                (ici, "hbm_ring_all_gather"), (ring, "ring_all_reduce")]
+
+    def ar_app(*sizes):
+        def app(comm):
+            stream = torch.cuda.current_stream()
+            for bufs in sizes:
+                for _ in range(TRACE_CALLS):
+                    comm.allreduce(bufs[comm.rank])
+                    stream.synchronize()
+        return app
+
+    def rma_app(comm):
+        win = DeviceWin(MeshComm(mvt.make_mesh((R,), ("x",), dev)), N)
+        m = N // 64                        # 1 MiB f32 an op
+        src = torch.arange(m, dtype=torch.float32, device=dev)
+        win.fence()
+        win.put(src, 0, R - 1, 0)
+        h = win.get(m, 3, R - 1, 0)
+        win.accumulate(src, 1, 5, m)
+        win.fence()
+        win.lock(4)
+        win.put(src * 2, 2, 4, 0)
+        win.flush(4)
+        win.unlock(4)
+        torch.cuda.current_stream().synchronize()
+        if not (torch.equal(h.value(), src)
+                and torch.equal(win.win[4, :m], src * 2)
+                and torch.equal(win.win[5, m:2 * m], src)):
+            raise AssertionError("[trace] DeviceWin epoch: wrong window")
+
+    mesh1 = mvt.make_mesh((R,), ("x",), dev)
+    programs = (   # name, ranks, app, run_ranks arguments, calls a rank
+        ("slot", R, ar_app(inputs), {}, TRACE_CALLS),
+        ("mesh", R, ar_app(inputs, small), dict(device_mesh=mesh1),
+         2 * TRACE_CALLS),
+        ("fold", R, ar_app(inputs),
+         dict(device_mesh=mvt.make_mesh((4,), ("x",), dev)), TRACE_CALLS),
+        ("mesh2d", R, ar_app(inputs),
+         dict(device_mesh=mvt.make_mesh((2, 4), ("x", "y"), dev)),
+         TRACE_CALLS),
+        ("rma", 1, rma_app, dict(device=dev), 0))
+    root = tempfile.mkdtemp(prefix="mv2t-trace-")
+    dirs, spans, card, kern, deltas = [], {}, {}, {}, {}
+    saved = {cls: cls.__dict__["_leader"] for cls in _leader_classes(coll_dev)}
+    saved_k = {(m, f): getattr(m, f) for m, f in wrappers}
+    try:
+        coll_dev._wait_deposits = wait_deposits
+        for cls, fn in saved.items():
+            cls._leader = card_timed(fn)
+        for (m, f), fn in saved_k.items():
+            setattr(m, f, kernel_timed(fn))
+        for name, nranks, app, kw, calls in programs:
+            d = os.path.join(root, name)
+            dirs.append(d)
+            before = {k: mpit.pvar(k).read() for k in TRACE_PVARS}
+            del calls_ev[:]
+            cfg.set("TRACE", True)
+            cfg.set("TRACE_DIR", d)
+            try:
+                mvt.run_ranks(nranks, app, **kw)
+            finally:
+                cfg.set("TRACE", False)
+                cfg.set("TRACE_DIR", "")
+            torch.cuda.synchronize()
+            dumps = _read_dumps(d)
+            deltas[name] = _check_program(mpit, name, dumps, nranks, before,
+                                          calls)
+            us = [ev[4]["us"] for ev in dumps[0]
+                  if ev[2] == "dev_allreduce" and ev[3] == "E"]
+            window = [a.elapsed_time(b) * 1e3 for a, b, _ in calls_ev]
+            in_k = [sum(a.elapsed_time(b) * 1e3 for a, b in ks)
+                    for _, _, ks in calls_ev]
+            for part, lo in ((name, 0), (f"{name}_64KiB", TRACE_CALLS)):
+                if lo < len(us):
+                    keep = slice(lo + TRACE_WARM, lo + TRACE_CALLS)
+                    spans[part] = statistics.median(us[keep])
+                    card[part] = statistics.median(window[keep])
+                    kern[part] = statistics.median(in_k[keep])
+    finally:
+        coll_dev._wait_deposits = wait_deposits.real
+        for cls, fn in saved.items():
+            cls._leader = fn
+        for (m, f), fn in saved_k.items():
+            setattr(m, f, fn)
+    if deltas["rma"]["lat_rma_flush"] != 2:
+        raise AssertionError(f"[trace] rma: lat_rma_flush moved by "
+                             f"{deltas['rma']['lat_rma_flush']}, expected 2 "
+                             f"(the fence and the flush)")
+    rma_ev = [ev[2] for ev in _read_dumps(dirs[-1])[0]]
+    want_rma = ["rma_fence", "rma_put", "rma_get", "rma_acc", "rma_fence",
+                "rma_lock", "rma_flush", "rma_put", "rma_flush",
+                "rma_unlock"]
+    if rma_ev != want_rma:
+        raise AssertionError(f"[trace] rma events {rma_ev}, expected "
+                             f"{want_rma}")
+    conform = subprocess.run(
+        [sys.executable, os.path.join(HERE, "bin", "mv2tconform"), *dirs],
+        capture_output=True, text=True, timeout=120)
+    verdict = (conform.stdout.strip().splitlines() or [""])[-1]
+    if conform.returncode != 0:
+        raise AssertionError(f"[trace] bin/mv2tconform exited "
+                             f"{conform.returncode}: {conform.stdout[-3000:]}"
+                             f"{conform.stderr[-2000:]}")
+    log(f"[trace] {smi}: five traced programs, every rank dumped, spans "
+        f"balanced, span tiers = tier pvars = lat_dev_* records; "
+        f"bin/mv2tconform exit 0 ({verdict})")
+    for part in spans:
+        path, _, small_part = part.partition("_")
+        log(f"[trace] {smi}: {path} {'64 KiB' if small_part else '64 MiB'} "
+            f"f32 allreduce: dev_allreduce span median {spans[part]:.1f} us; "
+            f"the leader's kernels {kern[part]:.1f} us of card time (CUDA "
+            f"events around each kernel wrapper it calls, its enqueue "
+            f"included), its window {card[part]:.1f} us (events after its "
+            f"deposit waits and after its program: the kernels and the "
+            f"card's idle gaps while it enqueues); calls "
+            f"{TRACE_WARM + 1}-{TRACE_CALLS}")
+    # the cost of tracing: the slot allreduce untraced and traced, in turns
+    lat = {False: [], True: []}
+    runs = {False: [], True: []}
+    for traced in (False, True, True, False) * 2:
+        cfg.set("TRACE", traced)
+        try:
+            res = mvt.run_ranks(R, lambda comm: _ar_lat(
+                comm, torch, inputs[comm.rank], 2, 10))
+        finally:
+            cfg.set("TRACE", False)
+        lat[traced] += res[0]
+        runs[traced].append(statistics.median(res[0]) * 1e3)
+    off, on = (statistics.median(lat[k]) * 1e3 for k in (False, True))
+    log(f"[trace] {smi}: e2e slot allreduce 8 x 64 MiB f32, median of 40 "
+        f"(4 runs of 10 after 2, in turns): untraced {off:.4f} ms, traced "
+        f"{on:.4f} ms ({(on - off) * 1e3:+.1f} us a call); run medians "
+        f"untraced {[round(v, 4) for v in runs[False]]}, traced "
+        f"{[round(v, 4) for v in runs[True]]}")
+    split = {"slot": _host_split(torch, mvt, coll_dev, inputs, None),
+             "mesh": _host_split(torch, mvt, coll_dev, inputs, mesh1)}
+    for path, sp in split.items():
+        for who, parts in sp.items():
+            log(f"[trace] {smi}: host split of one {path} 64 MiB allreduce, "
+                f"{who}, us (median of {SPLIT_CALLS}): " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in parts.items()))
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    log(f"[trace] phase took {took:.2f} s")
+    return {"span_median_us": spans, "leader_kernels_us": kern,
+            "leader_window_us": card,
+            "e2e_slot_ms": {"untraced": off, "traced": on,
+                            "run_medians": {"untraced": runs[False],
+                                            "traced": runs[True]}},
+            "host_split_us": split, "mv2tconform": verdict,
+            "phase_s": took}
 
 
 def phase_times(torch, hbm, timing, info, smi, inputs, lat, launches,
@@ -4138,6 +4514,7 @@ def main(argv=None):
     extra.update(rma_extra)
     extra["flash_build"] = flash_build
     extra["rma_host_profile"] = phase_rma_host_profile(torch, dev)
+    extra["trace"] = phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)
     extra["hier_breakdown"] = phase_hier_profile(

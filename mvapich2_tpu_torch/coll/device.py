@@ -38,6 +38,21 @@ channel) raises ``NotImplementedError``, as does a mesh that neither
 covers the ranks one to one nor divides them (the JAX package's host
 path).
 
+Observability (the JAX package's ``_run`` and ``_note_tier`` hooks): under
+MV2T_TRACE each call drops a ``device``-lane ``dev_<coll>`` B/E span in
+its rank's recorder (``tier``, ``op`` and ``bytes`` on B; ``tier`` and
+``us``, the host-clock time of the rendezvous and the enqueue, on E),
+with an NVTX range of the same name beside it on a CUDA device, and a
+call that takes the stock lowering a ``channel``-lane
+``dev_coll_fallback`` instant. A channel runs the first call of each
+program it builds with its leader's recorder in ``trace.LOWERING``, so
+the tier instants of ``ops/`` fire once a signature, as the JAX package
+records them while it traces one. Every call records its time in the
+``lat_dev_<tier>`` histogram (``metrics.LIVE``). MV2T_JAX_PROFILE=<dir>
+runs a ``torch.profiler`` trace (CPU and CUDA activities) from the first
+binding of ranks to a channel to the process's exit, written to <dir>
+as a Chrome trace.
+
 Stream order across rank threads (CUDA devices): each deposit records an
 event on the depositing rank's current stream; the leader's stream waits
 on all of them before it reads the deposits (in place, or staged) and
@@ -50,18 +65,73 @@ its stream after each call, to read the ring kernels' error word.
 
 from __future__ import annotations
 
+import atexit
+import os
 import threading
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import mpit
+from .. import metrics, mpit, trace
 from ..core import op as opmod
 from ..ops import alltoall, hbm, ici, quant, ring
 from ..utils import is_device_tensor
 from ..utils.config import get_config
+
+
+# -- MV2T_JAX_PROFILE: the torch.profiler bracket ------------------------
+# When the cvar names a directory, binding ranks to a device channel starts
+# one torch.profiler trace (the JAX package starts jax.profiler at its
+# first device collective; torch.profiler is stopped by the thread that
+# started it, so the port starts it in the binding caller's thread) and
+# an atexit hook stops it and writes the Chrome trace there.
+_profiler = None
+_profile_dir = ""
+_profile_lock = threading.Lock()
+
+
+def _start_profile(out_dir: str) -> None:
+    global _profiler, _profile_dir
+    with _profile_lock:
+        if _profiler is not None:
+            return
+        from torch import profiler
+        acts = [profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(profiler.ProfilerActivity.CUDA)
+        try:    # the rank threads' host ops too, where torch offers it
+            extra = {"experimental_config": profiler._ExperimentalConfig(
+                profile_all_threads=True)}
+        except (AttributeError, TypeError):
+            extra = {}
+        try:
+            prof = profiler.profile(activities=acts, **extra)
+            prof.start()
+        except Exception as e:   # profiling must never stop a collective
+            warnings.warn(f"MV2T_JAX_PROFILE: torch.profiler did not start "
+                          f"({e!r})")
+            return
+        _profiler, _profile_dir = prof, out_dir
+        atexit.unregister(_stop_profile)
+        atexit.register(_stop_profile)
+
+
+def _stop_profile() -> Optional[str]:
+    """Stop the bracket and write its Chrome trace; returns the path (None
+    when no bracket runs)."""
+    global _profiler
+    with _profile_lock:
+        prof, _profiler = _profiler, None
+    if prof is None:
+        return None
+    prof.stop()
+    os.makedirs(_profile_dir, exist_ok=True)
+    path = os.path.join(_profile_dir, f"torch-trace-{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def _op_name(op) -> Optional[str]:
@@ -148,6 +218,7 @@ class _Channel:
         self.rv = rendezvous
         self.rank = rank
         self.size = size
+        self.u = None           # the rank's Universe (bind_universes)
         self._programs: Dict = {}
 
     def abort(self) -> None:
@@ -156,11 +227,14 @@ class _Channel:
     def _program(self, name: str, n: int, dtype_str: str, op: str,
                  extra=None):
         """The leader's callable for one signature (``extra``: the count
-        matrix of an alltoallv), built once."""
+        matrix of an alltoallv), built once; under MV2T_TRACE its first
+        call records the tier instants of ``ops/`` (``trace.lowering``)."""
         key = (name, n, dtype_str, op, extra)
         got = self._programs.get(key)
         if got is None:
             got = self._programs[key] = self._build(name, n, op, extra)
+            if self.u.tracer is not None:
+                return trace.lowering(self.u.tracer, got)
         return got
 
     # -- the rendezvous execution ----------------------------------------
@@ -221,19 +295,37 @@ class _Channel:
 
     def _run(self, name: str, local, op: str = "sum", root: int = 0):
         """Per-call accounting around ``_execute``: the tier pvars, the
-        coll_level_* counters and the dev_effbw_<tier> watermark. On a
-        CUDA device the time is the host clock around the rendezvous and
-        the enqueue."""
+        coll_level_* counters, the dev_effbw_<tier> watermark, the
+        ``dev_<name>`` span (with an NVTX range on a CUDA device) and the
+        lat_dev_<tier> histogram. On a CUDA device the time is the host
+        clock around the rendezvous and the enqueue."""
         tier = self._note_tier(name, local, op if name != "bcast" else None)
         for lv in self.LEVELS:
             mpit.pvar(f"coll_level_{lv}").inc()
         n = self._slot_extent(local)[0]
         nbytes = n * _torch_dtype(local).itemsize
+        tr = self.u.tracer
+        nvtx = tr is not None and self.device.type == "cuda"
+        if tr is not None:
+            tr.record("device", f"dev_{name}", "B", tier=tier, op=op,
+                      bytes=nbytes)
+        if nvtx:
+            torch.cuda.nvtx.range_push(f"dev_{name}")
         t0 = time.perf_counter()
-        out = self._execute(name, local, op=op, root=root)
-        dt = time.perf_counter() - t0
+        try:
+            out = self._execute(name, local, op=op, root=root)
+        finally:
+            dt = time.perf_counter() - t0
+            if nvtx:
+                torch.cuda.nvtx.range_pop()
+            if tr is not None:
+                tr.record("device", f"dev_{name}", "E", tier=tier,
+                          us=round(dt * 1e6, 3))
         if dt > 0 and nbytes > 0:
             mpit.pvar(f"dev_effbw_{tier}").mark(nbytes / dt / 1e9)
+        mx = metrics.LIVE
+        if mx is not None:
+            mx.rec_us(f"lat_dev_{tier}", dt * 1e6)
         return out
 
     # -- MPI-shaped entry points (match coll_fns signatures) -------------
@@ -249,9 +341,10 @@ class _Channel:
             return None
         return _deliver(out, recvbuf)
 
+    # bcast and alltoall keep _run's op, "sum", as the JAX channel's
+    # calls do: their dev_<coll> spans record it
     def bcast(self, comm, buf, count, datatype, root):
-        out = self._run("bcast", _as_local(buf, buf, count),
-                        op=None, root=root)
+        out = self._run("bcast", _as_local(buf, buf, count), root=root)
         return _deliver(out, buf)
 
     def allgather(self, comm, sendbuf, recvbuf, count, datatype):
@@ -262,7 +355,7 @@ class _Channel:
 
     def alltoall(self, comm, sendbuf, recvbuf, count, datatype):
         local = _as_local(sendbuf, recvbuf, count * comm.size)
-        out = self._run("alltoall", local, op=None)
+        out = self._run("alltoall", local)
         return _deliver(out, recvbuf)
 
     def reduce_scatter_block(self, comm, sendbuf, recvbuf, count, datatype,
@@ -427,16 +520,17 @@ class DeviceCollChannel(_Channel):
         channel; allgather's bytes are the rank count's), and on a
         multi-axis mesh for the whole payload, not per phase. A quant
         call also adds the wire bytes it saves (``wire_stats``) to
-        dev_coll_quant_bytes_saved."""
+        dev_coll_quant_bytes_saved. A fallback also drops a
+        ``dev_coll_fallback`` instant (``coll``, ``nbytes``, ``reason``)
+        under MV2T_TRACE."""
         n, _ = self._slot_extent(local)
         dtype = _torch_dtype(local)
         p = self._mesh_extent()
+        nbytes = n * dtype.itemsize * (self.size if name == "allgather"
+                                       else 1)
         if name in ("alltoall", "alltoallv"):
-            tier, reason = alltoall.planned_a2a_tier(
-                max(1, n * dtype.itemsize), dtype)
+            tier, reason = alltoall.planned_a2a_tier(max(1, nbytes), dtype)
         elif name in ("allreduce", "reduce", "allgather"):
-            nbytes = n * dtype.itemsize * (self.size if name == "allgather"
-                                           else 1)
             tier, reason = ici.planned_tier(name, nbytes, dtype, op,
                                             num_devices=p)
         else:
@@ -449,6 +543,10 @@ class DeviceCollChannel(_Channel):
                     max(0, exact_b - wire_b))
             return tier
         mpit.pvar(f"dev_coll_fallback_{reason}").inc()
+        tr = self.u.tracer
+        if tr is not None:
+            tr.record("channel", "dev_coll_fallback", "i", coll=name,
+                      nbytes=nbytes, reason=reason)
         return "xla"
 
     def alltoallv(self, comm, sendbuf, scounts, sdispls, recvbuf, rcounts,
@@ -902,7 +1000,8 @@ def bind_universes(universes, device: torch.device, mesh=None) -> bool:
         this holds for one rank too).
 
     Any other mesh raises ``NotImplementedError``: the JAX package runs
-    such a geometry on its host path, which is not ported."""
+    such a geometry on its host path, which is not ported. Under
+    MV2T_JAX_PROFILE the first binding starts the profiler bracket."""
     n = len(universes)
     rv = _Rendezvous(n)
     if mesh is None or (mesh.size == 1 and n > 1):
@@ -922,5 +1021,10 @@ def bind_universes(universes, device: torch.device, mesh=None) -> bool:
             f"binds {n} ranks one to one nor divides them; the JAX "
             f"package takes its host path there, which is not ported")
     for r, u in enumerate(universes):
-        install_device_coll(u.comm_world, make(r))
+        ch = make(r)
+        ch.u = u
+        install_device_coll(u.comm_world, ch)
+    out_dir = get_config()["JAX_PROFILE"]
+    if out_dir and _profiler is None:
+        _start_profile(out_dir)
     return True

@@ -55,12 +55,14 @@ def _resolve(buf, count: Optional[int], datatype, alt=None):
 
 class Comm:
     """One rank's communicator: ``rank``, ``size``, the device channel it
-    is bound to, and its collective table ``coll_fns`` (filled by
-    ``coll.device.install_device_coll``)."""
+    is bound to, its collective table ``coll_fns`` (filled by
+    ``coll.device.install_device_coll``), and ``u``, the rank's
+    ``Universe`` (its recorder is ``u.tracer``; None outside one)."""
 
-    def __init__(self, rank: int, size: int):
+    def __init__(self, rank: int, size: int, universe=None):
         self.rank = rank
         self.size = size
+        self.u = universe
         self.device_channel = None
         self.coll_fns = {}
 

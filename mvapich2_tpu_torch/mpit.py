@@ -14,7 +14,11 @@ of the JAX package's ``mpit.py`` pvar registry, under the same names):
   on a tier, payload bytes over the host-clock time of the collective;
 * ``dev_rma_tier_{rdma,quant,epoch}``, ``dev_rma_fallback_{noncontig,
   platform,size,dtype}``, ``dev_rma_flush`` and ``dev_rma_wire_bytes`` -
-  counters of the one-sided device windows (``rma/device.py``).
+  counters of the one-sided device windows (``rma/device.py``);
+* ``lat_dev_{vmem,hbm,quant,xla,slot}`` and ``lat_rma_flush`` -
+  histograms: log2-bucketed latencies in microseconds of each device
+  collective call by tier and of each one-sided completion wave
+  (recorded through ``metrics.LIVE``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from typing import Dict
 
 PVAR_CLASS_COUNTER = 0
 PVAR_CLASS_HIGHWATERMARK = 3
+PVAR_CLASS_HISTOGRAM = 4
+HIST_BUCKETS = 32
 
 
 class PVar:
@@ -51,6 +57,34 @@ class PVar:
             return self._value
 
 
+class HistPVar(PVar):
+    """A log2-bucketed value distribution, latency in integer
+    microseconds by convention: bucket 0 holds values <= 0, bucket i >= 1
+    holds [2**(i-1), 2**i - 1], the last bucket saturates (the JAX
+    package's buckets). ``read`` is the record count."""
+
+    def __init__(self, name: str, klass: int, desc: str = ""):
+        super().__init__(name, klass, desc)
+        self.buckets = [0] * HIST_BUCKETS
+        self.count = 0
+        self.sum = 0
+
+    def rec(self, v: int) -> None:
+        i = min(v.bit_length(), HIST_BUCKETS - 1) if v > 0 else 0
+        with self._lock:
+            self.buckets[i] += 1
+            self.sum += max(v, 0)
+            self.count += 1
+
+    def snapshot(self) -> tuple:
+        """(count, sum, a copy of the buckets)."""
+        with self._lock:
+            return self.count, self.sum, list(self.buckets)
+
+    def read(self) -> float:
+        return float(self.count)
+
+
 _pvars: Dict[str, PVar] = {}
 _lock = threading.Lock()
 
@@ -60,7 +94,8 @@ def pvar(name: str, klass: int = PVAR_CLASS_COUNTER, desc: str = "") -> PVar:
     with _lock:
         pv = _pvars.get(name)
         if pv is None:
-            pv = _pvars[name] = PVar(name, klass, desc)
+            cls = HistPVar if klass == PVAR_CLASS_HISTOGRAM else PVar
+            pv = _pvars[name] = cls(name, klass, desc)
         return pv
 
 
@@ -126,3 +161,23 @@ pvar("dev_rma_flush", PVAR_CLASS_COUNTER,
 pvar("dev_rma_wire_bytes", PVAR_CLASS_COUNTER,
      "bytes the kernel tiers of the one-sided windows put on the wire: "
      "the payload, or a quantized accumulate's wire words")
+
+# the latency histograms the ported paths record, as the JAX package
+# declares them (mpit.py's telemetry block)
+HISTOGRAMS = {
+    "lat_dev_vmem": "device collective latency on the resident ring tier "
+                    "(coll/device.py _run end-to-end)",
+    "lat_dev_hbm": "device collective latency on the HBM ring tier "
+                   "(coll/device.py _run end-to-end)",
+    "lat_dev_quant": "device collective latency on the block-scaled "
+                     "quantized tier (coll/device.py _run end-to-end)",
+    "lat_dev_xla": "device collective latency on the stock torch lowering "
+                   "(coll/device.py _run end-to-end)",
+    "lat_dev_slot": "device collective latency on the slot tier "
+                    "(coll/device.py _run end-to-end)",
+    "lat_rma_flush": "one-sided completion-wave latency (rma/device.py "
+                     "fence/flush/unlock around the queued-op drain)",
+}
+for _name, _desc in HISTOGRAMS.items():
+    pvar(_name, PVAR_CLASS_HISTOGRAM,
+         f"log2-bucketed latency histogram (us): {_desc}")

@@ -31,7 +31,9 @@ tensors launch the kernel on the current stream or raise; ``LAUNCHES``
 and ``PLAIN_CALLS`` count each. ``ici_all_to_all`` / ``ici_all_to_allv``
 pick the tier (:func:`planned_a2a_tier`): the kernels, or the stock torch
 lowering past DEV_TIER_XLA_MIN or for a dtype the kernels do not move.
-The dispatchers count nothing; the mesh channel counts each call.
+The dispatchers count nothing; the mesh channel counts each call. Each
+drops an ``ici_alltoall`` / ``ici_alltoallv`` instant while
+``trace.LOWERING`` holds a recorder (``ops/ici.py`` ``_trace_entry``).
 """
 
 from __future__ import annotations
@@ -41,8 +43,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..trace import LOWERING
 from . import ring
-from .ici import dtype_kind
+from .ici import _trace_entry, dtype_kind
 from .ring import Shards
 
 LAUNCHES: Dict[str, int] = {"hbm_alltoall": 0, "hbm_alltoallv": 0}
@@ -415,8 +418,10 @@ def ici_all_to_all(xs: Shards) -> torch.Tensor:
     p, n = len(shards), shards[0].numel()
     if p == 1:
         return shards[0].reshape(1, n).clone()
-    tier, _ = planned_a2a_tier(n * shards[0].element_size(),
-                               shards[0].dtype)
+    nbytes = n * shards[0].element_size()
+    tier, _ = planned_a2a_tier(nbytes, shards[0].dtype)
+    if LOWERING.rec is not None:
+        _trace_entry("alltoall", tier, nbytes)
     if tier == "hbm":
         return hbm_alltoall(shards)
     return _block_transpose(shards)
@@ -433,6 +438,8 @@ def ici_all_to_allv(xs: Sequence[torch.Tensor],
         return hbm_alltoallv(shards, counts, out_len=out_len)
     nbytes = max(sum(row) for row in counts) * shards[0].element_size()
     tier, _ = planned_a2a_tier(max(1, nbytes), shards[0].dtype)
+    if LOWERING.rec is not None:
+        _trace_entry("alltoallv", tier, nbytes)
     if tier == "hbm":
         return hbm_alltoallv(shards, counts, out_len=out_len)
     return stock_all_to_allv(shards, counts, out_len=out_len)

@@ -70,6 +70,13 @@ stock torch reduction over the stacked shards (the port's analog of
 not take. The mesh channel counts each call's tier or fallback in the
 ``dev_coll_tier_*`` / ``dev_coll_fallback_*`` pvars. ``LAUNCHES`` and
 ``PLAIN_CALLS`` count K3, K4, K5, K8 and K9 (``quant_ring_all_reduce``).
+
+Trace: each dispatcher drops a ``device``-lane ``ici_<coll>`` instant
+(``tier``, ``bytes``, ``op``) and each phase of the mesh composition an
+``ici_axis_{rs,ag,ar}`` instant (``axis``, ``bytes``, ``op``) while
+``trace.LOWERING`` holds a recorder: during the first call of a program a
+device channel has just built, as the JAX package records them while it
+traces a signature.
 """
 
 from __future__ import annotations
@@ -79,6 +86,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..coll.tuning import kernel_param
+from ..trace import LOWERING
 from ..utils.config import get_config
 from . import ring
 from .ring import Shards
@@ -303,6 +311,22 @@ def hbm_ring_all_gather_ref(xs: Shards, *,
     shards = ring.as_shards(xs, "hbm_ring_all_gather")
     return _per_line(shards, lines, "hbm_ring_all_gather",
                      lambda sh: _k5_replay(sh, bidirectional))
+
+
+def _trace_entry(coll: str, tier: str, nbytes: int, op=None) -> None:
+    """The ``ici_<coll>`` instant of a dispatcher (the JAX package's
+    ``_trace_entry``). Call sites test ``LOWERING.rec`` first: one
+    attribute check while no program is being built."""
+    LOWERING.rec.record("device", f"ici_{coll}", "i", tier=tier,
+                        bytes=int(nbytes), op=op)
+
+
+def _trace_axis(phase: str, axis: str, nbytes: int, op=None) -> None:
+    """The ``ici_axis_<phase>`` instant of one phase of the multi-axis
+    composition (the JAX package's ``_trace_axis``), under the same
+    test."""
+    LOWERING.rec.record("device", f"ici_axis_{phase}", "i", axis=axis,
+                        bytes=int(nbytes), op=op)
 
 
 def _partners(p: int, src: int, dst: int) -> List[int]:
@@ -573,6 +597,8 @@ def ici_all_reduce(xs: Shards, op: str = "sum", *, lines: int = 1,
                            num_devices=p)
     if mode == "hw" and tier in ("vmem", "quant"):
         tier = "hbm"
+    if LOWERING.rec is not None:
+        _trace_entry("allreduce", tier, nbytes, op=op)
     if tier == "quant":
         from .quant import quant_ring_all_reduce
         return quant_ring_all_reduce(shards, op)
@@ -615,6 +641,8 @@ def ici_all_gather(xs: Shards, *, lines: int = 1,
                            num_devices=p)
     if mode == "hw" and tier in ("vmem", "quant"):
         tier = "hbm"
+    if LOWERING.rec is not None:
+        _trace_entry("allgather", tier, out_nbytes)
     if tier == "vmem" and out_nbytes <= ring.VMEM_LIMIT_BYTES:
         return ring.ring_all_gather(shards)
     if tier == "hbm":
@@ -671,6 +699,9 @@ def ici_reduce_scatter(xs: Shards, op: str = "sum", *, lines: int = 1,
     nbytes = shards[0].numel() * shards[0].element_size()
     tier, _ = planned_tier("reduce_scatter", nbytes, shards[0].dtype, op,
                            num_devices=p)
+    if LOWERING.rec is not None:
+        _trace_entry("reduce_scatter", "xla" if tier == "xla" else "hbm",
+                     nbytes, op=op)
     if tier != "xla":
         return hbm_ring_reduce_scatter(shards, op, lines=lines)
     return _per_line(shards, lines, "ici_reduce_scatter",
@@ -742,18 +773,26 @@ def ici_all_reduce_mesh(xs: Shards, axes, op: str = "sum"
     def allreduce(sh, lines):
         return ici_all_reduce(sh, op, lines=lines, mesh_ctx=axes)
     n = shards[0].numel()
+    esize = shards[0].element_size()
     amin = _mesh_axes_min()
-    if len(live) == 1 or (amin >= 0 and n * shards[0].element_size() < amin):
+    if len(live) == 1 or (amin >= 0 and n * esize < amin):
         y = shards
         for k in live:
+            if len(live) > 1 and LOWERING.rec is not None:
+                _trace_axis("ar", axes[k][0], n * esize, op=op)
             y = _axis_phase(y, axes, k, allreduce)
         return y
     ptot = len(shards)
     y = _identity_padded(shards, -(-n // ptot) * ptot, op)
     for k in live:
+        if LOWERING.rec is not None:
+            _trace_axis("rs", axes[k][0], y[0].numel() * esize, op=op)
         y = _axis_phase(y, axes, k, lambda sh, lines: ici_reduce_scatter(
             sh, op, lines=lines, mesh_ctx=axes))
     for k in reversed(live):
+        if LOWERING.rec is not None:
+            _trace_axis("ag", axes[k][0], y[0].numel() * esize * axes[k][1],
+                        op=op)
         y = _axis_phase(y, axes, k, lambda sh, lines: ici_all_gather(
             sh, lines=lines, mesh_ctx=axes))
     return [r[:n] for r in y]
@@ -766,6 +805,9 @@ def ici_all_gather_mesh(xs: Shards, axes) -> List[torch.Tensor]:
     axes, shards, live = _mesh_shards(xs, axes, "ici_all_gather_mesh")
     y = shards
     for k in reversed(live):
+        if LOWERING.rec is not None:
+            _trace_axis("ag", axes[k][0], y[0].numel()
+                        * y[0].element_size() * axes[k][1])
         y = _axis_phase(y, axes, k, lambda sh, lines: ici_all_gather(
             sh, lines=lines, mesh_ctx=axes))
     return [r.clone() for r in y] if not live else y
@@ -781,6 +823,9 @@ def ici_reduce_scatter_mesh(xs: Shards, axes, op: str = "sum"
     axes, shards, live = _mesh_shards(xs, axes, "ici_reduce_scatter_mesh")
     y = shards
     for k in live:
+        if LOWERING.rec is not None:
+            _trace_axis("rs", axes[k][0], y[0].numel()
+                        * y[0].element_size(), op=op)
         y = _axis_phase(y, axes, k, lambda sh, lines: ici_reduce_scatter(
             sh, op, lines=lines, mesh_ctx=axes))
     return [r.clone() for r in y] if not live else y

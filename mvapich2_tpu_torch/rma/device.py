@@ -40,8 +40,17 @@ its epoch closes holds here too (a device tensor payload is read at the
 closing call, not copied at enqueue). A payload that partly overlaps
 the range it writes (a view of the window) is copied when its op runs,
 on every tier, so the op writes the values it held, as the JAX
-package's immutable payloads do. The trace and metric hooks of the JAX
-module are not ported.
+package's immutable payloads do.
+
+Observability, as in the JAX module: in a traced rank thread
+(``runtime.universe.current_universe()`` with a recorder) each completion
+wave is a ``device``-lane ``rma_fence`` or ``rma_flush`` B/E span (``nops``,
+and ``rank`` on a flush, -1 for all ranks), with an NVTX range beside it
+on a CUDA device; ``lock`` and ``unlock`` drop ``rma_lock`` /
+``rma_unlock`` instants (``rank``), and each op served by a kernel tier an
+``rma_put`` / ``rma_get`` / ``rma_acc`` instant (``tier``, ``bytes``,
+``origin``, ``target``) inside its wave. Every wave records its time in
+the ``lat_rma_flush`` histogram (``metrics.LIVE``).
 
 ``direct_put`` (K17, the port of ``pallas_put``) is the ops-level
 single-shot put into a window tensor; as in the JAX package it is not on
@@ -51,14 +60,23 @@ single-shot put into a window tensor; as in the JAX package it is not on
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import List, Optional, Tuple
 
 import torch
 
-from .. import mpit
+from .. import metrics, mpit
 from ..ops import ring
 from ..ops import rma
 from ..ops.rma import direct_put  # noqa: F401  (K17, pallas_put's port)
+from ..runtime.universe import current_universe
+
+
+def _recorder():
+    """The calling rank thread's event recorder (None when untraced or
+    outside a rank thread)."""
+    u = current_universe()
+    return u.tracer if u is not None else None
 
 class DeviceWin:
     """An MPI-style window whose memory is a ``(p, n)`` tensor on the
@@ -139,7 +157,8 @@ class DeviceWin:
         (one completion wave), publish get results."""
         if not self._queue:
             return
-        self._dispatch(list(range(len(self._queue))))
+        self._wave(list(range(len(self._queue))), "rma_fence",
+                   nops=len(self._queue))
 
     def lock(self, rank: int) -> None:
         """Open an exclusive passive-target access epoch on ``rank``
@@ -148,6 +167,9 @@ class DeviceWin:
         if rank in self._locked:
             raise RuntimeError(f"rank {rank} already locked")
         self._locked.add(rank)
+        rec = _recorder()
+        if rec is not None:
+            rec.record("device", "rma_lock", "i", rank=rank)
 
     def unlock(self, rank: int) -> None:
         """Close the passive epoch on ``rank``: flush its outstanding ops
@@ -156,6 +178,9 @@ class DeviceWin:
             raise RuntimeError(f"rank {rank} not locked")
         self.flush(rank)
         self._locked.discard(rank)
+        rec = _recorder()
+        if rec is not None:
+            rec.record("device", "rma_unlock", "i", rank=rank)
 
     def flush(self, rank: Optional[int] = None) -> None:
         """Complete every outstanding op targeting ``rank`` (None = all
@@ -167,7 +192,8 @@ class DeviceWin:
         if not idx:
             return
         mpit.pvar("dev_rma_flush").inc()
-        self._dispatch(idx)
+        self._wave(idx, "rma_flush", rank=-1 if rank is None else rank,
+                   nops=len(idx))
 
     def flush_local(self, rank: Optional[int] = None) -> None:
         """MPI_Win_flush_local: local completion coincides with remote
@@ -175,16 +201,38 @@ class DeviceWin:
         self.flush(rank)
 
     # -- dispatch ----------------------------------------------------------
+    def _wave(self, idx: List[int], span: str, **args) -> None:
+        """One completion wave over the queue entries at ``idx`` inside
+        the ``span`` B/E span, timed into ``lat_rma_flush``."""
+        mx = metrics.LIVE
+        t0 = time.perf_counter() if mx is not None else 0.0
+        rec = _recorder()
+        nvtx = rec is not None and self.device.type == "cuda"
+        if rec is not None:
+            rec.record("device", span, "B", **args)
+        if nvtx:
+            torch.cuda.nvtx.range_push(span)
+        try:
+            self._dispatch(idx, rec)
+        finally:
+            if nvtx:
+                torch.cuda.nvtx.range_pop()
+            if rec is not None:
+                rec.record("device", span, "E")
+            if mx is not None:
+                mx.rec_since("lat_rma_flush", t0)
+
     def _op_tier(self, op) -> Tuple[str, Optional[str]]:
         kind, _origin, _target, _disp, n, stride = op
         return rma.planned_rma_tier(kind, n * self.dtype.itemsize,
                                     self.dtype, stride == 1, self.p,
                                     count=n)
 
-    def _dispatch(self, idx: List[int]) -> None:
+    def _dispatch(self, idx: List[int], rec) -> None:
         """Apply the queue entries at ``idx`` in order, each on its tier
         (planned for all of them first, so a call that raises applies
-        nothing), then run the completion wave."""
+        nothing), then run the completion wave. ``rec``: the wave's
+        recorder, or None."""
         entries = [self._queue[i] for i in idx]
         tiers = [self._op_tier(op) for op, _pay, _h in entries]
         stream, current = None, contextlib.nullcontext()
@@ -205,6 +253,9 @@ class DeviceWin:
                             op[4], rma.quant_block_elems(self.dtype)) * 4
                     mpit.pvar(f"dev_rma_tier_{tier}").inc()
                     mpit.pvar("dev_rma_wire_bytes").inc(wire)
+                    if rec is not None:
+                        rec.record("device", f"rma_{op[0]}", "i", tier=tier,
+                                   bytes=nbytes, origin=op[1], target=op[2])
                     self._run_rdma(tier, op, pay, h, stream)
         done = set(idx)
         self._queue = [e for i, e in enumerate(self._queue)

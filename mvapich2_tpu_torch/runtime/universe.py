@@ -10,6 +10,14 @@ The device is ``cuda:0`` unless the caller names another; without a
 CUDA device the caller must ask for the CPU (``device="cpu"``, or a mesh
 made on the CPU), or the harness raises. The host transport
 (point-to-point, host collectives) is not ported.
+
+Observability, as the JAX package's ``Universe.initialize`` and
+``finalize`` set it up: under MV2T_TRACE each rank's Universe carries an
+event recorder (``tracer``, ``trace/recorder.py``; None otherwise), the
+latency-histogram gate is armed (``metrics.ensure_live``), each rank
+thread sees its own Universe through ``current_universe()``, and
+``run_ranks`` writes every rank's ring to MV2T_TRACE_DIR when the ranks
+end, also when one failed or hung (``Universe.finalize``).
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Callable, List, Optional, Union
 
 import torch
 
+from .. import metrics, trace
 from ..core.comm import Comm
 
 DeviceLike = Union[str, torch.device, None]
@@ -43,13 +52,29 @@ def resolve_device(device: DeviceLike) -> torch.device:
 
 class Universe:
     """One rank's world: its rank, the world size, the device its
-    collectives run on, and its COMM_WORLD."""
+    collectives run on, its COMM_WORLD, and its event recorder
+    (``tracer``, None while MV2T_TRACE is off)."""
 
     def __init__(self, rank: int, size: int, device: torch.device):
         self.rank = rank
         self.size = size
         self.device = device
-        self.comm_world = Comm(rank, size)
+        self.tracer: Optional[trace.Recorder] = None
+        self.comm_world = Comm(rank, size, self)
+
+    def finalize(self) -> None:
+        """Write this rank's ring to MV2T_TRACE_DIR and drop the recorder
+        (the JAX package's Finalize); a no-op when untraced."""
+        trace.dump_rank(self)
+        trace.detach(self)
+
+
+_tls = threading.local()
+
+
+def current_universe() -> Optional[Universe]:
+    """The Universe of the calling rank thread (None outside one)."""
+    return getattr(_tls, "universe", None)
 
 
 def local_universe(nranks: int, device: DeviceLike = None,
@@ -73,6 +98,9 @@ def local_universe(nranks: int, device: DeviceLike = None,
     universes = [Universe(r, nranks, dev) for r in range(nranks)]
     from ..coll.device import bind_universes
     bind_universes(universes, dev, device_mesh)
+    for u in universes:
+        trace.maybe_attach(u)
+    metrics.ensure_live()
     return universes
 
 
@@ -85,7 +113,8 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
     the rank finishes. A rank's exception aborts the device rendezvous
     (its peers fail instead of hanging) and is re-raised with its rank
     noted; a rank still running after ``timeout`` seconds raises
-    ``TimeoutError``."""
+    ``TimeoutError``. Every rank's Universe is finalized when the ranks
+    end, however they end."""
     universes = local_universe(nranks, device, device_mesh)
     dev = universes[0].device
     results: List = [None] * nranks
@@ -93,6 +122,7 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
 
     def body(r: int):
         comm = universes[r].comm_world
+        _tls.universe = universes[r]
         try:
             if dev.type == "cuda":
                 stream = torch.cuda.Stream(dev)
@@ -104,20 +134,26 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
         except BaseException as e:  # noqa: BLE001 - reported by run_ranks
             errors[r] = e
             comm.device_channel.abort()   # break the rendezvous
+        finally:
+            _tls.universe = None
 
     threads = [threading.Thread(target=body, args=(r,), daemon=True,
                                 name=f"rank-{r}")
                for r in range(nranks)]
-    for t in threads:
-        t.start()
-    deadline = time.monotonic() + timeout
-    for t in threads:
-        t.join(max(0.0, deadline - time.monotonic()))
-        if t.is_alive():
-            universes[0].comm_world.device_channel.abort()
-            raise TimeoutError(
-                f"rank thread {t.name} did not finish within {timeout}s "
-                f"(errors so far: {[e for e in errors if e]})")
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + timeout
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+            if t.is_alive():
+                universes[0].comm_world.device_channel.abort()
+                raise TimeoutError(
+                    f"rank thread {t.name} did not finish within "
+                    f"{timeout}s (errors so far: {[e for e in errors if e]})")
+    finally:
+        for u in universes:
+            u.finalize()
     for r, e in enumerate(errors):
         if e is not None:
             raise RuntimeError(f"rank {r} failed: {e!r}") from e

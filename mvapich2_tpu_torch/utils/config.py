@@ -14,7 +14,12 @@
   the quantization block in bytes (``ops/quant.py``);
 * the one-sided knobs ``RMA_CHUNK_BYTES`` (0 inherits
   ``ICI_CHUNK_BYTES``), the tier edges ``DEV_RMA_RDMA_MIN`` and
-  ``DEV_RMA_QUANT_MIN`` (``ops/rma.py`` ``planned_rma_tier``).
+  ``DEV_RMA_QUANT_MIN`` (``ops/rma.py`` ``planned_rma_tier``);
+* the observability switches ``TRACE``, ``TRACE_BUF`` and ``TRACE_DIR``
+  (the per-rank event recorder, ``trace/recorder.py``), ``METRICS`` (the
+  latency histograms, ``metrics/__init__.py``) and ``JAX_PROFILE`` (a
+  directory for the ``torch.profiler`` bracket of ``coll/device.py``;
+  the JAX package's name is kept).
 
 Each is settable through the same ``MV2T_<NAME>`` environment variable
 as in the JAX package, read at first use (``reload`` reads them again),
@@ -114,9 +119,19 @@ DEVICE_CVARS = {
     "QUANT_BLOCK": 512,
 }
 
+# the recorder, histogram and profiler switches, with the JAX package's
+# defaults (trace/recorder.py TRACE*, mpit.py METRICS and JAX_PROFILE)
+TRACE_CVARS = {
+    "TRACE": False,
+    "TRACE_BUF": 65536,
+    "TRACE_DIR": "",
+    "METRICS": 1,
+    "JAX_PROFILE": "",
+}
+
 _config = Config({"USE_DEVICE_COLL": True,
                   **{f"{c}_ALGO": "" for c in ALGO_CVARS},
-                  **DEVICE_CVARS})
+                  **DEVICE_CVARS, **TRACE_CVARS})
 
 
 def get_config() -> Config:

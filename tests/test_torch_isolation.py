@@ -191,7 +191,9 @@ def test_config_reads_the_reference_env_names(monkeypatch):
     # only the knobs the JAX package declares: no new MV2T_* name
     assert set(config.get_config()._defaults) == {
         "USE_DEVICE_COLL", *(f"{c}_ALGO" for c in config.ALGO_CVARS),
-        *config.DEVICE_CVARS}
+        *config.DEVICE_CVARS, *config.TRACE_CVARS}
+    assert set(config.TRACE_CVARS) == {
+        "TRACE", "TRACE_BUF", "TRACE_DIR", "METRICS", "JAX_PROFILE"}
     assert set(config.DEVICE_CVARS) == {
         "ICI_CHUNK_BYTES", "ICI_PIPELINE_DEPTH", "ICI_BIDIR",
         "DEV_TIER_VMEM_MAX", "DEV_TIER_XLA_MIN", "DEV_TIER_QUANT_MIN",
