@@ -153,6 +153,27 @@ non-zero, printing no result, without them. Phases:
    split of one slot and one mesh call's host time into deposit, first
    barrier wait, leader, second barrier wait and delivery.
 
+13. nbc (after the attention paths): the nonblocking and persistent
+   device collectives on the 1:1 mesh of 8 virtual ranks: iallreduce of
+   64 MiB f32 a rank (8 segments of 8 MiB, 8 K3 launches), ibcast of 64
+   MiB from numpy buffers (8 segments, stock), iallgather of 1 MiB (K5)
+   and 64 KiB (K7), ialltoall of 64 MiB (K10) and ialltoallv of the hot
+   MoE routing at full width (K11), all posted, then completed by
+   waitall, every request on the device tier and every result bitwise
+   the blocking call's; 1001 int32 at 256-byte segments (8 K3 on views
+   that are not 16-byte aligned); an iallreduce of 64 MiB on the (2, 4)
+   mesh (16 K4 + 16 K5); allreduce_init with 3 starts (every segment
+   program built at init, 24 K3, dev_persistent_starts +24); one 64 MiB
+   segment whose CUDA event must read not ready right after its launch
+   returns; the overlap, recorded with no limit and no claim: each rank
+   a 64 MiB allreduce into a numpy buffer then a 4096^2 f32 matmul,
+   against iallreduce, the matmul and wait() (median of 5 after 1, and
+   the host split of the post, the launches, the polls and the finish);
+   a rank that dies after its peers posted (every peer's wait() raises
+   MPIX_ERR_PROC_FAILED within seconds); one traced iallreduce whose
+   dump bin/mv2tconform passes. Each kernel count is zeroed just before
+   its call and read just after.
+
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
 only phases 1 and 2, then the launch-shape sweeps of K9
@@ -1930,6 +1951,402 @@ def phase_mesh_a2a(torch, np, mvt, a2a, ring, mpit, moe, dev):
         f"{wall:.2f} s; results equal numpy's; launches {launches}, plain "
         f"calls {plain}; dev_coll_tier_hbm +{moved:.0f}")
     return launches, res[0][1]
+
+
+NBC_SMALL = 16 * 1024              # f32 elements: 64 KiB a rank (K7)
+NBC_ODD = 1001                     # int32 elements of the unaligned case
+NBC_MATMUL = 4096                  # the overlap phase's matmul: 4096^2 f32
+NBC_RUNS = 5                       # overlap iterations timed, after 1
+
+
+def _nb_host_timers(coll_dev):
+    """perf_counter wrappers around the channel's ``_nb_launch``,
+    ``_nb_poll`` and ``_nb_finish``; returns (marks, restore). A mark is
+    (thread name, kind, t0, t1)."""
+    marks = []
+    cls = coll_dev.DeviceCollChannel
+    saved = {k: cls.__dict__[k] for k in ("_nb_launch", "_nb_poll",
+                                          "_nb_finish")}
+
+    def timed(kind, fn):
+        def method(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **k)
+            finally:
+                marks.append((threading.current_thread().name, kind, t0,
+                              time.perf_counter()))
+        return method
+
+    for k, fn in saved.items():
+        setattr(cls, k, timed(k[4:], fn))
+
+    def restore():
+        for k, fn in saved.items():
+            setattr(cls, k, fn)
+    return marks, restore
+
+
+def phase_nbc(torch, np, mvt, ici, ring, a2a, mpit, cfg, moe, smi, dev):
+    """[nbc]: the nonblocking and persistent device collectives on the
+    1:1 mesh of 8 virtual ranks (see the module docstring, phase 13).
+    Returns the phase's figures."""
+    from mvapich2_tpu_torch.coll import device as coll_dev
+    from mvapich2_tpu_torch.core import request as nbreq
+    from mvapich2_tpu_torch.core.errors import (MPIX_ERR_PROC_FAILED,
+                                                MPIException)
+    t_phase = time.perf_counter()
+    mods = (ici, ring, a2a)
+    mesh = mvt.make_mesh((R,), ("x",), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 900)
+    seg_bytes = cfg["DEVICE_NBC_SEG_BYTES"]      # 1 MiB: 8 segments of N
+
+    def ints(n, dtype=torch.float32):
+        return torch.randint(-1000, 1000, (n,), generator=gen, device=dev,
+                             dtype=torch.int32).to(dtype)
+    big = [ints(N) for _ in range(R)]
+    small = [ints(NBC_SMALL) for _ in range(R)]
+    ag = [ints(AG_MESH) for _ in range(R)]
+    a2 = [ints(N) for _ in range(R)]
+    odd = [ints(NBC_ODD, torch.int32) for _ in range(R)]
+    counts = _moe_counts(moe, "hot")
+    vs = [ints(sum(counts[r])) for r in range(R)]
+    bc = ints(N)
+    figures = {}
+
+    # 1. every i-collective once, routed to the device, results landed
+    def app_nb(comm):
+        r, p = comm.rank, comm.size
+        rc = [counts[j][r] for j in range(p)]
+        outs = {"allreduce": np.empty(N, np.float32),
+                "bcast": (bc.cpu().numpy() if r == 5
+                          else np.zeros(N, np.float32)),
+                "allgather_k5": np.empty(AG_MESH * p, np.float32),
+                "allgather_k7": np.empty(NBC_SMALL * p, np.float32),
+                "alltoall": np.empty(N, np.float32),
+                "alltoallv": np.empty(sum(rc), np.float32)}
+        reqs = [comm.iallreduce(big[r], outs["allreduce"]),
+                comm.ibcast(outs["bcast"], root=5),
+                comm.iallgather(ag[r], outs["allgather_k5"]),
+                comm.iallgather(small[r], outs["allgather_k7"]),
+                comm.ialltoall(a2[r], outs["alltoall"]),
+                comm.ialltoallv(vs[r], counts[r], None, outs["alltoallv"],
+                                rc, None)]
+        flags = [q.device_nbc for q in reqs]
+        nbreq.waitall(reqs)
+        return outs, flags
+
+    def app_block(comm):
+        r, p = comm.rank, comm.size
+        rc = [counts[j][r] for j in range(p)]
+        got = {"allreduce": comm.allreduce(big[r]),
+               "bcast": comm.bcast(bc if r == 5 else torch.zeros_like(bc),
+                                   root=5),
+               "allgather_k5": comm.allgather(ag[r]),
+               "allgather_k7": comm.allgather(small[r]),
+               "alltoall": comm.alltoall(a2[r]),
+               "alltoallv": comm.alltoallv(vs[r], counts[r], None, None,
+                                           rc, None)}
+        torch.cuda.current_stream().synchronize()
+        return {k: v.cpu().numpy() for k, v in got.items()}
+
+    pv = ("dev_nbc_segments", "dev_coll_tier_hbm", "dev_coll_tier_vmem",
+          "coll_level_ici", "dev_coll_fallback_nbc")
+    before = {k: mpit.pvar(k).read() for k in pv}
+    _zero(*mods)
+    t0 = time.perf_counter()
+    res = mvt.run_ranks(R, app_nb, device_mesh=mesh)
+    wall = time.perf_counter() - t0
+    launches = _check_launches("nbc", mods, _want(
+        mods, hbm_ring_all_reduce=8, hbm_ring_all_gather=1,
+        ring_all_gather=1, hbm_alltoall=1, hbm_alltoallv=1))
+    _check_pvars(mpit, "nbc", before, {
+        "dev_nbc_segments": 8 + 8 + 4, "dev_coll_tier_hbm": 0,
+        "dev_coll_tier_vmem": 0, "coll_level_ici": 0,
+        "dev_coll_fallback_nbc": 0})
+    blocking = mvt.run_ranks(R, app_block, device_mesh=mesh)
+    for r in range(R):
+        outs, flags = res[r]
+        if not all(flags):
+            raise AssertionError(f"[nbc] rank {r}: device_nbc {flags}")
+        for k, got in outs.items():
+            if not np.array_equal(got, blocking[r][k]):
+                raise AssertionError(f"[nbc] i{k} rank {r}: not bitwise the "
+                                     f"blocking call")
+    if not np.array_equal(res[0][0]["allreduce"],
+                          torch.stack(big).sum(0).cpu().numpy()):
+        raise AssertionError("[nbc] iallreduce: not the plain sum")
+    log(f"[nbc] run_ranks({R}, device_mesh={mesh}): iallreduce 64 MiB f32 "
+        f"(8 segments), ibcast 64 MiB (8), iallgather 1 MiB and 64 KiB, "
+        f"ialltoall 64 MiB, ialltoallv of the hot MoE routing, all posted "
+        f"then waitall, in {wall:.2f} s; every request device_nbc; results "
+        f"bitwise the blocking calls'; launches {launches}")
+    figures["launches"] = launches
+
+    # 2. the unaligned segmentation: 1001 int32 at 256-byte segments
+    cfg.set("DEVICE_NBC_SEG_BYTES", 256)
+    try:
+        def app_odd(comm):
+            out = np.empty(NBC_ODD, np.int32)
+            comm.iallreduce(odd[comm.rank], out).wait()
+            return out
+        _zero(*mods)
+        res = mvt.run_ranks(R, app_odd, device_mesh=mesh)
+        _check_launches("nbc unaligned", mods,
+                        _want(mods, hbm_ring_all_reduce=8))
+    finally:
+        cfg.set("DEVICE_NBC_SEG_BYTES", seg_bytes)
+    want_odd = mvt.run_ranks(R, lambda comm: comm.allreduce(
+        odd[comm.rank]).cpu().numpy(), device_mesh=mesh)
+    plain_odd = torch.stack(odd).sum(0, dtype=torch.int32).cpu().numpy()
+    for r in range(R):
+        if not np.array_equal(res[r], want_odd[r]) or not np.array_equal(
+                res[r], plain_odd):
+            raise AssertionError(f"[nbc] unaligned iallreduce rank {r}")
+    log(f"[nbc] 1001 int32 tensors at DEVICE_NBC_SEG_BYTES=256: 8 K3 "
+        f"launches on segments 504 B apart (not 16-byte aligned), bitwise "
+        f"the blocking call and the plain sum")
+
+    # 3. the (2, 4) mesh: each 8 MiB segment runs 2 K4 + 2 K5
+    mesh24 = mvt.make_mesh((2, 4), ("x", "y"), dev)
+
+    def app_24(comm):
+        out = np.empty(N, np.float32)
+        req = comm.iallreduce(big[comm.rank], out)
+        req.wait()
+        return out, req.device_nbc
+    _zero(*mods)
+    res = mvt.run_ranks(R, app_24, device_mesh=mesh24)
+    _check_launches("nbc (2, 4)", mods, _want(
+        mods, hbm_ring_reduce_scatter=16, hbm_ring_all_gather=16))
+    want24 = mvt.run_ranks(R, lambda comm: comm.allreduce(
+        big[comm.rank]).cpu().numpy(), device_mesh=mesh24)
+    for r in range(R):
+        if not res[r][1] or not np.array_equal(res[r][0], want24[r]):
+            raise AssertionError(f"[nbc] (2, 4) iallreduce rank {r}")
+    log("[nbc] (2, 4) mesh iallreduce of 64 MiB f32: 8 segments, 16 K4 + "
+        "16 K5, bitwise the blocking call")
+
+    # 4. a persistent allreduce_init, 3 starts
+    def app_pers(comm):
+        out = np.empty(N, np.float32)
+        req = comm.allreduce_init(big[comm.rank], out)
+        built = sorted(k[1] for k in comm.device_channel._programs
+                       if k[0] == "allreduce")
+        got = []
+        for _ in range(3):
+            out[:] = np.nan
+            req.start()
+            req.wait()
+            got.append(out.copy())
+        return built, got
+    p0 = mpit.pvar("dev_persistent_starts").read()
+    _zero(*mods)
+    res = mvt.run_ranks(R, app_pers, device_mesh=mesh)
+    _check_launches("nbc persistent", mods,
+                    _want(mods, hbm_ring_all_reduce=24))
+    starts = mpit.pvar("dev_persistent_starts").read() - p0
+    if starts != R * 3:
+        raise AssertionError(f"[nbc] dev_persistent_starts +{starts}, "
+                             f"expected {R * 3}")
+    seg = N // 8
+    for r in range(R):
+        built, got = res[r]
+        if built != [seg]:
+            raise AssertionError(f"[nbc] rank {r}: after init _programs "
+                                 f"holds {built}, expected [{seg}]")
+        for g in got:
+            if not np.array_equal(g, blocking[r]["allreduce"]):
+                raise AssertionError(f"[nbc] persistent start rank {r}")
+    log(f"[nbc] allreduce_init of 64 MiB f32: init built the segment "
+        f"program ({seg} elements), 3 starts x 8 segments = 24 K3 launches, "
+        f"dev_persistent_starts +{starts:.0f}, each start bitwise")
+
+    # 5. no launch waits for the card: one 64 MiB segment's event reads
+    # not ready as soon as its launch returns
+    ready_after = []
+    real_launch = coll_dev.DeviceCollChannel._nb_launch
+
+    def launch_and_query(self, *a, **k):
+        outs, ev = real_launch(self, *a, **k)
+        ready_after.append(ev.query())
+        return outs, ev
+    coll_dev.DeviceCollChannel._nb_launch = launch_and_query
+    cfg.set("DEVICE_NBC_SEG_BYTES", 0)
+    try:
+        def app_one(comm):
+            out = np.empty(N, np.float32)
+            comm.iallreduce(big[comm.rank], out).wait()
+            return out
+        res = mvt.run_ranks(R, app_one, device_mesh=mesh)
+    finally:
+        cfg.set("DEVICE_NBC_SEG_BYTES", seg_bytes)
+        coll_dev.DeviceCollChannel._nb_launch = real_launch
+    if ready_after != [False]:
+        raise AssertionError(f"[nbc] a 64 MiB segment's event read "
+                             f"{ready_after} right after its launch")
+    for r in range(R):
+        if not np.array_equal(res[r], blocking[r]["allreduce"]):
+            raise AssertionError(f"[nbc] one-segment iallreduce rank {r}")
+    log("[nbc] one 64 MiB segment: its event reads query() == False right "
+        "after the launch returns")
+
+    # 6. overlap, recorded with no limit and no claim: the blocking
+    # allreduce then a matmul, against iallreduce, the matmul, wait()
+    mats = [torch.randn(NBC_MATMUL, NBC_MATMUL, generator=gen, device=dev)
+            for _ in range(R)]
+    marks, restore = _nb_host_timers(coll_dev)
+
+    def app_overlap(comm):
+        r = comm.rank
+        stream = torch.cuda.current_stream()
+        out = np.empty(N, np.float32)
+        times = {"blocking": [], "nonblocking": [], "matmul_alone": [],
+                 "allreduce_alone": [], "iallreduce_alone": []}
+        alone = {"matmul_alone": lambda: torch.matmul(mats[r], mats[r]),
+                 "allreduce_alone": lambda: comm.allreduce(big[r], out),
+                 "iallreduce_alone": lambda: comm.iallreduce(
+                     big[r], out).wait()}
+        posts, waits = [], []
+        for key, fn in alone.items():
+            for _ in range(1 + NBC_RUNS):
+                t0 = time.perf_counter()
+                fn()
+                stream.synchronize()
+                times[key].append(time.perf_counter() - t0)
+        for _ in range(1 + NBC_RUNS):
+            t0 = time.perf_counter()
+            comm.allreduce(big[r], out)
+            torch.matmul(mats[r], mats[r])
+            stream.synchronize()
+            times["blocking"].append(time.perf_counter() - t0)
+        for _ in range(1 + NBC_RUNS):
+            t0 = time.perf_counter()
+            req = comm.iallreduce(big[r], out)
+            t1 = time.perf_counter()
+            torch.matmul(mats[r], mats[r])
+            t2 = time.perf_counter()
+            req.wait()
+            stream.synchronize()
+            t3 = time.perf_counter()
+            times["nonblocking"].append(t3 - t0)
+            posts.append(t1 - t0)
+            waits.append(t3 - t2)
+        return times, posts, waits
+    try:
+        res = mvt.run_ranks(R, app_overlap, device_mesh=mesh)
+    finally:
+        restore()
+    med = {k: statistics.median(t for r in range(R)
+                                for t in res[r][0][k][1:]) * 1e3
+           for k in res[0][0]}
+    per_rank = {k: [round(statistics.median(res[r][0][k][1:]) * 1e3, 3)
+                    for r in range(R)] for k in med}
+    # host split of the nonblocking calls: the launches are made by
+    # whichever rank polls first once all have posted (8 a call, the
+    # first also stages), every rank polls and finishes; launches are
+    # timed inside the polls that made them
+    kinds = collections.defaultdict(list)
+    for thread, kind, a, b in marks:
+        kinds[kind].append(b - a)
+    n_calls = 2 * (1 + NBC_RUNS)    # iallreduce alone, then overlapped
+    launch = kinds["launch"]
+    if len(launch) != 8 * n_calls:
+        raise AssertionError(f"[nbc] {len(launch)} segment launches in "
+                             f"{n_calls} calls")
+    split = {
+        "post_us": statistics.median(t for r in range(R)
+                                     for t in res[r][1][1:]) * 1e6,
+        "first_launch_us": statistics.median(
+            launch[i * 8] for i in range(1, n_calls)) * 1e6,
+        "other_7_launches_us": statistics.median(
+            sum(launch[i * 8 + 1:(i + 1) * 8]) for i in range(1, n_calls))
+        * 1e6,
+        "polls_a_call": len(kinds["poll"]) / n_calls,
+        "polls_but_launches_us_a_call": (sum(kinds["poll"]) - sum(launch))
+        / n_calls * 1e6,
+        "finish_us": statistics.median(kinds["finish"]) * 1e6,
+        "wait_us": statistics.median(t for r in range(R)
+                                     for t in res[r][2][1:]) * 1e6}
+    log(f"[nbc] {smi}: overlap, 8 ranks, 64 MiB f32 allreduce (numpy "
+        f"recvbuf) + one {NBC_MATMUL}^2 f32 matmul a rank, median of "
+        f"{NBC_RUNS} after 1 over the ranks: blocking then matmul "
+        f"{med['blocking']:.3f} ms, iallreduce + matmul + wait "
+        f"{med['nonblocking']:.3f} ms; alone: matmul "
+        f"{med['matmul_alone']:.3f}, allreduce {med['allreduce_alone']:.3f}, "
+        f"iallreduce + wait {med['iallreduce_alone']:.3f} ms; per rank "
+        f"{per_rank}")
+    log(f"[nbc] {smi}: host split of the iallreduce, us: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in split.items()))
+    figures["overlap_ms"] = med
+    figures["overlap_per_rank_ms"] = per_rank
+    figures["host_split"] = split
+
+    # 7. a rank that fails after its peers posted
+    outcome = {}
+
+    def app_dead(comm):
+        x = small[comm.rank]
+        if comm.rank == 3:
+            time.sleep(0.3)
+            raise RuntimeError("the victim dies")
+        t0 = time.perf_counter()
+        try:
+            comm.iallreduce(x, np.empty(NBC_SMALL, np.float32)).wait()
+            outcome[comm.rank] = "completed"
+        except MPIException as e:
+            outcome[comm.rank] = (e.error_class, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    try:
+        mvt.run_ranks(R, app_dead, device_mesh=mesh, timeout=60)
+    except RuntimeError as e:
+        if "the victim dies" not in repr(e):
+            raise
+    else:
+        raise AssertionError("[nbc] the victim's failure did not surface")
+    took = time.perf_counter() - t0
+    if sorted(outcome) != [r for r in range(R) if r != 3] or not all(
+            v[0] == MPIX_ERR_PROC_FAILED and v[1] < 5
+            for v in outcome.values()):
+        raise AssertionError(f"[nbc] peers of a dead rank: {outcome}")
+    if mpit.pvar("nbc_scheds_active").read() != 0:
+        raise AssertionError("[nbc] a schedule was left active")
+    figures["dead_rank_wait_s"] = max(v[1] for v in outcome.values())
+    log(f"[nbc] a rank dies after its peers posted: every peer's wait() "
+        f"raised MPIX_ERR_PROC_FAILED within "
+        f"{max(v[1] for v in outcome.values()):.3f} s (run {took:.2f} s)")
+
+    # 8. [trace]: one traced iallreduce through bin/mv2tconform
+    d = tempfile.mkdtemp(prefix="mv2t-nbc-trace-")
+    cfg.set("TRACE", True)
+    cfg.set("TRACE_DIR", d)
+    try:
+        mvt.run_ranks(R, app_one, device_mesh=mesh)
+    finally:
+        cfg.set("TRACE", False)
+        cfg.set("TRACE_DIR", "")
+    names = collections.Counter(ev[2] for dump in _read_dumps(d).values()
+                                for ev in dump if ev[1] in ("nbc", "device"))
+    if names["nbc_dev_issue"] != 8 or names["nbc_dev_complete"] != 8 or \
+            names["sched_complete"] != R:
+        raise AssertionError(f"[nbc] traced iallreduce events {names}")
+    conform = subprocess.run(
+        [sys.executable, os.path.join(HERE, "bin", "mv2tconform"), d],
+        capture_output=True, text=True, timeout=120)
+    verdict = (conform.stdout.strip().splitlines() or [""])[-1]
+    if conform.returncode != 0:
+        raise AssertionError(f"[nbc] bin/mv2tconform exited "
+                             f"{conform.returncode}: {conform.stdout[-3000:]}"
+                             f"{conform.stderr[-2000:]}")
+    import shutil
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"[trace] nbc: one traced iallreduce, 8 segments, "
+        f"{sum(names.values())} nbc and device events; bin/mv2tconform "
+        f"exit 0 ({verdict})")
+    figures["mv2tconform"] = verdict
+    figures["phase_s"] = time.perf_counter() - t_phase
+    log(f"[nbc] phase took {figures['phase_s']:.2f} s")
+    return figures
 
 
 RMA_PVARS = ("dev_rma_tier_rdma", "dev_rma_tier_epoch",
@@ -4482,6 +4899,8 @@ def main(argv=None):
     k14q_launches = phase_rma_quant(torch, rma, ring, mpit, cfg, dev)
     attn_launches, attn_lat, attn_data = phase_attn(
         torch, flash, ring_attention, ulysses, MeshComm, make_mesh, dev)
+    nbc = phase_nbc(torch, np, mvt, ici, ring, alltoall, mpit, cfg, moe, smi,
+                    dev)
     info = detect.detect(dev)
     kernels, extra = phase_times(torch, hbm, timing, info, smi, inputs,
                                  lat, launches, full_err)
@@ -4513,6 +4932,7 @@ def main(argv=None):
     extra.update(a2a_extra)
     extra.update(rma_extra)
     extra["flash_build"] = flash_build
+    extra["nbc"] = nbc
     extra["rma_host_profile"] = phase_rma_host_profile(torch, dev)
     extra["trace"] = phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)

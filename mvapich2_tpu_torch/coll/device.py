@@ -27,8 +27,7 @@ Three bindings are ported, chosen by geometry (``bind_universes``):
 * :class:`HBMSlotChannel`: all ranks share one device and collectives
   run through an on-card slot segment (``ops/hbm.py``).
 
-Nonblocking collectives and the host algorithm tier are not ported; a
-call that the JAX package's
+The host algorithm tier is not ported; a call that the JAX package's
 ``_select_transport`` sends to the host tier (an 8-byte dtype or a
 user-defined op, also under a forced ``<COLL>_ALGO=device``; a forced
 host algorithm; ``USE_DEVICE_COLL`` off without ``<COLL>_ALGO=device``;
@@ -37,6 +36,27 @@ a numpy buffer below ``DEVICE_COLL_MIN_BYTES``; alltoallv with
 channel) raises ``NotImplementedError``, as does a mesh that neither
 covers the ranks one to one nor divides them (the JAX package's host
 path).
+
+Nonblocking collectives (the JAX package's device NBC tier): on the 1:1
+mesh channel iallreduce, ibcast, iallgather, ialltoall and ialltoallv
+(and their persistent ``*_init`` twins, ``core/comm.py``) become a small
+schedule DAG (``coll/nbc``) of this rank: one CALL deposits the rank's
+buffer into a per-sequence call record of the rendezvous and returns,
+one POLL a segment launches the segment once every rank has deposited
+(whichever rank polls first) and then reads its completion, and a last
+CALL lands this rank's result in its numpy ``recvbuf``
+(``DeviceCollChannel.nonblocking`` and ``_nb_*``). allreduce and bcast
+split into at most ``DEVICE_NBC_MAX_SEGS`` segments of
+``DEVICE_NBC_SEG_BYTES`` a shard; each segment runs the blocking
+path's program (``_program``: the same kernels) on a slice of the staged
+shards, enqueued on the rendezvous's side stream behind every deposit's
+event, and one CUDA event after it is what the poll queries: no poll and
+no launch waits for the card. A call the device tier cannot take (the
+slot and fold channels, ``MPI_IN_PLACE``, a missing or tensor
+``recvbuf``, a dtype or op that does not lower, a call
+``_select_transport`` keeps on the host) counts ``dev_coll_fallback_nbc``
+and raises ``NotImplementedError``: the JAX package runs it on its host
+schedule, which is not ported.
 
 Observability (the JAX package's ``_run`` and ``_note_tier`` hooks): under
 MV2T_TRACE each call drops a ``device``-lane ``dev_<coll>`` B/E span in
@@ -66,6 +86,7 @@ its stream after each call, to read the ring kernels' error word.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import os
 import threading
 import time
@@ -77,9 +98,11 @@ import torch
 
 from .. import metrics, mpit, trace
 from ..core import op as opmod
+from ..core.errors import MPIX_ERR_PROC_FAILED, MPIException
 from ..ops import alltoall, hbm, ici, quant, ring
 from ..utils import is_device_tensor
 from ..utils.config import get_config
+from .nbc.engine import Doorbell
 
 
 # -- MV2T_JAX_PROFILE: the torch.profiler bracket ------------------------
@@ -159,7 +182,13 @@ class _Rendezvous:
     """Per-bound-comm meeting point: a slot per rank's deposit, two
     barrier phases per collective (deposit -> leader compute -> pickup).
     MPI requires every rank to issue collectives on a comm in the same
-    order, so one in-flight collective per comm is the contract."""
+    order, so one in-flight collective per comm is the contract.
+
+    Nonblocking calls have no barrier to block in: ranks deposit under
+    ``nb_lock`` into per-sequence call records (``nb_calls``) that the
+    segments' polls read; ``nb_bell`` is the doorbell their waits sleep
+    on; ``nb_stream`` the side stream their segments run on (made at the
+    first launch on a CUDA device)."""
 
     def __init__(self, size: int):
         self.size = size
@@ -169,10 +198,20 @@ class _Rendezvous:
         self.result: List = [None] * size
         self.done: Optional[torch.cuda.Event] = None
         self.error: Optional[BaseException] = None
+        self.nb_lock = threading.Lock()
+        self.nb_calls: Dict[int, dict] = {}
+        self.nb_failed = False
+        self.nb_bell = Doorbell()
+        self.nb_stream = None
 
     def abort(self) -> None:
         """Break the barrier so peers blocked in a device collective see
-        a failure instead of deadlocking (called when a rank dies)."""
+        a failure instead of deadlocking (called when a rank dies). A
+        nonblocking call has no barrier to break: the sticky
+        ``nb_failed`` makes every later deposit and poll raise
+        MPIX_ERR_PROC_FAILED, and the ring wakes the waiters now."""
+        self.nb_failed = True
+        self.nb_bell.ring()
         self.barrier.abort()
 
 
@@ -220,9 +259,15 @@ class _Channel:
         self.size = size
         self.u = None           # the rank's Universe (bind_universes)
         self._programs: Dict = {}
+        self._nb_seq = 0        # this rank's nonblocking-call sequence
 
     def abort(self) -> None:
         self.rv.abort()
+
+    def nonblocking(self, comm, name: str, *a, plan: bool = False):
+        """The device-tier request of one i-collective, or None when the
+        call cannot ride it: the slot channel keeps the host schedule."""
+        return None
 
     def _program(self, name: str, n: int, dtype_str: str, op: str,
                  extra=None):
@@ -559,6 +604,276 @@ class DeviceCollChannel(_Channel):
         out = self._run("alltoallv", dep, op=None)
         return _deliver_v(out, recvbuf, rcounts, rdispls)
 
+    # -- nonblocking device collectives on the NBC DAG -------------------
+    # The blocking rendezvous waits at a threading.Barrier, which a DAG
+    # vertex must never do. The i-collective is a small DAG instead: a
+    # CALL deposits this rank's buffer into a per-sequence call record,
+    # one POLL a segment launches it (the first poll past full arrival,
+    # on whichever rank) and then reads its CUDA event on every engine
+    # pass, and a last CALL lands this rank's result. Compute the rank
+    # enqueues between the call and its wait() overlaps the segments.
+
+    def _nb_segments(self, name: str, n: int,
+                     dtype: torch.dtype) -> List[Tuple[int, int]]:
+        """[(off, len)] program segments. The elementwise collectives
+        (allreduce, bcast) split into segments that complete one by one;
+        allgather and alltoall(v) run as one."""
+        if name not in ("allreduce", "bcast") or n <= 1:
+            return [(0, n)]
+        cfg = get_config()
+        seg_bytes = int(cfg["DEVICE_NBC_SEG_BYTES"])
+        if seg_bytes <= 0:
+            return [(0, n)]
+        seg = max(1, seg_bytes // max(1, dtype.itemsize))
+        nseg = min(int(cfg["DEVICE_NBC_MAX_SEGS"]), (n + seg - 1) // seg)
+        if nseg <= 1:
+            return [(0, n)]
+        per = (n + nseg - 1) // nseg
+        return [(o, min(per, n - o)) for o in range(0, n, per)]
+
+    def nonblocking(self, comm, name: str, *a, plan: bool = False):
+        """The device-tier request of one i-collective (``a``: the
+        blocking entry's arguments after the comm), or None when the call
+        cannot ride it (``build_nonblocking_request`` counts
+        dev_coll_fallback_nbc). ``plan=True`` is the MPI_*_init pre-warm:
+        the same routing gates, then ``prewarm`` instead of a request
+        (True/False)."""
+        opn, op_sel, root = None, None, 0
+        rcounts = rdispls = None
+        if name == "allreduce":
+            sendbuf, recvbuf, count, datatype, op_sel = a
+            opn = _op_name(op_sel)
+            if opn is None:
+                return None
+            send_eff, n = sendbuf, count
+            wire = count * datatype.itemsize
+        elif name == "bcast":
+            buf, count, datatype, root = a
+            sendbuf = recvbuf = send_eff = buf
+            n = count
+            wire = count * datatype.itemsize
+        elif name in ("allgather", "alltoall"):
+            sendbuf, recvbuf, count, datatype = a
+            send_eff = sendbuf
+            n = count if name == "allgather" else count * self.size
+            wire = count * datatype.itemsize * self.size
+        elif name == "alltoallv":
+            (sendbuf, scounts, sdispls, recvbuf, rcounts, rdispls,
+             datatype) = a
+            if sdispls is None:
+                sdispls = _dense_displs(scounts)
+            if rdispls is None:
+                rdispls = _dense_displs(rcounts)
+            send_eff, n = sendbuf, int(sum(scounts))
+            wire = n * datatype.itemsize
+        else:
+            return None
+        if _is_in_place(sendbuf) or _is_in_place(recvbuf):
+            return None
+        if recvbuf is None or is_device_tensor(recvbuf):
+            # the JAX package's arrays are immutable, so its completion
+            # CALL needs a host recvbuf to write through; so does this one
+            return None
+        if not _dtype_ok(send_eff) or not _dtype_ok(recvbuf):
+            return None
+        try:
+            _select_transport(name, wire, op_sel, send_eff)
+        except NotImplementedError:     # the JAX package's host answer
+            return None
+        if plan:
+            if name == "alltoallv":
+                # the count matrix is cross-rank state: the first start()
+                # assembles it and builds its program
+                return False
+            return self.prewarm(name, n, send_eff, opn or "sum")
+        if name == "alltoallv":
+            local = _VDeposit(_pack_v(sendbuf, scounts, sdispls), scounts)
+        else:
+            local = _as_local(sendbuf, recvbuf, n)
+        return self._build_nonblocking(comm, name, local, opn or "sum",
+                                       root, recvbuf, rcounts, rdispls)
+
+    def _build_nonblocking(self, comm, name: str, local, op: str,
+                           root: int, recvbuf, rcounts=None, rdispls=None):
+        """The i-collective as this rank's DAG (deposit CALL -> one POLL a
+        segment -> completion CALL), started on its engine; returns the
+        schedule's request."""
+        from .nbc import engine as nbc_engine
+        from .nbc.dag import SchedDAG
+        rv, rank = self.rv, self.rank
+        seq = self._nb_seq
+        self._nb_seq += 1
+        n, dtype_str = self._slot_extent(local)
+        dtype = _torch_dtype(local)
+        segs = self._nb_segments(name, n, dtype)
+        dag = SchedDAG()
+
+        def deposit():
+            ev = _record_event(self.device)   # on this rank's stream
+            with rv.nb_lock:
+                _check_alive(rv, name)
+                rec = rv.nb_calls.get(seq)
+                if rec is None:
+                    k = len(segs)
+                    rec = rv.nb_calls[seq] = {
+                        "slots": [None] * self.size,
+                        "events": [None] * self.size, "arrived": 0,
+                        "shards": None, "outs": [None] * k,
+                        "done": [None] * k, "t0": [None] * k,
+                        "tracer": [None] * k, "landed": [False] * k,
+                        "error": None, "picked": 0}
+                rec["slots"][rank] = local
+                rec["events"][rank] = ev
+                rec["arrived"] += 1
+            rv.nb_bell.ring()
+        dep = dag.call(deposit)
+        polls = [dag.poll(lambda si=si, off=off, ln=ln: self._nb_poll(
+                     name, seq, si, off, ln, dtype_str, op, root, len(segs)),
+                     after=(dep,))
+                 for si, (off, ln) in enumerate(segs)]
+        dag.call(lambda: self._nb_finish(name, seq, recvbuf, rcounts,
+                                         rdispls), after=tuple(polls))
+        req = nbc_engine.start(comm, dag, f"dev-i{name}")
+        req.device_nbc = True
+        return req
+
+    def _nb_poll(self, name: str, seq: int, si: int, off: int, ln: int,
+                 dtype_str: str, op: str, root: int, nseg: int) -> bool:
+        """One engine pass over a parked segment. False while peers are
+        still depositing or the card still runs it; the launch happens
+        here, on the first poll past full arrival. Never waits for the
+        card: completion is its event's ``query()``."""
+        rv = self.rv
+        _check_alive(rv, name)
+        launched = False
+        with rv.nb_lock:
+            rec = rv.nb_calls.get(seq)
+            if rec is None or rec["arrived"] < self.size:
+                return False
+            if rec["error"] is not None:
+                raise rec["error"]
+            if rec["outs"][si] is None:
+                try:
+                    rec["outs"][si], rec["done"][si] = self._nb_launch(
+                        rec, name, off, ln, dtype_str, op, root)
+                except BaseException as e:   # every rank's poll raises it
+                    rec["error"] = e
+                    raise
+                rec["t0"][si] = time.perf_counter()
+                launched = True
+                mpit.pvar("dev_nbc_segments").inc()
+                tr = rec["tracer"][si] = self.u.tracer
+                if tr is not None:
+                    tr.record("device", "nbc_dev_issue", "i", coll=name,
+                              seg=si, of=nseg, n=int(ln))
+            ev = rec["done"][si]
+        if launched:
+            rv.nb_bell.ring()
+        if ev is not None and not ev.query():
+            return False
+        with rv.nb_lock:
+            if not rec["landed"][si]:
+                rec["landed"][si] = True
+                dt = time.perf_counter() - rec["t0"][si]
+                try:    # a ring kernel's error word, once the card is done
+                    ring.raise_pending()
+                except RuntimeError as e:
+                    rec["error"] = e
+                # in the launching rank's recorder, beside its issue, on
+                # whichever rank saw the event first
+                tr = rec["tracer"][si]
+                if tr is not None:
+                    tr.record("device", "nbc_dev_complete", "i", coll=name,
+                              seg=si, us=round(dt * 1e6, 3))
+                mx = metrics.LIVE
+                if mx is not None:
+                    mx.rec_us("lat_dev_nbc", dt * 1e6)
+            if rec["error"] is not None:
+                raise rec["error"]
+        return True
+
+    def _nb_launch(self, rec: dict, name: str, off: int, ln: int,
+                   dtype_str: str, op: str, root: int):
+        """Enqueue one segment (under ``nb_lock``, by whichever rank's
+        poll got there first) and return (one output per rank, the CUDA
+        event after it; None on the CPU). On a CUDA device it runs on the
+        rendezvous's side stream: the call's first segment makes it wait
+        on every rank's deposit event and stages the deposits once
+        (numpy ones through pinned memory, asynchronously; tensors are
+        read in place, recorded on the stream so their memory outlives
+        the reads); every segment runs the blocking path's program on
+        slices of the staged shards."""
+        rv, dev = self.rv, self.device
+        stream = None
+        if dev.type == "cuda":
+            if rv.nb_stream is None:
+                rv.nb_stream = torch.cuda.Stream(dev)
+            stream = rv.nb_stream
+        with _on_stream(dev, stream):
+            if rec["shards"] is None:
+                _wait_deposits(dev, rec["events"])
+                rec["shards"] = [_nb_stage(s.data if isinstance(
+                    s, _VDeposit) else s, dev, stream) for s in rec["slots"]]
+            shards = rec["shards"]
+            if name == "alltoallv":
+                # the count matrix, assembled from every rank's row
+                counts = tuple(s.scounts for s in rec["slots"])
+                outs = self._program("alltoallv", 0, dtype_str, "none",
+                                     counts)(shards, 0)
+            else:
+                n = shards[0].numel()
+                xs = shards if (off, ln) == (0, n) else \
+                    [s[off:off + ln] for s in shards]
+                outs = self._program(name, ln, dtype_str, op)(xs, root)
+            return outs, _record_event(dev)
+
+    def _nb_finish(self, name: str, seq: int, recvbuf, rcounts,
+                   rdispls) -> None:
+        """Completion CALL (every segment polled ready): this rank's
+        stream waits on the segments' events, then its rows land in
+        ``recvbuf`` (device-to-host); the record retires when the last
+        rank has picked up."""
+        rv = self.rv
+        with rv.nb_lock:
+            rec = rv.nb_calls[seq]
+            parts = [out[self.rank] for out in rec["outs"]]
+            events = list(rec["done"])
+        try:
+            if self.device.type == "cuda":
+                stream = torch.cuda.current_stream(self.device)
+                for ev in events:
+                    stream.wait_event(ev)
+                for part in parts:
+                    # allocated on the side stream, read on this one
+                    part.record_stream(stream)
+            if name == "alltoallv":
+                _deliver_v(parts[0], recvbuf, rcounts, rdispls)
+            else:
+                _land(parts, recvbuf)
+        finally:
+            with rv.nb_lock:
+                rec["picked"] += 1
+                if rec["picked"] >= self.size:
+                    rv.nb_calls.pop(seq, None)
+
+    def prewarm(self, name: str, n: int, sendbuf, op: str = "sum") -> bool:
+        """Persistent-init hook: build every program signature a start()
+        of this call (``n`` elements of ``sendbuf``'s dtype) launches, and
+        load the CUDA kernels on a CUDA device (``ops/_build.py``), so
+        that no start() pays for a build. Returns False when a build
+        fails (a start() then raises on it)."""
+        try:
+            dtype_str = self._slot_extent(sendbuf)[1]
+            for _, ln in self._nb_segments(name, n, _torch_dtype(sendbuf)):
+                self._program(name, ln, dtype_str, op)
+            if self.device.type == "cuda":
+                from ..ops import _build
+                _build.load("ring")
+            return True
+        except Exception as e:   # noqa: BLE001 - a start() raises on it
+            warnings.warn(f"persistent {name} pre-warm failed ({e!r})")
+            return False
+
 
 class DeviceFoldChannel(DeviceCollChannel):
     """Leaders per chip: ``n`` ranks over a mesh of ``ndev`` devices, ``1 <
@@ -599,6 +914,9 @@ class DeviceFoldChannel(DeviceCollChannel):
 
     def _mesh_extent(self) -> int:
         return self.ndev
+
+    def nonblocking(self, comm, name: str, *a, plan: bool = False):
+        return None     # the host NBC schedule (the fold has no segments)
 
     def _fold_chip(self, j: int, n: int, op: str) -> torch.Tensor:
         """Device ``j``'s ``k`` deposits folded to one ``[n]`` shard."""
@@ -752,6 +1070,61 @@ def _wait_deposits(device: torch.device, events) -> None:
         for ev in events:
             if ev is not None:
                 stream.wait_event(ev)
+
+
+def _check_alive(rv: _Rendezvous, name: str) -> None:
+    if rv.nb_failed:
+        raise MPIException(MPIX_ERR_PROC_FAILED,
+                           f"device nonblocking {name}: a peer rank failed")
+
+
+def _on_stream(device: torch.device, stream):
+    """``stream`` made current on ``device`` (nothing on the CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    ctx = contextlib.ExitStack()
+    ctx.enter_context(torch.cuda.device(device))
+    ctx.enter_context(torch.cuda.stream(stream))
+    return ctx
+
+
+def _nb_stage(slot, device: torch.device, stream) -> torch.Tensor:
+    """One deposit as a flat tensor on ``device``, for a segment on
+    ``stream`` (the current stream): a tensor there as it is, recorded on
+    the stream; a numpy deposit copied through pinned memory without
+    waiting for the card (the host allocator keeps the pinned block until
+    the copy is done)."""
+    if is_device_tensor(slot):
+        t = _to_device(slot, device).reshape(-1)
+        if stream is not None:
+            t.record_stream(stream)
+        return t
+    host = torch.from_numpy(np.ascontiguousarray(slot).reshape(-1))
+    if stream is None:
+        return host if device.type == "cpu" else host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _land(parts: List[torch.Tensor], recvbuf) -> None:
+    """This rank's result, one part a segment in order, into the numpy
+    ``recvbuf`` (device-to-host, on the current stream): straight into a
+    contiguous buffer of the result's dtype, else through ``_deliver``."""
+    dst = np.asarray(recvbuf)
+    n = sum(p.numel() for p in parts)
+    flat = None
+    if dst.flags.c_contiguous and dst.flags.writeable and dst.size >= n:
+        try:
+            flat = torch.from_numpy(dst.reshape(-1))
+        except TypeError:      # a numpy dtype torch does not map
+            flat = None
+    if flat is None or flat.dtype != parts[0].dtype:
+        _deliver(parts[0] if len(parts) == 1 else
+                 torch.cat([p.reshape(-1) for p in parts]), recvbuf)
+        return
+    off = 0
+    for p in parts:
+        flat[off:off + p.numel()].copy_(p.reshape(-1))
+        off += p.numel()
 
 
 def _torch_dtype(buf) -> torch.dtype:
@@ -983,6 +1356,31 @@ def install_device_coll(comm, channel: _Channel) -> None:
     comm.coll_fns["alltoallv"] = a2av_entry
 
 
+def build_nonblocking_request(comm, name: str, *a):
+    """The i-collective's device-tier request, or None when ``comm`` has
+    no device channel or the call cannot ride the tier; a call the
+    channel refuses counts dev_coll_fallback_nbc (the JAX package then
+    takes its host schedule; ``coll/nonblocking.py`` raises). A kernel
+    that fails to build or launch raises out of the request's wait()."""
+    channel = comm.device_channel
+    if channel is None:
+        return None
+    req = channel.nonblocking(comm, name, *a)
+    if req is None:
+        mpit.pvar("dev_coll_fallback_nbc").inc()
+    return req
+
+
+def prewarm_persistent(comm, name: str, *a) -> bool:
+    """MPI_*_init hook (``core/comm.py`` ``_coll_init``): when a start()
+    of this persistent collective routes to the device tier, build its
+    programs and load the kernels now (``DeviceCollChannel.prewarm``)."""
+    channel = comm.device_channel
+    if channel is None:
+        return False
+    return bool(channel.nonblocking(comm, name, *a, plan=True))
+
+
 # ---------------------------------------------------------------------------
 # binding (harness entry point)
 # ---------------------------------------------------------------------------
@@ -1023,6 +1421,7 @@ def bind_universes(universes, device: torch.device, mesh=None) -> bool:
     for r, u in enumerate(universes):
         ch = make(r)
         ch.u = u
+        u.engine.bell = rv.nb_bell      # the ranks' waits share a doorbell
         install_device_coll(u.comm_world, ch)
     out_dir = get_config()["JAX_PROFILE"]
     if out_dir and _profiler is None:

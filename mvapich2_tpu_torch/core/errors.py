@@ -3,9 +3,14 @@ package's ``core/errors.py``; the numbering is the same)."""
 
 from __future__ import annotations
 
+MPI_SUCCESS = 0
 MPI_ERR_COUNT = 2
 MPI_ERR_TYPE = 3
+MPI_ERR_REQUEST = 7
 MPI_ERR_ROOT = 8
+MPI_ERR_INTERN = 17
+# ULFM extension class: a peer rank failed while this rank depended on it
+MPIX_ERR_PROC_FAILED = 75
 
 
 class MPIException(Exception):

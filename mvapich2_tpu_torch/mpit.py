@@ -9,15 +9,23 @@ of the JAX package's ``mpit.py`` pvar registry, under the same names):
   ``dev_coll_fallback_{size,dtype,shape}`` - calls
   that took the stock torch lowering instead, by reason (the JAX
   package counts its XLA takes the same way; it has no
-  ``dev_coll_tier_xla``);
+  ``dev_coll_tier_xla``); ``dev_coll_fallback_nbc`` - nonblocking calls
+  that could not ride the device tier;
+* ``dev_nbc_segments`` and ``dev_persistent_starts`` - counters of the
+  nonblocking device collectives: segments launched, persistent starts
+  on the device tier; ``nbc_*`` (``coll/nbc/engine.py``) - the NBC
+  engine's schedules in flight (a level), vertices issued, doorbell
+  wakeups and futile passes;
 * ``dev_effbw_<tier>`` - high-watermarks: the best per-call rate (GB/s)
   on a tier, payload bytes over the host-clock time of the collective;
 * ``dev_rma_tier_{rdma,quant,epoch}``, ``dev_rma_fallback_{noncontig,
   platform,size,dtype}``, ``dev_rma_flush`` and ``dev_rma_wire_bytes`` -
   counters of the one-sided device windows (``rma/device.py``);
-* ``lat_dev_{vmem,hbm,quant,xla,slot}`` and ``lat_rma_flush`` -
-  histograms: log2-bucketed latencies in microseconds of each device
-  collective call by tier and of each one-sided completion wave
+* ``lat_dev_{vmem,hbm,quant,xla,slot}``, ``lat_dev_nbc`` and
+  ``lat_rma_flush`` - histograms: log2-bucketed latencies in microseconds
+  of each device collective call by tier, of each nonblocking segment
+  from its launch to its observed completion, and of each one-sided
+  completion wave
   (recorded through ``metrics.LIVE``).
 """
 
@@ -27,6 +35,7 @@ import threading
 from typing import Dict
 
 PVAR_CLASS_COUNTER = 0
+PVAR_CLASS_LEVEL = 2
 PVAR_CLASS_HIGHWATERMARK = 3
 PVAR_CLASS_HISTOGRAM = 4
 HIST_BUCKETS = 32
@@ -134,6 +143,20 @@ for _tier in ("vmem", "hbm", "quant", "xla", "slot"):
     pvar(f"dev_effbw_{_tier}", PVAR_CLASS_HIGHWATERMARK,
          f"best per-call rate (GB/s) on the '{_tier}' device tier: "
          f"payload bytes over the host-clock time of the collective")
+pvar("dev_coll_fallback_nbc", PVAR_CLASS_COUNTER,
+     "nonblocking collectives on a device-capable comm that could not "
+     "route through the device tier (op/dtype/residency/size, the slot "
+     "or fold channel) and raised for the host schedule, which is not "
+     "ported (coll/device.py build_nonblocking_request)")
+pvar("dev_persistent_starts", PVAR_CLASS_COUNTER,
+     "persistent-collective start() dispatches that rode the device "
+     "nonblocking tier (MPI_*_init handles whose programs were built at "
+     "init, core/comm.py _coll_init)")
+pvar("dev_nbc_segments", PVAR_CLASS_COUNTER,
+     "device nonblocking-collective program segments launched by the NBC "
+     "DAG's poll vertices (coll/device.py _nb_poll: each launch enqueues "
+     "the segment's kernels on the rendezvous's side stream, which the "
+     "engine then polls to completion)")
 pvar("dev_rma_tier_rdma", PVAR_CLASS_COUNTER,
      "one-sided window ops served by the chunked kernels (ops/rma.py "
      "put/get/accumulate, K12-K14)")
@@ -175,6 +198,9 @@ HISTOGRAMS = {
                    "(coll/device.py _run end-to-end)",
     "lat_dev_slot": "device collective latency on the slot tier "
                     "(coll/device.py _run end-to-end)",
+    "lat_dev_nbc": "device nonblocking-collective segment latency "
+                   "(coll/device.py _nb_poll: launch to observed "
+                   "completion on the NBC DAG)",
     "lat_rma_flush": "one-sided completion-wave latency (rma/device.py "
                      "fence/flush/unlock around the queued-op drain)",
 }

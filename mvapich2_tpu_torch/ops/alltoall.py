@@ -236,8 +236,9 @@ TILE_BYTES = 128 * 1024
 
 # K11's tile tables on the card, per (device, matrix, displacements,
 # element size, tile bytes): built once, as the JAX package compiles one
-# program per count matrix
-_TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+# program per count matrix; each with the event after its upload
+_TABLES: "OrderedDict[tuple, Tuple[torch.Tensor, torch.cuda.Event]]" = \
+    OrderedDict()
 _TABLES_MAX = 64
 
 
@@ -264,21 +265,25 @@ def tile_table(plan: _VPlan, esize: int,
 
 def _tiles(dev: torch.device, plan: _VPlan, esize: int) -> torch.Tensor:
     """:func:`tile_table` as an int64 ``(ntiles, 6)`` tensor on ``dev``,
-    from the cache."""
+    from the cache, with the current stream ordered after its upload. A
+    new table is copied from pinned memory without waiting for the card
+    (the nonblocking collectives launch from a poll that must not wait);
+    the event after the copy orders every later launch on any stream."""
     key = (str(dev), plan.counts, plan.sd, plan.rd, esize, TILE_BYTES)
-    t = _TABLES.get(key)
-    if t is not None:
+    stream = torch.cuda.current_stream(dev)
+    got = _TABLES.get(key)
+    if got is not None:
         _TABLES.move_to_end(key)
-        return t
-    t = torch.tensor(tile_table(plan, esize), dtype=torch.int64,
-                     device=dev)
-    # the copy is ordered on this stream only; later launches may run on
-    # other rank streams
-    torch.cuda.current_stream(dev).synchronize()
-    _TABLES[key] = t
-    if len(_TABLES) > _TABLES_MAX:
-        _TABLES.popitem(last=False)
-    return t
+    else:
+        host = torch.tensor(tile_table(plan, esize), dtype=torch.int64)
+        t = host.pin_memory().to(dev, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+        got = _TABLES[key] = (t, ready)
+        if len(_TABLES) > _TABLES_MAX:
+            _TABLES.popitem(last=False)
+    stream.wait_event(got[1])
+    return got[0]
 
 
 def uniform_plan(shards: List[torch.Tensor]) -> _VPlan:

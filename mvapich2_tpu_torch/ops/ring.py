@@ -240,14 +240,22 @@ def check_errors(device: Optional[torch.device] = None) -> None:
     stream, or on the whole card when no device is given. Nothing to
     check before the ring kernels are loaded."""
     from . import _build
-    lib = _build._loaded.get("ring")
-    if lib is None:
+    if _build._loaded.get("ring") is None:
         return
     if device is None:
         torch.cuda.synchronize()
     elif device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
-    _raise_pending(lib)
+    raise_pending()
+
+
+def raise_pending() -> None:
+    """Raise if K8's spin wait timed out since the last check, without
+    waiting for the card (the caller has seen the work it checks end)."""
+    from . import _build
+    lib = _build._loaded.get("ring")
+    if lib is not None:
+        _raise_pending(lib)
 
 
 # ---------------------------------------------------------------------------

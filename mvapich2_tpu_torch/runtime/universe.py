@@ -29,6 +29,7 @@ from typing import Callable, List, Optional, Union
 import torch
 
 from .. import metrics, trace
+from ..coll.nbc.engine import NbcEngine
 from ..core.comm import Comm
 
 DeviceLike = Union[str, torch.device, None]
@@ -52,14 +53,16 @@ def resolve_device(device: DeviceLike) -> torch.device:
 
 class Universe:
     """One rank's world: its rank, the world size, the device its
-    collectives run on, its COMM_WORLD, and its event recorder
-    (``tracer``, None while MV2T_TRACE is off)."""
+    collectives run on, its COMM_WORLD, its event recorder (``tracer``,
+    None while MV2T_TRACE is off) and the engine that progresses its
+    nonblocking collectives (``engine``, ``coll/nbc/engine.py``)."""
 
     def __init__(self, rank: int, size: int, device: torch.device):
         self.rank = rank
         self.size = size
         self.device = device
         self.tracer: Optional[trace.Recorder] = None
+        self.engine = NbcEngine(self)
         self.comm_world = Comm(rank, size, self)
 
     def finalize(self) -> None:
@@ -111,10 +114,12 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
     mesh's virtual devices (see :func:`local_universe`). On a CUDA
     device each rank thread runs on its own stream, synchronized before
     the rank finishes. A rank's exception aborts the device rendezvous
-    (its peers fail instead of hanging) and is re-raised with its rank
-    noted; a rank still running after ``timeout`` seconds raises
-    ``TimeoutError``. Every rank's Universe is finalized when the ranks
-    end, however they end."""
+    (its peers fail instead of hanging: a peer blocked in a collective,
+    or in the wait() of a nonblocking one, which then raises
+    MPIX_ERR_PROC_FAILED) and is re-raised with its rank noted; a rank
+    still running after ``timeout`` seconds raises ``TimeoutError``.
+    Every rank's Universe is finalized when the ranks end, however they
+    end."""
     universes = local_universe(nranks, device, device_mesh)
     dev = universes[0].device
     results: List = [None] * nranks

@@ -8,8 +8,9 @@ the JAX package's dump format, which its ``bin/mv2tconform`` checks and
 its ``trace/perfetto.py`` merges into one Chrome trace-event JSON.
 
 The ``mpi`` lane: a B/E span around each Comm collective of the JAX
-package's ``profile.py`` ``PROFILED_METHODS`` that the port has, in the
-recorder of the comm's universe, installed while any recorder is live.
+package's ``profile.py`` ``PROFILED_METHODS`` that the port has (the
+blocking ones and their ``i*`` twins), in the recorder of the comm's
+universe, installed while any recorder is live.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from .recorder import (LAYERS, LOWERING, Recorder, detach,  # noqa: F401
                        dump_rank, lowering, maybe_attach)
 
 MPI_METHODS = ("bcast", "reduce", "allreduce", "allgather", "alltoall",
-               "reduce_scatter_block")
+               "reduce_scatter_block", "ibarrier", "ibcast", "iallreduce",
+               "iallgather", "ialltoall", "ireduce", "ialltoallv",
+               "ireduce_scatter_block")
 
 _mpi_lock = threading.Lock()
 _originals = {}

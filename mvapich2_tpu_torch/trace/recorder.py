@@ -9,9 +9,13 @@ append ``(timestamp, layer, name, phase, args)`` tuples:
     channel   dev_coll_fallback instants (coll/device.py)
     device    dev_<coll> dispatch spans (coll/device.py), the ici_* and
               ici_axis_* tier instants (ops/ici.py, ops/alltoall.py),
-              the rma_* spans and instants (rma/device.py)
+              the rma_* spans and instants (rma/device.py), the
+              nbc_dev_issue / nbc_dev_complete segment instants
+              (coll/device.py _nb_poll)
+    nbc       the NBC DAG's schedule and vertex events
+              (coll/nbc/engine.py)
 
-The JAX package's other lanes (protocol, progress, nbc, cplane) belong to
+The JAX package's other lanes (protocol, progress, cplane) belong to
 modules that are not ported. The dump (``dump_rank``) has the JAX
 package's schema, so ``bin/mv2tconform`` and ``trace/perfetto.py`` of
 that package read it unchanged.
@@ -37,7 +41,7 @@ from ..utils.config import get_config
 
 # the lanes the port records, a subset of the JAX package's LAYERS under
 # the same names
-LAYERS = ("mpi", "channel", "device")
+LAYERS = ("mpi", "channel", "device", "nbc")
 
 
 class Recorder:

@@ -15,6 +15,9 @@
 * the one-sided knobs ``RMA_CHUNK_BYTES`` (0 inherits
   ``ICI_CHUNK_BYTES``), the tier edges ``DEV_RMA_RDMA_MIN`` and
   ``DEV_RMA_QUANT_MIN`` (``ops/rma.py`` ``planned_rma_tier``);
+* the segmentation of the nonblocking device collectives,
+  ``DEVICE_NBC_SEG_BYTES`` and ``DEVICE_NBC_MAX_SEGS`` (``coll/device.py``
+  ``_nb_segments``);
 * the observability switches ``TRACE``, ``TRACE_BUF`` and ``TRACE_DIR``
   (the per-rank event recorder, ``trace/recorder.py``), ``METRICS`` (the
   latency histograms, ``metrics/__init__.py``) and ``JAX_PROFILE`` (a
@@ -102,7 +105,7 @@ ALGO_CVARS = ("ALLREDUCE", "REDUCE", "BCAST", "ALLGATHER", "ALLTOALL",
 # the ring engine, the device tier edges and the one-sided knobs, with
 # the JAX package's defaults (mpit.py ICI_*, RMA_CHUNK_BYTES and
 # QUANT_BLOCK; coll/tuning.py DEV_TIER_* and DEV_RMA_*; coll/device.py
-# DEVICE_COLL_MIN_BYTES)
+# DEVICE_COLL_MIN_BYTES and DEVICE_NBC_*)
 DEVICE_CVARS = {
     "DEVICE_COLL_MIN_BYTES": 16384,
     "ICI_CHUNK_BYTES": 256 * 1024,
@@ -117,6 +120,11 @@ DEVICE_CVARS = {
     "DEV_RMA_RDMA_MIN": 0,
     "DEV_RMA_QUANT_MIN": 1024 * 1024,
     "QUANT_BLOCK": 512,
+    # the nonblocking device collectives' segments (coll/device.py
+    # DeviceCollChannel._nb_segments): bytes a shard a segment (0 = one
+    # segment) and at most this many segments a call
+    "DEVICE_NBC_SEG_BYTES": 1 << 20,
+    "DEVICE_NBC_MAX_SEGS": 8,
 }
 
 # the recorder, histogram and profiler switches, with the JAX package's

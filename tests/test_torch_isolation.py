@@ -198,7 +198,8 @@ def test_config_reads_the_reference_env_names(monkeypatch):
         "ICI_CHUNK_BYTES", "ICI_PIPELINE_DEPTH", "ICI_BIDIR",
         "DEV_TIER_VMEM_MAX", "DEV_TIER_XLA_MIN", "DEV_TIER_QUANT_MIN",
         "DEV_TIER_AXES_MIN", "QUANT_COLL", "RMA_CHUNK_BYTES", "DEV_RMA_RDMA_MIN",
-        "DEV_RMA_QUANT_MIN", "QUANT_BLOCK", "DEVICE_COLL_MIN_BYTES"}
+        "DEV_RMA_QUANT_MIN", "QUANT_BLOCK", "DEVICE_COLL_MIN_BYTES",
+        "DEVICE_NBC_SEG_BYTES", "DEVICE_NBC_MAX_SEGS"}
     # size suffixes and a reload, as in the JAX package
     cfg = config.Config({"ICI_CHUNK_BYTES": 1, "ICI_BIDIR": True})
     monkeypatch.setenv("MV2T_ICI_CHUNK_BYTES", "64K")
