@@ -174,6 +174,29 @@ non-zero, printing no result, without them. Phases:
    dump bin/mv2tconform passes. Each kernel count is zeroed just before
    its call and read just after.
 
+14. models (after the RMA host profile, just before trace): the models
+   slice on virtual ranks of cuda:0. The multi-axis MeshComm.allreduce:
+   64 MiB f32 a rank on the (2, 4) mesh, sum and max (2 K4 + 2 K5 a
+   call), a 2 KiB shard below DEV_TIER_AXES_MIN (2 K3), the (2, 2, 2)
+   mesh over ("dp", "sp") (2 K4 + 2 K5) and over all three axes (3 K4
+   + 3 K5; 3 K3 at 2 KiB), each call's counts zeroed just before and
+   read after, each result bitwise the stock reduction of its groups on
+   integer-valued data, the (2, 4) call's card time by CUDA events; the
+   transformer's train step at the default Config() (vocab 256, d_model
+   128, 8 heads, 2 layers, d_ff 256, seq 128, batch 8, 4 experts, MoE
+   at layer 1) on the (2, 2, 2) ("dp", "sp", "tp") mesh of demo_setup:
+   6 steps whose loss must fall, step 1's loss (rtol 1e-5) and new
+   params (rtol 1e-4 / atol 1e-5) against the same code on the CPU, the
+   dense model's first loss on (1, 1, 1) and (2, 2, 2) within rtol
+   1e-3, the median step time (host clock); the 3-D stencil at BASELINE
+   config 4's 512^3 f32 grid split on z over 8 ranks, 4 periodic
+   iterations, against reference_stencil on the same grid, its time an
+   iteration; the graft entry's pipeline demo over 8 stages. The train
+   step, the stencil and the pipeline run stock torch (no kernel count
+   moves). Last of all, one train step and one stencil iteration under
+   torch.profiler (device time by kernel group, kernels launched, the
+   idle share).
+
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
 only phases 1 and 2, then the launch-shape sweeps of K9
@@ -2349,6 +2372,249 @@ def phase_nbc(torch, np, mvt, ici, ring, a2a, mpit, cfg, moe, smi, dev):
     return figures
 
 
+MODELS_SMALL = 512                 # f32 elements: a 2 KiB shard, below the edge
+MODELS_STEPS = 6                   # train steps at the default Config()
+MODELS_CFG = {}                    # Config() overrides (none on the card)
+STENCIL_GRID = 512                 # BASELINE config 4's grid
+STENCIL_ITERS = 4
+STEP_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_torch_models.py's
+LOSS_RTOL = 1e-5
+
+
+def _models_allreduce(torch, np, ici, ring, mods, MeshComm, make_mesh,
+                      timing, dev):
+    """The multi-axis MeshComm.allreduce (see phase_models). Returns its
+    launch counts and figures."""
+    rng = np.random.default_rng(SEED + 1300)
+    runs = []
+    # (mesh shape, axis names, comm axes, payload, op, K4, K5, K3)
+    cases = [((2, 4), ("x", "y"), ("x", "y"), N, "sum", 2, 2, 0),
+             ((2, 4), ("x", "y"), ("x", "y"), N, "max", 2, 2, 0),
+             ((2, 4), ("x", "y"), ("x", "y"), MODELS_SMALL, "sum", 0, 0, 2),
+             ((2, 2, 2), ("dp", "sp", "tp"), ("dp", "sp"), N, "sum", 2, 2,
+              0),
+             ((2, 2, 2), ("dp", "sp", "tp"), ("dp", "sp", "tp"), N, "sum",
+              3, 3, 0),
+             ((2, 2, 2), ("dp", "sp", "tp"), ("dp", "sp", "tp"),
+              MODELS_SMALL, "max", 0, 0, 3)]
+    launches = {}
+    for shape, names, axes, n, op, k4, k5, k3 in cases:
+        comm = MeshComm(make_mesh(shape, names, dev), axes)
+        x = _data(torch, np, rng, (R, n), "f32int", dev)
+        _zero(*mods)
+        got = comm.allreduce(x, op)
+        torch.cuda.synchronize()
+        ring.check_errors()
+        what = f"models allreduce {shape} over {axes} {op} n={n}"
+        launches[what] = _check_launches(what, mods, _want(
+            mods, hbm_ring_reduce_scatter=k4, hbm_ring_all_gather=k5,
+            hbm_ring_all_reduce=k3))
+        # the plain version: the stock reduction of each group
+        g = comm.group(x)
+        red = g.sum(1) if op == "sum" else g.amax(1)
+        want = comm.ungroup(red[:, None].expand_as(g))
+        _compare(torch, what, got, want, "f32int")
+        runs.append(what)
+    comm = MeshComm(make_mesh((2, 4), ("x", "y"), dev), ("x", "y"))
+    x = _data(torch, np, rng, (R, N), "f32int", dev)
+    card_ms = timing.time_ms(lambda: comm.allreduce(x), warmup=1, iters=5)
+    # MeshComm stacks the rows that ici_all_reduce_mesh returns: that
+    # copy's own card time, its share of the call
+    rows = ici.ici_all_reduce_mesh(list(x.unbind(0)), (("x", 2), ("y", 4)))
+    stack_ms = timing.time_ms(lambda: torch.stack(rows), warmup=1, iters=5)
+    return launches, {"checked": runs, "mesh2x4_64MiB_card_ms": card_ms,
+                      "mesh2x4_64MiB_stack_card_ms": stack_ms}
+
+
+def phase_models(torch, np, ici, ring, hbm, a2a, smi, dev):
+    """The models slice on virtual ranks of one card (module docstring,
+    phase 14): the multi-axis MeshComm.allreduce, the transformer's train
+    step at the default Config() on the (2, 2, 2) mesh, the 512^3
+    stencil and the pipeline demo. Returns the phase's figures."""
+    from mvapich2_tpu_torch import carry
+    from mvapich2_tpu_torch.models import stencil as st
+    from mvapich2_tpu_torch.models import transformer as tf
+    from mvapich2_tpu_torch.ops import collectives as coll
+    from mvapich2_tpu_torch.parallel import MeshComm, P, make_mesh
+    from mvapich2_tpu_torch.parallel.pipeline import pipeline_apply
+    from mvapich2_tpu_torch.utils import timing
+    t_phase = time.perf_counter()
+    mods = (ici, ring, hbm, a2a)
+    _set_f32_matmul(torch, False)
+    ar_launches, ar = _models_allreduce(torch, np, ici, ring, mods,
+                                        MeshComm, make_mesh, timing, dev)
+    log(f"[models] multi-axis allreduce: {len(ar['checked'])} calls "
+        f"checked bitwise, launches "
+        f"{ {w: {k: v for k, v in l.items() if v} for w, l in ar_launches.items()} }; "
+        f"(2, 4) 64 MiB f32 a rank: {ar['mesh2x4_64MiB_card_ms']:.4f} ms "
+        f"card time (median of 5 by CUDA events), of which the stack of "
+        f"the result rows {ar['mesh2x4_64MiB_stack_card_ms']:.4f} ms, on "
+        f"{smi}")
+
+    # the transformer: default Config() on the (2, 2, 2) mesh
+    cfg = tf.Config(**MODELS_CFG)
+    _zero(*mods)
+    cfg, mesh, params, tokens, step = tf.demo_setup(cfg, device=dev)
+    if tuple(mesh.shape.values()) != (2, 2, 2):
+        raise AssertionError(f"[models] demo mesh {mesh}")
+    cpu_mesh = make_mesh((2, 2, 2), tf.AXES, "cpu")
+    cpu_new, cpu_loss = tf.make_train_step(cfg, cpu_mesh)(
+        {k: v.cpu() for k, v in params.items()}, tokens.cpu())
+    losses, step_s = [], []
+    for i in range(MODELS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, loss = step(params, tokens)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            first_new = new
+        params = new
+        losses.append(float(loss))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[models] the loss did not fall: {losses}")
+    if abs(losses[0] - float(cpu_loss)) > LOSS_RTOL * abs(float(cpu_loss)):
+        raise AssertionError(f"[models] step 1 loss {losses[0]} vs the CPU "
+                             f"run's {float(cpu_loss)}")
+    got = carry.params_to_numpy(first_new, cfg, mesh)
+    want = carry.params_to_numpy(cpu_new, cfg, cpu_mesh)
+    param_err = 0.0
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **STEP_TOL)
+        param_err = max(param_err, float(np.abs(got[k] - want[k]).max()))
+    if any(_launches(*mods).values()):
+        raise AssertionError(f"[models] the train step launched "
+                             f"{_launches(*mods)}: it runs stock torch")
+    # the dense model: one device and (2, 2, 2) give the same first loss
+    dense = tf.Config(**{**MODELS_CFG, "moe_layer": -1})
+    gen = torch.Generator().manual_seed(0)
+    glob = tf.init_params(dense, gen, dev)
+    toks = torch.randint(0, dense.vocab, (dense.batch, dense.seq_len),
+                         generator=torch.Generator().manual_seed(1))
+    dense_loss = []
+    for shape in ((1, 1, 1), (2, 2, 2)):
+        m = make_mesh(shape, tf.AXES, dev)
+        _, l1 = tf.make_train_step(dense, m)(tf.shard_params(glob, dense, m),
+                                             tf.shard_tokens(toks.to(dev), m))
+        dense_loss.append(float(l1))
+    if abs(dense_loss[0] - dense_loss[1]) > 1e-3 * abs(dense_loss[0]):
+        raise AssertionError(f"[models] dense first loss (1, 1, 1) vs "
+                             f"(2, 2, 2): {dense_loss}")
+    med_step = statistics.median(step_s[1:])
+    log(f"[models] train step, default Config() (vocab {cfg.vocab}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_layers} layers, d_ff "
+        f"{cfg.d_ff}, seq {cfg.seq_len}, batch {cfg.batch}, {cfg.n_experts} "
+        f"experts, MoE at layer {cfg.moe_layer}) on {mesh}: losses "
+        f"{[round(v, 5) for v in losses]}; step 1 against the CPU run: loss "
+        f"{losses[0]!r} vs {float(cpu_loss)!r}, params max abs err "
+        f"{param_err:.3g}; median step {med_step * 1e3:.2f} ms host clock "
+        f"(steps 2-{MODELS_STEPS}, first {step_s[0] * 1e3:.1f} ms); dense "
+        f"first loss (1, 1, 1) {dense_loss[0]!r} vs (2, 2, 2) "
+        f"{dense_loss[1]!r}; on {smi}")
+
+    # the stencil: 512^3 f32 split on z over 8 virtual ranks, periodic
+    zcomm = MeshComm(make_mesh((R,), ("z",), dev))
+    u = st.initial_grid(STENCIL_GRID, dev)
+    _zero(*mods)
+    out = st.run_stencil(zcomm, STENCIL_GRID, STENCIL_ITERS, True, u=u)
+    want_u = st.reference_stencil(u, STENCIL_ITERS, True)
+    torch.cuda.synchronize()
+    if out.shape != (STENCIL_GRID,) * 3 or not torch.isfinite(out).all():
+        raise AssertionError("[models] stencil: shape or non-finite")
+    st_err = (out - want_u).abs().max().item()
+    if not torch.allclose(out, want_u, rtol=1e-6, atol=1e-7):
+        raise AssertionError(f"[models] stencil against its reference: max "
+                             f"abs err {st_err}")
+    del want_u
+    st_ms = timing.time_ms(lambda: st.run_stencil(
+        zcomm, STENCIL_GRID, STENCIL_ITERS, True, u=u), warmup=1,
+        iters=3) / STENCIL_ITERS
+    del u, out
+    log(f"[models] stencil {STENCIL_GRID}^3 f32, z over {R} virtual ranks, "
+        f"{STENCIL_ITERS} periodic iterations: max abs err {st_err:.3g} "
+        f"against reference_stencil; {st_ms:.3f} ms an iteration (median "
+        f"of 3 runs by CUDA events) on {smi}")
+
+    # the pipeline demo of the graft entry: 8 affine stages
+    D, n_micro = 16, 2 * R
+    ws = torch.stack([torch.eye(D) * (1.0 + 0.01 * i) for i in range(R)])
+    micro = torch.randn((n_micro, 4, D),
+                        generator=torch.Generator().manual_seed(2))
+    pcomm = MeshComm(make_mesh((R,), ("pp",), dev))
+
+    def run(w, m):
+        return coll.allreduce(pipeline_apply(
+            lambda a, b: b @ a[:, 0], w, m, pcomm), pcomm)
+    pout = pcomm.run(run, ws.to(dev), micro.to(dev),
+                     in_specs=(P("pp"), P()), out_specs=P())
+    scale = float(np.prod([1.0 + 0.01 * i for i in range(R)],
+                          dtype=np.float32))
+    if not torch.allclose(pout.cpu(), micro * scale, rtol=1e-5, atol=1e-6):
+        raise AssertionError("[models] pipeline output")
+    if any(_launches(*mods).values()):
+        raise AssertionError(f"[models] stencil/pipeline launched "
+                             f"{_launches(*mods)}")
+    total = time.perf_counter() - t_phase
+    log(f"[models] pipeline over {R} stages: {n_micro} microbatches of "
+        f"{tuple(micro.shape[1:])} checked; phase {total:.1f} s")
+    state = (step, params, tokens, med_step, zcomm, st_ms)
+    return state, {"allreduce": ar, "allreduce_launches": ar_launches,
+                   "losses": losses, "step_s": step_s, "median_step_ms":
+                   med_step * 1e3, "cpu_loss": float(cpu_loss),
+                   "param_max_abs_err": param_err,
+                   "dense_first_loss": dense_loss,
+                   "stencil_ms_per_iter": st_ms,
+                   "stencil_max_abs_err": st_err, "phase_s": total,
+                   "nvidia_smi": smi}
+
+
+def _models_group(key):
+    k = key.lower()
+    if "gemm" in k or "cutlass" in k or "xmma" in k:
+        return "gemm"
+    if "index" in k or "scatter" in k or "gather" in k:
+        return "index"
+    if "reduce" in k or "softmax" in k or "norm" in k:
+        return "reduce"
+    return "elementwise_copy"
+
+
+def phase_models_profile(torch, state):
+    """One train step and one stencil iteration of [models] under
+    torch.profiler: device time by kernel group (gemm, index,
+    reduce, elementwise and copies), the kernels launched, and the idle
+    share against the unprofiled median (1 - busy / median). Run last,
+    as the other profiles."""
+    from torch.profiler import ProfilerActivity, profile
+    from mvapich2_tpu_torch.models import stencil as st
+    step, params, tokens, med_step, zcomm, st_ms = state
+    u = st.initial_grid(STENCIL_GRID, zcomm.device)
+    out = {}
+    for name, fn, median_s in (
+            ("train_step", lambda: step(params, tokens), med_step),
+            ("stencil_iter", lambda: st.run_stencil(
+                zcomm, STENCIL_GRID, 1, True, u=u), st_ms / 1e3)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        groups = {"gemm": 0.0, "index": 0.0, "reduce": 0.0,
+                  "elementwise_copy": 0.0}
+        kernels = 0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                groups[_models_group(ev.key)] += ev.self_device_time_total
+                kernels += ev.count
+        busy = sum(groups.values())
+        out[name] = ({**groups, "busy_us": busy, "kernels": kernels,
+                      "idle_share": 1 - busy / (median_s * 1e6)} if busy
+                     else "not measured (no device time recorded)")
+    log(f"[models] device time, us (torch.profiler): {out}")
+    return out
+
+
 RMA_PVARS = ("dev_rma_tier_rdma", "dev_rma_tier_epoch",
              "dev_rma_fallback_noncontig", "dev_rma_fallback_size",
              "dev_rma_fallback_dtype", "dev_rma_flush", "dev_rma_wire_bytes")
@@ -4382,7 +4648,7 @@ def phase_attn_times(torch, flash, ul, coll, timing, info, launches, lat,
         return x.permute(0, 2, 1, 3)           # [B, H, T, D] view
 
     # K15 on the Ulysses reshard: p ranks x H/p heads x all tokens
-    qh, kh, vh = (ul._seq_to_heads(comm.stack(x), comm) for x in (q, k, v))
+    qh, kh, vh = (ul._seq_to_heads(comm.shard(x), comm) for x in (q, k, v))
     k15 = timing.time_ms(lambda: flash.flash_attention(qh, kh, vh, True),
                          warmup=1, iters=5)
     k15_plain = timing.time_ms(
@@ -4396,8 +4662,8 @@ def phase_attn_times(torch, flash, ul, coll, timing, info, launches, lat,
     k15_b, k15_by = bound(4 * tg * H * D * 4, 4 * D * pairs)
     del qh, kh, vh
     # K16 on the ring's step 1: ranks 1..7 against their left neighbour
-    qs = comm.stack(q)
-    ks, vs = (coll.ring_shift(comm.stack(x), comm, 1) for x in (k, v))
+    qs = comm.shard(q)
+    ks, vs = (coll.ring_shift(comm.shard(x), comm, 1) for x in (k, v))
     q1, k1, v1 = qs[1:], ks[1:], vs[1:]
     k16 = timing.time_ms(
         lambda: flash.flash_attention_parts(q1, k1, v1, False), warmup=1,
@@ -4934,6 +5200,8 @@ def main(argv=None):
     extra["flash_build"] = flash_build
     extra["nbc"] = nbc
     extra["rma_host_profile"] = phase_rma_host_profile(torch, dev)
+    models_state, extra["models"] = phase_models(torch, np, ici, ring, hbm,
+                                                 alltoall, smi, dev)
     extra["trace"] = phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)
@@ -4943,6 +5211,7 @@ def main(argv=None):
          "mesh2d": mesh2d_lat})
     extra["attn_breakdown"] = phase_attn_profile(
         torch, ring_attention, ulysses, attn_lat, attn_data)
+    extra["models_breakdown"] = phase_models_profile(torch, models_state)
     total_s = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -4,7 +4,9 @@ What crosses is the ``(R, n)`` numpy rank buffers that the JAX tests
 feed to ``hbm_slot_allreduce`` and ``pack_interleaved``, the MoE step
 bench's one weight, its ``dmodel x dmodel`` expert matrix ``W``, the
 ``(p, n)`` rows of a one-sided device window (``np.asarray`` of the JAX
-``DeviceWin.win``), and the quant tier's int32 wire words.
+``DeviceWin.win``), the quant tier's int32 wire words, and the
+transformer's parameters (the JAX ``init_params`` pytree as numpy, into
+the port's stacked per-spec layout and back).
 These functions put the same bytes into the port's tensors and back, so
 both sides of a parity test see identical inputs: uint16, uint32 and
 int32 (wire words included) cross unchanged, bfloat16 bit for bit.
@@ -77,3 +79,23 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def params_from_numpy(params, cfg, mesh):
+    """The JAX transformer's ``init_params`` pytree, given as numpy
+    arrays (``{name: np.asarray(leaf)}``), as the port's stacked
+    parameters on ``mesh`` (``models/transformer.py`` ``shard_params``:
+    each one split under its spec)."""
+    from .models import transformer
+    return transformer.shard_params(
+        {k: torch.from_numpy(np.array(v, dtype=np.float32))
+         for k, v in params.items()}, cfg, mesh)
+
+
+def params_to_numpy(params, cfg, mesh):
+    """The way back: the port's stacked parameters as global numpy
+    arrays, one a name (a replicated parameter is rank 0's copy)."""
+    from .models import transformer
+    return {k: to_numpy(v)
+            for k, v in transformer.unshard_params(params, cfg,
+                                                   mesh).items()}

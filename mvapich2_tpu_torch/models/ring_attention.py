@@ -8,9 +8,11 @@ j = (i - s) mod p; under the causal mask it lies in i's past (j < i),
 on the diagonal (j == i) or in i's future (j > i).
 
 Every function here takes the stacked layout of ``ops/collectives.py``
-(dim 0 is the rank: ``q[i]`` is rank i's ``[T, H, Dh]`` shard) and the
-``MeshComm`` where the JAX function takes the axis name; run them
-through ``MeshComm.run``. ``ring_attention`` is the stock form (scores
+(dim 0 is the mesh rank: ``q[i]`` is rank i's ``[T, H, Dh]`` shard) and
+the ``MeshComm`` where the JAX function takes the axis name; run them
+through ``MeshComm.run``. ``ring_attention`` also takes batch dims
+between the rank and the sequence, and a comm over one axis of a
+larger mesh (the transformer's ``sp``). ``ring_attention`` is the stock form (scores
 of a whole block at once, ``[p, H, T, Tk]``: small sizes only);
 ``ring_attention_flash`` takes each step's parts from K16
 (``models/flash.py``). ``local_attention_reference`` is dense attention
@@ -58,22 +60,29 @@ def _heads_last(x):
 def ring_attention(q, k, v, comm, causal: bool = True,
                    scale: Optional[float] = None):
     """Streaming attention with KV blocks rotating around the comm's
-    ring. q/k/v: stacked ``[p, T, H, Dh]``. Returns ``[p, T, H, Dh]`` in
-    q's dtype; accumulators are f32 whatever the input dtype."""
+    ring. q/k/v: stacked ``[S, *batch, T, H, Dh]`` (``S`` the mesh's
+    ranks; the JAX function ``vmap``-ed over the batch dims), the comm
+    one axis of the mesh, or all of it. Returns the same shape in q's
+    dtype; accumulators are f32 whatever the input dtype. Differentiable
+    (the transformer's training step runs its backward)."""
     p = axis_size(comm)
-    my = axis_rank(comm)
-    _, T, H, Dh = q.shape
+    T, H, Dh = q.shape[-3:]
+    batch = tuple(q.shape[1:-3])
+    one = (1,) * len(batch)
+    my = axis_rank(comm).reshape((-1,) + one)      # [S, 1...]
     scale = scale if scale is not None else Dh ** -0.5
     q32 = q.float()
-    q_pos = my[:, None] * T + torch.arange(T, device=q.device)
+    q_pos = my[..., None] * T + torch.arange(T, device=q.device)
+    lead = (q.shape[0],) + batch
     f32 = dict(dtype=torch.float32, device=q.device)
-    m_acc = torch.full((p, H, T), NEG_INF, **f32)
-    num_acc = torch.zeros((p, T, H, Dh), **f32)
-    den_acc = torch.zeros((p, H, T), **f32)
+    m_acc = torch.full(lead + (H, T), NEG_INF, **f32)
+    num_acc = torch.zeros(lead + (T, H, Dh), **f32)
+    den_acc = torch.zeros(lead + (H, T), **f32)
     kk, vv = k, v
     for s in range(p):
         j = (my - s + p) % p                 # origin rank of each block
-        k_pos = j[:, None] * T + torch.arange(kk.shape[1], device=q.device)
+        k_pos = j[..., None] * T + torch.arange(kk.shape[-3],
+                                                device=q.device)
         m_blk, num_blk, den_blk = _block_attend(
             q32, kk.float(), vv.float(), q_pos, k_pos, scale, causal)
         new_m = torch.maximum(m_acc, m_blk)
@@ -124,6 +133,11 @@ def ring_attention_flash(q, k, v, comm, causal: bool = True,
     """
     from .flash import flash_attention_parts
 
+    if comm.axes != comm.mesh.axis_names:
+        # the launches below slice the stacked ranks by comm rank
+        raise NotImplementedError(
+            f"ring_attention_flash over {comm.axes} of the mesh "
+            f"{comm.mesh.axis_names}: it takes a comm over the whole mesh")
     p = axis_size(comm)
     _, T, H, Dh = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -741,7 +741,10 @@ def _axis_phase(rows: List[torch.Tensor], axes, k: int,
     return back
 
 
-def _mesh_shards(xs: Shards, axes, what: str):
+def _mesh_shards(xs: Shards, axes, what: str, over=None):
+    """The mesh's (name, size) pairs, the shards, and the indices of the
+    live axes (size > 1) among ``over`` (names, in their order; default
+    every axis)."""
     axes = _axes(axes)
     shards = ring.as_shards(xs, what)
     total = 1
@@ -750,11 +753,15 @@ def _mesh_shards(xs: Shards, axes, what: str):
     if len(shards) != total:
         raise ValueError(f"{what}: {len(shards)} shards on a mesh of "
                          f"{total} ranks {axes}")
-    live = [k for k, (_, s) in enumerate(axes) if s > 1]
+    names = [a for a, _ in axes]
+    over = names if over is None else [str(a) for a in over]
+    if any(a not in names for a in over) or len(set(over)) != len(over):
+        raise ValueError(f"{what}: axes {over} are not axes of {axes}")
+    live = [names.index(a) for a in over if axes[names.index(a)][1] > 1]
     return axes, shards, live
 
 
-def ici_all_reduce_mesh(xs: Shards, axes, op: str = "sum"
+def ici_all_reduce_mesh(xs: Shards, axes, op: str = "sum", *, over=None
                         ) -> List[torch.Tensor]:
     """Allreduce over a multi-axis mesh (``axes``: ordered (name, size)
     pairs; shards in rank order, row-major), decomposed into per-axis
@@ -762,11 +769,14 @@ def ici_all_reduce_mesh(xs: Shards, axes, op: str = "sum"
     (RS-x, RS-y, AG-y, AG-x on a 2-D mesh: K4, K4, K5, K5), each phase
     one launch over all the axis's lines, on a payload shrunk by the axes
     already folded. The shards are padded once to a multiple of the
-    mesh extent. Below DEV_TIER_AXES_MIN each live axis runs a full
+    reduced extent. Below DEV_TIER_AXES_MIN each live axis runs a full
     allreduce in sequence instead (K3 a phase). Unit axes are skipped; a
     single live axis is one allreduce, still under the multi-axis
-    context. Returns one row per rank, in rank order."""
-    axes, shards, live = _mesh_shards(xs, axes, "ici_all_reduce_mesh")
+    context. ``over`` (axis names, in order; default all) reduces over
+    some axes only, within each group of ranks that share the others'
+    coordinates: a multi-axis ``MeshComm`` over part of its mesh.
+    Returns one row per rank, in rank order."""
+    axes, shards, live = _mesh_shards(xs, axes, "ici_all_reduce_mesh", over)
     if not live:
         return [s.clone() for s in shards]
 
@@ -782,7 +792,9 @@ def ici_all_reduce_mesh(xs: Shards, axes, op: str = "sum"
                 _trace_axis("ar", axes[k][0], n * esize, op=op)
             y = _axis_phase(y, axes, k, allreduce)
         return y
-    ptot = len(shards)
+    ptot = 1
+    for k in live:
+        ptot *= axes[k][1]
     y = _identity_padded(shards, -(-n // ptot) * ptot, op)
     for k in live:
         if LOWERING.rec is not None:

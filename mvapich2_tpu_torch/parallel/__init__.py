@@ -1,3 +1,3 @@
-from .mesh import Mesh, MeshComm, make_mesh
+from .mesh import Mesh, MeshComm, P, make_mesh
 
-__all__ = ["Mesh", "MeshComm", "make_mesh"]
+__all__ = ["Mesh", "MeshComm", "P", "make_mesh"]

@@ -90,6 +90,10 @@ class DeviceWin:
     def __init__(self, comm, n: int, dtype: torch.dtype = torch.float32):
         if dtype.itemsize == 8 and not dtype.is_complex:
             raise NotImplementedError(f"DeviceWin: 8-byte dtype {dtype}")
+        if len(comm.mesh.axis_names) > 1:
+            raise NotImplementedError(
+                f"DeviceWin over a multi-axis mesh {comm.mesh}: windows "
+                f"take the ranks of a 1-D mesh")
         self.comm = comm
         self.p = comm.size
         self.n = int(n)

@@ -32,6 +32,7 @@ from mvapich2_tpu_torch.coll.device import DeviceCollChannel, HBMSlotChannel
 from mvapich2_tpu_torch.core import op as top
 from mvapich2_tpu_torch.ops import hbm, ici, ring
 from mvapich2_tpu_torch.parallel import MeshComm
+from mvapich2_tpu_torch.rma import DeviceWin
 from mvapich2_tpu_torch.utils.config import get_config
 
 NP = 8
@@ -310,7 +311,7 @@ def test_one_rank_mesh_binds_the_mesh_channel(env):
 def test_unported_geometry_and_alltoall_raise(env):
     """What still raises: a mesh that neither covers the ranks one to one
     nor divides them (the JAX package's host path), alltoall(v) on the
-    fold channel, MeshComm on a multi-axis mesh, and alltoallv on the
+    fold channel, a DeviceWin on a multi-axis mesh, and alltoallv on the
     slot channel, which keep the host path in the JAX package. Alltoall
     itself runs on the 1:1 channel (K10)."""
     with pytest.raises(NotImplementedError, match="host path"):
@@ -325,8 +326,8 @@ def test_unported_geometry_and_alltoall_raise(env):
             run_ranks(NP, call, device_mesh=fold, timeout=30)
         assert isinstance(ei.value.__cause__, NotImplementedError)
         assert "fold channel" in str(ei.value.__cause__)
-    with pytest.raises(NotImplementedError, match="models slice"):
-        MeshComm(make_mesh((2, 4), ("x", "y"), "cpu"))
+    with pytest.raises(NotImplementedError, match="multi-axis mesh"):
+        DeviceWin(MeshComm(make_mesh((2, 4), ("x", "y"), "cpu")), 16)
     with pytest.raises(RuntimeError) as ei:
         run_ranks(NP, lambda c: c.alltoallv(np.arange(NP, dtype=np.float32),
                                             ones, None, None, ones, None),
