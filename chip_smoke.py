@@ -197,6 +197,31 @@ non-zero, printing no result, without them. Phases:
    torch.profiler (device time by kernel group, kernels launched, the
    idle share).
 
+15. host (after nbc): the in-process host tier. 8 ranks on the slot
+   channel and on the 1:1 mesh allreduce numpy f32 at 4 B, 1 KiB, 16 KiB
+   - 4, 16 KiB, 64 KiB and 64 MiB (integer-valued, bitwise against
+   numpy): below DEVICE_COLL_MIN_BYTES no kernel launches and the
+   recursive-doubling counter moves once a rank, at and above it one K1
+   (slot) or K6/K3 (mesh) a call; then on the slot channel an f64 1 MiB
+   allreduce, a non-commutative user op (gather_bcast),
+   gather(v)/scatter(v)/scan/exscan/allgatherv/reduce_scatter, ibarrier/
+   ireduce/ireduce_scatter_block/iallreduce, a 7-sender ANY_SOURCE
+   receive and a barrier, MV2T_ALLREDUCE_ALGO=ring at 64 KiB, and
+   alltoall on the fold channel, with no launch; the rank 0 <-> 1
+   ping-pong from 1 B to 4 MiB on two fake nodes (eager to 64 KiB) and
+   on one (eager to 32 KiB), the eager/rendezvous pvars checked a size;
+   barrier and 4 B to 16 KiB - 4 allreduce latency (host clock, median
+   of 50); tensors on the card in calls that the device tier does not
+   take (bfloat16, float64, a forced host algorithm, alltoallv on the
+   slot channel, alltoall on the fold channel, a dup'd comm, an
+   iallreduce on the slot channel) raise NotImplementedError on every
+   rank, with no launch and no copy to the host. Each kernel count is
+   zeroed just before its call.
+16. graft (after models): mvapich2_tpu_torch.graft_entry's entry()
+   forward on a (1, 1, 1) mesh of the card and dryrun_multichip(8) (one
+   train step on (2, 2, 2) and the 8-stage pipeline), each against the
+   same on the CPU; stock torch, no kernel count moves.
+
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
 only phases 1 and 2, then the launch-shape sweeps of K9
@@ -5073,6 +5098,485 @@ def phase_k1_sweep(torch, hbm, tuning, timing, dev):
 SWEEPS = ("k9", "copy", "tile", "k8", "k1")
 
 
+# -- [host]: the in-process host tier ------------------------------------
+HOST_SIZES = (4, 1024, 16 * 1024 - 4, 16 * 1024, 64 * 1024,
+              64 * 1024 * 1024)        # allreduce bytes a rank
+HOST_LAT_SIZES = (4, 64, 1024, 4096, 16 * 1024 - 4)
+HOST_ITERS = 50                        # timed iterations a latency
+HOST_WARM = 5
+PINGPONG_MAX = 4 * 1024 * 1024
+PINGPONG_ITERS = 20
+HOST_RD = "coll_allreduce_allreduce_recursive_doubling_calls"
+
+
+def _host_data(np, r, n, dtype="float32"):
+    """Rank r's integer-valued buffer of n elements: sums of 8 ranks
+    stay exact in f32, so every result compares bitwise."""
+    return ((np.arange(n, dtype=np.int64) * (r + 3)) % 61 - 30).astype(dtype)
+
+
+def _pv(mpit, name):
+    return mpit.pvar(name).read()
+
+
+def _median_us(samples):
+    return statistics.median(samples) * 1e6
+
+
+def phase_host_sweep(torch, np, mvt, mods, mpit, dev):
+    """numpy f32 allreduces across the host-device crossover on the slot
+    channel and the 1:1 mesh: below DEVICE_COLL_MIN_BYTES no kernel
+    launches and the recursive-doubling counter moves once a rank; at and
+    above it K1 (slot) or K6/K3 (mesh) launch once a call, as before this
+    tier existed. Every result bitwise against numpy."""
+    hbm, ici, ring = mods[0], mods[1], mods[2]
+    rows = []
+    for chan in ("slot", "mesh"):
+        kw = {"device": dev} if chan == "slot" else {
+            "device_mesh": mvt.make_mesh((R,), ("x",), dev)}
+        for nbytes in HOST_SIZES:
+            n = nbytes // 4
+            data = [_host_data(np, r, n) for r in range(R)]
+            want = np.sum(data, axis=0, dtype=np.float32)
+            host = nbytes < 16 * 1024
+            _zero(*mods)
+            rd0 = _pv(mpit, HOST_RD)
+            t0 = time.perf_counter()
+            res = mvt.run_ranks(R, lambda comm: comm.allreduce(
+                data[comm.rank]), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _launches(*mods)
+            rd = _pv(mpit, HOST_RD) - rd0
+            if host:
+                want_l = _want(mods)
+            elif chan == "slot":
+                want_l = _want(mods, fused_reduce_to_slot=1)
+            elif nbytes <= 4 * 1024 * 1024:
+                want_l = _want(mods, ring_all_reduce=1)
+            else:
+                want_l = _want(mods, hbm_ring_all_reduce=1)
+            if got != want_l or rd != (R if host else 0):
+                raise AssertionError(
+                    f"[host] {chan} allreduce of {nbytes} B: launches "
+                    f"{ {k: v for k, v in got.items() if v} }, rd calls "
+                    f"{rd}; expected { {k: v for k, v in want_l.items() if v} }"
+                    f" and {R if host else 0}")
+            for r, out in enumerate(res):
+                if out.dtype != np.float32 or \
+                        out.tobytes() != want.tobytes():
+                    raise AssertionError(f"[host] {chan} allreduce of "
+                                         f"{nbytes} B: rank {r} differs "
+                                         f"from numpy")
+            rows.append({"channel": chan, "bytes": nbytes,
+                         "tier": "host" if host else "device",
+                         "launches": {k: v for k, v in got.items() if v},
+                         "rd_calls": rd, "wall_s": wall})
+            del data, res
+    log("[host] allreduce crossover, numpy f32 integer-valued, bitwise "
+        "against numpy: " + "; ".join(
+            f"{r['channel']} {r['bytes']} B {r['tier']} "
+            f"{r['launches'] or 'no launch'} rd+{r['rd_calls']}"
+            for r in rows))
+    return rows
+
+
+def _matmul_op(np, opmod):
+    def f(invec, inout):
+        a = invec.reshape(-1, 2, 2)
+        b = inout.reshape(-1, 2, 2)
+        return np.matmul(a, b).reshape(invec.shape)
+    return opmod.create_op(f, commute=False)
+
+
+def phase_host_calls(torch, np, mvt, mods, mpit, opmod, cfg, dev):
+    """The calls the host tier carries on the slot channel (f64 at 1 MiB,
+    a non-commutative user op, gather(v)/scatter(v)/scan/exscan/
+    allgatherv/reduce_scatter, ibarrier/ireduce/ireduce_scatter_block/
+    iallreduce, a 7-sender ANY_SOURCE receive, a barrier), a forced
+    MV2T_ALLREDUCE_ALGO=ring at 64 KiB and alltoall on the fold channel:
+    no kernel launches, every result against numpy."""
+    from mvapich2_tpu_torch.core.request import waitall
+    from mvapich2_tpu_torch.core.status import ANY_SOURCE, ANY_TAG
+    op_mm = _matmul_op(np, opmod)
+    counts = [(3 * k + 1) % 5 for k in range(R)]
+    displs = [sum(counts[:k]) for k in range(R)]
+    total = sum(counts)
+    f64_n = (1 << 20) // 8
+
+    def app(comm):
+        r, p = comm.rank, comm.size
+        out = {}
+        out["f64"] = comm.allreduce(_host_data(np, r, f64_n, "float64"))
+        m = np.tile(np.array([1.0, r + 1, 0.0, 1.0]), 4)
+        out["noncomm"] = comm.allreduce(m, op=op_mm)
+        out["gather"] = comm.gather(_host_data(np, r, 5, "int32"), root=3)
+        sc = np.zeros(6, np.int32)
+        comm.scatter(np.arange(6 * p, dtype=np.int32) if r == 2 else None,
+                     sc, root=2)
+        out["scatter"] = sc
+        gv = np.zeros(total, np.int32) if r == 0 else None
+        comm.gatherv(np.full(counts[r], r + 1, np.int32), gv, counts,
+                     displs, root=0)
+        out["gatherv"] = gv
+        sv = np.zeros(counts[r], np.int32)
+        comm.scatterv(np.arange(total, dtype=np.int32) if r == 1 else None,
+                      counts, displs, sv, root=1)
+        out["scatterv"] = sv
+        out["scan"] = comm.scan(_host_data(np, r, 33))
+        ex = np.zeros(33, np.float32)
+        comm.exscan(_host_data(np, r, 33), ex)
+        out["exscan"] = ex
+        agv = np.zeros(total, np.int32)
+        comm.allgatherv(np.full(counts[r], r + 7, np.int32), agv, counts,
+                        displs)
+        out["allgatherv"] = agv
+        out["reduce_scatter"] = comm.reduce_scatter(
+            _host_data(np, r, 4 * p), counts=[4] * p)
+        ia = np.zeros(100, np.float32)
+        ir = np.zeros(100, np.float32)
+        irs = np.zeros(10, np.float32)
+        reqs = [comm.ibarrier(),
+                comm.ireduce(_host_data(np, r, 100), ir, root=0),
+                comm.ireduce_scatter_block(_host_data(np, r, 10 * p), irs),
+                comm.iallreduce(_host_data(np, r, 100), ia)]
+        waitall(reqs)
+        out["ireduce"], out["irsb"], out["iallreduce"] = ir, irs, ia
+        if r == 0:
+            seen, buf = [], np.zeros(1, np.int32)
+            for _ in range(p - 1):
+                st = comm.recv(buf, source=ANY_SOURCE, tag=ANY_TAG)
+                if buf[0] != st.source * 100 + st.tag:
+                    raise AssertionError("[host] ANY_SOURCE payload")
+                seen.append(st.source)
+            out["any_source"] = sorted(seen)
+        else:
+            comm.send(np.array([r * 100 + r], np.int32), dest=0, tag=r)
+        comm.barrier()
+        return out
+
+    _zero(*mods)
+    fb0 = _pv(mpit, "dev_coll_fallback_nbc")
+    gb0 = _pv(mpit, "coll_allreduce_allreduce_gather_bcast_calls")
+    t0 = time.perf_counter()
+    res = mvt.run_ranks(R, app, device=dev)
+    wall = time.perf_counter() - t0
+    if any(_launches(*mods).values()):
+        raise AssertionError(f"[host] host-tier calls launched "
+                             f"{_launches(*mods)}")
+    d = [_host_data(np, r, f64_n, "float64") for r in range(R)]
+    mm = np.eye(2)
+    for r in range(R):
+        mm = mm @ np.array([[1.0, r + 1], [0.0, 1.0]])
+    pre = [np.sum([_host_data(np, k, 33) for k in range(r + 1)], axis=0,
+                  dtype=np.float32) for r in range(R)]
+    rs_full = np.sum([_host_data(np, k, 4 * R) for k in range(R)], axis=0,
+                     dtype=np.float32)
+    irs_full = np.sum([_host_data(np, k, 10 * R) for k in range(R)],
+                      axis=0, dtype=np.float32)
+    sum100 = np.sum([_host_data(np, k, 100) for k in range(R)], axis=0,
+                    dtype=np.float32)
+    gv_want = np.concatenate([np.full(c, k + 1, np.int32)
+                              for k, c in enumerate(counts)])
+    agv_want = np.concatenate([np.full(c, k + 7, np.int32)
+                               for k, c in enumerate(counts)])
+    for r, o in enumerate(res):
+        checks = [("f64", o["f64"], np.sum(d, axis=0)),
+                  ("noncomm", o["noncomm"], np.tile(mm.reshape(-1), 4)),
+                  ("scatter", o["scatter"], np.arange(6 * r, 6 * r + 6)),
+                  ("scatterv", o["scatterv"],
+                   np.arange(displs[r], displs[r] + counts[r])),
+                  ("scan", o["scan"], pre[r]),
+                  ("allgatherv", o["allgatherv"], agv_want),
+                  ("reduce_scatter", o["reduce_scatter"],
+                   rs_full[4 * r:4 * r + 4]),
+                  ("irsb", o["irsb"], irs_full[10 * r:10 * r + 10]),
+                  ("iallreduce", o["iallreduce"], sum100)]
+        if r > 0:
+            checks.append(("exscan", o["exscan"], pre[r - 1]))
+        if r == 3:
+            checks.append(("gather", o["gather"], np.concatenate(
+                [_host_data(np, k, 5, "int32") for k in range(R)])))
+        if r == 0:
+            checks += [("gatherv", o["gatherv"], gv_want),
+                       ("ireduce", o["ireduce"], sum100),
+                       ("any_source", np.array(o["any_source"]),
+                        np.arange(1, R))]
+        for what, got, want in checks:
+            if not np.array_equal(got, want):
+                raise AssertionError(f"[host] {what} on rank {r}")
+    fb = _pv(mpit, "dev_coll_fallback_nbc") - fb0
+    gb = _pv(mpit, "coll_allreduce_allreduce_gather_bcast_calls") - gb0
+    if fb != R or gb != R:
+        raise AssertionError(f"[host] dev_coll_fallback_nbc +{fb}, "
+                             f"gather_bcast calls +{gb}; expected {R}")
+
+    # a forced host algorithm at 64 KiB, and alltoall on the fold channel
+    ring_pv = "coll_allreduce_allreduce_ring_calls"
+    n64 = 64 * 1024 // 4
+    data = [_host_data(np, r, n64) for r in range(R)]
+    want = np.sum(data, axis=0, dtype=np.float32)
+    cfg.set("ALLREDUCE_ALGO", "ring")
+    try:
+        _zero(*mods)
+        ring0 = _pv(mpit, ring_pv)
+        res = mvt.run_ranks(R, lambda c: c.allreduce(data[c.rank]),
+                            device=dev)
+    finally:
+        cfg.set("ALLREDUCE_ALGO", "")
+    if any(_launches(*mods).values()) or \
+            _pv(mpit, ring_pv) - ring0 != R or \
+            any(o.tobytes() != want.tobytes() for o in res):
+        raise AssertionError("[host] forced ring allreduce at 64 KiB")
+    fold = mvt.make_mesh((R // 2,), ("x",), dev)
+    _zero(*mods)
+    res = mvt.run_ranks(R, lambda c: c.alltoall(
+        np.arange(R * 3, dtype=np.float32) + 100 * c.rank), device_mesh=fold)
+    if any(_launches(*mods).values()):
+        raise AssertionError("[host] fold alltoall launched a kernel")
+    for r, o in enumerate(res):
+        want = np.concatenate([np.arange(r * 3, r * 3 + 3) + 100.0 * s
+                               for s in range(R)])
+        if not np.array_equal(o, want):
+            raise AssertionError(f"[host] fold alltoall rank {r}")
+    log(f"[host] slot channel: f64 1 MiB, non-commutative user op "
+        f"(gather_bcast +{gb}), gather(v)/scatter(v)/scan/exscan/"
+        f"allgatherv/reduce_scatter, ibarrier/ireduce/"
+        f"ireduce_scatter_block/iallreduce (dev_coll_fallback_nbc "
+        f"+{fb}), a 7-sender ANY_SOURCE receive and a barrier in "
+        f"{wall:.2f} s; ALLREDUCE_ALGO=ring at 64 KiB (ring +{R}); fold "
+        f"alltoall; no kernel launched, every result against numpy")
+    return {"calls_wall_s": wall, "fallback_nbc": fb, "gather_bcast": gb}
+
+
+def _pingpong(mvt, np, mpit, dev, nodes):
+    """osu_latency's shape between ranks 0 and 1: half the round trip, a
+    median over PINGPONG_ITERS after 2, and the eager/rendezvous pvar
+    deltas of each size."""
+    sizes = [1 << k for k in range(PINGPONG_MAX.bit_length())]
+
+    def app(comm):
+        out = []
+        # no barrier between sizes: its tokens would count too. Rank 0
+        # reads the pvars when rank 1 cannot be sending: before its own
+        # first send of a size, and after its last receive
+        for nb in sizes:
+            buf = np.zeros(nb, np.uint8)
+            msg = np.full(nb, 7, np.uint8)
+            e0, r0 = (_pv(mpit, "pt2pt_eager_sent"),
+                      _pv(mpit, "pt2pt_rndv_sent"))
+            lat = []
+            for it in range(2 + PINGPONG_ITERS):
+                t0 = time.perf_counter()
+                if comm.rank == 0:
+                    comm.send(msg, dest=1, tag=1)
+                    comm.recv(buf, source=1, tag=1)
+                else:
+                    comm.recv(buf, source=0, tag=1)
+                    comm.send(msg, dest=0, tag=1)
+                if it >= 2:
+                    lat.append((time.perf_counter() - t0) / 2)
+            if comm.rank == 0:
+                if not (buf == 7).all():
+                    raise AssertionError(f"[host] ping-pong {nb} B payload")
+                out.append((nb, _median_us(lat),
+                            _pv(mpit, "pt2pt_eager_sent") - e0,
+                            _pv(mpit, "pt2pt_rndv_sent") - r0))
+        return out
+
+    return mvt.run_ranks(2, app, nodes=nodes, device=dev)[0]
+
+
+def phase_host_latency(torch, np, mvt, mpit, cfg, smi, dev):
+    """Host-clock latencies: the rank 0 <-> 1 ping-pong (1 B to 4 MiB) on
+    two fake nodes, where the eager/rendezvous split must sit at
+    EAGER_THRESHOLD (64 KiB), and on one node (SMP_EAGERSIZE, 32 KiB);
+    then 8 ranks on the slot channel: barrier and allreduce at 4 B to
+    16 KiB - 4 B (the host tier), medians over HOST_ITERS."""
+    msgs = 2 * (2 + PINGPONG_ITERS)      # both ranks' sends a size
+    res = {}
+    for label, nodes, edge in (("two_nodes", [0, 1],
+                                int(cfg["EAGER_THRESHOLD"])),
+                               ("one_node", None, int(cfg["SMP_EAGERSIZE"]))):
+        rows = _pingpong(mvt, np, mpit, dev, nodes)
+        for nb, us, eager, rndv in rows:
+            want = (msgs, 0) if nb <= edge else (0, msgs)
+            if (eager, rndv) != want:
+                raise AssertionError(
+                    f"[host] ping-pong {label} {nb} B: eager +{eager}, "
+                    f"rndv +{rndv}; expected {want} (split at {edge} B)")
+        res[label] = rows
+        log(f"[host] osu_latency shape, ranks 0 <-> 1 ({label}, eager up "
+            f"to {edge} B, pvars checked), half round trip us (median of "
+            f"{PINGPONG_ITERS}): " + ", ".join(
+                f"{nb} B {us:.1f}" for nb, us, _, _ in rows) +
+            f"; host clock on {smi}")
+
+    def app(comm):
+        out = {}
+        for _ in range(HOST_WARM):
+            comm.barrier()
+        lat = []
+        for _ in range(HOST_ITERS):
+            t0 = time.perf_counter()
+            comm.barrier()
+            lat.append(time.perf_counter() - t0)
+        out["barrier"] = _median_us(lat)
+        for nb in HOST_LAT_SIZES:
+            x = _host_data(np, comm.rank, nb // 4)
+            y = np.empty_like(x)
+            for _ in range(HOST_WARM):
+                comm.allreduce(x, y)
+            lat = []
+            for _ in range(HOST_ITERS):
+                t0 = time.perf_counter()
+                comm.allreduce(x, y)
+                lat.append(time.perf_counter() - t0)
+            out[nb] = _median_us(lat)
+        return out
+
+    coll = mvt.run_ranks(R, app, device=dev)[0]
+    res["barrier_us"] = coll["barrier"]
+    res["allreduce_us"] = {nb: coll[nb] for nb in HOST_LAT_SIZES}
+    log(f"[host] {R} ranks on the slot channel, rank 0's host clock, "
+        f"median of {HOST_ITERS} after {HOST_WARM}: barrier "
+        f"{coll['barrier']:.1f} us; allreduce (host tier, recursive "
+        f"doubling) " + ", ".join(f"{nb} B {coll[nb]:.1f} us"
+                                  for nb in HOST_LAT_SIZES) + f"; on {smi}")
+    return res
+
+
+def phase_host_refusals(torch, np, mvt, mods, cfg, dev):
+    """Tensors on the card never take the host tier: each call that the
+    device tier does not take raises NotImplementedError on every rank,
+    with no kernel launch and no copy to the host (``to_host`` patched to
+    fail while the calls run). Returns the cases checked."""
+    from mvapich2_tpu_torch.coll import device as coll_dev
+    from mvapich2_tpu_torch.core import comm as comm_mod
+    n = 4096
+    mesh = {"device_mesh": mvt.make_mesh((R,), ("x",), dev)}
+    fold = {"device_mesh": mvt.make_mesh((2,), ("x",), dev)}
+    slot = {"device": dev}
+    ones = [1] * R
+
+    def t(dtype=torch.float32):
+        return torch.ones(n, dtype=dtype, device=dev)
+    cases = [
+        ("bf16 allreduce, mesh", mesh, "",
+         lambda c: c.allreduce(t(torch.bfloat16)), "bfloat16"),
+        ("f64 allreduce, slot", slot, "",
+         lambda c: c.allreduce(t(torch.float64)), "float64"),
+        ("ALLREDUCE_ALGO=ring, mesh", mesh, "ring",
+         lambda c: c.allreduce(t()), "'ring' forced"),
+        ("alltoallv, slot", slot, "", lambda c: c.alltoallv(
+            t()[:R], ones, None, None, ones, None), "slot channel"),
+        ("alltoall, fold", fold, "", lambda c: c.alltoall(t()),
+         "fold channel"),
+        ("allreduce on a dup, slot", slot, "",
+         lambda c: c.dup().allreduce(t()), "no device channel"),
+        ("iallreduce, slot", slot, "",
+         lambda c: c.iallreduce(t(), t()), "NBC tier"),
+    ]
+
+    def no_copy(x):
+        raise AssertionError("a tensor on the card was copied to the host")
+    real = coll_dev.to_host, comm_mod.to_host
+    coll_dev.to_host = comm_mod.to_host = no_copy
+    try:
+        for what, kw, algo, call, names in cases:
+            def app(comm):
+                try:
+                    call(comm)
+                except NotImplementedError as e:
+                    ok = names in str(e) and "not moved to the host" in str(e)
+                    return str(e) if not ok else True
+                return "returned"
+            _zero(*mods)
+            cfg.set("ALLREDUCE_ALGO", algo)
+            try:
+                res = mvt.run_ranks(R, app, **kw)
+            finally:
+                cfg.set("ALLREDUCE_ALGO", "")
+            torch.cuda.synchronize()
+            if res != [True] * R or any(_launches(*mods).values()):
+                raise AssertionError(
+                    f"[host] {what}: a tensor on the card gave {res[0]!r}, "
+                    f"launches {_launches(*mods)}; expected "
+                    f"NotImplementedError naming {names!r}, no launch")
+    finally:
+        coll_dev.to_host, comm_mod.to_host = real
+    log(f"[host] tensors on the card that the device tier does not take "
+        f"raise NotImplementedError on all {R} ranks, no launch, no copy "
+        f"to the host: " + "; ".join(c[0] for c in cases))
+    return [c[0] for c in cases]
+
+
+def phase_host(torch, np, mvt, hbm, ici, ring, a2a, mpit, opmod, cfg, smi,
+               dev):
+    """The in-process host tier (module docstring, phase 15). Returns its
+    figures."""
+    t_phase = time.perf_counter()
+    mods = (hbm, ici, ring, a2a)
+    out = {"sweep": phase_host_sweep(torch, np, mvt, mods, mpit, dev)}
+    out.update(phase_host_calls(torch, np, mvt, mods, mpit, opmod, cfg,
+                                dev))
+    out["refused_on_card"] = phase_host_refusals(torch, np, mvt, mods, cfg,
+                                                 dev)
+    out["latency"] = phase_host_latency(torch, np, mvt, mpit, cfg, smi, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[host] phase {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
+def phase_graft(torch, np, mods, smi, dev):
+    """The graft entry (module docstring, phase 16): entry()'s forward on
+    a (1, 1, 1) mesh of the card against the same forward on the CPU, and
+    dryrun_multichip(8) against the same dry run on the CPU; both run
+    stock torch (no kernel count moves)."""
+    from mvapich2_tpu_torch import graft_entry
+    t_phase = time.perf_counter()
+    _zero(*mods)
+    fwd, (params, tokens) = graft_entry.entry(dev)
+    logits = fwd(params, tokens)
+    torch.cuda.synchronize()
+    fwd_cpu, _ = graft_entry.entry("cpu")      # the same forward, on the CPU
+    cpu = fwd_cpu({k: v.cpu() for k, v in params.items()}, tokens.cpu())
+    if tuple(logits.shape) != (4, 128, 128) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"[graft] entry forward {tuple(logits.shape)}")
+    fwd_err = (logits.cpu() - cpu).abs().max().item()
+    if not torch.allclose(logits.cpu(), cpu, **STEP_TOL):
+        raise AssertionError(f"[graft] entry forward against the CPU: max "
+                             f"abs err {fwd_err}")
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(R, dev)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    ref = graft_entry.dryrun_multichip(R, device="cpu")
+    if res["mesh"] != (2, 2, 2) or not np.isfinite(res["loss"]):
+        raise AssertionError(f"[graft] dryrun {res['mesh']} loss "
+                             f"{res['loss']}")
+    if abs(res["loss"] - ref["loss"]) > LOSS_RTOL * abs(ref["loss"]):
+        raise AssertionError(f"[graft] dryrun loss {res['loss']} vs the "
+                             f"CPU's {ref['loss']}")
+    if not torch.allclose(res["pipeline_out"].cpu(), ref["pipeline_out"],
+                          rtol=1e-5, atol=1e-6):
+        raise AssertionError("[graft] dryrun pipeline against the CPU")
+    if any(_launches(*mods).values()):
+        raise AssertionError(f"[graft] launched {_launches(*mods)}: the "
+                             f"entry runs stock torch")
+    total = time.perf_counter() - t_phase
+    log(f"[graft] entry() forward on (1, 1, 1): logits "
+        f"{tuple(logits.shape)}, max abs err {fwd_err:.3g} against the "
+        f"CPU; dryrun_multichip({R}): mesh {res['mesh']}, loss "
+        f"{res['loss']!r} (CPU {ref['loss']!r}), pipeline out "
+        f"{tuple(res['pipeline_out'].shape)}, {dry_s:.2f} s; phase "
+        f"{total:.1f} s on {smi}")
+    return {"entry_logits_max_abs_err": fwd_err, "dryrun_loss": res["loss"],
+            "dryrun_cpu_loss": ref["loss"], "dryrun_s": dry_s,
+            "phase_s": total}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
@@ -5106,8 +5610,9 @@ def main(argv=None):
 
     cfg = get_config()
     # the 4 KiB numpy reduces of [main] and [mesh] are below
-    # DEVICE_COLL_MIN_BYTES, where MPI's reduce takes the host tier
-    # (not ported) unless the algorithm is forced onto the device
+    # DEVICE_COLL_MIN_BYTES, where MPI's reduce takes the host tier unless
+    # the algorithm is forced onto the device: those phases count K1/K3
+    # launches on them
     cfg.set("REDUCE_ALGO", "device")
 
     t_start = time.perf_counter()
@@ -5167,6 +5672,8 @@ def main(argv=None):
         torch, flash, ring_attention, ulysses, MeshComm, make_mesh, dev)
     nbc = phase_nbc(torch, np, mvt, ici, ring, alltoall, mpit, cfg, moe, smi,
                     dev)
+    host = phase_host(torch, np, mvt, hbm, ici, ring, alltoall, mpit, opmod,
+                      cfg, smi, dev)
     info = detect.detect(dev)
     kernels, extra = phase_times(torch, hbm, timing, info, smi, inputs,
                                  lat, launches, full_err)
@@ -5199,9 +5706,12 @@ def main(argv=None):
     extra.update(rma_extra)
     extra["flash_build"] = flash_build
     extra["nbc"] = nbc
+    extra["host"] = host
     extra["rma_host_profile"] = phase_rma_host_profile(torch, dev)
     models_state, extra["models"] = phase_models(torch, np, ici, ring, hbm,
                                                  alltoall, smi, dev)
+    extra["graft"] = phase_graft(torch, np, (hbm, ici, ring, alltoall), smi,
+                                 dev)
     extra["trace"] = phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)

@@ -11,9 +11,16 @@ whose collectives run hand-written ring and alltoall(v) kernels
 does. One-sided device windows (``rma.DeviceWin``) put, get and
 accumulate through the RMA kernels of ``ops/rma.py`` (also in
 ``csrc/ring.cu``); ``bench/osu_rma.py`` drives them with the OSU
-one-sided band. The JAX package ``mvapich2_tpu`` is
-the reference this package is tested against; nothing here imports it
-or JAX.
+one-sided band. Under the device channels each rank has the JAX
+package's host tier, ported: point-to-point over an in-process fabric
+(``pt2pt/``, ``transport/``), the host collective algorithms and their
+tuned selection (``coll/api.py``, ``coll/algorithms.py``,
+``coll/tuning.py``) and the host NBC schedule
+(``coll/nonblocking.py``), which run whatever the JAX package routes to
+its host tier. ``graft_entry.py`` is the analog of the JAX package's
+``__graft_entry__.py`` entry points.
+The JAX package ``mvapich2_tpu`` is the reference this package is
+tested against; nothing here imports it or JAX.
 """
 
 from .parallel.mesh import make_mesh

@@ -27,15 +27,22 @@ Three bindings are ported, chosen by geometry (``bind_universes``):
 * :class:`HBMSlotChannel`: all ranks share one device and collectives
   run through an on-card slot segment (``ops/hbm.py``).
 
-The host algorithm tier is not ported; a call that the JAX package's
-``_select_transport`` sends to the host tier (an 8-byte dtype or a
-user-defined op, also under a forced ``<COLL>_ALGO=device``; a forced
-host algorithm; ``USE_DEVICE_COLL`` off without ``<COLL>_ALGO=device``;
-a numpy buffer below ``DEVICE_COLL_MIN_BYTES``; alltoallv with
-``MPI_IN_PLACE``, on the slot channel, or alltoall(v) on the fold
-channel) raises ``NotImplementedError``, as does a mesh that neither
-covers the ranks one to one nor divides them (the JAX package's host
-path).
+A call that the JAX package's ``_select_transport`` sends to the host
+tier (an 8-byte, bool or complex dtype or a user-defined op, also under
+a forced ``<COLL>_ALGO=device``; a forced host algorithm;
+``USE_DEVICE_COLL`` off without ``<COLL>_ALGO=device``; a numpy buffer
+below ``DEVICE_COLL_MIN_BYTES``; alltoallv with ``MPI_IN_PLACE``, on the
+slot channel, or alltoall(v) on the fold channel) runs the host entry the
+wrapper replaced (``coll/api.py``, over the point-to-point protocol) on
+numpy buffers and CPU tensors. A tensor on the card that such a call is
+given raises ``NotImplementedError`` naming why the device tier refused
+it (``_refuse_card``): no call moves a tensor from the card to the host
+and back. bfloat16 is among the dtypes that do not lower, as in the JAX
+package (ml_dtypes' bfloat16 has numpy kind 'V'), although K1 and K3
+take it when called directly. A mesh that neither covers the ranks one
+to one nor divides them binds no channel at all. The host tier is a
+routing decision, never a fallback after a device failure: a kernel that
+does not build or launch raises out of the collective.
 
 Nonblocking collectives (the JAX package's device NBC tier): on the 1:1
 mesh channel iallreduce, ibcast, iallgather, ialltoall and ialltoallv
@@ -55,8 +62,8 @@ no launch waits for the card. A call the device tier cannot take (the
 slot and fold channels, ``MPI_IN_PLACE``, a missing or tensor
 ``recvbuf``, a dtype or op that does not lower, a call
 ``_select_transport`` keeps on the host) counts ``dev_coll_fallback_nbc``
-and raises ``NotImplementedError``: the JAX package runs it on its host
-schedule, which is not ported.
+and runs on the host schedule (``coll/nonblocking.py``), as in the JAX
+package; given a tensor on the card, it raises instead.
 
 Observability (the JAX package's ``_run`` and ``_note_tier`` hooks): under
 MV2T_TRACE each call drops a ``device``-lane ``dev_<coll>`` B/E span in
@@ -87,6 +94,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import logging
 import os
 import threading
 import time
@@ -98,11 +106,14 @@ import torch
 
 from .. import metrics, mpit, trace
 from ..core import op as opmod
+from ..core.comm import from_host, to_host
 from ..core.errors import MPIX_ERR_PROC_FAILED, MPIException
 from ..ops import alltoall, hbm, ici, quant, ring
-from ..utils import is_device_tensor
+from ..transport.progress import Doorbell
+from ..utils import is_device_tensor, on_card
 from ..utils.config import get_config
-from .nbc.engine import Doorbell
+
+log = logging.getLogger("mvapich2_tpu_torch.coll.device")
 
 
 # -- MV2T_JAX_PROFILE: the torch.profiler bracket ------------------------
@@ -186,9 +197,10 @@ class _Rendezvous:
 
     Nonblocking calls have no barrier to block in: ranks deposit under
     ``nb_lock`` into per-sequence call records (``nb_calls``) that the
-    segments' polls read; ``nb_bell`` is the doorbell their waits sleep
-    on; ``nb_stream`` the side stream their segments run on (made at the
-    first launch on a CUDA device)."""
+    segments' polls read; ``nb_bell`` rings the doorbell of every member
+    rank's progress engine, where their waits sleep (``bind_universes``
+    makes them its followers); ``nb_stream`` the side stream their
+    segments run on (made at the first launch on a CUDA device)."""
 
     def __init__(self, size: int):
         self.size = size
@@ -246,8 +258,8 @@ class _Channel:
     # hierarchy levels one call on this channel exercises (the
     # coll_level_* pvars bumped per call in _run)
     LEVELS: Tuple[str, ...] = ()
-    # collectives this channel routes to the device; the others raise,
-    # with this reason (the JAX package keeps them on its host path)
+    # collectives this channel routes to the device; the others keep
+    # their host entries, as in the JAX package, for this reason
     SUPPORTED: Tuple[str, ...] = ()
     UNSUPPORTED_WHY = ""
 
@@ -646,17 +658,17 @@ class DeviceCollChannel(_Channel):
             if opn is None:
                 return None
             send_eff, n = sendbuf, count
-            wire = count * datatype.itemsize
+            wire = count * datatype.size
         elif name == "bcast":
             buf, count, datatype, root = a
             sendbuf = recvbuf = send_eff = buf
             n = count
-            wire = count * datatype.itemsize
+            wire = count * datatype.size
         elif name in ("allgather", "alltoall"):
             sendbuf, recvbuf, count, datatype = a
             send_eff = sendbuf
             n = count if name == "allgather" else count * self.size
-            wire = count * datatype.itemsize * self.size
+            wire = count * datatype.size * self.size
         elif name == "alltoallv":
             (sendbuf, scounts, sdispls, recvbuf, rcounts, rdispls,
              datatype) = a
@@ -665,7 +677,7 @@ class DeviceCollChannel(_Channel):
             if rdispls is None:
                 rdispls = _dense_displs(rcounts)
             send_eff, n = sendbuf, int(sum(scounts))
-            wire = n * datatype.itemsize
+            wire = n * datatype.size
         else:
             return None
         if _is_in_place(sendbuf) or _is_in_place(recvbuf):
@@ -676,9 +688,7 @@ class DeviceCollChannel(_Channel):
             return None
         if not _dtype_ok(send_eff) or not _dtype_ok(recvbuf):
             return None
-        try:
-            _select_transport(name, wire, op_sel, send_eff)
-        except NotImplementedError:     # the JAX package's host answer
+        if _select_transport(name, wire, op_sel, send_eff) != "device":
             return None
         if plan:
             if name == "alltoallv":
@@ -1245,47 +1255,53 @@ _CVAR_OF = {"allreduce": "ALLREDUCE", "bcast": "BCAST",
             "alltoallv": "ALLTOALL",
             "reduce": "REDUCE", "reduce_scatter_block": "REDUCE_SCATTER"}
 
-_HOST_TIER = "the host collective tier is not ported"
+def _route(name: str, nbytes: int, op, buf) -> Tuple[str, str]:
+    """('device', '') or ('host', why) for this call, as the JAX
+    package's ``_select_transport`` chooses. A forced
+    ``<COLL>_ALGO=device`` wins over everything but an op or dtype that
+    does not lower (which logs a warning and takes the host); another
+    forced algorithm, ``USE_DEVICE_COLL`` off or such an op or dtype
+    take the host; then a tensor and alltoallv take the device, and a
+    numpy buffer takes it from DEVICE_COLL_MIN_BYTES (``nbytes``: the
+    call's bytes on the wire) up. The decision must be identical on
+    every rank of a call: its inputs are required-uniform by MPI, buffer
+    residency included. alltoallv's send total is not (a zero row is
+    legal), so it has no size gate. 'host' is a routing decision, never
+    taken after a device failure: a kernel that does not build or launch
+    raises out of the collective."""
+    cfg = get_config()
+    forced = cfg.get(f"{_CVAR_OF[name]}_ALGO", "")
+    why = ""
+    if op is not None and _op_name(op) is None:
+        why = f"op {op!r} has no device reduction"
+    elif not _dtype_ok(buf):
+        why = (f"dtype {getattr(buf, 'dtype', type(buf).__name__)} does "
+               f"not run on the device channel (8-byte, bool, complex and "
+               f"bfloat16 types take the host tier, as in the JAX package)")
+    if forced == "device":
+        if why:
+            log.warning("%s forced to device but op/dtype does not lower; "
+                        "using host path", name)
+            return "host", why
+        return "device", ""
+    if forced:              # a named host algorithm wins
+        return "host", f"host algorithm {forced!r} forced"
+    if not cfg["USE_DEVICE_COLL"]:
+        return "host", "USE_DEVICE_COLL is off"
+    if why:
+        return "host", why
+    if is_device_tensor(buf) or name == "alltoallv":
+        return "device", ""
+    crossover = int(cfg["DEVICE_COLL_MIN_BYTES"])
+    if nbytes >= crossover:
+        return "device", ""
+    return "host", (f"{nbytes} bytes are below DEVICE_COLL_MIN_BYTES "
+                    f"({crossover})")
 
 
 def _select_transport(name: str, nbytes: int, op, buf) -> str:
-    """The transport for this call, as the JAX package's
-    ``_select_transport`` chooses it: 'device', or NotImplementedError
-    where it would take its host tier. A forced ``<COLL>_ALGO=device``
-    wins over everything but an op or dtype that does not lower; another
-    forced algorithm, ``USE_DEVICE_COLL`` off or such an op or dtype
-    take the host; then a tensor (device-resident) and alltoallv take
-    the device, and a numpy buffer takes it from DEVICE_COLL_MIN_BYTES
-    (``nbytes``: the call's bytes on the wire) up. The decision must be
-    identical on every rank of a call: its inputs are required-uniform
-    by MPI, buffer residency included. alltoallv's send total is not
-    (a zero row is legal), so it has no size gate."""
-    cfg = get_config()
-    forced = cfg.get(f"{_CVAR_OF[name]}_ALGO", "")
-    if op is not None and _op_name(op) is None:
-        raise NotImplementedError(
-            f"{name}: op {op!r} has no device reduction; {_HOST_TIER}")
-    if not _dtype_ok(buf):
-        raise NotImplementedError(
-            f"{name}: dtype {getattr(buf, 'dtype', type(buf).__name__)} "
-            f"does not run on the device (8-byte, bool and complex types "
-            f"need the host tier); {_HOST_TIER}")
-    if forced == "device":
-        return "device"
-    if forced:
-        raise NotImplementedError(
-            f"{name}: host algorithm {forced!r} forced; {_HOST_TIER}")
-    if not cfg["USE_DEVICE_COLL"]:
-        raise NotImplementedError(
-            f"{name}: USE_DEVICE_COLL is off; {_HOST_TIER}")
-    if is_device_tensor(buf) or name == "alltoallv":
-        return "device"
-    crossover = int(cfg["DEVICE_COLL_MIN_BYTES"])
-    if nbytes >= crossover:
-        return "device"
-    raise NotImplementedError(
-        f"{name}: a host buffer of {nbytes} bytes is below "
-        f"DEVICE_COLL_MIN_BYTES ({crossover}); {_HOST_TIER}")
+    """'device' or 'host' for this call (see :func:`_route`)."""
+    return _route(name, nbytes, op, buf)[0]
 
 
 def _dtype_ok(buf) -> bool:
@@ -1294,80 +1310,146 @@ def _dtype_ok(buf) -> bool:
     return _dtype_lowers(*_dtype_kind(buf))
 
 
+def _refuse_card(name: str, why: str, *bufs) -> None:
+    """Raise for a tensor on the card that a call sends to the host tier:
+    the port has no device path for it, and the host tier does not move
+    it to the host and back."""
+    for b in bufs:
+        if on_card(b):
+            raise NotImplementedError(
+                f"{name}: {why}; a tensor on {b.device} has no device "
+                f"path for this call and is not moved to the host")
+
+
 def install_device_coll(comm, channel: _Channel) -> None:
-    """Point the device-capable entries of ``comm.coll_fns`` at the
-    channel, behind the transport check."""
+    """Overwrite the device-capable entries of ``comm.coll_fns`` with
+    transport-selecting wrappers (the JAX ``install_device_coll``): the
+    host entries ``install_coll_ops`` put there run what ``_route`` keeps
+    on the host. A tensor on the card that such a call is given raises
+    (``_refuse_card``); a CPU tensor is read in place as numpy and the
+    result handed back as a CPU tensor, as the JAX package stages a
+    device array."""
+    from .tuning import install_coll_ops
+    if not comm.coll_fns:
+        install_coll_ops(comm)
+    host = dict(comm.coll_fns)
     comm.device_channel = channel
     sz = comm.size
-    # per entry: (bytes on the wire, position of the op) from its args
-    # after the comm (core/comm.py signatures; a datatype is a numpy or
-    # torch dtype), as the JAX install_device_coll's meta table
+    # per entry: (bytes on the wire, position of the op, the result's
+    # element count) from its args after the comm (core/comm.py
+    # signatures), as the JAX install_device_coll's meta table
     meta = {
-        "allreduce": (lambda a: a[2] * a[3].itemsize, 4),
-        "reduce": (lambda a: a[2] * a[3].itemsize, 4),
-        "bcast": (lambda a: a[1] * a[2].itemsize, None),
-        "allgather": (lambda a: a[2] * a[3].itemsize * sz, None),
-        "alltoall": (lambda a: a[2] * a[3].itemsize * sz, None),
-        "reduce_scatter_block": (lambda a: a[2] * a[3].itemsize * sz, 4),
+        "allreduce": (lambda a: a[2] * a[3].size, 4, lambda a: a[2]),
+        "reduce": (lambda a: a[2] * a[3].size, 4, lambda a: a[2]),
+        "bcast": (lambda a: a[1] * a[2].size, None, lambda a: a[1]),
+        "allgather": (lambda a: a[2] * a[3].size * sz, None,
+                      lambda a: a[2] * sz),
+        "alltoall": (lambda a: a[2] * a[3].size * sz, None,
+                     lambda a: a[2] * sz),
+        "reduce_scatter_block": (lambda a: a[2] * a[3].size * sz, 4,
+                                 lambda a: a[2]),
     }
 
     def wrap(name):
-        devfn = getattr(channel, name)
-        nbytes_of, op_pos = meta[name]
+        hostfn = host[name]
+        devfn = getattr(channel, name) if name in channel.SUPPORTED \
+            else None
+        nbytes_of, op_pos, out_count_of = meta[name]
 
         def entry(comm_, *a):
-            buf = a[0]
-            if _is_in_place(buf) and len(a) > 1:
-                buf = a[1]   # selection looks at the effective buffer
-            op = a[op_pos] if op_pos is not None else None
-            _select_transport(name, nbytes_of(a), op, buf)
-            return devfn(comm_, *a)
-        return entry
-
-    def host_only(name):
-        def entry(comm_, *a):
-            raise NotImplementedError(
-                f"{name} {channel.UNSUPPORTED_WHY}; {_HOST_TIER}")
+            if devfn is None:
+                why = f"{name} {channel.UNSUPPORTED_WHY}"
+            else:
+                buf = a[0]
+                if _is_in_place(buf) and len(a) > 1:
+                    buf = a[1]   # selection looks at the effective buffer
+                op = a[op_pos] if op_pos is not None else None
+                where, why = _route(name, nbytes_of(a), op, buf)
+                if where == "device":
+                    return devfn(comm_, *a)
+            # the host tier: numpy buffers as they are; a CPU tensor read
+            # as numpy, its result handed back as a CPU tensor
+            if name == "bcast":
+                _refuse_card(name, why, a[0])
+                if not is_device_tensor(a[0]):
+                    return hostfn(comm_, *a)
+                h = to_host(a[0])
+                hostfn(comm_, h, *a[1:])
+                return from_host(h, a[0].device)
+            send, recv = a[0], a[1]
+            _refuse_card(name, why, send, recv)
+            if not (is_device_tensor(send) or is_device_tensor(recv)):
+                return hostfn(comm_, *a)
+            if _is_in_place(send) and is_device_tensor(recv):
+                raise ValueError("MPI_IN_PLACE with a tensor recvbuf is "
+                                 "not supported on the host transport")
+            send_h = to_host(send) if is_device_tensor(send) else send
+            recv_h = recv
+            if recv_h is None or is_device_tensor(recv_h):
+                if name == "reduce" and comm_.rank != a[5]:
+                    recv_h = None
+                else:
+                    recv_h = np.empty((out_count_of(a),),
+                                      dtype=np.asarray(send_h).dtype)
+            hostfn(comm_, send_h, recv_h, *a[2:])
+            if recv_h is None:
+                return None
+            return from_host(recv_h, "cpu")
         return entry
 
     for name in meta:
-        comm.coll_fns[name] = (wrap(name) if name in channel.SUPPORTED
-                               else host_only(name))
+        comm.coll_fns[name] = wrap(name)
 
-    # alltoallv: its own entry (recvbuf sits at a[3]). A channel without
-    # it, MPI_IN_PLACE and a forced host algorithm take the host path in
-    # the JAX package: here they raise.
+    # alltoallv: its own wrapper (recvbuf sits at a[3], and the decision
+    # keys on this rank's send total). The device tier needs a channel
+    # that runs it (the 1:1 mesh; the slot and fold channels keep the
+    # host path), and MPI_IN_PLACE takes the host.
+    host_a2av = host["alltoallv"]
+    supported = "alltoallv" in channel.SUPPORTED
+
     def a2av_entry(comm_, sendbuf, scounts, sdispls, recvbuf, rcounts,
                    rdispls, datatype):
-        if "alltoallv" not in channel.SUPPORTED:
-            raise NotImplementedError(
-                f"alltoallv {channel.UNSUPPORTED_WHY}; {_HOST_TIER}")
-        if _is_in_place(sendbuf):
-            raise NotImplementedError(
-                f"alltoallv with MPI_IN_PLACE; {_HOST_TIER}")
-        _select_transport("alltoallv", 0, None, sendbuf)
-        return channel.alltoallv(
-            comm_, sendbuf, list(scounts),
-            list(sdispls) if sdispls is not None
-            else _dense_displs(scounts),
-            recvbuf, list(rcounts),
-            list(rdispls) if rdispls is not None
-            else _dense_displs(rcounts), datatype)
+        if not supported:
+            why = f"alltoallv {channel.UNSUPPORTED_WHY}"
+        elif _is_in_place(sendbuf):
+            why = "alltoallv with MPI_IN_PLACE takes the host tier"
+        else:
+            nbytes = int(sum(scounts)) * datatype.size
+            where, why = _route("alltoallv", nbytes, None, sendbuf)
+            if where == "device":
+                return channel.alltoallv(
+                    comm_, sendbuf, list(scounts),
+                    list(sdispls) if sdispls is not None
+                    else _dense_displs(scounts),
+                    recvbuf, list(rcounts),
+                    list(rdispls) if rdispls is not None
+                    else _dense_displs(rcounts), datatype)
+        _refuse_card("alltoallv", why, sendbuf, recvbuf)
+        if is_device_tensor(sendbuf) or is_device_tensor(recvbuf):
+            raise ValueError(f"alltoallv: {why}; tensor buffers need the "
+                             f"device transport")
+        return host_a2av(comm_, sendbuf, scounts, sdispls, recvbuf,
+                         rcounts, rdispls, datatype)
     comm.coll_fns["alltoallv"] = a2av_entry
 
 
 def build_nonblocking_request(comm, name: str, *a):
     """The i-collective's device-tier request, or None when ``comm`` has
     no device channel or the call cannot ride the tier; a call the
-    channel refuses counts dev_coll_fallback_nbc (the JAX package then
-    takes its host schedule; ``coll/nonblocking.py`` raises). A kernel
-    that fails to build or launch raises out of the request's wait()."""
+    channel refuses counts dev_coll_fallback_nbc and takes the host
+    schedule (``coll/nonblocking.py``), as in the JAX package; a tensor
+    on the card in such a call raises (``_refuse_card``). A kernel
+    that fails to build or launch raises out of the request's wait():
+    unlike the JAX package, an error in the routing itself is not turned
+    into a host schedule either."""
     channel = comm.device_channel
     if channel is None:
         return None
     req = channel.nonblocking(comm, name, *a)
     if req is None:
         mpit.pvar("dev_coll_fallback_nbc").inc()
+        _refuse_card(f"i{name}", "the device NBC tier does not take this "
+                     "call (the host schedule would)", *a)
     return req
 
 
@@ -1397,8 +1479,8 @@ def bind_universes(universes, device: torch.device, mesh=None) -> bool:
         HBMSlotChannel on ``device`` (all ranks share it; with no mesh
         this holds for one rank too).
 
-    Any other mesh raises ``NotImplementedError``: the JAX package runs
-    such a geometry on its host path, which is not ported. Under
+    Any other mesh binds nothing and returns False: COMM_WORLD keeps the
+    host tier, as in the JAX package (which logs a warning). Under
     MV2T_JAX_PROFILE the first binding starts the profiler bracket."""
     n = len(universes)
     rv = _Rendezvous(n)
@@ -1414,14 +1496,14 @@ def bind_universes(universes, device: torch.device, mesh=None) -> bool:
         def make(r):
             return DeviceFoldChannel(mesh, rv, r, n)
     else:
-        raise NotImplementedError(
-            f"a mesh of {mesh.size} devices {dict(mesh.shape)} neither "
-            f"binds {n} ranks one to one nor divides them; the JAX "
-            f"package takes its host path there, which is not ported")
+        log.warning("mesh shape %s does not match %d ranks; host path "
+                    "only", dict(mesh.shape), n)
+        return False
     for r, u in enumerate(universes):
         ch = make(r)
         ch.u = u
-        u.engine.bell = rv.nb_bell      # the ranks' waits share a doorbell
+        # the rendezvous's rings wake every member rank's waits
+        rv.nb_bell.followers.append(u.engine.bell)
         install_device_coll(u.comm_world, ch)
     out_dir = get_config()["JAX_PROFILE"]
     if out_dir and _profiler is None:

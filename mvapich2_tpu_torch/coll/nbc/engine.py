@@ -1,83 +1,58 @@
-"""The scheduler of the nonblocking device collectives' DAGs (a trimmed
-copy of the JAX package's ``coll/nbc/engine.py``).
+"""The completion-driven scheduler of the nonblocking collectives' DAGs
+(a copy of the JAX package's ``coll/nbc/engine.py``).
 
-One ``NbcEngine`` rides each rank's ``Universe`` (``u.engine``) and holds
-that rank's schedules in flight. It has no progress thread: it advances
-when its rank calls ``test()`` or ``wait()`` on one of its requests
-(``progress``, ``progress_wait``). A pass issues every runnable vertex
-and re-calls every parked ``POLL`` (a device segment waiting for its
-peers or for the card) once.
-
-``wait()`` never spins holding the GIL: between passes it sleeps on the
-``Doorbell`` of its comm's rendezvous, which a deposit, a segment launch
-and an abort ring, for at most ``POLL_SLICE_S`` (a segment's completion on
-the card rings nothing: the slice bounds how late a waiter sees it).
-This is the port's analog of the JAX engine's doorbell.
+One ``NbcEngine`` rides each rank's ``ProgressEngine``
+(``transport/progress.py``; ``nbc_engine``) as its registered progress
+hook, and holds that rank's schedules in flight. A schedule advances
+from request-completion callbacks: when a vertex's send or receive
+completes, the callback (engine mutex held, on whichever thread
+progressed the engine) marks the vertex done and issues every vertex it
+made runnable, and the completion rings the engine's doorbell. The hook
+is the safety net that issues what a completion path left ready, and
+the pump of the device tier's parked ``POLL`` vertices (a segment
+waiting for its peers or for the card), which it re-calls once a pass.
 
 Pvars, as the JAX engine keeps them: ``nbc_scheds_active`` (a level),
-``nbc_vertices_issued``, ``nbc_wakeups`` (waits a doorbell ring ended:
-the JAX engine counts its completion wakeups) and ``nbc_futile_polls``.
-Under MV2T_TRACE the ``nbc`` lane carries ``sched_start``,
-``vertex_issue``, ``vertex_complete`` and ``sched_complete`` with the JAX
-fields, so the JAX package's ``bin/mv2tconform`` reads them through its
-NBC automaton.
+``nbc_vertices_issued``, ``nbc_wakeups`` (schedule advancements an event
+started: a vertex request's completion callback, or a doorbell ring that
+ended a wait while a device segment was parked; the JAX engine counts
+the former) and ``nbc_futile_polls``. Under MV2T_TRACE the ``nbc`` lane
+carries ``sched_start``, ``vertex_issue``, ``vertex_complete`` and
+``sched_complete`` with the JAX fields, so the JAX package's
+``bin/mv2tconform`` reads them through its NBC automaton.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Optional
 
 from ... import mpit
+from ...core.datatype import from_numpy_dtype
 from ...core.errors import MPI_ERR_INTERN, MPIException
 from ...core.request import Request
-from .dag import CALL, POLL, SchedDAG
-
-# the longest a waiter sleeps between two progress passes (seconds)
-POLL_SLICE_S = 2e-4
+from .dag import CALL, POLL, RECV, SchedDAG
 
 _pv_active = mpit.pvar("nbc_scheds_active", mpit.PVAR_CLASS_LEVEL,
                        "nonblocking-collective schedules in flight (all "
                        "ranks in this process)")
 _pv_issued = mpit.pvar("nbc_vertices_issued", mpit.PVAR_CLASS_COUNTER,
-                       "schedule vertices issued (local calls and polls)")
+                       "schedule vertices issued (sends, recvs, local "
+                       "calls, polls)")
 _pv_wakeups = mpit.pvar("nbc_wakeups", mpit.PVAR_CLASS_COUNTER,
-                        "waits between progress passes that a doorbell "
-                        "ring (a deposit, a launch, an abort) ended")
+                        "schedule advancements an event started: a vertex "
+                        "completion, or a doorbell ring ending a wait on "
+                        "a parked device segment")
 _pv_futile = mpit.pvar("nbc_futile_polls", mpit.PVAR_CLASS_COUNTER,
                        "progress passes that found active schedules but "
                        "advanced none")
 
 
-class Doorbell:
-    """A condition with a ring counter: ``ring`` wakes every sleeper;
-    ``sleep(seen, timeout)`` returns at once if a ring came after the
-    caller read ``rings`` as ``seen``, so no ring between a pass and the
-    sleep is lost."""
-
-    def __init__(self):
-        self.cond = threading.Condition()
-        self.rings = 0
-
-    def ring(self) -> None:
-        with self.cond:
-            self.rings += 1
-            self.cond.notify_all()
-
-    def sleep(self, seen: int, timeout: float) -> bool:
-        """True when a ring came since ``seen`` (before or during the
-        sleep), False when the timeout ended it."""
-        with self.cond:
-            if self.rings == seen:
-                self.cond.wait(timeout)
-            return self.rings != seen
-
-
 class _SchedState:
-    """One in-flight schedule: its runtime dependency counters."""
+    """One in-flight schedule: its runtime dependency counters and
+    requests."""
 
-    __slots__ = ("dag", "req", "remaining", "ndeps", "ready", "polling",
-                 "advancing", "done")
+    __slots__ = ("dag", "req", "remaining", "ndeps", "ready", "inflight",
+                 "polling", "advancing", "done")
 
     def __init__(self, dag: SchedDAG, engine, kind: str):
         self.dag = dag
@@ -85,53 +60,57 @@ class _SchedState:
         self.remaining = len(dag.vertices)
         self.ndeps = [v.ndeps for v in dag.vertices]
         self.ready: List[int] = dag.roots()
+        self.inflight: Dict[int, Request] = {}   # vid -> vertex request
         self.polling: Dict[int, object] = {}     # vid -> parked poll fn
         self.advancing = False
         self.done = False
 
 
 class NbcEngine:
-    """One rank's schedule queue. ``u`` is the rank's Universe (its
-    recorder is ``u.tracer``); ``bell`` the doorbell of the rendezvous its
-    bound comm meets at (``coll/device.py`` ``bind_universes``)."""
+    """One rank's schedule queue: the hook of its ProgressEngine
+    (``engine``)."""
 
-    def __init__(self, u=None):
-        self.u = u
-        self.mutex = threading.RLock()
-        self.bell = Doorbell()
+    def __init__(self, engine):
+        self.engine = engine
         self.active: List[_SchedState] = []
         self._gen = 0        # bumped on every advancement (issue/complete)
-        self._seen_gen = 0   # the pass-side watermark for futile polls
-
-    @property
-    def tracer(self):
-        return self.u.tracer if self.u is not None else None
+        self._seen_gen = 0   # the hook's watermark for futile polls
+        engine.register_hook(self._hook)
 
     # -- entry point ------------------------------------------------------
     def start(self, dag: SchedDAG, kind: str = "nbc-coll") -> Request:
-        st = _SchedState(dag, self, kind)
+        eng = self.engine
+        st = _SchedState(dag, eng, kind)
         st.req._cancel_fn = lambda: self._cancel(st)
-        with self.mutex:
+        with eng.mutex:
             if not dag.vertices:
                 st.done = True
                 st.req.complete()
                 return st.req
             self.active.append(st)
             _pv_active.inc()
-            if (tr := self.tracer) is not None:
+            if (tr := eng.tracer) is not None:
                 tr.record("nbc", "sched_start", "i", sched=st.req.req_id,
                           kind=kind, vertices=len(dag.vertices))
             self._advance(st)
         return st.req
 
-    def complete_request(self, req: Request) -> None:
-        with self.mutex:
-            req._fire()
+    def has_parked_polls(self) -> bool:
+        """True while a device segment is parked (its completion on the
+        card rings no doorbell)."""
+        return any(st.polling for st in self.active)
 
-    # -- advancement (mutex held on every path) ---------------------------
+    def note_wakeup(self) -> None:
+        """A doorbell ring ended a wait (``ProgressEngine.progress_wait``):
+        counted while a schedule is in flight."""
+        if self.active:
+            _pv_wakeups.inc()
+
+    # -- advancement (engine mutex held on every path) --------------------
     def _advance(self, st: _SchedState) -> None:
-        """Issue every runnable vertex; vertices that a completion makes
-        runnable during the loop are picked up by it."""
+        """Issue every runnable vertex. Completions inside an issue (an
+        eager send, an already matched receive) land in ``st.ready`` and
+        are picked up by the outer loop."""
         if st.advancing or st.done:
             return
         st.advancing = True
@@ -153,7 +132,7 @@ class NbcEngine:
         v = st.dag.vertices[vid]
         _pv_issued.inc()
         self._gen += 1
-        if (tr := self.tracer) is not None:
+        if (tr := self.engine.tracer) is not None:
             tr.record("nbc", "vertex_issue", "i", sched=st.req.req_id,
                       vid=vid, kind=v.kind)
         if v.kind == CALL:
@@ -167,11 +146,36 @@ class NbcEngine:
                 return
             self._vertex_done(st, vid)
             return
-        assert v.kind == POLL
-        # first poll at issue time (a segment may complete at once, as on
-        # the CPU); an incomplete poll parks until a later pass
-        if not self._poll_one(st, vid, v.fn):
-            st.polling[vid] = v.fn
+        if v.kind == POLL:
+            # first poll at issue time (a segment may complete at once, as
+            # on the CPU); an incomplete poll parks until a later pass
+            if not self._poll_one(st, vid, v.fn):
+                st.polling[vid] = v.fn
+            return
+        comm, buf = v.comm, v.buf
+        proto = comm.u.protocol
+        try:
+            if v.kind == RECV:
+                req = proto.irecv(buf, buf.size,
+                                  from_numpy_dtype(buf.dtype), v.peer,
+                                  comm.ctx_coll, v.tag)
+            else:
+                req = proto.isend(buf, buf.size,
+                                  from_numpy_dtype(buf.dtype),
+                                  comm.world_of(v.peer), comm.rank,
+                                  comm.ctx_coll, v.tag)
+        except MPIException as e:
+            self._complete(st, e)
+            return
+        if req.complete_flag:
+            if req.error is not None:
+                self._complete(st, req.error)
+                return
+            self._vertex_done(st, vid)
+            return
+        st.inflight[vid] = req
+        req.add_callback(
+            lambda r, st=st, vid=vid: self._on_completion(st, vid, r))
 
     def _poll_one(self, st: _SchedState, vid: int, fn) -> bool:
         """Run one poll. True = the vertex completed (or the schedule
@@ -191,81 +195,94 @@ class NbcEngine:
         return True
 
     def _vertex_done(self, st: _SchedState, vid: int) -> None:
-        if (tr := self.tracer) is not None:
+        if (tr := self.engine.tracer) is not None:
             tr.record("nbc", "vertex_complete", "i", sched=st.req.req_id,
                       vid=vid)
         st.remaining -= 1
+        st.inflight.pop(vid, None)
         for w in st.dag.vertices[vid].out:
             st.ndeps[w] -= 1
             if st.ndeps[w] == 0:
                 st.ready.append(w)
         self._gen += 1
 
+    def _on_completion(self, st: _SchedState, vid: int,
+                       req: Request) -> None:
+        """A vertex request's completion callback (engine mutex held, from
+        ``ProgressEngine.complete_request``): the event edge that
+        advances the schedule."""
+        if st.done:
+            return
+        _pv_wakeups.inc()
+        if req.error is not None:
+            self._complete(st, req.error)
+            return
+        self._vertex_done(st, vid)
+        self._advance(st)
+        if not st.done and st.remaining == 0:
+            self._complete(st, None)
+
     def _complete(self, st: _SchedState,
                   error: Optional[MPIException]) -> None:
         st.done = True
-        if (tr := self.tracer) is not None:
+        if (tr := self.engine.tracer) is not None:
             tr.record("nbc", "sched_complete", "i", sched=st.req.req_id,
                       error=error is not None)
-        self._retire(st)
+        self._retire(st, cancel_inflight=error is not None)
         st.req.complete(error)
 
-    def _retire(self, st: _SchedState) -> None:
+    def _retire(self, st: _SchedState, cancel_inflight: bool) -> None:
         try:
             self.active.remove(st)
             _pv_active.inc(-1)
         except ValueError:
             pass
+        if cancel_inflight:
+            # unwind: posted receives leave the matching queue, unmatched
+            # sends are retracted through the cancel protocol
+            for req in list(st.inflight.values()):
+                try:
+                    req.cancel()
+                except MPIException:
+                    pass
+        st.inflight.clear()
         st.polling.clear()     # parked device segments: nothing leaks
 
     def _cancel(self, st: _SchedState) -> bool:
         """A user's cancel of the schedule's request: abandon what is not
-        issued; succeeds only while the schedule is incomplete."""
-        with self.mutex:
+        issued and cancel what is in flight; succeeds only while the
+        schedule is incomplete."""
+        with self.engine.mutex:
             if st.done:
                 return False
             st.done = True
-            self._retire(st)
+            self._retire(st, cancel_inflight=True)
             return True
 
-    # -- progress ---------------------------------------------------------
-    def progress(self) -> bool:
-        """One pass over the active schedules: re-call every parked poll,
-        issue what became runnable. True when it advanced anything."""
-        with self.mutex:
-            if not self.active:
-                return False
-            did = False
-            for st in list(self.active):
-                for vid, fn in list(st.polling.items()):
-                    if st.done:
-                        break
-                    if self._poll_one(st, vid, fn):
-                        did = True
-                if st.done:
-                    continue
-                if st.ready and not st.advancing:
-                    self._advance(st)
-                    did = True
-                elif st.remaining == 0:
-                    self._complete(st, None)
-                    did = True
-            if self._gen != self._seen_gen:
-                self._seen_gen = self._gen
-                return did
-            _pv_futile.inc()
+    # -- the progress hook (mutex held, from progress_poke) ---------------
+    def _hook(self) -> bool:
+        if not self.active:
             return False
-
-    def progress_wait(self, pred) -> None:
-        """Progress until ``pred()`` holds, sleeping on the doorbell
-        between passes (the GIL released)."""
-        while True:
-            seen = self.bell.rings
-            self.progress()
-            if pred():
-                return
-            if self.bell.sleep(seen, POLL_SLICE_S):
-                _pv_wakeups.inc()
+        did = False
+        for st in list(self.active):
+            for vid, fn in list(st.polling.items()):
+                if st.done:
+                    break
+                if self._poll_one(st, vid, fn):
+                    did = True
+            if st.done:
+                continue
+            if st.ready and not st.advancing:
+                self._advance(st)
+                did = True
+            elif st.remaining == 0:
+                self._complete(st, None)
+                did = True
+        if self._gen != self._seen_gen:
+            self._seen_gen = self._gen
+            return did
+        _pv_futile.inc()
+        return False
 
 
 def _intern(what: str, e: BaseException) -> MPIException:
@@ -274,6 +291,17 @@ def _intern(what: str, e: BaseException) -> MPIException:
     return err
 
 
+def nbc_engine(engine) -> NbcEngine:
+    """The progress engine's scheduler, made on first use."""
+    nbc = engine.nbc
+    if nbc is None:
+        with engine.mutex:
+            nbc = engine.nbc
+            if nbc is None:
+                nbc = engine.nbc = NbcEngine(engine)
+    return nbc
+
+
 def start(comm, dag: SchedDAG, kind: str = "nbc-coll") -> Request:
-    """Launch ``dag`` on the engine of ``comm``'s universe."""
-    return comm.u.engine.start(dag, kind)
+    """Launch ``dag`` on the progress engine of ``comm``'s universe."""
+    return nbc_engine(comm.u.engine).start(dag, kind)

@@ -1,37 +1,30 @@
-"""Request objects (a trimmed copy of the JAX package's ``core/request.py``).
+"""Request objects (a copy of the JAX package's ``core/request.py``).
 
-A Request is a completion promise tied to its rank's NBC engine
-(``coll/nbc/engine.py``): ``test`` runs one progress pass of the engine,
-``wait`` runs passes until the request completes, sleeping between them
-on the engine's doorbell. Completion callbacks chain a persistent
-request to the nonblocking request each ``start`` posts. The JAX
-package's generalized requests (``Grequest``) belong to its host tier and
-are not ported.
+A Request is a completion promise tied to its rank's progress engine
+(``transport/progress.py``). ``test`` runs one progress pass; blocking
+waits funnel into the engine's ``progress_wait``, which polls and sleeps
+on the engine's doorbell, rung by any thread that delivers a packet or
+completes a request. Completion callbacks chain the protocol state
+machines (rendezvous CTS -> data -> FIN), the nonblocking-collective
+schedules (``coll/nbc``) and the persistent requests. The JAX package's
+generalized requests (``Grequest``) wait with the C ABI that uses them.
 """
 
 from __future__ import annotations
 
 from typing import Callable, List, Optional
 
-from .errors import MPI_ERR_REQUEST, MPI_SUCCESS, MPIException
+from .errors import MPIException, MPI_ERR_REQUEST
+from .status import Status
 
-
-class Status:
-    """What a completed request reports: its error class (MPI_SUCCESS
-    when none) and whether it was cancelled."""
-
-    __slots__ = ("error", "cancelled")
-
-    def __init__(self):
-        self.error = MPI_SUCCESS
-        self.cancelled = False
+REQUEST_NULL = None
 
 
 class Request:
     _ids = iter(range(1, 1 << 62))
 
     def __init__(self, engine=None, kind: str = "generic"):
-        self.engine = engine          # the NBC engine that completes me
+        self.engine = engine          # progress engine that completes me
         self.kind = kind
         self.status = Status()
         self.complete_flag = False
@@ -44,7 +37,7 @@ class Request:
         self.device_nbc = False       # rides the device NBC tier
         self.req_id = next(Request._ids)
 
-    # -- completion (under the engine's mutex when there is an engine) ---
+    # -- completion (called with engine lock held or from engine.complete) --
     def add_callback(self, cb: Callable) -> None:
         if self.complete_flag:
             cb(self)
@@ -58,7 +51,7 @@ class Request:
             cb(self)
 
     def complete(self, error: Optional[MPIException] = None) -> None:
-        """Complete through the owning engine (or at once without one)."""
+        """Thread-safe completion via the owning engine."""
         if error is not None:
             self.error = error
             self.status.error = error.error_class
@@ -70,23 +63,33 @@ class Request:
     # -- user-facing ------------------------------------------------------
     def test(self) -> bool:
         if not self.complete_flag and self.engine is not None:
-            self.engine.progress()
+            self.engine.progress_poke()
         return self.complete_flag
 
     def wait(self) -> Status:
+        # already-complete fast path (every eager send): complete_flag
+        # only ever transitions False->True, so an unlocked read that
+        # sees True is safe and skips the progress mutex+poll
         if not self.complete_flag:
-            if self.engine is None:
+            if self.engine is not None:
+                self.engine.progress_wait(lambda: self.complete_flag)
+            else:
                 raise MPIException(MPI_ERR_REQUEST,
                                    "wait on engine-less incomplete request")
-            self.engine.progress_wait(lambda: self.complete_flag)
         if self.error is not None:
             raise self.error
         return self.status
 
     def cancel(self) -> None:
-        if self.complete_flag:
+        # Recv cancel = matching-queue removal; send cancel resolves
+        # asynchronously through the protocol (see pt2pt/protocol.py).
+        # _cancel_override marks requests (persistent sends) whose
+        # local completion does not preclude cancelling.
+        if self.complete_flag and not getattr(self, "_cancel_override",
+                                              False):
             return
-        if self._cancel_fn is not None and self._cancel_fn():
+        canceller = self._cancel_fn
+        if canceller is not None and canceller():
             self.cancelled = True
             self.status.cancelled = True
             self.complete()
@@ -94,7 +97,7 @@ class Request:
     def free(self) -> None:
         pass
 
-    # -- persistent requests (MPI_*_init / MPI_Start) ---------------------
+    # -- persistent requests (MPI_Send_init / MPI_Start) ------------------
     def start(self) -> None:
         if not self.persistent or self._start_fn is None:
             raise MPIException(MPI_ERR_REQUEST, "not a persistent request")
@@ -108,13 +111,25 @@ class Request:
                 f"{'done' if self.complete_flag else 'pending'})")
 
 
+class CompletedRequest(Request):
+    """Immediately-complete request (e.g. self-send fast path, 0-byte ops)."""
+
+    def __init__(self, status: Optional[Status] = None):
+        super().__init__(None, "completed")
+        if status is not None:
+            self.status = status
+        self.complete_flag = True
+
+
 def waitall(requests: List[Optional[Request]]) -> List[Status]:
-    return [r.wait() if r is not None else Status() for r in requests]
+    stats = []
+    for r in requests:
+        stats.append(r.wait() if r is not None else Status())
+    return stats
 
 
 def waitany(requests: List[Optional[Request]]) -> int:
-    """The index of a completed request; progresses until one completes
-    (-1 when every entry is None)."""
+    """Returns index of a completed request; progresses until one completes."""
     live = [(i, r) for i, r in enumerate(requests) if r is not None]
     if not live:
         return -1
@@ -138,7 +153,7 @@ def testall(requests: List[Optional[Request]]) -> bool:
 
 
 def testany(requests: List[Optional[Request]]):
-    """(index, flag): the first completed request's index, or (-1, False)."""
+    """(index, flag): first completed request's index, or (-1, False)."""
     for i, r in enumerate(requests):
         if r is not None and r.test():
             if r.error is not None:
@@ -148,8 +163,9 @@ def testany(requests: List[Optional[Request]]):
 
 
 def waitsome(requests: List[Optional[Request]]) -> List[int]:
-    """The indices of every completed request, once at least one has."""
-    if waitany(requests) < 0:
+    """Indices of all completed requests after at least one completes."""
+    first = waitany(requests)
+    if first < 0:
         return []
     out = []
     for i, r in enumerate(requests):

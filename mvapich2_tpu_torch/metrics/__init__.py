@@ -1,6 +1,6 @@
 """The latency-histogram gate (counterpart of the JAX package's
 ``metrics/__init__.py`` ``LIVE`` gate; its shm sampler, ring and exporter
-belong to the host tier and are not ported).
+belong to the shared-memory transport and are not ported).
 
 Recording sites pay ONE module-attribute check when the histograms are
 off::

@@ -1,5 +1,5 @@
-"""Performance variables the port's device channels bump (a minimal copy
-of the JAX package's ``mpit.py`` pvar registry, under the same names):
+"""Performance variables the port bumps (a minimal copy of the JAX
+package's ``mpit.py`` pvar registry, under the same names):
 
 * ``coll_level_chip`` / ``coll_level_ici`` - counters: collective calls
   on the slot channel / on the 1:1 mesh channel;
@@ -21,20 +21,29 @@ of the JAX package's ``mpit.py`` pvar registry, under the same names):
 * ``dev_rma_tier_{rdma,quant,epoch}``, ``dev_rma_fallback_{noncontig,
   platform,size,dtype}``, ``dev_rma_flush`` and ``dev_rma_wire_bytes`` -
   counters of the one-sided device windows (``rma/device.py``);
-* ``lat_dev_{vmem,hbm,quant,xla,slot}``, ``lat_dev_nbc`` and
-  ``lat_rma_flush`` - histograms: log2-bucketed latencies in microseconds
-  of each device collective call by tier, of each nonblocking segment
-  from its launch to its observed completion, and of each one-sided
-  completion wave
-  (recorded through ``metrics.LIVE``).
+* ``lat_dev_{vmem,hbm,quant,xla,slot}``, ``lat_dev_nbc``,
+  ``lat_rma_flush`` and ``lat_coll_sched`` - histograms: log2-bucketed
+  latencies in microseconds of each device collective call by tier, of
+  each nonblocking segment from its launch to its observed completion,
+  of each one-sided completion wave and of each host bcast and allreduce
+  algorithm (recorded through ``metrics.LIVE``);
+* the host tier's, declared where they are bumped:
+  ``coll_<coll>_<algo>_calls`` and ``_time`` (a counter and a timer of
+  seconds, ``coll/api.py`` ``_select``), ``pt2pt_eager_sent``,
+  ``pt2pt_rndv_sent`` and ``pt2pt_bytes_sent``
+  (``pt2pt/protocol.py``), ``recvq_*`` (``pt2pt/matching.py``),
+  ``chan_local_{msgs,bytes}_sent`` (``transport/base.py``) and
+  ``progress_polls`` (``transport/progress.py``).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict
 
 PVAR_CLASS_COUNTER = 0
+PVAR_CLASS_TIMER = 1
 PVAR_CLASS_LEVEL = 2
 PVAR_CLASS_HIGHWATERMARK = 3
 PVAR_CLASS_HISTOGRAM = 4
@@ -64,6 +73,25 @@ class PVar:
     def read(self) -> float:
         with self._lock:
             return self._value
+
+    class _Timer:
+        """Adds the seconds of a ``with`` block to a timer pvar."""
+
+        __slots__ = ("pv", "t0")
+
+        def __init__(self, pv: "PVar"):
+            self.pv = pv
+
+        def __enter__(self):
+            self.t0 = time.perf_counter()
+            return self
+
+        def __exit__(self, *exc):
+            self.pv.inc(time.perf_counter() - self.t0)
+            return False
+
+    def timing(self) -> "PVar._Timer":
+        return PVar._Timer(self)
 
 
 class HistPVar(PVar):
@@ -146,8 +174,8 @@ for _tier in ("vmem", "hbm", "quant", "xla", "slot"):
 pvar("dev_coll_fallback_nbc", PVAR_CLASS_COUNTER,
      "nonblocking collectives on a device-capable comm that could not "
      "route through the device tier (op/dtype/residency/size, the slot "
-     "or fold channel) and raised for the host schedule, which is not "
-     "ported (coll/device.py build_nonblocking_request)")
+     "or fold channel) and took the host schedule instead "
+     "(coll/device.py build_nonblocking_request)")
 pvar("dev_persistent_starts", PVAR_CLASS_COUNTER,
      "persistent-collective start() dispatches that rode the device "
      "nonblocking tier (MPI_*_init handles whose programs were built at "
@@ -203,6 +231,8 @@ HISTOGRAMS = {
                    "completion on the NBC DAG)",
     "lat_rma_flush": "one-sided completion-wave latency (rma/device.py "
                      "fence/flush/unlock around the queued-op drain)",
+    "lat_coll_sched": "host collective schedule latency (coll/api.py "
+                      "bcast and allreduce around the algorithm)",
 }
 for _name, _desc in HISTOGRAMS.items():
     pvar(_name, PVAR_CLASS_HISTOGRAM,

@@ -1,15 +1,25 @@
 """The in-process rank harness (counterpart of the JAX package's
-``runtime/universe.py`` ``local_universe``/``run_ranks``).
+``runtime/universe.py`` ``Universe``/``local_universe``/``run_ranks``).
 
-Ranks are threads of one process, each with its own ``Universe`` and
-``COMM_WORLD``, bound to one device: through the slot channel, one to
-one to the virtual devices of a ``device_mesh`` (``parallel/mesh.py``,
-1-D or multi-axis), or ``k`` ranks to each of its devices (the fold
-channel).
-The device is ``cuda:0`` unless the caller names another; without a
-CUDA device the caller must ask for the CPU (``device="cpu"``, or a mesh
-made on the CPU), or the harness raises. The host transport
-(point-to-point, host collectives) is not ported.
+Ranks are threads of one process, each with its own ``Universe``: a
+``ProgressEngine`` (``transport/progress.py``), a ``Pt2ptProtocol``
+(``pt2pt/protocol.py``) and a ``LocalChannel`` over one ``LocalFabric``
+(``transport/local.py``), and COMM_WORLD (context 0). ``nodes=`` gives each rank a fake node id, so the node-aware paths
+(the two-level allreduce, the inter-node eager threshold) run. New
+communicators agree on context ids as the JAX package does: an
+allreduce (bitwise AND) of every member's availability mask, the lowest
+common free bit wins, and a thread that cannot own its process's mask
+contributes an empty one so the members retry together.
+
+COMM_WORLD gets the host collective table first; the device binding
+(``coll/device.py`` ``bind_universes``) then overwrites the entries a
+device channel runs: through the slot channel on one device, one to one
+to the virtual devices of a ``device_mesh`` (``parallel/mesh.py``, 1-D or
+multi-axis), or ``k`` ranks to each of its devices (the fold channel);
+a mesh of another geometry leaves COMM_WORLD on the host tier, as in the
+JAX package. The device is ``cuda:0`` unless the caller names another;
+without a CUDA device the caller must ask for the CPU (``device="cpu"``,
+or a mesh made on the CPU), or the harness raises.
 
 Observability, as the JAX package's ``Universe.initialize`` and
 ``finalize`` set it up: under MV2T_TRACE each rank's Universe carries an
@@ -24,15 +34,36 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from .. import metrics, trace
-from ..coll.nbc.engine import NbcEngine
 from ..core.comm import Comm
+from ..core.errors import MPI_ERR_INTERN, MPI_ERR_OTHER, MPIException
+from ..core.group import Group
+from ..pt2pt.protocol import Pt2ptProtocol
+from ..transport.base import Channel
+from ..transport.local import LocalChannel, LocalFabric
+from ..transport.progress import ProgressEngine
 
 DeviceLike = Union[str, torch.device, None]
+
+# mask-allocated context ids live high, clear of the predefined ones
+CTX_MASK_BASE = 1 << 20
+# context ids a rank can hold (the JAX package's default budget)
+MAX_CONTEXTS = 2048
+
+
+def _lowest_bit(mask) -> int:
+    """Index of the lowest set bit across the uint64 word array, -1 if
+    none."""
+    for w in range(len(mask)):
+        v = int(mask[w])
+        if v:
+            return w * 64 + (v & -v).bit_length() - 1
+    return -1
 
 
 def resolve_device(device: DeviceLike) -> torch.device:
@@ -52,24 +83,208 @@ def resolve_device(device: DeviceLike) -> torch.device:
 
 
 class Universe:
-    """One rank's world: its rank, the world size, the device its
-    collectives run on, its COMM_WORLD, its event recorder (``tracer``,
-    None while MV2T_TRACE is off) and the engine that progresses its
-    nonblocking collectives (``engine``, ``coll/nbc/engine.py``)."""
+    """One rank's world: its world rank and size, fake node ids, the
+    device its collectives run on, its progress engine, protocol and
+    channel, COMM_WORLD, its event recorder (``tracer``,
+    None while MV2T_TRACE is off) and its context-id mask."""
 
-    def __init__(self, rank: int, size: int, device: torch.device):
-        self.rank = rank
-        self.size = size
+    def __init__(self, world_rank: int, world_size: int,
+                 device: torch.device,
+                 node_ids: Optional[Sequence[int]] = None):
+        self.world_rank = world_rank
+        self.world_size = world_size
+        self.world_ranks: List[int] = list(range(world_size))
+        self.node_ids: List[int] = list(node_ids) if node_ids is not None \
+            else [0] * world_size
+        if len(self.node_ids) != world_size:
+            raise ValueError(f"nodes= names {len(self.node_ids)} node ids "
+                             f"for {world_size} ranks")
         self.device = device
         self.tracer: Optional[trace.Recorder] = None
-        self.engine = NbcEngine(self)
-        self.comm_world = Comm(rank, size, self)
+        self.engine = ProgressEngine(world_rank)
+        self.engine.universe = self
+        self._default_channel: Optional[Channel] = None
+        self.comms_by_ctx: Dict[int, Comm] = {}
+        self._ctx_mask = None   # lazily sized (ctx_mask())
+        self._ctx_lock = threading.Lock()
+        self._ctx_holder = None   # key of the agreement holding the mask
+        self._ctx_waiting = set()  # keys of locally pending agreements
+        self.protocol: Optional[Pt2ptProtocol] = None
+        self.comm_world: Optional[Comm] = None
+        self.finalized = False
+
+    def initialize(self) -> None:
+        self.protocol = Pt2ptProtocol(self)
+        self.comm_world = Comm(self, Group(self.world_ranks),
+                               context_id=0, name="MPI_COMM_WORLD")
+        from ..coll.tuning import install_coll_ops
+        install_coll_ops(self.comm_world)
+
+    # -- wiring -----------------------------------------------------------
+    def set_default_channel(self, ch: Channel) -> None:
+        self._default_channel = ch
+
+    def channel_for(self, dest_world: int) -> Channel:
+        """Every peer of a thread rank is on the one in-process fabric."""
+        ch = self._default_channel
+        if ch is None:
+            raise MPIException(MPI_ERR_INTERN,
+                               f"no channel for rank {dest_world}")
+        return ch
+
+    def is_local(self, dest_world: int) -> bool:
+        """Same node? (the eager threshold and the two-level splits)"""
+        return self.node_ids[dest_world] == self.node_ids[self.world_rank]
+
+    def num_nodes(self) -> int:
+        return len(set(self.node_ids))
+
+    # -- context ids (the JAX package's MPIR_Get_contextid scheme) --------
+    def ctx_mask(self):
+        """This rank's context-id availability mask (MAX_CONTEXTS bits,
+        the JAX package's default budget); freed ids return to it."""
+        if self._ctx_mask is None:
+            nbits = MAX_CONTEXTS
+            fresh = np.full((nbits + 63) // 64,
+                            np.uint64(0xFFFFFFFFFFFFFFFF), dtype=np.uint64)
+            with self._ctx_lock:
+                if self._ctx_mask is None:
+                    self._ctx_mask = fresh
+        return self._ctx_mask
+
+    def release_context_id(self, ctx: int) -> None:
+        if ctx < CTX_MASK_BASE or self._ctx_mask is None:
+            return   # predefined id: not pooled
+        bit = (ctx - CTX_MASK_BASE) // 2
+        w, b = divmod(bit, 64)
+        if w < len(self._ctx_mask):
+            with self._ctx_lock:
+                self._ctx_mask[w] |= np.uint64(1 << b)
+
+    def _ctx_local_words(self) -> int:
+        """Words at the top of the mask reserved for single-member
+        allocations; agreements advertise them unavailable."""
+        return min(max(1, len(self.ctx_mask()) // 8),
+                   len(self.ctx_mask()) - 1)
+
+    def ctx_payload(self, key):
+        """One agreement attempt's contribution, (payload, owns_mask):
+        the mask words and an all-ones guard word, or, when another
+        agreement of this process holds the mask (or ``key`` is not the
+        lowest pending one), zeros: the AND then tells every member to
+        retry together."""
+        mask = self.ctx_mask()
+        pay = np.empty(len(mask) + 1, dtype=np.uint64)
+        with self._ctx_lock:
+            self._ctx_waiting.add(key)
+            if self._ctx_holder is not None \
+                    or key != min(self._ctx_waiting):
+                pay[:] = 0
+                return pay, False
+            self._ctx_holder = key
+            pay[:len(mask)] = mask
+            pay[len(mask) - self._ctx_local_words():len(mask)] = 0
+        pay[len(mask)] = np.uint64(0xFFFFFFFFFFFFFFFF)
+        return pay, True
+
+    def ctx_release(self, own: bool, key, done: bool = False) -> None:
+        """Drop the mask-holder flag after a failed attempt; ``done``
+        also retires the key."""
+        with self._ctx_lock:
+            if own:
+                self._ctx_holder = None
+            if done:
+                self._ctx_waiting.discard(key)
+
+    def ctx_resolve(self, agreed, own: bool, key,
+                    claim: bool = True) -> int:
+        """An agreed [mask..., guard] payload -> a context id; -1 when the
+        members must retry; raises when the ids are exhausted."""
+        bit = _lowest_bit(agreed[:-1])
+        with self._ctx_lock:
+            if own:
+                self._ctx_holder = None
+            if bit >= 0:
+                self._ctx_waiting.discard(key)
+                if claim:
+                    w, b = divmod(bit, 64)
+                    self._ctx_mask[w] &= np.uint64(~np.uint64(1 << b))
+                return CTX_MASK_BASE + 2 * bit
+        if int(agreed[-1]) == 0:
+            return -1
+        self.ctx_release(False, key, done=True)
+        nw = len(agreed) - 1
+        raise MPIException(
+            MPI_ERR_OTHER,
+            "out of collective context ids "
+            f"({(nw - self._ctx_local_words()) * 64} of "
+            f"MAX_CONTEXTS={nw * 64}; the rest are reserved "
+            "single-member)")
+
+    def alloc_context_local(self) -> int:
+        """A single-member allocation (size-1 dups and splits): the lowest
+        free bit of the reserved words, with no collective."""
+        mask = self.ctx_mask()
+        base = len(mask) - self._ctx_local_words()
+        deadline = time.monotonic() + 60.0
+        while True:
+            with self._ctx_lock:
+                bit = _lowest_bit(mask[base:])
+                if bit >= 0:
+                    bit += base * 64
+                elif self._ctx_holder is None:
+                    bit = _lowest_bit(mask[:base])
+                    if bit < 0:
+                        raise MPIException(
+                            MPI_ERR_OTHER, "out of context ids "
+                            f"(MAX_CONTEXTS={len(mask) * 64})")
+                else:
+                    bit = -1    # wait out the in-flight agreement
+                if bit >= 0:
+                    w, b = divmod(bit, 64)
+                    self._ctx_mask[w] &= np.uint64(~np.uint64(1 << b))
+                    return CTX_MASK_BASE + 2 * bit
+            if time.monotonic() > deadline:
+                raise MPIException(
+                    MPI_ERR_INTERN, "alloc_context_local stalled 60s "
+                    "waiting out an in-flight context-id agreement")
+            time.sleep(0.0002)
+
+    def allocate_context_id(self, parent_comm) -> int:
+        """Collective over ``parent_comm``: agree on a fresh context id by
+        an allreduce (bitwise AND) of the members' masks. It runs the
+        fixed recursive-doubling algorithm, not the tuned dispatch (a
+        forced two-level allreduce would re-enter split here)."""
+        from ..coll import algorithms as alg
+        from ..core import op as opmod
+        if parent_comm.size == 1:
+            return self.alloc_context_local()
+        key = (parent_comm.context_id, 0)
+        while True:
+            pay, own = self.ctx_payload(key)
+            try:
+                agreed = alg.allreduce_recursive_doubling(
+                    parent_comm, pay, opmod.BAND,
+                    parent_comm.next_coll_tag())
+            except BaseException:
+                self.ctx_release(own, key, done=True)
+                raise
+            ctx = self.ctx_resolve(agreed, own, key)
+            if ctx >= 0:
+                return ctx
+            time.sleep(0.0002)   # let the mask-holding thread finish
 
     def finalize(self) -> None:
-        """Write this rank's ring to MV2T_TRACE_DIR and drop the recorder
-        (the JAX package's Finalize); a no-op when untraced."""
+        """Drain leftover traffic, write this rank's ring to
+        MV2T_TRACE_DIR and drop the recorder (the JAX package's
+        Finalize); the trace part is a no-op when untraced."""
+        if self.finalized:
+            return
+        self.engine.drain_all(timeout=0.5)
         trace.dump_rank(self)
         trace.detach(self)
+        self.engine.close()
+        self.finalized = True
 
 
 _tls = threading.local()
@@ -81,13 +296,17 @@ def current_universe() -> Optional[Universe]:
 
 
 def local_universe(nranks: int, device: DeviceLike = None,
-                   device_mesh=None) -> List[Universe]:
-    """Build ``nranks`` thread-rank universes. With ``device_mesh`` (a
+                   device_mesh=None,
+                   nodes: Optional[Sequence[int]] = None) -> List[Universe]:
+    """Build ``nranks`` thread-rank universes over one LocalFabric.
+
+    ``nodes`` assigns a fake node id a rank, so node-aware (two-level)
+    paths run without several hosts. With ``device_mesh`` (a
     ``parallel.mesh.Mesh``) of ``nranks`` devices, their COMM_WORLDs bind
     the 1:1 mesh channel on the mesh's device; of fewer devices that
-    divide the ranks, the fold channel; without one (or with one
-    device) they share ``device`` through the slot channel
-    (coll/device.py ``bind_universes``)."""
+    divide the ranks, the fold channel; of another geometry, none (the
+    host tier); without one (or with one device) they share ``device``
+    through the slot channel (coll/device.py ``bind_universes``)."""
     if nranks < 1:
         raise ValueError(f"nranks must be >= 1, got {nranks}")
     if device_mesh is not None:
@@ -98,7 +317,15 @@ def local_universe(nranks: int, device: DeviceLike = None,
         dev = device_mesh.device
     else:
         dev = resolve_device(device)
-    universes = [Universe(r, nranks, dev) for r in range(nranks)]
+    fabric = LocalFabric(nranks)
+    universes = []
+    for r in range(nranks):
+        u = Universe(r, nranks, dev, nodes)
+        u.set_default_channel(LocalChannel(fabric, r))
+        fabric.register(r, u.engine)
+        universes.append(u)
+    for u in universes:
+        u.initialize()
     from ..coll.device import bind_universes
     bind_universes(universes, dev, device_mesh)
     for u in universes:
@@ -108,22 +335,31 @@ def local_universe(nranks: int, device: DeviceLike = None,
 
 
 def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
-              timeout: float = 120.0, device_mesh=None) -> List:
+              timeout: float = 120.0, device_mesh=None,
+              nodes: Optional[Sequence[int]] = None) -> List:
     """Run ``fn(comm_world, *args)`` on every rank (threads); return the
-    per-rank results. ``device_mesh``: bind the ranks one to one to the
-    mesh's virtual devices (see :func:`local_universe`). On a CUDA
-    device each rank thread runs on its own stream, synchronized before
-    the rank finishes. A rank's exception aborts the device rendezvous
-    (its peers fail instead of hanging: a peer blocked in a collective,
-    or in the wait() of a nonblocking one, which then raises
-    MPIX_ERR_PROC_FAILED) and is re-raised with its rank noted; a rank
-    still running after ``timeout`` seconds raises ``TimeoutError``.
-    Every rank's Universe is finalized when the ranks end, however they
-    end."""
-    universes = local_universe(nranks, device, device_mesh)
+    per-rank results. ``device_mesh`` and ``nodes``: see
+    :func:`local_universe`. On a CUDA device each rank thread runs on
+    its own stream, synchronized before the rank finishes. A rank's
+    exception aborts the device rendezvous (its peers fail instead of
+    hanging: a peer blocked in a device collective, or in the wait() of
+    a nonblocking one, which then raises MPIX_ERR_PROC_FAILED), wakes
+    every rank's engine, and is re-raised with its rank noted; a peer
+    waiting on it in a host call waits until ``timeout``, as in the JAX
+    package. A rank still running after ``timeout`` seconds raises
+    ``TimeoutError``. Every rank's Universe is finalized when the ranks
+    end, however they end."""
+    universes = local_universe(nranks, device, device_mesh, nodes)
     dev = universes[0].device
     results: List = [None] * nranks
     errors: List[Optional[BaseException]] = [None] * nranks
+
+    def abort():
+        ch = universes[0].comm_world.device_channel
+        if ch is not None:
+            ch.abort()           # break the device rendezvous
+        for u in universes:
+            u.engine.wakeup()
 
     def body(r: int):
         comm = universes[r].comm_world
@@ -138,13 +374,14 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
                 results[r] = fn(comm, *args)
         except BaseException as e:  # noqa: BLE001 - reported by run_ranks
             errors[r] = e
-            comm.device_channel.abort()   # break the rendezvous
+            abort()
         finally:
             _tls.universe = None
 
     threads = [threading.Thread(target=body, args=(r,), daemon=True,
                                 name=f"rank-{r}")
                for r in range(nranks)]
+    finished = False
     try:
         for t in threads:
             t.start()
@@ -152,13 +389,19 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
         for t in threads:
             t.join(max(0.0, deadline - time.monotonic()))
             if t.is_alive():
-                universes[0].comm_world.device_channel.abort()
+                abort()
                 raise TimeoutError(
                     f"rank thread {t.name} did not finish within "
                     f"{timeout}s (errors so far: {[e for e in errors if e]})")
+        finished = True
     finally:
         for u in universes:
-            u.finalize()
+            if finished:
+                u.finalize()
+            else:
+                # ranks still running own their engines: only the trace
+                trace.dump_rank(u)
+                trace.detach(u)
     for r, e in enumerate(errors):
         if e is not None:
             raise RuntimeError(f"rank {r} failed: {e!r}") from e

@@ -7,10 +7,11 @@ each rank's ring to ``<dir>/trace-r<rank>.json`` when its ranks end, in
 the JAX package's dump format, which its ``bin/mv2tconform`` checks and
 its ``trace/perfetto.py`` merges into one Chrome trace-event JSON.
 
-The ``mpi`` lane: a B/E span around each Comm collective of the JAX
-package's ``profile.py`` ``PROFILED_METHODS`` that the port has (the
-blocking ones and their ``i*`` twins), in the recorder of the comm's
-universe, installed while any recorder is live.
+The ``mpi`` lane: a B/E span around each Comm method of the JAX
+package's ``profile.py`` ``PROFILED_METHODS`` (point-to-point, the
+blocking collectives and their ``i*`` twins), in the recorder of the
+comm's universe, installed while any recorder is live. The JAX
+package's ``protocol``, ``progress`` and host ``channel`` events wait.
 """
 
 from __future__ import annotations
@@ -20,10 +21,15 @@ import threading
 from .recorder import (LAYERS, LOWERING, Recorder, detach,  # noqa: F401
                        dump_rank, lowering, maybe_attach)
 
-MPI_METHODS = ("bcast", "reduce", "allreduce", "allgather", "alltoall",
-               "reduce_scatter_block", "ibarrier", "ibcast", "iallreduce",
-               "iallgather", "ialltoall", "ireduce", "ialltoallv",
-               "ireduce_scatter_block")
+MPI_METHODS = (
+    "send", "recv", "isend", "irecv", "ssend", "bsend", "sendrecv",
+    "probe", "iprobe",
+    "barrier", "bcast", "reduce", "allreduce", "allgather", "gather",
+    "scatter", "alltoall", "reduce_scatter_block", "scan", "exscan",
+    "ibarrier", "ibcast", "iallreduce", "iallgather", "ialltoall",
+    "ireduce", "iscan", "iexscan", "igather", "iscatter",
+    "igatherv", "iscatterv", "iallgatherv", "ialltoallv",
+    "ireduce_scatter", "ireduce_scatter_block")
 
 _mpi_lock = threading.Lock()
 _originals = {}

@@ -116,7 +116,7 @@ def maybe_attach(u) -> Optional[Recorder]:
     if not cfg["TRACE"]:
         u.tracer = None
         return None
-    rec = Recorder(u.rank, max(256, int(cfg["TRACE_BUF"])))
+    rec = Recorder(u.world_rank, max(256, int(cfg["TRACE_BUF"])))
     u.tracer = rec
     with _lock:
         _active.append(rec)

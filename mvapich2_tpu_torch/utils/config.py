@@ -4,7 +4,14 @@
 
 * ``USE_DEVICE_COLL``, the per-collective ``<COLL>_ALGO`` overrides and
   the host-to-device crossover ``DEVICE_COLL_MIN_BYTES``, read by
-  ``coll/device.py`` ``_select_transport``;
+  ``coll/device.py`` ``_select_transport``; the overrides also pick the
+  host algorithm (``coll/tuning.py`` ``select_algorithm``), beside
+  ``USE_TWO_LEVEL`` (the node-aware allreduce);
+* the point-to-point protocol's ``EAGER_THRESHOLD`` (64 KiB, to a rank
+  of another node), ``SMP_EAGERSIZE`` (32 KiB, to a rank of the same
+  node; also the "eager" edge of the host tuning tables),
+  ``RNDV_PROTOCOL`` (RGET, RPUT or R3) and ``R3_CHUNK_SIZE``
+  (``pt2pt/protocol.py``);
 * the ring engine's knobs ``ICI_CHUNK_BYTES``, ``ICI_PIPELINE_DEPTH`` and
   ``ICI_BIDIR`` (``ops/ici.py``);
 * the device tier edges ``DEV_TIER_VMEM_MAX``, ``DEV_TIER_XLA_MIN`` and
@@ -98,9 +105,20 @@ class Config:
             self._values.clear()
 
 
-# <COLL>_ALGO names, one per MPI collective family the device channels run
+# <COLL>_ALGO names, one per MPI collective family with a choice of
+# algorithm (the JAX package's coll/tuning.py cvars)
 ALGO_CVARS = ("ALLREDUCE", "REDUCE", "BCAST", "ALLGATHER", "ALLTOALL",
-              "REDUCE_SCATTER")
+              "REDUCE_SCATTER", "BARRIER")
+
+# the host tier's protocol edges, with the JAX package's defaults
+# (utils/config.py and pt2pt/protocol.py)
+HOST_CVARS = {
+    "EAGER_THRESHOLD": 64 * 1024,
+    "SMP_EAGERSIZE": 32 * 1024,
+    "RNDV_PROTOCOL": "RGET",
+    "R3_CHUNK_SIZE": 1 << 18,
+    "USE_TWO_LEVEL": True,
+}
 
 # the ring engine, the device tier edges and the one-sided knobs, with
 # the JAX package's defaults (mpit.py ICI_*, RMA_CHUNK_BYTES and
@@ -139,7 +157,7 @@ TRACE_CVARS = {
 
 _config = Config({"USE_DEVICE_COLL": True,
                   **{f"{c}_ALGO": "" for c in ALGO_CVARS},
-                  **DEVICE_CVARS, **TRACE_CVARS})
+                  **HOST_CVARS, **DEVICE_CVARS, **TRACE_CVARS})
 
 
 def get_config() -> Config:

@@ -181,33 +181,48 @@ def test_alltoallv_buffers_layouts_and_pvars(env):
 
 
 def test_host_path_cases_raise(env):
-    """What the JAX package sends to its host path raises
-    NotImplementedError here: alltoallv with MPI_IN_PLACE, a forced host
-    ALLTOALL_ALGO (alltoall and alltoallv), alltoallv on the slot
-    channel."""
+    """What the JAX package sends to its host path runs on the port's host
+    tier, with the JAX package's outcome: alltoallv with MPI_IN_PLACE
+    (whose host entry refuses the sentinel with MPI_ERR_ARG in both), a
+    forced host ALLTOALL_ALGO (alltoall and alltoallv), alltoallv on the
+    slot channel. No alltoall kernel is launched."""
+    from mvapich2_tpu.coll.api import IN_PLACE as JAX_IN_PLACE
     c = [1] * NP
+    dense = list(range(NP))
 
-    def in_place(comm):
-        comm.alltoallv(IN_PLACE, c, None, np.zeros(NP, np.float32), c,
-                       None)
+    def in_place(comm, ip):
+        try:
+            comm.alltoallv(ip, c, dense, np.zeros(NP, np.float32), c, dense)
+        except Exception as e:      # noqa: BLE001 - both packages refuse
+            return type(e).__name__, getattr(e, "error_class", None)
+        return "ran", None
 
-    def a2av(comm):
-        comm.alltoallv(np.arange(NP, dtype=np.float32), c, None, None, c,
-                       None)
+    def a2av(comm, ip):
+        return comm.alltoallv(np.arange(NP, dtype=np.float32) + comm.rank,
+                              c, dense, np.zeros(NP, np.float32), c, dense)
 
-    def a2a(comm):
-        comm.alltoall(np.arange(NP, dtype=np.float32))
+    def a2a(comm, ip):
+        return comm.alltoall(np.arange(NP, dtype=np.float32) + comm.rank)
 
-    for app, kw, before in ((in_place, {"device_mesh": _mesh()}, None),
-                            (a2av, {"device_mesh": _mesh()}, "bruck"),
-                            (a2a, {"device_mesh": _mesh()}, "bruck"),
-                            (a2av, {"device": "cpu"}, None)):
-        if before:
-            env(ALLTOALL_ALGO=before)
-        with pytest.raises(RuntimeError) as ei:
-            run_ranks(NP, app, timeout=30, **kw)
-        assert isinstance(ei.value.__cause__, NotImplementedError)
+    before = dict(alltoall.PLAIN_CALLS)
+    for app, slot, algo in ((in_place, False, None), (a2av, False, "bruck"),
+                            (a2a, False, "bruck"), (a2av, True, None)):
+        if algo:
+            env(ALLTOALL_ALGO=algo)
+        pm, jm = ((None, jax_make_mesh((1,), ("x",), jax.devices()[:1]))
+                  if slot else (_mesh(), jax_make_mesh(
+                      (NP,), ("x",), jax.devices()[:NP])))
+        mine = run_ranks(NP, lambda comm: app(comm, IN_PLACE), timeout=30,
+                         device_mesh=pm, device="cpu" if slot else None)
+        ref = jax_run_ranks(NP, lambda comm: app(comm, JAX_IN_PLACE),
+                            timeout=30, device_mesh=jm)
+        for got, want in zip(mine, ref):
+            if app is in_place:
+                assert got[0] == "MPIException" and want == got
+            else:
+                np.testing.assert_array_equal(got, np.asarray(want))
         env(ALLTOALL_ALGO="device")
+    assert dict(alltoall.PLAIN_CALLS) == before
 
 
 class _ErrorWord:

@@ -164,7 +164,8 @@ def test_fold_ranks_of_a_device_share_its_output(env):
     """Tensor buffers on 16 ranks over a (2, 4) device mesh: the ranks of
     one device get the same output tensor, ranks of different devices
     different ones; reduce_scatter_block slices it per rank; alltoall(v)
-    raise NotImplementedError (the JAX package's host path)."""
+    take the host tier, as the JAX package's fold channel sends them
+    there, with its results and no kernel launched."""
     def app(comm, ops):
         x = torch.full((256,), float(comm.rank + 1))
         return (comm.allreduce(x), comm.allgather(x[:4].clone()),
@@ -182,14 +183,22 @@ def test_fold_ranks_of_a_device_share_its_output(env):
             ag.numpy(), np.repeat(np.arange(1.0, 17.0), 4))
         np.testing.assert_array_equal(
             rsb.numpy(), (np.arange(2.0 * r, 2.0 * r + 2) * 16 + 120))
-    for call in (lambda c, ops: c.alltoall(np.arange(16, dtype=np.float32)),
-                 lambda c, ops: c.alltoallv(np.arange(16, dtype=np.float32),
-                                            [1] * 16, None, None, [1] * 16,
-                                            None)):
-        with pytest.raises(RuntimeError) as ei:
-            run_ranks(16, call, top, timeout=30,
-                      device_mesh=make_mesh((2, 4), AXES, "cpu"))
-        assert isinstance(ei.value.__cause__, NotImplementedError)
+    dense = list(range(16))
+    launched = {k: dict(m.PLAIN_CALLS) for k, m in
+                (("hbm", hbm), ("ici", ici), ("a2a", alltoall))}
+
+    def a2a(comm, ops):
+        x = np.arange(16, dtype=np.float32) + 100 * comm.rank
+        return (comm.alltoall(x), comm.alltoallv(
+            x, [1] * 16, dense, np.zeros(16, np.float32), [1] * 16, dense))
+
+    mine, ref = _both(16, (2, 4), a2a)
+    assert launched == {k: dict(m.PLAIN_CALLS) for k, m in
+                        (("hbm", hbm), ("ici", ici), ("a2a", alltoall))}
+    for r, (got, want) in enumerate(zip(mine, ref)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(got[0], np.arange(16) * 100.0 + r)
 
 
 # ---------------------------------------------------------------------------

@@ -280,11 +280,15 @@ def test_channel_levels_and_tier_pvars(env):
     assert mpit.pvar("dev_coll_tier_vmem").read() == vmem0 + 2 * NP
     assert mpit.pvar("coll_level_chip").read() == chip0
     assert mpit.pvar("dev_effbw_vmem").read() > 0
-    # what the JAX package sends to its host tier raises here
-    with pytest.raises(RuntimeError) as ei:
-        run_ranks(NP, lambda c, ops: c.allreduce(np.ones(4, np.float64)),
-                  top, device_mesh=mesh, timeout=30)
-    assert isinstance(ei.value.__cause__, NotImplementedError)
+    # what the JAX package sends to its host tier runs there, moving no
+    # device pvar
+    got = run_ranks(NP, lambda c, ops: c.allreduce(
+        np.arange(4, dtype=np.float64) + c.rank), top, device_mesh=mesh,
+        timeout=30)
+    for out in got:
+        assert out.dtype == np.float64
+        np.testing.assert_array_equal(out, np.arange(4) * NP + 28)
+    assert mpit.pvar("coll_level_ici").read() == ici0 + 2 * NP
 
 
 def test_one_rank_mesh_binds_the_mesh_channel(env):
@@ -309,31 +313,48 @@ def test_one_rank_mesh_binds_the_mesh_channel(env):
 
 
 def test_unported_geometry_and_alltoall_raise(env):
-    """What still raises: a mesh that neither covers the ranks one to one
-    nor divides them (the JAX package's host path), alltoall(v) on the
-    fold channel, a DeviceWin on a multi-axis mesh, and alltoallv on the
-    slot channel, which keep the host path in the JAX package. Alltoall
-    itself runs on the 1:1 channel (K10)."""
-    with pytest.raises(NotImplementedError, match="host path"):
-        run_ranks(6, lambda c: None, device_mesh=make_mesh((4,), ("x",),
-                                                           "cpu"))
+    """What the JAX package keeps on its host path runs on the port's host
+    tier, with the JAX package's results: a mesh that neither covers the
+    ranks one to one nor divides them binds no channel (6 ranks over 4
+    devices), alltoall(v) on the fold channel and alltoallv on the slot
+    channel. A DeviceWin on a multi-axis mesh still raises (host windows
+    are not ported). Alltoall itself runs on the 1:1 channel (K10)."""
+    for c in _ALGOS:
+        env(**{f"{c}_ALGO": None})
+    jdev = jax.devices()
+    dense = [0, 1, 2, 3, 4, 5, 6, 7]
     ones = [1] * NP
-    fold = make_mesh((4,), ("x",), "cpu")
-    for call in (lambda c: c.alltoall(np.arange(NP, dtype=np.float32)),
-                 lambda c: c.alltoallv(np.arange(NP, dtype=np.float32),
-                                       ones, None, None, ones, None)):
-        with pytest.raises(RuntimeError) as ei:
-            run_ranks(NP, call, device_mesh=fold, timeout=30)
-        assert isinstance(ei.value.__cause__, NotImplementedError)
-        assert "fold channel" in str(ei.value.__cause__)
+
+    def odd(comm, ops):
+        return (comm.device_channel is None,
+                comm.allreduce(np.arange(6, dtype=np.int32) * comm.rank))
+
+    mine = run_ranks(6, odd, top, device_mesh=make_mesh((4,), ("x",),
+                                                        "cpu"), timeout=30)
+    ref = jax_run_ranks(6, lambda c: odd(c, jop), timeout=30,
+                        device_mesh=jax_make_mesh((4,), ("x",), jdev[:4]))
+    for (unbound, got), (_, want) in zip(mine, ref):
+        assert unbound
+        np.testing.assert_array_equal(got, want)
+
+    def a2a(comm, ops):
+        x = np.arange(NP, dtype=np.float32) + 10 * comm.rank
+        return (comm.alltoall(x), comm.alltoallv(
+            x, ones, dense, np.zeros(NP, np.float32), ones, dense))
+
+    for pmesh, jmesh in ((make_mesh((4,), ("x",), "cpu"),
+                          jax_make_mesh((4,), ("x",), jdev[:4])),
+                         (None, jax_make_mesh((1,), ("x",), jdev[:1]))):
+        mine = run_ranks(NP, a2a, top, device_mesh=pmesh, timeout=30,
+                         device=None if pmesh else "cpu")
+        ref = jax_run_ranks(NP, lambda c: a2a(c, jop), timeout=30,
+                            device_mesh=jmesh)
+        for r, (got, want) in enumerate(zip(mine, ref)):
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, np.asarray(w))
+            np.testing.assert_array_equal(got[0], np.arange(NP) * 10.0 + r)
     with pytest.raises(NotImplementedError, match="multi-axis mesh"):
         DeviceWin(MeshComm(make_mesh((2, 4), ("x", "y"), "cpu")), 16)
-    with pytest.raises(RuntimeError) as ei:
-        run_ranks(NP, lambda c: c.alltoallv(np.arange(NP, dtype=np.float32),
-                                            ones, None, None, ones, None),
-                  device="cpu", timeout=30)
-    assert isinstance(ei.value.__cause__, NotImplementedError)
-    assert "slot channel" in str(ei.value.__cause__)
     got = run_ranks(NP, lambda c: c.alltoall(np.arange(NP, dtype=np.float32)
                                              + 10 * c.rank),
                     device_mesh=make_mesh((NP,), ("x",), "cpu"))
@@ -429,7 +450,7 @@ def test_quant_bin_ineligible_calls_run_exact(env):
 def test_forced_device_wins_over_use_device_coll_off(env):
     """MV2T_<COLL>_ALGO=device runs on the device with USE_DEVICE_COLL
     off, as the JAX package's _select_transport decides; without the
-    force the call needs the host tier and raises."""
+    force the call takes the host tier, bitwise the JAX package's."""
     env(USE_DEVICE_COLL="0")
     data = _inputs(97, 64, "intf32")
 
@@ -439,21 +460,19 @@ def test_forced_device_wins_over_use_device_coll_off(env):
     mine, ref = _both(app)
     _check(mine, ref, True)
     env(ALLREDUCE_ALGO=None)
-    with pytest.raises(RuntimeError) as ei:
-        run_ranks(NP, lambda c, ops: c.allreduce(data[c.rank].copy()), top,
-                  device_mesh=make_mesh((NP,), ("x",), "cpu"), timeout=30)
-    assert isinstance(ei.value.__cause__, NotImplementedError)
-    assert "USE_DEVICE_COLL" in str(ei.value.__cause__)
+    before = _counts()
+    mine, ref = _both(app)
+    _check(mine, ref, True)
+    assert _counts() == before
 
 
 def test_transport_selection_matches_jax(env):
     """The port's _select_transport against the JAX one over a grid of
     collectives, byte counts, buffer residency, dtypes, ops and cvars:
-    'device' where the JAX package picks the device, and
-    NotImplementedError (the host tier is not ported) where it picks
-    the host: below DEVICE_COLL_MIN_BYTES for a numpy buffer, a forced
-    host algorithm, USE_DEVICE_COLL off, an op or dtype that does not
-    lower (forced or not)."""
+    'device' where the JAX package picks the device, and 'host' where it
+    picks the host: below DEVICE_COLL_MIN_BYTES for a numpy buffer, a
+    forced host algorithm, USE_DEVICE_COLL off, an op or dtype that does
+    not lower (forced or not)."""
     import jax.numpy as jnp
     from mvapich2_tpu.coll import device as jax_device
     from mvapich2_tpu_torch.coll import device as port_device
@@ -479,11 +498,8 @@ def test_transport_selection_matches_jax(env):
                                     (None, None)
                                 want = jax_device._select_transport(
                                     None, name, nbytes, jop_, jbuf)
-                                try:
-                                    got = port_device._select_transport(
-                                        name, nbytes, pop, pbuf)
-                                except NotImplementedError:
-                                    got = "host"
+                                got = port_device._select_transport(
+                                    name, nbytes, pop, pbuf)
                                 assert got == want, (
                                     min_bytes, use, forced, name, nbytes,
                                     bname, oname)
@@ -492,18 +508,22 @@ def test_transport_selection_matches_jax(env):
 
 
 def test_host_buffers_below_the_crossover(env):
-    """A numpy buffer below DEVICE_COLL_MIN_BYTES (16 KiB) takes the JAX
-    package's host tier: here it raises, where the port used to run it
-    on the device; at 16 KiB, or as a tensor, it runs, bitwise the JAX
-    channel's result."""
+    """A numpy buffer below DEVICE_COLL_MIN_BYTES (16 KiB) takes the host
+    tier, as in the JAX package, with its bits and the same host
+    algorithm counted; at 16 KiB, or as a tensor, it runs on the device,
+    bitwise the JAX channel's result."""
+    from mvapich2_tpu import mpit as jax_mpit
     for c in _ALGOS:
         env(**{f"{c}_ALGO": None})
-    small = _inputs(98, 1024, "intf32")          # 4 KiB a rank
+    small = _inputs(98, 4095, "intf32")          # 16 KiB - 4 a rank
     big = _inputs(99, 4096, "intf32")            # 16 KiB a rank
-    with pytest.raises(RuntimeError) as ei:
-        run_ranks(NP, lambda c, ops: c.allreduce(small[c.rank].copy()), top,
-                  device_mesh=make_mesh((NP,), ("x",), "cpu"), timeout=30)
-    assert "DEVICE_COLL_MIN_BYTES" in str(ei.value.__cause__)
+    rd = "coll_allreduce_allreduce_recursive_doubling_calls"
+    before = _counts()
+    p0, j0 = mpit.pvar(rd).read(), jax_mpit.pvar(rd).read()
+    mine, ref = _both(lambda c, ops: c.allreduce(small[c.rank].copy()))
+    _check(mine, ref, True)
+    assert _counts() == before
+    assert mpit.pvar(rd).read() - p0 == jax_mpit.pvar(rd).read() - j0 == NP
 
     def app(comm, ops):
         r = comm.rank
@@ -514,6 +534,7 @@ def test_host_buffers_below_the_crossover(env):
 
     mine = run_ranks(NP, app, top, device_mesh=make_mesh((NP,), ("x",),
                                                          "cpu"))
+    assert _counts() != before
     env(**{f"{c}_ALGO": "device" for c in _ALGOS})
     ref = jax_run_ranks(NP, lambda comm: app(comm, jop),
                         device_mesh=jax_make_mesh((NP,), ("x",),
@@ -556,8 +577,11 @@ def test_bf16_allreduce_takes_the_reference_tier(env, monkeypatch, forced):
     """A bfloat16 allreduce on the 1:1 channel goes where the JAX channel
     sends it: ml_dtypes' bfloat16 (numpy kind 'V') does not lower, so
     the JAX package takes its host tier, forced <COLL>_ALGO=device or
-    not, and the port, whose host tier is not ported, raises
-    NotImplementedError on every rank instead of running the ring."""
+    not, and so does the port for a CPU tensor: it is read as ml_dtypes'
+    bfloat16, folded there, and comes back as a bfloat16 tensor with the
+    JAX package's bits, no ring launched. A bfloat16 tensor on the card
+    (the meta device stands in for it) raises NotImplementedError on
+    every rank instead of moving to the host."""
     import jax.numpy as jnp
     from mvapich2_tpu.coll import device as jax_device
     env(**{f"{c}_ALGO": forced for c in _ALGOS})
@@ -577,10 +601,20 @@ def test_bf16_allreduce_takes_the_reference_tier(env, monkeypatch, forced):
     np.testing.assert_array_equal(np.asarray(ref[0], np.float32),
                                   data.astype(np.float32).sum(0))
     before = _counts()
-    with pytest.raises(RuntimeError) as ei:
-        run_ranks(NP, lambda c, ops: c.allreduce(torch.from_numpy(
-            data[c.rank].astype(np.float32)).to(torch.bfloat16)), top,
-            device_mesh=make_mesh((NP,), ("x",), "cpu"), timeout=30)
-    assert isinstance(ei.value.__cause__, NotImplementedError)
-    assert "bfloat16" in str(ei.value.__cause__)
+    mine = run_ranks(NP, lambda c, ops: c.allreduce(torch.from_numpy(
+        data[c.rank].astype(np.float32)).to(torch.bfloat16)), top,
+        device_mesh=make_mesh((NP,), ("x",), "cpu"), timeout=30)
+    assert _counts() == before
+    for got, want in zip(mine, ref):
+        assert got.dtype == torch.bfloat16
+        assert got.view(torch.int16).numpy().tobytes() == \
+            np.asarray(want).tobytes()
+
+    def on_card(c, ops):
+        with pytest.raises(NotImplementedError, match="bfloat16"):
+            c.allreduce(torch.empty(8192, dtype=torch.bfloat16,
+                                    device="meta"))
+        return True
+    assert run_ranks(NP, on_card, top, device_mesh=make_mesh(
+        (NP,), ("x",), "cpu"), timeout=30) == [True] * NP
     assert _counts() == before

@@ -229,31 +229,43 @@ def test_hung_rank_times_out():
     release.set()
 
 
-def test_host_tier_cases_raise():
-    """What the JAX package sends to its host tier raises here: 8-byte
-    dtypes, a user-defined op, a forced host algorithm."""
-    from mvapich2_tpu_torch.core.op import Op
+def test_host_tier_cases_raise(monkeypatch):
+    """What the JAX package sends to its host tier (an 8-byte dtype, a
+    user-defined op, a forced host algorithm) no longer raises: it runs
+    on the port's host tier from the slot channel, with no slot launch,
+    bitwise as the JAX package runs it from its slot channel."""
     from mvapich2_tpu_torch.utils.config import get_config
 
-    def f64(comm):
-        comm.allreduce(np.ones(4, np.float64))
+    def app(lib_op, case):
+        def run(comm):
+            x = np.arange(6, dtype=np.float32) * (comm.rank + 1)
+            if case == "f64":
+                return comm.allreduce(x.astype(np.float64))
+            if case == "user":
+                return comm.allreduce(x, op=lib_op.Op(np.add, "user"))
+            return comm.allreduce(x)
+        return run
 
-    def user_op(comm):
-        comm.allreduce(np.ones(4, np.float32), op=Op(np.add, "user"))
-
-    for app in (f64, user_op):
-        with pytest.raises(RuntimeError) as ei:
-            run_ranks(2, app, device="cpu", timeout=30)
-        assert isinstance(ei.value.__cause__, NotImplementedError)
-    cfg = get_config()
-    cfg.set("ALLREDUCE_ALGO", "ring")
-    try:
-        with pytest.raises(RuntimeError) as ei:
-            run_ranks(2, lambda c: c.allreduce(np.ones(4, np.float32)),
-                      device="cpu", timeout=30)
-        assert isinstance(ei.value.__cause__, NotImplementedError)
-    finally:
-        cfg.set("ALLREDUCE_ALGO", "")
+    for case in ("f64", "user", "ring"):
+        if case == "ring":
+            monkeypatch.setenv("MV2T_ALLREDUCE_ALGO", "ring")
+            jax_config().reload()
+            get_config().set("ALLREDUCE_ALGO", "ring")
+        before = dict(hbm.PLAIN_CALLS)
+        got = run_ranks(2, app(top, case), device="cpu", timeout=30)
+        assert hbm.PLAIN_CALLS == before
+        if case == "ring":
+            from mvapich2_tpu.parallel.mesh import make_mesh
+            want = jax_run_ranks(2, app(jop, case), timeout=30,
+                                 device_mesh=make_mesh(
+                                     (1,), ("x",), jax.devices()[:1]))
+        else:
+            want = _jax_run(2, app(jop, case))
+        for g, w in zip(got, want):
+            assert isinstance(g, np.ndarray) and g.dtype == w.dtype
+            assert g.tobytes() == np.asarray(w).tobytes()
+    monkeypatch.delenv("MV2T_ALLREDUCE_ALGO")
+    jax_config().reload()
 
 
 def test_sum_reductions_read_the_deposits_in_place(monkeypatch):
