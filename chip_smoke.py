@@ -221,6 +221,23 @@ non-zero, printing no result, without them. Phases:
    forward on a (1, 1, 1) mesh of the card and dryrun_multichip(8) (one
    train step on (2, 2, 2) and the 8-stage pipeline), each against the
    same on the CPU; stock torch, no kernel count moves.
+17. mpirun (after graft): the MPI program entry, as a user calls it, in
+   subprocesses. ``python -m mvapich2_tpu_torch.run -np 8 --vpod python
+   mvapich2_tpu_torch/progs/vpod_collectives.py``: 8 rank threads call
+   mpi.Init() and, on COMM_WORLD bound one to one to a mesh of 8 virtual
+   ranks on cuda:0, allreduce 64 MiB (K3) and 4 KiB (K6) f32 tensors,
+   allgather 1 MiB (K5) and 64 KiB (K7), alltoall 64 MiB (K10) and
+   alltoallv a seeded count matrix (K11), each result bitwise against
+   stock torch on the card; its launch counts, zeroed at its start, must
+   read one K3 a 64 MiB allreduce, one K6 a 4 KiB one and one launch of
+   each other kernel; its medians stand beside [mesh]'s run_ranks
+   figures. Then ``-np 4 --fake-nodes 0,0,1,1 python
+   mvapich2_tpu_torch/progs/pingpong.py``: rank processes on the host
+   tier, the numpy ping-pong over shared memory and over TCP at 1 B, 64
+   KiB and 4 MiB, an 8 B allreduce, a barrier, mpi.Init's wall time, and
+   a tensor on the card given to allreduce must raise
+   NotImplementedError. A nonzero exit, a mismatch or a missing refusal
+   fails the phase.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
@@ -5577,6 +5594,76 @@ def phase_graft(torch, np, mods, smi, dev):
             "phase_s": total}
 
 
+MPIRUN_TIMEOUT = 300                     # seconds a job of [mpirun] may take
+VPOD_PROG = os.path.join("mvapich2_tpu_torch", "progs",
+                         "vpod_collectives.py")
+PINGPONG_PROG = os.path.join("mvapich2_tpu_torch", "progs", "pingpong.py")
+
+
+def _mpirun_job(args, tag):
+    """Run ``python -m mvapich2_tpu_torch.run <args>`` from the checkout;
+    returns (the parsed ``<tag> {...}`` line, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mvapich2_tpu_torch.run",
+                           *args], cwd=HERE, capture_output=True, text=True,
+                          timeout=MPIRUN_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[mpirun] {' '.join(args)} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(tag + " ")]
+    if len(lines) != 1:
+        raise AssertionError(f"[mpirun] {' '.join(args)} printed "
+                             f"{len(lines)} {tag} lines:\n{proc.stdout}")
+    return json.loads(lines[0].split(" ", 1)[1]), wall
+
+
+def phase_mpirun(torch, smi, mesh_lat):
+    """The MPI program entry (module docstring, phase 17). Returns its
+    figures."""
+    t_phase = time.perf_counter()
+    vp, vp_wall = _mpirun_job(["-np", str(R), "--vpod", sys.executable,
+                               VPOD_PROG], "VPOD_JSON")
+    calls, got = vp["calls"], vp["launches"]
+    want = {"hbm_ring_all_reduce": calls["allreduce_big"],
+            "ring_all_reduce": calls["allreduce_small"],
+            "hbm_ring_all_gather": 1, "ring_all_gather": 1,
+            "hbm_alltoall": 1, "hbm_alltoallv": 1,
+            "hbm_ring_reduce_scatter": 0, "remote_sendrecv": 0,
+            "quant_ring_all_reduce": 0}
+    if vp["counts_of"] != "LAUNCHES" or got != want or not vp["bitwise"] \
+            or vp["ranks"] != R or not vp["device"].startswith("cuda"):
+        raise AssertionError(f"[mpirun] --vpod on {vp['device']}: launches "
+                             f"{got} ({vp['counts_of']}), expected {want}")
+    mesh_med = [statistics.median(x) for x in mesh_lat]
+    big, small = calls["median_big_s"], calls["median_small_s"]
+    log(f"[mpirun] mpirun -np {R} --vpod: allreduce 64 MiB f32 median "
+        f"{big * 1e3:.3f} ms ([mesh] run_ranks {mesh_med[0] * 1e3:.3f} "
+        f"ms), 4 KiB {small * 1e6:.1f} us ([mesh] "
+        f"{mesh_med[1] * 1e6:.1f} us); every result "
+        f"bitwise stock torch; launches {got}; job {vp_wall:.1f} s on {smi}")
+    pp, pp_wall = _mpirun_job(["-np", "4", "--fake-nodes", "0,0,1,1",
+                               sys.executable, PINGPONG_PROG],
+                              "PINGPONG_JSON")
+    if pp.get("card_tensor_refused") != "cuda" or \
+            set(pp["pingpong_us"]) != {"shm", "tcp"}:
+        raise AssertionError(f"[mpirun] process mode: {pp}")
+    fmt = lambda d: ", ".join(f"{k} B {v:.1f}" for k, v in d.items())
+    log(f"[mpirun] mpirun -np 4 --fake-nodes 0,0,1,1: half round trip (us) "
+        f"over shm {fmt(pp['pingpong_us']['shm'])}; over tcp "
+        f"{fmt(pp['pingpong_us']['tcp'])}; allreduce 8 B "
+        f"{pp['allreduce_8B_us']:.1f} us, barrier {pp['barrier_us']:.1f} "
+        f"us; mpi.Init {max(pp['init_s']):.3f} s (slowest rank); a tensor "
+        f"on the card refused with NotImplementedError; job {pp_wall:.1f} "
+        f"s on {smi}")
+    total = time.perf_counter() - t_phase
+    log(f"[mpirun] phase {total:.1f} s")
+    return {"vpod": vp, "vpod_job_s": vp_wall,
+            "mesh_run_ranks_median_s": mesh_med, "process": pp,
+            "process_job_s": pp_wall, "phase_s": total}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
@@ -5712,6 +5799,7 @@ def main(argv=None):
                                                  alltoall, smi, dev)
     extra["graft"] = phase_graft(torch, np, (hbm, ici, ring, alltoall), smi,
                                  dev)
+    extra["mpirun"] = phase_mpirun(torch, smi, mesh_lat)
     extra["trace"] = phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)

@@ -19,11 +19,29 @@ tuned selection (``coll/api.py``, ``coll/algorithms.py``,
 (``coll/nonblocking.py``), which run whatever the JAX package routes to
 its host tier. ``graft_entry.py`` is the analog of the JAX package's
 ``__graft_entry__.py`` entry points.
+
+A program runs the way MPI users run one, too: ``mpi.Init()`` and
+``mpi.COMM_WORLD`` (``mpi.py``) under ``python -m
+mvapich2_tpu_torch.run -np N python prog.py`` (``runtime/launcher.py``),
+one process a rank over the KVS bootstrap and the TCP and
+shared-memory channels (``runtime/``, ``transport/``; the host tier),
+or ``--vpod``, rank threads bound one to one to a mesh of virtual ranks
+on the card (the device channel and its kernels).
+
 The JAX package ``mvapich2_tpu`` is the reference this package is
-tested against; nothing here imports it or JAX.
+tested against; nothing here imports it or JAX. Importing the package
+imports no torch (the process launcher runs without it); ``run_ranks``,
+``local_universe`` and ``make_mesh`` load their modules at first use.
 """
 
-from .parallel.mesh import make_mesh
-from .runtime.universe import local_universe, run_ranks
-
 __all__ = ["run_ranks", "local_universe", "make_mesh"]
+
+
+def __getattr__(name: str):
+    if name in ("run_ranks", "local_universe"):
+        from .runtime import universe
+        return getattr(universe, name)
+    if name == "make_mesh":
+        from .parallel.mesh import make_mesh
+        return make_mesh
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,12 +1,24 @@
-"""The in-process rank harness (counterpart of the JAX package's
-``runtime/universe.py`` ``Universe``/``local_universe``/``run_ranks``).
+"""The rank runtime (counterpart of the JAX package's
+``runtime/universe.py`` ``Universe``, ``set_universe`` /
+``current_universe``, ``local_universe`` and ``run_ranks``).
 
-Ranks are threads of one process, each with its own ``Universe``: a
-``ProgressEngine`` (``transport/progress.py``), a ``Pt2ptProtocol``
-(``pt2pt/protocol.py``) and a ``LocalChannel`` over one ``LocalFabric``
-(``transport/local.py``), and COMM_WORLD (context 0). ``nodes=`` gives each rank a fake node id, so the node-aware paths
-(the two-level allreduce, the inter-node eager threshold) run. New
-communicators agree on context ids as the JAX package does: an
+A ``Universe`` is one rank's world: its world rank and size, node ids,
+device, ``ProgressEngine`` (``transport/progress.py``), ``Pt2ptProtocol``
+(``pt2pt/protocol.py``), its channels, COMM_WORLD (context 0) and
+COMM_SELF (context 2). It is built two ways:
+
+* ``local_universe`` / ``run_ranks``: ranks are threads of one process,
+  each with a ``LocalChannel`` over one ``LocalFabric``
+  (``transport/local.py``). ``nodes=`` gives each rank a fake node id,
+  so the node-aware paths (the two-level allreduce, the inter-node eager
+  threshold) run. ``mpirun --vpod`` (``runtime/launcher.py``) runs a
+  program's rank threads over these universes;
+* process mode (``runtime/bootstrap.py``, from ``mpi.Init`` under
+  ``mpirun``): one rank a process, with a TCP channel to every peer and
+  a shared-memory channel to the peers of its node (``set_channel``),
+  and the job's KVS client (``kvs``).
+
+New communicators agree on context ids as the JAX package does: an
 allreduce (bitwise AND) of every member's availability mask, the lowest
 common free bit wins, and a thread that cannot own its process's mask
 contributes an empty one so the members retry together.
@@ -19,13 +31,18 @@ multi-axis), or ``k`` ranks to each of its devices (the fold channel);
 a mesh of another geometry leaves COMM_WORLD on the host tier, as in the
 JAX package. The device is ``cuda:0`` unless the caller names another;
 without a CUDA device the caller must ask for the CPU (``device="cpu"``,
-or a mesh made on the CPU), or the harness raises.
+or a mesh made on the CPU), or the harness raises. A process-mode rank
+binds no device channel: its COMM_WORLD is host-only, as in the JAX
+package.
+
+``current_universe()`` is the calling thread's universe (a rank thread's,
+set by ``run_ranks`` and ``launch_vpod``), else the process-wide one
+(``mpi.Init`` in process mode).
 
 Observability, as the JAX package's ``Universe.initialize`` and
 ``finalize`` set it up: under MV2T_TRACE each rank's Universe carries an
 event recorder (``tracer``, ``trace/recorder.py``; None otherwise), the
-latency-histogram gate is armed (``metrics.ensure_live``), each rank
-thread sees its own Universe through ``current_universe()``, and
+latency-histogram gate is armed (``metrics.ensure_live``), and
 ``run_ranks`` writes every rank's ring to MV2T_TRACE_DIR when the ranks
 end, also when one failed or hung (``Universe.finalize``).
 """
@@ -83,10 +100,12 @@ def resolve_device(device: DeviceLike) -> torch.device:
 
 
 class Universe:
-    """One rank's world: its world rank and size, fake node ids, the
-    device its collectives run on, its progress engine, protocol and
-    channel, COMM_WORLD, its event recorder (``tracer``,
-    None while MV2T_TRACE is off) and its context-id mask."""
+    """One rank's world: its world rank and size, node ids, the device
+    its collectives run on, its progress engine, protocol and channels,
+    COMM_WORLD and COMM_SELF, its event recorder (``tracer``, None while
+    MV2T_TRACE is off) and its context-id mask; in process mode also the
+    job's KVS client (``kvs``), the node-name table and the
+    shared-memory channel (``shm_channel``)."""
 
     def __init__(self, world_rank: int, world_size: int,
                  device: torch.device,
@@ -99,11 +118,15 @@ class Universe:
         if len(self.node_ids) != world_size:
             raise ValueError(f"nodes= names {len(self.node_ids)} node ids "
                              f"for {world_size} ranks")
+        self.node_name_to_id: Dict[str, int] = {}
         self.device = device
         self.tracer: Optional[trace.Recorder] = None
         self.engine = ProgressEngine(world_rank)
         self.engine.universe = self
         self._default_channel: Optional[Channel] = None
+        self._channels: Dict[int, Channel] = {}   # world rank -> channel
+        self.kvs = None           # the job's KVS client (process mode)
+        self.shm_channel = None   # the node's shared-memory channel
         self.comms_by_ctx: Dict[int, Comm] = {}
         self._ctx_mask = None   # lazily sized (ctx_mask())
         self._ctx_lock = threading.Lock()
@@ -111,22 +134,35 @@ class Universe:
         self._ctx_waiting = set()  # keys of locally pending agreements
         self.protocol: Optional[Pt2ptProtocol] = None
         self.comm_world: Optional[Comm] = None
+        self.comm_self: Optional[Comm] = None
+        self.initialized = False
         self.finalized = False
 
     def initialize(self) -> None:
         self.protocol = Pt2ptProtocol(self)
         self.comm_world = Comm(self, Group(self.world_ranks),
                                context_id=0, name="MPI_COMM_WORLD")
+        self.comm_self = Comm(self, Group([self.world_rank]),
+                              context_id=2, name="MPI_COMM_SELF")
         from ..coll.tuning import install_coll_ops
         install_coll_ops(self.comm_world)
+        self.initialized = True
 
     # -- wiring -----------------------------------------------------------
     def set_default_channel(self, ch: Channel) -> None:
+        if ch.polled:
+            self.engine.add_channel(ch)
         self._default_channel = ch
 
+    def set_channel(self, world_rank: int, ch: Channel) -> None:
+        """Route ``world_rank``'s traffic through ``ch`` (the node's
+        shared-memory channel in process mode)."""
+        if ch.polled and ch not in self.engine.channels:
+            self.engine.add_channel(ch)
+        self._channels[world_rank] = ch
+
     def channel_for(self, dest_world: int) -> Channel:
-        """Every peer of a thread rank is on the one in-process fabric."""
-        ch = self._default_channel
+        ch = self._channels.get(dest_world, self._default_channel)
         if ch is None:
             raise MPIException(MPI_ERR_INTERN,
                                f"no channel for rank {dest_world}")
@@ -288,11 +324,24 @@ class Universe:
 
 
 _tls = threading.local()
+_process_universe: Optional[Universe] = None
+
+
+def set_universe(u: Optional[Universe], process_wide: bool = False) -> None:
+    """Bind ``u`` to the calling thread, or (``process_wide``) to the
+    process: the fallback of every thread that has none of its own."""
+    global _process_universe
+    if process_wide:
+        _process_universe = u
+    else:
+        _tls.universe = u
 
 
 def current_universe() -> Optional[Universe]:
-    """The Universe of the calling rank thread (None outside one)."""
-    return getattr(_tls, "universe", None)
+    """The Universe of the calling rank thread, else the process-wide one
+    (None outside both)."""
+    u = getattr(_tls, "universe", None)
+    return u if u is not None else _process_universe
 
 
 def local_universe(nranks: int, device: DeviceLike = None,
@@ -321,6 +370,9 @@ def local_universe(nranks: int, device: DeviceLike = None,
     universes = []
     for r in range(nranks):
         u = Universe(r, nranks, dev, nodes)
+        # the JAX package's synthetic node-name table (the same on every
+        # rank)
+        u.node_name_to_id = {f"__node_{v}": v for v in sorted(set(u.node_ids))}
         u.set_default_channel(LocalChannel(fabric, r))
         fabric.register(r, u.engine)
         universes.append(u)
@@ -363,7 +415,7 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
 
     def body(r: int):
         comm = universes[r].comm_world
-        _tls.universe = universes[r]
+        set_universe(universes[r])
         try:
             if dev.type == "cuda":
                 stream = torch.cuda.Stream(dev)
@@ -376,7 +428,7 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
             errors[r] = e
             abort()
         finally:
-            _tls.universe = None
+            set_universe(None)
 
     threads = [threading.Thread(target=body, args=(r,), daemon=True,
                                 name=f"rank-{r}")

@@ -25,6 +25,8 @@
 * the segmentation of the nonblocking device collectives,
   ``DEVICE_NBC_SEG_BYTES`` and ``DEVICE_NBC_MAX_SEGS`` (``coll/device.py``
   ``_nb_segments``);
+* process mode (``mpirun``): ``STARTUP_TIMING``, the ``mpi.Init``
+  phase timestamps (``utils/timestamps.py``);
 * the observability switches ``TRACE``, ``TRACE_BUF`` and ``TRACE_DIR``
   (the per-rank event recorder, ``trace/recorder.py``), ``METRICS`` (the
   latency histograms, ``metrics/__init__.py``) and ``JAX_PROFILE`` (a
@@ -155,9 +157,15 @@ TRACE_CVARS = {
     "JAX_PROFILE": "",
 }
 
+# process mode, with the JAX package's default (utils/timestamps.py)
+PROCESS_CVARS = {
+    "STARTUP_TIMING": False,
+}
+
 _config = Config({"USE_DEVICE_COLL": True,
                   **{f"{c}_ALGO": "" for c in ALGO_CVARS},
-                  **HOST_CVARS, **DEVICE_CVARS, **TRACE_CVARS})
+                  **HOST_CVARS, **DEVICE_CVARS, **TRACE_CVARS,
+                  **PROCESS_CVARS})
 
 
 def get_config() -> Config:

@@ -191,7 +191,9 @@ def test_config_reads_the_reference_env_names(monkeypatch):
     # only the knobs the JAX package declares: no new MV2T_* name
     assert set(config.get_config()._defaults) == {
         "USE_DEVICE_COLL", *(f"{c}_ALGO" for c in config.ALGO_CVARS),
-        *config.HOST_CVARS, *config.DEVICE_CVARS, *config.TRACE_CVARS}
+        *config.HOST_CVARS, *config.DEVICE_CVARS, *config.TRACE_CVARS,
+        *config.PROCESS_CVARS}
+    assert set(config.PROCESS_CVARS) == {"STARTUP_TIMING"}
     assert set(config.HOST_CVARS) == {
         "EAGER_THRESHOLD", "SMP_EAGERSIZE", "RNDV_PROTOCOL",
         "R3_CHUNK_SIZE", "USE_TWO_LEVEL"}
