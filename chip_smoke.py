@@ -212,11 +212,10 @@ non-zero, printing no result, without them. Phases:
    on one (eager to 32 KiB), the eager/rendezvous pvars checked a size;
    barrier and 4 B to 16 KiB - 4 allreduce latency (host clock, median
    of 50); tensors on the card in calls that the device tier does not
-   take (bfloat16, float64, a forced host algorithm, alltoallv on the
-   slot channel, alltoall on the fold channel, a dup'd comm, an
-   iallreduce on the slot channel) raise NotImplementedError on every
-   rank, with no launch and no copy to the host. Each kernel count is
-   zeroed just before its call.
+   take (float64, a forced host algorithm, MPI_IN_PLACE alltoallv, a
+   dup'd comm, an iallreduce on the slot channel) raise
+   NotImplementedError on every rank, with no launch and no copy to the
+   host. Each kernel count is zeroed just before its call.
 16. graft (after models): mvapich2_tpu_torch.graft_entry's entry()
    forward on a (1, 1, 1) mesh of the card and dryrun_multichip(8) (one
    train step on (2, 2, 2) and the 8-stage pipeline), each against the
@@ -238,6 +237,31 @@ non-zero, printing no result, without them. Phases:
    a tensor on the card given to allreduce must raise
    NotImplementedError. A nonzero exit, a mismatch or a missing refusal
    fails the phase.
+18. card_paths (after mpirun): the calls that run on the device for a
+   tensor where the JAX package stages them through its host tier
+   (bfloat16, alltoall(v) on the slot and fold channels) and the window
+   over one axis of a multi-axis mesh, each path through run_ranks(8)
+   on cuda:0 with its kernel counts zeroed just before it and read just
+   after, ``to_host`` made to fail (no tensor is copied to the host) and
+   the tier picks and the stock reduction made to raise on a bfloat16
+   call that reaches the stock tier. bfloat16
+   allreduce (integers in [-8, 8), every sum exact) at 16 KiB and 64
+   MiB a rank on the slot channel (K1), the 1:1 mesh (K6, K3) and 8
+   ranks over 2 fold devices (2 K1 + K6 or K3), a 64 MiB max (K3) and
+   reduce_scatter_block (K4),
+   allgathers of 2 KiB (K7) and 1 MiB (K5), a 64 MiB allreduce (2 K4 +
+   2 K5) and reduce_scatter_block (2 K4) on the (2, 4) mesh; alltoallv of
+   the MoE bench's hot routing at 4096 x 4096 f32 on the slot channel
+   and the fold (K11), a bfloat16 alltoall on the fold (K10); every
+   result bitwise the plain one, dev_coll_fallback_dtype and _size
+   unmoved; the timed paths' medians on the host clock and on the card
+   (CUDA events queued behind a sleep kernel). Then a DeviceWin of 64
+   MiB f32 rows over each axis of the (2, 4) mesh: a put, a get and an
+   accumulate of 16 MiB (K12, K13, K14) and a direct_put (K17), held
+   bitwise against a plain replay, each kernel's card time (queued
+   behind a sleep kernel) and each op with its fence on the host clock;
+   and K1 and K3 at 8 x 64 MiB in
+   bfloat16 beside float32 (the same bytes), by CUDA events.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
@@ -5472,23 +5496,19 @@ def phase_host_refusals(torch, np, mvt, mods, cfg, dev):
     from mvapich2_tpu_torch.core import comm as comm_mod
     n = 4096
     mesh = {"device_mesh": mvt.make_mesh((R,), ("x",), dev)}
-    fold = {"device_mesh": mvt.make_mesh((2,), ("x",), dev)}
     slot = {"device": dev}
     ones = [1] * R
 
     def t(dtype=torch.float32):
         return torch.ones(n, dtype=dtype, device=dev)
     cases = [
-        ("bf16 allreduce, mesh", mesh, "",
-         lambda c: c.allreduce(t(torch.bfloat16)), "bfloat16"),
         ("f64 allreduce, slot", slot, "",
          lambda c: c.allreduce(t(torch.float64)), "float64"),
         ("ALLREDUCE_ALGO=ring, mesh", mesh, "ring",
          lambda c: c.allreduce(t()), "'ring' forced"),
-        ("alltoallv, slot", slot, "", lambda c: c.alltoallv(
-            t()[:R], ones, None, None, ones, None), "slot channel"),
-        ("alltoall, fold", fold, "", lambda c: c.alltoall(t()),
-         "fold channel"),
+        ("alltoallv in place, mesh", mesh, "", lambda c: c.alltoallv(
+            comm_mod.IN_PLACE, ones, None, t()[:R], ones, None),
+         "MPI_IN_PLACE"),
         ("allreduce on a dup, slot", slot, "",
          lambda c: c.dup().allreduce(t()), "no device channel"),
         ("iallreduce, slot", slot, "",
@@ -5664,6 +5684,345 @@ def phase_mpirun(torch, smi, mesh_lat):
             "process_job_s": pp_wall, "phase_s": total}
 
 
+CARD_SMALL = 8 * 1024              # bf16 elements: 16 KiB a rank
+CARD_BIG = 32 * 1024 * 1024        # bf16 elements: 64 MiB a rank
+CARD_AG = (1024, 512 * 1024)       # bf16 allgather a rank: 2 KiB (K7), 1 MiB (K5)
+CARD_TIMED = 5                     # calls timed a way (host clock, card), after one
+CARD_SLEEP = 100_000_000           # sleep-kernel cycles (~50 ms) before a card-timed call
+CARD_WIN = 16 * 1024 * 1024        # f32 elements a row of the (2, 4) windows: 64 MiB
+CARD_WIN_OP = 4 * 1024 * 1024      # f32 elements a window op: 16 MiB
+_LEADER = threading.local()
+
+
+def _no_bf16_stock(torch, ici, a2a):
+    """Make a bfloat16 tensor that reaches the stock tier raise: the tier
+    picks (``planned_tier``, ``planned_a2a_tier``) answering 'xla' for
+    it, and the stock reduction given it. Returns the function that
+    restores them."""
+    saved = []
+
+    def pick(real, name):
+        def guard(*a, **kw):
+            tier = real(*a, **kw)
+            if tier[0] == "xla" and torch.bfloat16 in a:
+                raise AssertionError(f"[card_paths] {name} sent a bfloat16 "
+                                     f"call to the stock tier: {tier}")
+            return tier
+        return guard
+
+    def reduction(real):
+        def guard(x, op):
+            if x.dtype == torch.bfloat16:
+                raise AssertionError("[card_paths] a bfloat16 tensor "
+                                     "reached the stock reduction")
+            return real(x, op)
+        return guard
+    for mod, name, wrap in ((ici, "planned_tier", pick),
+                            (a2a, "planned_a2a_tier", pick),
+                            (ici, "stock_reduce", None)):
+        real = getattr(mod, name)
+        setattr(mod, name, wrap(real, name) if wrap else reduction(real))
+        saved.append((mod, name, real))
+
+    def restore():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return restore
+
+
+def _card_path(torch, mvt, mods, what, kw, call, want, check, timed):
+    """One call of one path on R ranks (``run_ranks(R, ..., **kw)``):
+    ``call(comm)`` once, its result held by ``check(rank, out)``; with
+    ``timed``, CARD_TIMED more calls each ended by a stream synchronize
+    (rank 0's host clock) and CARD_TIMED queued on rank 0's stream behind
+    a sleep kernel, bracketed by CUDA events (the card's time: the
+    leader, rank 0, skips its host-side ``ring.check_errors`` wait for
+    these, so nothing in the call waits for the card). The kernel counts
+    are zeroed just before the run and read just after it; they must be
+    ``want`` a call. Returns (launches, host ms median, card ms median,
+    whether every card-timed call was still queued when it returned)."""
+    def app(comm):
+        r = comm.rank
+        stream = torch.cuda.current_stream()
+        check(r, call(comm))
+        stream.synchronize()
+        host, card, queued = [], [], True
+        for _ in range(CARD_TIMED if timed else 0):
+            t0 = time.perf_counter()
+            call(comm)
+            stream.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(CARD_TIMED if timed else 0):
+            if r == 0:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(CARD_SLEEP)
+                start.record()
+                _LEADER.skip_wait = True
+            try:
+                call(comm)
+            finally:
+                _LEADER.skip_wait = False
+            if r == 0:
+                end.record()
+                queued = queued and not start.query()
+                end.synchronize()
+                card.append(start.elapsed_time(end))
+        stream.synchronize()
+        return host, card, queued
+
+    ncalls = 1 + (2 * CARD_TIMED if timed else 0)
+    _zero(*mods)
+    res = mvt.run_ranks(R, app, **kw)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in _launches(*mods).items() if v}
+    exp = {k: v * ncalls for k, v in want.items()}
+    if got != exp:
+        raise AssertionError(f"[card_paths] {what}: launches {got}, "
+                             f"expected {exp} ({ncalls} calls)")
+    host, card, queued = res[0]
+    med = (lambda x: statistics.median(x) if x else None)
+    return got, med(host), med(card), queued
+
+
+def _exact(torch, what, got, want):
+    """Bitwise equality of two tensors on the card (bf16 as its bits)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"[card_paths] {what}: {got.dtype} "
+                             f"{tuple(got.shape)}, expected {want.dtype} "
+                             f"{tuple(want.shape)}")
+    if got.dtype == torch.bfloat16:
+        got, want = got.view(torch.int16), want.view(torch.int16)
+    if not torch.equal(got, want):
+        raise AssertionError(f"[card_paths] {what}: not bitwise the plain "
+                             f"result")
+
+
+def phase_card_paths(torch, np, mvt, hbm, ici, ring, a2a, rma, mpit, moe,
+                     MeshComm, make_mesh, timing, info, smi, dev):
+    """The device paths for tensors that the JAX package stages through
+    its host tier, and the window over one axis of a multi-axis mesh
+    (module docstring, phase 18). Returns its figures."""
+    from mvapich2_tpu_torch.coll import device as coll_dev
+    from mvapich2_tpu_torch.core import comm as comm_mod
+    from mvapich2_tpu_torch.core import op as opmod
+    from mvapich2_tpu_torch.rma import DeviceWin
+    t_phase = time.perf_counter()
+    mods = (hbm, ici, ring, a2a, rma)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2600)
+
+    def ints(n, dtype=torch.bfloat16):
+        return torch.randint(-8, 8, (n,), generator=gen, device=dev,
+                             dtype=torch.int32).to(dtype)
+    small = [ints(CARD_SMALL) for _ in range(R)]
+    big = [ints(CARD_BIG) for _ in range(R)]
+    ag = [[ints(n) for _ in range(R)] for n in CARD_AG]
+    blocks = [ints(N) for _ in range(R)]          # 32 MiB bf16 a rank
+    counts = _moe_counts(moe, "hot")
+    vs = [torch.randn(sum(counts[r]), generator=gen, device=dev)
+          for r in range(R)]
+    sum_small = torch.stack(small).float().sum(0).to(torch.bfloat16)
+    sum_big = torch.stack(big).float().sum(0).to(torch.bfloat16)
+    max_big = torch.stack(big).amax(0)
+    cat_ag = [torch.cat(a) for a in ag]
+    c = N // R
+    a2a_want = torch.stack(blocks).reshape(R, R, c).transpose(0, 1) \
+        .reshape(R, N).clone()
+    sd = [np.cumsum([0] + row[:-1]).tolist() for row in counts]
+    v_want = [torch.cat([vs[j][sd[j][r]:sd[j][r] + counts[j][r]]
+                         for j in range(R)]) for r in range(R)]
+    rsb_want = sum_big.reshape(R, CARD_BIG // R)
+
+    def allreduce(xs, op=None):
+        return lambda comm: comm.allreduce(xs[comm.rank], op=op)
+
+    def alltoallv(comm):
+        r = comm.rank
+        rc = [counts[j][r] for j in range(R)]
+        return comm.alltoallv(vs[r], counts[r], None, None, rc, None)
+
+    def is_(want):
+        return lambda r, out: _exact(torch, "result", out, want)
+
+    slot = {"device": dev}
+    mesh = {"device_mesh": make_mesh((R,), ("x",), dev)}
+    fold = {"device_mesh": make_mesh((2,), ("x",), dev)}
+    mesh24 = {"device_mesh": make_mesh((2, 4), ("x", "y"), dev)}
+    k1, k3, k6 = ("fused_reduce_to_slot", "hbm_ring_all_reduce",
+                  "ring_all_reduce")
+    # (what, run_ranks arguments, call, launches a call, check, timed)
+    cases = [
+        ("slot bf16 allreduce 16 KiB", slot, allreduce(small), {k1: 1},
+         is_(sum_small), True),
+        ("slot bf16 allreduce 64 MiB", slot, allreduce(big), {k1: 1},
+         is_(sum_big), True),
+        ("slot alltoallv MoE hot f32", slot, alltoallv,
+         {"hbm_alltoallv": 1}, lambda r, o: _exact(torch, "alltoallv", o,
+                                                   v_want[r]), True),
+        ("mesh bf16 allreduce 16 KiB", mesh, allreduce(small), {k6: 1},
+         is_(sum_small), True),
+        ("mesh bf16 allreduce 64 MiB", mesh, allreduce(big), {k3: 1},
+         is_(sum_big), True),
+        ("mesh bf16 max 64 MiB", mesh, allreduce(big, opmod.MAX), {k3: 1},
+         is_(max_big), False),
+        ("mesh bf16 reduce_scatter_block 64 MiB", mesh,
+         lambda comm: comm.reduce_scatter_block(big[comm.rank]),
+         {"hbm_ring_reduce_scatter": 1},
+         lambda r, o: _exact(torch, "reduce_scatter_block", o,
+                             rsb_want[r]), False),
+        ("mesh bf16 allgather 2 KiB", mesh,
+         lambda comm: comm.allgather(ag[0][comm.rank]),
+         {"ring_all_gather": 1}, is_(cat_ag[0]), False),
+        ("mesh bf16 allgather 1 MiB", mesh,
+         lambda comm: comm.allgather(ag[1][comm.rank]),
+         {"hbm_ring_all_gather": 1}, is_(cat_ag[1]), False),
+        ("fold bf16 allreduce 16 KiB", fold, allreduce(small),
+         {k1: 2, k6: 1}, is_(sum_small), True),
+        ("fold bf16 allreduce 64 MiB", fold, allreduce(big),
+         {k1: 2, k3: 1}, is_(sum_big), True),
+        ("fold bf16 alltoall 32 MiB", fold,
+         lambda comm: comm.alltoall(blocks[comm.rank]),
+         {"hbm_alltoall": 1}, lambda r, o: _exact(torch, "alltoall", o,
+                                                  a2a_want[r]), False),
+        ("fold alltoallv MoE hot f32", fold, alltoallv,
+         {"hbm_alltoallv": 1}, lambda r, o: _exact(torch, "alltoallv", o,
+                                                   v_want[r]), True),
+        ("(2, 4) bf16 allreduce 64 MiB", mesh24, allreduce(big),
+         {"hbm_ring_reduce_scatter": 2, "hbm_ring_all_gather": 2},
+         is_(sum_big), True),
+        ("(2, 4) bf16 reduce_scatter_block 64 MiB", mesh24,
+         lambda comm: comm.reduce_scatter_block(big[comm.rank]),
+         {"hbm_ring_reduce_scatter": 2},
+         lambda r, o: _exact(torch, "reduce_scatter_block", o,
+                             rsb_want[r]), False),
+    ]
+    pv = ("dev_coll_fallback_dtype", "dev_coll_fallback_size")
+    pv0 = {k: mpit.pvar(k).read() for k in pv}
+    real_check, real_host = ring.check_errors, (coll_dev.to_host,
+                                                comm_mod.to_host)
+
+    def leader_check(device=None):
+        if not getattr(_LEADER, "skip_wait", False):
+            real_check(device)
+
+    def no_copy(x):
+        raise AssertionError("[card_paths] a tensor on the card was "
+                             "copied to the host")
+    restore = _no_bf16_stock(torch, ici, a2a)
+    ring.check_errors = leader_check
+    coll_dev.to_host = comm_mod.to_host = no_copy
+    rows = []
+    try:
+        for what, kw, call, want, check, timed in cases:
+            got, host_ms, card_ms, queued = _card_path(
+                torch, mvt, mods, what, kw, call, want, check, timed)
+            rows.append({"path": what, "launches": got, "host_ms": host_ms,
+                         "card_ms": card_ms, "card_queued": queued})
+            log(f"[card_paths] {what}: every rank bitwise the plain "
+                f"result; launches {got}" + (
+                    f"; host clock {host_ms:.4f} ms, card {card_ms:.4f} ms"
+                    f"{'' if queued else ' (not queued: host time in it)'}"
+                    f" (median of {CARD_TIMED}) on {smi}" if timed else ""))
+    finally:
+        restore()
+        ring.check_errors = real_check
+        coll_dev.to_host, comm_mod.to_host = real_host
+    ring.check_errors()
+    moved = {k: mpit.pvar(k).read() - pv0[k] for k in pv}
+    if any(moved.values()):
+        raise AssertionError(f"[card_paths] fallback pvars moved: {moved}")
+    out = {"paths": rows, "windows": [], "kernels": {}}
+    # a DeviceWin over each axis of the (2, 4) mesh
+    m24 = make_mesh((2, 4), ("x", "y"), dev)
+    src = ints(CARD_WIN_OP, torch.float32)
+    for axis in ("x", "y"):
+        win = DeviceWin(MeshComm(m24, axis), CARD_WIN)
+        p = win.p
+        init = ints(p * CARD_WIN, torch.float32).reshape(p, CARD_WIN)
+        for r in range(p):
+            win.store(r, 0, init[r])
+        plain = init.clone()
+        _zero(*mods)
+        win.put(src, 0, p - 1, 5)
+        h = win.get(CARD_WIN_OP, p - 1, 0, 7)
+        win.accumulate(src, p - 1, 1, 3)
+        win.fence()
+        rma.direct_put(src, win.win, 1, 0, CARD_WIN - CARD_WIN_OP)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _launches(*mods).items() if v}
+        exp = {"rma_put": 1, "rma_get": 1, "rma_accumulate": 1,
+               "direct_put": 1}
+        if got != exp:
+            raise AssertionError(f"[card_paths] window over {axis}: "
+                                 f"launches {got}, expected {exp}")
+        plain[p - 1, 5:5 + CARD_WIN_OP] = src
+        got_want = plain[0, 7:7 + CARD_WIN_OP].clone()
+        plain[1, 3:3 + CARD_WIN_OP] += src
+        plain[0, CARD_WIN - CARD_WIN_OP:] = src
+        _exact(torch, f"window over {axis}", win.win, plain)
+        _exact(torch, f"window get over {axis}", h.value(), got_want)
+        ops = {"put": lambda: rma.rma_put(src, win.win, 0, p - 1, 5),
+               "get": lambda: rma.rma_get(win.win, CARD_WIN_OP, p - 1, 0,
+                                          7),
+               "acc": lambda: rma.rma_accumulate(src, win.win, p - 1, 1,
+                                                 3),
+               "direct_put": lambda: rma.direct_put(src, win.win, 1, 0,
+                                                    5)}
+        card = {k: _queued_ms(torch, f) for k, f in ops.items()}
+        host = {}
+        for k in ("put", "get", "acc"):
+            samples = []
+            for _ in range(CARD_TIMED):
+                t0 = time.perf_counter()
+                if k == "put":
+                    win.put(src, 0, p - 1, 5)
+                elif k == "get":
+                    win.get(CARD_WIN_OP, p - 1, 0, 7)
+                else:
+                    win.accumulate(src, p - 1, 1, 3)
+                win.fence()
+                samples.append((time.perf_counter() - t0) * 1e3)
+            host[k] = statistics.median(samples)
+        nb = CARD_WIN_OP * 4
+        bound = {k: (3 if k == "acc" else 2) * nb / (
+            info.hbm_bw_gbps * 1e9) * 1e3 for k in ops}
+        out["windows"].append({"axis": axis, "p": p, "launches": got,
+                               "card_ms": card, "host_fence_ms": host,
+                               "bound_ms": bound})
+        log(f"[card_paths] DeviceWin over {axis} of (2, 4) (p = {p}, "
+            f"64 MiB f32 a row): put/get/accumulate/direct_put of 16 MiB "
+            f"bitwise the plain replay; launches {got}; card ms "
+            + ", ".join(f"{k} {v:.4f} (bound {bound[k]:.4f})"
+                        for k, v in card.items())
+            + "; op + fence on the host clock ms "
+            + ", ".join(f"{k} {v:.4f}" for k, v in host.items())
+            + f" (median of {CARD_TIMED}) on {smi}")
+    # K1 and K3 at 8 x 64 MiB: bf16 beside f32, the same bytes
+    f32 = [torch.randn(CARD_BIG // 2, generator=gen, device=dev)
+           for _ in range(R)]
+    kern = {}
+    shard = big[0].numel() * 2                 # bytes a rank, both dtypes
+    for name, fn, rows in (
+            ("K1 bf16", lambda: hbm.hbm_slot_allreduce(big), R + 1),
+            ("K1 f32", lambda: hbm.hbm_slot_allreduce(f32), R + 1),
+            ("K3 bf16", lambda: ici.hbm_ring_all_reduce(big), 2 * R),
+            ("K3 f32", lambda: ici.hbm_ring_all_reduce(f32), 2 * R)):
+        ms = timing.time_ms(fn)
+        # K1 reads R rows and writes one; K3 reads R rows and writes R
+        bound = rows * shard / (info.hbm_bw_gbps * 1e9) * 1e3
+        kern[name] = {"ms": ms, "bound_ms": bound}
+    ring.check_errors()
+    out["kernels"] = kern
+    log("[card_paths] at 8 x 64 MiB a rank: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f})"
+        for k, v in kern.items()) + f" on {smi}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[card_paths] phase {out['phase_s']:.1f} s; no bfloat16 tensor "
+        f"reached a stock lowering, dev_coll_fallback_* unmoved, no tensor "
+        f"copied to the host")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
@@ -5800,6 +6159,9 @@ def main(argv=None):
     extra["graft"] = phase_graft(torch, np, (hbm, ici, ring, alltoall), smi,
                                  dev)
     extra["mpirun"] = phase_mpirun(torch, smi, mesh_lat)
+    extra["card_paths"] = phase_card_paths(
+        torch, np, mvt, hbm, ici, ring, alltoall, rma, mpit, moe, MeshComm,
+        make_mesh, timing, info, smi, dev)
     extra["trace"] = phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)

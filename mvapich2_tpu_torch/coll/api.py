@@ -57,7 +57,7 @@ def _unpack(arr: np.ndarray, buf, count: int,
             datatype: Optional[Datatype]) -> None:
     if datatype is None:
         datatype = from_numpy_dtype(np.asarray(buf).dtype)
-    datatype.unpack(np.ascontiguousarray(arr).view(np.uint8), buf, count)
+    datatype.unpack(datatype.from_numpy(arr), buf, count)
 
 
 def _dt(buf, datatype):

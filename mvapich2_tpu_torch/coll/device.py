@@ -23,24 +23,30 @@ Three bindings are ported, chosen by geometry (``bind_universes``):
   devices (``k`` ranks a device). Each device's ``k`` deposits fold in
   its memory (K1 for sum, the stock reduction otherwise), then the
   1:1 mesh program runs over the folded device shards, and the ranks of
-  a device share its output;
+  a device share its output; a tensor's alltoall(v) runs K10/K11 over
+  every rank's deposit, flat;
 * :class:`HBMSlotChannel`: all ranks share one device and collectives
-  run through an on-card slot segment (``ops/hbm.py``).
+  run through an on-card slot segment (``ops/hbm.py``); a tensor's
+  alltoallv runs K11 over the deposits.
 
 A call that the JAX package's ``_select_transport`` sends to the host
-tier (an 8-byte, bool or complex dtype or a user-defined op, also under
-a forced ``<COLL>_ALGO=device``; a forced host algorithm;
-``USE_DEVICE_COLL`` off without ``<COLL>_ALGO=device``; a numpy buffer
-below ``DEVICE_COLL_MIN_BYTES``; alltoallv with ``MPI_IN_PLACE``, on the
-slot channel, or alltoall(v) on the fold channel) runs the host entry the
-wrapper replaced (``coll/api.py``, over the point-to-point protocol) on
-numpy buffers and CPU tensors. A tensor on the card that such a call is
-given raises ``NotImplementedError`` naming why the device tier refused
-it (``_refuse_card``): no call moves a tensor from the card to the host
-and back. bfloat16 is among the dtypes that do not lower, as in the JAX
-package (ml_dtypes' bfloat16 has numpy kind 'V'), although K1 and K3
-take it when called directly. A mesh that neither covers the ranks one
-to one nor divides them binds no channel at all. The host tier is a
+tier (an 8-byte, bool or complex dtype, a numpy bfloat16 array or a
+user-defined op, also under a forced ``<COLL>_ALGO=device``; a forced
+host algorithm; ``USE_DEVICE_COLL`` off without ``<COLL>_ALGO=device``;
+a numpy buffer below ``DEVICE_COLL_MIN_BYTES``; alltoallv with
+``MPI_IN_PLACE``; a numpy alltoallv on the slot channel and a numpy
+alltoall(v) on the fold channel) runs the host entry the wrapper
+replaced (``coll/api.py``, over the point-to-point protocol) on numpy
+buffers and CPU tensors. A tensor on the card that such a call is given
+raises ``NotImplementedError`` naming why the device tier refused it
+(``_refuse_card``): no call moves a tensor from the card to the host
+and back. Where the JAX package stages a device array through its host
+tier but the port's kernels take the call, a tensor takes the device
+(``TENSOR_ONLY``, and bfloat16: the kernels have bf16 cases, and
+``ops/ici.py`` ``kernel_dtype`` plans it as an exact 2-byte type where
+the JAX planners answer the stock lowering for ml_dtypes' kind 'V'). A
+mesh that neither covers the ranks one to one nor divides them binds no
+channel at all. The host tier is a
 routing decision, never a fallback after a device failure: a kernel that
 does not build or launch raises out of the collective.
 
@@ -63,7 +69,9 @@ slot and fold channels, ``MPI_IN_PLACE``, a missing or tensor
 ``recvbuf``, a dtype or op that does not lower, a call
 ``_select_transport`` keeps on the host) counts ``dev_coll_fallback_nbc``
 and runs on the host schedule (``coll/nonblocking.py``), as in the JAX
-package; given a tensor on the card, it raises instead.
+package; given a tensor on the card, it raises instead. A bfloat16
+tensor i-call follows the blocking rule: it rides the tier, landing in
+an ml_dtypes bfloat16 ``recvbuf``.
 
 Observability (the JAX package's ``_run`` and ``_note_tier`` hooks): under
 MV2T_TRACE each call drops a ``device``-lane ``dev_<coll>`` B/E span in
@@ -105,6 +113,7 @@ import numpy as np
 import torch
 
 from .. import metrics, mpit, trace
+from ..core import datatype as dtmod
 from ..core import op as opmod
 from ..core.comm import from_host, to_host
 from ..core.errors import MPIX_ERR_PROC_FAILED, MPIException
@@ -261,6 +270,10 @@ class _Channel:
     # collectives this channel routes to the device; the others keep
     # their host entries, as in the JAX package, for this reason
     SUPPORTED: Tuple[str, ...] = ()
+    # collectives the channel runs on the device for a tensor only: a
+    # numpy buffer keeps the host tier, where the JAX package's channel
+    # runs every call of them
+    TENSOR_ONLY: Tuple[str, ...] = ()
     UNSUPPORTED_WHY = ""
 
     def __init__(self, device: torch.device, rendezvous: _Rendezvous,
@@ -422,6 +435,27 @@ class _Channel:
                         op=_op_name(op))
         return _deliver(out, recvbuf)
 
+    def alltoallv(self, comm, sendbuf, scounts, sdispls, recvbuf, rcounts,
+                  rdispls, datatype):
+        """The MoE-shaped variable-count alltoall: each rank packs its
+        sends densely and deposits them with its scounts row; the leader
+        runs the matrix's program (``_leader_v``); the packed result is
+        laid out at the caller's rdispls on the way out."""
+        dep = _VDeposit(_pack_v(sendbuf, scounts, sdispls), scounts)
+        out = self._run("alltoallv", dep, op=None)
+        return _deliver_v(out, recvbuf, rcounts, rdispls)
+
+    def _leader_v(self) -> List:
+        """Leader compute for alltoallv: assemble the count matrix from
+        every rank's scounts row and hand the packed payloads in place,
+        each at its own length, to the matrix's program (K11 over every
+        rank's deposit: on one card all of them lie in its memory)."""
+        rv = self.rv
+        counts = tuple(s.scounts for s in rv.slots)
+        _, dtype = self._slot_extent(rv.slots[0])
+        xs = [_to_device(s.data, self.device).reshape(-1) for s in rv.slots]
+        return self._program("alltoallv", 0, dtype, "none", counts)(xs)
+
 
 class DeviceCollChannel(_Channel):
     """One rank's handle on the 1:1 mesh channel: rank r owns virtual
@@ -439,7 +473,9 @@ class DeviceCollChannel(_Channel):
       * bcast: a copy of the root's shard per rank (stock, as the JAX
         package lowers it through XLA);
       * reduce_scatter_block: the stock reduction over the stacked
-        shards, then rank r's block.
+        shards, then rank r's block (as the JAX program lowers it); a
+        bfloat16 one, which the JAX channel keeps on its host tier,
+        runs ``ici.ici_reduce_scatter`` (K4).
 
     On a mesh of two or more axes (``multi_axis``, ``_build_mesh``):
     allreduce/reduce ``ici.ici_all_reduce_mesh``, allgather
@@ -494,7 +530,7 @@ class DeviceCollChannel(_Channel):
         elif name == "alltoallv":
             counts = extra                  # the static p x p matrix
 
-            def f(xs, root):
+            def f(xs, root=0):
                 return alltoall.ici_all_to_allv(xs, counts)
         elif name == "bcast":
             def f(xs, root):
@@ -504,6 +540,9 @@ class DeviceCollChannel(_Channel):
             c = n // p
 
             def f(xs, root):
+                if xs[0].dtype == torch.bfloat16:
+                    # the JAX program takes no bf16: the ring kernel K4
+                    return list(ici.ici_reduce_scatter(xs, op).unbind(0))
                 y = ici.stock_reduce(torch.stack(xs), op)
                 return [y[r * c:(r + 1) * c] for r in range(p)]
         else:  # pragma: no cover
@@ -534,7 +573,7 @@ class DeviceCollChannel(_Channel):
         elif name == "alltoallv":
             counts = extra
 
-            def f(xs, root):
+            def f(xs, root=0):
                 return alltoall.stock_all_to_allv(xs, counts)
         else:  # pragma: no cover
             raise KeyError(name)
@@ -547,22 +586,11 @@ class DeviceCollChannel(_Channel):
         rv = self.rv
         _wait_deposits(self.device, rv.events)
         if name == "alltoallv":
-            return self._leader_v()
-        n, dtype = self._slot_extent(rv.slots[0])
-        xs = [_to_device(s, self.device).reshape(n) for s in rv.slots]
-        out = self._program(name, n, dtype, op)(xs, root)
-        ring.check_errors(self.device)
-        return out
-
-    def _leader_v(self) -> List:
-        """Leader compute for alltoallv: assemble the count matrix from
-        every rank's scounts row and hand the packed payloads in place,
-        each at its own length, to the matrix's program."""
-        rv = self.rv
-        counts = tuple(s.scounts for s in rv.slots)
-        _, dtype = self._slot_extent(rv.slots[0])
-        xs = [_to_device(s.data, self.device).reshape(-1) for s in rv.slots]
-        out = self._program("alltoallv", 0, dtype, "none", counts)(xs, 0)
+            out = self._leader_v()
+        else:
+            n, dtype = self._slot_extent(rv.slots[0])
+            xs = [_to_device(s, self.device).reshape(n) for s in rv.slots]
+            out = self._program(name, n, dtype, op)(xs, root)
         ring.check_errors(self.device)
         return out
 
@@ -605,16 +633,6 @@ class DeviceCollChannel(_Channel):
             tr.record("channel", "dev_coll_fallback", "i", coll=name,
                       nbytes=nbytes, reason=reason)
         return "xla"
-
-    def alltoallv(self, comm, sendbuf, scounts, sdispls, recvbuf, rcounts,
-                  rdispls, datatype):
-        """The MoE-shaped variable-count alltoall: each rank packs its
-        sends densely and deposits them with its scounts row; the leader
-        runs the matrix's program; the packed result is laid out at the
-        caller's rdispls on the way out."""
-        dep = _VDeposit(_pack_v(sendbuf, scounts, sdispls), scounts)
-        out = self._run("alltoallv", dep, op=None)
-        return _deliver_v(out, recvbuf, rcounts, rdispls)
 
     # -- nonblocking device collectives on the NBC DAG -------------------
     # The blocking rendezvous waits at a threading.Barrier, which a DAG
@@ -686,7 +704,7 @@ class DeviceCollChannel(_Channel):
             # the JAX package's arrays are immutable, so its completion
             # CALL needs a host recvbuf to write through; so does this one
             return None
-        if not _dtype_ok(send_eff) or not _dtype_ok(recvbuf):
+        if not _dtype_ok(send_eff) or not _recv_dtype_ok(recvbuf, send_eff):
             return None
         if _select_transport(name, wire, op_sel, send_eff) != "device":
             return None
@@ -904,16 +922,20 @@ class DeviceFoldChannel(DeviceCollChannel):
     The ranks of a device SHARE its output tensor, as the slot channel
     shares its result: a rank must not write it in place (reduce_scatter_
     block hands each rank its own slice of it). alltoall(v) has no fold
-    composition (per-peer payloads cross devices pairwise) and keeps the
-    host path in the JAX package, so it raises here. A failed K1 raises
-    out of the collective (the JAX package demotes its fold to XLA)."""
+    composition (per-peer payloads cross devices pairwise), and the JAX
+    package keeps it on the host tier. On one card every rank's deposit
+    lies in the card's memory, so a tensor's alltoall runs K10 and its
+    alltoallv K11 over all ``n`` ranks' deposits, flat (``_build``); a
+    numpy buffer keeps the host tier. A failed K1 raises out of the
+    collective (the JAX package demotes its fold to XLA)."""
 
     LEVELS = ("chip", "ici")
     SUPPORTED = ("allreduce", "reduce", "bcast", "allgather",
                  "reduce_scatter_block")
-    UNSUPPORTED_WHY = ("on the leaders-per-chip fold channel: per-peer "
-                       "payloads cross devices pairwise, which has no fold "
-                       "composition")
+    TENSOR_ONLY = ("alltoall", "alltoallv")
+    UNSUPPORTED_WHY = ("on the leaders-per-chip fold channel: a numpy "
+                       "buffer keeps the host tier, as in the JAX package "
+                       "(per-peer payloads have no fold composition)")
 
     def __init__(self, mesh, rendezvous: _Rendezvous, rank: int,
                  nranks: int):
@@ -928,6 +950,22 @@ class DeviceFoldChannel(DeviceCollChannel):
     def nonblocking(self, comm, name: str, *a, plan: bool = False):
         return None     # the host NBC schedule (the fold has no segments)
 
+    def _build(self, name: str, n: int, op: str, extra=None):
+        """alltoall(v) over every rank's deposit, flat (K10 / K11 by the
+        1-D tier pick, whatever the device mesh's axes); the other
+        collectives the mesh program over the folded device shards."""
+        if name == "alltoall":
+            def f(xs, root=0):
+                return list(alltoall.ici_all_to_all(xs).unbind(0))
+        elif name == "alltoallv":
+            counts = extra
+
+            def f(xs, root=0):
+                return alltoall.ici_all_to_allv(xs, counts)
+        else:
+            return super()._build(name, n, op, extra)
+        return f
+
     def _fold_chip(self, j: int, n: int, op: str) -> torch.Tensor:
         """Device ``j``'s ``k`` deposits folded to one ``[n]`` shard."""
         sl = self.rv.slots[j * self.k:(j + 1) * self.k]
@@ -941,8 +979,17 @@ class DeviceFoldChannel(DeviceCollChannel):
         rv = self.rv
         nd, k = self.ndev, self.k
         _wait_deposits(self.device, rv.events)
+        if name == "alltoallv":
+            out = self._leader_v()
+            ring.check_errors(self.device)
+            return out
         n, dtype = self._slot_extent(rv.slots[0])
         prog_root, prog_n = 0, n
+        if name == "alltoall":      # every rank a participant, flat
+            out = self._program(name, n, dtype, op)(
+                [_to_device(s, self.device).reshape(n) for s in rv.slots])
+            ring.check_errors(self.device)
+            return out
         if name == "bcast":
             # only the root device's shard matters: the root rank's
             # payload there, zeros elsewhere (the program overwrites them)
@@ -1011,6 +1058,9 @@ class HBMSlotChannel(_Channel):
       * allgather: the leader stages one planar ``(R, n)`` slot tensor,
         which *is* the result (no device compute);
       * alltoall: one transpose of the staged slot tensor;
+      * alltoallv of a tensor: K11 over the R deposits read in place by
+        the count matrix's tile table (``_leader_v``); a numpy buffer
+        keeps the host tier, as in the JAX package;
       * reduce_scatter_block: slot-reduce (K1), then per-rank slices;
       * bcast: a copy of the root slot, shared by all ranks.
 
@@ -1022,8 +1072,9 @@ class HBMSlotChannel(_Channel):
     LEVELS = ("chip",)
     SUPPORTED = ("allreduce", "reduce", "bcast", "allgather", "alltoall",
                  "reduce_scatter_block")
-    UNSUPPORTED_WHY = ("on the single-device slot channel: per-peer "
-                       "counts have no slot transpose")
+    TENSOR_ONLY = ("alltoallv",)
+    UNSUPPORTED_WHY = ("on the single-device slot channel: a numpy buffer "
+                       "keeps the host tier, as in the JAX package")
 
     def _note_tier(self, name: str, local, op: Optional[str]) -> str:
         return "slot"       # single-device slot channel: no ring tiers
@@ -1044,6 +1095,11 @@ class HBMSlotChannel(_Channel):
 
             def f(x):                       # [R, n] -> [R, R, c] transpose
                 return x.reshape(R, R, c).permute(1, 0, 2).contiguous()
+        elif name == "alltoallv":
+            counts = extra                  # the static R x R matrix
+
+            def f(xs):                      # R packed payloads, in place
+                return alltoall.hbm_alltoallv(xs, counts)
         else:  # pragma: no cover
             raise KeyError(name)
         return f
@@ -1055,6 +1111,8 @@ class HBMSlotChannel(_Channel):
         rv = self.rv
         R = self.size
         _wait_deposits(self.device, rv.events)
+        if name == "alltoallv":
+            return self._leader_v()
         n, dtype = self._slot_extent(rv.slots[root])
         if name == "bcast":
             # a copy: the shared result must not alias the root's buffer
@@ -1176,7 +1234,7 @@ def _deliver(out, recvbuf):
     in-place: the comm methods return it to the caller)."""
     if recvbuf is None or is_device_tensor(recvbuf) or _is_in_place(recvbuf):
         return out if out.dim() == 1 else out.reshape(-1)
-    host = out.reshape(-1).cpu().numpy()
+    host = to_host(out.reshape(-1))     # bf16 as ml_dtypes' bfloat16
     dst = np.asarray(recvbuf)
     if dst.size == host.size:
         # copyto writes through views, including non-contiguous ones
@@ -1234,7 +1292,7 @@ def _deliver_v(out, recvbuf, rcounts, rdispls):
                   default=0)
         dst = torch.zeros(ext, dtype=flat.dtype, device=flat.device)
     else:
-        flat = flat.cpu().numpy()
+        flat = to_host(flat)
         dst = np.asarray(recvbuf).reshape(-1)
     off = 0
     for j, cnt in enumerate(rcounts):
@@ -1276,8 +1334,9 @@ def _route(name: str, nbytes: int, op, buf) -> Tuple[str, str]:
         why = f"op {op!r} has no device reduction"
     elif not _dtype_ok(buf):
         why = (f"dtype {getattr(buf, 'dtype', type(buf).__name__)} does "
-               f"not run on the device channel (8-byte, bool, complex and "
-               f"bfloat16 types take the host tier, as in the JAX package)")
+               f"not run on the device channel (8-byte, bool and complex "
+               f"types, and a numpy bfloat16 array, take the host tier, as "
+               f"in the JAX package)")
     if forced == "device":
         if why:
             log.warning("%s forced to device but op/dtype does not lower; "
@@ -1305,9 +1364,26 @@ def _select_transport(name: str, nbytes: int, op, buf) -> str:
 
 
 def _dtype_ok(buf) -> bool:
+    """True when ``buf``'s dtype runs on the device channels: integer and
+    float kinds of at most 4 bytes, and a bfloat16 tensor (the kernels
+    take bf16). A numpy bfloat16 array (ml_dtypes' kind 'V') keeps the
+    host tier, as in the JAX package."""
     if not hasattr(buf, "dtype"):
         return False
+    if isinstance(buf, torch.Tensor) and buf.dtype == torch.bfloat16:
+        return True
     return _dtype_lowers(*_dtype_kind(buf))
+
+
+def _recv_dtype_ok(recvbuf, send) -> bool:
+    """The device NBC tier's test of its numpy ``recvbuf``: a dtype that
+    lowers, or ml_dtypes' bfloat16 under a bfloat16 tensor ``send`` (the
+    blocking calls' rule keys on the send buffer)."""
+    if _dtype_ok(recvbuf):
+        return True
+    return (isinstance(send, torch.Tensor) and send.dtype == torch.bfloat16
+            and dtmod.BFLOAT16.basic is not None
+            and np.dtype(recvbuf.dtype) == dtmod.BFLOAT16.basic)
 
 
 def _refuse_card(name: str, why: str, *bufs) -> None:
@@ -1352,17 +1428,18 @@ def install_device_coll(comm, channel: _Channel) -> None:
 
     def wrap(name):
         hostfn = host[name]
-        devfn = getattr(channel, name) if name in channel.SUPPORTED \
-            else None
+        tensor_only = name in channel.TENSOR_ONLY
+        devfn = getattr(channel, name) \
+            if name in channel.SUPPORTED or tensor_only else None
         nbytes_of, op_pos, out_count_of = meta[name]
 
         def entry(comm_, *a):
-            if devfn is None:
+            buf = a[0]
+            if _is_in_place(buf) and len(a) > 1:
+                buf = a[1]       # selection looks at the effective buffer
+            if devfn is None or (tensor_only and not is_device_tensor(buf)):
                 why = f"{name} {channel.UNSUPPORTED_WHY}"
             else:
-                buf = a[0]
-                if _is_in_place(buf) and len(a) > 1:
-                    buf = a[1]   # selection looks at the effective buffer
                 op = a[op_pos] if op_pos is not None else None
                 where, why = _route(name, nbytes_of(a), op, buf)
                 if where == "device":
@@ -1402,14 +1479,16 @@ def install_device_coll(comm, channel: _Channel) -> None:
 
     # alltoallv: its own wrapper (recvbuf sits at a[3], and the decision
     # keys on this rank's send total). The device tier needs a channel
-    # that runs it (the 1:1 mesh; the slot and fold channels keep the
-    # host path), and MPI_IN_PLACE takes the host.
+    # that runs it (the 1:1 mesh; the slot and fold channels for a
+    # tensor only, keeping the host path for numpy), and MPI_IN_PLACE
+    # takes the host.
     host_a2av = host["alltoallv"]
     supported = "alltoallv" in channel.SUPPORTED
+    tensor_only = "alltoallv" in channel.TENSOR_ONLY
 
     def a2av_entry(comm_, sendbuf, scounts, sdispls, recvbuf, rcounts,
                    rdispls, datatype):
-        if not supported:
+        if not (supported or (tensor_only and is_device_tensor(sendbuf))):
             why = f"alltoallv {channel.UNSUPPORTED_WHY}"
         elif _is_in_place(sendbuf):
             why = "alltoallv with MPI_IN_PLACE takes the host tier"

@@ -13,7 +13,11 @@ depends on every phase-(k-1) vertex) run by the completion-driven
 scheduler of ``coll/nbc``. A call on a device-capable comm that the
 device tier refuses (the slot and fold channels, ``MPI_IN_PLACE``, a
 missing or tensor ``recvbuf``, a dtype or op that does not lower, a
-host-tier size) counts ``dev_coll_fallback_nbc``. Intercommunicators'
+host-tier size) counts ``dev_coll_fallback_nbc``. A bfloat16 tensor
+takes the device tier as its blocking call does (``coll/device.py``
+``_recv_dtype_ok``), and a numpy bfloat16 one the host schedule. A
+reduction's result reaches ``recvbuf`` through ``Datatype.from_numpy``,
+so the MINLOC/MAXLOC pair types scatter their items' signature bytes. Intercommunicators'
 leader-bridge schedules wait with the intercomms.
 """
 
@@ -174,7 +178,7 @@ def iallreduce(comm, sendbuf, recvbuf, count: int, datatype, op: Op
             mask >>= 1
         s.barrier()
         s.call(lambda: datatype.unpack(
-            np.ascontiguousarray(acc).view(np.uint8), recvbuf, count))
+            datatype.from_numpy(acc), recvbuf, count))
         return s.start()
     # recursive doubling (power-of-2 only; remainder folded like blocking rd)
     pof2 = 1 << (size.bit_length() - 1)
@@ -215,7 +219,7 @@ def iallreduce(comm, sendbuf, recvbuf, count: int, datatype, op: Op
             s.recv(acc, rank + 1)
     s.barrier()
     s.call(lambda: datatype.unpack(
-        np.ascontiguousarray(acc).view(np.uint8), recvbuf, count))
+        datatype.from_numpy(acc), recvbuf, count))
     return s.start()
 
 
@@ -290,7 +294,7 @@ def ireduce(comm, sendbuf, recvbuf, count: int, datatype, op: Op,
     if rank == root:
         s.barrier()
         s.call(lambda: datatype.unpack(
-            np.ascontiguousarray(acc).view(np.uint8), recvbuf, count))
+            datatype.from_numpy(acc), recvbuf, count))
     return s.start()
 
 
@@ -311,7 +315,7 @@ def iscan(comm, sendbuf, recvbuf, count: int, datatype, op: Op) -> Request:
         s.send(acc, rank + 1)
     s.barrier()
     s.call(lambda: datatype.unpack(
-        np.ascontiguousarray(acc).view(np.uint8), recvbuf, count))
+        datatype.from_numpy(acc), recvbuf, count))
     return s.start()
 
 
@@ -327,7 +331,7 @@ def iexscan(comm, sendbuf, recvbuf, count: int, datatype, op: Op) -> Request:
         s.recv(prev, rank - 1)
         s.barrier()
         s.call(lambda: datatype.unpack(
-            np.ascontiguousarray(prev).view(np.uint8), recvbuf, count))
+            datatype.from_numpy(prev), recvbuf, count))
         s.call(lambda: acc.__setitem__(slice(None), op(prev, acc)))
         s.barrier()
     if rank + 1 < size:
@@ -527,7 +531,7 @@ def _ired_scatter_common(comm, sendbuf, recvbuf, counts, datatype, op):
         epb = out.size // total if total else 1
         off = sum(counts[:rank]) * epb
         mine = out[off: off + counts[rank] * epb]
-        datatype.unpack(np.ascontiguousarray(mine).view(np.uint8),
+        datatype.unpack(datatype.from_numpy(mine),
                         recvbuf, counts[rank])
     s.call(fold)
     return s.start()

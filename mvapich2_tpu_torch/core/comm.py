@@ -98,6 +98,17 @@ def from_host(h: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(h).to(device)
 
 
+def _result_like(like, n: Optional[int] = None) -> np.ndarray:
+    """The result buffer a reduction allocates: ``like``'s dtype, its
+    shape or ``n`` items. A MINLOC/MAXLOC pair dtype's trailing padding
+    is zeroed, as :func:`core.datatype.packed_to_basic` restages items,
+    so every byte of the result is defined."""
+    a = np.asarray(like)
+    shape = a.shape if n is None else (n,)
+    alloc = np.zeros if dtmod.has_padding(a.dtype) else np.empty
+    return alloc(shape, dtype=a.dtype)
+
+
 def _resolve(buf, count: Optional[int], datatype: Optional[Datatype],
              alt=None) -> Tuple[int, Datatype]:
     """(count, datatype) of a numpy array, tensor or bytes buffer where
@@ -469,7 +480,7 @@ class Comm:
         count, datatype = _resolve(sendbuf, count, datatype, alt=recvbuf)
         sendbuf, recvbuf = self._stage_if_unbound(sendbuf, recvbuf)
         if recvbuf is None and self.rank == root and not _is_device(sendbuf):
-            recvbuf = np.empty_like(np.asarray(sendbuf))
+            recvbuf = _result_like(sendbuf)
         ret = self._coll("reduce")(self, sendbuf, recvbuf, count, datatype,
                                    op, root)
         return ret if ret is not None else recvbuf
@@ -482,7 +493,7 @@ class Comm:
         count, datatype = _resolve(sendbuf, count, datatype, alt=recvbuf)
         sendbuf, recvbuf = self._stage_if_unbound(sendbuf, recvbuf)
         if recvbuf is None and not _is_device(sendbuf):
-            recvbuf = np.empty_like(np.asarray(sendbuf))
+            recvbuf = _result_like(sendbuf)
         ret = self._coll("allreduce")(self, sendbuf, recvbuf, count,
                                       datatype, op)
         return ret if ret is not None else recvbuf
@@ -545,7 +556,7 @@ class Comm:
         sendbuf, recvbuf = self._stage_if_unbound(sendbuf, recvbuf)
         if recvbuf is None and not _is_device(sendbuf):
             sb = np.asarray(sendbuf)
-            recvbuf = np.empty((count,), dtype=sb.dtype)
+            recvbuf = _result_like(sb, count)
         ret = self._coll("reduce_scatter_block")(self, sendbuf, recvbuf,
                                                  count, datatype, op)
         return ret if ret is not None else recvbuf
@@ -562,7 +573,7 @@ class Comm:
         _, datatype = _resolve(sendbuf, None, datatype, alt=recvbuf)
         if recvbuf is None:
             sb = np.asarray(sendbuf)
-            recvbuf = np.empty((list(counts)[self.rank],), dtype=sb.dtype)
+            recvbuf = _result_like(sb, list(counts)[self.rank])
         self._coll("reduce_scatter")(self, sendbuf, recvbuf,
                                      list(counts), datatype, op)
         return recvbuf
@@ -574,7 +585,7 @@ class Comm:
         op = op or opmod.SUM
         count, datatype = _resolve(sendbuf, count, datatype, alt=recvbuf)
         if recvbuf is None:
-            recvbuf = np.empty_like(np.asarray(sendbuf))
+            recvbuf = _result_like(sendbuf)
         self._coll("scan")(self, sendbuf, recvbuf, count, datatype, op)
         return recvbuf
 
@@ -585,7 +596,7 @@ class Comm:
         op = op or opmod.SUM
         count, datatype = _resolve(sendbuf, count, datatype, alt=recvbuf)
         if recvbuf is None:
-            recvbuf = np.empty_like(np.asarray(sendbuf))
+            recvbuf = _result_like(sendbuf)
         self._coll("exscan")(self, sendbuf, recvbuf, count, datatype, op)
         return recvbuf
 

@@ -207,6 +207,14 @@ class Datatype:
         # bytes restage into the padded struct (rma/acc-pairtype.c)
         return packed_to_basic(b, self.basic)
 
+    def from_numpy(self, arr: np.ndarray) -> np.ndarray:
+        """The inverse of :meth:`to_numpy`: an array of the basic view
+        dtype as the packed signature bytes that :meth:`unpack` scatters
+        (a pair item's trailing padding left out)."""
+        if self.basic is not None and self.basic.itemsize != self.size:
+            return basic_to_packed(arr, self.basic)
+        return np.ascontiguousarray(arr).view(np.uint8).reshape(-1)
+
 
 def _basic_sig(b: np.dtype) -> int:
     """Data bytes of ONE basic item: field sizes for padded (pair)
@@ -230,6 +238,22 @@ def packed_to_basic(data_u8, basic: np.dtype) -> np.ndarray:
     out.view(np.uint8).reshape(n, basic.itemsize)[:, :sig] = \
         m.reshape(n, sig)
     return out
+
+
+def basic_to_packed(arr, basic: np.dtype) -> np.ndarray:
+    """Items of the (possibly padded) basic view dtype -> their packed
+    signature bytes, item by item: the inverse of
+    :func:`packed_to_basic`."""
+    items = np.ascontiguousarray(np.asarray(arr)).view(np.uint8) \
+        .reshape(-1, basic.itemsize)
+    return np.ascontiguousarray(items[:, :_basic_sig(basic)]).reshape(-1)
+
+
+def has_padding(dt) -> bool:
+    """True for a pair dtype whose items carry padding past their
+    signature bytes (MPI_LONG_INT, MPI_DOUBLE_INT, MPI_SHORT_INT)."""
+    dt = np.dtype(dt)
+    return dt.names is not None and _basic_sig(dt) != dt.itemsize
 
 
 def _merge_spans(spans) -> np.ndarray:

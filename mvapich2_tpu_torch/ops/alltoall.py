@@ -45,7 +45,7 @@ import torch
 
 from ..trace import LOWERING
 from . import ring
-from .ici import _trace_entry, dtype_kind
+from .ici import _trace_entry, kernel_dtype
 from .ring import Shards
 
 LAUNCHES: Dict[str, int] = {"hbm_alltoall": 0, "hbm_alltoallv": 0}
@@ -104,7 +104,7 @@ def planned_a2a_tier(shard_nbytes: int, dtype: torch.dtype
     reason. The generic device tier collapses onto the one kernel tier:
     'vmem' and 'quant' read as 'hbm' (so MV2T_QUANT_COLL sends
     alltoall to the kernels, as in the JAX package)."""
-    if dtype_kind(dtype) not in "fiu":
+    if not kernel_dtype(dtype):
         return "xla", "dtype"
     if shard_nbytes <= 0:
         return "xla", "shape"

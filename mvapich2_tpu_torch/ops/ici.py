@@ -169,10 +169,10 @@ def _block_spans(nblk: int, ndir: int) -> List[Tuple[int, int]]:
 
 def dtype_kind(dtype: torch.dtype) -> str:
     """numpy kind letter of a torch dtype, as the JAX package reads it:
-    bfloat16 is ml_dtypes' kind 'V' there, so every tier decision made
-    on the kind (the channel's eligibility, the planners) sends bf16
-    where the JAX package does. The kernels themselves take bf16 when
-    called directly, as the JAX kernels do."""
+    bfloat16 is ml_dtypes' kind 'V' there, so the decisions that follow
+    the JAX package on the kind (the quant tier's float test, the RMA
+    planner) keep bf16 where it keeps it. The collective planners take
+    bf16 through :func:`kernel_dtype`."""
     if dtype.is_complex:
         return "c"
     if dtype == torch.bfloat16:
@@ -182,6 +182,15 @@ def dtype_kind(dtype: torch.dtype) -> str:
     if dtype == torch.bool:
         return "b"
     return "i" if dtype.is_signed else "u"
+
+
+def kernel_dtype(dtype: torch.dtype) -> bool:
+    """True for a dtype the collective kernels reduce and move: integer
+    and float kinds, bfloat16 included (K1, K3-K7, K10 and K11 have
+    bf16 cases). The JAX planners send bf16 (kind 'V') to the stock
+    lowering; the port's plan it as a 2-byte float, so a bf16 tensor on
+    the card runs the kernels and never the stock reduction."""
+    return dtype == torch.bfloat16 or dtype_kind(dtype) in "fiu"
 
 
 def planned_tier(name: str, shard_nbytes: int, dtype: torch.dtype,
@@ -197,7 +206,7 @@ def planned_tier(name: str, shard_nbytes: int, dtype: torch.dtype,
     takes the exact 'hbm' tier."""
     if op is not None and op not in _SUPPORTED_OPS:
         return "xla", "dtype"
-    if dtype_kind(dtype) not in "fiu":
+    if not kernel_dtype(dtype):
         return "xla", "dtype"
     if shard_nbytes <= 0:
         return "xla", "shape"

@@ -3,7 +3,8 @@ mesh (counterpart of ``mvapich2_tpu/rma/device.py``, the direct-RDMA
 analog of the reference's ``gen2/rdma_iba_1sc.c``).
 
 * A ``DeviceWin`` is a ``(p, n)`` tensor on the mesh's device, row r
-  rank r's exposed window memory.
+  rank r's exposed window memory; ``p`` is the extent of the comm's
+  axis, on a 1-D mesh or one axis of a multi-axis mesh.
 * ``put`` / ``get`` / ``accumulate`` enqueue descriptors; the closing
   synchronization call applies them in queue order, each on a tier
   (``ops/rma.py`` ``planned_rma_tier``):
@@ -80,7 +81,10 @@ def _recorder():
 
 class DeviceWin:
     """An MPI-style window whose memory is a ``(p, n)`` tensor on the
-    mesh's device (``comm``: a ``parallel.mesh.MeshComm``).
+    mesh's device (``comm``: a ``parallel.mesh.MeshComm`` over one axis,
+    ``p`` that axis's extent: on a multi-axis mesh the JAX window's rows
+    are sharded over the axis and copied over the others, one window of
+    ``p`` rows either way).
 
     Ops enqueued inside an epoch are applied, in order, at the closing
     sync call; ``get`` results become available after it through the
@@ -90,10 +94,12 @@ class DeviceWin:
     def __init__(self, comm, n: int, dtype: torch.dtype = torch.float32):
         if dtype.itemsize == 8 and not dtype.is_complex:
             raise NotImplementedError(f"DeviceWin: 8-byte dtype {dtype}")
-        if len(comm.mesh.axis_names) > 1:
+        if comm.multi_axis:
             raise NotImplementedError(
-                f"DeviceWin over a multi-axis mesh {comm.mesh}: windows "
-                f"take the ranks of a 1-D mesh")
+                f"DeviceWin over a comm that spans the axes {comm.axes} of "
+                f"{comm.mesh}: a window takes the ranks of one axis (the "
+                f"JAX DeviceWin shards its rows over the first axis only "
+                f"and raises IndexError at its first closing call)")
         self.comm = comm
         self.p = comm.size
         self.n = int(n)

@@ -38,6 +38,7 @@ from mvapich2_tpu_torch.coll.device import DeviceCollChannel, \
 from mvapich2_tpu_torch.core import op as top
 from mvapich2_tpu_torch.ops import alltoall, hbm, ici
 from mvapich2_tpu_torch.utils.config import get_config
+from test_torch_pt2pt import bf16_pair as _bf16, pvar_deltas
 
 _ALGOS = ["ALLREDUCE", "REDUCE", "BCAST", "ALLGATHER", "ALLTOALL",
           "REDUCE_SCATTER"]
@@ -370,3 +371,136 @@ def test_fold_sums_read_the_deposits_in_place(env, monkeypatch):
             run_ranks(nranks, app, device_mesh=mesh, timeout=30)
         assert calls
         calls.clear()
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 tensors, and alltoall(v) of tensors, on the fold channel
+# ---------------------------------------------------------------------------
+
+_FOLDS = [(8, (4,)), (8, (2,)), (16, (2, 4))]
+_FOLD_IDS = ["8r-4dev", "8r-2dev", "16r-2x4"]
+
+
+@pytest.mark.parametrize("data", ["int", "normal", "maxmin"])
+@pytest.mark.parametrize("nranks,shape", _FOLDS, ids=_FOLD_IDS)
+def test_bf16_tensors_fold_on_k1_and_ring(env, nranks, shape, data):
+    """bfloat16 tensors on the fold channel: a sum folds each device's
+    deposits with K1, then the device shards take the ring (K6 on a 1-D
+    device mesh, K4 + K5 on (2, 4)); max and min fold a device's
+    deposits with the stock reduction, as for every dtype, and take K3
+    (K4 + K5 on (2, 4)). Held against the JAX
+    package, whose bfloat16 array takes its host tier: bitwise for sums
+    of integers in [-8, 8) and for max/min; within R * 2^-8 * sum|x_i|
+    for sums of random normals. dev_coll_fallback_dtype does not move."""
+    for c in _ALGOS:
+        env(**{f"{c}_ALGO": None})
+    env(DEV_TIER_VMEM_MAX="4096", DEV_TIER_AXES_MIN="256")
+    ndev = int(np.prod(shape))
+    rng = np.random.default_rng(700 + nranks + ndev)
+    n = 512
+    x = (rng.integers(-8, 8, size=(nranks, n)) if data == "int" else
+         rng.normal(size=(nranks, n))).astype(np.float32)
+
+    def app(comm, ops):
+        t, a = _bf16(x[comm.rank])
+        buf = t if ops is top else a
+        if data == "maxmin":
+            return (comm.allreduce(buf, op=ops.MAX),
+                    comm.allreduce(buf, op=ops.MIN))
+        return (comm.allreduce(buf),)
+
+    fb = mpit.pvar("dev_coll_fallback_dtype").read()
+    hbm.reset_counts()
+    ici.reset_counts()
+    from mvapich2_tpu_torch.ops import ring
+    ring.reset_counts()
+    mine, ref = _both(nranks, shape, app)
+    assert mpit.pvar("dev_coll_fallback_dtype").read() == fb
+    plain = {k: v for k, v in {**hbm.PLAIN_CALLS, **ici.PLAIN_CALLS,
+                               **ring.PLAIN_CALLS}.items() if v}
+    if data == "maxmin" and len(shape) == 1:
+        want = {"hbm_ring_all_reduce": 2}
+    elif data == "maxmin":
+        want = {"hbm_ring_reduce_scatter": 4, "hbm_ring_all_gather": 4}
+    elif len(shape) == 1:
+        want = {"fused_reduce_to_slot": ndev, "ring_all_reduce": 1}
+    else:
+        want = {"fused_reduce_to_slot": ndev, "hbm_ring_reduce_scatter": 2,
+                "hbm_ring_all_gather": 2}
+    assert plain == want
+    bound = nranks * 2.0 ** -8 * np.abs(
+        _bf16(x)[1].astype(np.float32)).sum(0)
+    for got, wnt in zip(mine, ref):
+        for g, w in zip(got, wnt):
+            assert g.dtype == torch.bfloat16
+            w = np.asarray(w)
+            if data == "normal":
+                diff = np.abs(g.float().numpy() - w.astype(np.float32))
+                assert (diff <= bound).all(), diff.max()
+            else:
+                assert g.view(torch.int16).numpy().tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("nranks,shape", _FOLDS, ids=_FOLD_IDS)
+def test_tensor_alltoall_alltoallv_run_k10_k11(env, monkeypatch, nranks,
+                                               shape):
+    """alltoall and alltoallv of tensors on the fold channel run K10 and
+    K11 once a call over all the ranks' deposits, flat (their plain
+    versions here), bitwise the JAX package's host tier on the same
+    values (alltoallv with spread send and receive displacements and a
+    rank that sends nothing; the received segments compared, as the host
+    tier of both packages fills the gaps between them from an
+    uninitialised staging buffer); numpy buffers keep the host tier, with
+    the JAX package's bits and pvar deltas (pt2pt_*, coll_*_calls,
+    dev_coll_*)."""
+    from mvapich2_tpu import mpit as jax_mpit
+    # the host algorithms by the compiled-in tables on both sides, also
+    # where an earlier test of this process loaded the JAX CPU profile
+    monkeypatch.setattr(jax_tuning, "_PROFILE_TABLES", {})
+    for c in _ALGOS:
+        env(**{f"{c}_ALGO": None})
+
+    def app(comm, ops, tensors):
+        r, p = comm.rank, comm.size
+        counts = np.random.default_rng(p).integers(0, 3, size=(p, p))
+        counts[1, :] = 0
+        sc = [int(v) for v in counts[r]]
+        rc = [int(counts[j][r]) for j in range(p)]
+        sd = [3 * j for j in range(p)]
+        rd = [4 * j for j in range(p)]
+        vals = np.arange(3 * p, dtype=np.float32) + 100 * r
+        blocks = np.arange(2 * p, dtype=np.int32) + 1000 * r
+
+        def segments(v):
+            return np.concatenate([v[rd[j]:rd[j] + rc[j]] for j in range(p)])
+        if tensors and ops is top:
+            a2a = comm.alltoall(torch.from_numpy(blocks))
+            v = comm.alltoallv(torch.from_numpy(vals), sc, sd, None, rc, rd)
+            return a2a.numpy(), segments(v.numpy())
+        a2a = np.zeros(2 * p, np.int32)
+        comm.alltoall(blocks, a2a)
+        recv = np.zeros(4 * p, np.float32)
+        comm.alltoallv(vals, sc, sd, recv, rc, rd)
+        return a2a, segments(recv)
+
+    ndev = int(np.prod(shape))
+    axes = AXES[:len(shape)] if len(shape) > 1 else ("x",)
+    jmesh = jax_make_mesh(shape, axes, jax.devices()[:ndev])
+    ref, jd = pvar_deltas(jax_mpit._pvars._vars, lambda: jax_run_ranks(
+        nranks, lambda c: app(c, jop, False), device_mesh=jmesh))
+    alltoall.reset_counts()
+    mine = run_ranks(nranks, lambda c, o: app(c, o, True), top,
+                     device_mesh=make_mesh(shape, axes, "cpu"))
+    assert alltoall.PLAIN_CALLS == {"hbm_alltoall": 1, "hbm_alltoallv": 1}
+    for got, want in zip(mine, ref):
+        for g, w in zip(got, want):
+            assert g.tobytes() == np.asarray(w).tobytes()
+    alltoall.reset_counts()
+    host, pd = pvar_deltas(mpit._pvars, lambda: run_ranks(
+        nranks, lambda c, o: app(c, o, False), top,
+        device_mesh=make_mesh(shape, axes, "cpu")))
+    assert not any(alltoall.PLAIN_CALLS.values())
+    assert pd == jd, (pd, jd)
+    for got, want in zip(host, ref):
+        for g, w in zip(got, want):
+            assert g.tobytes() == np.asarray(w).tobytes()

@@ -26,6 +26,7 @@ from mvapich2_tpu.coll import tuning as jax_tuning
 
 from mvapich2_tpu_torch import run_ranks
 from mvapich2_tpu_torch.coll import tuning as port_tuning
+from mvapich2_tpu_torch.core import datatype as port_dt
 from mvapich2_tpu_torch.core import errors as port_errors
 
 from test_torch_pt2pt import JAX, PORT, TIMEOUT, assert_same, env, run_both  # noqa: F401
@@ -166,23 +167,79 @@ def test_builtin_ops(env, op):
     assert_same(j, p)
 
 
+def _loc_model(bufs, op):
+    """MINLOC/MAXLOC over the ranks' item arrays: the smallest (largest)
+    value, the lowest loc among equal values."""
+    vals = np.stack([b["val"] for b in bufs])
+    locs = np.stack([b["loc"] for b in bufs])
+    best = vals.min(0) if op == "MINLOC" else vals.max(0)
+    loc = np.where(vals == best, locs, np.iinfo(locs.dtype).max).min(0)
+    return best, loc
+
+
+def _check_loc_results(j, p, jt, basic, sig, bufs, count):
+    """Each rank's MINLOC/MAXLOC items against the numpy model, whole,
+    and against the JAX result's packed bytes, field by field."""
+    for r in range(5):
+        for k, opname in ((1, "MINLOC"), (2, "MAXLOC"), (3, "MINLOC")):
+            got, ref = p[r][k], j[r][k]
+            if k == 3 and r != 2:
+                assert got is None and ref is None
+                continue
+            val, loc = _loc_model(bufs, opname)
+            want = port_dt.packed_to_basic(np.zeros(count * sig, np.uint8),
+                                           basic)
+            want["val"], want["loc"] = val, loc
+            assert got.dtype == basic and got.tobytes() == want.tobytes(), \
+                (r, opname, got, want)
+            # the JAX result's packed bytes are the reduced items' first
+            # count * sig bytes: k whole items, whose padding the
+            # two-level algorithms leave undefined, so fields compare
+            whole = count * sig // basic.itemsize
+            items = np.frombuffer(jt.pack(ref, count).tobytes(), np.uint8,
+                                  count=whole * basic.itemsize).view(basic)
+            for f in basic.names:
+                assert items[f].tobytes() == got[:whole][f].tobytes(), \
+                    (r, opname, f)
+
+
 @pytest.mark.parametrize("pair", ["FLOAT_INT", "DOUBLE_INT", "TWOINT",
                                   "LONG_INT", "SHORT_INT"])
 def test_minloc_maxloc(env, pair):
+    """MINLOC/MAXLOC on the five pair types. The port restages each
+    result item through ``packed_to_basic``: its values are the numpy
+    model's and its padding (LONG_INT, DOUBLE_INT, SHORT_INT) is zero,
+    so whole items compare bitwise, under the tuned selection and under
+    a forced two-level allreduce (whose reduced items carry undefined
+    padding). The JAX package scatters the reduced items' bytes as if
+    they were packed: its result's packed signature bytes are the first
+    ``count * sig`` bytes of the reduced items, whose fields the port's
+    items must equal bitwise (all of them where an item has no
+    padding)."""
+    count = 16
+
     def app(comm, lib):
         t = getattr(lib.dt, pair)
-        buf = np.zeros(16, dtype=t.basic)
+        buf = np.zeros(count, dtype=t.basic)
         rng = np.random.default_rng(comm.rank)
-        buf["val"] = rng.integers(0, 5, 16)
+        buf["val"] = rng.integers(0, 5, count)
         buf["loc"] = comm.rank
-        return (comm.allreduce(buf, op=lib.op.MINLOC, datatype=t,
-                               count=16),
-                comm.allreduce(buf, op=lib.op.MAXLOC, datatype=t, count=16),
-                comm.reduce(buf, op=lib.op.MINLOC, datatype=t, count=16,
+        return (buf,
+                comm.allreduce(buf, op=lib.op.MINLOC, datatype=t,
+                               count=count),
+                comm.allreduce(buf, op=lib.op.MAXLOC, datatype=t,
+                               count=count),
+                comm.reduce(buf, op=lib.op.MINLOC, datatype=t, count=count,
                             root=2))
 
     j, p = run_both(5, app)
-    assert_same(j, p)
+    env(ALLREDUCE_ALGO="two_level")
+    j2, p2 = run_both(5, app)
+    jt, pt = getattr(JAX.dt, pair), getattr(PORT.dt, pair)
+    basic, sig = pt.basic, pt.size
+    bufs = [r[0] for r in p]
+    _check_loc_results(j, p, jt, basic, sig, bufs, count)
+    _check_loc_results(j2, p2, jt, basic, sig, bufs, count)
 
 
 def _matmul_op(lib):
@@ -449,75 +506,124 @@ def _card(n, dtype=torch.float32):
     return torch.empty(n, dtype=dtype, device="meta")
 
 
+def _ints(rank, n, dtype=torch.float32):
+    """Rank ``rank``'s seeded integer values in [-8, 8) as a CPU tensor
+    (every bfloat16 sum of up to 16 of them is exact)."""
+    x = np.random.default_rng(rank).integers(-8, 8, n).astype(np.float32)
+    return torch.from_numpy(x).to(dtype)
+
+
+def _bf16_allreduce(c):
+    got = c.allreduce(_ints(c.rank, 8192, torch.bfloat16))
+    want = sum(_ints(k, 8192) for k in range(c.size)).to(torch.bfloat16)
+    return got, want
+
+
+def _fold_alltoall(c):
+    p = c.size
+    got = c.alltoall(torch.arange(2 * p, dtype=torch.float32) + 100 * c.rank)
+    want = torch.tensor([100.0 * j + 2 * c.rank + e for j in range(p)
+                         for e in range(2)])
+    return got, want
+
+
+def _slot_alltoallv(c):
+    p, r = c.size, c.rank
+    sc = [(r + j) % 3 for j in range(p)]
+    rc = [(j + r) % 3 for j in range(p)]
+    got = c.alltoallv(torch.arange(sum(sc), dtype=torch.float32) + 100 * r,
+                      sc, None, None, rc, None)
+    want = torch.tensor([100.0 * j + sum((j + m) % 3 for m in range(r)) + e
+                         for j in range(p) for e in range(rc[j])])
+    return got, want
+
+
 _MESH4 = ((4,), ("x",))
 _FOLD4 = ((2,), ("x",))
 # (case, mesh geometry or None for the slot channel, env, the call on a
-# rank's comm, what the error names)
+# rank's comm, what the error names; or, for a call that now has a
+# device path, None and the kernel whose plain version it runs, the call
+# returning (result, expected))
 _CARD_CASES = [
-    ("bf16", _MESH4, {}, lambda c: c.allreduce(_card(8192, torch.bfloat16)),
-     "bfloat16"),
+    ("bf16", _MESH4, {}, _bf16_allreduce, None, "ring_all_reduce"),
     ("bf16_forced_device", _MESH4, {"ALLREDUCE_ALGO": "device"},
-     lambda c: c.allreduce(_card(8192, torch.bfloat16)), "bfloat16"),
+     _bf16_allreduce, None, "ring_all_reduce"),
     ("f64", None, {}, lambda c: c.allreduce(_card(64, torch.float64)),
-     "float64"),
+     "float64", None),
     ("complex_bcast", None, {},
-     lambda c: c.bcast(_card(64, torch.complex64)), "complex64"),
+     lambda c: c.bcast(_card(64, torch.complex64)), "complex64", None),
     ("user_op", _MESH4, {}, lambda c: c.allreduce(
-        _card(64), op=PORT.op.create_op(np.add)), "no device reduction"),
+        _card(64), op=PORT.op.create_op(np.add)), "no device reduction",
+     None),
     ("forced_host_algo", _MESH4, {"ALLREDUCE_ALGO": "ring"},
-     lambda c: c.allreduce(_card(64)), "'ring' forced"),
+     lambda c: c.allreduce(_card(64)), "'ring' forced", None),
     ("device_coll_off", _MESH4, {"USE_DEVICE_COLL": 0},
-     lambda c: c.reduce_scatter_block(_card(64)), "USE_DEVICE_COLL"),
-    ("fold_alltoall", _FOLD4, {}, lambda c: c.alltoall(_card(64)),
-     "fold channel"),
-    ("slot_alltoallv", None, {}, lambda c: c.alltoallv(
-        _card(4), [1] * 4, None, None, [1] * 4, None), "slot channel"),
+     lambda c: c.reduce_scatter_block(_card(64)), "USE_DEVICE_COLL", None),
+    ("fold_alltoall", _FOLD4, {}, _fold_alltoall, None, "hbm_alltoall"),
+    ("slot_alltoallv", None, {}, _slot_alltoallv, None, "hbm_alltoallv"),
     ("alltoallv_in_place", _MESH4, {}, lambda c: c.alltoallv(
         PORT.IN_PLACE, [1] * 4, None, _card(4), [1] * 4, None),
-     "MPI_IN_PLACE"),
+     "MPI_IN_PLACE", None),
     ("dup", None, {}, lambda c: c.dup().allreduce(_card(64)),
-     "no device channel"),
+     "no device channel", None),
     ("split", _MESH4, {}, lambda c: c.split(c.rank % 2).allgather(
-        _card(64)), "no device channel"),
+        _card(64)), "no device channel", None),
     ("slot_iallreduce", None, {}, lambda c: c.iallreduce(
-        _card(64), _card(64)), "NBC tier"),
+        _card(64), _card(64)), "NBC tier", None),
 ]
 
 
-@pytest.mark.parametrize("case,geom,cvars,call,names", _CARD_CASES,
+@pytest.mark.parametrize("case,geom,cvars,call,names,kernel", _CARD_CASES,
                          ids=[c[0] for c in _CARD_CASES])
 def test_card_tensor_never_takes_the_host_tier(env, case, geom, cvars,
-                                               call, names):
-    """A tensor that lies on the card and a call that the device tier
-    cannot take (a dtype or op that does not lower, bfloat16 among them
-    as in the JAX package; a forced host algorithm; USE_DEVICE_COLL off;
-    a collective the channel does not run; MPI_IN_PLACE alltoallv; a
-    comm with no device channel; an i-call the NBC tier refuses) raise
+                                               call, names, kernel):
+    """A tensor on the card never goes to the host tier. A call that the
+    device tier cannot take (a dtype or op that does not lower; a forced
+    host algorithm; USE_DEVICE_COLL off; MPI_IN_PLACE alltoallv; a comm
+    with no device channel; an i-call the NBC tier refuses) raises
     NotImplementedError naming why, on every rank, before any data
-    moves: the host tier never copies such a tensor to the host and
-    back."""
-    from mvapich2_tpu_torch import make_mesh
+    moves. The calls that have a device path for a tensor (bfloat16 on
+    the mesh channel, forced or not; alltoall on the fold channel;
+    alltoallv on the slot channel) run it on CPU tensors: the result is
+    exact and the kernel's plain version ran once, with
+    dev_coll_fallback_dtype unmoved. Either way no tensor is staged to
+    the host (``to_host`` raises while the calls run)."""
+    from mvapich2_tpu_torch import make_mesh, mpit
     from mvapich2_tpu_torch.coll import device as port_device
+    from mvapich2_tpu_torch.ops import alltoall, ici, ring
     env(**cvars)
 
-    def app(comm):
+    def refused(comm):
         with pytest.raises(NotImplementedError, match=names) as ei:
             call(comm)
         comm.barrier()
         return str(ei.value)
 
+    def routed(comm):
+        got, want = call(comm)
+        return got.dtype == want.dtype and torch.equal(got, want)
+
     real = port_device.to_host
 
     def no_staging(t):
         raise AssertionError("a tensor on the card was staged")
+    for m in (alltoall, ici, ring):
+        m.reset_counts()
+    fallback = mpit.pvar("dev_coll_fallback_dtype").read()
     port_device.to_host = no_staging
     try:
         mesh = make_mesh(*geom, "cpu") if geom else None
-        got = run_ranks(4, app, device="cpu", device_mesh=mesh,
-                        timeout=TIMEOUT)
+        got = run_ranks(4, refused if names else routed, device="cpu",
+                        device_mesh=mesh, timeout=TIMEOUT)
     finally:
         port_device.to_host = real
-    assert all("is not moved to the host" in g for g in got), got
+    if names:
+        assert all("is not moved to the host" in g for g in got), got
+        return
+    assert got == [True] * 4
+    plain = {**ring.PLAIN_CALLS, **ici.PLAIN_CALLS, **alltoall.PLAIN_CALLS}
+    assert {k: v for k, v in plain.items() if v} == {kernel: 1}, plain
+    assert mpit.pvar("dev_coll_fallback_dtype").read() == fallback
 
 
 def test_jax_segment_path_same_values():

@@ -34,6 +34,7 @@ from mvapich2_tpu_torch.ops import hbm, ici, ring
 from mvapich2_tpu_torch.parallel import MeshComm
 from mvapich2_tpu_torch.rma import DeviceWin
 from mvapich2_tpu_torch.utils.config import get_config
+from test_torch_pt2pt import bf16_pair as _bf16, pvar_deltas
 
 NP = 8
 RTOL, ATOL = 2e-5, 1e-4
@@ -49,6 +50,7 @@ def env(monkeypatch):
     monkeypatch.setattr(jax_autotune, "_default_attempted", True)
     monkeypatch.setattr(jax_tuning, "_DEVICE_CROSSOVERS", {})
     monkeypatch.setattr(jax_tuning, "_KERNEL_PARAMS", {})
+    monkeypatch.setattr(jax_tuning, "_PROFILE_TABLES", {})
 
     def set_env(**kw):
         for k, v in kw.items():
@@ -316,9 +318,11 @@ def test_unported_geometry_and_alltoall_raise(env):
     """What the JAX package keeps on its host path runs on the port's host
     tier, with the JAX package's results: a mesh that neither covers the
     ranks one to one nor divides them binds no channel (6 ranks over 4
-    devices), alltoall(v) on the fold channel and alltoallv on the slot
-    channel. A DeviceWin on a multi-axis mesh still raises (host windows
-    are not ported). Alltoall itself runs on the 1:1 channel (K10)."""
+    devices), alltoall(v) of numpy buffers on the fold channel and
+    alltoallv of numpy buffers on the slot channel. A DeviceWin takes one
+    axis of a multi-axis mesh (``p`` its extent) and raises for a comm
+    that spans several, where the JAX DeviceWin raises IndexError.
+    Alltoall itself runs on the 1:1 channel (K10)."""
     for c in _ALGOS:
         env(**{f"{c}_ALGO": None})
     jdev = jax.devices()
@@ -353,8 +357,10 @@ def test_unported_geometry_and_alltoall_raise(env):
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g, np.asarray(w))
             np.testing.assert_array_equal(got[0], np.arange(NP) * 10.0 + r)
-    with pytest.raises(NotImplementedError, match="multi-axis mesh"):
-        DeviceWin(MeshComm(make_mesh((2, 4), ("x", "y"), "cpu")), 16)
+    mesh2 = make_mesh((2, 4), ("x", "y"), "cpu")
+    assert DeviceWin(MeshComm(mesh2, "y"), 16).win.shape == (4, 16)
+    with pytest.raises(NotImplementedError, match="spans the axes"):
+        DeviceWin(MeshComm(mesh2, ("x", "y")), 16)
     got = run_ranks(NP, lambda c: c.alltoall(np.arange(NP, dtype=np.float32)
                                              + 10 * c.rank),
                     device_mesh=make_mesh((NP,), ("x",), "cpu"))
@@ -574,14 +580,15 @@ def test_unsigned_collectives_match_jax(env, np_dtype):
 
 @pytest.mark.parametrize("forced", ["device", None])
 def test_bf16_allreduce_takes_the_reference_tier(env, monkeypatch, forced):
-    """A bfloat16 allreduce on the 1:1 channel goes where the JAX channel
-    sends it: ml_dtypes' bfloat16 (numpy kind 'V') does not lower, so
-    the JAX package takes its host tier, forced <COLL>_ALGO=device or
-    not, and so does the port for a CPU tensor: it is read as ml_dtypes'
-    bfloat16, folded there, and comes back as a bfloat16 tensor with the
-    JAX package's bits, no ring launched. A bfloat16 tensor on the card
-    (the meta device stands in for it) raises NotImplementedError on
-    every rank instead of moving to the host."""
+    """A bfloat16 allreduce on the 1:1 channel. A numpy bfloat16 array
+    goes where the JAX channel sends it: ml_dtypes' bfloat16 (numpy kind
+    'V') does not lower, so both packages take their host tier, forced
+    <COLL>_ALGO=device or not, with the same bits, the same pt2pt_*,
+    coll_*_calls and dev_coll_* pvar deltas and no ring launched. A
+    bfloat16 tensor takes the device tier: 16 KiB a rank runs K6 (its
+    plain version here), the JAX package's host bits on integer-valued
+    data, dev_coll_tier_vmem moving by one a rank and
+    dev_coll_fallback_dtype not at all."""
     import jax.numpy as jnp
     from mvapich2_tpu.coll import device as jax_device
     env(**{f"{c}_ALGO": forced for c in _ALGOS})
@@ -594,27 +601,152 @@ def test_bf16_allreduce_takes_the_reference_tier(env, monkeypatch, forced):
         seen.append(select(*a, **kw))
         return seen[-1]
     monkeypatch.setattr(jax_device, "_select_transport", spy)
-    ref = jax_run_ranks(NP, lambda comm: comm.allreduce(
-        data[comm.rank].copy()), device_mesh=jax_make_mesh(
-            (NP,), ("x",), jax.devices()[:NP]))
+    from mvapich2_tpu import mpit as jax_mpit
+    ref, jd = pvar_deltas(jax_mpit._pvars._vars, lambda: jax_run_ranks(
+        NP, lambda comm: comm.allreduce(data[comm.rank].copy()),
+        device_mesh=jax_make_mesh((NP,), ("x",), jax.devices()[:NP])))
     assert seen == ["host"] * NP
     np.testing.assert_array_equal(np.asarray(ref[0], np.float32),
                                   data.astype(np.float32).sum(0))
+    mesh = make_mesh((NP,), ("x",), "cpu")
     before = _counts()
+    host, pd = pvar_deltas(mpit._pvars, lambda: run_ranks(
+        NP, lambda c, ops: c.allreduce(data[c.rank].copy()), top,
+        device_mesh=mesh, timeout=30))
+    assert _counts() == before
+    assert pd == jd, (pd, jd)
+    for got, want in zip(host, ref):
+        assert got.dtype == want.dtype and got.tobytes() == \
+            np.asarray(want).tobytes()
+    pv = ("dev_coll_tier_vmem", "dev_coll_fallback_dtype")
+    pv0 = {k: mpit.pvar(k).read() for k in pv}
+    ring.reset_counts()
     mine = run_ranks(NP, lambda c, ops: c.allreduce(torch.from_numpy(
         data[c.rank].astype(np.float32)).to(torch.bfloat16)), top,
-        device_mesh=make_mesh((NP,), ("x",), "cpu"), timeout=30)
-    assert _counts() == before
+        device_mesh=mesh, timeout=30)
+    assert ring.PLAIN_CALLS["ring_all_reduce"] == 1
+    assert {k: mpit.pvar(k).read() - pv0[k] for k in pv} == \
+        {"dev_coll_tier_vmem": NP, "dev_coll_fallback_dtype": 0}
     for got, want in zip(mine, ref):
         assert got.dtype == torch.bfloat16
         assert got.view(torch.int16).numpy().tobytes() == \
             np.asarray(want).tobytes()
 
-    def on_card(c, ops):
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            c.allreduce(torch.empty(8192, dtype=torch.bfloat16,
-                                    device="meta"))
-        return True
-    assert run_ranks(NP, on_card, top, device_mesh=make_mesh(
-        (NP,), ("x",), "cpu"), timeout=30) == [True] * NP
-    assert _counts() == before
+
+def _bf16_bits(t):
+    return t.reshape(-1).view(torch.int16).numpy().tobytes()
+
+
+def _jax_host(nranks, app, shape=(NP,), axes=("x",)):
+    """``app(comm, ops)`` on the JAX package's channel of the same
+    geometry: a bfloat16 array takes its host tier there."""
+    ndev = int(np.prod(shape))
+    return jax_run_ranks(nranks, lambda comm: app(comm, jop), timeout=30,
+                         device_mesh=jax_make_mesh(
+                             shape, axes, jax.devices()[:ndev]))
+
+
+# (case, mesh shape, axes, n elements a rank, data, the kernels' plain
+# calls the tensor calls make)
+_BF16_MESH = [
+    ("k6_sum", (8,), ("x",), 512, "int", {"ring_all_reduce": 1}),
+    ("k3_sum", (8,), ("x",), 300, "int", {"hbm_ring_all_reduce": 1}),
+    ("k3_normal", (8,), ("x",), 300, "normal",
+     {"hbm_ring_all_reduce": 1}),
+    ("k3_maxmin", (8,), ("x",), 512, "maxmin",
+     {"hbm_ring_all_reduce": 2}),
+    ("k7_allgather", (8,), ("x",), 24, "gather", {"ring_all_gather": 1}),
+    ("k4_rsb", (8,), ("x",), 64, "rsb", {"hbm_ring_reduce_scatter": 1}),
+    ("mesh2d_k4_k5", (2, 4), ("x", "y"), 4096, "int",
+     {"hbm_ring_reduce_scatter": 2, "hbm_ring_all_gather": 2}),
+    ("mesh2d_rsb_k4", (2, 4), ("x", "y"), 64, "rsb",
+     {"hbm_ring_reduce_scatter": 2}),
+]
+
+
+@pytest.mark.parametrize("case,shape,axes,n,data,plain", _BF16_MESH,
+                         ids=[c[0] for c in _BF16_MESH])
+def test_bf16_tensors_take_the_ring_kernels(env, case, shape, axes, n, data,
+                                            plain):
+    """bfloat16 tensors on the 1:1 channel (1-D and (2, 4)) run the ring
+    kernels (their plain versions here) and never the stock reduction,
+    held against the JAX package's host tier on the same values as
+    ml_dtypes' bfloat16: bitwise for sums of integers in [-8, 8), for
+    max/min of random normals and for the allgather; within R * 2^-8 *
+    sum|x_i| elementwise for sums of random normals (both round every
+    partial sum to bfloat16, in different orders)."""
+    for c in _ALGOS:
+        env(**{f"{c}_ALGO": None})
+    env(DEV_TIER_VMEM_MAX="2048", DEV_TIER_AXES_MIN="1024")
+    rng = np.random.default_rng(300 + n)
+    x = rng.normal(size=(NP, n)) if data in ("normal", "maxmin") else \
+        rng.integers(-8, 8, size=(NP, n))
+    x = x.astype(np.float32)
+
+    def app(comm, ops):
+        t, a = _bf16(x[comm.rank])
+        buf = t if ops is top else a
+        if data == "maxmin":
+            return (comm.allreduce(buf, op=ops.MAX),
+                    comm.allreduce(buf, op=ops.MIN))
+        if data == "gather":
+            return (comm.allgather(buf),)
+        if data == "rsb":
+            return (comm.reduce_scatter_block(buf),)
+        return (comm.allreduce(buf),)
+
+    fb = mpit.pvar("dev_coll_fallback_dtype").read()
+    ring.reset_counts()
+    ici.reset_counts()
+    mine = run_ranks(NP, app, top, device_mesh=make_mesh(shape, axes, "cpu"),
+                     timeout=30)
+    got_plain = {k: v for k, v in {**ring.PLAIN_CALLS,
+                                   **ici.PLAIN_CALLS}.items() if v}
+    assert got_plain == plain
+    assert mpit.pvar("dev_coll_fallback_dtype").read() == fb
+    ref = _jax_host(NP, app, shape, axes)
+    bound = NP * 2.0 ** -8 * np.abs(_bf16(x)[1].astype(np.float32)).sum(0)
+    for got, want in zip(mine, ref):
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16
+            if data == "normal":
+                diff = np.abs(g.float().numpy() - np.asarray(w, np.float32))
+                assert (diff <= bound).all(), diff.max()
+            else:
+                assert _bf16_bits(g) == np.asarray(w).tobytes()
+
+
+def test_bf16_iallreduce_follows_the_blocking_rule(env):
+    """A bfloat16 tensor iallreduce into a numpy (ml_dtypes) bfloat16
+    recvbuf rides the device NBC tier (K6's plain version), as the
+    blocking call takes the device; a numpy bfloat16 sendbuf takes the
+    host schedule and counts dev_coll_fallback_nbc, as in the JAX
+    package. Both land the blocking call's bits."""
+    import jax.numpy as jnp
+    for c in _ALGOS:
+        env(**{f"{c}_ALGO": None})
+    x = np.random.default_rng(7).integers(-8, 8, size=(NP, 256)) \
+        .astype(np.float32)
+
+    def app(comm, ops):
+        t, a = _bf16(x[comm.rank])
+        out_t = np.zeros(256, jnp.bfloat16)
+        out_a = np.zeros(256, jnp.bfloat16)
+        rt = comm.iallreduce(t, out_t)
+        dev = rt.device_nbc
+        rt.wait()
+        ra = comm.iallreduce(a, out_a)
+        host = getattr(ra, "device_nbc", False)
+        ra.wait()
+        return dev, host, out_t, out_a
+
+    fb = mpit.pvar("dev_coll_fallback_nbc").read()
+    ring.reset_counts()
+    mine = run_ranks(NP, app, top, device_mesh=make_mesh((NP,), ("x",),
+                                                         "cpu"), timeout=30)
+    assert ring.PLAIN_CALLS["ring_all_reduce"] == 1
+    assert mpit.pvar("dev_coll_fallback_nbc").read() - fb == NP
+    want = _bf16(x.sum(0))[1].tobytes()
+    for dev, host, out_t, out_a in mine:
+        assert dev and not host
+        assert out_t.tobytes() == out_a.tobytes() == want

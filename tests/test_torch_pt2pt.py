@@ -24,9 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+from mvapich2_tpu import autotune as jax_autotune
 from mvapich2_tpu import mpit as jax_mpit
 from mvapich2_tpu import run_ranks as jax_run_ranks
 from mvapich2_tpu.coll import shmcoll as jax_shmcoll
+from mvapich2_tpu.coll import tuning as jax_tuning
 from mvapich2_tpu.coll.api import IN_PLACE as JAX_IN_PLACE
 from mvapich2_tpu.core import datatype as jax_dt
 from mvapich2_tpu.core import errors as jax_errors
@@ -113,6 +115,28 @@ def assert_same(a, b):
         assert a == b, (a, b)
 
 
+def bf16_pair(x):
+    """A float32 numpy array as a bfloat16 CPU tensor and as ml_dtypes'
+    bfloat16 (the same rounding)."""
+    import ml_dtypes
+    return (torch.from_numpy(np.ascontiguousarray(x, np.float32))
+            .to(torch.bfloat16), np.asarray(x, np.float32).astype(
+                ml_dtypes.bfloat16))
+
+
+def pvar_deltas(registry, fn):
+    """``fn()`` and the pt2pt_*, coll_*_calls and dev_coll_* pvar deltas
+    it leaves in one package's registry."""
+    def read():
+        return {k: v.read() for k, v in registry.items()
+                if k.startswith(("pt2pt_", "dev_coll_")) or (
+                    k.startswith("coll_") and k.endswith("_calls"))}
+    before = read()
+    out = fn()
+    return out, {k: v - before.get(k, 0.0) for k, v in read().items()
+                 if v - before.get(k, 0.0)}
+
+
 @pytest.fixture
 def env(monkeypatch):
     """``env(NAME=value or None)`` sets MV2T_NAME for both packages (the
@@ -123,7 +147,13 @@ def env(monkeypatch):
     allreduce and bcast take the branches the port runs (with a segment
     they move the same values through it instead of the point-to-point
     protocol: ``test_torch_host_coll.py`` checks those results too). The
+    JAX tuning layer keeps its compiled-in tables, as the port's: no CPU
+    profile, loaded now or by an earlier test of this worker process
+    (``autotune`` and ``coll/tuning.py``'s profile state patched). The
     teardown restores the environment and both configs."""
+    monkeypatch.setattr(jax_autotune, "_default_attempted", True)
+    for name in ("_PROFILE_TABLES", "_DEVICE_CROSSOVERS", "_KERNEL_PARAMS"):
+        monkeypatch.setattr(jax_tuning, name, {})
     monkeypatch.setattr(jax_shmcoll, "_segment_for", lambda comm: None)
     monkeypatch.setattr(jax_shmcoll, "_node_exchange_ctx",
                         lambda comm: None)

@@ -297,11 +297,12 @@ def test_device_tier_and_planned_tier_match_over_cvars(env):
 
 
 def test_bf16_plans_match_the_reference(env):
-    """bfloat16 (ml_dtypes' numpy kind 'V' in the JAX package) is planned
-    as the JAX planners plan it: the allreduce and alltoall planners
-    send it to the stock lowering, the RMA planner to the epoch tier,
-    at every size and under every quant budget (the quant bin does not
-    quantize it either)."""
+    """bfloat16 (ml_dtypes' numpy kind 'V' in the JAX package): the JAX
+    allreduce and alltoall planners send it to the stock lowering; the
+    port's plan it as the JAX planners plan an exact 2-byte type
+    (int16), at every size and under every quant budget, so a bf16
+    tensor runs the kernels (the quant bin does not quantize it
+    either). The RMA planner keeps the JAX plan, the epoch tier."""
     from mvapich2_tpu.ops import pallas_alltoall
     from mvapich2_tpu_torch.ops import alltoall
     for spec in ("", "5e-2", "q8:1e-1"):
@@ -311,15 +312,20 @@ def test_bf16_plans_match_the_reference(env):
             for name, op in (("allreduce", "sum"), ("reduce", "max"),
                              ("allgather", None)):
                 for p in (2, 4, 8):
-                    assert ici.planned_tier(
-                        name, nb, torch.bfloat16, op, num_devices=p) == \
-                        pallas_ici.planned_tier(
-                            name, nb, jnp.bfloat16, op, interpret=True,
-                            num_devices=p) == ("xla", "dtype"), \
-                        (spec, nb, name, p)
+                    assert pallas_ici.planned_tier(
+                        name, nb, jnp.bfloat16, op, interpret=True,
+                        num_devices=p) == ("xla", "dtype")
+                    got = ici.planned_tier(name, nb, torch.bfloat16, op,
+                                           num_devices=p)
+                    assert got == pallas_ici.planned_tier(
+                        name, nb, np.int16, op, interpret=True,
+                        num_devices=p), (spec, nb, name, p)
+                    assert got[0] in ("vmem", "hbm"), got
+            assert pallas_alltoall.planned_a2a_tier(
+                nb, jnp.bfloat16, interpret=True) == ("xla", "dtype")
             assert alltoall.planned_a2a_tier(nb, torch.bfloat16) == \
                 pallas_alltoall.planned_a2a_tier(
-                    nb, jnp.bfloat16, interpret=True) == ("xla", "dtype")
+                    nb, np.int16, interpret=True) == ("hbm", None)
             for kind in ("put", "get", "acc"):
                 for contig in (True, False):
                     assert rma.planned_rma_tier(

@@ -636,3 +636,77 @@ def test_dispatch_looks_up_no_stream_for_a_cpu_window(comm, monkeypatch):
     win.fence()
     assert seen == [None, None, None]
     np.testing.assert_array_equal(_rows(h.value()), np.full(4, 2.0))
+
+
+# ---------------------------------------------------------------------------
+# a window over one axis of a multi-axis mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", ("f32", "i32"))
+@pytest.mark.parametrize("axis", ("x", "y"))
+def test_window_on_one_axis_of_a_2x4_mesh_matches_jax(axis, dt):
+    """A DeviceWin over one axis of the (2, 4) mesh has ``p`` rows, the
+    axis's extent, as the JAX DeviceWin over the same axis of the
+    8-device CPU mesh (its rows sharded over the axis, copied over the
+    other). Contiguous puts, gets and accumulates of integer values take
+    K12, K13 and K14 (their plain versions here), strided ones the epoch
+    tier; every row and every get bitwise the JAX window's. K17
+    (``direct_put``) into the window tensor then writes the same row
+    range as a JAX put."""
+    jdt, tdt = DTYPES[dt]
+    shape, axes = (2, 4), ("x", "y")
+    jcomm_ax = JaxMeshComm(jax_make_mesh(shape, axes), axis)
+    comm_ax = MeshComm(make_mesh(shape, axes, "cpu"), axis)
+    p = dict(zip(axes, shape))[axis]
+    n_win = 16
+    jwin = JaxDeviceWin(jcomm_ax, n_win, dtype=jdt)
+    twin = DeviceWin(comm_ax, n_win, tdt)
+    assert jwin.p == twin.p == p and twin.win.shape == (p, n_win)
+    rng = np.random.default_rng(900 + p)
+    init = rng.integers(-100, 100, size=(p, n_win)).astype(np.float32)
+    for r in range(p):
+        jwin.store(r, 0, init[r])
+        twin.store(r, 0, init[r])
+    jh, th = [], []
+    for k in range(3 * p):
+        o, t = k % p, (k * 3 + 1) % p
+        src = rng.integers(-50, 50, size=4).astype(np.float32)
+        stride = 2 if k % 5 == 4 else 1
+        for w in (jwin, twin):
+            if k % 3 == 0:
+                w.put(src, o, t, disp=k % 5, stride=stride)
+            elif k % 3 == 1:
+                w.accumulate(src, o, t, disp=k % 7, stride=stride)
+            else:
+                (jh if w is jwin else th).append(w.get(
+                    4, o, t, disp=k % 6, stride=stride))
+    rma.reset_counts()
+    jwin.fence()
+    twin.fence()
+    assert all(rma.PLAIN_CALLS[k] > 0
+               for k in ("rma_put", "rma_get", "rma_accumulate"))
+    np.testing.assert_array_equal(_rows(twin.win), _rows(jwin.win))
+    for a, b in zip(th, jh):
+        np.testing.assert_array_equal(_rows(a.value()), _rows(b.value()))
+    src = np.arange(5, dtype=np.float32) + 40
+    jwin.put(src, 0, p - 1, disp=3)
+    jwin.fence()
+    rma.direct_put(torch.from_numpy(src).to(tdt), twin.win, 0, p - 1,
+                   disp=3)
+    assert rma.PLAIN_CALLS["direct_put"] == 1
+    np.testing.assert_array_equal(_rows(twin.win), _rows(jwin.win))
+
+
+def test_window_over_several_axes_raises_as_jax_fails():
+    """A comm that spans both axes of the (2, 4) mesh: the JAX DeviceWin
+    builds 8 rows sharded over the first axis only and raises IndexError
+    at its first closing call; the port's refuses at construction with
+    NotImplementedError naming the axes."""
+    jwin = JaxDeviceWin(JaxMeshComm(jax_make_mesh((2, 4), ("x", "y")),
+                                    ("x", "y")), 8)
+    jwin.put(np.ones(2, np.float32), 0, 7, 0)
+    with pytest.raises(IndexError):
+        jwin.fence()
+    with pytest.raises(NotImplementedError, match=r"spans the axes"):
+        DeviceWin(MeshComm(make_mesh((2, 4), ("x", "y"), "cpu"),
+                           ("x", "y")), 8)

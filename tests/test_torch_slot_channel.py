@@ -25,6 +25,7 @@ from mvapich2_tpu_torch.coll.device import HBMSlotChannel
 from mvapich2_tpu_torch.core import op as top
 from mvapich2_tpu_torch.ops import hbm
 from mvapich2_tpu_torch import mpit
+from test_torch_pt2pt import bf16_pair as _bf16, pvar_deltas
 
 RTOL, ATOL = 2e-5, 1e-4
 _ALGOS = ["ALLREDUCE", "REDUCE", "BCAST", "ALLGATHER", "ALLTOALL",
@@ -306,3 +307,130 @@ def test_sum_reductions_read_the_deposits_in_place(monkeypatch):
             run_ranks(nranks, app, device="cpu", timeout=30)
         assert calls
         calls.clear()
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 tensors and alltoallv of tensors on the slot channel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nranks,data", [(8, "int"), (5, "normal"),
+                                         (8, "maxmin")])
+def test_bf16_tensor_reductions(nranks, data):
+    """bfloat16 tensors on the slot channel: the sums (allreduce, reduce,
+    reduce_scatter_block) run K1 over the deposits (its plain version
+    here), max and min the stock reduction over the staged slots, as for
+    every dtype. Held against the JAX package, whose bfloat16 array takes
+    its host tier: bitwise for sums of integers in [-8, 8) and for
+    max/min; within R * 2^-8 * sum|x_i| for sums of random normals.
+    dev_coll_fallback_dtype does not move."""
+    rng = np.random.default_rng(500 + nranks)
+    n = nranks * 40
+    x = (rng.normal(size=(nranks, n)) if data != "int" else
+         rng.integers(-8, 8, size=(nranks, n))).astype(np.float32)
+
+    def app(comm, ops):
+        t, a = _bf16(x[comm.rank])
+        buf = t if ops is top else a
+        if data == "maxmin":
+            return (comm.allreduce(buf, op=ops.MAX),
+                    comm.allreduce(buf, op=ops.MIN))
+        return (comm.allreduce(buf), comm.reduce(buf, root=1),
+                comm.reduce_scatter_block(buf))
+
+    fb = mpit.pvar("dev_coll_fallback_dtype").read()
+    hbm.reset_counts()
+    mine, ref = _both(nranks, app)
+    assert hbm.PLAIN_CALLS["fused_reduce_to_slot"] == \
+        (0 if data == "maxmin" else 3)
+    assert mpit.pvar("dev_coll_fallback_dtype").read() == fb
+    bound = nranks * 2.0 ** -8 * np.abs(
+        _bf16(x)[1].astype(np.float32)).sum(0)
+    for r, (got, want) in enumerate(zip(mine, ref)):
+        for k, (g, w) in enumerate(zip(got, want)):
+            if g is None:
+                assert w is None and k == 1 and r != 1
+                continue
+            assert g.dtype == torch.bfloat16
+            w = np.asarray(w)
+            if data == "normal":
+                b = bound if k < 2 else bound[r * 40:(r + 1) * 40]
+                diff = np.abs(g.float().numpy() - w.astype(np.float32))
+                assert (diff <= b).all(), (k, diff.max())
+            else:
+                assert g.view(torch.int16).numpy().tobytes() == w.tobytes()
+
+
+def _a2av_case(nranks, r, seed):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 4, size=(nranks, nranks))
+    counts[0, :] = 0                       # a rank that sends nothing
+    sc = [int(c) for c in counts[r]]
+    rc = [int(counts[j][r]) for j in range(nranks)]
+    return counts, sc, rc
+
+
+@pytest.mark.parametrize("nranks,dtype", [(4, "f32"), (5, "bf16"),
+                                          (8, "i32")])
+def test_tensor_alltoallv_runs_k11(monkeypatch, nranks, dtype):
+    """alltoallv of tensors on the slot channel runs K11 once a call over
+    every rank's deposit (its plain version here), at the caller's
+    displacements (spread sends, dense receives; a rank that sends
+    nothing), bitwise the JAX package's host tier on the same values;
+    a numpy alltoallv keeps the host tier, with the JAX package's bits
+    and pvar deltas (pt2pt_*, coll_*_calls, dev_coll_*)."""
+    from mvapich2_tpu import autotune as jax_autotune
+    from mvapich2_tpu.coll import tuning as jax_tuning
+    # the host algorithms by the compiled-in tables on both sides: no
+    # JAX CPU profile, loaded now or by an earlier test of this process
+    monkeypatch.setattr(jax_autotune, "_default_attempted", True)
+    monkeypatch.setattr(jax_tuning, "_PROFILE_TABLES", {})
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16,
+           "i32": torch.int32}[dtype]
+
+    def app(comm, ops, tensors):
+        r, p = comm.rank, comm.size
+        counts, sc, rc = _a2av_case(p, r, 60 + p)
+        sd = [4 * j for j in range(p)]      # spread: a gap after each
+        vals = np.arange(4 * p, dtype=np.float32) + 100 * r
+        if dtype == "bf16" and ops is jop:
+            send = vals.astype(jnp.bfloat16)
+        elif dtype == "bf16":
+            send = torch.from_numpy(vals).to(torch.bfloat16)
+        else:
+            send = vals.astype(np.float32 if dtype == "f32" else np.int32)
+            if tensors and ops is top:
+                send = torch.from_numpy(send)
+        recv = None if (tensors and ops is top) else np.zeros(
+            sum(rc), send.dtype if isinstance(send, np.ndarray)
+            else np.float32)
+        rd = [sum(rc[:j]) for j in range(p)]
+        got = comm.alltoallv(send, sc, sd, recv, rc, rd)
+        return got if recv is None else recv
+
+    from mvapich2_tpu import mpit as jax_mpit
+    from mvapich2_tpu_torch.ops import alltoall
+    alltoall.reset_counts()
+    mine = run_ranks(nranks, lambda c, o: app(c, o, True), top,
+                     device="cpu", timeout=30)
+    assert alltoall.PLAIN_CALLS["hbm_alltoallv"] == 1
+    ref = _jax_run(nranks, lambda c: app(c, jop, True))
+    for g, w in zip(mine, ref):
+        assert isinstance(g, torch.Tensor) and g.dtype == tdt
+        w = np.asarray(w)
+        if dtype == "bf16":
+            assert g.view(torch.int16).numpy().tobytes() == w.tobytes()
+        else:
+            assert g.numpy().tobytes() == w.tobytes()
+    if dtype == "bf16":
+        return
+    alltoall.reset_counts()
+    mine, pd = pvar_deltas(mpit._pvars, lambda: run_ranks(
+        nranks, lambda c, o: app(c, o, False), top, device="cpu",
+        timeout=30))
+    assert not any(alltoall.PLAIN_CALLS.values())
+    ref, jd = pvar_deltas(jax_mpit._pvars._vars,
+                           lambda: _jax_run(nranks,
+                                            lambda c: app(c, jop, False)))
+    assert pd == jd, (pd, jd)
+    for g, w in zip(mine, ref):
+        assert g.tobytes() == np.asarray(w).tobytes()
