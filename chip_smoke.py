@@ -213,9 +213,10 @@ non-zero, printing no result, without them. Phases:
    barrier and 4 B to 16 KiB - 4 allreduce latency (host clock, median
    of 50); tensors on the card in calls that the device tier does not
    take (float64, a forced host algorithm, MPI_IN_PLACE alltoallv, a
-   dup'd comm, an iallreduce on the slot channel) raise
-   NotImplementedError on every rank, with no launch and no copy to the
-   host. Each kernel count is zeroed just before its call.
+   split whose members' geometry binds no channel, an iallreduce with
+   MPI_IN_PLACE on the slot channel) raise NotImplementedError on every
+   rank, with no launch and no copy to the host. Each kernel count is
+   zeroed just before its call.
 16. graft (after models): mvapich2_tpu_torch.graft_entry's entry()
    forward on a (1, 1, 1) mesh of the card and dryrun_multichip(8) (one
    train step on (2, 2, 2) and the 8-stage pipeline), each against the
@@ -235,7 +236,12 @@ non-zero, printing no result, without them. Phases:
    tier, the numpy ping-pong over shared memory and over TCP at 1 B, 64
    KiB and 4 MiB, an 8 B allreduce, a barrier, mpi.Init's wall time, and
    a tensor on the card given to allreduce must raise
-   NotImplementedError. A nonzero exit, a mismatch or a missing refusal
+   NotImplementedError; then, in the same job (``--rungs arena,file``),
+   the shm ping-pong again at each size under the arena (CMA dropped:
+   the pipelined rendezvous) and under the file rung (the arena dropped
+   too), each run with the verdicts it ran under and rank 0's rung
+   counters, which must name that rung (the default run: CMA where the
+   node agreed it). A nonzero exit, a mismatch or a missing refusal
    fails the phase.
 18. card_paths (after mpirun): the calls that run on the device for a
    tensor where the JAX package stages them through its host tier
@@ -262,6 +268,27 @@ non-zero, printing no result, without them. Phases:
    behind a sleep kernel) and each op with its fence on the host clock;
    and K1 and K3 at 8 x 64 MiB in
    bfloat16 beside float32 (the same bytes), by CUDA events.
+19. derived (after card_paths): comms made by split and dup, each with
+   the device channel its members' geometry gives: the 8-rank slot
+   COMM_WORLD split into two comms of 4 (K1), the 1:1 mesh of 8 split
+   into even and odd ranks and the (2, 4) mesh into its rows (1:1
+   channels over 1-D meshes of 4: K6, K3, K5/K7, K11), the fold
+   COMM_WORLD (8 ranks over 2 devices) dup'd (2 K1 + the ring); on each
+   a 16 KiB and a 64 MiB f32 allreduce, a 2 MiB allgather and an
+   alltoallv of tensors, every result bitwise the plain one, each
+   beside the COMM_WORLD of the same k and geometry (its launches a
+   comm, times of the derived call and of that call, on the card by
+   CUDA events queued behind a sleep kernel and on the host clock,
+   medians of 5); then on the slot and the fold channel iallreduce of
+   64 MiB (8 segments), ialltoallv and allreduce_init with 3 starts
+   into tensors, every request on the device NBC tier and bitwise the
+   plain result, and iallreduce + wait beside the blocking allreduce on
+   the host clock, with the i-call's host split (the posts and the
+   deposits' arrival, the segment launches, the card's run seen through
+   the polls, the finishes and their landing copies), under Python's
+   GIL switch interval and again under 0.5 ms. ``to_host`` fails
+   throughout; each kernel count is
+   zeroed just before its path and read just after.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
@@ -2048,27 +2075,28 @@ NBC_MATMUL = 4096                  # the overlap phase's matmul: 4096^2 f32
 NBC_RUNS = 5                       # overlap iterations timed, after 1
 
 
+def _timed_mark(marks, kind, fn):
+    """``fn`` appending (thread name, ``kind``, t0, t1) to ``marks``."""
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            marks.append((threading.current_thread().name, kind, t0,
+                          time.perf_counter()))
+    return timed
+
+
 def _nb_host_timers(coll_dev):
     """perf_counter wrappers around the channel's ``_nb_launch``,
     ``_nb_poll`` and ``_nb_finish``; returns (marks, restore). A mark is
     (thread name, kind, t0, t1)."""
     marks = []
-    cls = coll_dev.DeviceCollChannel
+    cls = coll_dev._Channel         # where every channel's NBC tier lives
     saved = {k: cls.__dict__[k] for k in ("_nb_launch", "_nb_poll",
                                           "_nb_finish")}
-
-    def timed(kind, fn):
-        def method(self, *a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(self, *a, **k)
-            finally:
-                marks.append((threading.current_thread().name, kind, t0,
-                              time.perf_counter()))
-        return method
-
     for k, fn in saved.items():
-        setattr(cls, k, timed(k[4:], fn))
+        setattr(cls, k, _timed_mark(marks, k[4:], fn))
 
     def restore():
         for k, fn in saved.items():
@@ -2254,13 +2282,13 @@ def phase_nbc(torch, np, mvt, ici, ring, a2a, mpit, cfg, moe, smi, dev):
     # 5. no launch waits for the card: one 64 MiB segment's event reads
     # not ready as soon as its launch returns
     ready_after = []
-    real_launch = coll_dev.DeviceCollChannel._nb_launch
+    real_launch = coll_dev._Channel._nb_launch
 
     def launch_and_query(self, *a, **k):
         outs, ev = real_launch(self, *a, **k)
         ready_after.append(ev.query())
         return outs, ev
-    coll_dev.DeviceCollChannel._nb_launch = launch_and_query
+    coll_dev._Channel._nb_launch = launch_and_query
     cfg.set("DEVICE_NBC_SEG_BYTES", 0)
     try:
         def app_one(comm):
@@ -2270,7 +2298,7 @@ def phase_nbc(torch, np, mvt, ici, ring, a2a, mpit, cfg, moe, smi, dev):
         res = mvt.run_ranks(R, app_one, device_mesh=mesh)
     finally:
         cfg.set("DEVICE_NBC_SEG_BYTES", seg_bytes)
-        coll_dev.DeviceCollChannel._nb_launch = real_launch
+        coll_dev._Channel._nb_launch = real_launch
     if ready_after != [False]:
         raise AssertionError(f"[nbc] a 64 MiB segment's event read "
                              f"{ready_after} right after its launch")
@@ -5496,6 +5524,9 @@ def phase_host_refusals(torch, np, mvt, mods, cfg, dev):
     from mvapich2_tpu_torch.core import comm as comm_mod
     n = 4096
     mesh = {"device_mesh": mvt.make_mesh((R,), ("x",), dev)}
+    # 2 ranks a device: a split of ranks 0-2 (devices 0, 0, 1) and of 3-7
+    # (1, 2, 2, 3, 3) binds no channel
+    fold = {"device_mesh": mvt.make_mesh((R // 2,), ("x",), dev)}
     slot = {"device": dev}
     ones = [1] * R
 
@@ -5509,10 +5540,11 @@ def phase_host_refusals(torch, np, mvt, mods, cfg, dev):
         ("alltoallv in place, mesh", mesh, "", lambda c: c.alltoallv(
             comm_mod.IN_PLACE, ones, None, t()[:R], ones, None),
          "MPI_IN_PLACE"),
-        ("allreduce on a dup, slot", slot, "",
-         lambda c: c.dup().allreduce(t()), "no device channel"),
-        ("iallreduce, slot", slot, "",
-         lambda c: c.iallreduce(t(), t()), "NBC tier"),
+        ("allreduce on a split whose geometry binds nothing, fold", fold,
+         "", lambda c: c.split(int(c.rank >= 3)).allreduce(t()),
+         "no device channel"),
+        ("iallreduce in place, slot", slot, "",
+         lambda c: c.iallreduce(comm_mod.IN_PLACE, t()), "NBC tier"),
     ]
 
     def no_copy(x):
@@ -5618,15 +5650,21 @@ MPIRUN_TIMEOUT = 300                     # seconds a job of [mpirun] may take
 VPOD_PROG = os.path.join("mvapich2_tpu_torch", "progs",
                          "vpod_collectives.py")
 PINGPONG_PROG = os.path.join("mvapich2_tpu_torch", "progs", "pingpong.py")
+# the shared-memory rendezvous's lower rungs the pingpong job measures
+# after its default run (CMA where the node agrees it): the arena with the
+# pipelined rendezvous, then the file (pingpong.py --rungs)
+MPIRUN_RUNGS = ("arena", "file")
 
 
-def _mpirun_job(args, tag):
-    """Run ``python -m mvapich2_tpu_torch.run <args>`` from the checkout;
-    returns (the parsed ``<tag> {...}`` line, seconds)."""
+def _mpirun_job(args, tag, env=None):
+    """Run ``python -m mvapich2_tpu_torch.run <args>`` from the checkout,
+    with ``env`` added to the environment; returns (the parsed ``<tag>
+    {...}`` line, seconds)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "mvapich2_tpu_torch.run",
                            *args], cwd=HERE, capture_output=True, text=True,
-                          timeout=MPIRUN_TIMEOUT)
+                          timeout=MPIRUN_TIMEOUT,
+                          env={**os.environ, **(env or {})})
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"[mpirun] {' '.join(args)} exited "
@@ -5664,8 +5702,8 @@ def phase_mpirun(torch, smi, mesh_lat):
         f"{mesh_med[1] * 1e6:.1f} us); every result "
         f"bitwise stock torch; launches {got}; job {vp_wall:.1f} s on {smi}")
     pp, pp_wall = _mpirun_job(["-np", "4", "--fake-nodes", "0,0,1,1",
-                               sys.executable, PINGPONG_PROG],
-                              "PINGPONG_JSON")
+                               sys.executable, PINGPONG_PROG, "--rungs",
+                               ",".join(MPIRUN_RUNGS)], "PINGPONG_JSON")
     if pp.get("card_tensor_refused") != "cuda" or \
             set(pp["pingpong_us"]) != {"shm", "tcp"}:
         raise AssertionError(f"[mpirun] process mode: {pp}")
@@ -5677,11 +5715,35 @@ def phase_mpirun(torch, smi, mesh_lat):
         f"us; mpi.Init {max(pp['init_s']):.3f} s (slowest rank); a tensor "
         f"on the card refused with NotImplementedError; job {pp_wall:.1f} "
         f"s on {smi}")
+    rungs = {"default": pp, **pp["rung_runs"]}
+    if list(pp["rung_runs"]) != list(MPIRUN_RUNGS):
+        raise AssertionError(f"[mpirun] rung runs {list(pp['rung_runs'])}")
+    for rung, res in rungs.items():
+        pv, agreed = res["pvars_rank0"], res["rungs"]
+        took = ("cma" if pv["rndv_cma_bytes"] else
+                "arena" if pv["arena_allocs"] else "file")
+        want = {"arena": "arena", "file": "file"}.get(
+            rung, "cma" if agreed["cma"] else "arena")
+        if took != want or (rung == "arena" and (
+                agreed != {"cma": False, "arena": True}
+                or not pv["rndv_pipeline_chunks"])) or (
+                rung == "file" and (pv["rndv_pipeline_chunks"]
+                                    or agreed["arena"])):
+            raise AssertionError(f"[mpirun] the {rung} rung took {took} "
+                                 f"(agreed {agreed}, pvars {pv})")
+        res["rung_taken"] = took
+        log(f"[mpirun] shm rendezvous, {rung}: agreed {agreed}, took "
+            f"{took}; half round trip (us) over shm "
+            f"{fmt(res['pingpong_us']['shm'])} (tcp in the same job "
+            f"{fmt(pp['pingpong_us']['tcp'])}); rank 0 counters "
+            f"rndv_cma_bytes {pv['rndv_cma_bytes']:.0f}, "
+            f"rndv_pipeline_chunks {pv['rndv_pipeline_chunks']:.0f}, "
+            f"arena_allocs {pv['arena_allocs']:.0f} on {smi}")
     total = time.perf_counter() - t_phase
     log(f"[mpirun] phase {total:.1f} s")
     return {"vpod": vp, "vpod_job_s": vp_wall,
             "mesh_run_ranks_median_s": mesh_med, "process": pp,
-            "process_job_s": pp_wall, "phase_s": total}
+            "process_job_s": pp_wall, "rungs": rungs, "phase_s": total}
 
 
 CARD_SMALL = 8 * 1024              # bf16 elements: 16 KiB a rank
@@ -5730,8 +5792,10 @@ def _no_bf16_stock(torch, ici, a2a):
     return restore
 
 
-def _card_path(torch, mvt, mods, what, kw, call, want, check, timed):
-    """One call of one path on R ranks (``run_ranks(R, ..., **kw)``):
+def _card_path(torch, mvt, mods, what, kw, call, want, check, timed,
+               nranks=R, tag="card_paths"):
+    """One call of one path on ``nranks`` ranks (``run_ranks(nranks, ...,
+    **kw)``):
     ``call(comm)`` once, its result held by ``check(rank, out)``; with
     ``timed``, CARD_TIMED more calls each ended by a stream synchronize
     (rank 0's host clock) and CARD_TIMED queued on rank 0's stream behind
@@ -5739,8 +5803,9 @@ def _card_path(torch, mvt, mods, what, kw, call, want, check, timed):
     leader, rank 0, skips its host-side ``ring.check_errors`` wait for
     these, so nothing in the call waits for the card). The kernel counts
     are zeroed just before the run and read just after it; they must be
-    ``want`` a call. Returns (launches, host ms median, card ms median,
-    whether every card-timed call was still queued when it returned)."""
+    ``want`` a call (``want`` None: any). Returns (launches, host ms
+    median, card ms median, whether every card-timed call was still
+    queued when it returned)."""
     def app(comm):
         r = comm.rank
         stream = torch.cuda.current_stream()
@@ -5773,12 +5838,12 @@ def _card_path(torch, mvt, mods, what, kw, call, want, check, timed):
 
     ncalls = 1 + (2 * CARD_TIMED if timed else 0)
     _zero(*mods)
-    res = mvt.run_ranks(R, app, **kw)
+    res = mvt.run_ranks(nranks, app, **kw)
     torch.cuda.synchronize()
     got = {k: v for k, v in _launches(*mods).items() if v}
-    exp = {k: v * ncalls for k, v in want.items()}
+    exp = got if want is None else {k: v * ncalls for k, v in want.items()}
     if got != exp:
-        raise AssertionError(f"[card_paths] {what}: launches {got}, "
+        raise AssertionError(f"[{tag}] {what}: launches {got}, "
                              f"expected {exp} ({ncalls} calls)")
     host, card, queued = res[0]
     med = (lambda x: statistics.median(x) if x else None)
@@ -6023,6 +6088,359 @@ def phase_card_paths(torch, np, mvt, hbm, ici, ring, a2a, rma, mpit, moe,
     return out
 
 
+DERIVED_SMALL = 4 * 1024           # f32 elements: 16 KiB a rank
+DERIVED_BIG = 16 * 1024 * 1024     # f32 elements: 64 MiB a rank
+DERIVED_AG = 512 * 1024            # f32 elements: 2 MiB a rank
+DERIVED_V = 1024                   # f32 elements: the alltoallv's unit
+DERIVED_TOL = 0.05                 # the prediction: derived card time
+
+
+def _derived_counts(k):
+    """The alltoallv count matrix of a comm of ``k`` ranks: rank j sends
+    ``counts[j][i]`` f32 to rank i (1 to 3 units, seeded by position)."""
+    return [[DERIVED_V * ((i + 2 * j) % 3 + 1) for i in range(k)]
+            for j in range(k)]
+
+
+def phase_derived(torch, np, mvt, hbm, ici, ring, a2a, mpit, make_mesh,
+                  smi, dev):
+    """Comms made by split and dup, and the slot and fold channels'
+    nonblocking calls, on the card (module docstring, phase 19). Returns
+    its figures."""
+    from mvapich2_tpu_torch.coll import device as coll_dev
+    from mvapich2_tpu_torch.core import comm as comm_mod
+    t_phase = time.perf_counter()
+    mods = (hbm, ici, ring, a2a)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2800)
+
+    def ints(n):
+        return torch.randint(-8, 8, (n,), generator=gen, device=dev,
+                             dtype=torch.int32).float()
+    k1, k3, k6 = ("fused_reduce_to_slot", "hbm_ring_all_reduce",
+                  "ring_all_reduce")
+    slot = {"device": dev}
+    mesh4 = {"device_mesh": make_mesh((4,), ("x",), dev)}
+    fold = {"device_mesh": make_mesh((2,), ("x",), dev)}
+    # (geometry, run_ranks arguments, how each rank derives its comm, the
+    # groups in comm rank order, the COMM_WORLD of the same k and
+    # geometry, the allreduce kernels of one comm: 16 KiB, 64 MiB)
+    geoms = [
+        ("slot split(rank // 4)", slot, lambda c: c.split(c.rank // 4),
+         [[0, 1, 2, 3], [4, 5, 6, 7]], slot, {k1: 1}, {k1: 1}),
+        ("mesh split(rank % 2)", {"device_mesh": make_mesh((R,), ("x",),
+                                                           dev)},
+         lambda c: c.split(c.rank % 2), [[0, 2, 4, 6], [1, 3, 5, 7]],
+         mesh4, {k6: 1}, {k3: 1}),
+        ("(2, 4) split(rank // 4)",
+         {"device_mesh": make_mesh((2, 4), ("x", "y"), dev)},
+         lambda c: c.split(c.rank // 4), [[0, 1, 2, 3], [4, 5, 6, 7]],
+         mesh4, {k6: 1}, {k3: 1}),
+        ("fold dup", fold, lambda c: c.dup(), [list(range(R))], fold,
+         {k1: 2, k6: 1}, {k1: 2, k3: 1}),
+    ]
+    data = {"small": [ints(DERIVED_SMALL) for _ in range(R)],
+            "big": [ints(DERIVED_BIG) for _ in range(R)],
+            "ag": [ints(DERIVED_AG) for _ in range(R)]}
+
+    def run_path(kw, nranks, derive, groups, call, want, label):
+        """``call(comm, world rank, group)`` on each rank's derived comm
+        (or, with ``derive`` None, on COMM_WORLD, standing for group 0's
+        ranks); the first call's result held bitwise against the plain
+        one (``call``'s second value), the others timed."""
+        cache = {}
+
+        def where(r):
+            if derive is None:
+                return groups[0][r], groups[0]
+            return r, next(g for g in groups if r in g)
+
+        def on(comm):
+            c = comm
+            if derive is not None:
+                got = cache.get(comm.rank)
+                if got is None or got[0] is not comm:
+                    got = cache[comm.rank] = (comm, derive(comm))
+                c = got[1]
+            return call(c, *where(comm.rank))[0]
+
+        def check(r, out):
+            _exact(torch, label, out, call(None, *where(r))[1])
+        return _card_path(torch, mvt, mods, label, kw, on, want, check,
+                          True, nranks, "derived")
+
+    # each call: (the result on comm c, or None; the plain result)
+    def allreduce(key):
+        def call(c, w, g):
+            return (c.allreduce(data[key][w]) if c is not None else None,
+                    sum(data[key][m] for m in g) if c is None else None)
+        return call
+
+    def allgather(c, w, g):
+        if c is not None:
+            return c.allgather(data["ag"][w]), None
+        return None, torch.cat([data["ag"][m] for m in g])
+
+    def vrow(w, k, i, lo, n):
+        """Elements ``lo:lo + n`` of world rank ``w``'s alltoallv send
+        buffer (local rank ``i`` of a comm of ``k``): a seeded ramp."""
+        return torch.arange(lo, lo + n, device=dev,
+                            dtype=torch.float32) + 1e5 * w
+
+    def alltoallv(c, w, g):
+        k, i = len(g), g.index(w)
+        cnt = _derived_counts(k)
+        if c is not None:
+            return c.alltoallv(vrow(w, k, i, 0, sum(cnt[i])), cnt[i], None,
+                               None, [cnt[j][i] for j in range(k)],
+                               None), None
+        sd = [np.cumsum([0] + row[:-1]).tolist() for row in cnt]
+        return None, torch.cat([vrow(g[j], k, j, sd[j][i], cnt[j][i])
+                                for j in range(k)])
+
+    real_check, real_host = ring.check_errors, (coll_dev.to_host,
+                                                comm_mod.to_host)
+
+    def leader_check(device=None):
+        if not getattr(_LEADER, "skip_wait", False):
+            real_check(device)
+
+    def no_copy(x):
+        raise AssertionError("[derived] a tensor on the card was copied "
+                             "to the host")
+    ring.check_errors = leader_check
+    coll_dev.to_host = comm_mod.to_host = no_copy
+    ncalls = 1 + 2 * CARD_TIMED
+    rows, nb = [], {}
+    try:
+        for geom, kw, derive, groups, ref_kw, ar_small, ar_big in geoms:
+            k, ncomm = len(groups[0]), len(groups)
+            for what, call, want in (
+                    ("allreduce 16 KiB", allreduce("small"), ar_small),
+                    ("allreduce 64 MiB", allreduce("big"), ar_big),
+                    ("allgather 2 MiB", allgather, None),
+                    ("alltoallv", alltoallv, {"hbm_alltoallv": 1})):
+                ref = run_path(ref_kw, k, None, groups, call, want,
+                               f"COMM_WORLD of {k} {what}")
+                per = {n: v // ncalls for n, v in ref[0].items()}
+                if not per and not geom.startswith("slot"):
+                    raise AssertionError(f"[derived] {geom} {what}: the "
+                                         f"COMM_WORLD call launched nothing")
+                der = run_path(kw, R, derive, groups, call,
+                               {n: v * ncomm for n, v in per.items()},
+                               f"{geom} {what}")
+                row = {"geometry": geom, "call": what, "k": k,
+                       "comms": ncomm, "launches_a_comm": per,
+                       "host_ms": der[1], "card_ms": der[2],
+                       "card_queued": der[3], "world_host_ms": ref[1],
+                       "world_card_ms": ref[2]}
+                if what == "allreduce 64 MiB":
+                    row["within_5pct"] = abs(der[2] - ref[2]) <= \
+                        DERIVED_TOL * ref[2]
+                rows.append(row)
+                log(f"[derived] {geom} ({ncomm} comm(s) of {k}) {what}: "
+                    f"every rank bitwise the plain result; launches "
+                    f"{per} a comm; card {der[2]:.4f} ms (COMM_WORLD of "
+                    f"{k}: {ref[2]:.4f}), host {der[1]:.4f} ms "
+                    f"({ref[1]:.4f}) (median of {CARD_TIMED}) on {smi}")
+        nb = _derived_nbc(torch, np, mvt, hbm, ici, ring, a2a, mpit, ints,
+                          slot, fold, smi, dev)
+    finally:
+        ring.check_errors = real_check
+        coll_dev.to_host, comm_mod.to_host = real_host
+    ring.check_errors()
+    out = {"paths": rows, "nbc": nb,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[derived] phase {out['phase_s']:.1f} s; no tensor copied to the "
+        f"host")
+    return out
+
+
+DERIVED_NB_RUNS = 5                # i-call + wait timed, after 1
+DERIVED_SWITCH = 5e-4              # s: the i-calls timed again under this
+                                   # GIL switch interval (Python's is 5 ms)
+
+
+def _derived_nbc(torch, np, mvt, hbm, ici, ring, a2a, mpit, ints, slot,
+                 fold, smi, dev):
+    """iallreduce of 64 MiB, ialltoallv and allreduce_init (3 starts of
+    16 KiB) into tensors on the slot channel and the fold channel (8 ranks
+    over 2 devices): each request on the device NBC tier, each result
+    bitwise the plain one, the launches a path counted (zeroed just
+    before, read just after); then iallreduce + wait beside the blocking
+    allreduce of the same 64 MiB on the host clock, with the i-call's
+    host split (``_derived_nb_split``)."""
+    from mvapich2_tpu_torch.coll import device as coll_dev
+    mods = (hbm, ici, ring, a2a)
+    k1, k3, k6 = ("fused_reduce_to_slot", "hbm_ring_all_reduce",
+                  "ring_all_reduce")
+    big = [ints(DERIVED_BIG) for _ in range(R)]
+    small = [ints(DERIVED_SMALL) for _ in range(R)]
+    cnt = _derived_counts(R)
+    sd = [np.cumsum([0] + row[:-1]).tolist() for row in cnt]
+    vs = [torch.arange(sum(cnt[r]), device=dev, dtype=torch.float32)
+          + 1e5 * r for r in range(R)]
+    v_want = [torch.cat([vs[j][sd[j][r]:sd[j][r] + cnt[j][r]]
+                         for j in range(R)]) for r in range(R)]
+    sum_big, sum_small = sum(big), sum(small)
+    nseg = 8      # DEVICE_NBC_SEG_BYTES 1 MiB, DEVICE_NBC_MAX_SEGS 8
+    out = {}
+    for name, kw, want in (
+            ("slot", slot, {"iallreduce": {k1: nseg},
+                            "ialltoallv": {"hbm_alltoallv": 1},
+                            "allreduce_init": {k1: 3}}),
+            ("fold", fold, {"iallreduce": {k1: 2 * nseg, k3: nseg},
+                            "ialltoallv": {"hbm_alltoallv": 1},
+                            "allreduce_init": {k1: 6, k6: 3}})):
+        got = {}
+        for call in ("iallreduce", "ialltoallv", "allreduce_init"):
+            def app(comm, call=call):
+                r = comm.rank
+                if call == "iallreduce":
+                    recv = torch.empty_like(big[r])
+                    req = comm.iallreduce(big[r], recv)
+                    req.wait()
+                    _exact(torch, "iallreduce", recv, sum_big)
+                    return req.device_nbc
+                if call == "ialltoallv":
+                    recv = torch.empty_like(v_want[r])
+                    req = comm.ialltoallv(vs[r], cnt[r], None, recv,
+                                          [cnt[j][r] for j in range(R)],
+                                          None)
+                    req.wait()
+                    _exact(torch, "ialltoallv", recv, v_want[r])
+                    return req.device_nbc
+                recv = torch.empty_like(small[r])
+                req = comm.allreduce_init(small[r], recv)
+                for _ in range(3):
+                    recv.zero_()
+                    req.start()
+                    req.wait()
+                    _exact(torch, "allreduce_init", recv, sum_small)
+                req.free()
+                return True
+            fb = mpit.pvar("dev_coll_fallback_nbc").read()
+            starts = mpit.pvar("dev_persistent_starts").read()
+            _zero(*mods)
+            res = mvt.run_ranks(R, app, **kw)
+            torch.cuda.synchronize()
+            got[call] = {k: v for k, v in _launches(*mods).items() if v}
+            if res != [True] * R or got[call] != want[call]:
+                raise AssertionError(
+                    f"[derived] {name} {call}: device_nbc {res}, launches "
+                    f"{got[call]}, expected {want[call]}")
+            if mpit.pvar("dev_coll_fallback_nbc").read() != fb:
+                raise AssertionError(f"[derived] {name} {call}: counted "
+                                     f"dev_coll_fallback_nbc")
+            if call == "allreduce_init" and \
+                    mpit.pvar("dev_persistent_starts").read() - starts \
+                    != 3 * R:
+                raise AssertionError(f"[derived] {name}: persistent "
+                                     f"starts not on the device tier")
+
+        def timed(comm):
+            r = comm.rank
+            stream = torch.cuda.current_stream()
+            recv = torch.empty_like(big[r])
+            lat = {"iallreduce_wait": [], "allreduce": []}
+            stamps = []          # (start, posted, waited) of each i-call
+            for i in range(DERIVED_NB_RUNS + 1):
+                t0 = time.perf_counter()
+                req = comm.iallreduce(big[r], recv)
+                tp = time.perf_counter()
+                req.wait()
+                stream.synchronize()
+                t1 = time.perf_counter()
+                stamps.append((t0, tp, t1))
+                comm.allreduce(big[r])
+                stream.synchronize()
+                if i:
+                    lat["iallreduce_wait"].append((t1 - t0) * 1e3)
+                    lat["allreduce"].append(
+                        (time.perf_counter() - t1) * 1e3)
+            return {k: statistics.median(v) for k, v in lat.items()}, stamps
+        out[name] = {"launches": got}
+        real_switch = sys.getswitchinterval()
+        for switch in (real_switch, DERIVED_SWITCH):
+            marks, restore = _nb_host_timers(coll_dev)
+            real_land = coll_dev._land
+            coll_dev._land = _timed_mark(marks, "land", real_land)
+            sys.setswitchinterval(switch)
+            try:
+                res = mvt.run_ranks(R, timed, **kw)
+            finally:
+                sys.setswitchinterval(real_switch)
+                coll_dev._land = real_land
+                restore()
+            host = res[0][0]
+            split = _derived_nb_split(marks, [st for _, st in res], nseg)
+            key = "" if switch == real_switch else "_short_switch"
+            out[name].update({"host_ms" + key: host,
+                              "host_split" + key: split})
+            log(f"[derived] {name} channel: iallreduce 64 MiB, ialltoallv "
+                f"and allreduce_init x 3 into tensors on the device NBC "
+                f"tier, bitwise the plain results; launches {got}; "
+                f"iallreduce + wait {host['iallreduce_wait']:.4f} ms, "
+                f"allreduce {host['allreduce']:.4f} ms on the host clock "
+                f"(median of {DERIVED_NB_RUNS}; GIL switch interval "
+                f"{switch * 1e3:g} ms) on {smi}")
+            log(f"[derived] {name} channel: host split of the 64 MiB "
+                f"iallreduce + wait, ms (median of {DERIVED_NB_RUNS}; GIL "
+                f"switch interval {switch * 1e3:g} ms): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in split.items()))
+    return out
+
+
+
+def _derived_nb_split(marks, stamps, nseg):
+    """Where one iallreduce + wait's host time goes, from the
+    ``_nb_host_timers`` marks and each rank's (start, posted, waited)
+    stamps, medians over the timed calls (the first is a warm-up): the
+    first rank's start to the first segment launch (the posts and the
+    deposits' arrival), the launches (the first also stages the
+    deposits), the last launch to the last rank's finish (the card's run
+    seen through the polls), and that finish to the last rank's return
+    from wait plus a synchronize; a rank's finish and the landing copy
+    inside it (``_land``); with the launches' and polls' own host time a
+    call. Every segment is launched in a call
+    before the next call starts: the blocking allreduce between them
+    meets every rank."""
+    launch = sorted((a, b) for _, k, a, b in marks if k == "launch")
+    finish = sorted((a, b) for _, k, a, b in marks if k == "finish")
+    lands = sorted((a, b) for _, k, a, b in marks if k == "land")
+    polls = [b - a for _, k, a, b in marks if k == "poll"]
+    n_calls = len(stamps[0])
+    if len(launch) != nseg * n_calls or \
+            len(finish) != R * n_calls or len(lands) != R * n_calls:
+        raise AssertionError(f"[derived] {len(launch)} segment launches "
+                             f"and {len(finish)} finishes in {n_calls} "
+                             f"calls of {R} ranks")
+    parts = collections.defaultdict(list)
+    for i in range(1, n_calls):
+        start = min(st[i][0] for st in stamps)
+        end = max(st[i][2] for st in stamps)
+        ls = launch[i * nseg:(i + 1) * nseg]
+        fs = finish[i * R:(i + 1) * R]
+        parts["post_ms"].append(statistics.median(
+            st[i][1] - st[i][0] for st in stamps) * 1e3)
+        parts["to_first_launch_ms"].append((ls[0][0] - start) * 1e3)
+        parts["launches_ms"].append((ls[-1][1] - ls[0][0]) * 1e3)
+        parts["first_launch_ms"].append((ls[0][1] - ls[0][0]) * 1e3)
+        parts["last_launch_to_last_finish_ms"].append(
+            (max(b for _, b in fs) - ls[-1][1]) * 1e3)
+        parts["last_finish_to_return_ms"].append(
+            (end - max(b for _, b in fs)) * 1e3)
+        parts["finish_ms"].append(statistics.median(
+            b - a for a, b in fs) * 1e3)
+        parts["land_ms"].append(statistics.median(
+            b - a for a, b in lands[i * R:(i + 1) * R]) * 1e3)
+        parts["total_ms"].append((end - start) * 1e3)
+    split = {k: statistics.median(v) for k, v in parts.items()}
+    split["polls_a_call"] = len(polls) / n_calls
+    split["poll_ms_a_call"] = (sum(polls) - sum(b - a for a, b in launch)) \
+        / n_calls * 1e3
+    return split
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
@@ -6162,6 +6580,8 @@ def main(argv=None):
     extra["card_paths"] = phase_card_paths(
         torch, np, mvt, hbm, ici, ring, alltoall, rma, mpit, moe, MeshComm,
         make_mesh, timing, info, smi, dev)
+    extra["derived"] = phase_derived(torch, np, mvt, hbm, ici, ring,
+                                     alltoall, mpit, make_mesh, smi, dev)
     extra["trace"] = phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)

@@ -7,7 +7,8 @@ process (the ``run_ranks`` harness); a collective call is executed once:
 every rank deposits its buffer at a rendezvous, rank 0 (the leader) runs
 the device program, every rank picks up its result.
 
-Three bindings are ported, chosen by geometry (``bind_universes``):
+Three bindings are ported, chosen by geometry (``bind_universes``, and
+``bind_derived`` for the comms made from a bound one):
 
 * :class:`DeviceCollChannel`, the 1:1 mesh channel: each rank owns one
   virtual device of a ``parallel.mesh.Mesh`` (``p`` virtual ranks of one
@@ -50,28 +51,45 @@ channel at all. The host tier is a
 routing decision, never a fallback after a device failure: a kernel that
 does not build or launch raises out of the collective.
 
-Nonblocking collectives (the JAX package's device NBC tier): on the 1:1
-mesh channel iallreduce, ibcast, iallgather, ialltoall and ialltoallv
-(and their persistent ``*_init`` twins, ``core/comm.py``) become a small
+Comms made by dup, create, split and split_type_shared of a bound run
+(``bind_derived``) get a channel by the same geometry rule, applied to
+their members' virtual devices in the new comm's rank order: one device,
+the slot channel over its ``k`` ranks; ``k`` devices, the 1:1 channel
+over a 1-D mesh of ``k`` (the run's own mesh when the members are its
+devices in order); ``d`` devices holding equal contiguous runs, the fold
+channel; anything else, none. Such a ``derived`` channel runs tensors
+only: a numpy call takes the host tier with the JAX package's bits and
+``coll_*`` pvars, as the JAX package's unbound comm takes it (the host
+algorithms' own sub-comms, ``build_2level``, stay as they were). Its
+rendezvous lives in the registry of the run's root rendezvous, keyed by
+the context id and the sorted world ranks; the root's ``abort`` breaks
+every derived one.
+
+Nonblocking collectives (the JAX package's device NBC tier): on every
+channel iallreduce, ibcast, iallgather, ialltoall and ialltoallv (and
+their persistent ``*_init`` twins, ``core/comm.py``) become a small
 schedule DAG (``coll/nbc``) of this rank: one CALL deposits the rank's
 buffer into a per-sequence call record of the rendezvous and returns,
 one POLL a segment launches the segment once every rank has deposited
 (whichever rank polls first) and then reads its completion, and a last
-CALL lands this rank's result in its numpy ``recvbuf``
-(``DeviceCollChannel.nonblocking`` and ``_nb_*``). allreduce and bcast
-split into at most ``DEVICE_NBC_MAX_SEGS`` segments of
-``DEVICE_NBC_SEG_BYTES`` a shard; each segment runs the blocking
-path's program (``_program``: the same kernels) on a slice of the staged
-shards, enqueued on the rendezvous's side stream behind every deposit's
-event, and one CUDA event after it is what the poll queries: no poll and
-no launch waits for the card. A call the device tier cannot take (the
-slot and fold channels, ``MPI_IN_PLACE``, a missing or tensor
-``recvbuf``, a dtype or op that does not lower, a call
-``_select_transport`` keeps on the host) counts ``dev_coll_fallback_nbc``
-and runs on the host schedule (``coll/nonblocking.py``), as in the JAX
-package; given a tensor on the card, it raises instead. A bfloat16
-tensor i-call follows the blocking rule: it rides the tier, landing in
-an ml_dtypes bfloat16 ``recvbuf``.
+CALL lands this rank's result in its ``recvbuf`` (``_Channel.nonblocking``
+and ``_nb_*``). allreduce and bcast split into at most
+``DEVICE_NBC_MAX_SEGS`` segments of ``DEVICE_NBC_SEG_BYTES`` a shard;
+each segment runs the blocking path's program (``_compute``: the same
+kernels; on the fold channel the chip fold, K1, then the ring, both on
+the segment's slice) on a slice of the staged shards, enqueued on the
+rendezvous's side stream behind every deposit's event, and one CUDA
+event after it is what the poll queries: no poll and no launch waits for
+the card. The result lands in a numpy ``recvbuf`` (device-to-host) or,
+under a tensor ``sendbuf``, in a contiguous tensor one. On the slot and
+fold channels a numpy ``sendbuf`` keeps the JAX route (``NB_NUMPY``). A
+call the device tier cannot take (such a numpy call, ``MPI_IN_PLACE``,
+a missing ``recvbuf``, a tensor ``recvbuf`` under a numpy ``sendbuf``, a
+dtype or op that does not lower, a call ``_select_transport`` keeps on
+the host) counts ``dev_coll_fallback_nbc`` and runs on the host schedule
+(``coll/nonblocking.py``), as in the JAX package; given a tensor on the
+card, it raises instead. A bfloat16 tensor i-call follows the blocking
+rule: it rides the tier, landing in an ml_dtypes bfloat16 ``recvbuf``.
 
 Observability (the JAX package's ``_run`` and ``_note_tier`` hooks): under
 MV2T_TRACE each call drops a ``device``-lane ``dev_<coll>`` B/E span in
@@ -209,7 +227,14 @@ class _Rendezvous:
     segments' polls read; ``nb_bell`` rings the doorbell of every member
     rank's progress engine, where their waits sleep (``bind_universes``
     makes them its followers); ``nb_stream`` the side stream their
-    segments run on (made at the first launch on a CUDA device)."""
+    segments run on (made at the first launch on a CUDA device).
+
+    The rendezvous of a comm made by dup, create or split (``bind_derived``)
+    lives in the registry ``children`` of the binding's root rendezvous,
+    keyed by the new context id and the sorted world ranks of the comm's
+    group (the colours of one split share a context id): the first
+    member to arrive makes it, the others look it up, each holding one
+    reference that ``release`` drops."""
 
     def __init__(self, size: int):
         self.size = size
@@ -224,16 +249,44 @@ class _Rendezvous:
         self.nb_failed = False
         self.nb_bell = Doorbell()
         self.nb_stream = None
+        self.child_lock = threading.Lock()
+        self.children: Dict[tuple, list] = {}   # key -> [rendezvous, refs]
+
+    def child(self, key: tuple, size: int) -> "_Rendezvous":
+        """The derived comm's rendezvous under ``key``, made by the first
+        member to ask; one more reference to it."""
+        with self.child_lock:
+            ent = self.children.get(key)
+            if ent is None:
+                ent = self.children[key] = [_Rendezvous(size), 0]
+                if self.nb_failed:      # made after a rank died
+                    ent[0].abort()
+            ent[1] += 1
+            return ent[0]
+
+    def release(self, key: tuple) -> None:
+        """Drop one member's reference; the last removes the entry."""
+        with self.child_lock:
+            ent = self.children.get(key)
+            if ent is not None:
+                ent[1] -= 1
+                if ent[1] <= 0:
+                    del self.children[key]
 
     def abort(self) -> None:
         """Break the barrier so peers blocked in a device collective see
-        a failure instead of deadlocking (called when a rank dies). A
-        nonblocking call has no barrier to break: the sticky
-        ``nb_failed`` makes every later deposit and poll raise
-        MPIX_ERR_PROC_FAILED, and the ring wakes the waiters now."""
+        a failure instead of deadlocking (called when a rank dies), here
+        and in every derived comm's rendezvous. A nonblocking call has no
+        barrier to break: the sticky ``nb_failed`` makes every later
+        deposit and poll raise MPIX_ERR_PROC_FAILED, and the ring wakes
+        the waiters now."""
         self.nb_failed = True
         self.nb_bell.ring()
         self.barrier.abort()
+        with self.child_lock:
+            kids = [ent[0] for ent in self.children.values()]
+        for kid in kids:
+            kid.abort()
 
 
 class _VDeposit:
@@ -258,11 +311,27 @@ def _record_event(device: torch.device) -> Optional[torch.cuda.Event]:
 
 
 class _Channel:
-    """What both channels share: one rank's place at the rendezvous, the
+    """What the channels share: one rank's place at the rendezvous, the
     execution of a call (deposit, the leader runs the program, pickup),
-    its per-call accounting, and the MPI-shaped entry points. A subclass
-    gives ``LEVELS``, ``SUPPORTED``, ``_build``, ``_leader`` and
-    ``_note_tier``."""
+    its per-call accounting, the MPI-shaped entry points and the device
+    NBC tier. A subclass gives ``LEVELS``, ``SUPPORTED``, ``_build``,
+    ``_compute`` (the program over a list of deposits, one output a
+    rank), ``_leader`` and ``_note_tier``.
+
+    ``derived`` marks the channel of a comm made by dup, create or split
+    (``bind_derived``): it runs tensors only, and a call whose buffers
+    hold no tensor takes the host tier as the comm would with no
+    channel at all (no ``dev_coll_fallback_nbc``, a tensor ``recvbuf``
+    with a numpy ``sendbuf`` refused as there)."""
+
+    # a numpy sendbuf of an i-collective rides the NBC tier (the 1:1
+    # channel, where the JAX package routes it); on the slot and fold
+    # channels it keeps the JAX route, the host schedule
+    NB_NUMPY = False
+    # the kernel sources a start() of a persistent call may launch
+    # (``ops/_build.py`` names), loaded by ``prewarm``
+    KERNEL_LIBS: Tuple[str, ...] = ("hbm_slot", "ring")
+    derived = False
 
     # hierarchy levels one call on this channel exercises (the
     # coll_level_* pvars bumped per call in _run)
@@ -283,16 +352,20 @@ class _Channel:
         self.rank = rank
         self.size = size
         self.u = None           # the rank's Universe (bind_universes)
+        self.key = None         # (root rendezvous, key) of a derived comm
         self._programs: Dict = {}
         self._nb_seq = 0        # this rank's nonblocking-call sequence
 
     def abort(self) -> None:
         self.rv.abort()
 
-    def nonblocking(self, comm, name: str, *a, plan: bool = False):
-        """The device-tier request of one i-collective, or None when the
-        call cannot ride it: the slot channel keeps the host schedule."""
-        return None
+    def release(self) -> None:
+        """``Comm.free`` of a derived comm: drop this member's reference
+        to its rendezvous in the root's registry."""
+        if self.key is not None:
+            root, key = self.key
+            self.key = None
+            root.release(key)
 
     def _program(self, name: str, n: int, dtype_str: str, op: str,
                  extra=None):
@@ -439,200 +512,22 @@ class _Channel:
                   rdispls, datatype):
         """The MoE-shaped variable-count alltoall: each rank packs its
         sends densely and deposits them with its scounts row; the leader
-        runs the matrix's program (``_leader_v``); the packed result is
+        runs the matrix's program (``_compute_v``); the packed result is
         laid out at the caller's rdispls on the way out."""
         dep = _VDeposit(_pack_v(sendbuf, scounts, sdispls), scounts)
         out = self._run("alltoallv", dep, op=None)
         return _deliver_v(out, recvbuf, rcounts, rdispls)
 
-    def _leader_v(self) -> List:
-        """Leader compute for alltoallv: assemble the count matrix from
-        every rank's scounts row and hand the packed payloads in place,
-        each at its own length, to the matrix's program (K11 over every
-        rank's deposit: on one card all of them lie in its memory)."""
-        rv = self.rv
-        counts = tuple(s.scounts for s in rv.slots)
-        _, dtype = self._slot_extent(rv.slots[0])
-        xs = [_to_device(s.data, self.device).reshape(-1) for s in rv.slots]
+    def _compute_v(self, deps, dtype: Optional[str] = None) -> List:
+        """The alltoallv program over ``deps`` (one ``_VDeposit`` a
+        rank): assemble the count matrix from every rank's scounts row
+        and hand the packed payloads in place, each at its own length, to
+        the matrix's program (K11 over every rank's deposit: on one card
+        all of them lie in its memory)."""
+        counts = tuple(d.scounts for d in deps)
+        dtype = dtype or self._slot_extent(deps[0])[1]
+        xs = [_to_device(d.data, self.device).reshape(-1) for d in deps]
         return self._program("alltoallv", 0, dtype, "none", counts)(xs)
-
-
-class DeviceCollChannel(_Channel):
-    """One rank's handle on the 1:1 mesh channel: rank r owns virtual
-    device r of ``mesh``, row-major over its axes.
-
-    The leader's programs (``_build``) on a 1-D mesh:
-
-      * allreduce/reduce: ``ici.ici_all_reduce`` (K6 / K3 / stock, by
-        tier), one output row per rank;
-      * allgather: ``ici.ici_all_gather`` (K7 / K5 / stock);
-      * alltoall: ``alltoall.ici_all_to_all`` (K10 / stock);
-      * alltoallv: ``alltoall.ici_all_to_allv`` (K11 / stock) over the
-        count matrix the leader assembles from every rank's scounts row
-        (``_leader_v``), one program per matrix;
-      * bcast: a copy of the root's shard per rank (stock, as the JAX
-        package lowers it through XLA);
-      * reduce_scatter_block: the stock reduction over the stacked
-        shards, then rank r's block (as the JAX program lowers it); a
-        bfloat16 one, which the JAX channel keeps on its host tier,
-        runs ``ici.ici_reduce_scatter`` (K4).
-
-    On a mesh of two or more axes (``multi_axis``, ``_build_mesh``):
-    allreduce/reduce ``ici.ici_all_reduce_mesh``, allgather
-    ``ici.ici_all_gather_mesh``, reduce_scatter_block
-    ``ici.ici_reduce_scatter_mesh``, bcast the root's shard to every
-    rank, alltoall(v) the stock lowering over the flattened axes (the
-    JAX program lowers them through XLA there, not through K10/K11).
-
-    The leader waits for each call's device work and raises if a ring
-    kernel's spin wait timed out, so every rank of that call raises.
-    """
-
-    LEVELS = ("ici",)
-    SUPPORTED = ("allreduce", "reduce", "bcast", "allgather", "alltoall",
-                 "reduce_scatter_block", "alltoallv")
-
-    def __init__(self, mesh, rendezvous: _Rendezvous, rank: int,
-                 nranks: Optional[int] = None):
-        super().__init__(mesh.device, rendezvous, rank,
-                         mesh.size if nranks is None else nranks)
-        self.mesh = mesh
-        self.axes: Tuple[str, ...] = tuple(mesh.axis_names)
-
-    @property
-    def multi_axis(self) -> bool:
-        return len(self.axes) > 1
-
-    def _axis_sizes(self) -> Tuple[Tuple[str, int], ...]:
-        return tuple((a, self.mesh.shape[a]) for a in self.axes)
-
-    def _mesh_extent(self) -> int:
-        """Participant count of the mesh program: the rank count on the
-        1:1 binding, the device count on the fold channel."""
-        return self.mesh.size
-
-    def _build(self, name: str, n: int, op: str, extra=None):
-        """The leader's program for one signature: a callable taking the
-        mesh's flat shards and the root, returning one output per mesh
-        rank. ``_note_tier`` counts the call's tier on every rank."""
-        if self.multi_axis:
-            return self._build_mesh(name, n, op, extra)
-        p = self._mesh_extent()
-        if name in ("allreduce", "reduce"):
-            def f(xs, root):
-                return list(ici.ici_all_reduce(xs, op).unbind(0))
-        elif name == "allgather":
-            def f(xs, root):
-                return list(ici.ici_all_gather(xs).unbind(0))
-        elif name == "alltoall":
-            def f(xs, root):
-                return list(alltoall.ici_all_to_all(xs).unbind(0))
-        elif name == "alltoallv":
-            counts = extra                  # the static p x p matrix
-
-            def f(xs, root=0):
-                return alltoall.ici_all_to_allv(xs, counts)
-        elif name == "bcast":
-            def f(xs, root):
-                return list(xs[root].reshape(1, n).expand(p, n).clone()
-                            .unbind(0))
-        elif name == "reduce_scatter_block":
-            c = n // p
-
-            def f(xs, root):
-                if xs[0].dtype == torch.bfloat16:
-                    # the JAX program takes no bf16: the ring kernel K4
-                    return list(ici.ici_reduce_scatter(xs, op).unbind(0))
-                y = ici.stock_reduce(torch.stack(xs), op)
-                return [y[r * c:(r + 1) * c] for r in range(p)]
-        else:  # pragma: no cover
-            raise KeyError(name)
-        return f
-
-    def _build_mesh(self, name: str, n: int, op: str, extra=None):
-        """Multi-axis programs: the reductions and the allgather ride the
-        per-axis ring phases (``ici_*_mesh``); bcast and alltoall(v) are
-        stock, as the JAX program lowers them through XLA."""
-        axes, p = self._axis_sizes(), self._mesh_extent()
-        if name in ("allreduce", "reduce"):
-            def f(xs, root):
-                return ici.ici_all_reduce_mesh(xs, axes, op)
-        elif name == "allgather":
-            def f(xs, root):
-                return ici.ici_all_gather_mesh(xs, axes)
-        elif name == "reduce_scatter_block":
-            def f(xs, root):
-                return ici.ici_reduce_scatter_mesh(xs, axes, op)
-        elif name == "bcast":
-            def f(xs, root):
-                return list(xs[root].reshape(1, n).expand(p, n).clone()
-                            .unbind(0))
-        elif name == "alltoall":
-            def f(xs, root):
-                return list(alltoall.stock_all_to_all(xs).unbind(0))
-        elif name == "alltoallv":
-            counts = extra
-
-            def f(xs, root=0):
-                return alltoall.stock_all_to_allv(xs, counts)
-        else:  # pragma: no cover
-            raise KeyError(name)
-        return f
-
-    def _leader(self, name: str, op: str, root: int) -> List:
-        """Leader compute: order this stream after every deposit, hand
-        the ``p`` shards in place to the program (one output per rank),
-        then wait for it and raise on a ring kernel's spin timeout."""
-        rv = self.rv
-        _wait_deposits(self.device, rv.events)
-        if name == "alltoallv":
-            out = self._leader_v()
-        else:
-            n, dtype = self._slot_extent(rv.slots[0])
-            xs = [_to_device(s, self.device).reshape(n) for s in rv.slots]
-            out = self._program(name, n, dtype, op)(xs, root)
-        ring.check_errors(self.device)
-        return out
-
-    def _note_tier(self, name: str, local, op: Optional[str]) -> str:
-        """Count which tier THIS call runs (dev_coll_tier_{vmem,hbm,quant},
-        or dev_coll_fallback_<reason> when the stock lowering is taken)
-        and return its label ('vmem'/'hbm'/'quant'/'xla'), keyed as the
-        JAX package's: the tier ``planned_tier`` names for the call's
-        shard bytes on this mesh's ranks (output bytes for allgather; for
-        alltoall(v) the tier of ``planned_a2a_tier`` on this rank's send
-        bytes), over the mesh extent (the device count on the fold
-        channel; allgather's bytes are the rank count's), and on a
-        multi-axis mesh for the whole payload, not per phase. A quant
-        call also adds the wire bytes it saves (``wire_stats``) to
-        dev_coll_quant_bytes_saved. A fallback also drops a
-        ``dev_coll_fallback`` instant (``coll``, ``nbytes``, ``reason``)
-        under MV2T_TRACE."""
-        n, _ = self._slot_extent(local)
-        dtype = _torch_dtype(local)
-        p = self._mesh_extent()
-        nbytes = n * dtype.itemsize * (self.size if name == "allgather"
-                                       else 1)
-        if name in ("alltoall", "alltoallv"):
-            tier, reason = alltoall.planned_a2a_tier(max(1, nbytes), dtype)
-        elif name in ("allreduce", "reduce", "allgather"):
-            tier, reason = ici.planned_tier(name, nbytes, dtype, op,
-                                            num_devices=p)
-        else:
-            return "xla"    # collectives without a kernel lowering
-        if reason is None:
-            mpit.pvar(f"dev_coll_tier_{tier}").inc()
-            if tier == "quant":
-                exact_b, wire_b = quant.wire_stats(n, dtype, p)
-                mpit.pvar("dev_coll_quant_bytes_saved").inc(
-                    max(0, exact_b - wire_b))
-            return tier
-        mpit.pvar(f"dev_coll_fallback_{reason}").inc()
-        tr = self.u.tracer
-        if tr is not None:
-            tr.record("channel", "dev_coll_fallback", "i", coll=name,
-                      nbytes=nbytes, reason=reason)
-        return "xla"
 
     # -- nonblocking device collectives on the NBC DAG -------------------
     # The blocking rendezvous waits at a threading.Barrier, which a DAG
@@ -642,12 +537,19 @@ class DeviceCollChannel(_Channel):
     # on whichever rank) and then reads its CUDA event on every engine
     # pass, and a last CALL lands this rank's result. Compute the rank
     # enqueues between the call and its wait() overlaps the segments.
+    # Each channel's segment runs its blocking program (``_compute``) on
+    # slices of the staged deposits: the 1:1 channel its ring program,
+    # the slot channel K1 (or K11), the fold channel its chip fold (K1)
+    # followed by the ring over the folded shards.
 
     def _nb_segments(self, name: str, n: int,
                      dtype: torch.dtype) -> List[Tuple[int, int]]:
         """[(off, len)] program segments. The elementwise collectives
-        (allreduce, bcast) split into segments that complete one by one;
-        allgather and alltoall(v) run as one."""
+        (allreduce, bcast) split into segments that complete one by one
+        (on the fold channel each segment folds and rings its own slice:
+        both stages are elementwise along ``n``); allgather and
+        alltoall(v), whose outputs do not split along ``n``, run as
+        one."""
         if name not in ("allreduce", "bcast") or n <= 1:
             return [(0, n)]
         cfg = get_config()
@@ -667,7 +569,12 @@ class DeviceCollChannel(_Channel):
         cannot ride it (``build_nonblocking_request`` counts
         dev_coll_fallback_nbc). ``plan=True`` is the MPI_*_init pre-warm:
         the same routing gates, then ``prewarm`` instead of a request
-        (True/False)."""
+        (True/False).
+
+        The result lands in ``recvbuf``: a numpy array (device-to-host),
+        or a contiguous tensor under a tensor ``sendbuf`` (a copy on the
+        card). A numpy ``sendbuf`` rides only where ``NB_NUMPY`` says
+        so; MPI_IN_PLACE and a missing ``recvbuf`` never ride."""
         opn, op_sel, root = None, None, 0
         rcounts = rdispls = None
         if name == "allreduce":
@@ -698,13 +605,20 @@ class DeviceCollChannel(_Channel):
             wire = n * datatype.size
         else:
             return None
-        if _is_in_place(sendbuf) or _is_in_place(recvbuf):
+        if _is_in_place(sendbuf) or _is_in_place(recvbuf) or recvbuf is None:
             return None
-        if recvbuf is None or is_device_tensor(recvbuf):
-            # the JAX package's arrays are immutable, so its completion
-            # CALL needs a host recvbuf to write through; so does this one
+        send_t = is_device_tensor(send_eff)
+        if is_device_tensor(recvbuf):
+            # a tensor lands on the card: under a tensor sendbuf only (the
+            # JAX package's arrays are immutable, so its completion CALL
+            # writes through a host recvbuf; a numpy send keeps that)
+            if not send_t or not recvbuf.is_contiguous() \
+                    or not _dtype_ok(recvbuf):
+                return None
+        elif not (send_t or self.NB_NUMPY) \
+                or not _recv_dtype_ok(recvbuf, send_eff):
             return None
-        if not _dtype_ok(send_eff) or not _recv_dtype_ok(recvbuf, send_eff):
+        if not _dtype_ok(send_eff):
             return None
         if _select_transport(name, wire, op_sel, send_eff) != "device":
             return None
@@ -829,8 +743,8 @@ class DeviceCollChannel(_Channel):
         on every rank's deposit event and stages the deposits once
         (numpy ones through pinned memory, asynchronously; tensors are
         read in place, recorded on the stream so their memory outlives
-        the reads); every segment runs the blocking path's program on
-        slices of the staged shards."""
+        the reads); every segment runs the blocking path's program
+        (``_compute``) on slices of the staged deposits."""
         rv, dev = self.rv, self.device
         stream = None
         if dev.type == "cuda":
@@ -844,23 +758,25 @@ class DeviceCollChannel(_Channel):
                     s, _VDeposit) else s, dev, stream) for s in rec["slots"]]
             shards = rec["shards"]
             if name == "alltoallv":
-                # the count matrix, assembled from every rank's row
-                counts = tuple(s.scounts for s in rec["slots"])
-                outs = self._program("alltoallv", 0, dtype_str, "none",
-                                     counts)(shards, 0)
+                outs = self._compute_v([_VDeposit(sh, s.scounts) for sh, s
+                                        in zip(shards, rec["slots"])],
+                                       dtype_str)
             else:
                 n = shards[0].numel()
                 xs = shards if (off, ln) == (0, n) else \
                     [s[off:off + ln] for s in shards]
-                outs = self._program(name, ln, dtype_str, op)(xs, root)
+                # the deposits' dtype names the program, as on the
+                # blocking path and in prewarm
+                outs = self._compute(name, xs, op, root, dtype_str)
             return outs, _record_event(dev)
 
     def _nb_finish(self, name: str, seq: int, recvbuf, rcounts,
                    rdispls) -> None:
         """Completion CALL (every segment polled ready): this rank's
         stream waits on the segments' events, then its rows land in
-        ``recvbuf`` (device-to-host); the record retires when the last
-        rank has picked up."""
+        ``recvbuf`` (device-to-host into a numpy one, a copy on the card
+        into a tensor); the record retires when the last rank has picked
+        up."""
         rv = self.rv
         with rv.nb_lock:
             rec = rv.nb_calls[seq]
@@ -874,10 +790,13 @@ class DeviceCollChannel(_Channel):
                 for part in parts:
                     # allocated on the side stream, read on this one
                     part.record_stream(stream)
-            if name == "alltoallv":
-                _deliver_v(parts[0], recvbuf, rcounts, rdispls)
-            else:
+            if name != "alltoallv":
                 _land(parts, recvbuf)
+            elif is_device_tensor(recvbuf):
+                _place_v(parts[0].reshape(-1), recvbuf.view(-1), rcounts,
+                         rdispls)
+            else:
+                _deliver_v(parts[0], recvbuf, rcounts, rdispls)
         finally:
             with rv.nb_lock:
                 rec["picked"] += 1
@@ -893,14 +812,205 @@ class DeviceCollChannel(_Channel):
         try:
             dtype_str = self._slot_extent(sendbuf)[1]
             for _, ln in self._nb_segments(name, n, _torch_dtype(sendbuf)):
-                self._program(name, ln, dtype_str, op)
+                self._prewarm_program(name, ln, dtype_str, op)
             if self.device.type == "cuda":
                 from ..ops import _build
-                _build.load("ring")
+                for lib in self.KERNEL_LIBS:
+                    _build.load(lib)
             return True
         except Exception as e:   # noqa: BLE001 - a start() raises on it
             warnings.warn(f"persistent {name} pre-warm failed ({e!r})")
             return False
+
+    def _prewarm_program(self, name: str, n: int, dtype_str: str,
+                         op: str) -> None:
+        """Build the program of one segment's signature."""
+        self._program(name, n, dtype_str, op)
+
+
+class DeviceCollChannel(_Channel):
+    """One rank's handle on the 1:1 mesh channel: rank r owns virtual
+    device r of ``mesh``, row-major over its axes.
+
+    The leader's programs (``_build``) on a 1-D mesh:
+
+      * allreduce/reduce: ``ici.ici_all_reduce`` (K6 / K3 / stock, by
+        tier), one output row per rank;
+      * allgather: ``ici.ici_all_gather`` (K7 / K5 / stock);
+      * alltoall: ``alltoall.ici_all_to_all`` (K10 / stock);
+      * alltoallv: ``alltoall.ici_all_to_allv`` (K11 / stock) over the
+        count matrix the leader assembles from every rank's scounts row
+        (``_compute_v``), one program per matrix;
+      * bcast: a copy of the root's shard per rank (stock, as the JAX
+        package lowers it through XLA);
+      * reduce_scatter_block: the stock reduction over the stacked
+        shards, then rank r's block (as the JAX program lowers it); a
+        bfloat16 one, which the JAX channel keeps on its host tier,
+        runs ``ici.ici_reduce_scatter`` (K4).
+
+    On a mesh of two or more axes (``multi_axis``, ``_build_mesh``):
+    allreduce/reduce ``ici.ici_all_reduce_mesh``, allgather
+    ``ici.ici_all_gather_mesh``, reduce_scatter_block
+    ``ici.ici_reduce_scatter_mesh``, bcast the root's shard to every
+    rank, alltoall(v) the stock lowering over the flattened axes (the
+    JAX program lowers them through XLA there, not through K10/K11).
+
+    The leader waits for each call's device work and raises if a ring
+    kernel's spin wait timed out, so every rank of that call raises.
+    """
+
+    LEVELS = ("ici",)
+    SUPPORTED = ("allreduce", "reduce", "bcast", "allgather", "alltoall",
+                 "reduce_scatter_block", "alltoallv")
+    NB_NUMPY = True
+    KERNEL_LIBS = ("ring",)
+
+    def __init__(self, mesh, rendezvous: _Rendezvous, rank: int,
+                 nranks: Optional[int] = None):
+        super().__init__(mesh.device, rendezvous, rank,
+                         mesh.size if nranks is None else nranks)
+        self.mesh = mesh
+        self.axes: Tuple[str, ...] = tuple(mesh.axis_names)
+
+    @property
+    def multi_axis(self) -> bool:
+        return len(self.axes) > 1
+
+    def _axis_sizes(self) -> Tuple[Tuple[str, int], ...]:
+        return tuple((a, self.mesh.shape[a]) for a in self.axes)
+
+    def _mesh_extent(self) -> int:
+        """Participant count of the mesh program: the rank count on the
+        1:1 binding, the device count on the fold channel."""
+        return self.mesh.size
+
+    def _build(self, name: str, n: int, op: str, extra=None):
+        """The leader's program for one signature: a callable taking the
+        mesh's flat shards and the root, returning one output per mesh
+        rank. ``_note_tier`` counts the call's tier on every rank."""
+        if self.multi_axis:
+            return self._build_mesh(name, n, op, extra)
+        p = self._mesh_extent()
+        if name in ("allreduce", "reduce"):
+            def f(xs, root):
+                return list(ici.ici_all_reduce(xs, op).unbind(0))
+        elif name == "allgather":
+            def f(xs, root):
+                return list(ici.ici_all_gather(xs).unbind(0))
+        elif name == "alltoall":
+            def f(xs, root):
+                return list(alltoall.ici_all_to_all(xs).unbind(0))
+        elif name == "alltoallv":
+            counts = extra                  # the static p x p matrix
+
+            def f(xs, root=0):
+                return alltoall.ici_all_to_allv(xs, counts)
+        elif name == "bcast":
+            def f(xs, root):
+                return list(xs[root].reshape(1, n).expand(p, n).clone()
+                            .unbind(0))
+        elif name == "reduce_scatter_block":
+            c = n // p
+
+            def f(xs, root):
+                if xs[0].dtype == torch.bfloat16:
+                    # the JAX program takes no bf16: the ring kernel K4
+                    return list(ici.ici_reduce_scatter(xs, op).unbind(0))
+                y = ici.stock_reduce(torch.stack(xs), op)
+                return [y[r * c:(r + 1) * c] for r in range(p)]
+        else:  # pragma: no cover
+            raise KeyError(name)
+        return f
+
+    def _build_mesh(self, name: str, n: int, op: str, extra=None):
+        """Multi-axis programs: the reductions and the allgather ride the
+        per-axis ring phases (``ici_*_mesh``); bcast and alltoall(v) are
+        stock, as the JAX program lowers them through XLA."""
+        axes, p = self._axis_sizes(), self._mesh_extent()
+        if name in ("allreduce", "reduce"):
+            def f(xs, root):
+                return ici.ici_all_reduce_mesh(xs, axes, op)
+        elif name == "allgather":
+            def f(xs, root):
+                return ici.ici_all_gather_mesh(xs, axes)
+        elif name == "reduce_scatter_block":
+            def f(xs, root):
+                return ici.ici_reduce_scatter_mesh(xs, axes, op)
+        elif name == "bcast":
+            def f(xs, root):
+                return list(xs[root].reshape(1, n).expand(p, n).clone()
+                            .unbind(0))
+        elif name == "alltoall":
+            def f(xs, root):
+                return list(alltoall.stock_all_to_all(xs).unbind(0))
+        elif name == "alltoallv":
+            counts = extra
+
+            def f(xs, root=0):
+                return alltoall.stock_all_to_allv(xs, counts)
+        else:  # pragma: no cover
+            raise KeyError(name)
+        return f
+
+    def _compute(self, name: str, slots, op: str, root: int,
+                 dtype: Optional[str] = None) -> List:
+        """The program over the ``p`` deposits, read in place: one
+        output per rank."""
+        if name == "alltoallv":
+            return self._compute_v(slots, dtype)
+        n, got = self._slot_extent(slots[0])
+        dtype = dtype or got
+        xs = [_to_device(s, self.device).reshape(n) for s in slots]
+        return self._program(name, n, dtype, op)(xs, root)
+
+    def _leader(self, name: str, op: str, root: int) -> List:
+        """Leader compute: order this stream after every deposit, run the
+        program over them (``_compute``), then wait for it and raise on
+        a ring kernel's spin timeout."""
+        _wait_deposits(self.device, self.rv.events)
+        out = self._compute(name, self.rv.slots, op, root)
+        ring.check_errors(self.device)
+        return out
+
+    def _note_tier(self, name: str, local, op: Optional[str]) -> str:
+        """Count which tier THIS call runs (dev_coll_tier_{vmem,hbm,quant},
+        or dev_coll_fallback_<reason> when the stock lowering is taken)
+        and return its label ('vmem'/'hbm'/'quant'/'xla'), keyed as the
+        JAX package's: the tier ``planned_tier`` names for the call's
+        shard bytes on this mesh's ranks (output bytes for allgather; for
+        alltoall(v) the tier of ``planned_a2a_tier`` on this rank's send
+        bytes), over the mesh extent (the device count on the fold
+        channel; allgather's bytes are the rank count's), and on a
+        multi-axis mesh for the whole payload, not per phase. A quant
+        call also adds the wire bytes it saves (``wire_stats``) to
+        dev_coll_quant_bytes_saved. A fallback also drops a
+        ``dev_coll_fallback`` instant (``coll``, ``nbytes``, ``reason``)
+        under MV2T_TRACE."""
+        n, _ = self._slot_extent(local)
+        dtype = _torch_dtype(local)
+        p = self._mesh_extent()
+        nbytes = n * dtype.itemsize * (self.size if name == "allgather"
+                                       else 1)
+        if name in ("alltoall", "alltoallv"):
+            tier, reason = alltoall.planned_a2a_tier(max(1, nbytes), dtype)
+        elif name in ("allreduce", "reduce", "allgather"):
+            tier, reason = ici.planned_tier(name, nbytes, dtype, op,
+                                            num_devices=p)
+        else:
+            return "xla"    # collectives without a kernel lowering
+        if reason is None:
+            mpit.pvar(f"dev_coll_tier_{tier}").inc()
+            if tier == "quant":
+                exact_b, wire_b = quant.wire_stats(n, dtype, p)
+                mpit.pvar("dev_coll_quant_bytes_saved").inc(
+                    max(0, exact_b - wire_b))
+            return tier
+        mpit.pvar(f"dev_coll_fallback_{reason}").inc()
+        tr = self.u.tracer
+        if tr is not None:
+            tr.record("channel", "dev_coll_fallback", "i", coll=name,
+                      nbytes=nbytes, reason=reason)
+        return "xla"
 
 
 class DeviceFoldChannel(DeviceCollChannel):
@@ -936,6 +1046,8 @@ class DeviceFoldChannel(DeviceCollChannel):
     UNSUPPORTED_WHY = ("on the leaders-per-chip fold channel: a numpy "
                        "buffer keeps the host tier, as in the JAX package "
                        "(per-peer payloads have no fold composition)")
+    NB_NUMPY = False
+    KERNEL_LIBS = ("hbm_slot", "ring")
 
     def __init__(self, mesh, rendezvous: _Rendezvous, rank: int,
                  nranks: int):
@@ -946,9 +1058,6 @@ class DeviceFoldChannel(DeviceCollChannel):
 
     def _mesh_extent(self) -> int:
         return self.ndev
-
-    def nonblocking(self, comm, name: str, *a, plan: bool = False):
-        return None     # the host NBC schedule (the fold has no segments)
 
     def _build(self, name: str, n: int, op: str, extra=None):
         """alltoall(v) over every rank's deposit, flat (K10 / K11 by the
@@ -966,52 +1075,64 @@ class DeviceFoldChannel(DeviceCollChannel):
             return super()._build(name, n, op, extra)
         return f
 
-    def _fold_chip(self, j: int, n: int, op: str) -> torch.Tensor:
+    def _prewarm_program(self, name: str, n: int, dtype_str: str,
+                         op: str) -> None:
+        """The mesh program of a segment: over ``k * n`` for allgather,
+        whose device shards concatenate their ranks' deposits."""
+        self._program(name, n * self.k if name == "allgather" else n,
+                      dtype_str, op)
+
+    def _fold_chip(self, slots, j: int, n: int, op: str) -> torch.Tensor:
         """Device ``j``'s ``k`` deposits folded to one ``[n]`` shard."""
-        sl = self.rv.slots[j * self.k:(j + 1) * self.k]
+        sl = slots[j * self.k:(j + 1) * self.k]
         if self.k == 1:
             return _to_device(sl[0], self.device).reshape(n)
         return _reduce_deposits(sl, n, self.device, op)
 
-    def _leader(self, name: str, op: str, root: int) -> List:
-        """Leader compute: fold per device, run the mesh program over the
-        folded shards, fan each device's output back to its ranks."""
-        rv = self.rv
+    def _compute(self, name: str, slots, op: str, root: int,
+                 dtype: Optional[str] = None) -> List:
+        """Fold per device, run the mesh program over the folded shards,
+        fan each device's output back to its ranks (alltoall(v): the
+        flat program over every rank's deposit)."""
         nd, k = self.ndev, self.k
-        _wait_deposits(self.device, rv.events)
         if name == "alltoallv":
-            out = self._leader_v()
-            ring.check_errors(self.device)
-            return out
-        n, dtype = self._slot_extent(rv.slots[0])
+            return self._compute_v(slots, dtype)
+        n, got = self._slot_extent(slots[0])
+        dtype = dtype or got
         prog_root, prog_n = 0, n
         if name == "alltoall":      # every rank a participant, flat
-            out = self._program(name, n, dtype, op)(
-                [_to_device(s, self.device).reshape(n) for s in rv.slots])
-            ring.check_errors(self.device)
-            return out
+            return self._program(name, n, dtype, op)(
+                [_to_device(s, self.device).reshape(n) for s in slots])
         if name == "bcast":
             # only the root device's shard matters: the root rank's
             # payload there, zeros elsewhere (the program overwrites them)
             prog_root = root // k
-            root_x = _to_device(rv.slots[root], self.device).reshape(n)
+            root_x = _to_device(slots[root], self.device).reshape(n)
             xs = [root_x if j == prog_root else torch.zeros_like(root_x)
                   for j in range(nd)]
         elif name == "allgather":
             prog_n = k * n
-            xs = [_stack_slots(rv.slots[j * k:(j + 1) * k], n,
+            xs = [_stack_slots(slots[j * k:(j + 1) * k], n,
                                self.device).reshape(prog_n)
                   for j in range(nd)]
         else:   # allreduce / reduce / reduce_scatter_block
-            xs = [self._fold_chip(j, n, op) for j in range(nd)]
+            xs = [self._fold_chip(slots, j, n, op) for j in range(nd)]
         out = self._program(name, prog_n, dtype, op)(xs, prog_root)
-        ring.check_errors(self.device)
         if name == "reduce_scatter_block":
             # a device's block holds its k ranks' contiguous blocks
             c = n // nd // k
             return [out[r // k].reshape(-1)[(r % k) * c:(r % k + 1) * c]
                     for r in range(self.size)]
         return [out[r // k] for r in range(self.size)]
+
+    def _leader(self, name: str, op: str, root: int) -> List:
+        """Leader compute: order this stream after every deposit, fold and
+        run the mesh program (``_compute``), then wait for it and raise
+        on a ring kernel's spin timeout."""
+        _wait_deposits(self.device, self.rv.events)
+        out = self._compute(name, self.rv.slots, op, root)
+        ring.check_errors(self.device)
+        return out
 
 
 def _reduce_deposits(slots, n: int, device: torch.device,
@@ -1059,7 +1180,7 @@ class HBMSlotChannel(_Channel):
         which *is* the result (no device compute);
       * alltoall: one transpose of the staged slot tensor;
       * alltoallv of a tensor: K11 over the R deposits read in place by
-        the count matrix's tile table (``_leader_v``); a numpy buffer
+        the count matrix's tile table (``_compute_v``); a numpy buffer
         keeps the host tier, as in the JAX package;
       * reduce_scatter_block: slot-reduce (K1), then per-rank slices;
       * bcast: a copy of the root slot, shared by all ranks.
@@ -1104,23 +1225,23 @@ class HBMSlotChannel(_Channel):
             raise KeyError(name)
         return f
 
-    def _leader(self, name: str, op: str, root: int) -> List:
-        """Leader compute: order this stream after every deposit, hand the
-        deposits to the reduction (or stage the planar slot tensor on the
-        device), run the program, share or scatter the result."""
-        rv = self.rv
+    def _compute(self, name: str, slots, op: str, root: int,
+                 dtype: Optional[str] = None) -> List:
+        """Hand the deposits to the reduction (or stage the planar slot
+        tensor on the device), run the program, share or scatter the
+        result."""
         R = self.size
-        _wait_deposits(self.device, rv.events)
         if name == "alltoallv":
-            return self._leader_v()
-        n, dtype = self._slot_extent(rv.slots[root])
+            return self._compute_v(slots, dtype)
+        n, got = self._slot_extent(slots[root])
+        dtype = dtype or got
         if name == "bcast":
             # a copy: the shared result must not alias the root's buffer
-            x = _to_device(rv.slots[root], self.device).reshape(n).clone()
+            x = _to_device(slots[root], self.device).reshape(n).clone()
         elif name in ("allreduce", "reduce", "reduce_scatter_block"):
-            x = rv.slots
+            x = slots
         else:
-            x = _stack_slots(rv.slots, n, self.device)
+            x = _stack_slots(slots, n, self.device)
         out = self._program(name, n, dtype, op)(x)
         if name == "alltoall":
             return [out[r] for r in range(R)]
@@ -1129,6 +1250,12 @@ class HBMSlotChannel(_Channel):
             return [out[r * c:(r + 1) * c] for r in range(R)]
         # the zero-copy share: every rank gets the same tensor
         return [out] * R
+
+    def _leader(self, name: str, op: str, root: int) -> List:
+        """Leader compute: order this stream after every deposit, then
+        the program (``_compute``)."""
+        _wait_deposits(self.device, self.rv.events)
+        return self._compute(name, self.rv.slots, op, root)
 
 
 def _wait_deposits(device: torch.device, events) -> None:
@@ -1174,9 +1301,13 @@ def _nb_stage(slot, device: torch.device, stream) -> torch.Tensor:
 
 
 def _land(parts: List[torch.Tensor], recvbuf) -> None:
-    """This rank's result, one part a segment in order, into the numpy
-    ``recvbuf`` (device-to-host, on the current stream): straight into a
-    contiguous buffer of the result's dtype, else through ``_deliver``."""
+    """This rank's result, one part a segment in order, into ``recvbuf``
+    (on the current stream): a contiguous tensor by a copy a part; a
+    numpy array device-to-host, straight into a contiguous buffer of the
+    result's dtype, else through ``_deliver``."""
+    if is_device_tensor(recvbuf):
+        _place(parts, recvbuf.view(-1))
+        return
     dst = np.asarray(recvbuf)
     n = sum(p.numel() for p in parts)
     flat = None
@@ -1189,10 +1320,25 @@ def _land(parts: List[torch.Tensor], recvbuf) -> None:
         _deliver(parts[0] if len(parts) == 1 else
                  torch.cat([p.reshape(-1) for p in parts]), recvbuf)
         return
+    _place(parts, flat)
+
+
+def _place(parts: List[torch.Tensor], flat: torch.Tensor) -> None:
+    """The parts, in order, copied into the front of ``flat``."""
     off = 0
     for p in parts:
         flat[off:off + p.numel()].copy_(p.reshape(-1))
         off += p.numel()
+
+
+def _place_v(packed, flat, rcounts, rdispls) -> None:
+    """A packed alltoallv result (dense sender order) written into
+    ``flat`` (a tensor or a numpy array of the same kind) at
+    ``rdispls``; the gaps keep their values."""
+    off = 0
+    for j, cnt in enumerate(rcounts):
+        flat[rdispls[j]:rdispls[j] + cnt] = packed[off:off + cnt]
+        off += cnt
 
 
 def _torch_dtype(buf) -> torch.dtype:
@@ -1294,10 +1440,7 @@ def _deliver_v(out, recvbuf, rcounts, rdispls):
     else:
         flat = to_host(flat)
         dst = np.asarray(recvbuf).reshape(-1)
-    off = 0
-    for j, cnt in enumerate(rcounts):
-        dst[rdispls[j]:rdispls[j] + cnt] = flat[off:off + cnt]
-        off += cnt
+    _place_v(flat, dst, rcounts, rdispls)
     return dst if is_device_tensor(dst) else None
 
 
@@ -1428,7 +1571,7 @@ def install_device_coll(comm, channel: _Channel) -> None:
 
     def wrap(name):
         hostfn = host[name]
-        tensor_only = name in channel.TENSOR_ONLY
+        tensor_only = name in channel.TENSOR_ONLY or channel.derived
         devfn = getattr(channel, name) \
             if name in channel.SUPPORTED or tensor_only else None
         nbytes_of, op_pos, out_count_of = meta[name]
@@ -1483,8 +1626,8 @@ def install_device_coll(comm, channel: _Channel) -> None:
     # tensor only, keeping the host path for numpy), and MPI_IN_PLACE
     # takes the host.
     host_a2av = host["alltoallv"]
-    supported = "alltoallv" in channel.SUPPORTED
-    tensor_only = "alltoallv" in channel.TENSOR_ONLY
+    supported = "alltoallv" in channel.SUPPORTED and not channel.derived
+    tensor_only = "alltoallv" in channel.TENSOR_ONLY or channel.derived
 
     def a2av_entry(comm_, sendbuf, scounts, sdispls, recvbuf, rcounts,
                    rdispls, datatype):
@@ -1522,7 +1665,7 @@ def build_nonblocking_request(comm, name: str, *a):
     unlike the JAX package, an error in the routing itself is not turned
     into a host schedule either."""
     channel = comm.device_channel
-    if channel is None:
+    if channel is None or _numpy_on_derived(channel, a):
         return None
     req = channel.nonblocking(comm, name, *a)
     if req is None:
@@ -1537,9 +1680,15 @@ def prewarm_persistent(comm, name: str, *a) -> bool:
     of this persistent collective routes to the device tier, build its
     programs and load the kernels now (``DeviceCollChannel.prewarm``)."""
     channel = comm.device_channel
-    if channel is None:
+    if channel is None or _numpy_on_derived(channel, a):
         return False
     return bool(channel.nonblocking(comm, name, *a, plan=True))
+
+
+def _numpy_on_derived(channel: _Channel, args) -> bool:
+    """A call of a derived comm whose buffers hold no tensor: the host
+    tier, as the comm would take it with no channel."""
+    return channel.derived and not any(is_device_tensor(b) for b in args)
 
 
 # ---------------------------------------------------------------------------
@@ -1565,13 +1714,19 @@ def bind_universes(universes, device: torch.device, mesh=None) -> bool:
     rv = _Rendezvous(n)
     if mesh is None or (mesh.size == 1 and n > 1):
         device = device if mesh is None else mesh.device
+        binding = _Binding(rv, device, None, [0] * n)
 
         def make(r):
             return HBMSlotChannel(device, rv, r, n)
     elif mesh.size == n:
+        binding = _Binding(rv, mesh.device, mesh, list(range(n)))
+
         def make(r):
             return DeviceCollChannel(mesh, rv, r)
     elif 1 < mesh.size < n and n % mesh.size == 0:
+        binding = _Binding(rv, mesh.device, mesh,
+                           [r // (n // mesh.size) for r in range(n)])
+
         def make(r):
             return DeviceFoldChannel(mesh, rv, r, n)
     else:
@@ -1584,7 +1739,94 @@ def bind_universes(universes, device: torch.device, mesh=None) -> bool:
         # the rendezvous's rings wake every member rank's waits
         rv.nb_bell.followers.append(u.engine.bell)
         install_device_coll(u.comm_world, ch)
+        u.device_binding = binding
     out_dir = get_config()["JAX_PROFILE"]
     if out_dir and _profiler is None:
         _start_profile(out_dir)
     return True
+
+
+class _Binding:
+    """What ``bind_universes`` bound, shared by the ranks of one run: the
+    root rendezvous (whose registry holds the derived comms'), the
+    device, the mesh (None on the slot channel) and each world rank's
+    virtual device (its flat index in the mesh; 0 for every rank on the
+    slot channel)."""
+
+    __slots__ = ("rv", "device", "mesh", "vdev")
+
+    def __init__(self, rv: _Rendezvous, device: torch.device, mesh,
+                 vdev: List[int]):
+        self.rv = rv
+        self.device = device
+        self.mesh = mesh
+        self.vdev = vdev
+
+
+def _derived_geometry(devs: List[int]) -> Tuple[Optional[str], object]:
+    """The geometry rule of ``bind_universes`` over the members' virtual
+    devices in rank order: ('slot', 1) when they share one device,
+    ('mesh', k) when each of the k members has its own, ('fold', d) when
+    d devices hold equal contiguous runs of members; else (None, why)."""
+    k = len(devs)
+    uniq = list(dict.fromkeys(devs))
+    d = len(uniq)
+    if d == 1:
+        return "slot", 1
+    if d == k:
+        return "mesh", k
+    if k % d == 0 and all(devs[i] == uniq[i // (k // d)] for i in range(k)):
+        return "fold", d
+    return None, (f"its {k} members lie on virtual devices {devs}: neither "
+                  f"one device, one member a device, nor equal contiguous "
+                  f"runs of members a device")
+
+
+def bind_derived(comm) -> None:
+    """Give a comm made by dup, create, split or split_type_shared of a
+    bound run its device channel: the geometry rule of
+    ``bind_universes`` applied to its members' virtual devices, in the
+    comm's rank order (``_derived_geometry``). One device: the slot
+    channel over its ``k`` ranks (K1 over ``k`` deposits); ``k``
+    devices: the 1:1 channel over a 1-D mesh of ``k`` virtual devices
+    (the run's own mesh, multi-axis too, when the members are its
+    devices in order); ``d`` devices holding equal contiguous runs: the
+    fold channel over ``d`` (likewise). Any other geometry binds
+    nothing, and the comm's refusal of a tensor on the card names it
+    (``unbound_why``). A comm derived from a derived comm follows the
+    same rule.
+
+    Every member computes the same rendezvous key, the context id and
+    the sorted world ranks of the group, and takes the rendezvous from
+    the root's registry (``_Rendezvous.child``); ``Comm.free`` drops the
+    reference (``_Channel.release``). The channel is ``derived``: it
+    takes tensors only, and a numpy call runs the host tier as the comm
+    would with no channel. Binding allocates nothing on the card and
+    launches nothing."""
+    b = getattr(comm.u, "device_binding", None)
+    if b is None:
+        return
+    members = [comm.group.world_of_rank(i) for i in range(comm.size)]
+    devs = [b.vdev[w] for w in members]
+    kind, arg = _derived_geometry(devs)
+    if kind is None:
+        comm.unbound_why = arg
+        return
+    from ..parallel.mesh import make_mesh
+    key = (comm.context_id, tuple(sorted(members)))
+    rv = b.rv.child(key, comm.size)
+    if kind == "slot":
+        ch = HBMSlotChannel(b.device, rv, comm.rank, comm.size)
+    else:
+        heads = list(dict.fromkeys(devs))
+        mesh = b.mesh if heads == list(range(b.mesh.size)) \
+            else make_mesh((arg,), ("x",), b.device)
+        if kind == "mesh":
+            ch = DeviceCollChannel(mesh, rv, comm.rank)
+        else:
+            ch = DeviceFoldChannel(mesh, rv, comm.rank, comm.size)
+    ch.derived = True
+    ch.u = comm.u
+    ch.key = (b.rv, key)
+    rv.nb_bell.followers.append(comm.u.engine.bell)
+    install_device_coll(comm, ch)

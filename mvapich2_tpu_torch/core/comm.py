@@ -18,6 +18,10 @@ COMM_WORLD of ``run_ranks`` is bound to one). Its surface:
   schedule); the persistent collectives (``*_init``, MPI-4), whose
   request re-posts the ``i*`` twin on every ``start()``;
 * dup, create, split, split_type_shared, build_2level, compare, free.
+  A comm made by dup, create or split of a bound comm gets a device
+  channel by its members' geometry (``coll/device.py``
+  ``bind_derived``): it runs a tensor's collectives on the card, and a
+  numpy call on the host tier, as a comm with no channel.
 
 Counts and datatypes come from the buffer where not given
 (``core/datatype.py``: a numpy array's or a tensor's dtype); derived
@@ -149,8 +153,10 @@ class Comm:
         self._leader_comm: Optional["Comm"] = None
         self._twolevel_ready = False
         # the device collective channel (coll/device.py
-        # install_device_coll); None on a host-only comm
+        # install_device_coll, bind_derived); None on a host-only comm
         self.device_channel = None
+        # why a comm made from a bound one has no channel (its geometry)
+        self.unbound_why = ""
         universe.comms_by_ctx[context_id] = self
 
     # ------------------------------------------------------------------
@@ -435,19 +441,25 @@ class Comm:
         """A CPU tensor sendbuf on a comm with no device channel is read
         as numpy (the result comes back as numpy), as the JAX package
         stages a device array. A tensor on the card raises: such a comm
-        (from dup, split or create, or under a mesh whose shape does not
-        fit the ranks) has no device path, and its host tier does not
-        move the tensor to the host and back. A tensor recvbuf needs the
-        device-bound path."""
-        if self.device_channel is not None:
+        (COMM_SELF, a comm whose members' geometry binds no channel, any
+        comm under a mesh whose shape does not fit the ranks, or a
+        process-mode rank's) has no device path, and its host tier does
+        not move the tensor to the host and back. A tensor recvbuf needs
+        the device-bound path. A comm made by dup, create or split of a
+        bound comm (``coll/device.py`` ``bind_derived``) runs a tensor on
+        its channel and treats a call with no tensor to run as a comm
+        with no channel would."""
+        ch = self.device_channel
+        eff = recvbuf if _is_in_place(sendbuf) else sendbuf
+        if ch is not None and (not ch.derived or _is_device(eff)):
             return sendbuf, recvbuf
         for b in (sendbuf, recvbuf):
             if on_card(b):
+                why = self.unbound_why or "no device channel is bound to it"
                 raise NotImplementedError(
                     f"communicator {self.name or self.context_id} has no "
-                    f"device channel (device channels bind COMM_WORLD "
-                    f"only); a tensor on {b.device} is not moved to the "
-                    f"host")
+                    f"device channel ({why}); a tensor on {b.device} is "
+                    f"not moved to the host")
         if _is_device(recvbuf):
             raise MPIException(
                 MPI_ERR_COMM, "a tensor recvbuf requires a communicator "
@@ -804,10 +816,18 @@ class Comm:
     # ------------------------------------------------------------------
     # communicator management
     # ------------------------------------------------------------------
+    def _derive(self, comm: "Comm") -> "Comm":
+        """A new comm's device channel, by its members' geometry, when
+        the run bound one (``coll/device.py`` ``bind_derived``)."""
+        if getattr(self.u, "device_binding", None) is not None:
+            from ..coll.device import bind_derived
+            bind_derived(comm)
+        return comm
+
     def dup(self) -> "Comm":
         self._check()
         ctx = self.u.allocate_context_id(self)
-        return Comm(self.u, self.group, ctx, self.name + "_dup")
+        return self._derive(Comm(self.u, self.group, ctx, self.name + "_dup"))
 
     def create(self, group: Group) -> Optional["Comm"]:
         """MPI_Comm_create: collective over self; None for non-members."""
@@ -828,7 +848,8 @@ class Comm:
             # a non-member hands the id straight back
             self.u.release_context_id(ctx)
             return None
-        return Comm(self.u, group, ctx, self.name + "_create")
+        return self._derive(Comm(self.u, group, ctx,
+                                 self.name + "_create"))
 
     def split(self, color: int, key: int = 0) -> Optional["Comm"]:
         """MPI_Comm_split: allgather the (color, key, world rank) triples,
@@ -841,9 +862,9 @@ class Comm:
             # single member: no agreement (see alloc_context_local)
             if my_color == UNDEFINED:
                 return None
-            return Comm(self.u, Group([self.u.world_rank]),
-                        self.u.alloc_context_local(),
-                        f"{self.name}_split")
+            return self._derive(Comm(self.u, Group([self.u.world_rank]),
+                                     self.u.alloc_context_local(),
+                                     f"{self.name}_split"))
         allv = np.empty(3 * self.size, dtype=np.int64)
         self.allgather(mine, allv, count=3)
         ctx = self.u.allocate_context_id(self)
@@ -858,8 +879,8 @@ class Comm:
             if c == my_color:
                 members.append((k, r, wr))   # sort by key, then comm rank
         members.sort()
-        return Comm(self.u, Group([wr for _, _, wr in members]), ctx,
-                    f"{self.name}_split")
+        return self._derive(Comm(self.u, Group([wr for _, _, wr in members]),
+                                 ctx, f"{self.name}_split"))
 
     def split_type_shared(self, key: int = 0) -> "Comm":
         """MPI_Comm_split_type(COMM_TYPE_SHARED): ranks on my node."""
@@ -876,6 +897,8 @@ class Comm:
     def free(self) -> None:
         if self.freed:
             return
+        if self.device_channel is not None:
+            self.device_channel.release()
         self.u.comms_by_ctx.pop(self.context_id, None)
         # a mask-allocated context id returns to the pool, so dup/free
         # loops never exhaust the budget

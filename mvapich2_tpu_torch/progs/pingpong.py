@@ -15,8 +15,24 @@ COMM_WORLD has no device channel, and a tensor is never moved to the
 host and back.
 
 Rank 0 prints one line ``PINGPONG_JSON {...}`` with the figures in
-microseconds, the ranks' ``mpi.Init`` wall times in seconds and the
-point-to-point pvars of rank 0 (eager and rendezvous sends).
+microseconds, the ranks' ``mpi.Init`` wall times in seconds, the
+point-to-point pvars of rank 0 (eager and rendezvous sends, and the
+counters of the shared-memory rendezvous's rungs: ``rndv_cma_bytes``,
+``rndv_pipeline_chunks``, ``arena_allocs``) and the rungs its node
+agreed (``rungs``: ``cma`` and ``arena``). ``MV2T_USE_CMA=0`` takes the
+arena (and the pipelined rendezvous) where CMA would serve;
+``MV2T_USE_CMA=0 MV2T_ARENA_BYTES=4096`` leaves the file rung (no block
+of the arena fits).
+
+``--rungs arena,file`` measures the shared-memory ping-pong again at
+each size under each named lower rung in the same job (``rung_runs``:
+its latencies, rank 0's pvar deltas and the verdicts it ran under): once
+every rank has wired its node and met the others at a barrier, so that
+no rendezvous is in flight, each rank drops its node's higher verdicts
+(``arena``: CMA off; ``file``: CMA and the arena off). A sender picks
+its rung from those verdicts and a receiver follows the handle it is
+sent, so this is the rung that the environment variables above select
+at start-up.
 """
 
 import argparse
@@ -31,6 +47,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from mvapich2_tpu_torch import mpi, mpit  # noqa: E402
+from mvapich2_tpu_torch.runtime.universe import current_universe  # noqa: E402
 
 
 def _pingpong(comm, peer, nbytes, iters):
@@ -55,6 +72,28 @@ def _pingpong(comm, peer, nbytes, iters):
     return statistics.median(lat) * 1e6
 
 
+def verdicts(shm):
+    """The rungs this rank's node agreed (None without a shm channel)."""
+    return None if shm is None else {"cma": bool(shm.cma_ok),
+                                     "arena": bool(shm._arena_ready)}
+
+
+def take_rung(comm, shm, rung):
+    """Every rank from here on sends its shared-memory rendezvous over
+    ``rung`` ("arena" or "file"); see the module docstring."""
+    if shm is not None:
+        while not shm.try_wire(force=True):
+            time.sleep(0.001)
+    comm.barrier()
+    if shm is not None:
+        if rung == "arena" and not shm._arena_ready:
+            raise AssertionError("the arena rung was not agreed")
+        shm.cma_ok = False
+        if rung == "file":
+            shm._arena_ready = False
+    comm.barrier()
+
+
 def _lat(fn, iters):
     for _ in range(2):
         fn()
@@ -70,6 +109,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", default="1,65536,4194304")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--rungs", default="",
+                    help="lower rungs to measure the shm ping-pong under "
+                    "too, of arena and file, in this order")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     mpi.Init()
@@ -77,7 +119,8 @@ def main(argv=None):
     comm = mpi.COMM_WORLD
     r = comm.rank
     pv = ("pt2pt_eager_sent", "pt2pt_rndv_sent", "chan_shm_bytes_sent",
-          "chan_tcp_bytes_sent")
+          "chan_tcp_bytes_sent", "rndv_cma_bytes", "rndv_pipeline_chunks",
+          "arena_allocs")
     before = {k: mpit.pvar(k).read() for k in pv}
     out = {"ranks": comm.size, "pingpong_us": {}}
     for peer, chan in ((1, "shm"), (2, "tcp")):
@@ -101,6 +144,19 @@ def main(argv=None):
         raise AssertionError(f"a tensor on {card} was taken by a "
                              f"process-mode allreduce")
     out["pvars_rank0"] = {k: mpit.pvar(k).read() - before[k] for k in pv}
+    shm = current_universe().shm_channel
+    out["rungs"] = verdicts(shm)
+    out["rung_runs"] = {}
+    for rung in filter(None, args.rungs.split(",")):
+        take_rung(comm, shm, rung)
+        before = {k: mpit.pvar(k).read() for k in pv}
+        out["rung_runs"][rung] = {
+            "pingpong_us": {"shm": {
+                n: _pingpong(comm, 1, n, args.iters)
+                for n in map(int, args.sizes.split(","))}},
+            "pvars_rank0": {k: mpit.pvar(k).read() - before[k]
+                            for k in pv},
+            "rungs": verdicts(shm)}
     out["init_s"] = comm.gather(np.array([init_s]), root=0)
     out["import_and_init_s"] = time.perf_counter() - t_start
     if r == 0:

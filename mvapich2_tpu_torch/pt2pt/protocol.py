@@ -6,19 +6,30 @@ JAX package's ``pt2pt/protocol.py``).
   of the same node, or EAGER_THRESHOLD bytes (64 KiB) to a rank of
   another (``nodes=`` of ``run_ranks``), goes eager;
 * rendezvous: RGET (the default) exposes the packed send buffer and the
-  receiver pulls it once it matches, then answers FIN; RPUT and R3
-  stage the receive, send CTS, and the sender pushes DATA chunks of
-  R3_CHUNK_SIZE bytes. Ssend always takes it, so its completion implies
-  the match;
+  receiver pulls it once it matches, then answers FIN (over shared
+  memory the channel's handle ladder: CMA, the arena, a file,
+  ``transport/shm.py``); RPUT and R3 stage the receive, send CTS, and
+  the sender pushes DATA chunks of R3_CHUNK_SIZE bytes. Ssend always
+  takes it, so its completion implies the match;
+* the pipelined arena rendezvous (APIPE), where a shared-memory channel
+  has the node's arena and no CMA and the message spans two
+  ``RNDV_CHUNK`` chunks or more: the sender copies the first chunks into
+  a block of slots of the arena and sends an RTS naming it; the
+  receiver drains every published chunk, then answers one AACK with the
+  highest chunk consumed; the sender refills the freed slots and answers
+  one APUB with the new frontier; the last drain answers FIN, which
+  frees the block;
 * probe, iprobe, improbe/mrecv, and cancel (a posted receive leaves the
   matching queue; a send, eager or rendezvous, is retracted from the
   peer's unexpected queue by the CANCEL_SEND_REQ/RESP exchange).
 
 Pvars: ``pt2pt_eager_sent``, ``pt2pt_rndv_sent`` and
-``pt2pt_bytes_sent``. Not ported: the native plane's requests, the
-arena pipeline (APIPE), the CMA rendezvous and the ULFM failure checks,
-which belong to the process-mode transports; a thread rank's channel is
-the in-process fabric (``transport/local.py``), where none of them is
+``pt2pt_bytes_sent``; ``rndv_pipeline_chunks`` (``transport/arena.py``).
+Under MV2T_TRACE a chunk batch of APIPE drops a ``protocol``-lane
+``rndv_chunk`` instant (``dir`` pub or drain), as a CMA pull does a
+chunk. Not ported: the native plane's requests and the ULFM failure
+checks; a thread rank's channel is the in-process fabric
+(``transport/local.py``), where no rung of the shared-memory ladder is
 taken.
 """
 
@@ -35,6 +46,7 @@ from ..core.errors import (MPI_ERR_ARG, MPI_ERR_INTERN, MPI_ERR_TRUNCATE,
                            MPIException, mpi_assert)
 from ..core.request import CompletedRequest, Request
 from ..core.status import ANY_TAG, PROC_NULL, Status
+from ..transport import arena as arena_mod
 from ..transport.base import Packet, PktType
 from ..utils.config import get_config
 from .matching import Matcher
@@ -95,6 +107,8 @@ class Pt2ptProtocol:
         eng.register_handler(PktType.RNDV_CTS, self._on_cts)
         eng.register_handler(PktType.RNDV_DATA, self._on_data)
         eng.register_handler(PktType.RNDV_FIN, self._on_fin)
+        eng.register_handler(PktType.RNDV_APUB, self._on_apipe_pub)
+        eng.register_handler(PktType.RNDV_AACK, self._on_apipe_ack)
         eng.register_handler(PktType.CANCEL_SEND_REQ, self._on_cancel_req)
         eng.register_handler(PktType.CANCEL_SEND_RESP,
                              self._on_cancel_resp)
@@ -169,6 +183,9 @@ class Pt2ptProtocol:
         sreq.channel = channel
         sreq.packed = np.asarray(datatype.pack(buf, count))
         proto = self.cfg["RNDV_PROTOCOL"]
+        if proto == "RGET" and self._start_apipe(
+                sreq, channel, dest_world, ctx, comm_src, tag, nbytes):
+            return sreq
         if proto == "RGET" and channel.supports_rget:
             sreq.protocol = "RGET"
             sreq.handle = channel.expose_buffer(sreq.packed)
@@ -324,6 +341,9 @@ class Pt2ptProtocol:
     def _rndv_recv_start(self, req: RecvRequest, pkt: Packet) -> None:
         src_world = pkt.src_world
         channel = self.u.channel_for(src_world)
+        if pkt.protocol == "APIPE":
+            self._apipe_recv_start(req, pkt)
+            return
         if pkt.protocol == "RGET":
             n = min(pkt.nbytes, req.capacity)
             if n > 0:
@@ -394,8 +414,179 @@ class Pt2ptProtocol:
         sreq.complete()
 
     def _release_send_side(self, sreq) -> None:
-        """Free the exposure handle of a rendezvous send (on FIN or a
-        successful cancel)."""
+        """Free the send side of a rendezvous (the APIPE block, the
+        exposure handle) on FIN or a successful cancel."""
+        ap = getattr(sreq, "_ap", None)
+        if ap is not None:
+            ap["arena"].free(ap["block"])
+            sreq._ap = None
         if sreq.handle is not None and sreq.channel is not None:
             sreq.channel.release_buffer(sreq.handle)
             sreq.handle = None
+
+    # ------------------------------------------------------------------
+    # the pipelined arena rendezvous (APIPE): the sender copies chunk k+1
+    # into arena slots while the receiver drains chunk k, the RGET
+    # pipelining of gen2/ibv_rndv.c over the node's arena. Flow control
+    # is batched: the receiver drains every published chunk, then sends
+    # one AACK with the highest chunk consumed; the sender refills every
+    # slot it freed and answers one APUB with the new frontier.
+    # ------------------------------------------------------------------
+    def _start_apipe(self, sreq, channel, dest_world: int, ctx: int,
+                     comm_src: int, tag: int, nbytes: int) -> bool:
+        """Start the pipelined rendezvous where the channel's arena is
+        agreed, CMA is not, and the message spans two chunks or more;
+        False takes the one-shot RGET ladder."""
+        arena = getattr(channel, "arena", None)
+        if arena is None or not getattr(channel, "_arena_ready", False) \
+                or getattr(channel, "cma_ok", False):
+            return False
+        chunk = self.cfg["RNDV_CHUNK"]
+        depth = max(2, self.cfg["RNDV_DEPTH"])
+        if chunk <= 0 or nbytes < 2 * chunk:
+            return False
+        nchunks = (nbytes + chunk - 1) // chunk
+        # the window: the whole message when it fits 1/16 of the
+        # partition (RTS and FIN only), else at least the depth; one
+        # block of slots, chunk k in slot k % nslots
+        want = min(nchunks, max(depth, arena.part_bytes // 16 // chunk))
+        block = None
+        while want >= 2:
+            block = arena.alloc(want * chunk)
+            if block is not None:
+                break
+            want //= 2              # a fuller arena: a shallower pipeline
+        if block is None:           # exhausted: the one-shot ladder
+            return False
+        nslots = want
+        d0 = min(nslots, nchunks)
+        data = np.ascontiguousarray(sreq.packed).view(np.uint8).reshape(-1)
+        tr = self.engine.tracer
+        span0 = min(d0 * chunk, nbytes)
+        arena.view(block.off, span0)[:] = data[:span0]
+        arena_mod.pv_pipeline.inc(d0)
+        if tr is not None:
+            tr.record("protocol", "rndv_chunk", "i", dir="pub", k=0,
+                      chunks=d0, bytes=span0)
+        sreq.protocol = "APIPE"
+        sreq._ap = {"block": block, "arena": arena, "chunk": chunk,
+                    "nslots": nslots, "nchunks": nchunks, "next": d0,
+                    "data": data}
+        with self.engine.mutex:
+            self.engine.track(sreq)
+        pkt = Packet(PktType.RNDV_RTS, self.u.world_rank, ctx, comm_src,
+                     tag, nbytes, None, sreq_id=sreq.req_id,
+                     protocol="APIPE",
+                     extra={"block": block.off, "chunk": chunk,
+                            "nslots": nslots, "pub": d0})
+        channel.send_packet(dest_world, pkt)
+        sreq._cancel_fn = lambda: self._cancel_send(sreq, dest_world,
+                                                    channel)
+        _pv_rndv.inc()
+        _pv_bytes.inc(nbytes)
+        return True
+
+    def _apipe_recv_start(self, req: RecvRequest, pkt: Packet) -> None:
+        """The receiver's side (engine mutex held): drain straight into
+        a contiguous receive buffer (a derived datatype stages and
+        unpacks at the end), consume the chunks the RTS says are
+        published, and acknowledge the batch."""
+        channel = self.u.channel_for(pkt.src_world)
+        total = pkt.nbytes
+        cap = req.capacity
+        n = min(total, cap)
+        view = None
+        if n > 0 and req.buf is not None and req.datatype.is_contiguous:
+            try:
+                view = np.frombuffer(as_bytes_view(req.buf), dtype=np.uint8,
+                                     count=cap)
+            except (ValueError, TypeError, MPIException):
+                view = None
+        if view is None and n > 0:
+            req.scratch = np.empty(n, dtype=np.uint8)
+            view = req.scratch
+        chunk = pkt.extra["chunk"]
+        req._ap = {"block": pkt.extra["block"], "chunk": chunk,
+                   "nslots": pkt.extra["nslots"],
+                   "nchunks": (total + chunk - 1) // chunk, "drained": 0,
+                   "view": view, "n": n, "src": pkt.src_world,
+                   "sreq_id": pkt.sreq_id, "channel": channel,
+                   "arena": channel.arena,
+                   "env": (pkt.comm_src, pkt.tag, total)}
+        req._rndv_env = (pkt.comm_src, pkt.tag, total)
+        self.engine.track(req)
+        self._apipe_drain(req, pkt.extra["pub"])
+
+    def _apipe_drain(self, req: RecvRequest, upto: int) -> None:
+        """Copy the published chunks below ``upto`` out of the slots
+        (slot-contiguous runs, one copy each), then AACK the batch, or
+        finish with FIN after the last chunk."""
+        ap = req._ap
+        tr = self.engine.tracer
+        chunk, n = ap["chunk"], ap["n"]
+        nslots, block = ap["nslots"], ap["block"]
+        upto = min(upto, ap["nchunks"])
+        k = ap["drained"]
+        while k < upto:
+            run = min(upto - k, nslots - (k % nslots))
+            lo = k * chunk
+            span = min(run * chunk, n - lo) if lo < n else 0
+            if span > 0:
+                off = block + (k % nslots) * chunk
+                ap["view"][lo:lo + span] = ap["arena"].view(off, span)
+            arena_mod.pv_pipeline.inc(run)
+            if tr is not None:
+                tr.record("protocol", "rndv_chunk", "i", dir="drain",
+                          k=k, chunks=run, bytes=span)
+            k += run
+        ap["drained"] = k
+        if k < ap["nchunks"]:
+            ack = Packet(PktType.RNDV_AACK, self.u.world_rank,
+                         sreq_id=ap["sreq_id"], rreq_id=req.req_id,
+                         offset=k - 1)
+            ap["channel"].send_packet(ap["src"], ack)
+            return
+        if req.scratch is not None and req.buf is not None and n > 0:
+            req.datatype.unpack(req.scratch, req.buf, req.count)
+        fin = Packet(PktType.RNDV_FIN, self.u.world_rank,
+                     sreq_id=ap["sreq_id"])
+        ap["channel"].send_packet(ap["src"], fin)
+        src, tag, total = ap["env"]
+        req._ap = None
+        self._finish_recv(req, total, src, tag)
+
+    def _on_apipe_pub(self, pkt: Packet) -> None:
+        req = self.engine.outstanding.get(pkt.rreq_id)
+        if req is None or getattr(req, "_ap", None) is None:
+            return     # a raced completion or cancel
+        self._apipe_drain(req, pkt.offset + 1)
+
+    def _on_apipe_ack(self, pkt: Packet) -> None:
+        """Refill the slots the AACK freed (chunk j reuses the slot of
+        chunk j - nslots) and publish the new frontier in one APUB."""
+        sreq = self.engine.outstanding.get(pkt.sreq_id)
+        if sreq is None or getattr(sreq, "_ap", None) is None:
+            return
+        ap = sreq._ap
+        chunk, nslots, block = ap["chunk"], ap["nslots"], ap["block"]
+        nbytes = len(ap["data"])
+        hi = min(pkt.offset + nslots + 1, ap["nchunks"])
+        k = ap["next"]
+        if hi <= k:
+            return
+        tr = self.engine.tracer
+        while k < hi:
+            run = min(hi - k, nslots - (k % nslots))
+            lo = k * chunk
+            span = min(run * chunk, nbytes - lo)
+            off = block.off + (k % nslots) * chunk
+            ap["arena"].view(off, span)[:] = ap["data"][lo:lo + span]
+            arena_mod.pv_pipeline.inc(run)
+            if tr is not None:
+                tr.record("protocol", "rndv_chunk", "i", dir="pub", k=k,
+                          chunks=run, bytes=span)
+            k += run
+        ap["next"] = hi
+        pub = Packet(PktType.RNDV_APUB, self.u.world_rank,
+                     rreq_id=pkt.rreq_id, offset=hi - 1)
+        sreq.channel.send_packet(pkt.src_world, pub)

@@ -11,7 +11,8 @@ OS process a rank with the bootstrap environment
 a rank that exits nonzero kills the job (SIGTERM, a grace period, then
 SIGKILL), and an ``MPI_Abort(code)`` seen on the KVS kills it with exit
 code ``code``. Whatever shared-memory segments the job's ranks left in
-``/dev/shm`` are removed when it ends, also when it was killed
+``/dev/shm`` (rings, flags, spill and rendezvous files, the leaders'
+arenas) are removed when it ends, also when it was killed
 (``sweep_segments``). This path imports no torch: the rank processes
 pay that import. A rank's program calls ``mpi.Init()`` and runs on the
 host tier (``runtime/bootstrap.py``).
@@ -73,16 +74,20 @@ def _kill_all(procs: List[subprocess.Popen]) -> None:
 def sweep_segments(pids: List[int]) -> List[str]:
     """Remove the shared-memory files the rank processes ``pids`` created
     (``mv2t-shm-<pid>-*``: segments, flags, doorbells, spill and
-    rendezvous files); returns the paths removed."""
+    rendezvous files; ``mv2t-arena-<pid>-*``: a leader's scratch arena,
+    ``transport/arena.py``), however the job ended; returns the paths
+    removed."""
     base = shm_base_dir()
     gone = []
     for pid in pids:
-        for path in glob.glob(os.path.join(base, f"mv2t-shm-{pid}-*")):
-            try:
-                os.unlink(path)
-                gone.append(path)
-            except OSError:
-                pass
+        for stem in ("shm", "arena"):
+            for path in glob.glob(os.path.join(base,
+                                               f"mv2t-{stem}-{pid}-*")):
+                try:
+                    os.unlink(path)
+                    gone.append(path)
+                except OSError:
+                    pass
     return gone
 
 

@@ -135,6 +135,9 @@ class Universe:
         self.protocol: Optional[Pt2ptProtocol] = None
         self.comm_world: Optional[Comm] = None
         self.comm_self: Optional[Comm] = None
+        # what coll/device.py bind_universes bound (None: no device
+        # channel); the comms made from COMM_WORLD derive theirs from it
+        self.device_binding = None
         self.initialized = False
         self.finalized = False
 

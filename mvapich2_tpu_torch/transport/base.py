@@ -15,8 +15,7 @@ The two process channels put a packet on the wire with the JAX
 package's codec (``encode_packet`` / ``decode_packet``, byte for byte
 the same blob), and the progress engine polls them
 (``transport/progress.py``). The packet types of the tiers that wait
-(the one-sided host windows, the arena pipeline, CMA, ULFM revoke) are
-not ported.
+(the one-sided host windows, ULFM revoke) are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +36,8 @@ class PktType(enum.IntEnum):
     RNDV_CTS = 3           # clear-to-send (receiver matched)
     RNDV_DATA = 4          # RPUT/R3 payload chunk
     RNDV_FIN = 5           # transfer complete
+    RNDV_APUB = 6          # pipelined arena rendezvous: chunks published
+    RNDV_AACK = 7          # pipelined arena rendezvous: chunks consumed
     CANCEL_SEND_REQ = 33   # retract an unmatched send
     CANCEL_SEND_RESP = 34
 

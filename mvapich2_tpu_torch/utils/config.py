@@ -26,7 +26,10 @@
   ``DEVICE_NBC_SEG_BYTES`` and ``DEVICE_NBC_MAX_SEGS`` (``coll/device.py``
   ``_nb_segments``);
 * process mode (``mpirun``): ``STARTUP_TIMING``, the ``mpi.Init``
-  phase timestamps (``utils/timestamps.py``);
+  phase timestamps (``utils/timestamps.py``); the shared-memory
+  rendezvous's rungs: ``USE_CMA`` (``transport/shm.py``),
+  ``ARENA_BYTES``, ``RNDV_CHUNK`` and ``RNDV_DEPTH``
+  (``transport/arena.py``, ``pt2pt/protocol.py``);
 * the observability switches ``TRACE``, ``TRACE_BUF`` and ``TRACE_DIR``
   (the per-rank event recorder, ``trace/recorder.py``), ``METRICS`` (the
   latency histograms, ``metrics/__init__.py``) and ``JAX_PROFILE`` (a
@@ -157,9 +160,24 @@ TRACE_CVARS = {
     "JAX_PROFILE": "",
 }
 
-# process mode, with the JAX package's default (utils/timestamps.py)
+# process mode, with the JAX package's defaults (utils/timestamps.py;
+# transport/shm.py USE_CMA; transport/arena.py ARENA_BYTES, RNDV_CHUNK
+# and RNDV_DEPTH)
 PROCESS_CVARS = {
     "STARTUP_TIMING": False,
+    # cross-memory attach for a shared-memory rendezvous, where every
+    # co-located rank's probe agrees (0: the arena, then the file)
+    "USE_CMA": 1,
+    # a rank's partition of the node's scratch arena (0: 256 MiB for 2
+    # co-located ranks, 128 MiB for 3-4, 32 MiB beyond)
+    "ARENA_BYTES": 0,
+    # the pipelined arena rendezvous's chunk (also the CMA read's step)
+    # and its least depth in chunks. The depth taken is the larger of
+    # RNDV_DEPTH and a sixteenth of the partition in chunks: 8 or more at
+    # every automatic partition with the default chunk, so RNDV_DEPTH
+    # binds only under a small ARENA_BYTES or a large RNDV_CHUNK
+    "RNDV_CHUNK": 256 * 1024,
+    "RNDV_DEPTH": 4,
 }
 
 _config = Config({"USE_DEVICE_COLL": True,

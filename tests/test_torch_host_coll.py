@@ -11,7 +11,8 @@ tensors on the card there.
 Each program runs through the JAX ``run_ranks`` (its host tier) and the
 port's ``run_ranks(..., device="cpu")`` (COMM_WORLD bound to the slot
 channel, whose wrappers send these calls to the host entries; the tuned
-cases run on a ``dup``, which has no device channel in either package):
+cases run on a ``dup``, whose numpy calls take the host tier in both
+packages: the port's dup has a device channel for tensors only):
 results equal bit for bit, and the ``coll_*_calls`` and ``pt2pt_*``
 pvar deltas equal (``test_torch_pt2pt.run_both``). The data are seeded
 random floats and integers: both packages fold the same numpy arrays in
@@ -112,7 +113,7 @@ def test_forced_algorithm(env, coll, algo, n):
                                   "alltoall", "reduce", "barrier"])
 @pytest.mark.parametrize("n", [3, 8, 9])
 def test_tuned_selection_across_edges(env, coll, n):
-    """Unforced, on a dup (no device channel in either package): the
+    """Unforced, on a dup (numpy: the host tier in both packages): the
     same table bin, hence the same algorithm, on both sides of every
     edge of the small and flat2 classes."""
     def app(comm, lib):
@@ -393,7 +394,7 @@ def test_two_level_fake_nodes(env, algo):
     env(ALLREDUCE_ALGO=algo or None)
 
     def app(comm, lib):
-        d = comm.dup()      # no device channel: the tuned host selection
+        d = comm.dup()      # numpy on a dup: the tuned host selection
         out = []
         for cnt in (1, 1023, 1024, 5000, 40000):
             out.append(d.allreduce(_data(comm.rank, cnt)))
@@ -469,12 +470,15 @@ def test_host_tier_calls_on_the_slot_channel(env):
 
 
 def test_tensor_staging_matches_jax(env):
-    """On a comm with no device channel (a dup) a CPU tensor is read as
-    numpy for the collectives the JAX package stages a jax.Array in
-    (allreduce, reduce, bcast, allgather, alltoall, reduce_scatter_block:
+    """On a comm with no device channel (a dup of a COMM_WORLD whose
+    mesh, 3 devices under 4 ranks, binds none: a dup of a bound comm has
+    a channel of its own) a CPU tensor is read as numpy for the
+    collectives the JAX package stages a jax.Array in (allreduce, reduce,
+    bcast, allgather, alltoall, reduce_scatter_block:
     ``_stage_if_unbound``), and refused with MPI_ERR_ARG by the others
     (gather here), as there; a tensor recvbuf is MPI_ERR_COMM."""
     import jax.numpy as jnp
+    from mvapich2_tpu_torch import make_mesh
 
     def app(comm, lib):
         d = comm.dup()
@@ -495,7 +499,7 @@ def test_tensor_staging_matches_jax(env):
         errs.append(ei.value.error_class)
         return out, errs
 
-    j, p = run_both(4, app)
+    j, p = run_both(4, app, device_mesh=make_mesh((3,), ("x",), "cpu"))
     assert_same(j, p)
     assert p[0][1] == [port_errors.MPI_ERR_ARG, port_errors.MPI_ERR_COMM]
 
@@ -538,12 +542,30 @@ def _slot_alltoallv(c):
     return got, want
 
 
+def _dup_allreduce(c):
+    got = c.dup().allreduce(_ints(c.rank, 64))
+    return got, sum(_ints(k, 64) for k in range(c.size))
+
+
+def _split_allgather(c):
+    """Each parity's comm: a 1:1 channel over a 1-D mesh of 2."""
+    got = c.split(c.rank % 2).allgather(_ints(c.rank, 64))
+    return got, torch.cat([_ints(k, 64) for k in range(c.rank % 2, c.size,
+                                                       2)])
+
+
+def _slot_iallreduce(c):
+    out = torch.zeros(64)
+    c.iallreduce(_ints(c.rank, 64), out).wait()
+    return out, sum(_ints(k, 64) for k in range(c.size))
+
+
 _MESH4 = ((4,), ("x",))
 _FOLD4 = ((2,), ("x",))
 # (case, mesh geometry or None for the slot channel, env, the call on a
 # rank's comm, what the error names; or, for a call that now has a
-# device path, None and the kernel whose plain version it runs, the call
-# returning (result, expected))
+# device path, None and the kernel whose plain version it runs once, or
+# (kernel, calls), the call returning (result, expected))
 _CARD_CASES = [
     ("bf16", _MESH4, {}, _bf16_allreduce, None, "ring_all_reduce"),
     ("bf16_forced_device", _MESH4, {"ALLREDUCE_ALGO": "device"},
@@ -564,12 +586,10 @@ _CARD_CASES = [
     ("alltoallv_in_place", _MESH4, {}, lambda c: c.alltoallv(
         PORT.IN_PLACE, [1] * 4, None, _card(4), [1] * 4, None),
      "MPI_IN_PLACE", None),
-    ("dup", None, {}, lambda c: c.dup().allreduce(_card(64)),
-     "no device channel", None),
-    ("split", _MESH4, {}, lambda c: c.split(c.rank % 2).allgather(
-        _card(64)), "no device channel", None),
-    ("slot_iallreduce", None, {}, lambda c: c.iallreduce(
-        _card(64), _card(64)), "NBC tier", None),
+    ("dup", None, {}, _dup_allreduce, None, "fused_reduce_to_slot"),
+    ("split", _MESH4, {}, _split_allgather, None, ("ring_all_gather", 2)),
+    ("slot_iallreduce", None, {}, _slot_iallreduce, None,
+     "fused_reduce_to_slot"),
 ]
 
 
@@ -579,18 +599,21 @@ def test_card_tensor_never_takes_the_host_tier(env, case, geom, cvars,
                                                call, names, kernel):
     """A tensor on the card never goes to the host tier. A call that the
     device tier cannot take (a dtype or op that does not lower; a forced
-    host algorithm; USE_DEVICE_COLL off; MPI_IN_PLACE alltoallv; a comm
-    with no device channel; an i-call the NBC tier refuses) raises
-    NotImplementedError naming why, on every rank, before any data
-    moves. The calls that have a device path for a tensor (bfloat16 on
-    the mesh channel, forced or not; alltoall on the fold channel;
-    alltoallv on the slot channel) run it on CPU tensors: the result is
-    exact and the kernel's plain version ran once, with
+    host algorithm; USE_DEVICE_COLL off; MPI_IN_PLACE alltoallv)
+    raises NotImplementedError naming why, on every rank, before any
+    data moves. The calls that have a device path for a tensor
+    (bfloat16 on the mesh channel, forced or not; alltoall on the fold
+    channel; alltoallv on the slot channel; an allreduce on a dup of the
+    slot channel's comm, which gets a slot channel of its own; an
+    allgather on each parity's split of a 1:1 mesh of 4, a 1:1 channel
+    over a mesh of 2; an iallreduce into a tensor on the slot channel,
+    on its device NBC tier) run it on CPU tensors: the result is exact
+    and the kernel's plain version ran once a comm, with
     dev_coll_fallback_dtype unmoved. Either way no tensor is staged to
     the host (``to_host`` raises while the calls run)."""
     from mvapich2_tpu_torch import make_mesh, mpit
     from mvapich2_tpu_torch.coll import device as port_device
-    from mvapich2_tpu_torch.ops import alltoall, ici, ring
+    from mvapich2_tpu_torch.ops import alltoall, hbm, ici, ring
     env(**cvars)
 
     def refused(comm):
@@ -607,7 +630,7 @@ def test_card_tensor_never_takes_the_host_tier(env, case, geom, cvars,
 
     def no_staging(t):
         raise AssertionError("a tensor on the card was staged")
-    for m in (alltoall, ici, ring):
+    for m in (alltoall, hbm, ici, ring):
         m.reset_counts()
     fallback = mpit.pvar("dev_coll_fallback_dtype").read()
     port_device.to_host = no_staging
@@ -621,8 +644,10 @@ def test_card_tensor_never_takes_the_host_tier(env, case, geom, cvars,
         assert all("is not moved to the host" in g for g in got), got
         return
     assert got == [True] * 4
-    plain = {**ring.PLAIN_CALLS, **ici.PLAIN_CALLS, **alltoall.PLAIN_CALLS}
-    assert {k: v for k, v in plain.items() if v} == {kernel: 1}, plain
+    plain = {**ring.PLAIN_CALLS, **ici.PLAIN_CALLS, **alltoall.PLAIN_CALLS,
+             **hbm.PLAIN_CALLS}
+    want = dict([kernel]) if isinstance(kernel, tuple) else {kernel: 1}
+    assert {k: v for k, v in plain.items() if v} == want, plain
     assert mpit.pvar("dev_coll_fallback_dtype").read() == fallback
 
 

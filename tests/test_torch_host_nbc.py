@@ -120,7 +120,8 @@ def test_host_builders_match_jax(env, n):
 def test_nonblocking_fallback_counted_on_the_slot_channel(env):
     """The slot channel's COMM_WORLD counts every i-collective that has a
     device twin as dev_coll_fallback_nbc and runs it on the host
-    schedule; a dup (no device channel) counts nothing."""
+    schedule; a dup (its numpy calls take the host schedule as a comm
+    with no channel, in both packages) counts nothing."""
     def app(comm):
         out = np.zeros(16, np.float32)
         comm.iallreduce(np.ones(16, np.float32), out).wait()

@@ -193,7 +193,9 @@ def test_config_reads_the_reference_env_names(monkeypatch):
         "USE_DEVICE_COLL", *(f"{c}_ALGO" for c in config.ALGO_CVARS),
         *config.HOST_CVARS, *config.DEVICE_CVARS, *config.TRACE_CVARS,
         *config.PROCESS_CVARS}
-    assert set(config.PROCESS_CVARS) == {"STARTUP_TIMING"}
+    assert set(config.PROCESS_CVARS) == {
+        "STARTUP_TIMING", "USE_CMA", "ARENA_BYTES", "RNDV_CHUNK",
+        "RNDV_DEPTH"}
     assert set(config.HOST_CVARS) == {
         "EAGER_THRESHOLD", "SMP_EAGERSIZE", "RNDV_PROTOCOL",
         "R3_CHUNK_SIZE", "USE_TWO_LEVEL"}

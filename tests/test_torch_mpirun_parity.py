@@ -18,6 +18,14 @@ takes RPUT/R3: its payload bytes are counted on ``chan_tcp_*``, while
 rank 0's rendezvous to rank 1 (RGET through a file) keeps the payload
 off the shared-memory ring.
 
+A rung program (a rank 0 <-> 1 echo of 64 KiB and 1 MiB and an
+allreduce, ``-np 2`` on one node) runs under both packages with each
+rung of the shared-memory rendezvous forced: CMA (the JAX job with its
+Python ring and CMA on), ``MV2T_USE_CMA=0`` (the arena, with the
+pipelined rendezvous in 16 KiB chunks: 64 KiB spans four) and
+``MV2T_USE_CMA=0 MV2T_ARENA_BYTES=4096`` (the file rung): equal
+digests and equal ``pt2pt_*``, ``rndv_*`` and ``arena_allocs`` deltas.
+
 A second program (numpy, above the host-to-device crossover) runs under
 ``mpirun --vpod -np 4`` of both packages, the port's under
 ``MV2T_VPOD_REAL=0``: the digests must be equal.
@@ -197,3 +205,79 @@ def test_vpod_job_equals_jax(tmp_path):
     ref = _job("mvapich2_tpu", args, VPOD_PROG, tmp_path, {})
     assert port == ref
     assert len(port[0]) == 6
+
+
+RUNG_PROG = '''
+import hashlib
+import importlib
+import json
+import sys
+
+import numpy as np
+
+pkg, outdir = sys.argv[1], sys.argv[2]
+mpi = importlib.import_module(pkg + ".mpi")
+mpit = importlib.import_module(pkg + ".mpit")
+reg = getattr(mpit._pvars, "_vars", mpit._pvars)
+
+
+def snap():
+    return {k: float(v.read()) for k, v in list(reg.items())
+            if k.startswith(("pt2pt_", "rndv_", "arena_allocs"))
+            and v.klass == mpit.PVAR_CLASS_COUNTER}
+
+
+mpi.Init()
+c = mpi.COMM_WORLD
+r = c.rank
+# the node's wiring (the rung agreement) is lazy: wait until both ranks
+# have it, so the first rendezvous takes the agreed rung in either package
+ch = c.u.shm_channel
+while not c.allreduce(np.array([int(ch._wired)], np.int32), op=mpi.MIN)[0]:
+    pass
+before = snap()
+rng = np.random.default_rng(77 + r)
+out = {}
+for n in (1 << 16, 1 << 20):
+    x = rng.integers(0, 256, n).astype(np.uint8)
+    got = np.empty(n, np.uint8)
+    if r == 0:
+        c.send(x, dest=1, tag=5)
+        c.recv(got, source=1, tag=6)
+    else:
+        c.recv(got, source=0, tag=5)
+        c.send(got, dest=0, tag=6)
+    out["echo_%d" % n] = hashlib.sha256(got.tobytes()).hexdigest()
+y = rng.integers(-50, 50, 3000).astype(np.float32)
+out["allreduce"] = hashlib.sha256(c.allreduce(y).tobytes()).hexdigest()
+after = snap()
+deltas = {k: after[k] - before.get(k, 0.0) for k in after
+          if after[k] != before.get(k, 0.0)}
+with open("%s/rank%d.json" % (outdir, r), "w") as f:
+    json.dump({"digests": out, "pvars": deltas}, f, sort_keys=True)
+mpi.Finalize()
+'''
+
+RUNGS = {"cma": {"MV2T_USE_CMA": "1"},
+         "arena": {"MV2T_USE_CMA": "0"},
+         "file": {"MV2T_USE_CMA": "0", "MV2T_ARENA_BYTES": "4096"}}
+
+
+@pytest.mark.parametrize("rung", list(RUNGS))
+def test_shm_rendezvous_rungs_equal_jax(tmp_path, rung):
+    """Each rung of the shared-memory rendezvous, forced the same way in
+    both packages, moves the same bytes with the same counters; the
+    counters name the rung."""
+    env = dict(RUNGS[rung], MV2T_RNDV_CHUNK="16384")
+    jax_env = dict(JAX_ENV, **env,
+                   MV2T_SHMRING_SO=str(tmp_path / "no-such-libshmring.so"))
+    args = ["-np", "2"]
+    port = _job("mvapich2_tpu_torch", args, RUNG_PROG, tmp_path, env)
+    ref = _job("mvapich2_tpu", args, RUNG_PROG, tmp_path, jax_env)
+    assert port == ref
+    pv = port[1]["pvars"]           # rank 1 pulls rank 0's first message
+    assert pv["pt2pt_rndv_sent"] >= 2
+    took = {"cma": pv.get("rndv_cma_bytes", 0) > 0,
+            "arena": pv.get("rndv_pipeline_chunks", 0) > 0,
+            "file": not any(k.startswith(("rndv_", "arena_")) for k in pv)}
+    assert took[rung], pv
