@@ -289,6 +289,30 @@ non-zero, printing no result, without them. Phases:
    GIL switch interval and again under 0.5 ms. ``to_host`` fails
    throughout; each kernel count is
    zeroed just before its path and read just after.
+20. spawn (after derived): dynamic processes and intercomms. (a) 4 rank
+   threads on cuda:0 (the slot channel) spawn 4 rank threads from a
+   callable (8 ranks); over the spawn intercomm allreduce, bcast (ROOT
+   and PROC_NULL on the parents), allgather, alltoall,
+   reduce_scatter_block and the i-calls iallreduce, ibcast, iallgather
+   and ialltoall of numpy f32 at 4 B, 64 KiB and 4 MiB a rank, integer
+   values, every result bitwise numpy's on every rank and each call
+   timed (median of 5 after one, rank 0's host clock), and the 4 MiB
+   allreduce's parts alone (local reduce, leaders' exchange, local
+   bcast); then merge(high) and a 4 MiB allreduce over the 8-rank
+   merged comm; a
+   tensor on the card in a call on the intercomm and on the merged comm
+   raises NotImplementedError naming why, on all 8 ranks; the kernel
+   counts, zeroed before the run, read zero after those calls; then
+   the parents' COMM_WORLD allreduces 64 MiB f32 tensors through K1
+   (its count zeroed just before: one launch), bitwise its plain
+   version. (b) 8 rank threads split in halves: Open_port and
+   Publish_name, Lookup_name, Comm_accept / Comm_connect, a 4 MiB
+   intercomm allreduce, disconnect and Unpublish_name. (c) ``python -m
+   mvapich2_tpu_torch.run -np 2 python
+   mvapich2_tpu_torch/progs/spawn_parent.py``: Comm_spawn_multiple of 2
+   child processes (appnum 0 and 1), the job's wall time, rank 0's
+   Comm_spawn time and the intercomm allreduce at 8 B and 4 MiB; the
+   job must print No Errors and no child may outlive it.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
@@ -5656,10 +5680,10 @@ PINGPONG_PROG = os.path.join("mvapich2_tpu_torch", "progs", "pingpong.py")
 MPIRUN_RUNGS = ("arena", "file")
 
 
-def _mpirun_job(args, tag, env=None):
+def _mpirun_job(args, tag, env=None, expect=None):
     """Run ``python -m mvapich2_tpu_torch.run <args>`` from the checkout,
     with ``env`` added to the environment; returns (the parsed ``<tag>
-    {...}`` line, seconds)."""
+    {...}`` line, seconds). ``expect``: a line the job must print."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "mvapich2_tpu_torch.run",
                            *args], cwd=HERE, capture_output=True, text=True,
@@ -5671,7 +5695,8 @@ def _mpirun_job(args, tag, env=None):
                              f"{proc.returncode}:\n{proc.stderr[-4000:]}")
     lines = [ln for ln in proc.stdout.splitlines()
              if ln.startswith(tag + " ")]
-    if len(lines) != 1:
+    if len(lines) != 1 or (expect is not None
+                           and expect not in proc.stdout.splitlines()):
         raise AssertionError(f"[mpirun] {' '.join(args)} printed "
                              f"{len(lines)} {tag} lines:\n{proc.stdout}")
     return json.loads(lines[0].split(" ", 1)[1]), wall
@@ -6441,6 +6466,346 @@ def _derived_nb_split(marks, stamps, nseg):
     return split
 
 
+SPAWN_PARENTS = 4                  # thread ranks on cuda:0 that spawn
+SPAWN_CHILDREN = 4                 # rank threads they spawn (8 in all)
+SPAWN_SIZES = (1, 16 * 1024, 1024 * 1024)   # f32 a rank: 4 B, 64 KiB, 4 MiB
+SPAWN_ITERS = 5                    # timed calls a size, after one checked
+SPAWN_PROG = os.path.join("mvapich2_tpu_torch", "progs", "spawn_parent.py")
+SPAWN_OPS = ("allreduce", "bcast", "allgather", "alltoall",
+             "reduce_scatter_block", "iallreduce", "ibcast", "iallgather",
+             "ialltoall")
+
+
+def _spawn_vals(np, w, tag, n):
+    """World rank ``w``'s seeded integer-valued f32 buffer of ``n``
+    elements for call ``tag`` (sums of eight are exact)."""
+    rng = np.random.default_rng(SEED + 2900 + 16 * w + tag)
+    return rng.integers(-8, 8, n).astype(np.float32)
+
+
+def _spawn_calls(np, inter, pstat, me, remote):
+    """Every SPAWN_OPS call at every SPAWN_SIZES size on ``inter`` (both
+    sides run this in the same order): the first call of each held
+    bitwise against numpy, then SPAWN_ITERS timed on the host clock.
+    ``me`` is this rank's world id, ``remote`` the remote group's world
+    ids in rank order. Returns {op: {bytes: median ms}}."""
+    rank, size, rs = inter.rank, inter.size, inter.remote_size
+    parents = remote[0] != 0         # the parents' remote group: children
+    times = {}
+    for tag, op in enumerate(SPAWN_OPS):
+        base = op[1:] if op.startswith("i") else op
+        times[op] = {}
+        for n in SPAWN_SIZES:
+            root = ((pstat.ROOT if rank == 0 else pstat.PROC_NULL)
+                    if parents else 0)
+            if base == "allreduce":
+                x, out = _spawn_vals(np, me, tag, n), np.empty(n, np.float32)
+                want = sum(_spawn_vals(np, q, tag, n) for q in remote)
+            elif base == "bcast":
+                x = _spawn_vals(np, 0, tag, n) if (parents and rank == 0) \
+                    else np.zeros(n, np.float32)
+                out = x
+                want = None if parents else _spawn_vals(np, 0, tag, n)
+            elif base == "allgather":
+                x, out = _spawn_vals(np, me, tag, n), \
+                    np.empty(n * rs, np.float32)
+                want = np.concatenate([_spawn_vals(np, q, tag, n)
+                                       for q in remote])
+            elif base == "alltoall":
+                x, out = _spawn_vals(np, me, tag, n * rs), \
+                    np.empty(n * rs, np.float32)
+                want = np.concatenate([
+                    _spawn_vals(np, q, tag, n * size)[rank * n:
+                                                      (rank + 1) * n]
+                    for q in remote])
+            else:                    # reduce_scatter_block
+                x, out = _spawn_vals(np, me, tag, n * rs), \
+                    np.empty(n, np.float32)
+                want = sum(_spawn_vals(np, q, tag, n * size)[
+                    rank * n:(rank + 1) * n] for q in remote)
+
+            def call():
+                f = getattr(inter, op)
+                if base == "allreduce":
+                    req = f(x, out)
+                elif base == "bcast":
+                    req = f(x, root=root)
+                else:
+                    req = f(x, out, count=n)
+                if op.startswith("i"):
+                    req.wait()
+
+            call()
+            if want is not None and out.tobytes() != want.tobytes():
+                raise AssertionError(f"[spawn] intercomm {op} of {n} f32 "
+                                     f"on world rank {me}: not bitwise "
+                                     f"numpy's result")
+            lat = []
+            for _ in range(SPAWN_ITERS):
+                t0 = time.perf_counter()
+                call()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            times[op][4 * n] = statistics.median(lat)
+    return times
+
+
+def _spawn_split(np, inter, me):
+    """The parts of one 4 MiB intercomm allreduce (``coll/inter.py``
+    ``allreduce``), each run SPAWN_ITERS times on its own on both sides:
+    the local reduce to local rank 0, the leaders' exchange over the
+    intercomm, the local bcast. Returns {part: median ms} on this
+    rank's clock (every rank takes the exchange's tag, so the
+    intercomm's counters stay in step)."""
+    from mvapich2_tpu_torch.coll.algorithms import csendrecv
+    lc, n = inter.local_comm, SPAWN_SIZES[-1]
+    x, stage = _spawn_vals(np, me, 40, n), np.empty(n, np.float32)
+    parts = {"local_reduce": lambda: lc.reduce(x, root=0),
+             "leader_exchange": lambda: csendrecv(
+                 inter, x, 0, stage, 0, tag) if lc.rank == 0 else None,
+             "local_bcast": lambda: lc.bcast(stage, root=0)}
+    out = {}
+    for name, fn in parts.items():
+        lat = []
+        for _ in range(SPAWN_ITERS):
+            tag = inter.next_coll_tag()
+            lc.barrier()
+            t0 = time.perf_counter()
+            fn()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(lat)
+    lc.barrier()
+    return out
+
+
+def phase_spawn(torch, np, mvt, hbm, ici, ring, a2a, smi, dev):
+    """Dynamic processes and intercomms (module docstring, phase 20).
+    Returns its figures. ``main``'s forced REDUCE_ALGO=device is lifted
+    meanwhile: the phase's reduces run on comms with no device channel
+    (the intercomms' and the children's), whose host table has no such
+    algorithm."""
+    from mvapich2_tpu_torch.utils.config import get_config
+    cfg = get_config()
+    saved = cfg.get("REDUCE_ALGO")
+    cfg.set("REDUCE_ALGO", "")
+    try:
+        return _phase_spawn(torch, np, mvt, hbm, ici, ring, a2a, smi, dev)
+    finally:
+        cfg.set("REDUCE_ALGO", saved)
+
+
+def _phase_spawn(torch, np, mvt, hbm, ici, ring, a2a, smi, dev):
+    from mvapich2_tpu_torch.core import status as pstat
+    from mvapich2_tpu_torch.runtime import nameserv, spawn
+    t_phase = time.perf_counter()
+    mods = (hbm, ici, ring, a2a)
+    on_cuda = dev.type == "cuda"
+    card_dev = dev if on_cuda else torch.device("meta")
+    big = SPAWN_SIZES[-1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2901)
+    world_in = [torch.randint(-8, 8, (N,), generator=gen, device=dev,
+                              dtype=torch.int32).float()
+                for _ in range(SPAWN_PARENTS)]
+    k1_want = hbm.fused_reduce_to_slot_ref(torch.stack(world_in).reshape(
+        SPAWN_PARENTS, N // 128, 128)).reshape(N)
+    child_out = {}
+
+    def sync():
+        if on_cuda:
+            torch.cuda.current_stream().synchronize()
+
+    def refusals(inter, merged):
+        """A tensor on the card in a call on the intercomm and on the
+        merged comm: NotImplementedError naming why, on every rank."""
+        msgs = []
+        for c in (inter, merged):
+            try:
+                c.allreduce(torch.ones(16, device=card_dev))
+            except NotImplementedError as e:
+                msgs.append(str(e))
+                continue
+            raise AssertionError(f"[spawn] a tensor on the card was taken "
+                                 f"by {c.name}")
+        if not all("not moved to the host" in m for m in msgs):
+            raise AssertionError(f"[spawn] refusals {msgs}")
+        return msgs
+
+    def child(cw):
+        parent = spawn.get_parent(cw.u)
+        me = cw.u.world_rank
+        times = _spawn_calls(np, parent, pstat, me,
+                             list(parent.remote_group.world_ranks))
+        _spawn_split(np, parent, me)
+        merged = parent.merge(high=True)
+        got = merged.allreduce(_spawn_vals(np, me, 20, big))
+        for _ in range(SPAWN_ITERS):
+            merged.allreduce(_spawn_vals(np, me, 20, big))
+        want = sum(_spawn_vals(np, w, 20, big)
+                   for w in range(SPAWN_PARENTS + SPAWN_CHILDREN))
+        child_out[cw.rank] = (times, got.tobytes() == want.tobytes(),
+                              refusals(parent, merged))
+        merged.barrier()
+
+    def parent(comm):
+        me = comm.u.world_rank
+        t0 = time.perf_counter()
+        inter, codes = spawn.comm_spawn(comm, child,
+                                        maxprocs=SPAWN_CHILDREN)
+        spawn_ms = (time.perf_counter() - t0) * 1e3
+        if any(codes) or inter.remote_size != SPAWN_CHILDREN:
+            raise AssertionError(f"[spawn] codes {codes}, remote "
+                                 f"{inter.remote_size}")
+        times = _spawn_calls(np, inter, pstat, me,
+                             list(inter.remote_group.world_ranks))
+        split = _spawn_split(np, inter, me)
+        merged = inter.merge(high=False)
+        if (merged.rank, merged.size) != (comm.rank, SPAWN_PARENTS +
+                                          SPAWN_CHILDREN):
+            raise AssertionError(f"[spawn] merged rank {merged.rank} of "
+                                 f"{merged.size}")
+        got = merged.allreduce(_spawn_vals(np, me, 20, big))
+        lat = []
+        for _ in range(SPAWN_ITERS):
+            t0 = time.perf_counter()
+            merged.allreduce(_spawn_vals(np, me, 20, big))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        want = sum(_spawn_vals(np, w, 20, big)
+                   for w in range(SPAWN_PARENTS + SPAWN_CHILDREN))
+        if got.tobytes() != want.tobytes():
+            raise AssertionError("[spawn] merged 4 MiB allreduce: not "
+                                 "bitwise numpy's")
+        msgs = refusals(inter, merged)
+        merged.barrier()
+        comm.barrier()
+        host_launches = dict(_launches(*mods)) if comm.rank == 0 else None
+        # the parents' COMM_WORLD keeps its slot channel and K1
+        comm.barrier()
+        if comm.rank == 0:
+            _zero(*mods)
+        comm.barrier()
+        out = comm.allreduce(world_in[comm.rank])
+        sync()
+        comm.barrier()
+        k1 = dict(_launches(*mods)) if comm.rank == 0 else None
+        return (spawn_ms, times, statistics.median(lat), msgs,
+                host_launches, k1, out, split)
+
+    _zero(*mods)
+    t0 = time.perf_counter()
+    res = mvt.run_ranks(SPAWN_PARENTS, parent, device=dev)
+    thread_s = time.perf_counter() - t0
+    if sorted(child_out) != list(range(SPAWN_CHILDREN)) or \
+            not all(c[1] for c in child_out.values()):
+        raise AssertionError(f"[spawn] children: {sorted(child_out)}")
+    spawn_ms, times, merged_ms, msgs, host_launches, k1, out, split = \
+        res[0]
+    if any(host_launches.values()):
+        raise AssertionError(f"[spawn] the intercomm calls launched "
+                             f"{host_launches}")
+    if k1 != _want(mods, fused_reduce_to_slot=1):
+        raise AssertionError(f"[spawn] COMM_WORLD after the spawn: "
+                             f"launches {k1}")
+    for r in range(SPAWN_PARENTS):
+        _exact(torch, "[spawn] COMM_WORLD 64 MiB allreduce after the "
+               "spawn", res[r][6], k1_want)
+    fmt = lambda d: ", ".join(f"{k} B {v:.3f}" for k, v in d.items())
+    for op in SPAWN_OPS:
+        log(f"[spawn] thread mode, {SPAWN_PARENTS} parents on {dev} + "
+            f"{SPAWN_CHILDREN} spawned: intercomm {op} (ms, rank 0 host "
+            f"clock, median of {SPAWN_ITERS}) {fmt(times[op])}; bitwise "
+            f"numpy on every rank")
+    log(f"[spawn] thread mode, the 4 MiB intercomm allreduce's parts "
+        f"alone (ms, rank 0, median of {SPAWN_ITERS}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    log(f"[spawn] Comm_spawn of {SPAWN_CHILDREN} rank threads "
+        f"{spawn_ms:.2f} ms; merge(high) 8-rank 4 MiB f32 allreduce "
+        f"{merged_ms:.3f} ms (median of {SPAWN_ITERS}); a tensor on the "
+        f"card refused by the intercomm and the merged comm on all 8 "
+        f"ranks ({msgs[1][:120]}...); the intercomm calls launched "
+        f"nothing; then COMM_WORLD's 64 MiB f32 allreduce: K1 "
+        f"{k1['fused_reduce_to_slot']} launch, bitwise its plain "
+        f"version; {thread_s:.1f} s on {smi}")
+
+    svc = f"chip-smoke-{os.getpid()}"
+
+    def ports(comm):
+        server = comm.rank < R // 2
+        local = comm.split(0 if server else 1, comm.rank)
+        t0 = time.perf_counter()
+        if server:
+            port = "mv2t-port:0:0"       # significant at the root only
+            if local.rank == 0:
+                port = spawn.open_port(comm.u)
+                nameserv.publish_name(comm.u, svc, port)
+            comm.barrier()
+            inter = spawn.comm_accept(port, local, 0)
+        else:
+            comm.barrier()
+            port = nameserv.lookup_name(comm.u, svc)
+            inter = spawn.comm_connect(port, local, 0)
+        conn_ms = (time.perf_counter() - t0) * 1e3
+        me = comm.u.world_rank
+        remote = list(inter.remote_group.world_ranks)
+        want = sum(_spawn_vals(np, q, 30, big) for q in remote)
+        lat = []
+        for i in range(1 + SPAWN_ITERS):
+            t0 = time.perf_counter()
+            got = inter.allreduce(_spawn_vals(np, me, 30, big))
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and got.tobytes() != want.tobytes():
+                raise AssertionError("[spawn] port intercomm allreduce: "
+                                     "not bitwise numpy's")
+        inter.disconnect()
+        comm.barrier()
+        if server and local.rank == 0:
+            nameserv.unpublish_name(comm.u, svc)
+            spawn.close_port(comm.u, port)
+        return conn_ms, statistics.median(lat[1:])
+
+    pres = mvt.run_ranks(R, ports, device=dev)
+    conn_ms, port_ms = pres[0]
+    log(f"[spawn] ports: {R // 2} ranks accept, {R // 2} connect through "
+        f"the name service in {conn_ms:.2f} ms; intercomm 4 MiB f32 "
+        f"allreduce {port_ms:.3f} ms (median of {SPAWN_ITERS}), bitwise "
+        f"numpy; disconnect, unpublish on {smi}")
+
+    job, wall = _mpirun_job(["-np", "2", sys.executable, SPAWN_PROG],
+                            "SPAWN_JSON", expect="No Errors")
+    deadline = time.monotonic() + 10
+    while any(os.path.exists(f"/proc/{p}") and not _zombie(p)
+              for p in job["child_pids"]) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    alive = [p for p in job["child_pids"]
+             if os.path.exists(f"/proc/{p}") and not _zombie(p)]
+    if alive or len(job["child_pids"]) != 2:
+        raise AssertionError(f"[spawn] spawned processes {alive} outlived "
+                             f"the job ({job})")
+    log(f"[spawn] process mode: mpirun -np 2 of {SPAWN_PROG} spawning 2 "
+        f"children (appnum 0 and 1): job {wall:.2f} s, rank 0's "
+        f"Comm_spawn {job['spawn_s']:.3f} s, intercomm allreduce 8 B "
+        f"{job['allreduce_small_us']:.1f} us and 4 MiB "
+        f"{job['allreduce_big_us'] / 1e3:.3f} ms (median of "
+        f"{job['iters']}); No Errors, no child left on {smi}")
+    total = time.perf_counter() - t_phase
+    log(f"[spawn] phase {total:.1f} s")
+    return {"thread": {"spawn_ms": spawn_ms, "intercomm_ms": times,
+                       "allreduce_4MiB_parts_ms": split,
+                       "merged_allreduce_4MiB_ms": merged_ms,
+                       "refusals": msgs, "k1_after_spawn": k1,
+                       "children": {r: c[0] for r, c in
+                                    sorted(child_out.items())},
+                       "run_s": thread_s},
+            "ports": {"connect_ms": conn_ms, "allreduce_4MiB_ms": port_ms},
+            "process": job, "process_job_s": wall, "phase_s": total}
+
+
+def _zombie(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[-1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
@@ -6582,6 +6947,8 @@ def main(argv=None):
         make_mesh, timing, info, smi, dev)
     extra["derived"] = phase_derived(torch, np, mvt, hbm, ici, ring,
                                      alltoall, mpit, make_mesh, smi, dev)
+    extra["spawn"] = phase_spawn(torch, np, mvt, hbm, ici, ring, alltoall,
+                                 smi, dev)
     extra["trace"] = phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)

@@ -1793,8 +1793,11 @@ def bind_derived(comm) -> None:
     devices in order); ``d`` devices holding equal contiguous runs: the
     fold channel over ``d`` (likewise). Any other geometry binds
     nothing, and the comm's refusal of a tensor on the card names it
-    (``unbound_why``). A comm derived from a derived comm follows the
-    same rule.
+    (``unbound_why``). So does a comm with members that are not ranks
+    of the bound run (a comm merged from a spawn intercomm,
+    ``core/intercomm.py``): every member binds nothing. A comm derived
+    from a derived comm follows the same rule; an intercomm never binds
+    a channel.
 
     Every member computes the same rendezvous key, the context id and
     the sorted world ranks of the group, and takes the rendezvous from
@@ -1807,6 +1810,15 @@ def bind_derived(comm) -> None:
     if b is None:
         return
     members = [comm.group.world_of_rank(i) for i in range(comm.size)]
+    outside = [w for w in members if not 0 <= w < len(b.vdev)]
+    if outside:
+        # members the run never bound (ranks spawned into a comm merged
+        # from a spawn intercomm) have no virtual device: every member
+        # binds nothing, so none waits at a rendezvous the others skip
+        comm.unbound_why = (f"its members {outside} are not ranks of the "
+                            f"bound run (spawned processes) and have no "
+                            f"virtual device")
+        return
     devs = [b.vdev[w] for w in members]
     kind, arg = _derived_geometry(devs)
     if kind is None:

@@ -17,8 +17,12 @@ host-tier size) counts ``dev_coll_fallback_nbc``. A bfloat16 tensor
 takes the device tier as its blocking call does (``coll/device.py``
 ``_recv_dtype_ok``), and a numpy bfloat16 one the host schedule. A
 reduction's result reaches ``recvbuf`` through ``Datatype.from_numpy``,
-so the MINLOC/MAXLOC pair types scatter their items' signature bytes. Intercommunicators'
-leader-bridge schedules wait with the intercomms.
+so the MINLOC/MAXLOC pair types scatter their items' signature bytes.
+An intercommunicator's ``ibarrier``, ``ibcast``, ``ireduce``,
+``iallreduce``, ``iallgather`` and ``ialltoall`` take the leader-bridge
+schedules of ``coll/nbc/inter.py`` (``_inter_fn``); its other
+i-collectives raise MPI_ERR_COMM, as its blocking calls outside
+``coll/inter.py`` do.
 """
 
 from __future__ import annotations
@@ -27,8 +31,24 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from ..core.errors import MPI_ERR_COMM, MPIException
 from ..core.op import Op
 from ..core.request import Request
+
+
+def _inter_fn(comm, name: str):
+    """The intercomm schedule builder for ``name`` (reading numpy
+    buffers, a tensor on the card refused: ``coll/inter.py``
+    ``on_host``), or None for an intracomm."""
+    if not comm.is_inter:
+        return None
+    from .inter import on_host
+    from .nbc import inter as nbci
+    fn = nbci.ICOLL_FNS.get(name)
+    if fn is None:
+        raise MPIException(MPI_ERR_COMM, f"collective '{name}' not "
+                           f"defined on intercommunicators")
+    return on_host(name, fn)
 
 
 class Sched:
@@ -86,6 +106,9 @@ class Sched:
 # ---------------------------------------------------------------------------
 
 def ibarrier(comm) -> Request:
+    fn = _inter_fn(comm, "ibarrier")
+    if fn is not None:
+        return fn(comm)
     tag = comm.next_coll_tag()
     s = Sched(comm, tag)
     size, rank = comm.size, comm.rank
@@ -112,6 +135,9 @@ def _device_nbc(comm, name: str, *a) -> Optional[Request]:
 
 
 def ibcast(comm, buf, count: int, datatype, root: int) -> Request:
+    fn = _inter_fn(comm, "ibcast")
+    if fn is not None:
+        return fn(comm, buf, count, datatype, root)
     req = _device_nbc(comm, "bcast", buf, count, datatype, root)
     if req is not None:
         return req
@@ -142,6 +168,9 @@ def ibcast(comm, buf, count: int, datatype, root: int) -> Request:
 
 def iallreduce(comm, sendbuf, recvbuf, count: int, datatype, op: Op
                ) -> Request:
+    fn = _inter_fn(comm, "iallreduce")
+    if fn is not None:
+        return fn(comm, sendbuf, recvbuf, count, datatype, op)
     req = _device_nbc(comm, "allreduce", sendbuf, recvbuf, count,
                       datatype, op)
     if req is not None:
@@ -224,6 +253,9 @@ def iallreduce(comm, sendbuf, recvbuf, count: int, datatype, op: Op
 
 
 def iallgather(comm, sendbuf, recvbuf, count: int, datatype) -> Request:
+    fn = _inter_fn(comm, "iallgather")
+    if fn is not None:
+        return fn(comm, sendbuf, recvbuf, count, datatype)
     req = _device_nbc(comm, "allgather", sendbuf, recvbuf, count,
                       datatype)
     if req is not None:
@@ -247,6 +279,9 @@ def iallgather(comm, sendbuf, recvbuf, count: int, datatype) -> Request:
 
 
 def ialltoall(comm, sendbuf, recvbuf, count: int, datatype) -> Request:
+    fn = _inter_fn(comm, "ialltoall")
+    if fn is not None:
+        return fn(comm, sendbuf, recvbuf, count, datatype)
     req = _device_nbc(comm, "alltoall", sendbuf, recvbuf, count,
                       datatype)
     if req is not None:
@@ -270,6 +305,9 @@ def ialltoall(comm, sendbuf, recvbuf, count: int, datatype) -> Request:
 
 def ireduce(comm, sendbuf, recvbuf, count: int, datatype, op: Op,
             root: int) -> Request:
+    fn = _inter_fn(comm, "ireduce")
+    if fn is not None:
+        return fn(comm, sendbuf, recvbuf, count, datatype, op, root)
     tag = comm.next_coll_tag()
     size, rank = comm.size, comm.rank
     s = Sched(comm, tag)
@@ -301,6 +339,7 @@ def ireduce(comm, sendbuf, recvbuf, count: int, datatype, op: Op,
 def iscan(comm, sendbuf, recvbuf, count: int, datatype, op: Op) -> Request:
     """Linear pipelined scan: recv prefix from rank-1, fold own
     contribution, forward to rank+1 (MPIR_Iscan sched shape)."""
+    _inter_fn(comm, "iscan")   # raises on an intercomm
     tag = comm.next_coll_tag()
     size, rank = comm.size, comm.rank
     s = Sched(comm, tag)
@@ -322,6 +361,7 @@ def iscan(comm, sendbuf, recvbuf, count: int, datatype, op: Op) -> Request:
 def iexscan(comm, sendbuf, recvbuf, count: int, datatype, op: Op) -> Request:
     """Linear exclusive scan: forward the inclusive prefix, deliver the
     exclusive one (rank 0's recvbuf is untouched, MPI-3.1 §5.11.2)."""
+    _inter_fn(comm, "iexscan")   # raises on an intercomm
     tag = comm.next_coll_tag()
     size, rank = comm.size, comm.rank
     s = Sched(comm, tag)
@@ -342,6 +382,7 @@ def iexscan(comm, sendbuf, recvbuf, count: int, datatype, op: Op) -> Request:
 def igather(comm, sendbuf, recvbuf, count: int, datatype,
             root: int) -> Request:
     """Linear gather into root (sched form)."""
+    _inter_fn(comm, "igather")   # raises on an intercomm
     tag = comm.next_coll_tag()
     size, rank = comm.size, comm.rank
     s = Sched(comm, tag)
@@ -364,6 +405,7 @@ def igather(comm, sendbuf, recvbuf, count: int, datatype,
 def iscatter(comm, sendbuf, recvbuf, count: int, datatype,
              root: int) -> Request:
     """Linear scatter from root (sched form)."""
+    _inter_fn(comm, "iscatter")   # raises on an intercomm
     tag = comm.next_coll_tag()
     size, rank = comm.size, comm.rank
     s = Sched(comm, tag)
@@ -389,6 +431,7 @@ from .api import _displs_from_counts as _pfx  # noqa: E402
 def igatherv(comm, sendbuf, sendcount: int, recvbuf, counts, displs,
              datatype, root: int) -> Request:
     """Linear gatherv (sched form); counts/displs root-significant."""
+    _inter_fn(comm, "igatherv")   # raises on an intercomm
     tag = comm.next_coll_tag()
     size, rank = comm.size, comm.rank
     s = Sched(comm, tag)
@@ -416,6 +459,7 @@ def igatherv(comm, sendbuf, sendcount: int, recvbuf, counts, displs,
 
 def iscatterv(comm, sendbuf, counts, displs, recvbuf, recvcount: int,
               datatype, root: int) -> Request:
+    _inter_fn(comm, "iscatterv")   # raises on an intercomm
     tag = comm.next_coll_tag()
     size, rank = comm.size, comm.rank
     s = Sched(comm, tag)
@@ -448,6 +492,7 @@ def iallgatherv(comm, sendbuf, sendcount: int, recvbuf, counts, displs,
                 datatype) -> Request:
     """Ring allgatherv (sched form): linear send-to-all keeps it simple
     at conformance sizes."""
+    _inter_fn(comm, "iallgatherv")   # raises on an intercomm
     tag = comm.next_coll_tag()
     size, rank = comm.size, comm.rank
     s = Sched(comm, tag)
@@ -472,6 +517,7 @@ def iallgatherv(comm, sendbuf, sendcount: int, recvbuf, counts, displs,
 
 def ialltoallv(comm, sendbuf, scounts, sdispls, recvbuf, rcounts,
                rdispls, datatype) -> Request:
+    _inter_fn(comm, "ialltoallv")   # raises on an intercomm
     req = _device_nbc(comm, "alltoallv", sendbuf, scounts, sdispls,
                       recvbuf, rcounts, rdispls, datatype)
     if req is not None:
@@ -539,11 +585,13 @@ def _ired_scatter_common(comm, sendbuf, recvbuf, counts, datatype, op):
 
 def ireduce_scatter(comm, sendbuf, recvbuf, counts, datatype,
                     op) -> Request:
+    _inter_fn(comm, "ireduce_scatter")   # raises on an intercomm
     return _ired_scatter_common(comm, sendbuf, recvbuf, counts, datatype,
                                 op)
 
 
 def ireduce_scatter_block(comm, sendbuf, recvbuf, count: int, datatype,
                           op) -> Request:
+    _inter_fn(comm, "ireduce_scatter_block")   # raises on an intercomm
     return _ired_scatter_common(comm, sendbuf, recvbuf,
                                 [count] * comm.size, datatype, op)

@@ -33,9 +33,15 @@ host tier is read as numpy if it lies on the CPU, as the JAX package
 stages a device array (``_stage_if_unbound`` here, the device wrappers
 on a bound comm); one on the card raises ``NotImplementedError`` there
 instead of moving to the host. A point-to-point call refuses any tensor
-with MPI_ERR_ARG (``as_bytes_view``). Topologies, neighbor collectives, intercomms,
-attributes, one-sided host windows and the ULFM calls wait with their
-tiers.
+with MPI_ERR_ARG (``as_bytes_view``).
+
+Intercommunicators (``core/intercomm.py`` ``Intercomm``) subclass Comm
+and override its seams: ``world_of`` and ``_check_rank`` (point-to-point
+ranks name the remote group), ``_check_root`` (MPI_ROOT and
+MPI_PROC_NULL) and ``_coll`` (the intercomm algorithms of
+``coll/inter.py``); ``is_inter`` tells the two apart. Topologies,
+neighbor collectives, attributes, one-sided host windows and the ULFM
+calls wait with their tiers.
 """
 
 from __future__ import annotations
@@ -138,6 +144,8 @@ def _resolve(buf, count: Optional[int], datatype: Optional[Datatype],
 
 
 class Comm:
+    is_inter = False      # an Intercomm (core/intercomm.py) says True
+
     def __init__(self, universe, group: Group, context_id: int,
                  name: str = ""):
         self.u = universe
@@ -395,7 +403,7 @@ class Comm:
     def alltoall_init(self, sendbuf, recvbuf, count: Optional[int] = None,
                       datatype: Optional[Datatype] = None) -> Request:
         if count is None:
-            count = _numel(sendbuf) // self.size
+            count = _numel(sendbuf) // getattr(self, "remote_size", self.size)
         _, datatype = _resolve(sendbuf, count, datatype, alt=recvbuf)
         return self._coll_init(
             "alltoall",
@@ -702,8 +710,9 @@ class Comm:
                   datatype: Optional[Datatype] = None) -> Request:
         from ..coll import nonblocking as nb
         if count is None:
+            # an intercomm's blocks address the remote group (MPI-3.1 §5.8)
             sb = recvbuf if _is_in_place(sendbuf) else sendbuf
-            count = _numel(sb) // self.size
+            count = _numel(sb) // getattr(self, "remote_size", self.size)
         _, datatype = _resolve(sendbuf, count, datatype, alt=recvbuf)
         return nb.ialltoall(self, sendbuf, recvbuf, count, datatype)
 

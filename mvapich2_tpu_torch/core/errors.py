@@ -1,6 +1,8 @@
 """MPI error classes the port raises (a trimmed copy of the JAX
-package's ``core/errors.py``; the numbering is the same). Error handlers
-and the ULFM lease errors belong to tiers that are not ported."""
+package's ``core/errors.py``; the numbering is the same), with the
+dynamic-process classes of ``runtime/spawn.py`` and
+``runtime/nameserv.py``. Error handlers and the ULFM lease errors belong
+to tiers that are not ported."""
 
 from __future__ import annotations
 
@@ -20,6 +22,10 @@ MPI_ERR_UNKNOWN = 14
 MPI_ERR_TRUNCATE = 15
 MPI_ERR_OTHER = 16
 MPI_ERR_INTERN = 17
+MPI_ERR_PORT = 27
+MPI_ERR_NAME = 33
+MPI_ERR_SERVICE = 41
+MPI_ERR_SPAWN = 42
 # ULFM extension class: a peer rank failed while this rank depended on it
 MPIX_ERR_PROC_FAILED = 75
 

@@ -10,6 +10,8 @@ from .errors import MPI_SUCCESS
 ANY_SOURCE = -1
 ANY_TAG = -2
 PROC_NULL = -3
+# an intercomm collective's root on the origin side (MPI_ROOT)
+ROOT = -4
 UNDEFINED = -32766
 
 

@@ -12,8 +12,18 @@
 ``COMM_WORLD`` and ``COMM_SELF`` resolve at each access to the calling
 thread's universe, else the process's. ``Abort`` publishes the abort on
 the job's KVS (the launcher kills every rank and exits with the code)
-and exits. Dynamic processes (spawn, ports and names), intercomms and
-MPI-IO wait with their tiers.
+and exits.
+
+Dynamic processes (``runtime/spawn.py``, ``runtime/nameserv.py``):
+``Comm_spawn`` and ``Comm_spawn_multiple`` (a program in process mode, a
+callable with rank threads), ``Comm_get_parent``, ``Get_appnum``, the
+ports (``Open_port``, ``Close_port``, ``Comm_accept``,
+``Comm_connect``) and the name service (``Publish_name``,
+``Lookup_name``, ``Unpublish_name``); intercommunicators
+(``Intercomm_create``, ``Intercomm_merge``, ``core/intercomm.py``).
+``Comm_join`` (a socket handshake between two jobs) raises
+MPI_ERR_OTHER, as the JAX package's record of it says. MPI-IO waits
+with its tier.
 """
 
 from __future__ import annotations
@@ -31,7 +41,8 @@ from .core.comm import Comm
 from .core.errors import MPI_ERR_OTHER, MPIException
 from .core.request import (testall, testany, testsome, waitall, waitany,
                            waitsome)
-from .core.status import ANY_SOURCE, ANY_TAG, PROC_NULL, UNDEFINED, Status
+from .core.status import (ANY_SOURCE, ANY_TAG, PROC_NULL, ROOT, UNDEFINED,
+                          Status)
 from .runtime import universe as _uni
 from .version import version_string
 
@@ -96,6 +107,11 @@ def Finalize() -> None:
     if u.comm_world is not None and u.world_size > 1 and not u.finalized:
         u.comm_world.barrier()
     u.finalize()
+    if u.spawned:
+        # Finalize is collective over connected processes: a spawn root
+        # waits for the children it started
+        from .runtime.spawn import reap_spawned
+        reap_spawned(u)
 
 
 def Abort(comm=None, errorcode: int = 1) -> None:
@@ -161,6 +177,92 @@ BYTE, INT, FLOAT, DOUBLE = _dt.BYTE, _dt.INT, _dt.FLOAT, _dt.DOUBLE
 LONG, CHAR = _dt.LONG, _dt.CHAR
 BFLOAT16 = _dt.BFLOAT16
 run_ranks = _uni.run_ranks
+
+
+# ---------------------------------------------------------------------------
+# dynamic processes (MPI-3.1 §10; runtime/spawn.py) and the name service
+# ---------------------------------------------------------------------------
+
+def _u():
+    u = _uni.current_universe()
+    if u is None:
+        raise MPIException(MPI_ERR_OTHER, "MPI not initialized")
+    return u
+
+
+def Comm_spawn(command, args=(), maxprocs=1, root=0, comm=None, info=None):
+    from .runtime import spawn as _sp
+    return _sp.comm_spawn(comm or _world(), command, args, maxprocs, root,
+                          info)
+
+
+def Comm_spawn_multiple(cmds, root=0, comm=None, info=None):
+    from .runtime import spawn as _sp
+    return _sp.comm_spawn_multiple(comm or _world(), cmds, root, info)
+
+
+def Comm_get_parent():
+    from .runtime import spawn as _sp
+    return _sp.get_parent(_u())
+
+
+def Get_appnum():
+    """MPI_APPNUM: which command of a Comm_spawn_multiple this process
+    runs; None when it was not spawned (the attribute is undefined)."""
+    return _u().appnum
+
+
+def Open_port(info=None) -> str:
+    from .runtime import spawn as _sp
+    return _sp.open_port(_u(), info)
+
+
+def Close_port(port_name: str) -> None:
+    from .runtime import spawn as _sp
+    _sp.close_port(_u(), port_name)
+
+
+def Comm_accept(port_name: str, comm=None, root: int = 0, info=None):
+    from .runtime import spawn as _sp
+    return _sp.comm_accept(port_name, comm or _world(), root, info)
+
+
+def Comm_connect(port_name: str, comm=None, root: int = 0, info=None):
+    from .runtime import spawn as _sp
+    return _sp.comm_connect(port_name, comm or _world(), root, info)
+
+
+def Comm_join(fd: int):
+    """MPI_Comm_join is not supported: it raises MPI_ERR_OTHER (the JAX
+    package's conformance record gives the same error for it)."""
+    raise MPIException(MPI_ERR_OTHER, "MPI_Comm_join is not supported")
+
+
+def Intercomm_create(local_comm, local_leader, peer_comm, remote_leader,
+                     tag=0):
+    from .core.intercomm import intercomm_create
+    return intercomm_create(local_comm, local_leader, peer_comm,
+                            remote_leader, tag)
+
+
+def Intercomm_merge(intercomm, high: bool = False):
+    return intercomm.merge(high)
+
+
+def Publish_name(service_name: str, port_name: str, info=None) -> None:
+    from .runtime import nameserv as _ns
+    _ns.publish_name(_u(), service_name, port_name, info)
+
+
+def Lookup_name(service_name: str, info=None) -> str:
+    from .runtime import nameserv as _ns
+    return _ns.lookup_name(_u(), service_name, info)
+
+
+def Unpublish_name(service_name: str, port_name: str = "",
+                   info=None) -> None:
+    from .runtime import nameserv as _ns
+    _ns.unpublish_name(_u(), service_name, port_name, info)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,11 @@ geometry as its ``shm-boot-<rank>`` card, so every rank of the node
 attaches without waiting for the leader's world build. The world build
 (``runtime/bootstrap.py``) follows inside the same ``Init``.
 
+A spawned child (``MV2T_WORLD_BASE`` set) takes no light boot: its
+world comes up in ``runtime/bootstrap.py`` ``_bootstrap_spawned``, and
+the lowest child of a node makes the node's segment files there
+(``spawned_seg_card``).
+
 ``finalize_rendezvous`` and ``close_light`` are the two halves of
 ``Finalize`` that meet every rank of the job at a KVS fence and drop a
 world nobody built. The JAX package's node-daemon warm attach, the
@@ -139,7 +144,9 @@ def light_boot_from_env() -> Optional[BootState]:
     if _current is not None:
         return _current
     kvs_addr = os.environ.get("MV2T_KVS")
-    if kvs_addr is None:
+    if kvs_addr is None or os.environ.get("MV2T_WORLD_BASE") is not None:
+        # a singleton, or a spawned child (runtime/bootstrap.py
+        # _bootstrap_spawned)
         return None
     rank = int(os.environ.get("MV2T_RANK", "0"))
     size = int(os.environ.get("MV2T_SIZE", "1"))
@@ -218,3 +225,24 @@ def leader_seg_card(boot: BootState) -> Optional[dict]:
         return None
     boot.seg_card = json.loads(raw)
     return boot.seg_card
+
+
+def spawned_seg_card(kvs: KVSClient, pid: int,
+                     local: List[int]) -> Optional[dict]:
+    """The segment card of a spawned world's node (``local``: its
+    co-located children): the lowest makes the segment files, as a
+    light boot's leader does, and publishes ``shm-boot-<pid>``; the
+    others read it. None when it could not be made (TCP then)."""
+    leader = min(local)
+    if pid == leader:
+        try:
+            card = _make_raw_segments(len(local))
+        except OSError as e:
+            log.warning("shm segment provisioning failed (%s); the "
+                        "spawned node uses tcp", e)
+            kvs.put(f"shm-boot-{pid}", "")
+            return None
+        kvs.put(f"shm-boot-{pid}", json.dumps(card))
+        return card
+    raw = kvs.get(f"shm-boot-{leader}")
+    return json.loads(raw) if raw else None

@@ -11,8 +11,18 @@ COMM_WORLD and COMM_SELF (and, under MV2T_TRACE, the rank's recorder,
 whose ring Finalize writes to MV2T_TRACE_DIR) and publishes this rank's
 ``__built-<rank>`` card, which the Finalize rendezvous reads. Without ``MV2T_KVS`` (a
 program started without ``mpirun``) the rank is a singleton: a world of
-one on the in-process fabric. The JAX package's spawned-children path
-waits with ``MPI_Comm_spawn``.
+one on the in-process fabric.
+
+A child of ``MPI_Comm_spawn`` (``runtime/spawn.py``; its environment
+carries ``MV2T_WORLD_BASE``) skips the light boot and comes up in
+``_bootstrap_spawned``: its world is proc ids ``base .. base + n - 1``,
+wired over the named KVS fences ``spawn-<base>`` (node cards) and
+``spawn-<base>-cards`` (channel cards); the children of one node share
+a shared-memory segment that their lowest rank makes (there is no
+launcher light boot for them), and talk to the parents over TCP. The
+child builds ``MPI_COMM_PARENT`` from the spawn envelope and publishes
+``__spawn_ready_<base>`` for the spawn root. The JAX package's failure
+watcher (``MV2T_FT``) is not ported.
 
 A process-mode rank binds no device channel: its COMM_WORLD runs the
 host tier, and a tensor on the card given to one of its collectives
@@ -22,7 +32,10 @@ as the JAX package's rank processes run the host runtime only.
 
 from __future__ import annotations
 
+import json
 import logging
+import os
+import socket
 
 import torch
 
@@ -41,6 +54,14 @@ HOST = torch.device("cpu")
 def bootstrap_from_env() -> Universe:
     with ts.phase("light boot"):
         boot = bootmod.current_boot() or bootmod.light_boot_from_env()
+    kvs_addr = os.environ.get("MV2T_KVS")
+    if boot is None and kvs_addr and \
+            os.environ.get("MV2T_WORLD_BASE") is not None:
+        get_config().reload()
+        with ts.phase("spawned world build"):
+            return _bootstrap_spawned(int(os.environ["MV2T_RANK"]),
+                                      int(os.environ["MV2T_SIZE"]),
+                                      kvs_addr)
     if boot is None:
         # singleton init (a program started without mpirun)
         get_config().reload()
@@ -77,17 +98,19 @@ def build_world(boot: bootmod.BootState) -> Universe:
     return u
 
 
-def _wire_channels(u: Universe, kvs, boot: bootmod.BootState) -> None:
+def _wire_channels(u: Universe, kvs, boot) -> None:
     """The default TCP channel, and the shared-memory channel to the
     co-located ranks over their leader's segment (none when the leader
-    provisioned none: the node talks over TCP)."""
+    provisioned none: the node talks over TCP). A spawned world has no
+    light boot (``boot`` None): its leader makes the segment here."""
     from ..transport.tcp import TcpChannel
     pid = u.world_rank
     u.set_default_channel(TcpChannel(pid, kvs))
     local = [r for r in u.world_ranks if u.node_ids[r] == u.node_ids[pid]]
     if len(local) < 2:
         return
-    card = bootmod.leader_seg_card(boot)
+    card = bootmod.leader_seg_card(boot) if boot is not None \
+        else bootmod.spawned_seg_card(kvs, pid, local)
     if card is None:
         return
     from ..transport.shm import ShmChannel
@@ -100,3 +123,42 @@ def _wire_channels(u: Universe, kvs, boot: bootmod.BootState) -> None:
         if r != pid:
             u.set_channel(r, shm)
     u.shm_channel = shm
+
+
+def _bootstrap_spawned(local: int, size: int, kvs_addr: str) -> Universe:
+    """The bootstrap of an MPI_Comm_spawn child: proc id ``base +
+    local`` of the job, in a COMM_WORLD of its siblings, its parent
+    intercomm built from the spawn envelope in the environment (the
+    context id and the parents' proc ids)."""
+    from ..core.group import Group
+    from ..core.intercomm import Intercomm
+    from .kvs import KVSClient
+
+    base = int(os.environ["MV2T_WORLD_BASE"])
+    ctx = int(os.environ["MV2T_SPAWN_CTX"])
+    parent_ranks = json.loads(os.environ["MV2T_PARENT_RANKS"])
+    pid = base + local
+    kvs = KVSClient(kvs_addr)
+    nodekey = os.environ.get("MV2T_FAKE_NODE", socket.gethostname())
+    kvs.fence(group=f"spawn-{base}", count=size,
+              cards={f"node-{pid}": nodekey})
+    names = kvs.get_many([f"node-{r}" for r in range(base + size)])
+    ids: dict = {}
+    node_ids = [ids.setdefault(n, len(ids)) for n in names]
+    u = Universe(pid, size, HOST, node_ids,
+                 world_ranks=range(base, base + size))
+    u.node_name_to_id = ids
+    u.kvs = kvs
+    u.appnum = int(os.environ.get("MV2T_APPNUM", "0"))
+    _wire_channels(u, kvs, None)
+    kvs.fence(group=f"spawn-{base}-cards", count=size)
+    _initialize(u)
+    u.claim_context_id(ctx)
+    private = u.comm_world.dup()
+    u.parent_intercomm = Intercomm(u, private.group, Group(parent_ranks),
+                                   ctx, private, name="MPI_COMM_PARENT")
+    if local == 0:
+        # tell the spawn root that every child's cards are published
+        kvs.put(f"__spawn_ready_{base}",
+                json.dumps(names[base:base + size]))
+    return u

@@ -7,8 +7,10 @@ TCP server of JSON lines. Rank processes reach it through a
 :class:`KVSClient` at the address in ``MV2T_KVS`` and exchange their
 business cards (node keys, segment paths, socket addresses) with its
 verbs: put / mput, get / mget (blocking until every key is present),
-mpeek / peek (nonblocking), fence (a barrier that may carry cards, split
-into ``fence_begin`` / ``fence_end``), add (an atomic fetch-add), del and
+mpeek / peek (nonblocking), fence (a barrier that may carry cards;
+a named group has its own member count, as the spawned worlds' fences
+``spawn-<base>`` do), add (an atomic fetch-add: ``__next_proc``, the
+watermark of spawned proc ids, starts at the job's size), del and
 abort (``MPI_Abort``: the launcher watches it and kills the job, and the
 server releases every blocked get and fence). The JAX package's fault
 injection sites are not ported.
@@ -139,6 +141,8 @@ class KVSServer:
     def __init__(self, nranks: int, host: str = "127.0.0.1"):
         import socketserver   # launcher-side only; see _HandlerBody
         self.state = _KVSState(nranks)
+        # the proc-id watermark of dynamic spawn (runtime/spawn.py)
+        self.state.data["__next_proc"] = str(nranks)
 
         class _Handler(_HandlerBody, socketserver.StreamRequestHandler):
             pass
@@ -226,6 +230,14 @@ class KVSClient:
         """Atomic fetch-add; returns the post-add value."""
         return int(self._rpc({"cmd": "add", "key": key, "delta": delta})
                    ["val"])
+
+    def peek(self, key: str) -> Optional[str]:
+        """Nonblocking get (None for an absent key)."""
+        r = self._rpc({"cmd": "peek", "key": key})
+        return r["val"] if r.get("ok") else None
+
+    def delete(self, key: str) -> None:
+        self._rpc({"cmd": "del", "key": key})
 
     def abort(self, why: str = "") -> None:
         try:

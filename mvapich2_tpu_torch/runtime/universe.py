@@ -39,6 +39,14 @@ package.
 set by ``run_ranks`` and ``launch_vpod``), else the process-wide one
 (``mpi.Init`` in process mode).
 
+Dynamic processes (``runtime/spawn.py``) grow a universe's proc table
+past its COMM_WORLD: ``extend_procs`` for spawned ids, ``learn_procs``
+for procs an intercomm's bridge names (``node_name_of`` ships a proc's
+node), each giving every rank the same table from the same inputs. A
+spawned rank's COMM_WORLD is ``world_ranks`` = ``range(base, base +
+n)``. The two-sided agreements of ``core/intercomm.py`` take their
+context ids from ``_next_ctx``, a counter below ``CTX_MASK_BASE``.
+
 Observability, as the JAX package's ``Universe.initialize`` and
 ``finalize`` set it up: under MV2T_TRACE each rank's Universe carries an
 event recorder (``tracer``, ``trace/recorder.py``; None otherwise), the
@@ -109,16 +117,36 @@ class Universe:
 
     def __init__(self, world_rank: int, world_size: int,
                  device: torch.device,
-                 node_ids: Optional[Sequence[int]] = None):
+                 node_ids: Optional[Sequence[int]] = None,
+                 world_ranks: Optional[Sequence[int]] = None):
+        """``world_rank`` is this rank's proc id across the job, and
+        ``world_ranks`` the proc ids of its COMM_WORLD: ``range(base,
+        base + n)`` for a spawned child world (``runtime/spawn.py``),
+        else ``range(world_size)``. ``node_ids`` is indexed by proc id
+        and covers every proc this rank can address."""
         self.world_rank = world_rank
         self.world_size = world_size
-        self.world_ranks: List[int] = list(range(world_size))
+        self.world_ranks: List[int] = list(world_ranks) \
+            if world_ranks is not None else list(range(world_size))
         self.node_ids: List[int] = list(node_ids) if node_ids is not None \
-            else [0] * world_size
-        if len(self.node_ids) != world_size:
+            else [0] * (max(self.world_ranks) + 1)
+        if world_ranks is None and len(self.node_ids) != world_size:
             raise ValueError(f"nodes= names {len(self.node_ids)} node ids "
                              f"for {world_size} ranks")
         self.node_name_to_id: Dict[str, int] = {}
+        # dynamic processes (runtime/spawn.py): the spawn intercomm of a
+        # spawned rank, the command index of Comm_spawn_multiple it runs
+        # (None when not spawned), this rank's open ports (tag -> name)
+        # and, on a process-mode spawn root, the child processes it
+        # started (reaped at Finalize)
+        self.parent_intercomm = None
+        self.appnum: Optional[int] = None
+        self.ports: Dict[int, str] = {}
+        self.spawned: List = []
+        # the next id of the two-sided agreements (core/intercomm.py
+        # bridge_agree), monotonic from 8 and far below CTX_MASK_BASE:
+        # 0/1 world, 2/3 self, 4 the port handshake (PORT_CTX)
+        self._next_ctx = 8
         self.device = device
         self.tracer: Optional[trace.Recorder] = None
         self.engine = ProgressEngine(world_rank)
@@ -178,6 +206,69 @@ class Universe:
     def num_nodes(self) -> int:
         return len(set(self.node_ids))
 
+    @property
+    def my_node(self) -> int:
+        return self.node_ids[self.world_rank]
+
+    # -- the proc table's growth (dynamic processes) -----------------------
+    def extend_procs(self, base: int, node_names: Sequence[str]) -> None:
+        """Grow the proc table for spawned processes with ids ``base ..
+        base + len(node_names) - 1``. Names map through
+        ``node_name_to_id``, the same table on every rank, and an
+        unknown name gets the next id, so every rank extends its table
+        identically from the same inputs."""
+        if base > 0:
+            self._grow_proc_table(base - 1)
+        for i, name in enumerate(node_names):
+            pid = base + i
+            nid = self._intern_node(name)
+            if pid < len(self.node_ids):
+                self.node_ids[pid] = nid
+            else:
+                self.node_ids.append(nid)
+
+    def node_name_of(self, pid: int) -> str:
+        """The node name of proc ``pid``, shipped across an intercomm's
+        bridge so a group that never met these procs learns where they
+        live; a node that was never named gets the synthetic name
+        ``__node_<id>`` (the thread harness's convention), a proc this
+        rank does not know ``__proc_<pid>``."""
+        if 0 <= pid < len(self.node_ids):
+            nid = self.node_ids[pid]
+            for name, i in self.node_name_to_id.items():
+                if i == nid:
+                    return name
+            return f"__node_{nid}"
+        return f"__proc_{pid}"
+
+    def _grow_proc_table(self, pid: int) -> None:
+        """Gap-fill the table to cover ``pid`` with distinct negative
+        node ids (``is_local`` never true for them): the one formula of
+        extend_procs and learn_procs."""
+        while len(self.node_ids) <= pid:
+            self.node_ids.append(-1000 - len(self.node_ids))
+
+    def _intern_node(self, name: str) -> int:
+        m = self.node_name_to_id
+        if name not in m:
+            m[name] = max(max(self.node_ids, default=0),
+                          max(m.values(), default=0)) + 1
+        return m[name]
+
+    def learn_procs(self, pairs) -> None:
+        """Extend the table with (proc id, node name) pairs learned from
+        a peer group (``core/intercomm.py`` ``intercomm_create``).
+        Idempotent; the same inputs give the same table on every rank."""
+        for pid, name in pairs:
+            self._grow_proc_table(pid)
+            if name not in self.node_name_to_id \
+                    and name.startswith("__node_") \
+                    and name[7:].lstrip("-").isdigit():
+                # a synthetic id-carrying name: the id itself
+                self.node_ids[pid] = int(name[7:])
+                continue
+            self.node_ids[pid] = self._intern_node(name)
+
     # -- context ids (the JAX package's MPIR_Get_contextid scheme) --------
     def ctx_mask(self):
         """This rank's context-id availability mask (MAX_CONTEXTS bits,
@@ -199,6 +290,17 @@ class Universe:
         if w < len(self._ctx_mask):
             with self._ctx_lock:
                 self._ctx_mask[w] |= np.uint64(1 << b)
+
+    def claim_context_id(self, ctx: int) -> None:
+        """Mark a mask id that another group agreed on as taken here: a
+        spawned rank claims its spawn intercomm's id, which the parents'
+        comm allocated, so none of its own comms is given the same."""
+        if ctx < CTX_MASK_BASE:
+            return
+        w, b = divmod((ctx - CTX_MASK_BASE) // 2, 64)
+        mask = self.ctx_mask()
+        with self._ctx_lock:
+            mask[w] &= np.uint64(~np.uint64(1 << b))
 
     def _ctx_local_words(self) -> int:
         """Words at the top of the mask reserved for single-member
@@ -402,10 +504,13 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
     every rank's engine, and is re-raised with its rank noted; a peer
     waiting on it in a host call waits until ``timeout``, as in the JAX
     package. A rank still running after ``timeout`` seconds raises
-    ``TimeoutError``. Every rank's Universe is finalized when the ranks
-    end, however they end."""
+    ``TimeoutError``. Ranks spawned on the run's fabric (``Comm_spawn``
+    of a callable) are waited for within the same ``timeout``, and a
+    spawned rank's exception is re-raised too. Every rank's Universe is
+    finalized when the ranks end, however they end."""
     universes = local_universe(nranks, device, device_mesh, nodes)
     dev = universes[0].device
+    fabric = universes[0].channel_for(0).fabric
     results: List = [None] * nranks
     errors: List[Optional[BaseException]] = [None] * nranks
 
@@ -413,8 +518,8 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
         ch = universes[0].comm_world.device_channel
         if ch is not None:
             ch.abort()           # break the device rendezvous
-        for u in universes:
-            u.engine.wakeup()
+        for eng in list(fabric.engines.values()):
+            eng.wakeup()         # the ranks' and any spawned rank's
 
     def body(r: int):
         comm = universes[r].comm_world
@@ -447,7 +552,17 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
                 abort()
                 raise TimeoutError(
                     f"rank thread {t.name} did not finish within "
-                    f"{timeout}s (errors so far: {[e for e in errors if e]})")
+                    f"{timeout}s (errors so far: {[e for e in errors if e]}"
+                    f"; spawned ranks' {dict(fabric.spawn_errors)})")
+        # ranks spawned on this fabric (Comm_spawn from a callable) end
+        # within the same deadline, and their failures are reported
+        for t in list(fabric.spawned):
+            t.join(max(0.0, deadline - time.monotonic()))
+            if t.is_alive():
+                abort()
+                raise TimeoutError(
+                    f"spawned rank thread {t.name} did not finish within "
+                    f"{timeout}s")
         finished = True
     finally:
         for u in universes:
@@ -460,4 +575,6 @@ def run_ranks(nranks: int, fn: Callable, *args, device: DeviceLike = None,
     for r, e in enumerate(errors):
         if e is not None:
             raise RuntimeError(f"rank {r} failed: {e!r}") from e
+    for pid, e in sorted(fabric.spawn_errors.items()):
+        raise RuntimeError(f"spawned rank {pid} failed: {e!r}") from e
     return results

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import itertools
 import threading
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -26,6 +26,12 @@ class LocalFabric:
         self.nranks = nranks
         self.engines: Dict[int, ProgressEngine] = {}
         self._lock = threading.Lock()
+        # thread-mode spawn (runtime/spawn.py): the next free proc id,
+        # the spawned ranks' threads and the errors they ended with
+        # (proc id -> exception), which run_ranks joins and reports
+        self._next_proc = nranks
+        self.spawned: List[threading.Thread] = []
+        self.spawn_errors: Dict[int, BaseException] = {}
         # exposed buffers for the RGET path: handle -> ndarray
         self._exposed: Dict[int, np.ndarray] = {}
         self._handle_ids = itertools.count(1)

@@ -51,6 +51,16 @@ def test_no_jax_or_reference_import(path):
     assert bad == [], f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+def test_dynamic_process_modules_are_scanned():
+    """The spawn, port, name-service and intercomm modules and their
+    programs are among the files the import scan reads."""
+    scanned = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for rel in ("core/intercomm.py", "coll/inter.py", "coll/nbc/inter.py",
+                "runtime/spawn.py", "runtime/nameserv.py",
+                "progs/spawn_parent.py", "progs/spawn_child.py"):
+        assert rel in scanned, rel
+
+
 def test_scanner_matches_module_names_exactly(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import mvapich2_tpu_torch\nfrom mvapich2_tpu_torch.ops "
