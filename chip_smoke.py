@@ -313,6 +313,23 @@ non-zero, printing no result, without them. Phases:
    child processes (appnum 0 and 1), the job's wall time, rank 0's
    Comm_spawn time and the intercomm allreduce at 8 B and 4 MiB; the
    job must print No Errors and no child may outlive it.
+21. topo (after spawn): process topologies, neighbor collectives,
+   attributes, generalized requests and create_group on 8 rank threads
+   bound to cuda:0. dims_create(8, 2), a periodic cart_create over it
+   and cart_sub into its rows: each row allreduces 64 MiB f32 tensors
+   on its slot channel (K1 once a row and call), bitwise the plain
+   result, timed on the card and on the host clock as [derived] times
+   a call; then on one run a halo exchange by neighbor_alltoall on
+   numpy (a 4096 x 4096 f32 tile a rank, its four edges out), equal to
+   the script's numpy model of the exchange, its median wall time; a
+   dist_graph_create_adjacent ring's neighbor_alltoallv of uneven
+   counts; 64 MiB allreduces on the dist graph and on create_group of
+   the even ranks (K1 once each, bitwise); a tensor on the card in
+   each neighbor collective refused on every rank (NotImplementedError)
+   with no launch; a keyval's copy_fn on dup of the cart and delete_fn
+   on free; a Grequest completed from another thread waking waitall.
+   ``to_host`` fails throughout; each kernel count is zeroed just
+   before its calls and read just after.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
@@ -6798,6 +6815,298 @@ def _phase_spawn(torch, np, mvt, hbm, ici, ring, a2a, smi, dev):
             "process": job, "process_job_s": wall, "phase_s": total}
 
 
+TOPO_TILE = 4096                   # a rank's halo tile: 4096 x 4096 f32
+TOPO_HALO_ITERS = 5                # halo exchanges timed, after one checked
+TOPO_V = 1024                      # f32 elements: the alltoallv's unit
+TOPO_WAKE_S = 0.05                 # the Grequest's completion, after the wait
+
+
+def _halo_edges(np, tile):
+    """A tile's four edges in cart neighbor order: to the -1 and +1
+    neighbors of dim 0 its top and bottom rows, of dim 1 its left and
+    right columns."""
+    return np.concatenate([tile[0], tile[-1], tile[:, 0], tile[:, -1]])
+
+
+def _halo_model(np, ctopo, tiles):
+    """What neighbor_alltoall delivers, modelled in numpy: the k-th block
+    that rank s sends to rank d lands in d's k-th receive slot from s
+    (duplicate neighbors match in post order)."""
+    n = TOPO_TILE
+    out = []
+    for d in range(len(tiles)):
+        got, used = np.empty(4 * n, np.float32), {}
+        for i, s in enumerate(ctopo.neighbors_of(d)):
+            k = used.get(s, 0)
+            used[s] = k + 1
+            j = [b for b, t in enumerate(ctopo.neighbors_of(s))
+                 if t == d][k]
+            got[i * n:(i + 1) * n] = _halo_edges(np, tiles[s])[
+                j * n:(j + 1) * n]
+        out.append(got)
+    return out
+
+
+def _topo_vcounts(r, p):
+    """The dist-graph ring's alltoallv counts of rank ``r`` of ``p``: it
+    sends 1-3 units to its left and 2-4 to its right; it receives what
+    its left sends right and its right sends left."""
+    def send(q):
+        return [TOPO_V * (1 + q % 3), TOPO_V * (2 + (q + 1) % 3)]
+    return send(r), [send((r - 1) % p)[1], send((r + 1) % p)[0]]
+
+
+def _topo_vrow(np, w, dst, n):
+    """The ``n`` f32 rank ``w`` sends to its neighbor ``dst``."""
+    return (np.arange(n, dtype=np.float32) + 1e5 * w + 1e4 * dst)
+
+
+def phase_topo(torch, np, mvt, hbm, ici, ring, a2a, smi, dev):
+    """Process topologies, neighbor collectives, attributes, generalized
+    requests and create_group on 8 rank threads bound to cuda:0 (module
+    docstring, phase 21). Returns its figures."""
+    from mvapich2_tpu_torch import mpi
+    from mvapich2_tpu_torch.coll import device as coll_dev
+    from mvapich2_tpu_torch.core import attr, group, topo
+    from mvapich2_tpu_torch.core import comm as comm_mod
+    t_phase = time.perf_counter()
+    mods = (hbm, ici, ring, a2a)
+    k1 = "fused_reduce_to_slot"
+    card_dev = dev if dev.type == "cuda" else torch.device("meta")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3100)
+    data = [torch.randint(-8, 8, (N,), generator=gen, device=dev,
+                          dtype=torch.int32).float() for _ in range(R)]
+    dims = topo.dims_create(R, 2)
+    if dims != [4, 2]:
+        raise AssertionError(f"[topo] dims_create({R}, 2) = {dims}")
+    ctopo = topo.CartTopology(dims, [True, True])
+
+    def row_of(w):
+        c0 = ctopo.coords_of(w)[0]
+        return [ctopo.rank_of([c0, j]) for j in range(dims[1])]
+
+    # (a) the cart's rows allreduce 64 MiB tensors on their slot channels
+    cache = {}
+
+    def row_allreduce(comm):
+        got = cache.get(comm.rank)
+        if got is None or got[0] is not comm:
+            cart = comm.cart_create(dims, periods=[True, True])
+            got = cache[comm.rank] = (comm, cart.cart_sub([False, True]))
+        return got[1].allreduce(data[comm.rank])
+
+    def row_check(r, out):
+        _exact(torch, f"[topo] cart_sub row allreduce, rank {r}", out,
+               sum(data[m] for m in row_of(r)))
+
+    real_check = ring.check_errors
+    host_mods = (coll_dev, comm_mod, topo)
+    real_host = [m.to_host for m in host_mods]
+
+    def leader_check(device=None):
+        if not getattr(_LEADER, "skip_wait", False):
+            real_check(device)
+
+    def no_copy(x):
+        raise AssertionError("[topo] a tensor on the card was copied to "
+                             "the host")
+
+    def guard(on):
+        """``to_host`` raises throughout the phase's runs."""
+        for m, real in zip(host_mods, real_host):
+            m.to_host = no_copy if on else real
+    ring.check_errors = leader_check
+    guard(True)
+    try:
+        nrows = R // dims[1]
+        row_launches, row_host, row_card, row_queued = _card_path(
+            torch, mvt, mods, "cart_sub row allreduce 64 MiB", {"device": dev},
+            row_allreduce, {k1: nrows}, row_check, True, R, "topo")
+    finally:
+        ring.check_errors = real_check
+        guard(False)
+    ring.check_errors()
+    log(f"[topo] dims_create({R}, 2) = {dims}, periodic cart_create, "
+        f"cart_sub into {nrows} rows of {dims[1]}: 64 MiB f32 row "
+        f"allreduce on each row's slot channel, {nrows} K1 launches a "
+        f"call, bitwise its plain version on every rank; card "
+        f"{row_card:.4f} ms, host {row_host:.4f} ms (median of "
+        f"{CARD_TIMED}; queued behind the sleep: {row_queued}) on {smi}")
+
+    # (b) the host-tier calls on one run: halo, dist graph, group, refusals
+    rng = np.random.default_rng(SEED + 3101)
+    tiles = [rng.random((TOPO_TILE, TOPO_TILE), dtype=np.float32)
+             for _ in range(R)]
+    halo_want = _halo_model(np, ctopo, tiles)
+    card_launches = {}
+
+    def counted(comm, key, fn):
+        """``fn()`` with the kernel counts zeroed just before it on every
+        rank and read by rank 0 just after."""
+        comm.barrier()
+        if comm.rank == 0:
+            _zero(*mods)
+        comm.barrier()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.current_stream().synchronize()
+        comm.barrier()
+        if comm.rank == 0:
+            card_launches[key] = {k: v for k, v in _launches(*mods).items()
+                                  if v}
+        return out
+
+    def app(world):
+        r = world.rank
+        cart = world.cart_create(dims, periods=[True, True])
+        if cart.rank != r or cart.topo_test() != "cart":
+            raise AssertionError(f"[topo] cart rank {cart.rank} of {r}")
+        # the halo exchange of the tile's edges, on numpy
+        recv = np.empty(4 * TOPO_TILE, np.float32)
+
+        def exchange():
+            cart.neighbor_alltoall(_halo_edges(np, tiles[r]), recv,
+                                   count=TOPO_TILE)
+        halo_ms = []
+        for i in range(1 + TOPO_HALO_ITERS):
+            recv.fill(np.nan)
+            world.barrier()
+            t0 = time.perf_counter()
+            counted(world, "halo", exchange) if i == 0 else exchange()
+            halo_ms.append((time.perf_counter() - t0) * 1e3)
+            if recv.tobytes() != halo_want[r].tobytes():
+                raise AssertionError(f"[topo] rank {r}: halo exchange "
+                                     f"{i} differs from the numpy model")
+        # a ring by dist_graph_create_adjacent, alltoallv of uneven counts
+        left, right = (r - 1) % R, (r + 1) % R
+        dg = world.dist_graph_create_adjacent([left, right], [left, right])
+        sc, rc = _topo_vcounts(r, R)
+        send = np.concatenate([_topo_vrow(np, r, left, sc[0]),
+                               _topo_vrow(np, r, right, sc[1])])
+        got = np.full(sum(rc), -1, np.float32)
+        counted(world, "alltoallv", lambda: dg.neighbor_alltoallv(
+            send, sc, [0, sc[0]], got, rc, [0, rc[0]]))
+        want = np.concatenate([_topo_vrow(np, left, r, rc[0]),
+                               _topo_vrow(np, right, r, rc[1])])
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(f"[topo] rank {r}: dist-graph "
+                                 f"neighbor_alltoallv differs")
+        # tensor allreduces on the dist graph and the even ranks' group
+        evens = group.Group(list(range(0, R, 2)))
+
+        def on_card():
+            out = [dg.allreduce(data[r])]
+            g = world.create_group(evens, tag=31)
+            if g is not None:
+                out.append(g.allreduce(data[r]))
+            return out, g
+        outs, g = counted(world, "dg_group_allreduce", on_card)
+        _exact(torch, "[topo] dist-graph allreduce", outs[0],
+               sum(data[m] for m in range(R)))
+        if (g is None) != bool(r % 2):
+            raise AssertionError(f"[topo] rank {r}: create_group gave {g}")
+        if g is not None:
+            if g.device_channel is None:
+                raise AssertionError("[topo] the group comm bound no "
+                                     "channel")
+            _exact(torch, "[topo] create_group allreduce", outs[1],
+                   sum(data[m] for m in range(0, R, 2)))
+        # a tensor on the card in each neighbor collective: refused
+        card = torch.ones(4 * TOPO_TILE, device=card_dev)
+        msgs = []
+
+        def refusals():
+            for name, call in (
+                    ("neighbor_allgather", lambda: cart.neighbor_allgather(
+                        card[:TOPO_TILE], recv, count=TOPO_TILE)),
+                    ("neighbor_alltoall", lambda: cart.neighbor_alltoall(
+                        _halo_edges(np, tiles[r]), card, count=TOPO_TILE)),
+                    ("neighbor_alltoallv", lambda: dg.neighbor_alltoallv(
+                        card, sc, [0, sc[0]], got, rc, [0, rc[0]]))):
+                try:
+                    call()
+                except NotImplementedError as e:
+                    msgs.append(str(e))
+                    continue
+                raise AssertionError(f"[topo] rank {r}: {name} took a "
+                                     f"tensor on the card")
+        counted(world, "refusals", refusals)
+        if len(msgs) != 3 or not all("not moved to the host" in m
+                                     for m in msgs):
+            raise AssertionError(f"[topo] rank {r}: refusals {msgs}")
+        # a keyval on the cart: copy_fn on dup, delete_fn on free
+        seen = []
+        kv = attr.Keyval(
+            copy_fn=lambda o, k, e, v: (seen.append(("copy", v)) or
+                                        (True, v + 1)),
+            delete_fn=lambda o, k, v, e: seen.append(("delete", v)))
+        cart.attrs.set(cart, kv, 10 * r)
+        d = cart.dup()
+        if d.topo_test() != "cart" or d.attrs.get(kv) != (True, 10 * r + 1):
+            raise AssertionError(f"[topo] rank {r}: dup of the cart "
+                                 f"{d.topo_test()} {d.attrs.get(kv)}")
+        d.free()
+        if seen != [("copy", 10 * r), ("delete", 10 * r + 1)]:
+            raise AssertionError(f"[topo] rank {r}: keyval calls {seen}")
+        # a generalized request completed from another thread
+        stamp = {}
+
+        def finish():
+            stamp["t"] = time.perf_counter()
+            greq.complete()
+        greq = mpi.Grequest_start(lambda st: setattr(st, "tag", 7))
+        timer = threading.Timer(TOPO_WAKE_S, finish)
+        timer.start()
+        sts = mpi.waitall([greq])
+        wake_ms = (time.perf_counter() - stamp["t"]) * 1e3
+        timer.join(10)
+        if sts[0].tag != 7:
+            raise AssertionError(f"[topo] rank {r}: Grequest status "
+                                 f"{sts[0]}")
+        world.barrier()
+        return (statistics.median(halo_ms[1:]), halo_ms[0], wake_ms,
+                msgs[0])
+
+    _zero(*mods)
+    t0 = time.perf_counter()
+    guard(True)
+    try:
+        res = mvt.run_ranks(R, app, device=dev)
+    finally:
+        guard(False)
+    run_s = time.perf_counter() - t0
+    want = {"halo": {}, "alltoallv": {}, "refusals": {},
+            "dg_group_allreduce": {k1: 2}}
+    if card_launches != want:
+        raise AssertionError(f"[topo] launches {card_launches}, expected "
+                             f"{want}")
+    halo_ms, halo_first, wake_ms, msg = res[0]
+    wake_max = max(x[2] for x in res)
+    if wake_max > 1e3:
+        raise AssertionError(f"[topo] a Grequest waiter woke "
+                             f"{wake_max:.1f} ms after its completion")
+    log(f"[topo] halo exchange by neighbor_alltoall on the {dims} torus, "
+        f"a {TOPO_TILE} x {TOPO_TILE} f32 tile a rank, its four edges of "
+        f"{TOPO_TILE} f32 out: {halo_ms:.3f} ms (rank 0 host clock, median "
+        f"of {TOPO_HALO_ITERS} after one at {halo_first:.3f}), every rank "
+        f"equal to the numpy model, no launch; dist-graph ring "
+        f"neighbor_alltoallv of uneven counts equal to numpy's; 64 MiB "
+        f"allreduce on the dist graph and on create_group of the even "
+        f"ranks: K1 once each, bitwise; a tensor on the card refused by "
+        f"the three neighbor collectives on all {R} ranks with no launch "
+        f"({msg[:100]}...); keyval copy on dup and delete on free of the "
+        f"cart; Grequest completed from a thread wakes waitall in "
+        f"{wake_max:.2f} ms at most; {run_s:.1f} s on {smi}")
+    total = time.perf_counter() - t_phase
+    log(f"[topo] phase {total:.1f} s")
+    return {"dims": dims, "row_allreduce": {
+                "launches": row_launches, "card_ms": row_card,
+                "host_ms": row_host, "card_queued": row_queued},
+            "halo_ms": halo_ms, "halo_first_ms": halo_first,
+            "launches": card_launches, "grequest_wake_ms_max": wake_max,
+            "run_s": run_s, "phase_s": total}
+
+
 def _zombie(pid):
     try:
         with open(f"/proc/{pid}/stat") as f:
@@ -6949,6 +7258,8 @@ def main(argv=None):
                                      alltoall, mpit, make_mesh, smi, dev)
     extra["spawn"] = phase_spawn(torch, np, mvt, hbm, ici, ring, alltoall,
                                  smi, dev)
+    extra["topo"] = phase_topo(torch, np, mvt, hbm, ici, ring, alltoall, smi,
+                               dev)
     extra["trace"] = phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)

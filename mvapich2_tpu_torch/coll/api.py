@@ -155,8 +155,9 @@ def allgatherv(comm, sendbuf, recvbuf, counts: Sequence[int],
         displs = _displs_from_counts(counts)
     total = max(displs[i] + counts[i] for i in range(comm.size))
     tag = comm.next_coll_tag()
-    rb = datatype.pack(recvbuf, total) if sendbuf is IN_PLACE else \
-        np.empty(total * esz, dtype=np.uint8)
+    # staged from recvbuf, so the gaps between spread receive ranges
+    # keep what recvbuf held when unpacked back (MPI leaves them alone)
+    rb = np.asarray(datatype.pack(recvbuf, total))
     if sendbuf is IN_PLACE:
         mine = rb[displs[comm.rank] * esz:
                   (displs[comm.rank] + counts[comm.rank]) * esz].copy()
@@ -279,7 +280,7 @@ def alltoallv(comm, sendbuf, scounts, sdispls, recvbuf, rcounts, rdispls,
     stotal = max(sdispls[i] + scounts[i] for i in range(comm.size))
     rtotal = max(rdispls[i] + rcounts[i] for i in range(comm.size))
     sb = np.asarray(datatype.pack(sendbuf, stotal))
-    rb = np.empty(rtotal * esz, dtype=np.uint8)
+    rb = np.asarray(datatype.pack(recvbuf, rtotal))   # gaps kept
     alg.alltoallv_scattered(comm, sb, [c * esz for c in scounts],
                             [d * esz for d in sdispls], rb,
                             [c * esz for c in rcounts],

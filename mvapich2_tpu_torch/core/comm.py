@@ -17,11 +17,25 @@ COMM_WORLD of ``run_ranks`` is bound to one). Its surface:
   NBC tier where the JAX package routes a call there, else the host
   schedule); the persistent collectives (``*_init``, MPI-4), whose
   request re-posts the ``i*`` twin on every ``start()``;
-* dup, create, split, split_type_shared, build_2level, compare, free.
-  A comm made by dup, create or split of a bound comm gets a device
-  channel by its members' geometry (``coll/device.py``
-  ``bind_derived``): it runs a tensor's collectives on the card, and a
-  numpy call on the host tier, as a comm with no channel.
+* dup, create, create_group, split, split_type_shared, build_2level,
+  compare, free, set_name/get_name. A comm made by dup, create,
+  create_group or split of a bound comm gets a device channel by its
+  members' geometry (``coll/device.py`` ``bind_derived``): it runs a
+  tensor's collectives on the card, and a numpy call on the host tier,
+  as a comm with no channel;
+* attribute caching (``attrs``, ``core/attr.py``): ``dup`` runs the
+  keyvals' ``copy_fn`` and carries the topology over, ``free`` runs
+  every ``delete_fn`` before it releases the device channel and the
+  context id, so a ``delete_fn`` may still call a collective on the
+  comm. ``split``, ``create`` and ``create_group`` copy no attributes
+  (MPI-3.1 §6.7.2 names only MPI_Comm_dup and MPI_Comm_idup), as in the
+  JAX package;
+* process topologies and neighbor collectives (``core/topo.py``): the
+  Cartesian, graph and distributed-graph constructors (made by split or
+  dup, so they bind the channel their geometry gives) and accessors,
+  and ``neighbor_allgather``/``_alltoall``/``_alltoallv`` on numpy (a
+  CPU tensor in place; a tensor on the card raises
+  ``NotImplementedError``, never staged to the host).
 
 Counts and datatypes come from the buffer where not given
 (``core/datatype.py``: a numpy array's or a tensor's dtype); derived
@@ -39,13 +53,13 @@ Intercommunicators (``core/intercomm.py`` ``Intercomm``) subclass Comm
 and override its seams: ``world_of`` and ``_check_rank`` (point-to-point
 ranks name the remote group), ``_check_root`` (MPI_ROOT and
 MPI_PROC_NULL) and ``_coll`` (the intercomm algorithms of
-``coll/inter.py``); ``is_inter`` tells the two apart. Topologies,
-neighbor collectives, attributes, one-sided host windows and the ULFM
-calls wait with their tiers.
+``coll/inter.py``); ``is_inter`` tells the two apart. One-sided host
+windows and the ULFM calls wait with their tiers.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,9 +67,11 @@ import torch
 
 from . import datatype as dtmod
 from . import op as opmod
+from .attr import AttrCache
 from .datatype import Datatype
 from .errors import (MPI_ERR_COMM, MPI_ERR_COUNT, MPI_ERR_GROUP,
-                     MPI_ERR_RANK, MPI_ERR_ROOT, MPIException, mpi_assert)
+                     MPI_ERR_RANK, MPI_ERR_ROOT, MPI_ERR_TOPOLOGY,
+                     MPIException, mpi_assert)
 from .group import Group
 from .request import Request
 from .status import ANY_SOURCE, ANY_TAG, PROC_NULL, UNDEFINED, Status
@@ -155,6 +171,8 @@ class Comm:
         self.rank = group.rank_of_world(universe.world_rank)
         self.size = group.size
         self.freed = False
+        self.attrs = AttrCache()
+        self.topo = None            # set by core/topo.py
         self._coll_seq = 0          # collective tag sequencing
         self.coll_fns: Dict[str, Callable] = {}
         self._shmem_comm: Optional["Comm"] = None
@@ -836,7 +854,10 @@ class Comm:
     def dup(self) -> "Comm":
         self._check()
         ctx = self.u.allocate_context_id(self)
-        return self._derive(Comm(self.u, self.group, ctx, self.name + "_dup"))
+        new = self._derive(Comm(self.u, self.group, ctx, self.name + "_dup"))
+        self.attrs.copy_all(self, new.attrs)
+        new.topo = self.topo
+        return new
 
     def create(self, group: Group) -> Optional["Comm"]:
         """MPI_Comm_create: collective over self; None for non-members."""
@@ -859,6 +880,68 @@ class Comm:
             return None
         return self._derive(Comm(self.u, group, ctx,
                                  self.name + "_create"))
+
+    def create_group(self, group: Group, tag: int = 0) -> Optional["Comm"]:
+        """MPI_Comm_create_group: collective only over ``group``'s members
+        (MPI-3.1 §6.4.2); a non-member returns None at once. The members
+        agree on a context id by a binomial AND-reduce of their masks
+        and a binomial bcast, over this comm's point-to-point with
+        ``tag`` (the standard's contract: the parent's tag space carries
+        the internal traffic), carrying the guarded payload
+        (``Universe.ctx_payload``) so an agreement of another thread of
+        the process forces a retry of all members instead of a
+        duplicate id. Disjoint groups may agree on equal ids at once:
+        matching keys are (context, source, tag) and their member sets
+        are disjoint, so their traffic never meets, and their device
+        rendezvous keys name their members (``bind_derived``)."""
+        self._check()
+        me = group.rank_of_world(self.u.world_rank)
+        if me == UNDEFINED:
+            return None
+        m = group.size
+        name = self.name + "_create_group"
+        if m == 1:
+            # single member: no agreement (see alloc_context_local)
+            return self._derive(Comm(self.u, group,
+                                     self.u.alloc_context_local(), name))
+        parent_of = {g: self.group.rank_of_world(group.world_of_rank(g))
+                     for g in range(m)}
+        key = (self.context_id, tag)
+        while True:
+            val, own = self.u.ctx_payload(key)
+            try:
+                other = np.empty_like(val)
+                # binomial reduce (bitwise AND) to group rank 0
+                mask = 1
+                while mask < m:
+                    if me & mask:
+                        self.send(val, parent_of[me & ~mask], tag)
+                        break
+                    partner = me | mask
+                    if partner < m:
+                        self.recv(other, parent_of[partner], tag)
+                        val &= other
+                    mask <<= 1
+                # binomial bcast of the agreed payload from group rank 0
+                mask = 1
+                while mask < m:
+                    if me & mask:
+                        self.recv(val, parent_of[me - mask], tag)
+                        break
+                    mask <<= 1
+                mask >>= 1
+                while mask > 0:
+                    if me + mask < m:
+                        self.send(val, parent_of[me + mask], tag)
+                    mask >>= 1
+            except BaseException:
+                self.u.ctx_release(own, key, done=True)
+                raise
+            ctx = self.u.ctx_resolve(val, own, key)
+            if ctx >= 0:
+                break
+            time.sleep(0.0002)   # let the mask-holding thread finish
+        return self._derive(Comm(self.u, group, ctx, name))
 
     def split(self, color: int, key: int = 0) -> Optional["Comm"]:
         """MPI_Comm_split: allgather the (color, key, world rank) triples,
@@ -906,6 +989,8 @@ class Comm:
     def free(self) -> None:
         if self.freed:
             return
+        # the delete callbacks first: the comm still works inside them
+        self.attrs.delete_all(self)
         if self.device_channel is not None:
             self.device_channel.release()
         self.u.comms_by_ctx.pop(self.context_id, None)
@@ -927,6 +1012,96 @@ class Comm:
         self._leader_comm = leader if am_leader else None
         self._twolevel_ready = True
         return self._shmem_comm, self._leader_comm
+
+    # ------------------------------------------------------------------
+    # topologies (core/topo.py)
+    # ------------------------------------------------------------------
+    def cart_create(self, dims, periods=None, reorder: bool = False):
+        from . import topo as _topo
+        if periods is None:
+            periods = [False] * len(dims)
+        return _topo.cart_create(self, dims, periods, reorder)
+
+    def graph_create(self, index, edges, reorder: bool = False):
+        from . import topo as _topo
+        return _topo.graph_create(self, index, edges, reorder)
+
+    def dist_graph_create_adjacent(self, sources, destinations,
+                                   sweights=None, dweights=None,
+                                   reorder: bool = False):
+        from . import topo as _topo
+        return _topo.dist_graph_create_adjacent(self, sources, destinations,
+                                                sweights, dweights, reorder)
+
+    def dist_graph_create(self, sources, degrees, destinations,
+                          weights=None, reorder: bool = False):
+        from . import topo as _topo
+        return _topo.dist_graph_create(self, sources, degrees,
+                                       destinations, weights, reorder)
+
+    def topo_test(self) -> str:
+        from . import topo as _topo
+        return _topo.topo_test(self)
+
+    def cart_coords(self, rank: Optional[int] = None):
+        from . import topo as _topo
+        t = _topo._cart(self)
+        return t.coords_of(self.rank if rank is None else rank)
+
+    def cart_rank(self, coords) -> int:
+        from . import topo as _topo
+        return _topo._cart(self).rank_of(coords)
+
+    def cart_get(self):
+        from . import topo as _topo
+        t = _topo._cart(self)
+        return list(t.dims), list(t.periods), t.coords_of(self.rank)
+
+    def cartdim_get(self) -> int:
+        from . import topo as _topo
+        return _topo._cart(self).ndims
+
+    def cart_shift(self, direction: int, disp: int = 1):
+        from . import topo as _topo
+        return _topo.cart_shift(self, direction, disp)
+
+    def cart_sub(self, remain_dims):
+        from . import topo as _topo
+        return _topo.cart_sub(self, remain_dims)
+
+    def graph_neighbors(self, rank: Optional[int] = None):
+        if self.topo is None:
+            raise MPIException(MPI_ERR_TOPOLOGY, "no topology")
+        return self.topo.neighbors_of(self.rank if rank is None else rank)
+
+    def dist_graph_neighbors(self):
+        """(sources, destinations) of a dist-graph comm."""
+        from . import topo as _topo
+        if not isinstance(self.topo, _topo.DistGraphTopology):
+            raise MPIException(MPI_ERR_TOPOLOGY,
+                               "not a distributed-graph communicator")
+        return (list(self.topo.sources), list(self.topo.destinations))
+
+    def neighbor_allgather(self, sendbuf, recvbuf, count=None, datatype=None):
+        from . import topo as _topo
+        _topo.neighbor_allgather(self, sendbuf, recvbuf, count, datatype)
+
+    def neighbor_alltoall(self, sendbuf, recvbuf, count=None, datatype=None):
+        from . import topo as _topo
+        _topo.neighbor_alltoall(self, sendbuf, recvbuf, count, datatype)
+
+    def neighbor_alltoallv(self, sendbuf, sendcounts, sdispls, recvbuf,
+                           recvcounts, rdispls, datatype=None):
+        from . import topo as _topo
+        _topo.neighbor_alltoallv(self, sendbuf, sendcounts, sdispls, recvbuf,
+                                 recvcounts, rdispls, datatype)
+
+    # ------------------------------------------------------------------
+    def set_name(self, name: str) -> None:
+        self.name = name
+
+    def get_name(self) -> str:
+        return self.name
 
     def __repr__(self):
         return (f"Comm({self.name or 'anon'}, rank={self.rank}/{self.size}, "

@@ -8,9 +8,10 @@ the basic types and the MINLOC/MAXLOC pair types, ``from_numpy_dtype``
 (which also takes a ``torch.dtype``: a tensor's datatype for the device
 channels, whose ``size`` is all they read), ``as_bytes_view``, and the
 constructors contiguous, vector, hvector, indexed, hindexed,
-indexed_block, struct, subarray and resized. ``create_darray``, the
-keyval attributes and the envelope introspection wait with the host
-tiers that use them (MPI-IO, the C ABI).
+indexed_block, struct, subarray, darray (``DISTRIBUTE_*``) and
+resized, each recording its envelope (``get_envelope``); ``dup``, which
+runs the keyvals' ``copy_fn``, and the keyval attributes (``attrs``,
+``core/attr.py``).
 
 A torch tensor is not a host buffer: ``as_bytes_view`` refuses it with
 MPI_ERR_ARG, as the JAX package refuses a ``jax.Array``. Point-to-point
@@ -91,9 +92,35 @@ class Datatype:
     def basic_size(self) -> int:
         return self.basic.itemsize if self.basic is not None else 1
 
+    @property
+    def attrs(self):
+        """Keyval attribute cache (MPI_Type_set_attr family), lazy."""
+        a = getattr(self, "_attrs", None)
+        if a is None:
+            from .attr import AttrCache
+            a = self._attrs = AttrCache()
+        return a
+
+    def get_envelope(self):
+        """(combiner, integers, addresses, datatypes) — MPI_Type_get_
+        envelope/get_contents introspection. Basic types report
+        COMBINER_NAMED with empty argument lists."""
+        env = getattr(self, "_envelope", None)
+        if env is None:
+            return ("named", [], [], [])
+        return env
+
     def commit(self) -> "Datatype":
         self.committed = True
         return self
+
+    def dup(self) -> "Datatype":
+        new = Datatype(self.spans, self.extent, self.lb, self.basic,
+                       self.name + "_dup", self.committed)
+        new._envelope = ("dup", [], [], [self])
+        if getattr(self, "_attrs", None) is not None:
+            self.attrs.copy_all(self, new.attrs)   # keyval copy_fn fires
+        return new
 
     def __repr__(self) -> str:
         return (f"Datatype({self.name or 'derived'}, size={self.size}, "
@@ -423,6 +450,11 @@ def from_torch_dtype(tdt) -> Datatype:
 # Derived-type constructors (MPI-3.1 set; reference src/mpi/datatype/)
 # ---------------------------------------------------------------------------
 
+def _env(dt: Datatype, combiner: str, ints, aints, types) -> Datatype:
+    dt._envelope = (combiner, list(ints), list(aints), list(types))
+    return dt
+
+
 def create_contiguous(count: int, oldtype: Datatype) -> Datatype:
     if oldtype.is_contiguous:
         # one span, any count — contig-of-contig must not materialize
@@ -441,15 +473,18 @@ def create_contiguous(count: int, oldtype: Datatype) -> Datatype:
         extent = oldtype.ub + max(0, tail) - lb
     else:
         lb, extent = oldtype.lb, 0
-    return Datatype(spans, extent, lb, oldtype.basic,
-                    f"contig({count},{oldtype.name})")
+    return _env(
+        Datatype(spans, extent, lb, oldtype.basic,
+                 f"contig({count},{oldtype.name})"),
+        "contiguous", [count], [], [oldtype])
 
 
 def create_vector(count: int, blocklength: int, stride: int,
                   oldtype: Datatype) -> Datatype:
     """stride in elements of oldtype (MPI_Type_vector)."""
-    return create_hvector(count, blocklength,
-                          stride * oldtype.extent, oldtype)
+    return _env(create_hvector(count, blocklength,
+                               stride * oldtype.extent, oldtype),
+                "vector", [count, blocklength, stride], [], [oldtype])
 
 
 def create_hvector(count: int, blocklength: int, stride_bytes: int,
@@ -466,8 +501,10 @@ def create_hvector(count: int, blocklength: int, stride_bytes: int,
         lb = oldtype.lb
         extent = (oldtype.ub + (blocklength - 1) * oldtype.extent
                   + (count - 1) * stride_bytes) - lb
-        return Datatype(spans, extent, lb, oldtype.basic,
-                        f"hvector({count},{blocklength},{stride_bytes})")
+        return _env(
+            Datatype(spans, extent, lb, oldtype.basic,
+                     f"hvector({count},{blocklength},{stride_bytes})"),
+            "hvector", [count, blocklength], [stride_bytes], [oldtype])
     # a block of a contiguous oldtype is ONE span — never materialize
     # blocklength spans (bigtype.c builds 2^29-element blocks)
     block = (np.array([[0, blocklength * oldtype.size]], dtype=np.int64)
@@ -489,16 +526,21 @@ def create_hvector(count: int, blocklength: int, stride_bytes: int,
         extent = (oldtype.ub + max(0, tail_i) + max(0, tail_b)) - lb
     else:
         lb, extent = 0, 0
-    return Datatype(spans, extent, lb,
-                    oldtype.basic,
-                    f"hvector({count},{blocklength},{stride_bytes})")
+    return _env(
+        Datatype(spans, extent, lb,
+                 oldtype.basic,
+                 f"hvector({count},{blocklength},{stride_bytes})"),
+        "hvector", [count, blocklength], [stride_bytes], [oldtype])
 
 
 def create_indexed(blocklengths: Sequence[int], displacements: Sequence[int],
                    oldtype: Datatype) -> Datatype:
     """displacements in elements of oldtype (MPI_Type_indexed)."""
     disp_b = [d * oldtype.extent for d in displacements]
-    return create_hindexed(blocklengths, disp_b, oldtype)
+    return _env(create_hindexed(blocklengths, disp_b, oldtype),
+                "indexed",
+                [len(blocklengths)] + list(blocklengths)
+                + list(displacements), [], [oldtype])
 
 
 def create_hindexed(blocklengths: Sequence[int], disp_bytes: Sequence[int],
@@ -525,8 +567,11 @@ def create_hindexed(blocklengths: Sequence[int], disp_bytes: Sequence[int],
                          .max()) + oldtype.ub - lb
         else:
             lb, extent = 0, 0
-        return Datatype(spans, extent, lb,
-                        oldtype.basic, f"hindexed({len(blocklengths)})")
+        return _env(
+            Datatype(spans, extent, lb,
+                     oldtype.basic, f"hindexed({len(blocklengths)})"),
+            "hindexed", [len(blocklengths)] + list(blocklengths),
+            list(disp_bytes), [oldtype])
     parts = [
         (np.array([[disp, bl * oldtype.size]], dtype=np.int64)
          if oldtype.is_contiguous else
@@ -545,14 +590,21 @@ def create_hindexed(blocklengths: Sequence[int], disp_bytes: Sequence[int],
            for bl, d in zip(blocklengths, disp_bytes) if bl > 0]
     lb = min(lbs, default=0)
     extent = max(ubs, default=0) - lb if lbs else 0
-    return Datatype(spans, extent, lb,
-                    oldtype.basic, f"hindexed({len(blocklengths)})")
+    return _env(
+        Datatype(spans, extent, lb,
+                 oldtype.basic, f"hindexed({len(blocklengths)})"),
+        "hindexed", [len(blocklengths)] + list(blocklengths),
+        list(disp_bytes), [oldtype])
 
 
 def create_indexed_block(blocklength: int, displacements: Sequence[int],
                          oldtype: Datatype) -> Datatype:
-    return create_indexed([blocklength] * len(displacements), displacements,
-                          oldtype)
+    return _env(
+        create_indexed([blocklength] * len(displacements), displacements,
+                       oldtype),
+        "indexed_block",
+        [len(displacements), blocklength] + list(displacements), [],
+        [oldtype])
 
 
 def create_struct(blocklengths: Sequence[int], disp_bytes: Sequence[int],
@@ -593,8 +645,11 @@ def create_struct(blocklengths: Sequence[int], disp_bytes: Sequence[int],
         align = max(align, a)
     extent = max_ub - min_lb
     extent += (-extent) % align
-    return Datatype(spans, extent, min_lb, basic,
-                    f"struct({len(types)})")
+    return _env(
+        Datatype(spans, extent, min_lb, basic,
+                 f"struct({len(types)})"),
+        "struct", [len(types)] + list(blocklengths), list(disp_bytes),
+        list(types))
 
 
 def create_subarray(sizes: Sequence[int], subsizes: Sequence[int],
@@ -645,12 +700,104 @@ def create_subarray(sizes: Sequence[int], subsizes: Sequence[int],
     total = 1
     for s in sizes:
         total *= s
-    return Datatype(spans, total * oldtype.extent, 0, oldtype.basic,
-                    f"subarray{tuple(subsizes)}")
+    return _env(
+        Datatype(spans, total * oldtype.extent, 0, oldtype.basic,
+                 f"subarray{tuple(subsizes)}"),
+        "subarray", [ndim] + orig[0] + orig[1] + orig[2]
+        + [0 if order == "C" else 1], [], [oldtype])
+
+
+# HPF distribution codes (values match mpi.h / the MPI standard)
+DISTRIBUTE_BLOCK = 121
+DISTRIBUTE_CYCLIC = 122
+DISTRIBUTE_NONE = 123
+DISTRIBUTE_DFLT_DARG = -49767
+
+
+def create_darray(size: int, rank: int, gsizes: Sequence[int],
+                  distribs: Sequence[int], dargs: Sequence[int],
+                  psizes: Sequence[int], oldtype: Datatype,
+                  order: str = "C") -> Datatype:
+    """MPI_Type_create_darray (MPI-3.1 §4.1.4): this rank's share of an
+    HPF block/cyclic-distributed global array. The local global-index
+    set is computed per dimension with vectorized index arithmetic and
+    emitted directly as ascending byte spans (the constructor merges
+    abutting runs)."""
+    ndim = len(gsizes)
+    mpi_assert(len(distribs) == ndim and len(dargs) == ndim
+               and len(psizes) == ndim, MPI_ERR_ARG,
+               "darray dims mismatch")
+    orig = (list(gsizes), list(distribs), list(dargs), list(psizes))
+    # process-grid coordinates: row-major over the ORIGINAL dim order
+    # (§4.1.4 — "as in the case of virtual Cartesian process topologies")
+    procs, tmp = 1, rank
+    for p in psizes:
+        procs *= p
+    mpi_assert(procs == size, MPI_ERR_ARG,
+               f"psizes product {procs} != size {size}")
+    coords = []
+    for p in psizes:
+        procs //= p
+        coords.append(tmp // procs)
+        tmp %= procs
+    gsizes, distribs, dargs, psizes = (list(gsizes), list(distribs),
+                                       list(dargs), list(psizes))
+    if order == "F":
+        gsizes.reverse(); distribs.reverse(); dargs.reverse()
+        psizes.reverse(); coords.reverse()
+    # per-dim sorted local global indices
+    idx: List[np.ndarray] = []
+    for d in range(ndim):
+        g, p, c = gsizes[d], psizes[d], coords[d]
+        dist, darg = distribs[d], dargs[d]
+        if dist == DISTRIBUTE_NONE:
+            mpi_assert(p == 1, MPI_ERR_ARG,
+                       "DISTRIBUTE_NONE needs psize 1")
+            ii = np.arange(g, dtype=np.int64)
+        elif dist == DISTRIBUTE_BLOCK:
+            b = darg if darg != DISTRIBUTE_DFLT_DARG else -(-g // p)
+            mpi_assert(b > 0 and b * p >= g, MPI_ERR_ARG,
+                       f"block darg {b} too small for gsize {g}/np {p}")
+            ii = np.arange(b * c, min(b * c + b, g), dtype=np.int64)
+        else:   # DISTRIBUTE_CYCLIC
+            b = darg if darg != DISTRIBUTE_DFLT_DARG else 1
+            mpi_assert(b > 0, MPI_ERR_ARG, f"bad cyclic darg {b}")
+            starts_ = np.arange(c * b, g, p * b, dtype=np.int64)
+            ii = (starts_[:, None]
+                  + np.arange(b, dtype=np.int64)[None, :]).reshape(-1)
+            ii = ii[ii < g]
+        idx.append(ii)
+    # element strides, C order (innermost dim contiguous)
+    strides = [1] * ndim
+    for i in range(ndim - 2, -1, -1):
+        strides[i] = strides[i + 1] * gsizes[i + 1]
+    offs = np.zeros(1, np.int64)
+    for d in range(ndim - 1):
+        offs = (offs[:, None] + (idx[d] * strides[d])[None, :]).reshape(-1)
+    flat = (offs[:, None] + idx[ndim - 1][None, :]).reshape(-1)
+    base = flat * oldtype.extent
+    if oldtype.is_contiguous:
+        spans = np.stack([base, np.full(len(base), oldtype.size,
+                                        np.int64)], axis=1)
+    else:
+        sp = np.asarray(oldtype.spans, np.int64).reshape(-1, 2)
+        spans = np.stack(
+            [(base[:, None] + sp[None, :, 0]).reshape(-1),
+             np.tile(sp[:, 1], len(base))], axis=1)
+    total = 1
+    for g in gsizes:
+        total *= g
+    return _env(
+        Datatype(spans, total * oldtype.extent, 0, oldtype.basic,
+                 f"darray(r{rank}/{size})"),
+        "darray", [size, rank, ndim] + orig[0] + orig[1] + orig[2]
+        + orig[3] + [0 if order == "C" else 1], [], [oldtype])
 
 
 def create_resized(oldtype: Datatype, lb: int, extent: int) -> Datatype:
-    return Datatype(oldtype.spans, extent, lb, oldtype.basic,
-                    f"resized({oldtype.name})")
+    return _env(
+        Datatype(oldtype.spans, extent, lb, oldtype.basic,
+                 f"resized({oldtype.name})"),
+        "resized", [], [lb, extent], [oldtype])
 
 

@@ -1,7 +1,8 @@
 """MPI error classes the port raises (a trimmed copy of the JAX
 package's ``core/errors.py``; the numbering is the same), with the
 dynamic-process classes of ``runtime/spawn.py`` and
-``runtime/nameserv.py``. Error handlers and the ULFM lease errors belong
+``runtime/nameserv.py`` and those of the topologies (``core/topo.py``),
+the attribute caches (``core/attr.py``) and ``core/info.py``. Error handlers and the ULFM lease errors belong
 to tiers that are not ported."""
 
 from __future__ import annotations
@@ -17,12 +18,16 @@ MPI_ERR_REQUEST = 7
 MPI_ERR_ROOT = 8
 MPI_ERR_GROUP = 9
 MPI_ERR_OP = 10
+MPI_ERR_TOPOLOGY = 11
+MPI_ERR_DIMS = 12
 MPI_ERR_ARG = 13
 MPI_ERR_UNKNOWN = 14
 MPI_ERR_TRUNCATE = 15
 MPI_ERR_OTHER = 16
 MPI_ERR_INTERN = 17
+MPI_ERR_KEYVAL = 20
 MPI_ERR_PORT = 27
+MPI_ERR_INFO = 28
 MPI_ERR_NAME = 33
 MPI_ERR_SERVICE = 41
 MPI_ERR_SPAWN = 42

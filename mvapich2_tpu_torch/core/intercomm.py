@@ -246,8 +246,10 @@ class Intercomm(Comm):
     def dup(self) -> "Intercomm":
         self._check()
         ctx = self._agree_ctx()
-        return Intercomm(self.u, self.group, self.remote_group, ctx,
-                         self.local_comm.dup(), self.name + "_dup")
+        new = Intercomm(self.u, self.group, self.remote_group, ctx,
+                        self.local_comm.dup(), self.name + "_dup")
+        self.attrs.copy_all(self, new.attrs)
+        return new
 
     def split(self, color, key: int = 0) -> Optional["Intercomm"]:
         """MPI_Comm_split on an intercomm (MPI-3.1 §6.4.2): each local

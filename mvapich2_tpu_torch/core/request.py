@@ -6,8 +6,11 @@ waits funnel into the engine's ``progress_wait``, which polls and sleeps
 on the engine's doorbell, rung by any thread that delivers a packet or
 completes a request. Completion callbacks chain the protocol state
 machines (rendezvous CTS -> data -> FIN), the nonblocking-collective
-schedules (``coll/nbc``) and the persistent requests. The JAX package's
-generalized requests (``Grequest``) wait with the C ABI that uses them.
+schedules (``coll/nbc``) and the persistent requests. A generalized
+request (``Grequest``, ``grequest_start``) is completed by the
+application, from any thread: its completion rings the engine's
+doorbell, so a rank sleeping in ``wait`` or ``waitall`` on it wakes at
+once.
 """
 
 from __future__ import annotations
@@ -184,3 +187,51 @@ def testsome(requests: List[Optional[Request]]) -> List[int]:
                 raise r.error
             out.append(i)
     return out
+
+
+class Grequest(Request):
+    """Generalized request (MPI-3.1 §12.2, MPI_Grequest_start analog).
+
+    The application completes it via ``complete()``; ``query_fn(status)``
+    fills the status when the request is inspected at completion;
+    ``free_fn``/``cancel_fn`` hook teardown and cancellation."""
+
+    def __init__(self, engine, query_fn=None, free_fn=None,
+                 cancel_fn=None):
+        super().__init__(engine, "grequest")
+        self._query_fn = query_fn
+        self._free_fn = free_fn
+        self._user_cancel_fn = cancel_fn
+        if engine is not None:
+            with engine.mutex:
+                engine.track(self)
+
+    def complete(self, error=None) -> None:  # MPI_Grequest_complete
+        if self._query_fn is not None:
+            self._query_fn(self.status)
+        super().complete(error)
+
+    def cancel(self) -> None:
+        # MPI-3.1 §12.2: cancel_fn is invoked unconditionally, with
+        # complete=true when the request has already completed (the
+        # cancel then has no effect on the request's state)
+        if self.complete_flag:
+            if self._user_cancel_fn is not None:
+                self._user_cancel_fn(True)
+            return
+        if self._user_cancel_fn is not None:
+            self._user_cancel_fn(False)
+        self.cancelled = True
+        self.status.cancelled = True
+        super().complete(None)
+
+    def free(self) -> None:
+        if self._free_fn is not None:
+            self._free_fn()
+
+
+def grequest_start(query_fn=None, free_fn=None, cancel_fn=None) -> Grequest:
+    from ..runtime.universe import current_universe
+    u = current_universe()
+    return Grequest(u.engine if u is not None else None, query_fn,
+                    free_fn, cancel_fn)

@@ -22,8 +22,10 @@ ports (``Open_port``, ``Close_port``, ``Comm_accept``,
 ``Lookup_name``, ``Unpublish_name``); intercommunicators
 (``Intercomm_create``, ``Intercomm_merge``, ``core/intercomm.py``).
 ``Comm_join`` (a socket handshake between two jobs) raises
-MPI_ERR_OTHER, as the JAX package's record of it says. MPI-IO waits
-with its tier.
+MPI_ERR_OTHER, as the JAX package's record of it says. The spawn, port
+and name-service calls take ``info`` as an ``Info`` (``core/info.py``)
+or a dict. ``Grequest_start`` makes a generalized request
+(``core/request.py``). MPI-IO waits with its tier.
 """
 
 from __future__ import annotations
@@ -291,3 +293,8 @@ def Unpack(inbuf, position: int, outbuf, outcount, datatype) -> int:
 
 def Pack_size(incount: int, datatype) -> int:
     return incount * datatype.size
+
+
+def Grequest_start(query_fn=None, free_fn=None, cancel_fn=None):
+    from .core.request import grequest_start
+    return grequest_start(query_fn, free_fn, cancel_fn)

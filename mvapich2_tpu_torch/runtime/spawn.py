@@ -52,6 +52,7 @@ from ..core.datatype import INT64_T
 from ..core.errors import (MPI_ERR_OTHER, MPI_ERR_PORT, MPI_ERR_SPAWN,
                            MPI_SUCCESS, MPIException, mpi_assert)
 from ..core.group import Group
+from ..core.info import as_dict
 from ..core.intercomm import Intercomm, bcast_json, bridge_agree
 from ..core.status import ANY_SOURCE
 from .childenv import rank_env
@@ -79,11 +80,11 @@ def comm_spawn(comm: Comm, command: Union[str, Sequence[str], Callable],
 def comm_spawn_multiple(comm: Comm, cmds: Sequence[Tuple], root: int = 0,
                         info=None) -> Tuple[Intercomm, List[int]]:
     """``cmds``: (command, args, maxprocs) triples, with an optional
-    fourth item, a dict of per-command hints (``wd``, ``path``) that
-    override ``info``'s. Collective over ``comm``; ``cmds`` is
-    significant at ``root`` only (MPI-3.1 §10.3.2), but thread mode
-    reads it everywhere to tell the modes apart. Returns the parent
-    side of the spawn intercomm and one error code a child."""
+    fourth item, per-command hints (``wd``, ``path``; an Info or a dict,
+    as ``info`` is) that override ``info``'s. Collective over ``comm``;
+    ``cmds`` is significant at ``root`` only (MPI-3.1 §10.3.2), but
+    thread mode reads it everywhere to tell the modes apart. Returns the
+    parent side of the spawn intercomm and one error code a child."""
     u = comm.u
     total = sum(c[2] for c in cmds)
     if comm.rank == root:
@@ -152,13 +153,12 @@ def _spawn_procs(comm: Comm, cmds, root: int, ctx: int, total: int,
         base = kvs.add("__next_proc", total) - total
         errcodes = [MPI_SUCCESS] * total
         procs: List[subprocess.Popen] = []
-        hints = info if isinstance(info, dict) else {}
+        hints = as_dict(info)
         parents = json.dumps(list(comm.group.world_ranks))
         i = 0
         for appnum, cmd in enumerate(cmds):
             command, args, m = cmd[0], cmd[1], cmd[2]
-            cinfo = cmd[3] if len(cmd) > 3 and isinstance(cmd[3], dict) \
-                else {}
+            cinfo = as_dict(cmd[3]) if len(cmd) > 3 else {}
             wd = cinfo.get("wd") or hints.get("wd")
             argv = _resolve_program(
                 ([command] if isinstance(command, str) else list(command))

@@ -385,6 +385,58 @@ def test_ragged_v_variants(env, n):
     assert_same(j, p)
 
 
+def _gaps(buf, counts, displs):
+    """The elements of ``buf`` that no receive range covers."""
+    covered = np.zeros(len(buf), bool)
+    for c, d in zip(counts, displs):
+        covered[d:d + c] = True
+    return buf[~covered]
+
+
+SENTINEL = -12345
+
+
+@pytest.mark.parametrize("on_dup", [False, True], ids=["world", "dup"])
+@pytest.mark.parametrize("n", [2, 5, 8])
+def test_v_gaps_keep_recvbuf(env, n, on_dup):
+    """The blocking allgatherv and alltoallv write only their receive
+    ranges: a sentinel in the gaps between spread displacements (and
+    past the last range) survives on the port, in place and not, and
+    the defined ranges are bitwise the JAX results."""
+    def app(comm, lib):
+        c = comm.dup() if on_dup else comm
+        r, p = c.rank, c.size
+        counts = [(3 * k + 1) % 5 for k in range(p)]      # zeros included
+        displs = [sum(counts[:k]) + 2 * k + 1 for k in range(p)]
+        total = displs[-1] + counts[-1] + 3
+        out = []
+        rb = np.full(total, SENTINEL, np.int32)
+        c.allgatherv(np.full(counts[r], r + 10, np.int32), rb, counts,
+                     displs)
+        out.append(rb)
+        ib = np.full(total, SENTINEL, np.int32)
+        ib[displs[r]:displs[r] + counts[r]] = r + 30
+        c.allgatherv(lib.IN_PLACE, ib, counts, displs)
+        out.append(ib)
+        sc = [(r + k) % 3 for k in range(p)]
+        rc = [(k + r) % 3 for k in range(p)]
+        sd = [sum(sc[:k]) for k in range(p)]
+        rd = [sum(rc[:k]) + 2 * k for k in range(p)]
+        ab = np.full(rd[-1] + rc[-1] + 2, SENTINEL, np.float32)
+        c.alltoallv(_data(r, sum(sc)), sc, sd, ab, rc, rd)
+        out.append(ab)
+        return out, (counts, displs, rc, rd)
+
+    j, p = run_both(n, app)
+    for (jo, lay), (po, _) in zip(j, p):
+        counts, displs, rc, rd = lay
+        for k, (cnt, dsp) in enumerate(((counts, displs), (counts, displs),
+                                        (rc, rd))):
+            assert_same(_defined(jo[k], cnt, dsp), _defined(po[k], cnt, dsp))
+            gaps = _gaps(po[k], cnt, dsp)
+            assert gaps.size and np.all(gaps == SENTINEL), (k, po[k])
+
+
 @pytest.mark.parametrize("algo", ["", "two_level", "rsa_arena",
                                   "two_level_slotted"])
 def test_two_level_fake_nodes(env, algo):

@@ -61,6 +61,14 @@ def test_dynamic_process_modules_are_scanned():
         assert rel in scanned, rel
 
 
+def test_topology_attribute_info_modules_are_scanned():
+    """The topology, attribute-cache and Info modules are among the files
+    the import scan reads."""
+    scanned = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for rel in ("core/topo.py", "core/attr.py", "core/info.py"):
+        assert rel in scanned, rel
+
+
 def test_scanner_matches_module_names_exactly(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import mvapich2_tpu_torch\nfrom mvapich2_tpu_torch.ops "
