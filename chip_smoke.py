@@ -330,6 +330,29 @@ non-zero, printing no result, without them. Phases:
    on free; a Grequest completed from another thread waking waitall.
    ``to_host`` fails throughout; each kernel count is zeroed just
    before its calls and read just after.
+22. win_io (after topo): one-sided host windows and MPI-IO on 8 rank
+   threads bound to cuda:0. Each rank allreduces a 64 MiB f32 tensor
+   on the card (K1 once, bitwise its plain version), copies its eighth
+   of the result to the host itself, writes it by write_at_all at
+   offset r x 8 MiB to a ufs file opened with MODE_DELETE_ON_CLOSE in a
+   temporary directory (64 MiB through two-phase collective buffering)
+   and reads the next rank's eighth back by read_at_all, bitwise; a
+   write_ordered of a 4 KiB record a rank and a read_shared drain of a
+   second file (every record read once, the shared pointer ending at
+   32 KiB). Then host windows: win_allocate of 8 MiB a rank with one
+   fence epoch (a 1 MiB put into the right neighbour, a 1 MiB get from
+   the left, a 1 MiB int32 SUM accumulate into rank 0), a PSCW ring, a
+   dynamic window with attach/detach and win_allocate_shared, each
+   equal to the script's numpy model; 500 x (lock, fetch_and_op, unlock)
+   a rank on rank 0 (the counter ends at 4000, the fetched values are
+   0..3999); ranks 0-6 lock/put/unlock on rank 7 while it sleeps 0.5 s
+   outside MPI (every unlock returns before it wakes); rank 0 -> 1
+   lock(SHARED)/put/unlock latency at 8 B and 1 MiB (the shape of
+   osu_put_latency, host clock); a tensor on the card refused as a
+   win_create buffer, a put origin and a File.write_at buffer on every
+   rank (NotImplementedError) with no launch. ``to_host`` fails
+   throughout; the kernel counts are zeroed just before each counted
+   part and read just after.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Any failure raises. ``--sweep`` runs
@@ -347,6 +370,7 @@ import collections
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -7107,6 +7131,329 @@ def phase_topo(torch, np, mvt, hbm, ici, ring, a2a, smi, dev):
             "run_s": run_s, "phase_s": total}
 
 
+WIO_RECORD = 4096                  # bytes of a write_ordered record
+WIO_WIN = 8 * 1024 * 1024          # bytes of a rank's win_allocate window
+WIO_OP = 1024 * 1024               # bytes of a fence put, get, accumulate
+WIO_PSCW = 4096                    # bytes of a PSCW put
+WIO_SHARED = 64 * 1024             # bytes of a rank's shared segment
+WIO_COUNTER = 500                  # lock/fetch_and_op/unlock a rank
+WIO_SLEEP = 0.5                    # s the passive target sleeps
+WIO_LAT_SIZES = (8, 1024 * 1024)   # bytes of the put-latency loops
+WIO_LAT_WARM = 10                  # untimed iterations before the timed
+WIO_LAT_ITERS = 100
+
+
+def _wio_bytes(np, seed, nbytes):
+    return np.random.default_rng(seed).integers(0, 256, nbytes,
+                                                dtype=np.uint8)
+
+
+def phase_win_io(torch, np, mvt, hbm, ici, ring, a2a, smi, dev):
+    """One-sided host windows and MPI-IO on 8 rank threads bound to
+    cuda:0 (module docstring, phase 22). Returns its figures."""
+    from mvapich2_tpu_torch import io as mio
+    from mvapich2_tpu_torch.coll import device as coll_dev
+    from mvapich2_tpu_torch.core import comm as comm_mod
+    from mvapich2_tpu_torch.core import op as opmod
+    from mvapich2_tpu_torch.io import file as file_mod
+    from mvapich2_tpu_torch.rma import win as win_mod
+    t_phase = time.perf_counter()
+    mods = (hbm, ici, ring, a2a)
+    k1 = "fused_reduce_to_slot"
+    card_dev = dev if dev.type == "cuda" else torch.device("meta")
+    eighth = N // R                        # f32 elements a rank writes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3200)
+    data = [torch.randint(-8, 8, (N,), generator=gen, device=dev,
+                          dtype=torch.int32).float() for _ in range(R)]
+    plain = sum(data)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    # the numpy models of the window epochs
+    puts = [_wio_bytes(np, SEED + 3300 + r, WIO_OP) for r in range(R)]
+    gets = [_wio_bytes(np, SEED + 3400 + r, WIO_OP) for r in range(R)]
+    accs = [np.random.default_rng(SEED + 3500 + r).integers(
+        -1000, 1000, WIO_OP // 4).astype(np.int32) for r in range(R)]
+    acc_want = np.sum(accs, axis=0, dtype=np.int32)
+    pscw = [_wio_bytes(np, SEED + 3600 + r, WIO_PSCW) for r in range(R)]
+    shared = [_wio_bytes(np, SEED + 3700 + r, WIO_SHARED) for r in range(R)]
+    tmp = tempfile.mkdtemp(prefix="mv2t-win-io-")
+    path, ptr_path = (os.path.join(tmp, "main.bin"),
+                      os.path.join(tmp, "records.bin"))
+    card_launches = {}
+
+    def counted(comm, key, fn):
+        """``fn()`` with the kernel counts zeroed just before it on every
+        rank and read by rank 0 just after."""
+        comm.barrier()
+        if comm.rank == 0:
+            _zero(*mods)
+        comm.barrier()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.current_stream().synchronize()
+        comm.barrier()
+        if comm.rank == 0:
+            card_launches[key] = {k: v for k, v in _launches(*mods).items()
+                                  if v}
+        return out
+
+    def app(world):
+        r = world.rank
+        left, right = (r - 1) % R, (r + 1) % R
+        wall = {}
+
+        def clock(comm, key, fn):
+            """``fn()`` between two barriers, on the host clock."""
+            comm.barrier()
+            t0 = time.perf_counter()
+            out = fn()
+            comm.barrier()
+            wall[key] = time.perf_counter() - t0
+            return out
+
+        # (a) the main path, then its result to a file and back
+        out = counted(world, "allreduce", lambda: world.allreduce(data[r]))
+        _exact(torch, f"[win_io] 64 MiB allreduce, rank {r}", out, plain)
+        # the phase's own copies: this rank's eighth, and the next one's
+        # for the check
+        mine = out[r * eighth:(r + 1) * eighth].cpu().numpy()
+        nxt = out[right * eighth:(right + 1) * eighth].cpu().numpy()
+        f = mio.file_open(world, path, mio.MODE_RDWR | mio.MODE_CREATE
+                          | mio.MODE_DELETE_ON_CLOSE)
+        nbytes = eighth * 4
+        st = counted(world, "write_at_all", lambda: clock(
+            world, "write", lambda: f.write_at_all(r * nbytes, mine)))
+        back = np.empty(eighth, np.float32)
+        st2 = counted(world, "read_at_all", lambda: clock(
+            world, "read", lambda: f.read_at_all(right * nbytes, back)))
+        if (st.count, st2.count) != (nbytes, nbytes) or \
+                back.tobytes() != nxt.tobytes():
+            raise AssertionError(f"[win_io] rank {r}: write_at_all/"
+                                 f"read_at_all {st.count} {st2.count}, "
+                                 f"read back differs: "
+                                 f"{back.tobytes() != nxt.tobytes()}")
+        size = f.get_size()
+        # (b) ordered records, then a shared-pointer drain
+        g = mio.file_open(world, ptr_path, mio.MODE_RDWR | mio.MODE_CREATE
+                          | mio.MODE_DELETE_ON_CLOSE)
+        g.write_ordered(np.full(WIO_RECORD // 4, r, np.int32))
+        g.sync()
+        world.barrier()
+        g.seek_shared(0)
+        rec, seen = np.empty(WIO_RECORD // 4, np.int32), []
+        while g.read_shared(rec).count:
+            if (rec != rec[0]).any():
+                raise AssertionError(f"[win_io] rank {r}: a torn record")
+            seen.append(int(rec[0]))
+        world.barrier()
+        end = g.get_position_shared()
+        records = world.allgather(np.array(seen + [-1] * (R - len(seen)),
+                                           np.int64), count=R)
+        if sorted(x for x in records.tolist() if x >= 0) != list(range(R)) \
+                or end != R * WIO_RECORD:
+            raise AssertionError(f"[win_io] rank {r}: records {records}, "
+                                 f"shared pointer {end}")
+        g.close()
+
+        # (c) host windows: one fence epoch, PSCW, dynamic, shared
+        w = world.win_allocate(WIO_WIN)
+        w.base[2 * WIO_OP:3 * WIO_OP] = gets[r]
+        got = np.empty(WIO_OP, np.uint8)
+
+        def epoch():
+            w.fence()
+            w.put(puts[r], right, 0)
+            w.get(got, left, 2 * WIO_OP)
+            w.accumulate(accs[r], 0, 4 * WIO_OP, op=opmod.SUM)
+            w.fence()
+        counted(world, "fence_epoch", lambda: clock(world, "fence", epoch))
+        if w.base[:WIO_OP].tobytes() != puts[left].tobytes() or \
+                got.tobytes() != gets[left].tobytes() or (
+                    r == 0 and w.base[4 * WIO_OP:5 * WIO_OP].view(np.int32)
+                    .tobytes() != acc_want.tobytes()):
+            raise AssertionError(f"[win_io] rank {r}: the fence epoch "
+                                 f"differs from the numpy model")
+        w.post(world.group.incl([left]))
+        w.start(world.group.incl([right]))
+        w.put(pscw[r], right, 6 * WIO_OP)
+        w.complete()
+        w.wait()
+        if w.base[6 * WIO_OP:6 * WIO_OP + WIO_PSCW].tobytes() != \
+                pscw[left].tobytes():
+            raise AssertionError(f"[win_io] rank {r}: the PSCW ring")
+        dyn = world.win_create_dynamic()
+        region = np.zeros(WIO_PSCW, np.uint8)
+        addr = dyn.attach(region)
+        addrs = world.allgather(np.array([addr], np.int64), count=1)
+        dyn.fence()
+        dyn.put(pscw[r], right, int(addrs[right]))
+        dyn.fence()
+        dyn.detach(addr)
+        dyn.free()
+        if region.tobytes() != pscw[left].tobytes():
+            raise AssertionError(f"[win_io] rank {r}: the dynamic window")
+        sh = world.win_allocate_shared(WIO_SHARED)
+        sh.base[:] = shared[r]
+        world.barrier()
+        view, vsize, _ = sh.shared_query(right)
+        ok = vsize == WIO_SHARED and view.tobytes() == shared[right].tobytes()
+        del view
+        world.barrier()
+        sh.free()
+        if not ok:
+            raise AssertionError(f"[win_io] rank {r}: shared_query view")
+
+        # (d) passive target: a counter, then a target that sleeps
+        cw = world.win_allocate(8 if r == 0 else 0)
+        olds = np.empty(WIO_COUNTER, np.int64)
+        one = np.ones(1, np.int64)
+
+        def counter():
+            for i in range(WIO_COUNTER):
+                cw.lock(0, win_mod.LOCK_EXCLUSIVE)
+                cw.fetch_and_op(one, olds[i:i + 1], 0, 0, op=opmod.SUM)
+                cw.unlock(0)
+        clock(world, "counter", counter)
+        every = np.sort(world.allgather(olds, count=WIO_COUNTER))
+        total = int(cw.base.view(np.int64)[0]) if r == 0 else R * WIO_COUNTER
+        if total != R * WIO_COUNTER or \
+                every.tobytes() != np.arange(R * WIO_COUNTER).tobytes():
+            raise AssertionError(f"[win_io] rank {r}: counter {total}")
+        cw.free()
+        took = 0.0
+        world.barrier()
+        if r == R - 1:
+            time.sleep(WIO_SLEEP)
+        else:
+            t0 = time.perf_counter()
+            w.lock(R - 1, win_mod.LOCK_EXCLUSIVE)
+            w.put(np.full(8, r + 1, np.uint8), R - 1, 7 * WIO_OP + 8 * r)
+            w.unlock(R - 1)
+            took = time.perf_counter() - t0
+        world.barrier()
+        if r == R - 1 and w.base[7 * WIO_OP:7 * WIO_OP + 8 * (R - 1)] \
+                .tobytes() != np.repeat(np.arange(1, R, dtype=np.uint8),
+                                        8).tobytes():
+            raise AssertionError("[win_io] the sleeping target's window")
+        if took >= WIO_SLEEP:
+            raise AssertionError(f"[win_io] rank {r}: unlock on the "
+                                 f"sleeping target took {took:.3f} s")
+
+        # (e) put latency rank 0 -> 1, osu_put_latency's shape
+        lat = {}
+        for nb in WIO_LAT_SIZES:
+            src = np.zeros(nb, np.uint8)
+            world.barrier()
+            if r == 0:
+                ts = []             # (lock, put, unlock) splits
+                for i in range(WIO_LAT_WARM + WIO_LAT_ITERS):
+                    t0 = time.perf_counter()
+                    w.lock(1, win_mod.LOCK_SHARED)
+                    t1 = time.perf_counter()
+                    w.put(src, 1, 0)
+                    t2 = time.perf_counter()
+                    w.unlock(1)
+                    ts.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+                lat[nb] = [[x * 1e6 for x in part]
+                           for part in zip(*ts[WIO_LAT_WARM:])]
+            world.barrier()
+
+        # (f) a tensor on the card: refused everywhere, no launch
+        card = torch.ones(WIO_OP // 4, device=card_dev)
+        msgs = []
+
+        def refusals():
+            def refuse(what, call):
+                try:
+                    call()
+                except NotImplementedError as e:
+                    msgs.append(str(e))
+                    return
+                raise AssertionError(f"[win_io] rank {r}: {what} took a "
+                                     f"tensor on the card")
+            refuse("win_create", lambda: world.win_create(card))
+            w.lock(right, win_mod.LOCK_SHARED)
+            refuse("put", lambda: w.put(card, right, 0))
+            w.unlock(right)
+            refuse("File.write_at", lambda: f.write_at(0, card))
+        counted(world, "refusals", refusals)
+        if len(msgs) != 3 or not all("not moved to the host" in m
+                                     for m in msgs):
+            raise AssertionError(f"[win_io] rank {r}: refusals {msgs}")
+        w.free()
+        f.close()
+        return wall, size, took, lat, msgs[0]
+
+    host_mods = (coll_dev, comm_mod, win_mod, file_mod)
+    real_host = [m.to_host for m in host_mods]
+
+    def no_copy(x):
+        raise AssertionError("[win_io] a tensor on the card was copied to "
+                             "the host")
+    _zero(*mods)
+    t0 = time.perf_counter()
+    for m in host_mods:
+        m.to_host = no_copy
+    try:
+        res = mvt.run_ranks(R, app, device=dev)
+    finally:
+        for m, real in zip(host_mods, real_host):
+            m.to_host = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    run_s = time.perf_counter() - t0
+    want = {"allreduce": {k1: 1}, "write_at_all": {}, "read_at_all": {},
+            "fence_epoch": {}, "refusals": {}}
+    if card_launches != want:
+        raise AssertionError(f"[win_io] launches {card_launches}, expected "
+                             f"{want}")
+    if os.path.exists(tmp):
+        raise AssertionError(f"[win_io] {tmp} was not removed")
+    wall, size, _, lat, msg = res[0]
+    if size != R * eighth * 4:
+        raise AssertionError(f"[win_io] file size {size}")
+    mb = R * eighth * 4 / 1e6
+    took_max = max(x[2] for x in res)
+    whole = {nb: [sum(x) for x in zip(*parts)] for nb, parts in lat.items()}
+    put_us = {nb: statistics.median(v) for nb, v in whole.items()}
+    put_mean = {nb: statistics.fmean(v) for nb, v in whole.items()}
+    # the median of each part: lock, put, unlock
+    split_us = {nb: [statistics.median(p) for p in parts]
+                for nb, parts in lat.items()}
+    fop_rate = R * WIO_COUNTER / wall["counter"]
+    log(f"[win_io] 64 MiB f32 allreduce on the slot channel (K1 once, "
+        f"bitwise), each rank's eighth to a ufs file by write_at_all "
+        f"({mb / wall['write']:.1f} MB/s, {wall['write'] * 1e3:.1f} ms for "
+        f"{mb:.1f} MB, host clock) and the next rank's eighth back by "
+        f"read_at_all ({mb / wall['read']:.1f} MB/s, "
+        f"{wall['read'] * 1e3:.1f} ms), bitwise; {R} write_ordered records "
+        f"of {WIO_RECORD} B read once each by a read_shared drain")
+    log(f"[win_io] fence epoch ({R} x 1 MiB put, get and int32 SUM "
+        f"accumulate into rank 0) {wall['fence'] * 1e3:.1f} ms, PSCW ring, "
+        f"dynamic and shared windows equal to their numpy models; "
+        f"{R} x {WIO_COUNTER} lock/fetch_and_op/unlock on rank 0: "
+        f"{fop_rate:.0f} ops/s; unlocks on the sleeping rank {R - 1} "
+        f"returned in {took_max * 1e3:.2f} ms at most (it slept "
+        f"{WIO_SLEEP} s); lock(SHARED)/put/unlock 0 -> 1 median "
+        + ", ".join(f"{nb} B {put_us[nb]:.1f} us (mean {put_mean[nb]:.1f}; "
+                    f"lock {split_us[nb][0]:.1f}, put {split_us[nb][1]:.1f}, "
+                    f"unlock {split_us[nb][2]:.1f})" for nb in WIO_LAT_SIZES)
+        + f" (host clock, {WIO_LAT_ITERS} after {WIO_LAT_WARM}); a tensor "
+        f"on the card refused by win_create, put and File.write_at on all "
+        f"{R} ranks with no launch ({msg[:80]}...); {run_s:.1f} s on {smi}")
+    total = time.perf_counter() - t_phase
+    log(f"[win_io] phase {total:.1f} s")
+    return {"write_mb_s": mb / wall["write"], "read_mb_s": mb / wall["read"],
+            "write_ms": wall["write"] * 1e3, "read_ms": wall["read"] * 1e3,
+            "fence_epoch_ms": wall["fence"] * 1e3,
+            "fetch_and_op_per_s": fop_rate,
+            "sleeping_target_unlock_ms_max": took_max * 1e3,
+            "put_latency_us_median": {str(k): v for k, v in put_us.items()},
+            "put_latency_us_mean": {str(k): v for k, v in put_mean.items()},
+            "put_latency_split_us": {str(k): dict(zip(
+                ("lock", "put", "unlock"), v)) for k, v in split_us.items()},
+            "launches": card_launches, "run_s": run_s, "phase_s": total}
+
+
 def _zombie(pid):
     try:
         with open(f"/proc/{pid}/stat") as f:
@@ -7260,6 +7607,8 @@ def main(argv=None):
                                  smi, dev)
     extra["topo"] = phase_topo(torch, np, mvt, hbm, ici, ring, alltoall, smi,
                                dev)
+    extra["win_io"] = phase_win_io(torch, np, mvt, hbm, ici, ring,
+                                   alltoall, smi, dev)
     extra["trace"] = phase_trace(torch, np, mvt, mpit, cfg, smi, inputs, dev)
     moe_art["breakdown"] = phase_moe_profile(torch, moe, moe_art, dev)
     extra["osu_rma_breakdown"] = phase_rma_profile(torch, osu_rma, dev)

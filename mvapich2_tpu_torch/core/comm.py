@@ -53,8 +53,11 @@ Intercommunicators (``core/intercomm.py`` ``Intercomm``) subclass Comm
 and override its seams: ``world_of`` and ``_check_rank`` (point-to-point
 ranks name the remote group), ``_check_root`` (MPI_ROOT and
 MPI_PROC_NULL) and ``_coll`` (the intercomm algorithms of
-``coll/inter.py``); ``is_inter`` tells the two apart. One-sided host
-windows and the ULFM calls wait with their tiers.
+``coll/inter.py``); ``is_inter`` tells the two apart. The one-sided
+host windows' constructors (``win_create``, ``win_allocate``,
+``win_allocate_shared``, ``win_create_dynamic``) are ``rma/win.py``'s;
+a window buffer follows the rule above (a CPU tensor in place, a tensor
+on the card refused). The ULFM calls wait with their tier.
 """
 
 from __future__ import annotations
@@ -1097,6 +1100,23 @@ class Comm:
                                  recvcounts, rdispls, datatype)
 
     # ------------------------------------------------------------------
+    # -- one-sided host windows (rma/win.py) -------------------------------
+    def win_create(self, buf, disp_unit: int = 1):
+        from ..rma import win as _rw
+        return _rw.win_create(self, buf, disp_unit)
+
+    def win_allocate(self, size: int, disp_unit: int = 1):
+        from ..rma import win as _rw
+        return _rw.win_allocate(self, size, disp_unit)
+
+    def win_allocate_shared(self, size: int, disp_unit: int = 1):
+        from ..rma import win as _rw
+        return _rw.win_allocate_shared(self, size, disp_unit)
+
+    def win_create_dynamic(self):
+        from ..rma import win as _rw
+        return _rw.win_create_dynamic(self)
+
     def set_name(self, name: str) -> None:
         self.name = name
 

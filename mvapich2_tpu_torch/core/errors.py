@@ -1,9 +1,11 @@
 """MPI error classes the port raises (a trimmed copy of the JAX
 package's ``core/errors.py``; the numbering is the same), with the
 dynamic-process classes of ``runtime/spawn.py`` and
-``runtime/nameserv.py`` and those of the topologies (``core/topo.py``),
-the attribute caches (``core/attr.py``) and ``core/info.py``. Error handlers and the ULFM lease errors belong
-to tiers that are not ported."""
+``runtime/nameserv.py``, those of the topologies (``core/topo.py``),
+the attribute caches (``core/attr.py``) and ``core/info.py``, and those
+of the host windows (``rma/win.py``) and MPI-IO (``io/``). Error
+handlers and the ULFM lease errors belong to tiers that are not
+ported."""
 
 from __future__ import annotations
 
@@ -28,9 +30,17 @@ MPI_ERR_INTERN = 17
 MPI_ERR_KEYVAL = 20
 MPI_ERR_PORT = 27
 MPI_ERR_INFO = 28
+MPI_ERR_FILE = 30
+MPI_ERR_IO = 32
 MPI_ERR_NAME = 33
+MPI_ERR_NO_SUCH_FILE = 37
+MPI_ERR_AMODE = 38
+MPI_ERR_READ_ONLY = 40
 MPI_ERR_SERVICE = 41
 MPI_ERR_SPAWN = 42
+MPI_ERR_UNSUPPORTED_DATAREP = 43
+MPI_ERR_WIN = 45
+MPI_ERR_RMA_SYNC = 50
 # ULFM extension class: a peer rank failed while this rank depended on it
 MPIX_ERR_PROC_FAILED = 75
 

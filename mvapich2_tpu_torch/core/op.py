@@ -3,7 +3,8 @@
 ``fn(a, b)`` reduces two numpy arrays: the host algorithms fold with
 it. The device channels map SUM, PROD, MAX and MIN to their own
 reductions by identity (``coll/device.py`` ``_op_name``); every other op,
-and every user op, takes the host tier.
+and every user op, takes the host tier. REPLACE and NO_OP are the host
+windows' accumulate ops (``rma/win.py``).
 """
 
 from __future__ import annotations
@@ -62,6 +63,8 @@ BOR = Op(np.bitwise_or, "MPI_BOR")
 BXOR = Op(np.bitwise_xor, "MPI_BXOR")
 MINLOC = Op(_minloc, "MPI_MINLOC")
 MAXLOC = Op(_maxloc, "MPI_MAXLOC")
+REPLACE = Op(lambda a, b: a, "MPI_REPLACE", False)   # RMA accumulate
+NO_OP = Op(lambda a, b: b, "MPI_NO_OP", False)       # RMA get_accumulate
 
 
 def create_op(fn: Callable, commute: bool = True, name: str = "user_op") -> Op:

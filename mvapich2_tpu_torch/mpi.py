@@ -25,7 +25,8 @@ ports (``Open_port``, ``Close_port``, ``Comm_accept``,
 MPI_ERR_OTHER, as the JAX package's record of it says. The spawn, port
 and name-service calls take ``info`` as an ``Info`` (``core/info.py``)
 or a dict. ``Grequest_start`` makes a generalized request
-(``core/request.py``). MPI-IO waits with its tier.
+(``core/request.py``). ``File_open`` and ``File_delete`` are MPI-IO's
+(``io/``).
 """
 
 from __future__ import annotations
@@ -298,3 +299,15 @@ def Pack_size(incount: int, datatype) -> int:
 def Grequest_start(query_fn=None, free_fn=None, cancel_fn=None):
     from .core.request import grequest_start
     return grequest_start(query_fn, free_fn, cancel_fn)
+
+
+def File_open(comm, filename: str, amode: int = None, info=None):
+    from . import io as _io
+    if amode is None:
+        amode = _io.MODE_RDONLY
+    return _io.file_open(comm, filename, amode, info)
+
+
+def File_delete(filename: str, info=None) -> None:
+    from . import io as _io
+    _io.file_delete(filename, info)

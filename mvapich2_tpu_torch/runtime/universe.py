@@ -35,6 +35,10 @@ or a mesh made on the CPU), or the harness raises. A process-mode rank
 binds no device channel: its COMM_WORLD is host-only, as in the JAX
 package.
 
+A universe also holds its rank's host windows (``windows``, by id) and
+the hub of their packet handlers (``_rma_manager``, ``rma/win.py``),
+made with the first window.
+
 ``current_universe()`` is the calling thread's universe (a rank thread's,
 set by ``run_ranks`` and ``launch_vpod``), else the process-wide one
 (``mpi.Init`` in process mode).
@@ -156,6 +160,10 @@ class Universe:
         self.kvs = None           # the job's KVS client (process mode)
         self.shm_channel = None   # the node's shared-memory channel
         self.comms_by_ctx: Dict[int, Comm] = {}
+        # host windows (rma/win.py): win_id -> Win, and the packet
+        # handlers' hub, made with the first window
+        self.windows: Dict[int, object] = {}
+        self._rma_manager = None
         self._ctx_mask = None   # lazily sized (ctx_mask())
         self._ctx_lock = threading.Lock()
         self._ctx_holder = None   # key of the agreement holding the mask

@@ -14,8 +14,10 @@ rendezvous state machines. Channels of the port:
 The two process channels put a packet on the wire with the JAX
 package's codec (``encode_packet`` / ``decode_packet``, byte for byte
 the same blob), and the progress engine polls them
-(``transport/progress.py``). The packet types of the tiers that wait
-(the one-sided host windows, ULFM revoke) are not ported.
+(``transport/progress.py``). The one-sided host windows' packets
+(``RMA_*``, ``rma/win.py``) carry their target datatype and op in
+``extra``, which the codec pickles, so they cross TCP and shared memory
+unchanged. The packet types of ULFM revoke wait with that tier.
 """
 
 from __future__ import annotations
@@ -38,6 +40,24 @@ class PktType(enum.IntEnum):
     RNDV_FIN = 5           # transfer complete
     RNDV_APUB = 6          # pipelined arena rendezvous: chunks published
     RNDV_AACK = 7          # pipelined arena rendezvous: chunks consumed
+    # one-sided host windows (rma/win.py)
+    RMA_PUT = 10
+    RMA_GET = 11
+    RMA_GET_RESP = 12
+    RMA_ACC = 13
+    RMA_GET_ACC = 14
+    RMA_GET_ACC_RESP = 15
+    RMA_CAS = 16
+    RMA_CAS_RESP = 17
+    RMA_FOP = 18
+    RMA_FOP_RESP = 19
+    RMA_LOCK = 20
+    RMA_LOCK_GRANTED = 21
+    RMA_UNLOCK = 22
+    RMA_FLUSH = 23
+    RMA_FLUSH_ACK = 24
+    RMA_PSCW_POST = 25
+    RMA_PSCW_COMPLETE = 26
     CANCEL_SEND_REQ = 33   # retract an unmatched send
     CANCEL_SEND_RESP = 34
 

@@ -28,9 +28,23 @@ The idle wait takes one of two forms:
   (``pre_wait``) and after the wait that it woke (``post_wait``).
 
 Either way futile passes back off from 0.5 ms to 8 ms, as the JAX
-engine's do. The JAX engine's asynchronous packet types (passive-target
-host windows), liveness leases, stall watchdog and lock-order monitor
-belong to tiers that are not ported.
+engine's do.
+
+Asynchronous packet types (``register_handler(..., asynchronous=True)``:
+the host windows' packets, ``rma/win.py``) make progress while the
+target rank computes outside MPI: delivering one drains the inbox inline
+from the delivering thread (``_async_drain``), under the target's mutex
+(an ``RLock``, so a reply that loops back to the deliverer's own engine
+re-enters it). When another thread holds the mutex the drain rings that
+holder's doorbell (``wakeup``) and retries until the inbox is empty, as
+the JAX engine does, except from inside a packet handler: a handler
+sends only replies (a get's data, a grant, an ack) to a rank that waits
+for them in ``progress_wait``, so there it rings and returns. Two ranks
+whose handlers answer each other at once therefore never wait on each
+other's mutex. An error raised by a handler on that path is logged and
+the drain goes on (``swallow_errors``): it must not unwind into the
+sender's call. The JAX engine's liveness leases, stall watchdog and
+lock-order monitor belong to tiers that are not ported.
 
 Pvar: ``progress_polls`` (poll passes, every rank of the process).
 """
@@ -38,6 +52,7 @@ Pvar: ``progress_polls`` (poll passes, every rank of the process).
 from __future__ import annotations
 
 import collections
+import logging
 import os
 import select
 import threading
@@ -48,6 +63,12 @@ from .. import mpit
 from ..core.errors import MPI_ERR_INTERN, MPIException
 from ..core.request import Request
 from .base import Channel, Packet, PktType
+
+log = logging.getLogger("mvapich2_tpu_torch.transport.progress")
+
+# the packet-handler depth of the calling thread (_dispatch): a drain
+# started from inside a handler never waits for another thread's mutex
+_HANDLER = threading.local()
 
 # the longest a waiter sleeps between two passes while a device segment
 # is parked on its schedule (seconds)
@@ -103,6 +124,10 @@ class ProgressEngine:
         self.bell = Doorbell()
         # pkt type -> handler(pkt); populated by the protocol layer
         self.pkt_handlers: Dict[int, Callable[[Packet], None]] = {}
+        # packet types that progress while the rank is idle (delivery
+        # drains the inbox inline: _async_drain)
+        self.async_types: set = set()
+        self.shutdown = False
         # req_id -> Request, for CTS/FIN/RESP lookup
         self.outstanding: Dict[int, Request] = {}
         # registered progress hooks (the nonblocking-collective scheduler)
@@ -131,8 +156,11 @@ class ProgressEngine:
             if self._wake_r is None:
                 self._wake_r, self._wake_w = os.pipe2(os.O_NONBLOCK)
 
-    def register_handler(self, ptype: PktType, fn: Callable) -> None:
+    def register_handler(self, ptype: PktType, fn: Callable,
+                         asynchronous: bool = False) -> None:
         self.pkt_handlers[int(ptype)] = fn
+        if asynchronous:
+            self.async_types.add(int(ptype))
 
     def register_hook(self, fn: Callable[[], bool]) -> None:
         """Register a progress hook, run (mutex held) at the end of every
@@ -146,6 +174,30 @@ class ProgressEngine:
         with self._inbox_lock:
             self._inbox.append(pkt)
         self.bell.ring()
+        if int(pkt.type) in self.async_types:
+            self._async_drain()
+
+    def _async_drain(self) -> None:
+        """Drain the inbox from the delivering thread, in order, until it
+        is seen empty. A bare try-lock would strand a packet when the
+        mutex holder has already passed its own drain check, so a failed
+        try rings the holder's doorbell and tries again, unless this
+        thread is inside a packet handler (see the module docstring)."""
+        in_handler = getattr(_HANDLER, "depth", 0) > 0
+        while not self.shutdown:
+            with self._inbox_lock:
+                if not self._inbox:
+                    return
+            if self.mutex.acquire(blocking=False):
+                try:
+                    self._drain_inbox(swallow_errors=True)
+                finally:
+                    self.mutex.release()
+                continue    # an append may have raced the drain
+            self.wakeup()
+            if in_handler:
+                return
+            time.sleep(0.0001)
 
     def wakeup(self) -> None:
         self.bell.ring()
@@ -172,16 +224,29 @@ class ProgressEngine:
         if fn is None:
             raise MPIException(MPI_ERR_INTERN,
                                f"no handler for packet {pkt.type.name}")
-        fn(pkt)
+        _HANDLER.depth = getattr(_HANDLER, "depth", 0) + 1
+        try:
+            fn(pkt)
+        finally:
+            _HANDLER.depth -= 1
 
-    def _drain_inbox(self) -> int:
+    def _drain_inbox(self, swallow_errors: bool = False) -> int:
+        """``swallow_errors`` is set on the asynchronous path: a handler's
+        error there would unwind into the sender's call and abandon the
+        rest of the inbox, so it is logged and the drain goes on."""
         n = 0
         while True:
             with self._inbox_lock:
                 if not self._inbox:
                     break
                 pkt = self._inbox.popleft()
-            self._dispatch(pkt)
+            try:
+                self._dispatch(pkt)
+            except Exception:
+                if not swallow_errors:
+                    raise
+                log.error("async handler for %s failed", pkt.type,
+                          exc_info=True)
             n += 1
         return n
 
@@ -297,6 +362,7 @@ class ProgressEngine:
         return did
 
     def close(self) -> None:
+        self.shutdown = True
         for ch in self.channels:
             ch.close()
         self.wakeup()

@@ -69,6 +69,14 @@ def test_topology_attribute_info_modules_are_scanned():
         assert rel in scanned, rel
 
 
+def test_window_and_io_modules_are_scanned():
+    """The host-window and MPI-IO modules are among the files the import
+    scan reads."""
+    scanned = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for rel in ("rma/win.py", "io/adio.py", "io/view.py", "io/file.py"):
+        assert rel in scanned, rel
+
+
 def test_scanner_matches_module_names_exactly(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import mvapich2_tpu_torch\nfrom mvapich2_tpu_torch.ops "

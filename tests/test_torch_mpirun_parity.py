@@ -26,6 +26,16 @@ pipelined rendezvous in 16 KiB chunks: 64 KiB spans four) and
 ``MV2T_USE_CMA=0 MV2T_ARENA_BYTES=4096`` (the file rung): equal
 digests and equal ``pt2pt_*``, ``rndv_*`` and ``arena_allocs`` deltas.
 
+A one-sided and MPI-IO program (``RMA_IO_PROG``) runs under both
+packages with ``-np 4 --fake-nodes 0,0,1,1``, so window packets cross
+both TCP and shared memory: lock/put/unlock into every rank's
+``win_allocate`` window, a ``fetch_and_op`` counter on rank 0, a fence
+accumulate, ``win_allocate_shared`` on ``split_type_shared`` (each rank
+reads its node neighbour's store), and a ``ufs`` file under the job's
+output directory written by ``write_at_all`` and ``write_shared`` and
+read back by ``read_at_all``: the digests must be equal, the JAX job on
+its Python ring as above (its direct window path is off there).
+
 A second program (numpy, above the host-to-device crossover) runs under
 ``mpirun --vpod -np 4`` of both packages, the port's under
 ``MV2T_VPOD_REAL=0``: the digests must be equal.
@@ -205,6 +215,114 @@ def test_vpod_job_equals_jax(tmp_path):
     ref = _job("mvapich2_tpu", args, VPOD_PROG, tmp_path, {})
     assert port == ref
     assert len(port[0]) == 6
+
+
+RMA_IO_PROG = '''
+import hashlib
+import importlib
+import json
+import os
+import sys
+
+import numpy as np
+
+pkg, outdir = sys.argv[1], sys.argv[2]
+mpi = importlib.import_module(pkg + ".mpi")
+rma = importlib.import_module(pkg + ".rma.win")
+io = importlib.import_module(pkg + ".io")
+
+mpi.Init()
+c = mpi.COMM_WORLD
+r, n = c.rank, c.size
+rng = np.random.default_rng(4321 + r)
+out = {}
+
+
+def dig(name, a):
+    out[name] = hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def ints(k, dt):
+    return rng.integers(-50, 50, k).astype(dt)
+
+
+# lock/put/unlock into every rank's window, a slot a rank
+win = c.win_allocate(8 * 16 * n, disp_unit=8)
+for t in range(n):
+    win.lock(t, rma.LOCK_EXCLUSIVE)
+    win.put(ints(16, np.int64), t, 16 * r)
+    win.unlock(t)
+c.barrier()
+dig("lock_put", win.base.view(np.int64))
+# a fetch_and_op counter on rank 0
+cnt = c.win_allocate(8 if r == 0 else 0, disp_unit=8)
+olds = np.zeros(25, np.int64)
+for i in range(25):
+    cnt.lock(0, rma.LOCK_EXCLUSIVE)
+    cnt.fetch_and_op(np.array([1], np.int64), olds[i:i + 1], 0, 0,
+                     op=mpi.SUM)
+    cnt.unlock(0)
+dig("fetched", np.sort(c.allgather(olds, count=25)))
+c.barrier()
+dig("counter", cnt.base.view(np.int64))
+# a fence accumulate into rank 0, then a get of it
+acc = c.win_allocate(8 * 64, disp_unit=8)
+acc.fence()
+acc.accumulate(ints(64, np.int64), 0, 0, op=mpi.SUM)
+acc.fence()
+got = np.zeros(64, np.int64)
+acc.get(got, 0, 0)
+acc.fence()
+dig("fence_acc", got)
+# a shared window on the node's comm
+node = c.split_type_shared()
+sh = node.win_allocate_shared(8 * 32, disp_unit=8)
+sh.base.view(np.int64)[:] = ints(32, np.int64)
+node.barrier()
+pbuf, psize, punit = sh.shared_query((node.rank + 1) % node.size)
+dig("shared", pbuf.view(np.int64))
+out["shared_geom"] = [int(psize), int(punit), node.size]
+node.barrier()
+sh.free()
+node.free()
+# a ufs file: two-phase write and read, then shared-pointer records
+name = os.path.join(outdir, "file.bin")
+f = io.file_open(c, name, io.MODE_RDWR | io.MODE_CREATE)
+st = f.write_at_all(r * 4096, ints(1024, np.int32))
+back = np.zeros(1024, np.int32)
+st2 = f.read_at_all(((r + 1) % n) * 4096, back)
+dig("read_at_all", back)
+out["counts"] = [st.count, st2.count]
+f.seek_shared(n * 4096)
+f.write_shared(np.full(64, r, np.int32))
+f.sync()
+c.barrier()
+if r == 0:
+    raw = np.zeros(n * 1024 + n * 64, np.int32)
+    f.read_at(0, raw)
+    dig("file_blocks", raw[:n * 1024])
+    dig("file_records", np.sort(raw[n * 1024:].reshape(n, 64)[:, 0]))
+out["size"] = f.get_size()
+f.close()
+for w in (win, cnt, acc):
+    w.free()
+with open("%s/rank%d.json" % (outdir, r), "w") as fh:
+    json.dump({"digests": out}, fh, sort_keys=True)
+mpi.Finalize()
+'''
+
+
+def test_rma_io_job_equals_jax(tmp_path):
+    """Host windows and MPI-IO under mpirun: packets over TCP and shared
+    memory, one shared segment a node, one ufs file; equal digests."""
+    args = ["-np", "4", "--fake-nodes", "0,0,1,1"]
+    jax_env = dict(JAX_ENV,
+                   MV2T_SHMRING_SO=str(tmp_path / "no-such-libshmring.so"))
+    port = _job("mvapich2_tpu_torch", args, RMA_IO_PROG, tmp_path, {})
+    ref = _job("mvapich2_tpu", args, RMA_IO_PROG, tmp_path, jax_env)
+    assert port == ref
+    assert port[0]["digests"]["shared_geom"] == [256, 8, 2]
+    assert port[0]["digests"]["counts"] == [4096, 4096]
 
 
 RUNG_PROG = '''
